@@ -1,0 +1,117 @@
+"""MST slice classifier: per-slice ViT encoder + slice fusion + head.
+
+Counterpart of `mst_tpu/models/mst.py` `DinoSliceClassifier` for the
+configurations the port serves: a DINOv2 ViT (learned pos-embed, optional
+register tokens, MLP FFN), transformer slice fusion without rotary,
+optional bottleneck and slice position embedding. The module holds the
+parameters under the flax names; its forward is the fused serving path
+(`models/vit_fast.fused_mst_logits`). Every other configuration raises
+`NotImplementedError` naming the ROADMAP item that brings it.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from mst_tpu_torch.models.layers import Dense, LayerNorm
+from mst_tpu_torch.models.slice_fusion import TransformerEncoderLayer
+from mst_tpu_torch.models.vit import _VIT_CONFIGS, VisionTransformer
+from mst_tpu_torch.models.vit_fast import fused_mst_logits
+
+MAX_SLICES = 256  # slice-position vocabulary (reference `dino.py:81-82`)
+
+
+class _Embed(nn.Module):
+    """flax `nn.Embed` parameter: embedding [vocab, dim]."""
+
+    def __init__(self, vocab: int, dim: int):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.zeros(vocab, dim))
+
+
+def _unsupported(what: str, item: str):
+    raise NotImplementedError(
+        f"{what} is not ported to mst_tpu_torch yet (ROADMAP queue A {item})")
+
+
+class DinoSliceClassifier(nn.Module):
+    """MST-DINOv2 classifier. `dtype` is the compute dtype of the serving
+    forward (bf16 on the card); parameters stay f32."""
+
+    def __init__(self, out_ch: int = 2, model_size: str = "small",
+                 patch_size: int = 14, num_register_tokens: int = 0,
+                 slice_fusion: str = "transformer", fusion_layers: int = 1,
+                 fusion_heads: int = 12, rotary: Optional[str] = None,
+                 use_bottleneck: bool = False, use_rope_2d: bool = False,
+                 use_slice_pos_emb: bool = False,
+                 pos_embed_grid: int = 37, use_pos_embed: bool = True,
+                 norm_eps: float = 1e-6, ffn_layer: Optional[str] = None,
+                 ffn_hidden: Optional[int] = None,
+                 layerscale_init: Optional[float] = 1e-5,
+                 gelu_approximate: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if model_size not in _VIT_CONFIGS:
+            raise ValueError(f"unknown model_size {model_size!r}")
+        base = _VIT_CONFIGS[model_size]
+        if use_rope_2d or not use_pos_embed:
+            _unsupported("DINOv3 (2D RoPE, no learned pos-embed)", "#7")
+        if (ffn_layer or base.get("ffn_layer", "mlp")) != "mlp":
+            _unsupported("the SwiGLU FFN (giant2)", "#12")
+        if slice_fusion != "transformer":
+            _unsupported(f"slice_fusion={slice_fusion!r}", "#9")
+        if rotary is not None:
+            _unsupported(f"rotary={rotary!r} slice fusion", "#9")
+        if fusion_layers < 1:
+            raise ValueError("transformer slice fusion needs fusion_layers >= 1")
+        # only what the forward and `random_flax_params` read is kept; the
+        # checks above are the one gate of the fused serving path
+        self.model_size = model_size
+        self.patch_size = patch_size
+        self.num_register_tokens = num_register_tokens
+        self.fusion_layers = fusion_layers
+        self.use_bottleneck = use_bottleneck
+        self.use_slice_pos_emb = use_slice_pos_emb
+        self.pos_embed_grid = pos_embed_grid
+        self.norm_eps = norm_eps
+        self.layerscale_init = layerscale_init
+        self.gelu_approximate = gelu_approximate
+        self.dtype = dtype
+
+        self.encoder = VisionTransformer(
+            embed_dim=base["embed_dim"], depth=base["depth"],
+            num_heads=base["num_heads"], patch_size=patch_size,
+            num_register_tokens=num_register_tokens, ffn_hidden=ffn_hidden,
+            layerscale_init=layerscale_init, pos_embed_grid=pos_embed_grid,
+            norm_eps=norm_eps, gelu_approximate=gelu_approximate)
+        emb = base["embed_dim"]
+        if use_bottleneck:
+            self.bottleneck = Dense(emb, emb // 4)
+            emb //= 4
+        self.emb_ch = emb
+        if use_slice_pos_emb:
+            self.slice_pos_emb = _Embed(MAX_SLICES, emb)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, emb))
+        for i in range(fusion_layers):
+            self.add_module(f"fusion_{i}", TransformerEncoderLayer(
+                emb, fusion_heads, emb))
+        self.fusion_norm = LayerNorm(emb, 1e-5)
+        self.head = Dense(emb, out_ch)
+
+    def fusion(self, i: int) -> TransformerEncoderLayer:
+        return getattr(self, f"fusion_{i}")
+
+    def forward(self, source, src_key_padding_mask=None):
+        """source [B, C, D, H, W] -> logits [B, out_ch] (f32)."""
+        return fused_mst_logits(self, source, src_key_padding_mask)
+
+
+def dino_v2_classifier_slice(**kw) -> DinoSliceClassifier:
+    """Reference `DinoV2ClassifierSlice` defaults (`dino.py:33-51`)."""
+    kw.setdefault("model_size", "small")
+    kw.setdefault("patch_size", 14)
+    kw.setdefault("slice_fusion", "transformer")
+    return DinoSliceClassifier(**kw)

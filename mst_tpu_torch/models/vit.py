@@ -1,0 +1,109 @@
+"""DINOv2-style Vision Transformer parameters and pos-embed resampling.
+
+Counterpart of `mst_tpu/models/vit.py`: the size table, the bicubic
+position-embedding interpolation (built from explicit numpy weight
+matrices, so the reference's 0.1-offset scale factor stays exact), and the
+encoder module holding the parameters under the flax names. The forward is
+`models/vit_fast.fused_vit_cls`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from mst_tpu_torch.models.layers import Block, LayerNorm, PatchEmbed
+
+_VIT_CONFIGS = {
+    "tiny": dict(embed_dim=32, depth=2, num_heads=2),  # tests only
+    "tiny128": dict(embed_dim=128, depth=2, num_heads=2),  # tests only
+    "small": dict(embed_dim=384, depth=12, num_heads=6),
+    "base": dict(embed_dim=768, depth=12, num_heads=12),
+    "large": dict(embed_dim=1024, depth=24, num_heads=16),
+    "giant2": dict(embed_dim=1536, depth=40, num_heads=24, ffn_layer="swiglu"),
+}
+
+
+def _cubic_weights(out_size: int, in_size: int, scale: float) -> np.ndarray:
+    """Dense [out, in] interpolation matrix replicating torch's bicubic
+    (`F.interpolate(mode='bicubic', align_corners=False, antialias=False)`,
+    cubic convolution with a = -0.75, edge-clamped)."""
+    a = -0.75
+
+    def k(t):
+        t = np.abs(t)
+        return np.where(
+            t <= 1,
+            (a + 2) * t**3 - (a + 3) * t**2 + 1,
+            np.where(t < 2, a * t**3 - 5 * a * t**2 + 8 * a * t - 4 * a, 0.0),
+        )
+
+    w = np.zeros((out_size, in_size), np.float64)
+    offs = np.array([-1, 0, 1, 2])
+    for i in range(out_size):
+        src = (i + 0.5) / scale - 0.5
+        i0 = int(np.floor(src))
+        for o, wt in zip(offs, k(src - i0 - offs)):
+            w[i, int(np.clip(i0 + o, 0, in_size - 1))] += wt
+    return w.astype(np.float32)
+
+
+def interpolate_pos_embed(pos_embed: torch.Tensor, grid_hw, src_grid,
+                          interpolate_offset: float = 0.1) -> torch.Tensor:
+    """Bicubic-resample patch position embeddings [1, 1 + sh*sw, dim] (CLS
+    first) to the grid `grid_hw`, with the reference's
+    `interpolate_offset=0.1` scale-factor kludge."""
+    sh, sw = src_grid
+    h, w = grid_hw
+    if (h, w) == (sh, sw):
+        return pos_embed
+    if interpolate_offset:
+        sy = float(h + interpolate_offset) / sh
+        sx = float(w + interpolate_offset) / sw
+    else:
+        sy, sx = h / sh, w / sw
+    dev = pos_embed.device
+    wy = torch.from_numpy(_cubic_weights(h, sh, sy)).to(dev)
+    wx = torch.from_numpy(_cubic_weights(w, sw, sx)).to(dev)
+    cls_pe, patch_pe = pos_embed[:, :1], pos_embed[:, 1:]
+    dim = patch_pe.shape[-1]
+    grid = patch_pe.reshape(sh, sw, dim).float()
+    grid = torch.einsum("hH,HWd,wW->hwd", wy, grid, wx)
+    grid = grid.reshape(1, h * w, dim).to(pos_embed.dtype)
+    return torch.cat([cls_pe, grid], dim=1)
+
+
+class VisionTransformer(nn.Module):
+    """ViT encoder parameters: patch_embed, cls_token, pos_embed,
+    [register_tokens], blocks_0..blocks_{depth-1}, norm."""
+
+    def __init__(self, embed_dim: int = 384, depth: int = 12,
+                 num_heads: int = 6, patch_size: int = 14,
+                 mlp_ratio: float = 4.0, num_register_tokens: int = 0,
+                 ffn_hidden: Optional[int] = None,
+                 layerscale_init: Optional[float] = 1e-5,
+                 pos_embed_grid: int = 37, norm_eps: float = 1e-6,
+                 gelu_approximate: bool = True):
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.depth = depth
+        self.num_heads = num_heads
+        self.patch_embed = PatchEmbed(patch_size, embed_dim)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
+        self.pos_embed = nn.Parameter(
+            torch.zeros(1, 1 + pos_embed_grid**2, embed_dim))
+        if num_register_tokens:
+            self.register_tokens = nn.Parameter(
+                torch.zeros(1, num_register_tokens, embed_dim))
+        hidden = ffn_hidden or int(embed_dim * mlp_ratio)
+        for i in range(depth):
+            self.add_module(f"blocks_{i}", Block(
+                embed_dim, num_heads, hidden, layerscale_init=layerscale_init,
+                norm_eps=norm_eps, gelu_approximate=gelu_approximate))
+        self.norm = LayerNorm(embed_dim, norm_eps)
+
+    def block(self, i: int) -> Block:
+        return getattr(self, f"blocks_{i}")

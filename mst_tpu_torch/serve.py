@@ -1,0 +1,301 @@
+"""Online inference serving: dynamic batching over the port's predict fn.
+
+Counterpart of `mst_tpu/serve.py` (`BatchingPredictor`, `serve_http`) and
+of `scripts/main_serve.py` (`main`), ported rather than imported because
+importing `mst_tpu` pulls in JAX. Run as
+
+    python -m mst_tpu_torch.serve [--init_seed 0 | --params_npz PATH] \
+        [--batch_size 8] [--max_wait_ms 5] [--host 127.0.0.1] [--port 8760] \
+        [--dtype bfloat16]
+
+It serves MST-DINOv2 ViT-S/14 on the CUDA card.
+
+API:  POST /predict  (np.save bytes of a [C, D, H, W] float volume)
+          -> {"probs": [...], "pred": argmax}
+      GET  /healthz  -> {"ok": true, "model": ..., "volumes_served": N}
+
+A collector thread drains up to `batch_size` queued volumes (waiting at
+most `max_wait_ms` after the first), pads the tail batch by repeating the
+first volume so every launch has one shape, and drops the padded rows.
+"""
+
+from __future__ import annotations
+
+import argparse
+import io
+import json
+import logging
+import queue
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+
+import numpy as np
+import torch
+
+log = logging.getLogger(__name__)
+
+
+class _Pending:
+    __slots__ = ("event", "result", "error", "abandoned")
+
+    def __init__(self):
+        self.event = threading.Event()
+        self.result = None
+        self.error = None
+        self.abandoned = False  # submitter timed out; don't burn device time
+
+
+class BatchingPredictor:
+    """Dynamic batching: blocking `submit(volume)` from any thread; a
+    collector coalesces requests into one fixed-shape device batch.
+
+    predict_fn: `train.predictor.make_predict_fn(...)` callable —
+    (source [B, C, D, H, W], mask | None) -> (probs, None)."""
+
+    def __init__(self, predict_fn, batch_size: int = 8,
+                 max_wait_ms: float = 5.0):
+        self._predict = predict_fn
+        self.batch_size = int(batch_size)
+        self.max_wait_s = float(max_wait_ms) / 1e3
+        self._q: queue.Queue = queue.Queue()
+        self._closed = False
+        self._submit_lock = threading.Lock()  # orders submits vs close()
+        self.batches_run = 0
+        self.volumes_served = 0
+        self._worker = threading.Thread(target=self._run, daemon=True,
+                                        name="mst-serve-batcher")
+        self._worker.start()
+
+    def submit(self, volume: np.ndarray, timeout: Optional[float] = None
+               ) -> np.ndarray:
+        """volume [C, D, H, W] -> probs [n_classes] (blocks until served)."""
+        if volume.ndim != 4:
+            raise ValueError(f"expected a [C, D, H, W] volume, got shape "
+                             f"{tuple(volume.shape)}")
+        p = _Pending()
+        # closed-check and enqueue under one lock: a submit racing close()
+        # must not land behind the shutdown sentinel
+        with self._submit_lock:
+            if self._closed:
+                raise RuntimeError("predictor is closed")
+            self._q.put((np.asarray(volume, np.float32), p))
+        if not p.event.wait(timeout):
+            p.abandoned = True  # the collector drops it instead of serving it
+            raise TimeoutError("predict timed out")
+        if p.error is not None:
+            raise p.error
+        return p.result
+
+    def close(self):
+        with self._submit_lock:
+            self._closed = True
+            self._q.put(None)
+        self._worker.join(timeout=10)
+
+    def _collect(self):
+        item = self._q.get()
+        if item is None:
+            return None
+        batch = [item]
+        deadline = time.monotonic() + self.max_wait_s
+        while len(batch) < self.batch_size:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                break
+            try:
+                nxt = self._q.get(timeout=remaining)
+            except queue.Empty:
+                break
+            if nxt is None:
+                self._q.put(None)  # re-post the sentinel for shutdown
+                break
+            batch.append(nxt)
+        return batch
+
+    def _run(self):
+        while True:
+            batch = self._collect()
+            if batch is None:
+                return
+            batch = [b for b in batch if not b[1].abandoned]
+            if not batch:
+                continue
+            vols = [b[0] for b in batch]
+            pend = [b[1] for b in batch]
+            try:
+                n = len(vols)
+                if n < self.batch_size:  # pad to the one batch shape
+                    vols = vols + [vols[0]] * (self.batch_size - n)
+                probs, _ = self._predict(np.stack(vols), None)
+                if isinstance(probs, torch.Tensor):
+                    probs = probs.float().cpu().numpy()
+                probs = np.asarray(probs)
+                self.batches_run += 1
+                self.volumes_served += n
+                for i, p in enumerate(pend):
+                    p.result = probs[i]
+                    p.event.set()
+            except Exception as e:  # surface to every waiter, keep serving
+                log.exception("batch of %d failed", len(pend))
+                for p in pend:
+                    p.error = e
+                    p.event.set()
+
+
+def serve_http(predictor: BatchingPredictor, host: str = "127.0.0.1",
+               port: int = 8760, info: Optional[dict] = None
+               ) -> ThreadingHTTPServer:
+    """Start (and return) a threading HTTP server wrapping `predictor`.
+    `port=0` binds an ephemeral port (`server.server_address[1]`). Stop it
+    with `.shutdown()`, `.server_close()` and `predictor.close()`."""
+    srv_info = dict(info or {})
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, fmt, *args):  # route through logging
+            log.debug("http: " + fmt, *args)
+
+        def _json(self, code: int, obj):
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                self._json(200, {"ok": True, **srv_info,
+                                 "volumes_served": predictor.volumes_served,
+                                 "batches_run": predictor.batches_run})
+            else:
+                self._json(404, {"error": "unknown path"})
+
+        def do_POST(self):
+            if self.path != "/predict":
+                self._json(404, {"error": "unknown path"})
+                return
+            try:
+                length = int(self.headers.get("Content-Length", 0))
+                vol = np.load(io.BytesIO(self.rfile.read(length)),
+                              allow_pickle=False)
+            except Exception as e:  # malformed body -> caller's fault
+                self._json(400, {"error": f"{type(e).__name__}: {e}"})
+                return
+            try:
+                probs = predictor.submit(vol)
+                self._json(200, {"probs": [float(x) for x in probs],
+                                 "pred": int(np.argmax(probs))})
+            except ValueError as e:  # shape validation -> caller's fault
+                self._json(400, {"error": f"{type(e).__name__}: {e}"})
+            except Exception as e:  # device / shutdown faults are ours: 5xx
+                log.error("predict failed: %s: %s", type(e).__name__, e)
+                self._json(503 if isinstance(e, (RuntimeError, TimeoutError))
+                           else 500,
+                           {"error": f"{type(e).__name__}: {e}"})
+
+    server = ThreadingHTTPServer((host, port), Handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True,
+                              name="mst-serve-http")
+    thread.start()
+    log.info("serving on http://%s:%d (batch %d)", host,
+             server.server_address[1], predictor.batch_size)
+    return server
+
+
+_LATER = {
+    "run_folder": "run folders and checkpoints are ROADMAP queue A #14",
+    "exported": "exported artifacts are ROADMAP queue A #14",
+    "int8": "int8 serving is ROADMAP queue A #11",
+    "num_devices": "multi-GPU serving is ROADMAP queue A #13",
+}
+
+
+MODEL = "DinoV2ClassifierSlice"  # ViT-S/14, the flagship the port serves
+
+
+def load_weights(model, args):
+    """Load --params_npz (a flat '/'-keyed .npz of the flax parameter tree)
+    or seeded random weights (--init_seed) into `model`; returns it."""
+    from mst_tpu_torch.models.convert import params_from_flax, random_flax_params
+
+    if args.params_npz:
+        with np.load(args.params_npz, allow_pickle=False) as z:
+            flat = {k: z[k] for k in z.files}
+    else:
+        flat = random_flax_params(model, args.init_seed)
+    return params_from_flax(model, flat)
+
+
+def build_model(args):
+    """-> MODEL on the CUDA card, in --dtype, with its weights loaded."""
+    from mst_tpu_torch.registry import get_model
+
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    model = load_weights(get_model(MODEL, dtype=dtype), args)
+    return model.to(torch.device("cuda")).eval()
+
+
+def build_server(args, model):
+    """-> (server, predictor) serving `model`; split from main() for
+    in-process use."""
+    from mst_tpu_torch.train.predictor import make_predict_fn
+
+    predictor = BatchingPredictor(make_predict_fn(model),
+                                  batch_size=args.batch_size,
+                                  max_wait_ms=args.max_wait_ms)
+    device = next(model.parameters()).device
+    server = serve_http(predictor, host=args.host, port=args.port,
+                        info={"model": MODEL, "device": str(device),
+                              "batch_size": args.batch_size,
+                              "dtype": args.dtype})
+    return server, predictor
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(prog="python -m mst_tpu_torch.serve")
+    src = ap.add_mutually_exclusive_group()
+    src.add_argument("--params_npz", default=None,
+                     help="flat '/'-keyed .npz of the flax parameter tree")
+    src.add_argument("--init_seed", type=int, default=0,
+                     help="seeded random weights (default when no npz)")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8760)
+    ap.add_argument("--batch_size", type=int, default=8,
+                    help="device batch: requests coalesce up to this many "
+                         "per launch (tails padded)")
+    ap.add_argument("--max_wait_ms", type=float, default=5.0,
+                    help="max time the batcher waits for co-riders after "
+                         "the first queued request")
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=["float32", "bfloat16"])
+    ap.add_argument("--run_folder", default=None)
+    ap.add_argument("--exported", default=None)
+    ap.add_argument("--int8", action="store_true")
+    ap.add_argument("--num_devices", type=int, default=1)
+    args = ap.parse_args(argv)
+    for flag, why in _LATER.items():
+        val = getattr(args, flag)
+        if val and not (flag == "num_devices" and val == 1):
+            ap.error(f"--{flag}: not ported to mst_tpu_torch yet ({why})")
+    return args
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    args = parse_args(argv)
+    server, predictor = build_server(args, build_model(args))
+    log.info("ready — POST /predict, GET /healthz; Ctrl-C to stop")
+    try:
+        threading.Event().wait()  # serve until interrupted
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.shutdown()
+        server.server_close()
+        predictor.close()
+
+
+if __name__ == "__main__":
+    main()
