@@ -1,12 +1,19 @@
 // gemm_residual: out[M, N] = x[M, N] + ls[N] * (a[M, K] @ W[K, N] + b[N]),
 // bf16 in and out, epilogue in f32.
 //
-// Replaces the second half of two Pallas kernels in
+// Replaces the second half of four Pallas kernels in
 // mst_tpu/ops/fused_block.py: the output projection + LayerScale + residual
-// of `_attn_any_kernel` (K = E) and the fc2 + LayerScale + residual of
-// `_mlp_kernel` (K = 4E). As in the Pallas bodies the product accumulates in
-// f32, bias and LayerScale apply in f32, the residual is added to the f32
-// value of x, and the sum is cast to bf16 once.
+// of `_attn_any_kernel` / `_attn_train_kernel` (K = E) and the fc2 +
+// LayerScale + residual of `_mlp_kernel` / `_mlp_train_kernel` (K = 4E). As
+// in the Pallas bodies the product accumulates in f32, bias and LayerScale
+// apply in f32, the residual is added to the f32 value of x, and the sum is
+// cast to bf16 once.
+//
+// gemm_dls (the same main loop, another epilogue) is the LayerScale step of
+// the two backward kernels `_attn_bwd_kernel` / `_mlp_bwd_kernel`: it
+// recomputes z = a @ W + b in f32, writes gz = bf16(g * ls), and sums
+// g * z over each block's 64 rows into a partial row of dls, which
+// `sum_partials_kernel` then adds up over the row blocks in a fixed order.
 //
 // Bound on the H100: at the ViT-S path shapes (M = 65,792, N = 384,
 // K = 384 or 1536) the product is 19-78 GFLOP against 100-250 MB, compute
@@ -35,11 +42,15 @@ constexpr size_t PIPE_BYTES = 2 * (A_STAGE + B_STAGE) * sizeof(bf16);
 constexpr size_t C_BYTES = size_t(BM) * LDC * sizeof(float);
 constexpr size_t SMEM_BYTES = PIPE_BYTES > C_BYTES ? PIPE_BYTES : C_BYTES;
 
+// DLS = false: out = x + ls * (a @ w + bias) (serving and train forward).
+// DLS = true: x is the upstream gradient g; out = bf16(g * ls) and
+// dls_part[blockIdx.y][n] = sum over the block's rows of g * (a @ w + bias).
+template <bool DLS>
 __global__ void __launch_bounds__(THREADS)
 gemm_residual_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
                      const float* __restrict__ bias, const float* __restrict__ ls,
-                     const bf16* __restrict__ x, bf16* __restrict__ out, int M,
-                     int K, int N) {
+                     const bf16* __restrict__ x, bf16* __restrict__ out,
+                     float* __restrict__ dls_part, int M, int K, int N) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* As = reinterpret_cast<bf16*>(smem);  // [2][BM][LDA]
   bf16* Bs = As + 2 * A_STAGE;               // [2][BK][LDB]
@@ -116,17 +127,35 @@ gemm_residual_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
     const int r = g / (BN / 8);
     const int c = (g % (BN / 8)) * 8;
     const int m = m0 + r;
-    if (m >= M) continue;
+    if (m >= M) {
+      if (DLS) {
+        for (int e = 0; e < 8; ++e) Cs[r * LDC + c + e] = 0.0f;
+      }
+      continue;
+    }
     const size_t off = size_t(m) * N + n0 + c;
     float xv[8], v[8];
     unpack8_bf16(*reinterpret_cast<const uint4*>(x + off), xv);
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       float y = Cs[r * LDC + c + e] + bias[n0 + c + e];
-      if (ls != nullptr) y *= ls[n0 + c + e];
-      v[e] = xv[e] + y;
+      if (DLS) {
+        Cs[r * LDC + c + e] = xv[e] * y;
+        v[e] = xv[e] * ls[n0 + c + e];
+      } else {
+        if (ls != nullptr) y *= ls[n0 + c + e];
+        v[e] = xv[e] + y;
+      }
     }
     *reinterpret_cast<uint4*>(out + off) = pack8_bf16(v);
+  }
+  if (DLS) {
+    __syncthreads();
+    if (tid < BN) {
+      float s = 0.0f;
+      for (int r = 0; r < BM; ++r) s += Cs[r * LDC + tid];
+      dls_part[size_t(blockIdx.y) * N + n0 + tid] = s;
+    }
   }
 }
 
@@ -142,12 +171,38 @@ extern "C" int mst_gemm_residual(const void* a, const void* w, const void* bias,
   using namespace mst;
   if (M <= 0 || K % BK != 0 || N % BN != 0 || (M + BM - 1) / BM > 65535)
     return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(gemm_residual_kernel, SMEM_BYTES);
+  cudaError_t err = allow_smem(gemm_residual_kernel<false>, SMEM_BYTES);
   if (err != cudaSuccess) return err;
   dim3 grid(N / BN, (M + BM - 1) / BM);
-  gemm_residual_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+  gemm_residual_kernel<false><<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(a), static_cast<const bf16*>(w),
       static_cast<const float*>(bias), static_cast<const float*>(ls),
-      static_cast<const bf16*>(x), static_cast<bf16*>(out), M, K, N);
+      static_cast<const bf16*>(x), static_cast<bf16*>(out), nullptr, M, K, N);
   return cudaGetLastError();
+}
+
+// a [M, K] bf16, w [K, N] bf16, bias [N] f32, ls [N] f32, g [M, N] bf16 ->
+// gz [M, N] bf16 = g * ls and dls [N] f32 = sum_m g * (a @ w + bias).
+// work: ceil(M / 64) * N f32 (the per-row-block partials). Needs K % 32 == 0
+// and N % 128 == 0.
+extern "C" int mst_gemm_dls(const void* a, const void* w, const void* bias,
+                            const void* ls, const void* g, void* gz, void* work,
+                            void* dls, int M, int K, int N, void* stream) {
+  using namespace mst;
+  if (M <= 0 || K % BK != 0 || N % BN != 0 || (M + BM - 1) / BM > 65535)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = allow_smem(gemm_residual_kernel<true>, SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  const int row_blocks = (M + BM - 1) / BM;
+  dim3 grid(N / BN, row_blocks);
+  gemm_residual_kernel<true><<<grid, THREADS, SMEM_BYTES, st>>>(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(w),
+      static_cast<const float*>(bias), static_cast<const float*>(ls),
+      static_cast<const bf16*>(g), static_cast<bf16*>(gz),
+      static_cast<float*>(work), M, K, N);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return sum_partials(static_cast<const float*>(work), static_cast<float*>(dls),
+                      row_blocks, N, st);
 }

@@ -1,11 +1,20 @@
 // ln_gemm: out[M, N] = act(LN(x)[M, K] @ W[K, N] + b[N]), bf16 in and out.
 //
-// Replaces the first half of two Pallas kernels in
+// Replaces the first half of four Pallas kernels in
 // mst_tpu/ops/fused_block.py: the LN + qkv projection of `_attn_any_kernel`
-// (act = none) and the LN + fc1 + GELU of `_mlp_kernel` (act = gelu tanh or
-// exact erf). Rounding follows the Pallas bodies: LN statistics and the
-// normalised row in f32, the row cast to bf16 before the product, f32
-// accumulation, bias and activation in f32, one cast to bf16 at the end.
+// and `_attn_train_kernel` (act = none) and the LN + fc1 + GELU of
+// `_mlp_kernel` and `_mlp_train_kernel` (act = gelu tanh or exact erf).
+// Rounding follows the Pallas bodies: LN statistics and the normalised row
+// in f32, the row cast to bf16 before the product, f32 accumulation, bias
+// and activation in f32, one cast to bf16 at the end (serving).
+//
+// Train mode (two optional outputs, NULL when serving): `h_out` [M, K]
+// receives the normalised bf16 row the product used, which the backward
+// needs for dW (the blocks of the first column tile write it from shared
+// memory, so it costs one store and no recompute); with `out2` [M, N] set,
+// `out` receives the pre-activation rounded to bf16 and `out2` the GELU of
+// that ROUNDED value, as `_mlp_train_kernel` computes it (the serving body
+// takes the GELU of the f32 value).
 //
 // Bound on the H100: at the ViT-S path shapes (M = 65,792 tokens, K = 384,
 // N = 1152 or 1536) the product is ~58-78 GFLOP against ~130-250 MB of
@@ -43,8 +52,9 @@ __host__ __device__ inline size_t smem_bytes(int K) {
 __global__ void __launch_bounds__(THREADS)
 ln_gemm_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
                const float* __restrict__ ln_b, const bf16* __restrict__ w,
-               const float* __restrict__ bias, bf16* __restrict__ out, int M,
-               int K, int N, float eps, int act) {
+               const float* __restrict__ bias, bf16* __restrict__ out,
+               bf16* __restrict__ h_out, bf16* __restrict__ out2, int M, int K,
+               int N, float eps, int act) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int lda = K + 8;
   bf16* As = reinterpret_cast<bf16*>(smem);                      // [BM][lda]
@@ -99,6 +109,14 @@ ln_gemm_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
     }
   }
   __syncthreads();
+  if (h_out != nullptr && blockIdx.x == 0) {
+    for (int c = tid; c < BM * (K / 8); c += THREADS) {
+      const int r = c / (K / 8), col = (c % (K / 8)) * 8;
+      if (m0 + r < M)
+        *reinterpret_cast<uint4*>(h_out + size_t(m0 + r) * K + col) =
+            *reinterpret_cast<const uint4*>(As + r * lda + col);
+    }
+  }
 
   const int wm = warp >> 2;  // 0..1
   const int wn = warp & 3;   // 0..3
@@ -147,9 +165,21 @@ ln_gemm_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
     const int m = m0 + r;
     if (m >= M) continue;
     float v[8];
+    const size_t off = size_t(m) * N + n0 + c;
+    if (out2 == nullptr) {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = apply_act(Cs[r * LDC + c + e] + bias[n0 + c + e], act);
-    *reinterpret_cast<uint4*>(out + size_t(m) * N + n0 + c) = pack8_bf16(v);
+      for (int e = 0; e < 8; ++e) v[e] = apply_act(Cs[r * LDC + c + e] + bias[n0 + c + e], act);
+      *reinterpret_cast<uint4*>(out + off) = pack8_bf16(v);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = Cs[r * LDC + c + e] + bias[n0 + c + e];
+      const uint4 pre = pack8_bf16(v);
+      *reinterpret_cast<uint4*>(out + off) = pre;
+      unpack8_bf16(pre, v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = apply_act(v[e], act);
+      *reinterpret_cast<uint4*>(out2 + off) = pack8_bf16(v);
+    }
   }
 }
 
@@ -157,11 +187,13 @@ ln_gemm_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
 }  // namespace mst
 
 // x [M, K] bf16, ln_s / ln_b [K] f32, w [K, N] bf16 (row-major, the flax
-// Dense layout), bias [N] f32 -> out [M, N] bf16. Needs K % 32 == 0,
-// K <= 1536 and N % 128 == 0 (checked by the Python wrapper as well).
+// Dense layout), bias [N] f32 -> out [M, N] bf16; h_out [M, K] and out2
+// [M, N] bf16 or NULL (train mode, above). Needs K % 32 == 0, K <= 1536 and
+// N % 128 == 0 (checked by the Python wrapper as well).
 extern "C" int mst_ln_gemm(const void* x, const void* ln_s, const void* ln_b,
-                           const void* w, const void* bias, void* out, int M,
-                           int K, int N, float eps, int act, void* stream) {
+                           const void* w, const void* bias, void* out,
+                           void* h_out, void* out2, int M, int K, int N,
+                           float eps, int act, void* stream) {
   using namespace mst;
   if (M <= 0 || K % BK != 0 || K > 1536 || N % BN != 0 || (M + BM - 1) / BM > 65535)
     return cudaErrorInvalidValue;
@@ -172,7 +204,8 @@ extern "C" int mst_ln_gemm(const void* x, const void* ln_s, const void* ln_b,
   ln_gemm_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
       static_cast<const float*>(ln_b), static_cast<const bf16*>(w),
-      static_cast<const float*>(bias), static_cast<bf16*>(out), M, K, N, eps, act);
+      static_cast<const float*>(bias), static_cast<bf16*>(out),
+      static_cast<bf16*>(h_out), static_cast<bf16*>(out2), M, K, N, eps, act);
   return cudaGetLastError();
 }
 

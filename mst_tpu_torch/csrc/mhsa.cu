@@ -2,12 +2,17 @@
 // qkv [N*S, 3E] bf16 (columns [q | k | v], head h at h*64 inside each)
 // -> o [N*S, E] bf16 (head h at columns h*64).
 //
-// Replaces the attention core of `_attn_any_kernel` / `_mhsa` in
-// mst_tpu/ops/fused_block.py (plain flags). Same math and the same rounding
+// Replaces the attention core of `_attn_any_kernel` (plain flags) and of
+// `_attn_train_kernel` / `_mhsa(want_lse=True)` in
+// mst_tpu/ops/fused_block.py. Same math and the same rounding
 // points as the Pallas body: s = q.k^T * (log2(e) / sqrt(hd)) in f32,
 // p = exp2(s - rowmax), l = rowsum(p) of the f32 p, P cast to bf16 before
 // the P.V product (f32 accumulation), and the normalisation o = (P.V) / l
-// applied to the [S, hd] output instead of to P, then cast to bf16.
+// applied to the [S, hd] output instead of to P, then cast to bf16. With
+// `lse` set (training; NULL when serving) each row's base-2 log-sum-exp
+// b = m + log2(l), in the scaled units of the softmax, goes to
+// lse[(n * S + q) * heads + h] (JAX's [N, S, heads] layout), from which the
+// backward (mhsa_bwd.cu) rebuilds p = exp2(s - b) in one pass.
 //
 // Bound on the H100: at S = 257, hd = 64 one (slice, head) is ~17 MFLOP of
 // tensor-core work on ~100 KB of q/k/v, and the [S, S] scores are the
@@ -58,8 +63,8 @@ __host__ __device__ inline Layout layout(int bq, int S) {
 
 template <int BQ>
 __global__ void __launch_bounds__(THREADS)
-mhsa_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int S, int E,
-            float scale) {
+mhsa_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
+            float* __restrict__ lse, int S, int E, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L = layout(BQ, S);
   const int sp = pad16(S);
@@ -150,7 +155,11 @@ mhsa_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int S, int E,
       const int j = lane + 32 * i;
       if (j < sp) prow[j] = __float2bfloat16(v[i]);
     }
-    if (lane == 0) Ls[r] = l;
+    if (lane == 0) {
+      Ls[r] = l;
+      if (lse != nullptr && q0 + r < S)
+        lse[(size_t(n) * S + q0 + r) * gridDim.y + h] = mx + log2f(l);
+    }
   }
   __syncthreads();
 
@@ -189,10 +198,10 @@ constexpr size_t SMEM_CAP = 227 * 1024;
 }  // namespace
 }  // namespace mst
 
-// qkv [N*S, 3E] bf16 -> out [N*S, E] bf16; E == num_heads * 64, S <= 512.
-// scale = log2(e) / sqrt(64).
-extern "C" int mst_mhsa(const void* qkv, void* out, int N, int S, int E,
-                        int num_heads, float scale, void* stream) {
+// qkv [N*S, 3E] bf16 -> out [N*S, E] bf16, and lse [N*S, num_heads] f32
+// or NULL; E == num_heads * 64, S <= 512. scale = log2(e) / sqrt(64).
+extern "C" int mst_mhsa(const void* qkv, void* out, void* lse, int N, int S,
+                        int E, int num_heads, float scale, void* stream) {
   using namespace mst;
   if (N <= 0 || N > 65535 || S <= 0 || S > MAX_S || num_heads <= 0 ||
       num_heads > 65535 || E != num_heads * HD)
@@ -200,19 +209,20 @@ extern "C" int mst_mhsa(const void* qkv, void* out, int N, int S, int E,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* in = static_cast<const bf16*>(qkv);
   bf16* o = static_cast<bf16*>(out);
+  float* b = static_cast<float*>(lse);
   const Layout l64 = layout(64, S);
   cudaError_t err;
   if (l64.total <= SMEM_CAP) {
     err = allow_smem(mhsa_kernel<64>, l64.total);
     if (err != cudaSuccess) return err;
     dim3 grid((S + 63) / 64, num_heads, N);
-    mhsa_kernel<64><<<grid, THREADS, l64.total, st>>>(in, o, S, E, scale);
+    mhsa_kernel<64><<<grid, THREADS, l64.total, st>>>(in, o, b, S, E, scale);
   } else {
     const Layout l32 = layout(32, S);
     err = allow_smem(mhsa_kernel<32>, l32.total);
     if (err != cudaSuccess) return err;
     dim3 grid((S + 31) / 32, num_heads, N);
-    mhsa_kernel<32><<<grid, THREADS, l32.total, st>>>(in, o, S, E, scale);
+    mhsa_kernel<32><<<grid, THREADS, l32.total, st>>>(in, o, b, S, E, scale);
   }
   return cudaGetLastError();
 }

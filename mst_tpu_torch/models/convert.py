@@ -1,4 +1,4 @@
-"""Load the JAX package's parameters into the port's modules.
+"""Carry parameters between the JAX package and the port's modules.
 
 The port's modules use the flax parameter names, so the adapter is a name
 map: the flat key `encoder/blocks_0/attn/qkv/kernel` (keys joined with "/",
@@ -38,6 +38,15 @@ def params_from_flax(model: torch.nn.Module,
                                  f"{tuple(param.shape)}")
             param.copy_(torch.from_numpy(arr))
     return model
+
+
+def flax_params_from_torch(model: torch.nn.Module) -> dict:
+    """The way back: `model`'s parameters as a flat `/`-keyed dict of numpy
+    f32 arrays in the flax names and shapes (what `params_from_flax` reads,
+    and what `flax.traverse_util.unflatten_dict(..., sep="/")` turns into a
+    flax tree)."""
+    return {name.replace(".", "/"): p.detach().cpu().float().numpy()
+            for name, p in model.named_parameters()}
 
 
 def random_flax_params(model: torch.nn.Module, seed: int) -> dict:

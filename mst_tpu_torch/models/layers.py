@@ -8,7 +8,8 @@ attn/proj,ls1,norm2,mlp/fc1,mlp/fc2,ls2}`, `norm`.
 Matrices keep the flax Dense layout `kernel [in, out]`, which is also the
 row-major `[K, N]` layout the CUDA kernels read. Parameters stay in f32, as
 the JAX package keeps them; the forward functions cast matrices to the
-compute dtype per call, as `vit_fast` does.
+compute dtype per call, as `vit_fast` does (the train sub-layers take the
+f32 matrices and cast inside, so that their grads leave in f32).
 """
 
 from __future__ import annotations
@@ -21,7 +22,9 @@ from torch import nn
 from mst_tpu_torch.ops.fused_block import (
     _ln,
     fused_attention_sublayer,
+    fused_attention_sublayer_train,
     fused_mlp_sublayer,
+    fused_mlp_sublayer_train,
 )
 
 
@@ -107,7 +110,9 @@ class Mlp(nn.Module):
 
 class Block(nn.Module):
     """Pre-norm ViT block with optional LayerScale; the forward runs the two
-    fused sub-layers (hand-written kernels on CUDA)."""
+    fused sub-layers (hand-written kernels on CUDA): the serving ones, or
+    with `train=True` the residual-saving ones whose backward is a kernel
+    chain too (`vit_fast.fused_vit_cls(train=True)`)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_hidden: int,
                  layerscale_init: Optional[float] = 1e-5,
@@ -126,17 +131,21 @@ class Block(nn.Module):
         else:
             self.ls1 = self.ls2 = None
 
-    def forward(self, h):
+    def forward(self, h, train: bool = False):
         dt = h.dtype
-        h = fused_attention_sublayer(
-            h, self.norm1.scale, self.norm1.bias,
-            self.attn.qkv.kernel.to(dt), self.attn.qkv.bias,
-            self.attn.proj.kernel.to(dt), self.attn.proj.bias,
-            None if self.ls1 is None else self.ls1.gamma,
-            self.num_heads, self.norm_eps)
-        return fused_mlp_sublayer(
-            h, self.norm2.scale, self.norm2.bias,
-            self.mlp.fc1.kernel.to(dt), self.mlp.fc1.bias,
-            self.mlp.fc2.kernel.to(dt), self.mlp.fc2.bias,
-            None if self.ls2 is None else self.ls2.gamma,
-            self.gelu_approximate, self.norm_eps)
+        # the serving sub-layers take compute-dtype matrices, the train ones
+        # the f32 parameters
+        cast = (lambda w: w) if train else (lambda w: w.to(dt))
+        attn = fused_attention_sublayer_train if train else \
+            fused_attention_sublayer
+        mlp = fused_mlp_sublayer_train if train else fused_mlp_sublayer
+        h = attn(h, self.norm1.scale, self.norm1.bias,
+                 cast(self.attn.qkv.kernel), self.attn.qkv.bias,
+                 cast(self.attn.proj.kernel), self.attn.proj.bias,
+                 None if self.ls1 is None else self.ls1.gamma,
+                 self.num_heads, self.norm_eps)
+        return mlp(h, self.norm2.scale, self.norm2.bias,
+                   cast(self.mlp.fc1.kernel), self.mlp.fc1.bias,
+                   cast(self.mlp.fc2.kernel), self.mlp.fc2.bias,
+                   None if self.ls2 is None else self.ls2.gamma,
+                   self.gelu_approximate, self.norm_eps)

@@ -1,14 +1,16 @@
-"""Fused-kernel ViT / MST serving forward.
+"""Fused-kernel ViT / MST forward, for serving and for training.
 
-Counterpart of `mst_tpu/models/vit_fast.py` (plain serving mode): each
-encoder block but the last runs through the fused sub-layers
-(`ops/fused_block.py`, hand-written CUDA kernels on the card), the last
-block is evaluated for the CLS token only (`_cls_last_block`, plain ops as
-in the JAX package), and the slice fusion and head stay plain PyTorch.
+Counterpart of `mst_tpu/models/vit_fast.py` (plain mode and `train=True`):
+each encoder block but the last runs through the fused sub-layers
+(`ops/fused_block.py`, hand-written CUDA kernels on the card; with
+`train=True` the residual-saving ones, whose backward is a kernel chain
+too), the last block is evaluated for the CLS token only
+(`_cls_last_block`, plain ops as in the JAX package, differentiated by
+autograd when training), and the slice fusion and head stay plain PyTorch.
 
 This is the port's only forward: configurations outside the gate raise
-instead of running a second composition. Saliency, training, int8 and the
-long-sequence flash path are later ROADMAP items.
+instead of running a second composition. Saliency, `remat`, frozen-encoder
+training, int8 and the long-sequence flash path are later ROADMAP items.
 """
 
 from __future__ import annotations
@@ -127,11 +129,13 @@ def _cls_last_block(h, blk, cfg: FastViTConfig):
     return c + m, row
 
 
-def fused_vit_cls(enc, x, cfg: FastViTConfig, dtype=torch.bfloat16):
-    """enc: the VisionTransformer module; x [N, H, W, 3] -> CLS [N, E]."""
+def fused_vit_cls(enc, x, cfg: FastViTConfig, dtype=torch.bfloat16,
+                  train: bool = False):
+    """enc: the VisionTransformer module; x [N, H, W, 3] -> CLS [N, E].
+    `train=True` runs the blocks on the residual-saving sub-layers."""
     h = prepare_vit_tokens(enc, x, cfg, dtype)
     for i in range(cfg.depth - 1):
-        h = enc.block(i)(h)
+        h = enc.block(i)(h, train=train)
     cls_vec, _ = _cls_last_block(h, enc.block(cfg.depth - 1), cfg)
     hf = _ln(cls_vec, enc.norm.scale, enc.norm.bias, cfg.norm_eps)
     return hf.to(dtype)
@@ -153,10 +157,13 @@ def _linear_resize_weights(out_size: int, in_size: int) -> np.ndarray:
     return w.astype(np.float32)
 
 
-def fused_mst_logits(model, source, src_key_padding_mask=None, dtype=None):
+def fused_mst_logits(model, source, src_key_padding_mask=None, dtype=None,
+                     train: bool = False):
     """Full MST forward on the fused path: source [B, C, D, H, W] ->
     logits [B, out_ch] f32. `model` is the port's DinoSliceClassifier (it
-    holds the parameters); `dtype` defaults to `model.dtype`."""
+    holds the parameters); `dtype` defaults to `model.dtype`. `train=True`
+    selects the residual-sharing train sub-layers (the loss backward runs
+    their backward kernels; valid because the model has no dropout)."""
     if not fused_config_supported(model):
         raise NotImplementedError(
             f"{type(model).__name__} config is outside the fused serving path")
@@ -166,16 +173,16 @@ def fused_mst_logits(model, source, src_key_padding_mask=None, dtype=None):
             f"{FUSED_MAX_TOKENS} tokens; the flash-attention path is ROADMAP "
             f"queue A #10")
     dtype = model.dtype if dtype is None else dtype
-    return _fused_mst(model, source, src_key_padding_mask, dtype)
+    return _fused_mst(model, source, src_key_padding_mask, dtype, train)
 
 
-def _fused_mst(model, source, src_key_padding_mask, dtype):
+def _fused_mst(model, source, src_key_padding_mask, dtype, train=False):
     cfg = FastViTConfig.from_model(model)
     b, c, d, hh, ww = source.shape
     x = source.permute(0, 2, 3, 4, 1).reshape(b * d, hh, ww, c)
     if c == 1:
         x = x.expand(b * d, hh, ww, 3)  # gray -> RGB
-    feats = fused_vit_cls(model.encoder, x, cfg, dtype)
+    feats = fused_vit_cls(model.encoder, x, cfg, dtype, train)
     if model.use_bottleneck:
         feats = model.bottleneck(feats)
     e = feats.shape[-1]

@@ -1,11 +1,13 @@
 """Build and load the hand-written CUDA kernels (`mst_tpu_torch/csrc/*.cu`).
 
-`nvcc` compiles every source into one shared library with a plain C
-interface, which is loaded with `ctypes` (pointers and the stream as
-`c_void_p`, ints as `c_int`). The library lands in `build/mst_tpu_torch/`
-at the repository root, named after a hash of the sources, so a changed
-source rebuilds and an unchanged one is loaded as it is. Nothing is built
-at import time: the first launch (or `build()`) does it.
+One `nvcc` per source compiles it to an object file, all of them started
+together, and one more links the objects into a shared library with a
+plain C interface, which is loaded with `ctypes` (pointers and the stream
+as `c_void_p`, ints as `c_int`). The library lands in
+`build/mst_tpu_torch/` at the repository root, named after a hash of the
+sources, so a changed source rebuilds and an unchanged one is loaded as it
+is. Nothing is built at import time: the first launch (or `build()`) does
+it.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mst_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-Xcompiler", "-fPIC", "-lineinfo")
 
 _lock = threading.Lock()
 _lib = None
@@ -30,12 +32,24 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # x, ln_s, ln_b, w, bias, out, M, K, N, eps, act, stream
-    "mst_ln_gemm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # x, ln_s, ln_b, w, bias, out, h_out|NULL, out2|NULL, M, K, N, eps, act,
+    # stream
+    "mst_ln_gemm": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # a, w, bias, ls|NULL, x, out, M, K, N, stream
     "mst_gemm_residual": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # qkv, out, N, S, E, num_heads, scale, stream
-    "mst_mhsa": (_P, _P, _I, _I, _I, _I, _F, _P),
+    # qkv, out, lse|NULL, N, S, E, num_heads, scale, stream
+    "mst_mhsa": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # a, w, bias, ls, g, gz, work, dls, M, K, N, stream
+    "mst_gemm_dls": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # a, b, dw, db, work, M, K, N, rows_per_split, stream
+    "mst_gemm_wgrad": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # dy, w, out, M, R, K, a|NULL, act, x|NULL, g, lns, eps, work, dlns,
+    # dlnb, stream
+    "mst_gemm_dgrad": (_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _F, _P,
+                       _P, _P, _P),
+    # qkv, o, dout, lse, delta, dqkv, N, S, E, num_heads, scale_log2, scale,
+    # stream
+    "mst_mhsa_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
 }
 
 
@@ -63,6 +77,20 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmst_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _start(cmd) -> subprocess.Popen:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _finish(cmd, proc: subprocess.Popen, verbose: bool) -> None:
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{log}")
+    if verbose and log:
+        print(log)
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the kernels if the library for the current sources is
     missing; return its path. Raises on a compiler error."""
@@ -70,18 +98,30 @@ def build(verbose: bool = False) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    objdir = out.with_suffix(f".{os.getpid()}.obj")
+    objdir.mkdir(exist_ok=True)
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [objdir / (s.stem + ".o") for s in srcs]
+    ptxas = ["-Xptxas=-v"] if verbose else []
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    if verbose and (proc.stdout or proc.stderr):
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    compiles = [[nvcc, *ptxas, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(s),
+                 "-o", str(o)] for s, o in zip(srcs, objs)]
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o",
+            str(tmp), *map(str, objs)]
+    procs = []
+    try:
+        procs = [_start(cmd) for cmd in compiles]  # all at once
+        for cmd, proc in zip(compiles, procs):
+            _finish(cmd, proc, verbose)
+        _finish(link, _start(link), verbose)
+        os.replace(tmp, out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(objdir, ignore_errors=True)
     return out
 
 
