@@ -37,7 +37,23 @@ limit:
    probs;
 10. train times: the train kernels vs their plain versions, the train
    step on the kernels and on the plain sub-layers (ms, vol/s), its peak
-   memory, and a `torch.profiler` breakdown of one step.
+   memory, and a `torch.profiler` breakdown of one step;
+11. saliency kernels: the CLS-row, rollout-carry (two chained blocks, so
+   that a carry that is not one-hot is fed back) and Abnar-factor outputs
+   of `mhsa`, and their sub-layers, against their plain versions at the
+   path shapes, each run twice for the same bits;
+12. saliency forward: `fused_mst_saliency` at B=8 in the plane modes
+   `last`, `rollout` and `rollout_abnar`, with and without a key-padding
+   mask, against the plain path and an f32 plain forward, launch counts
+   per forward, and the `MST_NO_CHEAP_LAST` row against the cheap one;
+13. predict CLI: `python -m mst_tpu_torch.predict`'s `main` with
+   `--use_tta --use_rollout --save_saliency` on phase 9's run folder and
+   LIDC-shaped Synthetic test volumes; `results.csv` and the NIfTI volumes
+   against the predictor;
+14. saliency times: the saliency kernels and sub-layers vs their plain
+   versions, vol/s per plane mode at B=8 against the forward without
+   saliency, the per-volume latency of batch-1 TTA with saliency, peak
+   memory, and a `torch.profiler` breakdown of each mode's forward.
 
 The line before the last is `{"kernels": [...]}`; the last line is
 `{"ok": true, "device": {...}}`. Any failed check raises (exit code != 0).
@@ -46,12 +62,16 @@ The line before the last is `{"kernels": [...]}`; the last line is
 from __future__ import annotations
 
 import contextlib
+import csv
 import functools
+import gzip
 import io
 import json
 import math
 import shutil
+import os
 import statistics
+import struct
 import subprocess
 import sys
 import threading
@@ -89,6 +109,14 @@ STEP_F32_RATIO = 1.5  # kernel path's error vs f32 / the plain path's
 FIT_STEPS, FIT_LR = 8, 1e-4  # AdamW steps on one batch
 FIT_DROP = 10.0  # the loss must fall by this factor over those steps
 FIT_TRACK_TOL = 0.15  # |loss kernel - loss plain| at every one of them
+# Saliency phases (11-14). A saliency map is compared relative to its
+# largest value; the limits are a few times the largest reading on an H100
+# with these seeded inputs (the readings are in PERF.md).
+SAL_REL = 0.05  # saliency, kernel path vs plain path, both bf16
+SAL_F32_REL = 0.05  # saliency, bf16 kernel path vs f32 plain path
+SAL_CHEAP_REL = 0.01  # saliency, MST_NO_CHEAP_LAST row vs the cheap row
+PLANE_MODES = ("last", "rollout", "rollout_abnar")
+N_CASES = 8  # Synthetic test volumes the predict CLI scores
 
 
 class CheckFailed(RuntimeError):
@@ -188,6 +216,55 @@ def check_outputs(tag, name, kern, plain, rel) -> float:
     return worst
 
 
+def read_nifti_f32(path) -> np.ndarray:
+    """The data of a float32 NIfTI-1 file that `utils.nifti.write_nifti`
+    wrote (352-byte header and extension flag, then Fortran order)."""
+    with gzip.open(path, "rb") as f:
+        raw = f.read()
+    ndim = struct.unpack_from("<h", raw, 40)[0]
+    dims = struct.unpack_from(f"<{ndim}h", raw, 42)
+    check(struct.unpack_from("<h", raw, 70)[0] == 16, f"{path}: not float32")
+    return np.frombuffer(raw[352:], np.float32).reshape(dims, order="F")
+
+
+def profile_device(tag, label, fn, top: int) -> None:
+    """Print the device's busy and idle share over one call of `fn` and its
+    `top` kernels by device time (`torch.profiler`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    # kernels only: a CPU-side entry also carries its kernels' device time,
+    # and a GPU user annotation (the optimizer step's) spans its kernels
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.is_user_annotation and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in evs) / 1e3  # ms
+    print(f"{tag} profile of {label}: wall {wall * 1e3:.3f} ms "
+          f"(profiler on), device busy {busy:.3f} ms, idle "
+          f"{max(0.0, 1 - busy / (wall * 1e3)) * 100:.1f}%")
+    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"{tag}   {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.count:5d}x  {e.key[:110]}")
+
+
+def host_seconds(fn, n: int = 5) -> float:
+    """Median host time of `fn()` ending in a synchronize, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(n):
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t1)
+    return statistics.median(ts)
+
+
 def train_sublayer_outputs(fb, kind, ops, x, args, g):
     """(y, residuals, dx, every argument's grad) of one train sub-layer on
     `ops` (fb.KERNELS or fb.PLAIN), `args` after x with f32 matrices."""
@@ -213,9 +290,10 @@ def main() -> int:
                          "torch.cuda.is_available() is False")
     sys.path.insert(0, str(ROOT))
 
+    from mst_tpu_torch import predict as predict_cli
     from mst_tpu_torch.models import layers
     from mst_tpu_torch.models.convert import params_from_flax, random_flax_params
-    from mst_tpu_torch.models.vit_fast import fused_mst_logits
+    from mst_tpu_torch.models.vit_fast import fused_mst_logits, fused_mst_saliency
     from mst_tpu_torch.ops import _build
     from mst_tpu_torch.ops import fused_block as fb
     from mst_tpu_torch.registry import get_model
@@ -230,6 +308,7 @@ def main() -> int:
         make_train_step,
     )
     from mst_tpu_torch.utils.checkpoint import best_params_path
+    from mst_tpu_torch.utils.nifti import write_nifti
 
     # -- 1. device ---------------------------------------------------------
     smi = subprocess.run(
@@ -344,7 +423,7 @@ def main() -> int:
                        "--batch_size", "4", "--max_wait_ms", "1000"])
     model = build_model(args)
     check(model.dtype == torch.bfloat16, f"serving dtype {model.dtype}")
-    predict = make_predict_fn(model)
+    predict = make_predict_fn(model, with_saliency=False)
     vol = spread_volumes(rng, predict, BATCH)
     mask = np.zeros((BATCH, DEPTH_SLICES), bool)
     mask[1, 24:] = True  # volume 1: its last 8 slices are padding
@@ -352,14 +431,21 @@ def main() -> int:
 
     @contextlib.contextmanager
     def plain_sublayers():
-        """Route the blocks through the plain versions on the card."""
-        saved = layers.fused_attention_sublayer, layers.fused_mlp_sublayer
-        layers.fused_attention_sublayer = fb._attn_ref
-        layers.fused_mlp_sublayer = fb._mlp_ref
+        """Route the blocks' serving sub-layers (the saliency ones too)
+        through the plain versions on the card."""
+        plain = {"fused_attention_sublayer": fb._attn_ref,
+                 "fused_mlp_sublayer": fb._mlp_ref,
+                 "fused_attention_sublayer_with_row": fb._attn_with_row_ref,
+                 "fused_attention_sublayer_rollout": fb._attn_rollout_ref,
+                 "fused_attention_sublayer_abnar": fb._attn_abnar_ref}
+        saved = {k: getattr(layers, k) for k in plain}
+        for k, fn in plain.items():
+            setattr(layers, k, fn)
         try:
             yield
         finally:
-            layers.fused_attention_sublayer, layers.fused_mlp_sublayer = saved
+            for k, fn in saved.items():
+                setattr(layers, k, fn)
 
     print(f"{tag} forward tolerance: |probs kernel - probs plain| <= "
           f"{PROB_TOL} (bf16 roundings flipped by the summation order "
@@ -489,16 +575,8 @@ def main() -> int:
 
     src8 = torch.from_numpy(vol).to(dev)
 
-    def e2e(n=5):
-        predict(src8, None)
-        torch.cuda.synchronize()
-        ts = []
-        for _ in range(n):
-            t1 = time.perf_counter()
-            predict(src8, None)
-            torch.cuda.synchronize()
-            ts.append(time.perf_counter() - t1)
-        return statistics.median(ts)
+    def e2e():
+        return host_seconds(lambda: predict(src8, None))
 
     torch.cuda.reset_peak_memory_stats()
     sec = e2e()
@@ -648,12 +726,12 @@ def main() -> int:
     with plain_train_sublayers():
         loss_p, grads_p = loss_and_grads()
         loss_32, grads_32 = loss_and_grads(torch.float32)
-    per_step = {"ln_gemm": 2 * n_blocks, "mhsa": n_blocks,
+    per_step = {**{k: 0 for k in fb.launch_counts()},
+                "ln_gemm": 2 * n_blocks, "mhsa": n_blocks,
                 "gemm_residual": 2 * n_blocks, "gemm_dls": 2 * n_blocks,
                 "gemm_wgrad": 4 * n_blocks, "gemm_dgrad": 4 * n_blocks,
                 "mhsa_bwd": n_blocks}
-    calls_per_step = {"fused_attention_sublayer": 0,
-                      "fused_mlp_sublayer": 0,
+    calls_per_step = {**{k: 0 for k in fb.sublayer_calls()},
                       "fused_attention_sublayer_train": n_blocks,
                       "fused_mlp_sublayer_train": n_blocks}
     def rel_errs(grads, ref):
@@ -747,7 +825,8 @@ def main() -> int:
     check(len(list(run_dir.glob("epoch=*/"))) == 1, "top-1 policy")
     served = build_model(parse_args(["--params_npz", str(best_npz)]))
     vbatch = next(iter(tdm.val_dataloader()))
-    p_served, _ = make_predict_fn(served)(vbatch["source"], None)
+    p_served, _ = make_predict_fn(served, with_saliency=False)(
+        vbatch["source"], None)
     with np.load(best_npz) as z:
         params_from_flax(tmodel, {k: z[k] for k in z.files})
     p_eval = torch.softmax(make_eval_step(tmodel)(vbatch["source"]).float(),
@@ -773,18 +852,10 @@ def main() -> int:
             print(f"{tag} time {name} forward + backward: {label} "
                   f"{ms:.4f} ms")
 
-    def step_seconds(n=5):
+    def step_seconds():
         step = make_train_step(TrainState(tmodel, make_optimizer(
             tmodel.parameters(), 0.0)))  # lr 0: same work, same weights
-        step(src, tgt)
-        torch.cuda.synchronize()
-        ts = []
-        for _ in range(n):
-            t1 = time.perf_counter()
-            step(src, tgt)
-            torch.cuda.synchronize()
-            ts.append(time.perf_counter() - t1)
-        return statistics.median(ts), step
+        return host_seconds(lambda: step(src, tgt)), step
 
     torch.cuda.reset_peak_memory_stats()
     sec_t, kstep = step_seconds()
@@ -796,26 +867,254 @@ def main() -> int:
           f"{BATCH / sec_t:.3f} vol/s; plain sub-layers {sec_tp * 1e3:.3f} "
           f"ms = {BATCH / sec_tp:.3f} vol/s; peak memory (kernel path) "
           f"{peak_t / 2**20:.1f} MiB")
-    from torch.profiler import ProfilerActivity, profile
+    profile_device(tag, "one train step", lambda: kstep(src, tgt), 16)
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        kstep(src, tgt)
+    # -- 11. saliency kernels vs plain at the path's shapes ----------------
+    print(f"{tag} saliency kernel tolerance: bf16 outputs <= 2 bf16 ulps, "
+          f"f32 outputs (CLS row, carry, Abnar factor) <= {KERNEL_GRAD_REL} "
+          f"x |plain|max for one kernel, <= {SUBLAYER_GRAD_REL} x for a "
+          f"sub-layer chain (as phase 7); every kernel repeats bit for bit")
+    e0 = torch.zeros(N_SLICES, HEADS, S, device=dev)
+    e0[:, :, 0] = 1.0  # the rollout chain starts at the CLS token
+    c1_plain = fb._mhsa_ref(qkv_in, N_SLICES, S, HEADS, carry=e0)[1]
+
+    xb = rand(N_SLICES, S, E, dtype=bf)  # the second block's input
+
+    def rollout2(fn):
+        """Two blocks of the rollout sub-layer, the second fed the first's
+        carry (not one-hot) on an input of its own."""
+        y1, c1 = fn(*attn_args, ls, e0, HEADS, eps)
+        return (y1, c1, *fn(xb, *attn_args[1:], ls, c1, HEADS, eps,
+                            want_row=True))
+
+    scases = {
+        "mhsa_with_row": (lambda: fb.mhsa_with_row(qkv_in, N_SLICES, S, HEADS),
+                          lambda: fb._mhsa_ref(qkv_in, N_SLICES, S, HEADS,
+                                               want_row=True)),
+        "mhsa_rollout[block0]": (
+            lambda: fb.mhsa_rollout(qkv_in, e0, N_SLICES, S, HEADS),
+            lambda: fb._mhsa_ref(qkv_in, N_SLICES, S, HEADS, carry=e0)),
+        "mhsa_rollout[block1,row]": (
+            lambda: fb.mhsa_rollout(qkv_in, c1_plain, N_SLICES, S, HEADS,
+                                    want_row=True),
+            lambda: fb._mhsa_ref(qkv_in, N_SLICES, S, HEADS, want_row=True,
+                                 carry=c1_plain)),
+        "mhsa_abnar": (lambda: fb.mhsa_abnar(qkv_in, N_SLICES, S, HEADS),
+                       lambda: fb._mhsa_ref(qkv_in, N_SLICES, S, HEADS,
+                                            want_abnar=True)),
+    }
+    ssub = {
+        "attention_sublayer_with_row[ls]": pair(
+            fb.fused_attention_sublayer_with_row, fb._attn_with_row_ref,
+            *attn_args, ls, HEADS),
+        "attention_sublayer_rollout[ls,2 blocks]": (
+            lambda: rollout2(fb.fused_attention_sublayer_rollout),
+            lambda: rollout2(fb._attn_rollout_ref)),
+        "attention_sublayer_abnar[ls]": pair(
+            fb.fused_attention_sublayer_abnar, fb._attn_abnar_ref,
+            *attn_args, ls, HEADS),
+        "attention_sublayer_abnar[no_ls]": pair(
+            fb.fused_attention_sublayer_abnar, fb._attn_abnar_ref,
+            *attn_args, None, HEADS),
+    }
+    with torch.inference_mode():
+        for name, (kern, plain) in {**scases, **ssub}.items():
+            k, pl = kern(), plain()
+            again = kern()
+            torch.cuda.synchronize()
+            rel = KERNEL_GRAD_REL if name in scases else SUBLAYER_GRAD_REL
+            errs[name] = check_outputs(tag, f"saliency {name}", k, pl, rel)
+            same = all(torch.equal(a, b) for a, b in zip(k, again))
+            print(f"{tag} saliency {name}: two runs equal bit for bit: {same}")
+            check(same, f"{name}: two runs differ")
+        del k, pl, again
+
+    # -- 12. the saliency forward at B=8 (each mode: counts read around it) -
+    mask_t = torch.from_numpy(mask).to(dev)
+    n_full = n_blocks + 1  # rollout / abnar run block 11 on the kernels too
+    zero = {k: 0 for k in fb.launch_counts()}
+    zero_calls = {k: 0 for k in fb.sublayer_calls()}
+
+    def per_forward(mode):
+        """(launches, sub-layer calls) of one saliency forward."""
+        if mode == "last":
+            return per_fwd, calls_per_fwd
+        attn = {"rollout": "rollout", "rollout_abnar": "abnar"}[mode]
+        return ({**zero, "ln_gemm": 2 * n_full, "gemm_residual": 2 * n_full,
+                 f"mhsa_{attn}": n_full},
+                {**zero_calls, f"fused_attention_sublayer_{attn}": n_full,
+                 "fused_mlp_sublayer": n_full})
+
+    def saliency(mode, m=None, dtype=None):
+        with torch.inference_mode():
+            out = fused_mst_saliency(model, src8, m, dtype=dtype,
+                                     plane_mode=mode)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t1
-    # kernels only: a CPU-side entry also carries its kernels' device time,
-    # and a GPU user annotation (the optimizer step's) spans its kernels
-    evs = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and not e.is_user_annotation and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in evs) / 1e3  # ms
-    print(f"{tag} profile of one train step: wall {wall * 1e3:.3f} ms "
-          f"(profiler on), device busy {busy:.3f} ms, idle "
-          f"{max(0.0, 1 - busy / (wall * 1e3)) * 100:.1f}%")
-    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:16]:
-        print(f"{tag}   {e.self_device_time_total / 1e3:9.3f} ms "
-              f"{e.count:5d}x  {e.key[:110]}")
+        return out
+
+    def sal_rel(a, b):
+        """max |a - b| relative to b's largest value."""
+        return (a - b).abs().max().item() / b.abs().max().item()
+
+    print(f"{tag} saliency tolerance: probs as phase 4; a saliency map within "
+          f"{SAL_REL} of the plain path's largest value, {SAL_F32_REL} of the "
+          f"f32 plain path's (bf16 rounding through 12 blocks of a "
+          f"random-weight ViT-S moves a CLS attention row by a few percent)")
+    sal_counts = {}
+    for mode in PLANE_MODES:
+        for label, m in (("no mask", None), ("key-padding mask", mask_t)):
+            fb.reset_launch_counts()
+            pk, sk = saliency(mode, m)
+            counts, calls = fb.launch_counts(), fb.sublayer_calls()
+            with plain_sublayers():
+                pp, sp_ = saliency(mode, m)
+                p32, s32 = saliency(mode, m, torch.float32)
+            check(tuple(sk.shape) == (BATCH, DEPTH_SLICES, PX, PX)
+                  and sk.dtype == torch.float32, f"saliency {tuple(sk.shape)}")
+            check(bool(torch.isfinite(sk).all() and torch.isfinite(pk).all()),
+                  f"{mode}: non-finite output")
+            d_p, d_p32 = ((pk - pp).abs().max().item(),
+                          (pk - p32).abs().max().item())
+            d_s, d_s32 = sal_rel(sk, sp_), sal_rel(sk, s32)
+            d_fwd = (pk - predict(src8, m)[0]).abs().max().item()
+            print(f"{tag} saliency {mode} [{label}] {list(sk.shape)}: "
+                  f"|probs - plain| {d_p:.6g}, |probs - f32| {d_p32:.6g}, "
+                  f"|probs - forward without saliency| {d_fwd:.6g}; saliency "
+                  f"vs plain {d_s:.6g}, vs f32 {d_s32:.6g} (of the largest "
+                  f"value {sp_.abs().max().item():.6g}); plain vs f32 "
+                  f"{sal_rel(sp_, s32):.6g}; launches {counts}; sub-layer "
+                  f"calls {calls}")
+            check(d_p <= PROB_TOL and d_p32 <= F32_TOL,
+                  f"{mode} probs: {d_p} / {d_p32}")
+            check(d_s <= SAL_REL and d_s32 <= SAL_F32_REL,
+                  f"{mode} saliency: {d_s} / {d_s32}")
+            if mode == "last":  # the same kernels as the forward without
+                check(d_fwd <= 1e-6, f"last-mode probs moved by {d_fwd}")
+            if m is not None:  # padded slices get no slice attention
+                pad = max(sk[1, 24:].abs().max().item(),
+                          sk[5, 30:].abs().max().item())
+                check(pad == 0.0, f"{mode}: padded slices' saliency {pad}")
+            want, want_calls = per_forward(mode)
+            check(counts == want, f"{mode} launches {counts} != {want}")
+            check(calls == want_calls, f"{mode} calls {calls} != {want_calls}")
+            sal_counts[mode] = counts
+    del pp, sp_, p32, s32
+    # MST_NO_CHEAP_LAST: block 11 in full, its row from the with_row kernel
+    os.environ["MST_NO_CHEAP_LAST"] = "1"
+    try:
+        fb.reset_launch_counts()
+        p_full, s_full = saliency("last")
+        full_counts, full_calls = fb.launch_counts(), fb.sublayer_calls()
+    finally:
+        del os.environ["MST_NO_CHEAP_LAST"]
+    p_cheap, s_cheap = saliency("last")
+    d_p, d_s = (p_full - p_cheap).abs().max().item(), sal_rel(s_full, s_cheap)
+    want = {**per_fwd, "ln_gemm": 2 * n_full, "gemm_residual": 2 * n_full,
+            "mhsa_with_row": 1}
+    want_calls = {**calls_per_fwd, "fused_attention_sublayer_with_row": 1,
+                  "fused_mlp_sublayer": n_full}
+    print(f"{tag} saliency last, MST_NO_CHEAP_LAST=1 vs the CLS-only last "
+          f"block: |probs| {d_p:.6g}, saliency {d_s:.6g} (limit "
+          f"{SAL_CHEAP_REL}); launches {full_counts}; sub-layer calls "
+          f"{full_calls}")
+    check(d_p <= PROB_TOL and d_s <= SAL_CHEAP_REL,
+          f"MST_NO_CHEAP_LAST: probs {d_p}, saliency {d_s}")
+    check(full_counts == want, f"launches {full_counts} != {want}")
+    check(full_calls == want_calls, f"calls {full_calls} != {want_calls}")
+    sal_counts["with_row"] = full_counts
+    del p_full, s_full, p_cheap, s_cheap
+
+    # -- 13. the predict CLI on phase 9's run folder ------------------------
+    out_dir = ROOT / "build" / "chip_smoke_predict"  # gitignored
+    shutil.rmtree(out_dir, ignore_errors=True)
+    data_kw = dict(shape_cdhw=(1, DEPTH_SLICES, PX, PX), num_samples=N_CASES)
+    pargv = ["--run_folder", str(run_dir), "--output_dir", str(out_dir),
+             "--use_tta", "--use_rollout", "--save_saliency"]
+    fb.reset_launch_counts()
+    t1 = time.perf_counter()
+    predict_cli.main(pargv, **data_kw)
+    torch.cuda.synchronize()
+    cli_sec = time.perf_counter() - t1
+    cli_counts, cli_calls = fb.launch_counts(), fb.sublayer_calls()
+    with (out_dir / "results.csv").open() as f:
+        rows = list(csv.DictReader(f))
+    pargs = predict_cli.parse_args(pargv)
+    pmodel = predict_cli.build_model(pargs, dev)
+    pfn = make_predict_fn(pmodel, tta=True, plane_mode="rollout")
+    worst_p = worst_s = 0.0
+    batches = predict_cli.build_datamodule(pargs, dev, **data_kw)
+    for r, b in zip(rows, batches.test_dataloader()):
+        pb, sb = pfn(b["source"], None)
+        check(r["uid"] == b["uid"][0] and int(r["GT"]) == int(b["target"][0]),
+              f"row {r} is not case {b['uid'][0]}")
+        check(int(r["NN"]) == int(pb[0].argmax()), f"NN of {r['uid']}")
+        worst_p = max(worst_p, abs(float(r["NN_pred"]) - pb[0, 1].item()))
+        got = read_nifti_f32(out_dir / f"case_{r['uid']}" / "saliency.nii.gz")
+        want_s = sb[0].cpu().numpy().transpose(2, 1, 0)
+        check(got.shape == want_s.shape, f"NIfTI {got.shape}")
+        worst_s = max(worst_s, float(np.abs(got - want_s).max()
+                                     / np.abs(want_s).max()))
+    log_text = (out_dir / "predict.log").read_text()
+    t1 = time.perf_counter()
+    write_nifti(out_dir / "timing.nii.gz", got)
+    sec_nii = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    write_nifti(out_dir / "timing.nii.gz", b["source"][0, 0].cpu().numpy())
+    sec_nii_in = time.perf_counter() - t1
+    print(f"{tag} predict CLI --use_tta --use_rollout --save_saliency on "
+          f"{N_CASES} cases {list(data_kw['shape_cdhw'])}: {cli_sec:.3f} s "
+          f"(one saliency.nii.gz write {sec_nii:.3f} s, one input.nii.gz "
+          f"write {sec_nii_in:.3f} s); "
+          f"launches {cli_counts}; results.csv vs the predictor: |NN_pred| "
+          f"{worst_p:.6g}, saliency.nii.gz {worst_s:.6g} (both must be <= "
+          f"1e-6: the same kernels on the same batches); predict.log: "
+          f"{log_text.strip().splitlines()}")
+    check(len(rows) == N_CASES, f"{len(rows)} result rows")
+    check(worst_p <= 1e-6 and worst_s <= 1e-6,
+          f"CLI vs predictor: {worst_p} / {worst_s}")
+    check("AUC=" in log_text and "Youden point" in log_text, "predict.log")
+    want = {**zero, "ln_gemm": 2 * n_full * N_CASES,
+            "mhsa_rollout": n_full * N_CASES,
+            "gemm_residual": 2 * n_full * N_CASES}
+    check(cli_counts == want, f"CLI launches {cli_counts} != {want}")
+    del pmodel, pfn
+
+    # -- 14. saliency times ---------------------------------------------------
+    # plain-flags `mhsa` and its sub-layer again, beside them in time
+    reference = {"mhsa[plain flags]": cases["mhsa"],
+                 "attention_sublayer[ls,plain flags]":
+                     cases["attention_sublayer[ls]"]}
+    with torch.inference_mode():
+        stimed = {name: (time_ms(kern), time_ms(plain)) for name, (kern, plain)
+                  in {**reference, **scases, **ssub}.items()}
+    for name, (km, pm_) in stimed.items():
+        print(f"{tag} time {name}: kernel {km:.4f} ms, plain {pm_:.4f} ms")
+    def seconds_and_memory(fn):
+        """(median seconds of fn, its peak device memory above what was
+        held before it)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        sec_ = host_seconds(fn)
+        return sec_, torch.cuda.max_memory_allocated() - held
+
+    sec_fwd, mem_fwd = seconds_and_memory(lambda: predict(src8, None))
+    print(f"{tag} e2e B={BATCH} {list(vol.shape)} bf16 without saliency: "
+          f"{sec_fwd * 1e3:.3f} ms = {BATCH / sec_fwd:.3f} vol/s, peak "
+          f"memory {mem_fwd / 2**20:.1f} MiB above the "
+          f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB held")
+    vol1 = src8[:1]
+    for mode in PLANE_MODES:
+        sec_m, mem_m = seconds_and_memory(lambda: saliency(mode))
+        tta = make_predict_fn(model, tta=True, plane_mode=mode)
+        sec_1 = host_seconds(lambda: tta(vol1, None))
+        print(f"{tag} e2e saliency {mode} B={BATCH}: {sec_m * 1e3:.3f} ms = "
+              f"{BATCH / sec_m:.3f} vol/s ({sec_m / sec_fwd:.3f}x the forward "
+              f"without saliency), peak memory {mem_m / 2**20:.1f} MiB above "
+              f"what was held; batch-1 8-flip TTA with saliency: "
+              f"{sec_1 * 1e3:.3f} ms per volume")
+        profile_device(tag, f"one B={BATCH} saliency forward ({mode})",
+                       lambda: saliency(mode), 8)
 
     # TPU kernels: _attn_any_kernel at fused_block.py:326, _mlp_kernel at
     # :400, their train forwards _attn_train_kernel :424 and
@@ -840,8 +1139,16 @@ def main() -> int:
                        ["gemm_dgrad[proj]", "gemm_dgrad[fc2,gelu_tanh]",
                         "gemm_dgrad[qkv,ln]", "gemm_dgrad[fc1,ln]"]),
         "mhsa_bwd": ("mhsa_bwd", [site(680)], step_counts, ["mhsa_bwd"]),
+        # the saliency outputs of `mhsa` (flags of _attn_any_kernel), each
+        # counted in the forward of the plane mode that runs it (phase 12)
+        "mhsa_with_row": ("mhsa", [site(1479)], sal_counts["with_row"],
+                          ["mhsa_with_row"]),
+        "mhsa_rollout": ("mhsa", [site(1535)], sal_counts["rollout"],
+                         ["mhsa_rollout[block1,row]"]),
+        "mhsa_abnar": ("mhsa", [site(1503)], sal_counts["rollout_abnar"],
+                       ["mhsa_abnar"]),
     }
-    alltimed = {**timed, **ttimed}
+    alltimed = {**timed, **ttimed, **stimed}
     kernels = []
     for name, (source, replaces, counts, per_block) in sites.items():
         checked = [c for c in errs if c.split("[")[0] in
@@ -854,7 +1161,8 @@ def main() -> int:
             "launches_per_train_step": step_counts[name],
             "max_abs_err": max(errs[c] for c in checked),
             # one ViT-S block's calls of this kernel at B=8 (serving
-            # forward for the first three, train backward for the rest)
+            # forward for ln_gemm, mhsa, gemm_residual and the saliency
+            # outputs, train backward for the rest)
             "ms": sum(alltimed[c][0] for c in per_block),
             "plain_ms": sum(alltimed[c][1] for c in per_block),
         })

@@ -2,7 +2,7 @@
 // qkv [N*S, 3E] bf16 (columns [q | k | v], head h at h*64 inside each)
 // -> o [N*S, E] bf16 (head h at columns h*64).
 //
-// Replaces the attention core of `_attn_any_kernel` (plain flags) and of
+// Replaces the attention core of `_attn_any_kernel` and of
 // `_attn_train_kernel` / `_mhsa(want_lse=True)` in
 // mst_tpu/ops/fused_block.py. Same math and the same rounding
 // points as the Pallas body: s = q.k^T * (log2(e) / sqrt(hd)) in f32,
@@ -25,6 +25,28 @@
 // buffer is needed. The ragged edge (keys j >= S) is masked in the softmax
 // and the zero padding keeps P.V exact. At S > 400 the query tile drops to
 // 32 rows to stay under the 227 KB shared-memory ceiling.
+//
+// The explainability outputs (the flags `want_row`, `carry` and `abnar` of
+// `_attn_any_kernel`, sub-layers `fused_attention_sublayer_with_row`
+// :1479, `_rollout` :1535, `_abnar` :1503) are read from the f32 p and l
+// while a warp holds its row in registers (P.V reads only P's bf16 copy),
+// so the probabilities never reach device memory:
+// - row: the block with q0 == 0 writes row 0's p / l, [N, heads, S] f32;
+// - carry: new[j] = sum_q carry[q] * (1 / l_q) * p[q, j]. The sum crosses
+//   the query tiles, so each lane keeps its warp's rows' sum in registers,
+//   the 8 warps are added in shared memory (in V's place, free after P.V),
+//   each block writes one partial [S] per (tile, slice, head), and
+//   `sum_partials` adds the tiles in a fixed order: no float atomics, so
+//   two runs give the same bits;
+// - abnar: the head mean crosses the head blocks, so its kernel is another
+//   grid, one block per (64- or 32-query tile, slice) that runs the heads
+//   one after the other and keeps the f32 head sum sum_h p / l of its rows
+//   in shared memory (69,632 bytes at BQ = 64, S = 257; 228,096 bytes in
+//   all, under the 232,448 a block may have; BQ = 32 up to S = 416),
+//   summed in head order as the Pallas body does; its epilogue adds I,
+//   row-normalises and writes each row of the [N, S, S] f32 factor once.
+//   Per-head partials in device memory with a second pass would write and
+//   read 406 MB more per block at N = 256.
 #include "common.cuh"
 
 namespace mst {
@@ -32,6 +54,7 @@ namespace {
 
 constexpr int HD = 64;         // head dim (every DINOv2 ViT size)
 constexpr int THREADS = 256;   // 8 warps
+constexpr int WARPS = THREADS / 32;
 constexpr int LDQ = HD + 8;    // bf16 stride of Q / K / V rows
 constexpr int LDO = HD + 4;    // f32 stride of the output staging tile
 constexpr int MAX_S = 512;     // FUSED_MAX_TOKENS
@@ -61,11 +84,29 @@ __host__ __device__ inline Layout layout(int bq, int S) {
   return L;
 }
 
-template <int BQ>
-__global__ void __launch_bounds__(THREADS)
-mhsa_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
-            float* __restrict__ lse, int S, int E, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
+// Shared memory of the Abnar kernel: the attention layout, then the f32
+// head sum [BQ][pad16(S)] at a 16-byte boundary.
+__host__ __device__ inline size_t abnar_sum_offset(int bq, int S) {
+  return (layout(bq, S).total + 15) & ~size_t(15);
+}
+
+__host__ __device__ inline size_t abnar_bytes(int bq, int S) {
+  return abnar_sum_offset(bq, S) + size_t(bq) * pad16(S) * sizeof(float);
+}
+
+// One (query tile, head, slice): loads, scores, softmax, P.V, o written.
+// `on_row(r, v, l, mx)` runs in the softmax for each row r of the tile,
+// with the warp's lanes holding v[i] = p[r, lane + 32 i] (f32, 0 past S)
+// in registers, the row sum l and the row max mx: the f32 probabilities,
+// of which P.V reads only the bf16 copy. On return every thread has passed
+// the barrier after P.V, so V's shared memory is free; Q, K (the output
+// staging), the scores and l are not.
+template <int BQ, class RowFn>
+__device__ __forceinline__ void attend(const bf16* __restrict__ qkv,
+                                       bf16* __restrict__ out,
+                                       unsigned char* smem, int n, int h,
+                                       int q0, int S, int E, float scale,
+                                       RowFn&& on_row) {
   const Layout L = layout(BQ, S);
   const int sp = pad16(S);
   const int lds = sp + 4;
@@ -76,9 +117,6 @@ mhsa_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
   float* Ss = reinterpret_cast<float*>(smem + L.s);
   float* Ls = reinterpret_cast<float*>(smem + L.l);
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int n = blockIdx.z;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -107,7 +145,7 @@ mhsa_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
 
   // Scores S = Q K^T * scale, f32, [BQ][sp].
   const int tiles_n = sp / 16;
-  for (int t = warp; t < (BQ / 16) * tiles_n; t += THREADS / 32) {
+  for (int t = warp; t < (BQ / 16) * tiles_n; t += WARPS) {
     const int ti = t / tiles_n, tj = t % tiles_n;
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
     wmma::fill_fragment(acc, 0.0f);
@@ -127,7 +165,7 @@ mhsa_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
 
   // Softmax rows: exp2 against the row max, f32 row sum; P goes back as
   // bf16 over the first half of the same row (all reads precede the writes).
-  for (int r = warp; r < BQ; r += THREADS / 32) {
+  for (int r = warp; r < BQ; r += WARPS) {
     float* srow = Ss + r * lds;
     float v[PER_LANE];
     float mx = -INFINITY;
@@ -155,18 +193,15 @@ mhsa_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
       const int j = lane + 32 * i;
       if (j < sp) prow[j] = __float2bfloat16(v[i]);
     }
-    if (lane == 0) {
-      Ls[r] = l;
-      if (lse != nullptr && q0 + r < S)
-        lse[(size_t(n) * S + q0 + r) * gridDim.y + h] = mx + log2f(l);
-    }
+    if (lane == 0) Ls[r] = l;
+    on_row(r, v, l, mx);
   }
   __syncthreads();
 
   // O = P V (P as bf16 rows of stride 2 * lds elements), staged in f32.
   const int ldp = 2 * lds;
   const bf16* Ps = reinterpret_cast<const bf16*>(Ss);
-  for (int t = warp; t < (BQ / 16) * (HD / 16); t += THREADS / 32) {
+  for (int t = warp; t < (BQ / 16) * (HD / 16); t += WARPS) {
     const int ti = t / (HD / 16), tj = t % (HD / 16);
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
     wmma::fill_fragment(acc, 0.0f);
@@ -193,36 +228,203 @@ mhsa_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
   }
 }
 
+// Grid (query tiles, heads, N). lse: NULL when not wanted. ROW: row [N,
+// heads, S] out. CARRY: carry [N, heads, S] in, part [tiles, N, heads, S]
+// out. Both are template flags, so the plain kernel carries no code of
+// theirs.
+template <int BQ, bool ROW, bool CARRY>
+__global__ void __launch_bounds__(THREADS)
+mhsa_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
+            float* __restrict__ lse, float* __restrict__ row,
+            const float* __restrict__ carry, float* __restrict__ part, int S,
+            int E, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y, H = gridDim.y;
+  const int n = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t nh = size_t(n) * H + h;
+  float cacc[PER_LANE];  // CARRY: sum over this warp's rows of r_q * p[q, j]
+#pragma unroll
+  for (int i = 0; i < PER_LANE; ++i) cacc[i] = 0.0f;
+
+  attend<BQ>(qkv, out, smem, n, h, q0, S, E, scale,
+             [&](int r, const float (&v)[PER_LANE], float l, float mx) {
+    const int q = q0 + r;  // rows q >= S are the ragged tile's zero rows
+    if (lse != nullptr && lane == 0 && q < S)
+      lse[(size_t(n) * S + q) * H + h] = mx + log2f(l);
+    if (ROW && q == 0) {
+#pragma unroll
+      for (int i = 0; i < PER_LANE; ++i) {
+        const int j = lane + 32 * i;
+        if (j < S) row[nh * S + j] = v[i] / l;
+      }
+    }
+    if (CARRY && q < S) {
+      const float c = carry[nh * S + q] * (1.0f / l);
+#pragma unroll
+      for (int i = 0; i < PER_LANE; ++i) cacc[i] += c * v[i];
+    }
+  });
+  if (!CARRY) return;
+
+  // The 8 warps' sums, in V's place (free after P.V), added in warp order.
+  const int sp = pad16(S);
+  float* red = reinterpret_cast<float*>(smem + layout(BQ, S).v);
+#pragma unroll
+  for (int i = 0; i < PER_LANE; ++i) {
+    const int j = lane + 32 * i;
+    if (j < sp) red[warp * sp + j] = cacc[i];
+  }
+  __syncthreads();
+  float* dst = part + (size_t(blockIdx.x) * gridDim.z * H + nh) * S;
+  for (int j = threadIdx.x; j < S; j += THREADS) {
+    float s = 0.0f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) s += red[w * sp + j];
+    dst[j] = s;
+  }
+}
+
+// Grid (query tiles, N): the heads one after the other, o of each written
+// as by mhsa_kernel, then the factor rownorm(sum_h p_h / l_h / H + I) of
+// the tile's rows into factor [N, S, S] f32.
+template <int BQ>
+__global__ void __launch_bounds__(THREADS)
+mhsa_abnar_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
+                  float* __restrict__ factor, int S, int E, int H,
+                  float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int sp = pad16(S);
+  float* A = reinterpret_cast<float*>(smem + abnar_sum_offset(BQ, S));
+  const int q0 = blockIdx.x * BQ;
+  const int n = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  for (int h = 0; h < H; ++h) {
+    attend<BQ>(qkv, out, smem, n, h, q0, S, E, scale,
+               [&](int r, const float (&v)[PER_LANE], float l, float) {
+      float* a = A + r * sp;
+#pragma unroll
+      for (int i = 0; i < PER_LANE; ++i) {
+        const int j = lane + 32 * i;
+        if (j < sp) a[j] = h == 0 ? v[i] / l : a[j] + v[i] / l;
+      }
+    });
+    __syncthreads();  // the next head's loads overwrite what o's write reads
+  }
+
+  // Each warp reads back the rows it summed (the softmax's row assignment).
+  const float inv_h = 1.0f / H;
+  for (int r = warp; r < BQ; r += WARPS) {
+    const int q = q0 + r;
+    if (q >= S) break;  // warp-uniform, and later rows lie further out
+    const float* a = A + r * sp;
+    float v[PER_LANE];
+    float sum = 0.0f;
+#pragma unroll
+    for (int i = 0; i < PER_LANE; ++i) {
+      const int j = lane + 32 * i;
+      v[i] = j < S ? a[j] * inv_h + (j == q ? 1.0f : 0.0f) : 0.0f;
+      sum += v[i];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    float* dst = factor + (size_t(n) * S + q) * S;
+#pragma unroll
+    for (int i = 0; i < PER_LANE; ++i) {
+      const int j = lane + 32 * i;
+      if (j < S) dst[j] = v[i] / sum;
+    }
+  }
+}
+
 constexpr size_t SMEM_CAP = 227 * 1024;
+
+// The attention kernel, then (CARRY) the fixed-order sum of its per-tile
+// partials into new_carry [N, heads, S].
+template <int BQ, bool ROW, bool CARRY>
+cudaError_t launch(const bf16* qkv, bf16* out, float* lse, float* row,
+                   const float* carry, float* part, float* new_carry, int N,
+                   int S, int E, int H, float scale, cudaStream_t st) {
+  const size_t bytes = layout(BQ, S).total;
+  cudaError_t err = allow_smem(mhsa_kernel<BQ, ROW, CARRY>, bytes);
+  if (err != cudaSuccess) return err;
+  const int tiles = (S + BQ - 1) / BQ;
+  dim3 grid(tiles, H, N);
+  mhsa_kernel<BQ, ROW, CARRY><<<grid, THREADS, bytes, st>>>(qkv, out, lse, row, carry, part,
+                                                            S, E, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !CARRY) return err;
+  return sum_partials(part, new_carry, tiles, N * H * S, st);
+}
+
+template <int BQ>
+cudaError_t launch_flags(const bf16* qkv, bf16* out, float* lse, float* row,
+                         const float* carry, float* part, float* new_carry, int N,
+                         int S, int E, int H, float scale, cudaStream_t st) {
+  if (carry != nullptr)
+    return row != nullptr
+               ? launch<BQ, true, true>(qkv, out, lse, row, carry, part, new_carry, N, S, E, H,
+                                        scale, st)
+               : launch<BQ, false, true>(qkv, out, lse, row, carry, part, new_carry, N, S, E,
+                                         H, scale, st);
+  return row != nullptr
+             ? launch<BQ, true, false>(qkv, out, lse, row, carry, part, new_carry, N, S, E, H,
+                                       scale, st)
+             : launch<BQ, false, false>(qkv, out, lse, row, carry, part, new_carry, N, S, E, H,
+                                        scale, st);
+}
+
+template <int BQ>
+cudaError_t launch_abnar(const bf16* qkv, bf16* out, float* factor, int N, int S, int E,
+                         int H, float scale, cudaStream_t st) {
+  const size_t bytes = abnar_bytes(BQ, S);
+  cudaError_t err = allow_smem(mhsa_abnar_kernel<BQ>, bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((S + BQ - 1) / BQ, N);
+  mhsa_abnar_kernel<BQ><<<grid, THREADS, bytes, st>>>(qkv, out, factor, S, E, H, scale);
+  return cudaGetLastError();
+}
 
 }  // namespace
 }  // namespace mst
 
-// qkv [N*S, 3E] bf16 -> out [N*S, E] bf16, and lse [N*S, num_heads] f32
-// or NULL; E == num_heads * 64, S <= 512. scale = log2(e) / sqrt(64).
-extern "C" int mst_mhsa(const void* qkv, void* out, void* lse, int N, int S,
-                        int E, int num_heads, float scale, void* stream) {
+// qkv [N*S, 3E] bf16 -> out [N*S, E] bf16; E == num_heads * 64, S <= 512,
+// scale = log2(e) / sqrt(64). Each other output is NULL when not wanted:
+// lse [N*S, num_heads] f32; row [N, num_heads, S] f32; carry [N,
+// num_heads, S] f32 in with carry_part (room for [ceil(S / 32), N,
+// num_heads, S] f32) and new_carry [N, num_heads, S] f32 out; abnar [N, S,
+// S] f32 (alone: no lse, row or carry with it; S <= 416).
+extern "C" int mst_mhsa(const void* qkv, void* out, void* lse, void* row,
+                        const void* carry, void* carry_part, void* new_carry,
+                        void* abnar, int N, int S, int E, int num_heads,
+                        float scale, void* stream) {
   using namespace mst;
   if (N <= 0 || N > 65535 || S <= 0 || S > MAX_S || num_heads <= 0 ||
-      num_heads > 65535 || E != num_heads * HD)
+      num_heads > 65535 || E != num_heads * HD ||
+      (carry == nullptr) != (carry_part == nullptr) ||
+      (carry == nullptr) != (new_carry == nullptr) ||
+      size_t(N) * num_heads * S > size_t(INT32_MAX))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* in = static_cast<const bf16*>(qkv);
   bf16* o = static_cast<bf16*>(out);
   float* b = static_cast<float*>(lse);
-  const Layout l64 = layout(64, S);
-  cudaError_t err;
-  if (l64.total <= SMEM_CAP) {
-    err = allow_smem(mhsa_kernel<64>, l64.total);
-    if (err != cudaSuccess) return err;
-    dim3 grid((S + 63) / 64, num_heads, N);
-    mhsa_kernel<64><<<grid, THREADS, l64.total, st>>>(in, o, b, S, E, scale);
-  } else {
-    const Layout l32 = layout(32, S);
-    err = allow_smem(mhsa_kernel<32>, l32.total);
-    if (err != cudaSuccess) return err;
-    dim3 grid((S + 31) / 32, num_heads, N);
-    mhsa_kernel<32><<<grid, THREADS, l32.total, st>>>(in, o, b, S, E, scale);
+  float* rw = static_cast<float*>(row);
+  const float* c = static_cast<const float*>(carry);
+  float* part = static_cast<float*>(carry_part);
+  float* nc = static_cast<float*>(new_carry);
+  if (abnar != nullptr) {
+    if (lse != nullptr || row != nullptr || carry != nullptr) return cudaErrorInvalidValue;
+    float* f = static_cast<float*>(abnar);
+    if (abnar_bytes(64, S) <= SMEM_CAP)
+      return launch_abnar<64>(in, o, f, N, S, E, num_heads, scale, st);
+    if (abnar_bytes(32, S) <= SMEM_CAP)
+      return launch_abnar<32>(in, o, f, N, S, E, num_heads, scale, st);
+    return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
+  return layout(64, S).total <= SMEM_CAP
+             ? launch_flags<64>(in, o, b, rw, c, part, nc, N, S, E, num_heads, scale, st)
+             : launch_flags<32>(in, o, b, rw, c, part, nc, N, S, E, num_heads, scale, st);
 }

@@ -7,10 +7,10 @@ permutation — and drops the last partial batch; val / test iterate in
 order with the last batch partial. Batches are collated on the host,
 shipped in `wire_dtype` (float16, as the JAX loader ships value-range
 volumes) and augmented on `device` (`transforms.augment_batch`) with
-per-sample seeds from the same crc32 key as the JAX loader. The prefetch
-thread, the test split, segmentation masks, per-host sharding and the
-reference datasets come with the host data path, the predict CLI and
-multi-GPU (ROADMAP queue A #5, #6, #13).
+per-sample seeds from the same crc32 key as the JAX loader; the test split
+(the predict CLI's) iterates like val. The prefetch thread, segmentation
+masks, per-host sharding and the reference datasets come with the host
+data path and multi-GPU (ROADMAP queue A #5, #13).
 """
 
 from __future__ import annotations
@@ -36,8 +36,8 @@ class DataModule:
     def __init__(self, ds_train=None, ds_val=None, batch_size: int = 1,
                  weights: Optional[np.ndarray] = None,
                  num_train_samples: Optional[int] = None, seed: int = 0,
-                 device="cpu", wire_dtype=np.float16):
-        self.ds_train, self.ds_val = ds_train, ds_val
+                 device="cpu", wire_dtype=np.float16, ds_test=None):
+        self.ds_train, self.ds_val, self.ds_test = ds_train, ds_val, ds_test
         self.batch_size = batch_size
         self.weights = None if weights is None else np.asarray(weights,
                                                                np.float64)
@@ -91,6 +91,10 @@ class DataModule:
     def val_dataloader(self) -> Iterator[dict]:
         return self._iter_batches(self.ds_val, np.arange(len(self.ds_val)),
                                   train=False)
+
+    def test_dataloader(self) -> Iterator[dict]:
+        return self._iter_batches(self.ds_test,
+                                  np.arange(len(self.ds_test)), train=False)
 
 
 def balanced_weights(labels: np.ndarray) -> np.ndarray:

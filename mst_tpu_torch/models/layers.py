@@ -22,7 +22,10 @@ from torch import nn
 from mst_tpu_torch.ops.fused_block import (
     _ln,
     fused_attention_sublayer,
+    fused_attention_sublayer_abnar,
+    fused_attention_sublayer_rollout,
     fused_attention_sublayer_train,
+    fused_attention_sublayer_with_row,
     fused_mlp_sublayer,
     fused_mlp_sublayer_train,
 )
@@ -131,21 +134,37 @@ class Block(nn.Module):
         else:
             self.ls1 = self.ls2 = None
 
-    def forward(self, h, train: bool = False):
+    def forward(self, h, train: bool = False, want_row: bool = False,
+                carry=None, abnar: bool = False):
+        """-> h. With `carry`, `abnar` or `want_row` (serving only) the
+        attention sub-layer is its explainability variant and the block
+        returns (h, new_carry | Abnar factor | CLS row)."""
         dt = h.dtype
         # the serving sub-layers take compute-dtype matrices, the train ones
         # the f32 parameters
         cast = (lambda w: w) if train else (lambda w: w.to(dt))
-        attn = fused_attention_sublayer_train if train else \
-            fused_attention_sublayer
         mlp = fused_mlp_sublayer_train if train else fused_mlp_sublayer
-        h = attn(h, self.norm1.scale, self.norm1.bias,
-                 cast(self.attn.qkv.kernel), self.attn.qkv.bias,
-                 cast(self.attn.proj.kernel), self.attn.proj.bias,
-                 None if self.ls1 is None else self.ls1.gamma,
-                 self.num_heads, self.norm_eps)
-        return mlp(h, self.norm2.scale, self.norm2.bias,
-                   cast(self.mlp.fc1.kernel), self.mlp.fc1.bias,
-                   cast(self.mlp.fc2.kernel), self.mlp.fc2.bias,
-                   None if self.ls2 is None else self.ls2.gamma,
-                   self.gelu_approximate, self.norm_eps)
+        attn_args = (h, self.norm1.scale, self.norm1.bias,
+                     cast(self.attn.qkv.kernel), self.attn.qkv.bias,
+                     cast(self.attn.proj.kernel), self.attn.proj.bias,
+                     None if self.ls1 is None else self.ls1.gamma)
+        extra = None
+        if carry is not None:
+            h, extra = fused_attention_sublayer_rollout(
+                *attn_args, carry, self.num_heads, self.norm_eps)
+        elif abnar:
+            h, extra = fused_attention_sublayer_abnar(
+                *attn_args, self.num_heads, self.norm_eps)
+        elif want_row:
+            h, extra = fused_attention_sublayer_with_row(
+                *attn_args, self.num_heads, self.norm_eps)
+        else:
+            attn = fused_attention_sublayer_train if train else \
+                fused_attention_sublayer
+            h = attn(*attn_args, self.num_heads, self.norm_eps)
+        h = mlp(h, self.norm2.scale, self.norm2.bias,
+                cast(self.mlp.fc1.kernel), self.mlp.fc1.bias,
+                cast(self.mlp.fc2.kernel), self.mlp.fc2.bias,
+                None if self.ls2 is None else self.ls2.gamma,
+                self.gelu_approximate, self.norm_eps)
+        return h if extra is None else (h, extra)

@@ -32,7 +32,10 @@ class MultiheadAttention(nn.Module):
         self.in_proj = Dense(dim, 3 * dim)
         self.out_proj = Dense(dim, dim)
 
-    def forward(self, x, key_padding_mask: Optional[torch.Tensor] = None):
+    def forward(self, x, key_padding_mask: Optional[torch.Tensor] = None,
+                want_probs: bool = False):
+        """-> out, or (out, probs [b, heads, s, s] f32) with `want_probs`
+        (the saliency path's `fusion_probs`; padded keys at -1e30)."""
         b, s, e = x.shape
         nh = self.num_heads
         hd = e // nh
@@ -44,8 +47,8 @@ class MultiheadAttention(nn.Module):
             sc = sc.masked_fill(key_padding_mask[:, None, None, :], NEG_INF)
         p = torch.softmax(sc, dim=-1)
         o = torch.matmul(p.to(x.dtype).float(), v.float()).to(x.dtype)
-        o = o.permute(0, 2, 1, 3).reshape(b, s, e)
-        return self.out_proj(o)
+        o = self.out_proj(o.permute(0, 2, 1, 3).reshape(b, s, e))
+        return (o, p) if want_probs else o
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -60,6 +63,11 @@ class TransformerEncoderLayer(nn.Module):
         self.norm1 = LayerNorm(d_model, 1e-5)
         self.norm2 = LayerNorm(d_model, 1e-5)
 
-    def forward(self, x, key_padding_mask: Optional[torch.Tensor] = None):
-        x = x + self.self_attn(self.norm1(x), key_padding_mask)
-        return x + self.linear2(torch.relu(self.linear1(self.norm2(x))))
+    def forward(self, x, key_padding_mask: Optional[torch.Tensor] = None,
+                want_probs: bool = False):
+        """-> x, or (x, attention probs) with `want_probs`."""
+        a = self.self_attn(self.norm1(x), key_padding_mask, want_probs)
+        a, probs = a if want_probs else (a, None)
+        x = x + a
+        x = x + self.linear2(torch.relu(self.linear1(self.norm2(x))))
+        return (x, probs) if want_probs else x

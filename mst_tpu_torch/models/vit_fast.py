@@ -8,14 +8,19 @@ too), the last block is evaluated for the CLS token only
 (`_cls_last_block`, plain ops as in the JAX package, differentiated by
 autograd when training), and the slice fusion and head stay plain PyTorch.
 
+The explainability forward (`fused_mst_saliency`) runs the same blocks
+with one more output of the attention kernel: the last block's CLS row,
+the rollout carry, or each block's Abnar factor.
+
 This is the port's only forward: configurations outside the gate raise
-instead of running a second composition. Saliency, `remat`, frozen-encoder
+instead of running a second composition. `remat`, frozen-encoder
 training, int8 and the long-sequence flash path are later ROADMAP items.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -23,6 +28,13 @@ import torch
 
 from mst_tpu_torch.models.vit import _VIT_CONFIGS, interpolate_pos_embed
 from mst_tpu_torch.ops.fused_block import _ln
+from mst_tpu_torch.ops.saliency import (
+    attention_rollout_from_factors,
+    combined_saliency,
+    plane_attention_from_row,
+    slice_attention,
+    upsample_saliency,
+)
 
 # The fused sub-layers hold a slice's whole sequence per attention block
 # (`mhsa` keeps K, V and the score rows in shared memory). Longer sequences
@@ -130,15 +142,59 @@ def _cls_last_block(h, blk, cfg: FastViTConfig):
 
 
 def fused_vit_cls(enc, x, cfg: FastViTConfig, dtype=torch.bfloat16,
-                  train: bool = False):
+                  train: bool = False, want_last_row: bool = False,
+                  want_rollout: bool = False, want_abnar: bool = False):
     """enc: the VisionTransformer module; x [N, H, W, 3] -> CLS [N, E].
-    `train=True` runs the blocks on the residual-saving sub-layers."""
+    `train=True` runs the blocks on the residual-saving sub-layers.
+
+    The saliency modes (serving only, one at a time) return (cls, data):
+    `want_last_row` the last block's per-head CLS softmax row [N, heads, S]
+    f32; `want_rollout` the reference `get_attention_cls` chain's CLS row,
+    a carry [N, heads, S] f32 moved through every block's attention kernel;
+    `want_abnar` the list of every block's Abnar factor [N, S, S] f32 (the
+    newest-first product cannot ride a forward carry)."""
+    if sum((want_last_row, want_rollout, want_abnar)) > 1:
+        raise ValueError("want_last_row / want_rollout / want_abnar are "
+                         "mutually exclusive saliency modes")
+    if train and (want_last_row or want_rollout or want_abnar):
+        raise ValueError("the saliency modes are serving-only paths")
     h = prepare_vit_tokens(enc, x, cfg, dtype)
-    for i in range(cfg.depth - 1):
-        h = enc.block(i)(h, train=train)
-    cls_vec, _ = _cls_last_block(h, enc.block(cfg.depth - 1), cfg)
-    hf = _ln(cls_vec, enc.norm.scale, enc.norm.bias, cfg.norm_eps)
-    return hf.to(dtype)
+    carry = last_row = None
+    factors = []
+    if want_rollout:  # e_0: the chain starts empty
+        carry = torch.zeros(h.shape[0], cfg.num_heads, h.shape[1],
+                            device=h.device)
+        carry[:, :, 0] = 1.0
+    # The last block for the CLS token only, unless a mode needs its whole
+    # attention; MST_NO_CHEAP_LAST (as in the JAX package) runs it in full,
+    # so "last" takes its row from the `with_row` kernel.
+    cheap_last = (not want_rollout and not want_abnar
+                  and not os.environ.get("MST_NO_CHEAP_LAST"))
+    for i in range(cfg.depth - 1 if cheap_last else cfg.depth):
+        blk = enc.block(i)
+        if want_rollout:
+            h, carry = blk(h, carry=carry)
+        elif want_abnar:
+            h, amat = blk(h, abnar=True)
+            factors.append(amat)
+        elif want_last_row and i == cfg.depth - 1:
+            h, last_row = blk(h, want_row=True)
+        else:
+            h = blk(h, train=train)
+    if cheap_last:
+        cls_vec, row = _cls_last_block(h, enc.block(cfg.depth - 1), cfg)
+        if want_last_row:
+            last_row = row
+    else:
+        cls_vec = h[:, 0]  # the final LN is per token
+    cls = _ln(cls_vec, enc.norm.scale, enc.norm.bias, cfg.norm_eps).to(dtype)
+    if want_rollout:
+        return cls, carry
+    if want_abnar:
+        return cls, factors
+    if want_last_row:
+        return cls, last_row
+    return cls
 
 
 def _linear_resize_weights(out_size: int, in_size: int) -> np.ndarray:
@@ -164,6 +220,44 @@ def fused_mst_logits(model, source, src_key_padding_mask=None, dtype=None,
     holds the parameters); `dtype` defaults to `model.dtype`. `train=True`
     selects the residual-sharing train sub-layers (the loss backward runs
     their backward kernels; valid because the model has no dropout)."""
+    _check_fused(model, source)
+    dtype = model.dtype if dtype is None else dtype
+    return _fused_mst(model, source, src_key_padding_mask, dtype, train)[0]
+
+
+PLANE_MODES = ("last", "rollout", "rollout_abnar")
+
+
+def fused_mst_saliency(model, source, src_key_padding_mask=None, dtype=None,
+                       plane_mode: str = "last"):
+    """(probs [B, classes] f32, saliency [B, D, H, W] f32) on the fused
+    serving path, without any [S, S] attention matrix of the encoder in
+    device memory. plane_mode "last": the last block's CLS row;
+    "rollout": the reference `get_attention_cls` chain's CLS row, carried
+    through every block's kernel; "rollout_abnar": the Abnar & Zuidema
+    rollout of the per-block factors the kernels emit, chained in f32 by
+    `torch.matmul`. Slice weights come from the fusion layer's probs."""
+    if plane_mode not in PLANE_MODES:
+        raise ValueError(f"plane_mode {plane_mode!r} not in {PLANE_MODES}")
+    _check_fused(model, source)
+    dtype = model.dtype if dtype is None else dtype
+    d, hh, ww = source.shape[2:]
+    p = model.patch_size
+    logits, sal_data, fusion_probs = _fused_mst(
+        model, source, src_key_padding_mask, dtype, plane_mode=plane_mode)
+    probs = torch.softmax(logits.float(), -1)
+    sw = slice_attention(fusion_probs)
+    n_prefix = 1 + model.num_register_tokens
+    gh, gw = hh // p, ww // p
+    if plane_mode == "rollout_abnar":
+        pw = attention_rollout_from_factors(sal_data, n_prefix).reshape(
+            -1, gh, gw)
+    else:
+        pw = plane_attention_from_row(sal_data, n_prefix, (gh, gw))
+    return probs, upsample_saliency(combined_saliency(sw, pw), (d, hh, ww))
+
+
+def _check_fused(model, source):
     if not fused_config_supported(model):
         raise NotImplementedError(
             f"{type(model).__name__} config is outside the fused serving path")
@@ -172,17 +266,26 @@ def fused_mst_logits(model, source, src_key_padding_mask=None, dtype=None,
             f"{tuple(source.shape[-2:])} slices exceed FUSED_MAX_TOKENS="
             f"{FUSED_MAX_TOKENS} tokens; the flash-attention path is ROADMAP "
             f"queue A #10")
-    dtype = model.dtype if dtype is None else dtype
-    return _fused_mst(model, source, src_key_padding_mask, dtype, train)
 
 
-def _fused_mst(model, source, src_key_padding_mask, dtype, train=False):
+def _fused_mst(model, source, src_key_padding_mask, dtype, train=False,
+               plane_mode=None):
+    """-> (logits, saliency data | None, fusion probs | None); with a
+    `plane_mode` the encoder runs that saliency mode and the last fusion
+    layer returns its probabilities [B, heads, 1+D, 1+D] f32."""
     cfg = FastViTConfig.from_model(model)
     b, c, d, hh, ww = source.shape
     x = source.permute(0, 2, 3, 4, 1).reshape(b * d, hh, ww, c)
     if c == 1:
         x = x.expand(b * d, hh, ww, 3)  # gray -> RGB
-    feats = fused_vit_cls(model.encoder, x, cfg, dtype, train)
+    sal_data = fusion_probs = None
+    if plane_mode is None:
+        feats = fused_vit_cls(model.encoder, x, cfg, dtype, train)
+    else:
+        feats, sal_data = fused_vit_cls(
+            model.encoder, x, cfg, dtype, want_last_row=plane_mode == "last",
+            want_rollout=plane_mode == "rollout",
+            want_abnar=plane_mode == "rollout_abnar")
     if model.use_bottleneck:
         feats = model.bottleneck(feats)
     e = feats.shape[-1]
@@ -207,8 +310,12 @@ def _fused_mst(model, source, src_key_padding_mask, dtype, train=False):
                             device=h.device)
         pad = torch.cat([torch.zeros_like(m[:, :1]), m], dim=1)
     for i in range(model.fusion_layers):
-        h = model.fusion(i)(h, pad)
+        if plane_mode is not None and i == model.fusion_layers - 1:
+            h, fusion_probs = model.fusion(i)(h, pad, want_probs=True)
+        else:
+            h = model.fusion(i)(h, pad)
     h = model.fusion_norm(h)
     pooled = h[:, 0].float()
-    return pooled @ model.head.kernel.float() + model.head.bias.float()
+    logits = pooled @ model.head.kernel.float() + model.head.bias.float()
+    return logits, sal_data, fusion_probs
 

@@ -37,8 +37,9 @@ _SIGNATURES = {
     "mst_ln_gemm": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # a, w, bias, ls|NULL, x, out, M, K, N, stream
     "mst_gemm_residual": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # qkv, out, lse|NULL, N, S, E, num_heads, scale, stream
-    "mst_mhsa": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # qkv, out, lse|NULL, row|NULL, carry|NULL, carry_part, new_carry,
+    # abnar|NULL, N, S, E, num_heads, scale, stream
+    "mst_mhsa": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     # a, w, bias, ls, g, gz, work, dls, M, K, N, stream
     "mst_gemm_dls": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # a, b, dw, db, work, M, K, N, rows_per_split, stream

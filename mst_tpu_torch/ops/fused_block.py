@@ -90,7 +90,12 @@ def _ln_gemm_ref(x, ln_s, ln_b, w, b, act: int, eps: float,
     return y.to(x.dtype)
 
 
-def _mhsa_ref(qkv, n: int, s: int, num_heads: int, want_lse: bool = False):
+def _mhsa_ref(qkv, n: int, s: int, num_heads: int, want_lse: bool = False,
+              want_row: bool = False, carry=None, want_abnar: bool = False):
+    """o [n*s, E], then in the JAX `_mhsa` order the optional outputs, each
+    from the f32 p before its bf16 cast: the CLS row p[0] / l [n, heads, s];
+    the Abnar factor rownorm(mean_h p / l + I) [n, s, s]; the base-2 LSE
+    [n*s, heads]; the rollout carry sum_i carry_i / l_i * p[i] [n, heads, s]."""
     e = qkv.shape[1] // 3
     hd = e // num_heads
     dt = qkv.dtype
@@ -101,12 +106,24 @@ def _mhsa_ref(qkv, n: int, s: int, num_heads: int, want_lse: bool = False):
     p = torch.exp2(sc - m)
     l = p.sum(-1, keepdim=True)
     o = (_mm(p.to(dt), v) / l).to(dt)
-    o = o.permute(0, 2, 1, 3).reshape(n * s, e)
-    if not want_lse:
-        return o
-    # base-2 log-sum-exp in the scaled units, [n * s, heads] (JAX's [N, S, H])
-    lse = (m + torch.log2(l))[..., 0].permute(0, 2, 1).reshape(n * s, num_heads)
-    return o, lse.contiguous()
+    out = (o.permute(0, 2, 1, 3).reshape(n * s, e),)
+    if want_row:
+        out += ((p[:, :, 0] / l[:, :, 0]).contiguous(),)
+    if want_abnar:
+        ab = p[:, 0] / l[:, 0]
+        for h in range(1, num_heads):  # the heads summed in order
+            ab = ab + p[:, h] / l[:, h]
+        a = ab * (1.0 / num_heads) + torch.eye(s, device=p.device)
+        out += (a / a.sum(-1, keepdim=True),)
+    if want_lse:
+        # base-2 log-sum-exp in the scaled units, [n * s, heads] (JAX's
+        # [N, S, H])
+        lse = (m + torch.log2(l))[..., 0].permute(0, 2, 1)
+        out += (lse.reshape(n * s, num_heads).contiguous(),)
+    if carry is not None:
+        r = carry.float() * (1.0 / l[..., 0])  # [n, heads, s]
+        out += ((r[..., None] * p).sum(-2),)
+    return out if len(out) > 1 else out[0]
 
 
 def _gemm_residual_ref(a, w, b, ls, x):
@@ -117,13 +134,35 @@ def _gemm_residual_ref(a, w, b, ls, x):
 
 
 def _attn_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls, num_heads,
-              eps=1e-6):
+              eps=1e-6, **flags):
+    """The attention sub-layer; `flags` (`_mhsa_ref`'s optional outputs)
+    make it return (y, *those outputs)."""
     n, s, e = x.shape
     dt = x.dtype
     x2 = x.reshape(n * s, e)
     qkv = _ln_gemm_ref(x2, ln_s, ln_b, wqkv.to(dt), bqkv, ACT_NONE, eps)
-    o = _mhsa_ref(qkv, n, s, num_heads)
-    return _gemm_residual_ref(o, wproj.to(dt), bproj, ls, x2).reshape(n, s, e)
+    o = _mhsa_ref(qkv, n, s, num_heads, **flags)
+    o, extra = (o[0], o[1:]) if isinstance(o, tuple) else (o, ())
+    y = _gemm_residual_ref(o, wproj.to(dt), bproj, ls, x2).reshape(n, s, e)
+    return (y, *extra) if extra else y
+
+
+def _attn_with_row_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls,
+                       num_heads, eps=1e-6):
+    return _attn_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls, num_heads,
+                     eps, want_row=True)
+
+
+def _attn_rollout_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls, carry,
+                      num_heads, eps=1e-6, want_row=False):
+    return _attn_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls, num_heads,
+                     eps, want_row=want_row, carry=carry)
+
+
+def _attn_abnar_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls, num_heads,
+                    eps=1e-6):
+    return _attn_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls, num_heads,
+                     eps, want_abnar=True)
 
 
 def _mlp_ref(x, ln_s, ln_b, w1, b1, w2, b2, ls, approximate, eps=1e-6):
@@ -296,24 +335,87 @@ def ln_gemm(x, ln_s, ln_b, w, b, act: int, eps: float, train: bool = False):
     return (out, h, post) if train else out
 
 
+# Largest S of `mhsa_abnar`: its block also keeps a [32, S] f32 head sum in
+# shared memory (csrc/mhsa.cu).
+ABNAR_MAX_S = 416
+
+
+def _mhsa_launch(qkv, n: int, s: int, num_heads: int, want_lse=False,
+                 want_row=False, carry=None, want_abnar=False):
+    """Launch `mst_mhsa` with the outputs asked for (NULL for the others);
+    returns them in `_mhsa_ref`'s order."""
+    e = qkv.shape[1] // 3
+    if e != 64 * num_heads or s > 512:
+        raise ValueError(f"mhsa needs head dim 64 and S <= 512; got "
+                         f"E={e}, heads={num_heads}, S={s}")
+    if want_abnar and s > ABNAR_MAX_S:
+        raise ValueError(f"mhsa_abnar needs S <= {ABNAR_MAX_S}; got S={s}")
+    _mat(qkv, "qkv", (n * s, 3 * e), qkv)
+    out = torch.empty((n * s, e), dtype=qkv.dtype, device=qkv.device)
+    lse = _f32((n * s, num_heads), qkv) if want_lse else None
+    row = _f32((n, num_heads, s), qkv) if want_row else None
+    abnar = _f32((n, s, s), qkv) if want_abnar else None
+    part = new_carry = None
+    if carry is not None:
+        if (carry.dtype != torch.float32 or tuple(carry.shape) !=
+                (n, num_heads, s) or carry.device != qkv.device):
+            raise ValueError(f"carry must be f32 {(n, num_heads, s)} on "
+                             f"{qkv.device}, got {carry.dtype} "
+                             f"{tuple(carry.shape)}")
+        carry = carry.contiguous()
+        new_carry = _f32((n, num_heads, s), qkv)
+        # one partial per query tile of 32 or 64 rows: room for the smaller
+        part = _f32((-(-s // 32), n, num_heads, s), qkv)
+    err = _build.lib().mst_mhsa(
+        qkv.data_ptr(), out.data_ptr(), _ptr(lse), _ptr(row), _ptr(carry),
+        _ptr(part), _ptr(new_carry), _ptr(abnar), n, s, e, num_heads,
+        1.0 / math.sqrt(64) * _LOG2E, _stream(qkv))
+    _build.check(err, "mst_mhsa")
+    ret = tuple(t for t in (out, row, abnar, lse, new_carry) if t is not None)
+    return ret if len(ret) > 1 else out
+
+
 def mhsa(qkv, n: int, s: int, num_heads: int, want_lse: bool = False):
     """Per-slice softmax attention: qkv [n*s, 3E] -> o [n*s, E]; with
     `want_lse` also the base-2 log-sum-exp rows [n*s, heads] f32."""
     if not _on_cuda(qkv):
         return _mhsa_ref(qkv, n, s, num_heads, want_lse)
-    e = qkv.shape[1] // 3
-    if e != 64 * num_heads or s > 512:
-        raise ValueError(f"mhsa needs head dim 64 and S <= 512; got "
-                         f"E={e}, heads={num_heads}, S={s}")
-    _mat(qkv, "qkv", (n * s, 3 * e), qkv)
-    out = torch.empty((n * s, e), dtype=qkv.dtype, device=qkv.device)
-    lse = _f32((n * s, num_heads), qkv) if want_lse else None
-    err = _build.lib().mst_mhsa(
-        qkv.data_ptr(), out.data_ptr(), _ptr(lse), n, s, e, num_heads,
-        1.0 / math.sqrt(64) * _LOG2E, _stream(qkv))
-    _build.check(err, "mst_mhsa")
+    ret = _mhsa_launch(qkv, n, s, num_heads, want_lse=want_lse)
     mhsa.launches += 1
-    return (out, lse) if want_lse else out
+    return ret
+
+
+def mhsa_with_row(qkv, n: int, s: int, num_heads: int):
+    """`mhsa` that also writes the per-head CLS softmax row p[0] / l:
+    -> (o, row [n, heads, s] f32)."""
+    if not _on_cuda(qkv):
+        return _mhsa_ref(qkv, n, s, num_heads, want_row=True)
+    ret = _mhsa_launch(qkv, n, s, num_heads, want_row=True)
+    mhsa_with_row.launches += 1
+    return ret
+
+
+def mhsa_rollout(qkv, carry, n: int, s: int, num_heads: int,
+                 want_row: bool = False):
+    """`mhsa` that moves the rollout carry one block on: new[j] =
+    sum_i carry_i / l_i * p_ij, carry [n, heads, s] f32 -> (o, [row,]
+    new_carry). One call launches the attention kernel (per-tile partial
+    sums) and the fixed-order pass that adds the tiles."""
+    if not _on_cuda(qkv):
+        return _mhsa_ref(qkv, n, s, num_heads, want_row=want_row, carry=carry)
+    ret = _mhsa_launch(qkv, n, s, num_heads, want_row=want_row, carry=carry)
+    mhsa_rollout.launches += 1
+    return ret
+
+
+def mhsa_abnar(qkv, n: int, s: int, num_heads: int):
+    """`mhsa` that also writes the Abnar & Zuidema factor of the block,
+    rownorm(mean_h p / l + I): -> (o, factor [n, s, s] f32)."""
+    if not _on_cuda(qkv):
+        return _mhsa_ref(qkv, n, s, num_heads, want_abnar=True)
+    ret = _mhsa_launch(qkv, n, s, num_heads, want_abnar=True)
+    mhsa_abnar.launches += 1
+    return ret
 
 
 def gemm_residual(a, w, b, ls, x):
@@ -489,6 +591,79 @@ def fused_mlp_sublayer(x, ln_s, ln_b, w1, b1, w2, b2, ls, approximate,
     return y.reshape(n, s, e)
 
 
+# -- explainability sub-layers (serving only): the attention sub-layer with
+# one more output of the attention core, read from the f32 probabilities
+# inside `mhsa`'s block before they are cast for P.V ---------------------
+
+
+def _no_rope(rope_cos, rope_sin):
+    if rope_cos is not None or rope_sin is not None:
+        raise NotImplementedError(
+            "RoPE sub-layers (DINOv3) are not ported to mst_tpu_torch yet "
+            "(ROADMAP queue A #7)")
+
+
+def _attn_chain(mhsa_fn, x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls, eps,
+                *mhsa_args, **mhsa_kw):
+    """ln_gemm -> `mhsa_fn` -> gemm_residual: (y, *mhsa_fn's extra outputs)."""
+    n, s, e = x.shape
+    x2 = x.reshape(n * s, e)
+    qkv = ln_gemm(x2, ln_s, ln_b, wqkv, bqkv, ACT_NONE, eps)
+    o, *extra = mhsa_fn(qkv, *mhsa_args, **mhsa_kw)
+    y = gemm_residual(o, wproj, bproj, ls, x2)
+    return (y.reshape(n, s, e), *extra)
+
+
+def fused_attention_sublayer_with_row(x, ln_s, ln_b, wqkv, bqkv, wproj,
+                                      bproj, ls, num_heads, eps=1e-6):
+    """(y, cls_row): the attention sub-layer plus the per-head CLS softmax
+    row [N, heads, S] f32."""
+    if not _on_cuda(x):
+        return _attn_with_row_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls,
+                                  num_heads, eps)
+    n, s, _ = x.shape
+    out = _attn_chain(mhsa_with_row, x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
+                      ls, eps, n, s, num_heads)
+    fused_attention_sublayer_with_row.calls += 1
+    return out
+
+
+def fused_attention_sublayer_abnar(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
+                                   ls, num_heads, eps=1e-6, rope_cos=None,
+                                   rope_sin=None):
+    """(y, abnar_factor): the attention sub-layer plus this block's Abnar &
+    Zuidema rollout factor [N, S, S] f32 (head-mean of the probabilities +
+    I, row-normalised)."""
+    _no_rope(rope_cos, rope_sin)
+    if not _on_cuda(x):
+        return _attn_abnar_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls,
+                               num_heads, eps)
+    n, s, _ = x.shape
+    out = _attn_chain(mhsa_abnar, x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
+                      ls, eps, n, s, num_heads)
+    fused_attention_sublayer_abnar.calls += 1
+    return out
+
+
+def fused_attention_sublayer_rollout(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
+                                     ls, carry, num_heads, eps=1e-6,
+                                     rope_cos=None, rope_sin=None,
+                                     want_row=False):
+    """(y, [cls_row,] new_carry): the attention sub-layer that also moves
+    the rollout carry [N, heads, S] f32 (one-hot at token 0 before block 0)
+    through this block's softmax, the CLS row of the reference
+    `get_attention_cls` chain A_0 @ ... @ A_i."""
+    _no_rope(rope_cos, rope_sin)
+    if not _on_cuda(x):
+        return _attn_rollout_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls,
+                                 carry, num_heads, eps, want_row)
+    n, s, _ = x.shape
+    out = _attn_chain(mhsa_rollout, x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
+                      ls, eps, carry, n, s, num_heads, want_row=want_row)
+    fused_attention_sublayer_rollout.calls += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Train sub-layers: residual-saving forward + hand-written backward
 # ---------------------------------------------------------------------------
@@ -650,9 +825,13 @@ def fused_mlp_sublayer_train(x, ln_s, ln_b, w1, b1, w2, b2, ls, approximate,
 # sub-layer counts the calls that ran its kernel chain (it launches nothing
 # itself). Neither moves on the CPU path.
 KERNEL_WRAPPERS = (ln_gemm, mhsa, gemm_residual, gemm_dls, gemm_wgrad,
-                   gemm_dgrad, mhsa_bwd)
+                   gemm_dgrad, mhsa_bwd, mhsa_with_row, mhsa_rollout,
+                   mhsa_abnar)
 SUBLAYER_WRAPPERS = (fused_attention_sublayer, fused_mlp_sublayer,
-                     fused_attention_sublayer_train, fused_mlp_sublayer_train)
+                     fused_attention_sublayer_train, fused_mlp_sublayer_train,
+                     fused_attention_sublayer_with_row,
+                     fused_attention_sublayer_rollout,
+                     fused_attention_sublayer_abnar)
 
 
 def reset_launch_counts() -> None:

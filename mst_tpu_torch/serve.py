@@ -4,11 +4,12 @@ Counterpart of `mst_tpu/serve.py` (`BatchingPredictor`, `serve_http`) and
 of `scripts/main_serve.py` (`main`), ported rather than imported because
 importing `mst_tpu` pulls in JAX. Run as
 
-    python -m mst_tpu_torch.serve [--init_seed 0 | --params_npz PATH] \
-        [--batch_size 8] [--max_wait_ms 5] [--host 127.0.0.1] [--port 8760] \
-        [--dtype bfloat16]
+    python -m mst_tpu_torch.serve [--init_seed 0 | --params_npz PATH |
+        --run_folder RUN] [--batch_size 8] [--max_wait_ms 5] \
+        [--host 127.0.0.1] [--port 8760] [--dtype bfloat16]
 
-It serves MST-DINOv2 ViT-S/14 on the CUDA card.
+It serves MST-DINOv2 ViT-S/14 (or the model of a `python -m
+mst_tpu_torch.train` run folder, `load_run_model`) on the CUDA card.
 
 API:  POST /predict  (np.save bytes of a [C, D, H, W] float volume)
           -> {"probs": [...], "pred": argmax}
@@ -29,6 +30,7 @@ import queue
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -205,7 +207,6 @@ def serve_http(predictor: BatchingPredictor, host: str = "127.0.0.1",
 
 
 _LATER = {
-    "run_folder": "run folders and checkpoints are ROADMAP queue A #14",
     "exported": "exported artifacts are ROADMAP queue A #14",
     "int8": "int8 serving is ROADMAP queue A #11",
     "num_devices": "multi-GPU serving is ROADMAP queue A #13",
@@ -213,6 +214,44 @@ _LATER = {
 
 
 MODEL = "DinoV2ClassifierSlice"  # ViT-S/14, the flagship the port serves
+
+# The model options a run folder's hparams may set (mst_tpu/serve.py).
+_HPARAM_KEYS = (
+    "model_size", "slice_fusion", "rotary", "use_bottleneck",
+    "use_slice_pos_emb", "freeze", "fusion_heads", "num_register_tokens",
+    "pos_embed_grid", "layerscale_init", "gelu_approximate", "use_rope_2d",
+    "patch_size", "use_pos_embed", "rope_normalized", "norm_eps",
+    "ffn_layer", "ffn_hidden",
+)
+
+
+def load_run_model(run_folder, dtype=None):
+    """Run folder (`python -m mst_tpu_torch.train` output) -> the model of
+    its hparams with its best checkpoint's weights (parameters f32 on the
+    CPU; `dtype` is the compute dtype, default f32). The model name is the
+    hparams' `model`, else the folder name's first part, as in the JAX
+    package."""
+    from mst_tpu_torch.models.convert import params_from_flax
+    from mst_tpu_torch.registry import get_model
+    from mst_tpu_torch.utils.checkpoint import (
+        BEST_POINTER,
+        load_best_params,
+        load_hparams,
+    )
+
+    path_run = Path(run_folder)
+    if not (path_run / BEST_POINTER).exists():
+        raise FileNotFoundError(
+            f"{path_run} is not a run folder (no {BEST_POINTER})")
+    hparams = load_hparams(path_run) or {}
+    name = hparams.get("model") or path_run.name.split("_")[0]
+    model_kw = {k: v for k, v in hparams.items() if k in _HPARAM_KEYS}
+    if model_kw.pop("freeze", False):
+        raise NotImplementedError(
+            "frozen-encoder runs are not ported to mst_tpu_torch yet "
+            "(ROADMAP queue A #4)")
+    model = get_model(name, dtype=dtype or torch.float32, **model_kw)
+    return params_from_flax(model, load_best_params(path_run))
 
 
 def load_weights(model, args):
@@ -229,11 +268,15 @@ def load_weights(model, args):
 
 
 def build_model(args):
-    """-> MODEL on the CUDA card, in --dtype, with its weights loaded."""
+    """-> the --run_folder's model, or MODEL with --params_npz / seeded
+    weights, on the CUDA card in --dtype."""
     from mst_tpu_torch.registry import get_model
 
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    model = load_weights(get_model(MODEL, dtype=dtype), args)
+    if args.run_folder:
+        model = load_run_model(args.run_folder, dtype)
+    else:
+        model = load_weights(get_model(MODEL, dtype=dtype), args)
     return model.to(torch.device("cuda")).eval()
 
 
@@ -242,7 +285,7 @@ def build_server(args, model):
     in-process use."""
     from mst_tpu_torch.train.predictor import make_predict_fn
 
-    predictor = BatchingPredictor(make_predict_fn(model),
+    predictor = BatchingPredictor(make_predict_fn(model, with_saliency=False),
                                   batch_size=args.batch_size,
                                   max_wait_ms=args.max_wait_ms)
     device = next(model.parameters()).device
@@ -256,10 +299,13 @@ def build_server(args, model):
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(prog="python -m mst_tpu_torch.serve")
     src = ap.add_mutually_exclusive_group()
+    src.add_argument("--run_folder", default=None,
+                     help="a `python -m mst_tpu_torch.train` run folder: "
+                          "its model and best checkpoint")
     src.add_argument("--params_npz", default=None,
                      help="flat '/'-keyed .npz of the flax parameter tree")
     src.add_argument("--init_seed", type=int, default=0,
-                     help="seeded random weights (default when no npz)")
+                     help="seeded random weights (default when neither)")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8760)
     ap.add_argument("--batch_size", type=int, default=8,
@@ -270,7 +316,6 @@ def parse_args(argv=None):
                          "the first queued request")
     ap.add_argument("--dtype", default="bfloat16",
                     choices=["float32", "bfloat16"])
-    ap.add_argument("--run_folder", default=None)
     ap.add_argument("--exported", default=None)
     ap.add_argument("--int8", action="store_true")
     ap.add_argument("--num_devices", type=int, default=1)

@@ -1,11 +1,14 @@
-"""Inference: class probabilities with batched flip-TTA.
+"""Inference: class probabilities and 3D saliency, with batched flip-TTA.
 
-Counterpart of `mst_tpu/train/predictor.py` `make_predict_fn` without
-saliency: the fused serving forward (`models/vit_fast.fused_mst_logits`),
-softmax in f32, and the 8-way flip TTA run as ONE batch (the flip stack is
-a leading batch axis; probabilities average after the softmax; a variant
-that flips the slice axis flips the key-padding mask too). Saliency is
-ROADMAP queue A #6.
+Counterpart of `mst_tpu/train/predictor.py` `make_predict_fn` for the
+fused DINOv2 path: the serving forward (`models/vit_fast.fused_mst_logits`)
+or, with saliency, the explainability forward
+(`models/vit_fast.fused_mst_saliency`: slice attention x plane attention,
+upsampled to the volume grid), softmax in f32, and the 8-way flip TTA run
+as ONE batch (the flip stack is a leading batch axis; probabilities average
+after the softmax; each saliency map is flipped back before the mean; a
+variant that flips the slice axis flips the key-padding mask too).
+Grad-CAM for the ResNet baselines is ROADMAP queue A #8.
 """
 
 from __future__ import annotations
@@ -14,24 +17,32 @@ import itertools
 
 import torch
 
-from mst_tpu_torch.models.vit_fast import fused_mst_logits
+from mst_tpu_torch.models.vit_fast import fused_mst_logits, fused_mst_saliency
 
 FLIP_SUBSETS = [
     s for n in range(4) for s in itertools.combinations((1, 2, 3), n)
 ]  # spatial axes of [C, D, H, W] per-sample layout; 8 subsets incl. ()
 
 
-def make_predict_fn(model, tta: bool = False, with_saliency: bool = False):
+def make_predict_fn(model, tta: bool = False, with_saliency: bool = True,
+                    plane_mode: str = "last"):
     """Returns fn(source [B, C, D, H, W], mask [B, D] | None) ->
-    (probs [B, n_classes] f32 tensor on the model's device, None).
+    (probs [B, n_classes] f32, saliency [B, D, H, W] f32 | None), tensors on
+    the model's device. `plane_mode` selects the saliency map: "last" (the
+    reference's default, the last block's CLS row), "rollout" (the
+    reference `get_attention_cls` chain) or "rollout_abnar" (Abnar &
+    Zuidema, opt-in).
 
     The port's parameters live in `model` (an nn.Module), so unlike the JAX
     predict fn this one takes no params argument. `source` and `mask` may be
     numpy arrays or tensors; they are moved to the model's device."""
-    if with_saliency:
-        raise NotImplementedError(
-            "saliency is not ported to mst_tpu_torch yet (ROADMAP queue A #6)")
     device = next(model.parameters()).device
+
+    def forward(source, mask):
+        if with_saliency:
+            return fused_mst_saliency(model, source, mask,
+                                      plane_mode=plane_mode)
+        return torch.softmax(fused_mst_logits(model, source, mask), -1), None
 
     @torch.inference_mode()
     def fn(source, mask=None):
@@ -39,7 +50,7 @@ def make_predict_fn(model, tta: bool = False, with_saliency: bool = False):
         if mask is not None:
             mask = torch.as_tensor(mask).to(device, torch.bool)
         if not tta:
-            return torch.softmax(fused_mst_logits(model, source, mask), -1), None
+            return forward(source, mask)
         b = source.shape[0]
         stacked = torch.cat([
             torch.flip(source, dims=[a + 1 for a in s]) if s else source
@@ -48,7 +59,14 @@ def make_predict_fn(model, tta: bool = False, with_saliency: bool = False):
         if mask is not None:
             m = torch.cat([torch.flip(mask, dims=[1]) if 1 in s else mask
                            for s in FLIP_SUBSETS], dim=0)
-        probs = torch.softmax(fused_mst_logits(model, stacked, m), -1)
-        return probs.reshape(len(FLIP_SUBSETS), b, -1).mean(0), None
+        probs, sal = forward(stacked, m)
+        probs = probs.reshape(len(FLIP_SUBSETS), b, -1).mean(0)
+        if sal is not None:
+            # sal[i] [B, D, H, W] has D, H, W at axes 1-3, as [C, D, H, W]
+            sal = sal.reshape(len(FLIP_SUBSETS), b, *sal.shape[1:])
+            sal = torch.stack([torch.flip(sal[i], dims=list(s)) if s
+                               else sal[i]
+                               for i, s in enumerate(FLIP_SUBSETS)]).mean(0)
+        return probs, sal
 
     return fn

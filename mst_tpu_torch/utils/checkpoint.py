@@ -6,8 +6,9 @@ Counterpart of `mst_tpu/utils/checkpoint.py` (`save_checkpoint`,
 the trainer: `<run_dir>/<name>/params.npz` holds the parameters as the flat
 `/`-keyed flax tree (`models.convert.flax_params_from_torch`), which
 `python -m mst_tpu_torch.serve --params_npz` loads, beside
-`<name>.hparams.json`. The full train state with `--resume` is ROADMAP
-queue A #4's remainder.
+`<name>.hparams.json`; `load_hparams` and `load_best_params` read a run
+folder back (`serve.load_run_model`). The full train state with
+`--resume` is ROADMAP queue A #4's remainder.
 """
 
 from __future__ import annotations
@@ -51,3 +52,16 @@ def resolve_best_checkpoint(run_dir) -> str:
 def best_params_path(run_dir) -> Path:
     """The npz of the run's best checkpoint."""
     return Path(run_dir) / resolve_best_checkpoint(run_dir) / PARAMS_FILE
+
+
+def load_hparams(run_dir) -> Optional[Dict]:
+    """The hparams written beside the best checkpoint; None when there are
+    none."""
+    p = Path(run_dir) / f"{resolve_best_checkpoint(run_dir)}.hparams.json"
+    return json.loads(p.read_text()) if p.exists() else None
+
+
+def load_best_params(run_dir) -> Dict[str, np.ndarray]:
+    """The best checkpoint's flat `/`-keyed flax parameter dict."""
+    with np.load(best_params_path(run_dir), allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}

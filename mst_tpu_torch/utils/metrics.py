@@ -1,8 +1,10 @@
 """Classification metrics: accuracy and exact midrank AUROC on the host.
 
 Counterpart of `mst_tpu/utils/metrics.py` (`binary_auroc`, `accuracy`,
-`confusion_matrix`, `ClassificationMetrics`) for a single process; numpy
-only. Per-step predictions are a batch of 2 floats, so an epoch's scores and
+`confusion_matrix`, `cm2acc`, `cm2x`, `ClassificationMetrics`) for a single
+process, and of the Youden working point of
+`mst_tpu/utils/roc_curve.plot_roc_curve` without its plot; numpy only.
+Per-step predictions are a batch of 2 floats, so an epoch's scores and
 labels accumulate on the host and the AUC is computed exactly, with ties
 taking their midrank (as sklearn's `roc_auc_score`).
 """
@@ -45,6 +47,47 @@ def confusion_matrix(pred, target, n_classes: int = 2) -> np.ndarray:
     np.add.at(cm, (np.asarray(target).ravel().astype(int),
                    np.asarray(pred).ravel().astype(int)), 1)
     return cm
+
+
+def cm2acc(cm) -> float:
+    """Accuracy from a confusion matrix (reference `roc_curve.py:80-85`)."""
+    cm = np.asarray(cm)
+    return float(np.trace(cm) / max(cm.sum(), 1))
+
+
+def cm2x(cm):
+    """(ppv, npv, sensitivity, specificity) of a 2x2 confusion matrix (rows
+    the ground truth, columns the prediction; reference
+    `roc_curve.py:88-102`); NaN where a denominator is 0."""
+    (tn, fp), (fn, tp) = np.asarray(cm)
+
+    def div(a, b):
+        return float(a / b) if b > 0 else float("nan")
+
+    return div(tp, tp + fp), div(tn, tn + fn), div(tp, tp + fn), div(tn, tn + fp)
+
+
+def youden_working_point(y_true, y_score):
+    """(threshold, confusion matrix) at the ROC point of largest Youden J =
+    tpr - fpr, as `mst_tpu/utils/roc_curve.plot_roc_curve` picks it from
+    sklearn's `roc_curve(drop_intermediate=False)`: the thresholds are +inf
+    (nothing positive, J = 0) and every distinct score in decreasing order,
+    ties go to the first, a score >= the threshold is positive. Needs both
+    classes."""
+    y_true = np.asarray(y_true).ravel().astype(int)
+    y_score = np.asarray(y_score, dtype=np.float64).ravel()
+    n_pos = int(y_true.sum())
+    n_neg = y_true.size - n_pos
+    if n_pos == 0 or n_neg == 0:
+        raise ValueError("youden_working_point needs both classes in y_true")
+    thr = np.unique(y_score)[::-1]
+    at_or_above = y_score[None, :] >= thr[:, None]  # [thresholds, samples]
+    tpr = (at_or_above & (y_true == 1)).sum(1) / n_pos
+    fpr = (at_or_above & (y_true == 0)).sum(1) / n_neg
+    thr = np.r_[np.inf, thr]
+    opt = int(np.argmax(np.r_[0.0, tpr - fpr]))
+    pred = (y_score >= thr[opt]).astype(int)
+    return float(thr[opt]), confusion_matrix(pred, y_true)
 
 
 class ClassificationMetrics:

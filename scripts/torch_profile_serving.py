@@ -67,7 +67,7 @@ def main(argv=None):
             flat[k] = (1.0 + 0.1 * rng.standard_normal(flat[k].shape)
                        ).astype(np.float32)
     model = params_from_flax(model, flat).to(dev).eval()
-    predict = make_predict_fn(model)
+    predict = make_predict_fn(model, with_saliency=False)
     src = torch.from_numpy(rng.standard_normal(
         (args.batch, 1, 32, 224, 224)).astype(np.float32)).to(dev)
 

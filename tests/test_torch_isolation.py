@@ -8,8 +8,11 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
+from mst_tpu_torch import predict
 from mst_tpu_torch.models.mst import DinoSliceClassifier
+from mst_tpu_torch.ops.fused_block import fused_attention_sublayer_abnar
 from mst_tpu_torch.registry import get_dataset, get_model
 from mst_tpu_torch.train import cli
 from mst_tpu_torch.train.predictor import make_predict_fn
@@ -22,7 +25,8 @@ import sys
 for name in ("jax", "jaxlib", "flax", "optax", "orbax", "mst_tpu"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import numpy as np, torch
-import mst_tpu_torch.serve, mst_tpu_torch.registry
+import mst_tpu_torch.serve, mst_tpu_torch.registry, mst_tpu_torch.predict
+import mst_tpu_torch.ops.saliency, mst_tpu_torch.utils.nifti
 from mst_tpu_torch.models.convert import params_from_flax, random_flax_params
 from mst_tpu_torch.registry import get_dataset, get_model
 from mst_tpu_torch.train import cli
@@ -31,8 +35,10 @@ model = get_model("DinoV2ClassifierSlice", model_size="tiny",
                   fusion_heads=4)
 params_from_flax(model, random_flax_params(model, 0))
 vol = np.random.default_rng(0).standard_normal((1, 1, 2, 28, 28))
-probs, _ = make_predict_fn(model)(vol.astype(np.float32))
-assert probs.shape == (1, 2) and bool(torch.isfinite(probs).all())
+for mode in ("last", "rollout", "rollout_abnar"):
+    probs, sal = make_predict_fn(model, plane_mode=mode)(vol.astype(np.float32))
+    assert probs.shape == (1, 2) and bool(torch.isfinite(probs).all())
+    assert sal.shape == (1, 2, 28, 28) and bool(torch.isfinite(sal).all())
 from mst_tpu_torch.train.trainer import TrainState, make_optimizer, make_train_step
 state = TrainState(model, make_optimizer(model.parameters(), 1e-3))
 before = model.head.kernel.detach().clone()
@@ -89,12 +95,20 @@ def test_unsupported_configs_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_model(name)
     model = DinoSliceClassifier(**TINY)
-    with pytest.raises(NotImplementedError, match="saliency"):
-        make_predict_fn(model, with_saliency=True)
     # 23x23 patches + CLS = 530 tokens > FUSED_MAX_TOKENS
     big = np.zeros((1, 1, 1, 322, 322), np.float32)
-    with pytest.raises(NotImplementedError, match="FUSED_MAX_TOKENS"):
-        make_predict_fn(model)(big)
+    for with_saliency in (False, True):
+        with pytest.raises(NotImplementedError, match="FUSED_MAX_TOKENS"):
+            make_predict_fn(model, with_saliency=with_saliency)(big)
+    # the RoPE (DINOv3) saliency sub-layers and the predict CLI's PNGs
+    x = torch.zeros(1, 2, 64)
+    v = torch.zeros(64)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A #7"):
+        fused_attention_sublayer_abnar(x, v, v, torch.zeros(64, 192),
+                                       torch.zeros(192), torch.zeros(64, 64),
+                                       v, None, 1, rope_cos=v, rope_sin=v)
+    with pytest.raises(SystemExit):
+        predict.parse_args(["--run_folder", "x", "--get_attention"])
     with pytest.raises(NotImplementedError, match="CUDA or CPU"):
         make_predict_fn(model.to("meta"))(np.zeros((1, 1, 1, 28, 28),
                                                    np.float32))

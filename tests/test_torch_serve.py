@@ -53,7 +53,8 @@ def test_predict_fn_matches_mst_tpu(tta):
     mask = np.array([[False, False, True, True], [False] * 4])
     ref, _ = jax_make_predict_fn(jm, tta=tta, with_saliency=False)(
         jparams, jnp.asarray(vols), jnp.asarray(mask))
-    probs, sal = make_predict_fn(tm, tta=tta)(vols, mask)
+    probs, sal = make_predict_fn(tm, tta=tta, with_saliency=False)(
+        vols, mask)
     assert sal is None and len(FLIP_SUBSETS) == 8
     np.testing.assert_allclose(probs.numpy(), np.asarray(ref), atol=1e-5)
 
@@ -63,7 +64,7 @@ def test_batching_server_answers_concurrent_posts():
     predict row, a padded tail batch runs, /healthz counts them, malformed
     bodies are 400 and unknown paths 404."""
     tm, _, _ = _models(2)
-    predict = make_predict_fn(tm)
+    predict = make_predict_fn(tm, with_saliency=False)
     vols = np.random.default_rng(3).standard_normal(
         (6, 1, 2, 28, 28)).astype(np.float32)
     direct = predict(vols)[0].numpy()
@@ -162,7 +163,9 @@ def test_device_fault_is_5xx_and_abandoned_requests_are_dropped():
 def test_serve_cli_builds_a_cpu_server(tmp_path):
     """`python -m mst_tpu_torch.serve` flags: --params_npz loads a flat
     flax tree (here into a tiny CPU model the test builds itself; the CLI
-    serves ViT-S on the card), later-slice flags are refused."""
+    serves ViT-S on the card), later-slice flags are refused, and a run
+    folder is one weight source among them (tests/test_torch_saliency.py
+    serves one)."""
     tm, _, _ = _models(4)
     flat = {k.replace(".", "/"): v.detach().numpy()
             for k, v in tm.named_parameters()}
@@ -176,7 +179,8 @@ def test_serve_cli_builds_a_cpu_server(tmp_path):
         vol = np.random.default_rng(5).standard_normal(
             (1, 2, 28, 28)).astype(np.float32)
         got = predictor.submit(vol, timeout=60)
-        want = make_predict_fn(tm)(vol[None])[0].numpy()[0]
+        want = make_predict_fn(tm, with_saliency=False)(
+            vol[None])[0].numpy()[0]
         np.testing.assert_allclose(got, want, atol=1e-6)
         url = f"http://127.0.0.1:{server.server_address[1]}/healthz"
         with urllib.request.urlopen(url, timeout=30) as r:
@@ -186,7 +190,7 @@ def test_serve_cli_builds_a_cpu_server(tmp_path):
         server.shutdown()
         server.server_close()
         predictor.close()
-    for flag in (["--int8"], ["--run_folder", "x"], ["--exported", "x"],
-                 ["--num_devices", "2"]):
+    for flag in (["--int8"], ["--exported", "x"], ["--num_devices", "2"],
+                 ["--run_folder", "x", "--params_npz", str(npz)]):
         with pytest.raises(SystemExit):
             parse_args(flag)
