@@ -55,8 +55,36 @@ limit:
    saliency, the per-volume latency of batch-1 TTA with saliency, peak
    memory, and a `torch.profiler` breakdown of each mode's forward.
 
-The line before the last is `{"kernels": [...]}`; the last line is
-`{"ok": true, "device": {...}}`. Any failed check raises (exit code != 0).
+Phases 15-20 drive MST-DINOv3 ViT-S/16 (4 registers, 2D RoPE, LN eps 1e-5;
+S = 201 at 224 px) on the same volumes:
+
+15. RoPE kernels: the RoPE forms of `mhsa` (o and LSE, CLS row, rollout
+   carry over two chained blocks, Abnar factor) and `mhsa_bwd`, the RoPE
+   sub-layers and the RoPE train sub-layer against their plain versions at
+   [256, 201, 384], each run twice for the same bits;
+16. forward: `dino_v3_classifier_slice` at B=8 from seeded weights, kernel
+   path vs plain path and an f32 plain forward, with and without a mask,
+   launch counts per forward;
+17. saliency: the three plane modes and `MST_NO_CHEAP_LAST`, as phase 12;
+18. train step: built by `python -m mst_tpu_torch.train --model
+   DinoV3ClassifierSlice`'s builders; loss and grads vs the plain
+   sub-layers and the f32 step pooled over 4 batches, launch counts, AdamW
+   steps on one batch;
+19. CLI: that trainer's one-epoch run folder, served by `python -m
+   mst_tpu_torch.serve --run_folder` (probs equal to the eval step's) and
+   scored by `python -m mst_tpu_torch.predict --use_tta --use_rollout
+   --save_saliency`;
+20. times: each RoPE kernel against the same kernel without RoPE, its
+   plain version and the library yardstick (RoPE in torch ops + SDPA and
+   its backward); B=8 vol/s of serving and each plane mode, the train
+   step, peak memory, a `torch.profiler` breakdown of a forward and a step.
+
+Each phase prints its wall time. The line before the last is `{"kernels":
+[...]}`: per kernel its launches on the main path, its largest error, its
+time and its plain version's, the bound (the least time the card could
+take for the same work) and the PyTorch library call's time where one
+computes the same function; the last line is `{"ok": true, "device":
+{...}}`. Any failed check raises (exit code != 0).
 """
 
 from __future__ import annotations
@@ -66,6 +94,7 @@ import csv
 import functools
 import gzip
 import io
+import itertools
 import json
 import math
 import shutil
@@ -81,6 +110,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 N_SLICES, S, E, HEADS = 256, 257, 384, 6  # B=8 x D=32 slices, ViT-S/14
@@ -109,6 +139,13 @@ STEP_F32_RATIO = 1.5  # kernel path's error vs f32 / the plain path's
 FIT_STEPS, FIT_LR = 8, 1e-4  # AdamW steps on one batch
 FIT_DROP = 10.0  # the loss must fall by this factor over those steps
 FIT_TRACK_TOL = 0.15  # |loss kernel - loss plain| at every one of them
+# Phase 18 holds the DINOv3 step to the same limits pooled over
+# STEP_BATCHES batches (the mean |loss| difference, the summed medians and
+# maxima of the grads' errors vs f32; phase 8 reads one batch): on one
+# batch the kernel / plain ratio of those errors falls on either side of 1
+# from batch to batch (each batch's reading is printed), since bf16 noise
+# decides which path lands nearer the f32 step.
+STEP_BATCHES = 4
 # Saliency phases (11-14). A saliency map is compared relative to its
 # largest value; the limits are a few times the largest reading on an H100
 # with these seeded inputs (the readings are in PERF.md).
@@ -117,6 +154,14 @@ SAL_F32_REL = 0.05  # saliency, bf16 kernel path vs f32 plain path
 SAL_CHEAP_REL = 0.01  # saliency, MST_NO_CHEAP_LAST row vs the cheap row
 PLANE_MODES = ("last", "rollout", "rollout_abnar")
 N_CASES = 8  # Synthetic test volumes the predict CLI scores
+# DINOv3 phases (15-20): ViT-S/16, 4 registers, 14 x 14 patches at 224 px.
+MODEL3 = "DinoV3ClassifierSlice"
+S3, GRID3, PREFIX3, EPS3 = 201, (14, 14), 5, 1e-5
+N_CASES3 = 2  # Synthetic test volumes its predict CLI run scores
+# Bounds: the H100 SXM's published dense bf16 tensor-core rate and HBM3
+# bandwidth (NVIDIA data sheet, at its 700 W limit).
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+T0 = time.perf_counter()
 
 
 class CheckFailed(RuntimeError):
@@ -126,6 +171,49 @@ class CheckFailed(RuntimeError):
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise CheckFailed(what)
+
+
+def stamp(tag, phase: str) -> None:
+    """Print the wall time since the start of the run at a phase's start."""
+    print(f"{tag} phase {phase} starts at {time.perf_counter() - T0:.1f} s")
+
+
+def mm_cost(m, k, n, extra=0):
+    """(FLOPs, bytes) of a bf16 [m, k] @ [k, n] product that reads each
+    operand once and writes a bf16 [m, n] result, plus `extra` bytes."""
+    return 2 * m * k * n, 2 * (m * k + k * n + m * n) + extra
+
+
+def wgrad_cost(m, k, n):
+    """(FLOPs, bytes) of a [m, k]^T @ [m, n] weight grad to f32 [k, n] and
+    its f32 column sums [n]."""
+    return 2 * m * k * n, 2 * (m * k + m * n) + 4 * (k * n + n)
+
+
+def attn_cost(n, s, extra=0, bwd=False):
+    """(FLOPs, bytes) of the attention core over n slices of s tokens:
+    q.k^T and p.v per (slice, head) forward; the backward needs s, dp, dv,
+    dq and dk (five products). Bytes: qkv in and o out (the backward also
+    o, do and the LSE rows in, dqkv out), plus `extra`."""
+    m = n * s
+    if bwd:
+        return (10 * n * HEADS * s * s * 64,
+                2 * (2 * m * 3 * E + 2 * m * E) + 4 * m * HEADS + extra)
+    return 4 * n * HEADS * s * s * 64, 2 * (m * 3 * E + m * E) + extra
+
+
+def bound(costs):
+    """(ms, "operations" | "bytes"): the least time the card could take
+    for calls of these (FLOPs, bytes), at the published peaks."""
+    t_op = sum(c[0] for c in costs) / PEAK_FLOPS * 1e3
+    t_by = sum(c[1] for c in costs) / PEAK_BYTES * 1e3
+    return max(t_op, t_by), "operations" if t_op >= t_by else "bytes"
+
+
+def heads_of(qkv, n, s):
+    """q, k, v [n, heads, s, 64] contiguous from a packed qkv [n*s, 3E]."""
+    t = qkv.reshape(n, s, 3, HEADS, 64).permute(2, 0, 3, 1, 4)
+    return tuple(u.contiguous() for u in t)
 
 
 def ulp_bf16(x: float) -> float:
@@ -267,18 +355,28 @@ def host_seconds(fn, n: int = 5) -> float:
 
 def train_sublayer_outputs(fb, kind, ops, x, args, g):
     """(y, residuals, dx, every argument's grad) of one train sub-layer on
-    `ops` (fb.KERNELS or fb.PLAIN), `args` after x with f32 matrices."""
-    fn, fwd = ((fb.fused_attention_sublayer_train, fb._attn_train_fwd)
-               if kind == "attn" else
-               (fb.fused_mlp_sublayer_train, fb._mlp_train_fwd))
+    `ops` (fb.KERNELS or fb.PLAIN), `args` after x with f32 matrices; the
+    RoPE sub-layer ("attn_rope") takes the tables after ls and gives them
+    no grad."""
+    fn, fwd = {"attn": (fb.fused_attention_sublayer_train, fb._attn_train_fwd),
+               "attn_rope": (fb.fused_attention_sublayer_train_rope,
+                             fb._attn_train_fwd),
+               "mlp": (fb.fused_mlp_sublayer_train, fb._mlp_train_fwd)}[kind]
+    tables = args[7:9] if kind == "attn_rope" else ()
     xx = x.clone().requires_grad_(True)
-    aa = [a.clone().requires_grad_(True) if torch.is_tensor(a) else a
+    aa = [a if any(a is t for t in tables) else
+          a.clone().requires_grad_(True) if torch.is_tensor(a) else a
           for a in args]
     fn(xx, *aa, ops=ops).backward(g)
     cast = [a.to(x.dtype) if torch.is_tensor(a) and a.dim() == 2 else a
             for a in args]
-    y, res = fwd(ops, x, *cast)
-    return (y, *res, xx.grad, *[a.grad for a in aa if torch.is_tensor(a)])
+    if kind == "attn_rope":  # the tables go last and stay f32
+        y, res = fwd(ops, x, *cast[:7], *args[9:], *tables)
+    else:
+        y, res = fwd(ops, x, *cast)
+    grads = [a.grad for a in aa
+             if torch.is_tensor(a) and not any(a is t for t in tables)]
+    return (y, *res, xx.grad, *grads)
 
 
 def main() -> int:
@@ -296,6 +394,7 @@ def main() -> int:
     from mst_tpu_torch.models.vit_fast import fused_mst_logits, fused_mst_saliency
     from mst_tpu_torch.ops import _build
     from mst_tpu_torch.ops import fused_block as fb
+    from mst_tpu_torch.ops.rotary import apply_rope_tables, rope_tables
     from mst_tpu_torch.registry import get_model
     from mst_tpu_torch.serve import MODEL, build_model, build_server, parse_args
     from mst_tpu_torch.train import cli
@@ -328,6 +427,7 @@ def main() -> int:
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
     # -- 2. build ----------------------------------------------------------
+    stamp(tag, "2")
     t0 = time.perf_counter()
     lib_path = _build.build(verbose=True)  # -Xptxas -v: registers, spills
     _build.lib()
@@ -335,6 +435,7 @@ def main() -> int:
           f"{lib_path.relative_to(ROOT)}")
 
     # -- 3. kernels vs plain at the path's shapes --------------------------
+    stamp(tag, "3")
     rng = np.random.default_rng(SEED)
 
     def t(arr, dtype=torch.float32):
@@ -406,8 +507,33 @@ def main() -> int:
         print(f"{tag} kernel {name}: shape={list(k.shape)} max_abs_err={err:.6g}"
               f" max_rel_err={rel:.6g} tol={tol:.6g} (|plain|max={scale:.6g})")
         check(err <= tol, f"{name}: max_abs_err {err} > {tol}")
+    # What each timed kernel case must do, for its bound (FLOPs, bytes), and
+    # the one PyTorch call that computes the same function (its library
+    # time), where there is one: the GEMMs' epilogues (bias, LayerScale,
+    # residual, the GELU' and LN-pullback of the backward) are left out of
+    # the library calls, and SDPA returns no LSE rows.
+    cost = {
+        "ln_gemm[qkv]": mm_cost(M, E, 3 * E, 4 * 5 * E),
+        "ln_gemm[fc1,gelu_tanh]": mm_cost(M, E, 4 * E, 4 * 6 * E),
+        "mhsa": attn_cost(N_SLICES, S),
+        "gemm_residual[proj,ls]": mm_cost(M, E, E, 2 * M * E + 4 * 2 * E),
+        "gemm_residual[fc2,ls]": mm_cost(M, 4 * E, E, 2 * M * E + 4 * 2 * E),
+    }
+    ln_w, ln_bias = ln_s.to(bf), ln_b.to(bf)
+    library = {
+        "ln_gemm[qkv]": lambda: torch.addmm(
+            bqkv.to(bf), F.layer_norm(x2, (E,), ln_w, ln_bias, eps), wqkv),
+        "ln_gemm[fc1,gelu_tanh]": lambda: F.gelu(torch.addmm(
+            b1.to(bf), F.layer_norm(x2, (E,), ln_w, ln_bias, eps), w1),
+            approximate="tanh"),
+        "mhsa": functools.partial(F.scaled_dot_product_attention,
+                                  *heads_of(qkv_in, N_SLICES, S)),
+        "gemm_residual[proj,ls]": functools.partial(torch.matmul, o_in, wproj),
+        "gemm_residual[fc2,ls]": functools.partial(torch.matmul, h_in, w2),
+    }
 
     # -- 4. full forward ---------------------------------------------------
+    stamp(tag, "4")
     # The model is built as `python -m mst_tpu_torch.serve --params_npz`
     # builds it, from seeded random weights with O(1) LayerScale so that
     # every block counts.
@@ -437,7 +563,10 @@ def main() -> int:
                  "fused_mlp_sublayer": fb._mlp_ref,
                  "fused_attention_sublayer_with_row": fb._attn_with_row_ref,
                  "fused_attention_sublayer_rollout": fb._attn_rollout_ref,
-                 "fused_attention_sublayer_abnar": fb._attn_abnar_ref}
+                 "fused_attention_sublayer_abnar": fb._attn_abnar_ref,
+                 "fused_attention_sublayer_rope": fb._attn_rope_ref,
+                 "fused_attention_sublayer_rope_with_row":
+                     fb._attn_rope_with_row_ref}
         saved = {k: getattr(layers, k) for k in plain}
         for k, fn in plain.items():
             setattr(layers, k, fn)
@@ -451,58 +580,73 @@ def main() -> int:
           f"{PROB_TOL} (bf16 roundings flipped by the summation order "
           f"compound over 11 blocks of a random-weight ViT-S)")
     n_blocks = 11  # block 11 is the CLS-only plain block
-    per_fwd = {**{k: 0 for k in fb.launch_counts()}, "ln_gemm": 2 * n_blocks,
-               "mhsa": n_blocks, "gemm_residual": 2 * n_blocks}
-    calls_per_fwd = {**{k: 0 for k in fb.sublayer_calls()},
-                     "fused_attention_sublayer": n_blocks,
+    zero = {k: 0 for k in fb.launch_counts()}
+    zero_calls = {k: 0 for k in fb.sublayer_calls()}
+
+    def check_forward(what, mdl, pred, vols, want, want_calls):
+        """`pred` (mdl's predict fn) on the B=8 `vols`, with and without the
+        key-padding mask, against the plain path and an f32 plain forward,
+        with each forward's launch counts; padded slices must not move the
+        probs. Returns the counts of the forward without the mask."""
+        for label, m in (("no mask", None), ("key-padding mask", mask)):
+            fb.reset_launch_counts()
+            pk, _ = pred(vols, m)
+            torch.cuda.synchronize()
+            counts, calls = fb.launch_counts(), fb.sublayer_calls()
+            if m is None:
+                first = counts
+            with plain_sublayers():
+                pp, _ = pred(vols, m)
+            torch.cuda.synchronize()
+            check(tuple(pk.shape) == (BATCH, 2),
+                  f"probs shape {tuple(pk.shape)}")
+            check(bool(torch.isfinite(pk).all()), "non-finite probs")
+            check(bool(torch.allclose(pk.sum(-1), torch.ones(
+                BATCH, device=dev), atol=1e-5)), "probs do not sum to 1")
+            err = (pk - pp).abs().max().item()
+            gap = min_row_gap(pp.cpu())
+            print(f"{tag} {what} [{label}] {list(vols.shape)}: probs[0]="
+                  f"{pk[0].tolist()} max|kernel-plain|={err:.6g} "
+                  f"min gap between volumes={gap:.6g} launches={counts} "
+                  f"sublayer calls={calls}")
+            check(err <= PROB_TOL, f"{what} [{label}]: {err} > {PROB_TOL}")
+            check(gap > PROB_TOL, f"{what} [{label}]: volumes {gap} apart, "
+                  f"within the tolerance {PROB_TOL}")
+            check(counts == want, f"launch counts {counts} != {want}")
+            check(calls == want_calls,
+                  f"sub-layer calls {calls} != {want_calls}")
+        # padded slices must not move the masked volume's probs
+        vols2 = vols.copy()
+        vols2[1, :, 24:] = 100.0 * rng.standard_normal(vols2[1, :, 24:].shape)
+        pm, _ = pred(vols, mask)
+        pm2, _ = pred(vols2, mask)
+        d_pad = (pm[1] - pm2[1]).abs().max().item()
+        print(f"{tag} {what}: perturbing padded slices moves probs by "
+              f"{d_pad:.6g}")
+        check(d_pad <= 1e-6, f"padded slices leak into the result ({d_pad})")
+        # the bf16 kernel path against the plain path in f32 on the card
+        with plain_sublayers(), torch.inference_mode():
+            p32 = torch.softmax(fused_mst_logits(
+                mdl, torch.from_numpy(vols).to(dev), dtype=torch.float32), -1)
+        pk, _ = pred(vols, None)
+        d32 = (pk - p32).abs().max().item()
+        gap32 = min_row_gap(p32.cpu())
+        print(f"{tag} {what}: max|probs bf16 kernel path - probs f32 plain "
+              f"path|={d32:.6g} (tol {F32_TOL}: bf16 end-to-end error of a "
+              f"12-block ViT with O(1) LayerScale); min gap between volumes "
+              f"(f32)={gap32:.6g}")
+        check(d32 <= F32_TOL, f"bf16 kernel path vs f32: {d32} > {F32_TOL}")
+        check(gap32 > F32_TOL, f"f32 volumes {gap32} apart, within {F32_TOL}")
+        return first
+
+    per_fwd = {**zero, "ln_gemm": 2 * n_blocks, "mhsa": n_blocks,
+               "gemm_residual": 2 * n_blocks}
+    calls_per_fwd = {**zero_calls, "fused_attention_sublayer": n_blocks,
                      "fused_mlp_sublayer": n_blocks}
-    for label, m in (("no mask", None), ("key-padding mask", mask)):
-        fb.reset_launch_counts()
-        pk, _ = predict(vol, m)
-        torch.cuda.synchronize()
-        counts, calls = fb.launch_counts(), fb.sublayer_calls()
-        with plain_sublayers():
-            pp, _ = predict(vol, m)
-        torch.cuda.synchronize()
-        check(tuple(pk.shape) == (BATCH, 2), f"probs shape {tuple(pk.shape)}")
-        check(bool(torch.isfinite(pk).all()), "non-finite probs")
-        check(bool(torch.allclose(pk.sum(-1), torch.ones(BATCH, device=dev),
-                                  atol=1e-5)), "probs do not sum to 1")
-        err = (pk - pp).abs().max().item()
-        gap = min_row_gap(pp.cpu())
-        print(f"{tag} forward [{label}] {list(vol.shape)}: probs[0]="
-              f"{pk[0].tolist()} max|kernel-plain|={err:.6g} "
-              f"min gap between volumes={gap:.6g} launches={counts} "
-              f"sublayer calls={calls}")
-        check(err <= PROB_TOL, f"forward [{label}]: {err} > {PROB_TOL}")
-        check(gap > PROB_TOL, f"forward [{label}]: volumes {gap} apart, "
-              f"within the tolerance {PROB_TOL}")
-        check(counts == per_fwd, f"launch counts {counts} != {per_fwd}")
-        check(calls == calls_per_fwd,
-              f"sub-layer calls {calls} != {calls_per_fwd}")
-    # padded slices must not move the masked volume's probs
-    vol2 = vol.copy()
-    vol2[1, :, 24:] = 100.0 * rng.standard_normal(vol2[1, :, 24:].shape)
-    pm, _ = predict(vol, mask)
-    pm2, _ = predict(vol2, mask)
-    d_pad = (pm[1] - pm2[1]).abs().max().item()
-    print(f"{tag} forward: perturbing padded slices moves probs by {d_pad:.6g}")
-    check(d_pad <= 1e-6, f"padded slices leak into the result ({d_pad})")
-    # the bf16 kernel path against the plain path in f32 on the card
-    with plain_sublayers(), torch.inference_mode():
-        p32 = torch.softmax(fused_mst_logits(
-            model, torch.from_numpy(vol).to(dev), dtype=torch.float32), -1)
-    pk, _ = predict(vol, None)
-    d32 = (pk - p32).abs().max().item()
-    gap32 = min_row_gap(p32.cpu())
-    print(f"{tag} forward: max|probs bf16 kernel path - probs f32 plain "
-          f"path|={d32:.6g} (tol {F32_TOL}: bf16 end-to-end error of a "
-          f"12-block ViT with O(1) LayerScale); min gap between volumes "
-          f"(f32)={gap32:.6g}")
-    check(d32 <= F32_TOL, f"bf16 kernel path vs f32: {d32} > {F32_TOL}")
-    check(gap32 > F32_TOL, f"f32 volumes {gap32} apart, within {F32_TOL}")
+    check_forward("forward", model, predict, vol, per_fwd, calls_per_fwd)
 
     # -- 5. server (the main path; launch counts read around it) ----------
+    stamp(tag, "5")
     n_req, bs = 6, args.batch_size
     vols = spread_volumes(rng, predict, n_req)
     direct, _ = predict(vols, None)
@@ -568,10 +712,12 @@ def main() -> int:
           f"server sub-layer calls {served_calls} != {want_calls}")
 
     # -- 6. times ----------------------------------------------------------
+    stamp(tag, "6")
     timed = {name: (time_ms(kern), time_ms(plain))
              for name, (kern, plain) in cases.items()}
     for name, (km, pm_) in timed.items():
         print(f"{tag} time {name}: kernel {km:.4f} ms, plain {pm_:.4f} ms")
+    lib_ms = {name: time_ms(fn) for name, fn in library.items()}
 
     src8 = torch.from_numpy(vol).to(dev)
 
@@ -589,6 +735,7 @@ def main() -> int:
           f"peak memory (kernel path) {peak / 2**20:.1f} MiB")
 
     # -- 7. train kernels vs plain at the path's shapes --------------------
+    stamp(tag, "7")
     print(f"{tag} train tolerance: bf16 outputs <= 2 bf16 ulps at |plain|max "
           f"(as phase 3); f32 outputs <= {KERNEL_GRAD_REL} x |plain|max for "
           f"one kernel (its sums run in another order), <= "
@@ -644,6 +791,57 @@ def main() -> int:
         torch.cuda.synchronize()
         errs[name] = check_outputs(tag, f"kernel {name}", k, pl,
                                    KERNEL_GRAD_REL)
+    cost.update({
+        # the train forward also writes h [M, E] (and for fc1 the bf16
+        # pre-activation beside its GELU), and the LSE rows
+        "ln_gemm_train[qkv]": mm_cost(M, E, 3 * E, 4 * 5 * E + 2 * M * E),
+        "ln_gemm_train[fc1,gelu_tanh]": mm_cost(
+            M, E, 4 * E, 4 * 6 * E + 2 * M * E + 2 * M * 4 * E),
+        "mhsa_train": attn_cost(N_SLICES, S, 4 * M * HEADS),
+        "gemm_dls[proj]": mm_cost(M, E, E, 2 * M * E + 4 * 3 * E),
+        "gemm_dls[fc2]": mm_cost(M, 4 * E, E, 2 * M * E + 4 * 3 * E),
+        "gemm_wgrad[proj]": wgrad_cost(M, E, E),
+        "gemm_wgrad[qkv]": wgrad_cost(M, E, 3 * E),
+        "gemm_wgrad[fc2]": wgrad_cost(M, 4 * E, E),
+        "gemm_wgrad[fc1]": wgrad_cost(M, E, 4 * E),
+        "gemm_dgrad[proj]": mm_cost(M, E, E),
+        "gemm_dgrad[fc2,gelu_tanh]": mm_cost(M, E, 4 * E, 2 * M * 4 * E),
+        "gemm_dgrad[qkv,ln]": mm_cost(M, 3 * E, E, 4 * M * E + 4 * 3 * E),
+        "gemm_dgrad[fc1,ln]": mm_cost(M, 4 * E, E, 4 * M * E + 4 * 3 * E),
+        "mhsa_bwd": attn_cost(N_SLICES, S, bwd=True),
+    })
+
+    def sdpa_backward(qkv, do, n, s, rope=None):
+        """The SDPA backward of the attention core (`torch.autograd.grad` of
+        F.scaled_dot_product_attention; with `rope` = (cos, sin) through the
+        rotation in torch ops too) on the saved qkv and an upstream do."""
+        leaves = [u.detach().requires_grad_(True) for u in heads_of(qkv, n, s)]
+        q, k, v = leaves
+        if rope is not None:
+            q, k = (apply_rope_tables(u, *rope) for u in (q, k))
+        out = F.scaled_dot_product_attention(q, k, v)
+        do_h = do.reshape(n, s, HEADS, 64).permute(0, 2, 1, 3).contiguous()
+        return functools.partial(torch.autograd.grad, out, leaves, do_h,
+                                 retain_graph=True)
+
+    library.update({
+        "ln_gemm_train[qkv]": library["ln_gemm[qkv]"],
+        "ln_gemm_train[fc1,gelu_tanh]": library["ln_gemm[fc1,gelu_tanh]"],
+        "mhsa_train": library["mhsa"],
+        "gemm_dls[proj]": functools.partial(torch.matmul, o_t, wproj),
+        "gemm_dls[fc2]": functools.partial(torch.matmul, u_t, w2),
+        "gemm_wgrad[proj]": functools.partial(torch.matmul, o_t.t(), g2),
+        "gemm_wgrad[qkv]": functools.partial(torch.matmul, h_t.t(), dqkv_t),
+        "gemm_wgrad[fc2]": functools.partial(torch.matmul, u_t.t(), g2),
+        "gemm_wgrad[fc1]": functools.partial(torch.matmul, h2_t.t(), da_t),
+        "gemm_dgrad[proj]": functools.partial(torch.matmul, g2, wproj.t()),
+        "gemm_dgrad[fc2,gelu_tanh]": functools.partial(torch.matmul, g2,
+                                                       w2.t()),
+        "gemm_dgrad[qkv,ln]": functools.partial(torch.matmul, dqkv_t,
+                                                wqkv.t()),
+        "gemm_dgrad[fc1,ln]": functools.partial(torch.matmul, da_t, w1.t()),
+        "mhsa_bwd": sdpa_backward(qkv_t, do_t, N_SLICES, S),
+    })
     g3 = g2.reshape(N_SLICES, S, E)
     sub = {
         "attention_sublayer_train[ls]": ("attn", (ln_s, ln_b, wqkv.float(),
@@ -671,6 +869,7 @@ def main() -> int:
     del qkv_t, h_t, o_t, lse_t, a_t, h2_t, u_t, do_t, dqkv_t, da_t
 
     # -- 8. one train step at full width -----------------------------------
+    stamp(tag, "8")
     # Built by `python -m mst_tpu_torch.train`'s builders; seeded weights,
     # then O(1) LayerScale so that every block counts.
     targs = cli.parse_args(["--dataset", "Synthetic", "--batch_size",
@@ -699,41 +898,27 @@ def main() -> int:
     @contextlib.contextmanager
     def plain_train_sublayers():
         """Route the blocks' train sub-layers to the plain chain on the card."""
-        saved = (layers.fused_attention_sublayer_train,
-                 layers.fused_mlp_sublayer_train)
-        layers.fused_attention_sublayer_train = functools.partial(
-            fb.fused_attention_sublayer_train, ops=fb.PLAIN)
-        layers.fused_mlp_sublayer_train = functools.partial(
-            fb.fused_mlp_sublayer_train, ops=fb.PLAIN)
+        names = ("fused_attention_sublayer_train",
+                 "fused_attention_sublayer_train_rope",
+                 "fused_mlp_sublayer_train")
+        saved = {k: getattr(layers, k) for k in names}
+        for k in names:
+            setattr(layers, k, functools.partial(getattr(fb, k), ops=fb.PLAIN))
         try:
             yield
         finally:
-            (layers.fused_attention_sublayer_train,
-             layers.fused_mlp_sublayer_train) = saved
+            for k, fn in saved.items():
+                setattr(layers, k, fn)
 
-    def loss_and_grads(dtype=None):
-        tmodel.zero_grad(set_to_none=True)
+    def loss_and_grads(m_, src_, tgt_, dtype=None):
+        m_.zero_grad(set_to_none=True)
         loss = cross_entropy_loss(fused_mst_logits(
-            tmodel, src, None, dtype=dtype, train=True), tgt)
+            m_, src_, None, dtype=dtype, train=True), tgt_)
         loss.backward()
         torch.cuda.synchronize()
         return loss.item(), {n: q.grad.detach().clone()
-                             for n, q in tmodel.named_parameters()}
+                             for n, q in m_.named_parameters()}
 
-    fb.reset_launch_counts()
-    loss_k, grads_k = loss_and_grads()  # the main path of the train step
-    step_counts, step_calls = fb.launch_counts(), fb.sublayer_calls()
-    with plain_train_sublayers():
-        loss_p, grads_p = loss_and_grads()
-        loss_32, grads_32 = loss_and_grads(torch.float32)
-    per_step = {**{k: 0 for k in fb.launch_counts()},
-                "ln_gemm": 2 * n_blocks, "mhsa": n_blocks,
-                "gemm_residual": 2 * n_blocks, "gemm_dls": 2 * n_blocks,
-                "gemm_wgrad": 4 * n_blocks, "gemm_dgrad": 4 * n_blocks,
-                "mhsa_bwd": n_blocks}
-    calls_per_step = {**{k: 0 for k in fb.sublayer_calls()},
-                      "fused_attention_sublayer_train": n_blocks,
-                      "fused_mlp_sublayer_train": n_blocks}
     def rel_errs(grads, ref):
         """Per parameter: max |grad - ref| / max |ref|."""
         out = {}
@@ -750,64 +935,105 @@ def main() -> int:
                 f"{statistics.median(rel.values()):.6g}; worst five: "
                 + ", ".join(f"{n}={v:.3g}" for n, v in worst[:5]))
 
-    rel = rel_errs(grads_k, grads_p)
-    rel_k32, rel_p32 = rel_errs(grads_k, grads_32), rel_errs(grads_p, grads_32)
-    med_k32 = statistics.median(rel_k32.values())
-    med_p32 = statistics.median(rel_p32.values())
-    max_k32, max_p32 = max(rel_k32.values()), max(rel_p32.values())
-    print(f"{tag} train step B={BATCH} {list(src.shape)}: loss kernel path "
-          f"{loss_k:.6g}, plain path {loss_p:.6g} (|diff| "
-          f"{abs(loss_k - loss_p):.6g}, limit {STEP_LOSS_TOL}), f32 plain "
-          f"path {loss_32:.6g}; launches {step_counts}; sublayer calls "
-          f"{step_calls}")
-    print(f"{tag} train step grads, |kernel - plain| / |plain|max over "
-          f"{len(rel)} parameters (limit {STEP_GRAD_REL}): {summary(rel)}")
-    print(f"{tag} train step grads vs the f32 step: kernel path "
-          f"{summary(rel_k32)}")
-    print(f"{tag} train step grads vs the f32 step: plain path "
-          f"{summary(rel_p32)}")
-    print(f"{tag} train step grads vs f32, kernel / plain path: median "
-          f"{med_k32 / med_p32:.4g}, max {max_k32 / max_p32:.4g} (limit "
-          f"{STEP_F32_RATIO} each)")
-    check(math.isfinite(loss_k), "non-finite loss")
-    check(abs(loss_k - loss_p) <= STEP_LOSS_TOL,
-          f"train step loss {loss_k} vs plain {loss_p}")
-    check(max(rel.values()) <= STEP_GRAD_REL,
-          f"grads: kernel vs plain path {max(rel.values())} > {STEP_GRAD_REL}")
-    check(med_k32 <= STEP_F32_RATIO * med_p32
-          and max_k32 <= STEP_F32_RATIO * max_p32,
-          f"grads vs f32: kernel path {med_k32}/{max_k32}, plain path "
-          f"{med_p32}/{max_p32}")
-    check(step_counts == per_step, f"train launches {step_counts} != {per_step}")
-    check(step_calls == calls_per_step,
-          f"train sub-layer calls {step_calls} != {calls_per_step}")
-    del grads_k, grads_p, grads_32
+    def check_step(what, mdl, batches, want, want_calls):
+        """The train step's loss and every grad on the kernels against the
+        plain sub-layers and the f32 step, over `batches` [(src, tgt)]
+        pooled: the mean |loss| difference, the worst grad difference, and
+        the summed medians and maxima of each path's grad errors vs f32.
+        Returns the launch counts of the first step (the main path)."""
+        d_loss, worst_rel, meds, maxes = [], 0.0, [], []
+        for i, (bsrc, btgt) in enumerate(batches):
+            fb.reset_launch_counts()
+            loss_k, grads_k = loss_and_grads(mdl, bsrc, btgt)
+            counts, calls = fb.launch_counts(), fb.sublayer_calls()
+            if i == 0:
+                first = counts
+            with plain_train_sublayers():
+                loss_p, grads_p = loss_and_grads(mdl, bsrc, btgt)
+                loss_32, grads_32 = loss_and_grads(mdl, bsrc, btgt,
+                                                   torch.float32)
+            rel = rel_errs(grads_k, grads_p)
+            rel_k32 = rel_errs(grads_k, grads_32)
+            rel_p32 = rel_errs(grads_p, grads_32)
+            d_loss.append(abs(loss_k - loss_p))
+            worst_rel = max(worst_rel, max(rel.values()))
+            meds.append((statistics.median(rel_k32.values()),
+                         statistics.median(rel_p32.values())))
+            maxes.append((max(rel_k32.values()), max(rel_p32.values())))
+            print(f"{tag} {what} B={BATCH} {list(bsrc.shape)}, batch {i}: "
+                  f"loss kernel path {loss_k:.6g}, plain path {loss_p:.6g}, "
+                  f"f32 plain path {loss_32:.6g}; launches {counts}; "
+                  f"sublayer calls {calls}")
+            print(f"{tag} {what} grads, batch {i}, |kernel - plain| / "
+                  f"|plain|max: {summary(rel)}; vs the f32 step: kernel path "
+                  f"{summary(rel_k32)}; plain path {summary(rel_p32)}; kernel "
+                  f"/ plain: median {meds[-1][0] / meds[-1][1]:.4g}, max "
+                  f"{maxes[-1][0] / maxes[-1][1]:.4g}")
+            check(math.isfinite(loss_k), f"{what}: non-finite loss")
+            check(counts == want, f"{what} launches {counts} != {want}")
+            check(calls == want_calls,
+                  f"{what} sub-layer calls {calls} != {want_calls}")
+            del grads_k, grads_p, grads_32
+        d_mean = statistics.mean(d_loss)
+        med_ratio = sum(k for k, _ in meds) / sum(p_ for _, p_ in meds)
+        max_ratio = sum(k for k, _ in maxes) / sum(p_ for _, p_ in maxes)
+        print(f"{tag} {what} over {len(batches)} batch(es): mean |loss "
+              f"kernel - plain| {d_mean:.6g} (limit {STEP_LOSS_TOL}); worst "
+              f"grad kernel vs plain {worst_rel:.6g} (limit {STEP_GRAD_REL}); "
+              f"grads vs f32, kernel / plain path, pooled: median "
+              f"{med_ratio:.4g}, max {max_ratio:.4g} (limit {STEP_F32_RATIO} "
+              f"each)")
+        check(d_mean <= STEP_LOSS_TOL, f"{what} loss: {d_loss}")
+        check(worst_rel <= STEP_GRAD_REL,
+              f"{what} grads vs plain {worst_rel} > {STEP_GRAD_REL}")
+        check(med_ratio <= STEP_F32_RATIO and max_ratio <= STEP_F32_RATIO,
+              f"{what} grads vs f32: kernel / plain {med_ratio} / {max_ratio}")
+        return first
 
-    start = {n: q.detach().clone() for n, q in tmodel.named_parameters()}
+    per_step = {**zero, "ln_gemm": 2 * n_blocks, "mhsa": n_blocks,
+                "gemm_residual": 2 * n_blocks, "gemm_dls": 2 * n_blocks,
+                "gemm_wgrad": 4 * n_blocks, "gemm_dgrad": 4 * n_blocks,
+                "mhsa_bwd": n_blocks}
+    calls_per_step = {**zero_calls,
+                      "fused_attention_sublayer_train": n_blocks,
+                      "fused_mlp_sublayer_train": n_blocks}
+    step_counts = check_step("train step", tmodel, [(src, tgt)], per_step,
+                             calls_per_step)
 
-    def fit_losses():
-        """FIT_STEPS AdamW steps on the one batch from `start`."""
+    def fit_losses(m_, src_, tgt_):
+        """FIT_STEPS AdamW steps on the one batch from m_'s weights, which
+        are put back afterwards."""
+        start = {n: q.detach().clone() for n, q in m_.named_parameters()}
+        step = make_train_step(TrainState(m_, make_optimizer(
+            m_.parameters(), FIT_LR)))
+        losses = [float(v) for v in [step(src_, tgt_)[0]
+                                     for _ in range(FIT_STEPS)]]
         with torch.no_grad():
-            for n, q in tmodel.named_parameters():
+            for n, q in m_.named_parameters():
                 q.copy_(start[n])
-        step = make_train_step(TrainState(tmodel, make_optimizer(
-            tmodel.parameters(), FIT_LR)))
-        return [float(v) for v in [step(src, tgt)[0]
-                                   for _ in range(FIT_STEPS)]]
+        return losses
 
-    fit_k = fit_losses()
-    with plain_train_sublayers():
-        fit_p = fit_losses()
-    track = max(abs(a - b) for a, b in zip(fit_k, fit_p))
-    print(f"{tag} fit one batch, {FIT_STEPS} AdamW steps at lr {FIT_LR}: "
-          f"kernel path {[round(v, 5) for v in fit_k]}, plain path "
-          f"{[round(v, 5) for v in fit_p]}; max |kernel - plain| "
-          f"{track:.6g} (limit {FIT_TRACK_TOL}); fall {fit_k[0] / fit_k[-1]:.4g}x "
-          f"(must be >= {FIT_DROP}x)")
-    check(fit_k[-1] * FIT_DROP <= fit_k[0], f"loss fell only {fit_k}")
-    check(track <= FIT_TRACK_TOL, f"kernel path leaves the plain path: {track}")
+    def check_fit(what, mdl, src_, tgt_):
+        """FIT_STEPS AdamW steps on one batch on both paths: the loss must
+        fall, and the paths must agree at every step."""
+        fit_k = fit_losses(mdl, src_, tgt_)
+        with plain_train_sublayers():
+            fit_p = fit_losses(mdl, src_, tgt_)
+        track = max(abs(a - b) for a, b in zip(fit_k, fit_p))
+        print(f"{tag} {what}, {FIT_STEPS} AdamW steps at lr {FIT_LR}: "
+              f"kernel path {[round(v, 5) for v in fit_k]}, plain path "
+              f"{[round(v, 5) for v in fit_p]}; max |kernel - plain| "
+              f"{track:.6g} (limit {FIT_TRACK_TOL}); fall "
+              f"{fit_k[0] / fit_k[-1]:.4g}x (must be >= {FIT_DROP}x)")
+        check(fit_k[-1] * FIT_DROP <= fit_k[0], f"{what}: loss fell only "
+              f"{fit_k}")
+        check(track <= FIT_TRACK_TOL,
+              f"{what}: kernel path leaves the plain path: {track}")
+
+    check_fit("fit one batch", tmodel, src, tgt)
 
     # -- 9. the trainer end to end, and the checkpoint it writes, served ---
+    stamp(tag, "9")
     tdm.set_epoch(0)
     state, result = cli.train(targs, tmodel, tdm, trainer)
     hist = [json.loads(line) for line in
@@ -839,10 +1065,13 @@ def main() -> int:
     del served
 
     # -- 10. train times ----------------------------------------------------
+    stamp(tag, "10")
     ttimed = {name: (time_ms(kern), time_ms(plain))
               for name, (kern, plain) in tcases.items()}
     for name, (km, pm_) in ttimed.items():
         print(f"{tag} time {name}: kernel {km:.4f} ms, plain {pm_:.4f} ms")
+    lib_ms.update({name: time_ms(fn) for name, fn in library.items()
+                   if name not in lib_ms})
     for name, (kind, sargs) in sub.items():
         fn = (fb.fused_attention_sublayer_train if kind == "attn"
               else fb.fused_mlp_sublayer_train)
@@ -852,16 +1081,16 @@ def main() -> int:
             print(f"{tag} time {name} forward + backward: {label} "
                   f"{ms:.4f} ms")
 
-    def step_seconds():
-        step = make_train_step(TrainState(tmodel, make_optimizer(
-            tmodel.parameters(), 0.0)))  # lr 0: same work, same weights
-        return host_seconds(lambda: step(src, tgt)), step
+    def step_seconds(m_, src_, tgt_):
+        step = make_train_step(TrainState(m_, make_optimizer(
+            m_.parameters(), 0.0)))  # lr 0: same work, same weights
+        return host_seconds(lambda: step(src_, tgt_)), step
 
     torch.cuda.reset_peak_memory_stats()
-    sec_t, kstep = step_seconds()
+    sec_t, kstep = step_seconds(tmodel, src, tgt)
     peak_t = torch.cuda.max_memory_allocated()
     with plain_train_sublayers():
-        sec_tp, _ = step_seconds()
+        sec_tp, _ = step_seconds(tmodel, src, tgt)
     print(f"{tag} train step B={BATCH} {list(src.shape)} bf16 (forward, CE, "
           f"backward, AdamW): kernel path {sec_t * 1e3:.3f} ms = "
           f"{BATCH / sec_t:.3f} vol/s; plain sub-layers {sec_tp * 1e3:.3f} "
@@ -870,6 +1099,7 @@ def main() -> int:
     profile_device(tag, "one train step", lambda: kstep(src, tgt), 16)
 
     # -- 11. saliency kernels vs plain at the path's shapes ----------------
+    stamp(tag, "11")
     print(f"{tag} saliency kernel tolerance: bf16 outputs <= 2 bf16 ulps, "
           f"f32 outputs (CLS row, carry, Abnar factor) <= {KERNEL_GRAD_REL} "
           f"x |plain|max for one kernel, <= {SUBLAYER_GRAD_REL} x for a "
@@ -903,6 +1133,12 @@ def main() -> int:
                        lambda: fb._mhsa_ref(qkv_in, N_SLICES, S, HEADS,
                                             want_abnar=True)),
     }
+    cost.update({
+        "mhsa_with_row": attn_cost(N_SLICES, S, 4 * N_SLICES * HEADS * S),
+        "mhsa_rollout[block1,row]": attn_cost(N_SLICES, S,
+                                              3 * 4 * N_SLICES * HEADS * S),
+        "mhsa_abnar": attn_cost(N_SLICES, S, 4 * N_SLICES * S * S),
+    })
     ssub = {
         "attention_sublayer_with_row[ls]": pair(
             fb.fused_attention_sublayer_with_row, fb._attn_with_row_ref,
@@ -930,24 +1166,13 @@ def main() -> int:
         del k, pl, again
 
     # -- 12. the saliency forward at B=8 (each mode: counts read around it) -
+    stamp(tag, "12")
     mask_t = torch.from_numpy(mask).to(dev)
     n_full = n_blocks + 1  # rollout / abnar run block 11 on the kernels too
-    zero = {k: 0 for k in fb.launch_counts()}
-    zero_calls = {k: 0 for k in fb.sublayer_calls()}
 
-    def per_forward(mode):
-        """(launches, sub-layer calls) of one saliency forward."""
-        if mode == "last":
-            return per_fwd, calls_per_fwd
-        attn = {"rollout": "rollout", "rollout_abnar": "abnar"}[mode]
-        return ({**zero, "ln_gemm": 2 * n_full, "gemm_residual": 2 * n_full,
-                 f"mhsa_{attn}": n_full},
-                {**zero_calls, f"fused_attention_sublayer_{attn}": n_full,
-                 "fused_mlp_sublayer": n_full})
-
-    def saliency(mode, m=None, dtype=None):
+    def saliency(mode, m=None, dtype=None, mdl=model, vols=src8):
         with torch.inference_mode():
-            out = fused_mst_saliency(model, src8, m, dtype=dtype,
+            out = fused_mst_saliency(mdl, vols, m, dtype=dtype,
                                      plane_mode=mode)
         torch.cuda.synchronize()
         return out
@@ -956,130 +1181,168 @@ def main() -> int:
         """max |a - b| relative to b's largest value."""
         return (a - b).abs().max().item() / b.abs().max().item()
 
+    def check_saliency(what, mdl, pred, vols, want_last, want_last_calls,
+                       rope=False):
+        """`fused_mst_saliency` at B=8 in each plane mode, with and without
+        the key-padding mask, against the plain path and an f32 plain
+        forward, with each forward's launch counts; then the row of
+        MST_NO_CHEAP_LAST (block 11 in full) against the CLS-only block's.
+        `rope`: the model's attention runs the RoPE kernels. Returns the
+        launch counts of each mode and of "with_row"."""
+        kern = ("mhsa_{}_rope" if rope else "mhsa_{}").format
+        row_sublayer = ("fused_attention_sublayer_rope_with_row" if rope
+                        else "fused_attention_sublayer_with_row")
+        found = {}
+        for mode in PLANE_MODES:
+            if mode == "last":
+                want, want_calls = want_last, want_last_calls
+            else:
+                attn = {"rollout": "rollout", "rollout_abnar": "abnar"}[mode]
+                want = {**zero, "ln_gemm": 2 * n_full,
+                        "gemm_residual": 2 * n_full, kern(attn): n_full}
+                want_calls = {**zero_calls,
+                              f"fused_attention_sublayer_{attn}": n_full,
+                              "fused_mlp_sublayer": n_full}
+            for label, m in (("no mask", None), ("key-padding mask", mask_t)):
+                fb.reset_launch_counts()
+                pk, sk = saliency(mode, m, mdl=mdl, vols=vols)
+                counts, calls = fb.launch_counts(), fb.sublayer_calls()
+                with plain_sublayers():
+                    pp, sp_ = saliency(mode, m, mdl=mdl, vols=vols)
+                    p32, s32 = saliency(mode, m, torch.float32, mdl=mdl,
+                                        vols=vols)
+                check(tuple(sk.shape) == (BATCH, DEPTH_SLICES, PX, PX)
+                      and sk.dtype == torch.float32,
+                      f"{what} {tuple(sk.shape)}")
+                check(bool(torch.isfinite(sk).all()
+                           and torch.isfinite(pk).all()),
+                      f"{what} {mode}: non-finite output")
+                d_p, d_p32 = ((pk - pp).abs().max().item(),
+                              (pk - p32).abs().max().item())
+                d_s, d_s32 = sal_rel(sk, sp_), sal_rel(sk, s32)
+                d_fwd = (pk - pred(vols, m)[0]).abs().max().item()
+                print(f"{tag} {what} {mode} [{label}] {list(sk.shape)}: "
+                      f"|probs - plain| {d_p:.6g}, |probs - f32| "
+                      f"{d_p32:.6g}, |probs - forward without saliency| "
+                      f"{d_fwd:.6g}; saliency vs plain {d_s:.6g}, vs f32 "
+                      f"{d_s32:.6g} (of the largest value "
+                      f"{sp_.abs().max().item():.6g}); plain vs f32 "
+                      f"{sal_rel(sp_, s32):.6g}; launches {counts}; sub-layer "
+                      f"calls {calls}")
+                check(d_p <= PROB_TOL and d_p32 <= F32_TOL,
+                      f"{what} {mode} probs: {d_p} / {d_p32}")
+                check(d_s <= SAL_REL and d_s32 <= SAL_F32_REL,
+                      f"{what} {mode} saliency: {d_s} / {d_s32}")
+                if mode == "last":  # the same kernels as the forward without
+                    check(d_fwd <= 1e-6, f"last-mode probs moved by {d_fwd}")
+                if m is not None:  # padded slices get no slice attention
+                    pad = max(sk[1, 24:].abs().max().item(),
+                              sk[5, 30:].abs().max().item())
+                    check(pad == 0.0, f"{what} {mode}: padded slices' "
+                          f"saliency {pad}")
+                check(counts == want, f"{what} {mode} launches {counts} != "
+                      f"{want}")
+                check(calls == want_calls,
+                      f"{what} {mode} calls {calls} != {want_calls}")
+                found[mode] = counts
+        # MST_NO_CHEAP_LAST: block 11 in full, its row from the row kernel
+        os.environ["MST_NO_CHEAP_LAST"] = "1"
+        try:
+            fb.reset_launch_counts()
+            p_full, s_full = saliency("last", mdl=mdl, vols=vols)
+            counts, calls = fb.launch_counts(), fb.sublayer_calls()
+        finally:
+            del os.environ["MST_NO_CHEAP_LAST"]
+        p_cheap, s_cheap = saliency("last", mdl=mdl, vols=vols)
+        d_p, d_s = ((p_full - p_cheap).abs().max().item(),
+                    sal_rel(s_full, s_cheap))
+        want = {**want_last, "ln_gemm": 2 * n_full,
+                "gemm_residual": 2 * n_full, kern("with_row"): 1}
+        want_calls = {**want_last_calls, row_sublayer: 1,
+                      "fused_mlp_sublayer": n_full}
+        print(f"{tag} {what} last, MST_NO_CHEAP_LAST=1 vs the CLS-only last "
+              f"block: |probs| {d_p:.6g}, saliency {d_s:.6g} (limit "
+              f"{SAL_CHEAP_REL}); launches {counts}; sub-layer calls {calls}")
+        check(d_p <= PROB_TOL and d_s <= SAL_CHEAP_REL,
+              f"{what} MST_NO_CHEAP_LAST: probs {d_p}, saliency {d_s}")
+        check(counts == want, f"launches {counts} != {want}")
+        check(calls == want_calls, f"calls {calls} != {want_calls}")
+        found["with_row"] = counts
+        return found
+
     print(f"{tag} saliency tolerance: probs as phase 4; a saliency map within "
           f"{SAL_REL} of the plain path's largest value, {SAL_F32_REL} of the "
           f"f32 plain path's (bf16 rounding through 12 blocks of a "
           f"random-weight ViT-S moves a CLS attention row by a few percent)")
-    sal_counts = {}
-    for mode in PLANE_MODES:
-        for label, m in (("no mask", None), ("key-padding mask", mask_t)):
-            fb.reset_launch_counts()
-            pk, sk = saliency(mode, m)
-            counts, calls = fb.launch_counts(), fb.sublayer_calls()
-            with plain_sublayers():
-                pp, sp_ = saliency(mode, m)
-                p32, s32 = saliency(mode, m, torch.float32)
-            check(tuple(sk.shape) == (BATCH, DEPTH_SLICES, PX, PX)
-                  and sk.dtype == torch.float32, f"saliency {tuple(sk.shape)}")
-            check(bool(torch.isfinite(sk).all() and torch.isfinite(pk).all()),
-                  f"{mode}: non-finite output")
-            d_p, d_p32 = ((pk - pp).abs().max().item(),
-                          (pk - p32).abs().max().item())
-            d_s, d_s32 = sal_rel(sk, sp_), sal_rel(sk, s32)
-            d_fwd = (pk - predict(src8, m)[0]).abs().max().item()
-            print(f"{tag} saliency {mode} [{label}] {list(sk.shape)}: "
-                  f"|probs - plain| {d_p:.6g}, |probs - f32| {d_p32:.6g}, "
-                  f"|probs - forward without saliency| {d_fwd:.6g}; saliency "
-                  f"vs plain {d_s:.6g}, vs f32 {d_s32:.6g} (of the largest "
-                  f"value {sp_.abs().max().item():.6g}); plain vs f32 "
-                  f"{sal_rel(sp_, s32):.6g}; launches {counts}; sub-layer "
-                  f"calls {calls}")
-            check(d_p <= PROB_TOL and d_p32 <= F32_TOL,
-                  f"{mode} probs: {d_p} / {d_p32}")
-            check(d_s <= SAL_REL and d_s32 <= SAL_F32_REL,
-                  f"{mode} saliency: {d_s} / {d_s32}")
-            if mode == "last":  # the same kernels as the forward without
-                check(d_fwd <= 1e-6, f"last-mode probs moved by {d_fwd}")
-            if m is not None:  # padded slices get no slice attention
-                pad = max(sk[1, 24:].abs().max().item(),
-                          sk[5, 30:].abs().max().item())
-                check(pad == 0.0, f"{mode}: padded slices' saliency {pad}")
-            want, want_calls = per_forward(mode)
-            check(counts == want, f"{mode} launches {counts} != {want}")
-            check(calls == want_calls, f"{mode} calls {calls} != {want_calls}")
-            sal_counts[mode] = counts
-    del pp, sp_, p32, s32
-    # MST_NO_CHEAP_LAST: block 11 in full, its row from the with_row kernel
-    os.environ["MST_NO_CHEAP_LAST"] = "1"
-    try:
-        fb.reset_launch_counts()
-        p_full, s_full = saliency("last")
-        full_counts, full_calls = fb.launch_counts(), fb.sublayer_calls()
-    finally:
-        del os.environ["MST_NO_CHEAP_LAST"]
-    p_cheap, s_cheap = saliency("last")
-    d_p, d_s = (p_full - p_cheap).abs().max().item(), sal_rel(s_full, s_cheap)
-    want = {**per_fwd, "ln_gemm": 2 * n_full, "gemm_residual": 2 * n_full,
-            "mhsa_with_row": 1}
-    want_calls = {**calls_per_fwd, "fused_attention_sublayer_with_row": 1,
-                  "fused_mlp_sublayer": n_full}
-    print(f"{tag} saliency last, MST_NO_CHEAP_LAST=1 vs the CLS-only last "
-          f"block: |probs| {d_p:.6g}, saliency {d_s:.6g} (limit "
-          f"{SAL_CHEAP_REL}); launches {full_counts}; sub-layer calls "
-          f"{full_calls}")
-    check(d_p <= PROB_TOL and d_s <= SAL_CHEAP_REL,
-          f"MST_NO_CHEAP_LAST: probs {d_p}, saliency {d_s}")
-    check(full_counts == want, f"launches {full_counts} != {want}")
-    check(full_calls == want_calls, f"calls {full_calls} != {want_calls}")
-    sal_counts["with_row"] = full_counts
-    del p_full, s_full, p_cheap, s_cheap
+    sal_counts = check_saliency("saliency", model, predict, src8, per_fwd,
+                                calls_per_fwd)
 
     # -- 13. the predict CLI on phase 9's run folder ------------------------
-    out_dir = ROOT / "build" / "chip_smoke_predict"  # gitignored
-    shutil.rmtree(out_dir, ignore_errors=True)
-    data_kw = dict(shape_cdhw=(1, DEPTH_SLICES, PX, PX), num_samples=N_CASES)
-    pargv = ["--run_folder", str(run_dir), "--output_dir", str(out_dir),
-             "--use_tta", "--use_rollout", "--save_saliency"]
-    fb.reset_launch_counts()
-    t1 = time.perf_counter()
-    predict_cli.main(pargv, **data_kw)
-    torch.cuda.synchronize()
-    cli_sec = time.perf_counter() - t1
-    cli_counts, cli_calls = fb.launch_counts(), fb.sublayer_calls()
-    with (out_dir / "results.csv").open() as f:
-        rows = list(csv.DictReader(f))
-    pargs = predict_cli.parse_args(pargv)
-    pmodel = predict_cli.build_model(pargs, dev)
-    pfn = make_predict_fn(pmodel, tta=True, plane_mode="rollout")
-    worst_p = worst_s = 0.0
-    batches = predict_cli.build_datamodule(pargs, dev, **data_kw)
-    for r, b in zip(rows, batches.test_dataloader()):
-        pb, sb = pfn(b["source"], None)
-        check(r["uid"] == b["uid"][0] and int(r["GT"]) == int(b["target"][0]),
-              f"row {r} is not case {b['uid'][0]}")
-        check(int(r["NN"]) == int(pb[0].argmax()), f"NN of {r['uid']}")
-        worst_p = max(worst_p, abs(float(r["NN_pred"]) - pb[0, 1].item()))
-        got = read_nifti_f32(out_dir / f"case_{r['uid']}" / "saliency.nii.gz")
-        want_s = sb[0].cpu().numpy().transpose(2, 1, 0)
-        check(got.shape == want_s.shape, f"NIfTI {got.shape}")
-        worst_s = max(worst_s, float(np.abs(got - want_s).max()
-                                     / np.abs(want_s).max()))
-    log_text = (out_dir / "predict.log").read_text()
-    t1 = time.perf_counter()
-    write_nifti(out_dir / "timing.nii.gz", got)
-    sec_nii = time.perf_counter() - t1
-    t1 = time.perf_counter()
-    write_nifti(out_dir / "timing.nii.gz", b["source"][0, 0].cpu().numpy())
-    sec_nii_in = time.perf_counter() - t1
-    print(f"{tag} predict CLI --use_tta --use_rollout --save_saliency on "
-          f"{N_CASES} cases {list(data_kw['shape_cdhw'])}: {cli_sec:.3f} s "
-          f"(one saliency.nii.gz write {sec_nii:.3f} s, one input.nii.gz "
-          f"write {sec_nii_in:.3f} s); "
-          f"launches {cli_counts}; results.csv vs the predictor: |NN_pred| "
-          f"{worst_p:.6g}, saliency.nii.gz {worst_s:.6g} (both must be <= "
-          f"1e-6: the same kernels on the same batches); predict.log: "
-          f"{log_text.strip().splitlines()}")
-    check(len(rows) == N_CASES, f"{len(rows)} result rows")
-    check(worst_p <= 1e-6 and worst_s <= 1e-6,
-          f"CLI vs predictor: {worst_p} / {worst_s}")
-    check("AUC=" in log_text and "Youden point" in log_text, "predict.log")
-    want = {**zero, "ln_gemm": 2 * n_full * N_CASES,
-            "mhsa_rollout": n_full * N_CASES,
-            "gemm_residual": 2 * n_full * N_CASES}
-    check(cli_counts == want, f"CLI launches {cli_counts} != {want}")
-    del pmodel, pfn
+    stamp(tag, "13")
+    def check_predict_cli(what, run, out, n_cases, want):
+        """`python -m mst_tpu_torch.predict --use_tta --use_rollout
+        --save_saliency` on the run folder `run` and n_cases LIDC-shaped
+        Synthetic test volumes: results.csv and the NIfTI maps against the
+        predictor on the same batches, predict.log, the launch counts."""
+        shutil.rmtree(out, ignore_errors=True)
+        data_kw = dict(shape_cdhw=(1, DEPTH_SLICES, PX, PX),
+                       num_samples=n_cases)
+        pargv = ["--run_folder", str(run), "--output_dir", str(out),
+                 "--use_tta", "--use_rollout", "--save_saliency"]
+        fb.reset_launch_counts()
+        t1 = time.perf_counter()
+        predict_cli.main(pargv, **data_kw)
+        torch.cuda.synchronize()
+        cli_sec = time.perf_counter() - t1
+        cli_counts = fb.launch_counts()
+        with (out / "results.csv").open() as f:
+            rows = list(csv.DictReader(f))
+        pargs = predict_cli.parse_args(pargv)
+        pfn = make_predict_fn(predict_cli.build_model(pargs, dev), tta=True,
+                              plane_mode="rollout")
+        worst_p = worst_s = 0.0
+        batches = predict_cli.build_datamodule(pargs, dev, **data_kw)
+        for r, b in zip(rows, batches.test_dataloader()):
+            pb, sb = pfn(b["source"], None)
+            check(r["uid"] == b["uid"][0]
+                  and int(r["GT"]) == int(b["target"][0]),
+                  f"row {r} is not case {b['uid'][0]}")
+            check(int(r["NN"]) == int(pb[0].argmax()), f"NN of {r['uid']}")
+            worst_p = max(worst_p, abs(float(r["NN_pred"]) - pb[0, 1].item()))
+            got = read_nifti_f32(out / f"case_{r['uid']}" / "saliency.nii.gz")
+            want_s = sb[0].cpu().numpy().transpose(2, 1, 0)
+            check(got.shape == want_s.shape, f"NIfTI {got.shape}")
+            worst_s = max(worst_s, float(np.abs(got - want_s).max()
+                                         / np.abs(want_s).max()))
+        log_text = (out / "predict.log").read_text()
+        t1 = time.perf_counter()
+        write_nifti(out / "timing.nii.gz", got)
+        sec_nii = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        write_nifti(out / "timing.nii.gz", b["source"][0, 0].cpu().numpy())
+        sec_nii_in = time.perf_counter() - t1
+        print(f"{tag} {what} --use_tta --use_rollout --save_saliency on "
+              f"{n_cases} cases {list(data_kw['shape_cdhw'])}: {cli_sec:.3f} "
+              f"s (one saliency.nii.gz write {sec_nii:.3f} s, one "
+              f"input.nii.gz write {sec_nii_in:.3f} s); launches "
+              f"{cli_counts}; results.csv vs the predictor: |NN_pred| "
+              f"{worst_p:.6g}, saliency.nii.gz {worst_s:.6g} (both must be "
+              f"<= 1e-6: the same kernels on the same batches); predict.log: "
+              f"{log_text.strip().splitlines()}")
+        check(len(rows) == n_cases, f"{len(rows)} result rows")
+        check(worst_p <= 1e-6 and worst_s <= 1e-6,
+              f"{what} vs predictor: {worst_p} / {worst_s}")
+        check("AUC=" in log_text and "Youden point" in log_text, "predict.log")
+        check(cli_counts == want, f"{what} launches {cli_counts} != {want}")
+
+    check_predict_cli(
+        "predict CLI", run_dir, ROOT / "build" / "chip_smoke_predict", N_CASES,
+        {**zero, "ln_gemm": 2 * n_full * N_CASES,
+         "mhsa_rollout": n_full * N_CASES,
+         "gemm_residual": 2 * n_full * N_CASES})
 
     # -- 14. saliency times ---------------------------------------------------
+    stamp(tag, "14")
     # plain-flags `mhsa` and its sub-layer again, beside them in time
     reference = {"mhsa[plain flags]": cases["mhsa"],
                  "attention_sublayer[ls,plain flags]":
@@ -1116,6 +1379,322 @@ def main() -> int:
         profile_device(tag, f"one B={BATCH} saliency forward ({mode})",
                        lambda: saliency(mode), 8)
 
+
+    # ======================================================================
+    # MST-DINOv3 ViT-S/16: 4 registers, normalised 2D RoPE (theta 100), no
+    # learned pos-embed, LN eps 1e-5; S = 1 + 4 + 14 x 14 = 201 at 224 px.
+    # ======================================================================
+    # -- 15. the RoPE kernels and sub-layers vs plain at [256, 201, 384] ---
+    stamp(tag, "15")
+    cos3, sin3 = rope_tables(GRID3, 64, PREFIX3, 100.0, True, dev)
+    rope3 = dict(rope_cos=cos3, rope_sin=sin3)
+    M3 = N_SLICES * S3
+    x3 = rand(N_SLICES, S3, E, dtype=bf)
+    x3b = rand(N_SLICES, S3, E, dtype=bf)  # the second rollout block's input
+    g3 = rand(M3, E, dtype=bf)  # upstream gradient
+    qkv3 = fb._ln_gemm_ref(x3.reshape(M3, E), ln_s, ln_b, wqkv, bqkv,
+                           fb.ACT_NONE, EPS3)
+    o3, lse3 = fb._mhsa_ref(qkv3, N_SLICES, S3, HEADS, want_lse=True, **rope3)
+    do3 = fb._gemm_dgrad_ref(g3, wproj)
+    e03 = torch.zeros(N_SLICES, HEADS, S3, device=dev)
+    e03[:, :, 0] = 1.0
+    c13 = fb._mhsa_ref(qkv3, N_SLICES, S3, HEADS, carry=e03, **rope3)[1]
+    print(f"{tag} DINOv3 RoPE tables: cos, sin {list(cos3.shape)} f32 "
+          f"(grid {GRID3}, {PREFIX3} prefix rows at angle 0, normalised, "
+          f"theta 100); tolerances as phases 3, 7 and 11, every output "
+          f"repeated bit for bit")
+    rcases = {
+        "mhsa_rope": (
+            lambda: fb.mhsa(qkv3, N_SLICES, S3, HEADS, **rope3),
+            lambda: fb._mhsa_ref(qkv3, N_SLICES, S3, HEADS, **rope3)),
+        "mhsa_rope_train": (
+            lambda: fb.mhsa(qkv3, N_SLICES, S3, HEADS, True, **rope3),
+            lambda: fb._mhsa_ref(qkv3, N_SLICES, S3, HEADS, True, **rope3)),
+        "mhsa_with_row_rope": (
+            lambda: fb.mhsa_with_row(qkv3, N_SLICES, S3, HEADS, **rope3),
+            lambda: fb._mhsa_ref(qkv3, N_SLICES, S3, HEADS, want_row=True,
+                                 **rope3)),
+        "mhsa_rollout_rope[block0]": (
+            lambda: fb.mhsa_rollout(qkv3, e03, N_SLICES, S3, HEADS, **rope3),
+            lambda: fb._mhsa_ref(qkv3, N_SLICES, S3, HEADS, carry=e03,
+                                 **rope3)),
+        "mhsa_rollout_rope[block1,row]": (
+            lambda: fb.mhsa_rollout(qkv3, c13, N_SLICES, S3, HEADS,
+                                    want_row=True, **rope3),
+            lambda: fb._mhsa_ref(qkv3, N_SLICES, S3, HEADS, want_row=True,
+                                 carry=c13, **rope3)),
+        "mhsa_abnar_rope": (
+            lambda: fb.mhsa_abnar(qkv3, N_SLICES, S3, HEADS, **rope3),
+            lambda: fb._mhsa_ref(qkv3, N_SLICES, S3, HEADS, want_abnar=True,
+                                 **rope3)),
+        "mhsa_bwd_rope": pair(fb.mhsa_bwd, fb._mhsa_bwd_ref, qkv3, o3, do3,
+                              lse3, N_SLICES, S3, HEADS, cos3, sin3),
+    }
+    # the same kernels without RoPE on the same inputs: the time of the flag
+    twins = {
+        "mhsa_rope": lambda: fb.mhsa(qkv3, N_SLICES, S3, HEADS),
+        "mhsa_with_row_rope": lambda: fb.mhsa_with_row(qkv3, N_SLICES, S3,
+                                                       HEADS),
+        "mhsa_rollout_rope[block1,row]": lambda: fb.mhsa_rollout(
+            qkv3, c13, N_SLICES, S3, HEADS, want_row=True),
+        "mhsa_abnar_rope": lambda: fb.mhsa_abnar(qkv3, N_SLICES, S3, HEADS),
+        "mhsa_bwd_rope": lambda: fb.mhsa_bwd(qkv3, o3, do3, lse3, N_SLICES,
+                                             S3, HEADS),
+    }
+    table_bytes = 2 * 4 * S3 * 64
+    cost.update({
+        "mhsa_rope": attn_cost(N_SLICES, S3, table_bytes),
+        "mhsa_with_row_rope": attn_cost(N_SLICES, S3, table_bytes
+                                        + 4 * N_SLICES * HEADS * S3),
+        "mhsa_rollout_rope[block1,row]": attn_cost(
+            N_SLICES, S3, table_bytes + 3 * 4 * N_SLICES * HEADS * S3),
+        "mhsa_abnar_rope": attn_cost(N_SLICES, S3, table_bytes
+                                     + 4 * N_SLICES * S3 * S3),
+        "mhsa_bwd_rope": attn_cost(N_SLICES, S3, table_bytes, bwd=True),
+    })
+    q3, k3, v3 = heads_of(qkv3, N_SLICES, S3)
+
+    def rope_sdpa():
+        """The RoPE in torch ops, then SDPA: the library yardstick."""
+        return F.scaled_dot_product_attention(
+            apply_rope_tables(q3, cos3, sin3),
+            apply_rope_tables(k3, cos3, sin3), v3)
+
+    library.update({"mhsa_rope": rope_sdpa,
+                    "mhsa_bwd_rope": sdpa_backward(qkv3, do3, N_SLICES, S3,
+                                                   (cos3, sin3))})
+    attn3_args = (x3, ln_s, ln_b, wqkv, bqkv, wproj, bproj)
+
+    def rollout2_rope(fn):
+        """Two RoPE rollout blocks, the second fed the first's carry."""
+        y1, c1 = fn(*attn3_args, ls, e03, HEADS, EPS3, **rope3)
+        return (y1, c1, *fn(x3b, *attn3_args[1:], ls, c1, HEADS, EPS3,
+                            want_row=True, **rope3))
+
+    rsub = {
+        "attention_sublayer_rope[ls]": pair(
+            fb.fused_attention_sublayer_rope, fb._attn_rope_ref, *attn3_args,
+            ls, cos3, sin3, HEADS, EPS3),
+        "attention_sublayer_rope[no_ls]": pair(
+            fb.fused_attention_sublayer_rope, fb._attn_rope_ref, *attn3_args,
+            None, cos3, sin3, HEADS, EPS3),
+        "attention_sublayer_rope_with_row[ls]": pair(
+            fb.fused_attention_sublayer_rope_with_row,
+            fb._attn_rope_with_row_ref, *attn3_args, ls, cos3, sin3, HEADS,
+            EPS3),
+        "attention_sublayer_rollout_rope[ls,2 blocks]": (
+            lambda: rollout2_rope(fb.fused_attention_sublayer_rollout),
+            lambda: rollout2_rope(fb._attn_rollout_ref)),
+        "attention_sublayer_abnar_rope[ls]": pair(
+            fb.fused_attention_sublayer_abnar, fb._attn_abnar_ref,
+            *attn3_args, ls, HEADS, EPS3, cos3, sin3),
+        "mlp_sublayer[S=201,eps=1e-5,tanh,ls]": pair(
+            fb.fused_mlp_sublayer, fb._mlp_ref, x3, ln_s, ln_b, w1, b1, w2,
+            b2, ls, True, EPS3),
+    }
+    def chain(*costs):
+        """(FLOPs, bytes) of a chain of kernel calls."""
+        return tuple(map(sum, zip(*costs)))
+
+    cost.update({
+        "attention_sublayer_rope[ls]": chain(
+            mm_cost(M3, E, 3 * E, 4 * 5 * E),
+            attn_cost(N_SLICES, S3, table_bytes),
+            mm_cost(M3, E, E, 2 * M3 * E + 4 * 2 * E)),
+        "mlp_sublayer[S=201,eps=1e-5,tanh,ls]": chain(
+            mm_cost(M3, E, 4 * E, 4 * 6 * E),
+            mm_cost(M3, 4 * E, E, 2 * M3 * E + 4 * 2 * E)),
+    })
+    with torch.inference_mode():
+        for name, (kern, plain) in {**rcases, **rsub}.items():
+            k, pl = kern(), plain()
+            again = kern()
+            torch.cuda.synchronize()
+            rel = KERNEL_GRAD_REL if name in rcases else SUBLAYER_GRAD_REL
+            errs[name] = check_outputs(tag, f"rope {name}", k, pl, rel)
+            k, again = ((k, again) if isinstance(k, tuple)
+                        else ((k,), (again,)))
+            same = all(torch.equal(a, b) for a, b in zip(k, again))
+            print(f"{tag} rope {name}: two runs equal bit for bit: {same}")
+            check(same, f"{name}: two runs differ")
+        del k, pl, again
+    g33 = g3.reshape(N_SLICES, S3, E)
+    rtrain = {
+        f"attention_sublayer_train_rope[{label}]": (
+            ln_s, ln_b, wqkv.float(), bqkv, wproj.float(), bproj, lsv, cos3,
+            sin3, HEADS, EPS3)
+        for label, lsv in (("ls", ls), ("no_ls", None))}
+    for name, sargs in rtrain.items():
+        k = train_sublayer_outputs(fb, "attn_rope", fb.KERNELS, x3, sargs, g33)
+        again = train_sublayer_outputs(fb, "attn_rope", fb.KERNELS, x3, sargs,
+                                       g33)
+        pl = train_sublayer_outputs(fb, "attn_rope", fb.PLAIN, x3, sargs, g33)
+        torch.cuda.synchronize()
+        errs[name] = check_outputs(tag, f"rope sublayer {name}", k, pl,
+                                   SUBLAYER_GRAD_REL)
+        same = all(torch.equal(a, b) for a, b in zip(k, again)
+                   if a is not None)
+        print(f"{tag} rope sublayer {name}: two runs equal bit for bit: "
+              f"{same}")
+        check(same, f"{name}: two runs differ")
+    del k, pl, again
+
+    # -- 16. the DINOv3 forward at B=8 ------------------------------------
+    stamp(tag, "16")
+    flat3 = random_flax_params(get_model(MODEL3), SEED)
+    for key in flat3:
+        if key.endswith("/gamma"):
+            flat3[key] = (1.0 + 0.1 * rng.standard_normal(flat3[key].shape)
+                          ).astype(np.float32)
+    model3 = params_from_flax(get_model(MODEL3, dtype=bf), flat3).to(
+        dev).eval()
+    check(model3.num_register_tokens == 4 and model3.patch_size == 16
+          and not hasattr(model3.encoder, "pos_embed"),
+          f"DINOv3 config {model3.config}")
+    predict3 = make_predict_fn(model3, with_saliency=False)
+    vol3 = spread_volumes(rng, predict3, BATCH)
+    src3 = torch.from_numpy(vol3).to(dev)
+    per_fwd3 = {**zero, "ln_gemm": 2 * n_blocks, "mhsa_rope": n_blocks,
+                "gemm_residual": 2 * n_blocks}
+    calls_per_fwd3 = {**zero_calls, "fused_attention_sublayer_rope": n_blocks,
+                      "fused_mlp_sublayer": n_blocks}
+    fwd3_counts = check_forward("DINOv3 forward", model3, predict3, vol3,
+                                per_fwd3, calls_per_fwd3)
+
+    # -- 17. DINOv3 saliency ----------------------------------------------
+    stamp(tag, "17")
+    sal3_counts = check_saliency("DINOv3 saliency", model3, predict3, src3,
+                                 per_fwd3, calls_per_fwd3, rope=True)
+
+    # -- 18. the DINOv3 train step at B=8 ---------------------------------
+    stamp(tag, "18")
+    targs3 = cli.parse_args(["--dataset", "Synthetic", "--model", MODEL3,
+                             "--batch_size", str(BATCH), "--max_epochs", "1",
+                             "--num_train_samples", str(BATCH), "--seed",
+                             str(SEED)])
+    tmodel3 = cli.build_model(targs3)
+    check(tmodel3.dtype == torch.bfloat16
+          and tmodel3.num_register_tokens == 4, f"train {tmodel3.config}")
+    tdm3 = cli.build_datamodule(targs3, dev, num_samples=STEP_BATCHES * BATCH,
+                                shape_cdhw=(1, DEPTH_SLICES, PX, PX))
+    run3 = ROOT / "build" / "chip_smoke_run_dinov3"  # gitignored
+    shutil.rmtree(run3, ignore_errors=True)
+    trainer3 = cli.build_trainer(targs3, tdm3, run_dir=run3)
+    trainer3.init_state(tmodel3, seed=SEED)
+    with torch.no_grad():
+        for name, prm in tmodel3.named_parameters():
+            if name.endswith(".gamma"):
+                prm.copy_(torch.from_numpy(1.0 + 0.1 * rng.standard_normal(
+                    tuple(prm.shape))).to(prm))
+    batch3 = next(iter(tdm3.train_dataloader()))
+    tsrc3 = batch3["source"]
+    ttgt3 = torch.from_numpy(batch3["target"]).to(dev, torch.long)
+    # the train batch, then validation batches of the same shape
+    step_batches = [(tsrc3, ttgt3)] + [
+        (b["source"], torch.from_numpy(b["target"]).to(dev, torch.long))
+        for b in itertools.islice(tdm3.val_dataloader(), STEP_BATCHES - 1)]
+    check(len(step_batches) == STEP_BATCHES, f"{len(step_batches)} batches")
+    per_step3 = {**zero, "ln_gemm": 2 * n_blocks, "mhsa_rope": n_blocks,
+                 "gemm_residual": 2 * n_blocks, "gemm_dls": 2 * n_blocks,
+                 "gemm_wgrad": 4 * n_blocks, "gemm_dgrad": 4 * n_blocks,
+                 "mhsa_bwd_rope": n_blocks}
+    calls_per_step3 = {**zero_calls,
+                       "fused_attention_sublayer_train_rope": n_blocks,
+                       "fused_mlp_sublayer_train": n_blocks}
+    step3_counts = check_step("DINOv3 train step", tmodel3, step_batches,
+                              per_step3, calls_per_step3)
+    check_fit("DINOv3 fit one batch", tmodel3, tsrc3, ttgt3)
+
+    # -- 19. the DINOv3 CLIs: train -> run folder -> serve, predict --------
+    stamp(tag, "19")
+    tdm3.set_epoch(0)
+    _, result3 = cli.train(targs3, tmodel3, tdm3, trainer3)
+    hp3 = json.loads((run3 / f"epoch={result3.best_epoch}.hparams.json"
+                      ).read_text())
+    print(f"{tag} DINOv3 trainer: {result3.epochs_run} epoch(s), files "
+          f"{sorted(q.name for q in run3.iterdir())}; hparams {hp3}")
+    check(hp3["model"] == MODEL3 and hp3["num_register_tokens"] == 4
+          and hp3["use_rope_2d"] and not hp3["use_pos_embed"],
+          f"DINOv3 hparams {hp3}")
+    served3 = build_model(parse_args(["--run_folder", str(run3)]))
+    check(served3.config == tmodel3.config, f"served {served3.config}")
+    vbatch3 = next(iter(tdm3.val_dataloader()))
+    p_served, _ = make_predict_fn(served3, with_saliency=False)(
+        vbatch3["source"], None)
+    with np.load(best_params_path(run3)) as z:
+        params_from_flax(tmodel3, {k: z[k] for k in z.files})
+    p_eval = torch.softmax(make_eval_step(tmodel3)(vbatch3["source"]).float(),
+                           -1)
+    d_ck = (p_served - p_eval).abs().max().item()
+    print(f"{tag} DINOv3: `serve --run_folder` probs vs the eval step's on "
+          f"{tuple(vbatch3['source'].shape)}: max |diff| {d_ck:.6g} (must "
+          f"be 0)")
+    check(d_ck == 0.0, f"served DINOv3 run differs from the eval step: {d_ck}")
+    del served3
+    check_predict_cli(
+        "DINOv3 predict CLI", run3, ROOT / "build" /
+        "chip_smoke_predict_dinov3", N_CASES3,
+        {**zero, "ln_gemm": 2 * n_full * N_CASES3,
+         "mhsa_rollout_rope": n_full * N_CASES3,
+         "gemm_residual": 2 * n_full * N_CASES3})
+
+    # -- 20. DINOv3 times ---------------------------------------------------
+    stamp(tag, "20")
+    with torch.inference_mode():
+        rtimed = {name: (time_ms(kern), time_ms(plain))
+                  for name, (kern, plain) in {**rcases, **rsub}.items()}
+        # each RoPE kernel against itself without RoPE on the same inputs,
+        # in turns (with, without, without, with): the mean of each pair
+        ab = {}
+        for name, fn in twins.items():
+            kern = rcases[name][0]
+            t = [time_ms(kern), time_ms(fn), time_ms(fn), time_ms(kern)]
+            ab[name] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2)
+    lib_ms.update({name: time_ms(fn) for name, fn in library.items()
+                   if name not in lib_ms})
+    for name, (km, pm_) in rtimed.items():
+        extra = (f", with / without RoPE in turns {ab[name][0]:.4f} / "
+                 f"{ab[name][1]:.4f} ms" if name in ab else "")
+        extra += (f", library {lib_ms[name]:.4f} ms" if name in lib_ms
+                  else "")
+        print(f"{tag} time {name}: kernel {km:.4f} ms, plain {pm_:.4f} ms"
+              f"{extra}")
+    for name, sargs in rtrain.items():
+        for label, ops in (("kernel", fb.KERNELS), ("plain", fb.PLAIN)):
+            ms = time_ms(lambda: fb.fused_attention_sublayer_train_rope(
+                x3.detach().requires_grad_(True), *sargs, ops=ops).backward(
+                    g33), n=5)
+            print(f"{tag} time {name} forward + backward: {label} "
+                  f"{ms:.4f} ms")
+    sec3, mem3 = seconds_and_memory(lambda: predict3(src3, None))
+    print(f"{tag} e2e DINOv3 B={BATCH} {list(vol3.shape)} bf16: "
+          f"{sec3 * 1e3:.3f} ms = {BATCH / sec3:.3f} vol/s, peak memory "
+          f"{mem3 / 2**20:.1f} MiB above the "
+          f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB held")
+    profile_device(tag, f"one DINOv3 B={BATCH} forward",
+                   lambda: predict3(src3, None), 8)
+    for mode in PLANE_MODES:
+        sec_m, mem_m = seconds_and_memory(
+            lambda: saliency(mode, mdl=model3, vols=src3))
+        print(f"{tag} e2e DINOv3 saliency {mode} B={BATCH}: "
+              f"{sec_m * 1e3:.3f} ms = {BATCH / sec_m:.3f} vol/s "
+              f"({sec_m / sec3:.3f}x the forward without saliency), peak "
+              f"memory {mem_m / 2**20:.1f} MiB above what was held")
+    del model3, predict3
+    torch.cuda.reset_peak_memory_stats()
+    held3 = torch.cuda.memory_allocated()
+    sec_t3, kstep3 = step_seconds(tmodel3, tsrc3, ttgt3)
+    peak_t3 = torch.cuda.max_memory_allocated() - held3
+    with plain_train_sublayers():
+        sec_tp3, _ = step_seconds(tmodel3, tsrc3, ttgt3)
+    print(f"{tag} DINOv3 train step B={BATCH} bf16 (forward, CE, backward, "
+          f"AdamW): kernel path {sec_t3 * 1e3:.3f} ms = {BATCH / sec_t3:.3f} "
+          f"vol/s; plain sub-layers {sec_tp3 * 1e3:.3f} ms = "
+          f"{BATCH / sec_tp3:.3f} vol/s; peak memory (kernel path) "
+          f"{peak_t3 / 2**20:.1f} MiB above the {held3 / 2**20:.1f} MiB held")
+    profile_device(tag, "one DINOv3 train step", lambda: kstep3(tsrc3, ttgt3),
+                   16)
+
     # TPU kernels: _attn_any_kernel at fused_block.py:326, _mlp_kernel at
     # :400, their train forwards _attn_train_kernel :424 and
     # _mlp_train_kernel :470, the backwards _attn_bwd_kernel :680 and
@@ -1147,25 +1726,88 @@ def main() -> int:
                          ["mhsa_rollout[block1,row]"]),
         "mhsa_abnar": ("mhsa", [site(1503)], sal_counts["rollout_abnar"],
                        ["mhsa_abnar"]),
+        # the RoPE forms (the `has_rope` flag), counted on the DINOv3 paths
+        # (phases 16-18) at S = 201
+        "mhsa_rope": ("mhsa", [site(396), site(1435), site(424)],
+                      fwd3_counts, ["mhsa_rope"]),
+        "mhsa_with_row_rope": ("mhsa", [site(1582)], sal3_counts["with_row"],
+                               ["mhsa_with_row_rope"]),
+        "mhsa_rollout_rope": ("mhsa", [site(1535)], sal3_counts["rollout"],
+                              ["mhsa_rollout_rope[block1,row]"]),
+        "mhsa_abnar_rope": ("mhsa", [site(1503)],
+                            sal3_counts["rollout_abnar"], ["mhsa_abnar_rope"]),
+        "mhsa_bwd_rope": ("mhsa_bwd", [site(680)], step3_counts,
+                          ["mhsa_bwd_rope"]),
     }
-    alltimed = {**timed, **ttimed, **stimed}
+    alltimed = {**timed, **ttimed, **stimed, **rtimed}
+    print(f"{tag} bound: the larger of FLOPs / {PEAK_FLOPS:.4g} FLOP/s and "
+          f"bytes / {PEAK_BYTES:.4g} B/s (each input read once, each output "
+          f"written once); library: the PyTorch call(s) of the same "
+          f"function, epilogues left out")
+    for name in sorted(c for c in alltimed if c in cost):
+        b_ms, b_by = bound([cost[name]])
+        lib = f"{lib_ms[name]:.4f} ms" if name in lib_ms else "none"
+        print(f"{tag} case {name}: kernel {alltimed[name][0]:.4f} ms, plain "
+              f"{alltimed[name][1]:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+              f"({cost[name][0] / 1e9:.3f} GFLOP, {cost[name][1] / 1e6:.2f} "
+              f"MB), library {lib}")
+    # queue B's rows: each TPU kernel's chain of CUDA kernels, one ViT-S
+    # block at B=8 (S = 257)
+    rows = {
+        "1 attention sub-layer": ["ln_gemm[qkv]", "mhsa",
+                                  "gemm_residual[proj,ls]"],
+        "1'a + CLS row": ["ln_gemm[qkv]", "mhsa_with_row",
+                          "gemm_residual[proj,ls]"],
+        "1'b + rollout carry": ["ln_gemm[qkv]", "mhsa_rollout[block1,row]",
+                                "gemm_residual[proj,ls]"],
+        "1'c + Abnar factor": ["ln_gemm[qkv]", "mhsa_abnar",
+                               "gemm_residual[proj,ls]"],
+        "2 MLP sub-layer": ["ln_gemm[fc1,gelu_tanh]", "gemm_residual[fc2,ls]"],
+        "4 attention train forward": ["ln_gemm_train[qkv]", "mhsa_train",
+                                      "gemm_residual[proj,ls]"],
+        "5 MLP train forward": ["ln_gemm_train[fc1,gelu_tanh]",
+                                "gemm_residual[fc2,ls]"],
+        "7 attention backward": ["gemm_dls[proj]", "gemm_wgrad[proj]",
+                                 "gemm_dgrad[proj]", "mhsa_bwd",
+                                 "gemm_wgrad[qkv]", "gemm_dgrad[qkv,ln]"],
+        "8 MLP backward": ["gemm_dls[fc2]", "gemm_wgrad[fc2]",
+                           "gemm_dgrad[fc2,gelu_tanh]", "gemm_wgrad[fc1]",
+                           "gemm_dgrad[fc1,ln]"],
+    }
+    for label, chain in rows.items():
+        b_ms, b_by = bound([cost[c] for c in chain])
+        lib = (f"{sum(lib_ms[c] for c in chain):.4f} ms"
+               if all(c in lib_ms for c in chain) else "none")
+        print(f"{tag} row {label}: kernels {sum(alltimed[c][0] for c in chain):.4f}"
+              f" ms, plain {sum(alltimed[c][1] for c in chain):.4f} ms, bound "
+              f"{b_ms:.4f} ms by {b_by} "
+              f"({sum(cost[c][0] for c in chain) / 1e9:.3f} GFLOP, "
+              f"{sum(cost[c][1] for c in chain) / 1e6:.2f} MB), library {lib}"
+              f" ({' + '.join(chain)})")
     kernels = []
     for name, (source, replaces, counts, per_block) in sites.items():
         checked = [c for c in errs if c.split("[")[0] in
                    (name, name + "_train")]
+        steps = step3_counts if name.endswith("_rope") else step_counts
+        bound_ms, bound_by = bound([cost[c] for c in per_block])
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"mst_tpu_torch/csrc/{source}.cu",
             "replaces": replaces[0], "also_replaces": replaces[1:],
             "launches": counts[name],
-            "launches_per_train_step": step_counts[name],
+            "launches_per_train_step": steps[name],
             "max_abs_err": max(errs[c] for c in checked),
             # one ViT-S block's calls of this kernel at B=8 (serving
             # forward for ln_gemm, mhsa, gemm_residual and the saliency
             # outputs, train backward for the rest)
             "ms": sum(alltimed[c][0] for c in per_block),
             "plain_ms": sum(alltimed[c][1] for c in per_block),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": (sum(lib_ms[c] for c in per_block)
+                           if all(c in lib_ms for c in per_block) else None),
         })
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} was not launched on its path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """mst_tpu_torch: the PyTorch + CUDA port of mst_tpu for an NVIDIA H100.
 
-Serving and training of the flagship MST-DINOv2 classifier: the fused ViT
+Serving and training of the MST-DINOv2 and MST-DINOv3 classifiers: the fused ViT
 sub-layers and their backward run on hand-written Hopper kernels (`csrc/`),
 the rest is plain PyTorch. Imports torch, numpy and the standard library
 only; the JAX package `mst_tpu` is the reference it is tested against.

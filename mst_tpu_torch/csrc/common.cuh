@@ -84,6 +84,51 @@ __device__ __forceinline__ void unpack8_bf16(uint4 r, float* v) {
   }
 }
 
+// bf16 rounding of an f32 value, back in f32 (round to nearest even).
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// Interleaved-pair RoPE of 8 bf16 values of one row (columns c..c+7, c a
+// multiple of 8), with that row's f32 cos / sin at the same columns:
+//   t'[2j]   = t[2j]   * cos[2j]   - t[2j+1] * sin[2j]
+//   t'[2j+1] = t[2j+1] * cos[2j+1] + t[2j]   * sin[2j+1]
+// in f32, rounded to bf16: `_mhsa`'s q * cos + (q @ P) * sin of
+// mst_tpu/ops/fused_block.py, where the pair-swap product (q @ P)[2j] =
+// -q[2j+1], (q @ P)[2j+1] = q[2j] is exact. Each product and sum rounds on
+// its own (no contraction to an FMA), as the plain version's separate ops.
+__device__ __forceinline__ uint4 rope8(uint4 raw, const float* __restrict__ cs,
+                                       const float* __restrict__ sn) {
+  float t[8], r[8], c[8], s[8];
+  unpack8_bf16(raw, t);
+  *reinterpret_cast<float4*>(c) = *reinterpret_cast<const float4*>(cs);
+  *reinterpret_cast<float4*>(c + 4) = *reinterpret_cast<const float4*>(cs + 4);
+  *reinterpret_cast<float4*>(s) = *reinterpret_cast<const float4*>(sn);
+  *reinterpret_cast<float4*>(s + 4) = *reinterpret_cast<const float4*>(sn + 4);
+#pragma unroll
+  for (int j = 0; j < 8; j += 2) {
+    r[j] = __fsub_rn(__fmul_rn(t[j], c[j]), __fmul_rn(t[j + 1], s[j]));
+    r[j + 1] = __fadd_rn(__fmul_rn(t[j + 1], c[j + 1]), __fmul_rn(t[j], s[j + 1]));
+  }
+  return pack8_bf16(r);
+}
+
+// The adjoint of `rope8` on 8 f32 gradients d of the rotated values, with
+// the JAX backward's rounding point (`_attn_bwd_kernel`: dq = dq_r * cos -
+// bf16(dq_r * sin) @ P):
+//   out[2j]   = d[2j]   * cos[2j]   + bf16(d[2j+1] * sin[2j+1])
+//   out[2j+1] = d[2j+1] * cos[2j+1] - bf16(d[2j]   * sin[2j])
+__device__ __forceinline__ void rope_adjoint8(const float* d, const float* __restrict__ cs,
+                                              const float* __restrict__ sn, float* out) {
+#pragma unroll
+  for (int j = 0; j < 8; j += 2) {
+    const float y0 = round_bf16(__fmul_rn(d[j], sn[j]));
+    const float y1 = round_bf16(__fmul_rn(d[j + 1], sn[j + 1]));
+    out[j] = __fadd_rn(__fmul_rn(d[j], cs[j]), y1);
+    out[j + 1] = __fsub_rn(__fmul_rn(d[j + 1], cs[j + 1]), y0);
+  }
+}
+
 // Set a kernel's dynamic shared-memory ceiling (needed above 48 KB).
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {

@@ -47,6 +47,18 @@
 //   row-normalises and writes each row of the [N, S, S] f32 factor once.
 //   Per-head partials in device memory with a second pass would write and
 //   read 406 MB more per block at N = 256.
+//
+// RoPE (the `has_rope` flag of `_attn_any_kernel`, sub-layers
+// `fused_attention_sublayer_rope` :1435 and `_rope_with_row` :1582, the
+// rope_cos of `_rollout` / `_abnar`, and `_attn_train_kernel`'s rope; the
+// DINOv3 encoder) is the template flag ROPE of both kernels: q and k are
+// rotated where `attend` loads them into shared memory, pair by pair in f32
+// from the bf16 qkv and the [S, 64] f32 cos / sin tables (`rope8` in
+// common.cuh), and stored as bf16, which is where `_mhsa` rounds them. The
+// tables (51 KB each at S = 201) are read per element, as the Pallas body
+// reads them, and stay in L2; shared memory does not grow, and the LSE,
+// row, carry and Abnar outputs read the softmax of the rotated scores as
+// before. The kernels without ROPE carry no code of it.
 #include "common.cuh"
 
 namespace mst {
@@ -94,16 +106,19 @@ __host__ __device__ inline size_t abnar_bytes(int bq, int S) {
   return abnar_sum_offset(bq, S) + size_t(bq) * pad16(S) * sizeof(float);
 }
 
-// One (query tile, head, slice): loads, scores, softmax, P.V, o written.
+// One (query tile, head, slice): loads (q and k rotated by the [S, 64]
+// f32 tables rcos / rsin when ROPE), scores, softmax, P.V, o written.
 // `on_row(r, v, l, mx)` runs in the softmax for each row r of the tile,
 // with the warp's lanes holding v[i] = p[r, lane + 32 i] (f32, 0 past S)
 // in registers, the row sum l and the row max mx: the f32 probabilities,
 // of which P.V reads only the bf16 copy. On return every thread has passed
 // the barrier after P.V, so V's shared memory is free; Q, K (the output
 // staging), the scores and l are not.
-template <int BQ, class RowFn>
+template <int BQ, bool ROPE, class RowFn>
 __device__ __forceinline__ void attend(const bf16* __restrict__ qkv,
                                        bf16* __restrict__ out,
+                                       const float* __restrict__ rcos,
+                                       const float* __restrict__ rsin,
                                        unsigned char* smem, int n, int h,
                                        int q0, int S, int E, float scale,
                                        RowFn&& on_row) {
@@ -123,13 +138,18 @@ __device__ __forceinline__ void attend(const bf16* __restrict__ qkv,
   const size_t row3 = size_t(3) * E;
   const bf16* base = qkv + size_t(n) * S * row3 + h * HD;
 
-  // Load Q tile, K and V of this head; zero rows past S.
+  // Load Q tile, K and V of this head (q and k rotated with ROPE); zero
+  // rows past S.
   const uint4 zero = make_uint4(0, 0, 0, 0);
   for (int c = tid; c < BQ * (HD / 8); c += THREADS) {
     const int r = c / (HD / 8), col = (c % (HD / 8)) * 8;
     const int q = q0 + r;
-    *reinterpret_cast<uint4*>(Qs + r * LDQ + col) =
-        q < S ? *reinterpret_cast<const uint4*>(base + q * row3 + col) : zero;
+    uint4 qv = zero;
+    if (q < S) {
+      qv = *reinterpret_cast<const uint4*>(base + q * row3 + col);
+      if (ROPE) qv = rope8(qv, rcos + q * HD + col, rsin + q * HD + col);
+    }
+    *reinterpret_cast<uint4*>(Qs + r * LDQ + col) = qv;
   }
   for (int c = tid; c < sp * (HD / 8); c += THREADS) {
     const int r = c / (HD / 8), col = (c % (HD / 8)) * 8;
@@ -137,6 +157,7 @@ __device__ __forceinline__ void attend(const bf16* __restrict__ qkv,
     if (r < S) {
       kv = *reinterpret_cast<const uint4*>(base + r * row3 + E + col);
       vv = *reinterpret_cast<const uint4*>(base + r * row3 + 2 * E + col);
+      if (ROPE) kv = rope8(kv, rcos + r * HD + col, rsin + r * HD + col);
     }
     *reinterpret_cast<uint4*>(Ks + r * LDQ + col) = kv;
     *reinterpret_cast<uint4*>(Vs + r * LDQ + col) = vv;
@@ -230,13 +251,14 @@ __device__ __forceinline__ void attend(const bf16* __restrict__ qkv,
 
 // Grid (query tiles, heads, N). lse: NULL when not wanted. ROW: row [N,
 // heads, S] out. CARRY: carry [N, heads, S] in, part [tiles, N, heads, S]
-// out. Both are template flags, so the plain kernel carries no code of
-// theirs.
-template <int BQ, bool ROW, bool CARRY>
+// out. ROPE: rcos / rsin [S, 64] f32 in. All are template flags, so the
+// plain kernel carries no code of theirs.
+template <int BQ, bool ROW, bool CARRY, bool ROPE>
 __global__ void __launch_bounds__(THREADS)
 mhsa_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
             float* __restrict__ lse, float* __restrict__ row,
-            const float* __restrict__ carry, float* __restrict__ part, int S,
+            const float* __restrict__ carry, float* __restrict__ part,
+            const float* __restrict__ rcos, const float* __restrict__ rsin, int S,
             int E, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int q0 = blockIdx.x * BQ;
@@ -248,8 +270,8 @@ mhsa_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
 #pragma unroll
   for (int i = 0; i < PER_LANE; ++i) cacc[i] = 0.0f;
 
-  attend<BQ>(qkv, out, smem, n, h, q0, S, E, scale,
-             [&](int r, const float (&v)[PER_LANE], float l, float mx) {
+  attend<BQ, ROPE>(qkv, out, rcos, rsin, smem, n, h, q0, S, E, scale,
+                   [&](int r, const float (&v)[PER_LANE], float l, float mx) {
     const int q = q0 + r;  // rows q >= S are the ragged tile's zero rows
     if (lse != nullptr && lane == 0 && q < S)
       lse[(size_t(n) * S + q) * H + h] = mx + log2f(l);
@@ -289,10 +311,11 @@ mhsa_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
 // Grid (query tiles, N): the heads one after the other, o of each written
 // as by mhsa_kernel, then the factor rownorm(sum_h p_h / l_h / H + I) of
 // the tile's rows into factor [N, S, S] f32.
-template <int BQ>
+template <int BQ, bool ROPE>
 __global__ void __launch_bounds__(THREADS)
 mhsa_abnar_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
-                  float* __restrict__ factor, int S, int E, int H,
+                  float* __restrict__ factor, const float* __restrict__ rcos,
+                  const float* __restrict__ rsin, int S, int E, int H,
                   float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int sp = pad16(S);
@@ -302,8 +325,8 @@ mhsa_abnar_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
   for (int h = 0; h < H; ++h) {
-    attend<BQ>(qkv, out, smem, n, h, q0, S, E, scale,
-               [&](int r, const float (&v)[PER_LANE], float l, float) {
+    attend<BQ, ROPE>(qkv, out, rcos, rsin, smem, n, h, q0, S, E, scale,
+                     [&](int r, const float (&v)[PER_LANE], float l, float) {
       float* a = A + r * sp;
 #pragma unroll
       for (int i = 0; i < PER_LANE; ++i) {
@@ -343,48 +366,73 @@ constexpr size_t SMEM_CAP = 227 * 1024;
 
 // The attention kernel, then (CARRY) the fixed-order sum of its per-tile
 // partials into new_carry [N, heads, S].
-template <int BQ, bool ROW, bool CARRY>
+template <int BQ, bool ROW, bool CARRY, bool ROPE>
 cudaError_t launch(const bf16* qkv, bf16* out, float* lse, float* row,
-                   const float* carry, float* part, float* new_carry, int N,
-                   int S, int E, int H, float scale, cudaStream_t st) {
+                   const float* carry, float* part, float* new_carry,
+                   const float* rcos, const float* rsin, int N, int S, int E,
+                   int H, float scale, cudaStream_t st) {
   const size_t bytes = layout(BQ, S).total;
-  cudaError_t err = allow_smem(mhsa_kernel<BQ, ROW, CARRY>, bytes);
+  cudaError_t err = allow_smem(mhsa_kernel<BQ, ROW, CARRY, ROPE>, bytes);
   if (err != cudaSuccess) return err;
   const int tiles = (S + BQ - 1) / BQ;
   dim3 grid(tiles, H, N);
-  mhsa_kernel<BQ, ROW, CARRY><<<grid, THREADS, bytes, st>>>(qkv, out, lse, row, carry, part,
-                                                            S, E, scale);
+  mhsa_kernel<BQ, ROW, CARRY, ROPE><<<grid, THREADS, bytes, st>>>(
+      qkv, out, lse, row, carry, part, rcos, rsin, S, E, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || !CARRY) return err;
   return sum_partials(part, new_carry, tiles, N * H * S, st);
 }
 
-template <int BQ>
+template <int BQ, bool ROPE>
 cudaError_t launch_flags(const bf16* qkv, bf16* out, float* lse, float* row,
-                         const float* carry, float* part, float* new_carry, int N,
-                         int S, int E, int H, float scale, cudaStream_t st) {
+                         const float* carry, float* part, float* new_carry,
+                         const float* rcos, const float* rsin, int N, int S,
+                         int E, int H, float scale, cudaStream_t st) {
   if (carry != nullptr)
     return row != nullptr
-               ? launch<BQ, true, true>(qkv, out, lse, row, carry, part, new_carry, N, S, E, H,
-                                        scale, st)
-               : launch<BQ, false, true>(qkv, out, lse, row, carry, part, new_carry, N, S, E,
-                                         H, scale, st);
+               ? launch<BQ, true, true, ROPE>(qkv, out, lse, row, carry, part, new_carry,
+                                              rcos, rsin, N, S, E, H, scale, st)
+               : launch<BQ, false, true, ROPE>(qkv, out, lse, row, carry, part, new_carry,
+                                               rcos, rsin, N, S, E, H, scale, st);
   return row != nullptr
-             ? launch<BQ, true, false>(qkv, out, lse, row, carry, part, new_carry, N, S, E, H,
-                                       scale, st)
-             : launch<BQ, false, false>(qkv, out, lse, row, carry, part, new_carry, N, S, E, H,
-                                        scale, st);
+             ? launch<BQ, true, false, ROPE>(qkv, out, lse, row, carry, part, new_carry,
+                                             rcos, rsin, N, S, E, H, scale, st)
+             : launch<BQ, false, false, ROPE>(qkv, out, lse, row, carry, part, new_carry,
+                                              rcos, rsin, N, S, E, H, scale, st);
 }
 
 template <int BQ>
-cudaError_t launch_abnar(const bf16* qkv, bf16* out, float* factor, int N, int S, int E,
-                         int H, float scale, cudaStream_t st) {
+cudaError_t launch_rope(const bf16* qkv, bf16* out, float* lse, float* row,
+                        const float* carry, float* part, float* new_carry,
+                        const float* rcos, const float* rsin, int N, int S, int E,
+                        int H, float scale, cudaStream_t st) {
+  return rcos != nullptr
+             ? launch_flags<BQ, true>(qkv, out, lse, row, carry, part, new_carry, rcos,
+                                      rsin, N, S, E, H, scale, st)
+             : launch_flags<BQ, false>(qkv, out, lse, row, carry, part, new_carry, rcos,
+                                       rsin, N, S, E, H, scale, st);
+}
+
+template <int BQ, bool ROPE>
+cudaError_t launch_abnar(const bf16* qkv, bf16* out, float* factor, const float* rcos,
+                         const float* rsin, int N, int S, int E, int H, float scale,
+                         cudaStream_t st) {
   const size_t bytes = abnar_bytes(BQ, S);
-  cudaError_t err = allow_smem(mhsa_abnar_kernel<BQ>, bytes);
+  cudaError_t err = allow_smem(mhsa_abnar_kernel<BQ, ROPE>, bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((S + BQ - 1) / BQ, N);
-  mhsa_abnar_kernel<BQ><<<grid, THREADS, bytes, st>>>(qkv, out, factor, S, E, H, scale);
+  mhsa_abnar_kernel<BQ, ROPE><<<grid, THREADS, bytes, st>>>(qkv, out, factor, rcos, rsin,
+                                                            S, E, H, scale);
   return cudaGetLastError();
+}
+
+template <int BQ>
+cudaError_t launch_abnar_rope(const bf16* qkv, bf16* out, float* factor,
+                              const float* rcos, const float* rsin, int N, int S,
+                              int E, int H, float scale, cudaStream_t st) {
+  return rcos != nullptr
+             ? launch_abnar<BQ, true>(qkv, out, factor, rcos, rsin, N, S, E, H, scale, st)
+             : launch_abnar<BQ, false>(qkv, out, factor, rcos, rsin, N, S, E, H, scale, st);
 }
 
 }  // namespace
@@ -395,16 +443,19 @@ cudaError_t launch_abnar(const bf16* qkv, bf16* out, float* factor, int N, int S
 // lse [N*S, num_heads] f32; row [N, num_heads, S] f32; carry [N,
 // num_heads, S] f32 in with carry_part (room for [ceil(S / 32), N,
 // num_heads, S] f32) and new_carry [N, num_heads, S] f32 out; abnar [N, S,
-// S] f32 (alone: no lse, row or carry with it; S <= 416).
+// S] f32 (alone: no lse, row or carry with it; S <= 416). rope_cos and
+// rope_sin, [S, 64] f32 each, both or neither: RoPE on q and k.
 extern "C" int mst_mhsa(const void* qkv, void* out, void* lse, void* row,
                         const void* carry, void* carry_part, void* new_carry,
-                        void* abnar, int N, int S, int E, int num_heads,
-                        float scale, void* stream) {
+                        void* abnar, const void* rope_cos, const void* rope_sin,
+                        int N, int S, int E, int num_heads, float scale,
+                        void* stream) {
   using namespace mst;
   if (N <= 0 || N > 65535 || S <= 0 || S > MAX_S || num_heads <= 0 ||
       num_heads > 65535 || E != num_heads * HD ||
       (carry == nullptr) != (carry_part == nullptr) ||
       (carry == nullptr) != (new_carry == nullptr) ||
+      (rope_cos == nullptr) != (rope_sin == nullptr) ||
       size_t(N) * num_heads * S > size_t(INT32_MAX))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -415,16 +466,20 @@ extern "C" int mst_mhsa(const void* qkv, void* out, void* lse, void* row,
   const float* c = static_cast<const float*>(carry);
   float* part = static_cast<float*>(carry_part);
   float* nc = static_cast<float*>(new_carry);
+  const float* rc = static_cast<const float*>(rope_cos);
+  const float* rs = static_cast<const float*>(rope_sin);
   if (abnar != nullptr) {
     if (lse != nullptr || row != nullptr || carry != nullptr) return cudaErrorInvalidValue;
     float* f = static_cast<float*>(abnar);
     if (abnar_bytes(64, S) <= SMEM_CAP)
-      return launch_abnar<64>(in, o, f, N, S, E, num_heads, scale, st);
+      return launch_abnar_rope<64>(in, o, f, rc, rs, N, S, E, num_heads, scale, st);
     if (abnar_bytes(32, S) <= SMEM_CAP)
-      return launch_abnar<32>(in, o, f, N, S, E, num_heads, scale, st);
+      return launch_abnar_rope<32>(in, o, f, rc, rs, N, S, E, num_heads, scale, st);
     return cudaErrorInvalidValue;
   }
   return layout(64, S).total <= SMEM_CAP
-             ? launch_flags<64>(in, o, b, rw, c, part, nc, N, S, E, num_heads, scale, st)
-             : launch_flags<32>(in, o, b, rw, c, part, nc, N, S, E, num_heads, scale, st);
+             ? launch_rope<64>(in, o, b, rw, c, part, nc, rc, rs, N, S, E, num_heads, scale,
+                               st)
+             : launch_rope<32>(in, o, b, rw, c, part, nc, rc, rs, N, S, E, num_heads, scale,
+                               st);
 }

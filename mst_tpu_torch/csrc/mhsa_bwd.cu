@@ -26,6 +26,16 @@
 // p = ds = 0, so the ragged edge adds nothing to any sum. Bound on the H100:
 // tensor-core FLOPs (~91 GFLOP for the pair at N = 256, S = 257, 6 heads)
 // and the shared-memory traffic of the WMMA fragment loads.
+//
+// RoPE (`has_rope` of `_attn_bwd_kernel`, :754-766 and :806-814; the DINOv3
+// train step) is the template flag ROPE of both kernels. The saved qkv is
+// pre-rope, as in JAX, so each kernel rotates q and k where it loads them
+// (`rope8`: the dq kernel its q tile and all of k, the dk/dv kernel its k
+// tile and all of q), which recomputes the forward's bf16 rotated values;
+// the rest of the body runs on them unchanged. The adjoint takes dq and dk
+// back through the rotation in the f32 staging epilogue before the bf16
+// store (`rope_adjoint8`, with JAX's bf16 rounding of dq_r * sin); dv is
+// not rotated. The [S, 64] f32 tables are read per element and stay in L2.
 #include "common.cuh"
 
 namespace mst {
@@ -72,14 +82,22 @@ __host__ __device__ inline Layout layout(int bt, int S) {
   return L;
 }
 
+// rows [r0, r0 + rows) of one head into shared memory, zero past S; with
+// ROPE each row rotated by its row of the [S, 64] f32 tables rcos / rsin.
+template <bool ROPE = false>
 __device__ inline void load_rows(bf16* dst, const bf16* src, size_t stride, int r0,
-                                 int rows, int S, int tid) {
+                                 int rows, int S, int tid, const float* rcos = nullptr,
+                                 const float* rsin = nullptr) {
   const uint4 zero = make_uint4(0, 0, 0, 0);
   for (int c = tid; c < rows * (HD / 8); c += THREADS) {
     const int r = c / (HD / 8), col = (c % (HD / 8)) * 8;
     const int q = r0 + r;
-    *reinterpret_cast<uint4*>(dst + r * LDQ + col) =
-        q < S ? *reinterpret_cast<const uint4*>(src + q * stride + col) : zero;
+    uint4 v = zero;
+    if (q < S) {
+      v = *reinterpret_cast<const uint4*>(src + q * stride + col);
+      if (ROPE) v = rope8(v, rcos + q * HD + col, rsin + q * HD + col);
+    }
+    *reinterpret_cast<uint4*>(dst + r * LDQ + col) = v;
   }
 }
 
@@ -113,12 +131,13 @@ __device__ inline void scores(const bf16* a0, const bf16* b0, float* dst0, float
   }
 }
 
-template <int BQ>
+template <int BQ, bool ROPE>
 __global__ void __launch_bounds__(THREADS)
 mhsa_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ o,
                    const bf16* __restrict__ dout, const float* __restrict__ lse,
-                   float* __restrict__ delta, bf16* __restrict__ dqkv, int S, int E,
-                   float scale_log2, float scale) {
+                   float* __restrict__ delta, bf16* __restrict__ dqkv,
+                   const float* __restrict__ rcos, const float* __restrict__ rsin, int S,
+                   int E, float scale_log2, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L = layout(BQ, S);
   const int sp = pad16(S), lds = sp + 4;
@@ -138,9 +157,9 @@ mhsa_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ o,
   const bf16* dobase = dout + size_t(n) * S * E + h * HD;
   const bf16* obase = o + size_t(n) * S * E + h * HD;
 
-  load_rows(Qs, base, row3, q0, BQ, S, tid);
+  load_rows<ROPE>(Qs, base, row3, q0, BQ, S, tid, rcos, rsin);
   load_rows(DOs, dobase, E, q0, BQ, S, tid);
-  load_rows(Ks, base + E, row3, 0, sp, S, tid);
+  load_rows<ROPE>(Ks, base + E, row3, 0, sp, S, tid, rcos, rsin);
   load_rows(Vs, base + 2 * E, row3, 0, sp, S, tid);
   // delta = rowdot(do, o) in f32 and the saved b, one warp per query row.
   for (int r = warp; r < BQ; r += THREADS / 32) {
@@ -189,7 +208,8 @@ mhsa_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ o,
   }
   __syncthreads();
 
-  // dq = ds k, staged in f32 over the (dead) score rows.
+  // dq = ds k (k rotated with ROPE), staged in f32 over the (dead) score
+  // rows; with ROPE the adjoint of the rotation before the bf16 store.
   const bf16* DSs = reinterpret_cast<const bf16*>(Ds);
   const int ldp = 2 * lds;
   float* Os = Ss;
@@ -211,16 +231,20 @@ mhsa_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ o,
     const int r = g / (HD / 8), c = (g % (HD / 8)) * 8;
     const int q = q0 + r;
     if (q >= S) continue;
+    float v[8];
+    const float* d = Os + r * LDO + c;
+    if (ROPE) rope_adjoint8(d, rcos + q * HD + c, rsin + q * HD + c, v);
     *reinterpret_cast<uint4*>(dqkv + (size_t(n) * S + q) * row3 + h * HD + c) =
-        pack8_bf16(Os + r * LDO + c);
+        pack8_bf16(ROPE ? v : d);
   }
 }
 
-template <int BKV>
+template <int BKV, bool ROPE>
 __global__ void __launch_bounds__(THREADS)
 mhsa_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dqkv, int S, int E, float scale_log2,
+                    bf16* __restrict__ dqkv, const float* __restrict__ rcos,
+                    const float* __restrict__ rsin, int S, int E, float scale_log2,
                     float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L = layout(BKV, S);
@@ -240,9 +264,9 @@ mhsa_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
   const bf16* base = qkv + size_t(n) * S * row3 + h * HD;
   const bf16* dobase = dout + size_t(n) * S * E + h * HD;
 
-  load_rows(Kt, base + E, row3, k0, BKV, S, tid);
+  load_rows<ROPE>(Kt, base + E, row3, k0, BKV, S, tid, rcos, rsin);
   load_rows(Vt, base + 2 * E, row3, k0, BKV, S, tid);
-  load_rows(Qa, base, row3, 0, sp, S, tid);
+  load_rows<ROPE>(Qa, base, row3, 0, sp, S, tid, rcos, rsin);
   load_rows(DOa, dobase, E, 0, sp, S, tid);
   for (int j = tid; j < sp; j += THREADS) {
     const size_t idx = (size_t(n) * S + j) * H + h;
@@ -318,30 +342,49 @@ mhsa_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
     const int r = gg / (HD / 8), c = (gg % (HD / 8)) * 8;
     const int key = k0 + r;
     if (key >= S) continue;
-    // which 0: dv -> columns 2E + h*64; which 1: dk -> E + h*64
+    // which 0: dv -> columns 2E + h*64; which 1: dk -> E + h*64 (with ROPE
+    // through the rotation's adjoint first)
     const size_t col = (which ? size_t(E) : size_t(2) * E) + h * HD + c;
+    const float* d = stage + (which * BKV + r) * LDO + c;
+    float v[8];
+    if (ROPE && which) rope_adjoint8(d, rcos + key * HD + c, rsin + key * HD + c, v);
     *reinterpret_cast<uint4*>(dqkv + (size_t(n) * S + key) * row3 + col) =
-        pack8_bf16(stage + (which * BKV + r) * LDO + c);
+        pack8_bf16(ROPE && which ? v : d);
   }
 }
 
-template <int BT>
+template <int BT, bool ROPE>
 cudaError_t launch_pair(const bf16* qkv, const bf16* o, const bf16* dout, const float* lse,
-                        float* delta, bf16* dqkv, int N, int S, int E, int H,
-                        float scale_log2, float scale, cudaStream_t st) {
+                        float* delta, bf16* dqkv, const float* rcos, const float* rsin,
+                        int N, int S, int E, int H, float scale_log2, float scale,
+                        cudaStream_t st) {
   const size_t smem = layout(BT, S).total;
-  cudaError_t err = allow_smem(mhsa_bwd_dq_kernel<BT>, smem);
+  cudaError_t err = allow_smem(mhsa_bwd_dq_kernel<BT, ROPE>, smem);
   if (err != cudaSuccess) return err;
-  err = allow_smem(mhsa_bwd_dkv_kernel<BT>, smem);
+  err = allow_smem(mhsa_bwd_dkv_kernel<BT, ROPE>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((S + BT - 1) / BT, H, N);
-  mhsa_bwd_dq_kernel<BT><<<grid, THREADS, smem, st>>>(qkv, o, dout, lse, delta, dqkv, S, E,
-                                                       scale_log2, scale);
+  mhsa_bwd_dq_kernel<BT, ROPE><<<grid, THREADS, smem, st>>>(qkv, o, dout, lse, delta, dqkv,
+                                                             rcos, rsin, S, E, scale_log2,
+                                                             scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  mhsa_bwd_dkv_kernel<BT><<<grid, THREADS, smem, st>>>(qkv, dout, lse, delta, dqkv, S, E,
-                                                        scale_log2, scale);
+  mhsa_bwd_dkv_kernel<BT, ROPE><<<grid, THREADS, smem, st>>>(qkv, dout, lse, delta, dqkv,
+                                                              rcos, rsin, S, E, scale_log2,
+                                                              scale);
   return cudaGetLastError();
+}
+
+template <int BT>
+cudaError_t launch_rope(const bf16* qkv, const bf16* o, const bf16* dout, const float* lse,
+                        float* delta, bf16* dqkv, const float* rcos, const float* rsin,
+                        int N, int S, int E, int H, float scale_log2, float scale,
+                        cudaStream_t st) {
+  return rcos != nullptr
+             ? launch_pair<BT, true>(qkv, o, dout, lse, delta, dqkv, rcos, rsin, N, S, E, H,
+                                     scale_log2, scale, st)
+             : launch_pair<BT, false>(qkv, o, dout, lse, delta, dqkv, rcos, rsin, N, S, E,
+                                      H, scale_log2, scale, st);
 }
 
 }  // namespace
@@ -350,15 +393,18 @@ cudaError_t launch_pair(const bf16* qkv, const bf16* o, const bf16* dout, const 
 // qkv [N*S, 3E], o, dout [N*S, E] bf16, lse [N*S, heads] f32 -> dqkv
 // [N*S, 3E] bf16. delta: [N*S, heads] f32 scratch, written by the dq kernel
 // and read by the dk/dv kernel (both launched here, in that order).
+// rope_cos / rope_sin: [S, 64] f32 each, both or neither (NULL): the
+// forward's RoPE on q and k, recomputed from the pre-rope qkv.
 // E == num_heads * 64, S <= 512. scale_log2 = log2(e) / sqrt(64) (the
 // forward's), scale = 1 / sqrt(64).
 extern "C" int mst_mhsa_bwd(const void* qkv, const void* o, const void* dout,
-                            const void* lse, void* delta, void* dqkv, int N, int S,
-                            int E, int num_heads, float scale_log2, float scale,
-                            void* stream) {
+                            const void* lse, void* delta, void* dqkv, const void* rope_cos,
+                            const void* rope_sin, int N, int S, int E, int num_heads,
+                            float scale_log2, float scale, void* stream) {
   using namespace mst;
   if (N <= 0 || N > 65535 || S <= 0 || S > MAX_S || num_heads <= 0 ||
-      num_heads > 65535 || E != num_heads * HD)
+      num_heads > 65535 || E != num_heads * HD ||
+      (rope_cos == nullptr) != (rope_sin == nullptr))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* q = static_cast<const bf16*>(qkv);
@@ -367,7 +413,11 @@ extern "C" int mst_mhsa_bwd(const void* qkv, const void* o, const void* dout,
   const float* b = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   bf16* out = static_cast<bf16*>(dqkv);
+  const float* rc = static_cast<const float*>(rope_cos);
+  const float* rs = static_cast<const float*>(rope_sin);
   if (layout(32, S).total <= SMEM_CAP)
-    return launch_pair<32>(q, ov, d, b, dl, out, N, S, E, num_heads, scale_log2, scale, st);
-  return launch_pair<16>(q, ov, d, b, dl, out, N, S, E, num_heads, scale_log2, scale, st);
+    return launch_rope<32>(q, ov, d, b, dl, out, rc, rs, N, S, E, num_heads, scale_log2,
+                           scale, st);
+  return launch_rope<16>(q, ov, d, b, dl, out, rc, rs, N, S, E, num_heads, scale_log2,
+                         scale, st);
 }

@@ -24,7 +24,10 @@ from mst_tpu_torch.ops.fused_block import (
     fused_attention_sublayer,
     fused_attention_sublayer_abnar,
     fused_attention_sublayer_rollout,
+    fused_attention_sublayer_rope,
+    fused_attention_sublayer_rope_with_row,
     fused_attention_sublayer_train,
+    fused_attention_sublayer_train_rope,
     fused_attention_sublayer_with_row,
     fused_mlp_sublayer,
     fused_mlp_sublayer_train,
@@ -115,7 +118,9 @@ class Block(nn.Module):
     """Pre-norm ViT block with optional LayerScale; the forward runs the two
     fused sub-layers (hand-written kernels on CUDA): the serving ones, or
     with `train=True` the residual-saving ones whose backward is a kernel
-    chain too (`vit_fast.fused_vit_cls(train=True)`)."""
+    chain too (`vit_fast.fused_vit_cls(train=True)`). With the RoPE tables
+    (DINOv3) every attention variant takes its RoPE form, as
+    `mst_tpu/models/vit_fast.py:429-450` dispatches."""
 
     def __init__(self, dim: int, num_heads: int, mlp_hidden: int,
                  layerscale_init: Optional[float] = 1e-5,
@@ -135,10 +140,12 @@ class Block(nn.Module):
             self.ls1 = self.ls2 = None
 
     def forward(self, h, train: bool = False, want_row: bool = False,
-                carry=None, abnar: bool = False):
+                carry=None, abnar: bool = False, rope_cos=None,
+                rope_sin=None):
         """-> h. With `carry`, `abnar` or `want_row` (serving only) the
         attention sub-layer is its explainability variant and the block
-        returns (h, new_carry | Abnar factor | CLS row)."""
+        returns (h, new_carry | Abnar factor | CLS row). `rope_cos` /
+        `rope_sin` ([S, head_dim] f32): RoPE on q and k."""
         dt = h.dtype
         # the serving sub-layers take compute-dtype matrices, the train ones
         # the f32 parameters
@@ -148,20 +155,28 @@ class Block(nn.Module):
                      cast(self.attn.qkv.kernel), self.attn.qkv.bias,
                      cast(self.attn.proj.kernel), self.attn.proj.bias,
                      None if self.ls1 is None else self.ls1.gamma)
+        rope = dict(rope_cos=rope_cos, rope_sin=rope_sin)
+        tables = () if rope_cos is None else (rope_cos, rope_sin)
         extra = None
         if carry is not None:
             h, extra = fused_attention_sublayer_rollout(
-                *attn_args, carry, self.num_heads, self.norm_eps)
+                *attn_args, carry, self.num_heads, self.norm_eps, **rope)
         elif abnar:
             h, extra = fused_attention_sublayer_abnar(
-                *attn_args, self.num_heads, self.norm_eps)
+                *attn_args, self.num_heads, self.norm_eps, **rope)
         elif want_row:
-            h, extra = fused_attention_sublayer_with_row(
-                *attn_args, self.num_heads, self.norm_eps)
+            row_fn = (fused_attention_sublayer_with_row if not tables else
+                      fused_attention_sublayer_rope_with_row)
+            h, extra = row_fn(*attn_args, *tables, self.num_heads,
+                              self.norm_eps)
         else:
-            attn = fused_attention_sublayer_train if train else \
-                fused_attention_sublayer
-            h = attn(*attn_args, self.num_heads, self.norm_eps)
+            if train:
+                attn = (fused_attention_sublayer_train if not tables else
+                        fused_attention_sublayer_train_rope)
+            else:
+                attn = (fused_attention_sublayer if not tables else
+                        fused_attention_sublayer_rope)
+            h = attn(*attn_args, *tables, self.num_heads, self.norm_eps)
         h = mlp(h, self.norm2.scale, self.norm2.bias,
                 cast(self.mlp.fc1.kernel), self.mlp.fc1.bias,
                 cast(self.mlp.fc2.kernel), self.mlp.fc2.bias,

@@ -2,11 +2,13 @@
 
 Counterpart of `mst_tpu/models/mst.py` `DinoSliceClassifier` for the
 configurations the port serves: a DINOv2 ViT (learned pos-embed, optional
-register tokens, MLP FFN), transformer slice fusion without rotary,
-optional bottleneck and slice position embedding. The module holds the
-parameters under the flax names; its forward is the fused serving path
-(`models/vit_fast.fused_mst_logits`). Every other configuration raises
-`NotImplementedError` naming the ROADMAP item that brings it.
+register tokens, MLP FFN) or a DINOv3 ViT (2D RoPE instead of a learned
+pos-embed, 4 registers, patch 16, LN eps 1e-5), transformer slice fusion
+without rotary, optional bottleneck and slice position embedding. The
+module holds the parameters under the flax names; its forward is the fused
+serving path (`models/vit_fast.fused_mst_logits`). Every other
+configuration raises `NotImplementedError` naming the ROADMAP item that
+brings it.
 """
 
 from __future__ import annotations
@@ -38,8 +40,10 @@ def _unsupported(what: str, item: str):
 
 
 class DinoSliceClassifier(nn.Module):
-    """MST-DINOv2 classifier. `dtype` is the compute dtype of the serving
-    forward (bf16 on the card); parameters stay f32."""
+    """MST-DINO classifier (v2 and v3 are configurations of it). `dtype` is
+    the compute dtype of the serving forward (bf16 on the card); parameters
+    stay f32. `config` holds the options it was built with (what a run
+    folder's hparams record, so that `serve.load_run_model` rebuilds it)."""
 
     def __init__(self, out_ch: int = 2, model_size: str = "small",
                  patch_size: int = 14, num_register_tokens: int = 0,
@@ -48,6 +52,7 @@ class DinoSliceClassifier(nn.Module):
                  use_bottleneck: bool = False, use_rope_2d: bool = False,
                  use_slice_pos_emb: bool = False,
                  pos_embed_grid: int = 37, use_pos_embed: bool = True,
+                 rope_theta: float = 100.0, rope_normalized: bool = False,
                  norm_eps: float = 1e-6, ffn_layer: Optional[str] = None,
                  ffn_hidden: Optional[int] = None,
                  layerscale_init: Optional[float] = 1e-5,
@@ -57,8 +62,6 @@ class DinoSliceClassifier(nn.Module):
         if model_size not in _VIT_CONFIGS:
             raise ValueError(f"unknown model_size {model_size!r}")
         base = _VIT_CONFIGS[model_size]
-        if use_rope_2d or not use_pos_embed:
-            _unsupported("DINOv3 (2D RoPE, no learned pos-embed)", "#7")
         if (ffn_layer or base.get("ffn_layer", "mlp")) != "mlp":
             _unsupported("the SwiGLU FFN (giant2)", "#12")
         if slice_fusion != "transformer":
@@ -67,6 +70,18 @@ class DinoSliceClassifier(nn.Module):
             _unsupported(f"rotary={rotary!r} slice fusion", "#9")
         if fusion_layers < 1:
             raise ValueError("transformer slice fusion needs fusion_layers >= 1")
+        if use_rope_2d and (base["embed_dim"] // base["num_heads"]) % 4:
+            raise ValueError("the 2D RoPE needs a head dim divisible by 4")
+        self.config = dict(
+            model_size=model_size, patch_size=patch_size,
+            num_register_tokens=num_register_tokens,
+            fusion_layers=fusion_layers, fusion_heads=fusion_heads,
+            use_bottleneck=use_bottleneck, use_rope_2d=use_rope_2d,
+            use_slice_pos_emb=use_slice_pos_emb, pos_embed_grid=pos_embed_grid,
+            use_pos_embed=use_pos_embed, rope_theta=rope_theta,
+            rope_normalized=rope_normalized, norm_eps=norm_eps,
+            ffn_hidden=ffn_hidden, layerscale_init=layerscale_init,
+            gelu_approximate=gelu_approximate)
         # only what the forward and `random_flax_params` read is kept; the
         # checks above are the one gate of the fused serving path
         self.model_size = model_size
@@ -86,7 +101,9 @@ class DinoSliceClassifier(nn.Module):
             num_heads=base["num_heads"], patch_size=patch_size,
             num_register_tokens=num_register_tokens, ffn_hidden=ffn_hidden,
             layerscale_init=layerscale_init, pos_embed_grid=pos_embed_grid,
-            norm_eps=norm_eps, gelu_approximate=gelu_approximate)
+            norm_eps=norm_eps, gelu_approximate=gelu_approximate,
+            use_pos_embed=use_pos_embed, use_rope_2d=use_rope_2d,
+            rope_theta=rope_theta, rope_normalized=rope_normalized)
         emb = base["embed_dim"]
         if use_bottleneck:
             self.bottleneck = Dense(emb, emb // 4)
@@ -114,4 +131,21 @@ def dino_v2_classifier_slice(**kw) -> DinoSliceClassifier:
     kw.setdefault("model_size", "small")
     kw.setdefault("patch_size", 14)
     kw.setdefault("slice_fusion", "transformer")
+    return DinoSliceClassifier(**kw)
+
+
+def dino_v3_classifier_slice(**kw) -> DinoSliceClassifier:
+    """Reference `DinoV3ClassifierSlice` (`dino.py:279-795`) with the
+    defaults of `mst_tpu/models/mst.py:239-258`: patch 16 and 4 register
+    tokens, no learned pos-embed (normalised 2D RoPE, theta 100), LN eps
+    1e-5. The gated-MLP DINOv3 sizes wait for SwiGLU (ROADMAP queue A
+    #12)."""
+    kw.setdefault("model_size", "small")
+    kw.setdefault("patch_size", 16)
+    kw.setdefault("num_register_tokens", 4)
+    kw.setdefault("slice_fusion", "transformer")
+    kw.setdefault("use_rope_2d", True)
+    kw.setdefault("rope_normalized", True)
+    kw.setdefault("use_pos_embed", False)
+    kw.setdefault("norm_eps", 1e-5)
     return DinoSliceClassifier(**kw)

@@ -1,10 +1,11 @@
-"""DINOv2-style Vision Transformer parameters and pos-embed resampling.
+"""DINOv2 / DINOv3 Vision Transformer parameters and pos-embed resampling.
 
 Counterpart of `mst_tpu/models/vit.py`: the size table, the bicubic
 position-embedding interpolation (built from explicit numpy weight
 matrices, so the reference's 0.1-offset scale factor stays exact), and the
 encoder module holding the parameters under the flax names. The forward is
-`models/vit_fast.fused_vit_cls`.
+`models/vit_fast.fused_vit_cls`; DINOv3's positions come from the 2D RoPE
+(`ops/rotary.py`), so its encoder has no `pos_embed`.
 """
 
 from __future__ import annotations
@@ -77,8 +78,10 @@ def interpolate_pos_embed(pos_embed: torch.Tensor, grid_hw, src_grid,
 
 
 class VisionTransformer(nn.Module):
-    """ViT encoder parameters: patch_embed, cls_token, pos_embed,
-    [register_tokens], blocks_0..blocks_{depth-1}, norm."""
+    """ViT encoder parameters: patch_embed, cls_token, [pos_embed],
+    [register_tokens], blocks_0..blocks_{depth-1}, norm. `use_pos_embed=False`
+    (DINOv3) keeps no learned position embedding; `use_rope_2d`,
+    `rope_theta` and `rope_normalized` set the 2D RoPE the forward builds."""
 
     def __init__(self, embed_dim: int = 384, depth: int = 12,
                  num_heads: int = 6, patch_size: int = 14,
@@ -86,15 +89,21 @@ class VisionTransformer(nn.Module):
                  ffn_hidden: Optional[int] = None,
                  layerscale_init: Optional[float] = 1e-5,
                  pos_embed_grid: int = 37, norm_eps: float = 1e-6,
-                 gelu_approximate: bool = True):
+                 gelu_approximate: bool = True, use_pos_embed: bool = True,
+                 use_rope_2d: bool = False, rope_theta: float = 100.0,
+                 rope_normalized: bool = False):
         super().__init__()
         self.embed_dim = embed_dim
         self.depth = depth
         self.num_heads = num_heads
+        self.use_rope_2d = use_rope_2d
+        self.rope_theta = rope_theta
+        self.rope_normalized = rope_normalized
         self.patch_embed = PatchEmbed(patch_size, embed_dim)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
-        self.pos_embed = nn.Parameter(
-            torch.zeros(1, 1 + pos_embed_grid**2, embed_dim))
+        if use_pos_embed:
+            self.pos_embed = nn.Parameter(
+                torch.zeros(1, 1 + pos_embed_grid**2, embed_dim))
         if num_register_tokens:
             self.register_tokens = nn.Parameter(
                 torch.zeros(1, num_register_tokens, embed_dim))

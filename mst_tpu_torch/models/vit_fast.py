@@ -1,6 +1,8 @@
 """Fused-kernel ViT / MST forward, for serving and for training.
 
-Counterpart of `mst_tpu/models/vit_fast.py` (plain mode and `train=True`):
+Counterpart of `mst_tpu/models/vit_fast.py` (plain mode and `train=True`,
+DINOv2 and DINOv3: the latter's 2D RoPE tables are built once per forward
+and handed to every block):
 each encoder block but the last runs through the fused sub-layers
 (`ops/fused_block.py`, hand-written CUDA kernels on the card; with
 `train=True` the residual-saving ones, whose backward is a kernel chain
@@ -28,6 +30,7 @@ import torch
 
 from mst_tpu_torch.models.vit import _VIT_CONFIGS, interpolate_pos_embed
 from mst_tpu_torch.ops.fused_block import _ln
+from mst_tpu_torch.ops.rotary import apply_rope_tables, rope_tables
 from mst_tpu_torch.ops.saliency import (
     attention_rollout_from_factors,
     combined_saliency,
@@ -45,7 +48,7 @@ FUSED_MAX_TOKENS = 512
 def fused_config_supported(model) -> bool:
     """Whether `model` runs on the fused path: it is the port's
     `DinoSliceClassifier`, whose constructor refuses every configuration
-    outside the path (rotary or non-transformer fusion, DINOv3, SwiGLU), so
+    outside the path (rotary or non-transformer fusion, SwiGLU), so
     the model conditions of the JAX gate live there. There is no
     `embed_dim % 128` clause: that was a Mosaic lane limit, and the port's
     CPU path takes any width (its CUDA kernels check their own shape
@@ -71,10 +74,15 @@ class FastViTConfig:
     pos_embed_grid: int = 37
     gelu_approximate: bool = True
     norm_eps: float = 1e-6
+    use_pos_embed: bool = True  # False: DINOv3, positions from RoPE only
+    use_rope_2d: bool = False
+    rope_theta: float = 100.0
+    rope_normalized: bool = False
 
     @classmethod
     def from_model(cls, model) -> "FastViTConfig":
         base = _VIT_CONFIGS[model.model_size]
+        enc = model.encoder
         return cls(
             embed_dim=base["embed_dim"], depth=base["depth"],
             num_heads=base["num_heads"], patch_size=model.patch_size,
@@ -82,35 +90,51 @@ class FastViTConfig:
             pos_embed_grid=model.pos_embed_grid,
             gelu_approximate=model.gelu_approximate,
             norm_eps=model.norm_eps,
+            use_pos_embed=hasattr(enc, "pos_embed"),
+            use_rope_2d=enc.use_rope_2d, rope_theta=enc.rope_theta,
+            rope_normalized=enc.rope_normalized,
         )
 
 
 def prepare_vit_tokens(enc, x, cfg: FastViTConfig, dtype=torch.bfloat16):
     """Patch embed (a (p, p, C) contraction against the HWIO kernel),
-    bicubic pos-embed resampling, CLS (+ register) prepend.
-    x [N, H, W, 3] -> h [N, S, E] in `dtype`."""
+    bicubic pos-embed resampling (or none: DINOv3), CLS (+ register)
+    prepend, and the 2D RoPE tables. x [N, H, W, 3] -> (h [N, S, E] in
+    `dtype`, rope_cos, rope_sin: [S, head_dim] f32 on x's device, or None
+    without RoPE)."""
     n, h, w, _ = x.shape
     p = cfg.patch_size
     gh, gw = h // p, w // p
     e = cfg.embed_dim
     tokens = enc.patch_embed(x, dtype)
-    pe = interpolate_pos_embed(
-        enc.pos_embed, (gh, gw), (cfg.pos_embed_grid, cfg.pos_embed_grid)
-    ).to(dtype)
-    tokens = tokens + pe[:, 1:]
-    parts = [(enc.cls_token.to(dtype) + pe[:, :1]).expand(n, 1, e)]
+    cls = enc.cls_token.to(dtype)
+    if cfg.use_pos_embed:
+        pe = interpolate_pos_embed(
+            enc.pos_embed, (gh, gw), (cfg.pos_embed_grid, cfg.pos_embed_grid)
+        ).to(dtype)
+        tokens = tokens + pe[:, 1:]
+        cls = cls + pe[:, :1]
+    parts = [cls.expand(n, 1, e)]
     if cfg.num_register_tokens:
         parts.append(enc.register_tokens.to(dtype).expand(
             n, cfg.num_register_tokens, e))
     parts.append(tokens)
-    return torch.cat(parts, dim=1)
+    rope_cos = rope_sin = None
+    if cfg.use_rope_2d:
+        rope_cos, rope_sin = rope_tables(
+            (gh, gw), e // cfg.num_heads, 1 + cfg.num_register_tokens,
+            cfg.rope_theta, cfg.rope_normalized, x.device)
+    return torch.cat(parts, dim=1), rope_cos, rope_sin
 
 
-def _cls_last_block(h, blk, cfg: FastViTConfig):
+def _cls_last_block(h, blk, cfg: FastViTConfig, rope_cos=None,
+                    rope_sin=None):
     """The final encoder block for the CLS token only (LN + k/v over all
     tokens, the q row / attention / proj / MLP for CLS alone), in plain ops
-    as in the JAX package. Returns (cls_out [N, E] before the final norm,
-    row [N, heads, S] f32: the per-head CLS softmax row)."""
+    as in the JAX package; with the RoPE tables the CLS q (row 0, the
+    identity, applied anyway) and every k are rotated. Returns (cls_out
+    [N, E] before the final norm, row [N, heads, S] f32: the per-head CLS
+    softmax row)."""
     n, s, e = h.shape
     nh = cfg.num_heads
     hd = e // nh
@@ -124,6 +148,9 @@ def _cls_last_block(h, blk, cfg: FastViTConfig):
     kv = kv.reshape(n, s, 2, nh, hd)
     k = kv[:, :, 0].transpose(1, 2)  # [N, nh, S, hd]
     v = kv[:, :, 1].transpose(1, 2)
+    if rope_cos is not None:
+        q = apply_rope_tables(q, rope_cos[0], rope_sin[0])
+        k = apply_rope_tables(k, rope_cos, rope_sin)
     sc = torch.einsum("nhd,nhkd->nhk", q.float(), k.float()) / math.sqrt(hd)
     row = torch.softmax(sc, dim=-1)  # [N, nh, S] f32
     o = torch.einsum("nhk,nhkd->nhd", row.to(dt).float(), v.float()).to(dt)
@@ -158,7 +185,8 @@ def fused_vit_cls(enc, x, cfg: FastViTConfig, dtype=torch.bfloat16,
                          "mutually exclusive saliency modes")
     if train and (want_last_row or want_rollout or want_abnar):
         raise ValueError("the saliency modes are serving-only paths")
-    h = prepare_vit_tokens(enc, x, cfg, dtype)
+    h, rope_cos, rope_sin = prepare_vit_tokens(enc, x, cfg, dtype)
+    rope = dict(rope_cos=rope_cos, rope_sin=rope_sin)
     carry = last_row = None
     factors = []
     if want_rollout:  # e_0: the chain starts empty
@@ -173,16 +201,17 @@ def fused_vit_cls(enc, x, cfg: FastViTConfig, dtype=torch.bfloat16,
     for i in range(cfg.depth - 1 if cheap_last else cfg.depth):
         blk = enc.block(i)
         if want_rollout:
-            h, carry = blk(h, carry=carry)
+            h, carry = blk(h, carry=carry, **rope)
         elif want_abnar:
-            h, amat = blk(h, abnar=True)
+            h, amat = blk(h, abnar=True, **rope)
             factors.append(amat)
         elif want_last_row and i == cfg.depth - 1:
-            h, last_row = blk(h, want_row=True)
+            h, last_row = blk(h, want_row=True, **rope)
         else:
-            h = blk(h, train=train)
+            h = blk(h, train=train, **rope)
     if cheap_last:
-        cls_vec, row = _cls_last_block(h, enc.block(cfg.depth - 1), cfg)
+        cls_vec, row = _cls_last_block(h, enc.block(cfg.depth - 1), cfg,
+                                       **rope)
         if want_last_row:
             last_row = row
     else:

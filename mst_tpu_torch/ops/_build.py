@@ -38,8 +38,10 @@ _SIGNATURES = {
     # a, w, bias, ls|NULL, x, out, M, K, N, stream
     "mst_gemm_residual": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # qkv, out, lse|NULL, row|NULL, carry|NULL, carry_part, new_carry,
-    # abnar|NULL, N, S, E, num_heads, scale, stream
-    "mst_mhsa": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # abnar|NULL, rope_cos|NULL, rope_sin|NULL, N, S, E, num_heads, scale,
+    # stream
+    "mst_mhsa": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                 _P),
     # a, w, bias, ls, g, gz, work, dls, M, K, N, stream
     "mst_gemm_dls": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # a, b, dw, db, work, M, K, N, rows_per_split, stream
@@ -48,9 +50,10 @@ _SIGNATURES = {
     # dlnb, stream
     "mst_gemm_dgrad": (_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _F, _P,
                        _P, _P, _P),
-    # qkv, o, dout, lse, delta, dqkv, N, S, E, num_heads, scale_log2, scale,
-    # stream
-    "mst_mhsa_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
+    # qkv, o, dout, lse, delta, dqkv, rope_cos|NULL, rope_sin|NULL, N, S, E,
+    # num_heads, scale_log2, scale, stream
+    "mst_mhsa_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
+                     _P),
 }
 
 

@@ -8,6 +8,13 @@ Counterpart of `mst_tpu/ops/fused_block.py` (plain flags):
   forwards as `torch.autograd.Function`s that save residuals (qkv, o, the
   base-2 log-sum-exp rows; the pre-activation) and run a hand-written
   backward from them, never the forward again (the JAX `custom_vjp`s).
+- the RoPE forms of the DINOv3 encoder (`has_rope`):
+  `fused_attention_sublayer_rope`, `_rope_with_row`, the `rope_cos` /
+  `rope_sin` of `_rollout` and `_abnar`, and
+  `fused_attention_sublayer_train_rope`. The attention kernels rotate q and
+  k where they load them (`mhsa` and `mhsa_bwd`, whose backward also takes
+  dq and dk back through the rotation); cos / sin are [S, head_dim] f32
+  tables (`ops/rotary.rope_tables`).
 
 On the TPU each is one Pallas program that keeps a slice's whole [S, E]
 block and the layer's weights in VMEM. An H100 SM has 227 KB of shared
@@ -46,6 +53,7 @@ import torch.nn.functional as F
 
 from mst_tpu_torch.ops import _build
 from mst_tpu_torch.ops.attention import _on_cuda
+from mst_tpu_torch.ops.rotary import _rotate_half_interleaved, apply_rope_tables
 
 _LOG2E = math.log2(math.e)
 
@@ -90,17 +98,34 @@ def _ln_gemm_ref(x, ln_s, ln_b, w, b, act: int, eps: float,
     return y.to(x.dtype)
 
 
+def _has_rope(rope_cos, rope_sin) -> bool:
+    if (rope_cos is None) != (rope_sin is None):
+        raise ValueError("rope_cos and rope_sin go together: give both or "
+                         "neither")
+    return rope_cos is not None
+
+
+def _rope_adjoint_ref(d, cos, sin, dt):
+    """The rotation's adjoint on the f32 grad d of the rotated values, with
+    the JAX backward's rounding point: d * cos - bf16(d * sin) @ P (f32)."""
+    return d * cos - _rotate_half_interleaved((d * sin).to(dt).float())
+
+
 def _mhsa_ref(qkv, n: int, s: int, num_heads: int, want_lse: bool = False,
-              want_row: bool = False, carry=None, want_abnar: bool = False):
+              want_row: bool = False, carry=None, want_abnar: bool = False,
+              rope_cos=None, rope_sin=None):
     """o [n*s, E], then in the JAX `_mhsa` order the optional outputs, each
     from the f32 p before its bf16 cast: the CLS row p[0] / l [n, heads, s];
     the Abnar factor rownorm(mean_h p / l + I) [n, s, s]; the base-2 LSE
-    [n*s, heads]; the rollout carry sum_i carry_i / l_i * p[i] [n, heads, s]."""
+    [n*s, heads]; the rollout carry sum_i carry_i / l_i * p[i] [n, heads, s].
+    With `rope_cos` / `rope_sin` ([s, hd] f32) q and k are rotated first."""
     e = qkv.shape[1] // 3
     hd = e // num_heads
     dt = qkv.dtype
     t = qkv.reshape(n, s, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
     q, k, v = t[0], t[1], t[2]  # [n, heads, s, hd]
+    if _has_rope(rope_cos, rope_sin):
+        q, k = (apply_rope_tables(u, rope_cos, rope_sin) for u in (q, k))
     sc = _mm(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(hd) * _LOG2E)
     m = sc.amax(-1, keepdim=True)
     p = torch.exp2(sc - m)
@@ -147,22 +172,39 @@ def _attn_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls, num_heads,
     return (y, *extra) if extra else y
 
 
+def _attn_rope_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls, cos, sin,
+                   num_heads, eps=1e-6):
+    """The RoPE attention sub-layer (`mst_tpu` `_attn_rope_ref`, with the
+    kernels' rounding points)."""
+    return _attn_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls, num_heads,
+                     eps, rope_cos=cos, rope_sin=sin)
+
+
 def _attn_with_row_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls,
                        num_heads, eps=1e-6):
     return _attn_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls, num_heads,
                      eps, want_row=True)
 
 
-def _attn_rollout_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls, carry,
-                      num_heads, eps=1e-6, want_row=False):
+def _attn_rope_with_row_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls, cos,
+                            sin, num_heads, eps=1e-6):
     return _attn_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls, num_heads,
-                     eps, want_row=want_row, carry=carry)
+                     eps, want_row=True, rope_cos=cos, rope_sin=sin)
+
+
+def _attn_rollout_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls, carry,
+                      num_heads, eps=1e-6, rope_cos=None, rope_sin=None,
+                      want_row=False):
+    return _attn_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls, num_heads,
+                     eps, want_row=want_row, carry=carry, rope_cos=rope_cos,
+                     rope_sin=rope_sin)
 
 
 def _attn_abnar_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls, num_heads,
-                    eps=1e-6):
+                    eps=1e-6, rope_cos=None, rope_sin=None):
     return _attn_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls, num_heads,
-                     eps, want_abnar=True)
+                     eps, want_abnar=True, rope_cos=rope_cos,
+                     rope_sin=rope_sin)
 
 
 def _mlp_ref(x, ln_s, ln_b, w1, b1, w2, b2, ls, approximate, eps=1e-6):
@@ -231,15 +273,21 @@ def _gemm_dgrad_ref(dy, w, a=None, act: int = ACT_NONE, ln=None):
     return d.to(dy.dtype)
 
 
-def _mhsa_bwd_ref(qkv, o, do, lse, n: int, s: int, num_heads: int):
+def _mhsa_bwd_ref(qkv, o, do, lse, n: int, s: int, num_heads: int,
+                  rope_cos=None, rope_sin=None):
     """dqkv [n*s, 3E] from the saved qkv, o, lse and the upstream do:
-    p = exp2(s - b) rebuilt from the log-sum-exp rows, delta = rowdot(do, o)."""
+    p = exp2(s - b) rebuilt from the log-sum-exp rows, delta = rowdot(do, o).
+    With the RoPE tables the rotated q and k are recomputed from the
+    pre-rope qkv and dq, dk go back through the rotation's adjoint."""
     e = qkv.shape[1] // 3
     hd = e // num_heads
     dt = qkv.dtype
     scale = 1.0 / math.sqrt(hd)
     t = qkv.reshape(n, s, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
     q, k, v = t[0], t[1], t[2]  # [n, heads, s, hd]
+    rope = _has_rope(rope_cos, rope_sin)
+    if rope:
+        q, k = (apply_rope_tables(u, rope_cos, rope_sin) for u in (q, k))
 
     def heads(u):
         return u.reshape(n, s, num_heads, hd).permute(0, 2, 1, 3)
@@ -251,8 +299,11 @@ def _mhsa_bwd_ref(qkv, o, do, lse, n: int, s: int, num_heads: int):
     dp = _mm(do_h, v.transpose(-1, -2))
     delta = (do_h.float() * o_h.float()).sum(-1, keepdim=True)
     ds = ((dp - delta) * p * scale).to(dt)
-    dq = _mm(ds, k).to(dt)
-    dk = _mm(ds.transpose(-1, -2), q).to(dt)
+    dq, dk = _mm(ds, k), _mm(ds.transpose(-1, -2), q)
+    if rope:
+        dq, dk = (_rope_adjoint_ref(u, rope_cos, rope_sin, dt)
+                  for u in (dq, dk))
+    dq, dk = dq.to(dt), dk.to(dt)
     # [3, n, heads, s, hd] -> [n, s, 3, heads, hd]
     return torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(n * s, 3 * e)
 
@@ -304,6 +355,29 @@ def _f32(shape, like):
     return torch.empty(shape, dtype=torch.float32, device=like.device)
 
 
+def _tables(rope_cos, rope_sin, s, like):
+    """The RoPE tables as the attention kernels read them ([s, 64] f32,
+    contiguous, on `like`'s device): their pointers, or (None, None)."""
+    if not _has_rope(rope_cos, rope_sin):
+        return None, None
+    for name, t in (("rope_cos", rope_cos), ("rope_sin", rope_sin)):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (s, 64)
+                or not t.is_contiguous() or t.device != like.device):
+            raise ValueError(f"{name} must be contiguous f32 {(s, 64)} on "
+                             f"{like.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    return rope_cos.data_ptr(), rope_sin.data_ptr()
+
+
+def _count(fn, rope_cos) -> None:
+    """One launch of `fn`'s kernel: under `.rope_launches` for its RoPE
+    form, else `.launches`."""
+    if rope_cos is None:
+        fn.launches += 1
+    else:
+        fn.rope_launches += 1
+
+
 def ln_gemm(x, ln_s, ln_b, w, b, act: int, eps: float, train: bool = False):
     """act(LN(x) @ w + b): x [M, K], w [K, N] -> [M, N]. With `train`:
     (pre, h, post) = (bf16(LN(x) @ w + b), bf16(LN(x)), bf16(act(pre)) or
@@ -341,9 +415,11 @@ ABNAR_MAX_S = 416
 
 
 def _mhsa_launch(qkv, n: int, s: int, num_heads: int, want_lse=False,
-                 want_row=False, carry=None, want_abnar=False):
-    """Launch `mst_mhsa` with the outputs asked for (NULL for the others);
-    returns them in `_mhsa_ref`'s order."""
+                 want_row=False, carry=None, want_abnar=False, rope_cos=None,
+                 rope_sin=None):
+    """Launch `mst_mhsa` with the outputs asked for (NULL for the others)
+    and the RoPE tables if given; returns the outputs in `_mhsa_ref`'s
+    order."""
     e = qkv.shape[1] // 3
     if e != 64 * num_heads or s > 512:
         raise ValueError(f"mhsa needs head dim 64 and S <= 512; got "
@@ -351,6 +427,7 @@ def _mhsa_launch(qkv, n: int, s: int, num_heads: int, want_lse=False,
     if want_abnar and s > ABNAR_MAX_S:
         raise ValueError(f"mhsa_abnar needs S <= {ABNAR_MAX_S}; got S={s}")
     _mat(qkv, "qkv", (n * s, 3 * e), qkv)
+    rc, rs = _tables(rope_cos, rope_sin, s, qkv)
     out = torch.empty((n * s, e), dtype=qkv.dtype, device=qkv.device)
     lse = _f32((n * s, num_heads), qkv) if want_lse else None
     row = _f32((n, num_heads, s), qkv) if want_row else None
@@ -368,53 +445,64 @@ def _mhsa_launch(qkv, n: int, s: int, num_heads: int, want_lse=False,
         part = _f32((-(-s // 32), n, num_heads, s), qkv)
     err = _build.lib().mst_mhsa(
         qkv.data_ptr(), out.data_ptr(), _ptr(lse), _ptr(row), _ptr(carry),
-        _ptr(part), _ptr(new_carry), _ptr(abnar), n, s, e, num_heads,
-        1.0 / math.sqrt(64) * _LOG2E, _stream(qkv))
+        _ptr(part), _ptr(new_carry), _ptr(abnar), rc, rs, n, s, e,
+        num_heads, 1.0 / math.sqrt(64) * _LOG2E, _stream(qkv))
     _build.check(err, "mst_mhsa")
     ret = tuple(t for t in (out, row, abnar, lse, new_carry) if t is not None)
     return ret if len(ret) > 1 else out
 
 
-def mhsa(qkv, n: int, s: int, num_heads: int, want_lse: bool = False):
+def mhsa(qkv, n: int, s: int, num_heads: int, want_lse: bool = False,
+         rope_cos=None, rope_sin=None):
     """Per-slice softmax attention: qkv [n*s, 3E] -> o [n*s, E]; with
-    `want_lse` also the base-2 log-sum-exp rows [n*s, heads] f32."""
+    `want_lse` also the base-2 log-sum-exp rows [n*s, heads] f32. With
+    `rope_cos` / `rope_sin` ([s, 64] f32) q and k are rotated first (the
+    RoPE form, counted apart)."""
+    rope = dict(rope_cos=rope_cos, rope_sin=rope_sin)
     if not _on_cuda(qkv):
-        return _mhsa_ref(qkv, n, s, num_heads, want_lse)
-    ret = _mhsa_launch(qkv, n, s, num_heads, want_lse=want_lse)
-    mhsa.launches += 1
+        return _mhsa_ref(qkv, n, s, num_heads, want_lse, **rope)
+    ret = _mhsa_launch(qkv, n, s, num_heads, want_lse=want_lse, **rope)
+    _count(mhsa, rope_cos)
     return ret
 
 
-def mhsa_with_row(qkv, n: int, s: int, num_heads: int):
+def mhsa_with_row(qkv, n: int, s: int, num_heads: int, rope_cos=None,
+                  rope_sin=None):
     """`mhsa` that also writes the per-head CLS softmax row p[0] / l:
     -> (o, row [n, heads, s] f32)."""
+    rope = dict(rope_cos=rope_cos, rope_sin=rope_sin)
     if not _on_cuda(qkv):
-        return _mhsa_ref(qkv, n, s, num_heads, want_row=True)
-    ret = _mhsa_launch(qkv, n, s, num_heads, want_row=True)
-    mhsa_with_row.launches += 1
+        return _mhsa_ref(qkv, n, s, num_heads, want_row=True, **rope)
+    ret = _mhsa_launch(qkv, n, s, num_heads, want_row=True, **rope)
+    _count(mhsa_with_row, rope_cos)
     return ret
 
 
 def mhsa_rollout(qkv, carry, n: int, s: int, num_heads: int,
-                 want_row: bool = False):
+                 want_row: bool = False, rope_cos=None, rope_sin=None):
     """`mhsa` that moves the rollout carry one block on: new[j] =
     sum_i carry_i / l_i * p_ij, carry [n, heads, s] f32 -> (o, [row,]
     new_carry). One call launches the attention kernel (per-tile partial
     sums) and the fixed-order pass that adds the tiles."""
+    rope = dict(rope_cos=rope_cos, rope_sin=rope_sin)
     if not _on_cuda(qkv):
-        return _mhsa_ref(qkv, n, s, num_heads, want_row=want_row, carry=carry)
-    ret = _mhsa_launch(qkv, n, s, num_heads, want_row=want_row, carry=carry)
-    mhsa_rollout.launches += 1
+        return _mhsa_ref(qkv, n, s, num_heads, want_row=want_row, carry=carry,
+                         **rope)
+    ret = _mhsa_launch(qkv, n, s, num_heads, want_row=want_row, carry=carry,
+                       **rope)
+    _count(mhsa_rollout, rope_cos)
     return ret
 
 
-def mhsa_abnar(qkv, n: int, s: int, num_heads: int):
+def mhsa_abnar(qkv, n: int, s: int, num_heads: int, rope_cos=None,
+               rope_sin=None):
     """`mhsa` that also writes the Abnar & Zuidema factor of the block,
     rownorm(mean_h p / l + I): -> (o, factor [n, s, s] f32)."""
+    rope = dict(rope_cos=rope_cos, rope_sin=rope_sin)
     if not _on_cuda(qkv):
-        return _mhsa_ref(qkv, n, s, num_heads, want_abnar=True)
-    ret = _mhsa_launch(qkv, n, s, num_heads, want_abnar=True)
-    mhsa_abnar.launches += 1
+        return _mhsa_ref(qkv, n, s, num_heads, want_abnar=True, **rope)
+    ret = _mhsa_launch(qkv, n, s, num_heads, want_abnar=True, **rope)
+    _count(mhsa_abnar, rope_cos)
     return ret
 
 
@@ -534,12 +622,16 @@ def gemm_dgrad(dy, w, a=None, act: int = ACT_NONE, ln=None):
     return (out, dlns, dlnb) if ln is not None else out
 
 
-def mhsa_bwd(qkv, o, do, lse, n: int, s: int, num_heads: int):
+def mhsa_bwd(qkv, o, do, lse, n: int, s: int, num_heads: int, rope_cos=None,
+             rope_sin=None):
     """Attention-core backward: the saved qkv [n*s, 3E], o [n*s, E] and lse
     [n*s, heads] with the upstream do [n*s, E] -> dqkv [n*s, 3E]. One call
-    launches the dq kernel and then the dk/dv kernel."""
+    launches the dq kernel and then the dk/dv kernel. With the forward's
+    RoPE tables the kernels rotate the pre-rope q and k and take dq and dk
+    back through the rotation (counted apart)."""
     if not _on_cuda(qkv):
-        return _mhsa_bwd_ref(qkv, o, do, lse, n, s, num_heads)
+        return _mhsa_bwd_ref(qkv, o, do, lse, n, s, num_heads, rope_cos,
+                             rope_sin)
     e = qkv.shape[1] // 3
     if e != 64 * num_heads or s > 512:
         raise ValueError(f"mhsa_bwd needs head dim 64 and S <= 512; got "
@@ -551,14 +643,15 @@ def mhsa_bwd(qkv, o, do, lse, n: int, s: int, num_heads: int):
             or not lse.is_contiguous() or lse.device != qkv.device):
         raise ValueError(f"lse must be contiguous f32 {(n * s, num_heads)} on "
                          f"{qkv.device}")
+    rc, rs = _tables(rope_cos, rope_sin, s, qkv)
     dqkv = torch.empty_like(qkv)
     delta = _f32((n * s, num_heads), qkv)
     err = _build.lib().mst_mhsa_bwd(
         qkv.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dqkv.data_ptr(), n, s, e, num_heads,
+        delta.data_ptr(), dqkv.data_ptr(), rc, rs, n, s, e, num_heads,
         1.0 / math.sqrt(64) * _LOG2E, 1.0 / math.sqrt(64), _stream(qkv))
     _build.check(err, "mst_mhsa_bwd")
-    mhsa_bwd.launches += 1
+    _count(mhsa_bwd, rope_cos)
     return dqkv
 
 
@@ -596,22 +689,47 @@ def fused_mlp_sublayer(x, ln_s, ln_b, w1, b1, w2, b2, ls, approximate,
 # inside `mhsa`'s block before they are cast for P.V ---------------------
 
 
-def _no_rope(rope_cos, rope_sin):
-    if rope_cos is not None or rope_sin is not None:
-        raise NotImplementedError(
-            "RoPE sub-layers (DINOv3) are not ported to mst_tpu_torch yet "
-            "(ROADMAP queue A #7)")
-
-
 def _attn_chain(mhsa_fn, x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls, eps,
                 *mhsa_args, **mhsa_kw):
     """ln_gemm -> `mhsa_fn` -> gemm_residual: (y, *mhsa_fn's extra outputs)."""
     n, s, e = x.shape
     x2 = x.reshape(n * s, e)
     qkv = ln_gemm(x2, ln_s, ln_b, wqkv, bqkv, ACT_NONE, eps)
-    o, *extra = mhsa_fn(qkv, *mhsa_args, **mhsa_kw)
+    out = mhsa_fn(qkv, *mhsa_args, **mhsa_kw)
+    o, *extra = out if isinstance(out, tuple) else (out,)
     y = gemm_residual(o, wproj, bproj, ls, x2)
     return (y.reshape(n, s, e), *extra)
+
+
+def fused_attention_sublayer_rope(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls,
+                                  rope_cos, rope_sin, num_heads, eps=1e-6):
+    """y = x + ls * proj(MHSA(RoPE(LN(x)))), the DINOv3 encoder's attention
+    sub-layer (serving): rope_cos / rope_sin [S, head_dim] f32 in the
+    interleaved-pair convention (prefix rows cos = 1, sin = 0)."""
+    if not _on_cuda(x):
+        return _attn_rope_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls,
+                              rope_cos, rope_sin, num_heads, eps)
+    n, s, _ = x.shape
+    y, = _attn_chain(mhsa, x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls, eps,
+                     n, s, num_heads, rope_cos=rope_cos, rope_sin=rope_sin)
+    fused_attention_sublayer_rope.calls += 1
+    return y
+
+
+def fused_attention_sublayer_rope_with_row(x, ln_s, ln_b, wqkv, bqkv, wproj,
+                                           bproj, ls, rope_cos, rope_sin,
+                                           num_heads, eps=1e-6):
+    """(y, cls_row) for the RoPE sub-layer: the DINOv3 block 11 of the
+    `last` saliency mode under MST_NO_CHEAP_LAST."""
+    if not _on_cuda(x):
+        return _attn_rope_with_row_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
+                                       ls, rope_cos, rope_sin, num_heads, eps)
+    n, s, _ = x.shape
+    out = _attn_chain(mhsa_with_row, x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
+                      ls, eps, n, s, num_heads, rope_cos=rope_cos,
+                      rope_sin=rope_sin)
+    fused_attention_sublayer_rope_with_row.calls += 1
+    return out
 
 
 def fused_attention_sublayer_with_row(x, ln_s, ln_b, wqkv, bqkv, wproj,
@@ -633,14 +751,14 @@ def fused_attention_sublayer_abnar(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
                                    rope_sin=None):
     """(y, abnar_factor): the attention sub-layer plus this block's Abnar &
     Zuidema rollout factor [N, S, S] f32 (head-mean of the probabilities +
-    I, row-normalised)."""
-    _no_rope(rope_cos, rope_sin)
+    I, row-normalised). `rope_cos` / `rope_sin`: the DINOv3 RoPE."""
+    rope = dict(rope_cos=rope_cos, rope_sin=rope_sin)
     if not _on_cuda(x):
         return _attn_abnar_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls,
-                               num_heads, eps)
+                               num_heads, eps, **rope)
     n, s, _ = x.shape
     out = _attn_chain(mhsa_abnar, x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
-                      ls, eps, n, s, num_heads)
+                      ls, eps, n, s, num_heads, **rope)
     fused_attention_sublayer_abnar.calls += 1
     return out
 
@@ -652,14 +770,17 @@ def fused_attention_sublayer_rollout(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
     """(y, [cls_row,] new_carry): the attention sub-layer that also moves
     the rollout carry [N, heads, S] f32 (one-hot at token 0 before block 0)
     through this block's softmax, the CLS row of the reference
-    `get_attention_cls` chain A_0 @ ... @ A_i."""
-    _no_rope(rope_cos, rope_sin)
+    `get_attention_cls` chain A_0 @ ... @ A_i. `rope_cos` / `rope_sin`: the
+    DINOv3 RoPE."""
+    rope = dict(rope_cos=rope_cos, rope_sin=rope_sin)
     if not _on_cuda(x):
         return _attn_rollout_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls,
-                                 carry, num_heads, eps, want_row)
+                                 carry, num_heads, eps, want_row=want_row,
+                                 **rope)
     n, s, _ = x.shape
     out = _attn_chain(mhsa_rollout, x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
-                      ls, eps, carry, n, s, num_heads, want_row=want_row)
+                      ls, eps, carry, n, s, num_heads, want_row=want_row,
+                      **rope)
     fused_attention_sublayer_rollout.calls += 1
     return out
 
@@ -682,19 +803,21 @@ PLAIN = SimpleNamespace(ln_gemm=_ln_gemm_ref, mhsa=_mhsa_ref,
 
 
 def _attn_train_fwd(ops, x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls,
-                    num_heads, eps):
-    """`_attn_train_kernel`: x [N, S, E] -> (y, residuals (h, qkv, o, lse))."""
+                    num_heads, eps, rope_cos=None, rope_sin=None):
+    """`_attn_train_kernel`: x [N, S, E] -> (y, residuals (h, qkv, o, lse));
+    qkv is pre-rope, as in JAX."""
     n, s, e = x.shape
     x2 = x.reshape(n * s, e)
     qkv, h, _ = ops.ln_gemm(x2, ln_s, ln_b, wqkv, bqkv, ACT_NONE, eps,
                             train=True)
-    o, lse = ops.mhsa(qkv, n, s, num_heads, want_lse=True)
+    o, lse = ops.mhsa(qkv, n, s, num_heads, want_lse=True, rope_cos=rope_cos,
+                      rope_sin=rope_sin)
     y = ops.gemm_residual(o, wproj, bproj, ls, x2)
     return y.reshape(n, s, e), (h, qkv, o, lse)
 
 
 def _attn_train_bwd(ops, g, x, res, ln_s, wqkv, wproj, bproj, ls, num_heads,
-                    eps):
+                    eps, rope_cos=None, rope_sin=None):
     """`_attn_bwd_kernel`: -> (dx, dln_s, dln_b, dwqkv, dbqkv, dwproj, dbproj,
     dls | None), the grads f32."""
     h, qkv, o, lse = res
@@ -704,7 +827,8 @@ def _attn_train_bwd(ops, g, x, res, ln_s, wqkv, wproj, bproj, ls, num_heads,
                                                          g2)
     dwproj, dbproj = ops.gemm_wgrad(o, gz)
     do = ops.gemm_dgrad(gz, wproj)
-    dqkv = ops.mhsa_bwd(qkv, o, do, lse, n, s, num_heads)
+    dqkv = ops.mhsa_bwd(qkv, o, do, lse, n, s, num_heads, rope_cos=rope_cos,
+                        rope_sin=rope_sin)
     dwqkv, dbqkv = ops.gemm_wgrad(h, dqkv)
     dx, dlns, dlnb = ops.gemm_dgrad(dqkv, wqkv, ln=(x2, g2, ln_s, eps))
     return (dx.reshape(n, s, e), dlns, dlnb, dwqkv, dbqkv, dwproj, dbproj,
@@ -745,31 +869,34 @@ def _grads_like(grads, params):
 
 
 class _AttnTrain(torch.autograd.Function):
-    """`fused_attention_sublayer_train`'s custom VJP. The matrices come in as
+    """`fused_attention_sublayer_train`'s custom VJP (and, with the RoPE
+    tables, `fused_attention_sublayer_train_rope`'s). The matrices come in as
     the f32 parameters and are cast to x's dtype here, so their grads leave
-    in f32 (a grad through the cast would be rounded to bf16 first)."""
+    in f32 (a grad through the cast would be rounded to bf16 first). The
+    tables are saved with the residuals and get no grad (constants of the
+    patch grid; the JAX VJP returns zeros for them)."""
 
     @staticmethod
     def forward(ctx, ops, x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls,
-                num_heads, eps):
+                num_heads, eps, rope_cos=None, rope_sin=None):
         x = x.detach()
         wq, wp = wqkv.detach().to(x.dtype), wproj.detach().to(x.dtype)
         y, res = _attn_train_fwd(ops, x, ln_s, ln_b, wq, bqkv, wp, bproj, ls,
-                                 num_heads, eps)
+                                 num_heads, eps, rope_cos, rope_sin)
         ctx.save_for_backward(x, *res, ln_s, ln_b, wq, bqkv, wp, bproj, ls,
-                              wqkv, wproj)
+                              wqkv, wproj, rope_cos, rope_sin)
         ctx.ops, ctx.num_heads, ctx.eps = ops, num_heads, eps
         return y
 
     @staticmethod
     def backward(ctx, g):
         (x, h, qkv, o, lse, ln_s, ln_b, wq, bqkv, wp, bproj, ls, wqkv,
-         wproj) = ctx.saved_tensors
+         wproj, rope_cos, rope_sin) = ctx.saved_tensors
         dx, *grads = _attn_train_bwd(
             ctx.ops, g.to(x.dtype).contiguous(), x, (h, qkv, o, lse), ln_s,
-            wq, wp, bproj, ls, ctx.num_heads, ctx.eps)
+            wq, wp, bproj, ls, ctx.num_heads, ctx.eps, rope_cos, rope_sin)
         grads = _grads_like(grads, (ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls))
-        return (None, dx, *grads, None, None)
+        return (None, dx, *grads, None, None, None, None)
 
 
 class _MlpTrain(torch.autograd.Function):
@@ -810,6 +937,20 @@ def fused_attention_sublayer_train(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
     return y
 
 
+def fused_attention_sublayer_train_rope(x, ln_s, ln_b, wqkv, bqkv, wproj,
+                                        bproj, ls, rope_cos, rope_sin,
+                                        num_heads, eps=1e-6, ops=KERNELS):
+    """The DINOv3 train sub-layer: `fused_attention_sublayer_train` with
+    RoPE on q and k ([S, head_dim] f32 tables); the saved qkv is pre-rope
+    and the backward recomputes the rotation and takes dq and dk back
+    through it. No grad for the tables."""
+    y = _AttnTrain.apply(ops, x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls,
+                         num_heads, eps, rope_cos, rope_sin)
+    if ops is KERNELS and _on_cuda(x):
+        fused_attention_sublayer_train_rope.calls += 1
+    return y
+
+
 def fused_mlp_sublayer_train(x, ln_s, ln_b, w1, b1, w2, b2, ls, approximate,
                              eps=1e-6, ops=KERNELS):
     """y = x + ls * fc2(gelu(fc1(LN(x)))), differentiable as
@@ -821,28 +962,37 @@ def fused_mlp_sublayer_train(x, ln_s, ln_b, w1, b1, w2, b2, ls, approximate,
     return y
 
 
-# `.launches` of a kernel wrapper counts its kernel's launches; `.calls` of a
-# sub-layer counts the calls that ran its kernel chain (it launches nothing
-# itself). Neither moves on the CPU path.
+# `.launches` of a kernel wrapper counts its kernel's launches and
+# `.rope_launches` those of its RoPE form (`<name>_rope` in
+# `launch_counts()`); `.calls` of a sub-layer counts the calls that ran its
+# kernel chain (it launches nothing itself). None moves on the CPU path.
 KERNEL_WRAPPERS = (ln_gemm, mhsa, gemm_residual, gemm_dls, gemm_wgrad,
                    gemm_dgrad, mhsa_bwd, mhsa_with_row, mhsa_rollout,
                    mhsa_abnar)
+ROPE_WRAPPERS = (mhsa, mhsa_with_row, mhsa_rollout, mhsa_abnar, mhsa_bwd)
 SUBLAYER_WRAPPERS = (fused_attention_sublayer, fused_mlp_sublayer,
                      fused_attention_sublayer_train, fused_mlp_sublayer_train,
                      fused_attention_sublayer_with_row,
                      fused_attention_sublayer_rollout,
-                     fused_attention_sublayer_abnar)
+                     fused_attention_sublayer_abnar,
+                     fused_attention_sublayer_rope,
+                     fused_attention_sublayer_rope_with_row,
+                     fused_attention_sublayer_train_rope)
 
 
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+    for fn in ROPE_WRAPPERS:
+        fn.rope_launches = 0
     for fn in SUBLAYER_WRAPPERS:
         fn.calls = 0
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    return {**{fn.__name__: fn.launches for fn in KERNEL_WRAPPERS},
+            **{fn.__name__ + "_rope": fn.rope_launches
+               for fn in ROPE_WRAPPERS}}
 
 
 def sublayer_calls() -> dict:

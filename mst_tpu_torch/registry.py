@@ -1,10 +1,11 @@
 """Model / dataset registries keyed by the reference's CLI names.
 
 Counterpart of `mst_tpu/registry.py` for what the port runs: the
-`DinoV2ClassifierSlice` model, with the reference's default optimizer
-settings in its entry (lr 1e-6, weight decay 1e-2, `mst/models/dino.py:41`),
-and the hermetic `Synthetic` dataset. The other names raise
-`NotImplementedError` with the ROADMAP item that brings them.
+`DinoV2ClassifierSlice` and `DinoV3ClassifierSlice` models, with the
+reference's default optimizer settings in their entries (lr 1e-6, weight
+decay 1e-2, `mst/models/dino.py:41`), and the hermetic `Synthetic` dataset.
+The other names raise `NotImplementedError` with the ROADMAP item that
+brings them.
 """
 
 from __future__ import annotations
@@ -14,7 +15,10 @@ from typing import Callable, Dict
 
 import torch
 
-from mst_tpu_torch.models.mst import dino_v2_classifier_slice
+from mst_tpu_torch.models.mst import (
+    dino_v2_classifier_slice,
+    dino_v3_classifier_slice,
+)
 
 
 @dataclass(frozen=True)
@@ -27,9 +31,10 @@ class ModelEntry:
 MODELS: Dict[str, ModelEntry] = {
     "DinoV2ClassifierSlice": ModelEntry(dino_v2_classifier_slice,
                                         learning_rate=1e-6),
+    "DinoV3ClassifierSlice": ModelEntry(dino_v3_classifier_slice,
+                                        learning_rate=1e-6),
 }
 _NOT_YET = {
-    "DinoV3ClassifierSlice": "#7",
     "ResNet": "#8",
     "ResNetSliceTrans": "#8",
 }

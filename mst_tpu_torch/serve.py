@@ -9,7 +9,8 @@ importing `mst_tpu` pulls in JAX. Run as
         [--host 127.0.0.1] [--port 8760] [--dtype bfloat16]
 
 It serves MST-DINOv2 ViT-S/14 (or the model of a `python -m
-mst_tpu_torch.train` run folder, `load_run_model`) on the CUDA card.
+mst_tpu_torch.train` run folder, `load_run_model`: MST-DINOv3 too) on the
+CUDA card.
 
 API:  POST /predict  (np.save bytes of a [C, D, H, W] float volume)
           -> {"probs": [...], "pred": argmax}
@@ -215,13 +216,14 @@ _LATER = {
 
 MODEL = "DinoV2ClassifierSlice"  # ViT-S/14, the flagship the port serves
 
-# The model options a run folder's hparams may set (mst_tpu/serve.py).
+# The model options a run folder's hparams may set (mst_tpu/serve.py's,
+# and the port's `DinoSliceClassifier.config`).
 _HPARAM_KEYS = (
     "model_size", "slice_fusion", "rotary", "use_bottleneck",
     "use_slice_pos_emb", "freeze", "fusion_heads", "num_register_tokens",
     "pos_embed_grid", "layerscale_init", "gelu_approximate", "use_rope_2d",
     "patch_size", "use_pos_embed", "rope_normalized", "norm_eps",
-    "ffn_layer", "ffn_hidden",
+    "ffn_layer", "ffn_hidden", "fusion_layers", "rope_theta",
 )
 
 
@@ -289,8 +291,13 @@ def build_server(args, model):
                                   batch_size=args.batch_size,
                                   max_wait_ms=args.max_wait_ms)
     device = next(model.parameters()).device
+    name = MODEL
+    if args.run_folder:
+        from mst_tpu_torch.utils.checkpoint import load_hparams
+
+        name = (load_hparams(args.run_folder) or {}).get("model", name)
     server = serve_http(predictor, host=args.host, port=args.port,
-                        info={"model": MODEL, "device": str(device),
+                        info={"model": name, "device": str(device),
                               "batch_size": args.batch_size,
                               "dtype": args.dtype})
     return server, predictor

@@ -1,18 +1,22 @@
 """Train CLI of the port, the counterpart of `scripts/main_train.py`:
 
-    python -m mst_tpu_torch.train --dataset Synthetic [--batch_size 2] \
-        [--max_epochs 1000] [--num_train_samples 2000] [--patience 10] \
+    python -m mst_tpu_torch.train --dataset Synthetic \
+        [--model DinoV2ClassifierSlice | DinoV3ClassifierSlice] \
+        [--batch_size 2] [--max_epochs 1000] [--num_train_samples 2000] [--patience 10] \
         [--dtype bfloat16] [--seed 0] [--lr LR] [--run_dir runs] \
         [--use_bottleneck] [--use_slice_pos_emb] [--use_registers]
 
-It trains MST-DINOv2 ViT-S/14 on the CUDA card from seeded random weights
-(pretrained weights are not in the repository) with the reference's
+It trains MST-DINOv2 ViT-S/14 (`--model DinoV3ClassifierSlice`: MST-DINOv3
+ViT-S/16 with 4 registers and 2D RoPE) on the CUDA card from seeded random
+weights (pretrained weights are not in the repository) with the reference's
 recipe: class-balanced weighted sampling, AdamW at the model's learning
 rate, val/AUC_ROC early stopping, the top-1 checkpoint in
 `<run_dir>/<dataset>/<model>_<stamp>/epoch=N/params.npz`, which
-`python -m mst_tpu_torch.serve --params_npz` serves. The flags keep their
-JAX names and defaults; the reference datasets (the default `LIDC` among
-them) and the flags of features not ported yet are ROADMAP queue A items.
+`python -m mst_tpu_torch.serve --params_npz` (DINOv2) or `--run_folder`
+(either model: the run's hparams record the model's options) serves. The
+flags keep their JAX names and defaults; the reference datasets (the
+default `LIDC` among them) and the flags of features not ported yet are
+ROADMAP queue A items.
 `build_model`, `build_datamodule` and `build_trainer` are split from
 `main` so that tests and `chip_smoke.py` drive the CLI's own builders.
 """
@@ -57,10 +61,14 @@ def parse_args(argv=None):
 
 
 def model_kwargs(args) -> dict:
-    """The model options the flags set (also the run's hparams)."""
-    return dict(use_bottleneck=args.use_bottleneck,
-                use_slice_pos_emb=args.use_slice_pos_emb,
-                num_register_tokens=4 if args.use_registers else 0)
+    """The model options the flags set. The register count only with
+    --use_registers, as the JAX CLI: otherwise the model's default stands
+    (0 for DINOv2, 4 for DINOv3)."""
+    kw = dict(use_bottleneck=args.use_bottleneck,
+              use_slice_pos_emb=args.use_slice_pos_emb)
+    if args.use_registers:
+        kw["num_register_tokens"] = 4
+    return kw
 
 
 def build_model(args):
@@ -97,12 +105,13 @@ def build_trainer(args, dm, run_dir=None) -> Trainer:
 
 
 def train(args, model, dm, trainer):
-    """Seeded weights, AdamW at the model's (or --lr) rate, fit."""
+    """Seeded weights, AdamW at the model's (or --lr) rate, fit. The
+    hparams record the model's own options (`model.config`), so that
+    `serve.load_run_model` rebuilds the model that was trained."""
     entry = model_entry(args.model)
     lr = entry.learning_rate if args.lr is None else args.lr
     state = trainer.init_state(model, lr, entry.weight_decay, seed=args.seed)
-    hparams = {"model": args.model, "dataset": args.dataset,
-               **model_kwargs(args)}
+    hparams = {"model": args.model, "dataset": args.dataset, **model.config}
     return trainer.fit(state, dm, hparams=hparams)
 
 

@@ -8,11 +8,9 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 
 from mst_tpu_torch import predict
 from mst_tpu_torch.models.mst import DinoSliceClassifier
-from mst_tpu_torch.ops.fused_block import fused_attention_sublayer_abnar
 from mst_tpu_torch.registry import get_dataset, get_model
 from mst_tpu_torch.train import cli
 from mst_tpu_torch.train.predictor import make_predict_fn
@@ -39,6 +37,11 @@ for mode in ("last", "rollout", "rollout_abnar"):
     probs, sal = make_predict_fn(model, plane_mode=mode)(vol.astype(np.float32))
     assert probs.shape == (1, 2) and bool(torch.isfinite(probs).all())
     assert sal.shape == (1, 2, 28, 28) and bool(torch.isfinite(sal).all())
+v3 = get_model("DinoV3ClassifierSlice", model_size="tiny", fusion_heads=4)
+params_from_flax(v3, random_flax_params(v3, 0))
+probs, sal = make_predict_fn(v3, plane_mode="rollout")(
+    np.zeros((1, 1, 2, 32, 32), np.float32))
+assert sal.shape == (1, 2, 32, 32) and bool(torch.isfinite(sal).all())
 from mst_tpu_torch.train.trainer import TrainState, make_optimizer, make_train_step
 state = TrainState(model, make_optimizer(model.parameters(), 1e-3))
 before = model.head.kernel.detach().clone()
@@ -86,12 +89,11 @@ def test_cuda_sources_ship_and_build_dir_is_ignored():
 
 
 def test_unsupported_configs_raise():
-    for kw in (dict(use_rope_2d=True), dict(use_pos_embed=False),
-               dict(rotary="RoPE"), dict(slice_fusion="average"),
-               dict(model_size="giant2")):
+    for kw in (dict(rotary="RoPE"), dict(slice_fusion="average"),
+               dict(model_size="giant2"), dict(ffn_layer="swiglu")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             DinoSliceClassifier(**dict(TINY, **kw))
-    for name in ("DinoV3ClassifierSlice", "ResNet", "ResNetSliceTrans"):
+    for name in ("ResNet", "ResNetSliceTrans"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_model(name)
     model = DinoSliceClassifier(**TINY)
@@ -100,13 +102,7 @@ def test_unsupported_configs_raise():
     for with_saliency in (False, True):
         with pytest.raises(NotImplementedError, match="FUSED_MAX_TOKENS"):
             make_predict_fn(model, with_saliency=with_saliency)(big)
-    # the RoPE (DINOv3) saliency sub-layers and the predict CLI's PNGs
-    x = torch.zeros(1, 2, 64)
-    v = torch.zeros(64)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A #7"):
-        fused_attention_sublayer_abnar(x, v, v, torch.zeros(64, 192),
-                                       torch.zeros(192), torch.zeros(64, 64),
-                                       v, None, 1, rope_cos=v, rope_sin=v)
+    # the predict CLI's PNGs
     with pytest.raises(SystemExit):
         predict.parse_args(["--run_folder", "x", "--get_attention"])
     with pytest.raises(NotImplementedError, match="CUDA or CPU"):

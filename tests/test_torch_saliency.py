@@ -139,15 +139,22 @@ def test_abnar_sublayer_matches_mst_tpu(with_ls):
 
 
 def test_saliency_sublayers_refuse_rope():
+    """The saliency sub-layers take RoPE (DINOv3) as both tables or none:
+    half a table is refused."""
     x, args, carry = _attn_inputs(3, True)
     cos = torch.ones(S, E // HEADS)
-    with pytest.raises(NotImplementedError, match="queue A #7"):
+    with pytest.raises(ValueError, match="rope_cos and rope_sin"):
         tfb.fused_attention_sublayer_abnar(_t(x), *map(_t, args), HEADS,
-                                           rope_cos=cos, rope_sin=cos)
-    with pytest.raises(NotImplementedError, match="queue A #7"):
+                                           rope_cos=cos)
+    with pytest.raises(ValueError, match="rope_cos and rope_sin"):
         tfb.fused_attention_sublayer_rollout(_t(x), *map(_t, args),
-                                             _t(carry), HEADS, rope_cos=cos,
-                                             rope_sin=cos)
+                                             _t(carry), HEADS, rope_sin=cos)
+    # cos = 1, sin = 0 is the identity rotation
+    zero = torch.zeros(S, E // HEADS)
+    _assert_outputs(
+        tfb.fused_attention_sublayer_abnar(_t(x), *map(_t, args), HEADS,
+                                           rope_cos=cos, rope_sin=zero),
+        tfb.fused_attention_sublayer_abnar(_t(x), *map(_t, args), HEADS))
 
 
 # -- ops/saliency.py against mst_tpu/ops/saliency.py -----------------------
