@@ -76,8 +76,33 @@ S = 201 at 224 px) on the same volumes:
    --save_saliency`;
 20. times: each RoPE kernel against the same kernel without RoPE, its
    plain version and the library yardstick (RoPE in torch ops + SDPA and
-   its backward); B=8 vol/s of serving and each plane mode, the train
-   step, peak memory, a `torch.profiler` breakdown of a forward and a step.
+   its backward), and the other kernels of the RoPE chains at S = 201, so
+   that each chain's time, bound and library cover the same work; B=8
+   vol/s of serving and each plane mode, the train step, peak memory, a
+   `torch.profiler` breakdown of a forward and a step.
+
+Phases 21-25 drive MST-DINOv2-giant2 (E 1536, 40 blocks, 24 heads, SwiGLU
+FFN with F = 4096; S = 257), built by `python -m mst_tpu_torch.train
+--model_size giant2 --freeze`'s build functions from one seeded draw of its
+1.14 B parameters:
+
+21. kernels: `ln_gemm_swiglu` (LN + w12 + SiLU gate), `gemm_residual` at
+   K = 4096, `ln_gemm`, `mhsa` at 24 heads, and the SwiGLU and attention
+   sub-layers at E = 1536 against their plain versions at the B=8 path
+   shape [256, 257, 1536], each run twice for the same bits;
+22. forward: kernel path vs plain path and an f32 plain forward at B=4,
+   with and without a mask, launch counts per forward;
+23. saliency: the three plane modes and `MST_NO_CHEAP_LAST` at B=4, as
+   phase 12;
+24. frozen training: the B=8 step's loss and every trainable grad vs the
+   plain path and the f32 step pooled over 8 batches, a planted fault the
+   loss limit must see, no backward kernel launched; FIT_STEPS AdamW steps leave every encoder parameter bit for
+   bit as it was; then the CLI's `train` -> run folder -> `serve
+   --run_folder` -> `predict --use_tta --use_rollout --save_saliency`;
+25. times: the SwiGLU and E = 1536 attention kernels and chains at the
+   B=8 path shape against their plain versions, bounds and library calls;
+   B=8 vol/s of serving, each plane mode and the frozen train step, peak
+   memory, a `torch.profiler` breakdown of a forward.
 
 Each phase prints its wall time. The line before the last is `{"kernels":
 [...]}`: per kernel its launches on the main path, its largest error, its
@@ -146,6 +171,17 @@ FIT_TRACK_TOL = 0.15  # |loss kernel - loss plain| at every one of them
 # from batch to batch (each batch's reading is printed), since bf16 noise
 # decides which path lands nearer the f32 step.
 STEP_BATCHES = 4
+# Phase 24 holds the frozen giant2 step to phase 8's grad limits, pooled
+# over STEP_BATCHES_G batches, but its loss to a limit of its own: the bf16
+# noise of 40 blocks moves the loss of either bf16 path ~5x further from
+# the f32 step than ViT-S's 12 blocks do (the plain path itself lies ~0.01
+# from it). On an H100 the kernel path's mean distance from the plain path
+# read 0.0018 over 8 batches (largest batch 0.0036), 0.9x phase 8's 2e-3,
+# and a planted fault (the SwiGLU gate off by one column) 0.22 (smallest
+# batch 0.0089): the limit lies between the two, and every run must read
+# the fault above it (the readings are in PERF.md).
+STEP_BATCHES_G = 8
+GIANT2_LOSS_TOL = 0.01
 # Saliency phases (11-14). A saliency map is compared relative to its
 # largest value; the limits are a few times the largest reading on an H100
 # with these seeded inputs (the readings are in PERF.md).
@@ -158,6 +194,9 @@ N_CASES = 8  # Synthetic test volumes the predict CLI scores
 MODEL3 = "DinoV3ClassifierSlice"
 S3, GRID3, PREFIX3, EPS3 = 201, (14, 14), 5, 1e-5
 N_CASES3 = 2  # Synthetic test volumes its predict CLI run scores
+# giant2 (phases 21-25): the fewest test volumes whose predict.log has an
+# AUC (both classes)
+N_CASES_G = 2
 # Bounds: the H100 SXM's published dense bf16 tensor-core rate and HBM3
 # bandwidth (NVIDIA data sheet, at its 700 W limit).
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
@@ -190,16 +229,17 @@ def wgrad_cost(m, k, n):
     return 2 * m * k * n, 2 * (m * k + m * n) + 4 * (k * n + n)
 
 
-def attn_cost(n, s, extra=0, bwd=False):
-    """(FLOPs, bytes) of the attention core over n slices of s tokens:
-    q.k^T and p.v per (slice, head) forward; the backward needs s, dp, dv,
-    dq and dk (five products). Bytes: qkv in and o out (the backward also
-    o, do and the LSE rows in, dqkv out), plus `extra`."""
-    m = n * s
+def attn_cost(n, s, extra=0, bwd=False, heads=HEADS):
+    """(FLOPs, bytes) of the attention core over n slices of s tokens and
+    `heads` heads of 64: q.k^T and p.v per (slice, head) forward; the
+    backward needs s, dp, dv, dq and dk (five products). Bytes: qkv in and
+    o out (the backward also o, do and the LSE rows in, dqkv out), plus
+    `extra`."""
+    m, e = n * s, 64 * heads
     if bwd:
-        return (10 * n * HEADS * s * s * 64,
-                2 * (2 * m * 3 * E + 2 * m * E) + 4 * m * HEADS + extra)
-    return 4 * n * HEADS * s * s * 64, 2 * (m * 3 * E + m * E) + extra
+        return (10 * n * heads * s * s * 64,
+                2 * (2 * m * 3 * e + 2 * m * e) + 4 * m * heads + extra)
+    return 4 * n * heads * s * s * 64, 2 * (m * 3 * e + m * e) + extra
 
 
 def bound(costs):
@@ -210,9 +250,9 @@ def bound(costs):
     return max(t_op, t_by), "operations" if t_op >= t_by else "bytes"
 
 
-def heads_of(qkv, n, s):
+def heads_of(qkv, n, s, heads=HEADS):
     """q, k, v [n, heads, s, 64] contiguous from a packed qkv [n*s, 3E]."""
-    t = qkv.reshape(n, s, 3, HEADS, 64).permute(2, 0, 3, 1, 4)
+    t = qkv.reshape(n, s, 3, heads, 64).permute(2, 0, 3, 1, 4)
     return tuple(u.contiguous() for u in t)
 
 
@@ -231,6 +271,15 @@ def min_row_gap(probs) -> float:
     """Smallest distance between two rows of [n, classes] probs."""
     g = row_gaps(probs)
     return float(g[np.triu_indices(len(g), 1)].min())
+
+
+def padding_mask(b: int) -> np.ndarray:
+    """The [b, D] key-padding mask of the forward checks: volume 1 loses its
+    last 8 slices, volume min(5, b - 1) its last 2."""
+    m = np.zeros((b, DEPTH_SLICES), bool)
+    m[1, 24:] = True
+    m[min(5, b - 1), 30:] = True
+    return m
 
 
 def spread_volumes(rng, predict, n: int, pool: int = 48) -> np.ndarray:
@@ -551,9 +600,6 @@ def main() -> int:
     check(model.dtype == torch.bfloat16, f"serving dtype {model.dtype}")
     predict = make_predict_fn(model, with_saliency=False)
     vol = spread_volumes(rng, predict, BATCH)
-    mask = np.zeros((BATCH, DEPTH_SLICES), bool)
-    mask[1, 24:] = True  # volume 1: its last 8 slices are padding
-    mask[5, 30:] = True
 
     @contextlib.contextmanager
     def plain_sublayers():
@@ -561,6 +607,7 @@ def main() -> int:
         through the plain versions on the card."""
         plain = {"fused_attention_sublayer": fb._attn_ref,
                  "fused_mlp_sublayer": fb._mlp_ref,
+                 "fused_swiglu_sublayer": fb._swiglu_ref,
                  "fused_attention_sublayer_with_row": fb._attn_with_row_ref,
                  "fused_attention_sublayer_rollout": fb._attn_rollout_ref,
                  "fused_attention_sublayer_abnar": fb._attn_abnar_ref,
@@ -584,10 +631,13 @@ def main() -> int:
     zero_calls = {k: 0 for k in fb.sublayer_calls()}
 
     def check_forward(what, mdl, pred, vols, want, want_calls):
-        """`pred` (mdl's predict fn) on the B=8 `vols`, with and without the
-        key-padding mask, against the plain path and an f32 plain forward,
-        with each forward's launch counts; padded slices must not move the
-        probs. Returns the counts of the forward without the mask."""
+        """`pred` (mdl's predict fn) on the volumes `vols` (B=8, or fewer
+        where the plain path is slow), with and without the key-padding
+        mask, against the plain path and an f32 plain forward, with each
+        forward's launch counts; padded slices must not move the probs.
+        Returns the counts of the forward without the mask."""
+        nb = len(vols)
+        mask = padding_mask(nb)
         for label, m in (("no mask", None), ("key-padding mask", mask)):
             fb.reset_launch_counts()
             pk, _ = pred(vols, m)
@@ -598,11 +648,11 @@ def main() -> int:
             with plain_sublayers():
                 pp, _ = pred(vols, m)
             torch.cuda.synchronize()
-            check(tuple(pk.shape) == (BATCH, 2),
+            check(tuple(pk.shape) == (nb, 2),
                   f"probs shape {tuple(pk.shape)}")
             check(bool(torch.isfinite(pk).all()), "non-finite probs")
             check(bool(torch.allclose(pk.sum(-1), torch.ones(
-                BATCH, device=dev), atol=1e-5)), "probs do not sum to 1")
+                nb, device=dev), atol=1e-5)), "probs do not sum to 1")
             err = (pk - pp).abs().max().item()
             gap = min_row_gap(pp.cpu())
             print(f"{tag} {what} [{label}] {list(vols.shape)}: probs[0]="
@@ -633,7 +683,7 @@ def main() -> int:
         gap32 = min_row_gap(p32.cpu())
         print(f"{tag} {what}: max|probs bf16 kernel path - probs f32 plain "
               f"path|={d32:.6g} (tol {F32_TOL}: bf16 end-to-end error of a "
-              f"12-block ViT with O(1) LayerScale); min gap between volumes "
+              f"random-weight ViT with O(1) LayerScale); min gap between volumes "
               f"(f32)={gap32:.6g}")
         check(d32 <= F32_TOL, f"bf16 kernel path vs f32: {d32} > {F32_TOL}")
         check(gap32 > F32_TOL, f"f32 volumes {gap32} apart, within {F32_TOL}")
@@ -917,7 +967,8 @@ def main() -> int:
         loss.backward()
         torch.cuda.synchronize()
         return loss.item(), {n: q.grad.detach().clone()
-                             for n, q in m_.named_parameters()}
+                             for n, q in m_.named_parameters()
+                             if q.requires_grad}
 
     def rel_errs(grads, ref):
         """Per parameter: max |grad - ref| / max |ref|."""
@@ -935,34 +986,50 @@ def main() -> int:
                 f"{statistics.median(rel.values()):.6g}; worst five: "
                 + ", ".join(f"{n}={v:.3g}" for n, v in worst[:5]))
 
-    def check_step(what, mdl, batches, want, want_calls):
+    def check_step(what, mdl, batches, want, want_calls,
+                   plain=plain_train_sublayers, loss_tol=STEP_LOSS_TOL,
+                   fault=None):
         """The train step's loss and every grad on the kernels against the
-        plain sub-layers and the f32 step, over `batches` [(src, tgt)]
+        plain sub-layers (`plain`: the train ones, or for a frozen encoder
+        the serving ones) and the f32 step, over `batches` [(src, tgt)]
         pooled: the mean |loss| difference, the worst grad difference, and
         the summed medians and maxima of each path's grad errors vs f32.
-        Returns the launch counts of the first step (the main path)."""
-        d_loss, worst_rel, meds, maxes = [], 0.0, [], []
+        `fault`, a routing of the plain path with a planted fault, must move
+        the loss from the plain path's by more than `loss_tol` on average:
+        the limit would fail a wrong kernel. Returns the launch counts of
+        the first step (the main path)."""
+        d_loss, d_k32, d_p32, worst_rel, meds, maxes = [], [], [], 0.0, [], []
+        d_fault = []
         for i, (bsrc, btgt) in enumerate(batches):
             fb.reset_launch_counts()
             loss_k, grads_k = loss_and_grads(mdl, bsrc, btgt)
             counts, calls = fb.launch_counts(), fb.sublayer_calls()
             if i == 0:
                 first = counts
-            with plain_train_sublayers():
+            with plain():
                 loss_p, grads_p = loss_and_grads(mdl, bsrc, btgt)
                 loss_32, grads_32 = loss_and_grads(mdl, bsrc, btgt,
                                                    torch.float32)
+            faulty = ""
+            if fault is not None:
+                with fault(), torch.no_grad():
+                    loss_f = cross_entropy_loss(fused_mst_logits(
+                        mdl, bsrc, None, train=True), btgt).item()
+                d_fault.append(abs(loss_f - loss_p))
+                faulty = f", plain path with the planted fault {loss_f:.6g}"
             rel = rel_errs(grads_k, grads_p)
             rel_k32 = rel_errs(grads_k, grads_32)
             rel_p32 = rel_errs(grads_p, grads_32)
             d_loss.append(abs(loss_k - loss_p))
+            d_k32.append(abs(loss_k - loss_32))
+            d_p32.append(abs(loss_p - loss_32))
             worst_rel = max(worst_rel, max(rel.values()))
             meds.append((statistics.median(rel_k32.values()),
                          statistics.median(rel_p32.values())))
             maxes.append((max(rel_k32.values()), max(rel_p32.values())))
-            print(f"{tag} {what} B={BATCH} {list(bsrc.shape)}, batch {i}: "
+            print(f"{tag} {what} {list(bsrc.shape)}, batch {i}: "
                   f"loss kernel path {loss_k:.6g}, plain path {loss_p:.6g}, "
-                  f"f32 plain path {loss_32:.6g}; launches {counts}; "
+                  f"f32 plain path {loss_32:.6g}{faulty}; launches {counts}; "
                   f"sublayer calls {calls}")
             print(f"{tag} {what} grads, batch {i}, |kernel - plain| / "
                   f"|plain|max: {summary(rel)}; vs the f32 step: kernel path "
@@ -978,12 +1045,22 @@ def main() -> int:
         med_ratio = sum(k for k, _ in meds) / sum(p_ for _, p_ in meds)
         max_ratio = sum(k for k, _ in maxes) / sum(p_ for _, p_ in maxes)
         print(f"{tag} {what} over {len(batches)} batch(es): mean |loss "
-              f"kernel - plain| {d_mean:.6g} (limit {STEP_LOSS_TOL}); worst "
+              f"kernel - plain| {d_mean:.6g} (limit {loss_tol}; largest "
+              f"batch {max(d_loss):.6g}); mean |loss "
+              f"- f32 loss| kernel path {statistics.mean(d_k32):.6g}, plain "
+              f"path {statistics.mean(d_p32):.6g}; worst "
               f"grad kernel vs plain {worst_rel:.6g} (limit {STEP_GRAD_REL}); "
               f"grads vs f32, kernel / plain path, pooled: median "
               f"{med_ratio:.4g}, max {max_ratio:.4g} (limit {STEP_F32_RATIO} "
               f"each)")
-        check(d_mean <= STEP_LOSS_TOL, f"{what} loss: {d_loss}")
+        check(d_mean <= loss_tol, f"{what} loss: {d_loss}")
+        if fault is not None:
+            f_mean = statistics.mean(d_fault)
+            print(f"{tag} {what}: {fault.__doc__} moves the loss from the "
+                  f"plain path's by {f_mean:.6g} on average (smallest batch "
+                  f"{min(d_fault):.6g}; must exceed the limit {loss_tol})")
+            check(f_mean > loss_tol, f"{what}: the loss limit {loss_tol} "
+                  f"would pass a planted fault: {d_fault}")
         check(worst_rel <= STEP_GRAD_REL,
               f"{what} grads vs plain {worst_rel} > {STEP_GRAD_REL}")
         check(med_ratio <= STEP_F32_RATIO and max_ratio <= STEP_F32_RATIO,
@@ -1081,10 +1158,10 @@ def main() -> int:
             print(f"{tag} time {name} forward + backward: {label} "
                   f"{ms:.4f} ms")
 
-    def step_seconds(m_, src_, tgt_):
+    def step_seconds(m_, src_, tgt_, n=5):
         step = make_train_step(TrainState(m_, make_optimizer(
             m_.parameters(), 0.0)))  # lr 0: same work, same weights
-        return host_seconds(lambda: step(src_, tgt_)), step
+        return host_seconds(lambda: step(src_, tgt_), n), step
 
     torch.cuda.reset_peak_memory_stats()
     sec_t, kstep = step_seconds(tmodel, src, tgt)
@@ -1167,8 +1244,23 @@ def main() -> int:
 
     # -- 12. the saliency forward at B=8 (each mode: counts read around it) -
     stamp(tag, "12")
-    mask_t = torch.from_numpy(mask).to(dev)
     n_full = n_blocks + 1  # rollout / abnar run block 11 on the kernels too
+
+    def block_counts(nb, attn_kernel, attn_sublayer, swiglu=False):
+        """(launches, sub-layer calls) of nb encoder blocks on the serving
+        kernels: the attention chain through `attn_kernel`, then the MLP or
+        SwiGLU chain."""
+        counts, calls = dict(zero), dict(zero_calls)
+        counts["ln_gemm"] += nb
+        counts["ln_gemm_swiglu" if swiglu else "ln_gemm"] += nb
+        counts["gemm_residual"] += 2 * nb
+        counts[attn_kernel] += nb
+        calls[attn_sublayer] += nb
+        calls["fused_swiglu_sublayer" if swiglu else "fused_mlp_sublayer"] += nb
+        return counts, calls
+
+    def added(a, b):
+        return {k: a[k] + b[k] for k in a}
 
     def saliency(mode, m=None, dtype=None, mdl=model, vols=src8):
         with torch.inference_mode():
@@ -1182,27 +1274,29 @@ def main() -> int:
         return (a - b).abs().max().item() / b.abs().max().item()
 
     def check_saliency(what, mdl, pred, vols, want_last, want_last_calls,
-                       rope=False):
-        """`fused_mst_saliency` at B=8 in each plane mode, with and without
-        the key-padding mask, against the plain path and an f32 plain
-        forward, with each forward's launch counts; then the row of
-        MST_NO_CHEAP_LAST (block 11 in full) against the CLS-only block's.
-        `rope`: the model's attention runs the RoPE kernels. Returns the
-        launch counts of each mode and of "with_row"."""
+                       rope=False, depth=n_full, swiglu=False):
+        """`fused_mst_saliency` on `vols` (B=8, or fewer where the plain
+        path is slow) in each plane mode, with and without the key-padding
+        mask, against the plain path and an f32 plain forward, with each
+        forward's launch counts; then the row of MST_NO_CHEAP_LAST (the last
+        of the `depth` blocks in full) against the CLS-only block's. `rope`:
+        the model's attention runs the RoPE kernels; `swiglu`: its FFN the
+        SwiGLU chain. Returns the launch counts of each mode and of
+        "with_row"."""
         kern = ("mhsa_{}_rope" if rope else "mhsa_{}").format
         row_sublayer = ("fused_attention_sublayer_rope_with_row" if rope
                         else "fused_attention_sublayer_with_row")
+        nb = vols.shape[0]
+        mask_t = torch.from_numpy(padding_mask(nb)).to(dev)
         found = {}
         for mode in PLANE_MODES:
             if mode == "last":
                 want, want_calls = want_last, want_last_calls
             else:
                 attn = {"rollout": "rollout", "rollout_abnar": "abnar"}[mode]
-                want = {**zero, "ln_gemm": 2 * n_full,
-                        "gemm_residual": 2 * n_full, kern(attn): n_full}
-                want_calls = {**zero_calls,
-                              f"fused_attention_sublayer_{attn}": n_full,
-                              "fused_mlp_sublayer": n_full}
+                want, want_calls = block_counts(
+                    depth, kern(attn), f"fused_attention_sublayer_{attn}",
+                    swiglu)
             for label, m in (("no mask", None), ("key-padding mask", mask_t)):
                 fb.reset_launch_counts()
                 pk, sk = saliency(mode, m, mdl=mdl, vols=vols)
@@ -1211,7 +1305,7 @@ def main() -> int:
                     pp, sp_ = saliency(mode, m, mdl=mdl, vols=vols)
                     p32, s32 = saliency(mode, m, torch.float32, mdl=mdl,
                                         vols=vols)
-                check(tuple(sk.shape) == (BATCH, DEPTH_SLICES, PX, PX)
+                check(tuple(sk.shape) == (nb, DEPTH_SLICES, PX, PX)
                       and sk.dtype == torch.float32,
                       f"{what} {tuple(sk.shape)}")
                 check(bool(torch.isfinite(sk).all()
@@ -1236,10 +1330,9 @@ def main() -> int:
                 if mode == "last":  # the same kernels as the forward without
                     check(d_fwd <= 1e-6, f"last-mode probs moved by {d_fwd}")
                 if m is not None:  # padded slices get no slice attention
-                    pad = max(sk[1, 24:].abs().max().item(),
-                              sk[5, 30:].abs().max().item())
-                    check(pad == 0.0, f"{what} {mode}: padded slices' "
-                          f"saliency {pad}")
+                    leak = sk[mask_t].abs().max().item()
+                    check(leak == 0.0, f"{what} {mode}: padded slices' "
+                          f"saliency {leak}")
                 check(counts == want, f"{what} {mode} launches {counts} != "
                       f"{want}")
                 check(calls == want_calls,
@@ -1256,10 +1349,10 @@ def main() -> int:
         p_cheap, s_cheap = saliency("last", mdl=mdl, vols=vols)
         d_p, d_s = ((p_full - p_cheap).abs().max().item(),
                     sal_rel(s_full, s_cheap))
-        want = {**want_last, "ln_gemm": 2 * n_full,
-                "gemm_residual": 2 * n_full, kern("with_row"): 1}
-        want_calls = {**want_last_calls, row_sublayer: 1,
-                      "fused_mlp_sublayer": n_full}
+        one_more, one_more_calls = block_counts(1, kern("with_row"),
+                                                row_sublayer, swiglu)
+        want = added(want_last, one_more)
+        want_calls = added(want_last_calls, one_more_calls)
         print(f"{tag} {what} last, MST_NO_CHEAP_LAST=1 vs the CLS-only last "
               f"block: |probs| {d_p:.6g}, saliency {d_s:.6g} (limit "
               f"{SAL_CHEAP_REL}); launches {counts}; sub-layer calls {calls}")
@@ -1352,13 +1445,13 @@ def main() -> int:
                   in {**reference, **scases, **ssub}.items()}
     for name, (km, pm_) in stimed.items():
         print(f"{tag} time {name}: kernel {km:.4f} ms, plain {pm_:.4f} ms")
-    def seconds_and_memory(fn):
-        """(median seconds of fn, its peak device memory above what was
-        held before it)."""
+    def seconds_and_memory(fn, n=5):
+        """(median seconds of n calls of fn, its peak device memory above
+        what was held before it)."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
-        sec_ = host_seconds(fn)
+        sec_ = host_seconds(fn, n)
         return sec_, torch.cuda.max_memory_allocated() - held
 
     sec_fwd, mem_fwd = seconds_and_memory(lambda: predict(src8, None))
@@ -1505,16 +1598,77 @@ def main() -> int:
             mm_cost(M3, E, 4 * E, 4 * 6 * E),
             mm_cost(M3, 4 * E, E, 2 * M3 * E + 4 * 2 * E)),
     })
+    # The other kernels of the RoPE chains (queue B rows 1, 1'a-c, 4, 7 with
+    # RoPE) at S = 201, so that each chain's time, bound and library time
+    # cover the same work.
+    x32 = x3.reshape(M3, E)
+    h3 = fb._ln(x32, ln_s, ln_b, EPS3).to(bf)
+    dqkv3 = fb._mhsa_bwd_ref(qkv3, o3, do3, lse3, N_SLICES, S3, HEADS, cos3,
+                             sin3)
+    rchain = {
+        "ln_gemm[qkv,S=201]": pair(fb.ln_gemm, fb._ln_gemm_ref, x32, ln_s,
+                                   ln_b, wqkv, bqkv, fb.ACT_NONE, EPS3),
+        "ln_gemm_train[qkv,S=201]": pair(fb.ln_gemm, fb._ln_gemm_ref, x32,
+                                         ln_s, ln_b, wqkv, bqkv, fb.ACT_NONE,
+                                         EPS3, True),
+        "gemm_residual[proj,ls,S=201]": pair(
+            fb.gemm_residual, fb._gemm_residual_ref, o3, wproj, bproj, ls,
+            x32),
+        "gemm_dls[proj,S=201]": pair(fb.gemm_dls, fb._gemm_dls_ref, o3, wproj,
+                                     bproj, ls, g3),
+        "gemm_wgrad[proj,S=201]": pair(fb.gemm_wgrad, fb._gemm_wgrad_ref, o3,
+                                       g3),
+        "gemm_dgrad[proj,S=201]": pair(fb.gemm_dgrad, fb._gemm_dgrad_ref, g3,
+                                       wproj),
+        "gemm_wgrad[qkv,S=201]": pair(fb.gemm_wgrad, fb._gemm_wgrad_ref, h3,
+                                      dqkv3),
+        "gemm_dgrad[qkv,ln,S=201]": pair(fb.gemm_dgrad, fb._gemm_dgrad_ref,
+                                         dqkv3, wqkv, None, fb.ACT_NONE,
+                                         (x32, g3, ln_s, EPS3)),
+    }
+    cost.update({
+        "ln_gemm[qkv,S=201]": mm_cost(M3, E, 3 * E, 4 * 5 * E),
+        "ln_gemm_train[qkv,S=201]": mm_cost(M3, E, 3 * E,
+                                            4 * 5 * E + 2 * M3 * E),
+        "mhsa_rope_train": attn_cost(N_SLICES, S3, table_bytes
+                                     + 4 * M3 * HEADS),
+        "gemm_residual[proj,ls,S=201]": mm_cost(M3, E, E,
+                                                2 * M3 * E + 4 * 2 * E),
+        "gemm_dls[proj,S=201]": mm_cost(M3, E, E, 2 * M3 * E + 4 * 3 * E),
+        "gemm_wgrad[proj,S=201]": wgrad_cost(M3, E, E),
+        "gemm_dgrad[proj,S=201]": mm_cost(M3, E, E),
+        "gemm_wgrad[qkv,S=201]": wgrad_cost(M3, E, 3 * E),
+        "gemm_dgrad[qkv,ln,S=201]": mm_cost(M3, 3 * E, E,
+                                            4 * M3 * E + 4 * 3 * E),
+    })
+    ln_w3, ln_b3 = ln_s.to(bf), ln_b.to(bf)
+    library.update({
+        "ln_gemm[qkv,S=201]": lambda: torch.addmm(
+            bqkv.to(bf), F.layer_norm(x32, (E,), ln_w3, ln_b3, EPS3), wqkv),
+        "mhsa_rope_train": rope_sdpa,
+        "gemm_residual[proj,ls,S=201]": functools.partial(torch.matmul, o3,
+                                                          wproj),
+        "gemm_dls[proj,S=201]": functools.partial(torch.matmul, o3, wproj),
+        "gemm_wgrad[proj,S=201]": functools.partial(torch.matmul, o3.t(), g3),
+        "gemm_dgrad[proj,S=201]": functools.partial(torch.matmul, g3,
+                                                    wproj.t()),
+        "gemm_wgrad[qkv,S=201]": functools.partial(torch.matmul, h3.t(),
+                                                   dqkv3),
+        "gemm_dgrad[qkv,ln,S=201]": functools.partial(torch.matmul, dqkv3,
+                                                      wqkv.t()),
+    })
+    library["ln_gemm_train[qkv,S=201]"] = library["ln_gemm[qkv,S=201]"]
     with torch.inference_mode():
-        for name, (kern, plain) in {**rcases, **rsub}.items():
+        for name, (kern, plain) in {**rcases, **rsub, **rchain}.items():
             k, pl = kern(), plain()
             again = kern()
             torch.cuda.synchronize()
-            rel = KERNEL_GRAD_REL if name in rcases else SUBLAYER_GRAD_REL
+            rel = SUBLAYER_GRAD_REL if name in rsub else KERNEL_GRAD_REL
             errs[name] = check_outputs(tag, f"rope {name}", k, pl, rel)
             k, again = ((k, again) if isinstance(k, tuple)
                         else ((k,), (again,)))
-            same = all(torch.equal(a, b) for a, b in zip(k, again))
+            same = all(torch.equal(a, b) for a, b in zip(k, again)
+                       if a is not None)
             print(f"{tag} rope {name}: two runs equal bit for bit: {same}")
             check(same, f"{name}: two runs differ")
         del k, pl, again
@@ -1641,15 +1795,15 @@ def main() -> int:
     # -- 20. DINOv3 times ---------------------------------------------------
     stamp(tag, "20")
     with torch.inference_mode():
-        rtimed = {name: (time_ms(kern), time_ms(plain))
-                  for name, (kern, plain) in {**rcases, **rsub}.items()}
+        rtimed = {name: (time_ms(kern), time_ms(plain)) for name, (kern, plain)
+                  in {**rcases, **rsub, **rchain}.items()}
         # each RoPE kernel against itself without RoPE on the same inputs,
         # in turns (with, without, without, with): the mean of each pair
         ab = {}
         for name, fn in twins.items():
             kern = rcases[name][0]
-            t = [time_ms(kern), time_ms(fn), time_ms(fn), time_ms(kern)]
-            ab[name] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2)
+            ts = [time_ms(kern), time_ms(fn), time_ms(fn), time_ms(kern)]
+            ab[name] = ((ts[0] + ts[3]) / 2, (ts[1] + ts[2]) / 2)
     lib_ms.update({name: time_ms(fn) for name, fn in library.items()
                    if name not in lib_ms})
     for name, (km, pm_) in rtimed.items():
@@ -1694,6 +1848,319 @@ def main() -> int:
           f"{peak_t3 / 2**20:.1f} MiB above the {held3 / 2**20:.1f} MiB held")
     profile_device(tag, "one DINOv3 train step", lambda: kstep3(tsrc3, ttgt3),
                    16)
+    del tmodel3, kstep3
+
+    # ======================================================================
+    # MST-DINOv2-giant2: E 1536, 40 blocks, 24 heads of 64, SwiGLU FFN
+    # (F = 4096), patch 14, S = 257; the encoder trains frozen.
+    # ======================================================================
+    # -- 21. the SwiGLU kernel and the E = 1536 chains vs plain -----------
+    stamp(tag, "21")
+    EG, HG, FG, DEPTH_G = 1536, 24, 4096, 40
+    MG = N_SLICES * S  # the B=8 path shape [256, 257, 1536]
+    xg = rand(N_SLICES, S, EG, dtype=bf)
+    xg2 = xg.reshape(MG, EG)
+    lng_s, lng_b = rand(EG, scale=0.1, off=1.0), rand(EG, scale=0.1)
+    w12, b12 = (rand(EG, 2 * FG, scale=EG ** -0.5, dtype=bf),
+                rand(2 * FG, scale=0.1))
+    w3, b3 = rand(FG, EG, scale=FG ** -0.5, dtype=bf), rand(EG, scale=0.1)
+    wqkvg, bqkvg = (rand(EG, 3 * EG, scale=EG ** -0.5, dtype=bf),
+                    rand(3 * EG, scale=0.1))
+    wpg, bpg = rand(EG, EG, scale=EG ** -0.5, dtype=bf), rand(EG, scale=0.1)
+    lsg = rand(EG, scale=0.1, off=1.0)  # O(1) LayerScale
+    # each kernel's input from the plain version of the kernel before it
+    g_in = fb._ln_gemm_swiglu_ref(xg2, lng_s, lng_b, w12, b12, eps)
+    qkvg = fb._ln_gemm_ref(xg2, lng_s, lng_b, wqkvg, bqkvg, fb.ACT_NONE, eps)
+    og = fb._mhsa_ref(qkvg, N_SLICES, S, HG)
+    gcases = {
+        "ln_gemm_swiglu[w12]": pair(fb.ln_gemm_swiglu, fb._ln_gemm_swiglu_ref,
+                                    xg2, lng_s, lng_b, w12, b12, eps),
+        "gemm_residual[w3,ls]": pair(fb.gemm_residual, fb._gemm_residual_ref,
+                                     g_in, w3, b3, lsg, xg2),
+        "swiglu_sublayer[ls]": pair(fb.fused_swiglu_sublayer, fb._swiglu_ref,
+                                    xg, lng_s, lng_b, w12, b12, w3, b3, lsg),
+        "ln_gemm[qkv,E=1536]": pair(fb.ln_gemm, fb._ln_gemm_ref, xg2, lng_s,
+                                    lng_b, wqkvg, bqkvg, fb.ACT_NONE, eps),
+        "mhsa[E=1536]": pair(fb.mhsa, fb._mhsa_ref, qkvg, N_SLICES, S, HG),
+        "gemm_residual[proj,E=1536,ls]": pair(
+            fb.gemm_residual, fb._gemm_residual_ref, og, wpg, bpg, lsg, xg2),
+        "attention_sublayer[E=1536,ls]": pair(
+            fb.fused_attention_sublayer, fb._attn_ref, xg, lng_s, lng_b,
+            wqkvg, bqkvg, wpg, bpg, lsg, HG),
+        "swiglu_sublayer[no_ls]": pair(fb.fused_swiglu_sublayer,
+                                       fb._swiglu_ref, xg, lng_s, lng_b, w12,
+                                       b12, w3, b3, None),
+    }
+    print(f"{tag} giant2 kernels at the B=8 path shape [{N_SLICES}, {S}, "
+          f"{EG}] bf16 (F = {FG}, {HG} heads, LN eps {eps}, O(1) "
+          f"LayerScale): bf16 outputs within 2 bf16 ulps of the plain "
+          f"version, every output repeated bit for bit")
+    with torch.inference_mode():
+        for name, (kern, plain) in gcases.items():
+            k, pl = kern(), plain()
+            again = kern()
+            torch.cuda.synchronize()
+            errs[name] = check_outputs(tag, f"giant2 {name}", k, pl,
+                                       SUBLAYER_GRAD_REL)
+            same = torch.equal(k, again)
+            print(f"{tag} giant2 {name}: two runs equal bit for bit: {same}")
+            check(same, f"{name}: two runs differ")
+        del k, pl, again
+    gtimes = {n: c for n, c in gcases.items() if n != "swiglu_sublayer[no_ls]"}
+    swiglu_cost = (2 * MG * EG * 2 * FG,  # g [M, F] out, not h12 [M, 2F]
+                   2 * (MG * EG + EG * 2 * FG + MG * FG) + 4 * 2 * (EG + FG))
+    cost.update({
+        "ln_gemm_swiglu[w12]": swiglu_cost,
+        "gemm_residual[w3,ls]": mm_cost(MG, FG, EG, 2 * MG * EG + 4 * 2 * EG),
+        "ln_gemm[qkv,E=1536]": mm_cost(MG, EG, 3 * EG, 4 * 5 * EG),
+        "mhsa[E=1536]": attn_cost(N_SLICES, S, heads=HG),
+        "gemm_residual[proj,E=1536,ls]": mm_cost(MG, EG, EG,
+                                                 2 * MG * EG + 4 * 2 * EG),
+    })
+    cost["swiglu_sublayer[ls]"] = chain(cost["ln_gemm_swiglu[w12]"],
+                                        cost["gemm_residual[w3,ls]"])
+    cost["attention_sublayer[E=1536,ls]"] = chain(
+        cost["ln_gemm[qkv,E=1536]"], cost["mhsa[E=1536]"],
+        cost["gemm_residual[proj,E=1536,ls]"])
+    lng_w, lng_bias = lng_s.to(bf), lng_b.to(bf)
+
+    def swiglu_library():
+        """F.layer_norm -> torch.addmm -> F.silu(h1) * h2."""
+        h1, h2 = torch.addmm(b12.to(bf), F.layer_norm(
+            xg2, (EG,), lng_w, lng_bias, eps), w12).chunk(2, dim=-1)
+        return F.silu(h1) * h2
+
+    def qkv_library():
+        return torch.addmm(bqkvg.to(bf), F.layer_norm(
+            xg2, (EG,), lng_w, lng_bias, eps), wqkvg)
+
+    def attention_library():
+        """LN + qkv -> SDPA -> proj: the chain's library calls."""
+        q, k, v = qkv_library().reshape(N_SLICES, S, 3, HG, 64).permute(
+            2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v)
+        return torch.addmm(bpg.to(bf), o.permute(0, 2, 1, 3).reshape(MG, EG),
+                           wpg)
+
+    library.update({
+        "ln_gemm_swiglu[w12]": swiglu_library,
+        "gemm_residual[w3,ls]": functools.partial(torch.matmul, g_in, w3),
+        "swiglu_sublayer[ls]": lambda: torch.addmm(b3.to(bf),
+                                                   swiglu_library(), w3),
+        "ln_gemm[qkv,E=1536]": qkv_library,
+        "mhsa[E=1536]": functools.partial(F.scaled_dot_product_attention,
+                                          *heads_of(qkvg, N_SLICES, S, HG)),
+        "gemm_residual[proj,E=1536,ls]": functools.partial(torch.matmul, og,
+                                                           wpg),
+        "attention_sublayer[E=1536,ls]": attention_library,
+    })
+
+    # -- 22. the giant2 forward ------------------------------------------
+    stamp(tag, "22")
+    # One model for phases 22-24, built by `python -m mst_tpu_torch.train
+    # --model_size giant2 --freeze`'s build functions (a frozen encoder
+    # serves as any other), holding one seeded draw of its 1.14 B
+    # parameters with O(1) LayerScale; the plain paths run on the same
+    # model through the `layers` routing, so nothing is built or drawn
+    # twice.
+    gargs = cli.parse_args(["--dataset", "Synthetic", "--model_size",
+                            "giant2", "--freeze", "--batch_size", str(BATCH),
+                            "--max_epochs", "1", "--num_train_samples",
+                            str(BATCH), "--seed", str(SEED)])
+    t1 = time.perf_counter()
+    gmodel = cli.build_model(gargs)
+    t_build = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    flatg = random_flax_params(gmodel, SEED)
+    for key in flatg:
+        if key.endswith("/gamma"):
+            flatg[key] = (1.0 + 0.1 * rng.standard_normal(flatg[key].shape)
+                          ).astype(np.float32)
+    t_draw = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    params_from_flax(gmodel, flatg)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t1
+    gmodel.eval()
+    n_params = sum(p.numel() for p in gmodel.parameters())
+    print(f"{tag} giant2: {n_params} parameters ({n_params * 4 / 2**30:.2f} "
+          f"GiB f32) built in {t_build:.1f} s, drawn in {t_draw:.1f} s, "
+          f"copied to the card in {t_load:.1f} s; config {gmodel.config}")
+    check(gmodel.dtype == torch.bfloat16 and gmodel.freeze
+          and gmodel.ffn_layer == "swiglu" and gmodel.encoder.depth == DEPTH_G
+          and tuple(gmodel.encoder.blocks_0.mlp.w3.kernel.shape) == (FG, EG),
+          f"giant2 config {gmodel.config}")
+    predict_g = make_predict_fn(gmodel, with_saliency=False)
+    volg = spread_volumes(rng, predict_g, BATCH, pool=24)
+    volg4 = volg[:4]  # the first 4 picks lie furthest apart
+    srcg, srcg4 = (torch.from_numpy(v).to(dev) for v in (volg, volg4))
+    nbg = DEPTH_G - 1  # the last block is the CLS-only plain block
+    per_fwd_g, calls_per_fwd_g = block_counts(
+        nbg, "mhsa", "fused_attention_sublayer", swiglu=True)
+    fwdg_counts = check_forward("giant2 forward", gmodel, predict_g, volg4,
+                                per_fwd_g, calls_per_fwd_g)
+
+    # -- 23. giant2 saliency ----------------------------------------------
+    stamp(tag, "23")
+    salg_counts = check_saliency("giant2 saliency", gmodel, predict_g, srcg4,
+                                 per_fwd_g, calls_per_fwd_g, depth=DEPTH_G,
+                                 swiglu=True)
+
+    # -- 24. frozen training and the CLIs -----------------------------------
+    stamp(tag, "24")
+    gdm = cli.build_datamodule(gargs, dev, num_samples=STEP_BATCHES_G * BATCH,
+                               shape_cdhw=(1, DEPTH_SLICES, PX, PX))
+    bg = next(iter(gdm.train_dataloader()))
+    tsrcg = bg["source"]
+    ttgtg = torch.from_numpy(bg["target"]).to(dev, torch.long)
+    step_batches_g = [(tsrcg, ttgtg)] + [
+        (b["source"], torch.from_numpy(b["target"]).to(dev, torch.long))
+        for b in itertools.islice(gdm.val_dataloader(), STEP_BATCHES_G - 1)]
+    # AdamW over the slice fusion and head: a frozen encoder requires no grad
+    gstate = TrainState(gmodel, make_optimizer(gmodel.parameters(), FIT_LR))
+    trainable = [n for n, q in gmodel.named_parameters() if q.requires_grad]
+    check(trainable and not any(n.startswith("encoder.") for n in trainable),
+          f"trainable {trainable}")
+
+    def swiglu_gate_off_by_one(x_, ln_s_, ln_b_, w12_, b12_, w3_, b3_, ls_,
+                               eps_=1e-6):
+        """The plain SwiGLU sub-layer with h1's column c gated by h2's
+        column c + 1 (an epilogue indexing fault)."""
+        f = w3_.shape[0]
+        nxt = torch.arange(f, device=w12_.device).roll(-1)
+        return fb._swiglu_ref(
+            x_, ln_s_, ln_b_, torch.cat([w12_[:, :f], w12_[:, f:][:, nxt]], 1),
+            torch.cat([b12_[:f], b12_[f:][nxt]]), w3_, b3_, ls_, eps_)
+
+    @contextlib.contextmanager
+    def gate_fault():
+        """the plain path with the SwiGLU gate off by one column"""
+        with plain_sublayers():  # which puts the kernel sub-layer back
+            layers.fused_swiglu_sublayer = swiglu_gate_off_by_one
+            yield
+
+    stepg_counts = check_step("giant2 frozen train step", gmodel,
+                              step_batches_g, per_fwd_g, calls_per_fwd_g,
+                              plain=plain_sublayers,
+                              loss_tol=GIANT2_LOSS_TOL, fault=gate_fault)
+    # FIT_STEPS AdamW steps on one batch: the loss falls, the encoder stays
+    start = {n: q.detach().clone() for n, q in gmodel.named_parameters()}
+    fstep = make_train_step(gstate)
+    fit_g = [float(fstep(tsrcg, ttgtg)[0]) for _ in range(FIT_STEPS)]
+    enc_same = all(torch.equal(q, start[n])
+                   for n, q in gmodel.named_parameters()
+                   if n.startswith("encoder."))
+    moved = sum(not torch.equal(q, start[n])
+                for n, q in gmodel.named_parameters()
+                if not n.startswith("encoder."))
+    print(f"{tag} giant2 frozen fit, {FIT_STEPS} AdamW steps at lr {FIT_LR} "
+          f"on one batch: losses {[round(v, 5) for v in fit_g]}; every "
+          f"encoder parameter bit for bit as before: {enc_same}; "
+          f"{moved} of {len(trainable)} trainable parameters moved")
+    check(enc_same, "a frozen encoder parameter moved")
+    check(moved == len(trainable), f"only {moved} trainable parameters moved")
+    check(fit_g[-1] < fit_g[0], f"giant2 frozen fit: the loss rose {fit_g}")
+    with torch.no_grad():
+        for n, q in gmodel.named_parameters():
+            q.copy_(start[n])
+    del start, fstep, gstate
+
+    # `python -m mst_tpu_torch.train --model_size giant2 --freeze`'s own
+    # `train` for one step: the trainer's draw is phase 22's (the same seed;
+    # drawing 1.14 B numbers twice would only cost time), and the
+    # checkpoint write is timed.
+    from mst_tpu_torch.train import trainer as trainer_mod
+
+    gdm_fit = cli.build_datamodule(gargs, dev, num_samples=BATCH,
+                                   shape_cdhw=(1, DEPTH_SLICES, PX, PX))
+    rung = ROOT / "build" / "chip_smoke_run_giant2"  # gitignored
+    shutil.rmtree(rung, ignore_errors=True)
+    gtrainer = cli.build_trainer(gargs, gdm_fit, run_dir=rung)
+    saves = []
+    saved_draw, saved_save = (trainer_mod.random_flax_params,
+                              trainer_mod.save_checkpoint)
+
+    def phase22_draw(m_, seed):
+        check(m_ is gmodel and seed == SEED, "an unexpected draw")
+        return flatg
+
+    def timed_save(*a, **kw):
+        t1 = time.perf_counter()
+        out = saved_save(*a, **kw)
+        saves.append(time.perf_counter() - t1)
+        return out
+
+    trainer_mod.random_flax_params = phase22_draw
+    trainer_mod.save_checkpoint = timed_save
+    try:
+        t1 = time.perf_counter()
+        _, resultg = cli.train(gargs, gmodel, gdm_fit, gtrainer)
+        t_fit = time.perf_counter() - t1
+    finally:
+        trainer_mod.random_flax_params = saved_draw
+        trainer_mod.save_checkpoint = saved_save
+    del flatg  # 4.3 GiB of host memory
+    npz_g = best_params_path(rung)
+    hpg = json.loads((rung / f"epoch={resultg.best_epoch}.hparams.json"
+                      ).read_text())
+    print(f"{tag} giant2 trainer: {resultg.epochs_run} epoch(s), "
+          f"{t_fit:.1f} s; params.npz {npz_g.stat().st_size / 2**30:.2f} GiB "
+          f"written in {saves} s; hparams {hpg}")
+    check(resultg.epochs_run == 1 and resultg.best_epoch == 0 and len(saves)
+          == 1, f"giant2 fit {resultg}")
+    check(hpg["model_size"] == "giant2" and hpg["freeze"] is True
+          and hpg["ffn_layer"] == "swiglu", f"giant2 hparams {hpg}")
+    served_g = build_model(parse_args(["--run_folder", str(rung)]))
+    check(served_g.config == gmodel.config, f"served {served_g.config}")
+    vbg = next(iter(gdm_fit.val_dataloader()))
+    p_served, _ = make_predict_fn(served_g, with_saliency=False)(
+        vbg["source"], None)
+    p_eval = torch.softmax(make_eval_step(gmodel)(vbg["source"]).float(), -1)
+    d_ck = (p_served - p_eval).abs().max().item()
+    print(f"{tag} giant2: `serve --run_folder` probs vs the eval step's on "
+          f"{tuple(vbg['source'].shape)}: max |diff| {d_ck:.6g} (must be 0)")
+    check(d_ck == 0.0, f"served giant2 run differs from the eval step: {d_ck}")
+    del served_g
+    rollout_g = block_counts(DEPTH_G, "mhsa_rollout",
+                             "fused_attention_sublayer_rollout", swiglu=True)
+    check_predict_cli("giant2 predict CLI", rung, ROOT / "build" /
+                      "chip_smoke_predict_giant2", N_CASES_G,
+                      {k: v * N_CASES_G for k, v in rollout_g[0].items()})
+
+    # -- 25. giant2 times ---------------------------------------------------
+    stamp(tag, "25")
+    with torch.inference_mode():
+        gtimed = {name: (time_ms(kern), time_ms(plain))
+                  for name, (kern, plain) in gtimes.items()}
+    lib_ms.update({name: time_ms(fn) for name, fn in library.items()
+                   if name not in lib_ms})
+    for name, (km, pm_) in gtimed.items():
+        print(f"{tag} time giant2 {name}: kernel {km:.4f} ms, plain "
+              f"{pm_:.4f} ms, library {lib_ms[name]:.4f} ms")
+    secg, memg = seconds_and_memory(lambda: predict_g(srcg, None), n=3)
+    print(f"{tag} e2e giant2 B={BATCH} {list(volg.shape)} bf16: "
+          f"{secg * 1e3:.3f} ms = {BATCH / secg:.4f} vol/s, peak memory "
+          f"{memg / 2**20:.1f} MiB above the "
+          f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB held")
+    profile_device(tag, f"one giant2 B={BATCH} forward",
+                   lambda: predict_g(srcg, None), 8)
+    for mode in PLANE_MODES:
+        sec_m, mem_m = seconds_and_memory(
+            lambda: saliency(mode, mdl=gmodel, vols=srcg), n=3)
+        print(f"{tag} e2e giant2 saliency {mode} B={BATCH}: "
+              f"{sec_m * 1e3:.3f} ms = {BATCH / sec_m:.4f} vol/s "
+              f"({sec_m / secg:.3f}x the forward without saliency), peak "
+              f"memory {mem_m / 2**20:.1f} MiB above what was held")
+    torch.cuda.reset_peak_memory_stats()
+    heldg = torch.cuda.memory_allocated()
+    sec_tg, kstepg = step_seconds(gmodel, tsrcg, ttgtg, n=3)
+    peak_tg = torch.cuda.max_memory_allocated() - heldg
+    print(f"{tag} giant2 frozen train step B={BATCH} bf16 (encoder forward "
+          f"under no_grad, CE, backward through fusion + head, AdamW): "
+          f"{sec_tg * 1e3:.3f} ms = {BATCH / sec_tg:.4f} vol/s; peak memory "
+          f"{peak_tg / 2**20:.1f} MiB above the {heldg / 2**20:.1f} MiB held")
+    del kstepg
+
 
     # TPU kernels: _attn_any_kernel at fused_block.py:326, _mlp_kernel at
     # :400, their train forwards _attn_train_kernel :424 and
@@ -1738,8 +2205,12 @@ def main() -> int:
                             sal3_counts["rollout_abnar"], ["mhsa_abnar_rope"]),
         "mhsa_bwd_rope": ("mhsa_bwd", [site(680)], step3_counts,
                           ["mhsa_bwd_rope"]),
+        # the gated mode of `ln_gemm`, counted on the giant2 serving forward
+        # (phase 22) at E = 1536, F = 4096
+        "ln_gemm_swiglu": ("ln_gemm", [site(534), site(1393)], fwdg_counts,
+                           ["ln_gemm_swiglu[w12]"]),
     }
-    alltimed = {**timed, **ttimed, **stimed, **rtimed}
+    alltimed = {**timed, **ttimed, **stimed, **rtimed, **gtimed}
     print(f"{tag} bound: the larger of FLOPs / {PEAK_FLOPS:.4g} FLOP/s and "
           f"bytes / {PEAK_BYTES:.4g} B/s (each input read once, each output "
           f"written once); library: the PyTorch call(s) of the same "
@@ -1751,8 +2222,8 @@ def main() -> int:
               f"{alltimed[name][1]:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
               f"({cost[name][0] / 1e9:.3f} GFLOP, {cost[name][1] / 1e6:.2f} "
               f"MB), library {lib}")
-    # queue B's rows: each TPU kernel's chain of CUDA kernels, one ViT-S
-    # block at B=8 (S = 257)
+    # queue B's rows: each TPU kernel's chain of CUDA kernels, one block at
+    # B=8 (ViT-S at S = 257; DINOv3 ViT-S/16 at S = 201; giant2 at E = 1536)
     rows = {
         "1 attention sub-layer": ["ln_gemm[qkv]", "mhsa",
                                   "gemm_residual[proj,ls]"],
@@ -1773,6 +2244,27 @@ def main() -> int:
         "8 MLP backward": ["gemm_dls[fc2]", "gemm_wgrad[fc2]",
                            "gemm_dgrad[fc2,gelu_tanh]", "gemm_wgrad[fc1]",
                            "gemm_dgrad[fc1,ln]"],
+        "1-rope attention sub-layer (S = 201)": [
+            "ln_gemm[qkv,S=201]", "mhsa_rope", "gemm_residual[proj,ls,S=201]"],
+        "1'a-rope + CLS row": ["ln_gemm[qkv,S=201]", "mhsa_with_row_rope",
+                               "gemm_residual[proj,ls,S=201]"],
+        "1'b-rope + rollout carry": ["ln_gemm[qkv,S=201]",
+                                     "mhsa_rollout_rope[block1,row]",
+                                     "gemm_residual[proj,ls,S=201]"],
+        "1'c-rope + Abnar factor": ["ln_gemm[qkv,S=201]", "mhsa_abnar_rope",
+                                    "gemm_residual[proj,ls,S=201]"],
+        "4-rope attention train forward": ["ln_gemm_train[qkv,S=201]",
+                                           "mhsa_rope_train",
+                                           "gemm_residual[proj,ls,S=201]"],
+        "7-rope attention backward": [
+            "gemm_dls[proj,S=201]", "gemm_wgrad[proj,S=201]",
+            "gemm_dgrad[proj,S=201]", "mhsa_bwd_rope",
+            "gemm_wgrad[qkv,S=201]", "gemm_dgrad[qkv,ln,S=201]"],
+        "1 attention sub-layer, giant2 (E = 1536, 24 heads)": [
+            "ln_gemm[qkv,E=1536]", "mhsa[E=1536]",
+            "gemm_residual[proj,E=1536,ls]"],
+        "3 SwiGLU sub-layer, giant2 (F = 4096)": ["ln_gemm_swiglu[w12]",
+                                                  "gemm_residual[w3,ls]"],
     }
     for label, chain in rows.items():
         b_ms, b_by = bound([cost[c] for c in chain])
@@ -1788,7 +2280,8 @@ def main() -> int:
     for name, (source, replaces, counts, per_block) in sites.items():
         checked = [c for c in errs if c.split("[")[0] in
                    (name, name + "_train")]
-        steps = step3_counts if name.endswith("_rope") else step_counts
+        steps = (step3_counts if name.endswith("_rope") else stepg_counts
+                 if name == "ln_gemm_swiglu" else step_counts)
         bound_ms, bound_by = bound([cost[c] for c in per_block])
         kernels.append({
             "name": name, "route": "cuda",

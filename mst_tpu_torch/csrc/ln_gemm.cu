@@ -1,9 +1,10 @@
 // ln_gemm: out[M, N] = act(LN(x)[M, K] @ W[K, N] + b[N]), bf16 in and out.
 //
-// Replaces the first half of four Pallas kernels in
+// Replaces the first half of five Pallas kernels in
 // mst_tpu/ops/fused_block.py: the LN + qkv projection of `_attn_any_kernel`
-// and `_attn_train_kernel` (act = none) and the LN + fc1 + GELU of
-// `_mlp_kernel` and `_mlp_train_kernel` (act = gelu tanh or exact erf).
+// and `_attn_train_kernel` (act = none), the LN + fc1 + GELU of
+// `_mlp_kernel` and `_mlp_train_kernel` (act = gelu tanh or exact erf), and
+// the LN + w12 + SiLU gate of `_swiglu_kernel` (the gated mode below).
 // Rounding follows the Pallas bodies: LN statistics and the normalised row
 // in f32, the row cast to bf16 before the product, f32 accumulation, bias
 // and activation in f32, one cast to bf16 at the end (serving).
@@ -16,9 +17,22 @@
 // that ROUNDED value, as `_mlp_train_kernel` computes it (the serving body
 // takes the GELU of the f32 value).
 //
+// Gated mode (`GATED`, entry point `mst_ln_gemm_swiglu`): W is w12 [K, 2F]
+// and out is g [M, F] = bf16(silu(h1) * h2), h12 = LN(x) @ w12 + b12 in f32,
+// h1 its first F columns, h2 its last F. A block owns 64 output columns n0..
+// n0+63: its 128-column W stage holds columns [n0, n0+64) of w12 (h1) in its
+// left half and [F+n0, F+n0+64) (h2) in its right half, so warps wn = 0-1
+// accumulate h1 and wn = 2-3 h2 for the same 64 columns, and the epilogue
+// pairs column c of the f32 tile with column c + 64. The shared-memory
+// layout is the ungated one (215 KB at K = 1536, one block per SM); two
+// separate 128-wide W stages would reach the 227 KB ceiling. The gate runs
+// on the f32 h12 with an accurate expf, as `_swiglu_kernel` does (the XLA
+// reference `_swiglu_ref` rounds h12 to bf16 first).
+//
 // Bound on the H100: at the ViT-S path shapes (M = 65,792 tokens, K = 384,
 // N = 1152 or 1536) the product is ~58-78 GFLOP against ~130-250 MB of
-// traffic, so it is compute bound on the tensor cores. The TPU kernel kept
+// traffic; at giant2's w12 (K = 1536, 2F = 8192) 1.66 TFLOP against
+// ~0.77 GB. Both are compute bound on the tensor cores. The TPU kernel kept
 // the whole [S, E] slice and the weights in VMEM; here one block owns a
 // 64-row tile: it normalises the whole K-wide row tile once into shared
 // memory (64 x K bf16, 49 KB at K = 384), so LN costs no extra pass over
@@ -49,12 +63,16 @@ __host__ __device__ inline size_t smem_bytes(int K) {
   return a_region_bytes(K) + size_t(2) * BK * LDB * sizeof(bf16);
 }
 
+// GATED: N is F (the width of out), w has 2N columns (see the file note).
+template <bool GATED>
 __global__ void __launch_bounds__(THREADS)
 ln_gemm_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
                const float* __restrict__ ln_b, const bf16* __restrict__ w,
                const float* __restrict__ bias, bf16* __restrict__ out,
                bf16* __restrict__ h_out, bf16* __restrict__ out2, int M, int K,
                int N, float eps, int act) {
+  constexpr int BN_OUT = GATED ? BN / 2 : BN;  // output columns per block
+  const int ldw = GATED ? 2 * N : N;
   extern __shared__ __align__(128) unsigned char smem[];
   const int lda = K + 8;
   bf16* As = reinterpret_cast<bf16*>(smem);                      // [BM][lda]
@@ -62,18 +80,20 @@ ln_gemm_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
   bf16* Bs = reinterpret_cast<bf16*>(smem + a_region_bytes(K));  // [2][BK][LDB]
 
   const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
+  const int n0 = blockIdx.x * BN_OUT;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
 
   auto load_b = [&](int kt, int buf) {
     bf16* dst = Bs + buf * BK * LDB;
-    const bf16* src = w + size_t(kt) * BK * N + n0;
+    const bf16* src = w + size_t(kt) * BK * ldw;
     for (int c = tid; c < BK * (BN / 8); c += THREADS) {
       const int r = c / (BN / 8);
       const int col = (c % (BN / 8)) * 8;
-      cp_async16(dst + r * LDB + col, src + size_t(r) * N + col, 16);
+      // gated: the right half of the stage comes from the h2 columns
+      const int wcol = (GATED && col >= BN / 2) ? N + n0 + col - BN / 2 : n0 + col;
+      cp_async16(dst + r * LDB + col, src + size_t(r) * ldw + wcol, 16);
     }
   };
 
@@ -159,26 +179,43 @@ ln_gemm_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
       wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16,
                               acc[i][j], LDC, wmma::mem_row_major);
   __syncthreads();
-  for (int g = tid; g < BM * (BN / 8); g += THREADS) {
-    const int r = g / (BN / 8);
-    const int c = (g % (BN / 8)) * 8;
-    const int m = m0 + r;
-    if (m >= M) continue;
-    float v[8];
-    const size_t off = size_t(m) * N + n0 + c;
-    if (out2 == nullptr) {
+  if constexpr (GATED) {
+    for (int g = tid; g < BM * (BN_OUT / 8); g += THREADS) {
+      const int r = g / (BN_OUT / 8);
+      const int c = (g % (BN_OUT / 8)) * 8;
+      const int m = m0 + r;
+      if (m >= M) continue;
+      float v[8];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = apply_act(Cs[r * LDC + c + e] + bias[n0 + c + e], act);
-      *reinterpret_cast<uint4*>(out + off) = pack8_bf16(v);
-    } else {
+      for (int e = 0; e < 8; ++e) {
+        const float h1 = Cs[r * LDC + c + e] + bias[n0 + c + e];
+        const float h2 = Cs[r * LDC + BN_OUT + c + e] + bias[N + n0 + c + e];
+        v[e] = h1 * (1.0f / (1.0f + expf(-h1))) * h2;
+      }
+      *reinterpret_cast<uint4*>(out + size_t(m) * N + n0 + c) = pack8_bf16(v);
+    }
+  } else {
+    for (int g = tid; g < BM * (BN / 8); g += THREADS) {
+      const int r = g / (BN / 8);
+      const int c = (g % (BN / 8)) * 8;
+      const int m = m0 + r;
+      if (m >= M) continue;
+      float v[8];
+      const size_t off = size_t(m) * N + n0 + c;
+      if (out2 == nullptr) {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = Cs[r * LDC + c + e] + bias[n0 + c + e];
-      const uint4 pre = pack8_bf16(v);
-      *reinterpret_cast<uint4*>(out + off) = pre;
-      unpack8_bf16(pre, v);
+        for (int e = 0; e < 8; ++e) v[e] = apply_act(Cs[r * LDC + c + e] + bias[n0 + c + e], act);
+        *reinterpret_cast<uint4*>(out + off) = pack8_bf16(v);
+      } else {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = apply_act(v[e], act);
-      *reinterpret_cast<uint4*>(out2 + off) = pack8_bf16(v);
+        for (int e = 0; e < 8; ++e) v[e] = Cs[r * LDC + c + e] + bias[n0 + c + e];
+        const uint4 pre = pack8_bf16(v);
+        *reinterpret_cast<uint4*>(out + off) = pre;
+        unpack8_bf16(pre, v);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = apply_act(v[e], act);
+        *reinterpret_cast<uint4*>(out2 + off) = pack8_bf16(v);
+      }
     }
   }
 }
@@ -198,14 +235,36 @@ extern "C" int mst_ln_gemm(const void* x, const void* ln_s, const void* ln_b,
   if (M <= 0 || K % BK != 0 || K > 1536 || N % BN != 0 || (M + BM - 1) / BM > 65535)
     return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(K);
-  cudaError_t err = allow_smem(ln_gemm_kernel, smem);
+  cudaError_t err = allow_smem(ln_gemm_kernel<false>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(N / BN, (M + BM - 1) / BM);
-  ln_gemm_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  ln_gemm_kernel<false><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
       static_cast<const float*>(ln_b), static_cast<const bf16*>(w),
       static_cast<const float*>(bias), static_cast<bf16*>(out),
       static_cast<bf16*>(h_out), static_cast<bf16*>(out2), M, K, N, eps, act);
+  return cudaGetLastError();
+}
+
+// The gated mode: x [M, K] bf16, ln_s / ln_b [K] f32, w12 [K, 2F] bf16,
+// b12 [2F] f32 -> g [M, F] bf16 = bf16(silu(h1) * h2). Needs K % 32 == 0,
+// K <= 1536 and F % 64 == 0 (checked by the Python wrapper as well).
+extern "C" int mst_ln_gemm_swiglu(const void* x, const void* ln_s, const void* ln_b,
+                                  const void* w12, const void* b12, void* out, int M,
+                                  int K, int F, float eps, void* stream) {
+  using namespace mst;
+  if (M <= 0 || K % BK != 0 || K > 1536 || F <= 0 || F % (BN / 2) != 0 ||
+      (M + BM - 1) / BM > 65535)
+    return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(K);
+  cudaError_t err = allow_smem(ln_gemm_kernel<true>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(F / (BN / 2), (M + BM - 1) / BM);
+  ln_gemm_kernel<true><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
+      static_cast<const float*>(ln_b), static_cast<const bf16*>(w12),
+      static_cast<const float*>(b12), static_cast<bf16*>(out), nullptr, nullptr, M, K,
+      F, eps, ACT_NONE);
   return cudaGetLastError();
 }
 

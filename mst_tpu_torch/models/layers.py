@@ -3,7 +3,8 @@
 Counterpart of `mst_tpu/models/layers.py`. Parameter names are the flax
 ones, so `models/convert.params_from_flax` maps `a/b/c` to the attribute
 path `a.b.c`: `patch_embed/proj/{kernel,bias}`, `blocks_i/{norm1,attn/qkv,
-attn/proj,ls1,norm2,mlp/fc1,mlp/fc2,ls2}`, `norm`.
+attn/proj,ls1,norm2,mlp/fc1,mlp/fc2,ls2}` (the SwiGLU FFN: `mlp/w12`,
+`mlp/w3`), `norm`.
 
 Matrices keep the flax Dense layout `kernel [in, out]`, which is also the
 row-major `[K, N]` layout the CUDA kernels read. Parameters stay in f32, as
@@ -31,6 +32,8 @@ from mst_tpu_torch.ops.fused_block import (
     fused_attention_sublayer_with_row,
     fused_mlp_sublayer,
     fused_mlp_sublayer_train,
+    fused_swiglu_sublayer,
+    fused_swiglu_sublayer_train,
 )
 
 
@@ -114,25 +117,41 @@ class Mlp(nn.Module):
         self.fc2 = Dense(hidden, dim)
 
 
+class SwiGLU(nn.Module):
+    """flax `SwiGLU`: w12 [dim, 2 * hidden] (h1 then h2), w3 [hidden, dim];
+    `hidden` is the gate width F after the rounding rule
+    (`VisionTransformer` applies it)."""
+
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.w12 = Dense(dim, 2 * hidden)
+        self.w3 = Dense(hidden, dim)
+
+
 class Block(nn.Module):
     """Pre-norm ViT block with optional LayerScale; the forward runs the two
     fused sub-layers (hand-written kernels on CUDA): the serving ones, or
     with `train=True` the residual-saving ones whose backward is a kernel
     chain too (`vit_fast.fused_vit_cls(train=True)`). With the RoPE tables
     (DINOv3) every attention variant takes its RoPE form, as
-    `mst_tpu/models/vit_fast.py:429-450` dispatches."""
+    `mst_tpu/models/vit_fast.py:429-450` dispatches. `ffn_layer="swiglu"`
+    (giant2) runs the FFN through the SwiGLU sub-layer in every mode; its
+    train form is a later slice and raises."""
 
     def __init__(self, dim: int, num_heads: int, mlp_hidden: int,
                  layerscale_init: Optional[float] = 1e-5,
-                 norm_eps: float = 1e-6, gelu_approximate: bool = True):
+                 norm_eps: float = 1e-6, gelu_approximate: bool = True,
+                 ffn_layer: str = "mlp"):
         super().__init__()
         self.num_heads = num_heads
         self.norm_eps = norm_eps
         self.gelu_approximate = gelu_approximate
+        self.ffn_layer = ffn_layer
         self.norm1 = LayerNorm(dim, norm_eps)
         self.attn = Attention(dim, num_heads)
         self.norm2 = LayerNorm(dim, norm_eps)
-        self.mlp = Mlp(dim, mlp_hidden)
+        self.mlp = (SwiGLU(dim, mlp_hidden) if ffn_layer == "swiglu"
+                    else Mlp(dim, mlp_hidden))
         if layerscale_init is not None:
             self.ls1 = LayerScale(dim, layerscale_init)
             self.ls2 = LayerScale(dim, layerscale_init)
@@ -150,7 +169,6 @@ class Block(nn.Module):
         # the serving sub-layers take compute-dtype matrices, the train ones
         # the f32 parameters
         cast = (lambda w: w) if train else (lambda w: w.to(dt))
-        mlp = fused_mlp_sublayer_train if train else fused_mlp_sublayer
         attn_args = (h, self.norm1.scale, self.norm1.bias,
                      cast(self.attn.qkv.kernel), self.attn.qkv.bias,
                      cast(self.attn.proj.kernel), self.attn.proj.bias,
@@ -177,9 +195,16 @@ class Block(nn.Module):
                 attn = (fused_attention_sublayer if not tables else
                         fused_attention_sublayer_rope)
             h = attn(*attn_args, *tables, self.num_heads, self.norm_eps)
-        h = mlp(h, self.norm2.scale, self.norm2.bias,
-                cast(self.mlp.fc1.kernel), self.mlp.fc1.bias,
-                cast(self.mlp.fc2.kernel), self.mlp.fc2.bias,
-                None if self.ls2 is None else self.ls2.gamma,
-                self.gelu_approximate, self.norm_eps)
+        ls2 = None if self.ls2 is None else self.ls2.gamma
+        ffn_in, ffn_out = ((self.mlp.w12, self.mlp.w3)
+                           if self.ffn_layer == "swiglu"
+                           else (self.mlp.fc1, self.mlp.fc2))
+        ffn_args = (h, self.norm2.scale, self.norm2.bias, cast(ffn_in.kernel),
+                    ffn_in.bias, cast(ffn_out.kernel), ffn_out.bias, ls2)
+        if self.ffn_layer == "swiglu":
+            ffn = fused_swiglu_sublayer_train if train else fused_swiglu_sublayer
+            h = ffn(*ffn_args, self.norm_eps)
+        else:
+            ffn = fused_mlp_sublayer_train if train else fused_mlp_sublayer
+            h = ffn(*ffn_args, self.gelu_approximate, self.norm_eps)
         return h if extra is None else (h, extra)

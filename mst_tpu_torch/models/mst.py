@@ -2,13 +2,15 @@
 
 Counterpart of `mst_tpu/models/mst.py` `DinoSliceClassifier` for the
 configurations the port serves: a DINOv2 ViT (learned pos-embed, optional
-register tokens, MLP FFN) or a DINOv3 ViT (2D RoPE instead of a learned
-pos-embed, 4 registers, patch 16, LN eps 1e-5), transformer slice fusion
-without rotary, optional bottleneck and slice position embedding. The
-module holds the parameters under the flax names; its forward is the fused
-serving path (`models/vit_fast.fused_mst_logits`). Every other
-configuration raises `NotImplementedError` naming the ROADMAP item that
-brings it.
+register tokens; ViT-S/B/L with an MLP FFN, giant2 with a SwiGLU FFN) or a
+DINOv3 ViT (2D RoPE instead of a learned pos-embed, 4 registers, patch 16,
+LN eps 1e-5; either FFN), transformer slice fusion without rotary,
+optional bottleneck and slice position embedding, and `freeze` (the
+encoder trains frozen: the reference's giant2 workflow). The module holds
+the parameters under the flax names; its forward is the fused serving path
+(`models/vit_fast.fused_mst_logits`). Every other configuration, and an
+encoder train step the kernels cannot run yet (`check_trainable`), raises
+`NotImplementedError` naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from mst_tpu_torch.models.layers import Dense, LayerNorm
 from mst_tpu_torch.models.slice_fusion import TransformerEncoderLayer
 from mst_tpu_torch.models.vit import _VIT_CONFIGS, VisionTransformer
 from mst_tpu_torch.models.vit_fast import fused_mst_logits
+from mst_tpu_torch.ops.fused_block import LN_PULLBACK_K
 
 MAX_SLICES = 256  # slice-position vocabulary (reference `dino.py:81-82`)
 
@@ -43,7 +46,9 @@ class DinoSliceClassifier(nn.Module):
     """MST-DINO classifier (v2 and v3 are configurations of it). `dtype` is
     the compute dtype of the serving forward (bf16 on the card); parameters
     stay f32. `config` holds the options it was built with (what a run
-    folder's hparams record, so that `serve.load_run_model` rebuilds it)."""
+    folder's hparams record, so that `serve.load_run_model` rebuilds it).
+    `ffn_layer` None takes the size's FFN (SwiGLU for giant2); `freeze`
+    trains the slice fusion and head on a fixed encoder."""
 
     def __init__(self, out_ch: int = 2, model_size: str = "small",
                  patch_size: int = 14, num_register_tokens: int = 0,
@@ -56,14 +61,13 @@ class DinoSliceClassifier(nn.Module):
                  norm_eps: float = 1e-6, ffn_layer: Optional[str] = None,
                  ffn_hidden: Optional[int] = None,
                  layerscale_init: Optional[float] = 1e-5,
-                 gelu_approximate: bool = True,
+                 gelu_approximate: bool = True, freeze: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if model_size not in _VIT_CONFIGS:
             raise ValueError(f"unknown model_size {model_size!r}")
         base = _VIT_CONFIGS[model_size]
-        if (ffn_layer or base.get("ffn_layer", "mlp")) != "mlp":
-            _unsupported("the SwiGLU FFN (giant2)", "#12")
+        ffn_layer = ffn_layer or base.get("ffn_layer", "mlp")
         if slice_fusion != "transformer":
             _unsupported(f"slice_fusion={slice_fusion!r}", "#9")
         if rotary is not None:
@@ -80,8 +84,9 @@ class DinoSliceClassifier(nn.Module):
             use_slice_pos_emb=use_slice_pos_emb, pos_embed_grid=pos_embed_grid,
             use_pos_embed=use_pos_embed, rope_theta=rope_theta,
             rope_normalized=rope_normalized, norm_eps=norm_eps,
-            ffn_hidden=ffn_hidden, layerscale_init=layerscale_init,
-            gelu_approximate=gelu_approximate)
+            ffn_layer=ffn_layer, ffn_hidden=ffn_hidden,
+            layerscale_init=layerscale_init,
+            gelu_approximate=gelu_approximate, freeze=freeze)
         # only what the forward and `random_flax_params` read is kept; the
         # checks above are the one gate of the fused serving path
         self.model_size = model_size
@@ -94,16 +99,23 @@ class DinoSliceClassifier(nn.Module):
         self.norm_eps = norm_eps
         self.layerscale_init = layerscale_init
         self.gelu_approximate = gelu_approximate
+        self.ffn_layer = ffn_layer
+        self.freeze = freeze
         self.dtype = dtype
 
         self.encoder = VisionTransformer(
             embed_dim=base["embed_dim"], depth=base["depth"],
             num_heads=base["num_heads"], patch_size=patch_size,
-            num_register_tokens=num_register_tokens, ffn_hidden=ffn_hidden,
+            num_register_tokens=num_register_tokens, ffn_layer=ffn_layer,
+            ffn_hidden=ffn_hidden,
             layerscale_init=layerscale_init, pos_embed_grid=pos_embed_grid,
             norm_eps=norm_eps, gelu_approximate=gelu_approximate,
             use_pos_embed=use_pos_embed, use_rope_2d=use_rope_2d,
             rope_theta=rope_theta, rope_normalized=rope_normalized)
+        if freeze:
+            # the JAX `multi_transform` with `set_to_zero` on the encoder:
+            # no grad, so AdamW neither steps nor decays it
+            self.encoder.requires_grad_(False)
         emb = base["embed_dim"]
         if use_bottleneck:
             self.bottleneck = Dense(emb, emb // 4)
@@ -120,6 +132,28 @@ class DinoSliceClassifier(nn.Module):
 
     def fusion(self, i: int) -> TransformerEncoderLayer:
         return getattr(self, f"fusion_{i}")
+
+    def check_trainable(self, device) -> None:
+        """Raise, before any forward work, where a train step that reaches
+        into the encoder cannot run on `device`: a SwiGLU encoder (its train
+        sub-layer, queue B row 6, is not ported), or on a CUDA device an
+        encoder width other than the LN-pullback kernel's. A frozen encoder
+        trains at any size."""
+        if self.freeze:
+            return
+        e = self.encoder.embed_dim
+        if self.ffn_layer == "swiglu":
+            raise NotImplementedError(
+                f"training a SwiGLU encoder ({self.model_size}) is not ported "
+                f"to mst_tpu_torch yet: its train sub-layer (queue B row 6) "
+                f"and backward are ROADMAP queue A #12; train it with "
+                f"--freeze")
+        if torch.device(device).type == "cuda" and e != LN_PULLBACK_K:
+            raise NotImplementedError(
+                f"training the encoder at embed_dim={e} on CUDA needs "
+                f"gemm_dgrad's LN-pullback epilogue at K = {e} (it takes "
+                f"K = {LN_PULLBACK_K} only), which is ROADMAP queue A #12; "
+                f"train it with --freeze, or on the CPU")
 
     def forward(self, source, src_key_padding_mask=None):
         """source [B, C, D, H, W] -> logits [B, out_ch] (f32)."""
@@ -138,8 +172,8 @@ def dino_v3_classifier_slice(**kw) -> DinoSliceClassifier:
     """Reference `DinoV3ClassifierSlice` (`dino.py:279-795`) with the
     defaults of `mst_tpu/models/mst.py:239-258`: patch 16 and 4 register
     tokens, no learned pos-embed (normalised 2D RoPE, theta 100), LN eps
-    1e-5. The gated-MLP DINOv3 sizes wait for SwiGLU (ROADMAP queue A
-    #12)."""
+    1e-5. A gated-MLP DINOv3 checkpoint sets `ffn_layer="swiglu"` and its
+    `ffn_hidden`."""
     kw.setdefault("model_size", "small")
     kw.setdefault("patch_size", 16)
     kw.setdefault("num_register_tokens", 4)

@@ -3,7 +3,8 @@
 Counterpart of `mst_tpu/models/vit.py`: the size table, the bicubic
 position-embedding interpolation (built from explicit numpy weight
 matrices, so the reference's 0.1-offset scale factor stays exact), and the
-encoder module holding the parameters under the flax names. The forward is
+encoder module holding the parameters under the flax names (the FFN an MLP
+or, for giant2, a SwiGLU). The forward is
 `models/vit_fast.fused_vit_cls`; DINOv3's positions come from the 2D RoPE
 (`ops/rotary.py`), so its encoder has no `pos_embed`.
 """
@@ -81,12 +82,15 @@ class VisionTransformer(nn.Module):
     """ViT encoder parameters: patch_embed, cls_token, [pos_embed],
     [register_tokens], blocks_0..blocks_{depth-1}, norm. `use_pos_embed=False`
     (DINOv3) keeps no learned position embedding; `use_rope_2d`,
-    `rope_theta` and `rope_normalized` set the 2D RoPE the forward builds."""
+    `rope_theta` and `rope_normalized` set the 2D RoPE the forward builds.
+    The FFN width is `ffn_hidden` if given, else mlp_ratio * E, for SwiGLU
+    rounded to the JAX package's gate width (2/3 of it, up to a multiple of
+    8: 4096 for giant2)."""
 
     def __init__(self, embed_dim: int = 384, depth: int = 12,
                  num_heads: int = 6, patch_size: int = 14,
                  mlp_ratio: float = 4.0, num_register_tokens: int = 0,
-                 ffn_hidden: Optional[int] = None,
+                 ffn_layer: str = "mlp", ffn_hidden: Optional[int] = None,
                  layerscale_init: Optional[float] = 1e-5,
                  pos_embed_grid: int = 37, norm_eps: float = 1e-6,
                  gelu_approximate: bool = True, use_pos_embed: bool = True,
@@ -107,11 +111,18 @@ class VisionTransformer(nn.Module):
         if num_register_tokens:
             self.register_tokens = nn.Parameter(
                 torch.zeros(1, num_register_tokens, embed_dim))
-        hidden = ffn_hidden or int(embed_dim * mlp_ratio)
+        if ffn_layer not in ("mlp", "swiglu"):
+            raise ValueError(f"unknown ffn_layer {ffn_layer!r}")
+        hidden = int(embed_dim * mlp_ratio)
+        if ffn_hidden is not None:
+            hidden = ffn_hidden
+        elif ffn_layer == "swiglu":  # mst_tpu/models/layers.py:82-83
+            hidden = (int(hidden * 2 / 3) + 7) // 8 * 8
         for i in range(depth):
             self.add_module(f"blocks_{i}", Block(
                 embed_dim, num_heads, hidden, layerscale_init=layerscale_init,
-                norm_eps=norm_eps, gelu_approximate=gelu_approximate))
+                norm_eps=norm_eps, gelu_approximate=gelu_approximate,
+                ffn_layer=ffn_layer))
         self.norm = LayerNorm(embed_dim, norm_eps)
 
     def block(self, i: int) -> Block:

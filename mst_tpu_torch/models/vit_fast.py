@@ -2,7 +2,7 @@
 
 Counterpart of `mst_tpu/models/vit_fast.py` (plain mode and `train=True`,
 DINOv2 and DINOv3: the latter's 2D RoPE tables are built once per forward
-and handed to every block):
+and handed to every block; the MLP or SwiGLU FFN):
 each encoder block but the last runs through the fused sub-layers
 (`ops/fused_block.py`, hand-written CUDA kernels on the card; with
 `train=True` the residual-saving ones, whose backward is a kernel chain
@@ -14,8 +14,12 @@ The explainability forward (`fused_mst_saliency`) runs the same blocks
 with one more output of the attention kernel: the last block's CLS row,
 the rollout carry, or each block's Abnar factor.
 
+A frozen encoder (`model.freeze`, the reference's giant2 workflow) trains
+as the JAX package does: the encoder runs on the serving sub-layers under
+`torch.no_grad()` and the backward stops at the slice fusion.
+
 This is the port's only forward: configurations outside the gate raise
-instead of running a second composition. `remat`, frozen-encoder
+instead of running a second composition. `remat`, unfrozen SwiGLU
 training, int8 and the long-sequence flash path are later ROADMAP items.
 """
 
@@ -48,8 +52,8 @@ FUSED_MAX_TOKENS = 512
 def fused_config_supported(model) -> bool:
     """Whether `model` runs on the fused path: it is the port's
     `DinoSliceClassifier`, whose constructor refuses every configuration
-    outside the path (rotary or non-transformer fusion, SwiGLU), so
-    the model conditions of the JAX gate live there. There is no
+    outside the path (rotary or non-transformer fusion), so the model
+    conditions of the JAX gate live there. There is no
     `embed_dim % 128` clause: that was a Mosaic lane limit, and the port's
     CPU path takes any width (its CUDA kernels check their own shape
     limits)."""
@@ -78,6 +82,7 @@ class FastViTConfig:
     use_rope_2d: bool = False
     rope_theta: float = 100.0
     rope_normalized: bool = False
+    ffn_layer: str = "mlp"  # "mlp" | "swiglu" (giant2)
 
     @classmethod
     def from_model(cls, model) -> "FastViTConfig":
@@ -93,6 +98,7 @@ class FastViTConfig:
             use_pos_embed=hasattr(enc, "pos_embed"),
             use_rope_2d=enc.use_rope_2d, rope_theta=enc.rope_theta,
             rope_normalized=enc.rope_normalized,
+            ffn_layer=model.ffn_layer,
         )
 
 
@@ -159,10 +165,16 @@ def _cls_last_block(h, blk, cfg: FastViTConfig, rope_cos=None,
         y = y * blk.ls1.gamma.to(dt)
     c = h[:, 0] + y  # [N, E]
     cn = _ln(c, blk.norm2.scale, blk.norm2.bias, cfg.norm_eps).to(dt)
-    m = cn @ blk.mlp.fc1.kernel.to(dt) + blk.mlp.fc1.bias.to(dt)
-    m = torch.nn.functional.gelu(
-        m, approximate="tanh" if cfg.gelu_approximate else "none")
-    m = m @ blk.mlp.fc2.kernel.to(dt) + blk.mlp.fc2.bias.to(dt)
+    if cfg.ffn_layer == "swiglu":
+        h12 = cn @ blk.mlp.w12.kernel.to(dt) + blk.mlp.w12.bias.to(dt)
+        h1, h2 = h12.chunk(2, dim=-1)
+        m = (torch.nn.functional.silu(h1) * h2) @ blk.mlp.w3.kernel.to(dt) \
+            + blk.mlp.w3.bias.to(dt)
+    else:
+        m = cn @ blk.mlp.fc1.kernel.to(dt) + blk.mlp.fc1.bias.to(dt)
+        m = torch.nn.functional.gelu(
+            m, approximate="tanh" if cfg.gelu_approximate else "none")
+        m = m @ blk.mlp.fc2.kernel.to(dt) + blk.mlp.fc2.bias.to(dt)
     if blk.ls2 is not None:
         m = m * blk.ls2.gamma.to(dt)
     return c + m, row
@@ -248,7 +260,9 @@ def fused_mst_logits(model, source, src_key_padding_mask=None, dtype=None,
     logits [B, out_ch] f32. `model` is the port's DinoSliceClassifier (it
     holds the parameters); `dtype` defaults to `model.dtype`. `train=True`
     selects the residual-sharing train sub-layers (the loss backward runs
-    their backward kernels; valid because the model has no dropout)."""
+    their backward kernels; valid because the model has no dropout); for a
+    frozen model (`model.freeze`) the encoder runs on the serving
+    sub-layers under `torch.no_grad()` instead."""
     _check_fused(model, source)
     dtype = model.dtype if dtype is None else dtype
     return _fused_mst(model, source, src_key_padding_mask, dtype, train)[0]
@@ -302,13 +316,20 @@ def _fused_mst(model, source, src_key_padding_mask, dtype, train=False,
     """-> (logits, saliency data | None, fusion probs | None); with a
     `plane_mode` the encoder runs that saliency mode and the last fusion
     layer returns its probabilities [B, heads, 1+D, 1+D] f32."""
+    if train:
+        model.check_trainable(source.device)
     cfg = FastViTConfig.from_model(model)
     b, c, d, hh, ww = source.shape
     x = source.permute(0, 2, 3, 4, 1).reshape(b * d, hh, ww, c)
     if c == 1:
         x = x.expand(b * d, hh, ww, 3)  # gray -> RGB
     sal_data = fusion_probs = None
-    if plane_mode is None:
+    if plane_mode is None and train and model.freeze:
+        # mst_tpu/models/vit_fast.py:577-584: the encoder on the serving
+        # kernels (no residuals to save), no grad past its output
+        with torch.no_grad():
+            feats = fused_vit_cls(model.encoder, x, cfg, dtype)
+    elif plane_mode is None:
         feats = fused_vit_cls(model.encoder, x, cfg, dtype, train)
     else:
         feats, sal_data = fused_vit_cls(

@@ -35,6 +35,8 @@ _SIGNATURES = {
     # x, ln_s, ln_b, w, bias, out, h_out|NULL, out2|NULL, M, K, N, eps, act,
     # stream
     "mst_ln_gemm": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # x, ln_s, ln_b, w12, b12, out, M, K, F, eps, stream
+    "mst_ln_gemm_swiglu": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     # a, w, bias, ls|NULL, x, out, M, K, N, stream
     "mst_gemm_residual": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # qkv, out, lse|NULL, row|NULL, carry|NULL, carry_part, new_carry,

@@ -4,6 +4,8 @@ Counterpart of `mst_tpu/ops/fused_block.py` (plain flags):
 
 - `fused_attention_sublayer`: y = x + ls1 * proj(MHSA(LN1(x)))
 - `fused_mlp_sublayer`:       y = x + ls2 * fc2(gelu(fc1(LN2(x))))
+- `fused_swiglu_sublayer`:    y = x + ls2 * w3(silu(h1) * h2),
+  [h1 | h2] = w12(LN2(x)), the giant2 FFN (`_swiglu_kernel`)
 - `fused_attention_sublayer_train` / `fused_mlp_sublayer_train`: the same
   forwards as `torch.autograd.Function`s that save residuals (qkv, o, the
   base-2 log-sum-exp rows; the pre-activation) and run a hand-written
@@ -23,6 +25,8 @@ memory, so each sub-layer here is a short chain of CUDA kernels
 
 - attention: `ln_gemm` (LN + qkv) -> `mhsa` -> `gemm_residual` (proj + ls + x)
 - MLP:       `ln_gemm` (LN + fc1 + GELU) -> `gemm_residual` (fc2 + ls + x)
+- SwiGLU:    `ln_gemm_swiglu` (LN + w12 + gate) -> `gemm_residual` (w3 + ls
+  + x)
 - backward:  `gemm_dls` (ls grad), `gemm_wgrad` (weight and bias grads),
   `gemm_dgrad` (input grads, with the GELU' or the LN-pullback epilogue),
   `mhsa_bwd` (dq, dk, dv), chained by `_attn_train_bwd` / `_mlp_train_bwd`
@@ -31,10 +35,11 @@ Every kernel wrapper dispatches on the device of the tensor it is given: a
 CUDA tensor launches the kernel (bf16 only) and counts the launch; a CPU
 tensor takes the kernel's plain PyTorch version, which rounds to the
 working dtype at the same points as the kernel and the Pallas body (qkv
-after its bias, P before P.V, o / l, the GELU output, the residual sum in
-f32; in the train bodies also the pre-activation before its GELU, gz, do,
-p before dv, ds, dq / dk / dv, da). There is no fallback from one to the
-other. Each train sub-layer composes the kernel wrappers through an `ops`
+after its bias, P before P.V, o / l, the GELU output, the SwiGLU gate
+taken on the f32 h12, the residual sum in f32; in the train bodies also the
+pre-activation before its GELU, gz, do, p before dv, ds, dq / dk / dv,
+da). There is no fallback from one to the other. Each train sub-layer
+composes the kernel wrappers through an `ops`
 table (`KERNELS`), so the CPU runs the same composition on the plain
 versions, and `PLAIN` runs it on the plain versions on any device.
 
@@ -96,6 +101,15 @@ def _ln_gemm_ref(x, ln_s, ln_b, w, b, act: int, eps: float,
     if act != ACT_NONE:
         y = _gelu(y, act == ACT_GELU_TANH)
     return y.to(x.dtype)
+
+
+def _ln_gemm_swiglu_ref(x, ln_s, ln_b, w12, b12, eps: float):
+    """bf16(silu(h1) * h2) with [h1 | h2] = LN(x) @ w12 + b12 in f32: the
+    gate on the f32 h12, as `_swiglu_kernel` (the JAX XLA `_swiglu_ref`
+    rounds h12 to bf16 first; in f32 the two agree)."""
+    h = _ln(x, ln_s, ln_b, eps).to(x.dtype)
+    h1, h2 = (_mm(h, w12) + b12.float()).chunk(2, dim=-1)
+    return (h1 * torch.sigmoid(h1) * h2).to(x.dtype)
 
 
 def _has_rope(rope_cos, rope_sin) -> bool:
@@ -214,6 +228,15 @@ def _mlp_ref(x, ln_s, ln_b, w1, b1, w2, b2, ls, approximate, eps=1e-6):
     act = ACT_GELU_TANH if approximate else ACT_GELU_ERF
     h = _ln_gemm_ref(x2, ln_s, ln_b, w1.to(dt), b1, act, eps)
     return _gemm_residual_ref(h, w2.to(dt), b2, ls, x2).reshape(n, s, e)
+
+
+def _swiglu_ref(x, ln_s, ln_b, w12, b12, w3, b3, ls, eps=1e-6):
+    """The SwiGLU sub-layer with the kernels' rounding points."""
+    n, s, e = x.shape
+    dt = x.dtype
+    x2 = x.reshape(n * s, e)
+    g = _ln_gemm_swiglu_ref(x2, ln_s, ln_b, w12.to(dt), b12, eps)
+    return _gemm_residual_ref(g, w3.to(dt), b3, ls, x2).reshape(n, s, e)
 
 
 # -- plain versions of the backward kernels (`_attn_bwd_kernel`,
@@ -409,6 +432,29 @@ def ln_gemm(x, ln_s, ln_b, w, b, act: int, eps: float, train: bool = False):
     return (out, h, post) if train else out
 
 
+def ln_gemm_swiglu(x, ln_s, ln_b, w12, b12, eps: float):
+    """The gated FFN's first half: x [M, K], w12 [K, 2F] -> g [M, F] =
+    bf16(silu(h1) * h2), [h1 | h2] = LN(x) @ w12 + b12 in f32."""
+    if not _on_cuda(x):
+        return _ln_gemm_swiglu_ref(x, ln_s, ln_b, w12, b12, eps)
+    m, k = x.shape
+    f2 = w12.shape[1]
+    if k % 32 or k > 1536 or f2 % 128:
+        raise ValueError(f"ln_gemm_swiglu needs K % 32 == 0, K <= 1536 and "
+                         f"F % 64 == 0; got K={k}, F={f2 / 2:g}")
+    _mat(x, "x", (m, k), x)
+    _mat(w12, "w12", (k, f2), x)
+    ln_s, ln_b = _vec(ln_s, "ln_s", k, x), _vec(ln_b, "ln_b", k, x)
+    b12 = _vec(b12, "b12", f2, x)
+    out = torch.empty((m, f2 // 2), dtype=x.dtype, device=x.device)
+    err = _build.lib().mst_ln_gemm_swiglu(
+        x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), w12.data_ptr(),
+        b12.data_ptr(), out.data_ptr(), m, k, f2 // 2, float(eps), _stream(x))
+    _build.check(err, "mst_ln_gemm_swiglu")
+    ln_gemm_swiglu.launches += 1
+    return out
+
+
 # Largest S of `mhsa_abnar`: its block also keeps a [32, S] f32 head sum in
 # shared memory (csrc/mhsa.cu).
 ABNAR_MAX_S = 416
@@ -554,6 +600,10 @@ def gemm_dls(a, w, b, ls, g):
     return gz, dls
 
 
+# The one width of `gemm_dgrad`'s LN-pullback epilogue: a block of
+# csrc/gemm_dgrad.cu holds whole 384-wide rows for the row statistics.
+LN_PULLBACK_K = 384
+
 # Target blocks of one gemm_wgrad launch: its [K, N] output is only 9-72
 # tiles of 64 x 128 at ViT-S, so the M rows are split to fill the 132 SMs a
 # few blocks deep.
@@ -595,9 +645,10 @@ def gemm_dgrad(dy, w, a=None, act: int = ACT_NONE, ln=None):
         return _gemm_dgrad_ref(dy, w, a, act, ln)
     m, r = dy.shape
     k = w.shape[0]
-    if r % 32 or k % 128 or (ln is not None and k != 384):
+    if r % 32 or k % 128 or (ln is not None and k != LN_PULLBACK_K):
         raise ValueError(f"gemm_dgrad needs R % 32 == 0 and K % 128 == 0 (K "
-                         f"== 384 with the LN epilogue); got R={r}, K={k}")
+                         f"== {LN_PULLBACK_K} with the LN epilogue); got "
+                         f"R={r}, K={k}")
     _mat(dy, "dy", (m, r), dy)
     _mat(w, "w", (k, r), dy)
     out = torch.empty((m, k), dtype=dy.dtype, device=dy.device)
@@ -681,6 +732,19 @@ def fused_mlp_sublayer(x, ln_s, ln_b, w1, b1, w2, b2, ls, approximate,
     h = ln_gemm(x2, ln_s, ln_b, w1, b1, act, eps)
     y = gemm_residual(h, w2, b2, ls, x2)
     fused_mlp_sublayer.calls += 1
+    return y.reshape(n, s, e)
+
+
+def fused_swiglu_sublayer(x, ln_s, ln_b, w12, b12, w3, b3, ls, eps=1e-6):
+    """y = x + ls * w3(silu(h1) * h2), [h1 | h2] = w12(LN(x)), for x
+    [N, S, E]: the giant2 FFN (`_swiglu_kernel`, serving only)."""
+    if not _on_cuda(x):
+        return _swiglu_ref(x, ln_s, ln_b, w12, b12, w3, b3, ls, eps)
+    n, s, e = x.shape
+    x2 = x.reshape(n * s, e)
+    g = ln_gemm_swiglu(x2, ln_s, ln_b, w12, b12, eps)
+    y = gemm_residual(g, w3, b3, ls, x2)
+    fused_swiglu_sublayer.calls += 1
     return y.reshape(n, s, e)
 
 
@@ -792,11 +856,12 @@ def fused_attention_sublayer_rollout(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
 # The kernel wrappers (which take their plain versions on CPU tensors) and
 # the plain versions alone, under one set of names: the train compositions
 # below take one of them as `ops`.
-KERNELS = SimpleNamespace(ln_gemm=ln_gemm, mhsa=mhsa,
-                          gemm_residual=gemm_residual, gemm_dls=gemm_dls,
-                          gemm_wgrad=gemm_wgrad, gemm_dgrad=gemm_dgrad,
-                          mhsa_bwd=mhsa_bwd)
-PLAIN = SimpleNamespace(ln_gemm=_ln_gemm_ref, mhsa=_mhsa_ref,
+KERNELS = SimpleNamespace(ln_gemm=ln_gemm, ln_gemm_swiglu=ln_gemm_swiglu,
+                          mhsa=mhsa, gemm_residual=gemm_residual,
+                          gemm_dls=gemm_dls, gemm_wgrad=gemm_wgrad,
+                          gemm_dgrad=gemm_dgrad, mhsa_bwd=mhsa_bwd)
+PLAIN = SimpleNamespace(ln_gemm=_ln_gemm_ref,
+                        ln_gemm_swiglu=_ln_gemm_swiglu_ref, mhsa=_mhsa_ref,
                         gemm_residual=_gemm_residual_ref,
                         gemm_dls=_gemm_dls_ref, gemm_wgrad=_gemm_wgrad_ref,
                         gemm_dgrad=_gemm_dgrad_ref, mhsa_bwd=_mhsa_bwd_ref)
@@ -962,15 +1027,27 @@ def fused_mlp_sublayer_train(x, ln_s, ln_b, w1, b1, w2, b2, ls, approximate,
     return y
 
 
+def fused_swiglu_sublayer_train(x, ln_s, ln_b, w12, b12, w3, b3, ls,
+                                eps=1e-6):
+    """The residual-saving SwiGLU sub-layer (`_swiglu_train_kernel` and its
+    XLA backward) carries only the unfrozen giant2 train step, a later
+    slice."""
+    raise NotImplementedError(
+        "the SwiGLU train sub-layer (queue B row 6, `_swiglu_train_kernel`, "
+        "and its backward) is not ported to mst_tpu_torch yet: unfrozen "
+        "giant2 training is ROADMAP queue A #12; train with --freeze")
+
+
 # `.launches` of a kernel wrapper counts its kernel's launches and
 # `.rope_launches` those of its RoPE form (`<name>_rope` in
 # `launch_counts()`); `.calls` of a sub-layer counts the calls that ran its
 # kernel chain (it launches nothing itself). None moves on the CPU path.
 KERNEL_WRAPPERS = (ln_gemm, mhsa, gemm_residual, gemm_dls, gemm_wgrad,
                    gemm_dgrad, mhsa_bwd, mhsa_with_row, mhsa_rollout,
-                   mhsa_abnar)
+                   mhsa_abnar, ln_gemm_swiglu)
 ROPE_WRAPPERS = (mhsa, mhsa_with_row, mhsa_rollout, mhsa_abnar, mhsa_bwd)
 SUBLAYER_WRAPPERS = (fused_attention_sublayer, fused_mlp_sublayer,
+                     fused_swiglu_sublayer,
                      fused_attention_sublayer_train, fused_mlp_sublayer_train,
                      fused_attention_sublayer_with_row,
                      fused_attention_sublayer_rollout,

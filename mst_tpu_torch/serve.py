@@ -9,8 +9,8 @@ importing `mst_tpu` pulls in JAX. Run as
         [--host 127.0.0.1] [--port 8760] [--dtype bfloat16]
 
 It serves MST-DINOv2 ViT-S/14 (or the model of a `python -m
-mst_tpu_torch.train` run folder, `load_run_model`: MST-DINOv3 too) on the
-CUDA card.
+mst_tpu_torch.train` run folder, `load_run_model`: MST-DINOv3, or a frozen
+giant2 run, too) on the CUDA card.
 
 API:  POST /predict  (np.save bytes of a [C, D, H, W] float volume)
           -> {"probs": [...], "pred": argmax}
@@ -248,10 +248,6 @@ def load_run_model(run_folder, dtype=None):
     hparams = load_hparams(path_run) or {}
     name = hparams.get("model") or path_run.name.split("_")[0]
     model_kw = {k: v for k, v in hparams.items() if k in _HPARAM_KEYS}
-    if model_kw.pop("freeze", False):
-        raise NotImplementedError(
-            "frozen-encoder runs are not ported to mst_tpu_torch yet "
-            "(ROADMAP queue A #4)")
     model = get_model(name, dtype=dtype or torch.float32, **model_kw)
     return params_from_flax(model, load_best_params(path_run))
 

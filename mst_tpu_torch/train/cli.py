@@ -2,21 +2,24 @@
 
     python -m mst_tpu_torch.train --dataset Synthetic \
         [--model DinoV2ClassifierSlice | DinoV3ClassifierSlice] \
+        [--model_size small | base | large | giant2] [--freeze] \
         [--batch_size 2] [--max_epochs 1000] [--num_train_samples 2000] [--patience 10] \
         [--dtype bfloat16] [--seed 0] [--lr LR] [--run_dir runs] \
         [--use_bottleneck] [--use_slice_pos_emb] [--use_registers]
 
 It trains MST-DINOv2 ViT-S/14 (`--model DinoV3ClassifierSlice`: MST-DINOv3
-ViT-S/16 with 4 registers and 2D RoPE) on the CUDA card from seeded random
-weights (pretrained weights are not in the repository) with the reference's
-recipe: class-balanced weighted sampling, AdamW at the model's learning
+ViT-S/16 with 4 registers and 2D RoPE; `--model_size giant2 --freeze`:
+the giant2 encoder with its SwiGLU FFN, frozen, under a trained slice
+fusion and head) on the CUDA card from seeded random weights (pretrained
+weights are not in the repository) with the reference's recipe: class-balanced weighted sampling, AdamW at the model's learning
 rate, val/AUC_ROC early stopping, the top-1 checkpoint in
 `<run_dir>/<dataset>/<model>_<stamp>/epoch=N/params.npz`, which
 `python -m mst_tpu_torch.serve --params_npz` (DINOv2) or `--run_folder`
-(either model: the run's hparams record the model's options) serves. The
+(any model: the run's hparams record the model's options) serves. The
 flags keep their JAX names and defaults; the reference datasets (the
-default `LIDC` among them) and the flags of features not ported yet are
-ROADMAP queue A items.
+default `LIDC` among them), the flags of features not ported yet and an
+unfrozen encoder wider than ViT-S on the card (`DinoSliceClassifier.
+check_trainable`) are ROADMAP queue A items.
 `build_model`, `build_datamodule` and `build_trainer` are split from
 `main` so that tests and `chip_smoke.py` drive the CLI's own builders.
 """
@@ -44,6 +47,11 @@ def parse_args(argv=None):
                     help="only Synthetic is ported (the host data path of "
                          "the others is ROADMAP queue A #5)")
     ap.add_argument("--model", default="DinoV2ClassifierSlice")
+    ap.add_argument("--model_size", default="small",
+                    help="small | base | large | giant2 (SwiGLU FFN)")
+    ap.add_argument("--freeze", action="store_true",
+                    help="train the slice fusion and head on a frozen "
+                         "encoder (the encoder runs on the serving kernels)")
     ap.add_argument("--run_dir", default="runs")
     ap.add_argument("--batch_size", type=int, default=2)
     ap.add_argument("--max_epochs", type=int, default=1000)
@@ -61,10 +69,11 @@ def parse_args(argv=None):
 
 
 def model_kwargs(args) -> dict:
-    """The model options the flags set. The register count only with
+    """The model options the flags set, but for --model_size, which
+    `build_model` passes itself. The register count only with
     --use_registers, as the JAX CLI: otherwise the model's default stands
     (0 for DINOv2, 4 for DINOv3)."""
-    kw = dict(use_bottleneck=args.use_bottleneck,
+    kw = dict(freeze=args.freeze, use_bottleneck=args.use_bottleneck,
               use_slice_pos_emb=args.use_slice_pos_emb)
     if args.use_registers:
         kw["num_register_tokens"] = 4
@@ -72,11 +81,11 @@ def model_kwargs(args) -> dict:
 
 
 def build_model(args):
-    """-> args.model on the CUDA card in --dtype (parameters f32; the
-    trainer's `init_state` draws them)."""
+    """-> args.model at --model_size on the CUDA card in --dtype
+    (parameters f32; the trainer's `init_state` draws them)."""
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    return get_model(args.model, dtype=dtype, **model_kwargs(args)).to(
-        torch.device("cuda"))
+    return get_model(args.model, model_size=args.model_size, dtype=dtype,
+                     **model_kwargs(args)).to(torch.device("cuda"))
 
 
 def build_datamodule(args, device, **dataset_kw) -> DataModule:
@@ -105,8 +114,8 @@ def build_trainer(args, dm, run_dir=None) -> Trainer:
 
 
 def train(args, model, dm, trainer):
-    """Seeded weights, AdamW at the model's (or --lr) rate, fit. The
-    hparams record the model's own options (`model.config`), so that
+    """Seeded weights, AdamW at the model's (or --lr) rate (over the slice
+    fusion and head with --freeze), fit. The hparams record the model's own options (`model.config`), so that
     `serve.load_run_model` rebuilds the model that was trained."""
     entry = model_entry(args.model)
     lr = entry.learning_rate if args.lr is None else args.lr

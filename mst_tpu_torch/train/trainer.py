@@ -4,11 +4,13 @@ checkpoints.
 Counterpart of `mst_tpu/train/trainer.py` on one card, for the fused path
 (`make_train_step` of the standard DinoSliceClassifier configuration):
 
-- the step runs `fused_mst_logits(train=True)` (blocks 0-10 on the
-  residual-saving sub-layers, whose backward is a chain of hand-written
-  kernels), CE in f32, `loss.backward()`, and an AdamW update set up as
+- the step runs `fused_mst_logits(train=True)` (every block but the last
+  on the residual-saving sub-layers, whose backward is a chain of
+  hand-written kernels; a frozen encoder on the serving sub-layers under
+  `no_grad`), CE in f32, `loss.backward()`, and an AdamW update set up as
   optax `adamw` (b1 0.9, b2 0.999, eps 1e-8, decoupled weight decay on
-  every parameter, constant learning rate);
+  every parameter it holds, constant learning rate; with a frozen encoder
+  over the slice fusion and head only);
 - the eval step runs the serving forward under `torch.inference_mode()`;
 - `Trainer.fit` runs sanity val steps, the epoch loop (per-step results
   drained to the host every 64 steps, so no step waits for the card),
@@ -17,9 +19,9 @@ Counterpart of `mst_tpu/train/trainer.py` on one card, for the fused path
   `epoch=N/` checkpoint with `best_checkpoint.json`, and early stopping
   with patience and `min_epochs`.
 
-LR schedules, grad clipping, Adafactor, gradient accumulation, frozen
-encoders, `--remat` and the resumable `last` state are later ROADMAP items
-(queue A #4's remainder).
+LR schedules, grad clipping, Adafactor, gradient accumulation, `--remat`
+and the resumable `last` state are later ROADMAP items (queue A #4's
+remainder, #12).
 """
 
 from __future__ import annotations
@@ -54,9 +56,13 @@ def make_optimizer(params, learning_rate: float = 1e-6,
     """optax `adamw(learning_rate, weight_decay=weight_decay)`: one group,
     so the decay reaches every parameter (optax masks no leaf: biases, LN,
     LayerScale and the tokens decay too). PyTorch's default implementation;
-    the update is the same algebra: p -= lr * (m^ / (sqrt(v^) + eps) + wd * p)."""
-    return torch.optim.AdamW(list(params), lr=learning_rate,
-                             betas=(0.9, 0.999), eps=1e-8,
+    the update is the same algebra: p -= lr * (m^ / (sqrt(v^) + eps) + wd * p).
+
+    It holds the parameters that require grad: a frozen model's encoder
+    (`DinoSliceClassifier(freeze=True)`) does not, so it is neither stepped
+    nor decayed, as under the JAX `make_optimizer(freeze_encoder=True)`."""
+    return torch.optim.AdamW([p for p in params if p.requires_grad],
+                             lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
                              weight_decay=weight_decay)
 
 
@@ -74,7 +80,10 @@ class TrainState:
 def make_train_step(state: TrainState):
     """-> step(source, target, mask) -> (loss, logits), device tensors, no
     host synchronisation. One call is one optimizer update of
-    `state.model` in place."""
+    `state.model` in place. A frozen model (`model.freeze`) runs the frozen
+    path of `fused_mst_logits`; a model whose encoder the kernels cannot
+    train on its device raises there before any forward work
+    (`check_trainable`)."""
     model, optimizer = state.model, state.optimizer
 
     def step(source, target, mask=None):
@@ -123,10 +132,11 @@ class Trainer:
     def init_state(self, model, learning_rate: float = 1e-6,
                    weight_decay: float = 1e-2, seed: int = 0) -> TrainState:
         """Seeded random weights in the flax layout (pretrained weights are
-        not in the repository), and AdamW over them."""
+        not in the repository), and AdamW over them (over the slice fusion
+        and head for a frozen model)."""
         params_from_flax(model, random_flax_params(model, seed))
-        return TrainState(model, make_optimizer(model.parameters(),
-                                                learning_rate, weight_decay))
+        return TrainState(model, make_optimizer(
+            model.parameters(), learning_rate, weight_decay))
 
     def fit(self, state: TrainState, dm,
             hparams: Optional[Dict] = None) -> tuple:

@@ -49,6 +49,15 @@ loss, logits = make_train_step(state)(
     torch.from_numpy(vol.astype(np.float32)), torch.tensor([1]))
 assert bool(torch.isfinite(loss)) and logits.shape == (1, 2)
 assert not torch.equal(model.head.kernel.detach(), before)
+g2 = get_model("DinoV2ClassifierSlice", model_size="tiny128", fusion_heads=4,
+               ffn_layer="swiglu", freeze=True)
+params_from_flax(g2, random_flax_params(g2, 0))
+enc = [p.detach().clone() for p in g2.encoder.parameters()]
+state = TrainState(g2, make_optimizer(g2.parameters(), 1e-3))
+loss, _ = make_train_step(state)(
+    torch.from_numpy(vol.astype(np.float32)), torch.tensor([1]))
+assert bool(torch.isfinite(loss))
+assert all(torch.equal(a, b) for a, b in zip(enc, g2.encoder.parameters()))
 loaded = [m for m in sys.modules if m.split(".")[0] in
           ("jax", "jaxlib", "flax", "optax", "orbax", "mst_tpu")
           and sys.modules[m] is not None]
@@ -89,10 +98,14 @@ def test_cuda_sources_ship_and_build_dir_is_ignored():
 
 
 def test_unsupported_configs_raise():
-    for kw in (dict(rotary="RoPE"), dict(slice_fusion="average"),
-               dict(model_size="giant2"), dict(ffn_layer="swiglu")):
+    for kw in (dict(rotary="RoPE"), dict(rotary="LiRE"),
+               dict(slice_fusion="average"), dict(slice_fusion="linear")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             DinoSliceClassifier(**dict(TINY, **kw))
+    # an encoder the kernels cannot train yet: a SwiGLU one unfrozen
+    gated = DinoSliceClassifier(**dict(TINY, ffn_layer="swiglu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A #12"):
+        gated.check_trainable("cpu")
     for name in ("ResNet", "ResNetSliceTrans"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_model(name)
