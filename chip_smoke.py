@@ -95,7 +95,7 @@ FFN with F = 4096; S = 257), built by `python -m mst_tpu_torch.train
 23. saliency: the three plane modes and `MST_NO_CHEAP_LAST` at B=4, as
    phase 12;
 24. frozen training: the B=8 step's loss and every trainable grad vs the
-   plain path and the f32 step pooled over 8 batches, a planted fault the
+   plain path and the f64 step pooled over 8 batches, a planted fault the
    loss limit must see, no backward kernel launched; FIT_STEPS AdamW steps leave every encoder parameter bit for
    bit as it was; then the CLI's `train` -> run folder -> `serve
    --run_folder` -> `predict --use_tta --use_rollout --save_saliency`;
@@ -103,6 +103,35 @@ FFN with F = 4096; S = 257), built by `python -m mst_tpu_torch.train
    B=8 path shape against their plain versions, bounds and library calls;
    B=8 vol/s of serving, each plane mode and the frozen train step, peak
    memory, a `torch.profiler` breakdown of a forward.
+
+Phases 26-30 drive unfrozen encoder training at the widths the reference
+fine-tunes: DINOv2 ViT-B/14 (E 768, 12 heads), ViT-L/14 (E 1024, 16 heads,
+24 blocks) and giant2 with `--remat`:
+
+26. kernels: queue B row 6 (`ln_gemm_swiglu`'s train mode: h, h12 and the
+   gate of the rounded h12), `gemm_dgrad`'s SiLU-gate epilogue, the LN
+   pullback at K = 768, 1024 and 1536 (the GEMM's f32 dh, then
+   `ln_pullback`), the rest of the SwiGLU backward chain, the SwiGLU train
+   sub-layer and the attention and MLP train sub-layers at E = 768 / 1024
+   (attention also at 1536) against their plain versions at the B=8 path
+   shapes [256, 257, E], each run twice for the same bits; C1: `mhsa_abnar`
+   with and without RoPE at S = 442 (ViT-S/14 on 294 px slices, the 16-row
+   query tile) and the `rollout_abnar` saliency forward there vs plain;
+   then the times of row 6's kernels and chain, the new `gemm_dgrad` modes
+   and those sub-layers against their plain versions, bounds and library
+   calls (timed here, so that the steps after have the room of their
+   inputs);
+27. the unfrozen ViT-B and ViT-L steps at B=8, built by the train CLI's
+   builders: loss and grads vs the plain sub-layers and the f64 oracle
+   (the plain step in f64), pooled over 4 batches, launch counts, AdamW
+   steps on one batch;
+28. the unfrozen giant2 step with remat from phase 22's draw: the same
+   checks at B=2 with a planted SwiGLU fault, launch counts with each
+   block's forward run twice, the B=8 step and its peak memory;
+29. `train --model_size giant2 --remat` for one epoch -> run folder ->
+   `serve --run_folder` gives the eval step's probs;
+30. times: the B=8 steps of ViT-B, ViT-L and giant2 (remat): ms, vol/s,
+   peak memory, a `torch.profiler` breakdown of each.
 
 Each phase prints its wall time. The line before the last is `{"kernels":
 [...]}`: per kernel its launches on the main path, its largest error, its
@@ -182,6 +211,23 @@ STEP_BATCHES = 4
 # the fault above it (the readings are in PERF.md).
 STEP_BATCHES_G = 8
 GIANT2_LOSS_TOL = 0.01
+# Unfrozen steps (phases 27-28) are held against the plain step in f64 (the
+# oracle), pooled over STEP_BATCHES batches: ViT-B and ViT-L at B=8 to
+# phase 8's limits; giant2 (with remat) at B=STEP_B_G, which keeps its f64
+# oracle short, to the ratio limit STEP_F32_RATIO and to limits of its own on
+# the kernel-vs-plain spread. At B=2 either bf16 path lies 0.028-0.031 from
+# the f64 loss and up to 1.0 x |grad|max from the f64 grads of the fusion
+# layer's linear1 (its ReLU flips between any two bf16 paths): on an H100
+# the kernel path's loss read 0.023 from the plain path's (largest batch
+# 0.045), its worst grad 1.09, and a planted fault (the SwiGLU gate off by
+# one column) moved the loss by 0.54 (smallest batch 0.43); the limits lie
+# between (the readings are in PERF.md). FIT_STEPS_U AdamW steps at
+# FIT_LR_U on one batch must lower the loss (at phase 8's 1e-4 ViT-L's
+# loss oscillates: 0.93, 8.5, 0.33, 5.2).
+STEP_B_G = 2
+GIANT2_U_LOSS_TOL = 0.1
+GIANT2_U_GRAD_REL = 2.0
+FIT_STEPS_U, FIT_LR_U = 4, 1e-5
 # Saliency phases (11-14). A saliency map is compared relative to its
 # largest value; the limits are a few times the largest reading on an H100
 # with these seeded inputs (the readings are in PERF.md).
@@ -410,7 +456,9 @@ def train_sublayer_outputs(fb, kind, ops, x, args, g):
     fn, fwd = {"attn": (fb.fused_attention_sublayer_train, fb._attn_train_fwd),
                "attn_rope": (fb.fused_attention_sublayer_train_rope,
                              fb._attn_train_fwd),
-               "mlp": (fb.fused_mlp_sublayer_train, fb._mlp_train_fwd)}[kind]
+               "mlp": (fb.fused_mlp_sublayer_train, fb._mlp_train_fwd),
+               "swiglu": (fb.fused_swiglu_sublayer_train,
+                          fb._swiglu_train_fwd)}[kind]
     tables = args[7:9] if kind == "attn_rope" else ()
     xx = x.clone().requires_grad_(True)
     aa = [a if any(a is t for t in tables) else
@@ -950,7 +998,7 @@ def main() -> int:
         """Route the blocks' train sub-layers to the plain chain on the card."""
         names = ("fused_attention_sublayer_train",
                  "fused_attention_sublayer_train_rope",
-                 "fused_mlp_sublayer_train")
+                 "fused_mlp_sublayer_train", "fused_swiglu_sublayer_train")
         saved = {k: getattr(layers, k) for k in names}
         for k in names:
             setattr(layers, k, functools.partial(getattr(fb, k), ops=fb.PLAIN))
@@ -961,9 +1009,12 @@ def main() -> int:
                 setattr(layers, k, fn)
 
     def loss_and_grads(m_, src_, tgt_, dtype=None):
+        """(loss, every grad) of one train step's forward and backward; in
+        f64 (the oracle) the CE stays in f64."""
         m_.zero_grad(set_to_none=True)
-        loss = cross_entropy_loss(fused_mst_logits(
-            m_, src_, None, dtype=dtype, train=True), tgt_)
+        logits = fused_mst_logits(m_, src_, None, dtype=dtype, train=True)
+        loss = (F.cross_entropy(logits, tgt_) if dtype == torch.float64
+                else cross_entropy_loss(logits, tgt_))
         loss.backward()
         torch.cuda.synchronize()
         return loss.item(), {n: q.grad.detach().clone()
@@ -988,16 +1039,19 @@ def main() -> int:
 
     def check_step(what, mdl, batches, want, want_calls,
                    plain=plain_train_sublayers, loss_tol=STEP_LOSS_TOL,
-                   fault=None):
+                   fault=None, oracle=torch.float32, grad_tol=STEP_GRAD_REL):
         """The train step's loss and every grad on the kernels against the
         plain sub-layers (`plain`: the train ones, or for a frozen encoder
-        the serving ones) and the f32 step, over `batches` [(src, tgt)]
-        pooled: the mean |loss| difference, the worst grad difference, and
-        the summed medians and maxima of each path's grad errors vs f32.
+        the serving ones) and the oracle, the plain step in `oracle` (f32,
+        or f64 with the model's residuals rebuilt block by block, remat,
+        so that it fits), over `batches` [(src, tgt)] pooled: the mean
+        |loss| difference, the worst grad difference, and the summed
+        medians and maxima of each path's grad errors vs the oracle.
         `fault`, a routing of the plain path with a planted fault, must move
         the loss from the plain path's by more than `loss_tol` on average:
         the limit would fail a wrong kernel. Returns the launch counts of
         the first step (the main path)."""
+        oname = str(oracle)[6:]
         d_loss, d_k32, d_p32, worst_rel, meds, maxes = [], [], [], 0.0, [], []
         d_fault = []
         for i, (bsrc, btgt) in enumerate(batches):
@@ -1008,8 +1062,13 @@ def main() -> int:
                 first = counts
             with plain():
                 loss_p, grads_p = loss_and_grads(mdl, bsrc, btgt)
-                loss_32, grads_32 = loss_and_grads(mdl, bsrc, btgt,
-                                                   torch.float32)
+                remat = mdl.remat
+                mdl.remat = remat or oracle == torch.float64
+                try:
+                    loss_32, grads_32 = loss_and_grads(mdl, bsrc, btgt,
+                                                       oracle)
+                finally:
+                    mdl.remat = remat
             faulty = ""
             if fault is not None:
                 with fault(), torch.no_grad():
@@ -1029,10 +1088,10 @@ def main() -> int:
             maxes.append((max(rel_k32.values()), max(rel_p32.values())))
             print(f"{tag} {what} {list(bsrc.shape)}, batch {i}: "
                   f"loss kernel path {loss_k:.6g}, plain path {loss_p:.6g}, "
-                  f"f32 plain path {loss_32:.6g}{faulty}; launches {counts}; "
-                  f"sublayer calls {calls}")
+                  f"{oname} plain path {loss_32:.6g}{faulty}; launches "
+                  f"{counts}; sublayer calls {calls}")
             print(f"{tag} {what} grads, batch {i}, |kernel - plain| / "
-                  f"|plain|max: {summary(rel)}; vs the f32 step: kernel path "
+                  f"|plain|max: {summary(rel)}; vs the {oname} step: kernel path "
                   f"{summary(rel_k32)}; plain path {summary(rel_p32)}; kernel "
                   f"/ plain: median {meds[-1][0] / meds[-1][1]:.4g}, max "
                   f"{maxes[-1][0] / maxes[-1][1]:.4g}")
@@ -1047,10 +1106,10 @@ def main() -> int:
         print(f"{tag} {what} over {len(batches)} batch(es): mean |loss "
               f"kernel - plain| {d_mean:.6g} (limit {loss_tol}; largest "
               f"batch {max(d_loss):.6g}); mean |loss "
-              f"- f32 loss| kernel path {statistics.mean(d_k32):.6g}, plain "
-              f"path {statistics.mean(d_p32):.6g}; worst "
-              f"grad kernel vs plain {worst_rel:.6g} (limit {STEP_GRAD_REL}); "
-              f"grads vs f32, kernel / plain path, pooled: median "
+              f"- {oname} loss| kernel path {statistics.mean(d_k32):.6g}, "
+              f"plain path {statistics.mean(d_p32):.6g}; worst "
+              f"grad kernel vs plain {worst_rel:.6g} (limit {grad_tol}); "
+              f"grads vs {oname}, kernel / plain path, pooled: median "
               f"{med_ratio:.4g}, max {max_ratio:.4g} (limit {STEP_F32_RATIO} "
               f"each)")
         check(d_mean <= loss_tol, f"{what} loss: {d_loss}")
@@ -1061,10 +1120,11 @@ def main() -> int:
                   f"{min(d_fault):.6g}; must exceed the limit {loss_tol})")
             check(f_mean > loss_tol, f"{what}: the loss limit {loss_tol} "
                   f"would pass a planted fault: {d_fault}")
-        check(worst_rel <= STEP_GRAD_REL,
-              f"{what} grads vs plain {worst_rel} > {STEP_GRAD_REL}")
+        check(worst_rel <= grad_tol,
+              f"{what} grads vs plain {worst_rel} > {grad_tol}")
         check(med_ratio <= STEP_F32_RATIO and max_ratio <= STEP_F32_RATIO,
-              f"{what} grads vs f32: kernel / plain {med_ratio} / {max_ratio}")
+              f"{what} grads vs {oname}: kernel / plain {med_ratio} / "
+              f"{max_ratio}")
         return first
 
     per_step = {**zero, "ln_gemm": 2 * n_blocks, "mhsa": n_blocks,
@@ -1077,14 +1137,14 @@ def main() -> int:
     step_counts = check_step("train step", tmodel, [(src, tgt)], per_step,
                              calls_per_step)
 
-    def fit_losses(m_, src_, tgt_):
-        """FIT_STEPS AdamW steps on the one batch from m_'s weights, which
-        are put back afterwards."""
+    def fit_losses(m_, src_, tgt_, steps=FIT_STEPS, lr=FIT_LR):
+        """`steps` AdamW steps at `lr` on the one batch from m_'s weights,
+        which are put back afterwards."""
         start = {n: q.detach().clone() for n, q in m_.named_parameters()}
         step = make_train_step(TrainState(m_, make_optimizer(
-            m_.parameters(), FIT_LR)))
+            m_.parameters(), lr)))
         losses = [float(v) for v in [step(src_, tgt_)[0]
-                                     for _ in range(FIT_STEPS)]]
+                                     for _ in range(steps)]]
         with torch.no_grad():
             for n, q in m_.named_parameters():
                 q.copy_(start[n])
@@ -1658,6 +1718,9 @@ def main() -> int:
                                                       wqkv.t()),
     })
     library["ln_gemm_train[qkv,S=201]"] = library["ln_gemm[qkv,S=201]"]
+    library["mlp_sublayer[S=201,eps=1e-5,tanh,ls]"] = lambda: torch.addmm(
+        b2.to(bf), F.gelu(torch.addmm(b1.to(bf), F.layer_norm(
+            x32, (E,), ln_w3, ln_b3, EPS3), w1), approximate="tanh"), w2)
     with torch.inference_mode():
         for name, (kern, plain) in {**rcases, **rsub, **rchain}.items():
             k, pl = kern(), plain()
@@ -2042,7 +2105,8 @@ def main() -> int:
     stepg_counts = check_step("giant2 frozen train step", gmodel,
                               step_batches_g, per_fwd_g, calls_per_fwd_g,
                               plain=plain_sublayers,
-                              loss_tol=GIANT2_LOSS_TOL, fault=gate_fault)
+                              loss_tol=GIANT2_LOSS_TOL, fault=gate_fault,
+                              oracle=torch.float64)
     # FIT_STEPS AdamW steps on one batch: the loss falls, the encoder stays
     start = {n: q.detach().clone() for n, q in gmodel.named_parameters()}
     fstep = make_train_step(gstate)
@@ -2099,7 +2163,6 @@ def main() -> int:
     finally:
         trainer_mod.random_flax_params = saved_draw
         trainer_mod.save_checkpoint = saved_save
-    del flatg  # 4.3 GiB of host memory
     npz_g = best_params_path(rung)
     hpg = json.loads((rung / f"epoch={resultg.best_epoch}.hparams.json"
                       ).read_text())
@@ -2162,6 +2225,433 @@ def main() -> int:
     del kstepg
 
 
+    # ======================================================================
+    # Unfrozen encoder training: DINOv2 ViT-B/14 (E 768, 12 heads, 12
+    # blocks), ViT-L/14 (E 1024, 16 heads, 24 blocks) and giant2 with
+    # --remat; queue B row 6 and the LN pullback at E != 384.
+    # ======================================================================
+    # -- 26. row 6, the new gemm_dgrad modes, the train sub-layers at E =
+    # 768 / 1024 / 1536 vs plain; C1: mhsa_abnar at S = 442; their times --
+    stamp(tag, "26")
+    del gmodel, predict_g  # phase 28 builds the unfrozen giant2 anew
+    torch.cuda.empty_cache()
+    # row 6 at the giant2 B=8 path shape, each input from the plain chain
+    h12_in, hg_in, gate_in = fb._ln_gemm_swiglu_ref(xg2, lng_s, lng_b, w12,
+                                                    b12, eps, True)
+    gzg = rand(MG, EG, dtype=bf)  # upstream gradient
+    dh12_in = fb._gemm_dgrad_ref(gzg, w3, h12_in, fb.ACT_SWIGLU)
+    dhg_in = fb._mm(dh12_in, w12.t())  # the f32 dh of the wide LN route
+    ucases = {
+        "ln_gemm_swiglu_train[w12]": pair(
+            fb.ln_gemm_swiglu, fb._ln_gemm_swiglu_ref, xg2, lng_s, lng_b, w12,
+            b12, eps, True),
+        "gemm_dls[w3]": pair(fb.gemm_dls, fb._gemm_dls_ref, gate_in, w3, b3,
+                             lsg, gzg),
+        "gemm_wgrad[w3]": pair(fb.gemm_wgrad, fb._gemm_wgrad_ref, gate_in,
+                               gzg),
+        "gemm_dgrad_swiglu[w3]": pair(fb.gemm_dgrad, fb._gemm_dgrad_ref, gzg,
+                                      w3, h12_in, fb.ACT_SWIGLU),
+        "gemm_wgrad[w12]": pair(fb.gemm_wgrad, fb._gemm_wgrad_ref, hg_in,
+                                dh12_in),
+        "gemm_dgrad[w12,ln]": pair(fb.gemm_dgrad, fb._gemm_dgrad_ref,
+                                   dh12_in, w12, None, fb.ACT_NONE,
+                                   (xg2, gzg, lng_s, eps)),
+        "ln_pullback[E=1536]": pair(fb.ln_pullback, fb._ln_pullback_ref,
+                                    dhg_in, xg2, gzg, lng_s, eps),
+    }
+    cost.update({
+        # + h [M, E] and h12 [M, 2F] written beside g
+        "ln_gemm_swiglu_train[w12]": (
+            swiglu_cost[0], swiglu_cost[1] + 2 * MG * (EG + 2 * FG)),
+        "gemm_dls[w3]": mm_cost(MG, FG, EG, 2 * MG * EG + 4 * 3 * EG),
+        "gemm_wgrad[w3]": wgrad_cost(MG, FG, EG),
+        "gemm_dgrad_swiglu[w3]": mm_cost(MG, EG, FG, 2 * MG * 2 * FG
+                                         + 2 * MG * FG),
+        "gemm_wgrad[w12]": wgrad_cost(MG, EG, 2 * FG),
+        "gemm_dgrad[w12,ln]": mm_cost(MG, 2 * FG, EG,
+                                      4 * MG * EG + 4 * 3 * EG),
+        # dh f32 in, x and g in, dx out, dln_s and dln_b out
+        "ln_pullback[E=1536]": (10 * MG * EG, 4 * MG * EG + 3 * 2 * MG * EG
+                                + 4 * 3 * EG),
+    })
+
+    def ln_backward_library(dh, x_, lns_):
+        """`native_layer_norm_backward` (dx, dln_s, dln_b from dh and the
+        saved statistics): the one library call of the LN pullback."""
+        xf = x_.float()
+        _, mean, rstd = torch.ops.aten.native_layer_norm(
+            xf, (x_.shape[1],), lns_, None, eps)
+        return functools.partial(torch.ops.aten.native_layer_norm_backward,
+                                 dh, xf, (x_.shape[1],), mean, rstd, lns_,
+                                 torch.zeros_like(lns_), [True, True, True])
+
+    library.update({
+        "ln_gemm_swiglu_train[w12]": swiglu_library,
+        "gemm_dls[w3]": functools.partial(torch.matmul, gate_in, w3),
+        "gemm_wgrad[w3]": functools.partial(torch.matmul, gate_in.t(), gzg),
+        "gemm_dgrad_swiglu[w3]": functools.partial(torch.matmul, gzg, w3.t()),
+        "gemm_wgrad[w12]": functools.partial(torch.matmul, hg_in.t(),
+                                             dh12_in),
+        "gemm_dgrad[w12,ln]": functools.partial(torch.matmul, dh12_in,
+                                                w12.t()),
+        "ln_pullback[E=1536]": ln_backward_library(dhg_in, xg2, lng_s),
+    })
+    # the LN pullback of the MLP backward at ViT-B / ViT-L widths (the fused
+    # route keeps K = 384), and each train sub-layer at its model's width
+    usub = {}
+    for e_, heads_ in ((768, 12), (1024, 16)):
+        xw = rand(N_SLICES, S, e_, dtype=bf)
+        gw = rand(N_SLICES, S, e_, dtype=bf)
+        lw_s, lw_b = rand(e_, scale=0.1, off=1.0), rand(e_, scale=0.1)
+        w1w, b1w = (rand(e_, 4 * e_, scale=e_ ** -0.5, dtype=bf),
+                    rand(4 * e_, scale=0.1))
+        w2w, b2w = (rand(4 * e_, e_, scale=(4 * e_) ** -0.5, dtype=bf),
+                    rand(e_, scale=0.1))
+        wqw, bqw = (rand(e_, 3 * e_, scale=e_ ** -0.5, dtype=bf),
+                    rand(3 * e_, scale=0.1))
+        wpw, bpw = rand(e_, e_, scale=e_ ** -0.5, dtype=bf), rand(e_, scale=0.1)
+        lsw = rand(e_, scale=0.1, off=1.0)
+        x2w, g2w = xw.reshape(MG, e_), gw.reshape(MG, e_)
+        aw, _, _ = fb._ln_gemm_ref(x2w, lw_s, lw_b, w1w, b1w, tanh, eps,
+                                   train=True)
+        daw = fb._gemm_dgrad_ref(g2w, w2w, a=aw, act=tanh)
+        lnw = (x2w, g2w, lw_s, eps)
+        ucases[f"gemm_dgrad[fc1,ln,E={e_}]"] = pair(
+            fb.gemm_dgrad, fb._gemm_dgrad_ref, daw, w1w, None, fb.ACT_NONE,
+            lnw)
+        cost[f"gemm_dgrad[fc1,ln,E={e_}]"] = mm_cost(
+            MG, 4 * e_, e_, 4 * MG * e_ + 4 * 3 * e_)
+        library[f"gemm_dgrad[fc1,ln,E={e_}]"] = functools.partial(
+            torch.matmul, daw, w1w.t())
+        dhw = fb._mm(daw, w1w.t())
+        ucases[f"ln_pullback[E={e_}]"] = pair(
+            fb.ln_pullback, fb._ln_pullback_ref, dhw, *lnw)
+        library[f"ln_pullback[E={e_}]"] = ln_backward_library(dhw, x2w, lw_s)
+        cost[f"ln_pullback[E={e_}]"] = (10 * MG * e_, 4 * MG * e_
+                                        + 3 * 2 * MG * e_ + 4 * 3 * e_)
+        usub[f"attention_sublayer_train[E={e_},ls]"] = (
+            "attn", xw, gw, (lw_s, lw_b, wqw.float(), bqw, wpw.float(), bpw,
+                             lsw, heads_, eps))
+        usub[f"mlp_sublayer_train[E={e_},tanh,ls]"] = (
+            "mlp", xw, gw, (lw_s, lw_b, w1w.float(), b1w, w2w.float(), b2w,
+                            lsw, True, eps))
+        del aw, daw, dhw
+    gzg3 = gzg.reshape(N_SLICES, S, EG)
+    usub["attention_sublayer_train[E=1536,ls]"] = (
+        "attn", xg, gzg3, (lng_s, lng_b, wqkvg.float(), bqkvg, wpg.float(),
+                           bpg, lsg, HG, eps))
+    for label, lsv in (("ls", lsg), ("no_ls", None)):
+        usub[f"swiglu_sublayer_train[{label}]"] = (
+            "swiglu", xg, gzg3, (lng_s, lng_b, w12.float(), b12, w3.float(),
+                                 b3, lsv, eps))
+    print(f"{tag} unfrozen-training kernels at the B=8 path shapes [{N_SLICES},"
+          f" {S}, E], E = 768 / 1024 / 1536 (12 / 16 / 24 heads; giant2 F = "
+          f"{FG}): tolerances as phase 7 (bf16 2 ulps; f32 {KERNEL_GRAD_REL} "
+          f"x |plain|max for one kernel, {SUBLAYER_GRAD_REL} x for a "
+          f"sub-layer's chain), every output repeated bit for bit")
+    for name, (kern, plain) in ucases.items():
+        k, pl = kern(), plain()
+        again = kern()
+        torch.cuda.synchronize()
+        errs[name] = check_outputs(tag, f"unfrozen {name}", k, pl,
+                                   KERNEL_GRAD_REL)
+        k, again = ((k, again) if isinstance(k, tuple) else ((k,), (again,)))
+        same = all(torch.equal(a, b) for a, b in zip(k, again))
+        print(f"{tag} unfrozen {name}: two runs equal bit for bit: {same}")
+        check(same, f"{name}: two runs differ")
+    del k, pl, again
+    print(f"{tag} unfrozen train sub-layers: (y, residuals, dx, grads) of the "
+          f"kernel chain vs the plain chain (SwiGLU: y h h12 g dx dln_s dln_b "
+          f"dw12 db12 dw3 db3 [dls])")
+    for name, (kind, xw, gw, sargs) in usub.items():
+        k = train_sublayer_outputs(fb, kind, fb.KERNELS, xw, sargs, gw)
+        again = train_sublayer_outputs(fb, kind, fb.KERNELS, xw, sargs, gw)
+        pl = train_sublayer_outputs(fb, kind, fb.PLAIN, xw, sargs, gw)
+        torch.cuda.synchronize()
+        errs[name] = check_outputs(tag, f"unfrozen sublayer {name}", k, pl,
+                                   SUBLAYER_GRAD_REL)
+        same = all(torch.equal(a, b) for a, b in zip(k, again)
+                   if a is not None)
+        print(f"{tag} unfrozen sublayer {name}: two runs equal bit for bit: "
+              f"{same}")
+        check(same, f"{name}: two runs differ")
+        del k, pl, again
+    # C1: the Abnar factor at S = 442 (ViT-S/14 on 294 px slices), where the
+    # 16-row query tile takes over
+    s442, px442 = 442, 294
+    check(fb.abnar_query_tile(s442) == 16, "the S = 442 Abnar tile")
+    qkv442 = rand(N_SLICES * s442, 3 * E, dtype=bf)
+    cos442, sin442 = rope_tables((21, 21), 64, 1, 100.0, True, dev)
+    c1cases = {
+        "mhsa_abnar[S=442]": (
+            lambda: fb.mhsa_abnar(qkv442, N_SLICES, s442, HEADS),
+            lambda: fb._mhsa_ref(qkv442, N_SLICES, s442, HEADS,
+                                 want_abnar=True)),
+        "mhsa_abnar_rope[S=442]": (
+            lambda: fb.mhsa_abnar(qkv442, N_SLICES, s442, HEADS, cos442,
+                                  sin442),
+            lambda: fb._mhsa_ref(qkv442, N_SLICES, s442, HEADS,
+                                 want_abnar=True, rope_cos=cos442,
+                                 rope_sin=sin442)),
+    }
+    with torch.inference_mode():
+        for name, (kern, plain) in c1cases.items():
+            k, pl = kern(), plain()
+            again = kern()
+            torch.cuda.synchronize()
+            errs[name] = check_outputs(tag, f"C1 {name}", k, pl,
+                                       KERNEL_GRAD_REL)
+            same = all(torch.equal(a, b) for a, b in zip(k, again))
+            print(f"{tag} C1 {name}: two runs equal bit for bit: {same}")
+            check(same, f"{name}: two runs differ")
+        del k, pl, again, qkv442
+        vols442 = torch.from_numpy(rng.standard_normal(
+            (2, 1, DEPTH_SLICES, px442, px442), dtype=np.float32)).to(dev)
+        fb.reset_launch_counts()
+        pk, sk = saliency("rollout_abnar", vols=vols442)
+        counts = fb.launch_counts()
+        with plain_sublayers():
+            pp, sp_ = saliency("rollout_abnar", vols=vols442)
+    want442, _ = block_counts(n_full, "mhsa_abnar",
+                              "fused_attention_sublayer_abnar")
+    d_p, d_s = (pk - pp).abs().max().item(), sal_rel(sk, sp_)
+    print(f"{tag} C1 rollout_abnar saliency at S = {s442} "
+          f"{list(vols442.shape)}: |probs - plain| {d_p:.6g} (limit "
+          f"{PROB_TOL}), saliency vs plain {d_s:.6g} (limit {SAL_REL}); "
+          f"launches {counts}")
+    check(tuple(sk.shape) == (2, DEPTH_SLICES, px442, px442)
+          and bool(torch.isfinite(sk).all()), f"C1 saliency {sk.shape}")
+    check(d_p <= PROB_TOL and d_s <= SAL_REL, f"C1 saliency: {d_p} / {d_s}")
+    check(counts == want442, f"C1 launches {counts} != {want442}")
+    del vols442, pk, sk, pp, sp_
+    # their times here, so that the steps of phases 27-30 have the room of
+    # these inputs (the ViT-L step's checks peak near 70 GiB)
+    utimed = {name: (time_ms(kern), time_ms(plain))
+              for name, (kern, plain) in ucases.items()}
+    lib_ms.update({name: time_ms(fn) for name, fn in library.items()
+                   if name not in lib_ms})
+    for name, (km, pm_) in utimed.items():
+        lib = f", library {lib_ms[name]:.4f} ms" if name in lib_ms else ""
+        print(f"{tag} time {name}: kernel {km:.4f} ms, plain {pm_:.4f} ms"
+              f"{lib}")
+    for name, (kind, xw, gw, sargs) in usub.items():
+        fn = {"attn": fb.fused_attention_sublayer_train,
+              "mlp": fb.fused_mlp_sublayer_train,
+              "swiglu": fb.fused_swiglu_sublayer_train}[kind]
+        for label, ops in (("kernel", fb.KERNELS), ("plain", fb.PLAIN)):
+            ms = time_ms(lambda: fn(xw.detach().requires_grad_(True), *sargs,
+                                    ops=ops).backward(gw), n=5)
+            print(f"{tag} time {name} forward + backward: {label} "
+                  f"{ms:.4f} ms")
+    del (usub, ucases, h12_in, hg_in, gate_in, gzg, dh12_in, dhg_in, gzg3,
+         xw, gw, x2w, g2w, lnw, sargs)
+    library.clear()
+    torch.cuda.empty_cache()
+
+    # -- 27. the unfrozen ViT-B/14 and ViT-L/14 steps at B=8 --------------
+    stamp(tag, "27")
+
+    def unfrozen_counts(nb, swiglu=False, remat=False):
+        """(launches, sub-layer calls) of one unfrozen train step over nb
+        kernel blocks at E != 384 (the LN pullback through `ln_pullback`);
+        with remat the backward runs each block's forward again, whose FFN
+        sub-layer launches its kernels but returns no call: the checkpoint
+        stops the recompute as that sub-layer saves the block's last
+        residual (torch's early stop)."""
+        fwd = 2 if remat else 1
+        counts, calls = dict(zero), dict(zero_calls)
+        counts.update({"ln_gemm": fwd * nb * (1 if swiglu else 2),
+                       "mhsa": fwd * nb, "gemm_residual": 2 * fwd * nb,
+                       "gemm_dls": 2 * nb, "gemm_wgrad": 4 * nb,
+                       "gemm_dgrad": (3 if swiglu else 4) * nb,
+                       "mhsa_bwd": nb, "ln_pullback": 2 * nb})
+        if swiglu:
+            counts["ln_gemm_swiglu_train"] = fwd * nb
+            counts["gemm_dgrad_swiglu"] = nb
+        calls["fused_attention_sublayer_train"] = fwd * nb
+        calls["fused_swiglu_sublayer_train" if swiglu
+              else "fused_mlp_sublayer_train"] = nb
+        return counts, calls
+
+    def unfrozen_model(size, extra=()):
+        """The train CLI's model at --model_size `size` from a seeded draw,
+        O(1) LayerScale, and STEP_BATCHES B=8 batches of its data module."""
+        uargs = cli.parse_args(["--dataset", "Synthetic", "--model_size", size,
+                                "--batch_size", str(BATCH), "--max_epochs",
+                                "1", "--num_train_samples", str(BATCH),
+                                "--seed", str(SEED), *extra])
+        m_ = cli.build_model(uargs)
+        params_from_flax(m_, random_flax_params(m_, SEED))
+        with torch.no_grad():
+            for n_, q in m_.named_parameters():
+                if n_.endswith(".gamma"):
+                    q.copy_(torch.from_numpy(1.0 + 0.1 * rng.standard_normal(
+                        tuple(q.shape))).to(q))
+        dm_ = cli.build_datamodule(uargs, dev, num_samples=STEP_BATCHES * BATCH,
+                                   shape_cdhw=(1, DEPTH_SLICES, PX, PX))
+        b0 = next(iter(dm_.train_dataloader()))
+        batches = [(b0["source"], torch.from_numpy(b0["target"]).to(
+            dev, torch.long))] + [
+            (b["source"], torch.from_numpy(b["target"]).to(dev, torch.long))
+            for b in itertools.islice(dm_.val_dataloader(), STEP_BATCHES - 1)]
+        return uargs, m_, batches
+
+    def check_unfrozen_fit(what, mdl, src_, tgt_):
+        """FIT_STEPS_U AdamW steps on one batch on the kernels: the loss
+        falls."""
+        fit = fit_losses(mdl, src_, tgt_, FIT_STEPS_U, FIT_LR_U)
+        print(f"{tag} {what}, {FIT_STEPS_U} AdamW steps at lr {FIT_LR_U} on "
+              f"one batch: losses {[round(v, 5) for v in fit]}")
+        check(all(map(math.isfinite, fit)) and fit[-1] < fit[0],
+              f"{what}: the loss did not fall: {fit}")
+
+    print(f"{tag} unfrozen steps: grads against the plain step in f64 (the "
+          f"oracle; its residuals rebuilt block by block so that it fits), "
+          f"pooled over {STEP_BATCHES} batches; limits as phase 8")
+    uruns = {}
+    for size, extra, nb_u in (("base", (), 11),
+                              ("large", ("--fusion_heads", "16"), 23)):
+        t1 = time.perf_counter()
+        uargs, um, ubatches = unfrozen_model(size, extra)
+        check(not um.freeze and um.encoder.embed_dim == {"base": 768,
+                                                         "large": 1024}[size]
+              and um.encoder.depth == nb_u + 1, f"{size} config {um.config}")
+        print(f"{tag} ViT-{size}: {sum(q.numel() for q in um.parameters())} "
+              f"parameters, built and drawn in {time.perf_counter() - t1:.1f} "
+              f"s; config {um.config}")
+        want_u, want_calls_u = unfrozen_counts(nb_u)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held_u = torch.cuda.memory_allocated()
+        check_step(f"unfrozen ViT-{size} step", um, ubatches, want_u,
+                   want_calls_u, oracle=torch.float64)
+        print(f"{tag} unfrozen ViT-{size}: peak device memory of the checks "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the "
+              f"{held_u / 2**30:.2f} GiB held before them included)")
+        check_unfrozen_fit(f"unfrozen ViT-{size} fit", um, *ubatches[0])
+        uruns[size] = (um, ubatches[0])
+        del ubatches
+
+    # -- 28. the unfrozen giant2 step with --remat ------------------------
+    stamp(tag, "28")
+    # The train CLI's model with --remat, holding phase 22's draw (the
+    # fusion and head as drawn: phase 24 trained the frozen model's)
+    gargs_u = cli.parse_args(["--dataset", "Synthetic", "--model_size",
+                              "giant2", "--remat", "--batch_size", str(BATCH),
+                              "--max_epochs", "1", "--num_train_samples",
+                              str(BATCH), "--seed", str(SEED)])
+    gmodel_u = cli.build_model(gargs_u)
+    params_from_flax(gmodel_u, flatg)
+    check(gmodel_u.remat and not gmodel_u.freeze
+          and gmodel_u.config["remat"] is True, f"giant2 {gmodel_u.config}")
+    gbatches = [(b[:STEP_B_G], t_[:STEP_B_G]) for b, t_ in step_batches_g[
+        :STEP_BATCHES]]
+
+    def swiglu_train_gate_off_by_one(x_, ln_s_, ln_b_, w12_, b12_, w3_, b3_,
+                                     ls_, eps_=1e-6):
+        """The plain SwiGLU train sub-layer with h1's column c gated by
+        h2's column c + 1 (an epilogue indexing fault)."""
+        f = w3_.shape[0]
+        nxt = torch.arange(f, device=w12_.device).roll(-1)
+        return fb.fused_swiglu_sublayer_train(
+            x_, ln_s_, ln_b_, torch.cat([w12_[:, :f], w12_[:, f:][:, nxt]], 1),
+            torch.cat([b12_[:f], b12_[f:][nxt]]), w3_, b3_, ls_, eps_,
+            ops=fb.PLAIN)
+
+    @contextlib.contextmanager
+    def train_gate_fault():
+        """the plain path with the SwiGLU gate off by one column"""
+        with plain_train_sublayers():
+            layers.fused_swiglu_sublayer_train = swiglu_train_gate_off_by_one
+            yield
+
+    want_g, want_calls_g = unfrozen_counts(nbg, swiglu=True, remat=True)
+    stepu_counts = check_step(
+        f"unfrozen giant2 step with remat, B={STEP_B_G},", gmodel_u, gbatches,
+        want_g, want_calls_g, loss_tol=GIANT2_U_LOSS_TOL,
+        fault=train_gate_fault, oracle=torch.float64,
+        grad_tol=GIANT2_U_GRAD_REL)
+    del gbatches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_u = torch.cuda.memory_allocated()
+    loss8, _ = loss_and_grads(gmodel_u, tsrcg, ttgtg)
+    peak8 = torch.cuda.max_memory_allocated()
+    print(f"{tag} unfrozen giant2 step with remat at B={BATCH} "
+          f"{list(tsrcg.shape)}: loss {loss8:.6g}; peak device memory "
+          f"{peak8 / 2**30:.2f} GiB ({(peak8 - held_u) / 2**30:.2f} GiB above "
+          f"the {held_u / 2**30:.2f} GiB held: parameters and the earlier "
+          f"phases' tensors; grads and AdamW moments not yet allocated)")
+    check(math.isfinite(loss8) and peak8 < 80 * 10**9,
+          f"giant2 B=8 step: loss {loss8}, peak {peak8}")
+    gmodel_u.zero_grad(set_to_none=True)
+
+    # -- 29. train --model_size giant2 --remat -> run folder -> serve -----
+    stamp(tag, "29")
+    # One unfrozen epoch of one B=8 step through the CLI's own `train`; its
+    # draw is phase 22's (the same seed), as in phase 24.
+    rung_u = ROOT / "build" / "chip_smoke_run_giant2_remat"  # gitignored
+    shutil.rmtree(rung_u, ignore_errors=True)
+    gtrainer_u = cli.build_trainer(gargs_u, gdm_fit, run_dir=rung_u)
+
+    def phase22_draw_u(m_, seed):
+        check(m_ is gmodel_u and seed == SEED, "an unexpected draw")
+        return flatg
+
+    trainer_mod.random_flax_params = phase22_draw_u
+    try:
+        t1 = time.perf_counter()
+        _, result_u = cli.train(gargs_u, gmodel_u, gdm_fit, gtrainer_u)
+        t_fit = time.perf_counter() - t1
+    finally:
+        trainer_mod.random_flax_params = saved_draw
+    del flatg, phase22_draw_u  # 4.3 GiB of host memory
+    hpu = json.loads((rung_u / f"epoch={result_u.best_epoch}.hparams.json"
+                      ).read_text())
+    hist_u = json.loads((rung_u / "history.jsonl").read_text().splitlines()[0])
+    print(f"{tag} unfrozen giant2 trainer (--remat): {result_u.epochs_run} "
+          f"epoch(s), {t_fit:.1f} s, train loss {hist_u['train_loss']:.6g}; "
+          f"hparams {hpu}")
+    check(result_u.epochs_run == 1 and math.isfinite(hist_u["train_loss"])
+          and hpu["remat"] is True and hpu["freeze"] is False
+          and hpu["model_size"] == "giant2", f"giant2 remat run {hpu}")
+    served_u = build_model(parse_args(["--run_folder", str(rung_u)]))
+    check(served_u.config == gmodel_u.config and served_u.remat,
+          f"served {served_u.config}")
+    p_served, _ = make_predict_fn(served_u, with_saliency=False)(
+        vbg["source"], None)
+    p_eval = torch.softmax(make_eval_step(gmodel_u)(vbg["source"]).float(),
+                           -1)
+    d_ck = (p_served - p_eval).abs().max().item()
+    print(f"{tag} unfrozen giant2: `serve --run_folder` probs vs the eval "
+          f"step's on {tuple(vbg['source'].shape)}: max |diff| {d_ck:.6g} "
+          f"(must be 0)")
+    check(d_ck == 0.0, f"served giant2 remat run differs: {d_ck}")
+    del served_u
+
+    # -- 30. unfrozen-training times ----------------------------------------
+    stamp(tag, "30")
+    gmodel_u.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    for size, (um, (usrc, utgt)) in list(uruns.items()) + [
+            ("giant2 (remat)", (gmodel_u, (tsrcg, ttgtg)))]:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held_s = torch.cuda.memory_allocated()
+        sec_u, kstep_u = step_seconds(um, usrc, utgt,
+                                      n=2 if um is gmodel_u else 3)
+        peak_u = torch.cuda.max_memory_allocated()
+        print(f"{tag} unfrozen {size} train step B={BATCH} bf16 (forward, CE, "
+              f"backward, AdamW): {sec_u * 1e3:.3f} ms = {BATCH / sec_u:.4f} "
+              f"vol/s; peak device memory {peak_u / 2**30:.2f} GiB (the "
+              f"{held_s / 2**30:.2f} GiB held before it included)")
+        profile_device(tag, f"one unfrozen {size} train step",
+                       lambda: kstep_u(usrc, utgt), 16)
+        del kstep_u, um
+        uruns.pop(size, None)
+        torch.cuda.empty_cache()
+
+
     # TPU kernels: _attn_any_kernel at fused_block.py:326, _mlp_kernel at
     # :400, their train forwards _attn_train_kernel :424 and
     # _mlp_train_kernel :470, the backwards _attn_bwd_kernel :680 and
@@ -2209,8 +2699,20 @@ def main() -> int:
         # (phase 22) at E = 1536, F = 4096
         "ln_gemm_swiglu": ("ln_gemm", [site(534), site(1393)], fwdg_counts,
                            ["ln_gemm_swiglu[w12]"]),
+        # row 6 and its backward's new kernels, counted on the unfrozen
+        # giant2 step with remat (phase 28): the gated mode's train form
+        # (`_swiglu_train_kernel`), the SiLU-gate epilogue of `gemm_dgrad`
+        # (XLA's `_swiglu_train_bwd` :1284 in JAX) and the LN pullback of
+        # every width but 384 (the last step of `_attn_bwd_kernel` and
+        # `_mlp_bwd_kernel`, and of the XLA backwards at E > 1024)
+        "ln_gemm_swiglu_train": ("ln_gemm", [site(498), site(1263)],
+                                 stepu_counts, ["ln_gemm_swiglu_train[w12]"]),
+        "gemm_dgrad_swiglu": ("gemm_dgrad", [site(498), site(1284)],
+                              stepu_counts, ["gemm_dgrad_swiglu[w3]"]),
+        "ln_pullback": ("gemm_dgrad", [site(680), site(841), site(1284)],
+                        stepu_counts, ["ln_pullback[E=1536]"]),
     }
-    alltimed = {**timed, **ttimed, **stimed, **rtimed, **gtimed}
+    alltimed = {**timed, **ttimed, **stimed, **rtimed, **gtimed, **utimed}
     print(f"{tag} bound: the larger of FLOPs / {PEAK_FLOPS:.4g} FLOP/s and "
           f"bytes / {PEAK_BYTES:.4g} B/s (each input read once, each output "
           f"written once); library: the PyTorch call(s) of the same "
@@ -2265,6 +2767,11 @@ def main() -> int:
             "gemm_residual[proj,E=1536,ls]"],
         "3 SwiGLU sub-layer, giant2 (F = 4096)": ["ln_gemm_swiglu[w12]",
                                                   "gemm_residual[w3,ls]"],
+        "6 SwiGLU train forward, giant2": ["ln_gemm_swiglu_train[w12]",
+                                           "gemm_residual[w3,ls]"],
+        "6 SwiGLU backward (the XLA _swiglu_train_bwd), giant2": [
+            "gemm_dls[w3]", "gemm_wgrad[w3]", "gemm_dgrad_swiglu[w3]",
+            "gemm_wgrad[w12]", "gemm_dgrad[w12,ln]"],
     }
     for label, chain in rows.items():
         b_ms, b_by = bound([cost[c] for c in chain])
@@ -2281,7 +2788,9 @@ def main() -> int:
         checked = [c for c in errs if c.split("[")[0] in
                    (name, name + "_train")]
         steps = (step3_counts if name.endswith("_rope") else stepg_counts
-                 if name == "ln_gemm_swiglu" else step_counts)
+                 if name == "ln_gemm_swiglu" else stepu_counts
+                 if name in ("ln_gemm_swiglu_train", "gemm_dgrad_swiglu",
+                             "ln_pullback") else step_counts)
         bound_ms, bound_by = bound([cost[c] for c in per_block])
         kernels.append({
             "name": name, "route": "cuda",

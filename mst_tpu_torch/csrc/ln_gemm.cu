@@ -1,10 +1,11 @@
 // ln_gemm: out[M, N] = act(LN(x)[M, K] @ W[K, N] + b[N]), bf16 in and out.
 //
-// Replaces the first half of five Pallas kernels in
+// Replaces the first half of six Pallas kernels in
 // mst_tpu/ops/fused_block.py: the LN + qkv projection of `_attn_any_kernel`
 // and `_attn_train_kernel` (act = none), the LN + fc1 + GELU of
 // `_mlp_kernel` and `_mlp_train_kernel` (act = gelu tanh or exact erf), and
-// the LN + w12 + SiLU gate of `_swiglu_kernel` (the gated mode below).
+// the LN + w12 + SiLU gate of `_swiglu_kernel` and `_swiglu_train_kernel`
+// (the gated mode below).
 // Rounding follows the Pallas bodies: LN statistics and the normalised row
 // in f32, the row cast to bf16 before the product, f32 accumulation, bias
 // and activation in f32, one cast to bf16 at the end (serving).
@@ -28,6 +29,14 @@
 // separate 128-wide W stages would reach the 227 KB ceiling. The gate runs
 // on the f32 h12 with an accurate expf, as `_swiglu_kernel` does (the XLA
 // reference `_swiglu_ref` rounds h12 to bf16 first).
+//
+// Gated train mode (`_swiglu_train_kernel`, queue B row 6): with `h_out`
+// and `out2` set, `h_out` receives the bf16 LN(x) as in the ungated train
+// mode, `out2` = h12 [M, 2F] the pre-gate rounded to bf16 (h1 at column c,
+// h2 at F + c), and the gate g runs on that ROUNDED h12 upcast to f32, as
+// `_swiglu_train_kernel` computes it, so that the forward agrees bit for bit
+// with what its backward reads. Shared memory is the gated layout; only the
+// epilogue's stores grow.
 //
 // Bound on the H100: at the ViT-S path shapes (M = 65,792 tokens, K = 384,
 // N = 1152 or 1536) the product is ~58-78 GFLOP against ~130-250 MB of
@@ -185,13 +194,22 @@ ln_gemm_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
       const int c = (g % (BN_OUT / 8)) * 8;
       const int m = m0 + r;
       if (m >= M) continue;
-      float v[8];
+      float h1[8], h2[8], v[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        const float h1 = Cs[r * LDC + c + e] + bias[n0 + c + e];
-        const float h2 = Cs[r * LDC + BN_OUT + c + e] + bias[N + n0 + c + e];
-        v[e] = h1 * (1.0f / (1.0f + expf(-h1))) * h2;
+        h1[e] = Cs[r * LDC + c + e] + bias[n0 + c + e];
+        h2[e] = Cs[r * LDC + BN_OUT + c + e] + bias[N + n0 + c + e];
       }
+      if (out2 != nullptr) {  // train: h12 rounded, the gate from it
+        const uint4 p1 = pack8_bf16(h1), p2 = pack8_bf16(h2);
+        bf16* hrow = out2 + size_t(m) * 2 * N + n0 + c;
+        *reinterpret_cast<uint4*>(hrow) = p1;
+        *reinterpret_cast<uint4*>(hrow + N) = p2;
+        unpack8_bf16(p1, h1);
+        unpack8_bf16(p2, h2);
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = h1[e] * (1.0f / (1.0f + expf(-h1[e]))) * h2[e];
       *reinterpret_cast<uint4*>(out + size_t(m) * N + n0 + c) = pack8_bf16(v);
     }
   } else {
@@ -247,14 +265,16 @@ extern "C" int mst_ln_gemm(const void* x, const void* ln_s, const void* ln_b,
 }
 
 // The gated mode: x [M, K] bf16, ln_s / ln_b [K] f32, w12 [K, 2F] bf16,
-// b12 [2F] f32 -> g [M, F] bf16 = bf16(silu(h1) * h2). Needs K % 32 == 0,
+// b12 [2F] f32 -> g [M, F] bf16 = bf16(silu(h1) * h2); h_out [M, K] and h12
+// [M, 2F] bf16, both or neither: the train mode (above). Needs K % 32 == 0,
 // K <= 1536 and F % 64 == 0 (checked by the Python wrapper as well).
 extern "C" int mst_ln_gemm_swiglu(const void* x, const void* ln_s, const void* ln_b,
-                                  const void* w12, const void* b12, void* out, int M,
-                                  int K, int F, float eps, void* stream) {
+                                  const void* w12, const void* b12, void* out,
+                                  void* h_out, void* h12, int M, int K, int F, float eps,
+                                  void* stream) {
   using namespace mst;
   if (M <= 0 || K % BK != 0 || K > 1536 || F <= 0 || F % (BN / 2) != 0 ||
-      (M + BM - 1) / BM > 65535)
+      (M + BM - 1) / BM > 65535 || (h_out == nullptr) != (h12 == nullptr))
     return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(K);
   cudaError_t err = allow_smem(ln_gemm_kernel<true>, smem);
@@ -263,8 +283,8 @@ extern "C" int mst_ln_gemm_swiglu(const void* x, const void* ln_s, const void* l
   ln_gemm_kernel<true><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
       static_cast<const float*>(ln_b), static_cast<const bf16*>(w12),
-      static_cast<const float*>(b12), static_cast<bf16*>(out), nullptr, nullptr, M, K,
-      F, eps, ACT_NONE);
+      static_cast<const float*>(b12), static_cast<bf16*>(out), static_cast<bf16*>(h_out),
+      static_cast<bf16*>(h12), M, K, F, eps, ACT_NONE);
   return cudaGetLastError();
 }
 

@@ -39,11 +39,12 @@
 //   `sum_partials` adds the tiles in a fixed order: no float atomics, so
 //   two runs give the same bits;
 // - abnar: the head mean crosses the head blocks, so its kernel is another
-//   grid, one block per (64- or 32-query tile, slice) that runs the heads
-//   one after the other and keeps the f32 head sum sum_h p / l of its rows
-//   in shared memory (69,632 bytes at BQ = 64, S = 257; 228,096 bytes in
-//   all, under the 232,448 a block may have; BQ = 32 up to S = 416),
-//   summed in head order as the Pallas body does; its epilogue adds I,
+//   grid, one block per (64-, 32- or 16-query tile, slice) that runs the
+//   heads one after the other and keeps the f32 head sum sum_h p / l of its
+//   rows in shared memory (69,632 bytes at BQ = 64, S = 257; 228,096 bytes
+//   in all, under the 232,448 a block may have; BQ = 32 up to S = 416, and
+//   BQ = 16 above, up to S = 512: 215,616 bytes at S = 512), summed in
+//   head order as the Pallas body does; its epilogue adds I,
 //   row-normalises and writes each row of the [N, S, S] f32 factor once.
 //   Per-head partials in device memory with a second pass would write and
 //   read 406 MB more per block at N = 256.
@@ -443,7 +444,7 @@ cudaError_t launch_abnar_rope(const bf16* qkv, bf16* out, float* factor,
 // lse [N*S, num_heads] f32; row [N, num_heads, S] f32; carry [N,
 // num_heads, S] f32 in with carry_part (room for [ceil(S / 32), N,
 // num_heads, S] f32) and new_carry [N, num_heads, S] f32 out; abnar [N, S,
-// S] f32 (alone: no lse, row or carry with it; S <= 416). rope_cos and
+// S] f32 (alone: no lse, row or carry with it). rope_cos and
 // rope_sin, [S, 64] f32 each, both or neither: RoPE on q and k.
 extern "C" int mst_mhsa(const void* qkv, void* out, void* lse, void* row,
                         const void* carry, void* carry_part, void* new_carry,
@@ -475,6 +476,8 @@ extern "C" int mst_mhsa(const void* qkv, void* out, void* lse, void* row,
       return launch_abnar_rope<64>(in, o, f, rc, rs, N, S, E, num_heads, scale, st);
     if (abnar_bytes(32, S) <= SMEM_CAP)
       return launch_abnar_rope<32>(in, o, f, rc, rs, N, S, E, num_heads, scale, st);
+    if (abnar_bytes(16, S) <= SMEM_CAP)
+      return launch_abnar_rope<16>(in, o, f, rc, rs, N, S, E, num_heads, scale, st);
     return cudaErrorInvalidValue;
   }
   return layout(64, S).total <= SMEM_CAP

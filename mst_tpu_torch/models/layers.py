@@ -135,8 +135,8 @@ class Block(nn.Module):
     chain too (`vit_fast.fused_vit_cls(train=True)`). With the RoPE tables
     (DINOv3) every attention variant takes its RoPE form, as
     `mst_tpu/models/vit_fast.py:429-450` dispatches. `ffn_layer="swiglu"`
-    (giant2) runs the FFN through the SwiGLU sub-layer in every mode; its
-    train form is a later slice and raises."""
+    (giant2) runs the FFN through the SwiGLU sub-layer in every mode (with
+    `train=True` the residual-saving one, queue B row 6)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_hidden: int,
                  layerscale_init: Optional[float] = 1e-5,

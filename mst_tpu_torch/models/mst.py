@@ -5,12 +5,15 @@ configurations the port serves: a DINOv2 ViT (learned pos-embed, optional
 register tokens; ViT-S/B/L with an MLP FFN, giant2 with a SwiGLU FFN) or a
 DINOv3 ViT (2D RoPE instead of a learned pos-embed, 4 registers, patch 16,
 LN eps 1e-5; either FFN), transformer slice fusion without rotary,
-optional bottleneck and slice position embedding, and `freeze` (the
-encoder trains frozen: the reference's giant2 workflow). The module holds
-the parameters under the flax names; its forward is the fused serving path
-(`models/vit_fast.fused_mst_logits`). Every other configuration, and an
-encoder train step the kernels cannot run yet (`check_trainable`), raises
-`NotImplementedError` naming the ROADMAP item that brings it.
+optional bottleneck and slice position embedding, `freeze` (the encoder
+trains frozen: the reference's giant2 workflow) and `remat` (an unfrozen
+encoder recomputes each block in the backward instead of keeping its
+residuals: what fits unfrozen ViT-L and giant2 on one card). The module
+holds the parameters under the flax names; its forward is the fused
+serving path (`models/vit_fast.fused_mst_logits`). Every other
+configuration raises `NotImplementedError` naming the ROADMAP item that
+brings it, and an encoder train step the CUDA kernels cannot run
+(`check_trainable`) raises before its forward.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from mst_tpu_torch.models.layers import Dense, LayerNorm
 from mst_tpu_torch.models.slice_fusion import TransformerEncoderLayer
 from mst_tpu_torch.models.vit import _VIT_CONFIGS, VisionTransformer
 from mst_tpu_torch.models.vit_fast import fused_mst_logits
-from mst_tpu_torch.ops.fused_block import LN_PULLBACK_K
+from mst_tpu_torch.ops.fused_block import LN_PULLBACK_MAX_K
 
 MAX_SLICES = 256  # slice-position vocabulary (reference `dino.py:81-82`)
 
@@ -48,7 +51,9 @@ class DinoSliceClassifier(nn.Module):
     stay f32. `config` holds the options it was built with (what a run
     folder's hparams record, so that `serve.load_run_model` rebuilds it).
     `ffn_layer` None takes the size's FFN (SwiGLU for giant2); `freeze`
-    trains the slice fusion and head on a fixed encoder."""
+    trains the slice fusion and head on a fixed encoder; `remat`
+    checkpoints each encoder block of the train step (`mst_tpu`'s field:
+    the same values, less memory, one more forward)."""
 
     def __init__(self, out_ch: int = 2, model_size: str = "small",
                  patch_size: int = 14, num_register_tokens: int = 0,
@@ -62,7 +67,7 @@ class DinoSliceClassifier(nn.Module):
                  ffn_hidden: Optional[int] = None,
                  layerscale_init: Optional[float] = 1e-5,
                  gelu_approximate: bool = True, freeze: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 remat: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         if model_size not in _VIT_CONFIGS:
             raise ValueError(f"unknown model_size {model_size!r}")
@@ -86,7 +91,7 @@ class DinoSliceClassifier(nn.Module):
             rope_normalized=rope_normalized, norm_eps=norm_eps,
             ffn_layer=ffn_layer, ffn_hidden=ffn_hidden,
             layerscale_init=layerscale_init,
-            gelu_approximate=gelu_approximate, freeze=freeze)
+            gelu_approximate=gelu_approximate, freeze=freeze, remat=remat)
         # only what the forward and `random_flax_params` read is kept; the
         # checks above are the one gate of the fused serving path
         self.model_size = model_size
@@ -101,6 +106,7 @@ class DinoSliceClassifier(nn.Module):
         self.gelu_approximate = gelu_approximate
         self.ffn_layer = ffn_layer
         self.freeze = freeze
+        self.remat = remat
         self.dtype = dtype
 
         self.encoder = VisionTransformer(
@@ -135,25 +141,33 @@ class DinoSliceClassifier(nn.Module):
 
     def check_trainable(self, device) -> None:
         """Raise, before any forward work, where a train step that reaches
-        into the encoder cannot run on `device`: a SwiGLU encoder (its train
-        sub-layer, queue B row 6, is not ported), or on a CUDA device an
-        encoder width other than the LN-pullback kernel's. A frozen encoder
-        trains at any size."""
-        if self.freeze:
+        into the encoder cannot run on `device`: on a CUDA device, an
+        encoder whose widths the train kernels do not take (the LN pullback
+        of `gemm_dgrad` wants E % 128 == 0 and E <= LN_PULLBACK_MAX_K, the
+        attention kernels a head dim of 64, the FFN's `gemm_dgrad` an FFN
+        width % 128 == 0). Every DINOv2 size (ViT-S/B/L, giant2) passes; the
+        CPU path trains any width, and a frozen encoder trains at any
+        size."""
+        if self.freeze or torch.device(device).type != "cuda":
             return
-        e = self.encoder.embed_dim
-        if self.ffn_layer == "swiglu":
+        enc = self.encoder
+        e, heads = enc.embed_dim, enc.num_heads
+        mlp = enc.block(0).mlp
+        hidden = (mlp.w3 if self.ffn_layer == "swiglu" else mlp.fc2
+                  ).kernel.shape[0]
+        missing = [what for what, bad in (
+            (f"embed_dim % 128 == 0 and <= {LN_PULLBACK_MAX_K} (the LN "
+             f"pullback of gemm_dgrad)", e % 128 or e > LN_PULLBACK_MAX_K),
+            ("a head dim of 64 (mhsa, mhsa_bwd)", e != 64 * heads),
+            ("an FFN width % 128 == 0 (gemm_dgrad)", hidden % 128))
+            if bad]
+        if missing:
             raise NotImplementedError(
-                f"training a SwiGLU encoder ({self.model_size}) is not ported "
-                f"to mst_tpu_torch yet: its train sub-layer (queue B row 6) "
-                f"and backward are ROADMAP queue A #12; train it with "
-                f"--freeze")
-        if torch.device(device).type == "cuda" and e != LN_PULLBACK_K:
-            raise NotImplementedError(
-                f"training the encoder at embed_dim={e} on CUDA needs "
-                f"gemm_dgrad's LN-pullback epilogue at K = {e} (it takes "
-                f"K = {LN_PULLBACK_K} only), which is ROADMAP queue A #12; "
-                f"train it with --freeze, or on the CPU")
+                f"training the encoder of this model (embed_dim={e}, "
+                f"{heads} heads, FFN width {hidden}) on CUDA needs "
+                f"{'; '.join(missing)}: the hand-written train kernels take "
+                f"no other widths (ROADMAP queue A #12); train it with "
+                f"--freeze, or on the CPU")
 
     def forward(self, source, src_key_padding_mask=None):
         """source [B, C, D, H, W] -> logits [B, out_ch] (f32)."""

@@ -18,6 +18,7 @@ from torch import nn
 
 from mst_tpu_torch.models.layers import Dense, LayerNorm
 from mst_tpu_torch.ops.attention import NEG_INF
+from mst_tpu_torch.ops.fused_block import _f
 
 
 class MultiheadAttention(nn.Module):
@@ -41,12 +42,12 @@ class MultiheadAttention(nn.Module):
         hd = e // nh
         qkv = self.in_proj(x).reshape(b, s, 3, nh, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]  # [b, nh, s, hd]
-        sc = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (
+        sc = torch.matmul(_f(q), _f(k).transpose(-1, -2)) * (
             1.0 / math.sqrt(hd))
         if key_padding_mask is not None:
             sc = sc.masked_fill(key_padding_mask[:, None, None, :], NEG_INF)
         p = torch.softmax(sc, dim=-1)
-        o = torch.matmul(p.to(x.dtype).float(), v.float()).to(x.dtype)
+        o = torch.matmul(_f(p.to(x.dtype)), _f(v)).to(x.dtype)
         o = self.out_proj(o.permute(0, 2, 1, 3).reshape(b, s, e))
         return (o, p) if want_probs else o
 

@@ -16,11 +16,15 @@ the rollout carry, or each block's Abnar factor.
 
 A frozen encoder (`model.freeze`, the reference's giant2 workflow) trains
 as the JAX package does: the encoder runs on the serving sub-layers under
-`torch.no_grad()` and the backward stops at the slice fusion.
+`torch.no_grad()` and the backward stops at the slice fusion. With
+`model.remat` each train block runs under `torch.utils.checkpoint` (JAX's
+`jax.checkpoint` of `_fused_train_block`): only the block inputs stay
+alive, and the backward runs each block's forward again to rebuild its
+residuals.
 
 This is the port's only forward: configurations outside the gate raise
-instead of running a second composition. `remat`, unfrozen SwiGLU
-training, int8 and the long-sequence flash path are later ROADMAP items.
+instead of running a second composition. Int8 and the long-sequence flash
+path are later ROADMAP items.
 """
 
 from __future__ import annotations
@@ -31,9 +35,10 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from mst_tpu_torch.models.vit import _VIT_CONFIGS, interpolate_pos_embed
-from mst_tpu_torch.ops.fused_block import _ln
+from mst_tpu_torch.ops.fused_block import _f, _ln
 from mst_tpu_torch.ops.rotary import apply_rope_tables, rope_tables
 from mst_tpu_torch.ops.saliency import (
     attention_rollout_from_factors,
@@ -157,9 +162,9 @@ def _cls_last_block(h, blk, cfg: FastViTConfig, rope_cos=None,
     if rope_cos is not None:
         q = apply_rope_tables(q, rope_cos[0], rope_sin[0])
         k = apply_rope_tables(k, rope_cos, rope_sin)
-    sc = torch.einsum("nhd,nhkd->nhk", q.float(), k.float()) / math.sqrt(hd)
+    sc = torch.einsum("nhd,nhkd->nhk", _f(q), _f(k)) / math.sqrt(hd)
     row = torch.softmax(sc, dim=-1)  # [N, nh, S] f32
-    o = torch.einsum("nhk,nhkd->nhd", row.to(dt).float(), v.float()).to(dt)
+    o = torch.einsum("nhk,nhkd->nhd", _f(row.to(dt)), _f(v)).to(dt)
     y = o.reshape(n, e) @ blk.attn.proj.kernel.to(dt) + blk.attn.proj.bias.to(dt)
     if blk.ls1 is not None:
         y = y * blk.ls1.gamma.to(dt)
@@ -180,11 +185,21 @@ def _cls_last_block(h, blk, cfg: FastViTConfig, rope_cos=None,
     return c + m, row
 
 
+def _fused_train_block(h, blk, rope_cos=None, rope_sin=None):
+    """One encoder block on the residual-saving train sub-layers, a function
+    of its input: the unit `remat` checkpoints (`mst_tpu`'s
+    `_fused_train_block`)."""
+    return blk(h, train=True, rope_cos=rope_cos, rope_sin=rope_sin)
+
+
 def fused_vit_cls(enc, x, cfg: FastViTConfig, dtype=torch.bfloat16,
                   train: bool = False, want_last_row: bool = False,
-                  want_rollout: bool = False, want_abnar: bool = False):
+                  want_rollout: bool = False, want_abnar: bool = False,
+                  remat: bool = False):
     """enc: the VisionTransformer module; x [N, H, W, 3] -> CLS [N, E].
-    `train=True` runs the blocks on the residual-saving sub-layers.
+    `train=True` runs the blocks on the residual-saving sub-layers; with
+    `remat` each under `torch.utils.checkpoint`, so that the backward
+    recomputes the block's residuals from its input.
 
     The saliency modes (serving only, one at a time) return (cls, data):
     `want_last_row` the last block's per-head CLS softmax row [N, heads, S]
@@ -219,6 +234,9 @@ def fused_vit_cls(enc, x, cfg: FastViTConfig, dtype=torch.bfloat16,
             factors.append(amat)
         elif want_last_row and i == cfg.depth - 1:
             h, last_row = blk(h, want_row=True, **rope)
+        elif train and remat:
+            h = checkpoint(_fused_train_block, h, blk, rope_cos, rope_sin,
+                           use_reentrant=False)
         else:
             h = blk(h, train=train, **rope)
     if cheap_last:
@@ -260,9 +278,11 @@ def fused_mst_logits(model, source, src_key_padding_mask=None, dtype=None,
     logits [B, out_ch] f32. `model` is the port's DinoSliceClassifier (it
     holds the parameters); `dtype` defaults to `model.dtype`. `train=True`
     selects the residual-sharing train sub-layers (the loss backward runs
-    their backward kernels; valid because the model has no dropout); for a
-    frozen model (`model.freeze`) the encoder runs on the serving
-    sub-layers under `torch.no_grad()` instead."""
+    their backward kernels; valid because the model has no dropout), each
+    block checkpointed with `model.remat`; for a frozen model
+    (`model.freeze`) the encoder runs on the serving sub-layers under
+    `torch.no_grad()` instead. `dtype` float64 on the plain sub-layers is
+    the oracle of the bf16 paths (the plain versions keep f64)."""
     _check_fused(model, source)
     dtype = model.dtype if dtype is None else dtype
     return _fused_mst(model, source, src_key_padding_mask, dtype, train)[0]
@@ -330,7 +350,8 @@ def _fused_mst(model, source, src_key_padding_mask, dtype, train=False,
         with torch.no_grad():
             feats = fused_vit_cls(model.encoder, x, cfg, dtype)
     elif plane_mode is None:
-        feats = fused_vit_cls(model.encoder, x, cfg, dtype, train)
+        feats = fused_vit_cls(model.encoder, x, cfg, dtype, train,
+                              remat=train and model.remat)
     else:
         feats, sal_data = fused_vit_cls(
             model.encoder, x, cfg, dtype, want_last_row=plane_mode == "last",
@@ -365,7 +386,8 @@ def _fused_mst(model, source, src_key_padding_mask, dtype, train=False,
         else:
             h = model.fusion(i)(h, pad)
     h = model.fusion_norm(h)
-    pooled = h[:, 0].float()
-    logits = pooled @ model.head.kernel.float() + model.head.bias.float()
+    pooled = _f(h[:, 0])
+    logits = (pooled @ model.head.kernel.to(pooled.dtype)
+              + model.head.bias.to(pooled.dtype))
     return logits, sal_data, fusion_probs
 

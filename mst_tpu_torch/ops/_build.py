@@ -35,8 +35,10 @@ _SIGNATURES = {
     # x, ln_s, ln_b, w, bias, out, h_out|NULL, out2|NULL, M, K, N, eps, act,
     # stream
     "mst_ln_gemm": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
-    # x, ln_s, ln_b, w12, b12, out, M, K, F, eps, stream
-    "mst_ln_gemm_swiglu": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # x, ln_s, ln_b, w12, b12, out, h_out|NULL, h12|NULL, M, K, F, eps,
+    # stream
+    "mst_ln_gemm_swiglu": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                           _P),
     # a, w, bias, ls|NULL, x, out, M, K, N, stream
     "mst_gemm_residual": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # qkv, out, lse|NULL, row|NULL, carry|NULL, carry_part, new_carry,
@@ -52,6 +54,10 @@ _SIGNATURES = {
     # dlnb, stream
     "mst_gemm_dgrad": (_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _F, _P,
                        _P, _P, _P),
+    # dy, w, out (f32), M, R, K, stream
+    "mst_gemm_dgrad_f32": (_P, _P, _P, _I, _I, _I, _P),
+    # dh (f32), x, g, lns, eps, out, work, dlns, dlnb, M, K, stream
+    "mst_ln_pullback": (_P, _P, _P, _P, _F, _P, _P, _P, _P, _I, _I, _P),
     # qkv, o, dout, lse, delta, dqkv, rope_cos|NULL, rope_sin|NULL, N, S, E,
     # num_heads, scale_log2, scale, stream
     "mst_mhsa_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,

@@ -6,10 +6,13 @@ Counterpart of `mst_tpu/ops/fused_block.py` (plain flags):
 - `fused_mlp_sublayer`:       y = x + ls2 * fc2(gelu(fc1(LN2(x))))
 - `fused_swiglu_sublayer`:    y = x + ls2 * w3(silu(h1) * h2),
   [h1 | h2] = w12(LN2(x)), the giant2 FFN (`_swiglu_kernel`)
-- `fused_attention_sublayer_train` / `fused_mlp_sublayer_train`: the same
-  forwards as `torch.autograd.Function`s that save residuals (qkv, o, the
-  base-2 log-sum-exp rows; the pre-activation) and run a hand-written
-  backward from them, never the forward again (the JAX `custom_vjp`s).
+- `fused_attention_sublayer_train` / `fused_mlp_sublayer_train` /
+  `fused_swiglu_sublayer_train`: the same forwards as
+  `torch.autograd.Function`s that save residuals (qkv, o, the base-2
+  log-sum-exp rows; the pre-activation; the pre-gate h12 and the gate) and
+  run a hand-written backward from them, never the forward again (the JAX
+  `custom_vjp`s; the SwiGLU one is `_swiglu_train_kernel` with the XLA
+  `_swiglu_train_bwd`).
 - the RoPE forms of the DINOv3 encoder (`has_rope`):
   `fused_attention_sublayer_rope`, `_rope_with_row`, the `rope_cos` /
   `rope_sin` of `_rollout` and `_abnar`, and
@@ -25,11 +28,13 @@ memory, so each sub-layer here is a short chain of CUDA kernels
 
 - attention: `ln_gemm` (LN + qkv) -> `mhsa` -> `gemm_residual` (proj + ls + x)
 - MLP:       `ln_gemm` (LN + fc1 + GELU) -> `gemm_residual` (fc2 + ls + x)
-- SwiGLU:    `ln_gemm_swiglu` (LN + w12 + gate) -> `gemm_residual` (w3 + ls
-  + x)
+- SwiGLU:    `ln_gemm_swiglu` (LN + w12 + gate; in train mode also h and
+  the rounded h12) -> `gemm_residual` (w3 + ls + x)
 - backward:  `gemm_dls` (ls grad), `gemm_wgrad` (weight and bias grads),
-  `gemm_dgrad` (input grads, with the GELU' or the LN-pullback epilogue),
-  `mhsa_bwd` (dq, dk, dv), chained by `_attn_train_bwd` / `_mlp_train_bwd`
+  `gemm_dgrad` (input grads, with the GELU', the SiLU-gate or the
+  LN-pullback epilogue; the pullback at rows wider than 384 writes dh in
+  f32 for the row kernel `ln_pullback`), `mhsa_bwd` (dq, dk, dv), chained
+  by `_attn_train_bwd` / `_mlp_train_bwd` / `_swiglu_train_bwd`
 
 Every kernel wrapper dispatches on the device of the tensor it is given: a
 CUDA tensor launches the kernel (bf16 only) and counts the launch; a CPU
@@ -37,11 +42,14 @@ tensor takes the kernel's plain PyTorch version, which rounds to the
 working dtype at the same points as the kernel and the Pallas body (qkv
 after its bias, P before P.V, o / l, the GELU output, the SwiGLU gate
 taken on the f32 h12, the residual sum in f32; in the train bodies also the
-pre-activation before its GELU, gz, do, p before dv, ds, dq / dk / dv,
-da). There is no fallback from one to the other. Each train sub-layer
+pre-activation before its GELU, h12 before its gate, gz, do, p before dv,
+ds, dq / dk / dv, da, du before the gate's derivative, dh12). There is no
+fallback from one to the other. Each train sub-layer
 composes the kernel wrappers through an `ops`
 table (`KERNELS`), so the CPU runs the same composition on the plain
-versions, and `PLAIN` runs it on the plain versions on any device.
+versions, and `PLAIN` runs it on the plain versions on any device. The
+plain versions upcast to f32 but keep f64 as it is (`_f`), so that the
+plain path in f64 is an oracle for the bf16 paths.
 
 Argument conventions follow the JAX package: x [N, S, E]; matrices in the
 flax Dense layout [in, out]; LN scale / bias, biases and LayerScale as
@@ -62,8 +70,9 @@ from mst_tpu_torch.ops.rotary import _rotate_half_interleaved, apply_rope_tables
 
 _LOG2E = math.log2(math.e)
 
-# Activation codes of `ln_gemm` (csrc/common.cuh `Act`).
-ACT_NONE, ACT_GELU_TANH, ACT_GELU_ERF = 0, 1, 2
+# Activation codes of `ln_gemm` (csrc/common.cuh `Act`), and of
+# `gemm_dgrad`'s SiLU-gate epilogue (csrc/gemm_dgrad.cu `ACT_SWIGLU`).
+ACT_NONE, ACT_GELU_TANH, ACT_GELU_ERF, ACT_SWIGLU = 0, 1, 2, 3
 
 
 # ---------------------------------------------------------------------------
@@ -71,12 +80,18 @@ ACT_NONE, ACT_GELU_TANH, ACT_GELU_ERF = 0, 1, 2
 # ---------------------------------------------------------------------------
 
 
+def _f(t):
+    """t in f32, or as it is if it is f64 (the plain path in f64 keeps its
+    precision)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def _ln(x, scale, bias, eps=1e-6):
     """LayerNorm in f32 (two-pass statistics, as the Pallas bodies)."""
-    xf = x.float()
+    xf = _f(x)
     mean = xf.mean(-1, keepdim=True)
     var = ((xf - mean) ** 2).mean(-1, keepdim=True)
-    return (xf - mean) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+    return (xf - mean) * torch.rsqrt(var + eps) * _f(scale) + _f(bias)
 
 
 def _gelu(x, approximate: bool):
@@ -86,30 +101,37 @@ def _gelu(x, approximate: bool):
 def _mm(a, b):
     """Product of working-dtype operands with f32 accumulation and an f32
     result (the kernels' and Pallas' `preferred_element_type=f32`)."""
-    return torch.matmul(a.float(), b.float())
+    return torch.matmul(_f(a), _f(b))
 
 
 def _ln_gemm_ref(x, ln_s, ln_b, w, b, act: int, eps: float,
                  train: bool = False):
     h = _ln(x, ln_s, ln_b, eps).to(x.dtype)
-    y = _mm(h, w) + b.float()
+    y = _mm(h, w) + _f(b)
     if train:  # (pre-activation, h, act of the rounded pre-activation)
         pre = y.to(x.dtype)
         post = None if act == ACT_NONE else _gelu(
-            pre.float(), act == ACT_GELU_TANH).to(x.dtype)
+            _f(pre), act == ACT_GELU_TANH).to(x.dtype)
         return pre, h, post
     if act != ACT_NONE:
         y = _gelu(y, act == ACT_GELU_TANH)
     return y.to(x.dtype)
 
 
-def _ln_gemm_swiglu_ref(x, ln_s, ln_b, w12, b12, eps: float):
+def _ln_gemm_swiglu_ref(x, ln_s, ln_b, w12, b12, eps: float,
+                        train: bool = False):
     """bf16(silu(h1) * h2) with [h1 | h2] = LN(x) @ w12 + b12 in f32: the
     gate on the f32 h12, as `_swiglu_kernel` (the JAX XLA `_swiglu_ref`
-    rounds h12 to bf16 first; in f32 the two agree)."""
+    rounds h12 to bf16 first; in f32 the two agree). With `train`: (h12, h,
+    g) = (bf16(LN(x) @ w12 + b12), bf16(LN(x)), the gate of the ROUNDED
+    h12), the residuals of `_swiglu_train_kernel`."""
     h = _ln(x, ln_s, ln_b, eps).to(x.dtype)
-    h1, h2 = (_mm(h, w12) + b12.float()).chunk(2, dim=-1)
-    return (h1 * torch.sigmoid(h1) * h2).to(x.dtype)
+    h12 = _mm(h, w12) + _f(b12)
+    if train:
+        h12 = h12.to(x.dtype)
+    h1, h2 = _f(h12).chunk(2, dim=-1)
+    g = (h1 * torch.sigmoid(h1) * h2).to(x.dtype)
+    return (h12, h, g) if train else g
 
 
 def _has_rope(rope_cos, rope_sin) -> bool:
@@ -122,7 +144,7 @@ def _has_rope(rope_cos, rope_sin) -> bool:
 def _rope_adjoint_ref(d, cos, sin, dt):
     """The rotation's adjoint on the f32 grad d of the rotated values, with
     the JAX backward's rounding point: d * cos - bf16(d * sin) @ P (f32)."""
-    return d * cos - _rotate_half_interleaved((d * sin).to(dt).float())
+    return d * cos - _rotate_half_interleaved(_f((d * sin).to(dt)))
 
 
 def _mhsa_ref(qkv, n: int, s: int, num_heads: int, want_lse: bool = False,
@@ -152,7 +174,8 @@ def _mhsa_ref(qkv, n: int, s: int, num_heads: int, want_lse: bool = False,
         ab = p[:, 0] / l[:, 0]
         for h in range(1, num_heads):  # the heads summed in order
             ab = ab + p[:, h] / l[:, h]
-        a = ab * (1.0 / num_heads) + torch.eye(s, device=p.device)
+        a = ab * (1.0 / num_heads) + torch.eye(s, device=p.device,
+                                               dtype=p.dtype)
         out += (a / a.sum(-1, keepdim=True),)
     if want_lse:
         # base-2 log-sum-exp in the scaled units, [n * s, heads] (JAX's
@@ -160,16 +183,16 @@ def _mhsa_ref(qkv, n: int, s: int, num_heads: int, want_lse: bool = False,
         lse = (m + torch.log2(l))[..., 0].permute(0, 2, 1)
         out += (lse.reshape(n * s, num_heads).contiguous(),)
     if carry is not None:
-        r = carry.float() * (1.0 / l[..., 0])  # [n, heads, s]
+        r = _f(carry) * (1.0 / l[..., 0])  # [n, heads, s]
         out += ((r[..., None] * p).sum(-2),)
     return out if len(out) > 1 else out[0]
 
 
 def _gemm_residual_ref(a, w, b, ls, x):
-    y = _mm(a, w) + b.float()
+    y = _mm(a, w) + _f(b)
     if ls is not None:
-        y = y * ls.float()
-    return (x.float() + y).to(x.dtype)
+        y = y * _f(ls)
+    return (_f(x) + y).to(x.dtype)
 
 
 def _attn_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls, num_heads,
@@ -245,7 +268,7 @@ def _swiglu_ref(x, ln_s, ln_b, w12, b12, w3, b3, ls, eps=1e-6):
 
 def _ln_recompute(x, eps):
     """LN statistics recomputed from x in f32 -> (xhat, rstd)."""
-    xf = x.float()
+    xf = _f(x)
     mean = xf.mean(-1, keepdim=True)
     var = ((xf - mean) ** 2).mean(-1, keepdim=True)
     rstd = torch.rsqrt(var + eps)
@@ -268,31 +291,51 @@ def _act_grad(a, act: int):
 
 def _gemm_dls_ref(a, w, b, ls, g):
     """(gz = g * ls in the working dtype, dls = sum_m g * (a @ w + b))."""
-    gf = g.float()
-    z = _mm(a, w) + b.float()
-    return (gf * ls.float()).to(g.dtype), (gf * z).sum(0)
+    gf = _f(g)
+    z = _mm(a, w) + _f(b)
+    return (gf * _f(ls)).to(g.dtype), (gf * z).sum(0)
 
 
 def _gemm_wgrad_ref(a, b):
     """(a^T @ b, column sums of b), both f32."""
-    return _mm(a.t(), b), b.float().sum(0)
+    return _mm(a.t(), b), _f(b).sum(0)
+
+
+def _ln_pullback_ref(d, x, g, ln_s, eps):
+    """The LN pullback plus the residual from dh = d (f32) -> (dx, dln_s,
+    dln_b): `_ln_bwd` of mst_tpu/ops/fused_block.py with the kernels'
+    rounding (one cast of dx)."""
+    xhat, rstd = _ln_recompute(x, eps)
+    dxhat = d * _f(ln_s)
+    m1 = dxhat.mean(-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(-1, keepdim=True)
+    dx = (rstd * (dxhat - m1 - xhat * m2) + _f(g)).to(x.dtype)
+    return dx, (d * xhat).sum(0), d.sum(0)
+
+
+def _swiglu_grad(du, h12):
+    """dh12 of the SiLU gate g = silu(h1) * h2 from the f32 du [M, F] and
+    the saved h12 [M, 2F] (`_swiglu_train_bwd`'s order of operations)."""
+    h1, h2 = _f(h12).chunk(2, dim=-1)
+    sig = torch.sigmoid(h1)
+    silu = h1 * sig
+    return torch.cat([du * h2 * (sig + silu * (1.0 - sig)), du * silu], -1)
 
 
 def _gemm_dgrad_ref(dy, w, a=None, act: int = ACT_NONE, ln=None):
     """dy @ w^T (f32), then: with `ln` = (x, g, ln_s, eps) the LN pullback
-    plus the residual -> (dx, dln_s, dln_b); with `a` the GELU' epilogue ->
-    bf16(d * act'(a)); else d in dy's dtype."""
+    plus the residual -> (dx, dln_s, dln_b); with `a` and ACT_SWIGLU the
+    SiLU gate's derivative, a = h12 [M, 2K] -> dh12 [M, 2K] (du rounded to
+    the working dtype first, as the XLA product of `_swiglu_train_bwd`);
+    with `a` the GELU' epilogue -> bf16(d * act'(a)); else d in dy's
+    dtype."""
     d = _mm(dy, w.t())
     if ln is not None:
-        x, g, ln_s, eps = ln
-        xhat, rstd = _ln_recompute(x, eps)
-        dxhat = d * ln_s.float()
-        m1 = dxhat.mean(-1, keepdim=True)
-        m2 = (dxhat * xhat).mean(-1, keepdim=True)
-        dx = (rstd * (dxhat - m1 - xhat * m2) + g.float()).to(x.dtype)
-        return dx, (d * xhat).sum(0), d.sum(0)
+        return _ln_pullback_ref(d, *ln)
+    if act == ACT_SWIGLU:
+        return _swiglu_grad(_f(d.to(dy.dtype)), a).to(dy.dtype)
     if a is not None:
-        return (d * _act_grad(a.float(), act)).to(dy.dtype)
+        return (d * _act_grad(_f(a), act)).to(dy.dtype)
     return d.to(dy.dtype)
 
 
@@ -320,7 +363,7 @@ def _mhsa_bwd_ref(qkv, o, do, lse, n: int, s: int, num_heads: int,
     p = torch.exp2(_mm(q, k.transpose(-1, -2)) * (scale * _LOG2E) - b)
     dv = _mm(p.to(dt).transpose(-1, -2), do_h).to(dt)
     dp = _mm(do_h, v.transpose(-1, -2))
-    delta = (do_h.float() * o_h.float()).sum(-1, keepdim=True)
+    delta = (_f(do_h) * _f(o_h)).sum(-1, keepdim=True)
     ds = ((dp - delta) * p * scale).to(dt)
     dq, dk = _mm(ds, k), _mm(ds.transpose(-1, -2), q)
     if rope:
@@ -392,13 +435,17 @@ def _tables(rope_cos, rope_sin, s, like):
     return rope_cos.data_ptr(), rope_sin.data_ptr()
 
 
-def _count(fn, rope_cos) -> None:
-    """One launch of `fn`'s kernel: under `.rope_launches` for its RoPE
-    form, else `.launches`."""
-    if rope_cos is None:
+def _count(fn, form=None) -> None:
+    """One launch of `fn`'s kernel: under `.form_launches[form]` for one of
+    its forms (`FORMS`), else `.launches`."""
+    if form is None:
         fn.launches += 1
     else:
-        fn.rope_launches += 1
+        fn.form_launches[form] += 1
+
+
+def _rope_form(rope_cos):
+    return None if rope_cos is None else "rope"
 
 
 def ln_gemm(x, ln_s, ln_b, w, b, act: int, eps: float, train: bool = False):
@@ -432,11 +479,13 @@ def ln_gemm(x, ln_s, ln_b, w, b, act: int, eps: float, train: bool = False):
     return (out, h, post) if train else out
 
 
-def ln_gemm_swiglu(x, ln_s, ln_b, w12, b12, eps: float):
+def ln_gemm_swiglu(x, ln_s, ln_b, w12, b12, eps: float, train: bool = False):
     """The gated FFN's first half: x [M, K], w12 [K, 2F] -> g [M, F] =
-    bf16(silu(h1) * h2), [h1 | h2] = LN(x) @ w12 + b12 in f32."""
+    bf16(silu(h1) * h2), [h1 | h2] = LN(x) @ w12 + b12 in f32. With `train`
+    (`_swiglu_train_kernel`, counted apart): (h12, h, g) = (bf16(LN(x) @
+    w12 + b12) [M, 2F], bf16(LN(x)) [M, K], the gate of the rounded h12)."""
     if not _on_cuda(x):
-        return _ln_gemm_swiglu_ref(x, ln_s, ln_b, w12, b12, eps)
+        return _ln_gemm_swiglu_ref(x, ln_s, ln_b, w12, b12, eps, train)
     m, k = x.shape
     f2 = w12.shape[1]
     if k % 32 or k > 1536 or f2 % 128:
@@ -447,17 +496,39 @@ def ln_gemm_swiglu(x, ln_s, ln_b, w12, b12, eps: float):
     ln_s, ln_b = _vec(ln_s, "ln_s", k, x), _vec(ln_b, "ln_b", k, x)
     b12 = _vec(b12, "b12", f2, x)
     out = torch.empty((m, f2 // 2), dtype=x.dtype, device=x.device)
+    h = h12 = None
+    if train:
+        h = torch.empty_like(x)
+        h12 = torch.empty((m, f2), dtype=x.dtype, device=x.device)
     err = _build.lib().mst_ln_gemm_swiglu(
         x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), w12.data_ptr(),
-        b12.data_ptr(), out.data_ptr(), m, k, f2 // 2, float(eps), _stream(x))
+        b12.data_ptr(), out.data_ptr(), _ptr(h), _ptr(h12), m, k, f2 // 2,
+        float(eps), _stream(x))
     _build.check(err, "mst_ln_gemm_swiglu")
-    ln_gemm_swiglu.launches += 1
-    return out
+    _count(ln_gemm_swiglu, "train" if train else None)
+    return (h12, h, out) if train else out
 
 
-# Largest S of `mhsa_abnar`: its block also keeps a [32, S] f32 head sum in
-# shared memory (csrc/mhsa.cu).
-ABNAR_MAX_S = 416
+_SMEM_CAP = 227 * 1024  # dynamic shared memory of one H100 block
+
+
+def abnar_smem_bytes(bq: int, s: int) -> int:
+    """Shared memory of `mhsa_abnar`'s block at a query tile of bq rows
+    (csrc/mhsa.cu `abnar_bytes`): the attention layout (Q tile, K or the
+    f32 output staging, V, the f32 score rows, l), then the [bq, S] f32
+    head sum at a 16-byte boundary."""
+    sp = -(-s // 16) * 16
+    layout = (bq * 72 * 2 + max(sp * 72 * 2, bq * 68 * 4) + sp * 72 * 2
+              + bq * (sp + 4) * 4 + bq * 4)
+    return -(-layout // 16) * 16 + bq * sp * 4
+
+
+def abnar_query_tile(s: int):
+    """The query tile (rows) of `mhsa_abnar`'s kernel at sequence length s,
+    as csrc/mhsa.cu picks it: the largest of 64, 32 and 16 that fits a
+    block; None if none does."""
+    return next((bq for bq in (64, 32, 16)
+                 if abnar_smem_bytes(bq, s) <= _SMEM_CAP), None)
 
 
 def _mhsa_launch(qkv, n: int, s: int, num_heads: int, want_lse=False,
@@ -470,8 +541,8 @@ def _mhsa_launch(qkv, n: int, s: int, num_heads: int, want_lse=False,
     if e != 64 * num_heads or s > 512:
         raise ValueError(f"mhsa needs head dim 64 and S <= 512; got "
                          f"E={e}, heads={num_heads}, S={s}")
-    if want_abnar and s > ABNAR_MAX_S:
-        raise ValueError(f"mhsa_abnar needs S <= {ABNAR_MAX_S}; got S={s}")
+    if want_abnar and abnar_query_tile(s) is None:
+        raise ValueError(f"mhsa_abnar has no query tile that fits S={s}")
     _mat(qkv, "qkv", (n * s, 3 * e), qkv)
     rc, rs = _tables(rope_cos, rope_sin, s, qkv)
     out = torch.empty((n * s, e), dtype=qkv.dtype, device=qkv.device)
@@ -508,7 +579,7 @@ def mhsa(qkv, n: int, s: int, num_heads: int, want_lse: bool = False,
     if not _on_cuda(qkv):
         return _mhsa_ref(qkv, n, s, num_heads, want_lse, **rope)
     ret = _mhsa_launch(qkv, n, s, num_heads, want_lse=want_lse, **rope)
-    _count(mhsa, rope_cos)
+    _count(mhsa, _rope_form(rope_cos))
     return ret
 
 
@@ -520,7 +591,7 @@ def mhsa_with_row(qkv, n: int, s: int, num_heads: int, rope_cos=None,
     if not _on_cuda(qkv):
         return _mhsa_ref(qkv, n, s, num_heads, want_row=True, **rope)
     ret = _mhsa_launch(qkv, n, s, num_heads, want_row=True, **rope)
-    _count(mhsa_with_row, rope_cos)
+    _count(mhsa_with_row, _rope_form(rope_cos))
     return ret
 
 
@@ -536,7 +607,7 @@ def mhsa_rollout(qkv, carry, n: int, s: int, num_heads: int,
                          **rope)
     ret = _mhsa_launch(qkv, n, s, num_heads, want_row=want_row, carry=carry,
                        **rope)
-    _count(mhsa_rollout, rope_cos)
+    _count(mhsa_rollout, _rope_form(rope_cos))
     return ret
 
 
@@ -548,7 +619,7 @@ def mhsa_abnar(qkv, n: int, s: int, num_heads: int, rope_cos=None,
     if not _on_cuda(qkv):
         return _mhsa_ref(qkv, n, s, num_heads, want_abnar=True, **rope)
     ret = _mhsa_launch(qkv, n, s, num_heads, want_abnar=True, **rope)
-    _count(mhsa_abnar, rope_cos)
+    _count(mhsa_abnar, _rope_form(rope_cos))
     return ret
 
 
@@ -600,14 +671,21 @@ def gemm_dls(a, w, b, ls, g):
     return gz, dls
 
 
-# The one width of `gemm_dgrad`'s LN-pullback epilogue: a block of
-# csrc/gemm_dgrad.cu holds whole 384-wide rows for the row statistics.
+# The width of `gemm_dgrad`'s fused LN-pullback epilogue: a block of
+# csrc/gemm_dgrad.cu holds whole 384-wide rows for the row statistics. Other
+# widths up to LN_PULLBACK_MAX_K take the GEMM's f32 output through
+# `ln_pullback`.
 LN_PULLBACK_K = 384
+LN_PULLBACK_MAX_K = 1536
 
 # Target blocks of one gemm_wgrad launch: its [K, N] output is only 9-72
 # tiles of 64 x 128 at ViT-S, so the M rows are split to fill the 132 SMs a
-# few blocks deep.
+# few blocks deep. A split is at most _WGRAD_MAX_ROWS rows long: one f32
+# accumulator's error grows with the rows it adds (on the card ~1.3e-9 of
+# the largest sum per row), so giant2's w12 grad, 1536 x 8192 tiles enough
+# to fill the card unsplit, would add all 65,792 rows in one chain (8e-5).
 _WGRAD_BLOCKS = 1056
+_WGRAD_MAX_ROWS = 8192
 
 
 def gemm_wgrad(a, b):
@@ -623,7 +701,8 @@ def gemm_wgrad(a, b):
     _mat(a, "a", (m, k), b)
     _mat(b, "b", (m, n), b)
     tiles = (k // 64) * (n // 128)
-    splits = max(1, min(-(-_WGRAD_BLOCKS // tiles), -(-m // 256)))
+    splits = max(1, min(-(-_WGRAD_BLOCKS // tiles), -(-m // 256)),
+                 -(-m // _WGRAD_MAX_ROWS))
     rows = -(-(-(-m // splits)) // 32) * 32
     splits = -(-m // rows)
     dw, db = _f32((k, n), b), _f32((n,), b)
@@ -639,19 +718,31 @@ def gemm_wgrad(a, b):
 def gemm_dgrad(dy, w, a=None, act: int = ACT_NONE, ln=None):
     """Input grad of a Dense layer, dy [M, R] @ w[K, R]^T, f32 accumulated,
     with the epilogue of `_gemm_dgrad_ref`: `ln` = (x, g, ln_s, eps) ->
-    (dx, dln_s, dln_b); `a` (with `act`) -> bf16(d * act'(a)); neither ->
-    bf16(d)."""
+    (dx, dln_s, dln_b); `a` = h12 [M, 2K] with ACT_SWIGLU -> dh12 [M, 2K]
+    (counted apart); `a` (with a GELU `act`) -> bf16(d * act'(a)); neither
+    -> bf16(d). The LN pullback is fused at K = LN_PULLBACK_K; at other
+    widths the GEMM writes dh in f32 and `ln_pullback` takes it from there."""
     if not _on_cuda(dy):
         return _gemm_dgrad_ref(dy, w, a, act, ln)
     m, r = dy.shape
     k = w.shape[0]
-    if r % 32 or k % 128 or (ln is not None and k != LN_PULLBACK_K):
+    if r % 32 or k % 128 or (ln is not None and k > LN_PULLBACK_MAX_K):
         raise ValueError(f"gemm_dgrad needs R % 32 == 0 and K % 128 == 0 (K "
-                         f"== {LN_PULLBACK_K} with the LN epilogue); got "
+                         f"<= {LN_PULLBACK_MAX_K} with the LN epilogue); got "
                          f"R={r}, K={k}")
     _mat(dy, "dy", (m, r), dy)
     _mat(w, "w", (k, r), dy)
-    out = torch.empty((m, k), dtype=dy.dtype, device=dy.device)
+    lib = _build.lib()
+    if ln is not None and k != LN_PULLBACK_K:
+        dh = _f32((m, k), dy)
+        err = lib.mst_gemm_dgrad_f32(dy.data_ptr(), w.data_ptr(),
+                                     dh.data_ptr(), m, r, k, _stream(dy))
+        _build.check(err, "mst_gemm_dgrad_f32")
+        _count(gemm_dgrad)
+        return ln_pullback(dh, *ln)
+    swiglu = act == ACT_SWIGLU
+    out = torch.empty((m, 2 * k if swiglu else k), dtype=dy.dtype,
+                      device=dy.device)
     x = g = lns = work = dlns = dlnb = None
     eps = 0.0
     if ln is not None:
@@ -661,16 +752,46 @@ def gemm_dgrad(dy, w, a=None, act: int = ACT_NONE, ln=None):
         lns = _vec(lns, "ln_s", k, dy)
         work = _f32((2 * -(-m // 32), k), dy)
         dlns, dlnb = _f32((k,), dy), _f32((k,), dy)
+    elif swiglu:
+        _mat(a, "h12", (m, 2 * k), dy)
     elif a is not None:
         _mat(a, "a", (m, k), dy)
-    err = _build.lib().mst_gemm_dgrad(
+    err = lib.mst_gemm_dgrad(
         dy.data_ptr(), w.data_ptr(), out.data_ptr(), m, r, k,
         _ptr(None if ln is not None else a), int(act), _ptr(x), _ptr(g),
         _ptr(lns), float(eps), _ptr(work), _ptr(dlns), _ptr(dlnb),
         _stream(dy))
     _build.check(err, "mst_gemm_dgrad")
-    gemm_dgrad.launches += 1
+    _count(gemm_dgrad, "swiglu" if swiglu else None)
     return (out, dlns, dlnb) if ln is not None else out
+
+
+def ln_pullback(dh, x, g, ln_s, eps):
+    """The LN pullback plus the residual from dh [M, K] f32 (the row kernel
+    of `gemm_dgrad`'s LN epilogue at K != LN_PULLBACK_K): x, g [M, K] ->
+    (dx [M, K], dln_s [K] f32, dln_b [K] f32)."""
+    if not _on_cuda(dh):
+        return _ln_pullback_ref(dh, x, g, ln_s, eps)
+    m, k = dh.shape
+    if k % 32 or k > LN_PULLBACK_MAX_K:
+        raise ValueError(f"ln_pullback needs K % 32 == 0 and K <= "
+                         f"{LN_PULLBACK_MAX_K}; got K={k}")
+    if (dh.dtype != torch.float32 or not dh.is_contiguous()
+            or dh.device != x.device):
+        raise ValueError(f"dh must be contiguous f32 on {x.device}")
+    _mat(x, "x", (m, k), x)
+    _mat(g, "g", (m, k), x)
+    lns = _vec(ln_s, "ln_s", k, x)
+    out = torch.empty_like(x)
+    work = _f32((2 * -(-m // 32), k), x)
+    dlns, dlnb = _f32((k,), x), _f32((k,), x)
+    err = _build.lib().mst_ln_pullback(
+        dh.data_ptr(), x.data_ptr(), g.data_ptr(), lns.data_ptr(), float(eps),
+        out.data_ptr(), work.data_ptr(), dlns.data_ptr(), dlnb.data_ptr(), m,
+        k, _stream(x))
+    _build.check(err, "mst_ln_pullback")
+    _count(ln_pullback)
+    return out, dlns, dlnb
 
 
 def mhsa_bwd(qkv, o, do, lse, n: int, s: int, num_heads: int, rope_cos=None,
@@ -702,7 +823,7 @@ def mhsa_bwd(qkv, o, do, lse, n: int, s: int, num_heads: int, rope_cos=None,
         delta.data_ptr(), dqkv.data_ptr(), rc, rs, n, s, e, num_heads,
         1.0 / math.sqrt(64) * _LOG2E, 1.0 / math.sqrt(64), _stream(qkv))
     _build.check(err, "mst_mhsa_bwd")
-    _count(mhsa_bwd, rope_cos)
+    _count(mhsa_bwd, _rope_form(rope_cos))
     return dqkv
 
 
@@ -927,6 +1048,32 @@ def _mlp_train_bwd(ops, g, x, res, ln_s, w1, w2, b2, ls, approximate, eps):
     return dx.reshape(n, s, e), dlns, dlnb, dw1, db1, dw2, db2, dls
 
 
+def _swiglu_train_fwd(ops, x, ln_s, ln_b, w12, b12, w3, b3, ls, eps):
+    """`_swiglu_train_kernel`: -> (y, residuals (h, h12, g)); g = silu(h1)
+    * h2 of the rounded h12 is the w3 input the forward writes anyway, kept
+    so that the backward needs no gate pass of its own (JAX's XLA backward
+    recomputes it from h12; the values are the same)."""
+    n, s, e = x.shape
+    x2 = x.reshape(n * s, e)
+    h12, h, g = ops.ln_gemm_swiglu(x2, ln_s, ln_b, w12, b12, eps, train=True)
+    y = ops.gemm_residual(g, w3, b3, ls, x2)
+    return y.reshape(n, s, e), (h, h12, g)
+
+
+def _swiglu_train_bwd(ops, gout, x, res, ln_s, w12, w3, b3, ls, eps):
+    """`_swiglu_train_bwd` on the kernels: -> (dx, dln_s, dln_b, dw12, db12,
+    dw3, db3, dls | None), the grads f32."""
+    h, h12, g = res
+    n, s, e = x.shape
+    x2, g2 = x.reshape(n * s, e), gout.reshape(n * s, e)
+    gz, dls = (g2, None) if ls is None else ops.gemm_dls(g, w3, b3, ls, g2)
+    dw3, db3 = ops.gemm_wgrad(g, gz)
+    dh12 = ops.gemm_dgrad(gz, w3, a=h12, act=ACT_SWIGLU)
+    dw12, db12 = ops.gemm_wgrad(h, dh12)
+    dx, dlns, dlnb = ops.gemm_dgrad(dh12, w12, ln=(x2, g2, ln_s, eps))
+    return dx.reshape(n, s, e), dlns, dlnb, dw12, db12, dw3, db3, dls
+
+
 def _grads_like(grads, params):
     """Each grad in its parameter's shape and dtype (JAX's `_cast_like`)."""
     return tuple(None if p is None else gr.to(p.dtype).reshape(p.shape)
@@ -990,6 +1137,31 @@ class _MlpTrain(torch.autograd.Function):
         return (None, dx, *grads, None, None)
 
 
+class _SwigluTrain(torch.autograd.Function):
+    """`fused_swiglu_sublayer_train`'s custom VJP (as `_AttnTrain`)."""
+
+    @staticmethod
+    def forward(ctx, ops, x, ln_s, ln_b, w12, b12, w3, b3, ls, eps):
+        x = x.detach()
+        w12c, w3c = w12.detach().to(x.dtype), w3.detach().to(x.dtype)
+        y, res = _swiglu_train_fwd(ops, x, ln_s, ln_b, w12c, b12, w3c, b3, ls,
+                                   eps)
+        ctx.save_for_backward(x, *res, ln_s, ln_b, w12c, b12, w3c, b3, ls,
+                              w12, w3)
+        ctx.ops, ctx.eps = ops, eps
+        return y
+
+    @staticmethod
+    def backward(ctx, gout):
+        (x, h, h12, g, ln_s, ln_b, w12c, b12, w3c, b3, ls, w12,
+         w3) = ctx.saved_tensors
+        dx, *grads = _swiglu_train_bwd(
+            ctx.ops, gout.to(x.dtype).contiguous(), x, (h, h12, g), ln_s,
+            w12c, w3c, b3, ls, ctx.eps)
+        grads = _grads_like(grads, (ln_s, ln_b, w12, b12, w3, b3, ls))
+        return (None, dx, *grads, None)
+
+
 def fused_attention_sublayer_train(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
                                    ls, num_heads, eps=1e-6, ops=KERNELS):
     """y = x + ls * proj(MHSA(LN(x))), differentiable in every argument
@@ -1028,27 +1200,33 @@ def fused_mlp_sublayer_train(x, ln_s, ln_b, w1, b1, w2, b2, ls, approximate,
 
 
 def fused_swiglu_sublayer_train(x, ln_s, ln_b, w12, b12, w3, b3, ls,
-                                eps=1e-6):
-    """The residual-saving SwiGLU sub-layer (`_swiglu_train_kernel` and its
-    XLA backward) carries only the unfrozen giant2 train step, a later
-    slice."""
-    raise NotImplementedError(
-        "the SwiGLU train sub-layer (queue B row 6, `_swiglu_train_kernel`, "
-        "and its backward) is not ported to mst_tpu_torch yet: unfrozen "
-        "giant2 training is ROADMAP queue A #12; train with --freeze")
+                                eps=1e-6, ops=KERNELS):
+    """y = x + ls * w3(silu(h1) * h2), [h1 | h2] = w12(LN(x)), the giant2
+    FFN differentiable as `fused_attention_sublayer_train`: the forward
+    saves h, h12 and the gate g (`_swiglu_train_kernel`), the backward is
+    the kernel chain of `_swiglu_train_bwd`."""
+    y = _SwigluTrain.apply(ops, x, ln_s, ln_b, w12, b12, w3, b3, ls, eps)
+    if ops is KERNELS and _on_cuda(x):
+        fused_swiglu_sublayer_train.calls += 1
+    return y
 
 
 # `.launches` of a kernel wrapper counts its kernel's launches and
-# `.rope_launches` those of its RoPE form (`<name>_rope` in
-# `launch_counts()`); `.calls` of a sub-layer counts the calls that ran its
+# `.form_launches[form]` those of each of its forms (`<name>_<form>` in
+# `launch_counts()`): the RoPE forms of the attention kernels, the train
+# mode of `ln_gemm_swiglu` (queue B row 6) and the SiLU-gate epilogue of
+# `gemm_dgrad`. `.calls` of a sub-layer counts the calls that ran its
 # kernel chain (it launches nothing itself). None moves on the CPU path.
 KERNEL_WRAPPERS = (ln_gemm, mhsa, gemm_residual, gemm_dls, gemm_wgrad,
                    gemm_dgrad, mhsa_bwd, mhsa_with_row, mhsa_rollout,
-                   mhsa_abnar, ln_gemm_swiglu)
-ROPE_WRAPPERS = (mhsa, mhsa_with_row, mhsa_rollout, mhsa_abnar, mhsa_bwd)
+                   mhsa_abnar, ln_gemm_swiglu, ln_pullback)
+FORMS = {mhsa: ("rope",), mhsa_with_row: ("rope",), mhsa_rollout: ("rope",),
+         mhsa_abnar: ("rope",), mhsa_bwd: ("rope",),
+         ln_gemm_swiglu: ("train",), gemm_dgrad: ("swiglu",)}
 SUBLAYER_WRAPPERS = (fused_attention_sublayer, fused_mlp_sublayer,
                      fused_swiglu_sublayer,
                      fused_attention_sublayer_train, fused_mlp_sublayer_train,
+                     fused_swiglu_sublayer_train,
                      fused_attention_sublayer_with_row,
                      fused_attention_sublayer_rollout,
                      fused_attention_sublayer_abnar,
@@ -1060,16 +1238,15 @@ SUBLAYER_WRAPPERS = (fused_attention_sublayer, fused_mlp_sublayer,
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
-    for fn in ROPE_WRAPPERS:
-        fn.rope_launches = 0
+        fn.form_launches = dict.fromkeys(FORMS.get(fn, ()), 0)
     for fn in SUBLAYER_WRAPPERS:
         fn.calls = 0
 
 
 def launch_counts() -> dict:
     return {**{fn.__name__: fn.launches for fn in KERNEL_WRAPPERS},
-            **{fn.__name__ + "_rope": fn.rope_launches
-               for fn in ROPE_WRAPPERS}}
+            **{f"{fn.__name__}_{form}": n for fn in KERNEL_WRAPPERS
+               for form, n in fn.form_launches.items()}}
 
 
 def sublayer_calls() -> dict:

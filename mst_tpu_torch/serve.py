@@ -223,7 +223,7 @@ _HPARAM_KEYS = (
     "use_slice_pos_emb", "freeze", "fusion_heads", "num_register_tokens",
     "pos_embed_grid", "layerscale_init", "gelu_approximate", "use_rope_2d",
     "patch_size", "use_pos_embed", "rope_normalized", "norm_eps",
-    "ffn_layer", "ffn_hidden", "fusion_layers", "rope_theta",
+    "ffn_layer", "ffn_hidden", "fusion_layers", "rope_theta", "remat",
 )
 
 

@@ -2,24 +2,28 @@
 
     python -m mst_tpu_torch.train --dataset Synthetic \
         [--model DinoV2ClassifierSlice | DinoV3ClassifierSlice] \
-        [--model_size small | base | large | giant2] [--freeze] \
+        [--model_size small | base | large | giant2] [--freeze | --remat] \
         [--batch_size 2] [--max_epochs 1000] [--num_train_samples 2000] [--patience 10] \
         [--dtype bfloat16] [--seed 0] [--lr LR] [--run_dir runs] \
-        [--use_bottleneck] [--use_slice_pos_emb] [--use_registers]
+        [--fusion_heads 12] [--use_bottleneck] [--use_slice_pos_emb] \
+        [--use_registers]
 
 It trains MST-DINOv2 ViT-S/14 (`--model DinoV3ClassifierSlice`: MST-DINOv3
-ViT-S/16 with 4 registers and 2D RoPE; `--model_size giant2 --freeze`:
-the giant2 encoder with its SwiGLU FFN, frozen, under a trained slice
-fusion and head) on the CUDA card from seeded random weights (pretrained
-weights are not in the repository) with the reference's recipe: class-balanced weighted sampling, AdamW at the model's learning
-rate, val/AUC_ROC early stopping, the top-1 checkpoint in
+ViT-S/16 with 4 registers and 2D RoPE; `--model_size base | large |
+giant2`: ViT-B/14, ViT-L/14 or the giant2 encoder with its SwiGLU FFN,
+unfrozen, with `--remat` to fit ViT-L and giant2 on one card; `--freeze`:
+the encoder frozen under a trained slice fusion and head) on the CUDA card
+from seeded random weights (pretrained weights are not in the repository)
+with the reference's recipe: class-balanced weighted sampling, AdamW at the
+model's learning rate, val/AUC_ROC early stopping, the top-1 checkpoint in
 `<run_dir>/<dataset>/<model>_<stamp>/epoch=N/params.npz`, which
 `python -m mst_tpu_torch.serve --params_npz` (DINOv2) or `--run_folder`
 (any model: the run's hparams record the model's options) serves. The
 flags keep their JAX names and defaults; the reference datasets (the
-default `LIDC` among them), the flags of features not ported yet and an
-unfrozen encoder wider than ViT-S on the card (`DinoSliceClassifier.
-check_trainable`) are ROADMAP queue A items.
+default `LIDC` among them), the flags of features not ported yet
+(Adafactor, gradient accumulation) and an encoder whose widths the train
+kernels do not take (`DinoSliceClassifier.check_trainable`) are ROADMAP
+queue A items.
 `build_model`, `build_datamodule` and `build_trainer` are split from
 `main` so that tests and `chip_smoke.py` drive the CLI's own builders.
 """
@@ -52,6 +56,12 @@ def parse_args(argv=None):
     ap.add_argument("--freeze", action="store_true",
                     help="train the slice fusion and head on a frozen "
                          "encoder (the encoder runs on the serving kernels)")
+    ap.add_argument("--remat", action="store_true",
+                    help="per-block gradient rematerialisation "
+                         "(torch.utils.checkpoint): the backward recomputes "
+                         "each encoder block instead of storing its "
+                         "residuals, so that unfrozen ViT-L and giant2 fit "
+                         "one card")
     ap.add_argument("--run_dir", default="runs")
     ap.add_argument("--batch_size", type=int, default=2)
     ap.add_argument("--max_epochs", type=int, default=1000)
@@ -62,6 +72,9 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--lr", type=float, default=None,
                     help="override the model's default learning rate")
+    ap.add_argument("--fusion_heads", type=int, default=12,
+                    help="heads of the slice-fusion layer; they must divide "
+                         "its width (ViT-L's 1024: e.g. 16)")
     ap.add_argument("--use_bottleneck", action="store_true")
     ap.add_argument("--use_slice_pos_emb", action="store_true")
     ap.add_argument("--use_registers", action="store_true")
@@ -69,11 +82,16 @@ def parse_args(argv=None):
 
 
 def model_kwargs(args) -> dict:
-    """The model options the flags set, but for --model_size, which
-    `build_model` passes itself. The register count only with
+    """The model options the flags set, but for --model_size and
+    --fusion_heads, which `build_model` passes itself. The register count only with
     --use_registers, as the JAX CLI: otherwise the model's default stands
-    (0 for DINOv2, 4 for DINOv3)."""
-    kw = dict(freeze=args.freeze, use_bottleneck=args.use_bottleneck,
+    (0 for DINOv2, 4 for DINOv3). --remat is refused for the ResNets, as
+    `scripts/main_train.py` does."""
+    if args.remat and not args.model.startswith("Dino"):
+        raise SystemExit("--remat applies to the Dino ViT encoders; the "
+                         "ResNet activations fit the card without it")
+    kw = dict(freeze=args.freeze, remat=args.remat,
+              use_bottleneck=args.use_bottleneck,
               use_slice_pos_emb=args.use_slice_pos_emb)
     if args.use_registers:
         kw["num_register_tokens"] = 4
@@ -84,7 +102,8 @@ def build_model(args):
     """-> args.model at --model_size on the CUDA card in --dtype
     (parameters f32; the trainer's `init_state` draws them)."""
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    return get_model(args.model, model_size=args.model_size, dtype=dtype,
+    return get_model(args.model, model_size=args.model_size,
+                     fusion_heads=args.fusion_heads, dtype=dtype,
                      **model_kwargs(args)).to(torch.device("cuda"))
 
 

@@ -6,8 +6,9 @@ Counterpart of `mst_tpu/train/trainer.py` on one card, for the fused path
 
 - the step runs `fused_mst_logits(train=True)` (every block but the last
   on the residual-saving sub-layers, whose backward is a chain of
-  hand-written kernels; a frozen encoder on the serving sub-layers under
-  `no_grad`), CE in f32, `loss.backward()`, and an AdamW update set up as
+  hand-written kernels, each block checkpointed with the model's `remat`;
+  a frozen encoder on the serving sub-layers under `no_grad`), CE in f32,
+  `loss.backward()`, and an AdamW update set up as
   optax `adamw` (b1 0.9, b2 0.999, eps 1e-8, decoupled weight decay on
   every parameter it holds, constant learning rate; with a frozen encoder
   over the slice fusion and head only);
@@ -19,9 +20,9 @@ Counterpart of `mst_tpu/train/trainer.py` on one card, for the fused path
   `epoch=N/` checkpoint with `best_checkpoint.json`, and early stopping
   with patience and `min_epochs`.
 
-LR schedules, grad clipping, Adafactor, gradient accumulation, `--remat`
-and the resumable `last` state are later ROADMAP items (queue A #4's
-remainder, #12).
+LR schedules, grad clipping, Adafactor, gradient accumulation and the
+resumable `last` state are later ROADMAP items (queue A #4's remainder,
+#12).
 """
 
 from __future__ import annotations

@@ -12,7 +12,8 @@ against `mst_tpu`, in f32 on the same numpy inputs:
 - frozen training: two AdamW steps against the JAX `make_train_step` with
   `make_optimizer(freeze_encoder=True)`, and the train CLI's build
   functions with `--freeze` through a run folder, `serve` and `predict`;
-- the refusals of what the card cannot train yet (ROADMAP queue A #12).
+- the boundary of what the card's train kernels take (`check_trainable`);
+  unfrozen SwiGLU training itself is tests/test_torch_unfrozen.py.
 
 On the CPU every kernel wrapper takes its plain version, so these tests pin
 the plain versions the CUDA kernels are checked against on the card
@@ -42,6 +43,7 @@ from mst_tpu_torch.models.mst import (
     dino_v2_classifier_slice,
     dino_v3_classifier_slice,
 )
+from mst_tpu_torch.models import vit_fast
 from mst_tpu_torch.models.vit import VisionTransformer
 from mst_tpu_torch.models.vit_fast import fused_mst_logits, fused_mst_saliency
 from mst_tpu_torch.ops import fused_block as tfb
@@ -125,12 +127,22 @@ def test_swiglu_sublayer_matches_mst_tpu(hidden, with_ls, eps):
 
 
 def test_swiglu_train_sublayer_and_unported_widths_raise():
-    x = torch.zeros(1, 3, 64)
-    vec = torch.zeros(64)
-    with pytest.raises(NotImplementedError, match="queue A #12"):
-        tfb.fused_swiglu_sublayer_train(x, vec, vec, torch.zeros(64, 256),
-                                        torch.zeros(256), torch.zeros(128, 64),
-                                        vec, None)
+    """The SwiGLU train sub-layer runs (queue B row 6 is ported): its
+    forward equals the serving sub-layer's in f32 (in f32 the gate of the
+    rounded h12 is the gate of h12). The FFN width rule and its override
+    hold, and an unknown FFN raises."""
+    rng = np.random.default_rng(12)
+    x, w12, w3 = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                  for s in ((1, 3, 64), (64, 256), (128, 64)))
+    vec = torch.from_numpy((1 + 0.1 * rng.standard_normal(64)).astype(
+        np.float32))
+    b12 = torch.zeros(256)
+    tfb.reset_launch_counts()
+    y = tfb.fused_swiglu_sublayer_train(x, vec, vec, w12, b12, w3, vec, None)
+    _no_launches()
+    assert y.shape == (1, 3, 64) and bool(torch.isfinite(y).all())
+    _close(y.numpy(), tfb.fused_swiglu_sublayer(x, vec, vec, w12, b12, w3,
+                                                vec, None).numpy())
     # the FFN width rule (mst_tpu/models/layers.py:82-83) and its override
     for e, kw, want in ((1536, {}, 4096), (128, {}, 344),
                         (128, dict(ffn_hidden=256), 256)):
@@ -359,37 +371,58 @@ def test_train_cli_frozen_run_folder_serves_and_predicts(tmp_path):
         assert 0.0 <= float(r["NN_pred"]) <= 1.0
 
 
-# -- what the card cannot train yet -------------------------------------------------
+# -- what the card's train kernels take ---------------------------------------------
 
 
-def test_encoder_train_guard_is_a_function_of_the_config():
-    """`check_trainable` refuses, naming ROADMAP queue A #12: an unfrozen
-    SwiGLU encoder anywhere, and on a CUDA device an unfrozen encoder whose
-    width is not the LN-pullback kernel's 384. The CPU path trains any MLP
-    width; a frozen encoder trains at any size and width."""
+def test_encoder_train_guard_is_a_function_of_the_config(monkeypatch):
+    """`check_trainable` refuses on a CUDA device, naming what is missing
+    and ROADMAP queue A #12, an unfrozen encoder whose widths the train
+    kernels do not take: E % 128 != 0 (the LN pullback), a head dim other
+    than 64, an FFN width % 128 != 0 (the 2/3 rule's 344 at E = 128).
+    Every DINOv2 size trains unfrozen on both devices (ViT-S/B/L, giant2
+    with its SwiGLU FFN); the CPU path trains any width; a frozen encoder
+    trains at any size and width."""
     with torch.device("meta"):
         build = dict(
             small=dino_v2_classifier_slice(),
             base=dino_v2_classifier_slice(model_size="base"),
-            giant2=dino_v2_classifier_slice(model_size="giant2"),
+            large=dino_v2_classifier_slice(model_size="large", remat=True,
+                                           fusion_heads=16),
+            giant2=dino_v2_classifier_slice(model_size="giant2", remat=True),
             giant2_frozen=dino_v2_classifier_slice(model_size="giant2",
                                                    freeze=True),
             base_frozen=dino_v2_classifier_slice(model_size="base",
                                                  freeze=True),
             tiny128=dino_v2_classifier_slice(model_size="tiny128",
-                                             fusion_heads=4))
-    for name in ("small", "giant2_frozen", "base_frozen"):
+                                             fusion_heads=4),
+            tiny=dino_v2_classifier_slice(model_size="tiny", fusion_heads=4),
+            tiny_frozen=dino_v2_classifier_slice(model_size="tiny",
+                                                 fusion_heads=4, freeze=True),
+            gated=DinoSliceClassifier(**GATED))
+    for name in ("small", "base", "large", "giant2", "giant2_frozen",
+                 "base_frozen", "tiny128", "tiny_frozen"):
         for device in ("cuda", "cpu"):
             build[name].check_trainable(device)
-    for name in ("base", "tiny128"):
+    for name, what in (("tiny", r"embed_dim % 128 == 0.*head dim of 64"),
+                       ("gated", r"FFN width % 128 == 0")):
         build[name].check_trainable("cpu")
-        with pytest.raises(NotImplementedError, match=r"queue A #12.*freeze"):
+        with pytest.raises(NotImplementedError,
+                           match=rf"{what}.*queue A #12.*freeze"):
             build[name].check_trainable(torch.device("cuda"))
-    for device in ("cuda", "cpu"):
-        with pytest.raises(NotImplementedError, match=r"queue A #12.*freeze"):
-            build["giant2"].check_trainable(device)
-    # the train step refuses at its forward's entry, before any work
+    # the train step refuses at its forward's entry, before any work, with
+    # the device's answer (here the card's, for a CPU batch)
     m = DinoSliceClassifier(**GATED)
+    seen = []
+
+    def as_on_the_card(device):
+        seen.append(torch.device(device).type)
+        DinoSliceClassifier.check_trainable(m, "cuda")
+
+    def no_work(*a, **k):
+        raise AssertionError("forward work before the refusal")
+
+    monkeypatch.setattr(m, "check_trainable", as_on_the_card)
+    monkeypatch.setattr(vit_fast, "prepare_vit_tokens", no_work)
     step = make_train_step(TrainState(m, make_optimizer(m.parameters())))
     tfb.reset_launch_counts()
     with pytest.raises(NotImplementedError, match="queue A #12"):
@@ -397,3 +430,4 @@ def test_encoder_train_guard_is_a_function_of_the_config():
     _no_launches()
     with pytest.raises(NotImplementedError, match="queue A #12"):
         fused_mst_logits(m, torch.zeros(1, 1, 1, 28, 28), train=True)
+    assert seen == ["cpu", "cpu"]
