@@ -133,6 +133,34 @@ fine-tunes: DINOv2 ViT-B/14 (E 768, 12 heads), ViT-L/14 (E 1024, 16 heads,
 30. times: the B=8 steps of ViT-B, ViT-L and giant2 (remat): ms, vol/s,
    peak memory, a `torch.profiler` breakdown of each.
 
+Phases 31-33 drive W8A8 int8 serving (queue B rows 9-11, `serve --int8`
+and `predict --int8 [--int8_calib N]`):
+
+31. int8 kernels: `ln_gemm_i8` in each epilogue mode (bf16 qkv, f32 GELU,
+   static int8 GELU; the gated `ln_gemm_i8_swiglu` in f32 and int8),
+   dynamic and static, `quant_rows` on the bf16 attention output and the
+   f32 hidden, `gemm_i8_residual` with and without LayerScale, and the int8
+   attention sub-layer in its plain, CLS-row, rollout-carry (two chained
+   blocks), Abnar and RoPE forms, the int8 MLP and SwiGLU sub-layers, at
+   [256, 257, 384] ([256, 201, 384] for RoPE; [256, 257, 1536] with
+   F = 4096 for the SwiGLU and an E = 1536 attention), against their plain
+   versions, each run twice for the same bits;
+32. ViT-S/14 int8 at B=8, phase 4's weights quantized by `serve --int8`'s
+   `build_model`, dynamic and static (calibrated on 8 volumes of the
+   generator of the checked ones): kernel path vs the plain int8 path and
+   vs the bf16 kernel path (probs, argmax), launch counts, the three
+   saliency modes vs plain; `serve --int8 [--int8_calib 8] --run_folder` on
+   phase 9's run folder answers a POST, and its model (static: calibrated
+   on the run's val split) holds the same bar against the run's bf16 model
+   on the run's test split; `predict --int8 --int8_calib 4 --use_tta
+   --use_rollout` writes results.csv;
+33. giant2 int8: phase 28's unfrozen giant2 quantized on the card, its B=4
+   forward vs its bf16 kernel path, launch counts; then the int8 kernels'
+   and chains' times against their plain versions, bounds and library
+   calls (`torch._int_mm` between the same LN, quantization and
+   dequantization in torch ops), B=8 vol/s of ViT-S dynamic and static and
+   of giant2 beside the bf16 path, peak memory, `torch.profiler` tables.
+
 Each phase prints its wall time. The line before the last is `{"kernels":
 [...]}`: per kernel its launches on the main path, its largest error, its
 time and its plain version's, the bound (the least time the card could
@@ -243,9 +271,20 @@ N_CASES3 = 2  # Synthetic test volumes its predict CLI run scores
 # giant2 (phases 21-25): the fewest test volumes whose predict.log has an
 # AUC (both classes)
 N_CASES_G = 2
-# Bounds: the H100 SXM's published dense bf16 tensor-core rate and HBM3
-# bandwidth (NVIDIA data sheet, at its 700 W limit).
-PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+# Bounds: the H100 SXM's published dense bf16 and int8 tensor-core rates
+# and HBM3 bandwidth (NVIDIA data sheet, at its 700 W limit).
+PEAK_FLOPS, PEAK_INT8, PEAK_BYTES = 989e12, 1979e12, 3.35e12
+# Int8 phases (31-33). A kernel's int8 codes may differ from its plain
+# version's where an f32 LN or GELU, summed in another order, lands on the
+# other side of a .5 tie: at most CODE_FRAC of them, each by one.
+CODE_FRAC = 1e-4
+# The int8 forward against the bf16 kernel path: the JAX suite's bar
+# (tests/test_fused_int8.py:91-94), probs within I8_TOL, argmax agreeing on
+# every volume whose bf16 probs lie further than I8_TOL from the class
+# boundary (a move within the limit may cross it: on an H100 one of phase
+# 32's volumes read 0.4954 in bf16 and 0.5061 in int8), and at least half
+# of the volumes so far from it.
+I8_TOL = 0.05
 T0 = time.perf_counter()
 
 
@@ -288,10 +327,21 @@ def attn_cost(n, s, extra=0, bwd=False, heads=HEADS):
     return 4 * n * heads * s * s * 64, 2 * (m * 3 * e + m * e) + extra
 
 
+def i8_cost(m, k, n, a_bytes=1, out_bytes=2, extra=0):
+    """(FLOPs, bytes, int8 operations) of an int8 [m, k] @ [k, n] product
+    whose A arrives at `a_bytes` per element (codes 1, a bf16 row that the
+    kernel normalises and quantizes itself 2), whose int8 W is read once and
+    whose result leaves at `out_bytes` per element, plus `extra` bytes."""
+    return 0, a_bytes * m * k + k * n + out_bytes * m * n + extra, 2 * m * k * n
+
+
 def bound(costs):
     """(ms, "operations" | "bytes"): the least time the card could take
-    for calls of these (FLOPs, bytes), at the published peaks."""
-    t_op = sum(c[0] for c in costs) / PEAK_FLOPS * 1e3
+    for calls of these (FLOPs, bytes[, int8 operations]), at the published
+    peaks: bf16 FLOPs at PEAK_FLOPS plus int8 operations at PEAK_INT8,
+    against bytes at PEAK_BYTES."""
+    t_op = sum(c[0] / PEAK_FLOPS + (c[2] if len(c) > 2 else 0) / PEAK_INT8
+               for c in costs) * 1e3
     t_by = sum(c[1] for c in costs) / PEAK_BYTES * 1e3
     return max(t_op, t_by), "operations" if t_op >= t_by else "bytes"
 
@@ -328,14 +378,9 @@ def padding_mask(b: int) -> np.ndarray:
     return m
 
 
-def spread_volumes(rng, predict, n: int, pool: int = 48) -> np.ndarray:
-    """n seeded [1, D, H, W] volumes whose probs lie far apart.
-
-    A random-weight model gives noise volumes nearly equal probs, and then
-    a limit on |probs - reference| cannot tell a row of the wrong volume or
-    slot. So `pool` candidates are drawn (noise of its own scale, offset
-    and 56-pixel block pattern each) and n are kept greedily, each the one
-    furthest from those already kept, on the probs of the kernel path."""
+def candidate_volumes(rng, pool: int) -> np.ndarray:
+    """`pool` seeded [1, D, H, W] volumes, each noise of its own scale,
+    offset and 56-pixel block pattern."""
     f32, one = np.float32, (pool, 1, 1, 1, 1)
     cand = rng.standard_normal((pool, 1, DEPTH_SLICES, PX, PX), dtype=f32)
     cand *= rng.uniform(0.25, 2.0, one).astype(f32)
@@ -343,15 +388,37 @@ def spread_volumes(rng, predict, n: int, pool: int = 48) -> np.ndarray:
     blocks = rng.standard_normal((pool, 1, DEPTH_SLICES, 4, 4), dtype=f32)
     blocks *= rng.uniform(0.0, 2.0, one).astype(f32)
     cand += np.repeat(np.repeat(blocks, PX // 4, axis=3), PX // 4, axis=4)
-    probs = np.concatenate([predict(cand[i:i + BATCH], None)[0].cpu().numpy()
-                            for i in range(0, pool, BATCH)])
-    gaps = row_gaps(probs)
+    return cand
+
+
+def batched_probs(predict, vols) -> np.ndarray:
+    """`predict`'s probs of `vols`, BATCH volumes per call."""
+    return np.concatenate([predict(vols[i:i + BATCH], None)[0].cpu().numpy()
+                           for i in range(0, len(vols), BATCH)])
+
+
+def pick_spread(gaps, probs, n: int) -> list:
+    """n indices kept greedily from [pool, pool] distances `gaps`, each the
+    one furthest from those already kept, starting at the lowest class-0
+    prob of `probs`."""
     keep = [int(np.argmin(probs[:, 0]))]
     while len(keep) < n:
         nearest = gaps[:, keep].min(axis=1)
         nearest[keep] = -1.0
         keep.append(int(np.argmax(nearest)))
-    return cand[keep]
+    return keep
+
+
+def spread_volumes(rng, predict, n: int, pool: int = 48) -> np.ndarray:
+    """n seeded [1, D, H, W] volumes whose probs lie far apart.
+
+    A random-weight model gives noise volumes nearly equal probs, and then
+    a limit on |probs - reference| cannot tell a row of the wrong volume or
+    slot. So `pool` candidates are drawn (`candidate_volumes`) and n are
+    kept (`pick_spread`) on the probs of the kernel path."""
+    cand = candidate_volumes(rng, pool)
+    probs = batched_probs(predict, cand)
+    return cand[pick_spread(row_gaps(probs), probs, n)]
 
 
 def time_ms(fn, n: int = 20, warmup: int = 3) -> float:
@@ -399,6 +466,330 @@ def check_outputs(tag, name, kern, plain, rel) -> float:
     return worst
 
 
+def argmax_agreement(probs, ref):
+    """(agreeing, held): per volume whether the argmax of `probs` is that of
+    `ref`, and whether that volume is held to it (its `ref` top-two margin
+    exceeds 2 * I8_TOL, i.e. its probs lie further than I8_TOL from the
+    boundary); half of the volumes at least must be held."""
+    top2 = ref.topk(2, -1).values
+    held = ((top2[:, 0] - top2[:, 1]) > 2 * I8_TOL).tolist()
+    agree = (probs.argmax(-1) == ref.argmax(-1)).tolist()
+    check(2 * sum(held) >= len(held), f"only {sum(held)} of {len(held)} "
+          f"volumes lie further than {I8_TOL} from the class boundary")
+    return agree, held
+
+
+def code_diff(a, b):
+    """(how many, largest step, share) of int8 codes a that differ from b."""
+    d = (a.int() - b.int()).abs()
+    nd = int((d > 0).sum())
+    return nd, int(d.max()), nd / d.numel()
+
+
+def check_int8(tag, name, kern, plain, rel=None) -> float:
+    """`check_outputs` for the int8 kernels and chains: int8 codes may
+    differ from the plain version's at .5 ties (at most CODE_FRAC of them,
+    each by one); bf16 outputs within 2 bf16 ulps at the plain output's
+    largest magnitude; f32 outputs within `rel` times it, or with `rel`
+    None within 2 bf16 ulps (a row scale, or the FFN hidden, where a code
+    flipped upstream moves a whole row by one product step, ~1e-3 of its
+    largest value). The hidden is next quantized per token, so its codes
+    under the plain `_quant_rows` are held as the kernels' codes are, and
+    a hidden rounded to bf16 first (planted) must break that limit.
+    Returns the largest absolute error (codes in steps)."""
+    from mst_tpu_torch.ops.fused_int8 import _quant_rows_ref
+
+    kern = tuple(kern) if isinstance(kern, (tuple, list)) else (kern,)
+    plain = tuple(plain) if isinstance(plain, (tuple, list)) else (plain,)
+    check(len(kern) == len(plain), f"{name}: {len(kern)} != {len(plain)}")
+    worst = 0.0
+    for i, (k, pl) in enumerate(zip(kern, plain)):
+        label = f"{name}[{i}]"
+        check(tuple(k.shape) == tuple(pl.shape) and k.dtype == pl.dtype,
+              f"{label}: {tuple(k.shape)} {k.dtype} != {tuple(pl.shape)} "
+              f"{pl.dtype}")
+        if k.dtype == torch.int8:
+            nd, top, frac = code_diff(k, pl)
+            print(f"{tag} {label}: {list(k.shape)} int8 codes differing "
+                  f"{nd} of {k.numel()} ({frac:.3g}, limit {CODE_FRAC}), by "
+                  f"at most {top} (limit 1)")
+            check(top <= 1 and frac <= CODE_FRAC, f"{label}: {nd} codes "
+                  f"differ, by up to {top}")
+            worst = max(worst, float(top))
+        elif k.dtype == torch.float32 and rel is None:
+            check(bool(torch.isfinite(k).all()), f"{label}: non-finite")
+            scale = pl.abs().max().item()
+            err = (k - pl).abs().max().item()
+            lim = 2 * ulp_bf16(scale)
+            print(f"{tag} {label}: {list(k.shape)} float32 max_abs_err="
+                  f"{err:.6g} limit={lim:.6g} (2 bf16 ulps; |plain|max="
+                  f"{scale:.6g})")
+            check(err <= lim, f"{label}: max_abs_err {err} > {lim}")
+            worst = max(worst, err)
+            if k.dim() == 2:  # the FFN hidden
+                rows = int(((k - pl).abs() > KERNEL_GRAD_REL * scale).any(-1)
+                           .sum())
+                want = _quant_rows_ref(pl)[0]
+                nd, top, frac = code_diff(_quant_rows_ref(k)[0], want)
+                nf, _, ffrac = code_diff(
+                    _quant_rows_ref(pl.to(torch.bfloat16))[0], want)
+                print(f"{tag} {label}: rows with an element further than "
+                      f"{KERNEL_GRAD_REL} x |plain|max from plain {rows} of "
+                      f"{k.shape[0]}; its per-token codes differing {nd} of "
+                      f"{k.numel()} ({frac:.3g}, limit {CODE_FRAC}), by at "
+                      f"most {top} (limit 1); the plain hidden rounded to "
+                      f"bf16 first (planted) {nf} ({ffrac:.3g}, must exceed "
+                      f"the limit)")
+                check(top <= 1 and frac <= CODE_FRAC < ffrac,
+                      f"{label}: hidden codes {nd} / planted {nf} differ")
+        else:
+            worst = max(worst, check_outputs(tag, label, k, pl, rel))
+    return worst
+
+
+def int8_cases(dev, rng, fb, fq, layers):
+    """Phase 31's cases: {name: (kernel thunk, plain thunk, f32 limit)},
+    {name: cost}, {name: library thunk}. Each int8 kernel in every mode and
+    each int8 sub-layer in every flag form, at the ViT-S B=8 path shapes
+    [256, 257, 384] (RoPE at [256, 201, 384]) and giant2's [256, 257, 1536]
+    with F = 4096, on seeded weights quantized on the card. The static
+    inputs are folded as `_fold_static_scales` folds, from this data's own
+    abs-maxima with the calibration margin 1.05. The library thunks are
+    the same function in torch ops around `torch._int_mm` (LN, quantization,
+    the integer product, dequantization), timed as a yardstick only."""
+    bf, eps, rel = torch.bfloat16, 1e-6, 3e-3  # rel: a chain's f32 outputs
+    E4, EG, FG, HG = 4 * E, 1536, 4096, 24
+    M = N_SLICES * S
+
+    def rand(*shape, scale=1.0, off=0.0, dtype=torch.float32):
+        arr = off + scale * rng.standard_normal(shape)
+        return torch.from_numpy(arr.astype(np.float32)).to(dev, dtype)
+
+    def node(k, n):
+        q, sc = fq.quantize_weight_int8(rand(k, n, scale=k ** -0.5))
+        return layers.QDense(q, sc, rand(n, scale=0.1))
+
+    def folded(nd, colmul, a_inv=None):
+        """nd with its dequant scale and bias times `colmul`."""
+        return layers.QDense(nd.q8, nd.scale * colmul, nd.bias * colmul,
+                             None if a_inv is None else
+                             torch.full((1, 1), a_inv, device=dev))
+
+    def margin_scale(v):  # the calibration's per-tensor scale
+        return v.float().abs().max().item() * 1.05 / 127.0
+
+    def pair(kern, plain, *args, **kw):
+        return (functools.partial(kern, *args, **kw),
+                functools.partial(plain, *args, **kw))
+
+    cases, cost, library = {}, {}, {}
+
+    def add(name, kern, plain, *args, f32_rel=None, **kw):
+        cases[name] = (*pair(kern, plain, *args, **kw), f32_rel)
+
+    def lib_quant(v):
+        sc = v.float().abs().amax(-1, keepdim=True).clamp_min(1e-12) / 127.0
+        return torch.round(v.float() / sc).to(torch.int8), sc
+
+    def lib_first(x2, ln_s, ln_b, nd, act):
+        k = x2.shape[1]
+        q, sc = lib_quant(F.layer_norm(x2.float(), (k,), ln_s, ln_b, eps))
+        v = torch._int_mm(q, nd.q8).float() * sc * nd.scale + nd.bias
+        if act == "swiglu":
+            h1, h2 = v.chunk(2, dim=-1)
+            return F.silu(h1) * h2
+        return v.to(bf) if act is None else F.gelu(v, approximate=act)
+
+    def lib_second(a, rs, nd, lsv, x2):
+        y = torch._int_mm(a, nd.q8).float() * rs * nd.scale + nd.bias
+        return (x2.float() + y * lsv).to(bf)
+
+    # -- ViT-S: [256, 257, 384] ------------------------------------------
+    x = rand(N_SLICES, S, E, dtype=bf)
+    xb = rand(N_SLICES, S, E, dtype=bf)  # the second rollout block's input
+    x2 = x.reshape(M, E)
+    ln_s, ln_b = rand(E, scale=0.1, off=1.0), rand(E, scale=0.1)
+    ls = rand(E, scale=0.1, off=1.0)
+    qkv, proj, fc1, fc2 = node(E, 3 * E), node(E, E), node(E, E4), node(E4, E)
+    t_qkv = fq._ln_gemm_i8_ref(x2, ln_s, ln_b, qkv.q8, qkv.scale, qkv.bias,
+                               fb.ACT_NONE, eps)
+    o = fb._mhsa_ref(t_qkv, N_SLICES, S, HEADS)
+    oq, osc = fq._quant_rows_ref(o)
+    u = fq._ln_gemm_i8_ref(x2, ln_s, ln_b, fc1.q8, fc1.scale, fc1.bias,
+                           fb.ACT_GELU_TANH, eps)
+    uq, us = fq._quant_rows_ref(u)
+    a_in = margin_scale(fb._ln(x2, ln_s, ln_b, eps))
+    a_out, b_hid = margin_scale(o), margin_scale(u)
+    ln_s8, ln_b8 = ln_s / a_in, ln_b / a_in
+    colmul = torch.ones(3 * E, device=dev)
+    colmul[2 * E:] = 1.0 / a_out
+    qkv8, proj8 = folded(qkv, colmul * a_in), folded(proj, a_out)
+    fc18, fc28 = folded(fc1, a_in), folded(fc2, b_hid, 1.0 / b_hid)
+    o8 = fb._mhsa_ref(fq._ln_gemm_i8_ref(
+        x2, ln_s8, ln_b8, qkv8.q8, qkv8.scale, qkv8.bias, fb.ACT_NONE, eps,
+        True), N_SLICES, S, HEADS)
+    oq8 = fq._quant_rows_ref(o8, True)
+    uq8 = fq._ln_gemm_i8_ref(x2, ln_s8, ln_b8, fc18.q8, fc18.scale,
+                             fc18.bias, fb.ACT_GELU_TANH, eps, True,
+                             fc28.a_inv)
+    first = (fq.ln_gemm_i8, fq._ln_gemm_i8_ref)
+    add("ln_gemm_i8[qkv]", *first, x2, ln_s, ln_b, qkv.q8, qkv.scale,
+        qkv.bias, fb.ACT_NONE, eps)
+    add("ln_gemm_i8[qkv,static]", *first, x2, ln_s8, ln_b8, qkv8.q8,
+        qkv8.scale, qkv8.bias, fb.ACT_NONE, eps, True)
+    for act, code in (("gelu_tanh", fb.ACT_GELU_TANH),
+                      ("gelu_erf", fb.ACT_GELU_ERF)):
+        add(f"ln_gemm_i8[fc1,{act}]", *first, x2, ln_s, ln_b, fc1.q8,
+            fc1.scale, fc1.bias, code, eps)
+    add("ln_gemm_i8[fc1,gelu_tanh,static]", *first, x2, ln_s8, ln_b8,
+        fc18.q8, fc18.scale, fc18.bias, fb.ACT_GELU_TANH, eps, True,
+        fc28.a_inv)
+    quant = (fq.quant_rows, fq._quant_rows_ref)
+    add("quant_rows[o]", *quant, o)
+    add("quant_rows[o,static]", *quant, o8, True)
+    add("quant_rows[u]", *quant, u)
+    second = (fq.gemm_i8_residual, fq._gemm_i8_residual_ref)
+    add("gemm_i8_residual[proj,ls]", *second, oq, osc, proj.q8, proj.scale,
+        proj.bias, ls, x2)
+    add("gemm_i8_residual[proj,no_ls]", *second, oq, osc, proj.q8,
+        proj.scale, proj.bias, None, x2)
+    add("gemm_i8_residual[proj,ls,static]", *second, oq8, None, proj8.q8,
+        proj8.scale, proj8.bias, ls, x2)
+    add("gemm_i8_residual[fc2,ls]", *second, uq, us, fc2.q8, fc2.scale,
+        fc2.bias, ls, x2)
+    add("gemm_i8_residual[fc2,ls,static]", *second, uq8, None, fc28.q8,
+        fc28.scale, fc28.bias, ls, x2)
+    cost.update({
+        "ln_gemm_i8[qkv]": i8_cost(M, E, 3 * E, 2, 2, 4 * 5 * E),
+        "ln_gemm_i8[qkv,static]": i8_cost(M, E, 3 * E, 2, 2, 4 * 5 * E),
+        "ln_gemm_i8[fc1,gelu_tanh]": i8_cost(M, E, E4, 2, 4, 4 * 6 * E),
+        "ln_gemm_i8[fc1,gelu_tanh,static]": i8_cost(M, E, E4, 2, 1,
+                                                    4 * 6 * E),
+        "quant_rows[o]": (0, 2 * M * E + M * E + 4 * M),
+        "quant_rows[o,static]": (0, 2 * M * E + M * E),
+        "quant_rows[u]": (0, 4 * M * E4 + M * E4 + 4 * M),
+        "gemm_i8_residual[proj,ls]": i8_cost(M, E, E, 1, 2,
+                                             2 * M * E + 4 * (M + 3 * E)),
+        "gemm_i8_residual[proj,ls,static]": i8_cost(M, E, E, 1, 2,
+                                                    2 * M * E + 4 * 3 * E),
+        "gemm_i8_residual[fc2,ls]": i8_cost(M, E4, E, 1, 2,
+                                            2 * M * E + 4 * (M + 3 * E)),
+        "gemm_i8_residual[fc2,ls,static]": i8_cost(M, E4, E, 1, 2,
+                                                   2 * M * E + 4 * 3 * E),
+    })
+    library.update({
+        "ln_gemm_i8[qkv]": functools.partial(lib_first, x2, ln_s, ln_b, qkv,
+                                             None),
+        "ln_gemm_i8[fc1,gelu_tanh]": functools.partial(lib_first, x2, ln_s,
+                                                       ln_b, fc1, "tanh"),
+        "quant_rows[o]": functools.partial(lib_quant, o),
+        "quant_rows[u]": functools.partial(lib_quant, u),
+        "gemm_i8_residual[proj,ls]": functools.partial(
+            lib_second, oq, osc[:, None], proj, ls, x2),
+        "gemm_i8_residual[fc2,ls]": functools.partial(
+            lib_second, uq, us[:, None], fc2, ls, x2),
+    })
+
+    # the sub-layers (f32 outputs: rows, carry, Abnar factor within `rel`)
+    attn = (fq.fused_attention_sublayer_i8, fq._attn_i8_ref)
+    args, args8 = (x, ln_s, ln_b, qkv, proj), (x, ln_s8, ln_b8, qkv8, proj8)
+    e0 = torch.zeros(N_SLICES, HEADS, S, device=dev)
+    e0[:, :, 0] = 1.0  # the rollout chain starts at the CLS token
+    add("attention_sublayer_i8[ls]", *attn, *args, ls, HEADS)
+    add("attention_sublayer_i8[no_ls]", *attn, *args, None, HEADS)
+    add("attention_sublayer_i8[ls,static]", *attn, *args8, ls, HEADS,
+        static=True)
+    add("attention_sublayer_i8[ls,row]", *attn, *args, ls, HEADS,
+        want_row=True, f32_rel=rel)
+    add("attention_sublayer_i8[ls,static,row]", *attn, *args8, ls, HEADS,
+        static=True, want_row=True, f32_rel=rel)
+    add("attention_sublayer_i8[ls,abnar]", *attn, *args, ls, HEADS,
+        abnar=True, f32_rel=rel)
+
+    def rollout2(fn, static):
+        """Two blocks of the int8 rollout sub-layer, the second fed the
+        first's carry (not one-hot) on an input of its own."""
+        a = args8 if static else args
+        y1, c1 = fn(*a, ls, HEADS, static=static, carry=e0)
+        return (y1, c1, *fn(xb, *a[1:], ls, HEADS, static=static, carry=c1,
+                            want_row=True))
+
+    for static in (False, True):
+        name = f"attention_sublayer_i8[ls,{'static,' * static}rollout,2 blocks]"
+        cases[name] = (functools.partial(rollout2, attn[0], static),
+                       functools.partial(rollout2, attn[1], static), rel)
+    mlp = (fq.fused_mlp_sublayer_i8, fq._mlp_i8_ref)
+    add("mlp_sublayer_i8[tanh,ls]", *mlp, x, ln_s, ln_b, fc1, fc2, ls, True)
+    add("mlp_sublayer_i8[erf,no_ls]", *mlp, x, ln_s, ln_b, fc1, fc2, None,
+        False)
+    add("mlp_sublayer_i8[tanh,ls,static]", *mlp, x, ln_s8, ln_b8, fc18, fc28,
+        ls, True)
+
+    # -- DINOv3's RoPE form at [256, 201, 384] -----------------------------
+    from mst_tpu_torch.ops.rotary import rope_tables
+
+    cos3, sin3 = rope_tables(GRID3, 64, PREFIX3, 100.0, True, dev)
+    x3 = rand(N_SLICES, S3, E, dtype=bf)
+    for static in (False, True):
+        a = args8 if static else args
+        for flag, kw in (("", {}), (",row", dict(want_row=True)),
+                         (",abnar", dict(abnar=True))):
+            add(f"attention_sublayer_i8[ls,{'static,' * static}rope{flag},"
+                f"S=201]", *attn, x3, *a[1:], ls, HEADS, EPS3, cos3, sin3,
+                static=static, f32_rel=rel, **kw)
+
+    # -- giant2: [256, 257, 1536], 24 heads, F = 4096 ---------------------
+    xg = rand(N_SLICES, S, EG, dtype=bf)
+    xg2 = xg.reshape(M, EG)
+    lng_s, lng_b = rand(EG, scale=0.1, off=1.0), rand(EG, scale=0.1)
+    lsg = rand(EG, scale=0.1, off=1.0)
+    w12, w3 = node(EG, 2 * FG), node(FG, EG)
+    qkvg, projg = node(EG, 3 * EG), node(EG, EG)
+    g = fq._ln_gemm_i8_swiglu_ref(xg2, lng_s, lng_b, w12.q8, w12.scale,
+                                  w12.bias, eps)
+    gq, gs = fq._quant_rows_ref(g)
+    a_g, b_g = margin_scale(fb._ln(xg2, lng_s, lng_b, eps)), margin_scale(g)
+    lng_s8, lng_b8 = lng_s / a_g, lng_b / a_g
+    w128, w38 = folded(w12, a_g), folded(w3, b_g, 1.0 / b_g)
+    gq8 = fq._ln_gemm_i8_swiglu_ref(xg2, lng_s8, lng_b8, w128.q8, w128.scale,
+                                    w128.bias, eps, True, w38.a_inv)
+    gated = (fq.ln_gemm_i8_swiglu, fq._ln_gemm_i8_swiglu_ref)
+    add("ln_gemm_i8_swiglu[w12]", *gated, xg2, lng_s, lng_b, w12.q8,
+        w12.scale, w12.bias, eps)
+    add("ln_gemm_i8_swiglu[w12,static]", *gated, xg2, lng_s8, lng_b8,
+        w128.q8, w128.scale, w128.bias, eps, True, w38.a_inv)
+    add("quant_rows[g]", *quant, g)
+    add("gemm_i8_residual[w3,ls]", *second, gq, gs, w3.q8, w3.scale, w3.bias,
+        lsg, xg2)
+    add("gemm_i8_residual[w3,ls,static]", *second, gq8, None, w38.q8,
+        w38.scale, w38.bias, lsg, xg2)
+    swiglu = (fq.fused_swiglu_sublayer_i8, fq._swiglu_i8_ref)
+    add("swiglu_sublayer_i8[ls]", *swiglu, xg, lng_s, lng_b, w12, w3, lsg)
+    add("swiglu_sublayer_i8[ls,static]", *swiglu, xg, lng_s8, lng_b8, w128,
+        w38, lsg)
+    add("attention_sublayer_i8[ls,E=1536]", *attn, xg, lng_s, lng_b, qkvg,
+        projg, lsg, HG)
+    cost.update({
+        "ln_gemm_i8_swiglu[w12]": i8_cost(M, EG, 2 * FG, 2, 0,
+                                          4 * M * FG + 4 * (2 * EG + 4 * FG)),
+        "ln_gemm_i8_swiglu[w12,static]": i8_cost(
+            M, EG, 2 * FG, 2, 0, M * FG + 4 * (2 * EG + 4 * FG)),
+        "quant_rows[g]": (0, 4 * M * FG + M * FG + 4 * M),
+        "gemm_i8_residual[w3,ls]": i8_cost(M, FG, EG, 1, 2,
+                                           2 * M * EG + 4 * (M + 3 * EG)),
+        "gemm_i8_residual[w3,ls,static]": i8_cost(
+            M, FG, EG, 1, 2, 2 * M * EG + 4 * 3 * EG),
+    })
+    library.update({
+        "ln_gemm_i8_swiglu[w12]": functools.partial(lib_first, xg2, lng_s,
+                                                    lng_b, w12, "swiglu"),
+        "quant_rows[g]": functools.partial(lib_quant, g),
+        "gemm_i8_residual[w3,ls]": functools.partial(
+            lib_second, gq, gs[:, None], w3, lsg, xg2),
+    })
+    return cases, cost, library
+
+
 def read_nifti_f32(path) -> np.ndarray:
     """The data of a float32 NIfTI-1 file that `utils.nifti.write_nifti`
     wrote (352-byte header and extension flag, then Fortran order)."""
@@ -412,15 +803,22 @@ def read_nifti_f32(path) -> np.ndarray:
 
 def profile_device(tag, label, fn, top: int) -> None:
     """Print the device's busy and idle share over one call of `fn` and its
-    `top` kernels by device time (`torch.profiler`)."""
-    from torch.profiler import ProfilerActivity, profile
+    `top` kernels by device time (`torch.profiler`). One call runs as the
+    profiler's warm-up step first: without it the trace of a short call
+    (a 50 ms ViT-S forward) lost about the first half of its kernels."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         t1 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
+        prof.step()
     # kernels only: a CPU-side entry also carries its kernels' device time,
     # and a GPU user annotation (the optimizer step's) spans its kernels
     evs = [e for e in prof.key_averages()
@@ -491,9 +889,16 @@ def main() -> int:
     from mst_tpu_torch.models.vit_fast import fused_mst_logits, fused_mst_saliency
     from mst_tpu_torch.ops import _build
     from mst_tpu_torch.ops import fused_block as fb
+    from mst_tpu_torch.ops import fused_int8 as fq
     from mst_tpu_torch.ops.rotary import apply_rope_tables, rope_tables
     from mst_tpu_torch.registry import get_model
-    from mst_tpu_torch.serve import MODEL, build_model, build_server, parse_args
+    from mst_tpu_torch.serve import (
+        MODEL,
+        build_model,
+        build_server,
+        calibration_volumes,
+        parse_args,
+    )
     from mst_tpu_torch.train import cli
     from mst_tpu_torch.train.predictor import make_predict_fn
     from mst_tpu_torch.train.trainer import (
@@ -661,7 +1066,10 @@ def main() -> int:
                  "fused_attention_sublayer_abnar": fb._attn_abnar_ref,
                  "fused_attention_sublayer_rope": fb._attn_rope_ref,
                  "fused_attention_sublayer_rope_with_row":
-                     fb._attn_rope_with_row_ref}
+                     fb._attn_rope_with_row_ref,
+                 "fused_attention_sublayer_i8": fq._attn_i8_ref,
+                 "fused_mlp_sublayer_i8": fq._mlp_i8_ref,
+                 "fused_swiglu_sublayer_i8": fq._swiglu_i8_ref}
         saved = {k: getattr(layers, k) for k in plain}
         for k, fn in plain.items():
             setattr(layers, k, fn)
@@ -2652,11 +3060,340 @@ def main() -> int:
         torch.cuda.empty_cache()
 
 
+    # ======================================================================
+    # W8A8 int8 serving: queue B rows 9-11 (`_attn_i8_kernel`,
+    # `_mlp_i8_kernel`, `_swiglu_i8_kernel`) on `ln_gemm_i8`, `quant_rows`
+    # and `gemm_i8_residual`, the attention core on `mhsa`.
+    # ======================================================================
+    # -- 31. the int8 kernels and sub-layers vs plain ----------------------
+    stamp(tag, "31")
+    print(f"{tag} int8 tolerance: int8 codes may differ from the plain "
+          f"version's at .5 ties of an f32 LN / GELU summed in another order "
+          f"(at most {CODE_FRAC} of them, each by one); bf16 outputs and the "
+          f"f32 FFN hidden within 2 bf16 ulps at the largest magnitude, the "
+          f"hidden's per-token codes as the kernels' codes; the chains' f32 "
+          f"rows, carries and Abnar factors within 3e-3 x it (as phase 11); "
+          f"every kernel repeats bit for bit")
+    with torch.inference_mode():
+        icases, icost, ilibrary = int8_cases(dev, rng, fb, fq, layers)
+        for name, (kern, plain, rel) in icases.items():
+            k, pl = kern(), plain()
+            again = kern()
+            torch.cuda.synchronize()
+            errs[name] = check_int8(tag, f"int8 {name}", k, pl, rel)
+            k, again = ((u if isinstance(u, tuple) else (u,))
+                        for u in (k, again))
+            same = all(torch.equal(a, b) for a, b in zip(k, again))
+            print(f"{tag} int8 {name}: two runs equal bit for bit: {same}")
+            check(same, f"{name}: two runs differ")
+            del k, pl, again
+    cost.update(icost)
+    library.update(ilibrary)
+
+    # -- 32. ViT-S/14 int8 serving at B=8 -----------------------------------
+    stamp(tag, "32")
+
+    def i8_counts(nb, attn_kernel="mhsa", static=False, swiglu=False):
+        """(launches, sub-layer calls) of nb int8 blocks: the attention
+        chain through `attn_kernel`, then the MLP or SwiGLU chain; a static
+        tree quantizes o in `quant_rows` and the hidden in `ln_gemm_i8`."""
+        counts, calls = dict(zero), dict(zero_calls)
+        counts["ln_gemm_i8"] += nb
+        counts["ln_gemm_i8_swiglu" if swiglu else "ln_gemm_i8"] += nb
+        counts["quant_rows"] += nb if static else 2 * nb
+        counts["gemm_i8_residual"] += 2 * nb
+        counts[attn_kernel] += nb
+        calls["fused_attention_sublayer_i8"] += nb
+        calls["fused_swiglu_sublayer_i8" if swiglu
+              else "fused_mlp_sublayer_i8"] += nb
+        return counts, calls
+
+    # `serve --params_npz --int8`'s build_model: phase 4's weights quantized
+    # on the card (dynamic). The static copy is calibrated on 8 volumes of
+    # the generator the checked volumes come from (phase 4's, the volumes
+    # it will serve; PTQ saturates activations outside the calibrated
+    # range), and the 8 checked volumes are picked from 48 others, far apart
+    # under the bf16, dynamic and static paths alike.
+    synth = dict(shape_cdhw=(1, DEPTH_SLICES, PX, PX), num_samples=BATCH)
+    model8 = build_model(parse_args(["--params_npz", str(npz), "--int8"]))
+    pool8 = candidate_volumes(rng, 7 * BATCH)
+    t1 = time.perf_counter()
+    model8s = fq.quantize_mst_int8(model, pool8[:BATCH])
+    torch.cuda.synchronize()
+    print(f"{tag} int8 ViT-S: static scales calibrated on "
+          f"{list(pool8[:BATCH].shape)} and folded in "
+          f"{time.perf_counter() - t1:.2f} s")
+    for m_ in (model8, model8s):
+        check(isinstance(m_.encoder.blocks_0.attn.qkv, layers.QDense)
+              and not isinstance(m_.encoder.blocks_11.attn.qkv,
+                                 layers.QDense)
+              and m_.dtype == torch.bfloat16, "int8 ViT-S structure")
+    probs8 = [batched_probs(make_predict_fn(m_, with_saliency=False),
+                            pool8[BATCH:]) for m_ in (model, model8, model8s)]
+    vol = pool8[BATCH:][pick_spread(np.minimum.reduce(
+        [row_gaps(p_) for p_ in probs8]), probs8[0], BATCH)]
+    src8 = torch.from_numpy(vol).to(dev)
+    pb16, _ = predict(vol, None)  # the bf16 kernel path
+    # a static copy calibrated on Synthetic volumes (another generator, as
+    # `serve --int8_calib` on phase 9's run folder calibrates), read against
+    # the same volumes: how far out-of-distribution calibration moves it
+    calib8 = calibration_volumes(run_dir, BATCH, **synth)
+    p_syn, _ = make_predict_fn(fq.quantize_mst_int8(model, calib8),
+                               with_saliency=False)(vol, None)
+    print(f"{tag} int8 static, calibrated on {BATCH} Synthetic volumes "
+          f"instead: |probs - bf16 kernel path| "
+          f"{(p_syn - pb16).abs().max().item():.6g} on the checked volumes "
+          f"(a reading, not held: those activations lie outside the "
+          f"calibrated range)")
+    del p_syn
+    print(f"{tag} int8 forward tolerance: |probs kernel - probs plain| <= "
+          f"{PROB_TOL} (as phase 4); against the bf16 kernel path |probs| <= "
+          f"{I8_TOL} and the same argmax where the bf16 probs lie further "
+          f"than {I8_TOL} from the class boundary (the JAX suite's bar); bf16 "
+          f"probs of class 1: {pb16[:, 1].tolist()}")
+    i8_runs = {}
+    for label, mdl in (("dynamic", model8), ("static", model8s)):
+        static = label == "static"
+        pred8 = make_predict_fn(mdl, with_saliency=False)
+        want, want_calls = i8_counts(n_blocks, static=static)
+        fb.reset_launch_counts()
+        pk, _ = pred8(vol, None)
+        torch.cuda.synchronize()
+        counts, calls = fb.launch_counts(), fb.sublayer_calls()
+        with plain_sublayers():
+            pp, _ = pred8(vol, None)
+        d_p = (pk - pp).abs().max().item()
+        d_b = (pk - pb16).abs().max().item()
+        agree, held = argmax_agreement(pk, pb16)
+        gap = min_row_gap(pp.cpu())
+        print(f"{tag} int8 {label} forward {list(vol.shape)}: probs[:, 1] "
+              f"{pk[:, 1].tolist()}; |kernel - plain| {d_p:.6g}, min gap "
+              f"between volumes {gap:.6g}; |int8 - bf16 kernel path| "
+              f"{d_b:.6g}, argmax agreeing {agree}, held {held}; launches "
+              f"{counts}; sub-layer calls {calls}")
+        check(bool(torch.isfinite(pk).all()), f"int8 {label}: non-finite")
+        check(d_p <= PROB_TOL and gap > PROB_TOL,
+              f"int8 {label} vs plain: {d_p} (gap {gap})")
+        check(d_b <= I8_TOL and all(a for a, h in zip(agree, held) if h),
+              f"int8 {label} vs bf16: {d_b}, argmax {agree}, held {held}")
+        check(counts == want and calls == want_calls,
+              f"int8 {label} launches {counts} / {calls}")
+        # the three saliency modes on the int8 blocks vs the plain int8 path
+        for mode in PLANE_MODES:
+            if mode == "last":
+                want_m = (want, want_calls)
+            else:
+                attn_k = {"rollout": "rollout", "rollout_abnar": "abnar"}[mode]
+                full = block_counts(1, f"mhsa_{attn_k}",
+                                    f"fused_attention_sublayer_{attn_k}")
+                part = i8_counts(n_blocks, f"mhsa_{attn_k}", static)
+                want_m = (added(part[0], full[0]), added(part[1], full[1]))
+            fb.reset_launch_counts()
+            pk_s, sk = saliency(mode, mdl=mdl, vols=src8)
+            counts_s, calls_s = fb.launch_counts(), fb.sublayer_calls()
+            with plain_sublayers():
+                pp_s, sp_ = saliency(mode, mdl=mdl, vols=src8)
+            d_ps, d_s = (pk_s - pp_s).abs().max().item(), sal_rel(sk, sp_)
+            print(f"{tag} int8 {label} saliency {mode} {list(sk.shape)}: "
+                  f"|probs - plain| {d_ps:.6g}, saliency vs plain {d_s:.6g} "
+                  f"(of the largest value {sp_.abs().max().item():.6g}; limit "
+                  f"{SAL_REL}); launches {counts_s}; sub-layer calls "
+                  f"{calls_s}")
+            check(bool(torch.isfinite(sk).all()), f"int8 {mode}: non-finite")
+            check(d_ps <= PROB_TOL and d_s <= SAL_REL,
+                  f"int8 {label} {mode}: {d_ps} / {d_s}")
+            check((counts_s, calls_s) == want_m,
+                  f"int8 {label} {mode} launches {counts_s} / {calls_s}")
+        i8_runs[label] = (mdl, pred8, want)
+
+    # `serve --int8 [--int8_calib 8] --run_folder` on phase 9's run folder
+    # answers POSTs (the launch counts of the dynamic server are the int8
+    # path's in the kernels line). The deployed contract: each int8 model
+    # the CLI builds (static scales from the run's val split) against the
+    # run's bf16 model on the test split of the run's own dataset, at the
+    # JAX suite's bar with the boundary exemption above
+    data_kw = dict(shape_cdhw=(1, DEPTH_SLICES, PX, PX), num_samples=N_CASES)
+    pargs_run = predict_cli.parse_args(["--run_folder", str(run_dir)])
+    test_vols = torch.cat([b["source"] for b in predict_cli.build_datamodule(
+        pargs_run, dev, **data_kw).test_dataloader()])
+    p_run16, _ = make_predict_fn(build_model(parse_args(
+        ["--run_folder", str(run_dir)])), with_saliency=False)(test_vols, None)
+
+    def post_one(port, volume):
+        buf = io.BytesIO()
+        np.save(buf, volume)
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/predict",
+                                     data=buf.getvalue(), method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return json.loads(r.read())
+
+    for extra in ([], ["--int8_calib", str(BATCH)]):
+        sargs = parse_args(["--run_folder", str(run_dir), "--int8", *extra,
+                            "--port", "0", "--batch_size", "4",
+                            "--max_wait_ms", "1"])
+        smodel = build_model(sargs, **synth)
+        spred = make_predict_fn(smodel, with_saliency=False)
+        direct, _ = spred(vol[:1], None)
+        p_run8, _ = spred(test_vols, None)
+        d_run = (p_run8 - p_run16).abs().max().item()
+        agree_r, held_r = argmax_agreement(p_run8, p_run16)
+        print(f"{tag} serve --int8 {' '.join(extra)} --run_folder model on "
+              f"the run's {len(test_vols)} test volumes: probs[:, 1] "
+              f"{p_run8[:, 1].tolist()}, the run's bf16 model "
+              f"{p_run16[:, 1].tolist()}; |int8 - bf16| {d_run:.6g} (limit "
+              f"{I8_TOL}), argmax agreeing {agree_r}, held {held_r}")
+        check(bool(torch.isfinite(p_run8).all()) and d_run <= I8_TOL
+              and all(a for a, h in zip(agree_r, held_r) if h),
+              f"serve --int8 {extra} vs the run's bf16 model: {d_run}, "
+              f"argmax {agree_r}, held {held_r}")
+        fb.reset_launch_counts()
+        server, bp = build_server(sargs, smodel)
+        try:
+            got = post_one(server.server_address[1], vol[0])
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{server.server_address[1]}/healthz",
+                    timeout=60) as r:
+                health = json.loads(r.read())
+        finally:
+            server.shutdown()
+            server.server_close()
+            bp.close()
+        torch.cuda.synchronize()
+        counts = fb.launch_counts()
+        d_srv = float(np.abs(np.asarray(got["probs"])
+                             - direct[0].cpu().numpy()).max())
+        want = i8_counts(n_blocks, static=bool(extra))[0]
+        print(f"{tag} serve --int8 {' '.join(extra)} --run_folder: POST -> "
+              f"{got}; |served - direct| {d_srv:.6g} (tol {SERVE_TOL}); "
+              f"healthz {health}; launches {counts}")
+        check(d_srv <= SERVE_TOL and health["int8"] == (
+            "static" if extra else "dynamic") and bp.batches_run == 1,
+              f"serve --int8 {extra}: {d_srv}, {health}")
+        check(counts == want, f"serve --int8 launches {counts} != {want}")
+        if not extra:
+            served8_counts = counts
+        del smodel
+
+    # `predict --int8 --int8_calib 4 --use_tta --use_rollout` on that run
+    out8 = ROOT / "build" / "chip_smoke_predict_int8"
+    shutil.rmtree(out8, ignore_errors=True)
+    pargv = ["--run_folder", str(run_dir), "--output_dir", str(out8),
+             "--int8", "--int8_calib", "4", "--use_tta", "--use_rollout"]
+    fb.reset_launch_counts()
+    t1 = time.perf_counter()
+    predict_cli.main(pargv, **data_kw)
+    torch.cuda.synchronize()
+    cli_sec = time.perf_counter() - t1
+    cli_counts = fb.launch_counts()
+    with (out8 / "results.csv").open() as f:
+        rows8 = list(csv.DictReader(f))
+    pargs8 = predict_cli.parse_args(pargv)
+    pdm8 = predict_cli.build_datamodule(pargs8, dev, **data_kw)
+    qrun = predict_cli.quantize_model(
+        pargs8, predict_cli.build_model(pargs8, dev), pdm8)
+    pfn8 = make_predict_fn(qrun, tta=True, with_saliency=False)
+    worst_p = 0.0
+    for r, b in zip(rows8, pdm8.test_dataloader()):
+        pbatch, _ = pfn8(b["source"], None)
+        check(r["uid"] == b["uid"][0] and int(r["NN"]) == int(
+            pbatch[0].argmax()), f"predict --int8 row {r}")
+        worst_p = max(worst_p, abs(float(r["NN_pred"]) - pbatch[0, 1].item()))
+    want = {k: v * N_CASES for k, v in i8_counts(n_blocks, static=True)[
+        0].items()}
+    print(f"{tag} predict --int8 --int8_calib 4 --use_tta --use_rollout on "
+          f"{N_CASES} cases: {cli_sec:.3f} s; results.csv rows {len(rows8)}; "
+          f"|NN_pred - predictor| {worst_p:.6g} (must be <= 1e-6); launches "
+          f"{cli_counts}; predict.log "
+          f"{(out8 / 'predict.log').read_text().strip().splitlines()}")
+    check(len(rows8) == N_CASES and worst_p <= 1e-6,
+          f"predict --int8: {len(rows8)} rows, {worst_p}")
+    check(cli_counts == want, f"predict --int8 launches {cli_counts}")
+    del qrun, pfn8
+
+    # -- 33. giant2 int8, and the int8 times ------------------------------
+    stamp(tag, "33")
+    # The unfrozen giant2 of phases 28-30 (phase 22's seeded draw after
+    # phase 29's one AdamW step), quantized on the card from its f32
+    # parameters; its bf16 kernel path is the reference
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    qg = fq.quantize_mst_int8(gmodel_u)
+    torch.cuda.synchronize()
+    t_qg = time.perf_counter() - t1
+    n_q8 = sum(b.numel() for n_, b in qg.named_buffers()
+               if n_.endswith(".q8"))
+    predict_gq = make_predict_fn(qg, with_saliency=False)
+    predict_gb = make_predict_fn(gmodel_u, with_saliency=False)
+    fb.reset_launch_counts()
+    pgq, _ = predict_gq(srcg4, None)
+    torch.cuda.synchronize()
+    fwdg8_counts, callsg8 = fb.launch_counts(), fb.sublayer_calls()
+    pgb, _ = predict_gb(srcg4, None)
+    d_g = (pgq - pgb).abs().max().item()
+    agree_g, held_g = argmax_agreement(pgq, pgb)
+    want_g = i8_counts(DEPTH_G - 1, swiglu=True)
+    print(f"{tag} giant2 int8: {n_q8} int8 weights quantized on the card in "
+          f"{t_qg:.2f} s; forward {list(srcg4.shape)}: probs[:, 1] int8 "
+          f"{pgq[:, 1].tolist()}, bf16 {pgb[:, 1].tolist()}; |int8 - bf16| "
+          f"{d_g:.6g} (limit {I8_TOL}), argmax agreeing {agree_g}, held "
+          f"{held_g}; launches {fwdg8_counts}; sub-layer calls {callsg8}")
+    check(bool(torch.isfinite(pgq).all()) and d_g <= I8_TOL
+          and all(a for a, h in zip(agree_g, held_g) if h),
+          f"giant2 int8 vs bf16: {d_g}, {agree_g}, held {held_g}")
+    check((fwdg8_counts, callsg8) == want_g,
+          f"giant2 int8 launches {fwdg8_counts} / {callsg8}")
+
+    timed_i8 = ("ln_gemm_i8[qkv]", "ln_gemm_i8[qkv,static]",
+                "ln_gemm_i8[fc1,gelu_tanh]", "ln_gemm_i8[fc1,gelu_tanh,static]",
+                "quant_rows[o]", "quant_rows[o,static]", "quant_rows[u]",
+                "gemm_i8_residual[proj,ls]", "gemm_i8_residual[proj,ls,static]",
+                "gemm_i8_residual[fc2,ls]", "gemm_i8_residual[fc2,ls,static]",
+                "ln_gemm_i8_swiglu[w12]", "ln_gemm_i8_swiglu[w12,static]",
+                "quant_rows[g]", "gemm_i8_residual[w3,ls]",
+                "gemm_i8_residual[w3,ls,static]", "attention_sublayer_i8[ls]",
+                "attention_sublayer_i8[ls,static]", "mlp_sublayer_i8[tanh,ls]",
+                "mlp_sublayer_i8[tanh,ls,static]", "swiglu_sublayer_i8[ls]",
+                "swiglu_sublayer_i8[ls,static]")
+    with torch.inference_mode():
+        itimed = {name: (time_ms(icases[name][0]),
+                         time_ms(icases[name][1], n=5, warmup=1))
+                  for name in timed_i8}
+    lib_ms.update({name: time_ms(fn) for name, fn in library.items()
+                   if name not in lib_ms})
+    for name, (km, pm_) in itimed.items():
+        lib = f"{lib_ms[name]:.4f} ms" if name in lib_ms else "none"
+        print(f"{tag} time int8 {name}: kernel {km:.4f} ms, plain {pm_:.4f} "
+              f"ms, library {lib}")
+    del icases, ilibrary
+    for name in ("dynamic", "static"):
+        mdl, pred8, _ = i8_runs[name]
+        sec8, mem8 = seconds_and_memory(lambda: pred8(src8, None))
+        print(f"{tag} e2e int8 ({name}) B={BATCH} {list(vol.shape)}: "
+              f"{sec8 * 1e3:.3f} ms = {BATCH / sec8:.3f} vol/s, peak memory "
+              f"{mem8 / 2**20:.1f} MiB above the "
+              f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB held")
+        profile_device(tag, f"one int8 ({name}) ViT-S B={BATCH} forward",
+                       lambda: pred8(src8, None), 10)
+    sec_b, mem_b = seconds_and_memory(lambda: predict(src8, None))
+    print(f"{tag} e2e bf16 kernel path B={BATCH} (the same call, beside the "
+          f"int8 ones): {sec_b * 1e3:.3f} ms = {BATCH / sec_b:.3f} vol/s, peak "
+          f"memory {mem_b / 2**20:.1f} MiB")
+    for label, pred_ in (("int8", predict_gq), ("bf16", predict_gb)):
+        secg8, memg8 = seconds_and_memory(lambda: pred_(srcg, None), n=3)
+        print(f"{tag} e2e giant2 {label} B={BATCH} {list(volg.shape)}: "
+              f"{secg8 * 1e3:.3f} ms = {BATCH / secg8:.4f} vol/s, peak memory "
+              f"{memg8 / 2**20:.1f} MiB above the "
+              f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB held")
+    profile_device(tag, f"one giant2 int8 B={BATCH} forward",
+                   lambda: predict_gq(srcg, None), 10)
+    del qg, predict_gq, predict_gb, i8_runs, model8, model8s
+
     # TPU kernels: _attn_any_kernel at fused_block.py:326, _mlp_kernel at
     # :400, their train forwards _attn_train_kernel :424 and
     # _mlp_train_kernel :470, the backwards _attn_bwd_kernel :680 and
     # _mlp_bwd_kernel :841. Each CUDA kernel replaces a part of several.
     site = "mst_tpu/ops/fused_block.py:{}".format
+    isite = "mst_tpu/ops/fused_int8.py:{}".format
     fwd_sites = [site(326), site(400), site(424), site(470)]
     bwd_sites = [site(680), site(841)]
     sites = {
@@ -2711,19 +3448,41 @@ def main() -> int:
                               stepu_counts, ["gemm_dgrad_swiglu[w3]"]),
         "ln_pullback": ("gemm_dgrad", [site(680), site(841), site(1284)],
                         stepu_counts, ["ln_pullback[E=1536]"]),
+        # queue B rows 9-11, counted on the `serve --int8 --run_folder`
+        # server (dynamic scales, phase 32) and, for the gated mode, the
+        # giant2 int8 forward (phase 33); one ViT-S block's calls timed
+        "ln_gemm_i8": ("ln_gemm_i8", [isite(389), isite(471)], served8_counts,
+                       ["ln_gemm_i8[qkv]", "ln_gemm_i8[fc1,gelu_tanh]"]),
+        "ln_gemm_i8_swiglu": ("ln_gemm_i8", [isite(508)], fwdg8_counts,
+                              ["ln_gemm_i8_swiglu[w12]"]),
+        "quant_rows": ("quant_rows", [isite(389), isite(471), isite(508)],
+                       served8_counts, ["quant_rows[o]", "quant_rows[u]"]),
+        "gemm_i8_residual": ("gemm_i8_residual",
+                             [isite(389), isite(471), isite(508)],
+                             served8_counts, ["gemm_i8_residual[proj,ls]",
+                                              "gemm_i8_residual[fc2,ls]"]),
     }
-    alltimed = {**timed, **ttimed, **stimed, **rtimed, **gtimed, **utimed}
-    print(f"{tag} bound: the larger of FLOPs / {PEAK_FLOPS:.4g} FLOP/s and "
-          f"bytes / {PEAK_BYTES:.4g} B/s (each input read once, each output "
-          f"written once); library: the PyTorch call(s) of the same "
-          f"function, epilogues left out")
+    alltimed = {**timed, **ttimed, **stimed, **rtimed, **gtimed, **utimed,
+                **itimed}
+    print(f"{tag} bound: the larger of FLOPs / {PEAK_FLOPS:.4g} FLOP/s + "
+          f"int8 operations / {PEAK_INT8:.4g} OP/s and bytes / "
+          f"{PEAK_BYTES:.4g} B/s (each input read once, each output written "
+          f"once); library: the PyTorch call(s) of the same function, "
+          f"epilogues left out")
+
+    def work(costs):
+        """'x GFLOP[, y G int8 operations], z MB' of summed costs."""
+        ops = sum(c[2] for c in costs if len(c) > 2)
+        return (f"{sum(c[0] for c in costs) / 1e9:.3f} GFLOP, "
+                + (f"{ops / 1e9:.3f} G int8 operations, " if ops else "")
+                + f"{sum(c[1] for c in costs) / 1e6:.2f} MB")
+
     for name in sorted(c for c in alltimed if c in cost):
         b_ms, b_by = bound([cost[name]])
         lib = f"{lib_ms[name]:.4f} ms" if name in lib_ms else "none"
         print(f"{tag} case {name}: kernel {alltimed[name][0]:.4f} ms, plain "
               f"{alltimed[name][1]:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
-              f"({cost[name][0] / 1e9:.3f} GFLOP, {cost[name][1] / 1e6:.2f} "
-              f"MB), library {lib}")
+              f"({work([cost[name]])}), library {lib}")
     # queue B's rows: each TPU kernel's chain of CUDA kernels, one block at
     # B=8 (ViT-S at S = 257; DINOv3 ViT-S/16 at S = 201; giant2 at E = 1536)
     rows = {
@@ -2772,6 +3531,24 @@ def main() -> int:
         "6 SwiGLU backward (the XLA _swiglu_train_bwd), giant2": [
             "gemm_dls[w3]", "gemm_wgrad[w3]", "gemm_dgrad_swiglu[w3]",
             "gemm_wgrad[w12]", "gemm_dgrad[w12,ln]"],
+        "9 int8 attention sub-layer (dynamic)": [
+            "ln_gemm_i8[qkv]", "mhsa", "quant_rows[o]",
+            "gemm_i8_residual[proj,ls]"],
+        "9 int8 attention sub-layer (static)": [
+            "ln_gemm_i8[qkv,static]", "mhsa", "quant_rows[o,static]",
+            "gemm_i8_residual[proj,ls,static]"],
+        "10 int8 MLP sub-layer (dynamic)": [
+            "ln_gemm_i8[fc1,gelu_tanh]", "quant_rows[u]",
+            "gemm_i8_residual[fc2,ls]"],
+        "10 int8 MLP sub-layer (static)": [
+            "ln_gemm_i8[fc1,gelu_tanh,static]",
+            "gemm_i8_residual[fc2,ls,static]"],
+        "11 int8 SwiGLU sub-layer, giant2 (dynamic)": [
+            "ln_gemm_i8_swiglu[w12]", "quant_rows[g]",
+            "gemm_i8_residual[w3,ls]"],
+        "11 int8 SwiGLU sub-layer, giant2 (static)": [
+            "ln_gemm_i8_swiglu[w12,static]",
+            "gemm_i8_residual[w3,ls,static]"],
     }
     for label, chain in rows.items():
         b_ms, b_by = bound([cost[c] for c in chain])
@@ -2779,10 +3556,8 @@ def main() -> int:
                if all(c in lib_ms for c in chain) else "none")
         print(f"{tag} row {label}: kernels {sum(alltimed[c][0] for c in chain):.4f}"
               f" ms, plain {sum(alltimed[c][1] for c in chain):.4f} ms, bound "
-              f"{b_ms:.4f} ms by {b_by} "
-              f"({sum(cost[c][0] for c in chain) / 1e9:.3f} GFLOP, "
-              f"{sum(cost[c][1] for c in chain) / 1e6:.2f} MB), library {lib}"
-              f" ({' + '.join(chain)})")
+              f"{b_ms:.4f} ms by {b_by} ({work([cost[c] for c in chain])}), "
+              f"library {lib} ({' + '.join(chain)})")
     kernels = []
     for name, (source, replaces, counts, per_block) in sites.items():
         checked = [c for c in errs if c.split("[")[0] in

@@ -3,6 +3,8 @@
 // Every kernel in this directory takes bf16 activations and weights, keeps
 // its sums in f32, and is launched through a plain C entry point (bound with
 // ctypes by mst_tpu_torch/ops/_build.py) that returns cudaGetLastError().
+// The W8A8 kernels (ln_gemm_i8.cu, quant_rows.cu, gemm_i8_residual.cu) take
+// int8 codes with f32 scales instead and keep their product sums in int32.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -6,11 +6,15 @@ as `flax.traverse_util.flatten_dict(params, sep="/")` gives them) is the
 module attribute `encoder.blocks_0.attn.qkv.kernel`. Every array keeps its
 flax shape and layout: Dense kernels stay `[in, out]`, which is the
 row-major `[K, N]` layout the CUDA kernels read, the patch kernel stays
-HWIO `[p, p, C, E]`.
+HWIO `[p, p, C, E]`. A quantized flax tree (`mst_tpu`'s
+`quantize_mst_params_int8`: `q8` / `scale` / `bias` / `a_inv` nodes and
+folded LN vectors) becomes a quantized copy of the model
+(`quantized_from_flax`), each such node a `QDense` with those buffers.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Mapping
 
 import numpy as np
@@ -38,6 +42,33 @@ def params_from_flax(model: torch.nn.Module,
                                  f"{tuple(param.shape)}")
             param.copy_(torch.from_numpy(arr))
     return model
+
+
+def quantized_from_flax(model: torch.nn.Module,
+                        flat: Mapping[str, np.ndarray]) -> torch.nn.Module:
+    """A copy of `model` holding the flat `/`-keyed quantized flax tree
+    `flat`: every Dense whose node has `q8` becomes a `QDense` of that
+    node's arrays (int8 codes, f32 scale, bias and `a_inv` if present), on
+    the model's device; the other leaves go through `params_from_flax`.
+    `model` itself is left as it is."""
+    from mst_tpu_torch.models.layers import QDense
+
+    qmodel = copy.deepcopy(model)
+    device = next(qmodel.parameters()).device
+    nodes = sorted(k[:-len("/q8")] for k in flat if k.endswith("/q8"))
+    for node in nodes:
+        parent, name = node.rsplit("/", 1)
+        leaf = {k: flat.get(f"{node}/{k}") for k in ("scale", "bias",
+                                                      "a_inv")}
+        setattr(qmodel.get_submodule(parent.replace("/", ".")), name,
+                QDense(*(None if a is None else torch.from_numpy(
+                    np.array(a, dt)).to(device) for a, dt in (
+                        (flat[f"{node}/q8"], np.int8),
+                        (leaf["scale"], np.float32),
+                        (leaf["bias"], np.float32),
+                        (leaf["a_inv"], np.float32)))))
+    rest = {k: v for k, v in flat.items() if k.rsplit("/", 1)[0] not in nodes}
+    return params_from_flax(qmodel, rest)
 
 
 def flax_params_from_torch(model: torch.nn.Module) -> dict:

@@ -7,7 +7,10 @@ attn/proj,ls1,norm2,mlp/fc1,mlp/fc2,ls2}` (the SwiGLU FFN: `mlp/w12`,
 `mlp/w3`), `norm`.
 
 Matrices keep the flax Dense layout `kernel [in, out]`, which is also the
-row-major `[K, N]` layout the CUDA kernels read. Parameters stay in f32, as
+row-major `[K, N]` layout the CUDA kernels read. An int8-quantized model
+(`ops/fused_int8.quantize_mst_int8`) holds `QDense` layers in place of its
+blocks' token-wise `Dense` ones, with the flax node names `q8`, `scale`,
+`bias`, `a_inv` as buffers. Parameters stay in f32, as
 the JAX package keeps them; the forward functions cast matrices to the
 compute dtype per call, as `vit_fast` does (the train sub-layers take the
 f32 matrices and cast inside, so that their grads leave in f32).
@@ -35,6 +38,11 @@ from mst_tpu_torch.ops.fused_block import (
     fused_swiglu_sublayer,
     fused_swiglu_sublayer_train,
 )
+from mst_tpu_torch.ops.fused_int8 import (
+    fused_attention_sublayer_i8,
+    fused_mlp_sublayer_i8,
+    fused_swiglu_sublayer_i8,
+)
 
 
 class Dense(nn.Module):
@@ -47,6 +55,22 @@ class Dense(nn.Module):
 
     def forward(self, x):
         return x @ self.kernel.to(x.dtype) + self.bias.to(x.dtype)
+
+
+class QDense(nn.Module):
+    """A Dense layer quantized for W8A8 serving (the JAX `{"q8", "scale",
+    "bias"[, "a_inv"]}` node): `q8` int8 [in, out], `scale` f32 [1, out]
+    per output channel, `bias` f32 [out], and on the second FFN product of
+    a static tree `a_inv` f32 [1, 1] (the calibrated hidden scale; None
+    for dynamic trees). Buffers, never cast: the int8 sub-layers read them
+    as they are. It has no forward of its own."""
+
+    def __init__(self, q8, scale, bias, a_inv=None):
+        super().__init__()
+        self.register_buffer("q8", q8)
+        self.register_buffer("scale", scale)
+        self.register_buffer("bias", bias)
+        self.register_buffer("a_inv", a_inv)
 
 
 class LayerNorm(nn.Module):
@@ -136,7 +160,10 @@ class Block(nn.Module):
     (DINOv3) every attention variant takes its RoPE form, as
     `mst_tpu/models/vit_fast.py:429-450` dispatches. `ffn_layer="swiglu"`
     (giant2) runs the FFN through the SwiGLU sub-layer in every mode (with
-    `train=True` the residual-saving one, queue B row 6)."""
+    `train=True` the residual-saving one, queue B row 6). A block whose
+    products are `QDense` (int8-quantized) serves through the int8
+    sub-layers in every mode, as `mst_tpu/models/vit_fast.py:378-422`
+    dispatches on "q8"; it refuses `train=True`."""
 
     def __init__(self, dim: int, num_heads: int, mlp_hidden: int,
                  layerscale_init: Optional[float] = 1e-5,
@@ -165,6 +192,9 @@ class Block(nn.Module):
         attention sub-layer is its explainability variant and the block
         returns (h, new_carry | Abnar factor | CLS row). `rope_cos` /
         `rope_sin` ([S, head_dim] f32): RoPE on q and k."""
+        if isinstance(self.attn.qkv, QDense):
+            return self._forward_i8(h, train, want_row, carry, abnar,
+                                    rope_cos, rope_sin)
         dt = h.dtype
         # the serving sub-layers take compute-dtype matrices, the train ones
         # the f32 parameters
@@ -207,4 +237,32 @@ class Block(nn.Module):
         else:
             ffn = fused_mlp_sublayer_train if train else fused_mlp_sublayer
             h = ffn(*ffn_args, self.gelu_approximate, self.norm_eps)
+        return h if extra is None else (h, extra)
+
+    def _forward_i8(self, h, train, want_row, carry, abnar, rope_cos,
+                    rope_sin):
+        """The int8 block: the W8A8 attention sub-layer (with the saliency
+        output asked for), then the W8A8 MLP or SwiGLU; static when the
+        second FFN product carries `a_inv`."""
+        if train:
+            raise ValueError("int8-quantized blocks serve only (training "
+                             "rides the bf16 kernels)")
+        ffn_in, ffn_out = ((self.mlp.w12, self.mlp.w3)
+                           if self.ffn_layer == "swiglu"
+                           else (self.mlp.fc1, self.mlp.fc2))
+        out = fused_attention_sublayer_i8(
+            h, self.norm1.scale, self.norm1.bias, self.attn.qkv,
+            self.attn.proj, None if self.ls1 is None else self.ls1.gamma,
+            self.num_heads, self.norm_eps, rope_cos=rope_cos,
+            rope_sin=rope_sin, static=ffn_out.a_inv is not None,
+            want_row=want_row, carry=carry, abnar=abnar)
+        h, extra = out if isinstance(out, tuple) else (out, None)
+        ls2 = None if self.ls2 is None else self.ls2.gamma
+        if self.ffn_layer == "swiglu":
+            h = fused_swiglu_sublayer_i8(h, self.norm2.scale, self.norm2.bias,
+                                         ffn_in, ffn_out, ls2, self.norm_eps)
+        else:
+            h = fused_mlp_sublayer_i8(h, self.norm2.scale, self.norm2.bias,
+                                      ffn_in, ffn_out, ls2,
+                                      self.gelu_approximate, self.norm_eps)
         return h if extra is None else (h, extra)

@@ -22,9 +22,13 @@ as the JAX package does: the encoder runs on the serving sub-layers under
 alive, and the backward runs each block's forward again to rebuild its
 residuals.
 
+An int8-quantized model (`ops/fused_int8.quantize_mst_int8`) runs the same
+forward: each quantized block dispatches to the W8A8 sub-layers, and its
+last block, left unquantized, is the CLS-only plain block.
+
 This is the port's only forward: configurations outside the gate raise
-instead of running a second composition. Int8 and the long-sequence flash
-path are later ROADMAP items.
+instead of running a second composition. The long-sequence flash path is a
+later ROADMAP item.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from mst_tpu_torch.models.layers import QDense
 from mst_tpu_torch.models.vit import _VIT_CONFIGS, interpolate_pos_embed
 from mst_tpu_torch.ops.fused_block import _f, _ln
 from mst_tpu_torch.ops.rotary import apply_rope_tables, rope_tables
@@ -221,9 +226,11 @@ def fused_vit_cls(enc, x, cfg: FastViTConfig, dtype=torch.bfloat16,
                             device=h.device)
         carry[:, :, 0] = 1.0
     # The last block for the CLS token only, unless a mode needs its whole
-    # attention; MST_NO_CHEAP_LAST (as in the JAX package) runs it in full,
-    # so "last" takes its row from the `with_row` kernel.
+    # attention or it is int8-quantized (`quantize_last=True`);
+    # MST_NO_CHEAP_LAST (as in the JAX package) runs it in full, so "last"
+    # takes its row from the `with_row` kernel.
     cheap_last = (not want_rollout and not want_abnar
+                  and not isinstance(enc.block(cfg.depth - 1).attn.qkv, QDense)
                   and not os.environ.get("MST_NO_CHEAP_LAST"))
     for i in range(cfg.depth - 1 if cheap_last else cfg.depth):
         blk = enc.block(i)

@@ -62,6 +62,19 @@ _SIGNATURES = {
     # num_heads, scale_log2, scale, stream
     "mst_mhsa_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
                      _P),
+    # x, ln_s, ln_b, w (int8), scale, bias, a_inv|NULL, out, out_mode,
+    # dynamic, M, K, N, eps, act, stream
+    "mst_ln_gemm_i8": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                       _I, _P),
+    # x, ln_s, ln_b, w12 (int8), scale, bias, a_inv|NULL, out, out_mode,
+    # dynamic, M, K, F, eps, stream
+    "mst_ln_gemm_i8_swiglu": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _F, _P),
+    # src, is_f32, q, scale|NULL, M, K, stream
+    "mst_quant_rows": (_P, _I, _P, _P, _I, _I, _P),
+    # a (int8), w (int8), row_scale|NULL, scale, bias, ls|NULL, x, out, M, K,
+    # N, stream
+    "mst_gemm_i8_residual": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 

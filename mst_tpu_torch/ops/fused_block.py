@@ -1235,6 +1235,15 @@ SUBLAYER_WRAPPERS = (fused_attention_sublayer, fused_mlp_sublayer,
                      fused_attention_sublayer_train_rope)
 
 
+def register_wrappers(kernels=(), sublayers=()) -> None:
+    """Count another module's kernel wrappers and sub-layers with these (the
+    int8 ones of `ops/fused_int8.py`, which imports this module)."""
+    global KERNEL_WRAPPERS, SUBLAYER_WRAPPERS
+    KERNEL_WRAPPERS += tuple(kernels)
+    SUBLAYER_WRAPPERS += tuple(sublayers)
+    reset_launch_counts()
+
+
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0

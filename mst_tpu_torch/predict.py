@@ -2,7 +2,7 @@
 
     python -m mst_tpu_torch.predict --run_folder RUN [--output_dir DIR] \
         [--use_tta] [--use_rollout [--rollout_abnar]] [--save_saliency] \
-        [--batch_size 1] [--dtype bfloat16]
+        [--batch_size 1] [--dtype bfloat16] [--int8 [--int8_calib N]]
 
 It scores the test split of the run's dataset with the run's best
 checkpoint (`serve.load_run_model`) on the CUDA card and writes, under
@@ -20,7 +20,10 @@ checkpoint (`serve.load_run_model`) on the CUDA card and writes, under
   & Zuidema rollout with `--rollout_abnar` too. Saliency modes run one
   case per batch, as the reference does.
 
-`--use_tta` averages the 8 flips of each case, run as one batch. The other
+`--use_tta` averages the 8 flips of each case, run as one batch. `--int8`
+runs the encoder on the W8A8 kernels (`ops/fused_int8.py`) with per-token
+activation scales, `--int8_calib N` with static ones calibrated on the
+first N test volumes as served (`quantize_model`), in every mode. The other
 flags of `scripts/main_predict.py` stop with the ROADMAP item that brings
 them. `build_model`, `build_datamodule` and `predict_cases` are split from
 `main` so that tests and `chip_smoke.py` drive the CLI's own builders.
@@ -58,7 +61,6 @@ _LATER = {
     "get_segmentation": "needs the LIDC rater masks of the host data path "
                         "(ROADMAP queue A #5)",
     "ensemble": "ROADMAP queue A #6",
-    "int8": "ROADMAP queue A #11",
     "num_devices": "ROADMAP queue A #13",
     "distributed": "ROADMAP queue A #13",
 }
@@ -89,7 +91,13 @@ def parse_args(argv=None):
     ap.add_argument("--get_attention", action="store_true")
     ap.add_argument("--get_segmentation", action="store_true")
     ap.add_argument("--ensemble", nargs="+", default=None)
-    ap.add_argument("--int8", action="store_true")
+    ap.add_argument("--int8", action="store_true",
+                    help="serve the encoder on the W8A8 int8 kernels "
+                         "(per-token activation scales)")
+    ap.add_argument("--int8_calib", type=int, default=0, metavar="N",
+                    help="with --int8: calibrate static activation scales "
+                         "on the first N test volumes as served and fold "
+                         "them in (0: per-token scales)")
     ap.add_argument("--num_devices", type=int, default=1)
     ap.add_argument("--distributed", action="store_true")
     args = ap.parse_args(argv)
@@ -97,6 +105,8 @@ def parse_args(argv=None):
         val = getattr(args, flag)
         if val and not (flag == "num_devices" and val == 1):
             ap.error(f"--{flag}: not ported to mst_tpu_torch yet ({why})")
+    if args.int8_calib and not args.int8:
+        ap.error("--int8_calib N needs --int8")
     return args
 
 
@@ -110,6 +120,23 @@ def build_model(args, device):
     """-> the run's model with its best checkpoint, on `device`."""
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     return load_run_model(args.run_folder, dtype).to(device).eval()
+
+
+def quantize_model(args, model, dm):
+    """--int8: a copy of `model` with its encoder quantized to W8A8; with
+    --int8_calib N the static scales are calibrated on the first N test
+    volumes as the loader serves them (`scripts/main_predict.py:287-321`)."""
+    from mst_tpu_torch.ops.fused_int8 import quantize_mst_int8
+
+    calib = None
+    if args.int8_calib > 0:
+        vols = []
+        for batch in dm.test_dataloader():
+            vols.append(torch.as_tensor(batch["source"]))
+            if sum(len(v) for v in vols) >= args.int8_calib:
+                break
+        calib = torch.cat(vols)[:args.int8_calib]
+    return quantize_mst_int8(model, calib)
 
 
 def build_datamodule(args, device, **dataset_kw) -> DataModule:
@@ -185,6 +212,8 @@ def main(argv=None, device="cuda", **dataset_kw):
     try:
         model = build_model(args, torch.device(device))
         dm = build_datamodule(args, torch.device(device), **dataset_kw)
+        if args.int8:
+            model = quantize_model(args, model, dm)
         write_results(predict_cases(args, model, dm, out_dir), out_dir)
     finally:
         log.removeHandler(handler)

@@ -6,11 +6,15 @@ importing `mst_tpu` pulls in JAX. Run as
 
     python -m mst_tpu_torch.serve [--init_seed 0 | --params_npz PATH |
         --run_folder RUN] [--batch_size 8] [--max_wait_ms 5] \
-        [--host 127.0.0.1] [--port 8760] [--dtype bfloat16]
+        [--host 127.0.0.1] [--port 8760] [--dtype bfloat16] \
+        [--int8 [--int8_calib N]]
 
 It serves MST-DINOv2 ViT-S/14 (or the model of a `python -m
 mst_tpu_torch.train` run folder, `load_run_model`: MST-DINOv3, or a frozen
-giant2 run, too) on the CUDA card.
+giant2 run, too) on the CUDA card. `--int8` serves the encoder on the W8A8
+kernels (`ops/fused_int8.py`) with per-token activation scales;
+`--int8_calib N` calibrates static ones on the first N volumes of the run
+folder's val split (`calibration_volumes`) and folds them in.
 
 API:  POST /predict  (np.save bytes of a [C, D, H, W] float volume)
           -> {"probs": [...], "pred": argmax}
@@ -209,7 +213,6 @@ def serve_http(predictor: BatchingPredictor, host: str = "127.0.0.1",
 
 _LATER = {
     "exported": "exported artifacts are ROADMAP queue A #14",
-    "int8": "int8 serving is ROADMAP queue A #11",
     "num_devices": "multi-GPU serving is ROADMAP queue A #13",
 }
 
@@ -265,9 +268,29 @@ def load_weights(model, args):
     return params_from_flax(model, flat)
 
 
-def build_model(args):
+def calibration_volumes(run_folder, n: int, **dataset_kw) -> np.ndarray:
+    """The first `n` val-split volumes of the run's own dataset (its
+    hparams' `dataset`, else the run folder's parent name) as [n, C, D, H,
+    W] f32: the static-int8 calibration contract of `mst_tpu/serve.py`
+    (`calibration_volumes`). `dataset_kw` go to the dataset (e.g.
+    `shape_cdhw` of Synthetic)."""
+    from mst_tpu_torch.registry import get_dataset
+    from mst_tpu_torch.utils.checkpoint import load_hparams
+
+    run = Path(run_folder)
+    name = (load_hparams(run) or {}).get("dataset") or run.parent.name
+    ds = get_dataset(name, split="val", **dataset_kw)
+    return np.stack([np.asarray(ds[i]["source"], np.float32)
+                     for i in range(min(int(n), len(ds)))])
+
+
+def build_model(args, device="cuda", **dataset_kw):
     """-> the --run_folder's model, or MODEL with --params_npz / seeded
-    weights, on the CUDA card in --dtype."""
+    weights, on the CUDA card (or `device`) in --dtype; with --int8 its
+    W8A8 copy (`quantize_mst_int8`), per-token activation scales, or with
+    --int8_calib N static ones calibrated on `calibration_volumes`
+    (`dataset_kw` go to its dataset)."""
+    from mst_tpu_torch.ops.fused_int8 import quantize_mst_int8
     from mst_tpu_torch.registry import get_model
 
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
@@ -275,7 +298,12 @@ def build_model(args):
         model = load_run_model(args.run_folder, dtype)
     else:
         model = load_weights(get_model(MODEL, dtype=dtype), args)
-    return model.to(torch.device("cuda")).eval()
+    model = model.to(torch.device(device)).eval()
+    if not args.int8:
+        return model
+    return quantize_mst_int8(model, calibration_volumes(
+        args.run_folder, args.int8_calib, **dataset_kw)
+        if args.int8_calib else None)
 
 
 def build_server(args, model):
@@ -295,7 +323,9 @@ def build_server(args, model):
     server = serve_http(predictor, host=args.host, port=args.port,
                         info={"model": name, "device": str(device),
                               "batch_size": args.batch_size,
-                              "dtype": args.dtype})
+                              "dtype": args.dtype,
+                              "int8": ("static" if args.int8_calib else
+                                       "dynamic") if args.int8 else None})
     return server, predictor
 
 
@@ -320,13 +350,23 @@ def parse_args(argv=None):
     ap.add_argument("--dtype", default="bfloat16",
                     choices=["float32", "bfloat16"])
     ap.add_argument("--exported", default=None)
-    ap.add_argument("--int8", action="store_true")
+    ap.add_argument("--int8", action="store_true",
+                    help="serve the encoder on the W8A8 int8 kernels "
+                         "(per-token activation scales)")
+    ap.add_argument("--int8_calib", type=int, default=0, metavar="N",
+                    help="with --int8 and --run_folder: calibrate static "
+                         "activation scales on the first N volumes of the "
+                         "run's val split and fold them in (0: per-token "
+                         "scales)")
     ap.add_argument("--num_devices", type=int, default=1)
     args = ap.parse_args(argv)
     for flag, why in _LATER.items():
         val = getattr(args, flag)
         if val and not (flag == "num_devices" and val == 1):
             ap.error(f"--{flag}: not ported to mst_tpu_torch yet ({why})")
+    if args.int8_calib and not (args.int8 and args.run_folder):
+        ap.error("--int8_calib N needs --int8 and --run_folder (static "
+                 "scales are calibrated on the run's val split)")
     return args
 
 

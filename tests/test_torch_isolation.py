@@ -95,12 +95,14 @@ def test_no_jax_import_in_port_sources():
 def test_cuda_sources_ship_and_build_dir_is_ignored():
     csrc = ROOT / "mst_tpu_torch" / "csrc"
     names = {p.name for p in csrc.glob("*.cu")}
+    int8 = {"ln_gemm_i8.cu", "quant_rows.cu", "gemm_i8_residual.cu"}
     assert names == {"ln_gemm.cu", "mhsa.cu", "gemm_residual.cu",
-                     "gemm_wgrad.cu", "gemm_dgrad.cu", "mhsa_bwd.cu"}
+                     "gemm_wgrad.cu", "gemm_dgrad.cu", "mhsa_bwd.cu", *int8}
     for name in names:
         text = (csrc / name).read_text()
         # the source note names the Pallas kernel it replaces
-        assert "mst_tpu/ops/fused_block.py" in text, name
+        module = "fused_int8" if name in int8 else "fused_block"
+        assert f"mst_tpu/ops/{module}.py" in text, name
         assert 'extern "C"' in text and "cudaGetLastError" in text, name
     ignored = (ROOT / ".gitignore").read_text().split()
     assert "/build/" in ignored

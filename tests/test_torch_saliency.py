@@ -400,12 +400,25 @@ def test_predict_cli_writes_results_log_and_nifti(run_folder, tmp_path):
 
 @pytest.mark.parametrize("flag,item", [
     (["--get_attention"], "queue A #6"), (["--get_segmentation"], "#5"),
-    (["--ensemble", "x"], "queue A #6"), (["--int8"], "#11"),
+    (["--ensemble", "x"], "queue A #6"),
     (["--num_devices", "2"], "#13"), (["--distributed"], "#13")])
 def test_predict_cli_refuses_unported_flags(flag, item, capsys):
     with pytest.raises(SystemExit):
         predict.parse_args(["--run_folder", "x", *flag])
     assert item in capsys.readouterr().err
+
+
+def test_predict_cli_takes_int8_flags():
+    """--int8 [--int8_calib N] is ported (tests/test_torch_int8.py runs it);
+    --int8_calib alone is a usage error."""
+    args = predict.parse_args(["--run_folder", "x", "--int8"])
+    assert args.int8 and args.int8_calib == 0
+    args = predict.parse_args(["--run_folder", "x", "--int8",
+                               "--int8_calib", "4", "--use_tta",
+                               "--use_rollout"])
+    assert args.int8 and args.int8_calib == 4
+    with pytest.raises(SystemExit):
+        predict.parse_args(["--run_folder", "x", "--int8_calib", "4"])
 
 
 def test_serve_cli_serves_a_run_folder(run_folder):

@@ -18,6 +18,7 @@ from mst_tpu.models.mst import DinoSliceClassifier as JaxMST
 from mst_tpu.train.predictor import make_predict_fn as jax_make_predict_fn
 from mst_tpu_torch.models.convert import params_from_flax, random_flax_params
 from mst_tpu_torch.models.mst import DinoSliceClassifier
+from mst_tpu_torch.ops.fused_int8 import quantize_mst_int8
 from mst_tpu_torch.serve import (
     BatchingPredictor,
     MODEL,
@@ -165,7 +166,7 @@ def test_serve_cli_builds_a_cpu_server(tmp_path):
     flax tree (here into a tiny CPU model the test builds itself; the CLI
     serves ViT-S on the card), later-slice flags are refused, and a run
     folder is one weight source among them (tests/test_torch_saliency.py
-    serves one)."""
+    serves one); --int8 serves the model's int8 copy."""
     tm, _, _ = _models(4)
     flat = {k.replace(".", "/"): v.detach().numpy()
             for k, v in tm.named_parameters()}
@@ -190,7 +191,22 @@ def test_serve_cli_builds_a_cpu_server(tmp_path):
         server.shutdown()
         server.server_close()
         predictor.close()
-    for flag in (["--int8"], ["--exported", "x"], ["--num_devices", "2"],
+    for flag in (["--exported", "x"], ["--num_devices", "2"],
                  ["--run_folder", "x", "--params_npz", str(npz)]):
         with pytest.raises(SystemExit):
             parse_args(flag)
+    # --int8 is ported: it parses, and the int8 copy of this model serves
+    args8 = parse_args(["--params_npz", str(npz), "--dtype", "float32",
+                        "--port", "0", "--batch_size", "2", "--int8"])
+    assert args8.int8 and args8.int8_calib == 0
+    model8 = quantize_mst_int8(model)
+    server, predictor = build_server(args8, model8)
+    try:
+        got8 = predictor.submit(vol, timeout=60)
+    finally:
+        server.shutdown()
+        server.server_close()
+        predictor.close()
+    np.testing.assert_allclose(got8, make_predict_fn(
+        model8, with_saliency=False)(vol[None])[0].numpy()[0], atol=1e-6)
+    np.testing.assert_allclose(got8, want, atol=0.05)
