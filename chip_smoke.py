@@ -161,6 +161,36 @@ and `predict --int8 [--int8_calib N]`):
    dequantization in torch ops), B=8 vol/s of ViT-S dynamic and static and
    of giant2 beside the bf16 path, peak memory, `torch.profiler` tables.
 
+Phases 34-37 drive slices above 512 tokens (queue B rows 12-16), which
+take the composed path (`DinoSliceClassifier.forward`: every block in
+full, plain products, the flash kernels): 518 px ViT-S/14 slices, S =
+1370; 560 px, S = 1601; DINOv3 ViT-S/16 at 512 px, S = 1029:
+
+34. kernels: `flash_fwd` with and without the LSE at the B=8 serving shape
+   [256, 6, 1370, 64] (the head views of a packed qkv), at S = 1601 and at
+   a ragged S = 77, and `flash_bwd_dq` / `flash_bwd_dkv` (dq, delta, dk,
+   dv) at the B=2 step shape [64, 6, 1370, 64], S = 1601 and 77, against
+   their plain versions (run FLASH_CHUNK slices at a time), each twice for
+   the same bits, with a planted wrong sm_scale that must break the limit;
+   C3: `mhsa`'s 32-row branch with the LSE and `mhsa_bwd`'s 16-row tiles at
+   [64, 442, 384];
+35. serving: phase 4's ViT-S/14 on [8, 1, 32, 518, 518] against the plain
+   composed path (with and without a mask) and an f32 plain forward, 12
+   `flash_fwd` and no other launch per forward; the HTTP server on
+   concurrent 518 px POSTs (a padded tail batch included); a batch-1 TTA
+   forward; one [1, 1, 32, 560, 560] forward; DINOv3 at [2, 1, 32, 512,
+   512] (RoPE in torch ops); `serve --int8` answering a 518 px POST with
+   HTTP 400;
+36. training: the train CLI's ViT-S/14 at [2, 1, 32, 518, 518]: loss and
+   grads against the plain composed step and the f64 oracle pooled over 4
+   batches, with a planted fault (every head reading the next head's keys
+   and values) that the loss limit must see; the same step with remat (the same loss and grads, 24
+   forward launches) and frozen (forward launches only); a B=1 step at 560
+   px; AdamW steps on one batch on both paths;
+37. times: each flash kernel against its plain version, bound and SDPA
+   (forward, or backward for the pair); 518 px vol/s at B=8 and the B=2
+   train step, peak memory, `torch.profiler` tables of both.
+
 Each phase prints its wall time. The line before the last is `{"kernels":
 [...]}`: per kernel its launches on the main path, its largest error, its
 time and its plain version's, the bound (the least time the card could
@@ -187,8 +217,10 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -285,6 +317,26 @@ CODE_FRAC = 1e-4
 # 32's volumes read 0.4954 in bf16 and 0.5061 in int8), and at least half
 # of the volumes so far from it.
 I8_TOL = 0.05
+# Long-slice phases (34-37): the composed path above 512 tokens. 518 px
+# ViT-S/14 slices give S = 1 + 37 x 37 = 1370 tokens, 560 px 1601 (above
+# the Pallas whole-sequence limit of 1536), DINOv3 ViT-S/16 at 512 px
+# 5 + 32 x 32 = 1029. The plain attention runs over FLASH_CHUNK slices at a
+# time, so that its [chunk, heads, S, S] f32 scores bound its memory.
+PX_LONG, PX_1601, PX3_LONG = 518, 560, 512
+LONG_B = 2  # the train CLI's default --batch_size
+FLASH_CHUNK = 16
+# The 518 px step at B=2 is held to the plain composed step and the f64
+# oracle pooled over STEP_BATCHES batches with phase 8's grad limits, but
+# its loss to a limit of its own: the mean CE of two volumes moves further
+# with bf16 noise than phase 8's mean of eight. On an H100 the kernel
+# path's mean distance from the plain path read 0.0020 and 0.0029 over 4
+# batches of two weight draws (largest batch 0.0023 and 0.0041), nearer
+# the f64 loss than the plain path (0.0009 / 0.0017 against 0.0020 /
+# 0.0046); a planted head-offset fault (every head reads the next head's
+# keys and values) read 0.23 (smallest batch 0.11). The limit lies between;
+# a fault of the softmax scale 25% off read only 0.0078 (smallest batch
+# 0.0002), too weak to plant.
+LONG_LOSS_TOL = 0.01
 T0 = time.perf_counter()
 
 
@@ -833,6 +885,21 @@ def profile_device(tag, label, fn, top: int) -> None:
               f"{e.count:5d}x  {e.key[:110]}")
 
 
+def flash_cost(n, s, heads=HEADS, part="fwd", lse=False):
+    """(FLOPs, bytes) of the flash kernels over q, k, v [n, heads, s, 64]:
+    the forward's two products (q.k^T, p.v), reading q, k, v and writing o
+    (and the f32 LSE rows); the dq kernel's three (s, dp, dq), reading q, k,
+    v, o, do and the LSE, writing dq and delta; the dk/dv kernel's four (s,
+    dv, dp, dk), reading q, k, v, do, the LSE and delta, writing dk, dv."""
+    m, rows = n * heads * s * 64, n * heads * s
+    prod = 2 * n * heads * s * s * 64
+    if part == "fwd":
+        return 2 * prod, 2 * 4 * m + (4 * rows if lse else 0)
+    if part == "dq":
+        return 3 * prod, 2 * 6 * m + 8 * rows
+    return 4 * prod, 2 * 6 * m + 8 * rows
+
+
 def host_seconds(fn, n: int = 5) -> float:
     """Median host time of `fn()` ending in a synchronize, after one warm-up."""
     fn()
@@ -885,9 +952,18 @@ def main() -> int:
 
     from mst_tpu_torch import predict as predict_cli
     from mst_tpu_torch.models import layers
-    from mst_tpu_torch.models.convert import params_from_flax, random_flax_params
-    from mst_tpu_torch.models.vit_fast import fused_mst_logits, fused_mst_saliency
+    from mst_tpu_torch.models.convert import (
+        flax_params_from_torch,
+        params_from_flax,
+        random_flax_params,
+    )
+    from mst_tpu_torch.models.vit_fast import (
+        fused_mst_saliency,
+        fused_seq_len_ok,
+        mst_logits,
+    )
     from mst_tpu_torch.ops import _build
+    from mst_tpu_torch.ops import attention as fa
     from mst_tpu_torch.ops import fused_block as fb
     from mst_tpu_torch.ops import fused_int8 as fq
     from mst_tpu_torch.ops.rotary import apply_rope_tables, rope_tables
@@ -1086,12 +1162,14 @@ def main() -> int:
     zero = {k: 0 for k in fb.launch_counts()}
     zero_calls = {k: 0 for k in fb.sublayer_calls()}
 
-    def check_forward(what, mdl, pred, vols, want, want_calls):
+    def check_forward(what, mdl, pred, vols, want, want_calls,
+                      plain=plain_sublayers):
         """`pred` (mdl's predict fn) on the volumes `vols` (B=8, or fewer
         where the plain path is slow), with and without the key-padding
-        mask, against the plain path and an f32 plain forward, with each
-        forward's launch counts; padded slices must not move the probs.
-        Returns the counts of the forward without the mask."""
+        mask, against the plain path (`plain` routes it) and an f32 plain
+        forward, with each forward's launch counts; padded slices must not
+        move the probs. Returns the counts of the forward without the
+        mask."""
         nb = len(vols)
         mask = padding_mask(nb)
         for label, m in (("no mask", None), ("key-padding mask", mask)):
@@ -1101,7 +1179,7 @@ def main() -> int:
             counts, calls = fb.launch_counts(), fb.sublayer_calls()
             if m is None:
                 first = counts
-            with plain_sublayers():
+            with plain():
                 pp, _ = pred(vols, m)
             torch.cuda.synchronize()
             check(tuple(pk.shape) == (nb, 2),
@@ -1131,8 +1209,8 @@ def main() -> int:
               f"{d_pad:.6g}")
         check(d_pad <= 1e-6, f"padded slices leak into the result ({d_pad})")
         # the bf16 kernel path against the plain path in f32 on the card
-        with plain_sublayers(), torch.inference_mode():
-            p32 = torch.softmax(fused_mst_logits(
+        with plain(), torch.inference_mode():
+            p32 = torch.softmax(mst_logits(
                 mdl, torch.from_numpy(vols).to(dev), dtype=torch.float32), -1)
         pk, _ = pred(vols, None)
         d32 = (pk - p32).abs().max().item()
@@ -1420,7 +1498,7 @@ def main() -> int:
         """(loss, every grad) of one train step's forward and backward; in
         f64 (the oracle) the CE stays in f64."""
         m_.zero_grad(set_to_none=True)
-        logits = fused_mst_logits(m_, src_, None, dtype=dtype, train=True)
+        logits = mst_logits(m_, src_, None, train=True, dtype=dtype)
         loss = (F.cross_entropy(logits, tgt_) if dtype == torch.float64
                 else cross_entropy_loss(logits, tgt_))
         loss.backward()
@@ -1480,7 +1558,7 @@ def main() -> int:
             faulty = ""
             if fault is not None:
                 with fault(), torch.no_grad():
-                    loss_f = cross_entropy_loss(fused_mst_logits(
+                    loss_f = cross_entropy_loss(mst_logits(
                         mdl, bsrc, None, train=True), btgt).item()
                 d_fault.append(abs(loss_f - loss_p))
                 faulty = f", plain path with the planted fault {loss_f:.6g}"
@@ -3388,12 +3466,450 @@ def main() -> int:
                    lambda: predict_gq(srcg, None), 10)
     del qg, predict_gq, predict_gb, i8_runs, model8, model8s
 
+    # ======================================================================
+    # Long slices (queue B rows 12-16): above FUSED_MAX_TOKENS = 512 tokens
+    # the callers route to the composed path (`mst_logits` ->
+    # `DinoSliceClassifier.forward`), whose attention is `flash_attention`.
+    # ======================================================================
+    # -- 34. the flash kernels vs plain, and C3's mhsa regions at S = 442 --
+    stamp(tag, "34")
+    fgen = torch.Generator(device=dev).manual_seed(SEED)
+    sm = 1.0 / 8  # 1 / sqrt(64)
+
+    def packed_heads(n, s_):
+        """q, k, v [n, 6, s_, 64] bf16: the head views of one packed
+        [n, s_, 3 * 384] qkv, as the composed `Attention` hands them over."""
+        qkv_ = torch.randn(n, s_, 3 * E, generator=fgen, device=dev).to(bf)
+        return tuple(u.transpose(1, 2)
+                     for u in qkv_.view(n, s_, 3, HEADS, 64).unbind(2))
+
+    def chunked(fn):
+        """`fn` (a plain attention function) over FLASH_CHUNK rows of the
+        leading axis of its tensor arguments at a time, outputs joined."""
+        def run(*a, **kw):
+            n = next(x for x in a if torch.is_tensor(x)).shape[0]
+            outs = [fn(*[x[i:i + FLASH_CHUNK] if torch.is_tensor(x) else x
+                         for x in a], **kw)
+                    for i in range(0, n, FLASH_CHUNK)]
+            if isinstance(outs[0], tuple):
+                return tuple(torch.cat(z) for z in zip(*outs))
+            return torch.cat(outs)
+        return run
+
+    plain_ops = SimpleNamespace(fwd=chunked(fa.attention_reference),
+                                bwd_dq=chunked(fa._flash_bwd_dq_ref),
+                                bwd_dkv=chunked(fa._flash_bwd_dkv_ref))
+    print(f"{tag} flash tolerance: bf16 outputs within 2 bf16 ulps of the "
+          f"plain version's largest magnitude, f32 LSE / delta within "
+          f"{KERNEL_GRAD_REL} x it (as phase 3); the plain version runs "
+          f"{FLASH_CHUNK} slices at a time; each kernel twice for the same "
+          f"bits; a planted fault (sm_scale 0.13 for 1 / 8) must break the "
+          f"limit")
+    flash_in, fcases = {}, {}
+    for label, n_, s_ in (("B8,S=1370", N_SLICES, 1370),
+                          ("B2,S=1370", LONG_B * DEPTH_SLICES, 1370),
+                          ("S=1601", DEPTH_SLICES, 1601), ("S=77", 64, 77)):
+        q_, k_, v_ = packed_heads(n_, s_)
+        flash_in[label] = (q_, k_, v_)
+        o_, lse_ = fa.flash_fwd(q_, k_, v_, want_lse=True)
+        o_serve = fa.flash_fwd(q_, k_, v_)
+        again = fa.flash_fwd(q_, k_, v_, want_lse=True)
+        torch.cuda.synchronize()
+        po, plse = plain_ops.fwd(q_, k_, v_, sm, want_lse=True)
+        name = f"flash_fwd[{label}]"
+        errs[name] = check_outputs(tag, f"kernel {name}", (o_, lse_),
+                                   (po, plse), KERNEL_GRAD_REL)
+        check(torch.equal(o_serve, o_) and torch.equal(again[0], o_)
+              and torch.equal(again[1], lse_),
+              f"{name}: the serving form or a second run gave other bits")
+        bad = fa.flash_fwd(q_, k_, v_, sm_scale=0.13)
+        d_bad = (bad.float() - po.float()).abs().max().item()
+        lim = 2 * ulp_bf16(po.float().abs().max().item())
+        print(f"{tag} {name}: planted fault (sm_scale 0.13) max_abs_err "
+              f"{d_bad:.6g} against the limit {lim:.6g}")
+        check(d_bad > lim, f"{name}: the limit passes a wrong sm_scale")
+        del bad, again, o_serve
+        if label == "B8,S=1370":  # the serving shape: forward only
+            fcases[name] = (lambda a=(q_, k_, v_): fa.flash_fwd(*a),
+                            lambda a=(q_, k_, v_): plain_ops.fwd(*a, sm))
+            del o_, lse_, po, plse
+            continue
+        do_ = torch.randn(o_.shape, generator=fgen, device=dev).to(bf)
+        dq_, delta_ = fa.flash_bwd_dq(q_, k_, v_, o_, do_, lse_)
+        dk_, dv_ = fa.flash_bwd_dkv(q_, k_, v_, do_, lse_, delta_)
+        dq2, delta2 = fa.flash_bwd_dq(q_, k_, v_, o_, do_, lse_)
+        dk2, dv2 = fa.flash_bwd_dkv(q_, k_, v_, do_, lse_, delta_)
+        torch.cuda.synchronize()
+        pdq, pdelta = plain_ops.bwd_dq(q_, k_, v_, o_, do_, lse_, sm)
+        pdk, pdv = plain_ops.bwd_dkv(q_, k_, v_, do_, lse_, delta_, sm)
+        for part, kern_, plain_ in (("dq", (dq_, delta_), (pdq, pdelta)),
+                                    ("dkv", (dk_, dv_), (pdk, pdv))):
+            name = f"flash_bwd_{part}[{label}]"
+            errs[name] = check_outputs(tag, f"kernel {name}", kern_, plain_,
+                                       KERNEL_GRAD_REL)
+        check(all(torch.equal(a_, b_) for a_, b_ in (
+            (dq_, dq2), (delta_, delta2), (dk_, dk2), (dv_, dv2))),
+            f"flash_bwd[{label}]: a second run gave other bits")
+        if label == "B2,S=1370":  # the train step's shape
+            a_ = (q_, k_, v_, o_, do_, lse_)
+            fcases[f"flash_bwd_dq[{label}]"] = (
+                lambda a=a_: fa.flash_bwd_dq(*a),
+                lambda a=a_: plain_ops.bwd_dq(*a, sm))
+            b_ = (q_, k_, v_, do_, lse_, delta_)
+            fcases[f"flash_bwd_dkv[{label}]"] = (
+                lambda a=b_: fa.flash_bwd_dkv(*a),
+                lambda a=b_: plain_ops.bwd_dkv(*a, sm))
+            flash_in["do"] = do_
+        del dq2, delta2, dk2, dv2, pdq, pdelta, pdk, pdv, po, plse
+    # C3: `mhsa`'s 32-row branch with the LSE (layout(64, S) passes the
+    # shared-memory cap above S = 400) and `mhsa_bwd`'s 16-row tiles, at
+    # S = 442 (ViT-S/14 on 294 px slices), [64, 442, 384]
+    n442, s442 = 64, 442
+    qkv442 = torch.randn(n442 * s442, 3 * E, generator=fgen, device=dev).to(bf)
+    o442, lse442 = fb.mhsa(qkv442, n442, s442, HEADS, want_lse=True)
+    again = fb.mhsa(qkv442, n442, s442, HEADS, want_lse=True)
+    errs["mhsa[S=442,lse]"] = check_outputs(
+        tag, "C3 mhsa[S=442,lse]", (o442, lse442),
+        fb._mhsa_ref(qkv442, n442, s442, HEADS, want_lse=True),
+        KERNEL_GRAD_REL)
+    do442 = torch.randn(n442 * s442, E, generator=fgen, device=dev).to(bf)
+    d442 = fb.mhsa_bwd(qkv442, o442, do442, lse442, n442, s442, HEADS)
+    errs["mhsa_bwd[S=442]"] = check_outputs(
+        tag, "C3 mhsa_bwd[S=442]", d442,
+        fb._mhsa_bwd_ref(qkv442, o442, do442, lse442, n442, s442, HEADS),
+        KERNEL_GRAD_REL)
+    check(torch.equal(again[0], o442) and torch.equal(again[1], lse442)
+          and torch.equal(fb.mhsa_bwd(qkv442, o442, do442, lse442, n442,
+                                      s442, HEADS), d442),
+          "C3 at S = 442: a second run gave other bits")
+    del qkv442, o442, lse442, do442, d442, again
+
+    # -- 35. 518 px serving on the composed path ---------------------------
+    stamp(tag, "35")
+
+    @contextlib.contextmanager
+    def plain_flash():
+        """Route the composed blocks' attention through the plain versions
+        on the card (FLASH_CHUNK slices at a time)."""
+        saved = layers.flash_attention
+        layers.flash_attention = functools.partial(fa.flash_attention,
+                                                   ops=plain_ops)
+        try:
+            yield
+        finally:
+            layers.flash_attention = saved
+
+    def long_volumes(pool, px, gen):
+        """`pool` seeded [1, D, px, px] volumes drawn on the card as
+        `candidate_volumes` draws them: noise of its own scale and offset
+        and a 4 x 4 block pattern."""
+        one = (pool, 1, 1, 1, 1)
+
+        def u(lo, hi):
+            return lo + (hi - lo) * torch.rand(one, generator=gen, device=dev)
+
+        cand = torch.randn((pool, 1, DEPTH_SLICES, px, px), generator=gen,
+                           device=dev) * u(0.25, 2.0) + u(-1.5, 1.5)
+        blocks = torch.randn((pool, DEPTH_SLICES, 4, 4), generator=gen,
+                             device=dev) * u(0.0, 2.0)[:, 0]
+        return cand + F.interpolate(blocks, size=(px, px))[:, None]
+
+    def spread_long(pred, n, px, pool):
+        """n of `pool` seeded volumes at px whose probs lie far apart
+        (`pick_spread` on the kernel path's probs), as numpy."""
+        cand = long_volumes(pool, px, fgen)
+        probs = torch.cat([pred(cand[i:i + BATCH], None)[0]
+                           for i in range(0, pool, BATCH)]).cpu().numpy()
+        return cand[pick_spread(row_gaps(probs), probs, n)].cpu().numpy()
+
+    check(not fused_seq_len_ok(model, PX_LONG, PX_LONG)
+          and not fused_seq_len_ok(model, PX_1601, PX_1601),
+          "518 / 560 px slices must take the composed path")
+    vol518 = spread_long(predict, BATCH, PX_LONG, 4 * BATCH)
+    per_fwd_long = {**zero, "flash_fwd": n_blocks + 1}  # every block, full
+    print(f"{tag} 518 px: S = 1370; the composed path runs all "
+          f"{n_blocks + 1} blocks in full (no CLS-only block), one flash_fwd "
+          f"each; tolerances as phase 4")
+    long_fwd_counts = check_forward(f"518 px forward", model, predict,
+                                    vol518, per_fwd_long, zero_calls,
+                                    plain=plain_flash)
+
+    # the HTTP server on 518 px POSTs, a padded tail batch included
+    n_req = 6
+    direct518, _ = predict(vol518[:n_req], None)
+    direct518 = direct518.cpu().numpy()
+
+    def post_all(port_, vols_):
+        """POST each volume concurrently -> (results, errors)."""
+        res, err_ = [None] * len(vols_), []
+
+        def one(i):
+            try:
+                buf = io.BytesIO()
+                np.save(buf, vols_[i])
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{port_}/predict", data=buf.getvalue(),
+                    method="POST")
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    res[i] = (r.status, json.loads(r.read()))
+            except urllib.error.HTTPError as e:
+                res[i] = (e.code, json.loads(e.read()))
+            except Exception as e:  # reported by the caller
+                err_.append(f"request {i}: {type(e).__name__}: {e}")
+
+        ths = [threading.Thread(target=one, args=(i,))
+               for i in range(len(vols_))]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(timeout=600)
+        return res, err_ + [f"request {i} hung" for i, th in enumerate(ths)
+                            if th.is_alive()]
+
+    fb.reset_launch_counts()
+    server, bp = build_server(args, model)
+    try:
+        res518, errors = post_all(server.server_address[1], vol518[:n_req])
+    finally:
+        server.shutdown()
+        server.server_close()
+        bp.close()
+    torch.cuda.synchronize()
+    served_long = fb.launch_counts()
+    check(not errors and all(r[0] == 200 for r in res518),
+          f"518 px requests failed: {errors} {res518}")
+    worst = max(float(np.abs(np.asarray(res518[i][1]["probs"])
+                             - direct518[i]).max()) for i in range(n_req))
+    want = {k_: v_ * bp.batches_run for k_, v_ in per_fwd_long.items()}
+    print(f"{tag} server: {n_req} concurrent 518 px POSTs, batch "
+          f"{args.batch_size}: batches_run={bp.batches_run} "
+          f"max|served-direct|={worst:.6g} (tol {SERVE_TOL}); launches "
+          f"{served_long}")
+    check(bp.batches_run >= 2 and worst <= SERVE_TOL,
+          f"518 px server: {bp.batches_run} batches, {worst}")
+    check(served_long == want, f"518 px server launches {served_long} != "
+          f"{want}")
+
+    # batch-1 8-flip TTA, and one S = 1601 volume (the Pallas blocked rows'
+    # lengths), each against the plain path
+    tta_long = make_predict_fn(model, tta=True, with_saliency=False)
+    vol560 = long_volumes(1, PX_1601, fgen)
+    for what, pred_, v_ in (("518 px batch-1 TTA", tta_long, vol518[:1]),
+                            ("560 px (S = 1601) forward", predict, vol560)):
+        fb.reset_launch_counts()
+        pk, _ = pred_(v_, None)
+        torch.cuda.synchronize()
+        counts = fb.launch_counts()
+        with plain_flash():
+            pp, _ = pred_(v_, None)
+        err = (pk - pp).abs().max().item()
+        print(f"{tag} {what}: probs {pk[0].tolist()} max|kernel-plain|="
+              f"{err:.6g} (tol {PROB_TOL}); launches {counts}")
+        check(bool(torch.isfinite(pk).all()) and err <= PROB_TOL,
+              f"{what}: {err}")
+        check(counts == per_fwd_long, f"{what} launches {counts}")
+
+    # DINOv3 ViT-S/16 at 512 px (S = 1029; RoPE on q and k in torch ops)
+    flat3 = random_flax_params(get_model(MODEL3), SEED)
+    for key in flat3:
+        if key.endswith("/gamma"):
+            flat3[key] = (1.0 + 0.1 * rng.standard_normal(flat3[key].shape)
+                          ).astype(np.float32)
+    model3 = params_from_flax(get_model(MODEL3, dtype=bf), flat3).to(
+        dev).eval()
+    predict3 = make_predict_fn(model3, with_saliency=False)
+    vol3 = spread_long(predict3, LONG_B, PX3_LONG, BATCH)
+    check_forward("DINOv3 512 px forward", model3, predict3, vol3,
+                  per_fwd_long, zero_calls, plain=plain_flash)
+    del model3, predict3, flat3, vol3
+
+    # `serve --int8`: a 518 px POST is the caller's fault (HTTP 400, the
+    # predictor's ValueError: int8 needs the fused path)
+    args8 = parse_args(["--params_npz", str(npz), "--int8", "--port", "0",
+                        "--batch_size", "1", "--max_wait_ms", "1"])
+    model8 = build_model(args8)
+    server, bp = build_server(args8, model8)
+    try:
+        res8, errors = post_all(server.server_address[1], vol518[:1])
+    finally:
+        server.shutdown()
+        server.server_close()
+        bp.close()
+    print(f"{tag} serve --int8, one 518 px POST: {res8[0]}")
+    check(not errors and res8[0][0] == 400
+          and "ValueError" in res8[0][1]["error"],
+          f"serve --int8 on 518 px: {res8} {errors}")
+    del model8
+
+    # -- 36. the 518 px train step at B=2 ------------------------------------
+    stamp(tag, "36")
+    largs = cli.parse_args(["--dataset", "Synthetic", "--batch_size",
+                            str(LONG_B), "--max_epochs", "1",
+                            "--num_train_samples", str(STEP_BATCHES * LONG_B),
+                            "--seed", str(SEED)])
+    lmodel = cli.build_model(largs)
+    params_from_flax(lmodel, random_flax_params(lmodel, SEED))
+    with torch.no_grad():
+        for name, prm in lmodel.named_parameters():
+            if name.endswith(".gamma"):
+                prm.copy_(torch.from_numpy(1.0 + 0.1 * rng.standard_normal(
+                    tuple(prm.shape))).to(prm))
+    ldm = cli.build_datamodule(largs, dev, num_samples=STEP_BATCHES * LONG_B,
+                               shape_cdhw=(1, DEPTH_SLICES, PX_LONG, PX_LONG))
+    lbatches = [(b_["source"], torch.from_numpy(b_["target"]).to(
+        dev, torch.long)) for b_ in ldm.train_dataloader()]
+    check(len(lbatches) == STEP_BATCHES and tuple(lbatches[0][0].shape) == (
+        LONG_B, 1, DEPTH_SLICES, PX_LONG, PX_LONG), "518 px train batches")
+    nl = n_blocks + 1
+    per_step_long = {**zero, "flash_fwd": nl, "flash_bwd_dq": nl,
+                     "flash_bwd_dkv": nl}
+
+    @contextlib.contextmanager
+    def flash_head_fault():
+        """the plain path with every head reading the next head's keys and
+        values (a head-offset fault)"""
+        saved = layers.flash_attention
+        layers.flash_attention = lambda q, k, v: fa.flash_attention(
+            q, k.roll(1, 1), v.roll(1, 1), ops=plain_ops)
+        try:
+            yield
+        finally:
+            layers.flash_attention = saved
+
+    long_step_counts = check_step(
+        f"518 px train step, B={LONG_B},", lmodel, lbatches, per_step_long,
+        zero_calls, plain=plain_flash, loss_tol=LONG_LOSS_TOL,
+        fault=flash_head_fault, oracle=torch.float64)
+
+    # --remat: the same loss and grads, each block's forward run twice
+    src_l, tgt_l = lbatches[0]
+    loss0, grads0 = loss_and_grads(lmodel, src_l, tgt_l)
+    lmodel.remat = True
+    try:
+        fb.reset_launch_counts()
+        loss_r, grads_r = loss_and_grads(lmodel, src_l, tgt_l)
+        counts_r = fb.launch_counts()
+    finally:
+        lmodel.remat = False
+    rel_r = rel_errs(grads_r, grads0)
+    same = loss_r == loss0 and all(torch.equal(grads_r[n_], grads0[n_])
+                                   for n_ in grads0)
+    print(f"{tag} 518 px step with remat: loss {loss_r:.8g} (without "
+          f"{loss0:.8g}); bit for bit: {same}; grads vs without: "
+          f"{summary(rel_r)}; launches {counts_r}")
+    want_r = {**per_step_long, "flash_fwd": 2 * nl}
+    check(counts_r == want_r, f"remat launches {counts_r} != {want_r}")
+    check(abs(loss_r - loss0) <= 1e-6 * abs(loss0)
+          and max(rel_r.values()) <= 1e-3,
+          f"remat moved the step: {loss_r} vs {loss0}, {summary(rel_r)}")
+    del grads0, grads_r
+
+    # --freeze: the encoder under no_grad (forward kernels only), the fusion
+    # and head against the plain path
+    fargs = cli.parse_args(["--dataset", "Synthetic", "--batch_size",
+                            str(LONG_B), "--freeze", "--seed", str(SEED)])
+    fmodel = cli.build_model(fargs)
+    params_from_flax(fmodel, flax_params_from_torch(lmodel))
+    check(fmodel.freeze, f"frozen config {fmodel.config}")
+    check_step(f"518 px frozen step, B={LONG_B},", fmodel, lbatches[:1],
+               {**zero, "flash_fwd": nl}, zero_calls, plain=plain_flash,
+               loss_tol=LONG_LOSS_TOL, oracle=torch.float64)
+    del fmodel
+
+    # one B=1 step at 560 px (S = 1601)
+    src560 = long_volumes(1, PX_1601, fgen)
+    tgt1 = tgt_l[:1]
+    fb.reset_launch_counts()
+    loss_k, grads_k = loss_and_grads(lmodel, src560, tgt1)
+    counts560 = fb.launch_counts()
+    with plain_flash():
+        loss_p, grads_p = loss_and_grads(lmodel, src560, tgt1)
+    rel560 = rel_errs(grads_k, grads_p)
+    print(f"{tag} 560 px (S = 1601) step, B=1: loss kernel path {loss_k:.6g}, "
+          f"plain path {loss_p:.6g} (limit {LONG_LOSS_TOL}); grads "
+          f"|kernel - plain| / |plain|max: {summary(rel560)} (limit "
+          f"{STEP_GRAD_REL}); launches {counts560}")
+    check(abs(loss_k - loss_p) <= LONG_LOSS_TOL
+          and max(rel560.values()) <= STEP_GRAD_REL, "560 px step")
+    check(counts560 == per_step_long, f"560 px launches {counts560}")
+    del grads_k, grads_p
+
+    # AdamW steps on one batch: the loss falls, and the paths agree
+    fit_k = fit_losses(lmodel, src_l, tgt_l)
+    with plain_flash():
+        fit_p = fit_losses(lmodel, src_l, tgt_l)
+    track = max(abs(a_ - b_) for a_, b_ in zip(fit_k, fit_p))
+    print(f"{tag} 518 px fit one batch, {FIT_STEPS} AdamW steps at lr "
+          f"{FIT_LR}: kernel path {[round(v_, 5) for v_ in fit_k]}, plain "
+          f"path {[round(v_, 5) for v_ in fit_p]}; max |kernel - plain| "
+          f"{track:.6g} (limit {FIT_TRACK_TOL})")
+    check(all(map(math.isfinite, fit_k)) and fit_k[-1] < fit_k[0],
+          f"518 px fit: the loss did not fall: {fit_k}")
+    check(track <= FIT_TRACK_TOL, f"518 px fit: the paths part: {track}")
+
+    # -- 37. long-slice times ------------------------------------------------
+    stamp(tag, "37")
+    lq, lk, lv = flash_in["B8,S=1370"]
+    tq, tk, tv = flash_in["B2,S=1370"]
+    cost.update({
+        "flash_fwd[B8,S=1370]": flash_cost(N_SLICES, 1370),
+        "flash_bwd_dq[B2,S=1370]": flash_cost(LONG_B * DEPTH_SLICES, 1370,
+                                              part="dq"),
+        "flash_bwd_dkv[B2,S=1370]": flash_cost(LONG_B * DEPTH_SLICES, 1370,
+                                               part="dkv"),
+    })
+    tqg, tkg, tvg = (u.detach().requires_grad_(True) for u in (tq, tk, tv))
+    o_sdpa = F.scaled_dot_product_attention(tqg, tkg, tvg)
+    sdpa_bwd = functools.partial(torch.autograd.grad, o_sdpa, (tqg, tkg, tvg),
+                                 flash_in["do"], retain_graph=True)
+    with torch.inference_mode():
+        ltimed = {name: (time_ms(kern), time_ms(plain))
+                  for name, (kern, plain) in fcases.items()}
+    # SDPA's backward gives dq, dk and dv in one call, timed once: it stands
+    # as the library call of either backward kernel
+    lib_ms["flash_fwd[B8,S=1370]"] = time_ms(functools.partial(
+        F.scaled_dot_product_attention, lq, lk, lv))
+    lib_ms["flash_bwd_dq[B2,S=1370]"] = lib_ms["flash_bwd_dkv[B2,S=1370]"] = (
+        time_ms(sdpa_bwd))
+    for name, (km, pm_) in ltimed.items():
+        b_ms, b_by = bound([cost[name]])
+        print(f"{tag} time {name}: kernel {km:.4f} ms, plain {pm_:.4f} ms, "
+              f"bound {b_ms:.4f} ms by {b_by}, library (SDPA) "
+              f"{lib_ms[name]:.4f} ms")
+    pair = ["flash_bwd_dq[B2,S=1370]", "flash_bwd_dkv[B2,S=1370]"]
+    b_ms, b_by = bound([cost[c] for c in pair])
+    print(f"{tag} row 14-16 flash backward, 518 px B={LONG_B}: kernels "
+          f"{sum(ltimed[c][0] for c in pair):.4f} ms, plain "
+          f"{sum(ltimed[c][1] for c in pair):.4f} ms, bound {b_ms:.4f} ms by "
+          f"{b_by}, library (one SDPA backward: dq, dk, dv) "
+          f"{lib_ms[pair[0]]:.4f} ms")
+    del o_sdpa, sdpa_bwd, tqg, tkg, tvg, flash_in, fcases
+    src518 = torch.from_numpy(vol518).to(dev)
+    sec_l, mem_l = seconds_and_memory(lambda: predict(src518, None), n=5)
+    print(f"{tag} e2e 518 px B={BATCH} {list(src518.shape)} bf16: "
+          f"{sec_l * 1e3:.3f} ms = {BATCH / sec_l:.4f} vol/s, peak memory "
+          f"{mem_l / 2**20:.1f} MiB above the "
+          f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB held")
+    profile_device(tag, f"one 518 px B={BATCH} forward",
+                   lambda: predict(src518, None), 10)
+    lstep = make_train_step(TrainState(lmodel, make_optimizer(
+        lmodel.parameters(), 1e-6)))
+    sec_s, mem_s = seconds_and_memory(lambda: lstep(src_l, tgt_l), n=5)
+    print(f"{tag} e2e 518 px train step B={LONG_B} {list(src_l.shape)}: "
+          f"{sec_s * 1e3:.3f} ms = {LONG_B / sec_s:.4f} vol/s, peak memory "
+          f"{mem_s / 2**20:.1f} MiB above the "
+          f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB held")
+    profile_device(tag, f"one 518 px B={LONG_B} train step",
+                   lambda: lstep(src_l, tgt_l), 10)
+    del lstep, lmodel, lbatches, ldm, src518, vol518, src560, vol560
+
     # TPU kernels: _attn_any_kernel at fused_block.py:326, _mlp_kernel at
     # :400, their train forwards _attn_train_kernel :424 and
     # _mlp_train_kernel :470, the backwards _attn_bwd_kernel :680 and
     # _mlp_bwd_kernel :841. Each CUDA kernel replaces a part of several.
     site = "mst_tpu/ops/fused_block.py:{}".format
     isite = "mst_tpu/ops/fused_int8.py:{}".format
+    asite = "mst_tpu/ops/attention.py:{}".format
     fwd_sites = [site(326), site(400), site(424), site(470)]
     bwd_sites = [site(680), site(841)]
     sites = {
@@ -3461,9 +3977,19 @@ def main() -> int:
                              [isite(389), isite(471), isite(508)],
                              served8_counts, ["gemm_i8_residual[proj,ls]",
                                               "gemm_i8_residual[fc2,ls]"]),
+        # queue B rows 12-16, counted on the composed path above 512
+        # tokens: the 518 px server's batches (phase 35) and the B=2 518 px
+        # train step (phase 36); one flash_fwd call at B=8 and one backward
+        # pair at B=2 timed
+        "flash_fwd": ("flash_fwd", [asite(152), asite(96)], served_long,
+                      ["flash_fwd[B8,S=1370]"]),
+        "flash_bwd_dq": ("flash_bwd", [asite(340), asite(305)],
+                         long_step_counts, ["flash_bwd_dq[B2,S=1370]"]),
+        "flash_bwd_dkv": ("flash_bwd", [asite(372), asite(305)],
+                          long_step_counts, ["flash_bwd_dkv[B2,S=1370]"]),
     }
     alltimed = {**timed, **ttimed, **stimed, **rtimed, **gtimed, **utimed,
-                **itimed}
+                **itimed, **ltimed}
     print(f"{tag} bound: the larger of FLOPs / {PEAK_FLOPS:.4g} FLOP/s + "
           f"int8 operations / {PEAK_INT8:.4g} OP/s and bytes / "
           f"{PEAK_BYTES:.4g} B/s (each input read once, each output written "
@@ -3549,6 +4075,7 @@ def main() -> int:
         "11 int8 SwiGLU sub-layer, giant2 (static)": [
             "ln_gemm_i8_swiglu[w12,static]",
             "gemm_i8_residual[w3,ls,static]"],
+        "12-13 flash forward, 518 px B=8 (S = 1370)": ["flash_fwd[B8,S=1370]"],
     }
     for label, chain in rows.items():
         b_ms, b_by = bound([cost[c] for c in chain])
@@ -3565,7 +4092,8 @@ def main() -> int:
         steps = (step3_counts if name.endswith("_rope") else stepg_counts
                  if name == "ln_gemm_swiglu" else stepu_counts
                  if name in ("ln_gemm_swiglu_train", "gemm_dgrad_swiglu",
-                             "ln_pullback") else step_counts)
+                             "ln_pullback") else long_step_counts
+                 if name.startswith("flash") else step_counts)
         bound_ms, bound_by = bound([cost[c] for c in per_block])
         kernels.append({
             "name": name, "route": "cuda",

@@ -1,8 +1,15 @@
 """Transformer building blocks as parameter-holding `nn.Module`s.
 
-Counterpart of `mst_tpu/models/layers.py`. Parameter names are the flax
-ones, so `models/convert.params_from_flax` maps `a/b/c` to the attribute
-path `a.b.c`: `patch_embed/proj/{kernel,bias}`, `blocks_i/{norm1,attn/qkv,
+Counterpart of `mst_tpu/models/layers.py`. `Block.forward` runs the fused
+sub-layers (the path of slices up to `vit_fast.FUSED_MAX_TOKENS`);
+`Block.forward_composed` is the flax `Block.__call__` composition, for
+longer slices: LN, the qkv product, [RoPE], `flash_attention` (the
+hand-written flash kernels on CUDA), the proj product, LayerScale and the
+residual, then LN, the MLP or SwiGLU, LayerScale and the residual. Its
+products stay `torch.matmul`, as the JAX package leaves them to XLA.
+
+Parameter names are the flax ones, so `models/convert.params_from_flax`
+maps `a/b/c` to the attribute path `a.b.c`: `patch_embed/proj/{kernel,bias}`, `blocks_i/{norm1,attn/qkv,
 attn/proj,ls1,norm2,mlp/fc1,mlp/fc2,ls2}` (the SwiGLU FFN: `mlp/w12`,
 `mlp/w3`), `norm`.
 
@@ -21,8 +28,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from mst_tpu_torch.ops.attention import flash_attention
 from mst_tpu_torch.ops.fused_block import (
     _ln,
     fused_attention_sublayer,
@@ -43,6 +52,7 @@ from mst_tpu_torch.ops.fused_int8 import (
     fused_mlp_sublayer_i8,
     fused_swiglu_sublayer_i8,
 )
+from mst_tpu_torch.ops.rotary import apply_rope_tables
 
 
 class Dense(nn.Module):
@@ -133,12 +143,28 @@ class Attention(nn.Module):
         self.qkv = Dense(dim, 3 * dim)
         self.proj = Dense(dim, dim)
 
+    def forward(self, x, rope_cos=None, rope_sin=None):
+        """flax `Attention` without weights or bias: x [N, S, E] -> [N, S,
+        E]. q, k, v are head views of the packed qkv (no copy); with the
+        RoPE tables ([S, head_dim] f32) q and k are rotated first."""
+        n, s, e = x.shape
+        qkv = self.qkv(x).view(n, s, 3, self.num_heads, e // self.num_heads)
+        q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+        if rope_cos is not None:
+            q, k = (apply_rope_tables(t, rope_cos, rope_sin) for t in (q, k))
+        o = flash_attention(q, k, v)  # laid out [N, S, heads, head_dim]
+        return self.proj(o.transpose(1, 2).reshape(n, s, e))
+
 
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int):
         super().__init__()
         self.fc1 = Dense(dim, hidden)
         self.fc2 = Dense(hidden, dim)
+
+    def forward(self, x, approximate: bool = True):
+        return self.fc2(F.gelu(self.fc1(x),
+                               approximate="tanh" if approximate else "none"))
 
 
 class SwiGLU(nn.Module):
@@ -150,6 +176,10 @@ class SwiGLU(nn.Module):
         super().__init__()
         self.w12 = Dense(dim, 2 * hidden)
         self.w3 = Dense(hidden, dim)
+
+    def forward(self, x):
+        h1, h2 = self.w12(x).chunk(2, dim=-1)
+        return self.w3(F.silu(h1) * h2)
 
 
 class Block(nn.Module):
@@ -238,6 +268,23 @@ class Block(nn.Module):
             ffn = fused_mlp_sublayer_train if train else fused_mlp_sublayer
             h = ffn(*ffn_args, self.gelu_approximate, self.norm_eps)
         return h if extra is None else (h, extra)
+
+    def forward_composed(self, h, rope_cos=None, rope_sin=None):
+        """The flax `Block.__call__` (mst_tpu/models/layers.py:177-219) on
+        plain products and `flash_attention`: h [N, S, E] -> [N, S, E],
+        differentiable by autograd (the attention through its kernels'
+        backward). `rope_cos` / `rope_sin` ([S, head_dim] f32): RoPE on q
+        and k."""
+        y = self.attn(self.norm1(h), rope_cos, rope_sin)
+        if self.ls1 is not None:
+            y = y * self.ls1.gamma.to(y.dtype)
+        h = h + y
+        y = self.norm2(h)
+        y = (self.mlp(y) if self.ffn_layer == "swiglu"
+             else self.mlp(y, self.gelu_approximate))
+        if self.ls2 is not None:
+            y = y * self.ls2.gamma.to(y.dtype)
+        return h + y
 
     def _forward_i8(self, h, train, want_row, carry, abnar, rope_cos,
                     rope_sin):

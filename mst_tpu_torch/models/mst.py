@@ -9,15 +9,19 @@ optional bottleneck and slice position embedding, `freeze` (the encoder
 trains frozen: the reference's giant2 workflow) and `remat` (an unfrozen
 encoder recomputes each block in the backward instead of keeping its
 residuals: what fits unfrozen ViT-L and giant2 on one card). The module
-holds the parameters under the flax names; its forward is the fused
-serving path (`models/vit_fast.fused_mst_logits`). Every other
-configuration raises `NotImplementedError` naming the ROADMAP item that
-brings it, and an encoder train step the CUDA kernels cannot run
-(`check_trainable`) raises before its forward.
+holds the parameters under the flax names. Slices of up to
+`vit_fast.FUSED_MAX_TOKENS` tokens run the fused path
+(`models/vit_fast.fused_mst_logits`); the module's own forward is the
+composed path, flax `encode_slices` + `__call__`, which longer slices take
+(`vit_fast.mst_logits` routes). Every other configuration raises
+`NotImplementedError` naming the ROADMAP item that brings it, and an
+encoder train step the fused CUDA kernels cannot run (`check_trainable`)
+raises before its forward.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -26,7 +30,12 @@ from torch import nn
 from mst_tpu_torch.models.layers import Dense, LayerNorm
 from mst_tpu_torch.models.slice_fusion import TransformerEncoderLayer
 from mst_tpu_torch.models.vit import _VIT_CONFIGS, VisionTransformer
-from mst_tpu_torch.models.vit_fast import fused_mst_logits
+from mst_tpu_torch.models.vit_fast import (
+    FastViTConfig,
+    fusion_head,
+    prepare_vit_tokens,
+    slices_nhwc,
+)
 from mst_tpu_torch.ops.fused_block import LN_PULLBACK_MAX_K
 
 MAX_SLICES = 256  # slice-position vocabulary (reference `dino.py:81-82`)
@@ -140,8 +149,8 @@ class DinoSliceClassifier(nn.Module):
         return getattr(self, f"fusion_{i}")
 
     def check_trainable(self, device) -> None:
-        """Raise, before any forward work, where a train step that reaches
-        into the encoder cannot run on `device`: on a CUDA device, an
+        """Raise, before any forward work, where a fused train step that
+        reaches into the encoder cannot run on `device`: on a CUDA device, an
         encoder whose widths the train kernels do not take (the LN pullback
         of `gemm_dgrad` wants E % 128 == 0 and E <= LN_PULLBACK_MAX_K, the
         attention kernels a head dim of 64, the FFN's `gemm_dgrad` an FFN
@@ -169,9 +178,27 @@ class DinoSliceClassifier(nn.Module):
                 f"no other widths (ROADMAP queue A #12); train it with "
                 f"--freeze, or on the CPU")
 
-    def forward(self, source, src_key_padding_mask=None):
-        """source [B, C, D, H, W] -> logits [B, out_ch] (f32)."""
-        return fused_mst_logits(self, source, src_key_padding_mask)
+    def forward(self, source, src_key_padding_mask=None, train: bool = False,
+                dtype: Optional[torch.dtype] = None):
+        """The composed path: source [B, C, D, H, W] -> logits [B, out_ch]
+        (f32), the counterpart of flax `encode_slices` + `__call__`
+        (mst_tpu/models/mst.py:147-228). Every encoder block runs in full
+        (`VisionTransformer.forward`), differentiable by autograd; with
+        `freeze` under `torch.no_grad()` (JAX's `stop_gradient` on the
+        features), with `train` and `remat` each block checkpointed.
+        `dtype` defaults to `self.dtype`; float64 on the plain attention is
+        the oracle. Any width runs here (the flash kernels hold the head
+        dim to 64 on CUDA)."""
+        dtype = self.dtype if dtype is None else dtype
+        b, d = source.shape[0], source.shape[2]
+        grad = torch.no_grad() if self.freeze else contextlib.nullcontext()
+        with grad:
+            h, rope_cos, rope_sin = prepare_vit_tokens(
+                self.encoder, slices_nhwc(source),
+                FastViTConfig.from_model(self), dtype)
+            feats = self.encoder(h, rope_cos, rope_sin,
+                                 remat=train and self.remat)
+        return fusion_head(self, feats, b, d, src_key_padding_mask, dtype)[0]
 
 
 def dino_v2_classifier_slice(**kw) -> DinoSliceClassifier:

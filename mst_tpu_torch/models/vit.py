@@ -4,8 +4,10 @@ Counterpart of `mst_tpu/models/vit.py`: the size table, the bicubic
 position-embedding interpolation (built from explicit numpy weight
 matrices, so the reference's 0.1-offset scale factor stays exact), and the
 encoder module holding the parameters under the flax names (the FFN an MLP
-or, for giant2, a SwiGLU). The forward is
-`models/vit_fast.fused_vit_cls`; DINOv3's positions come from the 2D RoPE
+or, for giant2, a SwiGLU). Slices of up to `vit_fast.FUSED_MAX_TOKENS`
+tokens run `models/vit_fast.fused_vit_cls`; longer ones the module's own
+forward, the composed flax `VisionTransformer.__call__` over the tokens of
+`vit_fast.prepare_vit_tokens`. DINOv3's positions come from the 2D RoPE
 (`ops/rotary.py`), so its encoder has no `pos_embed`.
 """
 
@@ -16,6 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mst_tpu_torch.models.layers import Block, LayerNorm, PatchEmbed
 
@@ -127,3 +130,19 @@ class VisionTransformer(nn.Module):
 
     def block(self, i: int) -> Block:
         return getattr(self, f"blocks_{i}")
+
+    def forward(self, h, rope_cos=None, rope_sin=None, remat: bool = False):
+        """The composed encoder (mst_tpu/models/vit.py:135-241) from the
+        tokens h [N, S, E] of `vit_fast.prepare_vit_tokens`: every block in
+        full (`Block.forward_composed`; the flax path has no CLS-only last
+        block), then the final LayerNorm -> CLS [N, E]. With `remat` each
+        block runs under `torch.utils.checkpoint`, as `nn.remat` wraps it:
+        the backward recomputes the block from its input."""
+        for i in range(self.depth):
+            blk = self.block(i)
+            if remat:
+                h = checkpoint(blk.forward_composed, h, rope_cos, rope_sin,
+                               use_reentrant=False)
+            else:
+                h = blk.forward_composed(h, rope_cos, rope_sin)
+        return self.norm(h[:, 0])  # the final LN is per token

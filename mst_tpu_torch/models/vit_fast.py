@@ -26,9 +26,14 @@ An int8-quantized model (`ops/fused_int8.quantize_mst_int8`) runs the same
 forward: each quantized block dispatches to the W8A8 sub-layers, and its
 last block, left unquantized, is the CLS-only plain block.
 
-This is the port's only forward: configurations outside the gate raise
-instead of running a second composition. The long-sequence flash path is a
-later ROADMAP item.
+Slices above `FUSED_MAX_TOKENS` tokens (518 px ViT-S/14: 1370) take the
+composed path instead, the counterpart of flax `model.apply`:
+`DinoSliceClassifier.forward` runs every encoder block in full on plain
+products and `ops/attention.flash_attention` (the hand-written flash
+kernels), then the slice fusion and head that `fusion_head` shares with
+the fused path. `mst_logits` routes by the slice size alone, as the JAX
+callers do (`mst_tpu/train/predictor.py:238-257`, `trainer.py:237-266`,
+:365-385).
 """
 
 from __future__ import annotations
@@ -55,7 +60,7 @@ from mst_tpu_torch.ops.saliency import (
 
 # The fused sub-layers hold a slice's whole sequence per attention block
 # (`mhsa` keeps K, V and the score rows in shared memory). Longer sequences
-# need the flash-attention path, ROADMAP queue A #10.
+# take the composed path (`mst_logits`).
 FUSED_MAX_TOKENS = 512
 
 
@@ -334,8 +339,44 @@ def _check_fused(model, source):
     if not fused_seq_len_ok(model, *source.shape[-2:]):
         raise NotImplementedError(
             f"{tuple(source.shape[-2:])} slices exceed FUSED_MAX_TOKENS="
-            f"{FUSED_MAX_TOKENS} tokens; the flash-attention path is ROADMAP "
-            f"queue A #10")
+            f"{FUSED_MAX_TOKENS} tokens: they take the composed path "
+            f"(`mst_logits`, `DinoSliceClassifier.forward`)")
+
+
+def has_int8(model) -> bool:
+    """Whether `model`'s encoder holds W8A8 blocks (`QDense` products)."""
+    enc = model.encoder
+    return any(isinstance(enc.block(i).attn.qkv, QDense)
+               for i in range(enc.depth))
+
+
+def mst_logits(model, source, src_key_padding_mask=None, train: bool = False,
+               dtype=None):
+    """logits [B, out_ch] f32 of `model` in `dtype` (default
+    `model.dtype`), routed as the JAX callers route (`fused_seq_len_ok`
+    alone): the fused path (`fused_mst_logits`) where the slices fit
+    FUSED_MAX_TOKENS, else the composed path (`DinoSliceClassifier.forward`,
+    flax `model.apply`). An int8-quantized model has no composed path:
+    ValueError, as JAX raises for int8 params there
+    (`mst_tpu/train/predictor.py:248-255`)."""
+    if fused_seq_len_ok(model, *source.shape[-2:]):
+        return fused_mst_logits(model, source, src_key_padding_mask, dtype,
+                                train)
+    if has_int8(model):
+        raise ValueError(
+            "int8-quantized params need the fused serving path; this input "
+            "falls back to the composed path (slice tokens must be <= "
+            f"vit_fast.FUSED_MAX_TOKENS = {FUSED_MAX_TOKENS}, got "
+            f"{tuple(source.shape[-2:])} slices)")
+    return model(source, src_key_padding_mask, train=train, dtype=dtype)
+
+
+def slices_nhwc(source):
+    """[B, C, D, H, W] -> the slice batch [B*D, H, W, 3] (gray -> RGB, a
+    broadcast view)."""
+    b, c, d, hh, ww = source.shape
+    x = source.permute(0, 2, 3, 4, 1).reshape(b * d, hh, ww, c)
+    return x.expand(b * d, hh, ww, 3) if c == 1 else x
 
 
 def _fused_mst(model, source, src_key_padding_mask, dtype, train=False,
@@ -346,11 +387,9 @@ def _fused_mst(model, source, src_key_padding_mask, dtype, train=False,
     if train:
         model.check_trainable(source.device)
     cfg = FastViTConfig.from_model(model)
-    b, c, d, hh, ww = source.shape
-    x = source.permute(0, 2, 3, 4, 1).reshape(b * d, hh, ww, c)
-    if c == 1:
-        x = x.expand(b * d, hh, ww, 3)  # gray -> RGB
-    sal_data = fusion_probs = None
+    b, d = source.shape[0], source.shape[2]
+    x = slices_nhwc(source)
+    sal_data = None
     if plane_mode is None and train and model.freeze:
         # mst_tpu/models/vit_fast.py:577-584: the encoder on the serving
         # kernels (no residuals to save), no grad past its output
@@ -364,6 +403,21 @@ def _fused_mst(model, source, src_key_padding_mask, dtype, train=False,
             model.encoder, x, cfg, dtype, want_last_row=plane_mode == "last",
             want_rollout=plane_mode == "rollout",
             want_abnar=plane_mode == "rollout_abnar")
+    logits, fusion_probs = fusion_head(model, feats, b, d,
+                                       src_key_padding_mask, dtype,
+                                       want_probs=plane_mode is not None)
+    return logits, sal_data, fusion_probs
+
+
+def fusion_head(model, feats, b: int, d: int, src_key_padding_mask, dtype,
+                want_probs: bool = False):
+    """The slice fusion and head of both paths (mst_tpu/models/mst.py
+    :176-228): the per-slice CLS features [B*D, E] -> [bottleneck], slice
+    position table, volume CLS token, the fusion layers under the
+    key-padding mask [B, D] (True = pad), the fusion norm and the head ->
+    (logits [B, out_ch] f32, the last fusion layer's probabilities [B,
+    heads, 1+D, 1+D] f32 with `want_probs`, else None)."""
+    fusion_probs = None
     if model.use_bottleneck:
         feats = model.bottleneck(feats)
     e = feats.shape[-1]
@@ -388,7 +442,7 @@ def _fused_mst(model, source, src_key_padding_mask, dtype, train=False,
                             device=h.device)
         pad = torch.cat([torch.zeros_like(m[:, :1]), m], dim=1)
     for i in range(model.fusion_layers):
-        if plane_mode is not None and i == model.fusion_layers - 1:
+        if want_probs and i == model.fusion_layers - 1:
             h, fusion_probs = model.fusion(i)(h, pad, want_probs=True)
         else:
             h = model.fusion(i)(h, pad)
@@ -396,5 +450,5 @@ def _fused_mst(model, source, src_key_padding_mask, dtype, train=False,
     pooled = _f(h[:, 0])
     logits = (pooled @ model.head.kernel.to(pooled.dtype)
               + model.head.bias.to(pooled.dtype))
-    return logits, sal_data, fusion_probs
+    return logits, fusion_probs
 

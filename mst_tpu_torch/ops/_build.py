@@ -75,6 +75,17 @@ _SIGNATURES = {
     # a (int8), w (int8), row_scale|NULL, scale, bias, ls|NULL, x, out, M, K,
     # N, stream
     "mst_gemm_i8_residual": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # q, k, v, o, lse|NULL, strides (host int64 [4][3]), B, H, S, scale_log2,
+    # stream
+    "mst_flash_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # q, k, v, o, do, lse, delta, dq, strides ([6][3]), B, H, S, scale_log2,
+    # sm_scale, stream
+    "mst_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                         _F, _P),
+    # q, k, v, do, lse, delta, dk, dv, strides ([6][3]), B, H, S, scale_log2,
+    # sm_scale, stream
+    "mst_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                          _F, _P),
 }
 
 

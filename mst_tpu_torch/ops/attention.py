@@ -1,19 +1,55 @@
-"""Attention constants and device dispatch shared by the port's ops.
+"""Flash attention on hand-written Hopper kernels, and the device dispatch
+shared by the port's ops.
 
-Counterpart of `mst_tpu/ops/attention.py` for what the serving slice uses:
-the finite mask value and the question `_on_tpu()` answers there (run the
-hand-written kernel or its plain version), which here is "does this tensor
-live on a CUDA device". The flash-attention kernels of that module are not
-ported yet (ROADMAP queue A #10).
+Counterpart of `mst_tpu/ops/attention.py`: the attention of the composed
+ViT blocks (`models/layers.Attention`), which runs wherever the fused
+sub-layers are gated off (S = 1 + registers + patches above
+`vit_fast.FUSED_MAX_TOKENS`, e.g. 1370 tokens for 518 px ViT-S/14 slices).
+
+- `flash_attention(q, k, v, sm_scale=None)`: q, k, v [B, H, S, hd] (any
+  strides with a unit last one, such as the head views of a packed qkv)
+  -> o [B, H, S, hd], laid out as [B, S, H, hd] so that the output
+  projection reads it as [B, S, H * hd] without a copy. With grad enabled
+  it is a `torch.autograd.Function` whose forward also keeps the base-2
+  log-sum-exp rows and whose backward runs the two backward kernels.
+- `flash_fwd` (rows 12 and 13 of ROADMAP queue B: `_fwd_single_kernel`
+  :152 and `_fwd_kernel` :96; csrc/flash_fwd.cu), `flash_bwd_dq` (row 15,
+  `_bwd_dq_kernel` :340, and the dq of row 14, `_bwd_single_kernel` :305)
+  and `flash_bwd_dkv` (row 16, `_bwd_dkv_kernel` :372, and the dk, dv of
+  row 14; csrc/flash_bwd.cu): the kernel wrappers. The whole-sequence /
+  blocked split of the Pallas kernels at `SINGLE_BLOCK_MAX_KV` = 1536 and
+  their `_pad_to` copies are VMEM artifacts: one online-softmax kernel per
+  direction covers every S, masking the ragged edge itself.
+- `attention_reference` and `_flash_bwd_dq_ref` / `_flash_bwd_dkv_ref`:
+  their plain versions, which round where the kernels round (P to the
+  working dtype before P.V, the normalisation on the [S, hd] output, ds
+  before dq and dk) and keep f64 when given f64 (the oracle).
+
+A CUDA tensor launches the kernel (bf16, head dim 64: every ViT size) and
+counts the launch; a CPU tensor takes the plain version. There is no third
+path, and no fallback from one to the other. The LSE is base 2 in the
+scaled units of the softmax (`m + log2(l)` of s = q.k * sm_scale *
+log2(e)), as `mhsa` keeps it; JAX's natural-log rows are this / log2(e),
+and only the port's own backward reads them. The JAX bias /
+`return_weights` form of `attention_reference` serves saliency above 512
+tokens, which is ROADMAP queue A #16.
 """
 
 from __future__ import annotations
 
+import ctypes
+import math
+from types import SimpleNamespace
+
 import torch
+
+from mst_tpu_torch.ops import _build
 
 # Finite "minus infinity" for masked scores: a fully masked row stays free
 # of NaN (mst_tpu/ops/attention.py NEG_INF).
 NEG_INF = -1e30
+LOG2E = math.log2(math.e)
+HEAD_DIM = 64  # the kernels' head dim: E / heads of every ViT size
 
 
 def _on_cuda(x: torch.Tensor) -> bool:
@@ -26,3 +62,243 @@ def _on_cuda(x: torch.Tensor) -> bool:
         return False
     raise NotImplementedError(
         f"mst_tpu_torch kernels run on CUDA or CPU tensors, got {x.device}")
+
+
+def _f(t):
+    """t in f32, or as it is if it is f64 (the plain path in f64 keeps its
+    precision)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
+def _mm(a, b):
+    """Working-dtype operands, f32 (or f64) product."""
+    return torch.matmul(_f(a), _f(b))
+
+
+def _scale(q, sm_scale):
+    if sm_scale is None:
+        return 1.0 / math.sqrt(q.shape[-1])
+    return float(sm_scale)
+
+
+def _like_out(q):
+    """An empty [B, H, S, hd] tensor laid out as [B, S, H, hd]."""
+    b, h, s, d = q.shape
+    return torch.empty((b, s, h, d), dtype=q.dtype,
+                       device=q.device).transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (CPU path; what the kernels are held to on the card)
+# ---------------------------------------------------------------------------
+
+
+def attention_reference(q, k, v, sm_scale=None, want_lse: bool = False):
+    """Softmax attention over [B, H, S, hd] -> o (and with `want_lse` the
+    base-2 LSE [B, H, S] f32): s = q.k^T * sm_scale * log2(e) with f32
+    sums, p = exp2(s - rowmax), l = rowsum(p), o = (bf16(p).v) / l in the
+    working dtype, as the flash kernels and the Pallas bodies compute it."""
+    scale = _scale(q, sm_scale) * LOG2E
+    s = _mm(q, k.transpose(-1, -2)) * scale
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp2(s - m)
+    l = p.sum(-1, keepdim=True)
+    o = (_mm(p.to(v.dtype), v) * torch.where(l > 0, 1.0 / l, 0.0)).to(q.dtype)
+    if not want_lse:
+        return o
+    return o, (m + torch.log2(l.clamp_min(1e-30)))[..., 0]
+
+
+def _probs(q, k, lse, sm_scale):
+    """p = exp2(s - lse) rebuilt from the saved base-2 LSE rows."""
+    s = _mm(q, k.transpose(-1, -2)) * (sm_scale * LOG2E)
+    return torch.exp2(s - _f(lse)[..., None])
+
+
+def _delta(o, do):
+    """delta = rowsum(do * o) in f32 [B, H, S] (JAX `_flash_bwd`'s XLA
+    reduction)."""
+    return (_f(do) * _f(o)).sum(-1)
+
+
+def _flash_bwd_dq_ref(q, k, v, o, do, lse, sm_scale):
+    """-> (dq, delta): dq = bf16(ds) k with ds = p * (do.v^T - delta) *
+    sm_scale, as `_bwd_dq_kernel`."""
+    p = _probs(q, k, lse, sm_scale)
+    delta = _delta(o, do)
+    ds = (p * (_mm(do, v.transpose(-1, -2)) - delta[..., None])
+          * sm_scale).to(q.dtype)
+    return _mm(ds, k).to(q.dtype), delta
+
+
+def _flash_bwd_dkv_ref(q, k, v, do, lse, delta, sm_scale):
+    """-> (dk, dv): dv = bf16(p)^T do, dk = bf16(ds)^T q, as
+    `_bwd_dkv_kernel`."""
+    p = _probs(q, k, lse, sm_scale)
+    dv = _mm(p.to(q.dtype).transpose(-1, -2), do).to(q.dtype)
+    ds = (p * (_mm(do, v.transpose(-1, -2)) - _f(delta)[..., None])
+          * sm_scale).to(q.dtype)
+    return _mm(ds.transpose(-1, -2), q).to(q.dtype), dv
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _view(t, name, shape, like):
+    """Check a [B, H, S, 64] bf16 operand of the flash kernels: on `like`'s
+    device, a unit last stride, 16-byte rows (the kernels copy 8 values at
+    a time). Returns its (batch, head, row) strides."""
+    if t.device != like.device:
+        raise ValueError(f"{name} is on {t.device}, expected {like.device}")
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"{name} must be bfloat16 on CUDA, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    st = t.stride()
+    if st[3] != 1 or any(x % 8 for x in st[:3]) or t.data_ptr() % 16:
+        raise ValueError(f"{name} needs a unit last stride, the others "
+                         f"multiples of 8 and a 16-byte aligned start; got "
+                         f"strides {st}")
+    return st[:3]
+
+
+def _shape(q):
+    b, h, s, d = q.shape
+    if d != HEAD_DIM:
+        raise ValueError(f"the flash kernels take head dim {HEAD_DIM}, got "
+                         f"{d}")
+    if b * h * (-(-s // 64)) >= 2**31 or b * h * s >= 2**31:
+        raise ValueError(f"flash attention grid too large: {tuple(q.shape)}")
+    return b, h, s
+
+
+def _lse(t, name, b, h, s, like):
+    if (t.dtype != torch.float32 or tuple(t.shape) != (b, h, s)
+            or not t.is_contiguous() or t.device != like.device):
+        raise ValueError(f"{name} must be contiguous f32 {(b, h, s)} on "
+                         f"{like.device}")
+    return t
+
+
+def _strides(*triples):
+    flat = [int(x) for tr in triples for x in tr]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def flash_fwd(q, k, v, sm_scale=None, want_lse: bool = False):
+    """o [B, H, S, hd] (laid out [B, S, H, hd]) of softmax attention; with
+    `want_lse` also the base-2 LSE [B, H, S] f32."""
+    if not _on_cuda(q):
+        return attention_reference(q, k, v, sm_scale, want_lse)
+    b, h, s = _shape(q)
+    strides = [_view(t, n, q.shape, q) for t, n in ((q, "q"), (k, "k"),
+                                                    (v, "v"))]
+    o = _like_out(q)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if want_lse else None)
+    err = _build.lib().mst_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(),
+        _strides(*strides, o.stride()[:3]), b, h, s,
+        _scale(q, sm_scale) * LOG2E, _stream(q))
+    _build.check(err, "mst_flash_fwd")
+    flash_fwd.launches += 1
+    return (o, lse) if want_lse else o
+
+
+def flash_bwd_dq(q, k, v, o, do, lse, sm_scale=None):
+    """-> (dq [B, H, S, hd] laid out as o, delta [B, H, S] f32): the dq
+    kernel, which also writes delta = rowsum(do * o) for `flash_bwd_dkv`."""
+    sm_scale = _scale(q, sm_scale)
+    if not _on_cuda(q):
+        return _flash_bwd_dq_ref(q, k, v, o, do, lse, sm_scale)
+    b, h, s = _shape(q)
+    strides = [_view(t, n, q.shape, q) for t, n in (
+        (q, "q"), (k, "k"), (v, "v"), (o, "o"), (do, "do"))]
+    _lse(lse, "lse", b, h, s, q)
+    dq = _like_out(q)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    err = _build.lib().mst_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        _strides(*strides, dq.stride()[:3]), b, h, s, sm_scale * LOG2E,
+        sm_scale, _stream(q))
+    _build.check(err, "mst_flash_bwd_dq")
+    flash_bwd_dq.launches += 1
+    return dq, delta
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, sm_scale=None):
+    """-> (dk, dv), [B, H, S, hd] each, laid out as o."""
+    sm_scale = _scale(q, sm_scale)
+    if not _on_cuda(q):
+        return _flash_bwd_dkv_ref(q, k, v, do, lse, delta, sm_scale)
+    b, h, s = _shape(q)
+    strides = [_view(t, n, q.shape, q) for t, n in (
+        (q, "q"), (k, "k"), (v, "v"), (do, "do"))]
+    _lse(lse, "lse", b, h, s, q)
+    _lse(delta, "delta", b, h, s, q)
+    dk, dv = _like_out(q), _like_out(q)
+    err = _build.lib().mst_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        _strides(*strides, dk.stride()[:3], dv.stride()[:3]), b, h, s,
+        sm_scale * LOG2E, sm_scale, _stream(q))
+    _build.check(err, "mst_flash_bwd_dkv")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+# The forward and backward a `flash_attention` call composes: the kernel
+# wrappers (plain versions on the CPU). `chip_smoke.py` passes the plain
+# versions instead, to run the plain composed path on the card.
+KERNELS = SimpleNamespace(fwd=flash_fwd, bwd_dq=flash_bwd_dq,
+                          bwd_dkv=flash_bwd_dkv)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """JAX's `_flash_attention` custom VJP: the forward keeps (q, k, v, o,
+    LSE), the backward runs dq (with delta) then dk, dv."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale, ops):
+        o, lse = ops.fwd(q, k, v, sm_scale, want_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.sm_scale, ctx.ops = sm_scale, ops
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        ops, sm_scale = ctx.ops, ctx.sm_scale
+        do = g.to(q.dtype)
+        st = do.stride()
+        if st[3] != 1 or any(x % 8 for x in st[:3]) or do.data_ptr() % 16:
+            do = do.contiguous()  # e.g. the expanded grad of a sum
+        dq, delta = ops.bwd_dq(q, k, v, o, do, lse, sm_scale)
+        dk, dv = ops.bwd_dkv(q, k, v, do, lse, delta, sm_scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, sm_scale=None, ops=KERNELS):
+    """Softmax attention over q, k, v [B, H, S, hd] -> [B, H, S, hd]
+    (`mst_tpu.ops.attention.flash_attention`, full attention without a
+    mask). Without grad it runs the forward alone, with no LSE output."""
+    sm_scale = _scale(q, sm_scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, sm_scale, ops)
+    return ops.fwd(q, k, v, sm_scale)
+
+
+# `.launches` of each wrapper counts its kernel's launches; the registry of
+# `ops/fused_block.py` (`launch_counts`, `reset_launch_counts`) holds these
+# three with the other kernels. None moves on the CPU path.
+flash_fwd.launches = flash_bwd_dq.launches = flash_bwd_dkv.launches = 0

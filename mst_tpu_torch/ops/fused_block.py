@@ -65,7 +65,12 @@ import torch
 import torch.nn.functional as F
 
 from mst_tpu_torch.ops import _build
-from mst_tpu_torch.ops.attention import _on_cuda
+from mst_tpu_torch.ops.attention import (
+    _on_cuda,
+    flash_bwd_dkv,
+    flash_bwd_dq,
+    flash_fwd,
+)
 from mst_tpu_torch.ops.rotary import _rotate_half_interleaved, apply_rope_tables
 
 _LOG2E = math.log2(math.e)
@@ -1215,11 +1220,13 @@ def fused_swiglu_sublayer_train(x, ln_s, ln_b, w12, b12, w3, b3, ls,
 # `.form_launches[form]` those of each of its forms (`<name>_<form>` in
 # `launch_counts()`): the RoPE forms of the attention kernels, the train
 # mode of `ln_gemm_swiglu` (queue B row 6) and the SiLU-gate epilogue of
-# `gemm_dgrad`. `.calls` of a sub-layer counts the calls that ran its
+# `gemm_dgrad`. The flash-attention wrappers of `ops/attention.py` (queue B
+# rows 12-16, the composed path above 512 tokens) count here too. `.calls` of a sub-layer counts the calls that ran its
 # kernel chain (it launches nothing itself). None moves on the CPU path.
 KERNEL_WRAPPERS = (ln_gemm, mhsa, gemm_residual, gemm_dls, gemm_wgrad,
                    gemm_dgrad, mhsa_bwd, mhsa_with_row, mhsa_rollout,
-                   mhsa_abnar, ln_gemm_swiglu, ln_pullback)
+                   mhsa_abnar, ln_gemm_swiglu, ln_pullback, flash_fwd,
+                   flash_bwd_dq, flash_bwd_dkv)
 FORMS = {mhsa: ("rope",), mhsa_with_row: ("rope",), mhsa_rollout: ("rope",),
          mhsa_abnar: ("rope",), mhsa_bwd: ("rope",),
          ln_gemm_swiglu: ("train",), gemm_dgrad: ("swiglu",)}

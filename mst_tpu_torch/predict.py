@@ -20,7 +20,10 @@ checkpoint (`serve.load_run_model`) on the CUDA card and writes, under
   & Zuidema rollout with `--rollout_abnar` too. Saliency modes run one
   case per batch, as the reference does.
 
-`--use_tta` averages the 8 flips of each case, run as one batch. `--int8`
+Slices above 512 tokens (e.g. 518 px) are scored on the composed path
+with the flash kernels; their saliency (`--save_saliency`) is ROADMAP queue
+A #16 and raises. `--use_tta` averages the 8 flips of each case, run as
+one batch. `--int8`
 runs the encoder on the W8A8 kernels (`ops/fused_int8.py`) with per-token
 activation scales, `--int8_calib N` with static ones calibrated on the
 first N test volumes as served (`quantize_model`), in every mode. The other

@@ -14,7 +14,11 @@ mst_tpu_torch.train` run folder, `load_run_model`: MST-DINOv3, or a frozen
 giant2 run, too) on the CUDA card. `--int8` serves the encoder on the W8A8
 kernels (`ops/fused_int8.py`) with per-token activation scales;
 `--int8_calib N` calibrates static ones on the first N volumes of the run
-folder's val split (`calibration_volumes`) and folds them in.
+folder's val split (`calibration_volumes`) and folds them in. Slices of
+any size divisible by the patch are served: up to 512 tokens on the fused
+sub-layers, above (e.g. 518 px, 1370 tokens) on the composed path with the
+flash kernels; an int8 model answers such a request with HTTP 400 (the
+predictor's `ValueError`: int8 needs the fused path).
 
 API:  POST /predict  (np.save bytes of a [C, D, H, W] float volume)
           -> {"probs": [...], "pred": argmax}

@@ -1,14 +1,18 @@
 """Inference: class probabilities and 3D saliency, with batched flip-TTA.
 
-Counterpart of `mst_tpu/train/predictor.py` `make_predict_fn` for the
-fused DINOv2 path: the serving forward (`models/vit_fast.fused_mst_logits`)
-or, with saliency, the explainability forward
+Counterpart of `mst_tpu/train/predictor.py` `make_predict_fn`, routed as
+it routes (:238-257): the serving forward (`models/vit_fast.mst_logits`:
+the fused path, or above `FUSED_MAX_TOKENS` tokens per slice the composed
+path, which an int8-quantized model refuses with JAX's `ValueError`) or,
+with saliency, the fused explainability forward
 (`models/vit_fast.fused_mst_saliency`: slice attention x plane attention,
 upsampled to the volume grid), softmax in f32, and the 8-way flip TTA run
 as ONE batch (the flip stack is a leading batch axis; probabilities average
 after the softmax; each saliency map is flipped back before the mean; a
 variant that flips the slice axis flips the key-padding mask too).
-Grad-CAM for the ResNet baselines is ROADMAP queue A #8.
+Saliency above `FUSED_MAX_TOKENS` tokens (JAX's flax `return_weights`
+path, which runs no kernel) is ROADMAP queue A #16; Grad-CAM for the
+ResNet baselines is ROADMAP queue A #8.
 """
 
 from __future__ import annotations
@@ -17,7 +21,13 @@ import itertools
 
 import torch
 
-from mst_tpu_torch.models.vit_fast import fused_mst_logits, fused_mst_saliency
+from mst_tpu_torch.models.vit_fast import (
+    FUSED_MAX_TOKENS,
+    fused_mst_saliency,
+    fused_seq_len_ok,
+    has_int8,
+    mst_logits,
+)
 
 FLIP_SUBSETS = [
     s for n in range(4) for s in itertools.combinations((1, 2, 3), n)
@@ -39,10 +49,18 @@ def make_predict_fn(model, tta: bool = False, with_saliency: bool = True,
     device = next(model.parameters()).device
 
     def forward(source, mask):
-        if with_saliency:
-            return fused_mst_saliency(model, source, mask,
-                                      plane_mode=plane_mode)
-        return torch.softmax(fused_mst_logits(model, source, mask), -1), None
+        if not with_saliency:
+            return torch.softmax(mst_logits(model, source, mask), -1), None
+        if not fused_seq_len_ok(model, *source.shape[-2:]):
+            if has_int8(model):  # JAX's order (:248-255)
+                raise ValueError(
+                    "int8-quantized params need the fused serving path; "
+                    "this saliency input exceeds FUSED_MAX_TOKENS")
+            raise NotImplementedError(
+                f"saliency of {tuple(source.shape[-2:])} slices (above "
+                f"FUSED_MAX_TOKENS={FUSED_MAX_TOKENS} tokens) is not ported "
+                f"to mst_tpu_torch yet (ROADMAP queue A #16)")
+        return fused_mst_saliency(model, source, mask, plane_mode=plane_mode)
 
     @torch.inference_mode()
     def fn(source, mask=None):

@@ -1,18 +1,22 @@
 """Training loop: the fused train step, val-AUC early stopping, top-1
 checkpoints.
 
-Counterpart of `mst_tpu/train/trainer.py` on one card, for the fused path
-(`make_train_step` of the standard DinoSliceClassifier configuration):
+Counterpart of `mst_tpu/train/trainer.py` on one card (`make_train_step`
+of the standard DinoSliceClassifier configuration):
 
-- the step runs `fused_mst_logits(train=True)` (every block but the last
-  on the residual-saving sub-layers, whose backward is a chain of
+- the step runs `mst_logits(train=True)`, routed by the slice size as the
+  JAX step routes (:237-266): the fused path (every block but the last on
+  the residual-saving sub-layers, whose backward is a chain of
   hand-written kernels, each block checkpointed with the model's `remat`;
-  a frozen encoder on the serving sub-layers under `no_grad`), CE in f32,
+  a frozen encoder on the serving sub-layers under `no_grad`) or, above
+  `FUSED_MAX_TOKENS` tokens per slice, the composed path (the flash
+  kernels and their backward; `remat` and `freeze` as well), CE in f32,
   `loss.backward()`, and an AdamW update set up as
   optax `adamw` (b1 0.9, b2 0.999, eps 1e-8, decoupled weight decay on
   every parameter it holds, constant learning rate; with a frozen encoder
   over the slice fusion and head only);
-- the eval step runs the serving forward under `torch.inference_mode()`;
+- the eval step runs the serving forward under `torch.inference_mode()`,
+  routed the same way (:365-385);
 - `Trainer.fit` runs sanity val steps, the epoch loop (per-step results
   drained to the host every 64 steps, so no step waits for the card),
   midrank AUC on the validation split, `history.jsonl` with the JAX keys
@@ -40,7 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from mst_tpu_torch.models.convert import params_from_flax, random_flax_params
-from mst_tpu_torch.models.vit_fast import fused_mst_logits
+from mst_tpu_torch.models.vit_fast import mst_logits
 from mst_tpu_torch.utils.checkpoint import save_best_checkpoint, save_checkpoint
 from mst_tpu_torch.utils.metrics import ClassificationMetrics
 from mst_tpu_torch.utils.profiling import StepTimer
@@ -82,14 +86,14 @@ def make_train_step(state: TrainState):
     """-> step(source, target, mask) -> (loss, logits), device tensors, no
     host synchronisation. One call is one optimizer update of
     `state.model` in place. A frozen model (`model.freeze`) runs the frozen
-    path of `fused_mst_logits`; a model whose encoder the kernels cannot
-    train on its device raises there before any forward work
+    form of either path; a model whose encoder the fused kernels cannot
+    train on its device raises before any forward work
     (`check_trainable`)."""
     model, optimizer = state.model, state.optimizer
 
     def step(source, target, mask=None):
         optimizer.zero_grad(set_to_none=True)
-        logits = fused_mst_logits(model, source, mask, train=True)
+        logits = mst_logits(model, source, mask, train=True)
         loss = cross_entropy_loss(logits, target)
         loss.backward()
         optimizer.step()
@@ -104,7 +108,7 @@ def make_eval_step(model):
 
     @torch.inference_mode()
     def step(source, mask=None):
-        return fused_mst_logits(model, source, mask)
+        return mst_logits(model, source, mask)
 
     return step
 
