@@ -191,6 +191,27 @@ full, plain products, the flash kernels): 518 px ViT-S/14 slices, S =
    (forward, or backward for the pair); 518 px vol/s at B=8 and the B=2
    train step, peak memory, `torch.profiler` tables of both.
 
+Phases 38-39 drive the port's counterparts of the `tools/` experiments
+(queue B rows 17-21, `python -m mst_tpu_torch.tools.<name>`), at the
+tools' own shapes:
+
+38. kernels and chains: each experiment's chain (row 18: the five softmax
+   forms, 12 layers at [128, 257, 384]; row 21: 12 base and 12 split-CLS
+   cores; row 19: the three int8 variants, 24 damped layers at ViT-S,
+   DINOv3-S and giant2 shapes; row 20's bf16 production chain; row 17: 12
+   blocks split and fused) with its launch counts read around a run in
+   which every launch is held to its plain version on that launch's own
+   inputs, again for the same bits, and against the plain chain (printed:
+   it compounds over the layers); variant D against `mhsa` bit for bit,
+   variant E's bf16 probabilities within 1 bf16 ulp, row 20's variants
+   against the plain f32-softmax mirror, one block of each row-17 layout
+   against the tool's plain block, and a planted fault per kernel that must
+   break its limit;
+39. times: each tool's `main()` (the experiment's own timings), then each
+   new kernel against its plain version, bound and library call (SDPA for
+   the attention cores, LN + matmul + GELU for `block_tail`), and the
+   chains' plain, bound and library times.
+
 Each phase prints its wall time. The line before the last is `{"kernels":
 [...]}`: per kernel its launches on the main path, its largest error, its
 time and its plain version's, the bound (the least time the card could
@@ -317,6 +338,13 @@ CODE_FRAC = 1e-4
 # 32's volumes read 0.4954 in bf16 and 0.5061 in int8), and at least half
 # of the volumes so far from it.
 I8_TOL = 0.05
+# The tools phases (38-39) hold `ln_gemm_i8`'s int8 qkv codes (the code
+# output of its ACT_NONE mode, clip(round(qkv))) apart: each is a K-wide
+# product of the LN codes, so one LN code at a .5 tie moves many codes of
+# its row. On an H100 giant2's (K = 1536) read 1.08e-4 differing, by up to
+# 2; ViT-S's 2.0e-5, by 1. Their limit lies a few times above; a planted
+# unit scale 1% off must break it.
+QKV_CODE_FRAC, QKV_CODE_STEP = 1e-3, 3
 # Long-slice phases (34-37): the composed path above 512 tokens. 518 px
 # ViT-S/14 slices give S = 1 + 37 x 37 = 1370 tokens, 560 px 1601 (above
 # the Pallas whole-sequence limit of 1536), DINOv3 ViT-S/16 at 512 px
@@ -939,6 +967,532 @@ def train_sublayer_outputs(fb, kind, ops, x, args, g):
     grads = [a.grad for a in aa
              if torch.is_tensor(a) and not any(a is t for t in tables)]
     return (y, *res, xx.grad, *grads)
+
+
+# -- phases 38-39: the tools/ experiments (queue B rows 17-21) ---------------
+
+
+def tool_wrappers(fb, fq, c, sm, sc, bi, bf):
+    """(module, name, plain version) of each kernel wrapper the experiment
+    chains launch; each plain version takes its wrapper's arguments."""
+    def gemm_ref(a, w):
+        return fb._mm(a, w).to(a.dtype)
+
+    def attn_i8_ref(q8, v, n, s, nh, scale=bi.SCALE,
+                    out_dtype=torch.bfloat16):
+        return bi.core_i8_ref(q8, v, n, s, nh, out_dtype, scale)
+
+    return [(fb, "ln_gemm", fb._ln_gemm_ref), (fb, "mhsa", fb._mhsa_ref),
+            (fb, "gemm_residual", fb._gemm_residual_ref),
+            (c, "gemm", gemm_ref), (sm, "attn_variant", sm.core_ref),
+            (sc, "attn_variant", sm.core_ref),
+            (sc, "attn_split_cls", sc.split_ref),
+            (bi, "attn_i8", attn_i8_ref),
+            (fq, "ln_gemm_i8", fq._ln_gemm_i8_ref),
+            (fq, "quant_rows", fq._quant_rows_ref),
+            (fq, "gemm_i8_residual", fq._gemm_i8_residual_ref),
+            (bf, "block_tail", bf.block_tail_ref)]
+
+
+class StandIn:
+    """Takes a kernel wrapper's module name: calls `fn`, and forwards every
+    attribute to the wrapper (which bumps its launch counts through that
+    name)."""
+
+    def __init__(self, wrapper, fn):
+        object.__setattr__(self, "_wrapper", wrapper)
+        object.__setattr__(self, "_fn", fn)
+
+    def __call__(self, *args, **kw):
+        return self._fn(*args, **kw)
+
+    def __getattr__(self, name):
+        return getattr(self._wrapper, name)
+
+    def __setattr__(self, name, value):
+        setattr(self._wrapper, name, value)
+
+
+@contextlib.contextmanager
+def swapped(table, make):
+    """Each wrapper of `table` replaced by make(name, wrapper, plain) while
+    the block runs (the tools look their wrappers up when they call)."""
+    saved = [(m, n, getattr(m, n)) for m, n, _ in table]
+    try:
+        for (m, n, plain), (_, _, kern) in zip(table, saved):
+            setattr(m, n, StandIn(kern, make(n, kern, plain)))
+        yield
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+class LaunchCheck:
+    """Runs each wrapper's kernel and its plain version on the same
+    arguments and passes the kernel's result on, so that every launch of a
+    chain is held to its plain version on its own inputs: bf16 outputs
+    within 2 bf16 ulps at the plain output's largest magnitude, int8 codes
+    by phase 31's rule (at most CODE_FRAC of them differing, by one), the
+    qkv codes of `ln_gemm_i8` by QKV_CODE_FRAC / QKV_CODE_STEP.
+    `stats[name]` = [launches, worst error / limit, max abs error (codes:
+    largest step), largest share of differing codes]."""
+
+    def __init__(self):
+        self.stats = {}
+
+    def wrap(self, name, kern, plain):
+        def run(*args, **kw):
+            k, p = kern(*args, **kw), plain(*args, **kw)
+            self.compare(name, k, p)
+            return k
+        return run
+
+    def compare(self, name, kern, plain):
+        st = self.stats.setdefault(name, [0, 0.0, 0.0, 0.0])
+        st[0] += 1
+        kern = kern if isinstance(kern, tuple) else (kern,)
+        plain = plain if isinstance(plain, tuple) else (plain,)
+        for k, p in zip(kern, plain):
+            check(tuple(k.shape) == tuple(p.shape) and k.dtype == p.dtype,
+                  f"{name}: {tuple(k.shape)} {k.dtype} != {tuple(p.shape)} "
+                  f"{p.dtype}")
+            if k.dtype == torch.int8:
+                _, top, frac = code_diff(k, p)
+                step, share = ((QKV_CODE_STEP, QKV_CODE_FRAC)
+                               if name == "ln_gemm_i8" else (1, CODE_FRAC))
+                ratio, err = max(top / step, frac / share), float(top)
+                st[3] = max(st[3], frac)
+            else:
+                check(bool(torch.isfinite(k.float()).all()),
+                      f"{name}: non-finite")
+                scale = p.float().abs().max().item()
+                err = (k.float() - p.float()).abs().max().item()
+                ratio = err / (2 * ulp_bf16(scale))
+            st[1], st[2] = max(st[1], ratio), max(st[2], err)
+
+
+def p_ulps(pk, pref, d):
+    """E's P against the plain P on the same qkv: the largest error in
+    bf16 ulps over its elements, each taking the plain p at d = bf16(s - m)
+    or at the bf16 step either side of it (the f32 scores, summed in
+    another order, can move s - m across a bf16 rounding boundary); and how
+    many elements needed a neighbouring step. Where the plain p lies below
+    the smallest normal f32, the card's p (ex2.approx.ftz flushes) must lie
+    there too."""
+    tiny = 2.0 ** -126
+    pk = pk.float()
+    bits = d.to(torch.bfloat16).view(torch.int16)
+    cands = [pref.float()] + [
+        torch.exp2((bits + step).view(torch.bfloat16).float())
+        .to(torch.bfloat16).float() for step in (-1, 1)]
+    errs = []
+    for ref in cands:
+        ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(tiny)))
+                         - 7)
+        e = (pk - ref).abs() / ulp
+        errs.append(torch.where((ref < tiny) & (pk < tiny),
+                                torch.zeros_like(e), e))
+    worst = torch.fmin(errs[0], torch.fmin(errs[1], errs[2]))
+    return worst.max().item(), int(((errs[0] > 1) & (worst <= 1)).sum())
+
+
+def tools_phases(tag, dev):
+    """Phases 38-39: each tools/ experiment's kernels and chains at the
+    tool's shapes against their plain versions (38), then their times
+    (39). Returns the kernels line's entries for the new kernels."""
+    from mst_tpu_torch.ops import fused_block as fb
+    from mst_tpu_torch.ops import fused_int8 as fq
+    from mst_tpu_torch.tools import _common as c
+    from mst_tpu_torch.tools import bench_attn_i8 as bi
+    from mst_tpu_torch.tools import bench_attn_softmax as sm
+    from mst_tpu_torch.tools import bench_attn_split_cls as sc
+    from mst_tpu_torch.tools import bench_block_fusion as bf
+    from mst_tpu_torch.tools import debug_attn_i8 as dbg
+
+    bf16 = torch.bfloat16
+    table = tool_wrappers(fb, fq, c, sm, sc, bi, bf)
+
+    def plain_mode(name, kern, plain):
+        return plain
+
+    # -- 38. kernels and chains vs plain ---------------------------------
+    stamp(tag, "38")
+    print(f"{tag} tools: every launch of each experiment chain is held to "
+          f"its plain version on that launch's own inputs (bf16 within 2 "
+          f"bf16 ulps of the plain output's largest magnitude, int8 codes "
+          f"differing in at most {CODE_FRAC} of them, by one, the qkv codes "
+          f"of ln_gemm_i8 in {QKV_CODE_FRAC}, by up to {QKV_CODE_STEP}); the "
+          f"chain "
+          f"is run again for the same bits, and its end-to-end distance "
+          f"from the plain chain is printed (it compounds over the layers: "
+          f"no LN in row 18, one-hot softmax rows in row 19)")
+    counts, stats = {}, {}
+
+    def drive(label, fn, want):
+        """The chain `fn` (an experiment's main path): launch counts read
+        around a run in which every launch is checked, then the same bits
+        again and the plain chain's distance."""
+        checker = LaunchCheck()
+        fb.reset_launch_counts()
+        with torch.inference_mode(), swapped(table, checker.wrap):
+            out = fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in fb.launch_counts().items() if v}
+        with torch.inference_mode():
+            again = fn()
+            with swapped(table, plain_mode):
+                ref = fn()
+        torch.cuda.synchronize()
+        drift = ((out.float() - ref.float()).abs().max()
+                 / ref.float().abs().max()).item()
+        for name, (n_, ratio, err, frac) in sorted(checker.stats.items()):
+            print(f"{tag} {label} {name}: {n_} launches, worst error / limit "
+                  f"{ratio:.4g}, max_abs_err {err:.6g}"
+                  + (f", codes differing {frac:.3g}" if frac else ""))
+            check(ratio <= 1.0, f"{label} {name}: error / limit {ratio}")
+        print(f"{tag} {label}: launches {got}; bit for bit on repeat "
+              f"{torch.equal(out, again)}; end-to-end max|chain - plain "
+              f"chain| / |plain|max = {drift:.4g}")
+        check(bool(torch.isfinite(out.float()).all()), f"{label}: non-finite")
+        check(torch.equal(out, again), f"{label}: not bit for bit")
+        check(got == want, f"{label}: launches {got} != {want}")
+        counts[label], stats[label] = got, checker.stats
+        return out
+
+    def one(label, kern, plain, fault=False):
+        """One launch against its plain version; a planted fault must break
+        the 2-ulp limit."""
+        with torch.inference_mode():
+            k, p = kern(), plain()
+        torch.cuda.synchronize()
+        scale = p.float().abs().max().item()
+        err = (k.float() - p.float()).abs().max().item()
+        lim = 2 * ulp_bf16(scale)
+        print(f"{tag} {label}: max_abs_err={err:.6g} limit={lim:.6g} "
+              f"(|plain|max={scale:.6g}, error / |plain|max {err / scale:.3g})"
+              + (" (planted fault: must break the limit)" if fault else ""))
+        check(err > lim if fault else err <= lim, f"{label}: {err} vs {lim}")
+
+    # row 18: softmax forms, N = 128, S = 257, 12 layers
+    x18, wqkv18, wproj18 = sm.inputs(dev, sm.N, sm.S, sm.E)
+    m18 = sm.N * sm.S
+    qkv18 = c.gemm(x18.reshape(m18, sm.E), wqkv18)
+    for v in sm.VARIANTS:
+        drive(f"18 softmax {v}",
+              functools.partial(sm.chain, x18, wqkv18, wproj18, sm.H, v,
+                                sm.DEPTH),
+              {"gemm": sm.DEPTH, "attn_variant": sm.DEPTH,
+               "gemm_residual": sm.DEPTH})
+        with torch.inference_mode():
+            o, pk = sm.attn_variant(qkv18, sm.N, sm.S, sm.H, v, want_p=True)
+            o2 = sm.attn_variant(qkv18, sm.N, sm.S, sm.H, v)
+            ref, pref = sm.core_ref(qkv18, sm.N, sm.S, sm.H, v, want_p=True)
+        torch.cuda.synchronize()
+        check(torch.equal(o, o2), f"variant {v}: p_out changes o")
+        one(f"attn_variant[{v}] at [{sm.N}, {sm.S}]", lambda: o, lambda: ref)
+        if v == "D":
+            same = torch.equal(o, fb.mhsa(qkv18, sm.N, sm.S, sm.H))
+            print(f"{tag} attn_variant[D] vs mhsa on the same qkv: bit for "
+                  f"bit {same}")
+            check(same, "variant D differs from mhsa")
+        if v == "E":
+            qh, kh, _ = c.head_views(qkv18, sm.N, sm.S, 3, sm.H)
+            s_ = fb._mm(qh, kh.transpose(-1, -2)) * sm.scale_of("E")
+            worst, moved = p_ulps(pk, pref, s_ - s_.amax(-1, keepdim=True))
+            del s_
+            print(f"{tag} attn_variant[E] P (h2exp2 of bf16(s - m)) vs plain "
+                  f"bf16(exp2(f32 d)): worst {worst:.4g} bf16 ulps (limit "
+                  f"1), {moved} of {pk.numel()} elements at a d one bf16 "
+                  f"step from the plain d")
+            check(worst <= 1.0, f"variant E P: {worst} ulps")
+        del o, o2, pk, ref, pref
+    one("planted fault: attn_variant[D] with the scale 1.25x",
+        lambda: sm.attn_variant(qkv18, sm.N, sm.S, sm.H, "D",
+                                scale=1.25 * sm.scale_of("D")),
+        lambda: sm.core_ref(qkv18, sm.N, sm.S, sm.H, "D"), fault=True)
+    one("planted fault: gemm with W's columns rolled by one",
+        lambda: c.gemm(x18.reshape(m18, sm.E), wqkv18.roll(1, 1)),
+        lambda: fb._mm(x18.reshape(m18, sm.E), wqkv18).to(bf16), fault=True)
+    # row 21: split-CLS, 12 cores on the same qkv
+    qkv21 = sc.inputs(dev, sc.N, sc.S, sc.E)
+    for layout, kern in (("base", "attn_variant"), ("split", "attn_split_cls")):
+        drive(f"21 {layout}", functools.partial(sc.chain, qkv21, layout, sc.N,
+                                                 sc.S, sc.H, sc.DEPTH),
+              {kern: sc.DEPTH})
+    one("planted fault: attn_split_cls with the scale 1.25x",
+        lambda: sc.attn_split_cls(qkv21, sc.N, sc.S, sc.H, 1.25 * sc.SCALE),
+        lambda: sc.split_ref(qkv21, sc.N, sc.S, sc.H), fault=True)
+    # rows 19-20: int8 attention, 24 damped layers at the tool's three shapes
+    i8 = {}
+    for label, n, s, e, nh in bi.SHAPES:
+        p19 = bi.params(dev, *bi.weights(e))
+        x19 = bi.inputs(dev, n, s, e)
+        i8[label] = (n, s, e, nh, p19, x19)
+        for v in bi.VARIANTS:
+            want = {"ln_gemm_i8": bi.DEPTH * (2 if v == "B" else 1),
+                    "quant_rows": bi.DEPTH, "gemm_i8_residual": bi.DEPTH,
+                    "mhsa" if v == "A" else "attn_i8": bi.DEPTH}
+            drive(f"19 {label.split(' (')[0]} {v}",
+                  functools.partial(bi.chain, x19, p19, nh, v, bi.DEPTH),
+                  want)
+    n, s, e, nh, p19, x19 = i8[bi.SHAPES[0][0]]
+    x2 = x19.reshape(n * s, e)
+    for v, dense in (("B", p19.qk), ("C", p19.qkv)):
+        q8 = bi._ln_i8(x2, p19, dense, True)
+        v8 = bi._ln_i8(x2, p19, p19.v, False) if v == "B" else None
+        one(f"planted fault: attn_i8[{v}] with the scale 1.25x",
+            lambda: bi.attn_i8(q8, v8, n, s, nh, 1.25 * bi.SCALE),
+            lambda: bi.core_i8_ref(q8, v8, n, s, nh, bf16), fault=True)
+    del q8, v8
+    with torch.inference_mode():
+        planted = fq.ln_gemm_i8(x2, p19.ln_s, p19.ln_b, p19.qkv.q8,
+                                p19.qkv.scale, p19.qkv.bias, fb.ACT_NONE,
+                                bi.EPS, static=True, a_inv=1.01 * p19.one)
+        _, top, frac = code_diff(planted, bi._ln_i8(x2, p19, p19.qkv, True))
+    print(f"{tag} planted fault: ln_gemm_i8 qkv codes with a unit scale of "
+          f"1.01: codes differing {frac:.4g} (limit {QKV_CODE_FRAC}), by up "
+          f"to {top} (limit {QKV_CODE_STEP}); must break a limit")
+    check(frac > QKV_CODE_FRAC or top > QKV_CODE_STEP, "qkv-code fault")
+    del planted, x2
+    dn, ds, de, dh = dbg.N, dbg.S, dbg.E, dbg.H
+    pd = bi.params(dev, *bi.weights(de))
+    xd = bi.inputs(dev, dn, ds, de)
+    with torch.inference_mode():
+        mirror = dbg.plain_mirror(xd, pd, dh)
+        rels = {v: dbg.rel_err(bi.sublayer(xd, pd, dh, v), mirror)
+                for v in bi.VARIANTS}
+    print(f"{tag} 20 debug_attn_i8 at [{dn}, {ds}, {de}]: rel|out - plain "
+          f"mirror (f32 softmax)| {rels}")
+    check(all(math.isfinite(r) for r in rels.values()), "row 20 non-finite")
+    drive("20 production bf16", functools.partial(dbg.production, xd, pd, dh, dbg.DEPTH),
+          {"ln_gemm": dbg.DEPTH, "mhsa": dbg.DEPTH,
+           "gemm_residual": dbg.DEPTH})
+    # row 17: 12 blocks, split (5 launches a block) and block (3)
+    p17, x17 = bf.params(dev, bf.E), bf.inputs(dev, bf.N, bf.S, bf.E)
+    d17 = bf.DEPTH
+    for layout, want in (("split", {"ln_gemm": 2 * d17, "mhsa": d17,
+                                    "gemm_residual": 2 * d17}),
+                         ("block", {"ln_gemm": d17, "mhsa": d17,
+                                    "block_tail": d17})):
+        drive(f"17 {layout}", functools.partial(
+            bf.chain, x17, p17, layout, bf.DEPTH, bf.H), want)
+        with torch.inference_mode():
+            one1 = bf.chain(x17, p17, layout, 1, bf.H)
+            ref1 = bf.chain(x17, p17, "plain", 1, bf.H)
+        one(f"17 {layout}: one block vs the tool's plain block "
+            f"(`_mlp_half` rounds fc1 + b1 before the GELU)", lambda: one1,
+            lambda: ref1)
+    m17 = bf.N * bf.S
+    with torch.inference_mode():
+        xq = x17.reshape(m17, bf.E)
+        o17 = fb.mhsa(fb.ln_gemm(xq, p17.ln1s, p17.ln1b, p17.wqkv, p17.bqkv,
+                                 fb.ACT_NONE, bf.EPS), bf.N, bf.S, bf.H)
+    tail_args = (o17, xq, p17.wproj, p17.bproj, p17.ln2s, p17.ln2b, p17.w1,
+                 p17.b1, p17.w2, p17.b2)
+    one("planted fault: block_tail with LN2 eps 0.1",
+        lambda: bf.block_tail(*tail_args, eps=0.1),
+        lambda: bf.block_tail_ref(*tail_args), fault=True)
+
+    # -- 39. times -----------------------------------------------------------
+    stamp(tag, "39")
+    mains = {"18": sm.main(), "21": sc.main(), "19": bi.main(),
+             "20": dbg.main(), "17": bf.main()}
+    heads18 = c.head_views(qkv18, sm.N, sm.S, 3, sm.H)
+    n, s, e, nh, p19, x19 = i8[bi.SHAPES[0][0]]
+    x2 = x19.reshape(n * s, e)
+    q8b, v8 = bi._ln_i8(x2, p19, p19.qk, True), bi._ln_i8(x2, p19, p19.v, False)
+    q8c = bi._ln_i8(x2, p19, p19.qkv, True)
+    hq_b = [u.to(bf16) for u in c.head_views(q8b, n, s, 2, nh)]
+    hv_b = c.head_views(v8, n, s, 1, nh)[0]
+    hq_c = [u.to(bf16) for u in c.head_views(q8c, n, s, 3, nh)]
+    mi = n * s
+    core_ops = 2 * n * nh * s * s * 64  # one product of the i8 cores
+    cases = {
+        # name: (kernel thunk, plain thunk, (FLOPs, bytes[, int8 ops]),
+        #        library thunk or None)
+        "gemm[qkv]": (lambda: c.gemm(x18.reshape(m18, sm.E), wqkv18),
+                      lambda: fb._mm(x18.reshape(m18, sm.E), wqkv18).to(bf16),
+                      mm_cost(m18, sm.E, 3 * sm.E),
+                      lambda: torch.matmul(x18.reshape(m18, sm.E), wqkv18)),
+        "attn_split_cls": (
+            lambda: sc.attn_split_cls(qkv21, sc.N, sc.S, sc.H),
+            lambda: sc.split_ref(qkv21, sc.N, sc.S, sc.H),
+            attn_cost(sc.N, sc.S, heads=sc.H),
+            functools.partial(F.scaled_dot_product_attention,
+                              *c.head_views(qkv21, sc.N, sc.S, 3, sc.H))),
+        "attn_i8[B]": (
+            lambda: bi.attn_i8(q8b, v8, n, s, nh),
+            lambda: bi.core_i8_ref(q8b, v8, n, s, nh, bf16),
+            (core_ops, mi * 2 * e + 2 * mi * e + 2 * mi * e, core_ops),
+            functools.partial(F.scaled_dot_product_attention, *hq_b, hv_b,
+                              scale=1 / 8)),
+        "attn_i8[C]": (
+            lambda: bi.attn_i8(q8c, None, n, s, nh),
+            lambda: bi.core_i8_ref(q8c, None, n, s, nh, bf16),
+            (0, mi * 3 * e + 2 * mi * e, 2 * core_ops),
+            functools.partial(F.scaled_dot_product_attention, *hq_c,
+                              scale=1 / 8)),
+    }
+    for v in sm.VARIANTS:
+        cases[f"attn_variant[{v}]"] = (
+            functools.partial(sm.attn_variant, qkv18, sm.N, sm.S, sm.H, v),
+            functools.partial(sm.core_ref, qkv18, sm.N, sm.S, sm.H, v),
+            attn_cost(sm.N, sm.S, heads=sm.H),
+            functools.partial(F.scaled_dot_product_attention, *heads18))
+    e17, f17 = bf.E, bf.FF
+    ln2 = (p17.ln2s, p17.ln2b)
+
+    def tail_library():
+        x1 = torch.addmm(xq, o17, p17.wproj)
+        h = F.layer_norm(x1, (e17,), *[t.to(bf16) for t in ln2], bf.EPS)
+        a = F.gelu(torch.matmul(h, p17.w1), approximate="tanh")
+        return torch.addmm(x1, a, p17.w2)
+
+    cases["block_tail"] = (
+        lambda: bf.block_tail(*tail_args), lambda: bf.block_tail_ref(*tail_args),
+        (2 * m17 * (e17 * e17 + 2 * e17 * f17),
+         3 * 2 * m17 * e17 + 2 * (e17 * e17 + 2 * e17 * f17)
+         + 4 * (3 * e17 + f17)),
+        tail_library)
+    times = {}
+    with torch.inference_mode():
+        for name, (kern, plain, cost_, lib) in cases.items():
+            km, pm_ = time_ms(kern), time_ms(plain, n=5, warmup=1)
+            lm = time_ms(lib) if lib is not None else None
+            b_ms, b_by = bound([cost_])
+            times[name] = (km, pm_, b_ms, b_by, lm)
+            ops = cost_[0] + (cost_[2] if len(cost_) > 2 else 0)
+            print(f"{tag} time {name}: kernel {km:.4f} ms ({ops / km / 1e9:.2f}"
+                  f" T product operations/s), plain {pm_:.4f} ms,"
+                  f" bound {b_ms:.4f} ms by {b_by}, library "
+                  + (f"{lm:.4f} ms" if lm is not None else "none"))
+    # the chains' plain and library times, and bounds (PERF.md row table)
+    chain_cost18 = [mm_cost(m18, sm.E, 3 * sm.E),
+                    attn_cost(sm.N, sm.S, heads=sm.H),
+                    mm_cost(m18, sm.E, sm.E, 2 * m18 * sm.E)]
+    with torch.inference_mode(), swapped(table, plain_mode):
+        plain_chain = {
+            "18": time_ms(functools.partial(sm.chain, x18, wqkv18, wproj18,
+                                            sm.H, "D", sm.DEPTH), n=3,
+                          warmup=1),
+            "21": time_ms(functools.partial(sc.chain, qkv21, "split", sc.N,
+                                            sc.S, sc.H, sc.DEPTH), n=3,
+                          warmup=1),
+            "19": time_ms(functools.partial(bi.chain, x19, p19, nh, "C",
+                                            bi.DEPTH), n=3, warmup=1),
+            "17": time_ms(functools.partial(bf.chain, x17, p17, "block",
+                                            bf.DEPTH, bf.H), n=3, warmup=1)}
+    lib18 = time_ms(lambda: torch.addmm(
+        x18.reshape(m18, sm.E), c.merge_heads(F.scaled_dot_product_attention(
+            *c.head_views(torch.matmul(x18.reshape(m18, sm.E), wqkv18), sm.N,
+                          sm.S, 3, sm.H)), sm.N, sm.S), wproj18)) * sm.DEPTH
+    b18, by18 = bound(chain_cost18 * sm.DEPTH)
+    print(f"{tag} row 18 chains ({sm.DEPTH} layers at [{sm.N}, {sm.S}, "
+          f"{sm.E}]): kernels {mains['18']} ms; plain (D) {plain_chain['18']:.4f}"
+          f" ms; bound {b18:.4f} ms by {by18}; library {lib18:.4f} ms "
+          f"({sm.DEPTH} x matmul + SDPA + addmm)")
+    b21, by21 = bound([attn_cost(sc.N, sc.S, heads=sc.H)] * sc.DEPTH)
+    print(f"{tag} row 21 chains ({sc.DEPTH} cores): kernels {mains['21']} ms;"
+          f" plain (split) {plain_chain['21']:.4f} ms; bound {b21:.4f} ms by "
+          f"{by21}; library {sc.DEPTH * times['attn_split_cls'][4]:.4f} ms "
+          f"({sc.DEPTH} x SDPA)")
+    def lib19():
+        """One static int8 sub-layer in torch ops around `torch._int_mm`."""
+        h = F.layer_norm(x2.float(), (e,), p19.ln_s, p19.ln_b, bi.EPS)
+        q = torch.clamp(torch.round(h), -127, 127).to(torch.int8)
+        t = (torch._int_mm(q, p19.qkv.q8).float() * p19.qkv.scale
+             + p19.qkv.bias).to(bf16)
+        o = c.merge_heads(F.scaled_dot_product_attention(
+            *c.head_views(t, n, s, 3, nh)), n, s)
+        oq = torch.clamp(torch.round(o.float()), -127, 127).to(torch.int8)
+        y = torch._int_mm(oq, p19.proj.q8).float() * p19.proj.scale
+        return (x2.float() + y + p19.proj.bias).to(bf16)
+
+    with torch.inference_mode():
+        lib19_ms = time_ms(lib19) * bi.DEPTH
+    b19, by19 = bound([(0, 2 * mi * e + 3 * e * e, 2 * mi * e * 3 * e),
+                       (core_ops, 2 * mi * 4 * e, core_ops),
+                       (0, 2 * mi * e + e * e + 2 * mi * e,
+                        2 * mi * e * e)] * bi.DEPTH)
+    chains19 = {f"{k[0].split(' (')[0]} {k[1]}": round(v, 4)
+                for k, v in mains["19"].items()}
+    print(f"{tag} row 19 chains ({bi.DEPTH} layers): kernels {chains19} ms; "
+          f"plain (ViT-S, C) {plain_chain['19']:.4f} ms; bound (ViT-S, "
+          f"A-B) {b19:.4f} ms by {by19}; library (ViT-S) {lib19_ms:.4f} ms "
+          f"({bi.DEPTH} x LN + quantization + _int_mm + SDPA + _int_mm); "
+          f"row 20 {mains['20']}")
+    def lib17():
+        """One block in torch ops: LN + matmul, SDPA, then the tail's."""
+        h = F.layer_norm(xq, (e17,), p17.ln1s.to(bf16), p17.ln1b.to(bf16),
+                         bf.EPS)
+        t = torch.matmul(h, p17.wqkv)
+        o = c.merge_heads(F.scaled_dot_product_attention(
+            *c.head_views(t, bf.N, bf.S, 3, bf.H)), bf.N, bf.S)
+        x1 = torch.addmm(xq, o, p17.wproj)
+        h = F.layer_norm(x1, (e17,), *[t.to(bf16) for t in ln2], bf.EPS)
+        return torch.addmm(x1, F.gelu(torch.matmul(h, p17.w1),
+                                      approximate="tanh"), p17.w2)
+
+    with torch.inference_mode():
+        lib17_ms = time_ms(lib17) * bf.DEPTH
+    b17, by17 = bound([mm_cost(m17, e17, 3 * e17, 4 * 5 * e17),
+                       attn_cost(bf.N, bf.S, heads=bf.H),
+                       cases["block_tail"][2]] * bf.DEPTH)
+    print(f"{tag} row 17 chains ({bf.DEPTH} blocks): kernels {mains['17']} ms;"
+          f" plain (block) {plain_chain['17']:.4f} ms; bound {b17:.4f} ms by "
+          f"{by17}; library {lib17_ms:.4f} ms ({bf.DEPTH} x LN + matmul + "
+          f"SDPA + addmm + LN + matmul + GELU + addmm)")
+
+    # the kernels line's entries: launches from the chains above (each
+    # chain's run between a reset and a read of the counts)
+    def launches(prefix, name):
+        return sum(counts[k].get(name, 0) for k in counts
+                   if k.startswith(prefix))
+
+    def max_err(prefix, name):
+        return max(st[name][2] for k, st in stats.items()
+                   if k.startswith(prefix) and name in st)
+
+    also = "tools/bench_attn_split_cls.py:{}".format
+    rows = [(f"attn_variant_{v}", "attn_variants",
+             ["tools/bench_attn_softmax.py:34"], f"18 softmax {v}",
+             "attn_variant", f"attn_variant[{v}]") for v in sm.VARIANTS]
+    rows += [
+        ("attn_split_cls", "attn_variants", [also(104), also(64)], "21 split",
+         "attn_split_cls", "attn_split_cls"),
+        ("attn_i8_B", "attn_i8", ["tools/bench_attn_i8.py:57",
+                                  "tools/debug_attn_i8.py:53"], "19 ",
+         "attn_i8", "attn_i8[B]"),
+        ("attn_i8_C", "attn_i8", ["tools/bench_attn_i8.py:57",
+                                  "tools/debug_attn_i8.py:53"], "19 ",
+         "attn_i8", "attn_i8[C]"),
+        ("block_tail", "block_tail", ["tools/bench_block_fusion.py:75",
+                                      "tools/bench_block_fusion.py:67",
+                                      "tools/bench_block_fusion.py:71"],
+         "17 block", "block_tail", "block_tail"),
+        ("gemm_no_residual", "gemm_residual",
+         ["tools/bench_attn_softmax.py:34"], "18 softmax", "gemm",
+         "gemm[qkv]"),
+    ]
+    entries = []
+    for name, source, replaces, chain_label, wrapper, case in rows:
+        if name.startswith("attn_i8_"):  # B's and C's chains, all shapes
+            v = name[-1]
+            n_ = sum(counts[k].get(wrapper, 0) for k in counts
+                     if k.startswith("19 ") and k.endswith(f" {v}"))
+            err = max(st[wrapper][2] for k, st in stats.items()
+                      if k.startswith("19 ") and k.endswith(f" {v}"))
+        else:
+            n_, err = (launches(chain_label, wrapper),
+                       max_err(chain_label, wrapper))
+        km, pm_, b_ms, b_by, lm = times[case]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"mst_tpu_torch/csrc/{source}.cu",
+            "replaces": replaces[0], "also_replaces": replaces[1:],
+            "launches": n_, "max_abs_err": err, "ms": km, "plain_ms": pm_,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lm})
+    return entries
 
 
 def main() -> int:
@@ -3903,6 +4457,11 @@ def main() -> int:
                    lambda: lstep(src_l, tgt_l), 10)
     del lstep, lmodel, lbatches, ldm, src518, vol518, src560, vol560
 
+    # ======================================================================
+    # The tools/ experiments (queue B rows 17-21): their kernels and chains
+    # ======================================================================
+    tool_entries = tools_phases(tag, dev)
+
     # TPU kernels: _attn_any_kernel at fused_block.py:326, _mlp_kernel at
     # :400, their train forwards _attn_train_kernel :424 and
     # _mlp_train_kernel :470, the backwards _attn_bwd_kernel :680 and
@@ -4111,6 +4670,7 @@ def main() -> int:
             "library_ms": (sum(lib_ms[c] for c in per_block)
                            if all(c in lib_ms for c in per_block) else None),
         })
+    kernels += tool_entries
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
     print(json.dumps({"kernels": kernels}))

@@ -9,6 +9,11 @@
 // apply in f32, the residual is added to the f32 value of x, and the sum is
 // cast to bf16 once.
 //
+// Without x (RES = false, x = NULL at the entry point) it is the plain
+// product out = ls * (a @ W + b): the qkv product of the softmax
+// experiment `tools/bench_attn_softmax.py` `make_kernel` (:34, queue B row
+// 18), which has no LayerNorm before it (zero bias there).
+//
 // gemm_dls (the same main loop, another epilogue) is the LayerScale step of
 // the two backward kernels `_attn_bwd_kernel` / `_mlp_bwd_kernel`: it
 // recomputes z = a @ W + b in f32, writes gz = bf16(g * ls), and sums
@@ -42,10 +47,11 @@ constexpr size_t PIPE_BYTES = 2 * (A_STAGE + B_STAGE) * sizeof(bf16);
 constexpr size_t C_BYTES = size_t(BM) * LDC * sizeof(float);
 constexpr size_t SMEM_BYTES = PIPE_BYTES > C_BYTES ? PIPE_BYTES : C_BYTES;
 
-// DLS = false: out = x + ls * (a @ w + bias) (serving and train forward).
+// DLS = false: out = x + ls * (a @ w + bias) (serving and train forward),
+// or without the x term when RES = false.
 // DLS = true: x is the upstream gradient g; out = bf16(g * ls) and
 // dls_part[blockIdx.y][n] = sum over the block's rows of g * (a @ w + bias).
-template <bool DLS>
+template <bool DLS, bool RES = true>
 __global__ void __launch_bounds__(THREADS)
 gemm_residual_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
                      const float* __restrict__ bias, const float* __restrict__ ls,
@@ -134,8 +140,8 @@ gemm_residual_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
       continue;
     }
     const size_t off = size_t(m) * N + n0 + c;
-    float xv[8], v[8];
-    unpack8_bf16(*reinterpret_cast<const uint4*>(x + off), xv);
+    float xv[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, v[8];
+    if (RES) unpack8_bf16(*reinterpret_cast<const uint4*>(x + off), xv);
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       float y = Cs[r * LDC + c + e] + bias[n0 + c + e];
@@ -144,7 +150,7 @@ gemm_residual_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
         v[e] = xv[e] * ls[n0 + c + e];
       } else {
         if (ls != nullptr) y *= ls[n0 + c + e];
-        v[e] = xv[e] + y;
+        v[e] = RES ? xv[e] + y : y;
       }
     }
     *reinterpret_cast<uint4*>(out + off) = pack8_bf16(v);
@@ -162,23 +168,37 @@ gemm_residual_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
 }  // namespace
 }  // namespace mst
 
+namespace mst {
+namespace {
+
+template <bool RES>
+cudaError_t launch_residual(const void* a, const void* w, const void* bias, const void* ls,
+                            const void* x, void* out, int M, int K, int N, cudaStream_t st) {
+  cudaError_t err = allow_smem(gemm_residual_kernel<false, RES>, SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  dim3 grid(N / BN, (M + BM - 1) / BM);
+  gemm_residual_kernel<false, RES><<<grid, THREADS, SMEM_BYTES, st>>>(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(w),
+      static_cast<const float*>(bias), static_cast<const float*>(ls),
+      static_cast<const bf16*>(x), static_cast<bf16*>(out), nullptr, M, K, N);
+  return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace mst
+
 // a [M, K] bf16, w [K, N] bf16 (flax Dense layout), bias [N] f32, ls [N] f32
-// or NULL (no LayerScale), x [M, N] bf16 -> out [M, N] bf16. Needs
-// K % 32 == 0 and N % 128 == 0.
+// or NULL (no LayerScale), x [M, N] bf16 or NULL (no residual) -> out [M, N]
+// bf16. Needs K % 32 == 0 and N % 128 == 0.
 extern "C" int mst_gemm_residual(const void* a, const void* w, const void* bias,
                                  const void* ls, const void* x, void* out, int M,
                                  int K, int N, void* stream) {
   using namespace mst;
   if (M <= 0 || K % BK != 0 || N % BN != 0 || (M + BM - 1) / BM > 65535)
     return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(gemm_residual_kernel<false>, SMEM_BYTES);
-  if (err != cudaSuccess) return err;
-  dim3 grid(N / BN, (M + BM - 1) / BM);
-  gemm_residual_kernel<false><<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(a), static_cast<const bf16*>(w),
-      static_cast<const float*>(bias), static_cast<const float*>(ls),
-      static_cast<const bf16*>(x), static_cast<bf16*>(out), nullptr, M, K, N);
-  return cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return x != nullptr ? launch_residual<true>(a, w, bias, ls, x, out, M, K, N, st)
+                      : launch_residual<false>(a, w, bias, ls, x, out, M, K, N, st);
 }
 
 // a [M, K] bf16, w [K, N] bf16, bias [N] f32, ls [N] f32, g [M, N] bf16 ->

@@ -39,7 +39,7 @@ _SIGNATURES = {
     # stream
     "mst_ln_gemm_swiglu": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                            _P),
-    # a, w, bias, ls|NULL, x, out, M, K, N, stream
+    # a, w, bias, ls|NULL, x|NULL, out, M, K, N, stream
     "mst_gemm_residual": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # qkv, out, lse|NULL, row|NULL, carry|NULL, carry_part, new_carry,
     # abnar|NULL, rope_cos|NULL, rope_sin|NULL, N, S, E, num_heads, scale,
@@ -86,6 +86,17 @@ _SIGNATURES = {
     # sm_scale, stream
     "mst_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                           _F, _P),
+    # the tools/ experiments (mst_tpu_torch/tools/), queue B rows 17-21:
+    # qkv, out, p_out|NULL, N, S, E, num_heads, variant, scale, stream
+    "mst_attn_variant": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # qkv, out, N, S, E, num_heads, scale, stream
+    "mst_attn_split_cls": (_P, _P, _I, _I, _I, _I, _F, _P),
+    # codes (int8), v|NULL, out, N, S, E, num_heads, variant, scale, stream
+    "mst_attn_i8": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # o, x, wproj, bproj, ln_s, ln_b, w1, b1, w2, b2, out, M, E, F, eps,
+    # stream
+    "mst_block_tail": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _F, _P),
 }
 
 

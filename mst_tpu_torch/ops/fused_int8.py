@@ -142,15 +142,15 @@ def _quantize_ln(x, ln_s, ln_b, eps, static):
 
 def _ln_gemm_i8_ref(x, ln_s, ln_b, q8, scale, bias, act: int, eps: float,
                     static: bool = False, a_inv=None):
-    """act(dequant(quant(LN(x)) @ q8)): ACT_NONE -> in x's dtype (qkv);
-    a GELU -> its f32 value (dynamic) or clip(round(u * a_inv)) int8
-    (static)."""
+    """act(dequant(quant(LN(x)) @ q8)): ACT_NONE without `a_inv` -> in x's
+    dtype (qkv); a GELU, or ACT_NONE with `a_inv` (the identity) -> its f32
+    value (dynamic) or clip(round(u * a_inv)) int8 (static)."""
     wd = _wd(x)
     hq, hs = _quantize_ln(x, ln_s, ln_b, eps, static)
     v = _dequant(_dot_i8(hq, q8), wd, hs, scale, bias)
-    if act == ACT_NONE:
+    if act == ACT_NONE and a_inv is None:
         return v.to(x.dtype)
-    u = _gelu(v, act == ACT_GELU_TANH)
+    u = v if act == ACT_NONE else _gelu(v, act == ACT_GELU_TANH)
     return _quant_static(u * a_inv.to(wd).reshape(())) if static else u
 
 
@@ -287,7 +287,10 @@ def ln_gemm_i8(x, ln_s, ln_b, q8, scale, bias, act: int, eps: float,
                static: bool = False, a_inv=None):
     """x [M, K] bf16, q8 [K, N] int8 -> act(dequant(quant(LN(x)) @ q8)):
     bf16 for ACT_NONE (the qkv), the f32 GELU output (dynamic), or its
-    static int8 codes clip(round(u * a_inv)) [M, N]."""
+    static int8 codes clip(round(u * a_inv)) [M, N]; ACT_NONE with `a_inv`
+    takes the identity for the GELU, so a static call gives the qkv's own
+    codes (the int8 attention experiments,
+    `mst_tpu_torch.tools.bench_attn_i8`)."""
     if not _on_cuda(x):
         return _ln_gemm_i8_ref(x, ln_s, ln_b, q8, scale, bias, act, eps,
                                static, a_inv)
@@ -297,7 +300,7 @@ def ln_gemm_i8(x, ln_s, ln_b, q8, scale, bias, act: int, eps: float,
         raise ValueError(f"ln_gemm_i8 needs N % 128 == 0; got N={n}")
     ln_s, ln_b, scale, bias = _ln_i8_args(x, ln_s, ln_b, q8, scale, bias, n,
                                           "ln_gemm_i8")
-    if act == ACT_NONE:
+    if act == ACT_NONE and a_inv is None:
         mode, ainv = OUT_BF16, None
         out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     else:

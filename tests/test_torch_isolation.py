@@ -97,15 +97,22 @@ def test_cuda_sources_ship_and_build_dir_is_ignored():
     names = {p.name for p in csrc.glob("*.cu")}
     int8 = {"ln_gemm_i8.cu", "quant_rows.cu", "gemm_i8_residual.cu"}
     flash = {"flash_fwd.cu", "flash_bwd.cu"}
+    # the tools/ experiments (queue B rows 17-21): source -> the JAX tool
+    tools = {"attn_variants.cu": "bench_attn_softmax",
+             "attn_i8.cu": "bench_attn_i8",
+             "block_tail.cu": "bench_block_fusion"}
     assert names == {"ln_gemm.cu", "mhsa.cu", "gemm_residual.cu",
                      "gemm_wgrad.cu", "gemm_dgrad.cu", "mhsa_bwd.cu", *int8,
-                     *flash}
+                     *flash, *tools}
     for name in names:
         text = (csrc / name).read_text()
         # the source note names the Pallas kernel it replaces
-        module = ("fused_int8" if name in int8 else "attention"
-                  if name in flash else "fused_block")
-        assert f"mst_tpu/ops/{module}.py" in text, name
+        if name in tools:
+            assert f"tools/{tools[name]}.py" in text, name
+        else:
+            module = ("fused_int8" if name in int8 else "attention"
+                      if name in flash else "fused_block")
+            assert f"mst_tpu/ops/{module}.py" in text, name
         assert 'extern "C"' in text and "cudaGetLastError" in text, name
     ignored = (ROOT / ".gitignore").read_text().split()
     assert "/build/" in ignored
