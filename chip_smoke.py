@@ -9,7 +9,12 @@ result). Phases, each printing lines tagged with the card's name and power
 limit:
 
 1. device: the card, `nvidia-smi` name and power limit, TF32 off;
-2. build: `nvcc` builds `mst_tpu_torch/csrc/*.cu` (timed);
+2. build: `nvcc` builds `mst_tpu_torch/csrc/*.cu` (timed); `-Xptxas -v`
+   for `ln_gemm.cu`'s kernels (registers, no spills; `ln_gemm.cu` compiled
+   on its own for the log where the library was built before the run), the
+   wgmma / TMA instructions of its GEMM in the SASS (`cuobjdump`: HGMMA,
+   UTMALDG), and `fused_block.ln_gemm_launch` against the kernel's own
+   launch geometry (`mst_gemm_geometry`);
 3. kernels: each hand-written kernel and each fused sub-layer against its
    plain PyTorch version at the ViT-S path shapes ([256, 257, 384] bf16,
    6 heads, O(1) LayerScale, tanh and erf GELU);
@@ -212,6 +217,21 @@ tools' own shapes:
    the attention cores, LN + matmul + GELU for `block_tail`), and the
    chains' plain, bound and library times.
 
+Phase 40 holds the Hopper form of `ln_gemm` / `ln_gemm_swiglu` (`ln_rows`,
+then a TMA + wgmma GEMM on the normalised rows) on its own: `ln_rows` and
+both kernels in every mode (act none / GELU tanh / GELU erf, train, gated,
+gated train) at K = 384, 768, 1024, 1536 with their path widths (N = 3E,
+4E; 2F = 8192) at the B=8 rows and at a ragged M = 771 and M = 1, within 2
+bf16 ulps of plain (h within 1), twice for the same bits; a planted fault
+per kernel (statistics from the neighbouring row, a stale ring stage, the
+gated h2 panel one column over) that must break its limit; then the times
+at the path shapes beside the WMMA kernels' recorded times: the chain, each
+kernel alone and the library calls taken in turn over 10 rounds of 10
+calls per pair of CUDA events, with the SM clock and power draw sampled
+meanwhile. Every launch count check of the earlier phases also holds
+`ln_rows` to one launch per `ln_gemm` / `ln_gemm_swiglu` call
+(`check_launches`).
+
 Each phase prints its wall time. The line before the last is `{"kernels":
 [...]}`: per kernel its launches on the main path, its largest error, its
 time and its plain version's, the bound (the least time the card could
@@ -223,6 +243,7 @@ computes the same function; the last line is `{"ok": true, "device":
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import csv
 import functools
 import gzip
@@ -232,6 +253,7 @@ import json
 import math
 import shutil
 import os
+import re
 import statistics
 import struct
 import subprocess
@@ -365,6 +387,20 @@ FLASH_CHUNK = 16
 # a fault of the softmax scale 25% off read only 0.0078 (smallest batch
 # 0.0002), too weak to plant.
 LONG_LOSS_TOL = 0.01
+# Phase 40: `ln_rows` + the wgmma GEMM at the widths of ViT-S / B / L and
+# giant2 (K = E), giant2's gate width, and two ragged row counts (3 x 257,
+# and 1). The WMMA kernels' times (PERF.md §6, earlier runs on an H100
+# 80GB HBM3 at 700 W), printed beside the new ones.
+LN_GEMM_WIDTHS = (384, 768, 1024, 1536)
+LN_GEMM_F = 4096
+RAGGED_M = (771, 1)
+# Phase 40's times: PAIR_ROUNDS rounds of PER_PAIR calls per pair of CUDA
+# events (one call per pair let the order of the calls, and the card's
+# state, move a reading by 5-25%).
+PAIR_ROUNDS, PER_PAIR = 10, 10
+WMMA_MS = {"ln_gemm[qkv,E=1536]": 18.926, "ln_gemm_swiglu[w12]": 34.879,
+           "ln_gemm_swiglu_train[w12]": 35.183, "ln_gemm[qkv]": 0.938,
+           "ln_gemm[fc1,gelu_tanh]": 1.272}
 T0 = time.perf_counter()
 
 
@@ -430,6 +466,18 @@ def heads_of(qkv, n, s, heads=HEADS):
     """q, k, v [n, heads, s, 64] contiguous from a packed qkv [n*s, 3E]."""
     t = qkv.reshape(n, s, 3, heads, 64).permute(2, 0, 3, 1, 4)
     return tuple(u.contiguous() for u in t)
+
+
+def check_launches(got: dict, want: dict, what: str) -> None:
+    """Hold launch counts `got` to `want` with the `ln_rows` launches that
+    `want` implies: one per `ln_gemm` / `ln_gemm_swiglu` call, their LN
+    half. A `want` that lists only the kernels it launches (phases 38-39)
+    gains the key only where it is not 0."""
+    n = sum(want.get(k, 0) for k in ("ln_gemm", "ln_gemm_swiglu",
+                                     "ln_gemm_swiglu_train"))
+    if n or "ln_rows" in want:
+        want = {**want, "ln_rows": n}
+    check(got == want, f"{what}: launches {got} != {want}")
 
 
 def ulp_bf16(x: float) -> float:
@@ -516,6 +564,85 @@ def time_ms(fn, n: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+class ClockSampler:
+    """The card's SM clock and power draw, sampled by `nvidia-smi -lms` in a
+    process of its own while the block runs; `within(windows)` gives the
+    medians of the samples read inside those host-time windows (a sample
+    is stamped when it is read, a few ms after nvidia-smi took it)."""
+
+    def __enter__(self):
+        self.samples = []
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "20"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+        return self
+
+    def _read(self):
+        for line in self.proc.stdout:
+            try:
+                mhz, watts = (float(v) for v in line.split(",")[:2])
+            except ValueError:
+                continue
+            self.samples.append((time.perf_counter(), mhz, watts))
+
+    def within(self, windows):
+        got = [(m, w) for t, m, w in list(self.samples)
+               if any(a <= t <= b for a, b in windows)]
+        if not got:
+            return SimpleNamespace(mhz="not sampled", watts="not sampled",
+                                   samples=0)
+        return SimpleNamespace(mhz=statistics.median(m for m, _ in got),
+                               watts=statistics.median(w for _, w in got),
+                               samples=len(got))
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            self.proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        self.reader.join(timeout=10)
+        return False
+
+
+def time_interleaved(fns: dict, clocks: ClockSampler) -> dict:
+    """Per name of `fns`: the median over PAIR_ROUNDS rounds of the mean
+    device time of PER_PAIR calls between two CUDA events (`.ms`, with each
+    round's reading in `.each` and their range `.lo`-`.hi`), the calls of
+    all names taken in turn in each round, in reverse order every other
+    round, so that neither the order nor the card's warming favours one;
+    with the SM clock and power sampled while it ran (`.mhz`, `.watts`,
+    `.samples`)."""
+    for fn in fns.values():
+        for _ in range(3):
+            fn()
+    torch.cuda.synchronize()
+    each = {name: [] for name in fns}
+    windows = {name: [] for name in fns}
+    names = list(fns)
+    for r in range(PAIR_ROUNDS):
+        for name in names if r % 2 == 0 else names[::-1]:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(PER_PAIR):
+                fns[name]()
+            end.record()
+            end.synchronize()
+            windows[name].append((t0, time.perf_counter()))
+            each[name].append(start.elapsed_time(end) / PER_PAIR)
+    return {name: SimpleNamespace(ms=statistics.median(each[name]),
+                                  lo=min(each[name]), hi=max(each[name]),
+                                  each=each[name],
+                                  **vars(clocks.within(windows[name])))
+            for name in names}
 
 
 def check_outputs(tag, name, kern, plain, rel) -> float:
@@ -1155,7 +1282,7 @@ def tools_phases(tag, dev):
               f"chain| / |plain|max = {drift:.4g}")
         check(bool(torch.isfinite(out.float()).all()), f"{label}: non-finite")
         check(torch.equal(out, again), f"{label}: not bit for bit")
-        check(got == want, f"{label}: launches {got} != {want}")
+        check_launches(got, want, label)
         counts[label], stats[label] = got, checker.stats
         return out
 
@@ -1495,6 +1622,337 @@ def tools_phases(tag, dev):
     return entries
 
 
+def check_machine_code(tag, build_log, build_mod, lib_path) -> None:
+    """The compiler's word on `ln_gemm.cu`'s kernels: registers and spills
+    of the GEMM (`gemm_ln_kernel`, 4 instances) and `ln_rows_kernel` (5)
+    from `-Xptxas -v` (the build's log, or where the library was built
+    before this run a compile of `ln_gemm.cu` on its own), and the GEMM's
+    wgmma and TMA instructions (HGMMA, UTMALDG) counted in its SASS
+    (`cuobjdump -sass`). No spills, and both instructions present."""
+    mine = ("gemm_ln_kernel", "ln_rows_kernel")
+    entry = r"Compiling entry function '([^']+)'(.*?)(?=Compiling entry function|\Z)"
+    blocks = [(n, b) for n, b in re.findall(entry, build_log, re.S)
+              if any(k in n for k in mine)]
+    if not blocks:
+        print(f"{tag} ptxas: the library was built before this run; "
+              f"compiling ln_gemm.cu on its own for its -Xptxas -v log")
+        blocks = [(n, b) for n, b in re.findall(
+            entry, build_mod.ptxas_log("ln_gemm.cu"), re.S)
+            if any(k in n for k in mine)]
+    found = {k: sum(k in n for n, _ in blocks) for k in mine}
+    check(found == {"gemm_ln_kernel": 4, "ln_rows_kernel": 5},
+          f"-Xptxas -v entries of ln_gemm.cu: {found}")
+    for name, body in blocks:
+        regs = re.search(r"Used (\d+) registers", body)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", body)
+        stack = re.search(r"(\d+) bytes stack frame", body)
+        short = re.search(r"(gemm_ln_kernel|ln_rows_kernel)I\w*?EEEv", name)
+        print(f"{tag} ptxas {short.group(0)[:-3] if short else name}: "
+              f"{regs.group(1) if regs else '?'} registers, stack frame "
+              f"{stack.group(1) if stack else '?'} bytes, spill stores / "
+              f"loads {spill.groups() if spill else '?'}")
+        check(spill is not None and spill.groups() == ("0", "0"),
+              f"{name}: register spills {spill.groups() if spill else '?'}")
+    nvcc = build_mod._nvcc()
+    sass = subprocess.run(
+        [str(Path(nvcc).parent / "cuobjdump"), "-sass", str(lib_path)],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    counts = {}
+    for fn, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)",
+                               sass, re.S):
+        if "gemm_ln_kernel" in fn:
+            counts[fn] = (body.count("HGMMA"), body.count("UTMALDG"))
+    for fn, (hgmma, utmaldg) in counts.items():
+        short = re.search(r"gemm_ln_kernelI\w*?EEEv", fn)
+        print(f"{tag} SASS {short.group(0)[:-3] if short else fn}: {hgmma} HGMMA, "
+              f"{utmaldg} UTMALDG")
+        check(hgmma > 0 and utmaldg > 0, f"{fn}: no wgmma or no TMA load")
+    check(len(counts) == 4, f"gemm_ln_kernel instances in SASS: {len(counts)}")
+
+
+def check_gemm_geometry(tag, fb, lib) -> None:
+    """`fused_block.ln_gemm_launch` (the geometry the CPU tests read)
+    against the kernel's own, `mst_gemm_geometry`, on this card: tiles,
+    grid, threads, stages, shared memory, at the path's widths and at the
+    ragged row counts."""
+    m_path = N_SLICES * S
+    for m in (m_path, *RAGGED_M):
+        for k in LN_GEMM_WIDTHS:
+            for n, gated in ((3 * k, False), (4 * k, False),
+                             (LN_GEMM_F, True)):
+                geo = (ctypes.c_int * 5)()
+                err = lib.mst_gemm_geometry(m, k, n, int(gated), geo)
+                check(err == 0, f"mst_gemm_geometry({m}, {k}, {n}): {err}")
+                mine = fb.ln_gemm_launch(m, k, n, gated)
+                want = (mine.tiles, mine.grid, mine.threads, mine.stages,
+                        mine.smem)
+                check(tuple(geo) == want, f"GEMM geometry at [{m}, {k}] -> "
+                      f"{n} (gated {gated}): kernel {tuple(geo)}, "
+                      f"ln_gemm_launch {want}")
+    geo = fb.ln_gemm_launch(m_path, 1536, LN_GEMM_F, True)
+    print(f"{tag} GEMM geometry: ln_gemm_launch equals the kernel's "
+          f"mst_gemm_geometry at K = {LN_GEMM_WIDTHS}, M = {m_path} and "
+          f"{RAGGED_M} (giant2 w12: {geo.tiles} tiles on {geo.grid} CTAs of "
+          f"{geo.threads} threads, {geo.stages} stages, {geo.smem} bytes of "
+          f"shared memory)")
+
+
+# -- phase 40: `ln_gemm` / `ln_gemm_swiglu` as `ln_rows` + the wgmma GEMM ---
+
+
+def ln_gemm_phase(tag, dev, fb, build_lib):
+    """Phase 40: `ln_rows` and the TMA + wgmma GEMM of `ln_gemm` /
+    `ln_gemm_swiglu` in every mode at K = LN_GEMM_WIDTHS with their path
+    widths (N = 3E, 4E; 2F = 2 * LN_GEMM_F) at the B=8 rows and at the
+    ragged RAGGED_M, each run twice for the same bits, a planted fault per
+    kernel, then the times. Returns (errs, timed, cost, lib_ms) for the
+    kernels line."""
+    stamp(tag, "40")
+    gen = np.random.default_rng(SEED + 40)
+    bf = torch.bfloat16
+    m_path = N_SLICES * S
+    eps = 1e-6
+
+    def rand(*shape, scale=1.0, off=0.0, dtype=torch.float32):
+        return torch.from_numpy(
+            (off + scale * gen.standard_normal(shape)).astype(np.float32)
+        ).to(dev, dtype)
+
+    def weights(k, n):
+        return rand(k, n, scale=k ** -0.5, dtype=bf), rand(n, scale=0.1)
+
+    errs = {}
+
+    def hold(name, kern, plain, ulps):
+        """Each output of `kern` within ulps[i] bf16 ulps of the plain
+        output's largest magnitude, and the same bits on a second run."""
+        with torch.inference_mode():
+            k1, k2, pl = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        k1, k2, pl = ((t,) if not isinstance(t, tuple) else t
+                      for t in (k1, k2, pl))
+        worst = 0.0
+        for i, (a, b, c, u) in enumerate(zip(k1, k2, pl, ulps)):
+            if c is None:
+                check(a is None, f"{name}[{i}]: unexpected output")
+                continue
+            check(tuple(a.shape) == tuple(c.shape) and a.dtype == c.dtype,
+                  f"{name}[{i}]: {tuple(a.shape)} {a.dtype} != "
+                  f"{tuple(c.shape)} {c.dtype}")
+            check(bool(torch.isfinite(a.float()).all()), f"{name}: non-finite")
+            scale = c.float().abs().max().item()
+            err = (a.float() - c.float()).abs().max().item()
+            lim = u * ulp_bf16(scale)
+            same = torch.equal(a, b)
+            print(f"{tag} {name}[{i}]: {list(a.shape)} max_abs_err={err:.6g} "
+                  f"limit={lim:.6g} ({u} ulp at |plain|max={scale:.6g}); "
+                  f"bit for bit on repeat {same}")
+            check(err <= lim, f"{name}[{i}]: max_abs_err {err} > {lim}")
+            check(same, f"{name}[{i}]: not bit for bit")
+            worst = max(worst, err)
+        errs[name] = worst
+
+    print(f"{tag} ln_gemm redesign: ln_rows (h) within 1 bf16 ulp of plain, "
+          f"every GEMM output within 2 (at the plain output's largest "
+          f"magnitude), the same bits on a second run; K = {LN_GEMM_WIDTHS}, "
+          f"M = {m_path} and the ragged {RAGGED_M}")
+    F_ = LN_GEMM_F
+    tanh, erf, none = fb.ACT_GELU_TANH, fb.ACT_GELU_ERF, fb.ACT_NONE
+    for k in LN_GEMM_WIDTHS:
+        ln_s, ln_b = rand(k, scale=0.1, off=1.0), rand(k, scale=0.1)
+        wq, bq = weights(k, 3 * k)
+        w1, b1 = weights(k, 4 * k)
+        w12, b12 = weights(k, 2 * F_)
+        for m in (m_path, *RAGGED_M):
+            x = rand(m, k, dtype=bf)
+            at = f"E={k},M={m}"
+            hold(f"ln_rows[{at}]", lambda: fb.ln_rows(x, ln_s, ln_b, eps),
+                 lambda: fb._ln_rows_ref(x, ln_s, ln_b, eps), (1,))
+            for label, w, b, act in (("qkv", wq, bq, none),
+                                     ("fc1,gelu_tanh", w1, b1, tanh),
+                                     ("fc1,gelu_erf", w1, b1, erf)):
+                args = (x, ln_s, ln_b, w, b, act, eps)
+                hold(f"ln_gemm[{label},{at}]", lambda: fb.ln_gemm(*args),
+                     lambda: fb._ln_gemm_ref(*args), (2,))
+                hold(f"ln_gemm_train[{label},{at}]",
+                     lambda: fb.ln_gemm(*args, train=True),
+                     lambda: fb._ln_gemm_ref(*args, train=True), (2, 1, 2))
+            gargs = (x, ln_s, ln_b, w12, b12, eps)
+            hold(f"ln_gemm_swiglu[w12,{at}]", lambda: fb.ln_gemm_swiglu(*gargs),
+                 lambda: fb._ln_gemm_swiglu_ref(*gargs), (2,))
+            hold(f"ln_gemm_swiglu_train[w12,{at}]",
+                 lambda: fb.ln_gemm_swiglu(*gargs, train=True),
+                 lambda: fb._ln_gemm_swiglu_ref(*gargs, train=True), (2, 1, 2))
+            del x
+
+    # planted faults at giant2's width: each must break its limit
+    k = LN_GEMM_WIDTHS[-1]
+    x = rand(m_path, k, dtype=bf)
+    ln_s, ln_b = rand(k, scale=0.1, off=1.0), rand(k, scale=0.1)
+    wq, bq = weights(k, 3 * k)
+    w12, b12 = weights(k, 2 * F_)
+
+    def broken(name, kern, fault, ulps):
+        scale = fault.float().abs().max().item()
+        err = (kern.float() - fault.float()).abs().max().item()
+        lim = ulps * ulp_bf16(scale)
+        print(f"{tag} planted fault: {name}: max_abs_err={err:.6g} against "
+              f"the limit {lim:.6g} ({err / lim:.4g}x); must break it")
+        check(err > lim, f"planted fault {name} passes the limit")
+
+    with torch.inference_mode():
+        h = fb.ln_rows(x, ln_s, ln_b, eps)
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = ((xf - mean) ** 2).mean(-1, keepdim=True)
+        stale = ((xf - mean.roll(1, 0)) * torch.rsqrt(var.roll(1, 0) + eps)
+                 * ln_s + ln_b).to(bf)
+        broken("ln_rows with each row's statistics from the row before", h,
+               stale, 1)
+        h_stale = h.clone()
+        h_stale[:, k - 64:] = h[:, k - 128:k - 64]
+        broken("ln_gemm[qkv] whose last ring stage holds the previous K tile "
+               "of h", fb.ln_gemm(x, ln_s, ln_b, wq, bq, none, eps),
+               fb._gemm_act_ref(h_stale, wq, bq, none), 2)
+        w12_f, b12_f = w12.clone(), b12.clone()
+        w12_f[:, F_:] = w12[:, F_:].roll(-1, 1)
+        b12_f[F_:] = b12[F_:].roll(-1)
+        broken("ln_gemm_swiglu[w12] with its h2 panel one column over",
+               fb.ln_gemm_swiglu(x, ln_s, ln_b, w12, b12, eps),
+               fb._gemm_swiglu_ref(h, w12_f, b12_f), 2)
+    del h, xf, mean, var, stale, h_stale, w12_f, b12_f
+
+    # times at the path shapes (B=8 rows): the wrapper (ln_rows + GEMM),
+    # each kernel alone and the library calls taken in turn (in reverse
+    # every other round), beside the SM clock and power draw meanwhile;
+    # then the plain version and the bound
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = build_lib()
+    timed, cost, lib_ms = {}, {}, {}
+    print(f"{tag} times: median over {PAIR_ROUNDS} rounds of the mean of "
+          f"{PER_PAIR} calls between two CUDA events, the calls of one shape "
+          f"taken in turn, in reverse order every other round; SM clock "
+          f"(MHz) and power (W): medians of nvidia-smi samples read while "
+          f"each was timed; chain = ln_rows + GEMM (the wrapper); WMMA = the "
+          f"earlier single kernel's time (PERF.md §6)")
+    with ClockSampler() as clocks:
+        for k in LN_GEMM_WIDTHS:
+            x = rand(m_path, k, dtype=bf)
+            ln_s, ln_b = rand(k, scale=0.1, off=1.0), rand(k, scale=0.1)
+            ln_w, ln_bias = ln_s.to(bf), ln_b.to(bf)
+            h = fb.ln_rows(x, ln_s, ln_b, eps)
+            sub = "" if k == 384 else f",E={k}"
+            rows_name = f"ln_rows[E={k}]"
+            cost[rows_name] = (0, 2 * 2 * m_path * k + 4 * 2 * k)
+
+            def rows():
+                return fb.ln_rows(x, ln_s, ln_b, eps)
+
+            def layer_norm():
+                return F.layer_norm(x, (k,), ln_w, ln_bias, eps)
+
+            shapes = [(f"ln_gemm[qkv{sub}]", 3 * k, none, False),
+                      (f"ln_gemm[fc1,gelu_tanh{sub}]", 4 * k, tanh, False)]
+            if k == LN_GEMM_WIDTHS[-1]:
+                shapes += [("ln_gemm_swiglu[w12]", 2 * F_, none, False),
+                           ("ln_gemm_swiglu_train[w12]", 2 * F_, none, True)]
+            for name, n, act, train in shapes:
+                w, b = weights(k, n)
+                bw = b.to(bf)
+                gated = name.startswith("ln_gemm_swiglu")
+                if gated:
+                    out = torch.empty(m_path, n // 2, dtype=bf, device=dev)
+                    h12 = (torch.empty(m_path, n, dtype=bf, device=dev)
+                           if train else None)
+
+                    def gemm_only():
+                        return lib.mst_gemm_swiglu(
+                            h.data_ptr(), w.data_ptr(), b.data_ptr(),
+                            out.data_ptr(), None if h12 is None else
+                            h12.data_ptr(), m_path, k, n // 2, stream)
+
+                    def wrapper():
+                        return fb.ln_gemm_swiglu(x, ln_s, ln_b, w, b, eps,
+                                                 train=train)
+
+                    def plain():
+                        return fb._ln_gemm_swiglu_ref(x, ln_s, ln_b, w, b, eps,
+                                                      train=train)
+
+                    def library():
+                        h1, h2 = torch.addmm(bw, layer_norm(), w).chunk(
+                            2, dim=-1)
+                        return F.silu(h1) * h2
+                    outs = 2 * m_path * (n // 2) + (2 * m_path * (n + k)
+                                                    if train else 0)
+                    cost[name] = (2 * m_path * k * n, 2 * (m_path * k + k * n)
+                                  + outs + 4 * (2 * k + n))
+                else:
+                    out = torch.empty(m_path, n, dtype=bf, device=dev)
+
+                    def gemm_only():
+                        return lib.mst_gemm_act(
+                            h.data_ptr(), w.data_ptr(), b.data_ptr(),
+                            out.data_ptr(), None, m_path, k, n, act, stream)
+
+                    def wrapper():
+                        return fb.ln_gemm(x, ln_s, ln_b, w, b, act, eps)
+
+                    def plain():
+                        return fb._ln_gemm_ref(x, ln_s, ln_b, w, b, act, eps)
+
+                    def library():
+                        y = torch.addmm(bw, layer_norm(), w)
+                        return F.gelu(y, approximate="tanh") if act else y
+                    cost[name] = mm_cost(m_path, k, n, 4 * (2 * k + n))
+                check(gemm_only() == 0, f"{name}: the GEMM's launch failed")
+                with torch.inference_mode():  # the f32 plain version last
+                    t = time_interleaved(
+                        {"chain": wrapper, "ln_rows": rows, "GEMM": gemm_only,
+                         "library": library, "F.layer_norm": layer_norm},
+                        clocks)
+                    pm_ = time_ms(plain)
+                km, gm, rm = t["chain"].ms, t["GEMM"].ms, t["ln_rows"].ms
+                if rows_name not in timed:  # the first shape's reading
+                    timed[rows_name] = (rm, time_ms(lambda: fb._ln_rows_ref(
+                        x, ln_s, ln_b, eps)))
+                    lib_ms[rows_name] = t["F.layer_norm"].ms
+                timed[name] = (km, pm_)
+                lib_ms[name] = t["library"].ms
+                b_ms, b_by = bound([cost[name]])
+                flop = cost[name][0]
+                wmma = WMMA_MS.get(name)
+                below = sum(g < c for g, c in zip(t["GEMM"].each,
+                                                  t["chain"].each))
+                print(f"{tag} time {name} [{m_path}, {k}] -> {n}: chain "
+                      f"{km:.4f} ms ({flop / km / 1e9:.1f} TFLOP/s; rounds "
+                      f"{t['chain'].lo:.4f}-{t['chain'].hi:.4f}); ln_rows "
+                      f"{rm:.4f} + GEMM alone {gm:.4f} = {rm + gm:.4f} ms "
+                      f"(GEMM {flop / gm / 1e9:.1f} TFLOP/s; rounds "
+                      f"{t['GEMM'].lo:.4f}-{t['GEMM'].hi:.4f}); GEMM alone "
+                      f"below the chain in {below} of {PAIR_ROUNDS} rounds; "
+                      f"plain {pm_:.4f} ms; bound {b_ms:.4f} ms by {b_by}; "
+                      f"library {lib_ms[name]:.4f} ms ({lib_ms[name] / km:.3f}x "
+                      f"the chain); WMMA "
+                      + (f"{wmma} ms ({wmma / km:.2f}x)" if wmma else
+                         "not recorded"))
+                print(f"{tag} clocks {name}: " + "; ".join(
+                    f"{label} {v.mhz} MHz, {v.watts} W ({v.samples} samples)"
+                    for label, v in t.items()))
+                del out, w, b
+            rb, rby = bound([cost[rows_name]])
+            print(f"{tag} time {rows_name} [{m_path}, {k}]: "
+                  f"{timed[rows_name][0]:.4f} ms, plain "
+                  f"{timed[rows_name][1]:.4f} ms, bound {rb:.4f} ms by {rby} "
+                  f"({cost[rows_name][1] / timed[rows_name][0] / 1e6:.1f} "
+                  f"GB/s), library (F.layer_norm, bf16 weights) "
+                  f"{lib_ms[rows_name]:.4f} ms")
+            del x, h
+    torch.cuda.empty_cache()
+    return errs, timed, cost, lib_ms
+
+
 def main() -> int:
     if not (ROOT / "mst_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke.py must run from a checkout of the "
@@ -1561,10 +2019,15 @@ def main() -> int:
     # -- 2. build ----------------------------------------------------------
     stamp(tag, "2")
     t0 = time.perf_counter()
-    lib_path = _build.build(verbose=True)  # -Xptxas -v: registers, spills
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        lib_path = _build.build(verbose=True)  # -Xptxas -v: registers, spills
+    print(log.getvalue(), end="")
     _build.lib()
     print(f"{tag} build: {time.perf_counter() - t0:.2f} s -> "
           f"{lib_path.relative_to(ROOT)}")
+    check_machine_code(tag, log.getvalue(), _build, lib_path)
+    check_gemm_geometry(tag, fb, _build.lib())
 
     # -- 3. kernels vs plain at the path's shapes --------------------------
     stamp(tag, "3")
@@ -1750,7 +2213,7 @@ def main() -> int:
             check(err <= PROB_TOL, f"{what} [{label}]: {err} > {PROB_TOL}")
             check(gap > PROB_TOL, f"{what} [{label}]: volumes {gap} apart, "
                   f"within the tolerance {PROB_TOL}")
-            check(counts == want, f"launch counts {counts} != {want}")
+            check_launches(counts, want, f"{what} [{label}]")
             check(calls == want_calls,
                   f"sub-layer calls {calls} != {want_calls}")
         # padded slices must not move the masked volume's probs
@@ -1845,7 +2308,7 @@ def main() -> int:
     want_calls = {k: v * bp.batches_run for k, v in calls_per_fwd.items()}
     print(f"{tag} server launches: {served_counts} sublayer calls: "
           f"{served_calls}")
-    check(served_counts == want, f"server launch counts {served_counts} != {want}")
+    check_launches(served_counts, want, "server")
     check(served_calls == want_calls,
           f"server sub-layer calls {served_calls} != {want_calls}")
 
@@ -2136,7 +2599,7 @@ def main() -> int:
                   f"/ plain: median {meds[-1][0] / meds[-1][1]:.4g}, max "
                   f"{maxes[-1][0] / maxes[-1][1]:.4g}")
             check(math.isfinite(loss_k), f"{what}: non-finite loss")
-            check(counts == want, f"{what} launches {counts} != {want}")
+            check_launches(counts, want, what)
             check(calls == want_calls,
                   f"{what} sub-layer calls {calls} != {want_calls}")
             del grads_k, grads_p, grads_32
@@ -2433,8 +2896,7 @@ def main() -> int:
                     leak = sk[mask_t].abs().max().item()
                     check(leak == 0.0, f"{what} {mode}: padded slices' "
                           f"saliency {leak}")
-                check(counts == want, f"{what} {mode} launches {counts} != "
-                      f"{want}")
+                check_launches(counts, want, f"{what} {mode}")
                 check(calls == want_calls,
                       f"{what} {mode} calls {calls} != {want_calls}")
                 found[mode] = counts
@@ -2458,7 +2920,7 @@ def main() -> int:
               f"{SAL_CHEAP_REL}); launches {counts}; sub-layer calls {calls}")
         check(d_p <= PROB_TOL and d_s <= SAL_CHEAP_REL,
               f"{what} MST_NO_CHEAP_LAST: probs {d_p}, saliency {d_s}")
-        check(counts == want, f"launches {counts} != {want}")
+        check_launches(counts, want, f"{what} MST_NO_CHEAP_LAST")
         check(calls == want_calls, f"calls {calls} != {want_calls}")
         found["with_row"] = counts
         return found
@@ -2526,7 +2988,7 @@ def main() -> int:
         check(worst_p <= 1e-6 and worst_s <= 1e-6,
               f"{what} vs predictor: {worst_p} / {worst_s}")
         check("AUC=" in log_text and "Youden point" in log_text, "predict.log")
-        check(cli_counts == want, f"{what} launches {cli_counts} != {want}")
+        check_launches(cli_counts, want, what)
 
     check_predict_cli(
         "predict CLI", run_dir, ROOT / "build" / "chip_smoke_predict", N_CASES,
@@ -3462,7 +3924,7 @@ def main() -> int:
     check(tuple(sk.shape) == (2, DEPTH_SLICES, px442, px442)
           and bool(torch.isfinite(sk).all()), f"C1 saliency {sk.shape}")
     check(d_p <= PROB_TOL and d_s <= SAL_REL, f"C1 saliency: {d_p} / {d_s}")
-    check(counts == want442, f"C1 launches {counts} != {want442}")
+    check_launches(counts, want442, "C1")
     del vols442, pk, sk, pp, sp_
     # their times here, so that the steps of phases 27-30 have the room of
     # these inputs (the ViT-L step's checks peak near 70 GiB)
@@ -3808,8 +4270,8 @@ def main() -> int:
               f"int8 {label} vs plain: {d_p} (gap {gap})")
         check(d_b <= I8_TOL and all(a for a, h in zip(agree, held) if h),
               f"int8 {label} vs bf16: {d_b}, argmax {agree}, held {held}")
-        check(counts == want and calls == want_calls,
-              f"int8 {label} launches {counts} / {calls}")
+        check_launches(counts, want, f"int8 {label}")
+        check(calls == want_calls, f"int8 {label} calls {calls}")
         # the three saliency modes on the int8 blocks vs the plain int8 path
         for mode in PLANE_MODES:
             if mode == "last":
@@ -3834,8 +4296,9 @@ def main() -> int:
             check(bool(torch.isfinite(sk).all()), f"int8 {mode}: non-finite")
             check(d_ps <= PROB_TOL and d_s <= SAL_REL,
                   f"int8 {label} {mode}: {d_ps} / {d_s}")
-            check((counts_s, calls_s) == want_m,
-                  f"int8 {label} {mode} launches {counts_s} / {calls_s}")
+            check_launches(counts_s, want_m[0], f"int8 {label} {mode}")
+            check(calls_s == want_m[1],
+                  f"int8 {label} {mode} calls {calls_s}")
         i8_runs[label] = (mdl, pred8, want)
 
     # `serve --int8 [--int8_calib 8] --run_folder` on phase 9's run folder
@@ -3901,7 +4364,7 @@ def main() -> int:
         check(d_srv <= SERVE_TOL and health["int8"] == (
             "static" if extra else "dynamic") and bp.batches_run == 1,
               f"serve --int8 {extra}: {d_srv}, {health}")
-        check(counts == want, f"serve --int8 launches {counts} != {want}")
+        check_launches(counts, want, "serve --int8")
         if not extra:
             served8_counts = counts
         del smodel
@@ -3939,7 +4402,7 @@ def main() -> int:
           f"{(out8 / 'predict.log').read_text().strip().splitlines()}")
     check(len(rows8) == N_CASES and worst_p <= 1e-6,
           f"predict --int8: {len(rows8)} rows, {worst_p}")
-    check(cli_counts == want, f"predict --int8 launches {cli_counts}")
+    check_launches(cli_counts, want, "predict --int8")
     del qrun, pfn8
 
     # -- 33. giant2 int8, and the int8 times ------------------------------
@@ -3972,8 +4435,8 @@ def main() -> int:
     check(bool(torch.isfinite(pgq).all()) and d_g <= I8_TOL
           and all(a for a, h in zip(agree_g, held_g) if h),
           f"giant2 int8 vs bf16: {d_g}, {agree_g}, held {held_g}")
-    check((fwdg8_counts, callsg8) == want_g,
-          f"giant2 int8 launches {fwdg8_counts} / {callsg8}")
+    check_launches(fwdg8_counts, want_g[0], "giant2 int8")
+    check(callsg8 == want_g[1], f"giant2 int8 calls {callsg8}")
 
     timed_i8 = ("ln_gemm_i8[qkv]", "ln_gemm_i8[qkv,static]",
                 "ln_gemm_i8[fc1,gelu_tanh]", "ln_gemm_i8[fc1,gelu_tanh,static]",
@@ -4241,8 +4704,7 @@ def main() -> int:
           f"{served_long}")
     check(bp.batches_run >= 2 and worst <= SERVE_TOL,
           f"518 px server: {bp.batches_run} batches, {worst}")
-    check(served_long == want, f"518 px server launches {served_long} != "
-          f"{want}")
+    check_launches(served_long, want, "518 px server")
 
     # batch-1 8-flip TTA, and one S = 1601 volume (the Pallas blocked rows'
     # lengths), each against the plain path
@@ -4261,7 +4723,7 @@ def main() -> int:
               f"{err:.6g} (tol {PROB_TOL}); launches {counts}")
         check(bool(torch.isfinite(pk).all()) and err <= PROB_TOL,
               f"{what}: {err}")
-        check(counts == per_fwd_long, f"{what} launches {counts}")
+        check_launches(counts, per_fwd_long, what)
 
     # DINOv3 ViT-S/16 at 512 px (S = 1029; RoPE on q and k in torch ops)
     flat3 = random_flax_params(get_model(MODEL3), SEED)
@@ -4351,8 +4813,7 @@ def main() -> int:
     print(f"{tag} 518 px step with remat: loss {loss_r:.8g} (without "
           f"{loss0:.8g}); bit for bit: {same}; grads vs without: "
           f"{summary(rel_r)}; launches {counts_r}")
-    want_r = {**per_step_long, "flash_fwd": 2 * nl}
-    check(counts_r == want_r, f"remat launches {counts_r} != {want_r}")
+    check_launches(counts_r, {**per_step_long, "flash_fwd": 2 * nl}, "remat")
     check(abs(loss_r - loss0) <= 1e-6 * abs(loss0)
           and max(rel_r.values()) <= 1e-3,
           f"remat moved the step: {loss_r} vs {loss0}, {summary(rel_r)}")
@@ -4385,7 +4846,7 @@ def main() -> int:
           f"{STEP_GRAD_REL}); launches {counts560}")
     check(abs(loss_k - loss_p) <= LONG_LOSS_TOL
           and max(rel560.values()) <= STEP_GRAD_REL, "560 px step")
-    check(counts560 == per_step_long, f"560 px launches {counts560}")
+    check_launches(counts560, per_step_long, "560 px")
     del grads_k, grads_p
 
     # AdamW steps on one batch: the loss falls, and the paths agree
@@ -4462,6 +4923,17 @@ def main() -> int:
     # ======================================================================
     tool_entries = tools_phases(tag, dev)
 
+    # ======================================================================
+    # Phase 40: `ln_gemm` / `ln_gemm_swiglu` redesigned (`ln_rows` + wgmma)
+    # ======================================================================
+    perrs, ptimed, pcost, plib = ln_gemm_phase(tag, dev, fb, _build.lib)
+    errs.update(perrs)
+    # the earlier phases' readings of the same cases stand in the kernels
+    # line; phase 40 adds `ln_rows` and the other widths
+    for mine, theirs in ((cost, pcost), (lib_ms, plib)):
+        for key, val in theirs.items():
+            mine.setdefault(key, val)
+
     # TPU kernels: _attn_any_kernel at fused_block.py:326, _mlp_kernel at
     # :400, their train forwards _attn_train_kernel :424 and
     # _mlp_train_kernel :470, the backwards _attn_bwd_kernel :680 and
@@ -4473,8 +4945,13 @@ def main() -> int:
     bwd_sites = [site(680), site(841)]
     sites = {
         # name: (source, replaces, launches of its main path, timed cases)
+        # `ln_gemm`'s times include its `ln_rows` launch; `ln_rows` (the LN
+        # of every fused-block Pallas body) also stands alone, twice per
+        # ViT-S block
         "ln_gemm": ("ln_gemm", fwd_sites, served_counts,
                     ["ln_gemm[qkv]", "ln_gemm[fc1,gelu_tanh]"]),
+        "ln_rows": ("ln_gemm", fwd_sites + [site(534), site(498)],
+                    served_counts, ["ln_rows[E=384]", "ln_rows[E=384]"]),
         "mhsa": ("mhsa", [site(326), site(424)], served_counts, ["mhsa"]),
         "gemm_residual": ("gemm_residual", fwd_sites, served_counts,
                           ["gemm_residual[proj,ls]", "gemm_residual[fc2,ls]"]),
@@ -4549,6 +5026,8 @@ def main() -> int:
     }
     alltimed = {**timed, **ttimed, **stimed, **rtimed, **gtimed, **utimed,
                 **itimed, **ltimed}
+    for key, val in ptimed.items():
+        alltimed.setdefault(key, val)
     print(f"{tag} bound: the larger of FLOPs / {PEAK_FLOPS:.4g} FLOP/s + "
           f"int8 operations / {PEAK_INT8:.4g} OP/s and bytes / "
           f"{PEAK_BYTES:.4g} B/s (each input read once, each output written "

@@ -1,0 +1,319 @@
+// The Hopper GEMM mainloop: C[BM x BN] tiles of A[M, K] @ B[K, N], bf16 in,
+// f32 accumulators, for `sm_90a`. Used by ln_gemm.cu; the other GEMM
+// kernels of this directory (gemm_residual, gemm_dgrad, gemm_wgrad) can
+// move onto it with an epilogue of their own.
+//
+// Design (one CTA per SM, persistent over the output tiles):
+// - A [M, K] row-major (K-major) and B [K, N] row-major (the flax Dense
+//   layout: N contiguous, so B is MN-major and no transposed copy of the
+//   weights is made) are read by TMA with 128-byte swizzle. A stage holds
+//   one A box [BM rows][BK] and two B boxes [BK rows][64 columns]; the B
+//   boxes start at any two column offsets the caller picks per tile (the
+//   two halves of one 128-column panel, or the h1 and h2 panels of a gated
+//   product).
+// - A ring of STAGES stages with a full and an empty `mbarrier` each. One
+//   producer warp (lane 0) issues the TMA loads, running ahead across
+//   tiles, so the next tile's loads overlap this tile's epilogue.
+// - Two consumer warpgroups, each 64 rows of the tile: per 16-deep k step
+//   one `wgmma.mma_async m64n128k16` from shared memory (A K-major, B
+//   transposed: the `imm-trans-b` bit), one commit group per stage, one
+//   group left in flight, the stage released once its group is done.
+// - No split-K and no atomics: every output is one f32 sum in a fixed
+//   order, so a run repeats bit for bit.
+// The caller's kernel owns the epilogue: it reads the accumulators through
+// `acc_row` / `acc_col` (the m64nNk16 D-fragment layout) after
+// `consumer_tile` returns.
+#pragma once
+
+#include <cuda.h>
+
+#include "common.cuh"
+
+namespace mst {
+namespace sm90 {
+
+constexpr int BM = 128;                       // tile rows
+constexpr int BN = 128;                       // tile columns (two 64-wide B boxes)
+constexpr int BK = 64;                        // k per stage (one 128-byte swizzle row)
+constexpr int STAGES = 5;                     // ring depth
+constexpr int CONSUMERS = 2;                  // consumer warpgroups, 64 rows each
+constexpr int THREADS = CONSUMERS * 128 + 32;  // + one producer warp
+constexpr int A_BYTES = BM * BK * 2;          // 16 KB
+constexpr int B_BOX = BK * 64 * 2;            // 8 KB, [BK rows][64 columns]
+constexpr int STAGE_BYTES = A_BYTES + 2 * B_BOX;
+constexpr int ACC = BN / 2;                   // f32 accumulators per thread
+constexpr int EPI_LD = BN + 8;                // epilogue staging stride (bf16)
+constexpr int EPI_BYTES = 64 * EPI_LD * 2;    // one warpgroup's staging tile
+// TMA and wgmma want the swizzled tiles at 1024-byte boundaries; the
+// dynamic shared memory base is aligned up to one in the kernel.
+constexpr size_t SMEM_BYTES =
+    1024 + size_t(STAGES) * STAGE_BYTES + CONSUMERS * EPI_BYTES + 2 * STAGES * 8;
+
+// ---- PTX wrappers --------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Block until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_%=;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// 2D TMA load of the box at (c0 inner, c1 outer) into shared memory,
+// completing `bytes` on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled tile: start
+// address, leading and stride byte offsets (16-byte units), layout 1 (B128).
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t((smem_u32(p) & 0x3FFFF) >> 4)) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
+         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma (it sees no dependence through the wait).
+__device__ __forceinline__ void fence_acc(float (&d)[ACC]) {
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 128] += A[64 x 16] . B[16 x 128]; A K-major, B MN-major.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[ACC], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// ---- the D-fragment layout of m64nNk16 -----------------------------------
+// Thread t of a warpgroup holds d[i] at row 16 * (t / 32) + (t % 32) / 4 +
+// 8 * ((i / 2) % 2) and column 8 * (i / 4) + 2 * (t % 4) + i % 2.
+
+__device__ __forceinline__ int acc_row(int t, int i) {
+  return 16 * (t >> 5) + ((t & 31) >> 2) + 8 * ((i >> 1) & 1);
+}
+__device__ __forceinline__ int acc_col(int t, int i) {
+  return 8 * (i >> 2) + 2 * (t & 3) + (i & 1);
+}
+
+// ---- shared memory -------------------------------------------------------
+
+struct Smem {
+  unsigned char* stage;  // [STAGES][A | B box 0 | B box 1]
+  bf16* epi;             // [CONSUMERS][64][EPI_LD]
+  uint64_t* full;        // [STAGES]
+  uint64_t* empty;       // [STAGES]
+};
+
+__device__ __forceinline__ Smem carve(unsigned char* raw) {
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+  Smem s;
+  s.stage = base;
+  s.epi = reinterpret_cast<bf16*>(base + size_t(STAGES) * STAGE_BYTES);
+  s.full = reinterpret_cast<uint64_t*>(base + size_t(STAGES) * STAGE_BYTES +
+                                       CONSUMERS * EPI_BYTES);
+  s.empty = s.full + STAGES;
+  return s;
+}
+
+// Thread 0 initialises the barriers; every thread must then sync.
+__device__ __forceinline__ void init_barriers(const Smem& s) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&s.full[i], 1);                   // the producer's expect_tx
+      mbar_init(&s.empty[i], CONSUMERS * 4);      // one arrive per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+}
+
+// ---- the two roles -------------------------------------------------------
+
+// The producer (lane 0 of the producer warp): the k tiles of every output
+// tile this CTA owns, in the consumers' order. `col0(t)` / `col1(t)` give the
+// first column of the two B boxes of tile column t.
+template <class Col0, class Col1>
+__device__ __forceinline__ void producer(const Smem& s, const CUtensorMap* ta,
+                                         const CUtensorMap* tb, int tiles, int tiles_n, int nk,
+                                         Col0 col0, Col1 col1) {
+  tma_prefetch(ta);
+  tma_prefetch(tb);
+  uint32_t it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = (tile / tiles_n) * BM;
+    const int tn = tile % tiles_n;
+    const int c0 = col0(tn), c1 = col1(tn);
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int st = it % STAGES;
+      mbar_wait(&s.empty[st], ((it / STAGES) & 1) ^ 1);
+      unsigned char* dst = s.stage + size_t(st) * STAGE_BYTES;
+      mbar_expect_tx(&s.full[st], STAGE_BYTES);
+      tma_load_2d(dst, ta, kt * BK, m0, &s.full[st]);
+      tma_load_2d(dst + A_BYTES, tb, c0, kt * BK, &s.full[st]);
+      tma_load_2d(dst + A_BYTES + B_BOX, tb, c1, kt * BK, &s.full[st]);
+    }
+  }
+}
+
+// One consumer warpgroup's product for one tile: d = A[m0 + 64 wg ..][:] .
+// B[:, the tile's two boxes], ring counter `it` advanced past the tile.
+__device__ __forceinline__ void consumer_tile(const Smem& s, int wg, int nk, uint32_t& it,
+                                              float (&d)[ACC]) {
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) d[i] = 0.0f;
+  fence_acc(d);
+  const int lane = threadIdx.x & 31;
+  int prev = -1;
+  for (int kt = 0; kt < nk; ++kt, ++it) {
+    const int st = it % STAGES;
+    mbar_wait(&s.full[st], (it / STAGES) & 1);
+    const unsigned char* a = s.stage + size_t(st) * STAGE_BYTES + wg * (64 * BK * 2);
+    const unsigned char* b = s.stage + size_t(st) * STAGE_BYTES + A_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      // A: K-major rows of 128 bytes, 8-row groups 1024 bytes apart; a
+      // 16-deep k step is 32 bytes along the row. B: MN-major, the two
+      // 64-column boxes 8 KB apart (LBO), 8-row k groups 1024 bytes apart
+      // (SBO); a k step is 16 rows.
+      wgmma_m64n128k16(d, smem_desc(a + kk * 32, 16, 1024),
+                       smem_desc(b + kk * 16 * 128, B_BOX, 1024));
+    }
+    wgmma_commit();
+    if (prev >= 0) {
+      wgmma_wait<1>();
+      if (lane == 0) mbar_arrive(&s.empty[prev]);
+    }
+    prev = st;
+  }
+  wgmma_wait<0>();
+  if (lane == 0) mbar_arrive(&s.empty[prev]);
+  fence_acc(d);
+}
+
+// Sync the 128 threads of consumer warpgroup wg (named barrier 1 + wg).
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// ---- host side -----------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (so
+// the library links no -lcuda); NULL if the driver has none.
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess) ? reinterpret_cast<EncodeTiled>(p)
+                                                                  : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of a row-major bf16 [rows, cols] matrix read in boxes of
+// [box_rows][box_cols] with 128-byte swizzle (box_cols * 2 <= 128); rows
+// past the end read as zeros.
+inline cudaError_t tma_map_2d(CUtensorMap* map, const void* ptr, uint64_t rows, uint64_t cols,
+                              uint32_t box_rows, uint32_t box_cols) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * 2};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The persistent grid: one CTA per SM, or one per tile if there are fewer.
+inline cudaError_t persistent_grid(int tiles, int* grid) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  *grid = tiles < sms ? tiles : sms;
+  return cudaSuccess;
+}
+
+}  // namespace sm90
+}  // namespace mst

@@ -1,291 +1,307 @@
-// ln_gemm: out[M, N] = act(LN(x)[M, K] @ W[K, N] + b[N]), bf16 in and out.
+// ln_gemm: out[M, N] = act(LN(x)[M, K] @ W[K, N] + b[N]), bf16 in and out,
+// as two kernels: `ln_rows` (LN once per row, h = bf16(LN(x)) [M, K]), then
+// a TMA + wgmma GEMM on h (`gemm_sm90.cuh`) with the bias / activation /
+// SiLU-gate epilogue.
 //
 // Replaces the first half of six Pallas kernels in
 // mst_tpu/ops/fused_block.py: the LN + qkv projection of `_attn_any_kernel`
-// and `_attn_train_kernel` (act = none), the LN + fc1 + GELU of
-// `_mlp_kernel` and `_mlp_train_kernel` (act = gelu tanh or exact erf), and
-// the LN + w12 + SiLU gate of `_swiglu_kernel` and `_swiglu_train_kernel`
-// (the gated mode below).
+// (:326) and `_attn_train_kernel` (:424) (act = none), the LN + fc1 + GELU
+// of `_mlp_kernel` (:400) and `_mlp_train_kernel` (:470) (act = gelu tanh or
+// exact erf), and the LN + w12 + SiLU gate of `_swiglu_kernel` (:534) and
+// `_swiglu_train_kernel` (:498) (the gated mode below). Those bodies
+// normalise the slice in VMEM and feed the MXU from there; on the H100 the
+// normalised rows make one round trip through device memory instead.
 // Rounding follows the Pallas bodies: LN statistics and the normalised row
 // in f32, the row cast to bf16 before the product, f32 accumulation, bias
 // and activation in f32, one cast to bf16 at the end (serving).
 //
-// Train mode (two optional outputs, NULL when serving): `h_out` [M, K]
-// receives the normalised bf16 row the product used, which the backward
-// needs for dW (the blocks of the first column tile write it from shared
-// memory, so it costs one store and no recompute); with `out2` [M, N] set,
-// `out` receives the pre-activation rounded to bf16 and `out2` the GELU of
-// that ROUNDED value, as `_mlp_train_kernel` computes it (the serving body
-// takes the GELU of the f32 value).
+// Train mode (`out2` set, or `h12` for the gated form): the wrapper keeps h,
+// which the backward needs for dW; `out` receives the pre-activation rounded
+// to bf16 and `out2` the GELU of that ROUNDED value, as `_mlp_train_kernel`
+// computes it (the serving body takes the GELU of the f32 value).
 //
-// Gated mode (`GATED`, entry point `mst_ln_gemm_swiglu`): W is w12 [K, 2F]
-// and out is g [M, F] = bf16(silu(h1) * h2), h12 = LN(x) @ w12 + b12 in f32,
-// h1 its first F columns, h2 its last F. A block owns 64 output columns n0..
-// n0+63: its 128-column W stage holds columns [n0, n0+64) of w12 (h1) in its
-// left half and [F+n0, F+n0+64) (h2) in its right half, so warps wn = 0-1
-// accumulate h1 and wn = 2-3 h2 for the same 64 columns, and the epilogue
-// pairs column c of the f32 tile with column c + 64. The shared-memory
-// layout is the ungated one (215 KB at K = 1536, one block per SM); two
-// separate 128-wide W stages would reach the 227 KB ceiling. The gate runs
-// on the f32 h12 with an accurate expf, as `_swiglu_kernel` does (the XLA
-// reference `_swiglu_ref` rounds h12 to bf16 first).
+// Gated mode (`mst_gemm_swiglu`): W is w12 [K, 2F] and out is g [M, F] =
+// bf16(silu(h1) * h2), h12 = h @ w12 + b12 in f32, h1 its first F columns,
+// h2 its last F. A tile owns 64 output columns n0..n0+63: its two B boxes
+// are columns [n0, n0+64) of w12 (h1) and [F+n0, F+n0+64) (h2), so the
+// m64n128 accumulators hold h1 at tile column c and h2 at c + 64, which the
+// D-fragment layout gives to the same thread (d[i] and d[i + 32]): the gate
+// runs in registers. It takes the f32 h12 with an accurate expf, as
+// `_swiglu_kernel` does (the XLA reference `_swiglu_ref` rounds h12 to bf16
+// first). Gated train mode (`_swiglu_train_kernel`, queue B row 6): `h12`
+// [M, 2F] receives the pre-gate rounded to bf16 (h1 at column c, h2 at
+// F + c), and the gate runs on that ROUNDED h12, so that the forward agrees
+// bit for bit with what its backward reads.
 //
-// Gated train mode (`_swiglu_train_kernel`, queue B row 6): with `h_out`
-// and `out2` set, `h_out` receives the bf16 LN(x) as in the ungated train
-// mode, `out2` = h12 [M, 2F] the pre-gate rounded to bf16 (h1 at column c,
-// h2 at F + c), and the gate g runs on that ROUNDED h12 upcast to f32, as
-// `_swiglu_train_kernel` computes it, so that the forward agrees bit for bit
-// with what its backward reads. Shared memory is the gated layout; only the
-// epilogue's stores grow.
-//
-// Bound on the H100: at the ViT-S path shapes (M = 65,792 tokens, K = 384,
-// N = 1152 or 1536) the product is ~58-78 GFLOP against ~130-250 MB of
-// traffic; at giant2's w12 (K = 1536, 2F = 8192) 1.66 TFLOP against
-// ~0.77 GB. Both are compute bound on the tensor cores. The TPU kernel kept
-// the whole [S, E] slice and the weights in VMEM; here one block owns a
-// 64-row tile: it normalises the whole K-wide row tile once into shared
-// memory (64 x K bf16, 49 KB at K = 384), so LN costs no extra pass over
-// device memory, and streams W in 32 x 128 chunks through a cp.async double
-// buffer. The product runs on bf16 WMMA fragments (16x16x16, f32
-// accumulators); the epilogue goes through shared memory so that bias,
-// activation and the 16-byte stores see plain row-major data. WGMMA/TMA are
-// left for a later tuning pass.
-#include "common.cuh"
+// Bound on the H100: `ln_rows` moves 2 * M * K * 2 bytes (0.12 ms at
+// giant2's M = 65,792, K = 1536). The product is compute bound on the
+// tensor cores: ~58-78 GFLOP at ViT-S's qkv / fc1 (K = 384), 1.66 TFLOP at
+// giant2's w12 (K = 1536, 2F = 8192). The GEMM's design (persistent CTAs,
+// a 5-stage TMA ring, two wgmma consumer warpgroups, 128 x 128 tiles) is in
+// gemm_sm90.cuh; its epilogue stages each warpgroup's bf16 tile in shared
+// memory so that the stores are 16 bytes wide, masked by row (TMA reads
+// the rows past M as zeros).
+#include "gemm_sm90.cuh"
 
 namespace mst {
 namespace {
 
-constexpr int BM = 64;        // rows per block
-constexpr int BN = 128;       // output columns per block
-constexpr int BK = 32;        // W rows per pipeline stage
-constexpr int THREADS = 256;  // 8 warps as 2 (rows) x 4 (cols), 32x32 each
-constexpr int LDB = BN + 8;   // padded W stage stride (bf16)
-constexpr int LDC = BN + 4;   // padded f32 epilogue stride
+// ---- ln_rows -------------------------------------------------------------
 
-__host__ __device__ inline size_t a_region_bytes(int K) {
-  const size_t a = size_t(BM) * (K + 8) * sizeof(bf16);
-  const size_t c = size_t(BM) * LDC * sizeof(float);
-  return a > c ? a : c;
-}
+constexpr int LN_ROWS = 8;  // rows (warps) per block
 
-__host__ __device__ inline size_t smem_bytes(int K) {
-  return a_region_bytes(K) + size_t(2) * BK * LDB * sizeof(bf16);
-}
-
-// GATED: N is F (the width of out), w has 2N columns (see the file note).
-template <bool GATED>
-__global__ void __launch_bounds__(THREADS)
-ln_gemm_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
-               const float* __restrict__ ln_b, const bf16* __restrict__ w,
-               const float* __restrict__ bias, bf16* __restrict__ out,
-               bf16* __restrict__ h_out, bf16* __restrict__ out2, int M, int K,
-               int N, float eps, int act) {
-  constexpr int BN_OUT = GATED ? BN / 2 : BN;  // output columns per block
-  const int ldw = GATED ? 2 * N : N;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int lda = K + 8;
-  bf16* As = reinterpret_cast<bf16*>(smem);                      // [BM][lda]
-  float* Cs = reinterpret_cast<float*>(smem);                    // aliases As
-  bf16* Bs = reinterpret_cast<bf16*>(smem + a_region_bytes(K));  // [2][BK][LDB]
-
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN_OUT;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-
-  auto load_b = [&](int kt, int buf) {
-    bf16* dst = Bs + buf * BK * LDB;
-    const bf16* src = w + size_t(kt) * BK * ldw;
-    for (int c = tid; c < BK * (BN / 8); c += THREADS) {
-      const int r = c / (BN / 8);
-      const int col = (c % (BN / 8)) * 8;
-      // gated: the right half of the stage comes from the h2 columns
-      const int wcol = (GATED && col >= BN / 2) ? N + n0 + col - BN / 2 : n0 + col;
-      cp_async16(dst + r * LDB + col, src + size_t(r) * ldw + wcol, 16);
-    }
-  };
-
-  // First W stage in flight while the LN prologue runs.
-  load_b(0, 0);
-  cp_async_commit();
-
-  // LN prologue: one warp per row, two-pass mean / variance in f32.
-  for (int r = warp; r < BM; r += THREADS / 32) {
-    const int m = m0 + r;
-    bf16* arow = As + r * lda;
-    if (m >= M) {
-      for (int k = lane; k < K; k += 32) arow[k] = __float2bfloat16(0.0f);
-      continue;
-    }
-    const bf16* xrow = x + size_t(m) * K;
-    float sum = 0.0f;
-    for (int k = lane; k < K; k += 32) sum += __bfloat162float(xrow[k]);
+// One warp per row: the row's 16-byte chunks stay in registers (at most CH
+// per lane), so x is read once; mean, then the variance of the centred
+// values, in f32.
+template <int CH>
+__global__ void __launch_bounds__(32 * LN_ROWS)
+ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
+               const float* __restrict__ ln_b, bf16* __restrict__ h, int M, int K, float eps) {
+  const int lane = threadIdx.x & 31;
+  const int m = blockIdx.x * LN_ROWS + (threadIdx.x >> 5);
+  if (m >= M) return;
+  const int nc = K / 8;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + size_t(m) * K);
+  uint4 v[CH];
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    const float mean = sum / K;
-    float sq = 0.0f;
-    for (int k = lane; k < K; k += 32) {
-      const float d = __bfloat162float(xrow[k]) - mean;
-      sq += d * d;
+  for (int i = 0; i < CH; ++i)
+    if (lane + 32 * i < nc) v[i] = __ldg(xr + lane + 32 * i);
+  float f[8], sum = 0.0f;
+#pragma unroll
+  for (int i = 0; i < CH; ++i)
+    if (lane + 32 * i < nc) {
+      unpack8_bf16(v[i], f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sum += f[e];
     }
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
-    const float rstd = rsqrtf(sq / K + eps);
-    for (int k = lane; k < K; k += 32) {
-      const float v = (__bfloat162float(xrow[k]) - mean) * rstd * ln_s[k] + ln_b[k];
-      arow[k] = __float2bfloat16(v);
-    }
-  }
-  __syncthreads();
-  if (h_out != nullptr && blockIdx.x == 0) {
-    for (int c = tid; c < BM * (K / 8); c += THREADS) {
-      const int r = c / (K / 8), col = (c % (K / 8)) * 8;
-      if (m0 + r < M)
-        *reinterpret_cast<uint4*>(h_out + size_t(m0 + r) * K + col) =
-            *reinterpret_cast<const uint4*>(As + r * lda + col);
-    }
-  }
-
-  const int wm = warp >> 2;  // 0..1
-  const int wn = warp & 3;   // 0..3
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+  const float mean = sum / K;
+  float sq = 0.0f;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int nk = K / BK;
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) load_b(kt + 1, (kt + 1) & 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* Bst = Bs + (kt & 1) * BK * LDB;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], As + (wm * 32 + i * 16) * lda + kt * BK + kk, lda);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], Bst + kk * LDB + wn * 32 + j * 16, LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // Epilogue through shared memory (the A tile is dead now).
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16,
-                              acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
-  if constexpr (GATED) {
-    for (int g = tid; g < BM * (BN_OUT / 8); g += THREADS) {
-      const int r = g / (BN_OUT / 8);
-      const int c = (g % (BN_OUT / 8)) * 8;
-      const int m = m0 + r;
-      if (m >= M) continue;
-      float h1[8], h2[8], v[8];
+  for (int i = 0; i < CH; ++i)
+    if (lane + 32 * i < nc) {
+      unpack8_bf16(v[i], f);
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        h1[e] = Cs[r * LDC + c + e] + bias[n0 + c + e];
-        h2[e] = Cs[r * LDC + BN_OUT + c + e] + bias[N + n0 + c + e];
+        const float d = f[e] - mean;
+        sq += d * d;
       }
-      if (out2 != nullptr) {  // train: h12 rounded, the gate from it
-        const uint4 p1 = pack8_bf16(h1), p2 = pack8_bf16(h2);
-        bf16* hrow = out2 + size_t(m) * 2 * N + n0 + c;
-        *reinterpret_cast<uint4*>(hrow) = p1;
-        *reinterpret_cast<uint4*>(hrow + N) = p2;
-        unpack8_bf16(p1, h1);
-        unpack8_bf16(p2, h2);
-      }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = h1[e] * (1.0f / (1.0f + expf(-h1[e]))) * h2[e];
-      *reinterpret_cast<uint4*>(out + size_t(m) * N + n0 + c) = pack8_bf16(v);
     }
-  } else {
-    for (int g = tid; g < BM * (BN / 8); g += THREADS) {
-      const int r = g / (BN / 8);
-      const int c = (g % (BN / 8)) * 8;
-      const int m = m0 + r;
-      if (m >= M) continue;
-      float v[8];
-      const size_t off = size_t(m) * N + n0 + c;
-      if (out2 == nullptr) {
 #pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = apply_act(Cs[r * LDC + c + e] + bias[n0 + c + e], act);
-        *reinterpret_cast<uint4*>(out + off) = pack8_bf16(v);
-      } else {
+  for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
+  const float rstd = rsqrtf(sq / K + eps);
+  uint4* hr = reinterpret_cast<uint4*>(h + size_t(m) * K);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = Cs[r * LDC + c + e] + bias[n0 + c + e];
-        const uint4 pre = pack8_bf16(v);
-        *reinterpret_cast<uint4*>(out + off) = pre;
-        unpack8_bf16(pre, v);
+  for (int i = 0; i < CH; ++i) {
+    const int c = lane + 32 * i;
+    if (c < nc) {
+      float s[8], b[8];
+      unpack8_bf16(v[i], f);
+      *reinterpret_cast<float4*>(s) = __ldg(reinterpret_cast<const float4*>(ln_s + 8 * c));
+      *reinterpret_cast<float4*>(s + 4) = __ldg(reinterpret_cast<const float4*>(ln_s + 8 * c + 4));
+      *reinterpret_cast<float4*>(b) = __ldg(reinterpret_cast<const float4*>(ln_b + 8 * c));
+      *reinterpret_cast<float4*>(b + 4) = __ldg(reinterpret_cast<const float4*>(ln_b + 8 * c + 4));
 #pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = apply_act(v[e], act);
-        *reinterpret_cast<uint4*>(out2 + off) = pack8_bf16(v);
-      }
+      for (int e = 0; e < 8; ++e) f[e] = (f[e] - mean) * rstd * s[e] + b[e];
+      hr[c] = pack8_bf16(f);
     }
   }
+}
+
+template <int CH>
+cudaError_t launch_ln_rows(const void* x, const void* ln_s, const void* ln_b, void* h, int M,
+                           int K, float eps, cudaStream_t st) {
+  ln_rows_kernel<CH><<<(M + LN_ROWS - 1) / LN_ROWS, 32 * LN_ROWS, 0, st>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
+      static_cast<const float*>(ln_b), static_cast<bf16*>(h), M, K, eps);
+  return cudaGetLastError();
+}
+
+// ---- the GEMM and its epilogues -----------------------------------------
+
+using namespace sm90;
+
+// Stage this thread's values v[i] of accumulators i < 4 * JN (JN column
+// groups of 8), rounded to bf16, into the warpgroup's [64][EPI_LD] tile.
+template <int JN>
+__device__ __forceinline__ void stage(bf16* epi, int t, const float (&v)[ACC]) {
+#pragma unroll
+  for (int i = 0; i < 4 * JN; i += 2)
+    *reinterpret_cast<__nv_bfloat162*>(epi + acc_row(t, i) * EPI_LD + acc_col(t, i)) =
+        __floats2bfloat162_rn(v[i], v[i + 1]);
+}
+
+// Store the staged [64][8 * CH] tile: row r to dst row m0 + r (if < M),
+// the 16-byte chunk at tile column c to dst column col(c).
+template <int CH, class Col>
+__device__ __forceinline__ void store(const bf16* epi, int t, bf16* __restrict__ dst, int ld,
+                                      int m0, int M, Col col) {
+#pragma unroll
+  for (int g = t; g < 64 * CH; g += 128) {
+    const int r = g / CH, c = (g % CH) * 8;
+    if (m0 + r < M)
+      *reinterpret_cast<uint4*>(dst + size_t(m0 + r) * ld + col(c)) =
+          *reinterpret_cast<const uint4*>(epi + r * EPI_LD + c);
+  }
+}
+
+// GATED: N is F (the width of out), w has 2N columns (see the file note);
+// ACT: the activation of the ungated form.
+template <bool GATED, int ACT>
+__global__ void __launch_bounds__(THREADS, 1)
+gemm_ln_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+               const float* __restrict__ bias, bf16* __restrict__ out, bf16* __restrict__ out2,
+               int M, int K, int N) {
+  extern __shared__ unsigned char smem_raw[];
+  const Smem s = carve(smem_raw);
+  init_barriers(s);
+  __syncthreads();
+  constexpr int BN_OUT = GATED ? BN / 2 : BN;  // output columns per tile
+  const int tiles_n = N / BN_OUT;
+  const int tiles = ((M + BM - 1) / BM) * tiles_n;
+  const int nk = K / BK;
+  if (threadIdx.x >= CONSUMERS * 128) {  // the producer warp
+    if (threadIdx.x == CONSUMERS * 128)
+      producer(
+          s, &ta, &tb, tiles, tiles_n, nk, [=](int tn) { return tn * BN_OUT; },
+          [=](int tn) { return GATED ? N + tn * BN_OUT : tn * BN_OUT + 64; });
+    return;
+  }
+  const int wg = threadIdx.x >> 7;
+  const int t = threadIdx.x & 127;
+  bf16* epi = s.epi + wg * 64 * EPI_LD;
+  uint32_t it = 0;
+  float d[ACC];
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    consumer_tile(s, wg, nk, it, d);
+    const int m0 = (tile / tiles_n) * BM + 64 * wg;
+    const int n0 = (tile % tiles_n) * BN_OUT;
+    // tile column c -> column of W (and of h12): the gated tile's right
+    // half is the h2 panel
+    auto wcol = [=](int c) { return GATED && c >= 64 ? N + n0 + c - 64 : n0 + c; };
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) d[i] += __ldg(bias + wcol(acc_col(t, i)));
+    wg_sync(wg);  // the previous tile's stores have read the staging tile
+    // train (out2 set): the pre-activation (gated: h12, to out2) is stored
+    // rounded, and the activation (gate) runs on the rounded value
+    if (out2 != nullptr) {
+      stage<16>(epi, t, d);
+      wg_sync(wg);
+      store<16>(epi, t, GATED ? out2 : out, GATED ? 2 * N : N, m0, M, wcol);
+      wg_sync(wg);
+#pragma unroll
+      for (int i = 0; i < ACC; ++i) d[i] = round_bf16(d[i]);
+    }
+    if constexpr (GATED) {  // h1 in d[i], h2 in d[i + ACC / 2]
+#pragma unroll
+      for (int i = 0; i < ACC / 2; ++i)
+        d[i] = d[i] * (1.0f / (1.0f + expf(-d[i]))) * d[i + ACC / 2];
+      stage<8>(epi, t, d);
+      wg_sync(wg);
+      store<8>(epi, t, out, N, m0, M, [=](int c) { return n0 + c; });
+    } else {
+#pragma unroll
+      for (int i = 0; i < ACC; ++i) d[i] = apply_act(d[i], ACT);
+      stage<16>(epi, t, d);
+      wg_sync(wg);
+      store<16>(epi, t, out2 != nullptr ? out2 : out, N, m0, M, wcol);
+    }
+  }
+}
+
+// Output tiles of h [M, K] -> N (gated: N = F, 64 output columns a tile).
+inline int gemm_tiles(int M, int N, bool gated) {
+  return ((M + BM - 1) / BM) * (N / (gated ? BN / 2 : BN));
+}
+
+template <bool GATED, int ACT>
+cudaError_t launch_gemm(const void* h, const void* w, const void* bias, void* out, void* out2,
+                        int M, int K, int N, cudaStream_t st) {
+  const int wcols = GATED ? 2 * N : N;
+  CUtensorMap ta, tb;
+  cudaError_t err = tma_map_2d(&ta, h, M, K, BM, BK);
+  if (err == cudaSuccess) err = tma_map_2d(&tb, w, K, wcols, BK, 64);
+  int grid = 0;
+  if (err == cudaSuccess) err = persistent_grid(gemm_tiles(M, N, GATED), &grid);
+  if (err == cudaSuccess) err = allow_smem(gemm_ln_kernel<GATED, ACT>, SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  gemm_ln_kernel<GATED, ACT><<<grid, THREADS, SMEM_BYTES, st>>>(
+      ta, tb, static_cast<const float*>(bias), static_cast<bf16*>(out), static_cast<bf16*>(out2),
+      M, K, N);
+  return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace mst
 
-// x [M, K] bf16, ln_s / ln_b [K] f32, w [K, N] bf16 (row-major, the flax
-// Dense layout), bias [N] f32 -> out [M, N] bf16; h_out [M, K] and out2
-// [M, N] bf16 or NULL (train mode, above). Needs K % 32 == 0, K <= 1536 and
-// N % 128 == 0 (checked by the Python wrapper as well).
-extern "C" int mst_ln_gemm(const void* x, const void* ln_s, const void* ln_b,
-                           const void* w, const void* bias, void* out,
-                           void* h_out, void* out2, int M, int K, int N,
-                           float eps, int act, void* stream) {
+// x [M, K] bf16, ln_s / ln_b [K] f32 -> h [M, K] bf16 = bf16(LN(x)). Needs
+// K % 8 == 0 and K <= 4096.
+extern "C" int mst_ln_rows(const void* x, const void* ln_s, const void* ln_b, void* h, int M,
+                           int K, float eps, void* stream) {
   using namespace mst;
-  if (M <= 0 || K % BK != 0 || K > 1536 || N % BN != 0 || (M + BM - 1) / BM > 65535)
-    return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(K);
-  cudaError_t err = allow_smem(ln_gemm_kernel<false>, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(N / BN, (M + BM - 1) / BM);
-  ln_gemm_kernel<false><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
-      static_cast<const float*>(ln_b), static_cast<const bf16*>(w),
-      static_cast<const float*>(bias), static_cast<bf16*>(out),
-      static_cast<bf16*>(h_out), static_cast<bf16*>(out2), M, K, N, eps, act);
-  return cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int per_lane = (K / 8 + 31) / 32;  // 16-byte chunks per lane
+  if (M <= 0 || K <= 0 || K % 8 != 0) return cudaErrorInvalidValue;
+  if (per_lane <= 2) return launch_ln_rows<2>(x, ln_s, ln_b, h, M, K, eps, st);
+  if (per_lane <= 4) return launch_ln_rows<4>(x, ln_s, ln_b, h, M, K, eps, st);
+  if (per_lane <= 6) return launch_ln_rows<6>(x, ln_s, ln_b, h, M, K, eps, st);
+  if (per_lane <= 8) return launch_ln_rows<8>(x, ln_s, ln_b, h, M, K, eps, st);
+  if (per_lane <= 16) return launch_ln_rows<16>(x, ln_s, ln_b, h, M, K, eps, st);
+  return cudaErrorInvalidValue;
 }
 
-// The gated mode: x [M, K] bf16, ln_s / ln_b [K] f32, w12 [K, 2F] bf16,
-// b12 [2F] f32 -> g [M, F] bf16 = bf16(silu(h1) * h2); h_out [M, K] and h12
-// [M, 2F] bf16, both or neither: the train mode (above). Needs K % 32 == 0,
-// K <= 1536 and F % 64 == 0 (checked by the Python wrapper as well).
-extern "C" int mst_ln_gemm_swiglu(const void* x, const void* ln_s, const void* ln_b,
-                                  const void* w12, const void* b12, void* out,
-                                  void* h_out, void* h12, int M, int K, int F, float eps,
-                                  void* stream) {
+// h [M, K] bf16 (the normalised rows), w [K, N] bf16 (row-major, the flax
+// Dense layout), bias [N] f32 -> out [M, N] bf16 = act(h @ w + bias); with
+// out2 [M, N] set, the train mode (above). Needs K % 64 == 0 and
+// N % 128 == 0 (checked by the Python wrapper as well).
+extern "C" int mst_gemm_act(const void* h, const void* w, const void* bias, void* out, void* out2,
+                            int M, int K, int N, int act, void* stream) {
   using namespace mst;
-  if (M <= 0 || K % BK != 0 || K > 1536 || F <= 0 || F % (BN / 2) != 0 ||
-      (M + BM - 1) / BM > 65535 || (h_out == nullptr) != (h12 == nullptr))
+  if (M <= 0 || K <= 0 || N <= 0 || K % sm90::BK != 0 || N % sm90::BN != 0)
     return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(K);
-  cudaError_t err = allow_smem(ln_gemm_kernel<true>, smem);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (act) {
+    case ACT_NONE: return launch_gemm<false, ACT_NONE>(h, w, bias, out, out2, M, K, N, st);
+    case ACT_GELU_TANH:
+      return launch_gemm<false, ACT_GELU_TANH>(h, w, bias, out, out2, M, K, N, st);
+    case ACT_GELU_ERF:
+      return launch_gemm<false, ACT_GELU_ERF>(h, w, bias, out, out2, M, K, N, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The gated mode: h [M, K] bf16, w12 [K, 2F] bf16, b12 [2F] f32 -> g [M, F]
+// bf16 = bf16(silu(h1) * h2); h12 [M, 2F] bf16 or NULL: the train mode
+// (above). Needs K % 64 == 0 and F % 64 == 0 (checked by the Python wrapper
+// as well).
+extern "C" int mst_gemm_swiglu(const void* h, const void* w12, const void* b12, void* out,
+                               void* h12, int M, int K, int F, void* stream) {
+  using namespace mst;
+  if (M <= 0 || K <= 0 || F <= 0 || K % sm90::BK != 0 || F % (sm90::BN / 2) != 0)
+    return cudaErrorInvalidValue;
+  return launch_gemm<true, ACT_NONE>(h, w12, b12, out, h12, M, K, F,
+                                     static_cast<cudaStream_t>(stream));
+}
+
+// The GEMM's launch geometry for h [M, K] -> N (gated: N = F) on the
+// current device: geo = {tiles, grid, threads, stages, dynamic shared
+// memory bytes}, as `launch_gemm` sets them (`fused_block.ln_gemm_launch`
+// mirrors it). The shapes the GEMM refuses return cudaErrorInvalidValue.
+extern "C" int mst_gemm_geometry(int M, int K, int N, int gated, int* geo) {
+  using namespace mst::sm90;
+  if (M <= 0 || K <= 0 || N <= 0 || K % BK != 0 || N % (gated ? BN / 2 : BN) != 0)
+    return cudaErrorInvalidValue;
+  const int tiles = mst::gemm_tiles(M, N, gated != 0);
+  int grid = 0;
+  const cudaError_t err = persistent_grid(tiles, &grid);
   if (err != cudaSuccess) return err;
-  dim3 grid(F / (BN / 2), (M + BM - 1) / BM);
-  ln_gemm_kernel<true><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
-      static_cast<const float*>(ln_b), static_cast<const bf16*>(w12),
-      static_cast<const float*>(b12), static_cast<bf16*>(out), static_cast<bf16*>(h_out),
-      static_cast<bf16*>(h12), M, K, F, eps, ACT_NONE);
-  return cudaGetLastError();
+  geo[0] = tiles;
+  geo[1] = grid;
+  geo[2] = THREADS;
+  geo[3] = STAGES;
+  geo[4] = static_cast<int>(SMEM_BYTES);
+  return cudaSuccess;
 }
 
 // Readable name of a CUDA error code returned by the entry points above.

@@ -28,7 +28,8 @@
 // N = 1152 or 1536) 58-78 G int8 operations against 0.3-0.7 GB moved (the
 // f32 GELU output dominates); giant2's w12 (K = 1536, 2F = 8192) 1.66 T
 // operations against 1.3 GB. The int8 products are bound by operations at
-// 1,979 TOP/s, the f32 outputs by bytes. The design is `ln_gemm`'s: one
+// 1,979 TOP/s, the f32 outputs by bytes. The design is the one bf16
+// `ln_gemm` had before its `ln_rows` + wgmma form (gemm_sm90.cuh): one
 // block owns a 64-row tile and normalises and quantizes its whole K-wide row
 // tile once into shared memory (64 x K int8 codes, 96 KB at K = 1536, half
 // of the bf16 tile), then streams W8 in 64 x 128 chunks through a cp.async

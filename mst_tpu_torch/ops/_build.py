@@ -32,13 +32,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # x, ln_s, ln_b, w, bias, out, h_out|NULL, out2|NULL, M, K, N, eps, act,
-    # stream
-    "mst_ln_gemm": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
-    # x, ln_s, ln_b, w12, b12, out, h_out|NULL, h12|NULL, M, K, F, eps,
-    # stream
-    "mst_ln_gemm_swiglu": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
-                           _P),
+    # x, ln_s, ln_b, h, M, K, eps, stream
+    "mst_ln_rows": (_P, _P, _P, _P, _I, _I, _F, _P),
+    # h, w, bias, out, out2|NULL, M, K, N, act, stream
+    "mst_gemm_act": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # h, w12, b12, out, h12|NULL, M, K, F, stream
+    "mst_gemm_swiglu": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # M, K, N, gated, geo (host int32 [5])
+    "mst_gemm_geometry": (_I, _I, _I, _I, _P),
     # a, w, bias, ls|NULL, x|NULL, out, M, K, N, stream
     "mst_gemm_residual": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # qkv, out, lse|NULL, row|NULL, carry|NULL, carry_part, new_carry,
@@ -170,6 +171,25 @@ def build(verbose: bool = False) -> Path:
                 proc.wait()
         shutil.rmtree(objdir, ignore_errors=True)
     return out
+
+
+def ptxas_log(name: str) -> str:
+    """`-Xptxas -v` (registers, stack, spills per kernel) of one source,
+    `csrc/<name>`, compiled on its own with the library's flags; the
+    object is thrown away."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    obj = BUILD_DIR / f"{Path(name).stem}.{os.getpid()}.ptxas.o"
+    cmd = [_nvcc(), "-Xptxas=-v", *NVCC_FLAGS, "-I", str(CSRC), "-c",
+           str(CSRC / name), "-o", str(obj)]
+    try:
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+    finally:
+        obj.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}")
+    return proc.stdout
 
 
 def lib() -> ctypes.CDLL:

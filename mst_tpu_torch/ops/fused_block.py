@@ -26,7 +26,9 @@ block and the layer's weights in VMEM. An H100 SM has 227 KB of shared
 memory, so each sub-layer here is a short chain of CUDA kernels
 (`mst_tpu_torch/csrc/`):
 
-- attention: `ln_gemm` (LN + qkv) -> `mhsa` -> `gemm_residual` (proj + ls + x)
+- attention: `ln_gemm` (LN + qkv) -> `mhsa` -> `gemm_residual` (proj + ls + x);
+  `ln_gemm` and `ln_gemm_swiglu` are two kernels each, `ln_rows` (LN once
+  per row, h = bf16(LN(x))) then a TMA + wgmma GEMM on h
 - MLP:       `ln_gemm` (LN + fc1 + GELU) -> `gemm_residual` (fc2 + ls + x)
 - SwiGLU:    `ln_gemm_swiglu` (LN + w12 + gate; in train mode also h and
   the rounded h12) -> `gemm_residual` (w3 + ls + x)
@@ -109,18 +111,46 @@ def _mm(a, b):
     return torch.matmul(_f(a), _f(b))
 
 
-def _ln_gemm_ref(x, ln_s, ln_b, w, b, act: int, eps: float,
-                 train: bool = False):
-    h = _ln(x, ln_s, ln_b, eps).to(x.dtype)
+def _ln_rows_ref(x, ln_s, ln_b, eps: float):
+    """bf16(LN(x)) (the working dtype): `ln_rows`' plain version."""
+    return _ln(x, ln_s, ln_b, eps).to(x.dtype)
+
+
+def _gemm_act_ref(h, w, b, act: int, train: bool = False):
+    """The GEMM half of `ln_gemm` on the normalised rows h: act(h @ w + b),
+    or with `train` (pre, post) = (bf16(h @ w + b), bf16(act(pre)) or None
+    for ACT_NONE)."""
     y = _mm(h, w) + _f(b)
-    if train:  # (pre-activation, h, act of the rounded pre-activation)
-        pre = y.to(x.dtype)
+    if train:
+        pre = y.to(h.dtype)
         post = None if act == ACT_NONE else _gelu(
-            _f(pre), act == ACT_GELU_TANH).to(x.dtype)
-        return pre, h, post
+            _f(pre), act == ACT_GELU_TANH).to(h.dtype)
+        return pre, post
     if act != ACT_NONE:
         y = _gelu(y, act == ACT_GELU_TANH)
-    return y.to(x.dtype)
+    return y.to(h.dtype)
+
+
+def _gemm_swiglu_ref(h, w12, b12, train: bool = False):
+    """The GEMM half of `ln_gemm_swiglu`: bf16(silu(h1) * h2) with [h1 |
+    h2] = h @ w12 + b12 in f32, or with `train` (h12, g) = (bf16(h @ w12 +
+    b12), the gate of the ROUNDED h12)."""
+    h12 = _mm(h, w12) + _f(b12)
+    if train:
+        h12 = h12.to(h.dtype)
+    h1, h2 = _f(h12).chunk(2, dim=-1)
+    g = (h1 * torch.sigmoid(h1) * h2).to(h.dtype)
+    return (h12, g) if train else g
+
+
+def _ln_gemm_ref(x, ln_s, ln_b, w, b, act: int, eps: float,
+                 train: bool = False):
+    """`_ln_rows_ref` then `_gemm_act_ref`; with `train` (pre, h, post)."""
+    h = _ln_rows_ref(x, ln_s, ln_b, eps)
+    if train:
+        pre, post = _gemm_act_ref(h, w, b, act, train=True)
+        return pre, h, post
+    return _gemm_act_ref(h, w, b, act)
 
 
 def _ln_gemm_swiglu_ref(x, ln_s, ln_b, w12, b12, eps: float,
@@ -130,13 +160,11 @@ def _ln_gemm_swiglu_ref(x, ln_s, ln_b, w12, b12, eps: float,
     rounds h12 to bf16 first; in f32 the two agree). With `train`: (h12, h,
     g) = (bf16(LN(x) @ w12 + b12), bf16(LN(x)), the gate of the ROUNDED
     h12), the residuals of `_swiglu_train_kernel`."""
-    h = _ln(x, ln_s, ln_b, eps).to(x.dtype)
-    h12 = _mm(h, w12) + _f(b12)
+    h = _ln_rows_ref(x, ln_s, ln_b, eps)
     if train:
-        h12 = h12.to(x.dtype)
-    h1, h2 = _f(h12).chunk(2, dim=-1)
-    g = (h1 * torch.sigmoid(h1) * h2).to(x.dtype)
-    return (h12, h, g) if train else g
+        h12, g = _gemm_swiglu_ref(h, w12, b12, train=True)
+        return h12, h, g
+    return _gemm_swiglu_ref(h, w12, b12)
 
 
 def _has_rope(rope_cos, rope_sin) -> bool:
@@ -453,33 +481,85 @@ def _rope_form(rope_cos):
     return None if rope_cos is None else "rope"
 
 
+# The GEMM of `ln_gemm` / `ln_gemm_swiglu` (csrc/gemm_sm90.cuh): 128 x 128
+# output tiles (gated: 64 output columns, whose h1 and h2 panels make the
+# 128 W columns of a tile), k in steps of 64.
+GEMM_BM, GEMM_BN, GEMM_BK = 128, 128, 64
+
+
+def _check_gemm_shape(m: int, k: int, n: int, gated: bool) -> None:
+    """Raise ValueError for an h [m, k] -> n (gated: n = F) the GEMM does
+    not take; the wrappers call it before any launch."""
+    bn_out = GEMM_BN // 2 if gated else GEMM_BN
+    if m < 1 or k < GEMM_BK or k % GEMM_BK or n < bn_out or n % bn_out:
+        name, width = ("ln_gemm_swiglu", "F") if gated else ("ln_gemm", "N")
+        raise ValueError(f"{name} needs M >= 1, K % {GEMM_BK} == 0 and "
+                         f"{width} % {bn_out} == 0; got M={m}, K={k}, "
+                         f"{width}={n}")
+
+
+# The rest of the GEMM's launch geometry, as gemm_sm90.cuh sets it: a ring
+# of 5 stages of one A box [128][64] and two W boxes [64][64] (bf16), two
+# consumer warpgroups and one producer warp, one persistent CTA per SM of
+# an H100 SXM. `ln_gemm_launch` mirrors the kernel's own numbers, which
+# `mst_gemm_geometry` exports: the tests hold the constants to the header
+# and `chip_smoke.py` holds the whole to the export on the card.
+GEMM_STAGES, GEMM_THREADS, H100_SMS = 5, 2 * 128 + 32, 132
+
+
+def ln_gemm_launch(m: int, k: int, n: int,
+                   gated: bool = False) -> SimpleNamespace:
+    """The launch geometry of `ln_gemm`'s GEMM (`gated`: `ln_gemm_swiglu`'s,
+    n = F) at h [m, k] on an H100: tiles, grid, threads, stages and dynamic
+    shared memory in bytes. Raises ValueError where the kernel would."""
+    _check_gemm_shape(m, k, n, gated)
+    tiles = -(-m // GEMM_BM) * (n // (GEMM_BN // 2 if gated else GEMM_BN))
+    stage = GEMM_BM * GEMM_BK * 2 + 2 * GEMM_BK * 64 * 2
+    epilogue = 2 * 64 * (GEMM_BN + 8) * 2  # one bf16 tile per warpgroup
+    smem = 1024 + GEMM_STAGES * stage + epilogue + 2 * GEMM_STAGES * 8
+    return SimpleNamespace(tiles=tiles, grid=min(tiles, H100_SMS),
+                           threads=GEMM_THREADS, stages=GEMM_STAGES,
+                           smem=smem)
+
+
+def ln_rows(x, ln_s, ln_b, eps: float):
+    """bf16(LN(x)) [M, K]: LN once per row, the first kernel of `ln_gemm`
+    and `ln_gemm_swiglu` (whose train modes return it as h)."""
+    if not _on_cuda(x):
+        return _ln_rows_ref(x, ln_s, ln_b, eps)
+    m, k = x.shape
+    if k % 8 or k > 4096:
+        raise ValueError(f"ln_rows needs K % 8 == 0 and K <= 4096; got K={k}")
+    _mat(x, "x", (m, k), x)
+    ln_s, ln_b = _vec(ln_s, "ln_s", k, x), _vec(ln_b, "ln_b", k, x)
+    h = torch.empty_like(x)
+    err = _build.lib().mst_ln_rows(x.data_ptr(), ln_s.data_ptr(),
+                                   ln_b.data_ptr(), h.data_ptr(), m, k,
+                                   float(eps), _stream(x))
+    _build.check(err, "mst_ln_rows")
+    ln_rows.launches += 1
+    return h
+
+
 def ln_gemm(x, ln_s, ln_b, w, b, act: int, eps: float, train: bool = False):
     """act(LN(x) @ w + b): x [M, K], w [K, N] -> [M, N]. With `train`:
     (pre, h, post) = (bf16(LN(x) @ w + b), bf16(LN(x)), bf16(act(pre)) or
     None for ACT_NONE), the residuals of `_attn_train_kernel` /
-    `_mlp_train_kernel`."""
+    `_mlp_train_kernel`. On CUDA: `ln_rows`, then the GEMM on h."""
     if not _on_cuda(x):
         return _ln_gemm_ref(x, ln_s, ln_b, w, b, act, eps, train)
     m, k = x.shape
     n = w.shape[1]
-    if k % 32 or k > 1536 or n % 128:
-        raise ValueError(f"ln_gemm needs K % 32 == 0, K <= 1536 and "
-                         f"N % 128 == 0; got K={k}, N={n}")
-    _mat(x, "x", (m, k), x)
-    _mat(w, "w", (k, n), x)
-    ln_s, ln_b = _vec(ln_s, "ln_s", k, x), _vec(ln_b, "ln_b", k, x)
+    _check_gemm_shape(m, k, n, gated=False)
+    _mat(w, "w", (k, n), x)  # x: in `ln_rows`, before its launch
     b = _vec(b, "bias", n, x)
+    h = ln_rows(x, ln_s, ln_b, eps)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    h = post = None
-    if train:
-        h = torch.empty_like(x)
-        if act != ACT_NONE:
-            post = torch.empty_like(out)
-    err = _build.lib().mst_ln_gemm(
-        x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), w.data_ptr(),
-        b.data_ptr(), out.data_ptr(), _ptr(h), _ptr(post), m, k, n,
-        float(eps), int(act), _stream(x))
-    _build.check(err, "mst_ln_gemm")
+    post = torch.empty_like(out) if train and act != ACT_NONE else None
+    err = _build.lib().mst_gemm_act(
+        h.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), _ptr(post),
+        m, k, n, int(act), _stream(x))
+    _build.check(err, "mst_gemm_act")
     ln_gemm.launches += 1
     return (out, h, post) if train else out
 
@@ -488,28 +568,25 @@ def ln_gemm_swiglu(x, ln_s, ln_b, w12, b12, eps: float, train: bool = False):
     """The gated FFN's first half: x [M, K], w12 [K, 2F] -> g [M, F] =
     bf16(silu(h1) * h2), [h1 | h2] = LN(x) @ w12 + b12 in f32. With `train`
     (`_swiglu_train_kernel`, counted apart): (h12, h, g) = (bf16(LN(x) @
-    w12 + b12) [M, 2F], bf16(LN(x)) [M, K], the gate of the rounded h12)."""
+    w12 + b12) [M, 2F], bf16(LN(x)) [M, K], the gate of the rounded h12).
+    On CUDA: `ln_rows`, then the gated GEMM on h."""
     if not _on_cuda(x):
         return _ln_gemm_swiglu_ref(x, ln_s, ln_b, w12, b12, eps, train)
     m, k = x.shape
     f2 = w12.shape[1]
-    if k % 32 or k > 1536 or f2 % 128:
-        raise ValueError(f"ln_gemm_swiglu needs K % 32 == 0, K <= 1536 and "
-                         f"F % 64 == 0; got K={k}, F={f2 / 2:g}")
-    _mat(x, "x", (m, k), x)
-    _mat(w12, "w12", (k, f2), x)
-    ln_s, ln_b = _vec(ln_s, "ln_s", k, x), _vec(ln_b, "ln_b", k, x)
+    if f2 % 2:
+        raise ValueError(f"w12 needs an even width 2F; got {f2}")
+    _check_gemm_shape(m, k, f2 // 2, gated=True)
+    _mat(w12, "w12", (k, f2), x)  # x: in `ln_rows`, before its launch
     b12 = _vec(b12, "b12", f2, x)
+    h = ln_rows(x, ln_s, ln_b, eps)
     out = torch.empty((m, f2 // 2), dtype=x.dtype, device=x.device)
-    h = h12 = None
-    if train:
-        h = torch.empty_like(x)
-        h12 = torch.empty((m, f2), dtype=x.dtype, device=x.device)
-    err = _build.lib().mst_ln_gemm_swiglu(
-        x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), w12.data_ptr(),
-        b12.data_ptr(), out.data_ptr(), _ptr(h), _ptr(h12), m, k, f2 // 2,
-        float(eps), _stream(x))
-    _build.check(err, "mst_ln_gemm_swiglu")
+    h12 = (torch.empty((m, f2), dtype=x.dtype, device=x.device) if train
+           else None)
+    err = _build.lib().mst_gemm_swiglu(
+        h.data_ptr(), w12.data_ptr(), b12.data_ptr(), out.data_ptr(),
+        _ptr(h12), m, k, f2 // 2, _stream(x))
+    _build.check(err, "mst_gemm_swiglu")
     _count(ln_gemm_swiglu, "train" if train else None)
     return (h12, h, out) if train else out
 
@@ -1220,13 +1297,15 @@ def fused_swiglu_sublayer_train(x, ln_s, ln_b, w12, b12, w3, b3, ls,
 # `.form_launches[form]` those of each of its forms (`<name>_<form>` in
 # `launch_counts()`): the RoPE forms of the attention kernels, the train
 # mode of `ln_gemm_swiglu` (queue B row 6) and the SiLU-gate epilogue of
-# `gemm_dgrad`. The flash-attention wrappers of `ops/attention.py` (queue B
-# rows 12-16, the composed path above 512 tokens) count here too. `.calls` of a sub-layer counts the calls that ran its
-# kernel chain (it launches nothing itself). None moves on the CPU path.
-KERNEL_WRAPPERS = (ln_gemm, mhsa, gemm_residual, gemm_dls, gemm_wgrad,
-                   gemm_dgrad, mhsa_bwd, mhsa_with_row, mhsa_rollout,
-                   mhsa_abnar, ln_gemm_swiglu, ln_pullback, flash_fwd,
-                   flash_bwd_dq, flash_bwd_dkv)
+# `gemm_dgrad`. `ln_rows` counts once per `ln_gemm` / `ln_gemm_swiglu`
+# call (their LN half). The flash-attention wrappers of `ops/attention.py`
+# (queue B rows 12-16, the composed path above 512 tokens) count here too.
+# `.calls` of a sub-layer counts the calls that ran its kernel chain (it
+# launches nothing itself). None moves on the CPU path.
+KERNEL_WRAPPERS = (ln_rows, ln_gemm, mhsa, gemm_residual, gemm_dls,
+                   gemm_wgrad, gemm_dgrad, mhsa_bwd, mhsa_with_row,
+                   mhsa_rollout, mhsa_abnar, ln_gemm_swiglu, ln_pullback,
+                   flash_fwd, flash_bwd_dq, flash_bwd_dkv)
 FORMS = {mhsa: ("rope",), mhsa_with_row: ("rope",), mhsa_rollout: ("rope",),
          mhsa_abnar: ("rope",), mhsa_bwd: ("rope",),
          ln_gemm_swiglu: ("train",), gemm_dgrad: ("swiglu",)}

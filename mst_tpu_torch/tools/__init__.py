@@ -12,6 +12,10 @@
 - `bench_block_fusion`: one ViT block as 3 launches (`csrc/block_tail.cu`)
   against the shipped 5.
 
+And one measurement of the shipped path with no JAX tool behind it:
+`loss_drift` (the frozen giant2 loss on the kernels against the plain
+path, batch by batch; run as a file, `--root` reads another checkout).
+
 Each module keeps the plain PyTorch version of its kernel functions (the
 CPU path, and what the card's results are held to) and a `main()` that runs
 the experiment on the card: `python -m mst_tpu_torch.tools.<name>`. The
