@@ -100,8 +100,9 @@ FFN with F = 4096; S = 257), built by `python -m mst_tpu_torch.train
 23. saliency: the three plane modes and `MST_NO_CHEAP_LAST` at B=4, as
    phase 12;
 24. frozen training: the B=8 step's loss and every trainable grad vs the
-   plain path and the f64 step pooled over 8 batches, a planted fault the
-   loss limit must see, no backward kernel launched; FIT_STEPS AdamW steps leave every encoder parameter bit for
+   plain path and the f64 step pooled over 8 batches (the loss: the kernel
+   path's distance from the f64 loss at most 1.5x the plain path's), a
+   planted fault the loss rule must see, no backward kernel launched; FIT_STEPS AdamW steps leave every encoder parameter bit for
    bit as it was; then the CLI's `train` -> run folder -> `serve
    --run_folder` -> `predict --use_tta --use_rollout --save_saliency`;
 25. times: the SwiGLU and E = 1536 attention kernels and chains at the
@@ -131,7 +132,8 @@ fine-tunes: DINOv2 ViT-B/14 (E 768, 12 heads), ViT-L/14 (E 1024, 16 heads,
    (the plain step in f64), pooled over 4 batches, launch counts, AdamW
    steps on one batch;
 28. the unfrozen giant2 step with remat from phase 22's draw: the same
-   checks at B=2 with a planted SwiGLU fault, launch counts with each
+   checks at B=2 with a planted SwiGLU fault (the loss held by phase
+   24's rule), launch counts with each
    block's forward run twice, the B=8 step and its peak memory;
 29. `train --model_size giant2 --remat` for one epoch -> run folder ->
    `serve --run_folder` gives the eval step's probs;
@@ -304,31 +306,30 @@ FIT_TRACK_TOL = 0.15  # |loss kernel - loss plain| at every one of them
 # decides which path lands nearer the f32 step.
 STEP_BATCHES = 4
 # Phase 24 holds the frozen giant2 step to phase 8's grad limits, pooled
-# over STEP_BATCHES_G batches, but its loss to a limit of its own: the bf16
-# noise of 40 blocks moves the loss of either bf16 path ~5x further from
-# the f32 step than ViT-S's 12 blocks do (the plain path itself lies ~0.01
-# from it). On an H100 the kernel path's mean distance from the plain path
-# read 0.0018 over 8 batches (largest batch 0.0036), 0.9x phase 8's 2e-3,
-# and a planted fault (the SwiGLU gate off by one column) 0.22 (smallest
-# batch 0.0089): the limit lies between the two, and every run must read
-# the fault above it (the readings are in PERF.md).
+# over STEP_BATCHES_G batches, and its loss as the grads are held: the
+# kernel path's mean |loss - f64 loss| over the batches may be at most
+# STEP_F32_RATIO times the plain path's. A limit on kernel vs plain alone
+# cannot be set by a rule: the bf16 noise of 40 blocks moves the loss of
+# either bf16 path ~0.01 from the f64 step, and any change of summation
+# order moves it about as far (PERF.md §6, PR 10). On an H100 the rule read
+# 0.91 (1.02 over the first four batches), and a planted fault (the SwiGLU
+# gate off by one column) 19.7: every run must read the fault above the
+# limit. The kernel-vs-plain distance is still printed.
 STEP_BATCHES_G = 8
-GIANT2_LOSS_TOL = 0.01
 # Unfrozen steps (phases 27-28) are held against the plain step in f64 (the
 # oracle), pooled over STEP_BATCHES batches: ViT-B and ViT-L at B=8 to
 # phase 8's limits; giant2 (with remat) at B=STEP_B_G, which keeps its f64
-# oracle short, to the ratio limit STEP_F32_RATIO and to limits of its own on
-# the kernel-vs-plain spread. At B=2 either bf16 path lies 0.028-0.031 from
-# the f64 loss and up to 1.0 x |grad|max from the f64 grads of the fusion
-# layer's linear1 (its ReLU flips between any two bf16 paths): on an H100
-# the kernel path's loss read 0.023 from the plain path's (largest batch
-# 0.045), its worst grad 1.09, and a planted fault (the SwiGLU gate off by
-# one column) moved the loss by 0.54 (smallest batch 0.43); the limits lie
-# between (the readings are in PERF.md). FIT_STEPS_U AdamW steps at
+# oracle short, to the ratio limit STEP_F32_RATIO on its grads and on its
+# loss (as phase 24) and to a limit of its own on the grads' kernel-vs-plain
+# spread. At B=2 either bf16 path lies 0.028-0.031 from the f64 loss and up
+# to 1.0 x |grad|max from the f64 grads of the fusion layer's linear1 (its
+# ReLU flips between any two bf16 paths): on an H100 the kernel path's worst
+# grad read 1.09 from plain, its loss 1.24 x the plain path's distance
+# from f64, and the planted SwiGLU-gate fault 16.5 x (the readings are in
+# PERF.md). FIT_STEPS_U AdamW steps at
 # FIT_LR_U on one batch must lower the loss (at phase 8's 1e-4 ViT-L's
 # loss oscillates: 0.93, 8.5, 0.33, 5.2).
 STEP_B_G = 2
-GIANT2_U_LOSS_TOL = 0.1
 GIANT2_U_GRAD_REL = 2.0
 FIT_STEPS_U, FIT_LR_U = 4, 1e-5
 # Saliency phases (11-14). A saliency map is compared relative to its
@@ -2542,18 +2543,21 @@ def main() -> int:
 
     def check_step(what, mdl, batches, want, want_calls,
                    plain=plain_train_sublayers, loss_tol=STEP_LOSS_TOL,
-                   fault=None, oracle=torch.float32, grad_tol=STEP_GRAD_REL):
+                   fault=None, oracle=torch.float32, grad_tol=STEP_GRAD_REL,
+                   loss_vs_oracle=False):
         """The train step's loss and every grad on the kernels against the
         plain sub-layers (`plain`: the train ones, or for a frozen encoder
         the serving ones) and the oracle, the plain step in `oracle` (f32,
         or f64 with the model's residuals rebuilt block by block, remat,
         so that it fits), over `batches` [(src, tgt)] pooled: the mean
-        |loss| difference, the worst grad difference, and the summed
-        medians and maxima of each path's grad errors vs the oracle.
-        `fault`, a routing of the plain path with a planted fault, must move
-        the loss from the plain path's by more than `loss_tol` on average:
-        the limit would fail a wrong kernel. Returns the launch counts of
-        the first step (the main path)."""
+        |loss| difference (at most `loss_tol`; with `loss_vs_oracle`
+        printed only, and the kernel path's mean |loss - oracle loss| held
+        to STEP_F32_RATIO times the plain path's instead), the worst grad
+        difference, and the summed medians and maxima of each path's grad
+        errors vs the oracle. `fault`, a routing of the plain path with a
+        planted fault, must break the loss limit on average: the limit
+        would fail a wrong kernel. Returns the launch counts of the first
+        step (the main path)."""
         oname = str(oracle)[6:]
         d_loss, d_k32, d_p32, worst_rel, meds, maxes = [], [], [], 0.0, [], []
         d_fault = []
@@ -2577,7 +2581,8 @@ def main() -> int:
                 with fault(), torch.no_grad():
                     loss_f = cross_entropy_loss(mst_logits(
                         mdl, bsrc, None, train=True), btgt).item()
-                d_fault.append(abs(loss_f - loss_p))
+                d_fault.append(abs(loss_f - (loss_32 if loss_vs_oracle
+                                             else loss_p)))
                 faulty = f", plain path with the planted fault {loss_f:.6g}"
             rel = rel_errs(grads_k, grads_p)
             rel_k32 = rel_errs(grads_k, grads_32)
@@ -2615,14 +2620,33 @@ def main() -> int:
               f"grads vs {oname}, kernel / plain path, pooled: median "
               f"{med_ratio:.4g}, max {max_ratio:.4g} (limit {STEP_F32_RATIO} "
               f"each)")
-        check(d_mean <= loss_tol, f"{what} loss: {d_loss}")
+        if loss_vs_oracle:
+            ratio = statistics.mean(d_k32) / statistics.mean(d_p32)
+            print(f"{tag} {what}: loss vs {oname}, kernel / plain path, "
+                  f"pooled: {ratio:.4g} (limit {STEP_F32_RATIO}; the "
+                  f"kernel-vs-plain mean above is not held)")
+            check(ratio <= STEP_F32_RATIO, f"{what} loss vs {oname}: kernel "
+                  f"/ plain {ratio}: {d_k32} / {d_p32}")
+        else:
+            check(d_mean <= loss_tol, f"{what} loss: {d_loss}")
         if fault is not None:
             f_mean = statistics.mean(d_fault)
-            print(f"{tag} {what}: {fault.__doc__} moves the loss from the "
-                  f"plain path's by {f_mean:.6g} on average (smallest batch "
-                  f"{min(d_fault):.6g}; must exceed the limit {loss_tol})")
-            check(f_mean > loss_tol, f"{what}: the loss limit {loss_tol} "
-                  f"would pass a planted fault: {d_fault}")
+            if loss_vs_oracle:
+                f_ratio = f_mean / statistics.mean(d_p32)
+                print(f"{tag} {what}: {fault.__doc__} lies {f_mean:.6g} from "
+                      f"the {oname} loss on average, {f_ratio:.4g} x the "
+                      f"plain path's distance (smallest batch "
+                      f"{min(d_fault):.6g}; must exceed the limit "
+                      f"{STEP_F32_RATIO})")
+                check(f_ratio > STEP_F32_RATIO, f"{what}: the loss rule "
+                      f"would pass a planted fault: {d_fault}")
+            else:
+                print(f"{tag} {what}: {fault.__doc__} moves the loss from the "
+                      f"plain path's by {f_mean:.6g} on average (smallest "
+                      f"batch {min(d_fault):.6g}; must exceed the limit "
+                      f"{loss_tol})")
+                check(f_mean > loss_tol, f"{what}: the loss limit {loss_tol} "
+                      f"would pass a planted fault: {d_fault}")
         check(worst_rel <= grad_tol,
               f"{what} grads vs plain {worst_rel} > {grad_tol}")
         check(med_ratio <= STEP_F32_RATIO and max_ratio <= STEP_F32_RATIO,
@@ -3607,8 +3631,8 @@ def main() -> int:
     stepg_counts = check_step("giant2 frozen train step", gmodel,
                               step_batches_g, per_fwd_g, calls_per_fwd_g,
                               plain=plain_sublayers,
-                              loss_tol=GIANT2_LOSS_TOL, fault=gate_fault,
-                              oracle=torch.float64)
+                              fault=gate_fault, oracle=torch.float64,
+                              loss_vs_oracle=True)
     # FIT_STEPS AdamW steps on one batch: the loss falls, the encoder stays
     start = {n: q.detach().clone() for n, q in gmodel.named_parameters()}
     fstep = make_train_step(gstate)
@@ -4070,9 +4094,8 @@ def main() -> int:
     want_g, want_calls_g = unfrozen_counts(nbg, swiglu=True, remat=True)
     stepu_counts = check_step(
         f"unfrozen giant2 step with remat, B={STEP_B_G},", gmodel_u, gbatches,
-        want_g, want_calls_g, loss_tol=GIANT2_U_LOSS_TOL,
-        fault=train_gate_fault, oracle=torch.float64,
-        grad_tol=GIANT2_U_GRAD_REL)
+        want_g, want_calls_g, fault=train_gate_fault, oracle=torch.float64,
+        grad_tol=GIANT2_U_GRAD_REL, loss_vs_oracle=True)
     del gbatches
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
