@@ -10,11 +10,17 @@ limit:
 
 1. device: the card, `nvidia-smi` name and power limit, TF32 off;
 2. build: `nvcc` builds `mst_tpu_torch/csrc/*.cu` (timed); `-Xptxas -v`
-   for `ln_gemm.cu`'s kernels (registers, no spills; `ln_gemm.cu` compiled
-   on its own for the log where the library was built before the run), the
-   wgmma / TMA instructions of its GEMM in the SASS (`cuobjdump`: HGMMA,
-   UTMALDG), and `fused_block.ln_gemm_launch` against the kernel's own
-   launch geometry (`mst_gemm_geometry`);
+   for the kernels of `ln_gemm.cu`, `gemm_dgrad.cu` and `gemm_wgrad.cu`
+   (registers, no spills; a source compiled on its own for the log where
+   the library was built before the run), the wgmma / TMA instructions of
+   their GEMMs in the SASS (`cuobjdump`: HGMMA, UTMALDG; no WMMA HMMA left
+   in `gemm_dgrad` / `gemm_wgrad`), `fused_block.ln_gemm_launch`,
+   `gemm_dgrad_launch` and `gemm_wgrad_launch` against the kernels' own
+   launch geometry (`mst_gemm_geometry`, `mst_dgrad_geometry`,
+   `mst_wgrad_geometry`), and the layout probes of `gemm_wgrad.cu`: a bare
+   product with B K-major (dgrad's) and with A MN-major (wgrad's) against
+   `torch.matmul`, each beside a planted instance with its leading and
+   stride byte offsets swapped that must fail;
 3. kernels: each hand-written kernel and each fused sub-layer against its
    plain PyTorch version at the ViT-S path shapes ([256, 257, 384] bf16,
    6 heads, O(1) LayerScale, tanh and erf GELU);
@@ -29,8 +35,10 @@ limit:
    vol/s at B=8, peak device memory;
 7. train kernels: each kernel of the train step (the residual-saving modes
    of `ln_gemm` and `mhsa`, `gemm_dls`, `gemm_wgrad`, `gemm_dgrad`,
-   `mhsa_bwd`) and each train sub-layer's forward residuals and backward
-   outputs against their plain versions at the path shapes;
+   `mhsa_bwd`, with `ln_pullback` after `gemm_dgrad`'s f32 product) and
+   each train sub-layer's forward residuals and backward outputs against
+   their plain versions at the path shapes, each kernel twice for the same
+   bits;
 8. train step: ViT-S/14 at B=8 built by `python -m mst_tpu_torch.train`'s
    own builders from seeded weights with O(1) LayerScale; loss and every
    parameter's grad on the kernels vs the same step on the plain train
@@ -40,8 +48,9 @@ limit:
    run folder's files; the best checkpoint served by
    `python -m mst_tpu_torch.serve`'s `build_model` gives the eval step's
    probs;
-10. train times: the train kernels vs their plain versions, the train
-   step on the kernels and on the plain sub-layers (ms, vol/s), its peak
+10. train times: the train kernels vs their plain versions (the backward
+   GEMMs in phase 41), the train step on the kernels and on the plain
+   sub-layers (ms, vol/s), its peak
    memory, and a `torch.profiler` breakdown of one step;
 11. saliency kernels: the CLS-row, rollout-carry (two chained blocks, so
    that a carry that is not one-hot is fed back) and Abnar-factor outputs
@@ -81,8 +90,9 @@ S = 201 at 224 px) on the same volumes:
    --save_saliency`;
 20. times: each RoPE kernel against the same kernel without RoPE, its
    plain version and the library yardstick (RoPE in torch ops + SDPA and
-   its backward), and the other kernels of the RoPE chains at S = 201, so
-   that each chain's time, bound and library cover the same work; B=8
+   its backward), and the other kernels of the RoPE chains at S = 201
+   (the backward GEMMs in phase 41), so that each chain's time, bound and
+   library cover the same work; B=8
    vol/s of serving and each plane mode, the train step, peak memory, a
    `torch.profiler` breakdown of a forward and a step.
 
@@ -123,10 +133,10 @@ fine-tunes: DINOv2 ViT-B/14 (E 768, 12 heads), ViT-L/14 (E 1024, 16 heads,
    shapes [256, 257, E], each run twice for the same bits; C1: `mhsa_abnar`
    with and without RoPE at S = 442 (ViT-S/14 on 294 px slices, the 16-row
    query tile) and the `rollout_abnar` saliency forward there vs plain;
-   then the times of row 6's kernels and chain, the new `gemm_dgrad` modes
-   and those sub-layers against their plain versions, bounds and library
-   calls (timed here, so that the steps after have the room of their
-   inputs);
+   then the times of row 6's kernels and chain and those sub-layers
+   against their plain versions, bounds and library calls (timed here, so
+   that the steps after have the room of their inputs; the backward GEMMs
+   are timed in phase 41);
 27. the unfrozen ViT-B and ViT-L steps at B=8, built by the train CLI's
    builders: loss and grads vs the plain sub-layers and the f64 oracle
    (the plain step in f64), pooled over 4 batches, launch counts, AdamW
@@ -233,6 +243,16 @@ calls per pair of CUDA events, with the SM clock and power draw sampled
 meanwhile. Every launch count check of the earlier phases also holds
 `ln_rows` to one launch per `ln_gemm` / `ln_gemm_swiglu` call
 (`check_launches`).
+
+Phase 41 holds `gemm_dgrad` and `gemm_wgrad` on the wgmma GEMM the same
+way: every dgrad epilogue (plain, GELU' tanh / erf, the SiLU gate, f32 dh
+then `ln_pullback` at K = 384, 768, 1024, 1536) and every wgrad product of
+the paths at M = 65,792 (B=8), 51,456 (DINOv3 B=8), 16,448 (giant2 B=2),
+8,224 (B=1) and 771, against plain under phase 7's limits, twice for the
+same bits; then each product at its path shape beside the WMMA kernel's
+recorded time, timed in turn with the library calls for the same work
+(the product plus the GELU' product, the gate's derivative or the LN
+pullback in torch ops, and the column sums for db), with the SM clock.
 
 Each phase prints its wall time. The line before the last is `{"kernels":
 [...]}`: per kernel its launches on the main path, its largest error, its
@@ -402,6 +422,23 @@ PAIR_ROUNDS, PER_PAIR = 10, 10
 WMMA_MS = {"ln_gemm[qkv,E=1536]": 18.926, "ln_gemm_swiglu[w12]": 34.879,
            "ln_gemm_swiglu_train[w12]": 35.183, "ln_gemm[qkv]": 0.938,
            "ln_gemm[fc1,gelu_tanh]": 1.272}
+# Phase 41: `gemm_dgrad` / `gemm_wgrad` at the path row counts: B=8 of
+# 257 tokens, DINOv3's B=8 (S = 201), giant2's B=2, B=1 and 3 x 257. The
+# WMMA kernels' times at the path shapes (PR 10's final run, PERF.md §6, on
+# an H100 80GB HBM3 at 700 W), printed beside the new ones.
+BWD_M = (65_792, 51_456, 16_448, 8_224, 771)
+BWD_GEMMS = ("gemm_wgrad", "gemm_dgrad")
+WMMA_BWD_MS = {
+    "gemm_wgrad[proj]": 0.2504, "gemm_wgrad[qkv]": 0.6135,
+    "gemm_wgrad[fc2]": 0.7603, "gemm_wgrad[fc1]": 0.7759,
+    "gemm_dgrad[proj]": 0.1799, "gemm_dgrad[fc2,gelu_tanh]": 0.7696,
+    "gemm_dgrad[fc2,gelu_erf]": 0.8265, "gemm_dgrad[qkv,ln]": 0.8126,
+    "gemm_dgrad[fc1,ln]": 0.9556, "gemm_wgrad[proj,S=201]": 0.2634,
+    "gemm_dgrad[proj,S=201]": 0.1766, "gemm_wgrad[qkv,S=201]": 0.5644,
+    "gemm_dgrad[qkv,ln,S=201]": 0.7566, "gemm_wgrad[w3]": 6.7711,
+    "gemm_dgrad_swiglu[w3]": 5.8107, "gemm_wgrad[w12]": 13.8015,
+    "gemm_dgrad[w12,ln]": 11.2080, "gemm_dgrad[fc1,ln,E=768]": 2.4768,
+    "gemm_dgrad[fc1,ln,E=1024]": 4.0803}
 T0 = time.perf_counter()
 
 
@@ -1623,60 +1660,81 @@ def tools_phases(tag, dev):
     return entries
 
 
+# The kernels of the wgmma GEMM sources, and their entries in `-Xptxas -v`:
+# source -> {kernel: instances}. The GEMMs' SASS must hold wgmma and TMA
+# loads; those of `gemm_dgrad` / `gemm_wgrad` no WMMA HMMA either.
+PTXAS_ENTRIES = {
+    "ln_gemm.cu": {"gemm_ln_kernel": 4, "ln_rows_kernel": 5},
+    "gemm_dgrad.cu": {"gemm_dgrad_kernel": 4, "ln_pullback_kernel": 1},
+    "gemm_wgrad.cu": {"gemm_wgrad_kernel": 1, "probe_kernel": 4},
+}
+SASS_GEMMS = {"gemm_ln_kernel": 4, "gemm_dgrad_kernel": 4,
+              "gemm_wgrad_kernel": 1, "probe_kernel": 4}
+
+
 def check_machine_code(tag, build_log, build_mod, lib_path) -> None:
-    """The compiler's word on `ln_gemm.cu`'s kernels: registers and spills
-    of the GEMM (`gemm_ln_kernel`, 4 instances) and `ln_rows_kernel` (5)
-    from `-Xptxas -v` (the build's log, or where the library was built
-    before this run a compile of `ln_gemm.cu` on its own), and the GEMM's
-    wgmma and TMA instructions (HGMMA, UTMALDG) counted in its SASS
-    (`cuobjdump -sass`). No spills, and both instructions present."""
-    mine = ("gemm_ln_kernel", "ln_rows_kernel")
+    """The compiler's word on the wgmma GEMMs' sources (`PTXAS_ENTRIES`):
+    registers and spills of each kernel from `-Xptxas -v` (the build's log,
+    or where the library was built before this run a compile of the
+    source on its own), and the GEMMs' wgmma and TMA instructions (HGMMA,
+    UTMALDG) counted in their SASS (`cuobjdump -sass`). No spills, both
+    instructions present, and no HMMA (WMMA / mma.sync) in the backward
+    GEMMs."""
     entry = r"Compiling entry function '([^']+)'(.*?)(?=Compiling entry function|\Z)"
-    blocks = [(n, b) for n, b in re.findall(entry, build_log, re.S)
-              if any(k in n for k in mine)]
-    if not blocks:
-        print(f"{tag} ptxas: the library was built before this run; "
-              f"compiling ln_gemm.cu on its own for its -Xptxas -v log")
-        blocks = [(n, b) for n, b in re.findall(
-            entry, build_mod.ptxas_log("ln_gemm.cu"), re.S)
-            if any(k in n for k in mine)]
-    found = {k: sum(k in n for n, _ in blocks) for k in mine}
-    check(found == {"gemm_ln_kernel": 4, "ln_rows_kernel": 5},
-          f"-Xptxas -v entries of ln_gemm.cu: {found}")
-    for name, body in blocks:
-        regs = re.search(r"Used (\d+) registers", body)
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", body)
-        stack = re.search(r"(\d+) bytes stack frame", body)
-        short = re.search(r"(gemm_ln_kernel|ln_rows_kernel)I\w*?EEEv", name)
-        print(f"{tag} ptxas {short.group(0)[:-3] if short else name}: "
-              f"{regs.group(1) if regs else '?'} registers, stack frame "
-              f"{stack.group(1) if stack else '?'} bytes, spill stores / "
-              f"loads {spill.groups() if spill else '?'}")
-        check(spill is not None and spill.groups() == ("0", "0"),
-              f"{name}: register spills {spill.groups() if spill else '?'}")
+    for src, want in PTXAS_ENTRIES.items():
+        def mine(log):
+            return [(n, b) for n, b in re.findall(entry, log, re.S)
+                    if any(k in n for k in want) and src.split(".")[0] in n]
+        blocks = mine(build_log)
+        if not blocks:
+            print(f"{tag} ptxas: the library was built before this run; "
+                  f"compiling {src} on its own for its -Xptxas -v log")
+            blocks = mine(build_mod.ptxas_log(src))
+        found = {k: sum(k in n for n, _ in blocks) for k in want}
+        check(found == want, f"-Xptxas -v entries of {src}: {found}")
+        for name, body in blocks:
+            regs = re.search(r"Used (\d+) registers", body)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", body)
+            stack = re.search(r"(\d+) bytes stack frame", body)
+            short = re.search(r"(?:%s)(?:I\w*?E)?(?=E)" % "|".join(want),
+                              name)
+            print(f"{tag} ptxas {short.group(0) if short else name}: "
+                  f"{regs.group(1) if regs else '?'} registers, stack frame "
+                  f"{stack.group(1) if stack else '?'} bytes, spill stores / "
+                  f"loads {spill.groups() if spill else '?'}")
+            check(spill is not None and spill.groups() == ("0", "0"),
+                  f"{name}: register spills "
+                  f"{spill.groups() if spill else '?'}")
     nvcc = build_mod._nvcc()
     sass = subprocess.run(
         [str(Path(nvcc).parent / "cuobjdump"), "-sass", str(lib_path)],
         capture_output=True, text=True, check=True, timeout=300).stdout
-    counts = {}
+    counts = {k: {} for k in SASS_GEMMS}
     for fn, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)",
                                sass, re.S):
-        if "gemm_ln_kernel" in fn:
-            counts[fn] = (body.count("HGMMA"), body.count("UTMALDG"))
-    for fn, (hgmma, utmaldg) in counts.items():
-        short = re.search(r"gemm_ln_kernelI\w*?EEEv", fn)
-        print(f"{tag} SASS {short.group(0)[:-3] if short else fn}: {hgmma} HGMMA, "
-              f"{utmaldg} UTMALDG")
-        check(hgmma > 0 and utmaldg > 0, f"{fn}: no wgmma or no TMA load")
-    check(len(counts) == 4, f"gemm_ln_kernel instances in SASS: {len(counts)}")
+        for k in SASS_GEMMS:
+            if k in fn:
+                counts[k][fn] = (body.count("HGMMA"), body.count("UTMALDG"),
+                                 body.count("HMMA"))
+    for k, fns in counts.items():
+        for fn, (hgmma, utmaldg, hmma) in fns.items():
+            short = re.search(r"%s(?:I\w*?E)?(?=E)" % k, fn)
+            print(f"{tag} SASS {short.group(0) if short else fn}: {hgmma} "
+                  f"HGMMA, {utmaldg} UTMALDG, {hmma} HMMA")
+            check(hgmma > 0 and utmaldg > 0, f"{fn}: no wgmma or no TMA load")
+            check(hmma == 0 or k == "gemm_ln_kernel",
+                  f"{fn}: {hmma} HMMA (WMMA / mma.sync) instructions left")
+        check(len(fns) == SASS_GEMMS[k], f"{k} instances in SASS: {len(fns)}")
 
 
 def check_gemm_geometry(tag, fb, lib) -> None:
-    """`fused_block.ln_gemm_launch` (the geometry the CPU tests read)
-    against the kernel's own, `mst_gemm_geometry`, on this card: tiles,
-    grid, threads, stages, shared memory, at the path's widths and at the
-    ragged row counts."""
+    """`fused_block.ln_gemm_launch`, `gemm_dgrad_launch` and
+    `gemm_wgrad_launch` (the geometry the CPU tests read) against the
+    kernels' own, `mst_gemm_geometry`, `mst_dgrad_geometry` and
+    `mst_wgrad_geometry`, on this card: tiles or work units, grid, threads,
+    stages, shared memory (and the backward GEMMs' splits, rows per split,
+    workspace bytes), at the path's widths and row counts."""
     m_path = N_SLICES * S
     for m in (m_path, *RAGGED_M):
         for k in LN_GEMM_WIDTHS:
@@ -1697,6 +1755,89 @@ def check_gemm_geometry(tag, fb, lib) -> None:
           f"{RAGGED_M} (giant2 w12: {geo.tiles} tiles on {geo.grid} CTAs of "
           f"{geo.threads} threads, {geo.stages} stages, {geo.smem} bytes of "
           f"shared memory)")
+    # the backward GEMMs: every product of the paths at every row count
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    f_ = LN_GEMM_F
+    for m in BWD_M:
+        for e in LN_GEMM_WIDTHS:
+            # (K, N) of a [m, K]^T @ b [m, N]: proj, qkv, fc2, fc1 (and
+            # giant2's w3, w12); dgrad (R, K) of dy [m, R] @ w [K, R]^T
+            shapes = [(e, e), (e, 3 * e), (4 * e, e), (e, 4 * e)]
+            if e == LN_GEMM_WIDTHS[-1]:
+                shapes += [(f_, e), (e, 2 * f_)]
+            for k, n in shapes:
+                for name, fn, mine in (
+                        ("mst_wgrad_geometry", lib.mst_wgrad_geometry,
+                         fb.gemm_wgrad_launch(m, k, n, sms)),
+                        ("mst_dgrad_geometry", lib.mst_dgrad_geometry,
+                         fb.gemm_dgrad_launch(m, n, k, sms))):
+                    geo = (ctypes.c_longlong * 8)()
+                    err = fn(m, k, n, geo) if "wgrad" in name else fn(
+                        m, n, k, geo)
+                    check(err == 0, f"{name} at M={m}, {k} x {n}: {err}")
+                    want = (mine.units, mine.grid, mine.threads, mine.stages,
+                            mine.smem, mine.splits, mine.rows, mine.workspace)
+                    check(tuple(geo) == want, f"{name} at M={m}, {k} x {n}: "
+                          f"kernel {tuple(geo)}, mirror {want}")
+    w12 = fb.gemm_wgrad_launch(m_path, 1536, 2 * f_, sms)
+    proj = fb.gemm_wgrad_launch(m_path, 384, 384, sms)
+    print(f"{tag} GEMM geometry: gemm_dgrad_launch / gemm_wgrad_launch equal "
+          f"the kernels' mst_dgrad_geometry / mst_wgrad_geometry at K = "
+          f"{LN_GEMM_WIDTHS}, M = {BWD_M} on {sms} SMs (giant2 w12 wgrad: "
+          f"{w12.units} units of {w12.rows} rows, {w12.splits} splits, "
+          f"{w12.workspace} bytes of workspace; ViT-S proj: {proj.units} "
+          f"units, {proj.splits} splits of {proj.rows} rows)")
+
+
+def check_layout_probes(tag, dev, lib) -> dict:
+    """The operand layouts the backward GEMMs add to the wgmma mainloop,
+    each alone in a bare product (`mst_gemm_probe`) against torch.matmul
+    in f32 at a path shape of its kernel and a ragged one: B K-major
+    (gemm_dgrad's W^T), A MN-major (gemm_wgrad's X^T). Within
+    KERNEL_GRAD_REL of |matmul|max; the planted instance with the
+    descriptors' leading and stride byte offsets swapped must break it.
+    Returns {name: max_abs_err}."""
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 2)
+    stream = torch.cuda.current_stream().cuda_stream
+    errs = {}
+    # (layout, M, N, K, rows of the reduction that hold data): dgrad's fc1
+    # product at B=8 and a ragged one; one M chunk of wgrad's qkv product
+    # at B=8 (its splits' rows: an unsplit 65,792-row chain reads ~4x the
+    # limit, as `_WGRAD_MAX_ROWS` says) and a ragged one
+    for layout, m, n, k, live in ((1, N_SLICES * S, 384, 1536, 1536),
+                                  (1, 771, 1536, 384, 384),
+                                  (2, 384, 1152, 7360, 7360),
+                                  (2, 1536, 384, 832, 771)):
+        a = torch.randn((m, k) if layout == 1 else (k, m), generator=gen)
+        b = torch.randn((n, k) if layout == 1 else (k, n), generator=gen)
+        if layout == 2:  # a ragged reduction: rows past `live` are zeros
+            a[live:], b[live:] = 0, 0
+        a, b = a.to(dev, torch.bfloat16), b.to(dev, torch.bfloat16)
+        want = (a.float() @ b.float().t() if layout == 1
+                else a.float().t() @ b.float())
+        scale = want.abs().max().item()
+        lim = KERNEL_GRAD_REL * scale
+        name = (f"probe[{'B K-major' if layout == 1 else 'A MN-major'},"
+                f"{m}x{n}x{k}]")
+        for swap in (0, 1):
+            c = torch.empty(m, n, device=dev)
+            rc = lib.mst_gemm_probe(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                                    m, n, k, layout, swap, stream)
+            check(rc == 0, f"{name}: launch failed ({rc})")
+            torch.cuda.synchronize()
+            err = (c - want).abs().max().item()
+            if swap:
+                print(f"{tag} planted fault: {name} with LBO and SBO swapped: "
+                      f"max_abs_err={err:.6g} against the limit {lim:.6g} "
+                      f"({err / lim:.4g}x); must break it")
+                check(err > lim, f"{name}: the swapped descriptors pass")
+            else:
+                print(f"{tag} {name}: max_abs_err={err:.6g} limit={lim:.6g} "
+                      f"({KERNEL_GRAD_REL} x |matmul|max={scale:.6g})")
+                check(err <= lim and bool(torch.isfinite(c).all()),
+                      f"{name}: max_abs_err {err} > {lim}")
+                errs[name] = err
+    return errs
 
 
 # -- phase 40: `ln_gemm` / `ln_gemm_swiglu` as `ln_rows` + the wgmma GEMM ---
@@ -1954,6 +2095,210 @@ def ln_gemm_phase(tag, dev, fb, build_lib):
     return errs, timed, cost, lib_ms
 
 
+# -- phase 41: `gemm_dgrad` / `gemm_wgrad` on the wgmma GEMM ----------------
+
+
+def bwd_gemm_phase(tag, dev, fb):
+    """Phase 41: every `gemm_dgrad` epilogue and `gemm_wgrad` product of the
+    train paths (ViT-S / B / L blocks at E = 384 / 768 / 1024, giant2's at
+    1536 with the SwiGLU FFN) against plain under phase 7's limits, twice
+    for the same bits, at the row counts BWD_M (ViT-S at all of them, the
+    wider ones at their B=8 rows and the ragged ones); then each product at
+    its path shape (B=8; DINOv3's S = 201 attention products) timed in turn
+    with the library calls for the same work, beside the WMMA kernel's
+    recorded time and the SM clock. Returns (errs, timed, cost, lib_ms) for
+    the kernels line."""
+    stamp(tag, "41")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    bf, f32 = torch.bfloat16, torch.float32
+    eps = 1e-6
+    tanh, erf = fb.ACT_GELU_TANH, fb.ACT_GELU_ERF
+
+    def rand(*shape, scale=1.0, off=0.0, dtype=bf):
+        return (off + scale * torch.randn(shape, generator=gen, device=dev,
+                                          dtype=f32)).to(dtype)
+
+    def wgrad(a, b):
+        """(kernel, plain, library, cost) of a^T @ b and b's column sums."""
+        m, k = a.shape
+        return (lambda: fb.gemm_wgrad(a, b), lambda: fb._gemm_wgrad_ref(a, b),
+                lambda: (torch.matmul(a.t(), b), b.sum(0, dtype=f32)),
+                wgrad_cost(m, k, b.shape[1]))
+
+    def dgrad(dy, w, a=None, act=fb.ACT_NONE, ln=None):
+        """(kernel, plain, library, cost) of dy @ w^T with its epilogue; the
+        library: the bf16 matmul, then the GELU' product (`gelu_backward`),
+        the gate's derivative in torch ops, or the LN backward from the
+        saved statistics (`native_layer_norm_backward`) plus the residual."""
+        m, r = dy.shape
+        k = w.shape[0]
+        kern = lambda: fb.gemm_dgrad(dy, w, a, act, ln)  # noqa: E731
+        plain = lambda: fb._gemm_dgrad_ref(dy, w, a, act, ln)  # noqa: E731
+        if ln is not None:
+            x, g, lns, _ = ln
+            xf = x.float()
+            _, mean, rstd = torch.ops.aten.native_layer_norm(xf, (k,), lns,
+                                                             None, eps)
+            zero = torch.zeros_like(lns)
+
+            def library():
+                dx, dlns, dlnb = torch.ops.aten.native_layer_norm_backward(
+                    torch.matmul(dy, w.t()).float(), xf, (k,), mean, rstd,
+                    lns, zero, [True, True, True])
+                return (dx + g).to(bf), dlns, dlnb
+            return kern, plain, library, mm_cost(m, r, k, 4 * m * k + 12 * k)
+        if act == fb.ACT_SWIGLU:
+            def library():
+                du = torch.matmul(dy, w.t())
+                h1, h2 = a.chunk(2, dim=-1)
+                sg = torch.sigmoid(h1)
+                silu = h1 * sg
+                return torch.cat([du * h2 * (sg + silu * (1 - sg)),
+                                  du * silu], -1)
+            return (kern, plain, library,
+                    mm_cost(m, r, k, 2 * m * 2 * k + 2 * m * k))
+        if a is not None:
+            approx = "tanh" if act == tanh else "none"
+            return (kern, plain, lambda: torch.ops.aten.gelu_backward(
+                torch.matmul(dy, w.t()), a, approximate=approx),
+                mm_cost(m, r, k, 2 * m * k))
+        return kern, plain, lambda: torch.matmul(dy, w.t()), mm_cost(m, r, k)
+
+    def block_cases(m, e, swiglu):
+        """{name: (kernel, plain, library, cost)}: the backward products of
+        one block at rows m, width e (the SwiGLU FFN at F = LN_GEMM_F)."""
+        f = LN_GEMM_F
+        x, g, o, h = (rand(m, e) for _ in range(4))
+        lns = rand(e, scale=0.1, off=1.0, dtype=f32)
+        ln = (x, g, lns, eps)
+        dqkv = rand(m, 3 * e)
+        wproj = rand(e, e, scale=e ** -0.5)
+        wqkv = rand(e, 3 * e, scale=e ** -0.5)
+        c = {"gemm_wgrad[proj]": wgrad(o, g), "gemm_wgrad[qkv]": wgrad(h, dqkv),
+             "gemm_dgrad[proj]": dgrad(g, wproj),
+             "gemm_dgrad[qkv,ln]": dgrad(dqkv, wqkv, ln=ln)}
+        if swiglu:
+            gate, h12, dh12 = rand(m, f), rand(m, 2 * f), rand(m, 2 * f)
+            w3 = rand(f, e, scale=f ** -0.5)
+            w12 = rand(e, 2 * f, scale=e ** -0.5)
+            c.update({
+                "gemm_wgrad[w3]": wgrad(gate, g),
+                "gemm_dgrad_swiglu[w3]": dgrad(g, w3, h12, fb.ACT_SWIGLU),
+                "gemm_wgrad[w12]": wgrad(h, dh12),
+                "gemm_dgrad[w12,ln]": dgrad(dh12, w12, ln=ln)})
+        else:
+            u, a, da = rand(m, 4 * e), rand(m, 4 * e), rand(m, 4 * e)
+            w1 = rand(e, 4 * e, scale=e ** -0.5)
+            w2 = rand(4 * e, e, scale=(4 * e) ** -0.5)
+            c.update({
+                "gemm_wgrad[fc2]": wgrad(u, g), "gemm_wgrad[fc1]": wgrad(h, da),
+                "gemm_dgrad[fc2,gelu_tanh]": dgrad(g, w2, a, tanh),
+                "gemm_dgrad[fc2,gelu_erf]": dgrad(g, w2, a, erf),
+                "gemm_dgrad[fc1,ln]": dgrad(da, w1, ln=ln)})
+        return c
+
+    def named(base, m, e):
+        """The kernels line's name of a product: ViT-S at B=8 as phase 7
+        names it, DINOv3's S = 201 and the wider widths as phases 15 and 26
+        do (giant2's w3 / w12 products without the width), else the rows."""
+        tags = []
+        if e != 384 and not ("w3" in base or "w12" in base):
+            tags.append(f"E={e}")
+        if m == N_SLICES * S3:
+            tags.append("S=201")
+        elif m != N_SLICES * S:
+            tags.append(f"M={m}")
+        return base[:-1] + "".join("," + t for t in tags) + "]"
+
+    m_path, m3 = N_SLICES * S, N_SLICES * S3
+    groups = [(384, False, BWD_M), (768, False, (m_path, 771)),
+              (1024, False, (m_path, 771)),
+              (LN_GEMM_WIDTHS[-1], True, (m_path, 16_448, 771))]
+    print(f"{tag} backward GEMMs on the wgmma mainloop: every gemm_dgrad "
+          f"epilogue and gemm_wgrad product of the ViT-S / B / L and giant2 "
+          f"blocks, bf16 outputs within 2 bf16 ulps of plain and f32 within "
+          f"{KERNEL_GRAD_REL} x |plain|max (phase 7's limits), the same bits "
+          f"on a second run; rows {BWD_M}")
+    errs, timed, cost, lib_ms = {}, {}, {}, {}
+    timing = {}
+    for e, swiglu, rows in groups:
+        for m in rows:
+            for base, (kern, plain, library, c) in block_cases(
+                    m, e, swiglu).items():
+                name = named(base, m, e)
+                with torch.inference_mode():
+                    k1, pl, k2 = kern(), plain(), kern()
+                torch.cuda.synchronize()
+                errs[name] = check_outputs(tag, f"bwd {name}", k1, pl,
+                                           KERNEL_GRAD_REL)
+                k1, k2 = ((k1, k2) if isinstance(k1, tuple)
+                          else ((k1,), (k2,)))
+                same = all(torch.equal(a, b) for a, b in zip(k1, k2))
+                print(f"{tag} bwd {name}: two runs equal bit for bit: {same}")
+                check(same, f"{name}: two runs differ")
+                del k1, k2, pl
+                attn = base.startswith(("gemm_wgrad[proj", "gemm_wgrad[qkv",
+                                        "gemm_dgrad[proj", "gemm_dgrad[qkv"))
+                if m == m_path or (m == m3 and attn):  # a path shape
+                    cost[name] = c
+                    timing[name] = (kern, plain, library)
+            if not timing:
+                continue
+            # time this group's path shapes now, while their inputs live
+            with ClockSampler() as clocks, torch.inference_mode():
+                for name, (kern, plain, library) in timing.items():
+                    t = time_interleaved({"kernel": kern,
+                                          "library": library}, clocks)
+                    pm_ = time_ms(plain, n=5, warmup=1)
+                    km, lm = t["kernel"].ms, t["library"].ms
+                    timed[name], lib_ms[name] = (km, pm_), lm
+                    b_ms, b_by = bound([cost[name]])
+                    flop = cost[name][0]
+                    wmma = WMMA_BWD_MS.get(name)
+                    print(f"{tag} time {name}: kernel {km:.4f} ms "
+                          f"({flop / km / 1e9:.1f} TFLOP/s; rounds "
+                          f"{t['kernel'].lo:.4f}-{t['kernel'].hi:.4f}; "
+                          f"{t['kernel'].mhz} MHz, {t['kernel'].watts} W); "
+                          f"library for the same work {lm:.4f} ms (kernel / "
+                          f"library {km / lm:.3f}; {t['library'].mhz} MHz); "
+                          f"plain {pm_:.4f} ms; bound {b_ms:.4f} ms by {b_by}; "
+                          f"WMMA " + (f"{wmma} ms ({wmma / km:.2f}x)" if wmma
+                                      else "not recorded"))
+            timing.clear()
+            torch.cuda.empty_cache()
+    # `ln_pullback` alone at ViT-S's width, now on its path (PR 10's
+    # readings at 768 / 1024 / 1536 are phase 26's)
+    e = 384
+    x, g = rand(m_path, e), rand(m_path, e)
+    dh = rand(m_path, e, dtype=f32)
+    lns = rand(e, scale=0.1, off=1.0, dtype=f32)
+    xf = x.float()
+    _, mean, rstd = torch.ops.aten.native_layer_norm(xf, (e,), lns, None, eps)
+    zero = torch.zeros_like(lns)
+    name = "ln_pullback[E=384]"
+    errs[name] = check_outputs(
+        tag, f"bwd {name}", fb.ln_pullback(dh, x, g, lns, eps),
+        fb._ln_pullback_ref(dh, x, g, lns, eps), KERNEL_GRAD_REL)
+    with ClockSampler() as clocks, torch.inference_mode():
+        t = time_interleaved({
+            "kernel": lambda: fb.ln_pullback(dh, x, g, lns, eps),
+            "library": lambda: torch.ops.aten.native_layer_norm_backward(
+                dh, xf, (e,), mean, rstd, lns, zero, [True, True, True])},
+            clocks)
+        pm_ = time_ms(lambda: fb._ln_pullback_ref(dh, x, g, lns, eps))
+    cost[name] = (10 * m_path * e, 4 * m_path * e + 3 * 2 * m_path * e
+                  + 4 * 3 * e)
+    timed[name], lib_ms[name] = (t["kernel"].ms, pm_), t["library"].ms
+    b_ms, b_by = bound([cost[name]])
+    print(f"{tag} time {name}: kernel {t['kernel'].ms:.4f} ms, library "
+          f"(native_layer_norm_backward) {t['library'].ms:.4f} ms (kernel / "
+          f"library {t['kernel'].ms / t['library'].ms:.3f}), plain "
+          f"{pm_:.4f} ms, bound {b_ms:.4f} ms by {b_by}")
+    del x, g, dh, xf
+    torch.cuda.empty_cache()
+    return errs, timed, cost, lib_ms
+
+
 def main() -> int:
     if not (ROOT / "mst_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke.py must run from a checkout of the "
@@ -2029,6 +2374,7 @@ def main() -> int:
           f"{lib_path.relative_to(ROOT)}")
     check_machine_code(tag, log.getvalue(), _build, lib_path)
     check_gemm_geometry(tag, fb, _build.lib())
+    probe_errs = check_layout_probes(tag, dev, _build.lib())
 
     # -- 3. kernels vs plain at the path's shapes --------------------------
     stamp(tag, "3")
@@ -2089,7 +2435,7 @@ def main() -> int:
                                ("tanh,no_ls", None, True)):
         cases[f"mlp_sublayer[{label}]"] = pair(
             fb.fused_mlp_sublayer, fb._mlp_ref, *mlp_args, lsv, approx)
-    errs = {}
+    errs = dict(probe_errs)
     for name, (kern, plain) in cases.items():
         k, p = kern(), plain()
         torch.cuda.synchronize()
@@ -2389,10 +2735,16 @@ def main() -> int:
                          lse_t, N_SLICES, S, HEADS),
     }
     for name, (kern, plain) in tcases.items():
-        k, pl = kern(), plain()
+        k, pl, again = kern(), plain(), kern()
         torch.cuda.synchronize()
         errs[name] = check_outputs(tag, f"kernel {name}", k, pl,
                                    KERNEL_GRAD_REL)
+        k, again = ((k, again) if isinstance(k, tuple) else ((k,), (again,)))
+        same = all(torch.equal(a, b) for a, b in zip(k, again)
+                   if a is not None)
+        print(f"{tag} kernel {name}: two runs equal bit for bit: {same}")
+        check(same, f"{name}: two runs differ")
+    del k, pl, again
     cost.update({
         # the train forward also writes h [M, E] (and for fc1 the bf16
         # pre-activation beside its GELU), and the LSE rows
@@ -2432,16 +2784,6 @@ def main() -> int:
         "mhsa_train": library["mhsa"],
         "gemm_dls[proj]": functools.partial(torch.matmul, o_t, wproj),
         "gemm_dls[fc2]": functools.partial(torch.matmul, u_t, w2),
-        "gemm_wgrad[proj]": functools.partial(torch.matmul, o_t.t(), g2),
-        "gemm_wgrad[qkv]": functools.partial(torch.matmul, h_t.t(), dqkv_t),
-        "gemm_wgrad[fc2]": functools.partial(torch.matmul, u_t.t(), g2),
-        "gemm_wgrad[fc1]": functools.partial(torch.matmul, h2_t.t(), da_t),
-        "gemm_dgrad[proj]": functools.partial(torch.matmul, g2, wproj.t()),
-        "gemm_dgrad[fc2,gelu_tanh]": functools.partial(torch.matmul, g2,
-                                                       w2.t()),
-        "gemm_dgrad[qkv,ln]": functools.partial(torch.matmul, dqkv_t,
-                                                wqkv.t()),
-        "gemm_dgrad[fc1,ln]": functools.partial(torch.matmul, da_t, w1.t()),
         "mhsa_bwd": sdpa_backward(qkv_t, do_t, N_SLICES, S),
     })
     g3 = g2.reshape(N_SLICES, S, E)
@@ -2611,8 +2953,9 @@ def main() -> int:
         d_mean = statistics.mean(d_loss)
         med_ratio = sum(k for k, _ in meds) / sum(p_ for _, p_ in meds)
         max_ratio = sum(k for k, _ in maxes) / sum(p_ for _, p_ in maxes)
+        held = "not held" if loss_vs_oracle else f"limit {loss_tol}"
         print(f"{tag} {what} over {len(batches)} batch(es): mean |loss "
-              f"kernel - plain| {d_mean:.6g} (limit {loss_tol}; largest "
+              f"kernel - plain| {d_mean:.6g} ({held}; largest "
               f"batch {max(d_loss):.6g}); mean |loss "
               f"- {oname} loss| kernel path {statistics.mean(d_k32):.6g}, "
               f"plain path {statistics.mean(d_p32):.6g}; worst "
@@ -2623,8 +2966,7 @@ def main() -> int:
         if loss_vs_oracle:
             ratio = statistics.mean(d_k32) / statistics.mean(d_p32)
             print(f"{tag} {what}: loss vs {oname}, kernel / plain path, "
-                  f"pooled: {ratio:.4g} (limit {STEP_F32_RATIO}; the "
-                  f"kernel-vs-plain mean above is not held)")
+                  f"pooled: {ratio:.4g} (limit {STEP_F32_RATIO})")
             check(ratio <= STEP_F32_RATIO, f"{what} loss vs {oname}: kernel "
                   f"/ plain {ratio}: {d_k32} / {d_p32}")
         else:
@@ -2657,7 +2999,7 @@ def main() -> int:
     per_step = {**zero, "ln_gemm": 2 * n_blocks, "mhsa": n_blocks,
                 "gemm_residual": 2 * n_blocks, "gemm_dls": 2 * n_blocks,
                 "gemm_wgrad": 4 * n_blocks, "gemm_dgrad": 4 * n_blocks,
-                "mhsa_bwd": n_blocks}
+                "mhsa_bwd": n_blocks, "ln_pullback": 2 * n_blocks}
     calls_per_step = {**zero_calls,
                       "fused_attention_sublayer_train": n_blocks,
                       "fused_mlp_sublayer_train": n_blocks}
@@ -2731,7 +3073,8 @@ def main() -> int:
     # -- 10. train times ----------------------------------------------------
     stamp(tag, "10")
     ttimed = {name: (time_ms(kern), time_ms(plain))
-              for name, (kern, plain) in tcases.items()}
+              for name, (kern, plain) in tcases.items()
+              if not name.startswith(BWD_GEMMS)}  # phase 41 times these
     for name, (km, pm_) in ttimed.items():
         print(f"{tag} time {name}: kernel {km:.4f} ms, plain {pm_:.4f} ms")
     lib_ms.update({name: time_ms(fn) for name, fn in library.items()
@@ -3235,13 +3578,6 @@ def main() -> int:
         "gemm_residual[proj,ls,S=201]": functools.partial(torch.matmul, o3,
                                                           wproj),
         "gemm_dls[proj,S=201]": functools.partial(torch.matmul, o3, wproj),
-        "gemm_wgrad[proj,S=201]": functools.partial(torch.matmul, o3.t(), g3),
-        "gemm_dgrad[proj,S=201]": functools.partial(torch.matmul, g3,
-                                                    wproj.t()),
-        "gemm_wgrad[qkv,S=201]": functools.partial(torch.matmul, h3.t(),
-                                                   dqkv3),
-        "gemm_dgrad[qkv,ln,S=201]": functools.partial(torch.matmul, dqkv3,
-                                                      wqkv.t()),
     })
     library["ln_gemm_train[qkv,S=201]"] = library["ln_gemm[qkv,S=201]"]
     library["mlp_sublayer[S=201,eps=1e-5,tanh,ls]"] = lambda: torch.addmm(
@@ -3340,7 +3676,7 @@ def main() -> int:
     per_step3 = {**zero, "ln_gemm": 2 * n_blocks, "mhsa_rope": n_blocks,
                  "gemm_residual": 2 * n_blocks, "gemm_dls": 2 * n_blocks,
                  "gemm_wgrad": 4 * n_blocks, "gemm_dgrad": 4 * n_blocks,
-                 "mhsa_bwd_rope": n_blocks}
+                 "mhsa_bwd_rope": n_blocks, "ln_pullback": 2 * n_blocks}
     calls_per_step3 = {**zero_calls,
                        "fused_attention_sublayer_train_rope": n_blocks,
                        "fused_mlp_sublayer_train": n_blocks}
@@ -3385,7 +3721,8 @@ def main() -> int:
     stamp(tag, "20")
     with torch.inference_mode():
         rtimed = {name: (time_ms(kern), time_ms(plain)) for name, (kern, plain)
-                  in {**rcases, **rsub, **rchain}.items()}
+                  in {**rcases, **rsub, **rchain}.items()
+                  if not name.startswith(BWD_GEMMS)}  # timed in phase 41
         # each RoPE kernel against itself without RoPE on the same inputs,
         # in turns (with, without, without, with): the mean of each pair
         ab = {}
@@ -3814,12 +4151,6 @@ def main() -> int:
     library.update({
         "ln_gemm_swiglu_train[w12]": swiglu_library,
         "gemm_dls[w3]": functools.partial(torch.matmul, gate_in, w3),
-        "gemm_wgrad[w3]": functools.partial(torch.matmul, gate_in.t(), gzg),
-        "gemm_dgrad_swiglu[w3]": functools.partial(torch.matmul, gzg, w3.t()),
-        "gemm_wgrad[w12]": functools.partial(torch.matmul, hg_in.t(),
-                                             dh12_in),
-        "gemm_dgrad[w12,ln]": functools.partial(torch.matmul, dh12_in,
-                                                w12.t()),
         "ln_pullback[E=1536]": ln_backward_library(dhg_in, xg2, lng_s),
     })
     # the LN pullback of the MLP backward at ViT-B / ViT-L widths (the fused
@@ -3847,8 +4178,6 @@ def main() -> int:
             lnw)
         cost[f"gemm_dgrad[fc1,ln,E={e_}]"] = mm_cost(
             MG, 4 * e_, e_, 4 * MG * e_ + 4 * 3 * e_)
-        library[f"gemm_dgrad[fc1,ln,E={e_}]"] = functools.partial(
-            torch.matmul, daw, w1w.t())
         dhw = fb._mm(daw, w1w.t())
         ucases[f"ln_pullback[E={e_}]"] = pair(
             fb.ln_pullback, fb._ln_pullback_ref, dhw, *lnw)
@@ -3953,7 +4282,8 @@ def main() -> int:
     # their times here, so that the steps of phases 27-30 have the room of
     # these inputs (the ViT-L step's checks peak near 70 GiB)
     utimed = {name: (time_ms(kern), time_ms(plain))
-              for name, (kern, plain) in ucases.items()}
+              for name, (kern, plain) in ucases.items()
+              if not name.startswith(BWD_GEMMS)}  # timed in phase 41
     lib_ms.update({name: time_ms(fn) for name, fn in library.items()
                    if name not in lib_ms})
     for name, (km, pm_) in utimed.items():
@@ -3979,7 +4309,7 @@ def main() -> int:
 
     def unfrozen_counts(nb, swiglu=False, remat=False):
         """(launches, sub-layer calls) of one unfrozen train step over nb
-        kernel blocks at E != 384 (the LN pullback through `ln_pullback`);
+        kernel blocks (the LN pullback through `ln_pullback`);
         with remat the backward runs each block's forward again, whose FFN
         sub-layer launches its kernels but returns no call: the checkpoint
         stops the recompute as that sub-layer saves the block's last
@@ -4957,6 +5287,15 @@ def main() -> int:
         for key, val in theirs.items():
             mine.setdefault(key, val)
 
+    # ======================================================================
+    # Phase 41: `gemm_dgrad` / `gemm_wgrad` redesigned (the wgmma mainloop)
+    # ======================================================================
+    berrs, btimed, bcost, blib = bwd_gemm_phase(tag, dev, fb)
+    errs.update(berrs)
+    lib_ms.update(blib)  # the library calls for the same work
+    for key, val in bcost.items():
+        cost.setdefault(key, val)
+
     # TPU kernels: _attn_any_kernel at fused_block.py:326, _mlp_kernel at
     # :400, their train forwards _attn_train_kernel :424 and
     # _mlp_train_kernel :470, the backwards _attn_bwd_kernel :680 and
@@ -5051,6 +5390,7 @@ def main() -> int:
                 **itimed, **ltimed}
     for key, val in ptimed.items():
         alltimed.setdefault(key, val)
+    alltimed.update(btimed)
     print(f"{tag} bound: the larger of FLOPs / {PEAK_FLOPS:.4g} FLOP/s + "
           f"int8 operations / {PEAK_INT8:.4g} OP/s and bytes / "
           f"{PEAK_BYTES:.4g} B/s (each input read once, each output written "

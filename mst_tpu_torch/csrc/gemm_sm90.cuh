@@ -1,25 +1,34 @@
-// The Hopper GEMM mainloop: C[BM x BN] tiles of A[M, K] @ B[K, N], bf16 in,
-// f32 accumulators, for `sm_90a`. Used by ln_gemm.cu; the other GEMM
-// kernels of this directory (gemm_residual, gemm_dgrad, gemm_wgrad) can
-// move onto it with an epilogue of their own.
+// The Hopper GEMM mainloop: C[BM x BN] tiles of A @ B, bf16 in, f32
+// accumulators, for `sm_90a`. Used by ln_gemm.cu (A K-major, B MN-major),
+// gemm_dgrad.cu (A K-major, B K-major) and gemm_wgrad.cu (A MN-major, B
+// MN-major); gemm_wgrad.cu's probes check each layout with a bare product.
 //
-// Design (one CTA per SM, persistent over the output tiles):
-// - A [M, K] row-major (K-major) and B [K, N] row-major (the flax Dense
-//   layout: N contiguous, so B is MN-major and no transposed copy of the
-//   weights is made) are read by TMA with 128-byte swizzle. A stage holds
-//   one A box [BM rows][BK] and two B boxes [BK rows][64 columns]; the B
-//   boxes start at any two column offsets the caller picks per tile (the
-//   two halves of one 128-column panel, or the h1 and h2 panels of a gated
-//   product).
+// Design (one CTA per SM, persistent over the work units):
+// - The operands are read by TMA with 128-byte swizzle; a stage holds
+//   16 KB of A (BM output rows x BK) and 16 KB of B (BK x BN output
+//   columns), in one of two layouts each (`Major`):
+//   A K-major: A [M, K] row-major, one box [BM rows][BK] (the rows of
+//     ln_gemm's h, of gemm_dgrad's dY);
+//   A MN-major: A^T stored [K, M] row-major, two boxes [BK rows][64
+//     columns], one per consumer warpgroup (gemm_wgrad's X^T: X [M_red, K]
+//     is K-contiguous);
+//   B MN-major: B [K, N] row-major, two boxes [BK rows][64 columns] at
+//     any two column offsets the caller picks per unit (the flax Dense
+//     layout; the two halves of one 128-column panel, or the h1 and h2
+//     panels of a gated product), so no transposed copy is made;
+//   B K-major: B^T stored [N, K] row-major, one box [BN rows][BK]
+//     (gemm_dgrad's W^T: W [K_out, R] is R-contiguous).
 // - A ring of STAGES stages with a full and an empty `mbarrier` each. One
 //   producer warp (lane 0) issues the TMA loads, running ahead across
-//   tiles, so the next tile's loads overlap this tile's epilogue.
+//   units, so the next unit's loads overlap this unit's epilogue.
 // - Two consumer warpgroups, each 64 rows of the tile: per 16-deep k step
-//   one `wgmma.mma_async m64n128k16` from shared memory (A K-major, B
-//   transposed: the `imm-trans-b` bit), one commit group per stage, one
+//   one `wgmma.mma_async m64n128k16` from shared memory (the `imm-trans`
+//   bit set for an MN-major operand), one commit group per stage, one
 //   group left in flight, the stage released once its group is done.
-// - No split-K and no atomics: every output is one f32 sum in a fixed
-//   order, so a run repeats bit for bit.
+// - A work unit is an output tile and a range of the reduction (`Work`):
+//   the whole of K for ln_gemm and gemm_dgrad, one chunk of the M rows
+//   for gemm_wgrad. No split-K within a unit and no atomics: every output
+//   is one f32 sum in a fixed order, so a run repeats bit for bit.
 // The caller's kernel owns the epilogue: it reads the accumulators through
 // `acc_row` / `acc_col` (the m64nNk16 D-fragment layout) after
 // `consumer_tile` returns.
@@ -123,7 +132,10 @@ __device__ __forceinline__ void fence_acc(float (&d)[ACC]) {
   for (int i = 0; i < ACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d[64 x 128] += A[64 x 16] . B[16 x 128]; A K-major, B MN-major.
+// d[64 x 128] += A[64 x 16] . B[16 x 128]; TA / TB: the `imm-trans-a` /
+// `imm-trans-b` bits, 1 for an MN-major operand (ln_gemm: A K-major, B
+// MN-major).
+template <int TA = 0, int TB = 1>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[ACC], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n"
@@ -134,7 +146,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[ACC], uint64_t da, u
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n"
+      "%64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
@@ -147,7 +159,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[ACC], uint64_t da, u
         "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
 // ---- the D-fragment layout of m64nNk16 -----------------------------------
@@ -193,38 +205,90 @@ __device__ __forceinline__ void init_barriers(const Smem& s) {
   }
 }
 
+// ---- operand layouts -----------------------------------------------------
+
+enum Major : int { K_MAJOR = 0, MN_MAJOR = 1 };
+
+// One work unit: output rows m0.. (A), the first columns of the two B
+// boxes (MN-major; K-major B reads one box of BN rows from c0), the first
+// reduction index k0 and the number of BK-deep k tiles.
+struct Work {
+  int m0, c0, c1, k0, nk;
+};
+
+// The stage's A (at `a`) and B (at `b`) for k tile `k` of unit w.
+template <int AM, int BMJ>
+__device__ __forceinline__ void load_stage(unsigned char* a, unsigned char* b,
+                                           const CUtensorMap* ta, const CUtensorMap* tb,
+                                           const Work& w, int k, uint64_t* bar) {
+  if constexpr (AM == K_MAJOR) {
+    tma_load_2d(a, ta, k, w.m0, bar);
+  } else {  // A^T [K, M]: the two warpgroups' 64 rows, k rows down
+    tma_load_2d(a, ta, w.m0, k, bar);
+    tma_load_2d(a + B_BOX, ta, w.m0 + 64, k, bar);
+  }
+  if constexpr (BMJ == MN_MAJOR) {
+    tma_load_2d(b, tb, w.c0, k, bar);
+    tma_load_2d(b + B_BOX, tb, w.c1, k, bar);
+  } else {  // B^T [N, K]: BN rows from c0
+    tma_load_2d(b, tb, k, w.c0, bar);
+  }
+}
+
+// The shared-memory descriptors of k step kk (16 deep) of the stage's A for
+// warpgroup wg and of its B. K-major (128-byte rows, 8-row groups 1024
+// bytes apart): a k step is 32 bytes along the row, the leading byte
+// offset unused. MN-major (rows of 64 MN values, one per k): the two 64-wide
+// boxes 8 KB apart (LBO), 8-row k groups 1024 bytes apart (SBO), a k step
+// 16 rows. SWAP exchanges LBO and SBO: a planted fault for the layout
+// probes of gemm_wgrad.cu, never launched on a path.
+template <int AM, bool SWAP>
+__device__ __forceinline__ uint64_t desc_a(const unsigned char* a, int wg, int kk) {
+  const unsigned char* p = a + wg * (64 * BK * 2) + (AM == K_MAJOR ? kk * 32 : kk * 16 * 128);
+  const uint32_t lbo = AM == K_MAJOR ? 16 : B_BOX, sbo = 1024;
+  return SWAP ? smem_desc(p, sbo, lbo) : smem_desc(p, lbo, sbo);
+}
+template <int BMJ, bool SWAP>
+__device__ __forceinline__ uint64_t desc_b(const unsigned char* b, int kk) {
+  const unsigned char* p = b + (BMJ == K_MAJOR ? kk * 32 : kk * 16 * 128);
+  const uint32_t lbo = BMJ == K_MAJOR ? 16 : B_BOX, sbo = 1024;
+  return SWAP ? smem_desc(p, sbo, lbo) : smem_desc(p, lbo, sbo);
+}
+
 // ---- the two roles -------------------------------------------------------
 
-// The producer (lane 0 of the producer warp): the k tiles of every output
-// tile this CTA owns, in the consumers' order. `col0(t)` / `col1(t)` give the
-// first column of the two B boxes of tile column t.
-template <class Col0, class Col1>
+// The producer (lane 0 of the producer warp): the k tiles of every work
+// unit this CTA owns, in the consumers' order; `unit(u)` gives unit u's
+// `Work`.
+template <int AM = K_MAJOR, int BMJ = MN_MAJOR, class Unit>
 __device__ __forceinline__ void producer(const Smem& s, const CUtensorMap* ta,
-                                         const CUtensorMap* tb, int tiles, int tiles_n, int nk,
-                                         Col0 col0, Col1 col1) {
+                                         const CUtensorMap* tb, int units, Unit unit) {
   tma_prefetch(ta);
   tma_prefetch(tb);
   uint32_t it = 0;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int m0 = (tile / tiles_n) * BM;
-    const int tn = tile % tiles_n;
-    const int c0 = col0(tn), c1 = col1(tn);
-    for (int kt = 0; kt < nk; ++kt, ++it) {
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const Work w = unit(u);
+    for (int kt = 0; kt < w.nk; ++kt, ++it) {
       const int st = it % STAGES;
       mbar_wait(&s.empty[st], ((it / STAGES) & 1) ^ 1);
       unsigned char* dst = s.stage + size_t(st) * STAGE_BYTES;
       mbar_expect_tx(&s.full[st], STAGE_BYTES);
-      tma_load_2d(dst, ta, kt * BK, m0, &s.full[st]);
-      tma_load_2d(dst + A_BYTES, tb, c0, kt * BK, &s.full[st]);
-      tma_load_2d(dst + A_BYTES + B_BOX, tb, c1, kt * BK, &s.full[st]);
+      load_stage<AM, BMJ>(dst, dst + A_BYTES, ta, tb, w, w.k0 + kt * BK, &s.full[st]);
     }
   }
 }
 
-// One consumer warpgroup's product for one tile: d = A[m0 + 64 wg ..][:] .
-// B[:, the tile's two boxes], ring counter `it` advanced past the tile.
+struct NoStageHook {
+  __device__ __forceinline__ void operator()(const unsigned char*) const {}
+};
+
+// One consumer warpgroup's product for one work unit of nk k tiles: d = A[m0
+// + 64 wg ..][:] . B[:, the unit's columns], ring counter `it` advanced past
+// the unit. `hook(b)` runs on each stage's B after its products are issued
+// and before the stage is released (gemm_wgrad sums dY's columns there).
+template <int AM = K_MAJOR, int BMJ = MN_MAJOR, bool SWAP = false, class Hook = NoStageHook>
 __device__ __forceinline__ void consumer_tile(const Smem& s, int wg, int nk, uint32_t& it,
-                                              float (&d)[ACC]) {
+                                              float (&d)[ACC], Hook hook = Hook()) {
 #pragma unroll
   for (int i = 0; i < ACC; ++i) d[i] = 0.0f;
   fence_acc(d);
@@ -233,19 +297,15 @@ __device__ __forceinline__ void consumer_tile(const Smem& s, int wg, int nk, uin
   for (int kt = 0; kt < nk; ++kt, ++it) {
     const int st = it % STAGES;
     mbar_wait(&s.full[st], (it / STAGES) & 1);
-    const unsigned char* a = s.stage + size_t(st) * STAGE_BYTES + wg * (64 * BK * 2);
-    const unsigned char* b = s.stage + size_t(st) * STAGE_BYTES + A_BYTES;
+    const unsigned char* a = s.stage + size_t(st) * STAGE_BYTES;
+    const unsigned char* b = a + A_BYTES;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      // A: K-major rows of 128 bytes, 8-row groups 1024 bytes apart; a
-      // 16-deep k step is 32 bytes along the row. B: MN-major, the two
-      // 64-column boxes 8 KB apart (LBO), 8-row k groups 1024 bytes apart
-      // (SBO); a k step is 16 rows.
-      wgmma_m64n128k16(d, smem_desc(a + kk * 32, 16, 1024),
-                       smem_desc(b + kk * 16 * 128, B_BOX, 1024));
-    }
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_m64n128k16<AM, BMJ == MN_MAJOR>(d, desc_a<AM, SWAP>(a, wg, kk),
+                                            desc_b<BMJ, SWAP>(b, kk));
     wgmma_commit();
+    hook(b);
     if (prev >= 0) {
       wgmma_wait<1>();
       if (lane == 0) mbar_arrive(&s.empty[prev]);
@@ -260,6 +320,22 @@ __device__ __forceinline__ void consumer_tile(const Smem& s, int wg, int nk, uin
 // Sync the 128 threads of consumer warpgroup wg (named barrier 1 + wg).
 __device__ __forceinline__ void wg_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// f32 epilogues (gemm_dgrad, gemm_wgrad) stage a warpgroup's accumulators
+// 64 columns at a time in its staging tile, as [64][EPI_LD_F] floats.
+constexpr int EPI_LD_F = 68;  // 64 columns + 4
+static_assert(64 * EPI_LD_F * 4 == EPI_BYTES, "the f32 half tile fills the staging tile");
+
+// Stage this thread's accumulators of tile columns [64 h, 64 h + 64) into
+// the warpgroup's f32 tile `epi` (columns relative to 64 h).
+__device__ __forceinline__ void stage_f32_half(float* epi, int t, const float (&d)[ACC], int h) {
+#pragma unroll
+  for (int i = 0; i < ACC / 2; i += 2) {
+    const int j = i + h * (ACC / 2);
+    *reinterpret_cast<float2*>(epi + acc_row(t, j) * EPI_LD_F + acc_col(t, j) - 64 * h) =
+        make_float2(d[j], d[j + 1]);
+  }
 }
 
 // ---- host side -----------------------------------------------------------
@@ -305,11 +381,18 @@ inline cudaError_t tma_map_2d(CUtensorMap* map, const void* ptr, uint64_t rows, 
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// The current device's SM count.
+inline cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return e;
+}
+
 // The persistent grid: one CTA per SM, or one per tile if there are fewer.
 inline cudaError_t persistent_grid(int tiles, int* grid) {
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  const cudaError_t e = sm_count(&sms);
   if (e != cudaSuccess) return e;
   *grid = tiles < sms ? tiles : sms;
   return cudaSuccess;

@@ -163,9 +163,11 @@ gemm_ln_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
   const int nk = K / BK;
   if (threadIdx.x >= CONSUMERS * 128) {  // the producer warp
     if (threadIdx.x == CONSUMERS * 128)
-      producer(
-          s, &ta, &tb, tiles, tiles_n, nk, [=](int tn) { return tn * BN_OUT; },
-          [=](int tn) { return GATED ? N + tn * BN_OUT : tn * BN_OUT + 64; });
+      producer(s, &ta, &tb, tiles, [=](int tile) {
+        const int tn = tile % tiles_n;
+        return Work{(tile / tiles_n) * BM, tn * BN_OUT,
+                    GATED ? N + tn * BN_OUT : tn * BN_OUT + 64, 0, nk};
+      });
     return;
   }
   const int wg = threadIdx.x >> 7;

@@ -31,6 +31,7 @@ _lib = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # x, ln_s, ln_b, h, M, K, eps, stream
     "mst_ln_rows": (_P, _P, _P, _P, _I, _I, _F, _P),
@@ -49,14 +50,16 @@ _SIGNATURES = {
                  _P),
     # a, w, bias, ls, g, gz, work, dls, M, K, N, stream
     "mst_gemm_dls": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # a, b, dw, db, work, M, K, N, rows_per_split, stream
-    "mst_gemm_wgrad": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # dy, w, out, M, R, K, a|NULL, act, x|NULL, g, lns, eps, work, dlns,
-    # dlnb, stream
-    "mst_gemm_dgrad": (_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _F, _P,
-                       _P, _P, _P),
-    # dy, w, out (f32), M, R, K, stream
-    "mst_gemm_dgrad_f32": (_P, _P, _P, _I, _I, _I, _P),
+    # a, b, dw, db, work, work_bytes, M, K, N, stream
+    "mst_gemm_wgrad": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
+    # M, K, N, geo (host int64 [8])
+    "mst_wgrad_geometry": (_I, _I, _I, _P),
+    # dy, w, out, a|NULL, M, R, K, mode, act, stream
+    "mst_gemm_dgrad": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # M, R, K, geo (host int64 [8])
+    "mst_dgrad_geometry": (_I, _I, _I, _P),
+    # a, b, c (f32), M, N, K, layout, swap, stream: the layout probes
+    "mst_gemm_probe": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     # dh (f32), x, g, lns, eps, out, work, dlns, dlnb, M, K, stream
     "mst_ln_pullback": (_P, _P, _P, _P, _F, _P, _P, _P, _P, _I, _I, _P),
     # qkv, o, dout, lse, delta, dqkv, rope_cos|NULL, rope_sin|NULL, N, S, E,

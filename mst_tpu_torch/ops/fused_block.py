@@ -33,10 +33,12 @@ memory, so each sub-layer here is a short chain of CUDA kernels
 - SwiGLU:    `ln_gemm_swiglu` (LN + w12 + gate; in train mode also h and
   the rounded h12) -> `gemm_residual` (w3 + ls + x)
 - backward:  `gemm_dls` (ls grad), `gemm_wgrad` (weight and bias grads),
-  `gemm_dgrad` (input grads, with the GELU', the SiLU-gate or the
-  LN-pullback epilogue; the pullback at rows wider than 384 writes dh in
-  f32 for the row kernel `ln_pullback`), `mhsa_bwd` (dq, dk, dv), chained
-  by `_attn_train_bwd` / `_mlp_train_bwd` / `_swiglu_train_bwd`
+  `gemm_dgrad` (input grads, with the GELU' or the SiLU-gate epilogue, or
+  dh in f32 for the LN pullback of the row kernel `ln_pullback`),
+  `mhsa_bwd` (dq, dk, dv), chained by `_attn_train_bwd` /
+  `_mlp_train_bwd` / `_swiglu_train_bwd`; `gemm_dgrad` and `gemm_wgrad`
+  run on the TMA + wgmma GEMM of `ln_gemm` with operand layouts of their
+  own
 
 Every kernel wrapper dispatches on the device of the tensor it is given: a
 CUDA tensor launches the kernel (bf16 only) and counts the launch; a CPU
@@ -77,8 +79,8 @@ from mst_tpu_torch.ops.rotary import _rotate_half_interleaved, apply_rope_tables
 
 _LOG2E = math.log2(math.e)
 
-# Activation codes of `ln_gemm` (csrc/common.cuh `Act`), and of
-# `gemm_dgrad`'s SiLU-gate epilogue (csrc/gemm_dgrad.cu `ACT_SWIGLU`).
+# Activation codes of `ln_gemm` (csrc/common.cuh `Act`); ACT_SWIGLU asks
+# `gemm_dgrad` for its SiLU-gate epilogue.
 ACT_NONE, ACT_GELU_TANH, ACT_GELU_ERF, ACT_SWIGLU = 0, 1, 2, 3
 
 
@@ -505,6 +507,11 @@ def _check_gemm_shape(m: int, k: int, n: int, gated: bool) -> None:
 # `mst_gemm_geometry` exports: the tests hold the constants to the header
 # and `chip_smoke.py` holds the whole to the export on the card.
 GEMM_STAGES, GEMM_THREADS, H100_SMS = 5, 2 * 128 + 32, 132
+# Its dynamic shared memory: 1 KB of alignment, the ring (16 KB of A and
+# 16 KB of B a stage), one 17 KB staging tile per consumer warpgroup (bf16
+# [64][BN + 8], or f32 [64][68] for the backward GEMMs) and the barriers.
+GEMM_SMEM = (1024 + GEMM_STAGES * (GEMM_BM * GEMM_BK * 2 + 2 * GEMM_BK * 64 * 2)
+             + 2 * 64 * (GEMM_BN + 8) * 2 + 2 * GEMM_STAGES * 8)
 
 
 def ln_gemm_launch(m: int, k: int, n: int,
@@ -514,12 +521,9 @@ def ln_gemm_launch(m: int, k: int, n: int,
     shared memory in bytes. Raises ValueError where the kernel would."""
     _check_gemm_shape(m, k, n, gated)
     tiles = -(-m // GEMM_BM) * (n // (GEMM_BN // 2 if gated else GEMM_BN))
-    stage = GEMM_BM * GEMM_BK * 2 + 2 * GEMM_BK * 64 * 2
-    epilogue = 2 * 64 * (GEMM_BN + 8) * 2  # one bf16 tile per warpgroup
-    smem = 1024 + GEMM_STAGES * stage + epilogue + 2 * GEMM_STAGES * 8
     return SimpleNamespace(tiles=tiles, grid=min(tiles, H100_SMS),
                            threads=GEMM_THREADS, stages=GEMM_STAGES,
-                           smem=smem)
+                           smem=GEMM_SMEM)
 
 
 def ln_rows(x, ln_s, ln_b, eps: float):
@@ -753,21 +757,73 @@ def gemm_dls(a, w, b, ls, g):
     return gz, dls
 
 
-# The width of `gemm_dgrad`'s fused LN-pullback epilogue: a block of
-# csrc/gemm_dgrad.cu holds whole 384-wide rows for the row statistics. Other
-# widths up to LN_PULLBACK_MAX_K take the GEMM's f32 output through
-# `ln_pullback`.
-LN_PULLBACK_K = 384
+# The widest row of the LN pullback (`ln_pullback`, after `gemm_dgrad`'s f32
+# product at every width).
 LN_PULLBACK_MAX_K = 1536
 
-# Target blocks of one gemm_wgrad launch: its [K, N] output is only 9-72
-# tiles of 64 x 128 at ViT-S, so the M rows are split to fill the 132 SMs a
-# few blocks deep. A split is at most _WGRAD_MAX_ROWS rows long: one f32
-# accumulator's error grows with the rows it adds (on the card ~1.3e-9 of
-# the largest sum per row), so giant2's w12 grad, 1536 x 8192 tiles enough
-# to fill the card unsplit, would add all 65,792 rows in one chain (8e-5).
-_WGRAD_BLOCKS = 1056
+# `gemm_wgrad` cuts the M rows into chunks of at most _WGRAD_MAX_ROWS (a
+# multiple of the GEMM's 64-row k tile): one f32 accumulator's error grows
+# with the rows it adds (on the card ~1.3e-9 of the largest sum per row), so
+# giant2's w12 grad, 1536 x 8192 tiles enough to fill the card unsplit,
+# would add all 65,792 rows in one chain (8e-5). The chunks' f32 partial
+# tiles are added in a fixed order.
 _WGRAD_MAX_ROWS = 8192
+
+# `gemm_dgrad`'s epilogue modes (csrc/gemm_dgrad.cu `Mode`).
+_DGRAD_PLAIN, _DGRAD_GELU, _DGRAD_SWIGLU, _DGRAD_F32 = 0, 1, 2, 3
+
+
+def _sms(t) -> int:
+    """The SM count of the card `t` lies on (the persistent grids' size)."""
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
+def _check_dgrad_shape(m: int, r: int, k: int) -> None:
+    if m < 1 or r < GEMM_BK or r % GEMM_BK or k < GEMM_BN or k % GEMM_BN:
+        raise ValueError(f"gemm_dgrad needs M >= 1, R % {GEMM_BK} == 0 and K "
+                         f"% {GEMM_BN} == 0; got M={m}, R={r}, K={k}")
+
+
+def _check_wgrad_shape(m: int, k: int, n: int) -> None:
+    if m < 1 or k < GEMM_BM or k % GEMM_BM or n < GEMM_BN or n % GEMM_BN:
+        raise ValueError(f"gemm_wgrad needs M >= 1, K % {GEMM_BM} == 0 and N "
+                         f"% {GEMM_BN} == 0; got M={m}, K={k}, N={n}")
+
+
+def gemm_dgrad_launch(m: int, r: int, k: int,
+                      sms: int = H100_SMS) -> SimpleNamespace:
+    """The launch geometry of `gemm_dgrad` at dy [m, r] -> [m, k] on a card
+    of `sms` SMs (csrc/gemm_dgrad.cu `mst_dgrad_geometry`): one work unit
+    per 128 x 128 output tile, the whole reduction (rows = r) in each, no
+    workspace. Raises ValueError where the kernel would."""
+    _check_dgrad_shape(m, r, k)
+    units = -(-m // GEMM_BM) * (k // GEMM_BN)
+    return SimpleNamespace(units=units, grid=min(units, sms),
+                           threads=GEMM_THREADS, stages=GEMM_STAGES,
+                           smem=GEMM_SMEM, splits=1, rows=r, workspace=0)
+
+
+def gemm_wgrad_launch(m: int, k: int, n: int,
+                      sms: int = H100_SMS) -> SimpleNamespace:
+    """The launch geometry of `gemm_wgrad` at a [m, k], b [m, n] on a card
+    of `sms` SMs (csrc/gemm_wgrad.cu `plan`): the M rows cut into `splits`
+    chunks of `rows` (a multiple of 64, at most _WGRAD_MAX_ROWS), as many
+    as fill whole waves of (split, 128 x 128 tile) work units; workspace
+    bytes for the f32 partial tiles (more than one split) and the db
+    partials (two per split). Raises ValueError where the kernel would."""
+    _check_wgrad_shape(m, k, n)
+    tiles = (k // GEMM_BM) * (n // GEMM_BN)
+    need = -(-m // _WGRAD_MAX_ROWS)
+    waves = -(-need * tiles // sms)
+    splits = max(need, waves * sms // tiles)
+    rows = -(-(-(-m // splits)) // GEMM_BK) * GEMM_BK
+    splits = -(-m // rows)
+    workspace = 4 * ((splits * k * n if splits > 1 else 0) + 2 * splits * n)
+    units = tiles * splits
+    return SimpleNamespace(units=units, grid=min(units, sms),
+                           threads=GEMM_THREADS, stages=GEMM_STAGES,
+                           smem=GEMM_SMEM, splits=splits, rows=rows,
+                           workspace=workspace)
 
 
 def gemm_wgrad(a, b):
@@ -777,21 +833,15 @@ def gemm_wgrad(a, b):
         return _gemm_wgrad_ref(a, b)
     m, k = a.shape
     n = b.shape[1]
-    if k % 64 or n % 128:
-        raise ValueError(f"gemm_wgrad needs K % 64 == 0 and N % 128 == 0; "
-                         f"got K={k}, N={n}")
+    _check_wgrad_shape(m, k, n)
     _mat(a, "a", (m, k), b)
     _mat(b, "b", (m, n), b)
-    tiles = (k // 64) * (n // 128)
-    splits = max(1, min(-(-_WGRAD_BLOCKS // tiles), -(-m // 256)),
-                 -(-m // _WGRAD_MAX_ROWS))
-    rows = -(-(-(-m // splits)) // 32) * 32
-    splits = -(-m // rows)
+    geo = gemm_wgrad_launch(m, k, n, _sms(b))
     dw, db = _f32((k, n), b), _f32((n,), b)
-    work = _f32((splits * (k * n + n),), b)
+    work = _f32((geo.workspace // 4,), b)
     err = _build.lib().mst_gemm_wgrad(
         a.data_ptr(), b.data_ptr(), dw.data_ptr(), db.data_ptr(),
-        work.data_ptr(), m, k, n, rows, _stream(b))
+        work.data_ptr(), geo.workspace, m, k, n, _stream(b))
     _build.check(err, "mst_gemm_wgrad")
     gemm_wgrad.launches += 1
     return dw, db
@@ -802,55 +852,42 @@ def gemm_dgrad(dy, w, a=None, act: int = ACT_NONE, ln=None):
     with the epilogue of `_gemm_dgrad_ref`: `ln` = (x, g, ln_s, eps) ->
     (dx, dln_s, dln_b); `a` = h12 [M, 2K] with ACT_SWIGLU -> dh12 [M, 2K]
     (counted apart); `a` (with a GELU `act`) -> bf16(d * act'(a)); neither
-    -> bf16(d). The LN pullback is fused at K = LN_PULLBACK_K; at other
-    widths the GEMM writes dh in f32 and `ln_pullback` takes it from there."""
+    -> bf16(d). With `ln` the GEMM writes dh in f32 and `ln_pullback` takes
+    it from there."""
     if not _on_cuda(dy):
         return _gemm_dgrad_ref(dy, w, a, act, ln)
     m, r = dy.shape
     k = w.shape[0]
-    if r % 32 or k % 128 or (ln is not None and k > LN_PULLBACK_MAX_K):
-        raise ValueError(f"gemm_dgrad needs R % 32 == 0 and K % 128 == 0 (K "
-                         f"<= {LN_PULLBACK_MAX_K} with the LN epilogue); got "
-                         f"R={r}, K={k}")
+    _check_dgrad_shape(m, r, k)
+    if ln is not None and k > LN_PULLBACK_MAX_K:
+        raise ValueError(f"gemm_dgrad's LN pullback needs K <= "
+                         f"{LN_PULLBACK_MAX_K}; got K={k}")
     _mat(dy, "dy", (m, r), dy)
     _mat(w, "w", (k, r), dy)
-    lib = _build.lib()
-    if ln is not None and k != LN_PULLBACK_K:
-        dh = _f32((m, k), dy)
-        err = lib.mst_gemm_dgrad_f32(dy.data_ptr(), w.data_ptr(),
-                                     dh.data_ptr(), m, r, k, _stream(dy))
-        _build.check(err, "mst_gemm_dgrad_f32")
-        _count(gemm_dgrad)
-        return ln_pullback(dh, *ln)
-    swiglu = act == ACT_SWIGLU
-    out = torch.empty((m, 2 * k if swiglu else k), dtype=dy.dtype,
-                      device=dy.device)
-    x = g = lns = work = dlns = dlnb = None
-    eps = 0.0
-    if ln is not None:
-        x, g, lns, eps = ln
-        _mat(x, "x", (m, k), dy)
-        _mat(g, "g", (m, k), dy)
-        lns = _vec(lns, "ln_s", k, dy)
-        work = _f32((2 * -(-m // 32), k), dy)
-        dlns, dlnb = _f32((k,), dy), _f32((k,), dy)
-    elif swiglu:
-        _mat(a, "h12", (m, 2 * k), dy)
-    elif a is not None:
-        _mat(a, "a", (m, k), dy)
-    err = lib.mst_gemm_dgrad(
-        dy.data_ptr(), w.data_ptr(), out.data_ptr(), m, r, k,
-        _ptr(None if ln is not None else a), int(act), _ptr(x), _ptr(g),
-        _ptr(lns), float(eps), _ptr(work), _ptr(dlns), _ptr(dlnb),
-        _stream(dy))
+    swiglu = act == ACT_SWIGLU and ln is None
+    if ln is not None:  # dh in f32, for `ln_pullback`
+        _mat(ln[0], "x", (m, k), dy)
+        _mat(ln[1], "g", (m, k), dy)
+        mode, a = _DGRAD_F32, None
+        out = _f32((m, k), dy)
+    else:
+        mode = (_DGRAD_SWIGLU if swiglu else _DGRAD_PLAIN if a is None
+                else _DGRAD_GELU)
+        if a is not None:
+            _mat(a, "h12" if swiglu else "a", (m, 2 * k if swiglu else k), dy)
+        out = torch.empty((m, 2 * k if swiglu else k), dtype=dy.dtype,
+                          device=dy.device)
+    err = _build.lib().mst_gemm_dgrad(
+        dy.data_ptr(), w.data_ptr(), out.data_ptr(), _ptr(a), m, r, k, mode,
+        int(act), _stream(dy))
     _build.check(err, "mst_gemm_dgrad")
     _count(gemm_dgrad, "swiglu" if swiglu else None)
-    return (out, dlns, dlnb) if ln is not None else out
+    return out if ln is None else ln_pullback(out, *ln)
 
 
 def ln_pullback(dh, x, g, ln_s, eps):
     """The LN pullback plus the residual from dh [M, K] f32 (the row kernel
-    of `gemm_dgrad`'s LN epilogue at K != LN_PULLBACK_K): x, g [M, K] ->
+    after `gemm_dgrad`'s f32 product): x, g [M, K] ->
     (dx [M, K], dln_s [K] f32, dln_b [K] f32)."""
     if not _on_cuda(dh):
         return _ln_pullback_ref(dh, x, g, ln_s, eps)

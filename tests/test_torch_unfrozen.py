@@ -5,9 +5,9 @@ CPU tensors against `mst_tpu`, in f32 on the same numpy inputs:
   the port's kernel chain for the XLA `_swiglu_train_bwd`): the forward and
   its residuals, the backward on JAX's residuals, and every argument's grad
   against `jax.grad` of `fused_swiglu_sublayer_train`;
-- the wide LN-pullback route of `gemm_dgrad` (the GEMM's f32 dh, then the
-  row kernel `ln_pullback`, which every width but 384 takes) inside the
-  attention and MLP train sub-layers, against JAX's Pallas backward and,
+- the LN-pullback route of `gemm_dgrad` (the GEMM's f32 dh, then the row
+  kernel `ln_pullback`, which every width takes) inside the attention and
+  MLP train sub-layers, against JAX's Pallas backward and,
   with `_PALLAS_BWD_MAX_E` patched to 0, its XLA backward (the one JAX runs
   at E > 1024);
 - `remat`: two unfrozen AdamW steps of a `tiny128` SwiGLU model against the
@@ -199,12 +199,12 @@ def test_swiglu_derivative_epilogue_rounds_du_first():
     assert torch.equal(out, want)
 
 
-# -- the wide LN-pullback route (E != 384 on the card) ---------------------------
+# -- the LN-pullback route (every width on the card) ---------------------------
 
 
 def _wide(ops):
-    """`ops` with `gemm_dgrad`'s LN epilogue as the card runs it at every
-    width but 384: the GEMM's f32 dh, then `ln_pullback`."""
+    """`ops` with `gemm_dgrad`'s LN epilogue spelt out as the card runs it
+    at every width: the GEMM's f32 dh, then `ln_pullback`."""
     def gemm_dgrad(dy, w, a=None, act=tfb.ACT_NONE, ln=None):
         if ln is None:
             return ops.gemm_dgrad(dy, w, a, act)
@@ -217,7 +217,7 @@ def _wide(ops):
 @pytest.mark.parametrize("kind", ["attn", "mlp"])
 def test_wide_ln_route_train_sublayer_grads_match_mst_tpu(kind, jax_bwd, eps,
                                                           monkeypatch):
-    """The attention and MLP train sub-layers with the wide LN route vs
+    """The attention and MLP train sub-layers with the LN route vs
     jax.grad of their JAX counterparts: the Pallas `_attn_bwd_kernel` /
     `_mlp_bwd_kernel`, or with `_PALLAS_BWD_MAX_E` patched to 0 (as
     tests/test_fused_block.py:357) `_attn_train_bwd_xla` /
@@ -244,9 +244,10 @@ def test_wide_ln_route_train_sublayer_grads_match_mst_tpu(kind, jax_bwd, eps,
 
 
 def test_ln_pullback_is_the_ln_epilogue_of_gemm_dgrad():
-    """`ln_pullback` from the f32 product equals `gemm_dgrad`'s LN epilogue
-    bit for bit (the two routes' plain versions are one function), and
-    the JAX `_ln_bwd` plus the residual to f32 rounding."""
+    """`ln_pullback` from the f32 product equals `gemm_dgrad` with `ln`
+    bit for bit (on the card the wrapper launches the f32 product, then
+    `ln_pullback`), and the JAX `_ln_bwd` plus the residual to f32
+    rounding."""
     rng = np.random.default_rng(6)
     m, r, k = 24, 64, 96
     dy, w = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
@@ -256,9 +257,9 @@ def test_ln_pullback_is_the_ln_epilogue_of_gemm_dgrad():
     ln_s = torch.from_numpy((1 + 0.1 * rng.standard_normal(k)).astype(
         np.float32))
     ln = (x, g, ln_s, 1e-6)
-    fused = tfb.gemm_dgrad(dy, w, ln=ln)
+    route = tfb.gemm_dgrad(dy, w, ln=ln)
     wide = tfb.ln_pullback(tfb._mm(dy, w.t()), *ln)
-    for a, b in zip(fused, wide):
+    for a, b in zip(route, wide):
         assert torch.equal(a, b)
     xhat, rstd = jfb._ln_recompute(_j(x)[None], _j(ln_s), 1e-6)
     jdx, jdlns, jdlnb = jfb._ln_bwd(_j((dy @ w.t()).numpy())[None], xhat,
