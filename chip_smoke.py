@@ -10,14 +10,16 @@ limit:
 
 1. device: the card, `nvidia-smi` name and power limit, TF32 off;
 2. build: `nvcc` builds `mst_tpu_torch/csrc/*.cu` (timed); `-Xptxas -v`
-   for the kernels of `ln_gemm.cu`, `gemm_dgrad.cu` and `gemm_wgrad.cu`
-   (registers, no spills; a source compiled on its own for the log where
-   the library was built before the run), the wgmma / TMA instructions of
-   their GEMMs in the SASS (`cuobjdump`: HGMMA, UTMALDG; no WMMA HMMA left
-   in `gemm_dgrad` / `gemm_wgrad`), `fused_block.ln_gemm_launch`,
-   `gemm_dgrad_launch` and `gemm_wgrad_launch` against the kernels' own
-   launch geometry (`mst_gemm_geometry`, `mst_dgrad_geometry`,
-   `mst_wgrad_geometry`), and the layout probes of `gemm_wgrad.cu`: a bare
+   for the kernels of `ln_gemm.cu`, `gemm_dgrad.cu`, `gemm_wgrad.cu` and
+   `gemm_residual.cu` (registers, no spills; a source compiled on its own
+   for the log where the library was built before the run), the wgmma /
+   TMA instructions of their GEMMs in the SASS (`cuobjdump`: HGMMA,
+   UTMALDG; no WMMA HMMA left in `gemm_dgrad` / `gemm_wgrad` /
+   `gemm_residual` / `gemm_dls`), `fused_block.ln_gemm_launch`,
+   `gemm_dgrad_launch`, `gemm_wgrad_launch` and `gemm_residual_launch`
+   against the kernels' own launch geometry (`mst_gemm_geometry`,
+   `mst_dgrad_geometry`, `mst_wgrad_geometry`, `mst_residual_geometry`),
+   and the layout probes of `gemm_wgrad.cu`: a bare
    product with B K-major (dgrad's) and with A MN-major (wgrad's) against
    `torch.matmul`, each beside a planted instance with its leading and
    stride byte offsets swapped that must fail;
@@ -254,6 +256,28 @@ recorded time, timed in turn with the library calls for the same work
 (the product plus the GELU' product, the gate's derivative or the LN
 pullback in torch ops, and the column sums for db), with the SM clock.
 
+Phase 42 holds `gemm_residual` and `gemm_dls`, now on the same mainloop
+(x or g read into the staging tile by `cp.async` while the product runs;
+dls summed per 64 rows in a fixed order, then `sum_partials`), the same
+way: each of `gemm_residual`'s four kernels (the residual with and without
+LayerScale, the product alone with and without it) and `gemm_dls` at
+every (K, N) of the paths (proj and fc2 of ViT-S / B / L, giant2's proj
+and w3) against plain under phase 3 / 7's limits, twice for the same bits,
+ViT-S at M = 65,792, 51,456, 16,448, 8,224, 771 and 1, the wider widths at
+16,448, 771 and 1 (one f32 plain product per shape, shared by the modes:
+`shared_product`); three planted faults (x from the next 64-row slab, the
+LayerScale one column over, dls with the rows past a ragged M unmasked)
+that must break their limits; each TMA GEMM launched first in a fresh host
+thread (the same bits: the thread has no current context until the
+tensor-map encoding binds one); then each product at its path shape beside
+the WMMA kernel's recorded time (`WMMA_RES_MS`), timed in turn with the
+library calls for the same work (`residual_library`: `torch.addmm` then
+`torch.addcmul`; `dls_library`: `addmm`, g * ls and the f32 column sums of
+g * z), with the SM clock. The kernels line's library times of
+`gemm_residual` / `gemm_dls` are those same-work calls. `python3
+chip_smoke.py --residual-times CHECKOUT` runs those times alone on another
+checkout's `mst_tpu_torch` (an earlier commit unpacked with `git archive`).
+
 Each phase prints its wall time. The line before the last is `{"kernels":
 [...]}`: per kernel its launches on the main path, its largest error, its
 time and its plain version's, the bound (the least time the card could
@@ -439,6 +463,22 @@ WMMA_BWD_MS = {
     "gemm_dgrad_swiglu[w3]": 5.8107, "gemm_wgrad[w12]": 13.8015,
     "gemm_dgrad[w12,ln]": 11.2080, "gemm_dgrad[fc1,ln,E=768]": 2.4768,
     "gemm_dgrad[fc1,ln,E=1024]": 4.0803}
+# Phase 42: `gemm_residual` / `gemm_dls` on the wgmma GEMM at the path row
+# counts (RES_M: BWD_M and one row). The WMMA kernels' times at the path
+# shapes (PERF.md §6: the mean of two runs of `python3 chip_smoke.py
+# --residual-times <the tree before the rewrite>` on an H100 80GB HBM3 at
+# 700 W), printed beside the new ones.
+RES_M = BWD_M + (1,)
+RES_GEMMS = ("gemm_residual", "gemm_dls")
+WMMA_RES_MS = {"gemm_residual[proj,ls]": 0.1933, "gemm_dls[proj]": 0.2171,
+    "gemm_residual[fc2,ls]": 0.5839, "gemm_dls[fc2]": 0.6227,
+    "gemm_residual[proj,E=768,ls]": 0.6316, "gemm_dls[proj,E=768]": 0.6704,
+    "gemm_residual[fc2,E=768,ls]": 2.1733, "gemm_dls[fc2,E=768]": 2.2330,
+    "gemm_residual[proj,E=1024,ls]": 1.0684, "gemm_dls[proj,E=1024]": 1.1053,
+    "gemm_residual[fc2,E=1024,ls]": 3.8703, "gemm_dls[fc2,E=1024]": 3.9402,
+    "gemm_residual[proj,E=1536,ls]": 2.2914, "gemm_dls[proj,E=1536]": 2.3350,
+    "gemm_residual[w3,ls]": 5.8576, "gemm_dls[w3]": 5.9022,
+    "gemm_residual[proj,ls,S=201]": 0.1630, "gemm_dls[proj,S=201]": 0.1825}
 T0 = time.perf_counter()
 
 
@@ -466,6 +506,24 @@ def wgrad_cost(m, k, n):
     """(FLOPs, bytes) of a [m, k]^T @ [m, n] weight grad to f32 [k, n] and
     its f32 column sums [n]."""
     return 2 * m * k * n, 2 * (m * k + m * n) + 4 * (k * n + n)
+
+
+def residual_library(a, w, b, ls, x):
+    """The library calls for `gemm_residual`'s work: torch.addmm with the
+    bias, then x + ls * y (torch.addcmul), all in bf16."""
+    bw, lw = b.to(a.dtype), ls.to(a.dtype)
+    return lambda: torch.addcmul(x, torch.addmm(bw, a, w), lw)
+
+
+def dls_library(a, w, b, ls, g):
+    """The library calls for `gemm_dls`'s work: z = torch.addmm with the
+    bias, g * ls, and the column sums of g * z in f32."""
+    bw, lw = b.to(a.dtype), ls.to(a.dtype)
+
+    def library():
+        z = torch.addmm(bw, a, w)
+        return g * lw, (g * z).sum(0, dtype=torch.float32)
+    return library
 
 
 def attn_cost(n, s, extra=0, bwd=False, heads=HEADS):
@@ -1662,14 +1720,17 @@ def tools_phases(tag, dev):
 
 # The kernels of the wgmma GEMM sources, and their entries in `-Xptxas -v`:
 # source -> {kernel: instances}. The GEMMs' SASS must hold wgmma and TMA
-# loads; those of `gemm_dgrad` / `gemm_wgrad` no WMMA HMMA either.
+# loads; those of `gemm_dgrad`, `gemm_wgrad`, `gemm_residual` and
+# `gemm_dls` no WMMA HMMA either.
 PTXAS_ENTRIES = {
     "ln_gemm.cu": {"gemm_ln_kernel": 4, "ln_rows_kernel": 5},
     "gemm_dgrad.cu": {"gemm_dgrad_kernel": 4, "ln_pullback_kernel": 1},
     "gemm_wgrad.cu": {"gemm_wgrad_kernel": 1, "probe_kernel": 4},
+    "gemm_residual.cu": {"gemm_residual_kernel": 4, "gemm_dls_kernel": 1},
 }
 SASS_GEMMS = {"gemm_ln_kernel": 4, "gemm_dgrad_kernel": 4,
-              "gemm_wgrad_kernel": 1, "probe_kernel": 4}
+              "gemm_wgrad_kernel": 1, "probe_kernel": 4,
+              "gemm_residual_kernel": 4, "gemm_dls_kernel": 1}
 
 
 def check_machine_code(tag, build_log, build_mod, lib_path) -> None:
@@ -1679,7 +1740,7 @@ def check_machine_code(tag, build_log, build_mod, lib_path) -> None:
     source on its own), and the GEMMs' wgmma and TMA instructions (HGMMA,
     UTMALDG) counted in their SASS (`cuobjdump -sass`). No spills, both
     instructions present, and no HMMA (WMMA / mma.sync) in the backward
-    GEMMs."""
+    GEMMs and in `gemm_residual` / `gemm_dls`."""
     entry = r"Compiling entry function '([^']+)'(.*?)(?=Compiling entry function|\Z)"
     for src, want in PTXAS_ENTRIES.items():
         def mine(log):
@@ -1729,12 +1790,13 @@ def check_machine_code(tag, build_log, build_mod, lib_path) -> None:
 
 
 def check_gemm_geometry(tag, fb, lib) -> None:
-    """`fused_block.ln_gemm_launch`, `gemm_dgrad_launch` and
-    `gemm_wgrad_launch` (the geometry the CPU tests read) against the
-    kernels' own, `mst_gemm_geometry`, `mst_dgrad_geometry` and
-    `mst_wgrad_geometry`, on this card: tiles or work units, grid, threads,
-    stages, shared memory (and the backward GEMMs' splits, rows per split,
-    workspace bytes), at the path's widths and row counts."""
+    """`fused_block.ln_gemm_launch`, `gemm_dgrad_launch`,
+    `gemm_wgrad_launch` and `gemm_residual_launch` (the geometry the CPU
+    tests read) against the kernels' own, `mst_gemm_geometry`,
+    `mst_dgrad_geometry`, `mst_wgrad_geometry` and `mst_residual_geometry`,
+    on this card: tiles or work units, grid, threads, stages, shared memory
+    (and the backward GEMMs' splits, rows per split, workspace bytes;
+    `gemm_dls`'s rows of partials), at the path's widths and row counts."""
     m_path = N_SLICES * S
     for m in (m_path, *RAGGED_M):
         for k in LN_GEMM_WIDTHS:
@@ -1787,6 +1849,24 @@ def check_gemm_geometry(tag, fb, lib) -> None:
           f"{w12.units} units of {w12.rows} rows, {w12.splits} splits, "
           f"{w12.workspace} bytes of workspace; ViT-S proj: {proj.units} "
           f"units, {proj.splits} splits of {proj.rows} rows)")
+    # gemm_residual / gemm_dls: proj and fc2 (giant2: w3) at every width
+    for m in RES_M:
+        for e in LN_GEMM_WIDTHS:
+            for k in (e, f_ if e == LN_GEMM_WIDTHS[-1] else 4 * e):
+                geo = (ctypes.c_int * 6)()
+                err = lib.mst_residual_geometry(m, k, e, geo)
+                check(err == 0, f"mst_residual_geometry({m}, {k}, {e}): {err}")
+                mine = fb.gemm_residual_launch(m, k, e, sms)
+                want = (mine.tiles, mine.grid, mine.threads, mine.stages,
+                        mine.smem, mine.work_rows)
+                check(tuple(geo) == want, f"mst_residual_geometry at M={m}, "
+                      f"{k} x {e}: kernel {tuple(geo)}, mirror {want}")
+    w3 = fb.gemm_residual_launch(m_path, f_, 1536, sms)
+    print(f"{tag} GEMM geometry: gemm_residual_launch equals the kernels' "
+          f"mst_residual_geometry at K x N = E x E, 4E x E (giant2 {f_} x "
+          f"1536), E = {LN_GEMM_WIDTHS}, M = {RES_M} on {sms} SMs (giant2 "
+          f"w3: {w3.tiles} tiles on {w3.grid} CTAs, {w3.work_rows} rows of "
+          f"dls partials)")
 
 
 def check_layout_probes(tag, dev, lib) -> dict:
@@ -2299,6 +2379,275 @@ def bwd_gemm_phase(tag, dev, fb):
     return errs, timed, cost, lib_ms
 
 
+# -- phase 42: `gemm_residual` / `gemm_dls` on the wgmma GEMM ---------------
+
+
+@contextlib.contextmanager
+def shared_product(fb):
+    """Within the block, the plain versions' f32 product `fb._mm(a, w)` is
+    computed once for each (a, w) and handed to every plain version that
+    asks for it again (phase 42's modes share one product per shape)."""
+    real, memo = fb._mm, {}
+
+    def mm(a, b):
+        key = (a.data_ptr(), b.data_ptr(), tuple(a.shape), tuple(b.shape),
+               a.stride(), b.stride(), a.dtype, b.dtype)
+        if key not in memo:
+            memo.clear()
+            memo[key] = real(a, b)
+        return memo[key]
+    fb._mm = mm
+    try:
+        yield
+    finally:
+        fb._mm = real
+        memo.clear()
+
+
+def residual_products(e):
+    """(label, K) of the products that end in a residual at width e: proj
+    and fc2, or giant2's proj and w3."""
+    if e == LN_GEMM_WIDTHS[-1]:
+        return [("proj", e), ("w3", LN_GEMM_F)]
+    return [("proj", e), ("fc2", 4 * e)]
+
+
+def residual_name(kind, label, e, m, mode="ls"):
+    """The kernels line's name of a `gemm_residual` / `gemm_dls` case
+    (phases 3, 7, 15, 21 and 26 name the same products so): the width
+    unless ViT-S or w3, the mode, S=201 for DINOv3's B=8 rows, else the rows
+    unless B=8."""
+    tags = [label]
+    if e != 384 and label != "w3":
+        tags.append(f"E={e}")
+    if kind == "gemm_residual":
+        tags.append(mode)
+    if m == N_SLICES * S3:
+        tags.append("S=201")
+    elif m != N_SLICES * S:
+        tags.append(f"M={m}")
+    return f"{kind}[{','.join(tags)}]"
+
+
+def residual_gemm_phase(tag, dev, fb):
+    """Phase 42: `gemm_residual` in each of its four kernels (residual with
+    and without LayerScale; the product alone with and without it, the
+    latter through `tools/_common.gemm`) and `gemm_dls`, at every (K, N) of
+    the paths (proj and fc2 of ViT-S / B / L, giant2's proj and w3),
+    against their plain versions under phase 3 / 7's limits, twice for the
+    same bits, at the row counts RES_M (ViT-S at all of them, the wider
+    widths at the train CLI's B=2 rows and the ragged ones); three planted
+    faults. Returns {case: max_abs_err} for the kernels line (the times:
+    `residual_times`)."""
+    from mst_tpu_torch.ops import _build
+    from mst_tpu_torch.tools import _common
+
+    stamp(tag, "42")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    bf = torch.bfloat16
+    m_path = N_SLICES * S
+    lib = _build.lib()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def rand(*shape, scale=1.0, off=0.0, dtype=bf):
+        return (off + scale * torch.randn(shape, generator=gen, device=dev,
+                                          dtype=torch.float32)).to(dtype)
+
+    def product_ls(a, w, b, ls):
+        """The product alone with LayerScale (x = NULL): the kernel through
+        the entry point, as no wrapper of the paths asks for it."""
+        out = torch.empty(a.shape[0], w.shape[1], dtype=bf, device=dev)
+        err = lib.mst_gemm_residual(a.data_ptr(), w.data_ptr(), b.data_ptr(),
+                                    ls.data_ptr(), None, out.data_ptr(),
+                                    a.shape[0], a.shape[1], w.shape[1],
+                                    stream)
+        check(err == 0, f"mst_gemm_residual (no residual): error {err}")
+        return out
+
+    errs = {}
+
+    def hold(name, kern, plain, rel=KERNEL_GRAD_REL):
+        """Outputs of `kern` against `plain` (bf16 within 2 bf16 ulps, f32
+        within `rel` of the plain output's largest magnitude), and the same
+        bits on a second run."""
+        with torch.inference_mode():
+            k1, pl, k2 = kern(), plain(), kern()
+        torch.cuda.synchronize()
+        errs[name] = check_outputs(tag, f"res {name}", k1, pl, rel)
+        k1, k2 = (k1, k2) if isinstance(k1, tuple) else ((k1,), (k2,))
+        same = all(torch.equal(a, b) for a, b in zip(k1, k2))
+        print(f"{tag} res {name}: two runs equal bit for bit: {same}")
+        check(same, f"{name}: two runs differ")
+
+    print(f"{tag} gemm_residual / gemm_dls on the wgmma mainloop: each "
+          f"kernel at every (K, N) of the paths, bf16 outputs within 2 bf16 "
+          f"ulps of plain and dls within {KERNEL_GRAD_REL} x |plain|max "
+          f"(phase 3 / 7's limits), the same bits on a second run; ViT-S at "
+          f"rows {RES_M}, the wider widths at {RES_M[2]}, {RES_M[-2]} and "
+          f"{RES_M[-1]}")
+    for e in LN_GEMM_WIDTHS:
+        rows = RES_M if e == 384 else (RES_M[2], RES_M[-2], RES_M[-1])
+        for label, k in residual_products(e):
+            w = rand(k, e, scale=k ** -0.5)
+            b = rand(e, scale=0.1, dtype=torch.float32)
+            ls = rand(e, scale=0.1, off=1.0, dtype=torch.float32)
+            for m in rows:
+                a, x, g = rand(m, k), rand(m, e), rand(m, e)
+                with shared_product(fb):
+                    hold(residual_name("gemm_residual", label, e, m),
+                         lambda: fb.gemm_residual(a, w, b, ls, x),
+                         lambda: fb._gemm_residual_ref(a, w, b, ls, x))
+                    hold(residual_name("gemm_residual", label, e, m, "no_ls"),
+                         lambda: fb.gemm_residual(a, w, b, None, x),
+                         lambda: fb._gemm_residual_ref(a, w, b, None, x))
+                    hold(residual_name("gemm_residual", label, e, m, "no_x"),
+                         lambda: product_ls(a, w, b, ls),
+                         lambda: ((fb._mm(a, w) + b) * ls).to(bf))
+                    hold(residual_name("gemm_residual", label, e, m, "no_x,no_ls"),
+                         lambda: _common.gemm(a, w),
+                         lambda: fb._mm(a, w).to(bf))
+                    hold(residual_name("gemm_dls", label, e, m),
+                         lambda: fb.gemm_dls(a, w, b, ls, g),
+                         lambda: fb._gemm_dls_ref(a, w, b, ls, g))
+                del a, x, g
+    torch.cuda.empty_cache()
+
+    # planted faults, each of which must break its limit
+    def broken(name, kern, fault, rel=None):
+        scale = fault.float().abs().max().item()
+        err = (kern.float() - fault.float()).abs().max().item()
+        lim = 2 * ulp_bf16(scale) if rel is None else rel * scale
+        print(f"{tag} planted fault: {name}: max_abs_err={err:.6g} against "
+              f"the limit {lim:.6g} ({err / lim:.4g}x); must break it")
+        check(err > lim, f"planted fault {name} passes the limit")
+
+    e = k = 384
+    w = rand(k, e, scale=k ** -0.5)
+    b = rand(e, scale=0.1, dtype=torch.float32)
+    ls = rand(e, scale=0.1, off=1.0, dtype=torch.float32)
+    with torch.inference_mode():
+        a, x = rand(m_path, k), rand(m_path, e)
+        x_next = torch.zeros_like(x)
+        x_next[:-64] = x[64:]
+        broken("gemm_residual[proj,ls] reading x from the next 64-row slab",
+               fb.gemm_residual(a, w, b, ls, x),
+               fb._gemm_residual_ref(a, w, b, ls, x_next))
+        broken("gemm_residual[proj,ls] with the LayerScale one column over",
+               fb.gemm_residual(a, w, b, ls, x),
+               fb._gemm_residual_ref(a, w, b, ls.roll(-1), x))
+        for m in RAGGED_M:
+            a, g = rand(m, k), rand(m, e)
+            pad = -(-m // fb.GEMM_BM) * fb.GEMM_BM - m
+            # the rows past M unmasked: their copy reads row M - 1 (the
+            # clamped address) and counts it with z = b (a's rows are zeros)
+            _, dls = fb._gemm_dls_ref(a, w, b, ls, g)
+            broken(f"gemm_dls[proj,M={m}] with the {pad} rows past M "
+                   f"unmasked", fb.gemm_dls(a, w, b, ls, g)[1],
+                   dls + pad * g[-1].float() * b, KERNEL_GRAD_REL)
+    del a, x, x_next, g
+
+    # each TMA GEMM's entry as the first call of a fresh host thread, which
+    # has no current context (as PyTorch's autograd worker before its first
+    # launch): the same bits as on this thread
+    def fresh_thread(fn):
+        got = {}
+
+        def run():
+            try:
+                got["out"] = fn()
+            except Exception as exc:  # noqa: BLE001 - re-raised below
+                got["exc"] = exc
+        th = threading.Thread(target=run)
+        th.start()
+        th.join()
+        if "exc" in got:
+            raise got["exc"]
+        return got["out"]
+
+    m = RAGGED_M[0]
+    a, x, o = rand(m, k), rand(m, e), rand(m, 3 * e)
+    w3e = rand(e, 3 * e, scale=e ** -0.5)
+    with torch.inference_mode():
+        for name, fn in (
+                ("gemm_residual", lambda: fb.gemm_residual(a, w, b, ls, x)),
+                ("gemm_dls", lambda: fb.gemm_dls(a, w, b, ls, x)),
+                ("gemm_dgrad", lambda: fb.gemm_dgrad(o, w3e)),
+                ("gemm_wgrad", lambda: fb.gemm_wgrad(a, o))):
+            there, here = fresh_thread(fn), fn()
+            torch.cuda.synchronize()
+            there, here = ((there, here) if isinstance(here, tuple)
+                           else ((there,), (here,)))
+            same = all(torch.equal(u, v) for u, v in zip(there, here))
+            print(f"{tag} {name} launched first in a fresh host thread: the "
+                  f"same bits as on the main thread: {same}")
+            check(same, f"{name} in a fresh thread differs")
+    return errs
+
+
+def residual_times(tag, dev, fb):
+    """Phase 42's times: each `gemm_residual` / `gemm_dls` product at its
+    path shape (B=8; DINOv3's proj at S = 201) timed in turn with the
+    library calls for the same work, beside the WMMA kernel's recorded time
+    and the SM clock; then the plain version and the bound. `fb` may be
+    another checkout's `fused_block` (`--residual-times`). Returns (timed,
+    cost, lib_ms)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 142)
+    bf = torch.bfloat16
+    m_path, m3 = N_SLICES * S, N_SLICES * S3
+
+    def rand(*shape, scale=1.0, off=0.0, dtype=bf):
+        return (off + scale * torch.randn(shape, generator=gen, device=dev,
+                                          dtype=torch.float32)).to(dtype)
+
+    timed, cost, lib_ms = {}, {}, {}
+    print(f"{tag} times: median over {PAIR_ROUNDS} rounds of the mean of "
+          f"{PER_PAIR} calls between two CUDA events, kernel and library "
+          f"taken in turn; library: torch.addmm, then torch.addcmul for "
+          f"x + ls * y (gemm_dls: g * ls and the f32 column sums of g * z); "
+          f"WMMA = the kernel before this rewrite (PERF.md §6)")
+    shapes = [(e, label, k, m_path) for e in LN_GEMM_WIDTHS
+              for label, k in residual_products(e)] + [(384, "proj", 384, m3)]
+    with ClockSampler() as clocks, torch.inference_mode():
+        for e, label, k, m in shapes:
+            a, x, g = rand(m, k), rand(m, e), rand(m, e)
+            w = rand(k, e, scale=k ** -0.5)
+            b = rand(e, scale=0.1, dtype=torch.float32)
+            ls = rand(e, scale=0.1, off=1.0, dtype=torch.float32)
+            for kind, kern, plain, library, extra in (
+                    ("gemm_residual", lambda: fb.gemm_residual(a, w, b, ls, x),
+                     lambda: fb._gemm_residual_ref(a, w, b, ls, x),
+                     residual_library(a, w, b, ls, x), 2 * m * e + 4 * 2 * e),
+                    ("gemm_dls", lambda: fb.gemm_dls(a, w, b, ls, g),
+                     lambda: fb._gemm_dls_ref(a, w, b, ls, g),
+                     dls_library(a, w, b, ls, g), 2 * m * e + 4 * 3 * e)):
+                name = residual_name(kind, label, e, m)
+                cost[name] = mm_cost(m, k, e, extra)
+                t = time_interleaved({"kernel": kern, "library": library},
+                                     clocks)
+                pm_ = time_ms(plain, n=5, warmup=1)
+                km, lm = t["kernel"].ms, t["library"].ms
+                timed[name], lib_ms[name] = (km, pm_), lm
+                b_ms, b_by = bound([cost[name]])
+                flop = cost[name][0]
+                wmma = WMMA_RES_MS.get(name)
+                print(f"{tag} time {name} [{m}, {k}] -> {e}: kernel "
+                      f"{km:.4f} ms ({flop / km / 1e9:.1f} TFLOP/s, "
+                      f"{cost[name][1] / km / 1e6:.1f} GB/s; rounds "
+                      f"{t['kernel'].lo:.4f}-{t['kernel'].hi:.4f}; "
+                      f"{t['kernel'].mhz} MHz, {t['kernel'].watts} W); "
+                      f"library for the same work {lm:.4f} ms (kernel / "
+                      f"library {km / lm:.3f}; {t['library'].mhz} MHz); "
+                      f"plain {pm_:.4f} ms; bound {b_ms:.4f} ms by {b_by} "
+                      f"({b_ms / km:.3f} of it); WMMA "
+                      + (f"{wmma} ms ({wmma / km:.2f}x)" if wmma
+                         else "not recorded"))
+            del a, x, g
+    torch.cuda.empty_cache()
+    return timed, cost, lib_ms
+
+
+
+
 def main() -> int:
     if not (ROOT / "mst_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke.py must run from a checkout of the "
@@ -2451,9 +2800,9 @@ def main() -> int:
         check(err <= tol, f"{name}: max_abs_err {err} > {tol}")
     # What each timed kernel case must do, for its bound (FLOPs, bytes), and
     # the one PyTorch call that computes the same function (its library
-    # time), where there is one: the GEMMs' epilogues (bias, LayerScale,
-    # residual, the GELU' and LN-pullback of the backward) are left out of
-    # the library calls, and SDPA returns no LSE rows.
+    # time), where there is one; SDPA returns no LSE rows. The GEMMs with a
+    # residual or of the backward are timed in turn with their library
+    # calls for the same work in phases 41 and 42, not here.
     cost = {
         "ln_gemm[qkv]": mm_cost(M, E, 3 * E, 4 * 5 * E),
         "ln_gemm[fc1,gelu_tanh]": mm_cost(M, E, 4 * E, 4 * 6 * E),
@@ -2470,8 +2819,6 @@ def main() -> int:
             approximate="tanh"),
         "mhsa": functools.partial(F.scaled_dot_product_attention,
                                   *heads_of(qkv_in, N_SLICES, S)),
-        "gemm_residual[proj,ls]": functools.partial(torch.matmul, o_in, wproj),
-        "gemm_residual[fc2,ls]": functools.partial(torch.matmul, h_in, w2),
     }
 
     # -- 4. full forward ---------------------------------------------------
@@ -2662,7 +3009,8 @@ def main() -> int:
     # -- 6. times ----------------------------------------------------------
     stamp(tag, "6")
     timed = {name: (time_ms(kern), time_ms(plain))
-             for name, (kern, plain) in cases.items()}
+             for name, (kern, plain) in cases.items()
+             if not name.startswith(RES_GEMMS)}  # phase 42 times these
     for name, (km, pm_) in timed.items():
         print(f"{tag} time {name}: kernel {km:.4f} ms, plain {pm_:.4f} ms")
     lib_ms = {name: time_ms(fn) for name, fn in library.items()}
@@ -2782,8 +3130,6 @@ def main() -> int:
         "ln_gemm_train[qkv]": library["ln_gemm[qkv]"],
         "ln_gemm_train[fc1,gelu_tanh]": library["ln_gemm[fc1,gelu_tanh]"],
         "mhsa_train": library["mhsa"],
-        "gemm_dls[proj]": functools.partial(torch.matmul, o_t, wproj),
-        "gemm_dls[fc2]": functools.partial(torch.matmul, u_t, w2),
         "mhsa_bwd": sdpa_backward(qkv_t, do_t, N_SLICES, S),
     })
     g3 = g2.reshape(N_SLICES, S, E)
@@ -3074,7 +3420,7 @@ def main() -> int:
     stamp(tag, "10")
     ttimed = {name: (time_ms(kern), time_ms(plain))
               for name, (kern, plain) in tcases.items()
-              if not name.startswith(BWD_GEMMS)}  # phase 41 times these
+              if not name.startswith(BWD_GEMMS + RES_GEMMS)}  # phases 41-42
     for name, (km, pm_) in ttimed.items():
         print(f"{tag} time {name}: kernel {km:.4f} ms, plain {pm_:.4f} ms")
     lib_ms.update({name: time_ms(fn) for name, fn in library.items()
@@ -3575,9 +3921,6 @@ def main() -> int:
         "ln_gemm[qkv,S=201]": lambda: torch.addmm(
             bqkv.to(bf), F.layer_norm(x32, (E,), ln_w3, ln_b3, EPS3), wqkv),
         "mhsa_rope_train": rope_sdpa,
-        "gemm_residual[proj,ls,S=201]": functools.partial(torch.matmul, o3,
-                                                          wproj),
-        "gemm_dls[proj,S=201]": functools.partial(torch.matmul, o3, wproj),
     })
     library["ln_gemm_train[qkv,S=201]"] = library["ln_gemm[qkv,S=201]"]
     library["mlp_sublayer[S=201,eps=1e-5,tanh,ls]"] = lambda: torch.addmm(
@@ -3722,7 +4065,7 @@ def main() -> int:
     with torch.inference_mode():
         rtimed = {name: (time_ms(kern), time_ms(plain)) for name, (kern, plain)
                   in {**rcases, **rsub, **rchain}.items()
-                  if not name.startswith(BWD_GEMMS)}  # timed in phase 41
+                  if not name.startswith(BWD_GEMMS + RES_GEMMS)}  # 41-42
         # each RoPE kernel against itself without RoPE on the same inputs,
         # in turns (with, without, without, with): the mean of each pair
         ab = {}
@@ -3870,14 +4213,11 @@ def main() -> int:
 
     library.update({
         "ln_gemm_swiglu[w12]": swiglu_library,
-        "gemm_residual[w3,ls]": functools.partial(torch.matmul, g_in, w3),
         "swiglu_sublayer[ls]": lambda: torch.addmm(b3.to(bf),
                                                    swiglu_library(), w3),
         "ln_gemm[qkv,E=1536]": qkv_library,
         "mhsa[E=1536]": functools.partial(F.scaled_dot_product_attention,
                                           *heads_of(qkvg, N_SLICES, S, HG)),
-        "gemm_residual[proj,E=1536,ls]": functools.partial(torch.matmul, og,
-                                                           wpg),
         "attention_sublayer[E=1536,ls]": attention_library,
     })
 
@@ -4057,7 +4397,8 @@ def main() -> int:
     stamp(tag, "25")
     with torch.inference_mode():
         gtimed = {name: (time_ms(kern), time_ms(plain))
-                  for name, (kern, plain) in gtimes.items()}
+                  for name, (kern, plain) in gtimes.items()
+                  if not name.startswith(RES_GEMMS)}  # timed in phase 42
     lib_ms.update({name: time_ms(fn) for name, fn in library.items()
                    if name not in lib_ms})
     for name, (km, pm_) in gtimed.items():
@@ -4150,7 +4491,6 @@ def main() -> int:
 
     library.update({
         "ln_gemm_swiglu_train[w12]": swiglu_library,
-        "gemm_dls[w3]": functools.partial(torch.matmul, gate_in, w3),
         "ln_pullback[E=1536]": ln_backward_library(dhg_in, xg2, lng_s),
     })
     # the LN pullback of the MLP backward at ViT-B / ViT-L widths (the fused
@@ -4283,7 +4623,7 @@ def main() -> int:
     # these inputs (the ViT-L step's checks peak near 70 GiB)
     utimed = {name: (time_ms(kern), time_ms(plain))
               for name, (kern, plain) in ucases.items()
-              if not name.startswith(BWD_GEMMS)}  # timed in phase 41
+              if not name.startswith(BWD_GEMMS + RES_GEMMS)}  # phases 41-42
     lib_ms.update({name: time_ms(fn) for name, fn in library.items()
                    if name not in lib_ms})
     for name, (km, pm_) in utimed.items():
@@ -5296,6 +5636,15 @@ def main() -> int:
     for key, val in bcost.items():
         cost.setdefault(key, val)
 
+    # ======================================================================
+    # Phase 42: `gemm_residual` / `gemm_dls` redesigned (the wgmma mainloop)
+    # ======================================================================
+    errs.update(residual_gemm_phase(tag, dev, fb))
+    qtimed, qcost, qlib = residual_times(tag, dev, fb)
+    lib_ms.update(qlib)  # the library calls for the same work
+    for key, val in qcost.items():
+        cost.setdefault(key, val)
+
     # TPU kernels: _attn_any_kernel at fused_block.py:326, _mlp_kernel at
     # :400, their train forwards _attn_train_kernel :424 and
     # _mlp_train_kernel :470, the backwards _attn_bwd_kernel :680 and
@@ -5391,11 +5740,12 @@ def main() -> int:
     for key, val in ptimed.items():
         alltimed.setdefault(key, val)
     alltimed.update(btimed)
+    alltimed.update(qtimed)
     print(f"{tag} bound: the larger of FLOPs / {PEAK_FLOPS:.4g} FLOP/s + "
           f"int8 operations / {PEAK_INT8:.4g} OP/s and bytes / "
           f"{PEAK_BYTES:.4g} B/s (each input read once, each output written "
-          f"once); library: the PyTorch call(s) of the same function, "
-          f"epilogues left out")
+          f"once); library: the PyTorch call(s) of the same function (the "
+          f"GEMMs' with their epilogues in torch ops, phases 41-42)")
 
     def work(costs):
         """'x GFLOP[, y G int8 operations], z MB' of summed costs."""
@@ -5522,5 +5872,29 @@ def main() -> int:
     return 0
 
 
+def residual_times_of(checkout) -> int:
+    """`python3 chip_smoke.py --residual-times CHECKOUT`: phase 42's times
+    of the `gemm_residual` / `gemm_dls` in another checkout's package (an
+    earlier commit unpacked with `git archive`: how `WMMA_RES_MS` was
+    read)."""
+    if not torch.cuda.is_available():
+        raise SystemExit("--residual-times needs a CUDA device")
+    root = Path(checkout).resolve()
+    sys.path.insert(0, str(root))
+    from mst_tpu_torch.ops import fused_block as fb
+    check(Path(fb.__file__).resolve().is_relative_to(root),
+          f"fused_block from {fb.__file__}, not {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60
+    ).stdout.strip().splitlines()[0]
+    print(f"[{smi}] gemm_residual / gemm_dls of {root}")
+    residual_times(f"[{smi}]", torch.device("cuda", 0), fb)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--residual-times"] and len(sys.argv) == 3:
+        sys.exit(residual_times_of(sys.argv[2]))
     sys.exit(main())

@@ -1,7 +1,8 @@
 // The Hopper GEMM mainloop: C[BM x BN] tiles of A @ B, bf16 in, f32
-// accumulators, for `sm_90a`. Used by ln_gemm.cu (A K-major, B MN-major),
-// gemm_dgrad.cu (A K-major, B K-major) and gemm_wgrad.cu (A MN-major, B
-// MN-major); gemm_wgrad.cu's probes check each layout with a bare product.
+// accumulators, for `sm_90a`. Used by ln_gemm.cu and gemm_residual.cu (A
+// K-major, B MN-major), gemm_dgrad.cu (A K-major, B K-major) and
+// gemm_wgrad.cu (A MN-major, B MN-major); gemm_wgrad.cu's probes check each
+// layout with a bare product.
 //
 // Design (one CTA per SM, persistent over the work units):
 // - The operands are read by TMA with 128-byte swizzle; a stage holds
@@ -26,12 +27,14 @@
 //   bit set for an MN-major operand), one commit group per stage, one
 //   group left in flight, the stage released once its group is done.
 // - A work unit is an output tile and a range of the reduction (`Work`):
-//   the whole of K for ln_gemm and gemm_dgrad, one chunk of the M rows
-//   for gemm_wgrad. No split-K within a unit and no atomics: every output
-//   is one f32 sum in a fixed order, so a run repeats bit for bit.
+//   the whole of K for ln_gemm, gemm_residual and gemm_dgrad, one chunk
+//   of the M rows for gemm_wgrad. No split-K within a unit and no
+//   atomics: every output is one f32 sum in a fixed order, so a run
+//   repeats bit for bit.
 // The caller's kernel owns the epilogue: it reads the accumulators through
 // `acc_row` / `acc_col` (the m64nNk16 D-fragment layout) after
-// `consumer_tile` returns.
+// `consumer_tile` returns; the bf16 epilogues stage their tile with `stage`
+// (or in place) and write it with `store`.
 #pragma once
 
 #include <cuda.h>
@@ -322,6 +325,30 @@ __device__ __forceinline__ void wg_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
 }
 
+// Stage this thread's values v[i] of accumulators i < 4 * JN (JN column
+// groups of 8), rounded to bf16, into the warpgroup's [64][EPI_LD] tile.
+template <int JN>
+__device__ __forceinline__ void stage(bf16* epi, int t, const float (&v)[ACC]) {
+#pragma unroll
+  for (int i = 0; i < 4 * JN; i += 2)
+    *reinterpret_cast<__nv_bfloat162*>(epi + acc_row(t, i) * EPI_LD + acc_col(t, i)) =
+        __floats2bfloat162_rn(v[i], v[i + 1]);
+}
+
+// Store the staged [64][8 * CH] tile: row r to dst row m0 + r (if < M),
+// the 16-byte chunk at tile column c to dst column col(c).
+template <int CH, class Col>
+__device__ __forceinline__ void store(const bf16* epi, int t, bf16* __restrict__ dst, int ld,
+                                      int m0, int M, Col col) {
+#pragma unroll
+  for (int g = t; g < 64 * CH; g += 128) {
+    const int r = g / CH, c = (g % CH) * 8;
+    if (m0 + r < M)
+      *reinterpret_cast<uint4*>(dst + size_t(m0 + r) * ld + col(c)) =
+          *reinterpret_cast<const uint4*>(epi + r * EPI_LD + c);
+  }
+}
+
 // f32 epilogues (gemm_dgrad, gemm_wgrad) stage a warpgroup's accumulators
 // 64 columns at a time in its staging tile, as [64][EPI_LD_F] floats.
 constexpr int EPI_LD_F = 68;  // 64 columns + 4
@@ -365,11 +392,18 @@ inline EncodeTiled encode_tiled() {
 
 // The TMA map of a row-major bf16 [rows, cols] matrix read in boxes of
 // [box_rows][box_cols] with 128-byte swizzle (box_cols * 2 <= 128); rows
-// past the end read as zeros.
+// past the end read as zeros. The encoding needs a current context, and a
+// host thread in which nothing has run on the card yet (PyTorch's autograd
+// worker before its first launch) has none: cudaSetDevice binds the
+// current device's primary context first.
 inline cudaError_t tma_map_2d(CUtensorMap* map, const void* ptr, uint64_t rows, uint64_t cols,
                               uint32_t box_rows, uint32_t box_cols) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaSetDevice(dev);
+  if (err != cudaSuccess) return err;
   const cuuint64_t dims[2] = {cols, rows};
   const cuuint64_t strides[1] = {cols * 2};
   const cuuint32_t box[2] = {box_cols, box_rows};

@@ -122,30 +122,6 @@ cudaError_t launch_ln_rows(const void* x, const void* ln_s, const void* ln_b, vo
 
 using namespace sm90;
 
-// Stage this thread's values v[i] of accumulators i < 4 * JN (JN column
-// groups of 8), rounded to bf16, into the warpgroup's [64][EPI_LD] tile.
-template <int JN>
-__device__ __forceinline__ void stage(bf16* epi, int t, const float (&v)[ACC]) {
-#pragma unroll
-  for (int i = 0; i < 4 * JN; i += 2)
-    *reinterpret_cast<__nv_bfloat162*>(epi + acc_row(t, i) * EPI_LD + acc_col(t, i)) =
-        __floats2bfloat162_rn(v[i], v[i + 1]);
-}
-
-// Store the staged [64][8 * CH] tile: row r to dst row m0 + r (if < M),
-// the 16-byte chunk at tile column c to dst column col(c).
-template <int CH, class Col>
-__device__ __forceinline__ void store(const bf16* epi, int t, bf16* __restrict__ dst, int ld,
-                                      int m0, int M, Col col) {
-#pragma unroll
-  for (int g = t; g < 64 * CH; g += 128) {
-    const int r = g / CH, c = (g % CH) * 8;
-    if (m0 + r < M)
-      *reinterpret_cast<uint4*>(dst + size_t(m0 + r) * ld + col(c)) =
-          *reinterpret_cast<const uint4*>(epi + r * EPI_LD + c);
-  }
-}
-
 // GATED: N is F (the width of out), w has 2N columns (see the file note);
 // ACT: the activation of the ungated form.
 template <bool GATED, int ACT>

@@ -43,6 +43,8 @@ _SIGNATURES = {
     "mst_gemm_geometry": (_I, _I, _I, _I, _P),
     # a, w, bias, ls|NULL, x|NULL, out, M, K, N, stream
     "mst_gemm_residual": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # M, K, N, geo (host int32 [6]): gemm_residual's and gemm_dls's launch
+    "mst_residual_geometry": (_I, _I, _I, _P),
     # qkv, out, lse|NULL, row|NULL, carry|NULL, carry_part, new_carry,
     # abnar|NULL, rope_cos|NULL, rope_sin|NULL, N, S, E, num_heads, scale,
     # stream

@@ -36,9 +36,9 @@ memory, so each sub-layer here is a short chain of CUDA kernels
   `gemm_dgrad` (input grads, with the GELU' or the SiLU-gate epilogue, or
   dh in f32 for the LN pullback of the row kernel `ln_pullback`),
   `mhsa_bwd` (dq, dk, dv), chained by `_attn_train_bwd` /
-  `_mlp_train_bwd` / `_swiglu_train_bwd`; `gemm_dgrad` and `gemm_wgrad`
-  run on the TMA + wgmma GEMM of `ln_gemm` with operand layouts of their
-  own
+  `_mlp_train_bwd` / `_swiglu_train_bwd`; `gemm_residual` and `gemm_dls`
+  run on the TMA + wgmma GEMM of `ln_gemm` with epilogues of their own,
+  `gemm_dgrad` and `gemm_wgrad` on it with operand layouts of their own
 
 Every kernel wrapper dispatches on the device of the tensor it is given: a
 CUDA tensor launches the kernel (bf16 only) and counts the launch; a CPU
@@ -526,6 +526,31 @@ def ln_gemm_launch(m: int, k: int, n: int,
                            smem=GEMM_SMEM)
 
 
+def _check_residual_shape(m: int, k: int, n: int,
+                         name: str = "gemm_residual") -> None:
+    """Raise ValueError for an a [m, k] @ w [k, n] that `gemm_residual.cu`
+    does not take (its kernels' 128 x 128 tiles, k in steps of 64); the
+    wrappers call it before any launch."""
+    if m < 1 or k < GEMM_BK or k % GEMM_BK or n < GEMM_BN or n % GEMM_BN:
+        raise ValueError(f"{name} needs M >= 1, K % {GEMM_BK} == 0 and N % "
+                         f"{GEMM_BN} == 0; got M={m}, K={k}, N={n}")
+
+
+def gemm_residual_launch(m: int, k: int, n: int,
+                         sms: int = H100_SMS) -> SimpleNamespace:
+    """The launch geometry of `gemm_residual` and `gemm_dls` at a [m, k] @
+    w [k, n] on a card of `sms` SMs (csrc/gemm_residual.cu
+    `mst_residual_geometry`): one work unit per 128 x 128 output tile with
+    the whole of K, the GEMM's threads, stages and shared memory, and the
+    rows of `gemm_dls`'s f32 partials (one per 64 rows of a). Raises
+    ValueError where the kernels would."""
+    _check_residual_shape(m, k, n)
+    tiles = -(-m // GEMM_BM) * (n // GEMM_BN)
+    return SimpleNamespace(tiles=tiles, grid=min(tiles, sms),
+                           threads=GEMM_THREADS, stages=GEMM_STAGES,
+                           smem=GEMM_SMEM, work_rows=-(-m // 64))
+
+
 def ln_rows(x, ln_s, ln_b, eps: float):
     """bf16(LN(x)) [M, K]: LN once per row, the first kernel of `ln_gemm`
     and `ln_gemm_swiglu` (whose train modes return it as h)."""
@@ -715,9 +740,7 @@ def gemm_residual(a, w, b, ls, x):
         return _gemm_residual_ref(a, w, b, ls, x)
     m, k = a.shape
     n = w.shape[1]
-    if k % 32 or n % 128:
-        raise ValueError(f"gemm_residual needs K % 32 == 0 and N % 128 == 0;"
-                         f" got K={k}, N={n}")
+    _check_residual_shape(m, k, n)
     _mat(a, "a", (m, k), x)
     _mat(w, "w", (k, n), x)
     _mat(x, "x", (m, n), x)
@@ -739,16 +762,14 @@ def gemm_dls(a, w, b, ls, g):
         return _gemm_dls_ref(a, w, b, ls, g)
     m, k = a.shape
     n = w.shape[1]
-    if k % 32 or n % 128:
-        raise ValueError(f"gemm_dls needs K % 32 == 0 and N % 128 == 0; got "
-                         f"K={k}, N={n}")
+    _check_residual_shape(m, k, n, "gemm_dls")
     _mat(a, "a", (m, k), g)
     _mat(w, "w", (k, n), g)
     _mat(g, "g", (m, n), g)
     b, ls = _vec(b, "bias", n, g), _vec(ls, "ls", n, g)
     gz = torch.empty_like(g)
     dls = _f32((n,), g)
-    work = _f32((-(-m // 64), n), g)
+    work = _f32((gemm_residual_launch(m, k, n).work_rows, n), g)
     err = _build.lib().mst_gemm_dls(
         a.data_ptr(), w.data_ptr(), b.data_ptr(), ls.data_ptr(), g.data_ptr(),
         gz.data_ptr(), work.data_ptr(), dls.data_ptr(), m, k, n, _stream(g))

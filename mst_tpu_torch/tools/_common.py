@@ -110,9 +110,7 @@ def gemm(a, w):
         return fb._mm(a, w).to(a.dtype)
     m, k = a.shape
     n = w.shape[1]
-    if k % 32 or n % 128:
-        raise ValueError(f"gemm needs K % 32 == 0 and N % 128 == 0; got "
-                         f"K={k}, N={n}")
+    fb._check_residual_shape(m, k, n, "gemm")
     fb._mat(a, "a", (m, k), a)
     fb._mat(w, "w", (k, n), a)
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
