@@ -274,9 +274,8 @@ the WMMA kernel's recorded time (`WMMA_RES_MS`), timed in turn with the
 library calls for the same work (`residual_library`: `torch.addmm` then
 `torch.addcmul`; `dls_library`: `addmm`, g * ls and the f32 column sums of
 g * z), with the SM clock. The kernels line's library times of
-`gemm_residual` / `gemm_dls` are those same-work calls. `python3
-chip_smoke.py --residual-times CHECKOUT` runs those times alone on another
-checkout's `mst_tpu_torch` (an earlier commit unpacked with `git archive`).
+`gemm_residual` / `gemm_dls` are those same-work calls; their errors are
+the main path's readings of phases 3, 7, 15, 21 and 26.
 
 Each phase prints its wall time. The line before the last is `{"kernels":
 [...]}`: per kernel its launches on the main path, its largest error, its
@@ -465,9 +464,9 @@ WMMA_BWD_MS = {
     "gemm_dgrad[fc1,ln,E=1024]": 4.0803}
 # Phase 42: `gemm_residual` / `gemm_dls` on the wgmma GEMM at the path row
 # counts (RES_M: BWD_M and one row). The WMMA kernels' times at the path
-# shapes (PERF.md §6: the mean of two runs of `python3 chip_smoke.py
-# --residual-times <the tree before the rewrite>` on an H100 80GB HBM3 at
-# 700 W), printed beside the new ones.
+# shapes (PERF.md §6: the mean of two readings by `residual_times` of the
+# tree before the rewrite, on an H100 80GB HBM3 at 700 W), printed beside
+# the new ones.
 RES_M = BWD_M + (1,)
 RES_GEMMS = ("gemm_residual", "gemm_dls")
 WMMA_RES_MS = {"gemm_residual[proj,ls]": 0.1933, "gemm_dls[proj]": 0.2171,
@@ -2437,8 +2436,8 @@ def residual_gemm_phase(tag, dev, fb):
     against their plain versions under phase 3 / 7's limits, twice for the
     same bits, at the row counts RES_M (ViT-S at all of them, the wider
     widths at the train CLI's B=2 rows and the ragged ones); three planted
-    faults. Returns {case: max_abs_err} for the kernels line (the times:
-    `residual_times`)."""
+    faults. The kernels line keeps the main path's readings of the same
+    names (phases 3, 7, 15, 21, 26); the times: `residual_times`."""
     from mst_tpu_torch.ops import _build
     from mst_tpu_torch.tools import _common
 
@@ -2464,8 +2463,6 @@ def residual_gemm_phase(tag, dev, fb):
         check(err == 0, f"mst_gemm_residual (no residual): error {err}")
         return out
 
-    errs = {}
-
     def hold(name, kern, plain, rel=KERNEL_GRAD_REL):
         """Outputs of `kern` against `plain` (bf16 within 2 bf16 ulps, f32
         within `rel` of the plain output's largest magnitude), and the same
@@ -2473,7 +2470,7 @@ def residual_gemm_phase(tag, dev, fb):
         with torch.inference_mode():
             k1, pl, k2 = kern(), plain(), kern()
         torch.cuda.synchronize()
-        errs[name] = check_outputs(tag, f"res {name}", k1, pl, rel)
+        check_outputs(tag, f"res {name}", k1, pl, rel)
         k1, k2 = (k1, k2) if isinstance(k1, tuple) else ((k1,), (k2,))
         same = all(torch.equal(a, b) for a, b in zip(k1, k2))
         print(f"{tag} res {name}: two runs equal bit for bit: {same}")
@@ -2537,11 +2534,13 @@ def residual_gemm_phase(tag, dev, fb):
                fb._gemm_residual_ref(a, w, b, ls.roll(-1), x))
         for m in RAGGED_M:
             a, g = rand(m, k), rand(m, e)
-            pad = -(-m // fb.GEMM_BM) * fb.GEMM_BM - m
-            # the rows past M unmasked: their copy reads row M - 1 (the
-            # clamped address) and counts it with z = b (a's rows are zeros)
+            # the rows past M unmasked: the slab copy holds row M - 1 there
+            # and a's rows are zeros (z = b), so each row past M of the last
+            # 64-row slab that starts below M adds g[M - 1] * b (a slab past
+            # M writes no partial)
+            pad = -(-m // 64) * 64 - m
             _, dls = fb._gemm_dls_ref(a, w, b, ls, g)
-            broken(f"gemm_dls[proj,M={m}] with the {pad} rows past M "
+            broken(f"gemm_dls[proj,M={m}] with its {pad} rows past M "
                    f"unmasked", fb.gemm_dls(a, w, b, ls, g)[1],
                    dls + pad * g[-1].float() * b, KERNEL_GRAD_REL)
     del a, x, x_next, g
@@ -2581,16 +2580,14 @@ def residual_gemm_phase(tag, dev, fb):
             print(f"{tag} {name} launched first in a fresh host thread: the "
                   f"same bits as on the main thread: {same}")
             check(same, f"{name} in a fresh thread differs")
-    return errs
 
 
 def residual_times(tag, dev, fb):
     """Phase 42's times: each `gemm_residual` / `gemm_dls` product at its
     path shape (B=8; DINOv3's proj at S = 201) timed in turn with the
     library calls for the same work, beside the WMMA kernel's recorded time
-    and the SM clock; then the plain version and the bound. `fb` may be
-    another checkout's `fused_block` (`--residual-times`). Returns (timed,
-    cost, lib_ms)."""
+    and the SM clock; then the plain version and the bound. Returns
+    (timed, cost, lib_ms)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 142)
     bf = torch.bfloat16
     m_path, m3 = N_SLICES * S, N_SLICES * S3
@@ -2644,8 +2641,6 @@ def residual_times(tag, dev, fb):
             del a, x, g
     torch.cuda.empty_cache()
     return timed, cost, lib_ms
-
-
 
 
 def main() -> int:
@@ -5639,7 +5634,7 @@ def main() -> int:
     # ======================================================================
     # Phase 42: `gemm_residual` / `gemm_dls` redesigned (the wgmma mainloop)
     # ======================================================================
-    errs.update(residual_gemm_phase(tag, dev, fb))
+    residual_gemm_phase(tag, dev, fb)
     qtimed, qcost, qlib = residual_times(tag, dev, fb)
     lib_ms.update(qlib)  # the library calls for the same work
     for key, val in qcost.items():
@@ -5872,29 +5867,5 @@ def main() -> int:
     return 0
 
 
-def residual_times_of(checkout) -> int:
-    """`python3 chip_smoke.py --residual-times CHECKOUT`: phase 42's times
-    of the `gemm_residual` / `gemm_dls` in another checkout's package (an
-    earlier commit unpacked with `git archive`: how `WMMA_RES_MS` was
-    read)."""
-    if not torch.cuda.is_available():
-        raise SystemExit("--residual-times needs a CUDA device")
-    root = Path(checkout).resolve()
-    sys.path.insert(0, str(root))
-    from mst_tpu_torch.ops import fused_block as fb
-    check(Path(fb.__file__).resolve().is_relative_to(root),
-          f"fused_block from {fb.__file__}, not {root}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60
-    ).stdout.strip().splitlines()[0]
-    print(f"[{smi}] gemm_residual / gemm_dls of {root}")
-    residual_times(f"[{smi}]", torch.device("cuda", 0), fb)
-    return 0
-
-
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--residual-times"] and len(sys.argv) == 3:
-        sys.exit(residual_times_of(sys.argv[2]))
     sys.exit(main())

@@ -33,12 +33,13 @@
 // reaches device memory:
 // - before each unit's product, every consumer thread starts `cp.async`
 //   copies of its share of the warpgroup's [64][128] slab of x (gemm_dls:
-//   of g) into the warpgroup's bf16 staging tile, rows past M filled with
-//   zeros without a read, so the read overlaps the product;
+//   of g) into the warpgroup's bf16 staging tile, rows past M copied from
+//   row M - 1, so the read overlaps the product;
 // - after the product each thread reads x at its accumulators' places,
 //   writes the bf16 result back into the same places, and the tile leaves
 //   as 16-byte row stores (`store`);
-// - gemm_dls keeps g * z (0 for rows past M) in the accumulators, writes
+// - gemm_dls keeps g * z in the accumulators, masked to 0 for rows past M
+//   (a's rows there are zeros but b and the copied g are not), writes
 //   gz as above, then sums each column over the 64 rows in a fixed order:
 //   each thread's two rows (r, r + 8), then the warp's 8 row pairs by a
 //   butterfly over the lanes 4, 8 and 16 apart, then the 4 warps' sums in
@@ -65,16 +66,15 @@ inline bool residual_shape_ok(int M, int K, int N) {
 
 // This thread's share of the copies of rows m0 .. m0 + 63, columns n0 ..
 // n0 + 127 of the bf16 [M, N] matrix src into the warpgroup's staging tile;
-// rows past M read nothing and fill zeros. One commit group.
+// rows past M copy row M - 1 (no output row past M is stored, and gemm_dls
+// masks them out of its sums). One commit group.
 __device__ __forceinline__ void load_slab(bf16* epi, int t, const bf16* __restrict__ src, int N,
                                           int m0, int n0, int M) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int g = t + 128 * j;
     const int r = g / 16, c = (g % 16) * 8;
-    const bool live = m0 + r < M;
-    cp_async16(epi + r * EPI_LD + c, src + size_t(live ? m0 + r : M - 1) * N + n0 + c,
-               live ? 16 : 0);
+    cp_async16(epi + r * EPI_LD + c, src + size_t(min(m0 + r, M - 1)) * N + n0 + c, 16);
   }
   cp_async_commit();
 }
@@ -128,7 +128,7 @@ __device__ __forceinline__ void residual_body(const CUtensorMap* ta, const CUten
       if constexpr (MODE == DLS) {
         const float2 lv = __ldg(reinterpret_cast<const float2*>(ls + n0 + c));
         const float2 gv = __bfloat1622float2(*p);
-        const bool live = m0 + r < M;  // a's rows past M are zeros, b is not
+        const bool live = m0 + r < M;
         d[i] = live ? gv.x * y0 : 0.0f;
         d[i + 1] = live ? gv.y * y1 : 0.0f;
         *p = __floats2bfloat162_rn(gv.x * lv.x, gv.y * lv.y);

@@ -435,13 +435,16 @@ def _mat(t, name, shape, like):
 
 
 def _vec(t, name, n, like):
-    """A parameter vector as the kernels read it: [n] f32, contiguous, on
-    the device of `like` (the JAX package's `_vec`)."""
+    """A parameter vector as the kernels read it: [n] f32, contiguous,
+    16-byte aligned, on the device of `like` (the JAX package's `_vec`).
+    The kernels read vectors in 8- and 16-byte loads, so a view at another
+    offset of its storage (as `vector_to_parameters` makes) is copied."""
     if t.device != like.device:
         raise ValueError(f"{name} is on {t.device}, expected {like.device}")
     if t.numel() != n:
         raise ValueError(f"{name} has {t.numel()} elements, expected {n}")
-    return t.detach().reshape(n).to(torch.float32).contiguous()
+    v = t.detach().reshape(n).to(torch.float32).contiguous()
+    return v.clone() if v.data_ptr() % 16 else v
 
 
 def _stream(x):

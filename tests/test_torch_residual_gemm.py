@@ -9,10 +9,10 @@ row of `gemm_dls`'s partials per 64 rows; its constants against the
 sources; the fixed order in which the kernel sums dls (each 64-row block's
 shuffle tree, then `sum_partials_kernel`'s lanes) against the f64 sum; the
 plain versions against `mst_tpu`'s sub-layers and `jax.grad`; the
-wrappers' shape refusals before any launch; the source in the build's
-hash. `chip_smoke.py` phases 2 and 42 hold the same geometry to the
-kernels' own export and the kernels to their plain versions on the
-card."""
+wrappers' shape refusals before any launch, and their aligned copies of
+vectors at an odd offset; the source in the build's hash. `chip_smoke.py`
+phases 2 and 42 hold the same geometry to the kernels' own export and the
+kernels to their plain versions on the card."""
 
 import re
 
@@ -313,6 +313,46 @@ def test_wrappers_accept_kernel_shapes(monkeypatch, kind):
             tfb.gemm_dls(a, w, b, torch.ones(n), x)
         else:
             _common.gemm(a, w)
+
+
+@pytest.mark.parametrize("kind", ["residual", "residual_no_ls", "dls"])
+def test_wrappers_pass_aligned_vectors(monkeypatch, kind):
+    """bias and ls that are views at a 4-byte offset of one flat buffer (as
+    `vector_to_parameters` makes) reach the kernels, which read them as
+    float2, as 16-byte aligned copies of the same values."""
+    class Reached(Exception):
+        pass
+
+    seen = {}
+
+    class Lib:
+        def __getattr__(self, entry):
+            def call(*args):
+                seen["bias"], seen["ls"] = args[2], args[3]
+                raise Reached
+            return call
+
+    monkeypatch.setattr(tfb, "_on_cuda", lambda t: True)
+    monkeypatch.setattr(tfb, "_stream", lambda t: None)
+    monkeypatch.setattr(_build, "lib", Lib)
+    m, k, n = 771, 64, 256
+    flat = torch.arange(2 * n + 1, dtype=torch.float32)
+    b, ls = flat[1:n + 1], flat[n + 1:]
+    assert b.data_ptr() % 8 and ls.data_ptr() % 16
+    a, w, x = _bf(m, k), _bf(k, n), _bf(m, n)
+    with pytest.raises(Reached):
+        if kind == "residual":
+            tfb.gemm_residual(a, w, b, ls, x)
+        elif kind == "residual_no_ls":
+            tfb.gemm_residual(a, w, b, None, x)
+        else:
+            tfb.gemm_dls(a, w, b, ls, x)
+    assert seen["bias"] % 16 == 0
+    assert seen["ls"] is None if kind == "residual_no_ls" else (
+        seen["ls"] % 16 == 0)
+    for v in (b, ls):
+        got = tfb._vec(v, "v", n, x)
+        assert got.data_ptr() % 16 == 0 and torch.equal(got, v)
 
 
 def test_source_is_built_and_hashed(monkeypatch, tmp_path):
