@@ -10,15 +10,18 @@ limit:
 
 1. device: the card, `nvidia-smi` name and power limit, TF32 off;
 2. build: `nvcc` builds `mst_tpu_torch/csrc/*.cu` (timed); `-Xptxas -v`
-   for the kernels of `ln_gemm.cu`, `gemm_dgrad.cu`, `gemm_wgrad.cu` and
-   `gemm_residual.cu` (registers, no spills; a source compiled on its own
-   for the log where the library was built before the run), the wgmma /
-   TMA instructions of their GEMMs in the SASS (`cuobjdump`: HGMMA,
-   UTMALDG; no WMMA HMMA left in `gemm_dgrad` / `gemm_wgrad` /
-   `gemm_residual` / `gemm_dls`), `fused_block.ln_gemm_launch`,
-   `gemm_dgrad_launch`, `gemm_wgrad_launch` and `gemm_residual_launch`
-   against the kernels' own launch geometry (`mst_gemm_geometry`,
-   `mst_dgrad_geometry`, `mst_wgrad_geometry`, `mst_residual_geometry`),
+   for the kernels of `ln_gemm.cu`, `gemm_dgrad.cu`, `gemm_wgrad.cu`,
+   `gemm_residual.cu`, `mhsa.cu` and `mhsa_bwd.cu` (registers, no spills; a
+   source compiled on its own for the log where the library was built
+   before the run), their wgmma / TMA instructions in the SASS
+   (`cuobjdump`: HGMMA, UTMALDG; no WMMA HMMA left in `gemm_dgrad` /
+   `gemm_wgrad` / `gemm_residual` / `gemm_dls` / `mhsa_bwd`, HMMA in
+   `mhsa` only in its one-pass instances' mma.sync P.V),
+   `fused_block.ln_gemm_launch`, `gemm_dgrad_launch`, `gemm_wgrad_launch`,
+   `gemm_residual_launch` and `mhsa_launch` against the kernels' own launch
+   geometry (`mst_gemm_geometry`, `mst_dgrad_geometry`,
+   `mst_wgrad_geometry`, `mst_residual_geometry`, `mst_mhsa_geometry`,
+   `mst_mhsa_bwd_geometry`),
    and the layout probes of `gemm_wgrad.cu`: a bare
    product with B K-major (dgrad's) and with A MN-major (wgrad's) against
    `torch.matmul`, each beside a planted instance with its leading and
@@ -33,8 +36,8 @@ limit:
 5. server: `build_server` (`BatchingPredictor` + `serve_http` on
    127.0.0.1) answers concurrent POSTs (a padded tail batch included) and
    `/healthz`; the kernel launch counts are read around this run;
-6. times: kernels vs plain versions (CUDA events, median), end-to-end
-   vol/s at B=8, peak device memory;
+6. times: kernels vs plain versions (CUDA events, median; the attention
+   core's in phase 43), end-to-end vol/s at B=8, peak device memory;
 7. train kernels: each kernel of the train step (the residual-saving modes
    of `ln_gemm` and `mhsa`, `gemm_dls`, `gemm_wgrad`, `gemm_dgrad`,
    `mhsa_bwd`, with `ln_pullback` after `gemm_dgrad`'s f32 product) and
@@ -51,7 +54,7 @@ limit:
    `python -m mst_tpu_torch.serve`'s `build_model` gives the eval step's
    probs;
 10. train times: the train kernels vs their plain versions (the backward
-   GEMMs in phase 41), the train step on the kernels and on the plain
+   GEMMs in phase 41, `mhsa` / `mhsa_bwd` in phase 43), the train step on the kernels and on the plain
    sub-layers (ms, vol/s), its peak
    memory, and a `torch.profiler` breakdown of one step;
 11. saliency kernels: the CLS-row, rollout-carry (two chained blocks, so
@@ -66,8 +69,8 @@ limit:
    `--use_tta --use_rollout --save_saliency` on phase 9's run folder and
    LIDC-shaped Synthetic test volumes; `results.csv` and the NIfTI volumes
    against the predictor;
-14. saliency times: the saliency kernels and sub-layers vs their plain
-   versions, vol/s per plane mode at B=8 against the forward without
+14. saliency times: the saliency sub-layers vs their plain versions (the
+   saliency forms of `mhsa` in phase 43), vol/s per plane mode at B=8 against the forward without
    saliency, the per-volume latency of batch-1 TTA with saliency, peak
    memory, and a `torch.profiler` breakdown of each mode's forward.
 
@@ -90,11 +93,11 @@ S = 201 at 224 px) on the same volumes:
    mst_tpu_torch.serve --run_folder` (probs equal to the eval step's) and
    scored by `python -m mst_tpu_torch.predict --use_tta --use_rollout
    --save_saliency`;
-20. times: each RoPE kernel against the same kernel without RoPE, its
-   plain version and the library yardstick (RoPE in torch ops + SDPA and
-   its backward), and the other kernels of the RoPE chains at S = 201
-   (the backward GEMMs in phase 41), so that each chain's time, bound and
-   library cover the same work; B=8
+20. times: the RoPE sub-layers and the other kernels of the RoPE chains at
+   S = 201 against their plain versions and library yardsticks (the
+   backward GEMMs in phase 41, the RoPE forms of `mhsa` / `mhsa_bwd` in
+   phase 43), so that each chain's time, bound and library cover the
+   same work; B=8
    vol/s of serving and each plane mode, the train step, peak memory, a
    `torch.profiler` breakdown of a forward and a step.
 
@@ -117,8 +120,8 @@ FFN with F = 4096; S = 257), built by `python -m mst_tpu_torch.train
    planted fault the loss rule must see, no backward kernel launched; FIT_STEPS AdamW steps leave every encoder parameter bit for
    bit as it was; then the CLI's `train` -> run folder -> `serve
    --run_folder` -> `predict --use_tta --use_rollout --save_saliency`;
-25. times: the SwiGLU and E = 1536 attention kernels and chains at the
-   B=8 path shape against their plain versions, bounds and library calls;
+25. times: the SwiGLU and E = 1536 attention kernels (`mhsa` in phase
+   43) and chains at the B=8 path shape against their plain versions, bounds and library calls;
    B=8 vol/s of serving, each plane mode and the frozen train step, peak
    memory, a `torch.profiler` breakdown of a forward.
 
@@ -133,8 +136,9 @@ fine-tunes: DINOv2 ViT-B/14 (E 768, 12 heads), ViT-L/14 (E 1024, 16 heads,
    sub-layer and the attention and MLP train sub-layers at E = 768 / 1024
    (attention also at 1536) against their plain versions at the B=8 path
    shapes [256, 257, E], each run twice for the same bits; C1: `mhsa_abnar`
-   with and without RoPE at S = 442 (ViT-S/14 on 294 px slices, the 16-row
-   query tile) and the `rollout_abnar` saliency forward there vs plain;
+   with and without RoPE at S = 442 (ViT-S/14 on 294 px slices, the
+   two-pass forward) and the `rollout_abnar` saliency forward there vs
+   plain;
    then the times of row 6's kernels and chain and those sub-layers
    against their plain versions, bounds and library calls (timed here, so
    that the steps after have the room of their inputs; the backward GEMMs
@@ -191,8 +195,8 @@ full, plain products, the flash kernels): 518 px ViT-S/14 slices, S =
    dv) at the B=2 step shape [64, 6, 1370, 64], S = 1601 and 77, against
    their plain versions (run FLASH_CHUNK slices at a time), each twice for
    the same bits, with a planted wrong sm_scale that must break the limit;
-   C3: `mhsa`'s 32-row branch with the LSE and `mhsa_bwd`'s 16-row tiles at
-   [64, 442, 384];
+   C3: `mhsa`'s two-pass forward with the LSE and `mhsa_bwd` at [64, 442,
+   384];
 35. serving: phase 4's ViT-S/14 on [8, 1, 32, 518, 518] against the plain
    composed path (with and without a mask) and an f32 plain forward, 12
    `flash_fwd` and no other launch per forward; the HTTP server on
@@ -221,7 +225,8 @@ tools' own shapes:
    blocks split and fused) with its launch counts read around a run in
    which every launch is held to its plain version on that launch's own
    inputs, again for the same bits, and against the plain chain (printed:
-   it compounds over the layers); variant D against `mhsa` bit for bit,
+   it compounds over the layers); variant D and `mhsa` each within the
+   kernel limit of the same plain `mhsa`,
    variant E's bf16 probabilities within 1 bf16 ulp, row 20's variants
    against the plain f32-softmax mirror, one block of each row-17 layout
    against the tool's plain block, and a planted fault per kernel that must
@@ -276,6 +281,25 @@ library calls for the same work (`residual_library`: `torch.addmm` then
 g * z), with the SM clock. The kernels line's library times of
 `gemm_residual` / `gemm_dls` are those same-work calls; their errors are
 the main path's readings of phases 3, 7, 15, 21 and 26.
+
+Phase 43 holds `mhsa` and `mhsa_bwd`, redesigned on TMA + wgmma with the
+scores in registers (a block walks the query, or key, tiles of a head with
+the other operand resident; the forward in one pass up to S = 272, its P.V
+by mma.sync, in two wgmma passes above), the same way: every form (plain,
+LSE, CLS row, the rollout carry over two chained blocks, Abnar factor;
+with RoPE at S = 201 and 442; `mhsa_bwd`'s dq with delta and dk / dv) at
+6, 12, 16 and 24 heads at S = 257 (B=8: 256 slices), S = 201, a ragged
+S = 77 and C3's 442 and 512 (64 slices), against plain under phase 3 /
+7's limits, twice for the same bits; three planted faults (the LSE with
+the neighbouring row's max, keys 64..127 from a stale chunk, V of the next
+head in the backward) that must break their limits; each kernel launched
+first in a fresh host thread (the same bits); then each form at its path
+shape timed in turn with SDPA or its backward (with RoPE in torch ops
+first; none for the CLS row, carry or Abnar factor) beside the WMMA
+kernel's time (`WMMA_ATTN_MS`), with the SM clock (`attn_times`, which
+reads only `fused_block`, so it times another tree's kernels as well). The
+kernels line's attention times and library times are phase 43's; phases
+6, 10, 14, 20 and 25 no longer time these kernels.
 
 Each phase prints its wall time. The line before the last is `{"kernels":
 [...]}`: per kernel its launches on the main path, its largest error, its
@@ -469,6 +493,9 @@ WMMA_BWD_MS = {
 # the new ones.
 RES_M = BWD_M + (1,)
 RES_GEMMS = ("gemm_residual", "gemm_dls")
+# Phase 43 times every form of `mhsa` / `mhsa_bwd` (names that start so);
+# the earlier phases check them but leave their times to it.
+ATTN = ("mhsa",)
 WMMA_RES_MS = {"gemm_residual[proj,ls]": 0.1933, "gemm_dls[proj]": 0.2171,
     "gemm_residual[fc2,ls]": 0.5839, "gemm_dls[fc2]": 0.6227,
     "gemm_residual[proj,E=768,ls]": 0.6316, "gemm_dls[proj,E=768]": 0.6704,
@@ -1413,10 +1440,17 @@ def tools_phases(tag, dev):
         check(torch.equal(o, o2), f"variant {v}: p_out changes o")
         one(f"attn_variant[{v}] at [{sm.N}, {sm.S}]", lambda: o, lambda: ref)
         if v == "D":
-            same = torch.equal(o, fb.mhsa(qkv18, sm.N, sm.S, sm.H))
-            print(f"{tag} attn_variant[D] vs mhsa on the same qkv: bit for "
-                  f"bit {same}")
-            check(same, "variant D differs from mhsa")
+            # D kept the math of the WMMA `mhsa`; the shipped kernel (now
+            # TMA + wgmma) sums in another order, so both are held to the
+            # same plain version under the kernel limit
+            ref_d = fb._mhsa_ref(qkv18, sm.N, sm.S, sm.H)
+            shipped = fb.mhsa(qkv18, sm.N, sm.S, sm.H)
+            torch.cuda.synchronize()
+            check_outputs(tag, "attn_variant[D] vs the plain mhsa", o, ref_d,
+                          KERNEL_GRAD_REL)
+            check_outputs(tag, "mhsa vs the same plain mhsa", shipped, ref_d,
+                          KERNEL_GRAD_REL)
+            del ref_d, shipped
         if v == "E":
             qh, kh, _ = c.head_views(qkv18, sm.N, sm.S, 3, sm.H)
             s_ = fb._mm(qh, kh.transpose(-1, -2)) * sm.scale_of("E")
@@ -1726,20 +1760,29 @@ PTXAS_ENTRIES = {
     "gemm_dgrad.cu": {"gemm_dgrad_kernel": 4, "ln_pullback_kernel": 1},
     "gemm_wgrad.cu": {"gemm_wgrad_kernel": 1, "probe_kernel": 4},
     "gemm_residual.cu": {"gemm_residual_kernel": 4, "gemm_dls_kernel": 1},
+    "mhsa.cu": {"mhsa_kernel": 20},
+    "mhsa_bwd.cu": {"mhsa_bwd_dq_kernel": 2, "mhsa_bwd_dkv_kernel": 2},
 }
 SASS_GEMMS = {"gemm_ln_kernel": 4, "gemm_dgrad_kernel": 4,
               "gemm_wgrad_kernel": 1, "probe_kernel": 4,
-              "gemm_residual_kernel": 4, "gemm_dls_kernel": 1}
+              "gemm_residual_kernel": 4, "gemm_dls_kernel": 1,
+              "mhsa_kernel": 20, "mhsa_bwd_dq_kernel": 2,
+              "mhsa_bwd_dkv_kernel": 2}
+# mhsa's one-pass instances (template flag TWO false) run P.V by mma.sync
+# (HMMA: 17 k steps x 8 n tiles a warp at S = 257); every other instance
+# of these kernels has no HMMA.
+ONE_PASS_MHSA = "mhsa_kernelILb0E"
 
 
 def check_machine_code(tag, build_log, build_mod, lib_path) -> None:
-    """The compiler's word on the wgmma GEMMs' sources (`PTXAS_ENTRIES`):
+    """The compiler's word on the wgmma sources (`PTXAS_ENTRIES`):
     registers and spills of each kernel from `-Xptxas -v` (the build's log,
     or where the library was built before this run a compile of the
-    source on its own), and the GEMMs' wgmma and TMA instructions (HGMMA,
+    source on its own), and the wgmma and TMA instructions (HGMMA,
     UTMALDG) counted in their SASS (`cuobjdump -sass`). No spills, both
     instructions present, and no HMMA (WMMA / mma.sync) in the backward
-    GEMMs and in `gemm_residual` / `gemm_dls`."""
+    GEMMs, `gemm_residual` / `gemm_dls` and `mhsa_bwd`; in `mhsa` HMMA
+    exactly in the one-pass instances (their P.V)."""
     entry = r"Compiling entry function '([^']+)'(.*?)(?=Compiling entry function|\Z)"
     for src, want in PTXAS_ENTRIES.items():
         def mine(log):
@@ -1783,8 +1826,12 @@ def check_machine_code(tag, build_log, build_mod, lib_path) -> None:
             print(f"{tag} SASS {short.group(0) if short else fn}: {hgmma} "
                   f"HGMMA, {utmaldg} UTMALDG, {hmma} HMMA")
             check(hgmma > 0 and utmaldg > 0, f"{fn}: no wgmma or no TMA load")
-            check(hmma == 0 or k == "gemm_ln_kernel",
-                  f"{fn}: {hmma} HMMA (WMMA / mma.sync) instructions left")
+            if k == "mhsa_kernel":
+                check((hmma > 0) == (ONE_PASS_MHSA in fn),
+                      f"{fn}: {hmma} HMMA (mma.sync) instructions")
+            else:
+                check(hmma == 0 or k == "gemm_ln_kernel",
+                      f"{fn}: {hmma} HMMA (WMMA / mma.sync) instructions left")
         check(len(fns) == SASS_GEMMS[k], f"{k} instances in SASS: {len(fns)}")
 
 
@@ -2548,21 +2595,6 @@ def residual_gemm_phase(tag, dev, fb):
     # each TMA GEMM's entry as the first call of a fresh host thread, which
     # has no current context (as PyTorch's autograd worker before its first
     # launch): the same bits as on this thread
-    def fresh_thread(fn):
-        got = {}
-
-        def run():
-            try:
-                got["out"] = fn()
-            except Exception as exc:  # noqa: BLE001 - re-raised below
-                got["exc"] = exc
-        th = threading.Thread(target=run)
-        th.start()
-        th.join()
-        if "exc" in got:
-            raise got["exc"]
-        return got["out"]
-
     m = RAGGED_M[0]
     a, x, o = rand(m, k), rand(m, e), rand(m, 3 * e)
     w3e = rand(e, 3 * e, scale=e ** -0.5)
@@ -2643,6 +2675,354 @@ def residual_times(tag, dev, fb):
     return timed, cost, lib_ms
 
 
+# Phase 43: `mhsa` / `mhsa_bwd` on TMA + wgmma with the scores in
+# registers, at the path widths (ViT-S / B / L, giant2: 6 / 12 / 16 / 24
+# heads at S = 257), DINOv3's S = 201 with RoPE, a ragged S = 77 and C3's
+# 442 / 512 (the two-pass forward). The WMMA kernels' times (the mean of
+# two readings by `attn_times` on the tree before this redesign, in the
+# call that read this tree's twice, on an H100 80GB HBM3 at 700 W; PERF.md
+# §6), printed beside the new ones.
+ATTN_HEADS = (6, 12, 16, 24)
+ATTN_LONG = (442, 512)
+ATTN_RAGGED = 77
+WMMA_ATTN_MS = {
+    "mhsa": 1.0528, "mhsa_train": 1.0541, "mhsa_bwd": 3.0792,
+    "mhsa_with_row": 1.1327, "mhsa_rollout[block1,row]": 1.2183,
+    "mhsa_abnar": 1.5449, "mhsa_rope": 0.7708, "mhsa_rope_train": 0.7801,
+    "mhsa_bwd_rope": 2.6864, "mhsa_with_row_rope": 0.8102,
+    "mhsa_rollout_rope[block1,row]": 0.9543, "mhsa_abnar_rope": 1.1965,
+    "mhsa[E=768]": 2.0499, "mhsa_bwd[E=768]": 6.1075,
+    "mhsa[E=1024]": 2.7235, "mhsa_bwd[E=1024]": 8.1577,
+    "mhsa[E=1536]": 4.0761, "mhsa_bwd[E=1536]": 12.2266,
+    "mhsa[S=442]": 2.4437, "mhsa_bwd[S=442]": 8.5906}
+
+
+def attn_name(form, heads=HEADS, s=S, rope=False, n=N_SLICES):
+    """The kernels line's name of a `mhsa` / `mhsa_bwd` case (phases 3, 7,
+    11, 15, 21 name the same cases so): the form, `_rope` before the
+    train suffix or the bracket, then the width unless ViT-S, S unless 257
+    or DINOv3's 201, the slices unless B=8."""
+    base, _, rest = form.partition("[")
+    if rope:
+        base = (base[:-len("_train")] + "_rope_train" if base.endswith("_train")
+                else base + "_rope")
+    tags = [rest[:-1]] if rest else []
+    if heads != HEADS:
+        tags.append(f"E={64 * heads}")
+    if s not in (S, S3):
+        tags.append(f"S={s}")
+    if n != N_SLICES:
+        tags.append(f"N={n}")
+    return base + (f"[{','.join(tags)}]" if tags else "")
+
+
+def attn_tables(s, dev):
+    """The RoPE tables of a length the paths have (DINOv3 ViT-S/16 at 224
+    px: S = 201; ViT-S/14's grid at 294 px: 442), else None."""
+    from mst_tpu_torch.ops.rotary import rope_tables
+    grids = {S3: (GRID3, PREFIX3), 442: ((21, 21), 1)}
+    if s not in grids:
+        return None
+    grid, prefix = grids[s]
+    return rope_tables(grid, 64, prefix, 100.0, True, dev)
+
+
+def fresh_thread(fn):
+    """fn() as the first call of a new host thread, which has no current
+    context (as PyTorch's autograd worker before its first launch)."""
+    got = {}
+
+    def run():
+        try:
+            got["out"] = fn()
+        except Exception as exc:  # noqa: BLE001 - re-raised below
+            got["exc"] = exc
+    th = threading.Thread(target=run)
+    th.start()
+    th.join()
+    if "exc" in got:
+        raise got["exc"]
+    return got["out"]
+
+
+def check_attn_geometry(tag, fb, lib) -> None:
+    """`fused_block.mhsa_launch` (the geometry the CPU tests read) against
+    the kernels' own, `mst_mhsa_geometry` and `mst_mhsa_bwd_geometry`, at
+    every S from 1 to 512."""
+    for s in range(1, 513):
+        g = fb.mhsa_launch(s)
+        fwd, bwd = (ctypes.c_int * 10)(), (ctypes.c_int * 7)()
+        check(lib.mst_mhsa_geometry(s, fwd) == 0
+              and lib.mst_mhsa_bwd_geometry(s, bwd) == 0, f"geometry at S={s}")
+        want_f = (g.tile, g.tiles, g.tiles_per_block, g.threads, g.passes,
+                  g.chunks64, g.tail16, g.score_regs, g.smem, g.abnar_smem)
+        want_b = (g.tile, g.tiles, g.bwd_tiles_per_block, g.threads,
+                  g.chunks64, g.tail16, g.bwd_smem)
+        check(tuple(fwd) == want_f and tuple(bwd) == want_b,
+              f"attention geometry at S={s}: kernel {tuple(fwd)} / "
+              f"{tuple(bwd)}, mirror {want_f} / {want_b}")
+    g = fb.mhsa_launch(S)
+    print(f"{tag} attention geometry: fused_block.mhsa_launch equals "
+          f"mst_mhsa_geometry / mst_mhsa_bwd_geometry at every S <= 512 (S "
+          f"= {S}: {g.tiles} tiles of {g.tile}, {g.tiles_per_block} / "
+          f"{g.bwd_tiles_per_block} a block, {g.passes} pass, "
+          f"{g.chunks64} key chunks of 64 + {g.tail16} of 16, "
+          f"{g.score_regs} score registers, {g.smem} / {g.abnar_smem} / "
+          f"{g.bwd_smem} bytes of shared memory)")
+
+
+def attn_phase(tag, dev, fb):
+    """Phase 43: every form of `mhsa` (plain, LSE, CLS row, the rollout
+    carry over two chained blocks, Abnar factor; each with RoPE where the
+    length has tables) and `mhsa_bwd` (dq with delta, dk / dv) against
+    their plain versions under phase 3 / 7's limits, twice for the same
+    bits, at ATTN_HEADS x S = 257, S3 = 201 with RoPE, S = ATTN_RAGGED and
+    ATTN_LONG; three planted faults; each TMA kernel first in a fresh host
+    thread. Its readings stay out of the kernels line, which keeps the main
+    path's readings of the same names (phases 3, 7, 11, 15, 21); the times:
+    `attn_times`."""
+    stamp(tag, "43")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 43)
+    bf = torch.bfloat16
+
+    def rand(*shape, scale=1.0, dtype=bf):
+        return (scale * torch.randn(shape, generator=gen, device=dev,
+                                    dtype=torch.float32)).to(dtype)
+
+    def hold(name, kern, plain):
+        """kern() against plain() (bf16 within 2 bf16 ulps, f32 within
+        KERNEL_GRAD_REL of the plain output's largest magnitude), and the
+        same bits on a second run."""
+        with torch.inference_mode():
+            k1, pl, k2 = kern(), plain(), kern()
+        torch.cuda.synchronize()
+        check_outputs(tag, f"attn {name}", k1, pl, KERNEL_GRAD_REL)
+        k1, k2 = (k1, k2) if isinstance(k1, tuple) else ((k1,), (k2,))
+        same = all(torch.equal(a, b) for a, b in zip(k1, k2))
+        print(f"{tag} attn {name}: two runs equal bit for bit: {same}")
+        check(same, f"{name}: two runs differ")
+
+    print(f"{tag} mhsa / mhsa_bwd on TMA + wgmma: every form against plain, "
+          f"bf16 outputs within 2 bf16 ulps and f32 ones within "
+          f"{KERNEL_GRAD_REL} x |plain|max (phase 3 / 7's limits), the same "
+          f"bits on a second run; {ATTN_HEADS} heads at S = {S}, S = {S3} "
+          f"with RoPE, S = {ATTN_RAGGED} and {ATTN_LONG}")
+    cases = [(N_SLICES, S, h) for h in ATTN_HEADS] + [(N_SLICES, S3, HEADS)]
+    cases += [(64, ATTN_RAGGED, HEADS)] + [(64, s, HEADS) for s in ATTN_LONG]
+    for n, s, h in cases:
+        qkv = rand(n * s, 3 * 64 * h)
+        do = rand(n * s, 64 * h)
+        tables = attn_tables(s, dev)
+        # DINOv3's length with RoPE only (its name without is ViT-S's)
+        for rope in ((True,) if s == S3 else (False, True) if tables is not None
+                     else (False,)):
+            rt = (dict(rope_cos=tables[0], rope_sin=tables[1]) if rope
+                  else {})
+
+            def nm(form):
+                return attn_name(form, h, s, rope, n)
+            e0 = torch.zeros(n, h, s, device=dev)
+            e0[:, :, 0] = 1.0  # the rollout chain starts at the CLS token
+            with torch.inference_mode():
+                c1 = fb._mhsa_ref(qkv, n, s, h, carry=e0, **rt)[1]
+                o, lse = fb._mhsa_ref(qkv, n, s, h, want_lse=True, **rt)
+            hold(nm("mhsa"), lambda: fb.mhsa(qkv, n, s, h, **rt),
+                 lambda: fb._mhsa_ref(qkv, n, s, h, **rt))
+            hold(nm("mhsa_train"),
+                 lambda: fb.mhsa(qkv, n, s, h, want_lse=True, **rt),
+                 lambda: fb._mhsa_ref(qkv, n, s, h, want_lse=True, **rt))
+            hold(nm("mhsa_with_row"),
+                 lambda: fb.mhsa_with_row(qkv, n, s, h, **rt),
+                 lambda: fb._mhsa_ref(qkv, n, s, h, want_row=True, **rt))
+            hold(nm("mhsa_rollout[block0]"),
+                 lambda: fb.mhsa_rollout(qkv, e0, n, s, h, **rt),
+                 lambda: fb._mhsa_ref(qkv, n, s, h, carry=e0, **rt))
+            hold(nm("mhsa_rollout[block1,row]"),
+                 lambda: fb.mhsa_rollout(qkv, c1, n, s, h, want_row=True,
+                                         **rt),
+                 lambda: fb._mhsa_ref(qkv, n, s, h, want_row=True, carry=c1,
+                                      **rt))
+            hold(nm("mhsa_abnar"), lambda: fb.mhsa_abnar(qkv, n, s, h, **rt),
+                 lambda: fb._mhsa_ref(qkv, n, s, h, want_abnar=True, **rt))
+            hold(nm("mhsa_bwd"),
+                 lambda: fb.mhsa_bwd(qkv, o, do, lse, n, s, h, **rt),
+                 lambda: fb._mhsa_bwd_ref(qkv, o, do, lse, n, s, h, **rt))
+            del e0, c1, o, lse
+        del qkv, do
+        torch.cuda.empty_cache()
+
+    # planted faults, each of which must break its limit
+    def broken(name, kern, fault, rel=None):
+        scale = fault.float().abs().max().item()
+        err = (kern.float() - fault.float()).abs().max().item()
+        lim = 2 * ulp_bf16(scale) if rel is None else rel * scale
+        print(f"{tag} planted fault: {name}: max_abs_err={err:.6g} against "
+              f"the limit {lim:.6g} ({err / lim:.4g}x); must break it")
+        check(err > lim, f"planted fault {name} passes the limit")
+
+    n, s, h = N_SLICES, S, HEADS
+    qkv, do = rand(n * s, 3 * 64 * h), rand(n * s, 64 * h)
+    with torch.inference_mode():
+        o, lse = fb.mhsa(qkv, n, s, h, want_lse=True)
+        # the row max of the neighbouring row in the LSE: m_{q+1} + log2 l_q
+        t = qkv.reshape(n, s, 3, h, 64).permute(2, 0, 3, 1, 4)
+        sc = fb._mm(t[0], t[1].transpose(-1, -2)) * (fb._LOG2E / 8.0)
+        m = sc.amax(-1)
+        l_ = torch.exp2(sc - m[..., None]).sum(-1)
+        m_next = torch.cat([m[..., 1:], m[..., :1]], -1)
+        lse_fault = (m_next + torch.log2(l_)).permute(0, 2, 1).reshape(n * s, h)
+        broken("mhsa_train: the LSE with the row max of the neighbouring row",
+               lse, lse_fault, KERNEL_GRAD_REL)
+        del sc, m, l_, m_next, lse_fault
+        # a stale key chunk: keys and values 64..127 of each slice read from
+        # the chunk before
+        stale = qkv.reshape(n, s, 3 * 64 * h).clone()
+        stale[:, 64:128, 64 * h:] = stale[:, 0:64, 64 * h:]
+        broken("mhsa: keys 64..127 from a stale chunk (0..63)", o,
+               fb._mhsa_ref(stale.reshape(n * s, -1), n, s, h))
+        del stale
+        # V of the next head in the backward
+        vnext = qkv.reshape(n * s, 3, h, 64).clone()
+        vnext[:, 2] = vnext[:, 2].roll(-1, dims=1)
+        broken("mhsa_bwd: V of the next head",
+               fb.mhsa_bwd(qkv, o, do, lse, n, s, h),
+               fb._mhsa_bwd_ref(vnext.reshape(n * s, -1), o, do, lse, n, s,
+                                h))
+        del vnext
+
+    # each TMA kernel's entry as the first call of a fresh host thread: the
+    # same bits as on this thread
+    with torch.inference_mode():
+        for name, fn in (("mhsa", lambda: fb.mhsa(qkv, n, s, h, want_lse=True)),
+                         ("mhsa_bwd",
+                          lambda: fb.mhsa_bwd(qkv, o, do, lse, n, s, h))):
+            there, here = fresh_thread(fn), fn()
+            torch.cuda.synchronize()
+            there, here = ((there, here) if isinstance(here, tuple)
+                           else ((there,), (here,)))
+            same = all(torch.equal(u, v) for u, v in zip(there, here))
+            print(f"{tag} {name} launched first in a fresh host thread: the "
+                  f"same bits as on the main thread: {same}")
+            check(same, f"{name} in a fresh thread differs")
+    del qkv, do, o, lse
+    torch.cuda.empty_cache()
+
+
+def attn_times(tag, dev, fb):
+    """Phase 43's times: each `mhsa` / `mhsa_bwd` form at its path shape
+    (B=8: 256 slices) timed in turn with the PyTorch call for the same
+    function where there is one (SDPA, its backward; with RoPE the rotation
+    in torch ops first), beside the WMMA kernel's time and the SM clock;
+    then the plain version and the bound (`attn_cost`). Reads only `fb`, so
+    that it can time another tree's kernels. Returns (timed, cost,
+    lib_ms)."""
+    from mst_tpu_torch.ops.rotary import apply_rope_tables
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 143)
+    bf = torch.bfloat16
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(bf)
+
+    def sdpa(qkv, n, s, h, rope):
+        q, k, v = heads_of(qkv, n, s, h)
+        if rope is None:
+            return functools.partial(F.scaled_dot_product_attention, q, k, v)
+        return lambda: F.scaled_dot_product_attention(
+            apply_rope_tables(q, *rope), apply_rope_tables(k, *rope), v)
+
+    def sdpa_bwd(qkv, do, n, s, h, rope):
+        leaves = [u.requires_grad_(True) for u in heads_of(qkv, n, s, h)]
+        q, k, v = leaves
+        if rope is not None:
+            q, k = (apply_rope_tables(u, *rope) for u in (q, k))
+        out = F.scaled_dot_product_attention(q, k, v)
+        do_h = do.reshape(n, s, h, 64).permute(0, 2, 1, 3).contiguous()
+        return functools.partial(torch.autograd.grad, out, leaves, do_h,
+                                 retain_graph=True)
+
+    timed, cost, lib_ms = {}, {}, {}
+    print(f"{tag} times: median over {PAIR_ROUNDS} rounds of the mean of "
+          f"{PER_PAIR} calls between two CUDA events, kernel and library "
+          f"taken in turn; library: SDPA or its backward (with RoPE in torch "
+          f"ops first), none for the CLS row, carry or Abnar factor; WMMA = "
+          f"the kernel before this rewrite (PERF.md §6)")
+    n = N_SLICES
+    shapes = [(S, HEADS, False), (S3, HEADS, True)]
+    shapes += [(S, h, False) for h in ATTN_HEADS[1:]] + [(ATTN_LONG[0], HEADS, False)]
+    with ClockSampler() as clocks:
+        for s, h, rope in shapes:
+            qkv, do = rand(n * s, 3 * 64 * h), rand(n * s, 64 * h)
+            tables = attn_tables(s, dev) if rope else None
+            rt = (dict(rope_cos=tables[0], rope_sin=tables[1]) if rope
+                  else {})
+            tab = 2 * 4 * s * 64 if rope else 0
+            m_rows = n * s
+            with torch.no_grad():
+                o, lse = fb.mhsa(qkv, n, s, h, want_lse=True, **rt)
+            carry = torch.rand((n, h, s), generator=gen, device=dev)
+            lib_f = sdpa(qkv, n, s, h, tables)
+            lib_b = sdpa_bwd(qkv.clone(), do.clone(), n, s, h, tables)
+            forms = [
+                ("mhsa", lambda: fb.mhsa(qkv, n, s, h, **rt),
+                 lambda: fb._mhsa_ref(qkv, n, s, h, **rt), lib_f,
+                 attn_cost(n, s, tab, heads=h)),
+                ("mhsa_bwd", lambda: fb.mhsa_bwd(qkv, o, do, lse, n, s, h, **rt),
+                 lambda: fb._mhsa_bwd_ref(qkv, o, do, lse, n, s, h, **rt),
+                 lib_b, attn_cost(n, s, tab, bwd=True, heads=h))]
+            if h == HEADS and s in (S, S3):
+                forms += [
+                    ("mhsa_train",
+                     lambda: fb.mhsa(qkv, n, s, h, want_lse=True, **rt),
+                     lambda: fb._mhsa_ref(qkv, n, s, h, want_lse=True, **rt),
+                     lib_f, attn_cost(n, s, tab + 4 * m_rows * h)),
+                    ("mhsa_with_row",
+                     lambda: fb.mhsa_with_row(qkv, n, s, h, **rt),
+                     lambda: fb._mhsa_ref(qkv, n, s, h, want_row=True, **rt),
+                     None, attn_cost(n, s, tab + 4 * n * h * s)),
+                    ("mhsa_rollout[block1,row]",
+                     lambda: fb.mhsa_rollout(qkv, carry, n, s, h,
+                                             want_row=True, **rt),
+                     lambda: fb._mhsa_ref(qkv, n, s, h, want_row=True,
+                                          carry=carry, **rt),
+                     None, attn_cost(n, s, tab + 3 * 4 * n * h * s)),
+                    ("mhsa_abnar", lambda: fb.mhsa_abnar(qkv, n, s, h, **rt),
+                     lambda: fb._mhsa_ref(qkv, n, s, h, want_abnar=True, **rt),
+                     None, attn_cost(n, s, tab + 4 * n * s * s))]
+            for form, kern, plain, library, c_ in forms:
+                name = attn_name(form, h, s, rope)
+                cost[name] = c_
+                fns = {"kernel": kern}
+                if library is not None:
+                    fns["library"] = library
+                t = time_interleaved(fns, clocks)
+                with torch.no_grad():
+                    pm_ = time_ms(plain, n=5, warmup=1)
+                km = t["kernel"].ms
+                lm = t["library"].ms if library is not None else None
+                timed[name] = (km, pm_)
+                if lm is not None:
+                    lib_ms[name] = lm
+                b_ms, b_by = bound([c_])
+                wmma = WMMA_ATTN_MS.get(name)
+                print(f"{tag} time {name} [{n}, {h}, {s}, 64]: kernel "
+                      f"{km:.4f} ms ({c_[0] / km / 1e9:.1f} TFLOP/s, "
+                      f"{c_[1] / km / 1e6:.1f} GB/s; rounds "
+                      f"{t['kernel'].lo:.4f}-{t['kernel'].hi:.4f}; "
+                      f"{t['kernel'].mhz} MHz, {t['kernel'].watts} W); "
+                      + (f"library {lm:.4f} ms (kernel / library "
+                         f"{km / lm:.3f}; {t['library'].mhz} MHz); "
+                         if lm is not None else "library none; ")
+                      + f"plain {pm_:.4f} ms; bound {b_ms:.4f} ms by {b_by} "
+                      f"({b_ms / km:.3f} of it); WMMA "
+                      + (f"{wmma} ms ({wmma / km:.2f}x)" if wmma
+                         else "not recorded"))
+            del qkv, do, o, lse, carry, lib_f, lib_b, forms
+            torch.cuda.empty_cache()
+    return timed, cost, lib_ms
+
+
 def main() -> int:
     if not (ROOT / "mst_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke.py must run from a checkout of the "
@@ -2718,6 +3098,7 @@ def main() -> int:
           f"{lib_path.relative_to(ROOT)}")
     check_machine_code(tag, log.getvalue(), _build, lib_path)
     check_gemm_geometry(tag, fb, _build.lib())
+    check_attn_geometry(tag, fb, _build.lib())
     probe_errs = check_layout_probes(tag, dev, _build.lib())
 
     # -- 3. kernels vs plain at the path's shapes --------------------------
@@ -3005,10 +3386,11 @@ def main() -> int:
     stamp(tag, "6")
     timed = {name: (time_ms(kern), time_ms(plain))
              for name, (kern, plain) in cases.items()
-             if not name.startswith(RES_GEMMS)}  # phase 42 times these
+             if not name.startswith(RES_GEMMS + ATTN)}  # phases 42-43
     for name, (km, pm_) in timed.items():
         print(f"{tag} time {name}: kernel {km:.4f} ms, plain {pm_:.4f} ms")
-    lib_ms = {name: time_ms(fn) for name, fn in library.items()}
+    lib_ms = {name: time_ms(fn) for name, fn in library.items()
+              if not name.startswith(ATTN)}
 
     src8 = torch.from_numpy(vol).to(dev)
 
@@ -3415,11 +3797,11 @@ def main() -> int:
     stamp(tag, "10")
     ttimed = {name: (time_ms(kern), time_ms(plain))
               for name, (kern, plain) in tcases.items()
-              if not name.startswith(BWD_GEMMS + RES_GEMMS)}  # phases 41-42
+              if not name.startswith(BWD_GEMMS + RES_GEMMS + ATTN)}  # 41-43
     for name, (km, pm_) in ttimed.items():
         print(f"{tag} time {name}: kernel {km:.4f} ms, plain {pm_:.4f} ms")
     lib_ms.update({name: time_ms(fn) for name, fn in library.items()
-                   if name not in lib_ms})
+                   if name not in lib_ms and not name.startswith(ATTN)})
     for name, (kind, sargs) in sub.items():
         fn = (fb.fused_attention_sublayer_train if kind == "attn"
               else fb.fused_mlp_sublayer_train)
@@ -3706,13 +4088,13 @@ def main() -> int:
 
     # -- 14. saliency times ---------------------------------------------------
     stamp(tag, "14")
-    # plain-flags `mhsa` and its sub-layer again, beside them in time
-    reference = {"mhsa[plain flags]": cases["mhsa"],
-                 "attention_sublayer[ls,plain flags]":
-                     cases["attention_sublayer[ls]"]}
+    # the plain-flags sub-layer again, beside them in time (phase 43 times
+    # the saliency forms of `mhsa` themselves)
+    reference = {"attention_sublayer[ls,plain flags]":
+                 cases["attention_sublayer[ls]"]}
     with torch.inference_mode():
         stimed = {name: (time_ms(kern), time_ms(plain)) for name, (kern, plain)
-                  in {**reference, **scases, **ssub}.items()}
+                  in {**reference, **ssub}.items()}
     for name, (km, pm_) in stimed.items():
         print(f"{tag} time {name}: kernel {km:.4f} ms, plain {pm_:.4f} ms")
     def seconds_and_memory(fn, n=5):
@@ -3792,17 +4174,6 @@ def main() -> int:
                                  **rope3)),
         "mhsa_bwd_rope": pair(fb.mhsa_bwd, fb._mhsa_bwd_ref, qkv3, o3, do3,
                               lse3, N_SLICES, S3, HEADS, cos3, sin3),
-    }
-    # the same kernels without RoPE on the same inputs: the time of the flag
-    twins = {
-        "mhsa_rope": lambda: fb.mhsa(qkv3, N_SLICES, S3, HEADS),
-        "mhsa_with_row_rope": lambda: fb.mhsa_with_row(qkv3, N_SLICES, S3,
-                                                       HEADS),
-        "mhsa_rollout_rope[block1,row]": lambda: fb.mhsa_rollout(
-            qkv3, c13, N_SLICES, S3, HEADS, want_row=True),
-        "mhsa_abnar_rope": lambda: fb.mhsa_abnar(qkv3, N_SLICES, S3, HEADS),
-        "mhsa_bwd_rope": lambda: fb.mhsa_bwd(qkv3, o3, do3, lse3, N_SLICES,
-                                             S3, HEADS),
     }
     table_bytes = 2 * 4 * S3 * 64
     cost.update({
@@ -4060,21 +4431,12 @@ def main() -> int:
     with torch.inference_mode():
         rtimed = {name: (time_ms(kern), time_ms(plain)) for name, (kern, plain)
                   in {**rcases, **rsub, **rchain}.items()
-                  if not name.startswith(BWD_GEMMS + RES_GEMMS)}  # 41-42
-        # each RoPE kernel against itself without RoPE on the same inputs,
-        # in turns (with, without, without, with): the mean of each pair
-        ab = {}
-        for name, fn in twins.items():
-            kern = rcases[name][0]
-            ts = [time_ms(kern), time_ms(fn), time_ms(fn), time_ms(kern)]
-            ab[name] = ((ts[0] + ts[3]) / 2, (ts[1] + ts[2]) / 2)
+                  if not name.startswith(BWD_GEMMS + RES_GEMMS + ATTN)}
     lib_ms.update({name: time_ms(fn) for name, fn in library.items()
-                   if name not in lib_ms})
+                   if name not in lib_ms and not name.startswith(ATTN)})
     for name, (km, pm_) in rtimed.items():
-        extra = (f", with / without RoPE in turns {ab[name][0]:.4f} / "
-                 f"{ab[name][1]:.4f} ms" if name in ab else "")
-        extra += (f", library {lib_ms[name]:.4f} ms" if name in lib_ms
-                  else "")
+        extra = (f", library {lib_ms[name]:.4f} ms" if name in lib_ms
+                 else "")
         print(f"{tag} time {name}: kernel {km:.4f} ms, plain {pm_:.4f} ms"
               f"{extra}")
     for name, sargs in rtrain.items():
@@ -4393,9 +4755,9 @@ def main() -> int:
     with torch.inference_mode():
         gtimed = {name: (time_ms(kern), time_ms(plain))
                   for name, (kern, plain) in gtimes.items()
-                  if not name.startswith(RES_GEMMS)}  # timed in phase 42
+                  if not name.startswith(RES_GEMMS + ATTN)}  # phases 42-43
     lib_ms.update({name: time_ms(fn) for name, fn in library.items()
-                   if name not in lib_ms})
+                   if name not in lib_ms and not name.startswith(ATTN)})
     for name, (km, pm_) in gtimed.items():
         print(f"{tag} time giant2 {name}: kernel {km:.4f} ms, plain "
               f"{pm_:.4f} ms, library {lib_ms[name]:.4f} ms")
@@ -4567,9 +4929,11 @@ def main() -> int:
         check(same, f"{name}: two runs differ")
         del k, pl, again
     # C1: the Abnar factor at S = 442 (ViT-S/14 on 294 px slices), where the
-    # 16-row query tile takes over
+    # two-pass forward takes over (its head sum in the factor rows; the
+    # query tile is 64 rows at every S)
     s442, px442 = 442, 294
-    check(fb.abnar_query_tile(s442) == 16, "the S = 442 Abnar tile")
+    check(fb.abnar_query_tile(s442) == 64 and fb.mhsa_launch(s442).passes == 2,
+          "the S = 442 Abnar tile")
     qkv442 = rand(N_SLICES * s442, 3 * E, dtype=bf)
     cos442, sin442 = rope_tables((21, 21), 64, 1, 100.0, True, dev)
     c1cases = {
@@ -4618,9 +4982,9 @@ def main() -> int:
     # these inputs (the ViT-L step's checks peak near 70 GiB)
     utimed = {name: (time_ms(kern), time_ms(plain))
               for name, (kern, plain) in ucases.items()
-              if not name.startswith(BWD_GEMMS + RES_GEMMS)}  # phases 41-42
+              if not name.startswith(BWD_GEMMS + RES_GEMMS + ATTN)}  # 41-43
     lib_ms.update({name: time_ms(fn) for name, fn in library.items()
-                   if name not in lib_ms})
+                   if name not in lib_ms and not name.startswith(ATTN)})
     for name, (km, pm_) in utimed.items():
         lib = f", library {lib_ms[name]:.4f} ms" if name in lib_ms else ""
         print(f"{tag} time {name}: kernel {km:.4f} ms, plain {pm_:.4f} ms"
@@ -5266,9 +5630,9 @@ def main() -> int:
                 lambda a=b_: plain_ops.bwd_dkv(*a, sm))
             flash_in["do"] = do_
         del dq2, delta2, dk2, dv2, pdq, pdelta, pdk, pdv, po, plse
-    # C3: `mhsa`'s 32-row branch with the LSE (layout(64, S) passes the
-    # shared-memory cap above S = 400) and `mhsa_bwd`'s 16-row tiles, at
-    # S = 442 (ViT-S/14 on 294 px slices), [64, 442, 384]
+    # C3: `mhsa`'s two-pass forward with the LSE (above S = 272 a row's
+    # scores do not fit the registers) and `mhsa_bwd`, at S = 442 (ViT-S/14
+    # on 294 px slices), [64, 442, 384]
     n442, s442 = 64, 442
     qkv442 = torch.randn(n442 * s442, 3 * E, generator=fgen, device=dev).to(bf)
     o442, lse442 = fb.mhsa(qkv442, n442, s442, HEADS, want_lse=True)
@@ -5640,6 +6004,16 @@ def main() -> int:
     for key, val in qcost.items():
         cost.setdefault(key, val)
 
+    # ======================================================================
+    # Phase 43: `mhsa` / `mhsa_bwd` redesigned (TMA + wgmma, scores in
+    # registers); the kernels line's times of every attention form
+    # ======================================================================
+    attn_phase(tag, dev, fb)
+    atimed, acost, alib = attn_times(tag, dev, fb)
+    lib_ms.update(alib)
+    for key, val in acost.items():
+        cost.setdefault(key, val)
+
     # TPU kernels: _attn_any_kernel at fused_block.py:326, _mlp_kernel at
     # :400, their train forwards _attn_train_kernel :424 and
     # _mlp_train_kernel :470, the backwards _attn_bwd_kernel :680 and
@@ -5736,6 +6110,7 @@ def main() -> int:
         alltimed.setdefault(key, val)
     alltimed.update(btimed)
     alltimed.update(qtimed)
+    alltimed.update(atimed)
     print(f"{tag} bound: the larger of FLOPs / {PEAK_FLOPS:.4g} FLOP/s + "
           f"int8 operations / {PEAK_INT8:.4g} OP/s and bytes / "
           f"{PEAK_BYTES:.4g} B/s (each input read once, each output written "

@@ -4,387 +4,413 @@
 // lse [N*S, heads] f32 written by mhsa.cu -> dqkv [N*S, 3E] bf16.
 //
 // Replaces the per-head loop of `_attn_bwd_kernel` in
-// mst_tpu/ops/fused_block.py, with its math and rounding points:
+// mst_tpu/ops/fused_block.py (:680, core :767-805), with its math and
+// rounding points:
 //   s = q k^T * (log2(e) / sqrt(hd)),  p = exp2(s - b)   (f32, normalised)
 //   dv = bf16(bf16(p)^T do),  dp = do v^T,  delta = rowdot(do, o)
 //   ds = bf16((dp - delta) * p / sqrt(hd))   (p in f32 here)
 //   dq = bf16(ds k),  dk = bf16(ds^T q)
-// Nothing of [S, S] goes to device memory: p is rebuilt from the saved b in
-// one exp2 pass.
+// Nothing of [S, S] goes to shared or device memory: p is rebuilt from the
+// saved b in one exp2 pass, in registers.
 //
-// The TPU kernel held a whole slice in VMEM. On the H100 dq sums over keys
-// and dk, dv over queries, so the work is split in two kernels, each of
-// whose blocks owns a 32-row tile and sums over the other axis from shared
-// memory (158-160 KB at S = 257, hd = 64; 16-row tiles above S = 400):
-//   dq kernel:  (slice, head, 32 queries) - q, do tiles, all of k and v, the
-//               f32 score rows s and dp; also writes delta for the next one;
-//   dkv kernel: (slice, head, 32 keys) - k, v tiles, all of q and do, the
-//               transposed score rows s^T and dp^T.
-// Both compute s and dp, so the pair runs seven [S, S] x hd products where
-// one fused kernel would run five; that buys no [S, S] round trip and no
-// cross-block sum. Keys or queries past S are zero-filled and get
-// p = ds = 0, so the ragged edge adds nothing to any sum. Bound on the H100:
-// tensor-core FLOPs (~91 GFLOP for the pair at N = 256, S = 257, 6 heads)
-// and the shared-memory traffic of the WMMA fragment loads.
+// Bound on the H100: at ViT-S B=8 ([256, 6, 257, 64]) the five products
+// are 65 GFLOP (66 us at 989 TFLOP/s) against 406 MB of operands (121 us at
+// 3.35 TB/s): bound by bytes if every operand of a head is read from L2
+// by the blocks that share it. The WMMA pair kept two f32 [32][sp] score
+// blocks per block in shared memory and read every fragment from there.
+// The TPU kernel held a whole slice in VMEM; here dq sums over keys and
+// dk, dv over queries, so the work is split in two kernels (no float
+// atomics: the same bits on repeat). A block is one warpgroup on a (head,
+// slice) that walks up to 3 of its 64-row tiles (`tiles_per_block`), with
+// the operand it walks over resident in shared memory, loaded once by TMA
+// in boxes on their own mbarriers (3-D maps over [N, S, *]: rows past S of
+// a slice read as zeros), and the tile's own boxes double-buffered, as
+// mhsa.cu (attn_sm90.cuh):
+//   dq kernel:  query tiles - the q and do tiles, every box of k and v
+//               (106 KB at S = 257: two blocks an SM); per key chunk s =
+//               q k^T and dp = do v^T by wgmma into registers, ds there, dq
+//               += bf16(ds) k with ds as the register A operand and k read
+//               MN-major; also writes delta (rowdot in the D-fragment rows,
+//               summed over the 4 lanes of a row) for the next kernel;
+//   dkv kernel: key tiles - the k and v tiles, every box of q and do, and
+//               the LSE and delta of every query; per query chunk s^T =
+//               k q^T and dp^T = v do^T, then dv += bf16(p^T) do and dk +=
+//               bf16(ds^T) q, both from registers.
+// Both compute s and dp, so the pair runs seven S^2 hd products where one
+// kernel would run five; that buys no [S, S] round trip and no cross-block
+// sum. Chunks are those of mhsa.cu (a last chunk of <= 16 rows is an
+// m64n16 product: the 257th row). Keys past S get p = 0; queries past S
+// have zero q and do rows and are masked too, so the ragged edge adds
+// nothing to any sum (every 16-row step of a chunk runs: a wgmma under a
+// branch is serialized), and nothing past S is written. The f32 results are
+// staged as bf16 through a dead box and leave as 16-byte row stores.
 //
 // RoPE (`has_rope` of `_attn_bwd_kernel`, :754-766 and :806-814; the DINOv3
 // train step) is the template flag ROPE of both kernels. The saved qkv is
-// pre-rope, as in JAX, so each kernel rotates q and k where it loads them
-// (`rope8`: the dq kernel its q tile and all of k, the dk/dv kernel its k
-// tile and all of q), which recomputes the forward's bf16 rotated values;
-// the rest of the body runs on them unchanged. The adjoint takes dq and dk
-// back through the rotation in the f32 staging epilogue before the bf16
-// store (`rope_adjoint8`, with JAX's bf16 rounding of dq_r * sin); dv is
-// not rotated. The [S, 64] f32 tables are read per element and stay in L2.
-#include "common.cuh"
+// pre-rope, as in JAX, so each kernel rotates q and k in their boxes as
+// they land (`rope_box`: the dq kernel its q tile and all of k, the dk/dv
+// kernel its k tile and all of q), which recomputes the forward's bf16
+// rotated values; the adjoint takes dq and dk back through the rotation on
+// the f32 accumulators before the bf16 store (`rope_adjoint8`'s pair rule,
+// with JAX's bf16 rounding of dq_r * sin); dv is not rotated.
+#include "attn_sm90.cuh"
 
 namespace mst {
 namespace {
 
-constexpr int HD = 64;
-constexpr int THREADS = 256;
-constexpr int LDQ = HD + 8;   // bf16 stride of q / k / v / do rows
-constexpr int LDO = HD + 4;   // f32 stride of the output staging tiles
-constexpr int MAX_S = 512;
-constexpr int PER_LANE = MAX_S / 32;
-constexpr size_t SMEM_CAP = 227 * 1024;
+using namespace attn;
+using sm90::wgmma_commit;
+using sm90::wgmma_fence;
+using sm90::wgmma_wait;
 
-__host__ __device__ inline int pad16(int s) { return (s + 15) & ~15; }
-__host__ __device__ inline size_t maxz(size_t a, size_t b) { return a > b ? a : b; }
-
-// Shared layout of both kernels: two bf16 tiles of BT rows, two bf16
-// whole-sequence blocks of sp rows, two f32 [BT][sp + 4] score blocks, two
-// f32 vectors. The output staging reuses dead space: the dq kernel's tile
-// goes over the score rows s, the dk/dv kernel's two tiles over q.
+// Shared memory of both kernels (past the 1024-byte aligned base): the two
+// tile operands' boxes, double-buffered ([buffer][operand]), the boxes of
+// the two whole-slice operands, the f32 LSE and delta of every query (the
+// dk/dv kernel's), then the barriers (0, 1: the tile buffers; 2 + b: the
+// two boxes of chunk b).
 struct Layout {
-  size_t t0, t1, all0, all1, s, d, v0, v1, total;
+  size_t tiles, all0, all1, vec, bar, total;
 };
 
-__host__ __device__ inline Layout layout(int bt, int S) {
-  const int sp = pad16(S);
-  const size_t tile = size_t(bt) * LDQ * sizeof(bf16);
-  const size_t all = size_t(sp) * LDQ * sizeof(bf16);
-  const size_t stage = 2 * size_t(bt) * LDO * sizeof(float);
-  // f32 score rows of stride sp + 4; at least LDO wide, because the dq
-  // kernel stages its output tile in the first block
-  const size_t sc = size_t(bt) * (sp + 4 > LDO ? sp + 4 : LDO) * sizeof(float);
+__host__ __device__ inline Layout layout(int S) {
+  const Plan p = plan(S);
   Layout L;
-  L.t0 = 0;
-  L.t1 = L.t0 + tile;
-  L.all0 = L.t1 + tile;
-  L.all1 = L.all0 + maxz(all, stage);
-  L.s = L.all1 + all;
-  L.d = L.s + sc;
-  const size_t vec = size_t(sp > bt ? sp : bt) * sizeof(float);
-  L.v0 = L.d + sc;
-  L.v1 = L.v0 + vec;
-  L.total = L.v1 + vec;
+  L.tiles = 0;
+  L.all0 = L.tiles + 4 * BOX_BYTES;
+  L.all1 = L.all0 + operand_bytes(p);
+  L.vec = L.all1 + operand_bytes(p);
+  L.bar = L.vec + 2 * size_t(p.boxes) * CHUNK * sizeof(float);
+  L.total = ALIGN + L.bar + size_t(2 + p.boxes) * sizeof(uint64_t);
   return L;
 }
 
-// rows [r0, r0 + rows) of one head into shared memory, zero past S; with
-// ROPE each row rotated by its row of the [S, 64] f32 tables rcos / rsin.
-template <bool ROPE = false>
-__device__ inline void load_rows(bf16* dst, const bf16* src, size_t stride, int r0,
-                                 int rows, int S, int tid, const float* rcos = nullptr,
-                                 const float* rsin = nullptr) {
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int c = tid; c < rows * (HD / 8); c += THREADS) {
-    const int r = c / (HD / 8), col = (c % (HD / 8)) * 8;
-    const int q = r0 + r;
-    uint4 v = zero;
-    if (q < S) {
-      v = *reinterpret_cast<const uint4*>(src + q * stride + col);
-      if (ROPE) v = rope8(v, rcos + q * HD + col, rsin + q * HD + col);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LDQ + col) = v;
+struct Args {
+  const bf16* o;
+  const bf16* dout;
+  const float* lse;
+  float* delta;
+  bf16* dqkv;
+  const float* rcos;
+  const float* rsin;
+  int S, E, H;
+  float scale_log2, scale;
+};
+
+constexpr int MOST_TILES = 3;  // tiles a block walks, at most
+
+// The TMA maps: qkv and do in boxes of 64 rows and of 16 (the tail).
+struct Maps {
+  CUtensorMap qkv64, qkv16, do64, do16;
+};
+
+// The carved shared memory of a block and its barriers.
+struct Smem {
+  unsigned char *tiles, *all0, *all1;
+  float* vec;
+  uint64_t* bar;
+  // operand i (0, 1) of the tile of unit u
+  __device__ __forceinline__ unsigned char* tile(int u, int i) const {
+    return tiles + ((u & 1) * 2 + i) * BOX_BYTES;
+  }
+};
+
+__device__ __forceinline__ Smem carve(unsigned char* raw, const Layout& L, const Plan& P) {
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + ALIGN - 1) & ~uintptr_t(ALIGN - 1));
+  Smem s{base + L.tiles, base + L.all0, base + L.all1, reinterpret_cast<float*>(base + L.vec),
+         reinterpret_cast<uint64_t*>(base + L.bar)};
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2 + P.boxes; ++i) sm90::mbar_init(&s.bar[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return s;
+}
+
+// Thread 0: the two tile boxes of unit u (rows r0 of maps m0, m1 at
+// columns c0, c1) on barrier u % 2.
+__device__ __forceinline__ void load_tile(const Smem& s, int u, int r0, const CUtensorMap* m0,
+                                          int c0, const CUtensorMap* m1, int c1, int n) {
+  sm90::mbar_expect_tx(&s.bar[u & 1], 2 * BOX_BYTES);
+  tma_load_3d(s.tile(u, 0), m0, c0, r0, n, &s.bar[u & 1]);
+  tma_load_3d(s.tile(u, 1), m1, c1, r0, n, &s.bar[u & 1]);
+}
+
+// Thread 0: every chunk of the two whole-slice operands (columns a0 of
+// qkv or do, a1 likewise; `do0` / `do1` pick do's maps) on barriers 2 + b.
+__device__ __forceinline__ void load_all(const Smem& s, const Plan& P, const Maps& m, bool do0,
+                                         int a0, bool do1, int a1, int n) {
+  for (int b = 0; b < P.boxes; ++b) {
+    const bool full = b < P.n64;
+    const CUtensorMap* m0 = do0 ? (full ? &m.do64 : &m.do16) : (full ? &m.qkv64 : &m.qkv16);
+    const CUtensorMap* m1 = do1 ? (full ? &m.do64 : &m.do16) : (full ? &m.qkv64 : &m.qkv16);
+    sm90::mbar_expect_tx(&s.bar[2 + b], 2 * (full ? BOX_BYTES : TAIL_BYTES));
+    tma_load_3d(s.all0 + b * BOX_BYTES, m0, a0, b * CHUNK, n, &s.bar[2 + b]);
+    tma_load_3d(s.all1 + b * BOX_BYTES, m1, a1, b * CHUNK, n, &s.bar[2 + b]);
   }
 }
 
-// dst[BT][ld] (f32) = A[BT] . B[sp]^T over hd, times mul, for two pairs at
-// once (which = 0: (a0, b0) -> dst0, 1: (a1, b1) -> dst1).
-template <int BT>
-__device__ inline void scores(const bf16* a0, const bf16* b0, float* dst0, float mul0,
-                              const bf16* a1, const bf16* b1, float* dst1, int sp,
-                              int ld, int warp) {
-  const int tiles_n = sp / 16;
-  const int per = (BT / 16) * tiles_n;
-  for (int t = warp; t < 2 * per; t += THREADS / 32) {
-    const int which = t / per, tt = t % per;
-    const int ti = tt / tiles_n, tj = tt % tiles_n;
-    const bf16* A = which ? a1 : a0;
-    const bf16* B = which ? b1 : b0;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
+// The adjoint of the rotation on this thread's f32 accumulators of rows
+// ra, rb (positions; none past S is stored), `rope_adjoint8`'s pair rule.
+__device__ __forceinline__ void rope_adjoint_frag(float (&d)[32], int t, int ra, int rb, int S,
+                                                  const float* __restrict__ rcos,
+                                                  const float* __restrict__ rsin) {
 #pragma unroll
-    for (int kk = 0; kk < HD; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fa, A + ti * 16 * LDQ + kk, LDQ);
-      wmma::load_matrix_sync(fb, B + tj * 16 * LDQ + kk, LDQ);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    if (which == 0)
-      for (int e = 0; e < acc.num_elements; ++e) acc.x[e] *= mul0;
-    wmma::store_matrix_sync((which ? dst1 : dst0) + ti * 16 * ld + tj * 16, acc, ld,
-                            wmma::mem_row_major);
+  for (int i = 0; i < 32; i += 2) {
+    const int r = frag_hi(i) ? rb : ra, c = frag_col(t, i);
+    if (r >= S) continue;
+    const float2 cs = *reinterpret_cast<const float2*>(rcos + r * HD + c);
+    const float2 sn = *reinterpret_cast<const float2*>(rsin + r * HD + c);
+    const float y0 = round_bf16(__fmul_rn(d[i], sn.x));
+    const float y1 = round_bf16(__fmul_rn(d[i + 1], sn.y));
+    d[i] = __fadd_rn(__fmul_rn(d[i], cs.x), y1);
+    d[i + 1] = __fsub_rn(__fmul_rn(d[i + 1], cs.y), y0);
   }
 }
 
-template <int BQ, bool ROPE>
+// With ROPE: rotate the tile box of unit u (operand 0, rows r0 ..) as it
+// lands, and on the first unit every whole-slice box of all0; the caller
+// syncs.
+template <bool ROPE>
+__device__ __forceinline__ void rotate(const Smem& s, const Plan& P, int t, int u, int r0,
+                                       const Args& a) {
+  if (!ROPE) return;
+  mbar_wait(&s.bar[u & 1], (u >> 1) & 1);
+  rope_box(s.tile(u, 0), t, r0, a.S, a.rcos, a.rsin);
+  if (u == 0)
+    for (int b = 0; b < P.boxes; ++b) {
+      mbar_wait(&s.bar[2 + b], 0);
+      rope_box(s.all0 + b * BOX_BYTES, t, b * CHUNK, a.S, a.rcos, a.rsin);
+    }
+}
+
+// One key chunk b of the dq kernel (R / 2 keys wide): s, dp, ds in
+// registers, then dq += bf16(ds) k (one commit group; the next chunk's
+// wait, or the caller's, completes it).
+template <int R>
+__device__ __forceinline__ void dq_chunk(float (&dq)[32], const Smem& s, int u, int b, int t,
+                                         const Args& a, float b0, float b1, float dl0,
+                                         float dl1) {
+  const unsigned char* kbox = s.all0 + b * BOX_BYTES;
+  const int key0 = b * CHUNK;
+  float sc[R], dp[R];
+  wgmma_fence();
+  product_t(sc, s.tile(u, 0), kbox);
+  product_t(dp, s.tile(u, 1), s.all1 + b * BOX_BYTES);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sc);
+  fence_regs(dp);
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const bool hi = frag_hi(i);
+    const float p =
+        key0 + frag_col(t, i) < a.S ? ex2(sc[i] * a.scale_log2 - (hi ? b1 : b0)) : 0.0f;
+    dp[i] = (dp[i] - (hi ? dl1 : dl0)) * p * a.scale;
+  }
+  uint32_t ad[R / 8][4];
+#pragma unroll
+  for (int kc = 0; kc < R / 8; ++kc) frag_a(ad[kc], dp, kc);
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < R / 8; ++kc) mma_rs(dq, ad[kc], desc_mn(kbox, kc));
+  wgmma_commit();
+}
+
+// Grid (heads x tile groups, N): a block walks up to MOST_TILES query tiles
+// of a (head, slice), k and v loaded once. Also writes delta [N*S, heads].
+template <bool ROPE>
 __global__ void __launch_bounds__(THREADS)
-mhsa_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ o,
-                   const bf16* __restrict__ dout, const float* __restrict__ lse,
-                   float* __restrict__ delta, bf16* __restrict__ dqkv,
-                   const float* __restrict__ rcos, const float* __restrict__ rsin, int S,
-                   int E, float scale_log2, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = layout(BQ, S);
-  const int sp = pad16(S), lds = sp + 4;
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L.t0);
-  bf16* DOs = reinterpret_cast<bf16*>(smem + L.t1);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L.all0);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L.all1);
-  float* Ss = reinterpret_cast<float*>(smem + L.s);
-  float* Ds = reinterpret_cast<float*>(smem + L.d);
-  float* Bs = reinterpret_cast<float*>(smem + L.v0);
-  float* DLs = reinterpret_cast<float*>(smem + L.v1);
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, n = blockIdx.z, H = gridDim.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const size_t row3 = size_t(3) * E;
-  const bf16* base = qkv + size_t(n) * S * row3 + h * HD;
-  const bf16* dobase = dout + size_t(n) * S * E + h * HD;
-  const bf16* obase = o + size_t(n) * S * E + h * HD;
-
-  load_rows<ROPE>(Qs, base, row3, q0, BQ, S, tid, rcos, rsin);
-  load_rows(DOs, dobase, E, q0, BQ, S, tid);
-  load_rows<ROPE>(Ks, base + E, row3, 0, sp, S, tid, rcos, rsin);
-  load_rows(Vs, base + 2 * E, row3, 0, sp, S, tid);
-  // delta = rowdot(do, o) in f32 and the saved b, one warp per query row.
-  for (int r = warp; r < BQ; r += THREADS / 32) {
-    const int q = q0 + r;
-    float dl = 0.0f, b = 0.0f;
-    if (q < S) {
-      const float2 d2 = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(dobase + size_t(q) * E + 2 * lane));
-      const float2 o2 = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(obase + size_t(q) * E + 2 * lane));
-      dl = d2.x * o2.x + d2.y * o2.y;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) dl += __shfl_xor_sync(0xffffffffu, dl, off);
-      b = lse[(size_t(n) * S + q) * H + h];
-    }
-    if (lane == 0) {
-      DLs[r] = dl;
-      Bs[r] = b;
-      if (q < S) delta[(size_t(n) * S + q) * H + h] = dl;
-    }
+mhsa_bwd_dq_kernel(const __grid_constant__ Maps m, Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  const Plan P = plan(a.S);
+  const Smem s = carve(smem_raw, layout(a.S), P);
+  const int t = threadIdx.x, lane = t & 31, quad = lane & 3;
+  const int tpb = tiles_per_block(a.S, MOST_TILES);
+  const int groups = (tiles(a.S) + tpb - 1) / tpb;
+  const int h = blockIdx.x / groups, t0 = (blockIdx.x % groups) * tpb, n = blockIdx.y;
+  const int units = min(tpb, tiles(a.S) - t0);
+  if (t == 0) {
+    load_tile(s, 0, t0 * TILE, &m.qkv64, h * HD, &m.do64, h * HD, n);
+    load_all(s, P, m, false, a.E + h * HD, false, 2 * a.E + h * HD, n);
+    if (units > 1) load_tile(s, 1, (t0 + 1) * TILE, &m.qkv64, h * HD, &m.do64, h * HD, n);
   }
-  __syncthreads();
-
-  scores<BQ>(Qs, Ks, Ss, scale_log2, DOs, Vs, Ds, sp, lds, warp);  // s, dp
-  __syncthreads();
-
-  // ds = (dp - delta) * exp2(s - b) * scale, bf16 over the first half of
-  // dp's own row (each warp reads its whole row before writing it).
-  for (int r = warp; r < BQ; r += THREADS / 32) {
-    const float* srow = Ss + r * lds;
-    float* drow = Ds + r * lds;
-    const float b = Bs[r], dl = DLs[r];
-    float v[PER_LANE];
+  for (int u = 0; u < units; ++u) {
+    const int q0 = (t0 + u) * TILE;
+    const int qa = q0 + 16 * (t >> 5) + (lane >> 2), qb = qa + 8;
+    // delta = rowdot(do, o) in f32 of rows qa, qb: 16 columns a lane, then
+    // the 4 lanes of the row, while the boxes land
+    float dl0 = 0.0f, dl1 = 0.0f;
 #pragma unroll
-    for (int i = 0; i < PER_LANE; ++i) {
-      const int j = lane + 32 * i;
-      v[i] = j < S ? (drow[j] - dl) * exp2f(srow[j] - b) * scale : 0.0f;
-    }
-    __syncwarp();
-    bf16* dsrow = reinterpret_cast<bf16*>(drow);
+    for (int r = 0; r < 2; ++r) {
+      const int q = r ? qb : qa;
+      float sum = 0.0f;
+      if (q < a.S) {
+        const size_t off = (size_t(n) * a.S + q) * a.E + h * HD + quad * 16;
 #pragma unroll
-    for (int i = 0; i < PER_LANE; ++i) {
-      const int j = lane + 32 * i;
-      if (j < sp) dsrow[j] = __float2bfloat16(v[i]);
-    }
-  }
-  __syncthreads();
-
-  // dq = ds k (k rotated with ROPE), staged in f32 over the (dead) score
-  // rows; with ROPE the adjoint of the rotation before the bf16 store.
-  const bf16* DSs = reinterpret_cast<const bf16*>(Ds);
-  const int ldp = 2 * lds;
-  float* Os = Ss;
-  for (int t = warp; t < (BQ / 16) * (HD / 16); t += THREADS / 32) {
-    const int ti = t / (HD / 16), tj = t % (HD / 16);
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < sp; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fa, DSs + ti * 16 * ldp + kk, ldp);
-      wmma::load_matrix_sync(fb, Ks + kk * LDQ + tj * 16, LDQ);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(Os + ti * 16 * LDO + tj * 16, acc, LDO, wmma::mem_row_major);
-  }
-  __syncthreads();
-  for (int g = tid; g < BQ * (HD / 8); g += THREADS) {
-    const int r = g / (HD / 8), c = (g % (HD / 8)) * 8;
-    const int q = q0 + r;
-    if (q >= S) continue;
-    float v[8];
-    const float* d = Os + r * LDO + c;
-    if (ROPE) rope_adjoint8(d, rcos + q * HD + c, rsin + q * HD + c, v);
-    *reinterpret_cast<uint4*>(dqkv + (size_t(n) * S + q) * row3 + h * HD + c) =
-        pack8_bf16(ROPE ? v : d);
-  }
-}
-
-template <int BKV, bool ROPE>
-__global__ void __launch_bounds__(THREADS)
-mhsa_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dqkv, const float* __restrict__ rcos,
-                    const float* __restrict__ rsin, int S, int E, float scale_log2,
-                    float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = layout(BKV, S);
-  const int sp = pad16(S), lds = sp + 4;
-  bf16* Kt = reinterpret_cast<bf16*>(smem + L.t0);
-  bf16* Vt = reinterpret_cast<bf16*>(smem + L.t1);
-  bf16* Qa = reinterpret_cast<bf16*>(smem + L.all0);
-  bf16* DOa = reinterpret_cast<bf16*>(smem + L.all1);
-  float* Ss = reinterpret_cast<float*>(smem + L.s);   // s^T [key][query]
-  float* Ds = reinterpret_cast<float*>(smem + L.d);   // dp^T
-  float* Bq = reinterpret_cast<float*>(smem + L.v0);  // b per query
-  float* DLq = reinterpret_cast<float*>(smem + L.v1);  // delta per query
-
-  const int k0 = blockIdx.x * BKV, h = blockIdx.y, n = blockIdx.z, H = gridDim.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const size_t row3 = size_t(3) * E;
-  const bf16* base = qkv + size_t(n) * S * row3 + h * HD;
-  const bf16* dobase = dout + size_t(n) * S * E + h * HD;
-
-  load_rows<ROPE>(Kt, base + E, row3, k0, BKV, S, tid, rcos, rsin);
-  load_rows(Vt, base + 2 * E, row3, k0, BKV, S, tid);
-  load_rows<ROPE>(Qa, base, row3, 0, sp, S, tid, rcos, rsin);
-  load_rows(DOa, dobase, E, 0, sp, S, tid);
-  for (int j = tid; j < sp; j += THREADS) {
-    const size_t idx = (size_t(n) * S + j) * H + h;
-    Bq[j] = j < S ? lse[idx] : 0.0f;
-    DLq[j] = j < S ? delta[idx] : 0.0f;
-  }
-  __syncthreads();
-
-  scores<BKV>(Kt, Qa, Ss, scale_log2, Vt, DOa, Ds, sp, lds, warp);  // s^T, dp^T
-  __syncthreads();
-
-  // p^T and ds^T, both bf16 over the first half of their own rows.
-  for (int r = warp; r < BKV; r += THREADS / 32) {
-    float* srow = Ss + r * lds;
-    float* drow = Ds + r * lds;
-    float pv[PER_LANE], dv[PER_LANE];
+        for (int c = 0; c < 16; c += 8) {
+          float ov[8], dv[8];
+          unpack8_bf16(*reinterpret_cast<const uint4*>(a.o + off + c), ov);
+          unpack8_bf16(*reinterpret_cast<const uint4*>(a.dout + off + c), dv);
 #pragma unroll
-    for (int i = 0; i < PER_LANE; ++i) {
-      const int j = lane + 32 * i;
-      pv[i] = j < S ? exp2f(srow[j] - Bq[j]) : 0.0f;
-      dv[i] = j < S ? (drow[j] - DLq[j]) * pv[i] * scale : 0.0f;
-    }
-    __syncwarp();
-    bf16* prow = reinterpret_cast<bf16*>(srow);
-    bf16* dsrow = reinterpret_cast<bf16*>(drow);
-#pragma unroll
-    for (int i = 0; i < PER_LANE; ++i) {
-      const int j = lane + 32 * i;
-      if (j < sp) {
-        prow[j] = __float2bfloat16(pv[i]);
-        dsrow[j] = __float2bfloat16(dv[i]);
+          for (int e = 0; e < 8; ++e) sum += dv[e] * ov[e];
+        }
       }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      (r ? dl1 : dl0) = sum;
+      if (quad == 0 && q < a.S) a.delta[(size_t(n) * a.S + q) * a.H + h] = sum;
     }
-  }
-  __syncthreads();
+    const float b0 = qa < a.S ? a.lse[(size_t(n) * a.S + qa) * a.H + h] : 0.0f;
+    const float b1 = qb < a.S ? a.lse[(size_t(n) * a.S + qb) * a.H + h] : 0.0f;
+    rotate<ROPE>(s, P, t, u, q0, a);
+    if (ROPE) __syncthreads();
 
-  // dv = p^T do and dk = ds^T q, [BKV x 64] each: tile t < per is dv, the
-  // rest dk; each warp keeps its BKV / 16 tiles in registers until q and do
-  // are dead, then stages them in q's place.
-  constexpr int per = (BKV / 16) * (HD / 16);
-  constexpr int NT = 2 * per / (THREADS / 32);
-  const int ldp = 2 * lds;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NT];
-#pragma unroll
-  for (int i = 0; i < NT; ++i) {
-    const int t = warp + i * (THREADS / 32);
-    const int which = t / per, tt = t % per;
-    const int ti = tt / (HD / 16), tj = tt % (HD / 16);
-    const bf16* A = reinterpret_cast<const bf16*>(which ? Ds : Ss);
-    const bf16* B = which ? Qa : DOa;
-    wmma::fill_fragment(acc[i], 0.0f);
-    for (int kk = 0; kk < sp; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fa, A + ti * 16 * ldp + kk, ldp);
-      wmma::load_matrix_sync(fb, B + kk * LDQ + tj * 16, LDQ);
-      wmma::mma_sync(acc[i], fa, fb, acc[i]);
+    float dq[32];
+    zero(dq);
+    mbar_wait(&s.bar[u & 1], (u >> 1) & 1);
+    for (int b = 0; b < P.n64; ++b) {
+      mbar_wait(&s.bar[2 + b], 0);
+      dq_chunk<32>(dq, s, u, b, t, a, b0, b1, dl0, dl1);
     }
-  }
-  __syncthreads();
-  float* stage = reinterpret_cast<float*>(smem + L.all0);  // [2][BKV][LDO]
-#pragma unroll
-  for (int i = 0; i < NT; ++i) {
-    const int t = warp + i * (THREADS / 32);
-    const int which = t / per, tt = t % per;
-    const int ti = tt / (HD / 16), tj = tt % (HD / 16);
-    wmma::store_matrix_sync(stage + (which * BKV + ti * 16) * LDO + tj * 16, acc[i], LDO,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
-  for (int g = tid; g < 2 * BKV * (HD / 8); g += THREADS) {
-    const int which = g / (BKV * (HD / 8)), gg = g % (BKV * (HD / 8));
-    const int r = gg / (HD / 8), c = (gg % (HD / 8)) * 8;
-    const int key = k0 + r;
-    if (key >= S) continue;
-    // which 0: dv -> columns 2E + h*64; which 1: dk -> E + h*64 (with ROPE
-    // through the rotation's adjoint first)
-    const size_t col = (which ? size_t(E) : size_t(2) * E) + h * HD + c;
-    const float* d = stage + (which * BKV + r) * LDO + c;
-    float v[8];
-    if (ROPE && which) rope_adjoint8(d, rcos + key * HD + c, rsin + key * HD + c, v);
-    *reinterpret_cast<uint4*>(dqkv + (size_t(n) * S + key) * row3 + col) =
-        pack8_bf16(ROPE && which ? v : d);
+    if (P.tail) {
+      mbar_wait(&s.bar[2 + P.n64], 0);
+      dq_chunk<8>(dq, s, u, P.n64, t, a, b0, b1, dl0, dl1);
+    }
+    wgmma_wait<0>();
+    fence_regs(dq);
+    if (ROPE) rope_adjoint_frag(dq, t, qa, qb, a.S, a.rcos, a.rsin);
+    stage_box(s.tile(u, 0), t, dq);  // the q box: its last reader was the last s
+    __syncthreads();
+    const size_t row3 = size_t(3) * a.E;
+    store_box(s.tile(u, 0), t, a.dqkv + (size_t(n) * a.S + q0) * row3 + h * HD, row3,
+              min(TILE, a.S - q0));
+    fence_async_smem();
+    __syncthreads();
+    if (t == 0 && u + 2 < units)
+      load_tile(s, u + 2, q0 + 2 * TILE, &m.qkv64, h * HD, &m.do64, h * HD, n);
   }
 }
 
-template <int BT, bool ROPE>
-cudaError_t launch_pair(const bf16* qkv, const bf16* o, const bf16* dout, const float* lse,
-                        float* delta, bf16* dqkv, const float* rcos, const float* rsin,
-                        int N, int S, int E, int H, float scale_log2, float scale,
-                        cudaStream_t st) {
-  const size_t smem = layout(BT, S).total;
-  cudaError_t err = allow_smem(mhsa_bwd_dq_kernel<BT, ROPE>, smem);
+// One query chunk b of the dk/dv kernel (R / 2 queries wide): s^T, dp^T,
+// p^T and ds^T in registers, then dv += bf16(p^T) do and dk += bf16(ds^T) q
+// (one commit group).
+template <int R>
+__device__ __forceinline__ void dkv_chunk(float (&dk)[32], float (&dv)[32], const Smem& s,
+                                          const Plan& P, int u, int b, int t, const Args& a) {
+  const unsigned char* qbox = s.all0 + b * BOX_BYTES;
+  const unsigned char* dobox = s.all1 + b * BOX_BYTES;
+  const float* lse = s.vec;
+  const float* delta = s.vec + P.boxes * CHUNK;
+  const int qc0 = b * CHUNK;
+  float sc[R], dp[R];
+  wgmma_fence();
+  product_t(sc, s.tile(u, 0), qbox);
+  product_t(dp, s.tile(u, 1), dobox);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sc);
+  fence_regs(dp);
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int q = qc0 + frag_col(t, i);
+    const float p = q < a.S ? ex2(sc[i] * a.scale_log2 - lse[q]) : 0.0f;
+    sc[i] = p;
+    dp[i] = (dp[i] - delta[q]) * p * a.scale;
+  }
+  uint32_t ap[R / 8][4], ad[R / 8][4];
+#pragma unroll
+  for (int kc = 0; kc < R / 8; ++kc) {
+    frag_a(ap[kc], sc, kc);
+    frag_a(ad[kc], dp, kc);
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < R / 8; ++kc) {
+    mma_rs(dv, ap[kc], desc_mn(dobox, kc));
+    mma_rs(dk, ad[kc], desc_mn(qbox, kc));
+  }
+  wgmma_commit();
+}
+
+// Grid (heads x tile groups, N): a block walks up to MOST_TILES key tiles
+// of a (head, slice), q, do and the LSE and delta of every query loaded
+// once.
+template <bool ROPE>
+__global__ void __launch_bounds__(THREADS)
+mhsa_bwd_dkv_kernel(const __grid_constant__ Maps m, Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  const Plan P = plan(a.S);
+  const Smem s = carve(smem_raw, layout(a.S), P);
+  const int t = threadIdx.x, lane = t & 31;
+  const int tpb = tiles_per_block(a.S, MOST_TILES);
+  const int groups = (tiles(a.S) + tpb - 1) / tpb;
+  const int h = blockIdx.x / groups, t0 = (blockIdx.x % groups) * tpb, n = blockIdx.y;
+  const int units = min(tpb, tiles(a.S) - t0);
+  if (t == 0) {
+    load_tile(s, 0, t0 * TILE, &m.qkv64, a.E + h * HD, &m.qkv64, 2 * a.E + h * HD, n);
+    load_all(s, P, m, false, h * HD, true, h * HD, n);
+    if (units > 1)
+      load_tile(s, 1, (t0 + 1) * TILE, &m.qkv64, a.E + h * HD, &m.qkv64, 2 * a.E + h * HD, n);
+  }
+  // the LSE and delta of every query (0 past S: those queries are masked)
+  for (int j = t; j < P.boxes * CHUNK; j += THREADS) {
+    const size_t idx = (size_t(n) * a.S + j) * a.H + h;
+    s.vec[j] = j < a.S ? a.lse[idx] : 0.0f;
+    s.vec[P.boxes * CHUNK + j] = j < a.S ? a.delta[idx] : 0.0f;
+  }
+  __syncthreads();
+  for (int u = 0; u < units; ++u) {
+    const int k0 = (t0 + u) * TILE;
+    const int ka = k0 + 16 * (t >> 5) + (lane >> 2), kb = ka + 8;
+    rotate<ROPE>(s, P, t, u, k0, a);
+    if (ROPE) __syncthreads();
+
+    float dk[32], dv[32];
+    zero(dk);
+    zero(dv);
+    mbar_wait(&s.bar[u & 1], (u >> 1) & 1);
+    for (int b = 0; b < P.n64; ++b) {
+      mbar_wait(&s.bar[2 + b], 0);
+      dkv_chunk<32>(dk, dv, s, P, u, b, t, a);
+    }
+    if (P.tail) {
+      mbar_wait(&s.bar[2 + P.n64], 0);
+      dkv_chunk<8>(dk, dv, s, P, u, P.n64, t, a);
+    }
+    wgmma_wait<0>();
+    fence_regs(dk);
+    fence_regs(dv);
+    if (ROPE) rope_adjoint_frag(dk, t, ka, kb, a.S, a.rcos, a.rsin);
+    // dk through the k box, dv through the v box (their last reads are done)
+    stage_box(s.tile(u, 0), t, dk);
+    stage_box(s.tile(u, 1), t, dv);
+    __syncthreads();
+    const size_t row3 = size_t(3) * a.E;
+    bf16* dst = a.dqkv + (size_t(n) * a.S + k0) * row3 + h * HD;
+    const int rows = min(TILE, a.S - k0);
+    store_box(s.tile(u, 0), t, dst + a.E, row3, rows);
+    store_box(s.tile(u, 1), t, dst + 2 * a.E, row3, rows);
+    fence_async_smem();
+    __syncthreads();
+    if (t == 0 && u + 2 < units)
+      load_tile(s, u + 2, k0 + 2 * TILE, &m.qkv64, a.E + h * HD, &m.qkv64, 2 * a.E + h * HD, n);
+  }
+}
+
+template <bool ROPE>
+cudaError_t launch_pair(const Maps& m, const Args& a, int N, cudaStream_t st) {
+  const size_t smem = layout(a.S).total;
+  cudaError_t err = allow_smem(mhsa_bwd_dq_kernel<ROPE>, smem);
+  if (err == cudaSuccess) err = allow_smem(mhsa_bwd_dkv_kernel<ROPE>, smem);
   if (err != cudaSuccess) return err;
-  err = allow_smem(mhsa_bwd_dkv_kernel<BT, ROPE>, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((S + BT - 1) / BT, H, N);
-  mhsa_bwd_dq_kernel<BT, ROPE><<<grid, THREADS, smem, st>>>(qkv, o, dout, lse, delta, dqkv,
-                                                             rcos, rsin, S, E, scale_log2,
-                                                             scale);
+  const int tpb = tiles_per_block(a.S, MOST_TILES);
+  const dim3 grid(a.H * ((tiles(a.S) + tpb - 1) / tpb), N);
+  mhsa_bwd_dq_kernel<ROPE><<<grid, THREADS, smem, st>>>(m, a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  mhsa_bwd_dkv_kernel<BT, ROPE><<<grid, THREADS, smem, st>>>(qkv, dout, lse, delta, dqkv,
-                                                              rcos, rsin, S, E, scale_log2,
-                                                              scale);
+  mhsa_bwd_dkv_kernel<ROPE><<<grid, THREADS, smem, st>>>(m, a);
   return cudaGetLastError();
-}
-
-template <int BT>
-cudaError_t launch_rope(const bf16* qkv, const bf16* o, const bf16* dout, const float* lse,
-                        float* delta, bf16* dqkv, const float* rcos, const float* rsin,
-                        int N, int S, int E, int H, float scale_log2, float scale,
-                        cudaStream_t st) {
-  return rcos != nullptr
-             ? launch_pair<BT, true>(qkv, o, dout, lse, delta, dqkv, rcos, rsin, N, S, E, H,
-                                     scale_log2, scale, st)
-             : launch_pair<BT, false>(qkv, o, dout, lse, delta, dqkv, rcos, rsin, N, S, E,
-                                      H, scale_log2, scale, st);
 }
 
 }  // namespace
@@ -406,18 +432,30 @@ extern "C" int mst_mhsa_bwd(const void* qkv, const void* o, const void* dout,
       num_heads > 65535 || E != num_heads * HD ||
       (rope_cos == nullptr) != (rope_sin == nullptr))
     return cudaErrorInvalidValue;
+  Maps m;
+  cudaError_t err = tma_map_3d(&m.qkv64, qkv, N, S, 3 * size_t(E), CHUNK);
+  if (err == cudaSuccess) err = tma_map_3d(&m.qkv16, qkv, N, S, 3 * size_t(E), TAIL);
+  if (err == cudaSuccess) err = tma_map_3d(&m.do64, dout, N, S, E, CHUNK);
+  if (err == cudaSuccess) err = tma_map_3d(&m.do16, dout, N, S, E, TAIL);
+  if (err != cudaSuccess) return err;
+  const Args a{static_cast<const bf16*>(o),         static_cast<const bf16*>(dout),
+               static_cast<const float*>(lse),      static_cast<float*>(delta),
+               static_cast<bf16*>(dqkv),            static_cast<const float*>(rope_cos),
+               static_cast<const float*>(rope_sin), S, E, num_heads, scale_log2, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* q = static_cast<const bf16*>(qkv);
-  const bf16* ov = static_cast<const bf16*>(o);
-  const bf16* d = static_cast<const bf16*>(dout);
-  const float* b = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
-  bf16* out = static_cast<bf16*>(dqkv);
-  const float* rc = static_cast<const float*>(rope_cos);
-  const float* rs = static_cast<const float*>(rope_sin);
-  if (layout(32, S).total <= SMEM_CAP)
-    return launch_rope<32>(q, ov, d, b, dl, out, rc, rs, N, S, E, num_heads, scale_log2,
-                           scale, st);
-  return launch_rope<16>(q, ov, d, b, dl, out, rc, rs, N, S, E, num_heads, scale_log2,
-                         scale, st);
+  return rope_cos != nullptr ? launch_pair<true>(m, a, N, st) : launch_pair<false>(m, a, N, st);
+}
+
+// The launch geometry of both kernels of mst_mhsa_bwd at sequence length S
+// (1 <= S <= 512): geo = {tile rows, tiles, tiles a block walks, threads,
+// 64-row chunks, tail chunks of 16, dynamic shared memory bytes}
+// (`fused_block.mhsa_launch` mirrors it).
+extern "C" int mst_mhsa_bwd_geometry(int S, int* geo) {
+  using namespace mst;
+  if (S <= 0 || S > MAX_S) return cudaErrorInvalidValue;
+  const Plan p = plan(S);
+  const int g[7] = {TILE, tiles(S), tiles_per_block(S, MOST_TILES), THREADS, p.n64, p.tail,
+                    static_cast<int>(layout(S).total)};
+  for (int i = 0; i < 7; ++i) geo[i] = g[i];
+  return cudaSuccess;
 }

@@ -50,6 +50,10 @@ _SIGNATURES = {
     # stream
     "mst_mhsa": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                  _P),
+    # S, geo (host int32 [10]): mst_mhsa's launch geometry
+    "mst_mhsa_geometry": (_I, _P),
+    # S, geo (host int32 [7]): mst_mhsa_bwd's launch geometry
+    "mst_mhsa_bwd_geometry": (_I, _P),
     # a, w, bias, ls, g, gz, work, dls, M, K, N, stream
     "mst_gemm_dls": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # a, b, dw, db, work, work_bytes, M, K, N, stream

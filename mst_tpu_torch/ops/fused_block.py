@@ -625,24 +625,69 @@ def ln_gemm_swiglu(x, ln_s, ln_b, w12, b12, eps: float, train: bool = False):
 
 _SMEM_CAP = 227 * 1024  # dynamic shared memory of one H100 block
 
+# The launch geometry of `mhsa` and `mhsa_bwd` (csrc/attn_sm90.cuh, mhsa.cu,
+# mhsa_bwd.cu): one warpgroup per block, which walks the 64-row tiles of a
+# (head, slice) (the Abnar form: the heads of a (tile, slice)); the other
+# operand of the head resident in shared memory in TMA boxes of 64 rows,
+# the last S % 64 rows a 16-row box where they are 16 or fewer; the
+# forward in one pass up to S = 272 (every score of a row in registers:
+# four 64-key chunks and a tail of 16), in two above.
+MHSA_TILE, MHSA_CHUNK, MHSA_TAIL, MHSA_THREADS = 64, 64, 16, 128
+MHSA_ONE_PASS_MAX, MHSA_MAX_S = 4 * 64 + 16, 512
+# the tiles a block walks: the fewest blocks of at most 5 (forward) or 3
+# (backward) tiles, the tiles shared out evenly
+MHSA_MOST_TILES, MHSA_BWD_MOST_TILES = 5, 3
+_MHSA_BOX, _MHSA_TAIL_BOX = 64 * 64 * 2, 16 * 64 * 2  # bf16 boxes
 
-def abnar_smem_bytes(bq: int, s: int) -> int:
-    """Shared memory of `mhsa_abnar`'s block at a query tile of bq rows
-    (csrc/mhsa.cu `abnar_bytes`): the attention layout (Q tile, K or the
-    f32 output staging, V, the f32 score rows, l), then the [bq, S] f32
-    head sum at a 16-byte boundary."""
-    sp = -(-s // 16) * 16
-    layout = (bq * 72 * 2 + max(sp * 72 * 2, bq * 68 * 4) + sp * 72 * 2
-              + bq * (sp + 4) * 4 + bq * 4)
-    return -(-layout // 16) * 16 + bq * sp * 4
+
+def _tiles_per_block(tiles: int, most: int) -> int:
+    blocks = -(-tiles // most)
+    return -(-tiles // blocks)
 
 
-def abnar_query_tile(s: int):
-    """The query tile (rows) of `mhsa_abnar`'s kernel at sequence length s,
-    as csrc/mhsa.cu picks it: the largest of 64, 32 and 16 that fits a
-    block; None if none does."""
-    return next((bq for bq in (64, 32, 16)
-                 if abnar_smem_bytes(bq, s) <= _SMEM_CAP), None)
+def mhsa_launch(s: int) -> SimpleNamespace:
+    """The launch geometry of `mhsa` (forward) and `mhsa_bwd` at sequence
+    length s, as csrc/mhsa.cu `mst_mhsa_geometry` and mhsa_bwd.cu
+    `mst_mhsa_bwd_geometry` export it: the tile, tiles, the tiles a block
+    walks (forward, backward), threads, forward passes, 64-row chunks and
+    16-row tail chunks, the f32 score registers a forward thread keeps, and
+    each kernel's dynamic shared memory (1 KB of alignment; two Q boxes,
+    the K and V boxes, the carry's [4][512] f32 sums, the barriers and, in
+    the one-pass Abnar kernel, its [136][128] f32 head sum; or two buffers
+    of two tile boxes, the two operands' boxes, the f32 LSE and delta of
+    every query and the barriers). Raises ValueError past 512."""
+    if not 1 <= s <= MHSA_MAX_S:
+        raise ValueError(f"mhsa takes 1 <= S <= {MHSA_MAX_S}; got S={s}")
+    full, rest = divmod(s, MHSA_CHUNK)
+    n64 = full + (rest > MHSA_TAIL)
+    tail = int(0 < rest <= MHSA_TAIL)
+    boxes = n64 + tail
+    operand = n64 * _MHSA_BOX + tail * _MHSA_TAIL_BOX
+    one = s <= MHSA_ONE_PASS_MAX
+    bars = (2 + boxes) * 8
+    tiles = -(-s // MHSA_TILE)
+    smem = 1024 + 2 * _MHSA_BOX + 2 * operand + 4 * MHSA_MAX_S * 4 + bars
+    return SimpleNamespace(
+        tile=MHSA_TILE, tiles=tiles,
+        tiles_per_block=_tiles_per_block(tiles, MHSA_MOST_TILES),
+        bwd_tiles_per_block=_tiles_per_block(tiles, MHSA_BWD_MOST_TILES),
+        threads=MHSA_THREADS, passes=1 if one else 2, chunks64=n64,
+        tail16=tail,
+        score_regs=(n64 * MHSA_CHUNK + tail * MHSA_TAIL) // 2 if one
+        else MHSA_CHUNK // 2,
+        smem=smem,
+        abnar_smem=smem + (MHSA_ONE_PASS_MAX // 2 * MHSA_THREADS * 4 if one
+                           else 0),
+        bwd_smem=(1024 + 4 * _MHSA_BOX + 2 * operand
+                  + 2 * boxes * MHSA_CHUNK * 4 + bars))
+
+
+def abnar_query_tile(s: int) -> int:
+    """The query tile (rows) of `mhsa_abnar`'s kernel at sequence length s:
+    the forward's 64-row tile at every S <= 512 (its f32 head sum takes a
+    fixed [136][128] in shared memory, or the factor rows the block owns
+    above S = 272)."""
+    return mhsa_launch(s).tile
 
 
 def _mhsa_launch(qkv, n: int, s: int, num_heads: int, want_lse=False,
@@ -652,11 +697,9 @@ def _mhsa_launch(qkv, n: int, s: int, num_heads: int, want_lse=False,
     and the RoPE tables if given; returns the outputs in `_mhsa_ref`'s
     order."""
     e = qkv.shape[1] // 3
-    if e != 64 * num_heads or s > 512:
-        raise ValueError(f"mhsa needs head dim 64 and S <= 512; got "
+    if e != 64 * num_heads or not 1 <= s <= MHSA_MAX_S:
+        raise ValueError(f"mhsa needs head dim 64 and 1 <= S <= 512; got "
                          f"E={e}, heads={num_heads}, S={s}")
-    if want_abnar and abnar_query_tile(s) is None:
-        raise ValueError(f"mhsa_abnar has no query tile that fits S={s}")
     _mat(qkv, "qkv", (n * s, 3 * e), qkv)
     rc, rs = _tables(rope_cos, rope_sin, s, qkv)
     out = torch.empty((n * s, e), dtype=qkv.dtype, device=qkv.device)
@@ -948,8 +991,8 @@ def mhsa_bwd(qkv, o, do, lse, n: int, s: int, num_heads: int, rope_cos=None,
         return _mhsa_bwd_ref(qkv, o, do, lse, n, s, num_heads, rope_cos,
                              rope_sin)
     e = qkv.shape[1] // 3
-    if e != 64 * num_heads or s > 512:
-        raise ValueError(f"mhsa_bwd needs head dim 64 and S <= 512; got "
+    if e != 64 * num_heads or not 1 <= s <= MHSA_MAX_S:
+        raise ValueError(f"mhsa_bwd needs head dim 64 and 1 <= S <= 512; got "
                          f"E={e}, heads={num_heads}, S={s}")
     _mat(qkv, "qkv", (n * s, 3 * e), qkv)
     _mat(o, "o", (n * s, e), qkv)

@@ -40,6 +40,7 @@ from mst_tpu_torch.tools import bench_attn_split_cls as sc
 from mst_tpu_torch.tools import bench_block_fusion as bf
 from mst_tpu_torch.tools import debug_attn_i8 as dbg
 from mst_tpu_torch.tools import loss_drift as ld
+from mst_tpu_torch.tools import saliency_spread as ss
 
 N, S, E, H = 2, 17, 128, 2  # head dim 64, as every kernel of the port
 REL, REL_I8 = 2e-5, 1e-4
@@ -272,7 +273,7 @@ def test_block_fusion_matches_tool_kernels(block_case, layout):
 # -- the mains run on the card only ---------------------------------------------
 
 
-@pytest.mark.parametrize("module", [sm, sc, bi, dbg, bf, ld],
+@pytest.mark.parametrize("module", [sm, sc, bi, dbg, bf, ld, ss],
                          ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 def test_tool_main_refuses_without_cuda(module, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -455,17 +455,18 @@ def test_train_cli_unfrozen_remat_run_folder_serves(tmp_path):
 
 def test_abnar_query_tile_admits_every_fused_length():
     """`mhsa_abnar`'s kernel has a query tile for every S up to
-    FUSED_MAX_TOKENS: 64 rows at the ViT-S / DINOv3 lengths 257 and 201 (what
-    they launched before), 32 up to S = 416, and 16 above (S = 442 is
-    ViT-S/14 on 294 px slices); at S = 512 the 16-row tile takes 215,616
-    bytes of the 232,448 a block may have."""
+    FUSED_MAX_TOKENS: the forward's 64-row wgmma tile at every length (S =
+    442 is ViT-S/14 on 294 px slices). Its f32 head sum lives in shared
+    memory up to S = 272 (164,920 bytes at S = 257) and in the factor rows
+    each block owns above, within the 232,448 bytes a block may have
+    (156,752 at S = 512)."""
     tiles = {s: tfb.abnar_query_tile(s) for s in range(1, FUSED_MAX_TOKENS + 1)}
-    assert None not in tiles.values()
-    assert tiles[257] == 64 and tiles[201] == 64
-    assert all(tiles[s] >= 32 for s in range(1, 417))
-    assert all(tiles[s] == 16 for s in range(417, FUSED_MAX_TOKENS + 1))
-    assert tfb.abnar_smem_bytes(16, 512) == 215_616
-    assert tfb.abnar_smem_bytes(32, 417) > tfb._SMEM_CAP
+    assert set(tiles.values()) == {64}
+    assert tiles[257] == 64 and tiles[201] == 64 and tiles[442] == 64
+    assert tfb.mhsa_launch(257).abnar_smem == 164_920
+    assert tfb.mhsa_launch(512).abnar_smem == 156_752
+    assert all(tfb.mhsa_launch(s).abnar_smem <= tfb._SMEM_CAP
+               for s in range(1, FUSED_MAX_TOKENS + 1))
     # the CPU path runs the Abnar sub-layer at S = 442 as at any length
     qkv = torch.from_numpy(np.random.default_rng(11).standard_normal(
         (442, 3 * 64)).astype(np.float32))
