@@ -217,6 +217,27 @@ __device__ __forceinline__ void frag_a(uint32_t (&a)[4], const float (&d)[R], in
   a[3] = pack_bf16x2(d[8 * kc + 6], d[8 * kc + 7]);
 }
 
+// The max and the sum over the 4 lanes of a row of the D fragment.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Sum of v[0 .. N) as a balanced tree (N a power of two).
+template <int N>
+__device__ __forceinline__ float tree_sum(float (&v)[N]) {
+#pragma unroll
+  for (int w = N / 2; w >= 1; w /= 2)
+#pragma unroll
+    for (int k = 0; k < w; ++k) v[k] += v[k + w];
+  return v[0];
+}
+
 // Byte offset of the 16-byte chunk c of row r in a swizzled box.
 __host__ __device__ __forceinline__ int swz(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
 

@@ -131,7 +131,7 @@ __device__ __forceinline__ void rope_adjoint8(const float* d, const float* __res
   }
 }
 
-// Register-level bf16 tensor-core product (the flash kernels), PTX
+// Register-level bf16 tensor-core product (mhsa.cu's one-pass P.V), PTX
 // `mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32`: c[16 x 8] += a[16 x 16] .
 // b[16 x 8]. Lane l of the warp, g = l / 4, t = l % 4, holds
 //   a: a[0] = A[g][2t, 2t+1], a[1] = A[g+8][2t, 2t+1], a[2] = A[g][2t+8, 2t+9],
@@ -139,9 +139,6 @@ __device__ __forceinline__ void rope_adjoint8(const float* d, const float* __res
 //      half);
 //   b: b0 = B[2t, 2t+1][g], b1 = B[2t+8, 2t+9][g];
 //   c: c[0], c[1] = C[g][2t, 2t+1], c[2], c[3] = C[g+8][2t, 2t+1].
-// So the accumulators of two neighbouring n-tiles of a product are, packed
-// to bf16, the a fragment of the next product's k-step (FlashAttention-2's
-// register reuse of P and dS).
 __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                           uint32_t b1) {
   asm volatile(
@@ -151,44 +148,10 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 // Two f32 values as one bf16 pair (round to nearest even), lo in the low half.
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint32_t pair_bf16(bf16 lo, bf16 hi) {
-  return uint32_t(__bfloat16_as_ushort(lo)) | (uint32_t(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// The a fragment of rows [r0, r0 + 16), columns [k0, k0 + 16) of a
-// row-major bf16 tile X of row stride ld (elements).
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* X, int ld, int r0, int k0,
-                                       int g, int t) {
-  a[0] = ld_u32(X + (r0 + g) * ld + k0 + 2 * t);
-  a[1] = ld_u32(X + (r0 + g + 8) * ld + k0 + 2 * t);
-  a[2] = ld_u32(X + (r0 + g) * ld + k0 + 2 * t + 8);
-  a[3] = ld_u32(X + (r0 + g + 8) * ld + k0 + 2 * t + 8);
-}
-
-// The b fragment of B[k0 .. k0 + 16][n0 .. n0 + 8] where B[k][n] = Y[n][k]
-// (Y row-major over n, e.g. K for Q.K^T): one 32-bit load per register.
-__device__ __forceinline__ void frag_b_t(uint32_t& b0, uint32_t& b1, const bf16* Y, int ld, int n0,
-                                         int k0, int g, int t) {
-  b0 = ld_u32(Y + (n0 + g) * ld + k0 + 2 * t);
-  b1 = ld_u32(Y + (n0 + g) * ld + k0 + 2 * t + 8);
-}
-
-// The b fragment of B[k0 .. k0 + 16][n0 .. n0 + 8] where B[k][n] = Y[k][n]
-// (Y row-major over k, e.g. V for P.V): two 16-bit loads per register.
-__device__ __forceinline__ void frag_b(uint32_t& b0, uint32_t& b1, const bf16* Y, int ld, int k0,
-                                       int n0, int g, int t) {
-  b0 = pair_bf16(Y[(k0 + 2 * t) * ld + n0 + g], Y[(k0 + 2 * t + 1) * ld + n0 + g]);
-  b1 = pair_bf16(Y[(k0 + 2 * t + 8) * ld + n0 + g], Y[(k0 + 2 * t + 9) * ld + n0 + g]);
 }
 
 // Set a kernel's dynamic shared-memory ceiling (needed above 48 KB).

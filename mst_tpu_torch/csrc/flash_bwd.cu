@@ -1,7 +1,7 @@
 // flash_bwd: the backward of flash_fwd.cu, from the saved q, k, v [B, H, S,
 // 64] bf16, o, the upstream gradient do and the base-2 LSE rows [B, H, S]
 // f32 -> dq, dk, dv [B, H, S, 64] bf16 (every operand with its own element
-// strides per batch, head and row; unit column stride).
+// strides per slice, head and row; unit column stride).
 //
 // Replaces the backwards of mst_tpu/ops/attention.py: `_bwd_single_kernel`
 // :305 (dq, dk, dv in one program, S <= 1536), `_bwd_dq_kernel` :340 and
@@ -12,338 +12,443 @@
 //   ds = bf16(p * (dp - delta) * sm_scale);  dq = bf16(ds . k);
 //   dk = bf16(ds^T . q)
 // with f32 sums. JAX computes delta in XLA (:412); here the dq kernel does,
-// for its query tile, and writes it for the dk/dv kernel.
+// for its query rows, and writes it for the dk/dv kernel.
 //
-// The split follows the blocked Pallas pair, which is deterministic: no
-// float atomics, so two runs give the same bits, and the one pair serves
-// every S (the single-program kernel is a VMEM artifact):
-//   dq kernel:   one block of 4 warps per (b, h, 64-query tile); q, do in
-//                shared memory, the 64-key tiles of k and v double-buffered
-//                by cp.async (54 KB); s, dp and dq in registers;
-//   dk/dv kernel: one block per (b, h, 64-key tile); k, v in shared memory,
-//                the 64-query tiles of q and do (with their LSE and delta)
-//                double-buffered; s^T, dp^T, dk and dv in registers.
+// The pair follows the blocked Pallas pair, which is deterministic: no
+// float atomics, so two runs give the same bits, and one pair serves every
+// S (the single-program kernel is a VMEM artifact). Both kernels have the
+// shape of flash_fwd.cu (flash_sm90.cuh: one block an SM, a producer
+// warpgroup feeding an 8-stage TMA ring, two consumer warpgroups of 64 rows
+// of a 128-row unit, `setmaxnreg`):
+//   dq kernel:    a unit is a query tile: its q and do boxes; the ring
+//                 streams k and v. Per 64-key stage s = q.k^T and dp =
+//                 do.v^T by wgmma from shared memory, p and ds in
+//                 registers, dq += bf16(ds) . k by register-A wgmma (k read
+//                 MN-major). delta = rowsum(do * o) of the unit's rows is
+//                 summed from device memory (16 columns a lane, then the 4
+//                 lanes of a row) while its boxes land.
+//   dk/dv kernel: a unit is a key tile: its k and v boxes; the ring streams
+//                 q and do, with the stage's 64 LSE and delta values stored
+//                 into shared memory by the producer's warps 1-3 in turn (+1e30
+//                 and 0 past S: a query past S has p = 0). Per stage s^T =
+//                 k.q^T and dp^T = v.do^T, then dv += bf16(p^T) . do and dk
+//                 += bf16(ds^T) . q, both from registers (q, do MN-major).
+// As in flash_fwd.cu a consumer issues the two score-side products of stage
+// j beside the register-A products of stage j - 1 in one turn, and the two
+// consumers take turns, so p and ds of one stage are formed while the
+// tensor cores run the other products.
 // Each kernel forms s and dp, so the pair runs seven S^2 hd products where
-// one program would run five; that buys no cross-block sum. As in
-// flash_fwd.cu the accumulators of one mma.sync product, packed to bf16,
-// are the a fragments of the next (P for dv, ds for dq and dk). Rows past S
-// are zero-filled by the copies; their p is 0 (keys masked, queries given
-// LSE +1e30 as the Pallas padding does), so the ragged edge adds nothing,
-// and nothing past S is written.
+// the function needs five (s, dp, dv, dq, dk); that buys no cross-block
+// sum. Rows past S read as zeros (the TMA map's row extent is S): a key
+// past S scores 0 and is masked in the dq kernel; a query past S has zero
+// q and do rows and the LSE +1e30 in the dk/dv kernel, so the ragged edge
+// adds nothing, and nothing past S is written. Results leave through a
+// box their warpgroup has done reading, as 16-byte row stores.
 //
 // Bound on the H100: at [64, 6, 1370, 64] (the B = 2 train step) the
-// seven products are 14 S^2 hd B H = 646 GFLOP, 0.65 ms at 989 TFLOP/s,
-// against 0.54 GB of operands (0.16 ms at 3.35 TB/s): compute-bound.
-#include "common.cuh"
+// function's five products are 10 S^2 hd B H = 461 GFLOP, 0.47 ms at 989
+// TFLOP/s, against 0.54 GB of operands (0.16 ms at 3.35 TB/s):
+// compute-bound; the pair's seven products are 646 GFLOP.
+#include "flash_sm90.cuh"
 
 namespace mst {
 namespace {
 
-constexpr int HD = 64;
-constexpr int BT = 64;        // rows per block and per streamed tile
-constexpr int THREADS = 128;  // 4 warps x 16 rows
-constexpr int LDT = HD + 8;
-constexpr int TILE = BT * LDT;
-constexpr float NEG_INF = -1e30f;
-static_assert(BT == HD, "a tile's 64 rows are also the 8 n-tiles of its products");
+using namespace flash;
+using attn::desc_mn;
+using attn::frag_a;
+using attn::frag_col;
+using attn::frag_hi;
+using sm90::wgmma_commit;
+using sm90::wgmma_fence;
+using sm90::wgmma_wait;
 
-struct View {
+struct Out {  // one [B, H, S, 64] bf16 output
+  bf16* p;
+  long long sb, sh, ss;
+  __device__ __forceinline__ bf16* rows(const Unit& w, int r0) const {
+    return p + w.b * sb + w.h * sh + r0 * ss;
+  }
+};
+
+struct In {  // one [B, H, S, 64] bf16 input read from device memory
   const bf16* p;
   long long sb, sh, ss;
 };
 
-struct OutView {
-  bf16* p;
-  long long sb, sh, ss;
+struct Args {
+  In o, dout;        // the dq kernel's delta
+  Out d0, d1;        // dq (dq kernel); dk, dv (dk/dv kernel)
+  const float* lse;  // [B, H, S]
+  float* delta;      // [B, H, S]: written by the dq kernel, read by dk/dv
+  int B, H, S;
+  float scale;     // sm_scale * log2(e), > 0
+  float sm_scale;
 };
 
-__device__ inline void load_tile(bf16* dst, const View& v, int b, int h, int r0, int S, int tid) {
-  const bf16* base = v.p + b * v.sb + h * v.sh;
-  for (int c = tid; c < BT * (HD / 8); c += THREADS) {
-    const int r = c >> 3, col = (c & 7) * 8;
-    const int row = r0 + r;
-    const bool in = row < S;
-    cp_async16(dst + r * LDT + col, in ? base + row * v.ss + col : v.p, in ? 16 : 0);
-  }
+// Two products of one stage into registers, one commit group (the caller
+// waits): d0 = a0 . b0^T and d1 = a1 . b1^T over the head dim (all four
+// boxes K-major).
+__device__ __forceinline__ void two_products(float (&d0)[32], float (&d1)[32],
+                                             const unsigned char* a0, const unsigned char* b0,
+                                             const unsigned char* a1, const unsigned char* b1) {
+  attn::product_t(d0, a0, b0);
+  attn::product_t(d1, a1, b1);
+  wgmma_commit();
 }
 
-__device__ inline void zero(float (&x)[HD / 8][4]) {
+// acc += A . B over a stage's 64 rows, A this thread's packed fragments, B
+// MN-major (the caller commits).
+__device__ __forceinline__ void rs(float (&acc)[32], const uint32_t (&a)[4][4],
+                                   const unsigned char* box) {
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[n][e] = 0.0f;
+  for (int kc = 0; kc < 4; ++kc) attn::mma_rs(acc, a[kc], desc_mn(box, kc));
 }
 
-// acc[n] (16 rows x 64 columns) = A[r0 .. r0 + 16][:] . B^T where A and B
-// are [64][LDT] row-major shared tiles (rows of B are the columns of acc).
-__device__ inline void product_t(float (&acc)[HD / 8][4], const bf16* A, const bf16* B, int r0,
-                                 int g, int t) {
-  zero(acc);
+__device__ __forceinline__ void pack(uint32_t (&a)[4][4], const float (&d)[32]) {
 #pragma unroll
-  for (int kk = 0; kk < HD; kk += 16) {
-    uint32_t a[4];
-    frag_a(a, A, LDT, r0, kk, g, t);
+  for (int kc = 0; kc < 4; ++kc) frag_a(a[kc], d, kc);
+}
+
+// delta = rowsum(do * o) in f32 of row r (0 past S): 16 columns a lane of
+// the quad, then the 4 lanes.
+__device__ __forceinline__ float row_delta(const Args& a, const Unit& w, int r, int quad) {
+  float sum = 0.0f;
+  if (r < a.S) {
+    const bf16* o = a.o.p + w.b * a.o.sb + w.h * a.o.sh + r * a.o.ss + quad * 16;
+    const bf16* d = a.dout.p + w.b * a.dout.sb + w.h * a.dout.sh + r * a.dout.ss + quad * 16;
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      uint32_t b0, b1;
-      frag_b_t(b0, b1, B, LDT, n * 8, kk, g, t);
-      mma_16816(acc[n], a, b0, b1);
+    for (int c = 0; c < 16; c += 8) {
+      float ov[8], dv[8];
+      unpack8_bf16(*reinterpret_cast<const uint4*>(o + c), ov);
+      unpack8_bf16(*reinterpret_cast<const uint4*>(d + c), dv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sum += dv[e] * ov[e];
     }
   }
+  return attn::quad_sum(sum);
 }
 
-// acc[n] += bf16(X) . B, X the 16 x 64 f32 accumulators of a product (its
-// columns are the k of this one), B a [64][LDT] row-major tile over k.
-__device__ inline void product_acc(float (&acc)[HD / 8][4], const float (&x)[HD / 8][4],
-                                   const bf16* B, int g, int t) {
-#pragma unroll
-  for (int kc = 0; kc < HD / 16; ++kc) {
-    const uint32_t a[4] = {pack_bf16x2(x[2 * kc][0], x[2 * kc][1]),
-                           pack_bf16x2(x[2 * kc][2], x[2 * kc][3]),
-                           pack_bf16x2(x[2 * kc + 1][0], x[2 * kc + 1][1]),
-                           pack_bf16x2(x[2 * kc + 1][2], x[2 * kc + 1][3])};
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      uint32_t b0, b1;
-      frag_b(b0, b1, B, LDT, kc * 16, n * 8, g, t);
-      mma_16816(acc[n], a, b0, b1);
-    }
-  }
-}
+// Unit buffer: [q0, q1, do0, do1] (consumer c reads q c and do c). Ring
+// stage: [k, v].
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo, Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = aligned(smem_raw);
+  const Layout L = layout(4, false);
+  const Bars bars = carve(base, L, 1);
+  const int T = tiles(a.S), nk = boxes(a.S), units = T * a.H * a.B;
+  const int role = threadIdx.x / 128;
 
-// Rows g and g + 8 of a warp's 16 x 64 f32 accumulators, in bf16.
-__device__ inline void store_rows(const OutView& out, int b, int h, int ra, int S,
-                                  const float (&x)[HD / 8][4], int t) {
-  bf16* base = out.p + b * out.sb + h * out.sh;
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (ra < S)
-      *reinterpret_cast<uint32_t*>(base + ra * out.ss + col) = pack_bf16x2(x[n][0], x[n][1]);
-    if (ra + 8 < S)
-      *reinterpret_cast<uint32_t*>(base + (ra + 8) * out.ss + col) = pack_bf16x2(x[n][2], x[n][3]);
-  }
-}
-
-// Grid: one block per (b, h, 64-query tile). Also writes delta [B, H, S].
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(View q, View k, View v, View o, View dout, OutView dq,
-                    const float* __restrict__ lse, float* __restrict__ delta, int H, int S,
-                    int tiles, float scale, float sm_scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ds = Qs + TILE;      // do
-  bf16* Ks = Ds + TILE;      // 2 stages
-  bf16* Vs = Ks + 2 * TILE;  // 2 stages
-  float* Lrow = reinterpret_cast<float*>(Vs + 2 * TILE);  // [64] lse
-  float* Drow = Lrow + BT;                                 // [64] delta
-
-  const int tile = blockIdx.x % tiles;
-  const int bh = blockIdx.x / tiles;
-  const int b = bh / H, h = bh % H;
-  const int q0 = tile * BT;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = warp * 16;
-  const int nkt = (S + BT - 1) / BT;
-
-  load_tile(Qs, q, b, h, q0, S, tid);
-  load_tile(Ds, dout, b, h, q0, S, tid);
-  load_tile(Ks, k, b, h, 0, S, tid);
-  load_tile(Vs, v, b, h, 0, S, tid);
-  cp_async_commit();
-
-  // delta = rowsum(do * o) of the tile's rows: two threads per row, 32
-  // columns each, straight from device memory while the copies run.
-  {
-    const int r = tid >> 1, c0 = (tid & 1) * 32;
-    const int row = q0 + r;
-    float sum = 0.0f;
-    if (row < S) {
-      const bf16* orow = o.p + b * o.sb + h * o.sh + row * o.ss + c0;
-      const bf16* drow = dout.p + b * dout.sb + h * dout.sh + row * dout.ss + c0;
-#pragma unroll
-      for (int c = 0; c < 32; c += 8) {
-        float ov[8], dv[8];
-        unpack8_bf16(*reinterpret_cast<const uint4*>(orow + c), ov);
-        unpack8_bf16(*reinterpret_cast<const uint4*>(drow + c), dv);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) sum += ov[e] * dv[e];
+  if (role == 0) {
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x != 0) return;
+    sm90::tma_prefetch(&tq);
+    sm90::tma_prefetch(&tk);
+    sm90::tma_prefetch(&tv);
+    sm90::tma_prefetch(&tdo);
+    uint32_t it = 0, ui = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x, ++ui) {
+      const Unit w = unit(u, T, a.H);
+      wait_free(bars.uempty, ui, 2);
+      unsigned char* ub = base + L.unit + (ui & 1) * 4 * BOX_BYTES;
+      uint64_t* bar = &bars.ufull[ui & 1];
+      mbar_expect_tx(bar, 4 * BOX_BYTES);
+      for (int c = 0; c < CONSUMERS; ++c) {
+        tma_load_4d(ub + c * BOX_BYTES, &tq, w.tile * ROWS + c * BOX, w.h, w.b, bar);
+        tma_load_4d(ub + (2 + c) * BOX_BYTES, &tdo, w.tile * ROWS + c * BOX, w.h, w.b, bar);
+      }
+      for (int j = 0; j < nk; ++j, ++it) {
+        const int st = it % STAGES;
+        wait_free(bars.empty, it, STAGES);
+        unsigned char* kv = base + L.ring + st * 2 * BOX_BYTES;
+        mbar_expect_tx(&bars.full[st], 2 * BOX_BYTES);
+        tma_load_4d(kv, &tk, j * BOX, w.h, w.b, &bars.full[st]);
+        tma_load_4d(kv + BOX_BYTES, &tv, j * BOX, w.h, w.b, &bars.full[st]);
       }
     }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    if ((tid & 1) == 0) {
-      Drow[r] = sum;
-      Lrow[r] = row < S ? lse[size_t(bh) * S + row] : 0.0f;
-      if (row < S) delta[size_t(bh) * S + row] = sum;
+    return;
+  }
+
+  reg_alloc<CONSUMER_REGS>();
+  const int c = role - 1, t = threadIdx.x & 127;
+  const int lo = 16 * (t >> 5) + ((t & 31) >> 2);
+  auto stage = [&](uint32_t i) { return base + L.ring + (i % STAGES) * 2 * BOX_BYTES; };
+  if (c == 1) turn_pass(c);  // consumer 0 takes the first turn
+  uint32_t it = 0, ui = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++ui) {
+    const Unit w = unit(u, T, a.H);
+    const int r0 = w.tile * ROWS + c * BOX;
+    const int ra = r0 + lo, rb = ra + 8;
+    // delta and the LSE of rows ra, rb while the boxes land
+    const float dl0 = row_delta(a, w, ra, t & 3), dl1 = row_delta(a, w, rb, t & 3);
+    const float* lse = a.lse + w.bh * a.S;
+    const float b0 = ra < a.S ? lse[ra] : 0.0f, b1 = rb < a.S ? lse[rb] : 0.0f;
+    if ((t & 3) == 0) {
+      if (ra < a.S) a.delta[w.bh * a.S + ra] = dl0;
+      if (rb < a.S) a.delta[w.bh * a.S + rb] = dl1;
     }
-  }
-  __syncthreads();
-  const float lse0 = Lrow[r0 + g], lse1 = Lrow[r0 + g + 8];
-  const float dl0 = Drow[r0 + g], dl1 = Drow[r0 + g + 8];
-
-  float acc[HD / 8][4];
-  zero(acc);
-  for (int j = 0; j < nkt; ++j) {
-    const int st = j & 1;
-    if (j + 1 < nkt) {
-      load_tile(Ks + (st ^ 1) * TILE, k, b, h, (j + 1) * BT, S, tid);
-      load_tile(Vs + (st ^ 1) * TILE, v, b, h, (j + 1) * BT, S, tid);
+    unsigned char* ub = base + L.unit + (ui & 1) * 4 * BOX_BYTES;
+    unsigned char* qbox = ub + c * BOX_BYTES;
+    const unsigned char* dobox = ub + (2 + c) * BOX_BYTES;
+    // ds = p (dp - delta) sm_scale of stage j in dp, p = exp2(s - lse)
+    auto grads = [&](float (&s)[32], float (&dp)[32], int j) {
+      const int key0 = j * BOX;
+      if (key0 + BOX > a.S) {  // the last stage: keys past S get p = 0
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          if (key0 + frag_col(t, i) >= a.S) s[i] = -INFINITY;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const bool hi = frag_hi(i);
+        const float p = attn::ex2(fmaf(s[i], a.scale, -(hi ? b1 : b0)));
+        dp[i] = p * (dp[i] - (hi ? dl1 : dl0)) * a.sm_scale;
+      }
+    };
+    float dq[32], s[32], dp[32];
+    uint32_t ds[4][4];
+    attn::zero(dq);
+    wait_full(bars.ufull, ui, 2);
+    // turn 0: s and dp of stage 0
+    wait_full(bars.full, it, STAGES);
+    turn_wait(c);
+    wgmma_fence();
+    two_products(s, dp, qbox, stage(it), dobox, stage(it) + BOX_BYTES);
+    turn_pass(c);
+    wgmma_wait<0>();
+    attn::fence_regs(s);
+    attn::fence_regs(dp);
+    grads(s, dp, 0);
+    pack(ds, dp);
+    // turn j: s and dp of stage j beside dq += ds . k of stage j - 1
+    for (int j = 1; j < nk; ++j) {
+      wait_full(bars.full, it + j, STAGES);
+      turn_wait(c);
+      wgmma_fence();
+      two_products(s, dp, qbox, stage(it + j), dobox, stage(it + j) + BOX_BYTES);
+      rs(dq, ds, stage(it + j - 1));
+      wgmma_commit();
+      turn_pass(c);
+      wgmma_wait<1>();
+      attn::fence_regs(s);
+      attn::fence_regs(dp);
+      grads(s, dp, j);
+      wgmma_wait<0>();
+      attn::fence_regs(dq);
+      release(bars.empty, it + j - 1, STAGES);
+      pack(ds, dp);
     }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* Kt = Ks + st * TILE;
-    const bf16* Vt = Vs + st * TILE;
-
-    float p[HD / 8][4], dp[HD / 8][4];
-    product_t(p, Qs, Kt, r0, g, t);  // s
-    product_t(dp, Ds, Vt, r0, g, t);
-#pragma unroll
-    for (int n = 0; n < BT / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool in = j * BT + n * 8 + 2 * t + e < S;
-        const float pa = exp2f((in ? p[n][e] * scale : NEG_INF) - lse0);
-        const float pb = exp2f((in ? p[n][2 + e] * scale : NEG_INF) - lse1);
-        dp[n][e] = pa * (dp[n][e] - dl0) * sm_scale;  // ds
-        dp[n][2 + e] = pb * (dp[n][2 + e] - dl1) * sm_scale;
-      }
-    product_acc(acc, dp, Kt, g, t);  // dq += bf16(ds) k
-    __syncthreads();
+    // the last turn: dq += ds . k of the last stage
+    turn_wait(c);
+    wgmma_fence();
+    rs(dq, ds, stage(it + nk - 1));
+    wgmma_commit();
+    if (c == 0 || u + int(gridDim.x) < units) turn_pass(c);
+    wgmma_wait<0>();
+    attn::fence_regs(dq);
+    release(bars.empty, it + nk - 1, STAGES);
+    it += nk;
+    store_result(qbox, c, t, dq, a.d0.rows(w, r0), a.d0.ss, min(BOX, a.S - r0));
+    done_with_unit(bars, c, ui);
   }
-  cp_async_wait<0>();
-  store_rows(dq, b, h, q0 + r0 + g, S, acc, t);
 }
 
-// Grid: one block per (b, h, 64-key tile).
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(View q, View k, View v, View dout, OutView dk, OutView dv,
-                     const float* __restrict__ lse, const float* __restrict__ delta, int H,
-                     int S, int tiles, float scale, float sm_scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + TILE;
-  bf16* Qs = Vs + TILE;      // 2 stages
-  bf16* Ds = Qs + 2 * TILE;  // 2 stages (do)
-  float* Lrow = reinterpret_cast<float*>(Ds + 2 * TILE);  // [2][64] lse
-  float* Drow = Lrow + 2 * BT;                             // [2][64] delta
+// Unit buffer: [k0, k1, v0, v1] (consumer c reads k c and v c). Ring stage:
+// [q, do], and its f32 [LSE 64 | delta 64] in the ring's vectors.
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo, Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = aligned(smem_raw);
+  const Layout L = layout(4, true);
+  const Bars bars = carve(base, L, 1 + 32);  // expect_tx and the lanes of a vector warp
+  float* vec = reinterpret_cast<float*>(base + L.vec);
+  const int T = tiles(a.S), nq = boxes(a.S), units = T * a.H * a.B;
+  const int role = threadIdx.x / 128;
 
-  const int tile = blockIdx.x % tiles;
-  const int bh = blockIdx.x / tiles;
-  const int b = bh / H, h = bh % H;
-  const int k0 = tile * BT;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = warp * 16;
-  const int nqt = (S + BT - 1) / BT;
-  const float* lse_bh = lse + size_t(bh) * S;
-  const float* delta_bh = delta + size_t(bh) * S;
-  // keys of this lane's rows past S get p = 0
-  const bool ka_in = k0 + r0 + g < S, kb_in = k0 + r0 + g + 8 < S;
-
-  load_tile(Ks, k, b, h, k0, S, tid);
-  load_tile(Vs, v, b, h, k0, S, tid);
-  load_tile(Qs, q, b, h, 0, S, tid);
-  load_tile(Ds, dout, b, h, 0, S, tid);
-  cp_async_commit();
-  if (tid < BT) {  // queries past S: LSE +1e30 (p = 0), delta 0
-    Lrow[tid] = tid < S ? lse_bh[tid] : 1e30f;
-    Drow[tid] = tid < S ? delta_bh[tid] : 0.0f;
-  }
-
-  float dka[HD / 8][4], dva[HD / 8][4];
-  zero(dka);
-  zero(dva);
-  for (int i = 0; i < nqt; ++i) {
-    const int st = i & 1;
-    if (i + 1 < nqt) {
-      const int n0 = (i + 1) * BT;
-      load_tile(Qs + (st ^ 1) * TILE, q, b, h, n0, S, tid);
-      load_tile(Ds + (st ^ 1) * TILE, dout, b, h, n0, S, tid);
-      if (tid < BT) {
-        const int row = n0 + tid;
-        Lrow[(st ^ 1) * BT + tid] = row < S ? lse_bh[row] : 1e30f;
-        Drow[(st ^ 1) * BT + tid] = row < S ? delta_bh[row] : 0.0f;
+  if (role == 0) {
+    reg_dealloc<PRODUCER_REGS>();
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (warp == 0 && lane != 0) return;
+    if (warp == 0) {  // thread 0: the TMA loads
+      sm90::tma_prefetch(&tq);
+      sm90::tma_prefetch(&tk);
+      sm90::tma_prefetch(&tv);
+      sm90::tma_prefetch(&tdo);
+    }
+    uint32_t it = 0, ui = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x, ++ui) {
+      const Unit w = unit(u, T, a.H);
+      if (warp == 0) {
+        wait_free(bars.uempty, ui, 2);
+        unsigned char* ub = base + L.unit + (ui & 1) * 4 * BOX_BYTES;
+        uint64_t* bar = &bars.ufull[ui & 1];
+        mbar_expect_tx(bar, 4 * BOX_BYTES);
+        for (int c = 0; c < CONSUMERS; ++c) {
+          tma_load_4d(ub + c * BOX_BYTES, &tk, w.tile * ROWS + c * BOX, w.h, w.b, bar);
+          tma_load_4d(ub + (2 + c) * BOX_BYTES, &tv, w.tile * ROWS + c * BOX, w.h, w.b, bar);
+        }
+      }
+      const float* lse = a.lse + w.bh * a.S;
+      const float* delta = a.delta + w.bh * a.S;
+      for (int j = 0; j < nq; ++j, ++it) {
+        const int st = it % STAGES;
+        if (warp == 0) {
+          wait_free(bars.empty, it, STAGES);
+          unsigned char* qd = base + L.ring + st * 2 * BOX_BYTES;
+          mbar_expect_tx(&bars.full[st], 2 * BOX_BYTES);
+          tma_load_4d(qd, &tq, j * BOX, w.h, w.b, &bars.full[st]);
+          tma_load_4d(qd + BOX_BYTES, &tdo, j * BOX, w.h, w.b, &bars.full[st]);
+        } else if (int(it % 3) == warp - 1) {
+          // warps 1-3 in turn: the stage's LSE (+1e30 past S) and delta
+          // (0), three stages' loads in flight at once
+          wait_free(bars.empty, it, STAGES);
+          float* v = vec + st * VEC;
+#pragma unroll
+          for (int e = 0; e < BOX; e += 32) {
+            const int q = j * BOX + e + lane;
+            v[e + lane] = q < a.S ? lse[q] : LSE_PAD;
+            v[BOX + e + lane] = q < a.S ? delta[q] : 0.0f;
+          }
+          mbar_arrive(&bars.full[st]);
+        }
       }
     }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* Qt = Qs + st * TILE;
-    const bf16* Dt = Ds + st * TILE;
-    const float* L = Lrow + st * BT;
-    const float* D = Drow + st * BT;
-
-    // p^T: rows are this block's keys, columns the tile's queries.
-    float p[HD / 8][4];
-    product_t(p, Ks, Qt, r0, g, t);
-#pragma unroll
-    for (int n = 0; n < BT / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float lq = L[n * 8 + 2 * t + e];
-        p[n][e] = exp2f((ka_in ? p[n][e] * scale : NEG_INF) - lq);
-        p[n][2 + e] = exp2f((kb_in ? p[n][2 + e] * scale : NEG_INF) - lq);
-      }
-    product_acc(dva, p, Dt, g, t);  // dv += bf16(p)^T do
-    float dp[HD / 8][4];
-    product_t(dp, Vs, Dt, r0, g, t);  // dp^T = v do^T
-#pragma unroll
-    for (int n = 0; n < BT / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float dl = D[n * 8 + 2 * t + e];
-        dp[n][e] = p[n][e] * (dp[n][e] - dl) * sm_scale;  // ds^T
-        dp[n][2 + e] = p[n][2 + e] * (dp[n][2 + e] - dl) * sm_scale;
-      }
-    product_acc(dka, dp, Qt, g, t);  // dk += bf16(ds)^T q
-    __syncthreads();
+    return;
   }
-  cp_async_wait<0>();
-  store_rows(dk, b, h, k0 + r0 + g, S, dka, t);
-  store_rows(dv, b, h, k0 + r0 + g, S, dva, t);
+
+  reg_alloc<CONSUMER_REGS>();
+  const int c = role - 1, t = threadIdx.x & 127;
+  auto stage = [&](uint32_t i) { return base + L.ring + (i % STAGES) * 2 * BOX_BYTES; };
+  // p^T = exp2(s^T - lse) in s and ds^T = p^T (dp^T - delta) sm_scale in dp
+  // of ring stage i: its columns are queries, their LSE (+1e30 past S) and
+  // delta in the stage's vectors, a pair at a time
+  auto grads = [&](float (&s)[32], float (&dp)[32], uint32_t i) {
+    const float* v = vec + (i % STAGES) * VEC;
+#pragma unroll
+    for (int e = 0; e < 32; e += 2) {
+      const int q = frag_col(t, e);
+      const float2 lq = *reinterpret_cast<const float2*>(v + q);
+      const float2 dq = *reinterpret_cast<const float2*>(v + BOX + q);
+      s[e] = attn::ex2(fmaf(s[e], a.scale, -lq.x));
+      s[e + 1] = attn::ex2(fmaf(s[e + 1], a.scale, -lq.y));
+      dp[e] = s[e] * (dp[e] - dq.x) * a.sm_scale;
+      dp[e + 1] = s[e + 1] * (dp[e + 1] - dq.y) * a.sm_scale;
+    }
+  };
+  if (c == 1) turn_pass(c);  // consumer 0 takes the first turn
+  uint32_t it = 0, ui = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++ui) {
+    const Unit w = unit(u, T, a.H);
+    const int r0 = w.tile * ROWS + c * BOX;  // this warpgroup's first key
+    unsigned char* ub = base + L.unit + (ui & 1) * 4 * BOX_BYTES;
+    unsigned char* kbox = ub + c * BOX_BYTES;
+    unsigned char* vbox = ub + (2 + c) * BOX_BYTES;
+    float dk[32], dv[32], s[32], dp[32];
+    uint32_t pa[4][4], da[4][4];
+    attn::zero(dk);
+    attn::zero(dv);
+    wait_full(bars.ufull, ui, 2);
+    // turn 0: s^T and dp^T of stage 0
+    wait_full(bars.full, it, STAGES);
+    turn_wait(c);
+    wgmma_fence();
+    two_products(s, dp, kbox, stage(it), vbox, stage(it) + BOX_BYTES);
+    turn_pass(c);
+    wgmma_wait<0>();
+    attn::fence_regs(s);
+    attn::fence_regs(dp);
+    grads(s, dp, it);
+    pack(pa, s);
+    pack(da, dp);
+    // turn j: s^T and dp^T of stage j beside dv += p^T . do and dk += ds^T
+    // . q of stage j - 1
+    for (int j = 1; j < nq; ++j) {
+      wait_full(bars.full, it + j, STAGES);
+      turn_wait(c);
+      wgmma_fence();
+      two_products(s, dp, kbox, stage(it + j), vbox, stage(it + j) + BOX_BYTES);
+      rs(dv, pa, stage(it + j - 1) + BOX_BYTES);
+      rs(dk, da, stage(it + j - 1));
+      wgmma_commit();
+      turn_pass(c);
+      wgmma_wait<1>();
+      attn::fence_regs(s);
+      attn::fence_regs(dp);
+      grads(s, dp, it + j);
+      wgmma_wait<0>();
+      attn::fence_regs(dk);
+      attn::fence_regs(dv);
+      release(bars.empty, it + j - 1, STAGES);
+      pack(pa, s);
+      pack(da, dp);
+    }
+    // the last turn: dv and dk of the last stage
+    turn_wait(c);
+    wgmma_fence();
+    rs(dv, pa, stage(it + nq - 1) + BOX_BYTES);
+    rs(dk, da, stage(it + nq - 1));
+    wgmma_commit();
+    if (c == 0 || u + int(gridDim.x) < units) turn_pass(c);
+    wgmma_wait<0>();
+    attn::fence_regs(dk);
+    attn::fence_regs(dv);
+    release(bars.empty, it + nq - 1, STAGES);
+    it += nq;
+    store_result(kbox, c, t, dk, a.d0.rows(w, r0), a.d0.ss, min(BOX, a.S - r0));
+    store_result(vbox, c, t, dv, a.d1.rows(w, r0), a.d1.ss, min(BOX, a.S - r0));
+    done_with_unit(bars, c, ui);
+  }
 }
 
-constexpr size_t SMEM = 6 * TILE * sizeof(bf16) + 4 * BT * sizeof(float);
-
-bool strides_ok(const long long* s, int n) {
-  for (int i = 0; i < n; ++i)
-    if (s[i] % 8) return false;
-  return true;
+bool maps(CUtensorMap* m, const void* q, const void* k, const void* v, const void* dout,
+          const long long* sq, const long long* sk, const long long* sv, const long long* sd,
+          int B, int H, int S, cudaError_t* err) {
+  *err = tma_map_4d(&m[0], q, sq, B, H, S);
+  if (*err == cudaSuccess) *err = tma_map_4d(&m[1], k, sk, B, H, S);
+  if (*err == cudaSuccess) *err = tma_map_4d(&m[2], v, sv, B, H, S);
+  if (*err == cudaSuccess) *err = tma_map_4d(&m[3], dout, sd, B, H, S);
+  return *err == cudaSuccess;
 }
 
-View in_view(const void* p, const long long* s) {
-  return View{static_cast<const bf16*>(p), s[0], s[1], s[2]};
+In in_view(const void* p, const long long* s) {
+  return In{static_cast<const bf16*>(p), s[0], s[1], s[2]};
 }
 
-OutView out_view(void* p, const long long* s) {
-  return OutView{static_cast<bf16*>(p), s[0], s[1], s[2]};
-}
+Out out_view(void* p, const long long* s) { return Out{static_cast<bf16*>(p), s[0], s[1], s[2]}; }
 
 }  // namespace
 }  // namespace mst
 
 // q, k, v, o, do, dq: [B, H, S, 64] bf16 with element strides strides[3 i
-// .. 3 i + 2] (batch, head, row; host memory) in that order, multiples of
-// 8; lse: [B, H, S] f32 (base 2, flash_fwd.cu); delta: [B, H, S] f32 out.
-// scale = sm_scale * log2(e).
+// .. 3 i + 2] (slice, head, row; host memory) in that order, multiples of
+// 8, the pointers 16-byte aligned; lse: [B, H, S] f32 (base 2,
+// flash_fwd.cu); delta: [B, H, S] f32 out. scale = sm_scale * log2(e) > 0.
 extern "C" int mst_flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                                 const void* dout, const void* lse, void* delta, void* dq,
                                 const long long* strides, int B, int H, int S, float scale,
                                 float sm_scale, void* stream) {
   using namespace mst;
-  if (B <= 0 || H <= 0 || S <= 0 || !strides_ok(strides, 18)) return cudaErrorInvalidValue;
-  const long long tiles = (S + BT - 1) / BT;
-  if (tiles * B * H > INT32_MAX || (long long)B * H * S > INT32_MAX) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel, SMEM);
+  using namespace mst::flash;
+  if (!shape_ok(strides, 18, B, H, S) || !(scale > 0.0f)) return cudaErrorInvalidValue;
+  CUtensorMap m[4];
+  cudaError_t err;
+  if (!maps(m, q, k, v, dout, strides, strides + 3, strides + 6, strides + 12, B, H, S, &err))
+    return err;
+  const size_t smem = layout(4, false).total;
+  int grid = 0;
+  err = prepare(flash_bwd_dq_kernel, smem, tiles(S) * H * B, &grid);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<<<unsigned(tiles * B * H), THREADS, SMEM,
-                        static_cast<cudaStream_t>(stream)>>>(
-      in_view(q, strides), in_view(k, strides + 3), in_view(v, strides + 6),
-      in_view(o, strides + 9), in_view(dout, strides + 12), out_view(dq, strides + 15),
-      static_cast<const float*>(lse), static_cast<float*>(delta), H, S, int(tiles), scale,
-      sm_scale);
+  const Args a{in_view(o, strides + 9),   in_view(dout, strides + 12),
+               out_view(dq, strides + 15), Out{nullptr, 0, 0, 0},
+               static_cast<const float*>(lse), static_cast<float*>(delta), B, H, S, scale,
+               sm_scale};
+  flash_bwd_dq_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      m[0], m[1], m[2], m[3], a);
   return cudaGetLastError();
 }
 
@@ -355,16 +460,24 @@ extern "C" int mst_flash_bwd_dkv(const void* q, const void* k, const void* v, co
                                  const long long* strides, int B, int H, int S, float scale,
                                  float sm_scale, void* stream) {
   using namespace mst;
-  if (B <= 0 || H <= 0 || S <= 0 || !strides_ok(strides, 18)) return cudaErrorInvalidValue;
-  const long long tiles = (S + BT - 1) / BT;
-  if (tiles * B * H > INT32_MAX || (long long)B * H * S > INT32_MAX) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel, SMEM);
+  using namespace mst::flash;
+  if (!shape_ok(strides, 18, B, H, S) || !(scale > 0.0f)) return cudaErrorInvalidValue;
+  CUtensorMap m[4];
+  cudaError_t err;
+  if (!maps(m, q, k, v, dout, strides, strides + 3, strides + 6, strides + 9, B, H, S, &err))
+    return err;
+  const size_t smem = layout(4, true).total;
+  int grid = 0;
+  err = prepare(flash_bwd_dkv_kernel, smem, tiles(S) * H * B, &grid);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<<<unsigned(tiles * B * H), THREADS, SMEM,
-                         static_cast<cudaStream_t>(stream)>>>(
-      in_view(q, strides), in_view(k, strides + 3), in_view(v, strides + 6),
-      in_view(dout, strides + 9), out_view(dk, strides + 12), out_view(dv, strides + 15),
-      static_cast<const float*>(lse), static_cast<const float*>(delta), H, S, int(tiles), scale,
-      sm_scale);
+  const Args a{In{nullptr, 0, 0, 0},
+               In{nullptr, 0, 0, 0},
+               out_view(dk, strides + 12),
+               out_view(dv, strides + 15),
+               static_cast<const float*>(lse),
+               const_cast<float*>(static_cast<const float*>(delta)),
+               B, H, S, scale, sm_scale};
+  flash_bwd_dkv_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      m[0], m[1], m[2], m[3], a);
   return cudaGetLastError();
 }

@@ -158,26 +158,6 @@ __device__ __forceinline__ void scale_mask(float (&s)[R], int key0, const Ctx& c
   }
 }
 
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// Sum of v[0 .. N) as a balanced tree (N a power of two).
-template <int N>
-__device__ __forceinline__ float tree_sum(float (&v)[N]) {
-#pragma unroll
-  for (int w = N / 2; w >= 1; w /= 2)
-#pragma unroll
-    for (int k = 0; k < w; ++k) v[k] += v[k + w];
-  return v[0];
-}
-
 // p = exp2(s - m) in place; adds this thread's share of the chunk's two row
 // sums to l0 / l1, each summed as a tree (the column pairs, then their
 // halves) rather than in one running sum: nearer the plain version's

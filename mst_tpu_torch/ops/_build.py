@@ -96,6 +96,9 @@ _SIGNATURES = {
     # sm_scale, stream
     "mst_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                           _F, _P),
+    # B, H, S, part (0 fwd, 1 dq, 2 dkv), geo (host int32 [9]): the flash
+    # kernels' launch geometry
+    "mst_flash_geometry": (_I, _I, _I, _I, _P),
     # the tools/ experiments (mst_tpu_torch/tools/), queue B rows 17-21:
     # qkv, out, p_out|NULL, N, S, E, num_heads, variant, scale, stream
     "mst_attn_variant": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _P),

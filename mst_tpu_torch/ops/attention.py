@@ -19,18 +19,22 @@ sub-layers are gated off (S = 1 + registers + patches above
   row 14; csrc/flash_bwd.cu): the kernel wrappers. The whole-sequence /
   blocked split of the Pallas kernels at `SINGLE_BLOCK_MAX_KV` = 1536 and
   their `_pad_to` copies are VMEM artifacts: one online-softmax kernel per
-  direction covers every S, masking the ragged edge itself.
+  direction covers every S, the ragged edge read as zeros by TMA and
+  masked. Each kernel is a persistent grid of one block an SM: a producer
+  warpgroup streams 64-row TMA boxes through an 8-stage ring into two
+  wgmma consumer warpgroups of 64 rows of a 128-row unit
+  (csrc/flash_sm90.cuh); `flash_launch` mirrors its geometry.
 - `attention_reference` and `_flash_bwd_dq_ref` / `_flash_bwd_dkv_ref`:
   their plain versions, which round where the kernels round (P to the
   working dtype before P.V, the normalisation on the [S, hd] output, ds
   before dq and dk) and keep f64 when given f64 (the oracle).
 
-A CUDA tensor launches the kernel (bf16, head dim 64: every ViT size) and
-counts the launch; a CPU tensor takes the plain version. There is no third
-path, and no fallback from one to the other. The LSE is base 2 in the
-scaled units of the softmax (`m + log2(l)` of s = q.k * sm_scale *
-log2(e)), as `mhsa` keeps it; JAX's natural-log rows are this / log2(e),
-and only the port's own backward reads them. The JAX bias /
+A CUDA tensor launches the kernel (bf16, head dim 64: every ViT size,
+sm_scale > 0) and counts the launch; a CPU tensor takes the plain version.
+There is no third path, and no fallback from one to the other. The LSE is
+base 2 in the scaled units of the softmax (`m + log2(l)` of s = q.k *
+sm_scale * log2(e)), as `mhsa` keeps it; JAX's natural-log rows are this /
+log2(e), and only the port's own backward reads them. The JAX bias /
 `return_weights` form of `attention_reference` serves saliency above 512
 tokens, which is ROADMAP queue A #16.
 """
@@ -165,14 +169,52 @@ def _view(t, name, shape, like):
     return st[:3]
 
 
-def _shape(q):
+def _shape(q, sm_scale):
     b, h, s, d = q.shape
     if d != HEAD_DIM:
         raise ValueError(f"the flash kernels take head dim {HEAD_DIM}, got "
                          f"{d}")
-    if b * h * (-(-s // 64)) >= 2**31 or b * h * s >= 2**31:
+    if b * h * (-(-s // FLASH_ROWS)) >= 2**31 or b * h * s >= 2**31:
         raise ValueError(f"flash attention grid too large: {tuple(q.shape)}")
+    if not 0.0 < sm_scale < math.inf:
+        raise ValueError(f"the flash kernels take a finite sm_scale > 0 "
+                         f"(the row max is taken before the scale); got "
+                         f"{sm_scale}")
     return b, h, s
+
+
+# The launch geometry of the three kernels (csrc/flash_sm90.cuh): units of
+# FLASH_ROWS rows of one (slice, head), FLASH_BOX-row TMA boxes, a ring of
+# FLASH_STAGES stages, FLASH_THREADS threads (a producer warpgroup and two
+# consumers) and one block an SM.
+FLASH_ROWS, FLASH_BOX, FLASH_STAGES, FLASH_THREADS = 128, 64, 8, 384
+_FLASH_BOX_BYTES = FLASH_BOX * HEAD_DIM * 2
+FLASH_PARTS = ("fwd", "dq", "dkv")
+
+
+def flash_launch(b: int, h: int, s: int, part: str,
+                 sms: int) -> SimpleNamespace:
+    """The launch geometry of `flash_fwd` ("fwd"), `flash_bwd_dq` ("dq") or
+    `flash_bwd_dkv` ("dkv") over [b, h, s, 64] on a card of `sms` SMs, as
+    `mst_flash_geometry` exports it: rows of a unit and of a box, query (or
+    key) tiles, boxes, units (tile fastest, then head, then slice), the
+    persistent grid, threads, stages and dynamic shared memory (1 KB of
+    alignment; two unit buffers of 2 boxes (Q) or 4 (Q, dO; K, V); the ring
+    of two boxes a stage; for dk/dv the stages' f32 LSE and delta rows; 12
+    barriers)."""
+    if part not in FLASH_PARTS or min(b, h, s) < 1:
+        raise ValueError(f"flash_launch({b}, {h}, {s}, {part!r})")
+    tiles = -(-s // FLASH_ROWS)
+    units = tiles * h * b
+    unit_boxes = 2 if part == "fwd" else 4
+    smem = (1024 + 2 * unit_boxes * _FLASH_BOX_BYTES
+            + FLASH_STAGES * 2 * _FLASH_BOX_BYTES
+            + (FLASH_STAGES * 2 * FLASH_BOX * 4 if part == "dkv" else 0)
+            + (4 + 2 * FLASH_STAGES) * 8)
+    return SimpleNamespace(rows=FLASH_ROWS, box=FLASH_BOX, tiles=tiles,
+                           boxes=-(-s // FLASH_BOX), units=units,
+                           grid=min(units, sms), threads=FLASH_THREADS,
+                           stages=FLASH_STAGES, smem=smem)
 
 
 def _lse(t, name, b, h, s, like):
@@ -197,7 +239,7 @@ def flash_fwd(q, k, v, sm_scale=None, want_lse: bool = False):
     `want_lse` also the base-2 LSE [B, H, S] f32."""
     if not _on_cuda(q):
         return attention_reference(q, k, v, sm_scale, want_lse)
-    b, h, s = _shape(q)
+    b, h, s = _shape(q, _scale(q, sm_scale))
     strides = [_view(t, n, q.shape, q) for t, n in ((q, "q"), (k, "k"),
                                                     (v, "v"))]
     o = _like_out(q)
@@ -219,7 +261,7 @@ def flash_bwd_dq(q, k, v, o, do, lse, sm_scale=None):
     sm_scale = _scale(q, sm_scale)
     if not _on_cuda(q):
         return _flash_bwd_dq_ref(q, k, v, o, do, lse, sm_scale)
-    b, h, s = _shape(q)
+    b, h, s = _shape(q, sm_scale)
     strides = [_view(t, n, q.shape, q) for t, n in (
         (q, "q"), (k, "k"), (v, "v"), (o, "o"), (do, "do"))]
     _lse(lse, "lse", b, h, s, q)
@@ -240,7 +282,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, sm_scale=None):
     sm_scale = _scale(q, sm_scale)
     if not _on_cuda(q):
         return _flash_bwd_dkv_ref(q, k, v, do, lse, delta, sm_scale)
-    b, h, s = _shape(q)
+    b, h, s = _shape(q, sm_scale)
     strides = [_view(t, n, q.shape, q) for t, n in (
         (q, "q"), (k, "k"), (v, "v"), (do, "do"))]
     _lse(lse, "lse", b, h, s, q)

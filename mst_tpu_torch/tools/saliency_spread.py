@@ -2,14 +2,19 @@
 over several seeded weight draws: ViT-S/14 in bf16 and in W8A8 int8 with
 per-token (dynamic) and calibrated (static) scales.
 
-`chip_smoke.py` phase 32 holds the int8 kernel path's saliency to the plain
-int8 path's within 0.05 of its largest value (`SAL_REL`, the bf16 limit)
-on one seeded draw. The distance comes from bf16 roundings that a change
-of summation order flips, which static int8 codes then move by whole
-steps through 11 blocks; so it is a spread over draws, not a bias of one
-kernel. This reads it on `--draws` draws (LayerScale 1 + 0.1 N(0, 1), as
-phase 4), each static copy calibrated on 8 volumes of the generator of the
-8 volumes read, in the `last` and `rollout` plane modes.
+`chip_smoke.py` phase 32 held the int8 kernel path's saliency to the plain
+int8 path's within 0.05 of its largest value (the bf16 limit) until that
+limit proved to lie inside the spread: the distance comes from bf16
+roundings that a change of summation order flips, which static int8 codes
+then move by whole steps through 11 blocks; so it is a spread over draws,
+not a bias of one kernel. Phase 32 now holds the kernel path against the
+oracle, the plain int8 path in f64: its distance from it at most 1.5 times
+the bf16 plain int8 path's (`SAL_I8_RATIO`). This reads both rules on
+`--draws` draws (LayerScale 1 + 0.1 N(0, 1), as phase 4), each static copy
+calibrated on 8 volumes of the generator of the 8 volumes read, in the
+`last` and `rollout` plane modes: the kernel-vs-plain distance, and for
+the int8 paths the ratio of the kernel path's and the plain path's
+distances from the oracle.
 
     python mst_tpu_torch/tools/saliency_spread.py [--root CHECKOUT]
         [--draws 6] [--json OUT]
@@ -34,6 +39,7 @@ import torch
 
 BATCH, DEPTH, PX = 8, 32, 224
 MODES = ("last", "rollout")
+RATIO = 1.5  # chip_smoke.SAL_I8_RATIO
 
 
 def parse_args(argv=None):
@@ -101,11 +107,15 @@ def main(argv=None) -> list:
              "fused_attention_sublayer_i8": fq._attn_i8_ref,
              "fused_mlp_sublayer_i8": fq._mlp_i8_ref}
 
-    def saliency(mdl, vols, mode):
+    def saliency(mdl, vols, mode, dtype=None):
         with torch.inference_mode():
-            out = fused_mst_saliency(mdl, vols, None, plane_mode=mode)[1]
+            out = fused_mst_saliency(mdl, vols, None, dtype=dtype,
+                                     plane_mode=mode)[1]
         torch.cuda.synchronize()
         return out
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
 
     npz_dir = Path(__file__).resolve().parents[2] / "build"  # gitignored
     npz_dir.mkdir(parents=True, exist_ok=True)
@@ -132,8 +142,11 @@ def main(argv=None) -> list:
                 k = saliency(mdl, vols, mode)
                 with routed(layers, plain):
                     p = saliency(mdl, vols, mode)
-                row[f"{label}/{mode}"] = ((k - p).abs().max()
-                                          / p.abs().max()).item()
+                    o = (saliency(mdl, vols, mode, torch.float64)
+                         if label != "bf16" else None)
+                row[f"{label}/{mode}"] = rel(k, p)
+                if o is not None:  # the oracle rule's ratio
+                    row[f"{label}/{mode} ratio"] = rel(k, o) / rel(p, o)
         readings.append(row)
         npz.unlink()
         print(f"{tag} {root.name} draw {draw}: saliency vs plain, relative "
@@ -141,8 +154,9 @@ def main(argv=None) -> list:
               + ", ".join(f"{k} {v:.4g}" for k, v in row.items()))
     for key in readings[0]:
         vals = [r[key] for r in readings]
+        lim = RATIO if key.endswith("ratio") else 0.05
         print(f"{tag} {root.name} {key}: {min(vals):.4g}-{max(vals):.4g} over "
-              f"{len(vals)} draws, {sum(v > 0.05 for v in vals)} above 0.05")
+              f"{len(vals)} draws, {sum(v > lim for v in vals)} above {lim}")
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(readings))
