@@ -10,24 +10,28 @@ limit:
 
 1. device: the card, `nvidia-smi` name and power limit, TF32 off;
 2. build: `nvcc` builds `mst_tpu_torch/csrc/*.cu` (timed); `-Xptxas -v`
-   for the kernels of `ln_gemm.cu`, `gemm_dgrad.cu`, `gemm_wgrad.cu`,
-   `gemm_residual.cu`, `mhsa.cu`, `mhsa_bwd.cu`, `flash_fwd.cu` and
-   `flash_bwd.cu` (registers, no spills, no "wgmma serialized" line; a
-   source compiled on its own for the log where the library was built
-   before the run), their wgmma / TMA instructions in the SASS
-   (`cuobjdump`: HGMMA, UTMALDG; no WMMA / mma.sync HMMA left in
-   `gemm_dgrad` / `gemm_wgrad` / `gemm_residual` / `gemm_dls` / `mhsa_bwd`
-   / the flash kernels, HMMA in `mhsa` only in its one-pass instances'
-   mma.sync P.V), `fused_block.ln_gemm_launch`, `gemm_dgrad_launch`,
-   `gemm_wgrad_launch`, `gemm_residual_launch`, `mhsa_launch` and
+   for the kernels of `ln_gemm.cu`, `gemm_dgrad.cu` (with `ln_pullback`),
+   `ln_gemm_i8.cu`, `gemm_wgrad.cu`, `gemm_residual.cu`, `mhsa.cu`,
+   `mhsa_bwd.cu`, `flash_fwd.cu` and `flash_bwd.cu` (registers, no
+   spills, no "wgmma serialized" line; a source compiled on its own for
+   the log where the library was built before the run), their wgmma / TMA
+   instructions in the SASS (`cuobjdump`: HGMMA, UTMALDG; no WMMA /
+   mma.sync HMMA left in `gemm_dgrad` / `gemm_wgrad` / `gemm_residual` /
+   `gemm_dls` / `mhsa_bwd` / the flash kernels, HMMA in `mhsa` only in its
+   one-pass instances' mma.sync P.V; the int8 GEMM of `ln_gemm_i8` on the
+   int8 wgmma, IGMMA with UTMALDG and no IMMA), `fused_block.ln_gemm_launch`,
+   `gemm_dgrad_launch`, `gemm_wgrad_launch`, `gemm_residual_launch`,
+   `ln_pullback_launch`, `fused_int8.ln_gemm_i8_launch`, `mhsa_launch` and
    `attention.flash_launch` against the kernels' own launch geometry
    (`mst_gemm_geometry`, `mst_dgrad_geometry`, `mst_wgrad_geometry`,
-   `mst_residual_geometry`, `mst_mhsa_geometry`, `mst_mhsa_bwd_geometry`,
+   `mst_residual_geometry`, `mst_ln_pullback_geometry`,
+   `mst_gemm_i8_geometry`, `mst_mhsa_geometry`, `mst_mhsa_bwd_geometry`,
    `mst_flash_geometry`),
-   and the layout probes of `gemm_wgrad.cu`: a bare
+   and the layout probes of `gemm_wgrad.cu` and `ln_gemm_i8.cu`: a bare
    product with B K-major (dgrad's) and with A MN-major (wgrad's) against
-   `torch.matmul`, each beside a planted instance with its leading and
-   stride byte offsets swapped that must fail;
+   `torch.matmul`, and an int8 one with both operands K-major against the
+   exact integer product, each beside a planted instance with its leading
+   and stride byte offsets swapped that must fail;
 3. kernels: each hand-written kernel and each fused sub-layer against its
    plain PyTorch version at the ViT-S path shapes ([256, 257, 384] bf16,
    6 heads, O(1) LayerScale, tanh and erf GELU);
@@ -163,7 +167,8 @@ and `predict --int8 [--int8_calib N]`):
 
 31. int8 kernels: `ln_gemm_i8` in each epilogue mode (bf16 qkv, f32 GELU,
    static int8 GELU; the gated `ln_gemm_i8_swiglu` in f32 and int8),
-   dynamic and static, `quant_rows` on the bf16 attention output and the
+   dynamic and static, its LN half `ln_quant_rows` (codes and row scales),
+   `quant_rows` on the bf16 attention output and the
    f32 hidden, `gemm_i8_residual` with and without LayerScale, and the int8
    attention sub-layer in its plain, CLS-row, rollout-carry (two chained
    blocks), Abnar and RoPE forms, the int8 MLP and SwiGLU sub-layers, at
@@ -319,6 +324,24 @@ TFLOP/s of the function's work (the backward's five products; the pair's
 seven executed products beside) (`flash_times`, which reads only
 `attention`, so it times another tree's kernels as well). The kernels
 line's flash times are phase 44's.
+
+Phase 45 holds the redesigned `ln_pullback` (one pass over the rows, a
+lane owning the same columns of every row, then one fixed-order pass over
+the blocks' column sums) and `ln_gemm_i8` / `ln_gemm_i8_swiglu`
+(`ln_quant_rows`, then the int8 TMA + wgmma GEMM on the K-major `q8t`)
+the same way: the pullback at K = 384, 768, 1024, 1536 on the path rows
+(65,792; DINOv3's 51,456 at 384; giant2's B=2 16,448 at 1536) and ragged
+ones (771, 1) within phase 7's limits; every int8 first product, dynamic
+and static (the identity codes of the qkv too), at ViT-S and giant2
+widths within phase 31's, its GEMM also alone on the kernel's own codes;
+each first in a fresh host thread, then again for the same bits; planted
+faults (a neighbour row's rstd, the rows of one partial block dropped, a
+neighbour row's scale, the h1 / h2 panels swapped) that must break their
+limits; then the times at the path shapes, interleaved with the library
+calls for the same work (`native_layer_norm_backward`; LN, quantization,
+`torch._int_mm` and dequantization in torch ops), beside the replaced
+kernels' times (`OLD_PB_MS`, `OLD_I8_MS`). The kernels line's times of
+both are phase 45's (phases 26, 33 and 41 no longer time them).
 
 Each phase prints its wall time. The line before the last is `{"kernels":
 [...]}`: per kernel its launches on the main path, its largest error, its
@@ -525,6 +548,8 @@ RES_GEMMS = ("gemm_residual", "gemm_dls")
 # Phase 43 times every form of `mhsa` / `mhsa_bwd` (names that start so);
 # the earlier phases check them but leave their times to it.
 ATTN = ("mhsa",)
+# Phase 45 times `ln_pullback` at every width (phases 26 and 41 check it).
+PULLBACK = ("ln_pullback",)
 WMMA_RES_MS = {"gemm_residual[proj,ls]": 0.1933, "gemm_dls[proj]": 0.2171,
     "gemm_residual[fc2,ls]": 0.5839, "gemm_dls[fc2]": 0.6227,
     "gemm_residual[proj,E=768,ls]": 0.6316, "gemm_dls[proj,E=768]": 0.6704,
@@ -621,13 +646,17 @@ def heads_of(qkv, n, s, heads=HEADS):
 
 def check_launches(got: dict, want: dict, what: str) -> None:
     """Hold launch counts `got` to `want` with the `ln_rows` launches that
-    `want` implies: one per `ln_gemm` / `ln_gemm_swiglu` call, their LN
-    half. A `want` that lists only the kernels it launches (phases 38-39)
-    gains the key only where it is not 0."""
+    `want` implies, one per `ln_gemm` / `ln_gemm_swiglu` call (their LN
+    half), and the `ln_quant_rows` launches, one per `ln_gemm_i8` /
+    `ln_gemm_i8_swiglu` call. A `want` that lists only the kernels it
+    launches (phases 38-39) gains a key only where it is not 0."""
     n = sum(want.get(k, 0) for k in ("ln_gemm", "ln_gemm_swiglu",
                                      "ln_gemm_swiglu_train"))
     if n or "ln_rows" in want:
         want = {**want, "ln_rows": n}
+    n8 = sum(want.get(k, 0) for k in ("ln_gemm_i8", "ln_gemm_i8_swiglu"))
+    if n8 or "ln_quant_rows" in want:
+        want = {**want, "ln_quant_rows": n8}
     check(got == want, f"{what}: launches {got} != {want}")
 
 
@@ -992,16 +1021,24 @@ def int8_cases(dev, rng, fb, fq, layers):
                              fc28.a_inv)
     first = (fq.ln_gemm_i8, fq._ln_gemm_i8_ref)
     add("ln_gemm_i8[qkv]", *first, x2, ln_s, ln_b, qkv.q8, qkv.scale,
-        qkv.bias, fb.ACT_NONE, eps)
+        qkv.bias, fb.ACT_NONE, eps, q8t=qkv.q8t)
     add("ln_gemm_i8[qkv,static]", *first, x2, ln_s8, ln_b8, qkv8.q8,
-        qkv8.scale, qkv8.bias, fb.ACT_NONE, eps, True)
+        qkv8.scale, qkv8.bias, fb.ACT_NONE, eps, True, q8t=qkv8.q8t)
     for act, code in (("gelu_tanh", fb.ACT_GELU_TANH),
                       ("gelu_erf", fb.ACT_GELU_ERF)):
         add(f"ln_gemm_i8[fc1,{act}]", *first, x2, ln_s, ln_b, fc1.q8,
-            fc1.scale, fc1.bias, code, eps)
+            fc1.scale, fc1.bias, code, eps, q8t=fc1.q8t)
     add("ln_gemm_i8[fc1,gelu_tanh,static]", *first, x2, ln_s8, ln_b8,
         fc18.q8, fc18.scale, fc18.bias, fb.ACT_GELU_TANH, eps, True,
-        fc28.a_inv)
+        fc28.a_inv, q8t=fc18.q8t)
+    # the LN half of `ln_gemm_i8` alone: its codes (and row scales)
+    def codes(fn):
+        return lambda *a: fn(*a)[0]
+
+    add("ln_quant_rows[E=384]", fq.ln_quant_rows, fq._quantize_ln, x2, ln_s,
+        ln_b, eps)
+    add("ln_quant_rows[E=384,static]", codes(fq.ln_quant_rows),
+        codes(fq._quantize_ln), x2, ln_s8, ln_b8, eps, True)
     quant = (fq.quant_rows, fq._quant_rows_ref)
     add("quant_rows[o]", *quant, o)
     add("quant_rows[o,static]", *quant, o8, True)
@@ -1111,11 +1148,13 @@ def int8_cases(dev, rng, fb, fq, layers):
     w128, w38 = folded(w12, a_g), folded(w3, b_g, 1.0 / b_g)
     gq8 = fq._ln_gemm_i8_swiglu_ref(xg2, lng_s8, lng_b8, w128.q8, w128.scale,
                                     w128.bias, eps, True, w38.a_inv)
+    add("ln_quant_rows[E=1536]", fq.ln_quant_rows, fq._quantize_ln, xg2,
+        lng_s, lng_b, eps)
     gated = (fq.ln_gemm_i8_swiglu, fq._ln_gemm_i8_swiglu_ref)
     add("ln_gemm_i8_swiglu[w12]", *gated, xg2, lng_s, lng_b, w12.q8,
-        w12.scale, w12.bias, eps)
+        w12.scale, w12.bias, eps, q8t=w12.q8t)
     add("ln_gemm_i8_swiglu[w12,static]", *gated, xg2, lng_s8, lng_b8,
-        w128.q8, w128.scale, w128.bias, eps, True, w38.a_inv)
+        w128.q8, w128.scale, w128.bias, eps, True, w38.a_inv, q8t=w128.q8t)
     add("quant_rows[g]", *quant, g)
     add("gemm_i8_residual[w3,ls]", *second, gq, gs, w3.q8, w3.scale, w3.bias,
         lsg, xg2)
@@ -1540,7 +1579,8 @@ def tools_phases(tag, dev):
     with torch.inference_mode():
         planted = fq.ln_gemm_i8(x2, p19.ln_s, p19.ln_b, p19.qkv.q8,
                                 p19.qkv.scale, p19.qkv.bias, fb.ACT_NONE,
-                                bi.EPS, static=True, a_inv=1.01 * p19.one)
+                                bi.EPS, static=True, a_inv=1.01 * p19.one,
+                                q8t=p19.qkv.q8t)
         _, top, frac = code_diff(planted, bi._ln_i8(x2, p19, p19.qkv, True))
     print(f"{tag} planted fault: ln_gemm_i8 qkv codes with a unit scale of "
           f"1.01: codes differing {frac:.4g} (limit {QKV_CODE_FRAC}), by up "
@@ -1834,12 +1874,17 @@ def row20_yardsticks(tag, dev, n, s, e, h, depth, eps) -> None:
 # The kernels of the wgmma sources, and their entries in `-Xptxas -v`:
 # source -> {kernel: instances}. Their SASS must hold wgmma and TMA loads;
 # those of `gemm_dgrad`, `gemm_wgrad`, `gemm_residual`, `gemm_dls`,
-# `mhsa_bwd` and the flash kernels no WMMA / mma.sync HMMA either. ptxas
-# must not serialize their wgmma ("wgmma.mma_async instructions are
-# serialized": a `Potential Performance Loss` line of `-Xptxas -v`).
+# `mhsa_bwd` and the flash kernels no WMMA / mma.sync HMMA either; the int8
+# GEMM of `ln_gemm_i8.cu` (SASS_I8) the int8 wgmma (IGMMA) and no IMMA
+# (int8 WMMA / mma.sync) or HGMMA. ptxas must not serialize their wgmma
+# ("wgmma.mma_async instructions are serialized": a `Potential Performance
+# Loss` line of `-Xptxas -v`).
 PTXAS_ENTRIES = {
     "ln_gemm.cu": {"gemm_ln_kernel": 4, "ln_rows_kernel": 5},
-    "gemm_dgrad.cu": {"gemm_dgrad_kernel": 4, "ln_pullback_kernel": 1},
+    "gemm_dgrad.cu": {"gemm_dgrad_kernel": 4, "ln_pullback_kernel": 6,
+                      "ln_pullback_sum_kernel": 1},
+    "ln_gemm_i8.cu": {"gemm_i8_kernel": 5, "probe_i8_kernel": 2,
+                      "ln_quant_rows_kernel": 5},
     "gemm_wgrad.cu": {"gemm_wgrad_kernel": 1, "probe_kernel": 4},
     "gemm_residual.cu": {"gemm_residual_kernel": 4, "gemm_dls_kernel": 1},
     "mhsa.cu": {"mhsa_kernel": 20},
@@ -1853,6 +1898,7 @@ SASS_GEMMS = {"gemm_ln_kernel": 4, "gemm_dgrad_kernel": 4,
               "mhsa_kernel": 20, "mhsa_bwd_dq_kernel": 2,
               "mhsa_bwd_dkv_kernel": 2, "flash_fwd_kernel": 1,
               "flash_bwd_dq_kernel": 1, "flash_bwd_dkv_kernel": 1}
+SASS_I8 = {"gemm_i8_kernel": 5, "probe_i8_kernel": 2}
 # mhsa's one-pass instances (template flag TWO false) run P.V by mma.sync
 # (HMMA: 17 k steps x 8 n tiles a warp at S = 257); every other instance
 # of these kernels has no HMMA.
@@ -1867,8 +1913,10 @@ def check_machine_code(tag, build_log, build_mod, lib_path) -> None:
     UTMALDG) counted in their SASS (`cuobjdump -sass`). No spills, both
     instructions present, and no HMMA (WMMA / mma.sync) in the backward
     GEMMs, `gemm_residual` / `gemm_dls` and `mhsa_bwd`; in `mhsa` HMMA
-    exactly in the one-pass instances (their P.V); no "wgmma ...
-    serialized" line for any kernel of these sources."""
+    exactly in the one-pass instances (their P.V); in the int8 GEMM and
+    its probe the int8 wgmma (IGMMA, its opcodes printed) with UTMALDG and
+    no IMMA, HMMA or HGMMA; no "wgmma ... serialized" line for any kernel
+    of these sources."""
     entry = r"Compiling entry function '([^']+)'(.*?)(?=Compiling entry function|\Z)"
     for src, want in PTXAS_ENTRIES.items():
         def mine(log):
@@ -1931,6 +1979,25 @@ def check_machine_code(tag, build_log, build_mod, lib_path) -> None:
                 check(hmma == 0 or k == "gemm_ln_kernel",
                       f"{fn}: {hmma} HMMA (WMMA / mma.sync) instructions left")
         check(len(fns) == SASS_GEMMS[k], f"{k} instances in SASS: {len(fns)}")
+    i8 = {k: {} for k in SASS_I8}
+    for fn, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)",
+                               sass, re.S):
+        for k in SASS_I8:
+            if k in fn:
+                i8[k][fn] = body
+    for k, fns in i8.items():
+        for fn, body in fns.items():
+            short = re.search(r"%s(?:I\w*?E)?(?=E)" % k, fn)
+            n = {op: body.count(op) for op in ("IGMMA", "UTMALDG", "IMMA",
+                                               "HMMA", "HGMMA")}
+            ops = sorted(set(re.findall(r"\bIGMMA[.\w]*", body)))
+            print(f"{tag} SASS {short.group(0) if short else fn}: "
+                  + ", ".join(f"{v} {op}" for op, v in n.items())
+                  + f"; opcodes {ops}")
+            check(n["IGMMA"] > 0 and n["UTMALDG"] > 0
+                  and n["IMMA"] == n["HMMA"] == n["HGMMA"] == 0,
+                  f"{fn}: not the int8 wgmma on TMA loads ({n})")
+        check(len(fns) == SASS_I8[k], f"{k} instances in SASS: {len(fns)}")
 
 
 def check_gemm_geometry(tag, fb, lib) -> None:
@@ -2011,6 +2078,47 @@ def check_gemm_geometry(tag, fb, lib) -> None:
           f"1536), E = {LN_GEMM_WIDTHS}, M = {RES_M} on {sms} SMs (giant2 "
           f"w3: {w3.tiles} tiles on {w3.grid} CTAs, {w3.work_rows} rows of "
           f"dls partials)")
+    # the int8 GEMM: qkv and fc1 at every width, giant2's w12 (gated)
+    from mst_tpu_torch.ops import fused_int8 as fq
+
+    for m in (*BWD_M, 1):
+        for e in LN_GEMM_WIDTHS:
+            for n, gated in ((3 * e, False), (4 * e, False), (f_, True)):
+                geo = (ctypes.c_int * 8)()
+                err = lib.mst_gemm_i8_geometry(m, e, n, int(gated), geo)
+                check(err == 0, f"mst_gemm_i8_geometry({m}, {e}, {n}): {err}")
+                mine = fq.ln_gemm_i8_launch(m, e, n, gated, sms)
+                want = (mine.tiles, mine.grid, mine.threads, mine.stages,
+                        mine.smem, mine.k_tiles, mine.second_box,
+                        mine.quant_blocks)
+                check(tuple(geo) == want, f"mst_gemm_i8_geometry at M={m}, "
+                      f"{e} -> {n} (gated {gated}): kernel {tuple(geo)}, "
+                      f"mirror {want}")
+    w12 = fq.ln_gemm_i8_launch(m_path, 1536, f_, True, sms)
+    print(f"{tag} GEMM geometry: ln_gemm_i8_launch equals the int8 GEMM's "
+          f"mst_gemm_i8_geometry at K = {LN_GEMM_WIDTHS}, N = 3K, 4K and "
+          f"gated F = {f_}, M = {BWD_M} and 1 on {sms} SMs (giant2 w12: "
+          f"{w12.tiles} tiles on {w12.grid} CTAs, {w12.k_tiles} k tiles of "
+          f"128, the h2 box at W^T row {w12.second_box})")
+    # the LN pullback at every width it takes
+    for m in (*BWD_M, 1):
+        for k in range(32, fb.LN_PULLBACK_MAX_K + 1, 32):
+            geo = (ctypes.c_longlong * 8)()
+            err = lib.mst_ln_pullback_geometry(m, k, geo)
+            check(err == 0, f"mst_ln_pullback_geometry({m}, {k}): {err}")
+            mine = fb.ln_pullback_launch(m, k, sms)
+            want = (mine.grid, mine.threads, mine.warps_a_row, mine.chunks,
+                    mine.smem, mine.workspace, mine.sum_blocks,
+                    mine.sum_threads)
+            check(tuple(geo) == want, f"mst_ln_pullback_geometry at M={m}, "
+                  f"K={k}: kernel {tuple(geo)}, mirror {want}")
+    pb = fb.ln_pullback_launch(m_path, 1536, sms)
+    print(f"{tag} LN pullback geometry: ln_pullback_launch equals the "
+          f"kernel's mst_ln_pullback_geometry at every K % 32 == 0 up to "
+          f"{fb.LN_PULLBACK_MAX_K}, M = {BWD_M} and 1 on {sms} SMs (K = "
+          f"1536: {pb.grid} blocks, {pb.warps_a_row} warps a row, "
+          f"{pb.workspace} bytes of partials, {pb.sum_blocks} second-pass "
+          f"blocks)")
 
 
 def check_layout_probes(tag, dev, lib) -> dict:
@@ -2061,6 +2169,32 @@ def check_layout_probes(tag, dev, lib) -> dict:
                 check(err <= lim and bool(torch.isfinite(c).all()),
                       f"{name}: max_abs_err {err} > {lim}")
                 errs[name] = err
+    # the int8 layout (ln_gemm_i8's: both operands K-major, the B boxes 64
+    # rows each) against the exact integer product: equal, and the planted
+    # swapped LBO / SBO far from it
+    for m, n, k in ((N_SLICES * S, 1536, 384), (771, 8192, 1536)):
+        a = torch.randint(-127, 128, (m, k), generator=gen,
+                          dtype=torch.int8).to(dev)
+        b = torch.randint(-127, 128, (n, k), generator=gen,
+                          dtype=torch.int8).to(dev)
+        want = a.double() @ b.double().t()
+        name = f"probe[int8 K-major pair,{m}x{n}x{k}]"
+        for swap in (0, 1):
+            c = torch.empty(m, n, dtype=torch.int32, device=dev)
+            rc = lib.mst_gemm_i8_probe(a.data_ptr(), b.data_ptr(),
+                                       c.data_ptr(), m, n, k, swap, stream)
+            check(rc == 0, f"{name}: launch failed ({rc})")
+            torch.cuda.synchronize()
+            err = (c.double() - want).abs().max().item()
+            if swap:
+                print(f"{tag} planted fault: {name} with LBO and SBO swapped: "
+                      f"max_abs_err={err:.6g}; must not be 0")
+                check(err > 0, f"{name}: the swapped descriptors pass")
+            else:
+                print(f"{tag} {name}: max_abs_err={err:.6g} (exact: 0)")
+                check(err == 0, f"{name}: max_abs_err {err}")
+                errs[name] = err
+        del a, b, c, want
     return errs
 
 
@@ -2490,35 +2624,22 @@ def bwd_gemm_phase(tag, dev, fb):
                                       else "not recorded"))
             timing.clear()
             torch.cuda.empty_cache()
-    # `ln_pullback` alone at ViT-S's width, now on its path (PR 10's
-    # readings at 768 / 1024 / 1536 are phase 26's)
+    # `ln_pullback` alone at ViT-S's width, on its path (768 / 1024 / 1536:
+    # phase 26; its times at every width: phase 45)
     e = 384
     x, g = rand(m_path, e), rand(m_path, e)
     dh = rand(m_path, e, dtype=f32)
     lns = rand(e, scale=0.1, off=1.0, dtype=f32)
-    xf = x.float()
-    _, mean, rstd = torch.ops.aten.native_layer_norm(xf, (e,), lns, None, eps)
-    zero = torch.zeros_like(lns)
     name = "ln_pullback[E=384]"
-    errs[name] = check_outputs(
-        tag, f"bwd {name}", fb.ln_pullback(dh, x, g, lns, eps),
-        fb._ln_pullback_ref(dh, x, g, lns, eps), KERNEL_GRAD_REL)
-    with ClockSampler() as clocks, torch.inference_mode():
-        t = time_interleaved({
-            "kernel": lambda: fb.ln_pullback(dh, x, g, lns, eps),
-            "library": lambda: torch.ops.aten.native_layer_norm_backward(
-                dh, xf, (e,), mean, rstd, lns, zero, [True, True, True])},
-            clocks)
-        pm_ = time_ms(lambda: fb._ln_pullback_ref(dh, x, g, lns, eps))
-    cost[name] = (10 * m_path * e, 4 * m_path * e + 3 * 2 * m_path * e
-                  + 4 * 3 * e)
-    timed[name], lib_ms[name] = (t["kernel"].ms, pm_), t["library"].ms
-    b_ms, b_by = bound([cost[name]])
-    print(f"{tag} time {name}: kernel {t['kernel'].ms:.4f} ms, library "
-          f"(native_layer_norm_backward) {t['library'].ms:.4f} ms (kernel / "
-          f"library {t['kernel'].ms / t['library'].ms:.3f}), plain "
-          f"{pm_:.4f} ms, bound {b_ms:.4f} ms by {b_by}")
-    del x, g, dh, xf
+    with torch.inference_mode():
+        k1, pl, k2 = (fb.ln_pullback(dh, x, g, lns, eps),
+                      fb._ln_pullback_ref(dh, x, g, lns, eps),
+                      fb.ln_pullback(dh, x, g, lns, eps))
+    errs[name] = check_outputs(tag, f"bwd {name}", k1, pl, KERNEL_GRAD_REL)
+    same = all(torch.equal(a, b) for a, b in zip(k1, k2))
+    print(f"{tag} bwd {name}: two runs equal bit for bit: {same}")
+    check(same, f"{name}: two runs differ")
+    del x, g, dh, k1, k2, pl
     torch.cuda.empty_cache()
     return errs, timed, cost, lib_ms
 
@@ -3449,6 +3570,395 @@ def flash_times(tag, dev, fa):
                   + (f"{mma} ms ({mma / km:.2f}x)" if mma else "not recorded"))
         del forms, q, k, v, o, lse, do, delta, leaves, out, sdpa_bwd
         torch.cuda.empty_cache()
+    return timed, cost, lib_ms
+
+
+# -- phase 45: `ln_pullback` and `ln_gemm_i8` redesigned --------------------
+
+# The kernels they replace, timed at the path shapes by this script on an
+# H100 80GB HBM3 at 700 W before the redesign (PERF.md §6): the earlier
+# `ln_pullback` (a row-block kernel and two `sum_partials` passes) and the
+# one-kernel `ln_gemm_i8` (LN + quantization in every column block, int8
+# WMMA), printed beside the new times.
+OLD_PB_MS = {"ln_pullback[E=384]": 0.3308, "ln_pullback[E=768]": 0.5331,
+             "ln_pullback[E=1024]": 0.6883, "ln_pullback[E=1536]": 0.9359}
+OLD_I8_MS = {"ln_gemm_i8[qkv]": 1.2149, "ln_gemm_i8[qkv,static]": 1.0015,
+             "ln_gemm_i8[fc1,gelu_tanh]": 1.5015,
+             "ln_gemm_i8[fc1,gelu_tanh,static]": 1.3104,
+             "ln_gemm_i8_swiglu[w12]": 28.8196,
+             "ln_gemm_i8_swiglu[w12,static]": 23.1355}
+
+
+def inference(fn):
+    """fn run under torch.inference_mode() (a thread's own setting)."""
+    def run():
+        with torch.inference_mode():
+            return fn()
+    return run
+
+
+def pullback_i8_phase(tag, dev, fb, fq, layers):
+    """Phase 45: `ln_pullback` at K = 384 / 768 / 1024 / 1536 and every
+    `ln_gemm_i8` / `ln_gemm_i8_swiglu` mode, dynamic and static, at the
+    ViT-S and giant2 shapes, against their plain versions under phase 7's
+    and phase 31's limits: each first in a fresh host thread, then again
+    for the same bits; the int8 GEMM also alone against its plain version
+    on the kernel's own codes; four planted faults that must break their
+    limits; then the times at the path shapes beside the library calls and
+    the kernels these replace. Returns (timed, cost, lib_ms) for the
+    kernels line."""
+    stamp(tag, "45")
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED + 45)
+    bf, eps = torch.bfloat16, 1e-6
+    m_path = N_SLICES * S
+    timed, cost, lib_ms = {}, {}, {}
+
+    def rand(*shape, scale=1.0, off=0.0, dtype=torch.float32):
+        return torch.from_numpy((off + scale * rng.standard_normal(shape))
+                                .astype(np.float32)).to(dev, dtype)
+
+    def twice(name, kern):
+        """kern() first in a fresh host thread, then here: the same bits."""
+        k1 = fresh_thread(inference(kern))
+        k2 = inference(kern)()
+        torch.cuda.synchronize()
+        t1, t2 = ((k if isinstance(k, tuple) else (k,)) for k in (k1, k2))
+        same = all(torch.equal(a, b) for a, b in zip(t1, t2)
+                   if a is not None)
+        print(f"{tag} {name}: first in a fresh thread, then again: the same "
+              f"bits {same}")
+        check(same, f"{name}: two runs differ")
+        return k1
+
+    def broken(name, err, lim):
+        print(f"{tag} planted fault: {name}: max_abs_err={err:.6g} against "
+              f"the limit {lim:.6g} ({err / lim:.4g}x); must break it")
+        check(err > lim, f"planted fault {name} passes the limit")
+
+    # -- the LN pullback ----------------------------------------------------
+    print(f"{tag} LN pullback redesign: dx within 2 bf16 ulps of plain, "
+          f"dln_s / dln_b within {KERNEL_GRAD_REL} x |plain|max (phase 7's "
+          f"limits), at K = {LN_GEMM_WIDTHS} on the path rows and ragged ones")
+    pb = {}
+    for k in LN_GEMM_WIDTHS:
+        rows = [m_path, 771, 1] + ([N_SLICES * S3] if k == 384 else []) + (
+            [STEP_B_G * 32 * S] if k == LN_GEMM_WIDTHS[-1] else [])
+        for m in rows:
+            x, g = rand(m, k, dtype=bf), rand(m, k, dtype=bf)
+            dh, lns = rand(m, k), rand(k, scale=0.1, off=1.0)
+            name = f"ln_pullback[E={k},M={m}]"
+            kern = twice(name, lambda: fb.ln_pullback(dh, x, g, lns, eps))
+            with torch.inference_mode():
+                plain = fb._ln_pullback_ref(dh, x, g, lns, eps)
+            check_outputs(tag, name, kern, plain, KERNEL_GRAD_REL)
+            if m == m_path:
+                pb[k] = (x, g, dh, lns, kern)
+            del kern, plain
+    # planted faults at K = 384: each row's rstd from the row before; the
+    # column sums without the rows of the grid's first block
+    x, g, dh, lns, (dx, dlns, _) = pb[384]
+    with torch.inference_mode():
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        rstd = torch.rsqrt(((xf - mean) ** 2).mean(-1, keepdim=True) + eps)
+        xhat = (xf - mean) * rstd
+        dxhat = dh * lns
+        r1 = rstd.roll(1, 0)
+        xh1 = (xf - mean) * r1
+        dx_f = (r1 * (dxhat - dxhat.mean(-1, keepdim=True) - xh1 * (
+            dxhat * xh1).mean(-1, keepdim=True)) + g.float()).to(bf)
+        geo = fb.ln_pullback_launch(m_path, 384,
+                                    torch.cuda.get_device_properties(dev)
+                                    .multi_processor_count)
+        groups = 8 // geo.warps_a_row
+        keep = (torch.arange(m_path, device=dev) % (geo.grid * groups)
+                ) >= groups
+        dlns_f = (dh * xhat)[keep].sum(0)
+    broken("ln_pullback[E=384] dx with each row's rstd from the row before",
+           (dx.float() - dx_f.float()).abs().max().item(),
+           2 * ulp_bf16(dx_f.float().abs().max().item()))
+    broken(f"ln_pullback[E=384] dln_s without the rows of block 0 of "
+           f"{geo.grid}", (dlns - dlns_f).abs().max().item(),
+           KERNEL_GRAD_REL * dlns_f.abs().max().item())
+    del xf, mean, rstd, xhat, dxhat, r1, xh1, dx_f, keep, dlns_f
+    # times at the path shapes, beside the library call for the same work
+    with ClockSampler() as clocks, torch.inference_mode():
+        for k, (x, g, dh, lns, _) in pb.items():
+            name = f"ln_pullback[E={k}]"
+            xf = x.float()
+            _, mean, rstd = torch.ops.aten.native_layer_norm(xf, (k,), lns,
+                                                             None, eps)
+            zero = torch.zeros_like(lns)
+            t = time_interleaved({
+                "kernel": lambda: fb.ln_pullback(dh, x, g, lns, eps),
+                "library": lambda: torch.ops.aten.native_layer_norm_backward(
+                    dh, xf, (k,), mean, rstd, lns, zero, [True, True, True])},
+                clocks)
+            pm_ = time_ms(lambda: fb._ln_pullback_ref(dh, x, g, lns, eps),
+                          n=5, warmup=1)
+            km, lm = t["kernel"].ms, t["library"].ms
+            cost[name] = (10 * m_path * k, 4 * m_path * k
+                          + 3 * 2 * m_path * k + 4 * 3 * k)
+            timed[name], lib_ms[name] = (km, pm_), lm
+            b_ms, b_by = bound([cost[name]])
+            print(f"{tag} time {name} [{m_path}, {k}]: kernel {km:.4f} ms "
+                  f"({cost[name][1] / km / 1e9:.3f} TB/s, {b_ms / km:.3f} of "
+                  f"the bound; rounds {t['kernel'].lo:.4f}-"
+                  f"{t['kernel'].hi:.4f}; {t['kernel'].mhz} MHz, "
+                  f"{t['kernel'].watts} W); library "
+                  f"(native_layer_norm_backward) {lm:.4f} ms (kernel / "
+                  f"library {km / lm:.3f}; {t['library'].mhz} MHz); plain "
+                  f"{pm_:.4f} ms; bound {b_ms:.4f} ms by {b_by}; before "
+                  f"{OLD_PB_MS[name]} ms ({OLD_PB_MS[name] / km:.2f}x)")
+            del xf, mean, rstd
+    del pb, x, g, dh
+    torch.cuda.empty_cache()
+
+    # -- the int8 first products --------------------------------------------
+    def node(k, n):
+        q, sc = fq.quantize_weight_int8(rand(k, n, scale=k ** -0.5))
+        return layers.QDense(q, sc, rand(n, scale=0.1))
+
+    def margin(v):  # the calibration's per-tensor scale
+        return v.float().abs().max().item() * 1.05 / 127.0
+
+    print(f"{tag} int8 first products redesigned (ln_quant_rows + the int8 "
+          f"wgmma GEMM): codes may differ from plain at .5 ties (at most "
+          f"{CODE_FRAC}, by one), bf16 / f32 outputs within 2 bf16 ulps "
+          f"(phase 31's limits); the GEMM alone on the kernel's own codes "
+          f"under the same limits")
+    faults = {}
+    for e, label_e in ((E, ""), (1536, ",E=1536")):
+        x = rand(m_path, e, dtype=bf)
+        ln_s, ln_b = rand(e, scale=0.1, off=1.0), rand(e, scale=0.1)
+        a_in = margin(fb._ln(x, ln_s, ln_b, eps))
+        ln_s8, ln_b8 = ln_s / a_in, ln_b / a_in
+        firsts = [("qkv", node(e, 3 * e), fb.ACT_NONE, False)]
+        if e == E:
+            firsts += [("fc1,gelu_tanh", node(e, 4 * e), fb.ACT_GELU_TANH,
+                        False),
+                       ("fc1,gelu_erf", node(e, 4 * e), fb.ACT_GELU_ERF,
+                        False)]
+        else:
+            firsts += [("w12", node(e, 2 * LN_GEMM_F), None, True)]
+        for label, nd, act, gated in firsts:
+            # the static tree: LN and the dequant scale folded by a_in, the
+            # FFN hidden quantized by a_inv (its calibrated scale)
+            nd8 = layers.QDense(nd.q8, nd.scale * a_in, nd.bias)
+            with torch.inference_mode():
+                hid = (fq._ln_gemm_i8_swiglu_ref(x, ln_s, ln_b, nd.q8,
+                                                 nd.scale, nd.bias, eps)
+                       if gated else None if act == fb.ACT_NONE else
+                       fq._ln_gemm_i8_ref(x, ln_s, ln_b, nd.q8, nd.scale,
+                                          nd.bias, act, eps))
+            a_inv = (None if hid is None else
+                     torch.full((1, 1), 1.0 / margin(hid), device=dev))
+            del hid
+            forms = [(False, ln_s, ln_b, nd, None)]
+            if "gelu_erf" not in label:
+                forms.append((True, ln_s8, ln_b8, nd8, a_inv))
+            if label == "qkv" and e == E:  # the codes of the identity
+                forms.append((True, ln_s8, ln_b8, nd8,
+                              torch.ones((1, 1), device=dev)))
+            for static, ls_, lb_, nd_, ai in forms:
+                # the kernels line's names: giant2's w12 without its width
+                codes_form = ai is not None and act == fb.ACT_NONE
+                name = (f"ln_gemm_i8_swiglu[{label}" if gated else
+                        f"ln_gemm_i8[{label}{label_e}") + (
+                    ",static" if static else "") + (
+                    ",codes]" if codes_form else "]")
+                if gated:
+                    def kern(ls_=ls_, lb_=lb_, nd_=nd_, static=static, ai=ai):
+                        return fq.ln_gemm_i8_swiglu(
+                            x, ls_, lb_, nd_.q8, nd_.scale, nd_.bias, eps,
+                            static, ai, q8t=nd_.q8t)
+
+                    def plain(ls_=ls_, lb_=lb_, nd_=nd_, static=static,
+                              ai=ai):
+                        return fq._ln_gemm_i8_swiglu_ref(
+                            x, ls_, lb_, nd_.q8, nd_.scale, nd_.bias, eps,
+                            static, ai)
+                else:
+                    def kern(ls_=ls_, lb_=lb_, nd_=nd_, static=static, ai=ai):
+                        return fq.ln_gemm_i8(
+                            x, ls_, lb_, nd_.q8, nd_.scale, nd_.bias, act,
+                            eps, static, ai, q8t=nd_.q8t)
+
+                    def plain(ls_=ls_, lb_=lb_, nd_=nd_, static=static,
+                              ai=ai):
+                        return fq._ln_gemm_i8_ref(
+                            x, ls_, lb_, nd_.q8, nd_.scale, nd_.bias, act,
+                            eps, static, ai)
+                out = twice(name, kern)
+                with torch.inference_mode():
+                    hq, hs = fq.ln_quant_rows(x, ls_, lb_, eps, static)
+                    pq, ps = fq._quantize_ln(x, ls_, lb_, eps, static)
+                    check_int8(tag, f"{name} ln_quant_rows", (hq,) if static
+                               else (hq, hs), (pq,) if static else (pq, ps))
+                    sc, bi = nd_.scale.reshape(-1), nd_.bias.reshape(-1)
+                    ainv = None if ai is None else ai.reshape(1)
+                    g_out = torch.empty_like(out)
+                    mode = (fq.OUT_I8 if out.dtype == torch.int8 else
+                            fq.OUT_BF16 if out.dtype == bf else fq.OUT_F32)
+                    fq._gemm_i8(hq, hs, nd_.q8t, sc, bi, ainv, g_out, mode,
+                                act or fb.ACT_NONE, gated)
+                    g_ref = (fq._gemm_i8_swiglu_ref(hq, hs, nd_.q8t, sc, bi,
+                                                    x.dtype, static, ai)
+                             if gated else
+                             fq._gemm_i8_ref(hq, hs, nd_.q8t, sc, bi, act,
+                                             x.dtype, static, ai))
+                    torch.cuda.synchronize()
+                    check_int8(tag, f"{name} GEMM alone on the kernel's "
+                               f"codes", g_out, g_ref)
+                    check_int8(tag, name, out, plain())
+                    if name == "ln_gemm_i8[qkv]":
+                        faults["rows"] = (out, hq, hs, nd_, sc, bi)
+                    if name == "ln_gemm_i8_swiglu[w12]":
+                        faults["panels"] = (out, hq, hs, nd_, sc, bi)
+                del out, hq, hs, pq, ps, g_out, g_ref
+        # planted faults: a neighbour row's scale (qkv); the h1 / h2 panels
+        # of w12 swapped (gated)
+        with torch.inference_mode():
+            if "rows" in faults:
+                out, hq, hs, nd_, sc, bi = faults.pop("rows")
+                f_ = fq._gemm_i8_ref(hq, hs.roll(1, 0), nd_.q8t, sc, bi,
+                                     fb.ACT_NONE, bf)
+                broken("ln_gemm_i8[qkv] with each row's scale from the row "
+                       "before", (out.float() - f_.float()).abs().max().item(),
+                       2 * ulp_bf16(f_.float().abs().max().item()))
+                del out, hq, hs, f_
+            if "panels" in faults:
+                out, hq, hs, nd_, sc, bi = faults.pop("panels")
+                f2 = LN_GEMM_F
+                f_ = fq._gemm_i8_swiglu_ref(
+                    hq, hs, torch.cat([nd_.q8t[f2:], nd_.q8t[:f2]]),
+                    torch.cat([sc[f2:], sc[:f2]]),
+                    torch.cat([bi[f2:], bi[:f2]]), bf)
+                broken("ln_gemm_i8_swiglu[w12] with its h1 and h2 panels "
+                       "swapped", (out - f_).abs().max().item(),
+                       2 * ulp_bf16(f_.abs().max().item()))
+                del out, hq, hs, f_
+        check(not faults, f"planted int8 faults not run: {sorted(faults)}")
+        del x
+        torch.cuda.empty_cache()
+
+    # times at the path shapes (B=8 rows): the wrapper (ln_quant_rows +
+    # GEMM), each kernel alone and the library calls for the same work (LN,
+    # quantization, `torch._int_mm`, dequantization in torch ops; dynamic
+    # forms), in turn
+    print(f"{tag} int8 times: median over {PAIR_ROUNDS} rounds of the mean "
+          f"of {PER_PAIR} calls between two CUDA events, taken in turn; "
+          f"chain = ln_quant_rows + GEMM (the wrapper); before = the "
+          f"one-kernel ln_gemm_i8 (PERF.md §6)")
+    shapes = [("ln_gemm_i8[qkv]", E, 3 * E, fb.ACT_NONE, False, False),
+              ("ln_gemm_i8[qkv,static]", E, 3 * E, fb.ACT_NONE, False, True),
+              ("ln_gemm_i8[fc1,gelu_tanh]", E, 4 * E, fb.ACT_GELU_TANH,
+               False, False),
+              ("ln_gemm_i8[fc1,gelu_tanh,static]", E, 4 * E,
+               fb.ACT_GELU_TANH, False, True),
+              ("ln_gemm_i8[qkv,E=1536]", 1536, 4608, fb.ACT_NONE, False,
+               False),
+              ("ln_gemm_i8_swiglu[w12]", 1536, 2 * LN_GEMM_F, None, True,
+               False),
+              ("ln_gemm_i8_swiglu[w12,static]", 1536, 2 * LN_GEMM_F, None,
+               True, True)]
+    with ClockSampler() as clocks, torch.inference_mode():
+        for name, k, n, act, gated, static in shapes:
+            x = rand(m_path, k, dtype=bf)
+            ln_s, ln_b = rand(k, scale=0.1, off=1.0), rand(k, scale=0.1)
+            if static:
+                a_in = margin(fb._ln(x, ln_s, ln_b, eps))
+                ln_s, ln_b = ln_s / a_in, ln_b / a_in
+            nd = node(k, n)
+            sc, bi = nd.scale.reshape(-1), nd.bias.reshape(-1)
+            ai = (torch.full((1,), 0.02, device=dev)
+                  if static and act != fb.ACT_NONE or static and gated
+                  else None)
+            n_out = n // 2 if gated else n
+            hq, hs = fq.ln_quant_rows(x, ln_s, ln_b, eps, static)
+            mode = (fq.OUT_I8 if ai is not None else fq.OUT_BF16
+                    if act == fb.ACT_NONE else fq.OUT_F32)
+            out = torch.empty(m_path, n_out, device=dev, dtype={
+                fq.OUT_I8: torch.int8, fq.OUT_BF16: bf,
+                fq.OUT_F32: torch.float32}[mode])
+            if gated:
+                def chain():
+                    return fq.ln_gemm_i8_swiglu(x, ln_s, ln_b, nd.q8, nd.scale,
+                                                nd.bias, eps, static, ai,
+                                                q8t=nd.q8t)
+
+                def plain():
+                    return fq._ln_gemm_i8_swiglu_ref(x, ln_s, ln_b, nd.q8,
+                                                     nd.scale, nd.bias, eps,
+                                                     static, ai)
+            else:
+                def chain():
+                    return fq.ln_gemm_i8(x, ln_s, ln_b, nd.q8, nd.scale,
+                                         nd.bias, act, eps, static, ai,
+                                         q8t=nd.q8t)
+
+                def plain():
+                    return fq._ln_gemm_i8_ref(x, ln_s, ln_b, nd.q8, nd.scale,
+                                              nd.bias, act, eps, static, ai)
+
+            def quant():
+                return fq.ln_quant_rows(x, ln_s, ln_b, eps, static)
+
+            def gemm():
+                return fq._gemm_i8(hq, hs, nd.q8t, sc, bi, ai, out, mode,
+                                   act or fb.ACT_NONE, gated)
+
+            def library():
+                h = F.layer_norm(x.float(), (k,), ln_s, ln_b, eps)
+                s_ = h.abs().amax(-1, keepdim=True).clamp_min(1e-12) / 127.0
+                v = (torch._int_mm(torch.round(h / s_).to(torch.int8), nd.q8)
+                     .float() * s_ * nd.scale + nd.bias)
+                if gated:
+                    h1, h2 = v.chunk(2, dim=-1)
+                    return F.silu(h1) * h2
+                return (v.to(bf) if act == fb.ACT_NONE
+                        else F.gelu(v, approximate="tanh"))
+            fns = {"chain": chain, "ln_quant_rows": quant, "GEMM": gemm}
+            if not static:
+                fns["library"] = library
+            t = time_interleaved(fns, clocks)
+            pm_ = time_ms(plain, n=5, warmup=1)
+            out_bytes = {fq.OUT_I8: 1, fq.OUT_BF16: 2, fq.OUT_F32: 4}[mode]
+            cost[name] = i8_cost(m_path, k, n, 2, 0, out_bytes * m_path *
+                                 n_out + 4 * (2 * k + 2 * n))
+            km, gm, qm = t["chain"].ms, t["GEMM"].ms, t["ln_quant_rows"].ms
+            timed[name] = (km, pm_)
+            ops = 2 * m_path * k * n
+            b_ms, b_by = bound([cost[name]])
+            old = OLD_I8_MS.get(name)
+            lib = ""
+            if "library" in t:
+                lib_ms[name] = t["library"].ms
+                lib = (f"; library {t['library'].ms:.4f} ms (chain / library "
+                       f"{km / t['library'].ms:.3f})")
+            print(f"{tag} time {name} [{m_path}, {k}] -> {n}: chain "
+                  f"{km:.4f} ms ({ops / km / 1e9:.1f} TOP/s; rounds "
+                  f"{t['chain'].lo:.4f}-{t['chain'].hi:.4f}); ln_quant_rows "
+                  f"{qm:.4f} + GEMM alone {gm:.4f} ms (GEMM {ops / gm / 1e9:.1f}"
+                  f" TOP/s, {ops / gm / 1e9 / (PEAK_INT8 / 1e12):.3f} of the "
+                  f"int8 peak; {t['GEMM'].mhz} MHz, {t['GEMM'].watts} W)"
+                  f"{lib}; plain {pm_:.4f} ms; bound {b_ms:.4f} ms by {b_by}; "
+                  f"before "
+                  + (f"{old} ms ({old / km:.2f}x)" if old else "not recorded"))
+            if not static and not gated:
+                qname = f"ln_quant_rows[E={k}]"
+                if qname not in timed:
+                    timed[qname] = (qm, time_ms(lambda: fq._quantize_ln(
+                        x, ln_s, ln_b, eps, False), n=5, warmup=1))
+                    cost[qname] = (0, 3 * m_path * k + 4 * m_path + 8 * k)
+                    qb, qby = bound([cost[qname]])
+                    print(f"{tag} time {qname} [{m_path}, {k}]: {qm:.4f} ms "
+                          f"({cost[qname][1] / qm / 1e9:.3f} TB/s), plain "
+                          f"{timed[qname][1]:.4f} ms, bound {qb:.4f} ms by "
+                          f"{qby}, library none (no one call quantizes)")
+            del x, nd, hq, hs, out
+            torch.cuda.empty_cache()
     return timed, cost, lib_ms
 
 
@@ -5412,9 +5922,11 @@ def main() -> int:
     # these inputs (the ViT-L step's checks peak near 70 GiB)
     utimed = {name: (time_ms(kern), time_ms(plain))
               for name, (kern, plain) in ucases.items()
-              if not name.startswith(BWD_GEMMS + RES_GEMMS + ATTN)}  # 41-43
+              if not name.startswith(BWD_GEMMS + RES_GEMMS + ATTN
+                                     + PULLBACK)}  # phases 41-43, 45
     lib_ms.update({name: time_ms(fn) for name, fn in library.items()
-                   if name not in lib_ms and not name.startswith(ATTN)})
+                   if name not in lib_ms
+                   and not name.startswith(ATTN + PULLBACK)})
     for name, (km, pm_) in utimed.items():
         lib = f", library {lib_ms[name]:.4f} ms" if name in lib_ms else ""
         print(f"{tag} time {name}: kernel {km:.4f} ms, plain {pm_:.4f} ms"
@@ -5949,12 +6461,10 @@ def main() -> int:
     check_launches(fwdg8_counts, want_g[0], "giant2 int8")
     check(callsg8 == want_g[1], f"giant2 int8 calls {callsg8}")
 
-    timed_i8 = ("ln_gemm_i8[qkv]", "ln_gemm_i8[qkv,static]",
-                "ln_gemm_i8[fc1,gelu_tanh]", "ln_gemm_i8[fc1,gelu_tanh,static]",
-                "quant_rows[o]", "quant_rows[o,static]", "quant_rows[u]",
+    # (the first products, `ln_gemm_i8` / `ln_gemm_i8_swiglu`: phase 45)
+    timed_i8 = ("quant_rows[o]", "quant_rows[o,static]", "quant_rows[u]",
                 "gemm_i8_residual[proj,ls]", "gemm_i8_residual[proj,ls,static]",
                 "gemm_i8_residual[fc2,ls]", "gemm_i8_residual[fc2,ls,static]",
-                "ln_gemm_i8_swiglu[w12]", "ln_gemm_i8_swiglu[w12,static]",
                 "quant_rows[g]", "gemm_i8_residual[w3,ls]",
                 "gemm_i8_residual[w3,ls,static]", "attention_sublayer_i8[ls]",
                 "attention_sublayer_i8[ls,static]", "mlp_sublayer_i8[tanh,ls]",
@@ -5965,7 +6475,7 @@ def main() -> int:
                          time_ms(icases[name][1], n=5, warmup=1))
                   for name in timed_i8}
     lib_ms.update({name: time_ms(fn) for name, fn in library.items()
-                   if name not in lib_ms})
+                   if name not in lib_ms and not name.startswith("ln_gemm_i8")})
     for name, (km, pm_) in itimed.items():
         lib = f"{lib_ms[name]:.4f} ms" if name in lib_ms else "none"
         print(f"{tag} time int8 {name}: kernel {km:.4f} ms, plain {pm_:.4f} "
@@ -6359,6 +6869,15 @@ def main() -> int:
     lib_ms.update(flib)
     cost.update(fcost)
 
+    # ======================================================================
+    # Phase 45: `ln_pullback` and `ln_gemm_i8` redesigned (one-pass row
+    # kernel; ln_quant_rows + the int8 wgmma GEMM); the kernels line's
+    # times of both
+    # ======================================================================
+    ltimed, lcost, llib = pullback_i8_phase(tag, dev, fb, fq, layers)
+    lib_ms.update(llib)
+    cost.update(lcost)
+
     # TPU kernels: _attn_any_kernel at fused_block.py:326, _mlp_kernel at
     # :400, their train forwards _attn_train_kernel :424 and
     # _mlp_train_kernel :470, the backwards _attn_bwd_kernel :680 and
@@ -6430,6 +6949,11 @@ def main() -> int:
         # giant2 int8 forward (phase 33); one ViT-S block's calls timed
         "ln_gemm_i8": ("ln_gemm_i8", [isite(389), isite(471)], served8_counts,
                        ["ln_gemm_i8[qkv]", "ln_gemm_i8[fc1,gelu_tanh]"]),
+        # the LN half of `ln_gemm_i8` / `ln_gemm_i8_swiglu` (the LN and
+        # quantization of rows 9-11's bodies), twice per ViT-S block
+        "ln_quant_rows": ("ln_gemm_i8", [isite(389), isite(471), isite(508)],
+                          served8_counts, ["ln_quant_rows[E=384]",
+                                           "ln_quant_rows[E=384]"]),
         "ln_gemm_i8_swiglu": ("ln_gemm_i8", [isite(508)], fwdg8_counts,
                               ["ln_gemm_i8_swiglu[w12]"]),
         "quant_rows": ("quant_rows", [isite(389), isite(471), isite(508)],
@@ -6456,6 +6980,7 @@ def main() -> int:
     alltimed.update(btimed)
     alltimed.update(qtimed)
     alltimed.update(atimed)
+    alltimed.update(ltimed)
     print(f"{tag} bound: the larger of FLOPs / {PEAK_FLOPS:.4g} FLOP/s + "
           f"int8 operations / {PEAK_INT8:.4g} OP/s and bytes / "
           f"{PEAK_BYTES:.4g} B/s (each input read once, each output written "

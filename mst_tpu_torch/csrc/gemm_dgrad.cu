@@ -33,10 +33,10 @@
 //
 // The LN pullback needs two means over each whole row, which the TPU
 // kernel had in VMEM; a 128 x 128 tile cannot hold a row of 384 or more.
-// So at every width the GEMM writes dh in f32 and `ln_pullback_kernel`,
-// one warp per row, does the pullback from it: 2 x M x K x 4 bytes of
-// round trip (0.20 GB at ViT-S's M = 65,792, K = 384; 0.81 GB at giant2's
-// K = 1536, ~0.06 / 0.24 ms at 3.35 TB/s).
+// So at every width the GEMM writes dh in f32 and `ln_pullback_kernel`
+// (below) does the pullback from it. It is bound by bytes: dh f32, x and g
+// bf16 in, dx bf16 out, 10 x M x K bytes (0.25 GB at ViT-S's M = 65,792, K
+// = 384, 0.075 ms at 3.35 TB/s; 1.01 GB at giant2's K = 1536, 0.30 ms).
 #include "gemm_sm90.cuh"
 
 namespace mst {
@@ -152,136 +152,277 @@ inline bool dgrad_shape_ok(int M, int R, int K) {
   return M > 0 && R > 0 && K > 0 && R % BK == 0 && K % BN == 0;
 }
 
-// The LN pullback at any K % 32 == 0 up to 1536, from dh [M, K] f32: a block
-// owns PB_ROWS rows, staged PB_CHUNK at a time in shared memory (96 KB at K = 1536,
-// two blocks per SM). One warp per row holds its dh and x values in
-// registers (two-pass statistics, the row means, dx); then one thread per
-// column adds the chunk's dh * xhat and dh, rows in order, to its partials.
-constexpr int PB_THREADS = 256;  // 8 warps
-constexpr int PB_ROWS = 32;
-constexpr int PB_CHUNK = 16;
+// ---- the LN pullback ----------------------------------------------------
+//
+// From dh [M, K] f32 at any K % 32 == 0 up to 1536, in two kernels:
+// `ln_pullback_kernel`, one bandwidth-bound pass over the rows, then
+// `ln_pullback_sum_kernel`, one fixed-order pass over its partials.
+//
+// Pass 1: a persistent grid of PB_BLOCKS_PER_SM blocks an SM, PB_WARPS warps
+// each. A row belongs to a group of WR warps (1 up to K = 384, 2 up to 768,
+// 4 up to 1536, so that a lane holds at most 3 chunks); group w of the grid
+// takes rows w, w + G, w + 2G, ... (G groups in the grid), one row at a
+// time, and issues the next row's loads before this row's reductions.
+// Thread l of a group owns the same columns of every row: chunk j is
+// columns 4 (l + 32 WR j) .. + 3, read as one float4 of dh and 8 bytes (4
+// bf16) each of x and g, written as 8 bytes of dx. So the row stays in
+// registers for its statistics (mean, then the variance of the centred
+// values, in f32), its two means (of dxhat and of dxhat * xhat) and dx, and
+// the column sums dln_s += dh * xhat, dln_b += dh add up in registers over
+// the group's rows: dh and x are read once. A group of several warps adds
+// its warps' sums of each reduction in warp order through shared memory
+// (one named barrier each). At the end each block adds its groups' column
+// sums in group order into one partial row [2][K] (dln_s, then dln_b).
+// Pass 2: each column of the [grid][2][K] partials summed over the blocks
+// in a fixed order (strided lanes, then the lanes in order, as
+// `sum_partials_kernel`). No float atomics: a run repeats bit for bit.
+constexpr int PB_WARPS = 8;
+constexpr int PB_THREADS = 32 * PB_WARPS;
+constexpr int PB_BLOCKS_PER_SM = 2;
 constexpr int PB_MAX_K = 1536;
-constexpr int PB_PER = PB_MAX_K / 32;        // row values per lane
-constexpr int PB_COLS = PB_MAX_K / PB_THREADS;  // columns per thread
+constexpr int PS_WARPS = 8;  // the second pass: 32 columns a block
 
-inline size_t pullback_smem(int K) {
-  return (size_t(PB_CHUNK) * K + 2 * PB_ROWS) * sizeof(float);
+// Warps a row and chunks of 4 columns a lane: the instance K needs.
+struct PbShape {
+  int wr, ch;
+};
+inline PbShape pb_shape(int K) {
+  const int wr = K <= 384 ? 1 : K <= 768 ? 2 : 4;
+  const int ch = (K + 128 * wr - 1) / (128 * wr);
+  return PbShape{wr, ch < 2 ? 2 : ch};
 }
 
-__global__ void __launch_bounds__(PB_THREADS)
-ln_pullback_kernel(const float* __restrict__ dh, const bf16* __restrict__ x,
-                   const bf16* __restrict__ g, const float* __restrict__ lns,
-                   float eps, bf16* __restrict__ out, float* __restrict__ part,
-                   int M, int K) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* ds = reinterpret_cast<float*>(smem);  // [PB_CHUNK][K]
-  float* mean_s = ds + size_t(PB_CHUNK) * K;   // [PB_ROWS]
-  float* rstd_s = mean_s + PB_ROWS;            // [PB_ROWS]
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.x * PB_ROWS;
-  const int per = K / 32;
-  float s1[PB_COLS], s2[PB_COLS];
-#pragma unroll
-  for (int j = 0; j < PB_COLS; ++j) s1[j] = s2[j] = 0.0f;
+// Shared memory: the groups' column sums [PB_WARPS / WR][2][K].
+inline size_t pullback_smem(int K) {
+  return size_t(PB_WARPS / pb_shape(K).wr) * 2 * K * sizeof(float);
+}
 
-  for (int r0 = 0; r0 < PB_ROWS; r0 += PB_CHUNK) {
-    for (int r = warp; r < PB_CHUNK; r += PB_THREADS / 32) {
-      const int m = m0 + r0 + r;
-      if (m >= M) break;  // warp-uniform, and later rows lie further out
-      const bf16* xr = x + size_t(m) * K;
-      const float* dr = dh + size_t(m) * K;
-      float xv[PB_PER], dv[PB_PER];
-      float sum = 0.0f;
+// One row's operands of a lane: dh, x and g at its chunks.
+template <int CH>
+struct PbRow {
+  float4 d[CH];
+  uint2 x[CH], g[CH];
+};
+
+template <int WR, int CH>
+__device__ __forceinline__ void pb_load(PbRow<CH>& r, const float* __restrict__ dh,
+                                        const bf16* __restrict__ x, const bf16* __restrict__ g,
+                                        int m, int K, int tr) {
 #pragma unroll
-      for (int i = 0; i < PB_PER; ++i) {
-        if (i < per) {
-          const int k = lane + 32 * i;
-          xv[i] = __bfloat162float(xr[k]);
-          dv[i] = dr[k];
-          ds[r * K + k] = dv[i];
-          sum += xv[i];
-        }
+  for (int j = 0; j < CH; ++j) {
+    const int c = 4 * (tr + 32 * WR * j);
+    if (c < K) {
+      const size_t o = size_t(m) * K + c;
+      r.d[j] = __ldcs(reinterpret_cast<const float4*>(dh + o));
+      r.x[j] = __ldg(reinterpret_cast<const uint2*>(x + o));
+      r.g[j] = __ldcs(reinterpret_cast<const uint2*>(g + o));
+    }
+  }
+}
+
+__device__ __forceinline__ void unpack4_bf16(uint2 r, float* v) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
+  v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
+}
+
+// The group's sums of NV warp sums v (every lane holds its warp's), added
+// in warp order through the group's slot xch [NV][WR]; named barrier 1 +
+// the group's index.
+template <int WR, int NV>
+__device__ __forceinline__ void group_sum(float (&v)[NV], float* xch, int wr, int lane,
+                                          int gi) {
+  if constexpr (WR > 1) {
+    if (lane == 0) {
+#pragma unroll
+      for (int q = 0; q < NV; ++q) xch[q * WR + wr] = v[q];
+    }
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + gi), "r"(32 * WR) : "memory");
+#pragma unroll
+    for (int q = 0; q < NV; ++q) {
+      float t = 0.0f;
+#pragma unroll
+      for (int w = 0; w < WR; ++w) t += xch[q * WR + w];
+      v[q] = t;
+    }
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <int WR, int CH>
+__global__ void __launch_bounds__(PB_THREADS, PB_BLOCKS_PER_SM)
+ln_pullback_kernel(const float* __restrict__ dh, const bf16* __restrict__ x,
+                   const bf16* __restrict__ g, const float* __restrict__ lns, float eps,
+                   bf16* __restrict__ out, float* __restrict__ part, int M, int K) {
+  constexpr int GROUPS = PB_WARPS / WR;
+  extern __shared__ __align__(16) float red[];  // [GROUPS][2][K]
+  __shared__ float xch[GROUPS][3][2 * WR];      // each reduction's warp sums
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gi = warp / WR, wr = warp % WR, tr = 32 * wr + lane;
+  const int G = gridDim.x * GROUPS;
+  auto live = [&](int j) { return 4 * (tr + 32 * WR * j) < K; };
+  float s1[CH][4], s2[CH][4];
+#pragma unroll
+  for (int j = 0; j < CH; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s1[j][e] = s2[j][e] = 0.0f;
+  PbRow<CH> cur, nxt;
+  int m = blockIdx.x * GROUPS + gi;
+  if (m < M) pb_load<WR>(cur, dh, x, g, m, K, tr);
+  for (; m < M; m += G) {
+    if (m + G < M) pb_load<WR>(nxt, dh, x, g, m + G, K, tr);
+    float xv[CH][4], dv[CH][4];
+    float sum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < CH; ++j)
+      if (live(j)) {
+        unpack4_bf16(cur.x[j], xv[j]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sum += xv[j][e];
       }
+    float v1[1] = {warp_sum(sum)};
+    group_sum<WR>(v1, xch[gi][0], wr, lane, gi);
+    const float mean = v1[0] / K;
+    float sq = 0.0f;
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      const float mean = sum / K;
-      float sq = 0.0f;
+    for (int j = 0; j < CH; ++j)
+      if (live(j)) {
 #pragma unroll
-      for (int i = 0; i < PB_PER; ++i) {
-        if (i < per) {
-          const float d = xv[i] - mean;
+        for (int e = 0; e < 4; ++e) {
+          const float d = xv[j][e] - mean;
           sq += d * d;
         }
       }
+    v1[0] = warp_sum(sq);
+    group_sum<WR>(v1, xch[gi][1], wr, lane, gi);
+    const float rstd = rsqrtf(v1[0] / K + eps);
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
-      const float rstd = rsqrtf(sq / K + eps);
-      float t1 = 0.0f, t2 = 0.0f;
+    for (int j = 0; j < CH; ++j)
+      if (live(j)) {
+        const float dr[4] = {cur.d[j].x, cur.d[j].y, cur.d[j].z, cur.d[j].w};
+        const float4 l4 = __ldg(reinterpret_cast<const float4*>(lns + 4 * (tr + 32 * WR * j)));
+        const float ls[4] = {l4.x, l4.y, l4.z, l4.w};
 #pragma unroll
-      for (int i = 0; i < PB_PER; ++i) {
-        if (i < per) {
-          const int k = lane + 32 * i;
-          xv[i] = (xv[i] - mean) * rstd;  // xhat
-          dv[i] = dv[i] * lns[k];         // dxhat
-          t1 += dv[i];
-          t2 += dv[i] * xv[i];
+        for (int e = 0; e < 4; ++e) {
+          xv[j][e] = (xv[j][e] - mean) * rstd;  // xhat
+          dv[j][e] = dr[e] * ls[e];             // dxhat
+          s1[j][e] += dr[e] * xv[j][e];
+          s2[j][e] += dr[e];
         }
       }
+    float t[2] = {0.0f, 0.0f};
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        t1 += __shfl_xor_sync(0xffffffffu, t1, o);
-        t2 += __shfl_xor_sync(0xffffffffu, t2, o);
-      }
-      const float m1 = t1 / K, m2 = t2 / K;
-      const bf16* gr = g + size_t(m) * K;
-      bf16* outr = out + size_t(m) * K;
+    for (int j = 0; j < CH; ++j)
+      if (live(j)) {
 #pragma unroll
-      for (int i = 0; i < PB_PER; ++i) {
-        if (i < per) {
-          const int k = lane + 32 * i;
-          const float dx = rstd * (dv[i] - m1 - xv[i] * m2) + __bfloat162float(gr[k]);
-          outr[k] = __float2bfloat16(dx);
+        for (int e = 0; e < 4; ++e) {
+          t[0] += dv[j][e];
+          t[1] += dv[j][e] * xv[j][e];
         }
       }
-      if (lane == 0) {
-        mean_s[r0 + r] = mean;
-        rstd_s[r0 + r] = rstd;
-      }
-    }
-    __syncthreads();
-    // Column partials of the chunk's rows: dln_s += dh * xhat, dln_b += dh.
+    t[0] = warp_sum(t[0]);
+    t[1] = warp_sum(t[1]);
+    group_sum<WR>(t, xch[gi][2], wr, lane, gi);
+    const float m1 = t[0] / K, m2 = t[1] / K;
 #pragma unroll
-    for (int j = 0; j < PB_COLS; ++j) {
-      const int c = tid + j * PB_THREADS;
-      if (c >= K) continue;
-      for (int r = 0; r < PB_CHUNK && m0 + r0 + r < M; ++r) {
-        const float d = ds[r * K + c];
-        const float xh = (__bfloat162float(x[size_t(m0 + r0 + r) * K + c]) - mean_s[r0 + r]) *
-                         rstd_s[r0 + r];
-        s1[j] += d * xh;
-        s2[j] += d;
+    for (int j = 0; j < CH; ++j)
+      if (live(j)) {
+        float gv[4];
+        unpack4_bf16(cur.g[j], gv);
+        uint2 o;
+        *reinterpret_cast<__nv_bfloat162*>(&o.x) = __floats2bfloat162_rn(
+            rstd * (dv[j][0] - m1 - xv[j][0] * m2) + gv[0],
+            rstd * (dv[j][1] - m1 - xv[j][1] * m2) + gv[1]);
+        *reinterpret_cast<__nv_bfloat162*>(&o.y) = __floats2bfloat162_rn(
+            rstd * (dv[j][2] - m1 - xv[j][2] * m2) + gv[2],
+            rstd * (dv[j][3] - m1 - xv[j][3] * m2) + gv[3]);
+        *reinterpret_cast<uint2*>(out + size_t(m) * K + 4 * (tr + 32 * WR * j)) = o;
       }
-    }
-    __syncthreads();  // the next chunk overwrites ds
+    cur = nxt;
   }
-  const size_t nb = gridDim.x;
+  // the block's partial row: its groups' sums added in group order
 #pragma unroll
-  for (int j = 0; j < PB_COLS; ++j) {
-    const int c = tid + j * PB_THREADS;
-    if (c >= K) continue;
-    part[size_t(blockIdx.x) * K + c] = s1[j];
-    part[(nb + blockIdx.x) * K + c] = s2[j];
+  for (int j = 0; j < CH; ++j)
+    if (live(j)) {
+      const int c = 4 * (tr + 32 * WR * j);
+      *reinterpret_cast<float4*>(red + size_t(gi) * 2 * K + c) =
+          make_float4(s1[j][0], s1[j][1], s1[j][2], s1[j][3]);
+      *reinterpret_cast<float4*>(red + size_t(gi) * 2 * K + K + c) =
+          make_float4(s2[j][0], s2[j][1], s2[j][2], s2[j][3]);
+    }
+  __syncthreads();
+  for (int l = threadIdx.x; l < 2 * K; l += PB_THREADS) {
+    float u = 0.0f;
+#pragma unroll
+    for (int q = 0; q < GROUPS; ++q) u += red[size_t(q) * 2 * K + l];
+    part[size_t(blockIdx.x) * 2 * K + l] = u;
   }
 }
 
-// The two column sums of the partials [2][row_blocks][K] into dlns, dlnb.
-cudaError_t sum_ln_partials(const float* part, void* dlns, void* dlnb, int M, int K,
+// dlns[l] (l < K) and dlnb[l - K] (l >= K) = sum over the P partial rows
+// [P][2K], in a fixed order: each block owns 32 columns, its warps stride
+// over the rows, then the warps' sums are added in order.
+__global__ void __launch_bounds__(32 * PS_WARPS)
+ln_pullback_sum_kernel(const float* __restrict__ part, float* __restrict__ dlns,
+                       float* __restrict__ dlnb, int P, int K) {
+  __shared__ float sred[PS_WARPS][33];
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int l = blockIdx.x * 32 + tx, L = 2 * K;
+  float s = 0.0f;
+  if (l < L) {
+#pragma unroll 4
+    for (int p = ty; p < P; p += PS_WARPS) s += part[size_t(p) * L + l];
+  }
+  sred[ty][tx] = s;
+  __syncthreads();
+  if (ty == 0 && l < L) {
+    float t = 0.0f;
+#pragma unroll
+    for (int i = 0; i < PS_WARPS; ++i) t += sred[i][tx];
+    if (l < K)
+      dlns[l] = t;
+    else
+      dlnb[l - K] = t;
+  }
+}
+
+// The pullback's launch: the instance, the persistent grid (no more blocks
+// than give each group a row) and the second pass's blocks.
+struct PbPlan {
+  PbShape shape;
+  int grid, sum_blocks;
+};
+
+inline PbPlan pb_plan(int M, int K, int sms) {
+  PbPlan p;
+  p.shape = pb_shape(K);
+  const int groups = PB_WARPS / p.shape.wr;
+  const int need = (M + groups - 1) / groups;
+  p.grid = need < sms * PB_BLOCKS_PER_SM ? need : sms * PB_BLOCKS_PER_SM;
+  p.sum_blocks = (2 * K + 31) / 32;
+  return p;
+}
+
+inline bool pullback_shape_ok(int M, int K) {
+  return M > 0 && K > 0 && K % 32 == 0 && K <= PB_MAX_K;
+}
+
+template <int WR, int CH>
+cudaError_t launch_pullback(const void* dh, const void* x, const void* g, const void* lns,
+                            float eps, void* out, float* part, int grid, int M, int K,
                             cudaStream_t st) {
-  const int row_blocks = (M + 31) / 32;
-  cudaError_t err = sum_partials(part, static_cast<float*>(dlns), row_blocks, K, st);
+  const size_t bytes = pullback_smem(K);
+  const cudaError_t err = allow_smem(ln_pullback_kernel<WR, CH>, bytes);
   if (err != cudaSuccess) return err;
-  return sum_partials(part + size_t(row_blocks) * K, static_cast<float*>(dlnb), row_blocks,
-                      K, st);
+  ln_pullback_kernel<WR, CH><<<grid, PB_THREADS, bytes, st>>>(
+      static_cast<const float*>(dh), static_cast<const bf16*>(x), static_cast<const bf16*>(g),
+      static_cast<const float*>(lns), eps, static_cast<bf16*>(out), part, M, K);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -324,24 +465,55 @@ extern "C" int mst_dgrad_geometry(int M, int R, int K, long long* geo) {
   return cudaSuccess;
 }
 
-// The ln epilogue from dh [M, K] f32: x, g [M, K] bf16, lns [K] f32, eps ->
-// out = dx [M, K] bf16, dlns, dlnb [K] f32; work [2 * ceil(M / 32) * K] f32.
-// Needs K % 32 == 0 and K <= 1536.
+// The LN pullback from dh [M, K] f32: x, g [M, K] bf16, lns [K] f32, eps ->
+// out = dx [M, K] bf16, dlns, dlnb [K] f32; work: f32 scratch of at least
+// the workspace `mst_ln_pullback_geometry` reports. Needs K % 32 == 0 and
+// K <= 1536.
 extern "C" int mst_ln_pullback(const void* dh, const void* x, const void* g,
                                const void* lns, float eps, void* out, void* work,
-                               void* dlns, void* dlnb, int M, int K, void* stream) {
+                               long long work_bytes, void* dlns, void* dlnb, int M, int K,
+                               void* stream) {
   using namespace mst;
-  if (M <= 0 || K <= 0 || K % 32 != 0 || K > PB_MAX_K)
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t bytes = pullback_smem(K);
-  cudaError_t err = allow_smem(ln_pullback_kernel, bytes);
+  if (!pullback_shape_ok(M, K)) return cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t err = sm90::sm_count(&sms);
   if (err != cudaSuccess) return err;
-  ln_pullback_kernel<<<(M + PB_ROWS - 1) / PB_ROWS, PB_THREADS, bytes, st>>>(
-      static_cast<const float*>(dh), static_cast<const bf16*>(x),
-      static_cast<const bf16*>(g), static_cast<const float*>(lns), eps,
-      static_cast<bf16*>(out), static_cast<float*>(work), M, K);
-  err = cudaGetLastError();
+  const PbPlan p = pb_plan(M, K, sms);
+  if (work == nullptr || work_bytes < 4LL * p.grid * 2 * K) return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* part = static_cast<float*>(work);
+  const int inst = 10 * p.shape.wr + p.shape.ch;
+  switch (inst) {
+#define MST_PB(WR, CH)                                                                   \
+  case 10 * WR + CH:                                                                     \
+    err = launch_pullback<WR, CH>(dh, x, g, lns, eps, out, part, p.grid, M, K, st); \
+    break;
+    MST_PB(1, 2) MST_PB(1, 3) MST_PB(2, 2) MST_PB(2, 3) MST_PB(4, 2) MST_PB(4, 3)
+#undef MST_PB
+    default: return cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess) return err;
-  return sum_ln_partials(static_cast<const float*>(work), dlns, dlnb, M, K, st);
+  ln_pullback_sum_kernel<<<p.sum_blocks, 32 * PS_WARPS, 0, st>>>(
+      part, static_cast<float*>(dlns), static_cast<float*>(dlnb), p.grid, K);
+  return cudaGetLastError();
+}
+
+// The pullback's launch geometry for dh [M, K] on the current device: geo =
+// {grid, threads, warps a row, chunks of 4 columns a lane, dynamic shared
+// memory bytes, workspace bytes ([grid][2][K] f32 partials), second-pass
+// blocks, second-pass threads}, as `mst_ln_pullback` sets them
+// (`fused_block.ln_pullback_launch` mirrors it). The shapes it refuses
+// return cudaErrorInvalidValue.
+extern "C" int mst_ln_pullback_geometry(int M, int K, long long* geo) {
+  using namespace mst;
+  if (!pullback_shape_ok(M, K)) return cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t err = sm90::sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const PbPlan p = pb_plan(M, K, sms);
+  const long long g[8] = {p.grid, PB_THREADS, p.shape.wr, p.shape.ch,
+                          static_cast<long long>(pullback_smem(K)), 4LL * p.grid * 2 * K,
+                          p.sum_blocks, 32 * PS_WARPS};
+  for (int i = 0; i < 8; ++i) geo[i] = g[i];
+  return cudaSuccess;
 }

@@ -1,15 +1,18 @@
-// The Hopper GEMM mainloop: C[BM x BN] tiles of A @ B, bf16 in, f32
-// accumulators, for `sm_90a`. Used by ln_gemm.cu and gemm_residual.cu (A
-// K-major, B MN-major), gemm_dgrad.cu (A K-major, B K-major) and
-// gemm_wgrad.cu (A MN-major, B MN-major); gemm_wgrad.cu's probes check each
-// layout with a bare product.
+// The Hopper GEMM mainloop: C[BM x BN] tiles of A @ B for `sm_90a`, in two
+// operand types: bf16 in with f32 accumulators, used by ln_gemm.cu and
+// gemm_residual.cu (A K-major, B MN-major), gemm_dgrad.cu (A K-major, B
+// K-major) and gemm_wgrad.cu (A MN-major, B MN-major); and int8 in with s32
+// accumulators, used by ln_gemm_i8.cu (A K-major, B K-major in two boxes).
+// gemm_wgrad.cu's and ln_gemm_i8.cu's probes check each layout with a bare
+// product.
 //
 // Design (one CTA per SM, persistent over the work units):
 // - The operands are read by TMA with 128-byte swizzle; a stage holds
-//   16 KB of A (BM output rows x BK) and 16 KB of B (BK x BN output
-//   columns), in one of two layouts each (`Major`):
-//   A K-major: A [M, K] row-major, one box [BM rows][BK] (the rows of
-//     ln_gemm's h, of gemm_dgrad's dY);
+//   16 KB of A (BM output rows x 128 bytes of k) and 16 KB of B (128 bytes
+//   of k x BN output columns): BK = 64 k of bf16, BK8 = 128 k of int8. A
+//   and B come in one of these layouts each (`Major`):
+//   A K-major: A [M, K] row-major, one box [BM rows][128 bytes] (the rows
+//     of ln_gemm's h, of gemm_dgrad's dY, of ln_gemm_i8's codes);
 //   A MN-major: A^T stored [K, M] row-major, two boxes [BK rows][64
 //     columns], one per consumer warpgroup (gemm_wgrad's X^T: X [M_red, K]
 //     is K-contiguous);
@@ -18,23 +21,29 @@
 //     layout; the two halves of one 128-column panel, or the h1 and h2
 //     panels of a gated product), so no transposed copy is made;
 //   B K-major: B^T stored [N, K] row-major, one box [BN rows][BK]
-//     (gemm_dgrad's W^T: W [K_out, R] is R-contiguous).
+//     (gemm_dgrad's W^T: W [K_out, R] is R-contiguous);
+//   B K-major pair: B^T [N, K] row-major, two boxes [64 rows][128 bytes]
+//     at any two row offsets (ln_gemm_i8's W^T, made once with the int8
+//     tree: 8-bit wgmma reads both operands K-major only, and a gated tile
+//     takes its h1 and h2 panels); in shared memory the two boxes lie as
+//     one [128 rows][128 bytes] K-major box would.
 // - A ring of STAGES stages with a full and an empty `mbarrier` each. One
 //   producer warp (lane 0) issues the TMA loads, running ahead across
 //   units, so the next unit's loads overlap this unit's epilogue.
-// - Two consumer warpgroups, each 64 rows of the tile: per 16-deep k step
-//   one `wgmma.mma_async m64n128k16` from shared memory (the `imm-trans`
-//   bit set for an MN-major operand), one commit group per stage, one
-//   group left in flight, the stage released once its group is done.
+// - Two consumer warpgroups, each 64 rows of the tile: per 32-byte k step
+//   one `wgmma.mma_async` from shared memory, m64n128k16 bf16 (the
+//   `imm-trans` bit set for an MN-major operand) or m64n128k32 s8, chosen
+//   by the accumulators' type; one commit group per stage, one group left
+//   in flight, the stage released once its group is done.
 // - A work unit is an output tile and a range of the reduction (`Work`):
-//   the whole of K for ln_gemm, gemm_residual and gemm_dgrad, one chunk
-//   of the M rows for gemm_wgrad. No split-K within a unit and no
-//   atomics: every output is one f32 sum in a fixed order, so a run
-//   repeats bit for bit.
+//   the whole of K for ln_gemm, gemm_residual, gemm_dgrad and ln_gemm_i8,
+//   one chunk of the M rows for gemm_wgrad. No split-K within a unit and
+//   no atomics: every output is one sum in a fixed order, so a run repeats
+//   bit for bit.
 // The caller's kernel owns the epilogue: it reads the accumulators through
-// `acc_row` / `acc_col` (the m64nNk16 D-fragment layout) after
-// `consumer_tile` returns; the bf16 epilogues stage their tile with `stage`
-// (or in place) and write it with `store`.
+// `acc_row` / `acc_col` (the m64nNk16 D-fragment layout, the same for s32)
+// after `consumer_tile` returns; the bf16 epilogues stage their tile with
+// `stage` (or in place) and write it with `store`.
 #pragma once
 
 #include <cuda.h>
@@ -46,14 +55,16 @@ namespace sm90 {
 
 constexpr int BM = 128;                       // tile rows
 constexpr int BN = 128;                       // tile columns (two 64-wide B boxes)
-constexpr int BK = 64;                        // k per stage (one 128-byte swizzle row)
+constexpr int BK = 64;                        // bf16 k per stage (one 128-byte swizzle row)
+constexpr int BK8 = 128;                      // int8 k per stage (the same 128 bytes)
+constexpr int KSTEPS = 4;                     // wgmma k steps of 32 bytes per stage
 constexpr int STAGES = 5;                     // ring depth
 constexpr int CONSUMERS = 2;                  // consumer warpgroups, 64 rows each
 constexpr int THREADS = CONSUMERS * 128 + 32;  // + one producer warp
 constexpr int A_BYTES = BM * BK * 2;          // 16 KB
-constexpr int B_BOX = BK * 64 * 2;            // 8 KB, [BK rows][64 columns]
+constexpr int B_BOX = BK * 64 * 2;            // 8 KB: [BK rows][64 columns] or [64 rows][128 B]
 constexpr int STAGE_BYTES = A_BYTES + 2 * B_BOX;
-constexpr int ACC = BN / 2;                   // f32 accumulators per thread
+constexpr int ACC = BN / 2;                   // f32 or s32 accumulators per thread
 constexpr int EPI_LD = BN + 8;                // epilogue staging stride (bf16)
 constexpr int EPI_BYTES = 64 * EPI_LD * 2;    // one warpgroup's staging tile
 // TMA and wgmma want the swizzled tiles at 1024-byte boundaries; the
@@ -134,6 +145,10 @@ __device__ __forceinline__ void fence_acc(float (&d)[ACC]) {
 #pragma unroll
   for (int i = 0; i < ACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+__device__ __forceinline__ void fence_acc(int (&d)[ACC]) {
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 // d[64 x 128] += A[64 x 16] . B[16 x 128]; TA / TB: the `imm-trans-a` /
 // `imm-trans-b` bits, 1 for an MN-major operand (ln_gemm: A K-major, B
@@ -163,6 +178,48 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[ACC], uint64_t da, u
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d[64 x 128] += A[64 x 32] . B[32 x 128] in int8 with s32 accumulators,
+// both operands K-major (8-bit wgmma has no transpose bits). No
+// `.satfinite`: |d| <= K * 127^2 stays far inside s32 at every K the
+// callers take.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[ACC], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
+        "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]),
+        "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),
+        "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]),
+        "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]),
+        "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
+        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]),
+        "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// One 32-byte k step of the operand type the accumulators name: bf16
+// m64n128k16 into f32, or s8 m64n128k32 into s32.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_step(float (&d)[ACC], uint64_t da, uint64_t db) {
+  wgmma_m64n128k16<TA, TB>(d, da, db);
+}
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_step(int (&d)[ACC], uint64_t da, uint64_t db) {
+  static_assert(TA == 0 && TB == 0, "8-bit wgmma reads both operands K-major");
+  wgmma_m64n128k32_s8(d, da, db);
 }
 
 // ---- the D-fragment layout of m64nNk16 -----------------------------------
@@ -210,11 +267,11 @@ __device__ __forceinline__ void init_barriers(const Smem& s) {
 
 // ---- operand layouts -----------------------------------------------------
 
-enum Major : int { K_MAJOR = 0, MN_MAJOR = 1 };
+enum Major : int { K_MAJOR = 0, MN_MAJOR = 1, K_MAJOR_PAIR = 2 };
 
-// One work unit: output rows m0.. (A), the first columns of the two B
-// boxes (MN-major; K-major B reads one box of BN rows from c0), the first
-// reduction index k0 and the number of BK-deep k tiles.
+// One work unit: output rows m0.. (A), the first columns (MN-major) or
+// rows (K-major pair) of the two B boxes (K-major B reads one box of BN
+// rows from c0), the first reduction index k0 and the number of k tiles.
 struct Work {
   int m0, c0, c1, k0, nk;
 };
@@ -233,15 +290,18 @@ __device__ __forceinline__ void load_stage(unsigned char* a, unsigned char* b,
   if constexpr (BMJ == MN_MAJOR) {
     tma_load_2d(b, tb, w.c0, k, bar);
     tma_load_2d(b + B_BOX, tb, w.c1, k, bar);
-  } else {  // B^T [N, K]: BN rows from c0
+  } else if constexpr (BMJ == K_MAJOR) {  // B^T [N, K]: BN rows from c0
     tma_load_2d(b, tb, k, w.c0, bar);
+  } else {  // B^T [N, K]: 64 rows from c0, then 64 from c1
+    tma_load_2d(b, tb, k, w.c0, bar);
+    tma_load_2d(b + B_BOX, tb, k, w.c1, bar);
   }
 }
 
-// The shared-memory descriptors of k step kk (16 deep) of the stage's A for
-// warpgroup wg and of its B. K-major (128-byte rows, 8-row groups 1024
-// bytes apart): a k step is 32 bytes along the row, the leading byte
-// offset unused. MN-major (rows of 64 MN values, one per k): the two 64-wide
+// The shared-memory descriptors of k step kk (32 bytes: 16 bf16 or 32
+// int8 deep) of the stage's A for warpgroup wg and of its B. K-major
+// (either pair too; 128-byte rows, 8-row groups 1024 bytes apart): a k step
+// is 32 bytes along the row, the leading byte offset unused. MN-major (rows of 64 MN values, one per k): the two 64-wide
 // boxes 8 KB apart (LBO), 8-row k groups 1024 bytes apart (SBO), a k step
 // 16 rows. SWAP exchanges LBO and SBO: a planted fault for the layout
 // probes of gemm_wgrad.cu, never launched on a path.
@@ -253,8 +313,8 @@ __device__ __forceinline__ uint64_t desc_a(const unsigned char* a, int wg, int k
 }
 template <int BMJ, bool SWAP>
 __device__ __forceinline__ uint64_t desc_b(const unsigned char* b, int kk) {
-  const unsigned char* p = b + (BMJ == K_MAJOR ? kk * 32 : kk * 16 * 128);
-  const uint32_t lbo = BMJ == K_MAJOR ? 16 : B_BOX, sbo = 1024;
+  const unsigned char* p = b + (BMJ != MN_MAJOR ? kk * 32 : kk * 16 * 128);
+  const uint32_t lbo = BMJ != MN_MAJOR ? 16 : B_BOX, sbo = 1024;
   return SWAP ? smem_desc(p, sbo, lbo) : smem_desc(p, lbo, sbo);
 }
 
@@ -262,8 +322,8 @@ __device__ __forceinline__ uint64_t desc_b(const unsigned char* b, int kk) {
 
 // The producer (lane 0 of the producer warp): the k tiles of every work
 // unit this CTA owns, in the consumers' order; `unit(u)` gives unit u's
-// `Work`.
-template <int AM = K_MAJOR, int BMJ = MN_MAJOR, class Unit>
+// `Work`; KS: k per stage (BK for bf16, BK8 for int8).
+template <int AM = K_MAJOR, int BMJ = MN_MAJOR, int KS = BK, class Unit>
 __device__ __forceinline__ void producer(const Smem& s, const CUtensorMap* ta,
                                          const CUtensorMap* tb, int units, Unit unit) {
   tma_prefetch(ta);
@@ -276,7 +336,7 @@ __device__ __forceinline__ void producer(const Smem& s, const CUtensorMap* ta,
       mbar_wait(&s.empty[st], ((it / STAGES) & 1) ^ 1);
       unsigned char* dst = s.stage + size_t(st) * STAGE_BYTES;
       mbar_expect_tx(&s.full[st], STAGE_BYTES);
-      load_stage<AM, BMJ>(dst, dst + A_BYTES, ta, tb, w, w.k0 + kt * BK, &s.full[st]);
+      load_stage<AM, BMJ>(dst, dst + A_BYTES, ta, tb, w, w.k0 + kt * KS, &s.full[st]);
     }
   }
 }
@@ -287,13 +347,15 @@ struct NoStageHook {
 
 // One consumer warpgroup's product for one work unit of nk k tiles: d = A[m0
 // + 64 wg ..][:] . B[:, the unit's columns], ring counter `it` advanced past
-// the unit. `hook(b)` runs on each stage's B after its products are issued
-// and before the stage is released (gemm_wgrad sums dY's columns there).
-template <int AM = K_MAJOR, int BMJ = MN_MAJOR, bool SWAP = false, class Hook = NoStageHook>
+// the unit; f32 accumulators for bf16 operands, s32 for int8 (`Acc`).
+// `hook(b)` runs on each stage's B after its products are issued and
+// before the stage is released (gemm_wgrad sums dY's columns there).
+template <int AM = K_MAJOR, int BMJ = MN_MAJOR, bool SWAP = false, class Hook = NoStageHook,
+          class Acc = float>
 __device__ __forceinline__ void consumer_tile(const Smem& s, int wg, int nk, uint32_t& it,
-                                              float (&d)[ACC], Hook hook = Hook()) {
+                                              Acc (&d)[ACC], Hook hook = Hook()) {
 #pragma unroll
-  for (int i = 0; i < ACC; ++i) d[i] = 0.0f;
+  for (int i = 0; i < ACC; ++i) d[i] = Acc(0);
   fence_acc(d);
   const int lane = threadIdx.x & 31;
   int prev = -1;
@@ -304,9 +366,8 @@ __device__ __forceinline__ void consumer_tile(const Smem& s, int wg, int nk, uin
     const unsigned char* b = a + A_BYTES;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_m64n128k16<AM, BMJ == MN_MAJOR>(d, desc_a<AM, SWAP>(a, wg, kk),
-                                            desc_b<BMJ, SWAP>(b, kk));
+    for (int kk = 0; kk < KSTEPS; ++kk)
+      wgmma_step<AM, BMJ == MN_MAJOR>(d, desc_a<AM, SWAP>(a, wg, kk), desc_b<BMJ, SWAP>(b, kk));
     wgmma_commit();
     hook(b);
     if (prev >= 0) {
@@ -390,14 +451,14 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The TMA map of a row-major bf16 [rows, cols] matrix read in boxes of
-// [box_rows][box_cols] with 128-byte swizzle (box_cols * 2 <= 128); rows
-// past the end read as zeros. The encoding needs a current context, and a
+// The TMA map of a row-major bf16 (elem_bytes 2) or int8 (1) [rows, cols]
+// matrix read in boxes of [box_rows][box_cols] with 128-byte swizzle
+// (box_cols * elem_bytes <= 128); rows past the end read as zeros. The encoding needs a current context, and a
 // host thread in which nothing has run on the card yet (PyTorch's autograd
 // worker before its first launch) has none: cudaSetDevice binds the
 // current device's primary context first.
 inline cudaError_t tma_map_2d(CUtensorMap* map, const void* ptr, uint64_t rows, uint64_t cols,
-                              uint32_t box_rows, uint32_t box_cols) {
+                              uint32_t box_rows, uint32_t box_cols, int elem_bytes = 2) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
   int dev = 0;
@@ -405,10 +466,13 @@ inline cudaError_t tma_map_2d(CUtensorMap* map, const void* ptr, uint64_t rows, 
   if (err == cudaSuccess) err = cudaSetDevice(dev);
   if (err != cudaSuccess) return err;
   const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * 2};
+  const cuuint64_t strides[1] = {cols * elem_bytes};
   const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+  const CUresult r = enc(map,
+                         elem_bytes == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         2, const_cast<void*>(ptr), dims,
                          strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

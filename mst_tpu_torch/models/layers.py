@@ -73,11 +73,15 @@ class QDense(nn.Module):
     per output channel, `bias` f32 [out], and on the second FFN product of
     a static tree `a_inv` f32 [1, 1] (the calibrated hidden scale; None
     for dynamic trees). Buffers, never cast: the int8 sub-layers read them
-    as they are. It has no forward of its own."""
+    as they are. Beside them `q8t` int8 [out, in], the K-major copy of q8
+    that the int8 wgmma GEMM reads (it takes both operands K-major), made
+    once here: a buffer outside the state dict, so the tree's leaves stay
+    the JAX node's. It has no forward of its own."""
 
     def __init__(self, q8, scale, bias, a_inv=None):
         super().__init__()
         self.register_buffer("q8", q8)
+        self.register_buffer("q8t", q8.t().contiguous(), persistent=False)
         self.register_buffer("scale", scale)
         self.register_buffer("bias", bias)
         self.register_buffer("a_inv", a_inv)

@@ -66,20 +66,27 @@ _SIGNATURES = {
     "mst_dgrad_geometry": (_I, _I, _I, _P),
     # a, b, c (f32), M, N, K, layout, swap, stream: the layout probes
     "mst_gemm_probe": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # dh (f32), x, g, lns, eps, out, work, dlns, dlnb, M, K, stream
-    "mst_ln_pullback": (_P, _P, _P, _P, _F, _P, _P, _P, _P, _I, _I, _P),
+    # dh (f32), x, g, lns, eps, out, work, work_bytes, dlns, dlnb, M, K,
+    # stream
+    "mst_ln_pullback": (_P, _P, _P, _P, _F, _P, _P, _L, _P, _P, _I, _I, _P),
+    # M, K, geo (host int64 [8]): mst_ln_pullback's launch geometry
+    "mst_ln_pullback_geometry": (_I, _I, _P),
     # qkv, o, dout, lse, delta, dqkv, rope_cos|NULL, rope_sin|NULL, N, S, E,
     # num_heads, scale_log2, scale, stream
     "mst_mhsa_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
                      _P),
-    # x, ln_s, ln_b, w (int8), scale, bias, a_inv|NULL, out, out_mode,
-    # dynamic, M, K, N, eps, act, stream
-    "mst_ln_gemm_i8": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                       _I, _P),
-    # x, ln_s, ln_b, w12 (int8), scale, bias, a_inv|NULL, out, out_mode,
-    # dynamic, M, K, F, eps, stream
-    "mst_ln_gemm_i8_swiglu": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _I, _F, _P),
+    # x, ln_s, ln_b, q (int8), scale|NULL, M, K, eps, stream
+    "mst_ln_quant_rows": (_P, _P, _P, _P, _P, _I, _I, _F, _P),
+    # a (int8), wt (int8 [N, K]), row_scale|NULL, scale, bias, a_inv|NULL,
+    # out, out_mode, M, K, N, act, stream
+    "mst_gemm_i8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # a (int8), wt (int8 [2F, K]), row_scale|NULL, scale, bias, a_inv|NULL,
+    # out, out_mode, M, K, F, stream
+    "mst_gemm_i8_swiglu": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # M, K, N, gated, geo (host int32 [8]): the int8 GEMM's launch geometry
+    "mst_gemm_i8_geometry": (_I, _I, _I, _I, _P),
+    # a, b (int8), c (int32), M, N, K, swap, stream: the int8 layout probe
+    "mst_gemm_i8_probe": (_P, _P, _P, _I, _I, _I, _I, _P),
     # src, is_f32, q, scale|NULL, M, K, stream
     "mst_quant_rows": (_P, _I, _P, _P, _I, _I, _P),
     # a (int8), w (int8), row_scale|NULL, scale, bias, ls|NULL, x, out, M, K,

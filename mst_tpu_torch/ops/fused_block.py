@@ -827,6 +827,11 @@ def gemm_dls(a, w, b, ls, g):
 # The widest row of the LN pullback (`ln_pullback`, after `gemm_dgrad`'s f32
 # product at every width).
 LN_PULLBACK_MAX_K = 1536
+# Its launch (csrc/gemm_dgrad.cu): blocks of 8 warps, two an SM; a row
+# belongs to a group of 1, 2 or 4 warps (K up to 384, 768, 1536) whose
+# lanes hold 2 or 3 chunks of 4 columns each; the second pass sums 32
+# columns of the [grid][2][K] partials a block with 8 warps.
+_PB_WARPS, _PB_BLOCKS_PER_SM, _PS_WARPS = 8, 2, 8
 
 # `gemm_wgrad` cuts the M rows into chunks of at most _WGRAD_MAX_ROWS (a
 # multiple of the GEMM's 64-row k tile): one f32 accumulator's error grows
@@ -868,6 +873,33 @@ def gemm_dgrad_launch(m: int, r: int, k: int,
     return SimpleNamespace(units=units, grid=min(units, sms),
                            threads=GEMM_THREADS, stages=GEMM_STAGES,
                            smem=GEMM_SMEM, splits=1, rows=r, workspace=0)
+
+
+def _check_pullback_shape(m: int, k: int) -> None:
+    if m < 1 or k < 32 or k % 32 or k > LN_PULLBACK_MAX_K:
+        raise ValueError(f"ln_pullback needs M >= 1, K % 32 == 0 and K <= "
+                         f"{LN_PULLBACK_MAX_K}; got M={m}, K={k}")
+
+
+def ln_pullback_launch(m: int, k: int,
+                       sms: int = H100_SMS) -> SimpleNamespace:
+    """The launch geometry of `ln_pullback` at dh [m, k] on a card of
+    `sms` SMs (csrc/gemm_dgrad.cu `mst_ln_pullback_geometry`): the
+    persistent grid of its first pass, its threads, the warps of a row,
+    the chunks of 4 columns a lane, its dynamic shared memory (the groups'
+    column sums), the workspace bytes of its [grid][2][k] f32 partials,
+    and the second pass's blocks and threads. Raises ValueError where the
+    kernel would."""
+    _check_pullback_shape(m, k)
+    wr = 1 if k <= 384 else 2 if k <= 768 else 4
+    ch = max(2, -(-k // (128 * wr)))
+    groups = _PB_WARPS // wr
+    grid = min(-(-m // groups), sms * _PB_BLOCKS_PER_SM)
+    return SimpleNamespace(grid=grid, threads=32 * _PB_WARPS, warps_a_row=wr,
+                           chunks=ch, smem=groups * 2 * k * 4,
+                           workspace=4 * grid * 2 * k,
+                           sum_blocks=-(-2 * k // 32),
+                           sum_threads=32 * _PS_WARPS)
 
 
 def gemm_wgrad_launch(m: int, k: int, n: int,
@@ -955,26 +987,28 @@ def gemm_dgrad(dy, w, a=None, act: int = ACT_NONE, ln=None):
 def ln_pullback(dh, x, g, ln_s, eps):
     """The LN pullback plus the residual from dh [M, K] f32 (the row kernel
     after `gemm_dgrad`'s f32 product): x, g [M, K] ->
-    (dx [M, K], dln_s [K] f32, dln_b [K] f32)."""
+    (dx [M, K], dln_s [K] f32, dln_b [K] f32). One bandwidth-bound pass
+    over the rows, then one fixed-order pass over its per-block column
+    sums (`ln_pullback_launch`)."""
     if not _on_cuda(dh):
         return _ln_pullback_ref(dh, x, g, ln_s, eps)
     m, k = dh.shape
-    if k % 32 or k > LN_PULLBACK_MAX_K:
-        raise ValueError(f"ln_pullback needs K % 32 == 0 and K <= "
-                         f"{LN_PULLBACK_MAX_K}; got K={k}")
+    _check_pullback_shape(m, k)
     if (dh.dtype != torch.float32 or not dh.is_contiguous()
-            or dh.device != x.device):
-        raise ValueError(f"dh must be contiguous f32 on {x.device}")
+            or dh.device != x.device or dh.data_ptr() % 16):
+        raise ValueError(f"dh must be contiguous 16-byte aligned f32 on "
+                         f"{x.device}")
     _mat(x, "x", (m, k), x)
     _mat(g, "g", (m, k), x)
     lns = _vec(ln_s, "ln_s", k, x)
+    geo = ln_pullback_launch(m, k, _sms(x))
     out = torch.empty_like(x)
-    work = _f32((2 * -(-m // 32), k), x)
+    work = _f32((geo.workspace // 4,), x)
     dlns, dlnb = _f32((k,), x), _f32((k,), x)
     err = _build.lib().mst_ln_pullback(
         dh.data_ptr(), x.data_ptr(), g.data_ptr(), lns.data_ptr(), float(eps),
-        out.data_ptr(), work.data_ptr(), dlns.data_ptr(), dlnb.data_ptr(), m,
-        k, _stream(x))
+        out.data_ptr(), work.data_ptr(), geo.workspace, dlns.data_ptr(),
+        dlnb.data_ptr(), m, k, _stream(x))
     _build.check(err, "mst_ln_pullback")
     _count(ln_pullback)
     return out, dlns, dlnb

@@ -28,6 +28,13 @@ On the TPU each sub-layer is one Pallas program (`_attn_i8_kernel`,
 - SwiGLU:    `ln_gemm_i8_swiglu` (LN + quantize + w12 + SiLU gate) ->
   [`quant_rows`] -> `gemm_i8_residual` (w3)
 
+`ln_gemm_i8` and `ln_gemm_i8_swiglu` are two kernels each: `ln_quant_rows`
+(LN and quantization once per row: the codes and, dynamic, the row scales)
+then an int8 TMA + wgmma GEMM on the codes with the dequantization
+epilogues. 8-bit wgmma reads both operands K-major, so the GEMM reads the
+weights as `q8t` [out, in], the K-major copy of `q8` that every `QDense`
+makes once, when the int8 tree is built.
+
 Every kernel wrapper takes its plain PyTorch version for a CPU tensor and
 launches its kernel (counting the launch) for a CUDA tensor. The plain
 versions round where the kernels and the Pallas bodies round: LN in f32,
@@ -53,6 +60,7 @@ from __future__ import annotations
 import copy
 import logging
 import math
+from types import SimpleNamespace
 
 import torch
 
@@ -121,9 +129,10 @@ def _dot_i8(a, w):
     return torch.matmul(a.double(), w.double())
 
 
-def _wd(x):
-    """The working precision of the plain versions: f32, or f64 for f64."""
-    return torch.float64 if x.dtype == torch.float64 else torch.float32
+def _wd(dtype):
+    """The working precision of the plain versions on inputs of `dtype`:
+    f32, or f64 for f64."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
 
 
 def _dequant(acc, wd, row_scale, scale, bias):
@@ -134,18 +143,19 @@ def _dequant(acc, wd, row_scale, scale, bias):
     return v * scale.to(wd).reshape(-1) + bias.to(wd).reshape(-1)
 
 
-def _quantize_ln(x, ln_s, ln_b, eps, static):
+def _quantize_ln(x, ln_s, ln_b, eps, static: bool = False):
     """LN(x) quantized: (codes, row scale [T] | None for static)."""
     h = _ln(x, ln_s, ln_b, eps)
     return (_quant_static(h), None) if static else _quant_rows(h)
 
 
 def _ln_gemm_i8_ref(x, ln_s, ln_b, q8, scale, bias, act: int, eps: float,
-                    static: bool = False, a_inv=None):
+                    static: bool = False, a_inv=None, q8t=None):
     """act(dequant(quant(LN(x)) @ q8)): ACT_NONE without `a_inv` -> in x's
     dtype (qkv); a GELU, or ACT_NONE with `a_inv` (the identity) -> its f32
-    value (dynamic) or clip(round(u * a_inv)) int8 (static)."""
-    wd = _wd(x)
+    value (dynamic) or clip(round(u * a_inv)) int8 (static). It takes its
+    wrapper's arguments; `q8t`, the kernel's K-major copy, is not read."""
+    wd = _wd(x.dtype)
     hq, hs = _quantize_ln(x, ln_s, ln_b, eps, static)
     v = _dequant(_dot_i8(hq, q8), wd, hs, scale, bias)
     if act == ACT_NONE and a_inv is None:
@@ -155,12 +165,36 @@ def _ln_gemm_i8_ref(x, ln_s, ln_b, q8, scale, bias, act: int, eps: float,
 
 
 def _ln_gemm_i8_swiglu_ref(x, ln_s, ln_b, q8, scale, bias, eps: float,
-                           static: bool = False, a_inv=None):
+                           static: bool = False, a_inv=None, q8t=None):
     """g = silu(h1) * h2 on the f32 dequantized [h1 | h2]: f32 (dynamic)
-    or clip(round(g * a_inv)) int8 (static)."""
-    wd = _wd(x)
+    or clip(round(g * a_inv)) int8 (static); `q8t` is not read."""
+    wd = _wd(x.dtype)
     hq, hs = _quantize_ln(x, ln_s, ln_b, eps, static)
     h1, h2 = _dequant(_dot_i8(hq, q8), wd, hs, scale, bias).chunk(2, dim=-1)
+    g = h1 * torch.sigmoid(h1) * h2
+    return _quant_static(g * a_inv.to(wd).reshape(())) if static else g
+
+
+def _gemm_i8_ref(hq, hs, q8t, scale, bias, act: int, dtype,
+                 static: bool = False, a_inv=None):
+    """The GEMM half of `ln_gemm_i8` on its codes: hq [M, K] int8 with row
+    scale hs [M] (None: static) against the K-major weights q8t [N, K] ->
+    act(dequant(hq @ q8t^T)), rounded and returned as `_ln_gemm_i8_ref`
+    does (`dtype`: the input's)."""
+    wd = _wd(dtype)
+    v = _dequant(_dot_i8(hq, q8t.t()), wd, hs, scale, bias)
+    if act == ACT_NONE and a_inv is None:
+        return v.to(dtype)
+    u = v if act == ACT_NONE else _gelu(v, act == ACT_GELU_TANH)
+    return _quant_static(u * a_inv.to(wd).reshape(())) if static else u
+
+
+def _gemm_i8_swiglu_ref(hq, hs, q8t, scale, bias, dtype, static: bool = False,
+                        a_inv=None):
+    """The GEMM half of `ln_gemm_i8_swiglu` on its codes against the
+    K-major w12^T [2F, K]: g = silu(h1) * h2 as `_ln_gemm_i8_swiglu_ref`."""
+    wd = _wd(dtype)
+    h1, h2 = _dequant(_dot_i8(hq, q8t.t()), wd, hs, scale, bias).chunk(2, -1)
     g = h1 * torch.sigmoid(h1) * h2
     return _quant_static(g * a_inv.to(wd).reshape(())) if static else g
 
@@ -173,7 +207,7 @@ def _quant_rows_ref(v, static: bool = False):
 
 def _gemm_i8_residual_ref(a, row_scale, q8, scale, bias, ls, x):
     """x + ls * dequant(a @ q8), the sum in f32, cast to x's dtype."""
-    wd = _wd(x)
+    wd = _wd(x.dtype)
     y = _dequant(_dot_i8(a, q8), wd, row_scale, scale, bias)
     if ls is not None:
         y = y * ls.to(wd)
@@ -263,13 +297,58 @@ def _row_scale(t, m, like):
     return t
 
 
-def _ln_i8_args(x, ln_s, ln_b, q8, scale, bias, n, name):
-    """The checked operands of the two `ln_gemm_i8` modes."""
-    m, k = x.shape
-    if k % 64 or k > 2048:
-        raise ValueError(f"{name} needs K % 64 == 0 and K <= 2048; got K={k}")
-    _mat(x, "x", (m, k), x)
-    _codes(q8, "q8", (k, n), x)
+# The int8 GEMM (csrc/ln_gemm_i8.cu on gemm_sm90.cuh): 128 x 128 output
+# tiles (gated: 64 gate columns, whose h1 and h2 panels of w12^T make the
+# 128 W rows of a tile), k in stages of 128; `ln_quant_rows` holds a row of
+# at most 4096 in registers, 8 rows a block.
+I8_BK, I8_MAX_K, _QR_ROWS = 128, 4096, 8
+
+
+def _check_i8_shape(m: int, k: int, n: int, gated: bool) -> None:
+    """Raise ValueError for an x [m, k] -> n (gated: n = F) that
+    `ln_gemm_i8` / `ln_gemm_i8_swiglu` do not take; the wrappers call it
+    before any launch."""
+    bn = fb.GEMM_BN // 2 if gated else fb.GEMM_BN
+    if (m < 1 or k < I8_BK or k % I8_BK or k > I8_MAX_K or n < bn
+            or n % bn):
+        name, width = (("ln_gemm_i8_swiglu", "F") if gated
+                       else ("ln_gemm_i8", "N"))
+        raise ValueError(f"{name} needs M >= 1, K % {I8_BK} == 0, K <= "
+                         f"{I8_MAX_K} and {width} % {bn} == 0; got M={m}, "
+                         f"K={k}, {width}={n}")
+
+
+def ln_gemm_i8_launch(m: int, k: int, n: int, gated: bool = False,
+                      sms: int = fb.H100_SMS) -> SimpleNamespace:
+    """The launch geometry of `ln_gemm_i8`'s GEMM (`gated`:
+    `ln_gemm_i8_swiglu`'s, n = F) at codes [m, k] on a card of `sms` SMs
+    (csrc/ln_gemm_i8.cu `mst_gemm_i8_geometry`): tiles, grid, threads,
+    stages, dynamic shared memory, k tiles, the first W^T row of tile 0's
+    second box (gated: F, its h2 panel; else 64) and `ln_quant_rows`'s
+    blocks. Raises ValueError where the kernels would."""
+    _check_i8_shape(m, k, n, gated)
+    tiles = -(-m // fb.GEMM_BM) * (n // (fb.GEMM_BN // 2 if gated
+                                         else fb.GEMM_BN))
+    return SimpleNamespace(tiles=tiles, grid=min(tiles, sms),
+                           threads=fb.GEMM_THREADS, stages=fb.GEMM_STAGES,
+                           smem=fb.GEMM_SMEM, k_tiles=k // I8_BK,
+                           second_box=n if gated else 64,
+                           quant_blocks=-(-m // _QR_ROWS))
+
+
+def _kmajor(q8, q8t, n, k, like, name):
+    """The K-major weights [n, k] int8 the GEMM reads (`QDense.q8t`)."""
+    if q8t is None:
+        raise ValueError(f"{name} on CUDA needs q8t, the K-major [out, in] "
+                         f"copy of q8 that QDense holds")
+    if tuple(q8.shape) != (k, n):
+        raise ValueError(f"q8 has shape {tuple(q8.shape)}, expected {(k, n)}")
+    return _codes(q8t, "q8t", (n, k), like)
+
+
+def _ln_i8_args(x, ln_s, ln_b, scale, bias, n):
+    """The checked vectors of the two `ln_gemm_i8` modes."""
+    k = x.shape[1]
     return (_vec(ln_s, "ln_s", k, x), _vec(ln_b, "ln_b", k, x),
             _vec(scale, "scale", n, x), _vec(bias, "bias", n, x))
 
@@ -283,23 +362,64 @@ def _out_mode(static, a_inv, like):
     return OUT_I8, _vec(a_inv, "a_inv", 1, like)
 
 
+def ln_quant_rows(x, ln_s, ln_b, eps: float, static: bool = False):
+    """LN(x) quantized once per row, the first kernel of `ln_gemm_i8` and
+    `ln_gemm_i8_swiglu`: x [M, K] bf16 -> (int8 codes [M, K], row scale [M]
+    f32), or with `static` (codes, None)."""
+    if not _on_cuda(x):
+        return _quantize_ln(x, ln_s, ln_b, eps, static)
+    m, k = x.shape
+    if m < 1 or k < 8 or k % 8 or k > I8_MAX_K:
+        raise ValueError(f"ln_quant_rows needs M >= 1, K % 8 == 0 and K <= "
+                         f"{I8_MAX_K}; got M={m}, K={k}")
+    _mat(x, "x", (m, k), x)
+    ln_s, ln_b = _vec(ln_s, "ln_s", k, x), _vec(ln_b, "ln_b", k, x)
+    q = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    hs = None if static else _f32((m,), x)
+    err = _build.lib().mst_ln_quant_rows(
+        x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), q.data_ptr(),
+        _ptr(hs), m, k, float(eps), _stream(x))
+    _build.check(err, "mst_ln_quant_rows")
+    ln_quant_rows.launches += 1
+    return q, hs
+
+
+def _gemm_i8(hq, hs, q8t, scale, bias, ainv, out, mode: int, act: int,
+             gated: bool) -> None:
+    """Launch the int8 GEMM on checked operands: codes hq [M, K], row scale
+    hs [M] | None, q8t [N, K] (gated: [2F, K]) into `out` (not counted:
+    `ln_gemm_i8` / `ln_gemm_i8_swiglu` count their calls)."""
+    m, k = hq.shape
+    n = out.shape[1]
+    lib = _build.lib()
+    args = (hq.data_ptr(), q8t.data_ptr(), _ptr(hs), scale.data_ptr(),
+            bias.data_ptr(), _ptr(ainv), out.data_ptr(), mode, m, k, n)
+    if gated:
+        _build.check(lib.mst_gemm_i8_swiglu(*args, _stream(out)),
+                     "mst_gemm_i8_swiglu")
+    else:
+        _build.check(lib.mst_gemm_i8(*args, int(act), _stream(out)),
+                     "mst_gemm_i8")
+
+
 def ln_gemm_i8(x, ln_s, ln_b, q8, scale, bias, act: int, eps: float,
-               static: bool = False, a_inv=None):
+               static: bool = False, a_inv=None, q8t=None):
     """x [M, K] bf16, q8 [K, N] int8 -> act(dequant(quant(LN(x)) @ q8)):
     bf16 for ACT_NONE (the qkv), the f32 GELU output (dynamic), or its
     static int8 codes clip(round(u * a_inv)) [M, N]; ACT_NONE with `a_inv`
     takes the identity for the GELU, so a static call gives the qkv's own
     codes (the int8 attention experiments,
-    `mst_tpu_torch.tools.bench_attn_i8`)."""
+    `mst_tpu_torch.tools.bench_attn_i8`). On CUDA the GEMM reads `q8t`
+    [N, K], the K-major copy of q8 (`QDense.q8t`)."""
     if not _on_cuda(x):
         return _ln_gemm_i8_ref(x, ln_s, ln_b, q8, scale, bias, act, eps,
                                static, a_inv)
     m, k = x.shape
     n = q8.shape[1]
-    if n % 128:
-        raise ValueError(f"ln_gemm_i8 needs N % 128 == 0; got N={n}")
-    ln_s, ln_b, scale, bias = _ln_i8_args(x, ln_s, ln_b, q8, scale, bias, n,
-                                          "ln_gemm_i8")
+    _check_i8_shape(m, k, n, False)
+    _mat(x, "x", (m, k), x)
+    q8t = _kmajor(q8, q8t, n, k, x, "ln_gemm_i8")
+    ln_s, ln_b, scale, bias = _ln_i8_args(x, ln_s, ln_b, scale, bias, n)
     if act == ACT_NONE and a_inv is None:
         mode, ainv = OUT_BF16, None
         out = torch.empty((m, n), dtype=x.dtype, device=x.device)
@@ -307,37 +427,34 @@ def ln_gemm_i8(x, ln_s, ln_b, q8, scale, bias, act: int, eps: float,
         mode, ainv = _out_mode(static, a_inv, x)
         out = torch.empty((m, n), device=x.device, dtype=torch.int8
                           if mode == OUT_I8 else torch.float32)
-    err = _build.lib().mst_ln_gemm_i8(
-        x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), q8.data_ptr(),
-        scale.data_ptr(), bias.data_ptr(), _ptr(ainv), out.data_ptr(), mode,
-        int(not static), m, k, n, float(eps), int(act), _stream(x))
-    _build.check(err, "mst_ln_gemm_i8")
+    hq, hs = ln_quant_rows(x, ln_s, ln_b, eps, static)
+    _gemm_i8(hq, hs, q8t, scale, bias, ainv, out, mode, act, False)
     ln_gemm_i8.launches += 1
     return out
 
 
 def ln_gemm_i8_swiglu(x, ln_s, ln_b, q8, scale, bias, eps: float,
-                      static: bool = False, a_inv=None):
+                      static: bool = False, a_inv=None, q8t=None):
     """The gated int8 first half: x [M, K] bf16, q8 = w12 [K, 2F] int8 ->
-    g = silu(h1) * h2 [M, F] in f32 (dynamic) or its static int8 codes."""
+    g = silu(h1) * h2 [M, F] in f32 (dynamic) or its static int8 codes. On
+    CUDA the GEMM reads `q8t` = w12^T [2F, K] (`QDense.q8t`)."""
     if not _on_cuda(x):
         return _ln_gemm_i8_swiglu_ref(x, ln_s, ln_b, q8, scale, bias, eps,
                                       static, a_inv)
     m, k = x.shape
     f2 = q8.shape[1]
-    if f2 % 128:
-        raise ValueError(f"ln_gemm_i8_swiglu needs F % 64 == 0; got "
-                         f"F={f2 / 2:g}")
-    ln_s, ln_b, scale, bias = _ln_i8_args(x, ln_s, ln_b, q8, scale, bias, f2,
-                                          "ln_gemm_i8_swiglu")
+    if f2 % 2:
+        raise ValueError(f"ln_gemm_i8_swiglu needs an even w12 width; got "
+                         f"{f2}")
+    _check_i8_shape(m, k, f2 // 2, True)
+    _mat(x, "x", (m, k), x)
+    q8t = _kmajor(q8, q8t, f2, k, x, "ln_gemm_i8_swiglu")
+    ln_s, ln_b, scale, bias = _ln_i8_args(x, ln_s, ln_b, scale, bias, f2)
     mode, ainv = _out_mode(static, a_inv, x)
     out = torch.empty((m, f2 // 2), device=x.device, dtype=torch.int8
                       if mode == OUT_I8 else torch.float32)
-    err = _build.lib().mst_ln_gemm_i8_swiglu(
-        x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), q8.data_ptr(),
-        scale.data_ptr(), bias.data_ptr(), _ptr(ainv), out.data_ptr(), mode,
-        int(not static), m, k, f2 // 2, float(eps), _stream(x))
-    _build.check(err, "mst_ln_gemm_i8_swiglu")
+    hq, hs = ln_quant_rows(x, ln_s, ln_b, eps, static)
+    _gemm_i8(hq, hs, q8t, scale, bias, ainv, out, mode, ACT_NONE, True)
     ln_gemm_i8_swiglu.launches += 1
     return out
 
@@ -415,7 +532,7 @@ def fused_attention_sublayer_i8(x, ln_s, ln_b, qkv, proj, ls, num_heads,
     n, s, e = x.shape
     x2 = x.reshape(n * s, e)
     t = ln_gemm_i8(x2, ln_s, ln_b, qkv.q8, qkv.scale, qkv.bias, ACT_NONE,
-                   eps, static)
+                   eps, static, q8t=qkv.q8t)
     rope = dict(rope_cos=rope_cos, rope_sin=rope_sin)
     if carry is not None:
         out = mhsa_rollout(t, carry, n, s, num_heads, want_row=want_row,
@@ -445,7 +562,7 @@ def fused_mlp_sublayer_i8(x, ln_s, ln_b, fc1, fc2, ls, approximate,
     static = fc2.a_inv is not None
     act = ACT_GELU_TANH if approximate else ACT_GELU_ERF
     u = ln_gemm_i8(x2, ln_s, ln_b, fc1.q8, fc1.scale, fc1.bias, act, eps,
-                   static, fc2.a_inv)
+                   static, fc2.a_inv, q8t=fc1.q8t)
     uq, us = (u, None) if static else quant_rows(u)
     y = gemm_i8_residual(uq, us, fc2.q8, fc2.scale, fc2.bias, ls, x2)
     fused_mlp_sublayer_i8.calls += 1
@@ -462,7 +579,7 @@ def fused_swiglu_sublayer_i8(x, ln_s, ln_b, w12, w3, ls, eps=1e-6):
     x2 = x.reshape(n * s, e)
     static = w3.a_inv is not None
     g = ln_gemm_i8_swiglu(x2, ln_s, ln_b, w12.q8, w12.scale, w12.bias, eps,
-                          static, w3.a_inv)
+                          static, w3.a_inv, q8t=w12.q8t)
     gq, gs = (g, None) if static else quant_rows(g)
     y = gemm_i8_residual(gq, gs, w3.q8, w3.scale, w3.bias, ls, x2)
     fused_swiglu_sublayer_i8.calls += 1
@@ -672,8 +789,10 @@ def quantize_mst_int8(model, calib_source=None, margin: float = 1.05,
 
 
 # `.launches` of each kernel wrapper, `.calls` of each sub-layer, counted
-# with the bf16 ones (`fused_block.launch_counts()` / `sublayer_calls()`).
-KERNEL_WRAPPERS = (ln_gemm_i8, ln_gemm_i8_swiglu, quant_rows,
+# with the bf16 ones (`fused_block.launch_counts()` / `sublayer_calls()`);
+# `ln_quant_rows` counts once per `ln_gemm_i8` / `ln_gemm_i8_swiglu` call
+# (their LN half).
+KERNEL_WRAPPERS = (ln_quant_rows, ln_gemm_i8, ln_gemm_i8_swiglu, quant_rows,
                    gemm_i8_residual)
 SUBLAYER_WRAPPERS = (fused_attention_sublayer_i8, fused_mlp_sublayer_i8,
                      fused_swiglu_sublayer_i8)

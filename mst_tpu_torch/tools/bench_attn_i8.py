@@ -115,7 +115,7 @@ def params(device, wqkv, wproj):
 
     def dense(q8, cols):
         return SimpleNamespace(
-            q8=c.tensor(q8, device), a_inv=None,
+            q8=c.tensor(q8, device), q8t=c.tensor(q8.T, device), a_inv=None,
             scale=torch.full((cols,), 2e-3, device=device),
             bias=torch.zeros(cols, device=device))
 
@@ -139,7 +139,7 @@ def _ln_i8(x2, p, dense, codes: bool):
     `codes` its int8 codes clip(round(qkv))."""
     return fq.ln_gemm_i8(x2, p.ln_s, p.ln_b, dense.q8, dense.scale,
                          dense.bias, fb.ACT_NONE, EPS, static=True,
-                         a_inv=p.one if codes else None)
+                         a_inv=p.one if codes else None, q8t=dense.q8t)
 
 
 def sublayer(x, p, num_heads: int, variant: str, scale: float = SCALE):

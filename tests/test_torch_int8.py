@@ -303,9 +303,24 @@ def _flat(tree):
 
 
 def _leaves(model):
-    """A quantized port model's parameters and buffers, flax-keyed."""
+    """A quantized port model's parameters and buffers, flax-keyed: its
+    state dict, which leaves out each `QDense`'s K-major copy `q8t`
+    (`_check_kmajor` holds that to `q8.T`)."""
     return {k.replace(".", "/"): v.detach().numpy()
-            for k, v in [*model.named_parameters(), *model.named_buffers()]}
+            for k, v in model.state_dict().items()}
+
+
+def _check_kmajor(model):
+    """Every `QDense` of `model` holds `q8t` = q8.T, contiguous int8 [out,
+    in], on q8's device, beside the JAX node's leaves. -> how many."""
+    nodes = [m for m in model.modules() if isinstance(m, QDense)]
+    for m in nodes:
+        assert m.q8t.dtype == torch.int8 and m.q8t.is_contiguous()
+        assert m.q8t.device == m.q8.device
+        assert tuple(m.q8t.shape) == tuple(m.q8.shape)[::-1]
+        assert torch.equal(m.q8t, m.q8.t())
+        assert "q8t" not in m.state_dict()
+    return len(nodes)
 
 
 @pytest.mark.parametrize("v3", [False, True])
@@ -349,14 +364,19 @@ def test_quantize_mst_int8_matches_mst_tpu_leaf_by_leaf(static,
             np.testing.assert_array_equal(ours[k], v, err_msg=k)
         else:  # folded from calibrated abs-maxima (rtol 1e-5 above)
             np.testing.assert_allclose(ours[k], v, rtol=2e-5, err_msg=k)
+    # the K-major copy beside every quantized dense (4 a block: qkv, proj,
+    # fc1, fc2)
+    assert _check_kmajor(qm) == 4 * (2 if quantize_last else 1)
     if not static:  # the encoder alone, as `mst_tpu` quantizes it
-        enc = _leaves(tq.quantize_encoder_int8(tm.encoder,
-                                               quantize_last=quantize_last))
+        qenc = tq.quantize_encoder_int8(tm.encoder,
+                                        quantize_last=quantize_last)
+        enc = _leaves(qenc)
         want = _flat(jq.quantize_encoder_int8(_tree(flat)["encoder"],
                                               quantize_last=quantize_last))
         assert enc.keys() == want.keys()
         for k, v in want.items():
             np.testing.assert_array_equal(enc[k], v, err_msg=k)
+        assert _check_kmajor(qenc) == 4 * (2 if quantize_last else 1)
     # the source model is untouched, and the last block's kind
     assert isinstance(tm.encoder.blocks_0.attn.qkv.kernel, torch.nn.Parameter)
     assert isinstance(qm.encoder.blocks_1.attn.qkv, QDense) == quantize_last
