@@ -11,15 +11,17 @@ limit:
 1. device: the card, `nvidia-smi` name and power limit, TF32 off;
 2. build: `nvcc` builds `mst_tpu_torch/csrc/*.cu` (timed); `-Xptxas -v`
    for the kernels of `ln_gemm.cu`, `gemm_dgrad.cu` (with `ln_pullback`),
-   `ln_gemm_i8.cu`, `gemm_wgrad.cu`, `gemm_residual.cu`, `mhsa.cu`,
-   `mhsa_bwd.cu`, `flash_fwd.cu` and `flash_bwd.cu` (registers, no
-   spills, no "wgmma serialized" line; a source compiled on its own for
+   `ln_gemm_i8.cu`, `gemm_i8_residual.cu`, `gemm_wgrad.cu`,
+   `gemm_residual.cu`, `mhsa.cu`, `mhsa_bwd.cu`, `flash_fwd.cu` and
+   `flash_bwd.cu` (registers, no spills, no "wgmma serialized" line; a
+   source compiled on its own for
    the log where the library was built before the run), their wgmma / TMA
    instructions in the SASS (`cuobjdump`: HGMMA, UTMALDG; no WMMA /
    mma.sync HMMA left in `gemm_dgrad` / `gemm_wgrad` / `gemm_residual` /
    `gemm_dls` / `mhsa_bwd` / the flash kernels, HMMA in `mhsa` only in its
-   one-pass instances' mma.sync P.V; the int8 GEMM of `ln_gemm_i8` on the
-   int8 wgmma, IGMMA with UTMALDG and no IMMA), `fused_block.ln_gemm_launch`,
+   one-pass instances' mma.sync P.V; the int8 GEMMs of `ln_gemm_i8` and
+   `gemm_i8_residual` on the int8 wgmma, IGMMA with UTMALDG and no IMMA),
+   `fused_block.ln_gemm_launch` (at the card's SM count),
    `gemm_dgrad_launch`, `gemm_wgrad_launch`, `gemm_residual_launch`,
    `ln_pullback_launch`, `fused_int8.ln_gemm_i8_launch`, `mhsa_launch` and
    `attention.flash_launch` against the kernels' own launch geometry
@@ -190,8 +192,11 @@ and `predict --int8 [--int8_calib N]`):
    forward vs its bf16 kernel path, launch counts; then the int8 kernels'
    and chains' times against their plain versions, bounds and library
    calls (`torch._int_mm` between the same LN, quantization and
-   dequantization in torch ops), B=8 vol/s of ViT-S dynamic and static and
-   of giant2 beside the bf16 path, peak memory, `torch.profiler` tables.
+   dequantization in torch ops; the two int8 products are timed in phases
+   45 and 46), B=8 vol/s of ViT-S dynamic and static and of giant2 beside
+   the bf16 path, peak memory, `torch.profiler` tables. Phase 32 holds the
+   int8 kernel path's saliency to the oracle rule with each distance
+   pooled over the batch's volumes (ROADMAP C5).
 
 Phases 34-37 drive slices above 512 tokens (queue B rows 12-16), which
 take the composed path (`DinoSliceClassifier.forward`: every block in
@@ -343,6 +348,22 @@ calls for the same work (`native_layer_norm_backward`; LN, quantization,
 kernels' times (`OLD_PB_MS`, `OLD_I8_MS`). The kernels line's times of
 both are phase 45's (phases 26, 33 and 41 no longer time them).
 
+Phase 46 holds the redesigned `gemm_i8_residual` (the int8 TMA + wgmma
+mainloop on the codes and the K-major `q8t`, x read into the staging tile
+by `cp.async` while the product runs, the dequantization, LayerScale and
+residual rounded op by op) the same way: `gemm_i8_residual_launch` against
+the kernel's `mst_i8_residual_geometry` at every K from 128 to 4096 on this
+card's SM count; ViT-S proj / fc2 and giant2 proj / w3 at M = 65,792, 771
+and 1, dynamic and static, with and without LayerScale, against
+`_gemm_i8_residual_ref` with 0 difference, each first in a fresh host
+thread, then again for the same bits; two planted faults (the second W box
+64 rows further down, each row's scale from the row before) that must
+break it; then the times at the path shapes interleaved with the library
+call for the same function (`torch._int_mm`, dequantization, `addcmul`)
+beside the WMMA kernel's times (`OLD_I8R_MS`), with the SM clock. The
+kernels line's times of `gemm_i8_residual` are phase 46's (phase 33 no
+longer times it).
+
 Each phase prints its wall time. The line before the last is `{"kernels":
 [...]}`: per kernel its launches on the main path, its largest error, its
 time and its plain version's, the bound (the least time the card could
@@ -358,6 +379,7 @@ import ctypes
 import csv
 import functools
 import gzip
+import inspect
 import io
 import itertools
 import json
@@ -453,9 +475,14 @@ SAL_CHEAP_REL = 0.01  # saliency, MST_NO_CHEAP_LAST row vs the cheap row
 # path's. A fixed limit on kernel vs plain could not be set: static int8
 # codes move by whole steps wherever a bf16 rounding flips, and over six
 # seeded weight draws the kernel-vs-plain distance of the `last` map read
-# 0.036-0.088 (ROADMAP C5; PERF.md §6 records both rules' spread). A planted
-# fault (each slice's saliency data from the neighbouring slice) must break
-# the rule in every plane mode; the kernel-vs-plain distance is printed.
+# 0.036-0.088 (ROADMAP C5; PERF.md §6 records both rules' spread). The
+# distance is pooled as C2 pools the losses over batches: each volume's
+# max |saliency - oracle| relative to that volume's largest oracle value,
+# averaged over the batch's volumes (the batch's single worst volume, the
+# rule's first statistic, read the ratio 0.71-1.57 over six draws, one of
+# 24 readings above the limit). A planted fault (each slice's saliency data
+# from the neighbouring slice) must break the rule in every plane mode; the
+# worst-volume ratio and the kernel-vs-plain distance are printed.
 SAL_I8_RATIO = 1.5
 PLANE_MODES = ("last", "rollout", "rollout_abnar")
 N_CASES = 8  # Synthetic test volumes the predict CLI scores
@@ -943,7 +970,8 @@ def int8_cases(dev, rng, fb, fq, layers):
     inputs are folded as `_fold_static_scales` folds, from this data's own
     abs-maxima with the calibration margin 1.05. The library thunks are
     the same function in torch ops around `torch._int_mm` (LN, quantization,
-    the integer product, dequantization), timed as a yardstick only."""
+    the integer product, dequantization), timed as a yardstick only
+    (`gemm_i8_residual`'s in phase 46)."""
     bf, eps, rel = torch.bfloat16, 1e-6, 3e-3  # rel: a chain's f32 outputs
     E4, EG, FG, HG = 4 * E, 1536, 4096, 24
     M = N_SLICES * S
@@ -978,6 +1006,9 @@ def int8_cases(dev, rng, fb, fq, layers):
         sc = v.float().abs().amax(-1, keepdim=True).clamp_min(1e-12) / 127.0
         return torch.round(v.float() / sc).to(torch.int8), sc
 
+    def lib_quant_static(v):
+        return torch.round(v.float()).clamp(-127, 127).to(torch.int8)
+
     def lib_first(x2, ln_s, ln_b, nd, act):
         k = x2.shape[1]
         q, sc = lib_quant(F.layer_norm(x2.float(), (k,), ln_s, ln_b, eps))
@@ -986,10 +1017,6 @@ def int8_cases(dev, rng, fb, fq, layers):
             h1, h2 = v.chunk(2, dim=-1)
             return F.silu(h1) * h2
         return v.to(bf) if act is None else F.gelu(v, approximate=act)
-
-    def lib_second(a, rs, nd, lsv, x2):
-        y = torch._int_mm(a, nd.q8).float() * rs * nd.scale + nd.bias
-        return (x2.float() + y * lsv).to(bf)
 
     # -- ViT-S: [256, 257, 384] ------------------------------------------
     x = rand(N_SLICES, S, E, dtype=bf)
@@ -1045,15 +1072,15 @@ def int8_cases(dev, rng, fb, fq, layers):
     add("quant_rows[u]", *quant, u)
     second = (fq.gemm_i8_residual, fq._gemm_i8_residual_ref)
     add("gemm_i8_residual[proj,ls]", *second, oq, osc, proj.q8, proj.scale,
-        proj.bias, ls, x2)
+        proj.bias, ls, x2, q8t=proj.q8t)
     add("gemm_i8_residual[proj,no_ls]", *second, oq, osc, proj.q8,
-        proj.scale, proj.bias, None, x2)
+        proj.scale, proj.bias, None, x2, q8t=proj.q8t)
     add("gemm_i8_residual[proj,ls,static]", *second, oq8, None, proj8.q8,
-        proj8.scale, proj8.bias, ls, x2)
+        proj8.scale, proj8.bias, ls, x2, q8t=proj8.q8t)
     add("gemm_i8_residual[fc2,ls]", *second, uq, us, fc2.q8, fc2.scale,
-        fc2.bias, ls, x2)
+        fc2.bias, ls, x2, q8t=fc2.q8t)
     add("gemm_i8_residual[fc2,ls,static]", *second, uq8, None, fc28.q8,
-        fc28.scale, fc28.bias, ls, x2)
+        fc28.scale, fc28.bias, ls, x2, q8t=fc28.q8t)
     cost.update({
         "ln_gemm_i8[qkv]": i8_cost(M, E, 3 * E, 2, 2, 4 * 5 * E),
         "ln_gemm_i8[qkv,static]": i8_cost(M, E, 3 * E, 2, 2, 4 * 5 * E),
@@ -1078,11 +1105,8 @@ def int8_cases(dev, rng, fb, fq, layers):
         "ln_gemm_i8[fc1,gelu_tanh]": functools.partial(lib_first, x2, ln_s,
                                                        ln_b, fc1, "tanh"),
         "quant_rows[o]": functools.partial(lib_quant, o),
+        "quant_rows[o,static]": functools.partial(lib_quant_static, o8),
         "quant_rows[u]": functools.partial(lib_quant, u),
-        "gemm_i8_residual[proj,ls]": functools.partial(
-            lib_second, oq, osc[:, None], proj, ls, x2),
-        "gemm_i8_residual[fc2,ls]": functools.partial(
-            lib_second, uq, us[:, None], fc2, ls, x2),
     })
 
     # the sub-layers (f32 outputs: rows, carry, Abnar factor within `rel`)
@@ -1157,9 +1181,9 @@ def int8_cases(dev, rng, fb, fq, layers):
         w128.q8, w128.scale, w128.bias, eps, True, w38.a_inv, q8t=w128.q8t)
     add("quant_rows[g]", *quant, g)
     add("gemm_i8_residual[w3,ls]", *second, gq, gs, w3.q8, w3.scale, w3.bias,
-        lsg, xg2)
+        lsg, xg2, q8t=w3.q8t)
     add("gemm_i8_residual[w3,ls,static]", *second, gq8, None, w38.q8,
-        w38.scale, w38.bias, lsg, xg2)
+        w38.scale, w38.bias, lsg, xg2, q8t=w38.q8t)
     swiglu = (fq.fused_swiglu_sublayer_i8, fq._swiglu_i8_ref)
     add("swiglu_sublayer_i8[ls]", *swiglu, xg, lng_s, lng_b, w12, w3, lsg)
     add("swiglu_sublayer_i8[ls,static]", *swiglu, xg, lng_s8, lng_b8, w128,
@@ -1181,8 +1205,6 @@ def int8_cases(dev, rng, fb, fq, layers):
         "ln_gemm_i8_swiglu[w12]": functools.partial(lib_first, xg2, lng_s,
                                                     lng_b, w12, "swiglu"),
         "quant_rows[g]": functools.partial(lib_quant, g),
-        "gemm_i8_residual[w3,ls]": functools.partial(
-            lib_second, gq, gs[:, None], w3, lsg, xg2),
     })
     return cases, cost, library
 
@@ -1875,16 +1897,17 @@ def row20_yardsticks(tag, dev, n, s, e, h, depth, eps) -> None:
 # source -> {kernel: instances}. Their SASS must hold wgmma and TMA loads;
 # those of `gemm_dgrad`, `gemm_wgrad`, `gemm_residual`, `gemm_dls`,
 # `mhsa_bwd` and the flash kernels no WMMA / mma.sync HMMA either; the int8
-# GEMM of `ln_gemm_i8.cu` (SASS_I8) the int8 wgmma (IGMMA) and no IMMA
-# (int8 WMMA / mma.sync) or HGMMA. ptxas must not serialize their wgmma
-# ("wgmma.mma_async instructions are serialized": a `Potential Performance
-# Loss` line of `-Xptxas -v`).
+# GEMMs of `ln_gemm_i8.cu` and `gemm_i8_residual.cu` (SASS_I8) the int8
+# wgmma (IGMMA) and no IMMA (int8 WMMA / mma.sync) or HGMMA. ptxas must not
+# serialize their wgmma ("wgmma.mma_async instructions are serialized": a
+# `Potential Performance Loss` line of `-Xptxas -v`).
 PTXAS_ENTRIES = {
     "ln_gemm.cu": {"gemm_ln_kernel": 4, "ln_rows_kernel": 5},
     "gemm_dgrad.cu": {"gemm_dgrad_kernel": 4, "ln_pullback_kernel": 6,
                       "ln_pullback_sum_kernel": 1},
     "ln_gemm_i8.cu": {"gemm_i8_kernel": 5, "probe_i8_kernel": 2,
                       "ln_quant_rows_kernel": 5},
+    "gemm_i8_residual.cu": {"gemm_i8_residual_kernel": 1},
     "gemm_wgrad.cu": {"gemm_wgrad_kernel": 1, "probe_kernel": 4},
     "gemm_residual.cu": {"gemm_residual_kernel": 4, "gemm_dls_kernel": 1},
     "mhsa.cu": {"mhsa_kernel": 20},
@@ -1898,7 +1921,8 @@ SASS_GEMMS = {"gemm_ln_kernel": 4, "gemm_dgrad_kernel": 4,
               "mhsa_kernel": 20, "mhsa_bwd_dq_kernel": 2,
               "mhsa_bwd_dkv_kernel": 2, "flash_fwd_kernel": 1,
               "flash_bwd_dq_kernel": 1, "flash_bwd_dkv_kernel": 1}
-SASS_I8 = {"gemm_i8_kernel": 5, "probe_i8_kernel": 2}
+SASS_I8 = {"gemm_i8_kernel": 5, "probe_i8_kernel": 2,
+           "gemm_i8_residual_kernel": 1}
 # mhsa's one-pass instances (template flag TWO false) run P.V by mma.sync
 # (HMMA: 17 k steps x 8 n tiles a warp at S = 257); every other instance
 # of these kernels has no HMMA.
@@ -2009,6 +2033,7 @@ def check_gemm_geometry(tag, fb, lib) -> None:
     (and the backward GEMMs' splits, rows per split, workspace bytes;
     `gemm_dls`'s rows of partials), at the path's widths and row counts."""
     m_path = N_SLICES * S
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for m in (m_path, *RAGGED_M):
         for k in LN_GEMM_WIDTHS:
             for n, gated in ((3 * k, False), (4 * k, False),
@@ -2016,20 +2041,19 @@ def check_gemm_geometry(tag, fb, lib) -> None:
                 geo = (ctypes.c_int * 5)()
                 err = lib.mst_gemm_geometry(m, k, n, int(gated), geo)
                 check(err == 0, f"mst_gemm_geometry({m}, {k}, {n}): {err}")
-                mine = fb.ln_gemm_launch(m, k, n, gated)
+                mine = fb.ln_gemm_launch(m, k, n, gated, sms)
                 want = (mine.tiles, mine.grid, mine.threads, mine.stages,
                         mine.smem)
                 check(tuple(geo) == want, f"GEMM geometry at [{m}, {k}] -> "
                       f"{n} (gated {gated}): kernel {tuple(geo)}, "
                       f"ln_gemm_launch {want}")
-    geo = fb.ln_gemm_launch(m_path, 1536, LN_GEMM_F, True)
+    geo = fb.ln_gemm_launch(m_path, 1536, LN_GEMM_F, True, sms)
     print(f"{tag} GEMM geometry: ln_gemm_launch equals the kernel's "
           f"mst_gemm_geometry at K = {LN_GEMM_WIDTHS}, M = {m_path} and "
-          f"{RAGGED_M} (giant2 w12: {geo.tiles} tiles on {geo.grid} CTAs of "
-          f"{geo.threads} threads, {geo.stages} stages, {geo.smem} bytes of "
-          f"shared memory)")
+          f"{RAGGED_M} on {sms} SMs (giant2 w12: {geo.tiles} tiles on "
+          f"{geo.grid} CTAs of {geo.threads} threads, {geo.stages} stages, "
+          f"{geo.smem} bytes of shared memory)")
     # the backward GEMMs: every product of the paths at every row count
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     f_ = LN_GEMM_F
     for m in BWD_M:
         for e in LN_GEMM_WIDTHS:
@@ -3587,6 +3611,18 @@ OLD_I8_MS = {"ln_gemm_i8[qkv]": 1.2149, "ln_gemm_i8[qkv,static]": 1.0015,
              "ln_gemm_i8[fc1,gelu_tanh,static]": 1.3104,
              "ln_gemm_i8_swiglu[w12]": 28.8196,
              "ln_gemm_i8_swiglu[w12,static]": 23.1355}
+# Phase 46: the WMMA `gemm_i8_residual`'s times at the path shapes (PERF.md
+# §6: the mean of two readings by `i8_residual_times` of the tree before
+# the rewrite, in the call that timed the new kernel, on an H100 80GB HBM3
+# at 700 W), printed beside the new ones.
+OLD_I8R_MS = {"gemm_i8_residual[proj,ls]": 0.2443,
+              "gemm_i8_residual[proj,ls,static]": 0.2274,
+              "gemm_i8_residual[fc2,ls]": 0.6538,
+              "gemm_i8_residual[fc2,ls,static]": 0.6462,
+              "gemm_i8_residual[proj,E=1536,ls]": 2.3709,
+              "gemm_i8_residual[proj,E=1536,ls,static]": 2.3734,
+              "gemm_i8_residual[w3,ls]": 5.8193,
+              "gemm_i8_residual[w3,ls,static]": 5.8272}
 
 
 def inference(fn):
@@ -3911,17 +3947,25 @@ def pullback_i8_phase(tag, dev, fb, fq, layers):
 
             def library():
                 h = F.layer_norm(x.float(), (k,), ln_s, ln_b, eps)
-                s_ = h.abs().amax(-1, keepdim=True).clamp_min(1e-12) / 127.0
-                v = (torch._int_mm(torch.round(h / s_).to(torch.int8), nd.q8)
-                     .float() * s_ * nd.scale + nd.bias)
+                if static:  # the fixed scale, folded into ln_s / ln_b
+                    q, s_ = torch.round(h).clamp(-127, 127).to(torch.int8), 1.0
+                else:
+                    s_ = (h.abs().amax(-1, keepdim=True).clamp_min(1e-12)
+                          / 127.0)
+                    q = torch.round(h / s_).to(torch.int8)
+                v = torch._int_mm(q, nd.q8).float() * s_ * nd.scale + nd.bias
                 if gated:
                     h1, h2 = v.chunk(2, dim=-1)
-                    return F.silu(h1) * h2
-                return (v.to(bf) if act == fb.ACT_NONE
-                        else F.gelu(v, approximate="tanh"))
-            fns = {"chain": chain, "ln_quant_rows": quant, "GEMM": gemm}
-            if not static:
-                fns["library"] = library
+                    v = F.silu(h1) * h2
+                elif act == fb.ACT_NONE:
+                    return v.to(bf)
+                else:
+                    v = F.gelu(v, approximate="tanh")
+                if ai is None:
+                    return v
+                return torch.round(v * ai).clamp(-127, 127).to(torch.int8)
+            fns = {"chain": chain, "ln_quant_rows": quant, "GEMM": gemm,
+                   "library": library}
             t = time_interleaved(fns, clocks)
             pm_ = time_ms(plain, n=5, warmup=1)
             out_bytes = {fq.OUT_I8: 1, fq.OUT_BF16: 2, fq.OUT_F32: 4}[mode]
@@ -3932,11 +3976,9 @@ def pullback_i8_phase(tag, dev, fb, fq, layers):
             ops = 2 * m_path * k * n
             b_ms, b_by = bound([cost[name]])
             old = OLD_I8_MS.get(name)
-            lib = ""
-            if "library" in t:
-                lib_ms[name] = t["library"].ms
-                lib = (f"; library {t['library'].ms:.4f} ms (chain / library "
-                       f"{km / t['library'].ms:.3f})")
+            lib_ms[name] = t["library"].ms
+            lib = (f"; library {t['library'].ms:.4f} ms (chain / library "
+                   f"{km / t['library'].ms:.3f})")
             print(f"{tag} time {name} [{m_path}, {k}] -> {n}: chain "
                   f"{km:.4f} ms ({ops / km / 1e9:.1f} TOP/s; rounds "
                   f"{t['chain'].lo:.4f}-{t['chain'].hi:.4f}); ln_quant_rows "
@@ -3958,6 +4000,194 @@ def pullback_i8_phase(tag, dev, fb, fq, layers):
                           f"{timed[qname][1]:.4f} ms, bound {qb:.4f} ms by "
                           f"{qby}, library none (no one call quantizes)")
             del x, nd, hq, hs, out
+            torch.cuda.empty_cache()
+    return timed, cost, lib_ms
+
+
+# -- phase 46: `gemm_i8_residual` on the int8 TMA + wgmma mainloop ---------
+
+# (label, K, N) of the int8 second products: ViT-S proj and fc2, giant2
+# proj and w3
+I8R_SHAPES = (("proj", E, E), ("fc2", 4 * E, E), ("proj,E=1536", 1536, 1536),
+              ("w3", LN_GEMM_F, 1536))
+
+
+def i8r_inputs(dev, fq, layers, m, k, n, seed):
+    """Seeded inputs of `gemm_i8_residual` at codes [m, k] -> [m, n]: the
+    per-token codes and row scales of a standard normal hidden (dynamic),
+    its static codes under a calibrated per-tensor scale (abs-max x 1.05 /
+    127, folded into the column scale), x bf16, a quantized weight and a
+    LayerScale. -> (dynamic (a, rs, node), static (a, None, node), x,
+    ls)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn(m, k, generator=gen, device=dev)
+    a, rs = fq._quant_rows_ref(h)
+    s_ = h.abs().max().item() * 1.05 / 127.0
+    a8 = fq._quant_rows_ref(h / s_, True)
+    del h
+    q, sc = fq.quantize_weight_int8(
+        torch.randn(k, n, generator=gen, device=dev) * k ** -0.5)
+    nd = layers.QDense(q, sc, 0.1 * torch.randn(n, generator=gen, device=dev))
+    nd8 = layers.QDense(q, sc * s_, nd.bias)
+    x = torch.randn(m, n, generator=gen, device=dev).to(torch.bfloat16)
+    ls = 1.0 + 0.1 * torch.randn(n, generator=gen, device=dev)
+    return (a, rs, nd), (a8, None, nd8), x, ls
+
+
+def i8r_call(fq, a, rs, nd, ls, x):
+    """`fq.gemm_i8_residual` on these operands, with the K-major weights
+    where the wrapper takes them (an earlier tree's wrapper read q8)."""
+    kw = ({"q8t": nd.q8t} if "q8t" in inspect.signature(
+        fq.gemm_i8_residual).parameters else {})
+    return fq.gemm_i8_residual(a, rs, nd.q8, nd.scale, nd.bias, ls, x, **kw)
+
+
+def i8_residual_phase(tag, dev, fq, layers, lib):
+    """Phase 46: `gemm_i8_residual` at every path shape (I8R_SHAPES) at the
+    B=8 rows and the ragged 771 and 1, dynamic and static, with and without
+    LayerScale, against `_gemm_i8_residual_ref` with 0 difference (the
+    integer product is exact and the epilogue rounds as the plain version's
+    ops do): each first in a fresh host thread, then again for the same
+    bits; two planted faults (the second W box 64 rows further down, each
+    row's scale from the row before) that must break it; and
+    `fq.gemm_i8_residual_launch` against the kernel's
+    `mst_i8_residual_geometry` on this card."""
+    stamp(tag, "46")
+    torch.cuda.empty_cache()
+    m_path = N_SLICES * S
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for m in (*BWD_M, 1):
+        for k in range(fq.I8_BK, 4096 + 1, fq.I8_BK):
+            for n in (384, 1536):
+                geo = (ctypes.c_int * 7)()
+                err = lib.mst_i8_residual_geometry(m, k, n, geo)
+                check(err == 0, f"mst_i8_residual_geometry({m}, {k}, {n}): "
+                      f"{err}")
+                mine = fq.gemm_i8_residual_launch(m, k, n, sms)
+                want = (mine.tiles, mine.grid, mine.threads, mine.stages,
+                        mine.smem, mine.k_tiles, mine.second_box)
+                check(tuple(geo) == want, f"mst_i8_residual_geometry at "
+                      f"M={m}, {k} -> {n}: kernel {tuple(geo)}, mirror {want}")
+    w3 = fq.gemm_i8_residual_launch(m_path, LN_GEMM_F, 1536, sms)
+    print(f"{tag} gemm_i8_residual geometry: gemm_i8_residual_launch equals "
+          f"the kernel's mst_i8_residual_geometry at K = 128 .. 4096, N = 384 "
+          f"and 1536, M = {BWD_M} and 1 on {sms} SMs (giant2 w3: {w3.tiles} "
+          f"tiles on {w3.grid} CTAs, {w3.k_tiles} k tiles of 128)")
+    print(f"{tag} gemm_i8_residual redesigned (int8 TMA + wgmma, x read by "
+          f"cp.async during the product): against the plain version on the "
+          f"same codes with 0 difference, at M = {m_path} / 771 / 1")
+    for si, (label, k, n) in enumerate(I8R_SHAPES):
+        dyn, sta, x, ls = i8r_inputs(dev, fq, layers, m_path, k, n,
+                                     SEED + 46 + si)
+        for m in (m_path, *RAGGED_M):
+            for static, (a, rs, nd) in ((False, dyn), (True, sta)):
+                a, rs, xm = a[:m], None if rs is None else rs[:m], x[:m]
+                for lsv in (ls, None):
+                    name = (f"gemm_i8_residual[{label},"
+                            f"{'ls' if lsv is not None else 'no_ls'}"
+                            f"{',static' if static else ''},M={m}]")
+
+                    def kern(a=a, rs=rs, nd=nd, lsv=lsv, xm=xm):
+                        return i8r_call(fq, a, rs, nd, lsv, xm)
+                    k1 = fresh_thread(inference(kern))
+                    k2 = inference(kern)()
+                    with torch.inference_mode():
+                        plain = fq._gemm_i8_residual_ref(
+                            a, rs, nd.q8, nd.scale, nd.bias, lsv, xm)
+                    torch.cuda.synchronize()
+                    same = torch.equal(k1, k2)
+                    err = (k1.float() - plain.float()).abs().max().item()
+                    print(f"{tag} {name}: max_abs_err={err:.6g} (limit 0); "
+                          f"first in a fresh thread, then again: the same "
+                          f"bits {same}")
+                    check(same, f"{name}: two runs differ")
+                    check(k1.shape == plain.shape and k1.dtype == plain.dtype
+                          and torch.equal(k1, plain),
+                          f"{name}: max_abs_err {err}")
+                    if si == 0 and m == m_path and not static and lsv is ls:
+                        fault_in = (k1, a, rs, nd, lsv, xm)
+                    del k1, k2, plain
+        del dyn, sta, x, a, rs, xm
+        torch.cuda.empty_cache()
+    # planted faults on ViT-S proj (dynamic, LayerScale): each tile's second
+    # W box read 64 rows further down W^T (columns 64..127 of every
+    # 128-column panel from the next 64); each row's scale from the row
+    # before
+    out, a, rs, nd, lsv, xm = fault_in
+    n = nd.q8.shape[1]
+    idx = torch.arange(n, device=dev)
+    shifted = torch.where(idx % 128 >= 64, (idx + 64) % n, idx)
+    with torch.inference_mode():
+        for what, f_ in (
+                ("the second W box 64 rows further down",
+                 fq._gemm_i8_residual_ref(a, rs, nd.q8[:, shifted], nd.scale,
+                                          nd.bias, lsv, xm)),
+                ("each row's scale from the row before",
+                 fq._gemm_i8_residual_ref(a, rs.roll(1, 0), nd.q8, nd.scale,
+                                          nd.bias, lsv, xm))):
+            err = (out.float() - f_.float()).abs().max().item()
+            print(f"{tag} planted fault: gemm_i8_residual[proj,ls] with {what}"
+                  f": max_abs_err={err:.6g} against the limit 0; must break "
+                  f"it")
+            check(err > 0, f"planted fault {what} passes the limit")
+    del fault_in, out, a, rs, xm
+    torch.cuda.empty_cache()
+
+
+def i8_residual_times(tag, dev, fq, layers):
+    """Phase 46's times: `gemm_i8_residual` at each path shape (B=8 rows,
+    with LayerScale, dynamic and static) interleaved with the library call
+    for the same function (`torch._int_mm`, the dequantization, then
+    `torch.addcmul` of the residual), with the SM clock, beside the bound
+    and the plain version. It reads only `fq` and `layers`, so a scratch
+    script can time another tree's kernel with it. Returns (timed, cost,
+    lib_ms) for the kernels line."""
+    m = N_SLICES * S
+    timed, cost, lib_ms = {}, {}, {}
+    print(f"{tag} gemm_i8_residual times: median over {PAIR_ROUNDS} rounds "
+          f"of the mean of {PER_PAIR} calls between two CUDA events, kernel "
+          f"and library in turn; library = torch._int_mm, dequant, addcmul")
+    with ClockSampler() as clocks, torch.inference_mode():
+        for si, (label, k, n) in enumerate(I8R_SHAPES):
+            dyn, sta, x, ls = i8r_inputs(dev, fq, layers, m, k, n,
+                                         SEED + 46 + si)
+            for static, (a, rs, nd) in ((False, dyn), (True, sta)):
+                name = f"gemm_i8_residual[{label},ls{',static' * static}]"
+
+                def library(a=a, rs=rs, nd=nd):
+                    y = torch._int_mm(a, nd.q8).float()
+                    if rs is not None:
+                        y = y * rs[:, None]
+                    y = y * nd.scale + nd.bias
+                    return torch.addcmul(x.float(), y, ls).to(torch.bfloat16)
+                t = time_interleaved({
+                    "kernel": lambda a=a, rs=rs, nd=nd: i8r_call(
+                        fq, a, rs, nd, ls, x),
+                    "library": library}, clocks)
+                pm_ = time_ms(lambda a=a, rs=rs, nd=nd:
+                              fq._gemm_i8_residual_ref(a, rs, nd.q8, nd.scale,
+                                                       nd.bias, ls, x),
+                              n=5, warmup=1)
+                km, lm = t["kernel"].ms, t["library"].ms
+                cost[name] = i8_cost(m, k, n, 1, 2, 2 * m * n + 4 * (
+                    3 * n + (0 if static else m)))
+                timed[name], lib_ms[name] = (km, pm_), lm
+                b_ms, b_by = bound([cost[name]])
+                ops = 2 * m * k * n
+                old = OLD_I8R_MS.get(name)
+                print(f"{tag} time {name} [{m}, {k}] -> {n}: kernel {km:.4f} "
+                      f"ms ({ops / km / 1e9:.1f} TOP/s, "
+                      f"{ops / km / 1e9 / (PEAK_INT8 / 1e12):.3f} of the int8 "
+                      f"peak; {cost[name][1] / km / 1e9:.3f} TB/s; "
+                      f"{b_ms / km:.3f} of the bound; rounds "
+                      f"{t['kernel'].lo:.4f}-{t['kernel'].hi:.4f}; "
+                      f"{t['kernel'].mhz} MHz, {t['kernel'].watts} W); "
+                      f"library {lm:.4f} ms (kernel / library {km / lm:.3f}; "
+                      f"{t['library'].mhz} MHz); plain {pm_:.4f} ms; bound "
+                      f"{b_ms:.4f} ms by {b_by}; before "
+                      + (f"{old} ms ({old / km:.2f}x)" if old
+                         else "not recorded"))
+            del dyn, sta, x, a, rs, nd
             torch.cuda.empty_cache()
     return timed, cost, lib_ms
 
@@ -4865,6 +5095,12 @@ def main() -> int:
     def sal_rel(a, b):
         """max |a - b| relative to b's largest value."""
         return (a - b).abs().max().item() / b.abs().max().item()
+
+    def sal_pooled(a, b):
+        """`sal_rel` of each volume's map (the first dim), averaged over the
+        batch (phase 32's int8 rule, ROADMAP C5)."""
+        a, b = a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1)
+        return ((a - b).abs().amax(1) / b.abs().amax(1)).mean().item()
 
     def check_saliency(what, mdl, pred, vols, want_last, want_last_calls,
                        rope=False, depth=n_full, swiglu=False):
@@ -6304,16 +6540,21 @@ def main() -> int:
             with sal_slice_fault():
                 sf = saliency(mode, mdl=mdl, vols=src8)[1]
             d_ps, d_s = (pk_s - pp_s).abs().max().item(), sal_rel(sk, sp_)
-            d_k, d_p, d_f = sal_rel(sk, so), sal_rel(sp_, so), sal_rel(sf, so)
+            d_k, d_p = sal_pooled(sk, so), sal_pooled(sp_, so)
+            d_f = sal_pooled(sf, so)
+            w_k, w_p = sal_rel(sk, so), sal_rel(sp_, so)
             print(f"{tag} int8 {label} saliency {mode} {list(sk.shape)}: "
-                  f"|probs - plain| {d_ps:.6g}; saliency vs the f64 oracle: "
-                  f"kernel path {d_k:.6g}, plain path {d_p:.6g} (ratio "
-                  f"{d_k / d_p:.4g}, limit {SAL_I8_RATIO}), planted fault "
-                  f"(each slice's saliency data from the neighbouring slice) "
-                  f"{d_f:.6g} ({d_f / d_p:.4g}x, must break the limit); "
-                  f"kernel vs plain {d_s:.6g} (the former limit {SAL_REL}, "
-                  f"printed, not held); launches {counts_s}; sub-layer calls "
-                  f"{calls_s}")
+                  f"|probs - plain| {d_ps:.6g}; saliency vs the f64 oracle, "
+                  f"each volume's relative distance averaged over the "
+                  f"{sk.shape[0]} volumes: kernel path {d_k:.6g}, plain path "
+                  f"{d_p:.6g} (ratio {d_k / d_p:.4g}, limit {SAL_I8_RATIO}), "
+                  f"planted fault (each slice's saliency data from the "
+                  f"neighbouring slice) {d_f:.6g} ({d_f / d_p:.4g}x, must "
+                  f"break the limit); the batch's worst volume (the former "
+                  f"statistic, printed, not held): kernel {w_k:.6g}, plain "
+                  f"{w_p:.6g} (ratio {w_k / w_p:.4g}); kernel vs plain "
+                  f"{d_s:.6g} (the former limit {SAL_REL}, printed, not "
+                  f"held); launches {counts_s}; sub-layer calls {calls_s}")
             check(bool(torch.isfinite(sk).all()), f"int8 {mode}: non-finite")
             check(d_ps <= PROB_TOL and d_k <= SAL_I8_RATIO * d_p,
                   f"int8 {label} {mode}: {d_ps} / {d_k} vs {d_p}")
@@ -6461,12 +6702,10 @@ def main() -> int:
     check_launches(fwdg8_counts, want_g[0], "giant2 int8")
     check(callsg8 == want_g[1], f"giant2 int8 calls {callsg8}")
 
-    # (the first products, `ln_gemm_i8` / `ln_gemm_i8_swiglu`: phase 45)
+    # (the first products, `ln_gemm_i8` / `ln_gemm_i8_swiglu`: phase 45;
+    # the second, `gemm_i8_residual`: phase 46)
     timed_i8 = ("quant_rows[o]", "quant_rows[o,static]", "quant_rows[u]",
-                "gemm_i8_residual[proj,ls]", "gemm_i8_residual[proj,ls,static]",
-                "gemm_i8_residual[fc2,ls]", "gemm_i8_residual[fc2,ls,static]",
-                "quant_rows[g]", "gemm_i8_residual[w3,ls]",
-                "gemm_i8_residual[w3,ls,static]", "attention_sublayer_i8[ls]",
+                "quant_rows[g]", "attention_sublayer_i8[ls]",
                 "attention_sublayer_i8[ls,static]", "mlp_sublayer_i8[tanh,ls]",
                 "mlp_sublayer_i8[tanh,ls,static]", "swiglu_sublayer_i8[ls]",
                 "swiglu_sublayer_i8[ls,static]")
@@ -6878,6 +7117,15 @@ def main() -> int:
     lib_ms.update(llib)
     cost.update(lcost)
 
+    # ======================================================================
+    # Phase 46: `gemm_i8_residual` redesigned (the int8 wgmma mainloop with
+    # `gemm_residual`'s epilogue); the kernels line's times of it
+    # ======================================================================
+    i8_residual_phase(tag, dev, fq, layers, _build.lib())
+    xtimed, xcost, xlib = i8_residual_times(tag, dev, fq, layers)
+    lib_ms.update(xlib)
+    cost.update(xcost)
+
     # TPU kernels: _attn_any_kernel at fused_block.py:326, _mlp_kernel at
     # :400, their train forwards _attn_train_kernel :424 and
     # _mlp_train_kernel :470, the backwards _attn_bwd_kernel :680 and
@@ -6981,6 +7229,7 @@ def main() -> int:
     alltimed.update(qtimed)
     alltimed.update(atimed)
     alltimed.update(ltimed)
+    alltimed.update(xtimed)
     print(f"{tag} bound: the larger of FLOPs / {PEAK_FLOPS:.4g} FLOP/s + "
           f"int8 operations / {PEAK_INT8:.4g} OP/s and bytes / "
           f"{PEAK_BYTES:.4g} B/s (each input read once, each output written "

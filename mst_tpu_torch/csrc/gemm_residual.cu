@@ -64,21 +64,6 @@ inline bool residual_shape_ok(int M, int K, int N) {
   return M > 0 && K >= BK && N >= BN && K % BK == 0 && N % BN == 0;
 }
 
-// This thread's share of the copies of rows m0 .. m0 + 63, columns n0 ..
-// n0 + 127 of the bf16 [M, N] matrix src into the warpgroup's staging tile;
-// rows past M copy row M - 1 (no output row past M is stored, and gemm_dls
-// masks them out of its sums). One commit group.
-__device__ __forceinline__ void load_slab(bf16* epi, int t, const bf16* __restrict__ src, int N,
-                                          int m0, int n0, int M) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int g = t + 128 * j;
-    const int r = g / 16, c = (g % 16) * 8;
-    cp_async16(epi + r * EPI_LD + c, src + size_t(min(m0 + r, M - 1)) * N + n0 + c, 16);
-  }
-  cp_async_commit();
-}
-
 // MODE as above; LS: apply the LayerScale (gemm_dls always does). x is g
 // for DLS and out is gz; work [ceil(M / 64)][N] receives DLS's partials.
 template <int MODE, bool LS>

@@ -2,7 +2,8 @@
 // operand types: bf16 in with f32 accumulators, used by ln_gemm.cu and
 // gemm_residual.cu (A K-major, B MN-major), gemm_dgrad.cu (A K-major, B
 // K-major) and gemm_wgrad.cu (A MN-major, B MN-major); and int8 in with s32
-// accumulators, used by ln_gemm_i8.cu (A K-major, B K-major in two boxes).
+// accumulators, used by ln_gemm_i8.cu and gemm_i8_residual.cu (A K-major,
+// B K-major in two boxes).
 // gemm_wgrad.cu's and ln_gemm_i8.cu's probes check each layout with a bare
 // product.
 //
@@ -12,7 +13,7 @@
 //   of k x BN output columns): BK = 64 k of bf16, BK8 = 128 k of int8. A
 //   and B come in one of these layouts each (`Major`):
 //   A K-major: A [M, K] row-major, one box [BM rows][128 bytes] (the rows
-//     of ln_gemm's h, of gemm_dgrad's dY, of ln_gemm_i8's codes);
+//     of ln_gemm's h, of gemm_dgrad's dY, of the int8 codes);
 //   A MN-major: A^T stored [K, M] row-major, two boxes [BK rows][64
 //     columns], one per consumer warpgroup (gemm_wgrad's X^T: X [M_red, K]
 //     is K-contiguous);
@@ -23,10 +24,11 @@
 //   B K-major: B^T stored [N, K] row-major, one box [BN rows][BK]
 //     (gemm_dgrad's W^T: W [K_out, R] is R-contiguous);
 //   B K-major pair: B^T [N, K] row-major, two boxes [64 rows][128 bytes]
-//     at any two row offsets (ln_gemm_i8's W^T, made once with the int8
-//     tree: 8-bit wgmma reads both operands K-major only, and a gated tile
-//     takes its h1 and h2 panels); in shared memory the two boxes lie as
-//     one [128 rows][128 bytes] K-major box would.
+//     at any two row offsets (ln_gemm_i8's and gemm_i8_residual's W^T,
+//     made once with the int8 tree: 8-bit wgmma reads both operands
+//     K-major only, and a gated tile takes its h1 and h2 panels); in
+//     shared memory the two boxes lie as one [128 rows][128 bytes] K-major
+//     box would.
 // - A ring of STAGES stages with a full and an empty `mbarrier` each. One
 //   producer warp (lane 0) issues the TMA loads, running ahead across
 //   units, so the next unit's loads overlap this unit's epilogue.
@@ -36,10 +38,10 @@
 //   by the accumulators' type; one commit group per stage, one group left
 //   in flight, the stage released once its group is done.
 // - A work unit is an output tile and a range of the reduction (`Work`):
-//   the whole of K for ln_gemm, gemm_residual, gemm_dgrad and ln_gemm_i8,
-//   one chunk of the M rows for gemm_wgrad. No split-K within a unit and
-//   no atomics: every output is one sum in a fixed order, so a run repeats
-//   bit for bit.
+//   the whole of K for ln_gemm, gemm_residual, gemm_dgrad, ln_gemm_i8 and
+//   gemm_i8_residual, one chunk of the M rows for gemm_wgrad. No split-K
+//   within a unit and no atomics: every output is one sum in a fixed
+//   order, so a run repeats bit for bit.
 // The caller's kernel owns the epilogue: it reads the accumulators through
 // `acc_row` / `acc_col` (the m64nNk16 D-fragment layout, the same for s32)
 // after `consumer_tile` returns; the bf16 epilogues stage their tile with
@@ -408,6 +410,22 @@ __device__ __forceinline__ void store(const bf16* epi, int t, bf16* __restrict__
       *reinterpret_cast<uint4*>(dst + size_t(m0 + r) * ld + col(c)) =
           *reinterpret_cast<const uint4*>(epi + r * EPI_LD + c);
   }
+}
+
+// This thread's share of the copies of rows m0 .. m0 + 63, columns n0 ..
+// n0 + 127 of the bf16 [M, N] matrix src into the warpgroup's staging tile
+// (gemm_residual's x or g, gemm_i8_residual's x, read while the product
+// runs); rows past M copy row M - 1 (no output row past M is stored, and
+// gemm_dls masks them out of its sums). One commit group.
+__device__ __forceinline__ void load_slab(bf16* epi, int t, const bf16* __restrict__ src, int N,
+                                          int m0, int n0, int M) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int g = t + 128 * j;
+    const int r = g / 16, c = (g % 16) * 8;
+    cp_async16(epi + r * EPI_LD + c, src + size_t(min(m0 + r, M - 1)) * N + n0 + c, 16);
+  }
+  cp_async_commit();
 }
 
 // f32 epilogues (gemm_dgrad, gemm_wgrad) stage a warpgroup's accumulators

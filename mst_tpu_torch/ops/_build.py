@@ -89,9 +89,11 @@ _SIGNATURES = {
     "mst_gemm_i8_probe": (_P, _P, _P, _I, _I, _I, _I, _P),
     # src, is_f32, q, scale|NULL, M, K, stream
     "mst_quant_rows": (_P, _I, _P, _P, _I, _I, _P),
-    # a (int8), w (int8), row_scale|NULL, scale, bias, ls|NULL, x, out, M, K,
-    # N, stream
+    # a (int8), wt (int8 [N, K]), row_scale|NULL, scale, bias, ls|NULL, x,
+    # out, M, K, N, stream
     "mst_gemm_i8_residual": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # M, K, N, geo (host int32 [7]): gemm_i8_residual's launch geometry
+    "mst_i8_residual_geometry": (_I, _I, _I, _P),
     # q, k, v, o, lse|NULL, strides (host int64 [4][3]), B, H, S, scale_log2,
     # stream
     "mst_flash_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),

@@ -505,10 +505,11 @@ def _check_gemm_shape(m: int, k: int, n: int, gated: bool) -> None:
 
 # The rest of the GEMM's launch geometry, as gemm_sm90.cuh sets it: a ring
 # of 5 stages of one A box [128][64] and two W boxes [64][64] (bf16), two
-# consumer warpgroups and one producer warp, one persistent CTA per SM of
-# an H100 SXM. `ln_gemm_launch` mirrors the kernel's own numbers, which
-# `mst_gemm_geometry` exports: the tests hold the constants to the header
-# and `chip_smoke.py` holds the whole to the export on the card.
+# consumer warpgroups and one producer warp, one persistent CTA per SM
+# (132 on an H100 SXM, the mirrors' default). `ln_gemm_launch` mirrors the
+# kernel's own numbers, which `mst_gemm_geometry` exports: the tests hold
+# the constants to the header and `chip_smoke.py` holds the whole to the
+# export on the card.
 GEMM_STAGES, GEMM_THREADS, H100_SMS = 5, 2 * 128 + 32, 132
 # Its dynamic shared memory: 1 KB of alignment, the ring (16 KB of A and
 # 16 KB of B a stage), one 17 KB staging tile per consumer warpgroup (bf16
@@ -517,14 +518,15 @@ GEMM_SMEM = (1024 + GEMM_STAGES * (GEMM_BM * GEMM_BK * 2 + 2 * GEMM_BK * 64 * 2)
              + 2 * 64 * (GEMM_BN + 8) * 2 + 2 * GEMM_STAGES * 8)
 
 
-def ln_gemm_launch(m: int, k: int, n: int,
-                   gated: bool = False) -> SimpleNamespace:
+def ln_gemm_launch(m: int, k: int, n: int, gated: bool = False,
+                   sms: int = H100_SMS) -> SimpleNamespace:
     """The launch geometry of `ln_gemm`'s GEMM (`gated`: `ln_gemm_swiglu`'s,
-    n = F) at h [m, k] on an H100: tiles, grid, threads, stages and dynamic
-    shared memory in bytes. Raises ValueError where the kernel would."""
+    n = F) at h [m, k] on a card of `sms` SMs (csrc/ln_gemm.cu
+    `mst_gemm_geometry`): tiles, grid, threads, stages and dynamic shared
+    memory in bytes. Raises ValueError where the kernel would."""
     _check_gemm_shape(m, k, n, gated)
     tiles = -(-m // GEMM_BM) * (n // (GEMM_BN // 2 if gated else GEMM_BN))
-    return SimpleNamespace(tiles=tiles, grid=min(tiles, H100_SMS),
+    return SimpleNamespace(tiles=tiles, grid=min(tiles, sms),
                            threads=GEMM_THREADS, stages=GEMM_STAGES,
                            smem=GEMM_SMEM)
 

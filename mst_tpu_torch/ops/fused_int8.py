@@ -31,9 +31,11 @@ On the TPU each sub-layer is one Pallas program (`_attn_i8_kernel`,
 `ln_gemm_i8` and `ln_gemm_i8_swiglu` are two kernels each: `ln_quant_rows`
 (LN and quantization once per row: the codes and, dynamic, the row scales)
 then an int8 TMA + wgmma GEMM on the codes with the dequantization
-epilogues. 8-bit wgmma reads both operands K-major, so the GEMM reads the
-weights as `q8t` [out, in], the K-major copy of `q8` that every `QDense`
-makes once, when the int8 tree is built.
+epilogues. `gemm_i8_residual` runs the same int8 GEMM with the
+dequantization, LayerScale and residual epilogue. 8-bit wgmma reads both
+operands K-major, so both GEMMs read the weights as `q8t` [out, in], the
+K-major copy of `q8` that every `QDense` makes once, when the int8 tree is
+built.
 
 Every kernel wrapper takes its plain PyTorch version for a CPU tensor and
 launches its kernel (counting the launch) for a CUDA tensor. The plain
@@ -205,8 +207,10 @@ def _quant_rows_ref(v, static: bool = False):
     return _quant_static(vf) if static else _quant_rows(vf)
 
 
-def _gemm_i8_residual_ref(a, row_scale, q8, scale, bias, ls, x):
-    """x + ls * dequant(a @ q8), the sum in f32, cast to x's dtype."""
+def _gemm_i8_residual_ref(a, row_scale, q8, scale, bias, ls, x, q8t=None):
+    """x + ls * dequant(a @ q8), the sum in f32, cast to x's dtype. It takes
+    its wrapper's arguments; `q8t`, the kernel's K-major copy, is not
+    read."""
     wd = _wd(x.dtype)
     y = _dequant(_dot_i8(a, q8), wd, row_scale, scale, bias)
     if ls is not None:
@@ -481,25 +485,50 @@ def quant_rows(v, static: bool = False):
     return q if static else (q, scale)
 
 
-def gemm_i8_residual(a, row_scale, q8, scale, bias, ls, x):
+def _check_i8_residual_shape(m: int, k: int, n: int) -> None:
+    """Raise ValueError for codes [m, k] -> [m, n] that `gemm_i8_residual`
+    does not take (K whole 128-deep stages, N whole 128-column tiles); the
+    wrapper calls it before any launch."""
+    if m < 1 or k < I8_BK or k % I8_BK or n < fb.GEMM_BN or n % fb.GEMM_BN:
+        raise ValueError(f"gemm_i8_residual needs M >= 1, K % {I8_BK} == 0 "
+                         f"and N % {fb.GEMM_BN} == 0; got M={m}, K={k}, N={n}")
+
+
+def gemm_i8_residual_launch(m: int, k: int, n: int,
+                            sms: int = fb.H100_SMS) -> SimpleNamespace:
+    """The launch geometry of `gemm_i8_residual` at codes [m, k] -> [m, n]
+    on a card of `sms` SMs (csrc/gemm_i8_residual.cu
+    `mst_i8_residual_geometry`): one persistent CTA per SM over the 128 x
+    128 output tiles (fewer if there are fewer tiles), threads, stages,
+    dynamic shared memory, k tiles of 128 and the first W^T row of tile 0's
+    second box. Raises ValueError where the kernel would."""
+    _check_i8_residual_shape(m, k, n)
+    tiles = -(-m // fb.GEMM_BM) * (n // fb.GEMM_BN)
+    return SimpleNamespace(tiles=tiles, grid=min(tiles, sms),
+                           threads=fb.GEMM_THREADS, stages=fb.GEMM_STAGES,
+                           smem=fb.GEMM_SMEM, k_tiles=k // I8_BK,
+                           second_box=64)
+
+
+def gemm_i8_residual(a, row_scale, q8, scale, bias, ls, x, q8t=None):
     """x + ls * (f32(a @ q8) [* row_scale] * scale + bias): a [M, K] int8,
-    row_scale [M] f32 or None (static), q8 [K, N] int8, x [M, N] bf16."""
+    row_scale [M] f32 or None (static), q8 [K, N] int8, x [M, N] bf16. On
+    CUDA the int8 wgmma GEMM reads `q8t` [N, K], the K-major copy of q8
+    (`QDense.q8t`)."""
     if not _on_cuda(x):
         return _gemm_i8_residual_ref(a, row_scale, q8, scale, bias, ls, x)
     m, k = a.shape
     n = q8.shape[1]
-    if k % 64 or n % 128:
-        raise ValueError(f"gemm_i8_residual needs K % 64 == 0 and N % 128 == "
-                         f"0; got K={k}, N={n}")
+    _check_i8_residual_shape(m, k, n)
     _codes(a, "a", (m, k), x)
-    _codes(q8, "q8", (k, n), x)
+    q8t = _kmajor(q8, q8t, n, k, x, "gemm_i8_residual")
     _mat(x, "x", (m, n), x)
     row_scale = _row_scale(row_scale, m, x)
     scale, bias = _vec(scale, "scale", n, x), _vec(bias, "bias", n, x)
     ls = None if ls is None else _vec(ls, "ls", n, x)
     out = torch.empty_like(x)
     err = _build.lib().mst_gemm_i8_residual(
-        a.data_ptr(), q8.data_ptr(), _ptr(row_scale), scale.data_ptr(),
+        a.data_ptr(), q8t.data_ptr(), _ptr(row_scale), scale.data_ptr(),
         bias.data_ptr(), _ptr(ls), x.data_ptr(), out.data_ptr(), m, k, n,
         _stream(x))
     _build.check(err, "mst_gemm_i8_residual")
@@ -545,7 +574,8 @@ def fused_attention_sublayer_i8(x, ln_s, ln_b, qkv, proj, ls, num_heads,
         out = mhsa(t, n, s, num_heads, **rope)
     o, *extra = out if isinstance(out, tuple) else (out,)
     oq, osc = (quant_rows(o, True), None) if static else quant_rows(o)
-    y = gemm_i8_residual(oq, osc, proj.q8, proj.scale, proj.bias, ls, x2)
+    y = gemm_i8_residual(oq, osc, proj.q8, proj.scale, proj.bias, ls, x2,
+                         q8t=proj.q8t)
     fused_attention_sublayer_i8.calls += 1
     y = y.reshape(n, s, e)
     return (y, *extra) if extra else y
@@ -564,7 +594,8 @@ def fused_mlp_sublayer_i8(x, ln_s, ln_b, fc1, fc2, ls, approximate,
     u = ln_gemm_i8(x2, ln_s, ln_b, fc1.q8, fc1.scale, fc1.bias, act, eps,
                    static, fc2.a_inv, q8t=fc1.q8t)
     uq, us = (u, None) if static else quant_rows(u)
-    y = gemm_i8_residual(uq, us, fc2.q8, fc2.scale, fc2.bias, ls, x2)
+    y = gemm_i8_residual(uq, us, fc2.q8, fc2.scale, fc2.bias, ls, x2,
+                         q8t=fc2.q8t)
     fused_mlp_sublayer_i8.calls += 1
     return y.reshape(n, s, e)
 
@@ -581,7 +612,8 @@ def fused_swiglu_sublayer_i8(x, ln_s, ln_b, w12, w3, ls, eps=1e-6):
     g = ln_gemm_i8_swiglu(x2, ln_s, ln_b, w12.q8, w12.scale, w12.bias, eps,
                           static, w3.a_inv, q8t=w12.q8t)
     gq, gs = (g, None) if static else quant_rows(g)
-    y = gemm_i8_residual(gq, gs, w3.q8, w3.scale, w3.bias, ls, x2)
+    y = gemm_i8_residual(gq, gs, w3.q8, w3.scale, w3.bias, ls, x2,
+                         q8t=w3.q8t)
     fused_swiglu_sublayer_i8.calls += 1
     return y.reshape(n, s, e)
 

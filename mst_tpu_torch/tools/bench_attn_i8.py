@@ -158,7 +158,7 @@ def sublayer(x, p, num_heads: int, variant: str, scale: float = SCALE):
                     x.dtype)
     oq = fq.quant_rows(o, static=True)
     y = fq.gemm_i8_residual(oq, None, p.proj.q8, p.proj.scale, p.proj.bias,
-                            None, x2)
+                            None, x2, q8t=p.proj.q8t)
     return y.reshape(n, s, e)
 
 

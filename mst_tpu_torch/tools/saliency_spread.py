@@ -9,12 +9,15 @@ roundings that a change of summation order flips, which static int8 codes
 then move by whole steps through 11 blocks; so it is a spread over draws,
 not a bias of one kernel. Phase 32 now holds the kernel path against the
 oracle, the plain int8 path in f64: its distance from it at most 1.5 times
-the bf16 plain int8 path's (`SAL_I8_RATIO`). This reads both rules on
+the bf16 plain int8 path's (`SAL_I8_RATIO`), each distance pooled over
+the batch (each volume's max |saliency - oracle| relative to that volume's
+largest oracle value, averaged over the volumes). This reads both rules on
 `--draws` draws (LayerScale 1 + 0.1 N(0, 1), as phase 4), each static copy
 calibrated on 8 volumes of the generator of the 8 volumes read, in the
 `last` and `rollout` plane modes: the kernel-vs-plain distance, and for
-the int8 paths the ratio of the kernel path's and the plain path's
-distances from the oracle.
+the int8 paths the ratio of the kernel path's and the plain path's pooled
+distances from the oracle ("ratio") beside the ratio of the batch's worst
+volume's distances, the rule's first statistic ("worst-volume ratio").
 
     python mst_tpu_torch/tools/saliency_spread.py [--root CHECKOUT]
         [--draws 6] [--json OUT]
@@ -117,6 +120,10 @@ def main(argv=None) -> list:
     def rel(a, b):
         return ((a - b).abs().max() / b.abs().max()).item()
 
+    def pooled(a, b):  # chip_smoke.py phase 32's `sal_pooled`
+        a, b = a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1)
+        return ((a - b).abs().amax(1) / b.abs().amax(1)).mean().item()
+
     npz_dir = Path(__file__).resolve().parents[2] / "build"  # gitignored
     npz_dir.mkdir(parents=True, exist_ok=True)
     readings = []
@@ -145,8 +152,11 @@ def main(argv=None) -> list:
                     o = (saliency(mdl, vols, mode, torch.float64)
                          if label != "bf16" else None)
                 row[f"{label}/{mode}"] = rel(k, p)
-                if o is not None:  # the oracle rule's ratio
-                    row[f"{label}/{mode} ratio"] = rel(k, o) / rel(p, o)
+                if o is not None:  # the oracle rule's ratios
+                    row[f"{label}/{mode} ratio"] = (pooled(k, o)
+                                                    / pooled(p, o))
+                    row[f"{label}/{mode} worst-volume ratio"] = (
+                        rel(k, o) / rel(p, o))
         readings.append(row)
         npz.unlink()
         print(f"{tag} {root.name} draw {draw}: saliency vs plain, relative "

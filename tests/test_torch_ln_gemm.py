@@ -182,6 +182,21 @@ def test_launch_geometry_fits_every_model_width(size):
     assert tfb.ln_gemm_launch(1, 1536, 4096, gated=True).tiles == 64
 
 
+@pytest.mark.parametrize("sms", [132, 114])
+def test_launch_geometry_follows_the_sm_count(sms):
+    """The persistent grid is one CTA per SM of the card it runs on (the
+    kernel asks the device, `persistent_grid`): an H100 PCIe has 114; only
+    the grid moves with it."""
+    for m in (8 * 32 * 257, 771, 1):
+        for k, n, gated in [(384, 1152, False), (1536, 4096, True)]:
+            geo = tfb.ln_gemm_launch(m, k, n, gated, sms)
+            ref = tfb.ln_gemm_launch(m, k, n, gated)
+            assert geo.grid == min(geo.tiles, sms)
+            assert (geo.tiles, geo.threads, geo.stages, geo.smem) == (
+                ref.tiles, ref.threads, ref.stages, ref.smem)
+    assert tfb.ln_gemm_launch(8 * 32 * 257, 384, 1152, sms=sms).grid == sms
+
+
 def _header_constants():
     """The `constexpr` values of csrc/gemm_sm90.cuh, evaluated in order as
     the compiler would (integer division, size_t as int)."""
