@@ -11,7 +11,7 @@ limit:
 1. device: the card, `nvidia-smi` name and power limit, TF32 off;
 2. build: `nvcc` builds `mst_tpu_torch/csrc/*.cu` (timed); `-Xptxas -v`
    for the kernels of `ln_gemm.cu`, `gemm_dgrad.cu` (with `ln_pullback`),
-   `ln_gemm_i8.cu`, `gemm_i8_residual.cu`, `gemm_wgrad.cu`,
+   `ln_gemm_i8.cu`, `gemm_i8_residual.cu`, `quant_rows.cu`, `gemm_wgrad.cu`,
    `gemm_residual.cu`, `mhsa.cu`, `mhsa_bwd.cu`, `flash_fwd.cu` and
    `flash_bwd.cu` (registers, no spills, no "wgmma serialized" line; a
    source compiled on its own for
@@ -20,7 +20,8 @@ limit:
    mma.sync HMMA left in `gemm_dgrad` / `gemm_wgrad` / `gemm_residual` /
    `gemm_dls` / `mhsa_bwd` / the flash kernels, HMMA in `mhsa` only in its
    one-pass instances' mma.sync P.V; the int8 GEMMs of `ln_gemm_i8` and
-   `gemm_i8_residual` on the int8 wgmma, IGMMA with UTMALDG and no IMMA),
+   `gemm_i8_residual` on the int8 wgmma, IGMMA with UTMALDG and no IMMA;
+   `quant_rows` on bulk copies, UBLKCP or UTMALDG),
    `fused_block.ln_gemm_launch` (at the card's SM count),
    `gemm_dgrad_launch`, `gemm_wgrad_launch`, `gemm_residual_launch`,
    `ln_pullback_launch`, `fused_int8.ln_gemm_i8_launch`, `mhsa_launch` and
@@ -193,7 +194,7 @@ and `predict --int8 [--int8_calib N]`):
    and chains' times against their plain versions, bounds and library
    calls (`torch._int_mm` between the same LN, quantization and
    dequantization in torch ops; the two int8 products are timed in phases
-   45 and 46), B=8 vol/s of ViT-S dynamic and static and of giant2 beside
+   45 and 46, `quant_rows` in phase 47), B=8 vol/s of ViT-S dynamic and static and of giant2 beside
    the bf16 path, peak memory, `torch.profiler` tables. Phase 32 holds the
    int8 kernel path's saliency to the oracle rule with each distance
    pooled over the batch's volumes (ROADMAP C5).
@@ -364,6 +365,25 @@ beside the WMMA kernel's times (`OLD_I8R_MS`), with the SM clock. The
 kernels line's times of `gemm_i8_residual` are phase 46's (phase 33 no
 longer times it).
 
+Phase 47 holds the redesigned `quant_rows` (persistent blocks stage whole
+rows in shared memory by 1D TMA bulk copies on an `mbarrier` ring and read
+each row once: the amax from the staged copy, then the codes) the same way:
+`quant_rows_launch` against the kernel's `mst_quant_rows_geometry` at the
+path widths, a row of two stages and one wider than the ring, on this
+card's SM count, 132 and 114; ViT-S o (bf16, K = 384) and u (f32, 1536),
+giant2 o (bf16, 1536) and g (f32, 4096) and a row wider than a stage (f32,
+9216) at M = 65,792, 771 and 1, a row wider than the ring (f32, 32,768) at
+771 and 1, dynamic and static, against `_quant_rows_ref` with 0 difference
+in codes and scales, each first in a fresh host thread, then again for the
+same bits; two planted faults (a neighbour row's amax, a stale ring stage)
+that must break it; then the times at the path shapes interleaved with the
+library call (the same quantization in torch ops), with the bound's
+share, TB/s and the SM clock, each beside the parent commit's time read
+the same way (`OLD_QR_MS`); and, as an extra reading, its time per call
+replayed from a CUDA graph (`graph_ms`). The kernels line's times of
+`quant_rows` are phase 47's event times, as every other kernel's (phase 33
+no longer times it); its entry also carries `graph_ms`.
+
 Each phase prints its wall time. The line before the last is `{"kernels":
 [...]}`: per kernel its launches on the main path, its largest error, its
 time and its plain version's, the bound (the least time the card could
@@ -379,6 +399,7 @@ import ctypes
 import csv
 import functools
 import gzip
+import hashlib
 import inspect
 import io
 import itertools
@@ -971,7 +992,7 @@ def int8_cases(dev, rng, fb, fq, layers):
     abs-maxima with the calibration margin 1.05. The library thunks are
     the same function in torch ops around `torch._int_mm` (LN, quantization,
     the integer product, dequantization), timed as a yardstick only
-    (`gemm_i8_residual`'s in phase 46)."""
+    (`gemm_i8_residual`'s in phase 46, `quant_rows`'s in phase 47)."""
     bf, eps, rel = torch.bfloat16, 1e-6, 3e-3  # rel: a chain's f32 outputs
     E4, EG, FG, HG = 4 * E, 1536, 4096, 24
     M = N_SLICES * S
@@ -1001,13 +1022,6 @@ def int8_cases(dev, rng, fb, fq, layers):
 
     def add(name, kern, plain, *args, f32_rel=None, **kw):
         cases[name] = (*pair(kern, plain, *args, **kw), f32_rel)
-
-    def lib_quant(v):
-        sc = v.float().abs().amax(-1, keepdim=True).clamp_min(1e-12) / 127.0
-        return torch.round(v.float() / sc).to(torch.int8), sc
-
-    def lib_quant_static(v):
-        return torch.round(v.float()).clamp(-127, 127).to(torch.int8)
 
     def lib_first(x2, ln_s, ln_b, nd, act):
         k = x2.shape[1]
@@ -1087,9 +1101,6 @@ def int8_cases(dev, rng, fb, fq, layers):
         "ln_gemm_i8[fc1,gelu_tanh]": i8_cost(M, E, E4, 2, 4, 4 * 6 * E),
         "ln_gemm_i8[fc1,gelu_tanh,static]": i8_cost(M, E, E4, 2, 1,
                                                     4 * 6 * E),
-        "quant_rows[o]": (0, 2 * M * E + M * E + 4 * M),
-        "quant_rows[o,static]": (0, 2 * M * E + M * E),
-        "quant_rows[u]": (0, 4 * M * E4 + M * E4 + 4 * M),
         "gemm_i8_residual[proj,ls]": i8_cost(M, E, E, 1, 2,
                                              2 * M * E + 4 * (M + 3 * E)),
         "gemm_i8_residual[proj,ls,static]": i8_cost(M, E, E, 1, 2,
@@ -1104,9 +1115,6 @@ def int8_cases(dev, rng, fb, fq, layers):
                                              None),
         "ln_gemm_i8[fc1,gelu_tanh]": functools.partial(lib_first, x2, ln_s,
                                                        ln_b, fc1, "tanh"),
-        "quant_rows[o]": functools.partial(lib_quant, o),
-        "quant_rows[o,static]": functools.partial(lib_quant_static, o8),
-        "quant_rows[u]": functools.partial(lib_quant, u),
     })
 
     # the sub-layers (f32 outputs: rows, carry, Abnar factor within `rel`)
@@ -1195,7 +1203,6 @@ def int8_cases(dev, rng, fb, fq, layers):
                                           4 * M * FG + 4 * (2 * EG + 4 * FG)),
         "ln_gemm_i8_swiglu[w12,static]": i8_cost(
             M, EG, 2 * FG, 2, 0, M * FG + 4 * (2 * EG + 4 * FG)),
-        "quant_rows[g]": (0, 4 * M * FG + M * FG + 4 * M),
         "gemm_i8_residual[w3,ls]": i8_cost(M, FG, EG, 1, 2,
                                            2 * M * EG + 4 * (M + 3 * EG)),
         "gemm_i8_residual[w3,ls,static]": i8_cost(
@@ -1204,7 +1211,6 @@ def int8_cases(dev, rng, fb, fq, layers):
     library.update({
         "ln_gemm_i8_swiglu[w12]": functools.partial(lib_first, xg2, lng_s,
                                                     lng_b, w12, "swiglu"),
-        "quant_rows[g]": functools.partial(lib_quant, g),
     })
     return cases, cost, library
 
@@ -1908,6 +1914,7 @@ PTXAS_ENTRIES = {
     "ln_gemm_i8.cu": {"gemm_i8_kernel": 5, "probe_i8_kernel": 2,
                       "ln_quant_rows_kernel": 5},
     "gemm_i8_residual.cu": {"gemm_i8_residual_kernel": 1},
+    "quant_rows.cu": {"quant_rows_ring_kernel": 8},
     "gemm_wgrad.cu": {"gemm_wgrad_kernel": 1, "probe_kernel": 4},
     "gemm_residual.cu": {"gemm_residual_kernel": 4, "gemm_dls_kernel": 1},
     "mhsa.cu": {"mhsa_kernel": 20},
@@ -1923,6 +1930,9 @@ SASS_GEMMS = {"gemm_ln_kernel": 4, "gemm_dgrad_kernel": 4,
               "flash_bwd_dq_kernel": 1, "flash_bwd_dkv_kernel": 1}
 SASS_I8 = {"gemm_i8_kernel": 5, "probe_i8_kernel": 2,
            "gemm_i8_residual_kernel": 1}
+# The kernels that stage their rows by bulk copies (1D TMA: UBLKCP; a
+# tensor-map load would read UTMALDG), and how many instances each has.
+SASS_BULK = {"quant_rows_ring_kernel": 8}
 # mhsa's one-pass instances (template flag TWO false) run P.V by mma.sync
 # (HMMA: 17 k steps x 8 n tiles a warp at S = 257); every other instance
 # of these kernels has no HMMA.
@@ -1939,8 +1949,9 @@ def check_machine_code(tag, build_log, build_mod, lib_path) -> None:
     GEMMs, `gemm_residual` / `gemm_dls` and `mhsa_bwd`; in `mhsa` HMMA
     exactly in the one-pass instances (their P.V); in the int8 GEMM and
     its probe the int8 wgmma (IGMMA, its opcodes printed) with UTMALDG and
-    no IMMA, HMMA or HGMMA; no "wgmma ... serialized" line for any kernel
-    of these sources."""
+    no IMMA, HMMA or HGMMA; in `quant_rows` bulk copies (UBLKCP or
+    UTMALDG); no "wgmma ... serialized" line for any kernel of these
+    sources."""
     entry = r"Compiling entry function '([^']+)'(.*?)(?=Compiling entry function|\Z)"
     for src, want in PTXAS_ENTRIES.items():
         def mine(log):
@@ -2022,6 +2033,21 @@ def check_machine_code(tag, build_log, build_mod, lib_path) -> None:
                   and n["IMMA"] == n["HMMA"] == n["HGMMA"] == 0,
                   f"{fn}: not the int8 wgmma on TMA loads ({n})")
         check(len(fns) == SASS_I8[k], f"{k} instances in SASS: {len(fns)}")
+    bulk = {k: {} for k in SASS_BULK}
+    for fn, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)",
+                               sass, re.S):
+        for k in SASS_BULK:
+            if k in fn:
+                bulk[k][fn] = {op: body.count(op) for op in ("UBLKCP",
+                                                             "UTMALDG")}
+    for k, fns in bulk.items():
+        for fn, n in fns.items():
+            short = re.search(r"%s(?:I\w*?E)?(?=E)" % k, fn)
+            print(f"{tag} SASS {short.group(0) if short else fn}: "
+                  + ", ".join(f"{v} {op}" for op, v in n.items()))
+            check(n["UBLKCP"] + n["UTMALDG"] > 0,
+                  f"{fn}: no bulk copy or TMA load ({n})")
+        check(len(fns) == SASS_BULK[k], f"{k} instances in SASS: {len(fns)}")
 
 
 def check_gemm_geometry(tag, fb, lib) -> None:
@@ -4190,6 +4216,275 @@ def i8_residual_times(tag, dev, fq, layers):
             del dyn, sta, x, a, rs, nd
             torch.cuda.empty_cache()
     return timed, cost, lib_ms
+
+
+
+# -- phase 47: `quant_rows` on a ring of TMA bulk copies ---------------------
+
+# (label, K, dtype) of the quantizer's inputs on the path: ViT-S o (bf16)
+# and its f32 GELU hidden u, giant2 o and its f32 gate output g; and a row
+# wider than one ring stage (f32, 36 KB: two stages). QR_STREAMED_K: a row
+# wider than the whole ring (f32, 128 KB), which streams through it twice.
+QR_SHAPES = (("o", E, torch.bfloat16), ("u", 4 * E, torch.float32),
+             ("o,E=1536", 1536, torch.bfloat16),
+             ("g", LN_GEMM_F, torch.float32), ("wide", 9216, torch.float32))
+QR_STREAMED_K = 32768
+# The modes each input is quantized in on the path (static trees quantize
+# the FFN hidden in `ln_gemm_i8`'s epilogue) and timed in.
+QR_TIMED = {"o": (False, True), "u": (False,), "o,E=1536": (False, True),
+            "g": (False,), "wide": (False,)}
+# The parent commit's `quant_rows` (one warp a row, each row read twice):
+# (CUDA events around back-to-back calls, replayed from a CUDA graph) ms a
+# call, read by `quant_rows_times` on its tree in turn with this tree's in
+# one call, on an H100 80GB HBM3 at 700 W, the mean of two readings;
+# printed beside the new times, each beside its own method's.
+OLD_QR_MS = {"quant_rows[o]": (0.0448, 0.0307),
+             "quant_rows[o,static]": (0.0399, 0.0289),
+             "quant_rows[u]": (0.2997, 0.2839),
+             "quant_rows[o,E=1536]": (0.1481, 0.1305),
+             "quant_rows[o,E=1536,static]": (0.1182, 0.1039),
+             "quant_rows[g]": (0.8242, 0.8081),
+             "quant_rows[wide]": (1.8437, 1.8267)}
+
+
+def lib_quant(v):
+    """The library calls for `quant_rows`' dynamic work: amax, scale and
+    rounding in torch ops."""
+    sc = v.float().abs().amax(-1, keepdim=True).clamp_min(1e-12) / 127.0
+    return torch.round(v.float() / sc).to(torch.int8), sc
+
+
+def lib_quant_static(v):
+    """The library calls for `quant_rows`' static work."""
+    return torch.round(v.float()).clamp(-127, 127).to(torch.int8)
+
+
+def qr_name(label, static=False, m=None):
+    return (f"quant_rows[{label}{',static' if static else ''}"
+            + (f",M={m}]" if m is not None else "]"))
+
+
+def qr_inputs(dev, m, k, dtype, seed):
+    """Seeded inputs of `quant_rows` [m, k] in `dtype`: rows of normal
+    values at magnitudes spread over three decades, each row's amax in its
+    first column and values near .5 ties of its scale in the next four
+    (dynamic); and the static
+    input, the same values over a calibrated per-tensor scale (abs-max x
+    1.05 / 127) times 1.3, so that some clip at +-127."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mag = 10.0 ** (3.0 * torch.rand(m, 1, generator=gen, device=dev) - 2.0)
+    h = torch.randn(m, k, generator=gen, device=dev) * mag
+    h[:, 0] = h.abs().amax(1)  # amax sits at column 0 (sign +)
+    s_ = (h[:, :1] / 127.0).float()
+    h[:, 1:5] = torch.tensor([0.5, 1.5, -2.5, 63.5], device=dev) * s_
+    v = h.to(dtype)
+    v8 = (h * (1.3 * 127.0 / (h.abs().max() * 1.05))).to(dtype)
+    return v, v8
+
+
+def quant_rows_phase(tag, dev, fq, lib, errs):
+    """Phase 47: `quant_rows` at every path input (QR_SHAPES) at the B=8
+    rows and the ragged 771 and 1, and a row wider than the ring at 771
+    and 1, dynamic and static, against `_quant_rows_ref` with 0 difference
+    in codes and scales (the kernel rounds as the plain version's ops do):
+    each first in a fresh host thread, then again for the same bits; two
+    planted faults (each row quantized with its neighbour's amax; the rows
+    of a ring stage's second occupant read as its first occupant's) that
+    must break it; and `fq.quant_rows_launch` against the kernel's
+    `mst_quant_rows_geometry` on this card's SM count, 132 and 114."""
+    stamp(tag, "47")
+    torch.cuda.empty_cache()
+    m_path = N_SLICES * S
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    widths = sorted({k for _, k, _ in QR_SHAPES} | {768, 3072, QR_STREAMED_K})
+    for n_sm in sorted({sms, 132, 114}):
+        for m in (m_path, *RAGGED_M):
+            for k in widths:
+                for dtype in (torch.bfloat16, torch.float32):
+                    for static in (False, True):
+                        geo = (ctypes.c_int * 12)()
+                        err = lib.mst_quant_rows_geometry(
+                            m, k, int(dtype == torch.float32), int(static),
+                            n_sm, geo)
+                        check(err == 0, f"mst_quant_rows_geometry({m}, {k}):"
+                              f" {err}")
+                        g = fq.quant_rows_launch(m, k, n_sm, dtype, static)
+                        want = (g.grid, g.threads, g.smem, g.rows, g.chunks,
+                                g.passes, g.streamed, g.wpr, g.groups, g.vec,
+                                g.stage, g.stages)
+                        check(tuple(geo) == want, f"mst_quant_rows_geometry "
+                              f"at M={m}, K={k}, {dtype}, static={static}, "
+                              f"{n_sm} SMs: kernel {tuple(geo)}, mirror "
+                              f"{want}")
+    geos = {label: fq.quant_rows_launch(m_path, k, sms, dt)
+            for label, k, dt in QR_SHAPES}
+    print(f"{tag} quant_rows geometry: quant_rows_launch equals the kernel's "
+          f"mst_quant_rows_geometry at K = {widths}, bf16 and f32, dynamic "
+          f"and static, M = {m_path} / 771 / 1 on {sorted({sms, 132, 114})} "
+          f"SMs; on this card's {sms}: "
+          + "; ".join(f"{lb}: {g.rows} rows x {g.chunks} stage(s) a group, "
+                      f"{g.wpr} warps a row, {g.groups} groups on {g.grid} "
+                      f"blocks" for lb, g in geos.items()))
+    print(f"{tag} quant_rows redesigned (rows read once through a ring of "
+          f"{geos['o'].stages} x {geos['o'].stage} B TMA bulk-copy stages, "
+          f"{fq.QR_BLOCKS_PER_SM} persistent blocks an SM): against the plain "
+          f"version with 0 difference in codes and scales")
+    cases = [(label, k, dt, (m_path, *RAGGED_M)) for label, k, dt in QR_SHAPES]
+    cases.append(("streamed", QR_STREAMED_K, torch.float32, RAGGED_M))
+    fault_in = None
+    for si, (label, k, dtype, ms) in enumerate(cases):
+        v, v8 = qr_inputs(dev, max(ms), k, dtype, SEED + 47 + si)
+        for m in ms:
+            for static in (False, True):
+                vm = (v8 if static else v)[:m]
+                name = qr_name(label, static, m)
+
+                def kern(vm=vm, static=static):
+                    return fq.quant_rows(vm, static)
+                k1 = fresh_thread(inference(kern))
+                k2 = inference(kern)()
+                with torch.inference_mode():
+                    plain = fq._quant_rows_ref(vm, static)
+                torch.cuda.synchronize()
+                k1, k2, plain = ((t,) if static else t
+                                 for t in (k1, k2, plain))
+                same = all(torch.equal(a, b) for a, b in zip(k1, k2))
+                nd = int((k1[0] != plain[0]).sum())
+                step = int((k1[0].int() - plain[0].int()).abs().max())
+                sc_err = (0.0 if static else
+                          (k1[1] - plain[1]).abs().max().item())
+                print(f"{tag} {name} {str(dtype).split('.')[-1]}: codes "
+                      f"differing {nd} of {vm.numel()} (by at most {step}), "
+                      f"scales max_abs_err={sc_err:.6g} (limit 0); first in "
+                      f"a fresh thread, then again: the same bits {same}")
+                check(same, f"{name}: two runs differ")
+                check(all(a.shape == b.shape and a.dtype == b.dtype
+                          and torch.equal(a, b) for a, b in zip(k1, plain)),
+                      f"{name}: {nd} codes differ (by {step}), scales by "
+                      f"{sc_err}")
+                errs[name] = float(step)
+                if label == "u" and m == m_path and not static:
+                    fault_in = (k1[0], vm, fq.quant_rows_launch(m, k, sms,
+                                                                dtype))
+                del k1, k2, plain, vm
+        del v, v8
+        torch.cuda.empty_cache()
+    # planted faults on ViT-S u (f32, dynamic): each row quantized with the
+    # next row's amax; the rows of the group that takes ring stage 0 of
+    # block 0 for the second time read as its first group's rows
+    out, vm, geo = fault_in
+    g2 = geo.stages * geo.grid  # block 0's (stages + 1)-th group: stage 0
+    check(g2 < geo.groups, f"no second occupant of stage 0: {geo}")
+    stale = vm.clone()
+    stale[g2 * geo.rows:(g2 + 1) * geo.rows] = vm[:geo.rows]
+    with torch.inference_mode():
+        vf = vm.float()
+        nscale = fq._quant_rows_ref(vm)[1].roll(-1, 0)
+        for what, f_ in (
+                ("each row with its neighbour's amax",
+                 torch.round(vf * torch.reciprocal(nscale)[:, None])
+                 .clamp(-128, 127).to(torch.int8)),
+                (f"the rows of group {g2} (ring stage 0's second occupant in "
+                 f"block 0) read as group 0's", fq._quant_rows_ref(stale)[0])):
+            nd = int((out != f_).sum())
+            print(f"{tag} planted fault: quant_rows[u] with {what}: codes "
+                  f"differing {nd} against the limit 0; must break it")
+            check(nd > 0, f"planted fault {what} passes the limit")
+    del fault_in, out, vm, stale, vf, nscale
+    torch.cuda.empty_cache()
+
+
+def graph_ms(fn, n=10, reps=5):
+    """The time of one call of fn with no host gaps: n calls captured in a
+    CUDA graph, the graph replayed `reps` times between two CUDA events,
+    the median over n. (CUDA events around back-to-back calls also hold
+    the host's time where the host is slower than the kernels.)"""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    each = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        each.append(start.elapsed_time(end) / n)
+    del graph
+    torch.cuda.empty_cache()
+    return statistics.median(each)
+
+
+def quant_rows_times(tag, dev, fq):
+    """Phase 47's times: `quant_rows` at each path input (B=8 rows) in the
+    modes the path runs (QR_TIMED) and the row wider than a stage,
+    interleaved with the library calls for the same function (`lib_quant`,
+    `lib_quant_static`), with the SM clock, beside the bound, the plain
+    version, and, as an extra reading, the kernel's time per call replayed
+    from a CUDA graph (`graph_ms`: no host time between calls); each of
+    the kernel's times beside the parent commit's read the same way
+    (OLD_QR_MS); and the sha256 of its codes and scales. It reads only
+    `fq`, so a scratch script can time another tree's kernel with it, and
+    equal digests on two trees mean the same bits on these inputs. Returns (timed, cost, lib_ms, graph) for the
+    kernels line: its times the event times, as every other kernel's."""
+    m = N_SLICES * S
+    timed, cost, lib_ms, graph = {}, {}, {}, {}
+    print(f"{tag} quant_rows times: median over {PAIR_ROUNDS} rounds of the "
+          f"mean of {PER_PAIR} calls between two CUDA events, kernel and "
+          f"library in turn; library = the same quantization in torch ops")
+    with ClockSampler() as clocks, torch.inference_mode():
+        for si, (label, k, dtype) in enumerate(QR_SHAPES):
+            v, v8 = qr_inputs(dev, m, k, dtype, SEED + 47 + si)
+            es = v.element_size()
+            for static in QR_TIMED[label]:
+                vin = v8 if static else v
+                name = qr_name(label, static)
+                t = time_interleaved({
+                    "kernel": lambda vin=vin, st=static: fq.quant_rows(vin, st),
+                    "library": functools.partial(
+                        lib_quant_static if static else lib_quant, vin)},
+                    clocks)
+                pm_ = time_ms(lambda vin=vin, st=static:
+                              fq._quant_rows_ref(vin, st), n=5, warmup=1)
+                km, lm = t["kernel"].ms, t["library"].ms
+                dm = graph_ms(lambda vin=vin, st=static: fq.quant_rows(vin, st))
+                cost[name] = (0, es * m * k + m * k + (0 if static else 4 * m))
+                timed[name], lib_ms[name], graph[name] = (km, pm_), lm, dm
+                out = fq.quant_rows(vin, static)
+                bits = hashlib.sha256()
+                for t_ in (out,) if static else out:
+                    bits.update(t_.cpu().numpy().tobytes())
+                del out
+                b_ms, b_by = bound([cost[name]])
+                old_km, old_dm = OLD_QR_MS.get(name, (None, None))
+                print(f"{tag} time {name} [{m}, {k}] "
+                      f"{str(dtype).split('.')[-1]}: kernel {km:.4f} ms "
+                      f"({cost[name][1] / km / 1e9:.3f} TB/s; "
+                      f"{b_ms / km:.3f} of the bound; rounds "
+                      f"{t['kernel'].lo:.4f}-{t['kernel'].hi:.4f}; "
+                      f"{t['kernel'].mhz} MHz, {t['kernel'].watts} W); "
+                      f"graph-replayed {dm:.4f} ms a call ("
+                      f"{b_ms / dm:.3f} of the bound); "
+                      f"library {lm:.4f} ms (kernel / library {km / lm:.3f}; "
+                      f"{t['library'].mhz} MHz); plain {pm_:.4f} ms; bound "
+                      f"{b_ms:.4f} ms by {b_by}; parent's kernel "
+                      + (f"{old_km} ms ({old_km / km:.2f}x), graph-replayed "
+                         f"{old_dm} ms ({old_dm / dm:.2f}x)" if old_km
+                         else "not recorded")
+                      + f"; codes and scales sha256 {bits.hexdigest()[:32]}")
+            del v, v8, vin
+            torch.cuda.empty_cache()
+    return timed, cost, lib_ms, graph
 
 
 def main() -> int:
@@ -6703,9 +6998,8 @@ def main() -> int:
     check(callsg8 == want_g[1], f"giant2 int8 calls {callsg8}")
 
     # (the first products, `ln_gemm_i8` / `ln_gemm_i8_swiglu`: phase 45;
-    # the second, `gemm_i8_residual`: phase 46)
-    timed_i8 = ("quant_rows[o]", "quant_rows[o,static]", "quant_rows[u]",
-                "quant_rows[g]", "attention_sublayer_i8[ls]",
+    # the second, `gemm_i8_residual`: phase 46; `quant_rows`: phase 47)
+    timed_i8 = ("attention_sublayer_i8[ls]",
                 "attention_sublayer_i8[ls,static]", "mlp_sublayer_i8[tanh,ls]",
                 "mlp_sublayer_i8[tanh,ls,static]", "swiglu_sublayer_i8[ls]",
                 "swiglu_sublayer_i8[ls,static]")
@@ -7126,6 +7420,15 @@ def main() -> int:
     lib_ms.update(xlib)
     cost.update(xcost)
 
+    # ======================================================================
+    # Phase 47: `quant_rows` redesigned (rows read once through a ring of
+    # TMA bulk copies); the kernels line's times of it
+    # ======================================================================
+    quant_rows_phase(tag, dev, fq, _build.lib(), errs)
+    qrtimed, qrcost, qrlib, qrgraph = quant_rows_times(tag, dev, fq)
+    lib_ms.update(qrlib)
+    cost.update(qrcost)
+
     # TPU kernels: _attn_any_kernel at fused_block.py:326, _mlp_kernel at
     # :400, their train forwards _attn_train_kernel :424 and
     # _mlp_train_kernel :470, the backwards _attn_bwd_kernel :680 and
@@ -7230,6 +7533,7 @@ def main() -> int:
     alltimed.update(atimed)
     alltimed.update(ltimed)
     alltimed.update(xtimed)
+    alltimed.update(qrtimed)
     print(f"{tag} bound: the larger of FLOPs / {PEAK_FLOPS:.4g} FLOP/s + "
           f"int8 operations / {PEAK_INT8:.4g} OP/s and bytes / "
           f"{PEAK_BYTES:.4g} B/s (each input read once, each output written "
@@ -7351,6 +7655,9 @@ def main() -> int:
             "library_ms": (sum(lib_ms[c] for c in per_block)
                            if all(c in lib_ms for c in per_block) else None),
         })
+        if name == "quant_rows":
+            # the same calls replayed from a CUDA graph (phase 47)
+            kernels[-1]["graph_ms"] = sum(qrgraph[c] for c in per_block)
     kernels += tool_entries
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")

@@ -87,8 +87,11 @@ _SIGNATURES = {
     "mst_gemm_i8_geometry": (_I, _I, _I, _I, _P),
     # a, b (int8), c (int32), M, N, K, swap, stream: the int8 layout probe
     "mst_gemm_i8_probe": (_P, _P, _P, _I, _I, _I, _I, _P),
-    # src, is_f32, q, scale|NULL, M, K, stream
-    "mst_quant_rows": (_P, _I, _P, _P, _I, _I, _P),
+    # src, is_f32, q, scale|NULL, M, K, sms, stream
+    "mst_quant_rows": (_P, _I, _P, _P, _I, _I, _I, _P),
+    # M, K, is_f32, is_static, sms, geo (host int32 [12]): quant_rows's
+    # launch plan
+    "mst_quant_rows_geometry": (_I, _I, _I, _I, _I, _P),
     # a (int8), wt (int8 [N, K]), row_scale|NULL, scale, bias, ls|NULL, x,
     # out, M, K, N, stream
     "mst_gemm_i8_residual": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),

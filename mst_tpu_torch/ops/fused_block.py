@@ -847,9 +847,17 @@ _WGRAD_MAX_ROWS = 8192
 _DGRAD_PLAIN, _DGRAD_GELU, _DGRAD_SWIGLU, _DGRAD_F32 = 0, 1, 2, 3
 
 
+_SM_COUNTS: dict[int, int] = {}
+
+
 def _sms(t) -> int:
-    """The SM count of the card `t` lies on (the persistent grids' size)."""
-    return torch.cuda.get_device_properties(t.device).multi_processor_count
+    """The SM count of the card `t` lies on (the persistent grids' size),
+    read once per card: the wrappers ask on every launch."""
+    index = t.device.index
+    if index not in _SM_COUNTS:
+        _SM_COUNTS[index] = torch.cuda.get_device_properties(
+            t.device).multi_processor_count
+    return _SM_COUNTS[index]
 
 
 def _check_dgrad_shape(m: int, r: int, k: int) -> None:

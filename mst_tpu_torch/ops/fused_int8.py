@@ -35,7 +35,9 @@ epilogues. `gemm_i8_residual` runs the same int8 GEMM with the
 dequantization, LayerScale and residual epilogue. 8-bit wgmma reads both
 operands K-major, so both GEMMs read the weights as `q8t` [out, in], the
 K-major copy of `q8` that every `QDense` makes once, when the int8 tree is
-built.
+built. `quant_rows` reads each row once: persistent blocks stage whole rows
+in shared memory by TMA bulk copies on an `mbarrier` ring, take the row's
+amax from the staged copy, then write its codes.
 
 Every kernel wrapper takes its plain PyTorch version for a CPU tensor and
 launches its kernel (counting the launch) for a CUDA tensor. The plain
@@ -463,9 +465,60 @@ def ln_gemm_i8_swiglu(x, ln_s, ln_b, q8, scale, bias, eps: float,
     return out
 
 
+# `quant_rows` (csrc/quant_rows.cu): a ring of QR_STAGES stages of QR_STAGE
+# bytes filled by 1D TMA bulk copies, QR_BLOCKS_PER_SM persistent blocks an
+# SM of QR_WARPS consumer warps and one producer warp; a group of at most
+# QR_MAX_ROWS rows a stage.
+QR_STAGE, QR_STAGES, QR_WARPS, QR_BLOCKS_PER_SM = 32768, 3, 8, 2
+QR_MAX_ROWS = 16
+_QR_THREADS = 32 * QR_WARPS + 32
+_QR_SMEM = (QR_STAGE * QR_STAGES + 2 * QR_STAGES * 8 + 2 * QR_WARPS * 4
+            + 2 * QR_MAX_ROWS * 4)
+
+
+def quant_rows_launch(m: int, k: int, sms: int = fb.H100_SMS,
+                      dtype=torch.float32,
+                      static: bool = False) -> SimpleNamespace:
+    """The launch plan of `quant_rows` at v [m, k] of `dtype` (bf16 or f32)
+    on a card of `sms` SMs (csrc/quant_rows.cu `mst_quant_rows_geometry`):
+    a group is `rows` consecutive rows of at most one stage, or one row of
+    `chunks` stages, read by one bulk copy a stage; `streamed` rows are
+    wider than the ring and go through it chunk by chunk, `passes` times
+    (twice in the dynamic mode: amax, then codes); `wpr` warps take a row;
+    `grid` persistent blocks walk over the `groups`; a thread quantizes
+    `vec` values at a time. Raises ValueError where the kernel would."""
+    if m < 1 or k < 8 or k % 8 or sms < 1:
+        raise ValueError(f"quant_rows needs M >= 1 and K % 8 == 0; got M={m}, "
+                         f"K={k}")
+    vec = 16 if k % 16 == 0 else 8
+    rb = k * (4 if dtype == torch.float32 else 2)
+    if rb <= QR_STAGE:
+        rows, chunks = min(QR_STAGE // rb, QR_MAX_ROWS, m), 1
+    else:
+        rows, chunks = 1, -(-rb // QR_STAGE)
+    streamed = chunks > QR_STAGES
+    wpr = QR_WARPS
+    if not streamed:  # the busiest warp's fewest vector steps, fewest warps
+        vpr, best = k // vec, None
+        for w in (1, 2, 4, 8):
+            teams = QR_WARPS // w
+            steps = -(-rows // teams) * -(-vpr // (32 * w))
+            if best is None or steps < best:
+                best, wpr = steps, w
+    groups = -(-m // rows)
+    return SimpleNamespace(grid=min(groups, sms * QR_BLOCKS_PER_SM),
+                           threads=_QR_THREADS, smem=_QR_SMEM, rows=rows,
+                           chunks=chunks,
+                           passes=2 if streamed and not static else 1,
+                           streamed=int(streamed), wpr=wpr, groups=groups,
+                           vec=vec, stage=QR_STAGE, stages=QR_STAGES)
+
+
 def quant_rows(v, static: bool = False):
     """v [M, K] bf16 or f32 -> (int8 codes, row scale [M] f32), or with
-    `static` the codes clip(round(v), +-127) alone."""
+    `static` the codes clip(round(v), +-127) alone. On CUDA each row up
+    to the ring's size (96 KB) is read once, through a ring of TMA bulk
+    copies (`quant_rows_launch`)."""
     if not _on_cuda(v):
         return _quant_rows_ref(v, static)
     m, k = v.shape
@@ -479,7 +532,7 @@ def quant_rows(v, static: bool = False):
     scale = None if static else _f32((m,), v)
     err = _build.lib().mst_quant_rows(
         v.data_ptr(), int(v.dtype == torch.float32), q.data_ptr(),
-        _ptr(scale), m, k, _stream(v))
+        _ptr(scale), m, k, fb._sms(v), _stream(v))
     _build.check(err, "mst_quant_rows")
     quant_rows.launches += 1
     return q if static else (q, scale)
