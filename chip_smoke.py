@@ -248,11 +248,19 @@ tools' own shapes:
    variant E's bf16 probabilities within 1 bf16 ulp, row 20's variants
    against the plain f32-softmax mirror, one block of each row-17 layout
    against the tool's plain block, and a planted fault per kernel that must
-   break its limit;
+   break its limit. First (`tools_attn_phase`), the cores of rows 18 and
+   19, redesigned on TMA + wgmma with the scores in registers: each entry
+   launched first in a fresh host thread (the same bits), every variant at
+   TOOLS_S18 (A-E) and TOOLS_S19 (B, C; tool-range and narrow codes)
+   within 2 bf16 ulps of its plain version and twice for the same bits, D
+   bit for bit against `mhsa` at [128, 257] and [256, 201], C's P codes
+   against the plain codes (differing only at .5 ties);
 39. times: each tool's `main()` (the experiment's own timings), then each
    new kernel against its plain version, bound and library call (SDPA for
-   the attention cores, LN + matmul + GELU for `block_tail`), and the
-   chains' plain, bound and library times.
+   the attention cores, LN + matmul + GELU for `block_tail`; rows 18-19's
+   cores beside the WMMA kernels' recorded times, `WMMA_TOOLS_MS`, and
+   replayed from a CUDA graph; row 19's also at DINOv3's S = 201 and
+   giant2's shape), and the chains' plain, bound and library times.
 
 Phase 40 holds the Hopper form of `ln_gemm` / `ln_gemm_swiglu` (`ln_rows`,
 then a TMA + wgmma GEMM on the normalised rows) on its own: `ln_rows` and
@@ -1325,6 +1333,148 @@ def train_sublayer_outputs(fb, kind, ops, x, args, g):
 # -- phases 38-39: the tools/ experiments (queue B rows 17-21) ---------------
 
 
+# Phase 38's lengths for the redesigned cores of rows 18-19: a ragged 77
+# (one full chunk and a 13-key one), DINOv3's 201, ViT-S's 257 (one pass),
+# and the longest the WMMA kernel took, 400 (row 18), or 512 (row 19; two
+# passes), TOOLS_N slices at ViT-S's 6 heads.
+TOOLS_S18 = (77, 201, 257, 400)
+TOOLS_S19 = (77, 201, 257, 512)
+TOOLS_N = 32
+# The WMMA kernels' times at the tools' shapes (row 18: [128, 6, 257, 64];
+# row 19: ViT-S [256, 6, 257, 64]; PERF.md §6 rows 18-19, phase 39 on an
+# H100 80GB HBM3 at 700 W), printed beside the redesigned ones.
+WMMA_TOOLS_MS = {"attn_variant[A]": 0.8313, "attn_variant[B]": 0.7225,
+                 "attn_variant[C]": 0.7496, "attn_variant[D]": 0.6585,
+                 "attn_variant[E]": 0.6812, "attn_i8[B]": 1.0490,
+                 "attn_i8[C]": 0.9960}
+
+
+def i8_plain_codes(q8, n, s, nh, scale, log2_127):
+    """Variant C's plain p (f32) and codes rint(p), [n, heads, s, s], as
+    `bench_attn_i8.core_i8_ref` computes them."""
+    t = q8.reshape(n, s, 3, nh, 64).permute(2, 0, 3, 1, 4)
+    sc = torch.matmul(t[0].double(), t[1].double().transpose(-1, -2)
+                      ).float() * scale
+    p = torch.exp2((sc - sc.amax(-1, keepdim=True)) + log2_127)
+    return p, torch.round(p)
+
+
+def tools_attn_phase(tag, dev, fb, sm, bi):
+    """Phase 38's hold on the redesigned cores of rows 18 and 19
+    (`attn_variants.cu` variants A-E, `attn_i8.cu` B and C, on TMA +
+    wgmma): each entry first in a fresh host thread, every variant at
+    TOOLS_S18 / TOOLS_S19 within 2 bf16 ulps of its plain version and twice
+    for the same bits, D bit for bit against `mhsa`, C's P codes against
+    the plain codes."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 38)
+    bf = torch.bfloat16
+    n = TOOLS_N
+
+    def qkv_of(n_, s):
+        return torch.randn(n_ * s, 3 * E, generator=gen, device=dev).to(bf)
+
+    def codes_of(s, amp):
+        q8c = torch.randint(-amp, amp + 1, (n * s, 3 * E), generator=gen,
+                            device=dev, dtype=torch.int32).to(torch.int8)
+        v8 = torch.randn(n * s, E, generator=gen, device=dev).to(bf)
+        return q8c[:, :2 * E].contiguous(), v8, q8c
+
+    def within(name, k, p):
+        scale = p.float().abs().max().item()
+        err = (k.float() - p.float()).abs().max().item()
+        lim = 2 * ulp_bf16(scale)
+        check(bool(torch.isfinite(k.float()).all()), f"{name}: non-finite")
+        return err, lim
+
+    print(f"{tag} tools cores on TMA + wgmma (rows 18-19): each entry first "
+          f"in a fresh host thread; variants A-E at S = {TOOLS_S18}, int8 B "
+          f"/ C at S = {TOOLS_S19} (codes in [-127, 127] and [-3, 3]), "
+          f"{n} slices x {HEADS} heads, within 2 bf16 ulps of plain, twice "
+          f"for the same bits; D against mhsa bit for bit; C's codes against "
+          f"the plain codes")
+    with torch.inference_mode():
+        firsts = []
+        for s18, s19 in ((257, 257), (TOOLS_S18[-1], TOOLS_S19[-1])):
+            qkv = qkv_of(n, s18)
+            q8b, v8, q8c = codes_of(s19, 127)
+            firsts += [(f"attn_variant[{v}] S={s18}", functools.partial(
+                sm.attn_variant, qkv, n, s18, HEADS, v)) for v in sm.VARIANTS]
+            firsts += [(f"attn_i8[B] S={s19}", functools.partial(
+                bi.attn_i8, q8b, v8, n, s19, HEADS)),
+                (f"attn_i8[C] S={s19}", functools.partial(
+                    bi.attn_i8, q8c, None, n, s19, HEADS))]
+        for name, fn in firsts:
+            there, here = fresh_thread(fn), fn()
+            torch.cuda.synchronize()
+            same = torch.equal(there, here)
+            print(f"{tag} {name} launched first in a fresh host thread: the "
+                  f"same bits as on the main thread: {same}")
+            check(same, f"{name} in a fresh thread differs")
+        del firsts, qkv, q8b, v8, q8c
+
+        for s in TOOLS_S18:
+            qkv = qkv_of(n, s)
+            for v in sm.VARIANTS:
+                o1, pk = sm.attn_variant(qkv, n, s, HEADS, v, want_p=True)
+                o2 = sm.attn_variant(qkv, n, s, HEADS, v)
+                ref, pref = sm.core_ref(qkv, n, s, HEADS, v, want_p=True)
+                torch.cuda.synchronize()
+                err, lim = within(f"attn_variant[{v}] S={s}", o1, ref)
+                perr = (pk.float() - pref.float()).abs().max().item()
+                same = torch.equal(o1, o2)
+                print(f"{tag} attn_variant[{v}] S={s}: max_abs_err={err:.6g} "
+                      f"limit={lim:.6g}; P max|kernel - plain| {perr:.4g}; "
+                      f"two runs equal {same}")
+                check(err <= lim, f"attn_variant[{v}] S={s}: {err} vs {lim}")
+                check(same, f"attn_variant[{v}] S={s}: two runs differ")
+                del o1, o2, pk, ref, pref
+            del qkv
+        for n_, s in ((128, 257), (256, 201)):
+            qkv = qkv_of(n_, s)
+            d, m = sm.attn_variant(qkv, n_, s, HEADS, "D"), fb.mhsa(qkv, n_, s,
+                                                                    HEADS)
+            torch.cuda.synchronize()
+            same = torch.equal(d, m)
+            print(f"{tag} attn_variant[D] at [{n_}, {s}] against mhsa: bit "
+                  f"for bit {same} (max diff "
+                  f"{(d.float() - m.float()).abs().max().item():.4g})")
+            check(same, f"attn_variant[D] at [{n_}, {s}] is not mhsa's bits")
+            del qkv, d, m
+
+        for s in TOOLS_S19:
+            for amp in (127, 3):
+                q8b, v8, q8c = codes_of(s, amp)
+                for var, q8, v in (("B", q8b, v8), ("C", q8c, None)):
+                    o2 = bi.attn_i8(q8, v, n, s, HEADS)
+                    o1, pk = ((bi.attn_i8(q8, v, n, s, HEADS, want_p=True))
+                              if var == "C" else (bi.attn_i8(q8, v, n, s,
+                                                             HEADS), None))
+                    ref = bi.core_i8_ref(q8, v, n, s, HEADS, bf)
+                    torch.cuda.synchronize()
+                    name = f"attn_i8[{var}] S={s} codes +-{amp}"
+                    err, lim = within(name, o1, ref)
+                    same = torch.equal(o1, o2)
+                    extra = ""
+                    if var == "C":
+                        p, pq = i8_plain_codes(q8, n, s, HEADS, bi.SCALE,
+                                               bi.LOG2_127)
+                        diff = pk.float() != pq
+                        tie = (p - p.floor() - 0.5).abs() <= 2.0 ** -12
+                        off = int((diff & ~tie).sum())
+                        extra = (f"; P codes differing from plain "
+                                 f"{int(diff.sum())} of {diff.numel()}, "
+                                 f"{off} not at a .5 tie")
+                        check(off == 0, f"{name}: {off} codes off a tie")
+                        del p, pq, diff, tie
+                    print(f"{tag} {name}: max_abs_err={err:.6g} "
+                          f"limit={lim:.6g}; two runs equal {same}{extra}")
+                    check(err <= lim, f"{name}: {err} vs {lim}")
+                    check(same, f"{name}: two runs differ")
+                    del o1, o2, pk, ref
+                del q8b, v8, q8c
+    torch.cuda.empty_cache()
+
+
 def tool_wrappers(fb, fq, c, sm, sc, bi, bf):
     """(module, name, plain version) of each kernel wrapper the experiment
     chains launch; each plain version takes its wrapper's arguments."""
@@ -1479,6 +1629,7 @@ def tools_phases(tag, dev):
           f"is run again for the same bits, and its end-to-end distance "
           f"from the plain chain is printed (it compounds over the layers: "
           f"no LN in row 18, one-hot softmax rows in row 19)")
+    tools_attn_phase(tag, dev, fb, sm, bi)
     counts, stats = {}, {}
 
     def drive(label, fn, want):
@@ -1700,6 +1851,29 @@ def tools_phases(tag, dev):
             functools.partial(sm.core_ref, qkv18, sm.N, sm.S, sm.H, v),
             attn_cost(sm.N, sm.S, heads=sm.H),
             functools.partial(F.scaled_dot_product_attention, *heads18))
+    # row 19's cores at DINOv3's S = 201 and giant2's shape, on the codes
+    # their chains make
+    for label, key in ((bi.SHAPES[1][0], "S=201"), (bi.SHAPES[2][0], "giant2")):
+        n_, s_, e_, nh_, p_, x_ = i8[label]
+        xs = x_.reshape(n_ * s_, e_)
+        qb_, vb_ = bi._ln_i8(xs, p_, p_.qk, True), bi._ln_i8(xs, p_, p_.v, False)
+        qc_ = bi._ln_i8(xs, p_, p_.qkv, True)
+        ops_, m_ = 2 * n_ * nh_ * s_ * s_ * 64, n_ * s_
+        hb_ = [u.to(bf16) for u in c.head_views(qb_, n_, s_, 2, nh_)]
+        hc_ = [u.to(bf16) for u in c.head_views(qc_, n_, s_, 3, nh_)]
+        cases[f"attn_i8[B,{key}]"] = (
+            functools.partial(bi.attn_i8, qb_, vb_, n_, s_, nh_),
+            functools.partial(bi.core_i8_ref, qb_, vb_, n_, s_, nh_, bf16),
+            (ops_, m_ * 2 * e_ + 2 * m_ * e_ + 2 * m_ * e_, ops_),
+            functools.partial(F.scaled_dot_product_attention, *hb_,
+                              c.head_views(vb_, n_, s_, 1, nh_)[0],
+                              scale=1 / 8))
+        cases[f"attn_i8[C,{key}]"] = (
+            functools.partial(bi.attn_i8, qc_, None, n_, s_, nh_),
+            functools.partial(bi.core_i8_ref, qc_, None, n_, s_, nh_, bf16),
+            (0, m_ * 3 * e_ + 2 * m_ * e_, 2 * ops_),
+            functools.partial(F.scaled_dot_product_attention, *hc_,
+                              scale=1 / 8))
     e17, f17 = bf.E, bf.FF
     ln2 = (p17.ln2s, p17.ln2b)
 
@@ -1723,10 +1897,21 @@ def tools_phases(tag, dev):
             b_ms, b_by = bound([cost_])
             times[name] = (km, pm_, b_ms, b_by, lm)
             ops = cost_[0] + (cost_[2] if len(cost_) > 2 else 0)
+            # the redesigned cores also replayed from a CUDA graph, kernel
+            # and library alike: per-call events hold the wrapper's host time
+            redesigned = name.startswith(("attn_variant", "attn_i8"))
+            gm, gl = ((graph_ms(kern), graph_ms(lib)) if redesigned
+                      else (None, None))
+            old = WMMA_TOOLS_MS.get(name)
             print(f"{tag} time {name}: kernel {km:.4f} ms ({ops / km / 1e9:.2f}"
                   f" T product operations/s), plain {pm_:.4f} ms,"
                   f" bound {b_ms:.4f} ms by {b_by}, library "
-                  + (f"{lm:.4f} ms" if lm is not None else "none"))
+                  + (f"{lm:.4f} ms" if lm is not None else "none")
+                  + (f" ({km / lm:.3f}x)" if lm else "")
+                  + (f"; replayed from a CUDA graph: kernel {gm:.4f} ms, "
+                     f"library {gl:.4f} ms ({gm / gl:.3f}x)" if gm else "")
+                  + (f"; the WMMA kernel {old} ms (PERF.md §6, not re-timed;"
+                     f" {old / km:.2f}x)" if old else ""))
     # the chains' plain and library times, and bounds (PERF.md row table)
     chain_cost18 = [mm_cost(m18, sm.E, 3 * sm.E),
                     attn_cost(sm.N, sm.S, heads=sm.H),
@@ -1921,6 +2106,8 @@ PTXAS_ENTRIES = {
     "mhsa_bwd.cu": {"mhsa_bwd_dq_kernel": 2, "mhsa_bwd_dkv_kernel": 2},
     "flash_fwd.cu": {"flash_fwd_kernel": 1},
     "flash_bwd.cu": {"flash_bwd_dq_kernel": 1, "flash_bwd_dkv_kernel": 1},
+    "attn_variants.cu": {"variant_kernel": 10},
+    "attn_i8.cu": {"attn_i8_kernel": 6},
 }
 SASS_GEMMS = {"gemm_ln_kernel": 4, "gemm_dgrad_kernel": 4,
               "gemm_wgrad_kernel": 1, "probe_kernel": 4,
@@ -1933,6 +2120,14 @@ SASS_I8 = {"gemm_i8_kernel": 5, "probe_i8_kernel": 2,
 # The kernels that stage their rows by bulk copies (1D TMA: UBLKCP; a
 # tensor-map load would read UTMALDG), and how many instances each has.
 SASS_BULK = {"quant_rows_ring_kernel": 8}
+# The tools/ cores of rows 18-19 (`variant_kernel<V, TWO>`,
+# `attn_i8_kernel<INT8_PV, TWO, P_OUT>`, P_OUT the check's copy of C's
+# codes) and their instances: the scores are wgmma
+# on TMA boxes (HGMMA; IGMMA in the int8 one) in every instance; P.V is
+# mma.sync where the design puts it, as in `mhsa`: bf16 HMMA in the
+# one-pass instances of row 18 and of row 19's B, int8 IMMA (m16n8k32) in
+# C's; register-A HGMMA in the two-pass ones of row 18 and B; nothing else.
+SASS_TOOLS = {"variant_kernel": 10, "attn_i8_kernel": 6}
 # mhsa's one-pass instances (template flag TWO false) run P.V by mma.sync
 # (HMMA: 17 k steps x 8 n tiles a warp at S = 257); every other instance
 # of these kernels has no HMMA.
@@ -2048,6 +2243,61 @@ def check_machine_code(tag, build_log, build_mod, lib_path) -> None:
             check(n["UBLKCP"] + n["UTMALDG"] > 0,
                   f"{fn}: no bulk copy or TMA load ({n})")
         check(len(fns) == SASS_BULK[k], f"{k} instances in SASS: {len(fns)}")
+    tools = {k: {} for k in SASS_TOOLS}
+    for fn, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)",
+                               sass, re.S):
+        for k in SASS_TOOLS:
+            if k in fn:
+                tools[k][fn] = {op: body.count(op) for op in (
+                    "HGMMA", "IGMMA", "UTMALDG", "HMMA", "IMMA")}
+    for k, fns in tools.items():
+        for fn, n in fns.items():
+            args = re.search(k + r"I(.*?)EEv", fn).group(1) + "E"
+            flags = re.findall(r"L[bi](\d+)E", args)  # V or INT8_PV, TWO[, P_OUT]
+            c8, two = flags[0] == "1", flags[1] == "1"
+            print(f"{tag} SASS {k}<{args}>: "
+                  + ", ".join(f"{v} {op}" for op, v in n.items()))
+            if k == "variant_kernel":
+                want = (n["HGMMA"] > 0 and n["IGMMA"] == n["IMMA"] == 0
+                        and (n["HMMA"] > 0) != two)
+            elif c8:
+                want = (n["IGMMA"] > 0 and n["IMMA"] > 0
+                        and n["HGMMA"] == n["HMMA"] == 0)
+            else:
+                want = (n["IGMMA"] > 0 and n["IMMA"] == 0
+                        and (n["HMMA"] > 0) != two and (n["HGMMA"] > 0) == two)
+            check(want and n["UTMALDG"] > 0,
+                  f"{fn}: not its wgmma scores on TMA loads with its P.V ({n})")
+        check(len(fns) == SASS_TOOLS[k], f"{k} instances in SASS: {len(fns)}")
+
+
+def check_tools_attn_geometry(tag, lib) -> None:
+    """`bench_attn_softmax.variant_launch` and `bench_attn_i8.i8_launch`
+    (the plans the wrappers check and the CPU tests read) against the
+    kernels' own, `mst_attn_variant_geometry` and `mst_attn_i8_geometry`,
+    at every S from 1 to 512."""
+    from mst_tpu_torch.tools import bench_attn_i8 as bi
+    from mst_tpu_torch.tools import bench_attn_softmax as sm
+    for s in range(1, 513):
+        g, geo = sm.variant_launch(s), (ctypes.c_int * 8)()
+        check(lib.mst_attn_variant_geometry(s, geo) == 0, f"geometry at S={s}")
+        want = (g.tile, g.tiles, g.tiles_per_block, g.threads, g.passes,
+                g.chunks64, g.tail16, g.smem)
+        check(tuple(geo) == want, f"attn_variant geometry at S={s}: kernel "
+              f"{tuple(geo)}, mirror {want}")
+        for code, v in ((1, "B"), (2, "C")):
+            g, geo = bi.i8_launch(s, v), (ctypes.c_int * 9)()
+            check(lib.mst_attn_i8_geometry(s, code, geo) == 0,
+                  f"geometry at S={s}")
+            want = (g.tile, g.tiles, g.tiles_per_block, g.threads, g.passes,
+                    g.chunks64, g.tail16, g.vt_ld, g.smem)
+            check(tuple(geo) == want, f"attn_i8[{v}] geometry at S={s}: "
+                  f"kernel {tuple(geo)}, mirror {want}")
+    print(f"{tag} tools attention geometry: variant_launch / i8_launch equal "
+          f"mst_attn_variant_geometry / mst_attn_i8_geometry at every S <= "
+          f"512 (S = 257: {sm.variant_launch(257).smem} / "
+          f"{bi.i8_launch(257, 'B').smem} / {bi.i8_launch(257, 'C').smem} "
+          f"bytes of shared memory)")
 
 
 def check_gemm_geometry(tag, fb, lib) -> None:
@@ -4563,6 +4813,7 @@ def main() -> int:
     check_machine_code(tag, log.getvalue(), _build, lib_path)
     check_gemm_geometry(tag, fb, _build.lib())
     check_attn_geometry(tag, fb, _build.lib())
+    check_tools_attn_geometry(tag, _build.lib())
     check_flash_geometry(tag, fa, _build.lib())
     probe_errs = check_layout_probes(tag, dev, _build.lib())
 

@@ -114,10 +114,15 @@ _SIGNATURES = {
     # the tools/ experiments (mst_tpu_torch/tools/), queue B rows 17-21:
     # qkv, out, p_out|NULL, N, S, E, num_heads, variant, scale, stream
     "mst_attn_variant": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # S, geo (host int32 [8]): mst_attn_variant's launch geometry
+    "mst_attn_variant_geometry": (_I, _P),
     # qkv, out, N, S, E, num_heads, scale, stream
     "mst_attn_split_cls": (_P, _P, _I, _I, _I, _I, _F, _P),
-    # codes (int8), v|NULL, out, N, S, E, num_heads, variant, scale, stream
-    "mst_attn_i8": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # codes (int8), v|NULL, out, p_out|NULL, N, S, E, num_heads, variant,
+    # scale, stream
+    "mst_attn_i8": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # S, variant, geo (host int32 [9]): mst_attn_i8's launch geometry
+    "mst_attn_i8_geometry": (_I, _I, _P),
     # o, x, wproj, bproj, ln_s, ln_b, w1, b1, w2, b2, out, M, E, F, eps,
     # stream
     "mst_block_tail": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

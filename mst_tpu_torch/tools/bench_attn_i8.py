@@ -72,12 +72,41 @@ def core_i8_ref(q8, v, n: int, s: int, num_heads: int, out_dtype,
     return c.merge_heads(o.to(out_dtype), n, s)
 
 
+def i8_launch(s: int, variant: str) -> SimpleNamespace:
+    """The launch geometry of `attn_i8` at sequence length s in variant B
+    or C, as csrc/attn_i8.cu `mst_attn_i8_geometry` exports it: `mhsa`'s
+    plan (64-query tiles, up to 5 walked by one block of one warpgroup, the
+    grid heads x tile groups by slices; one pass up to S = 272; 64-key
+    chunks and a 16-key tail), C's transposed V codes `vt` [64][vt_ld]
+    (the chunks' keys rounded up to 32, + 16 bytes), and the dynamic
+    shared memory: 1 KB of alignment, two 4 KB Q boxes of codes, the 8 KB
+    output staging box, the K code boxes, the V boxes (codes for C, bf16
+    for B), C's vt, the barriers. Raises ValueError outside 1 <= S <= 512,
+    before any launch."""
+    if not 1 <= s <= fb.MHSA_MAX_S:
+        raise ValueError(f"attn_i8 takes 1 <= S <= {fb.MHSA_MAX_S}; got "
+                         f"S={s}")
+    g = fb.mhsa_launch(s)
+    keys = g.chunks64 * 64 + g.tail16 * 16
+    codes = g.chunks64 * 64 * c.HD + g.tail16 * 16 * c.HD
+    vt_ld = (-(-keys // 32) * 32 + 16) if variant == "C" else 0
+    v_bytes = codes if variant == "C" else 2 * codes
+    return SimpleNamespace(
+        tile=g.tile, tiles=g.tiles, tiles_per_block=g.tiles_per_block,
+        threads=g.threads, passes=g.passes, chunks64=g.chunks64,
+        tail16=g.tail16, vt_ld=vt_ld,
+        smem=(1024 + 2 * 64 * c.HD + 64 * c.HD * 2 + codes + v_bytes
+              + c.HD * vt_ld + (2 + g.chunks64 + g.tail16) * 8))
+
+
 def attn_i8(q8, v, n: int, s: int, num_heads: int, scale: float = SCALE,
-            out_dtype=torch.bfloat16):
+            out_dtype=torch.bfloat16, *, want_p: bool = False):
     """The int8 attention core: variant B with v [n*s, E] bf16 and q8 the
     codes [n*s, 2E] of q | k, or variant C with v None and q8 the codes
     [n*s, 3E] of q | k | v -> o [n*s, E] in `out_dtype` (bf16 on CUDA).
     `scale` overrides the score scale (a planted fault in the card's
+    checks). On CUDA `want_p` (variant C only) also returns the int8 codes
+    of P that the kernel's P.V reads, [n, heads, s, s] (the card's
     checks)."""
     if not _on_cuda(q8):
         return core_i8_ref(q8, v, n, s, num_heads, out_dtype, scale)
@@ -85,16 +114,21 @@ def attn_i8(q8, v, n: int, s: int, num_heads: int, scale: float = SCALE,
         raise TypeError(f"attn_i8 writes bf16 on CUDA, not {out_dtype}")
     e = c.HD * num_heads
     parts = 2 if v is not None else 3
+    i8_launch(s, "B" if v is not None else "C")
+    if want_p and v is not None:
+        raise ValueError("attn_i8 returns P for variant C only (its codes)")
     fq._codes(q8, "q8", (n * s, parts * e), q8)
     if v is not None:
         fb._mat(v, "v", (n * s, e), q8)
     out = torch.empty((n * s, e), dtype=torch.bfloat16, device=q8.device)
+    p = (torch.empty((n, num_heads, s, s), device=q8.device,
+                     dtype=torch.int8) if want_p else None)
     err = _build.lib().mst_attn_i8(
-        q8.data_ptr(), fb._ptr(v), out.data_ptr(), n, s, e, num_heads,
-        1 if v is not None else 2, scale, fb._stream(q8))
+        q8.data_ptr(), fb._ptr(v), out.data_ptr(), fb._ptr(p), n, s, e,
+        num_heads, 1 if v is not None else 2, scale, fb._stream(q8))
     _build.check(err, "mst_attn_i8")
     attn_i8.launches += 1
-    return out
+    return (out, p) if want_p else out
 
 
 fb.register_wrappers(kernels=(attn_i8,))

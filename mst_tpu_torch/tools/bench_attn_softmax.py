@@ -23,6 +23,7 @@ without its residual).
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -72,6 +73,27 @@ def core_ref(qkv, n: int, s: int, num_heads: int, variant: str,
     return (o, pp) if want_p else o
 
 
+def variant_launch(s: int) -> SimpleNamespace:
+    """The launch geometry of `attn_variant` at sequence length s, as
+    csrc/attn_variants.cu `mst_attn_variant_geometry` exports it: `mhsa`'s
+    plan (64-query tiles, up to 5 walked by one block of one warpgroup, the
+    grid heads x tile groups by slices; one pass up to S = 272; 64-key
+    chunks and a 16-key tail), with the dynamic shared memory of 1 KB of
+    alignment, two Q boxes, the K and V boxes and the barriers (no carry
+    sums). Raises ValueError outside 1 <= S <= 512, before any launch."""
+    if not 1 <= s <= fb.MHSA_MAX_S:
+        raise ValueError(f"attn_variant takes 1 <= S <= {fb.MHSA_MAX_S}; "
+                         f"got S={s}")
+    g = fb.mhsa_launch(s)
+    box, tail_box = 64 * c.HD * 2, 16 * c.HD * 2
+    operand = g.chunks64 * box + g.tail16 * tail_box
+    return SimpleNamespace(
+        tile=g.tile, tiles=g.tiles, tiles_per_block=g.tiles_per_block,
+        threads=g.threads, passes=g.passes, chunks64=g.chunks64,
+        tail16=g.tail16,
+        smem=1024 + 2 * box + 2 * operand + (2 + g.chunks64 + g.tail16) * 8)
+
+
 def attn_variant(qkv, n: int, s: int, num_heads: int, variant: str,
                  want_p: bool = False, scale=None):
     """The attention core in softmax form `variant` (A-E): qkv [n*s, 3E]
@@ -84,6 +106,7 @@ def attn_variant(qkv, n: int, s: int, num_heads: int, variant: str,
     if e != c.HD * num_heads:
         raise ValueError(f"attn_variant needs head dim 64; got E={e}, "
                          f"heads={num_heads}")
+    variant_launch(s)
     fb._mat(qkv, "qkv", (n * s, 3 * e), qkv)
     out = torch.empty((n * s, e), dtype=qkv.dtype, device=qkv.device)
     p = (torch.empty((n, num_heads, s, s), dtype=qkv.dtype,
