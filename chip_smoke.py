@@ -254,13 +254,19 @@ tools' own shapes:
    TOOLS_S18 (A-E) and TOOLS_S19 (B, C; tool-range and narrow codes)
    within 2 bf16 ulps of its plain version and twice for the same bits, D
    bit for bit against `mhsa` at [128, 257] and [256, 201], C's P codes
-   against the plain codes (differing only at .5 ties);
+   against the plain codes (differing only at .5 ties); then
+   (`tools_rest_phase`) row 21's split-CLS core and row 17's `block_tail`,
+   redesigned on TMA + wgmma: each first in a fresh host thread (the same
+   bits), the split core at every S = 1 + P, P = 64 .. 384, and
+   `block_tail` at M = 32,896, 771 and 1, within 2 bf16 ulps of plain and
+   twice for the same bits;
 39. times: each tool's `main()` (the experiment's own timings), then each
    new kernel against its plain version, bound and library call (SDPA for
-   the attention cores, LN + matmul + GELU for `block_tail`; rows 18-19's
-   cores beside the WMMA kernels' recorded times, `WMMA_TOOLS_MS`, and
-   replayed from a CUDA graph; row 19's also at DINOv3's S = 201 and
-   giant2's shape), and the chains' plain, bound and library times.
+   the attention cores, LN + matmul + GELU for `block_tail`; the cores of
+   rows 18, 19 and 21 and `block_tail` beside the WMMA kernels' recorded
+   times, `WMMA_TOOLS_MS`, and replayed from a CUDA graph, kernel and
+   library alike; row 19's also at DINOv3's S = 201 and giant2's shape),
+   and the chains' plain, bound and library times.
 
 Phase 40 holds the Hopper form of `ln_gemm` / `ln_gemm_swiglu` (`ln_rows`,
 then a TMA + wgmma GEMM on the normalised rows) on its own: `ln_rows` and
@@ -1341,12 +1347,19 @@ TOOLS_S18 = (77, 201, 257, 400)
 TOOLS_S19 = (77, 201, 257, 512)
 TOOLS_N = 32
 # The WMMA kernels' times at the tools' shapes (row 18: [128, 6, 257, 64];
-# row 19: ViT-S [256, 6, 257, 64]; PERF.md §6 rows 18-19, phase 39 on an
-# H100 80GB HBM3 at 700 W), printed beside the redesigned ones.
+# row 19: ViT-S [256, 6, 257, 64]; row 21: [128, 6, 257, 64]; row 17: M =
+# 32,896; PERF.md §6 rows 17-21, phase 39 on an H100 80GB HBM3 at 700 W),
+# printed beside the redesigned ones.
 WMMA_TOOLS_MS = {"attn_variant[A]": 0.8313, "attn_variant[B]": 0.7225,
                  "attn_variant[C]": 0.7496, "attn_variant[D]": 0.6585,
                  "attn_variant[E]": 0.6812, "attn_i8[B]": 1.0490,
-                 "attn_i8[C]": 0.9960}
+                 "attn_i8[C]": 0.9960, "attn_split_cls": 0.5444,
+                 "block_tail": 1.2276}
+# Phase 38's lengths for row 21's split-CLS core: every S = 1 + P it takes
+# (P = 64 .. 384; one pass up to P = 256), and row 17's `block_tail` rows:
+# the tool's M = 128 x 257, a ragged 771 and 1.
+TOOLS_S21 = tuple(1 + p for p in range(64, 385, 64))
+TOOLS_M17 = (32_896, 771, 1)
 
 
 def i8_plain_codes(q8, n, s, nh, scale, log2_127):
@@ -1472,6 +1485,70 @@ def tools_attn_phase(tag, dev, fb, sm, bi):
                     check(same, f"{name}: two runs differ")
                     del o1, o2, pk, ref
                 del q8b, v8, q8c
+    torch.cuda.empty_cache()
+
+
+def tools_rest_phase(tag, dev, sc, bf):
+    """Phase 38's hold on row 21's split-CLS core and row 17's
+    `block_tail`, redesigned on TMA + wgmma: each first in a fresh host
+    thread, the split core at TOOLS_S21 and `block_tail` at TOOLS_M17
+    within 2 bf16 ulps of plain and twice for the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    bf16 = torch.bfloat16
+    n = TOOLS_N
+    p17 = bf.params(dev, bf.E)
+    # nonzero biases and LN operands, so that each one is checked
+    for name in ("bproj", "ln2b", "b1", "b2"):
+        t = getattr(p17, name)
+        t.copy_(0.1 * torch.randn(t.shape, generator=gen, device=dev))
+    p17.ln2s.copy_(1 + 0.1 * torch.randn(bf.E, generator=gen, device=dev))
+
+    def tail_args(m):
+        o, x = (0.3 * torch.randn(2, m, bf.E, generator=gen, device=dev)).to(bf16)
+        return (o, x, p17.wproj, p17.bproj, p17.ln2s, p17.ln2b, p17.w1, p17.b1,
+                p17.w2, p17.b2)
+
+    print(f"{tag} tools cores on TMA + wgmma (rows 21 and 17): each entry "
+          f"first in a fresh host thread; attn_split_cls at S = {TOOLS_S21}, "
+          f"{n} slices x {HEADS} heads; block_tail at M = {TOOLS_M17}; "
+          f"within 2 bf16 ulps of plain, twice for the same bits")
+    with torch.inference_mode():
+        cases = []
+        for s in TOOLS_S21:
+            qkv = torch.randn(n * s, 3 * E, generator=gen, device=dev).to(bf16)
+            cases.append((f"attn_split_cls S={s}",
+                          functools.partial(sc.attn_split_cls, qkv, n, s, HEADS),
+                          functools.partial(sc.split_ref, qkv, n, s, HEADS)))
+        for m in TOOLS_M17:
+            args = tail_args(m)
+            cases.append((f"block_tail M={m}",
+                          functools.partial(bf.block_tail, *args),
+                          functools.partial(bf.block_tail_ref, *args)))
+        # the first launches: the one-pass and two-pass split instances
+        # (S = 257, 385) and block_tail at the tool's M
+        firsts = {"attn_split_cls S=257", "attn_split_cls S=385",
+                  f"block_tail M={TOOLS_M17[0]}"}
+        for name, kern, plain in [c_ for c_ in cases if c_[0] in firsts]:
+            there, here = fresh_thread(kern), kern()
+            torch.cuda.synchronize()
+            same = torch.equal(there, here)
+            print(f"{tag} {name} launched first in a fresh host thread: the "
+                  f"same bits as on the main thread: {same}")
+            check(same, f"{name} in a fresh thread differs")
+        for name, kern, plain in cases:
+            k1, k2, ref = kern(), kern(), plain()
+            torch.cuda.synchronize()
+            scale = ref.float().abs().max().item()
+            err = (k1.float() - ref.float()).abs().max().item()
+            lim = 2 * ulp_bf16(scale)
+            same = torch.equal(k1, k2)
+            print(f"{tag} {name}: max_abs_err={err:.6g} limit={lim:.6g}; two "
+                  f"runs equal {same}")
+            check(bool(torch.isfinite(k1.float()).all()), f"{name}: non-finite")
+            check(err <= lim, f"{name}: {err} vs {lim}")
+            check(same, f"{name}: two runs differ")
+            del k1, k2, ref
+        del cases
     torch.cuda.empty_cache()
 
 
@@ -1630,6 +1707,7 @@ def tools_phases(tag, dev):
           f"from the plain chain is printed (it compounds over the layers: "
           f"no LN in row 18, one-hot softmax rows in row 19)")
     tools_attn_phase(tag, dev, fb, sm, bi)
+    tools_rest_phase(tag, dev, sc, bf)
     counts, stats = {}, {}
 
     def drive(label, fn, want):
@@ -1897,9 +1975,10 @@ def tools_phases(tag, dev):
             b_ms, b_by = bound([cost_])
             times[name] = (km, pm_, b_ms, b_by, lm)
             ops = cost_[0] + (cost_[2] if len(cost_) > 2 else 0)
-            # the redesigned cores also replayed from a CUDA graph, kernel
+            # the redesigned kernels also replayed from a CUDA graph, kernel
             # and library alike: per-call events hold the wrapper's host time
-            redesigned = name.startswith(("attn_variant", "attn_i8"))
+            redesigned = name.startswith(("attn_variant", "attn_i8",
+                                          "attn_split_cls", "block_tail"))
             gm, gl = ((graph_ms(kern), graph_ms(lib)) if redesigned
                       else (None, None))
             old = WMMA_TOOLS_MS.get(name)
@@ -2106,28 +2185,33 @@ PTXAS_ENTRIES = {
     "mhsa_bwd.cu": {"mhsa_bwd_dq_kernel": 2, "mhsa_bwd_dkv_kernel": 2},
     "flash_fwd.cu": {"flash_fwd_kernel": 1},
     "flash_bwd.cu": {"flash_bwd_dq_kernel": 1, "flash_bwd_dkv_kernel": 1},
-    "attn_variants.cu": {"variant_kernel": 10},
+    "attn_variants.cu": {"variant_kernel": 10, "split_cls_kernel": 2},
     "attn_i8.cu": {"attn_i8_kernel": 6},
+    "block_tail.cu": {"block_tail_kernel": 1},
 }
 SASS_GEMMS = {"gemm_ln_kernel": 4, "gemm_dgrad_kernel": 4,
               "gemm_wgrad_kernel": 1, "probe_kernel": 4,
               "gemm_residual_kernel": 4, "gemm_dls_kernel": 1,
               "mhsa_kernel": 20, "mhsa_bwd_dq_kernel": 2,
               "mhsa_bwd_dkv_kernel": 2, "flash_fwd_kernel": 1,
-              "flash_bwd_dq_kernel": 1, "flash_bwd_dkv_kernel": 1}
+              "flash_bwd_dq_kernel": 1, "flash_bwd_dkv_kernel": 1,
+              "block_tail_kernel": 1}
 SASS_I8 = {"gemm_i8_kernel": 5, "probe_i8_kernel": 2,
            "gemm_i8_residual_kernel": 1}
 # The kernels that stage their rows by bulk copies (1D TMA: UBLKCP; a
 # tensor-map load would read UTMALDG), and how many instances each has.
 SASS_BULK = {"quant_rows_ring_kernel": 8}
-# The tools/ cores of rows 18-19 (`variant_kernel<V, TWO>`,
+# The tools/ cores of rows 18, 19 and 21 (`variant_kernel<V, TWO>`,
 # `attn_i8_kernel<INT8_PV, TWO, P_OUT>`, P_OUT the check's copy of C's
-# codes) and their instances: the scores are wgmma
+# codes, `split_cls_kernel<TWO>`) and their instances: the scores are wgmma
 # on TMA boxes (HGMMA; IGMMA in the int8 one) in every instance; P.V is
 # mma.sync where the design puts it, as in `mhsa`: bf16 HMMA in the
-# one-pass instances of row 18 and of row 19's B, int8 IMMA (m16n8k32) in
-# C's; register-A HGMMA in the two-pass ones of row 18 and B; nothing else.
-SASS_TOOLS = {"variant_kernel": 10, "attn_i8_kernel": 6}
+# one-pass instances of rows 18 and 21 and of row 19's B, int8 IMMA
+# (m16n8k32) in C's; register-A HGMMA in the two-pass ones of rows 18 and
+# 21 and B; nothing else. (Row 17's `block_tail_kernel` is in SASS_GEMMS:
+# HGMMA and UTMALDG, no HMMA.)
+SASS_TOOLS = {"variant_kernel": 10, "attn_i8_kernel": 6,
+              "split_cls_kernel": 2}
 # mhsa's one-pass instances (template flag TWO false) run P.V by mma.sync
 # (HMMA: 17 k steps x 8 n tiles a warp at S = 257); every other instance
 # of these kernels has no HMMA.
@@ -2253,11 +2337,14 @@ def check_machine_code(tag, build_log, build_mod, lib_path) -> None:
     for k, fns in tools.items():
         for fn, n in fns.items():
             args = re.search(k + r"I(.*?)EEv", fn).group(1) + "E"
-            flags = re.findall(r"L[bi](\d+)E", args)  # V or INT8_PV, TWO[, P_OUT]
+            # V or INT8_PV, TWO[, P_OUT]; the split core's TWO alone
+            flags = re.findall(r"L[bi](\d+)E", args)
+            if k == "split_cls_kernel":
+                flags = ["0"] + flags
             c8, two = flags[0] == "1", flags[1] == "1"
             print(f"{tag} SASS {k}<{args}>: "
                   + ", ".join(f"{v} {op}" for op, v in n.items()))
-            if k == "variant_kernel":
+            if k in ("variant_kernel", "split_cls_kernel"):
                 want = (n["HGMMA"] > 0 and n["IGMMA"] == n["IMMA"] == 0
                         and (n["HMMA"] > 0) != two)
             elif c8:
@@ -2275,9 +2362,46 @@ def check_tools_attn_geometry(tag, lib) -> None:
     """`bench_attn_softmax.variant_launch` and `bench_attn_i8.i8_launch`
     (the plans the wrappers check and the CPU tests read) against the
     kernels' own, `mst_attn_variant_geometry` and `mst_attn_i8_geometry`,
-    at every S from 1 to 512."""
+    at every S from 1 to 512; `bench_attn_split_cls.split_launch` against
+    `mst_attn_split_cls_geometry` at every S it takes (the kernel refuses
+    the rest), and `bench_block_fusion.block_tail_launch` against
+    `mst_block_tail_geometry` at M = 1 .. 200, 771, 32,896 and 65,792 on
+    this card's SM count, 132 and 114."""
     from mst_tpu_torch.tools import bench_attn_i8 as bi
     from mst_tpu_torch.tools import bench_attn_softmax as sm
+    from mst_tpu_torch.tools import bench_attn_split_cls as sc
+    from mst_tpu_torch.tools import bench_block_fusion as bf
+    for s in range(1, 513):
+        geo = (ctypes.c_int * 7)()
+        err = lib.mst_attn_split_cls_geometry(s, geo)
+        try:
+            g = sc.split_launch(s)
+        except ValueError:
+            check(err != 0, f"mst_attn_split_cls_geometry takes S={s}")
+            continue
+        check(err == 0, f"split geometry at S={s}: {err}")
+        want = (g.tile, g.tiles, g.tiles_per_block, g.threads, g.passes,
+                g.boxes, g.smem)
+        check(tuple(geo) == want, f"attn_split_cls geometry at S={s}: "
+              f"kernel {tuple(geo)}, mirror {want}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for m in (*range(1, 201), 771, 32_896, 65_792):
+        for n_sm in sorted({sms, 132, 114}):
+            g, geo = bf.block_tail_launch(m, n_sm), (ctypes.c_int * 9)()
+            check(lib.mst_block_tail_geometry(m, n_sm, geo) == 0,
+                  f"block_tail geometry at M={m}")
+            want = (g.rows, g.units, g.grid, g.threads, g.consumers, g.ring,
+                    g.stage, g.unit_stages, g.smem)
+            check(tuple(geo) == want, f"block_tail geometry at M={m}, "
+                  f"{n_sm} SMs: kernel {tuple(geo)}, mirror {want}")
+    print(f"{tag} tools geometry: split_launch equals "
+          f"mst_attn_split_cls_geometry at S = 65 .. 385 (others refused by "
+          f"both; S = 257: {sc.split_launch(257).smem} bytes); "
+          f"block_tail_launch equals mst_block_tail_geometry at M = 1 .. "
+          f"65,792 ({bf.block_tail_launch(32_896, sms).grid} CTAs of "
+          f"{bf.block_tail_launch(1).threads} threads, "
+          f"{bf.block_tail_launch(1).smem} bytes, at M = 32,896 on this "
+          f"card's {sms} SMs)")
     for s in range(1, 513):
         g, geo = sm.variant_launch(s), (ctypes.c_int * 8)()
         check(lib.mst_attn_variant_geometry(s, geo) == 0, f"geometry at S={s}")

@@ -54,268 +54,49 @@
 // KB Q boxes and the K and V boxes (84 KB at S = 257: two blocks an SM;
 // 145 KB at S = 512).
 //
-// Split-CLS (row 21), still on its first (WMMA) design: S = 1 +
-// P patches with P % 64 == 0. The patch
-// queries 1..P run in exact 64-row tiles over the patch keys 1..P in exact
-// 16-key tiles (no padded score column); the CLS key is a strip: s_pc =
-// q_p . k_c, a 64-wide dot per row taken by the row's warp (2 products a
-// lane, then a butterfly), m = max(rowmax(s_pp), s_pc), l = sum(p_pp) +
-// p_pc, o_p = (bf16(p_pp).V_p + p_pc * v_c) / l with the CLS term in f32,
-// as the tool has it. The CLS query row (one per slice and head) goes over
-// all S keys in a second kernel, one warp per (slice, head): the lanes
-// take the keys for the scores, then the 64 output columns for P.V. Split
-// and base round at different points, so each is held to its own plain
-// version. One block per (64-query tile, head, slice) holds K and V of the
-// head and the tile's f32 score rows in shared memory, one warp per
-// softmax row, WMMA bf16 products with f32 accumulators.
+// Split-CLS (row 21, `split_cls_kernel<TWO>`): S = 1 + P patches, P % 64
+// == 0, 64 <= P <= 384, on the same pieces (the tool's `_mhsa_split` math,
+// `split_ref`'s order):
+// - one block, one warpgroup, per (head, slice) walks up to 5 of the P / 64
+//   exact patch query tiles (slice rows 1 + 64 u ..); thread 0 starts TMA
+//   loads of the P / 64 exact 64-row boxes of the patch keys and values
+//   (the 3-D map's box at row 1 + 64 b: no 16-key tail, no padded score
+//   column) and of the Q tiles into two boxes, the tile after next
+//   streaming in; K and V are read once per (head, slice);
+// - s_pp = q_p . k_p^T by wgmma m64n64k16 into registers; the CLS key is a
+//   strip, s_pc = (q_p . k_c) * scale, an f32 dot per row: the 4 lanes of
+//   a row's quad each take 16 of the 64 columns from the swizzled Q box,
+//   then two shuffles; m = max(rowmax(s_pp), s_pc), p = ex2(s - m) (the
+//   EXP_2 form), l = sum(p_pp) + p_pc, o_p = (bf16(p_pp).V_p + p_pc v_c) /
+//   l with the CLS term in f32, rounded to bf16 once. P.V by mma.sync from
+//   P's registers (one pass, P <= 256), or the two-pass body with
+//   register-A wgmma (P = 320, 384), as variant D's;
+// - the CLS query row of the (slice, head) is taken by the block of its
+//   first tile group after its tiles, from the K and V boxes already in
+//   shared memory and the CLS key and value (f32): the 128 threads score
+//   all S keys, the max and sum go through shared memory, then each warp
+//   sums bf16(p_c) v over a quarter of the keys for the 64 columns, o_c =
+//   (sum) / sum(p_c); no wgmma there (it runs under a branch);
+// - no score or probability reaches shared or device memory but the CLS
+//   row's S probabilities. At S = 257 a block holds 86,384 bytes: two an
+//   SM. Split and base round at different points, so each is held to its
+//   own plain version.
+// What bounds it at the tool's shape (N = 128, S = 257, 6 heads): the same
+// as variants A-E, 0.03 ms by bytes; it drops D's fifth query tile (one
+// valid row of 64) and its 16-key tail. On the card it takes D's time
+// (PERF.md §6 row 21): both are paced by one warpgroup's serial chain a
+// tile (scores, softmax, P.V; two blocks an SM, held there by the one-pass
+// body's 224 registers), which the dropped tile and tail do not shorten,
+// and the CLS row's tail adds back a little.
 #include "attn_softmax_sm90.cuh"
 
 namespace mst {
 namespace {
 
-namespace split {
-
-constexpr int HD = 64;
-constexpr int THREADS = 256;  // 8 warps
-constexpr int WARPS = THREADS / 32;
-constexpr int BQ = 64;        // query rows per block
-constexpr int LDQ = HD + 8;   // bf16 stride of Q / K / V rows
-constexpr int LDO = HD + 4;   // f32 stride of the output staging tile
-constexpr int MAX_S = 512;
-constexpr int PER_LANE = MAX_S / 32;
-constexpr size_t SMEM_CAP = 227 * 1024;
-
-__host__ __device__ inline int pad16(int s) { return (s + 15) & ~15; }
-
-struct Layout {
-  size_t q, k, v, s, l, c, total;  // byte offsets
-};
-
-// The patch kernel's layout over `keys` key rows, with c: the CLS key and
-// value in f32 and each row's p_pc ([3][64] f32).
-__host__ __device__ inline Layout layout(int keys, bool split) {
-  const int sp = pad16(keys);
-  Layout L;
-  const size_t qb = size_t(BQ) * LDQ * sizeof(bf16);
-  size_t kb = size_t(sp) * LDQ * sizeof(bf16);
-  const size_t ob = size_t(BQ) * LDO * sizeof(float);  // staged in K's place
-  if (ob > kb) kb = ob;
-  const size_t vb = size_t(sp) * LDQ * sizeof(bf16);
-  const size_t sb = size_t(BQ) * (sp + 4) * sizeof(float);
-  L.q = 0;
-  L.k = L.q + qb;
-  L.v = L.k + kb;
-  L.s = L.v + vb;
-  L.l = L.s + sb;
-  L.c = L.l + size_t(BQ) * sizeof(float);
-  L.total = L.c + (split ? size_t(3) * HD * sizeof(float) : 0);
-  return L;
-}
-
-// Split-CLS, the patch queries: one block per (64-query tile of the P
-// patches, head, slice); the patch keys are rows 1..P of the slice.
-__global__ void __launch_bounds__(THREADS)
-split_patch_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int S, int E,
-                   float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int P = S - 1;
-  const Layout L = layout(P, true);
-  const int lds = P + 4;
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L.q);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L.k);
-  float* Os = reinterpret_cast<float*>(smem + L.k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L.v);
-  float* Ss = reinterpret_cast<float*>(smem + L.s);
-  float* Ls = reinterpret_cast<float*>(smem + L.l);
-  float* kc = reinterpret_cast<float*>(smem + L.c);  // CLS key, f32
-  float* vc = kc + HD;                               // CLS value, f32
-  float* pc = vc + HD;                               // p_pc of each row
-
-  const int q0 = 1 + blockIdx.x * BQ;  // slice row of the tile's first query
-  const int h = blockIdx.y;
-  const int n = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const size_t row3 = size_t(3) * E;
-  const bf16* base = qkv + size_t(n) * S * row3 + h * HD;
-
-  for (int c = tid; c < BQ * (HD / 8); c += THREADS) {
-    const int r = c / (HD / 8), col = (c % (HD / 8)) * 8;
-    *reinterpret_cast<uint4*>(Qs + r * LDQ + col) =
-        *reinterpret_cast<const uint4*>(base + (q0 + r) * row3 + col);
-  }
-  for (int c = tid; c < P * (HD / 8); c += THREADS) {
-    const int r = c / (HD / 8), col = (c % (HD / 8)) * 8;
-    const bf16* src = base + (1 + r) * row3;
-    *reinterpret_cast<uint4*>(Ks + r * LDQ + col) = *reinterpret_cast<const uint4*>(src + E + col);
-    *reinterpret_cast<uint4*>(Vs + r * LDQ + col) =
-        *reinterpret_cast<const uint4*>(src + 2 * E + col);
-  }
-  if (tid < HD) {
-    kc[tid] = __bfloat162float(base[E + tid]);
-    vc[tid] = __bfloat162float(base[2 * E + tid]);
-  }
-  __syncthreads();
-
-  const int tiles_n = P / 16;
-  for (int t = warp; t < (BQ / 16) * tiles_n; t += WARPS) {
-    const int ti = t / tiles_n, tj = t % tiles_n;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < HD; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fa, Qs + ti * 16 * LDQ + kk, LDQ);
-      wmma::load_matrix_sync(fb, Ks + tj * 16 * LDQ + kk, LDQ);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-#pragma unroll
-    for (int e = 0; e < acc.num_elements; ++e) acc.x[e] *= scale;
-    wmma::store_matrix_sync(Ss + ti * 16 * lds + tj * 16, acc, lds, wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  for (int r = warp; r < BQ; r += WARPS) {
-    float* srow = Ss + r * lds;
-    // the CLS strip: s_pc = (q . k_c) * scale
-    const float2 qv = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(Qs + r * LDQ + 2 * lane));
-    float spc = qv.x * kc[2 * lane] + qv.y * kc[2 * lane + 1];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) spc += __shfl_xor_sync(0xffffffffu, spc, o);
-    spc *= scale;
-    float v[PER_LANE];
-    float mx = spc;
-#pragma unroll
-    for (int i = 0; i < PER_LANE; ++i) {
-      const int j = lane + 32 * i;
-      v[i] = j < P ? srow[j] : -INFINITY;
-      mx = fmaxf(mx, v[i]);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    float l = 0.0f;
-#pragma unroll
-    for (int i = 0; i < PER_LANE; ++i) {
-      const int j = lane + 32 * i;
-      v[i] = j < P ? exp2f(v[i] - mx) : 0.0f;
-      l += v[i];
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
-    const float ppc = exp2f(spc - mx);
-    __syncwarp();
-    bf16* prow = reinterpret_cast<bf16*>(srow);
-#pragma unroll
-    for (int i = 0; i < PER_LANE; ++i) {
-      const int j = lane + 32 * i;
-      if (j < P) prow[j] = __float2bfloat16(v[i]);
-    }
-    if (lane == 0) {
-      Ls[r] = l + ppc;
-      pc[r] = ppc;
-    }
-  }
-  __syncthreads();
-
-  const int ldp = 2 * lds;
-  const bf16* Ps = reinterpret_cast<const bf16*>(Ss);
-  for (int t = warp; t < (BQ / 16) * (HD / 16); t += WARPS) {
-    const int ti = t / (HD / 16), tj = t % (HD / 16);
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < P; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fa, Ps + ti * 16 * ldp + kk, ldp);
-      wmma::load_matrix_sync(fb, Vs + kk * LDQ + tj * 16, LDQ);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(Os + ti * 16 * LDO + tj * 16, acc, LDO, wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  for (int g = tid; g < BQ * (HD / 8); g += THREADS) {
-    const int r = g / (HD / 8), c = (g % (HD / 8)) * 8;
-    float v[8];
-    const float l = Ls[r], ppc = pc[r];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = (Os[r * LDO + c + e] + ppc * vc[c + e]) / l;
-    *reinterpret_cast<uint4*>(out + (size_t(n) * S + q0 + r) * E + h * HD + c) = pack8_bf16(v);
-  }
-}
-
-// Split-CLS, the CLS query rows: one warp per (slice, head) over all S
-// keys, K and V read from device memory (L2) row by row.
-__global__ void __launch_bounds__(THREADS)
-split_cls_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int S, int E,
-                 int H, float scale) {
-  __shared__ float qs[WARPS][HD];
-  __shared__ float ps[WARPS][MAX_S];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int idx = blockIdx.x * WARPS + warp;  // n * H + h
-  if (idx >= N * H) return;                   // warp-uniform; no block barrier below
-  const int n = idx / H, h = idx % H;
-  const size_t row3 = size_t(3) * E;
-  const bf16* base = qkv + size_t(n) * S * row3 + h * HD;
-  const float2 q2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(base + 2 * lane));
-  qs[warp][2 * lane] = q2.x;
-  qs[warp][2 * lane + 1] = q2.y;
-  __syncwarp();
-
-  float s[PER_LANE];
-  float mx = -INFINITY;
-#pragma unroll
-  for (int i = 0; i < PER_LANE; ++i) {
-    const int j = lane + 32 * i;
-    s[i] = -INFINITY;
-    if (j < S) {
-      const bf16* krow = base + j * row3 + E;
-      float d = 0.0f;
-#pragma unroll
-      for (int c = 0; c < HD; c += 8) {
-        float kv[8];
-        unpack8_bf16(*reinterpret_cast<const uint4*>(krow + c), kv);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) d += qs[warp][c + e] * kv[e];
-      }
-      s[i] = d * scale;
-    }
-    mx = fmaxf(mx, s[i]);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-  float l = 0.0f;
-#pragma unroll
-  for (int i = 0; i < PER_LANE; ++i) {
-    const int j = lane + 32 * i;
-    if (j < S) {
-      const float p = exp2f(s[i] - mx);
-      l += p;
-      ps[warp][j] = round_bf16(p);  // P.V reads P as bf16
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
-  __syncwarp();
-  float a0 = 0.0f, a1 = 0.0f;  // output columns 2 lane, 2 lane + 1
-  for (int j = 0; j < S; ++j) {
-    const float2 vv = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(base + j * row3 + 2 * E + 2 * lane));
-    a0 += ps[warp][j] * vv.x;
-    a1 += ps[warp][j] * vv.y;
-  }
-  *reinterpret_cast<__nv_bfloat162*>(out + size_t(n) * S * E + h * HD + 2 * lane) =
-      __floats2bfloat162_rn(a0 / l, a1 / l);
-}
-
 bool bad_shape(int N, int S, int E, int H) {
-  return N <= 0 || N > 65535 || S <= 0 || S > MAX_S || H <= 0 || H > 65535 || E != H * HD;
+  return N <= 0 || N > 65535 || S <= 0 || S > attn::MAX_S || H <= 0 || H > 65535 ||
+         E != H * attn::HD;
 }
-
-}  // namespace split
 
 // ---- variants A-E on TMA + wgmma ------------------------------------------
 
@@ -578,6 +359,300 @@ cudaError_t dispatch(const CUtensorMap& t64, const CUtensorMap& t16, const Args&
                             : launch_variant<V, false>(t64, t16, a, N, st);
 }
 
+
+// ---- split-CLS on TMA + wgmma ---------------------------------------------
+
+namespace split {
+
+constexpr int MAX_P = 384;               // the longest patch run taken (the earlier kernel's cap)
+constexpr int ONE_PASS_P = 4 * CHUNK;    // 256: P.V from the registers of one pass
+constexpr int CLS_KEYS = (MAX_P + 1 + THREADS - 1) / THREADS;  // keys a thread scores: 4
+// The f32 area (floats): the CLS key, value and query, the CLS row's bf16
+// probabilities, the four warps' P.V partials, the max and sum of each warp.
+constexpr int KC = 0;
+constexpr int VC = KC + HD;
+constexpr int QC = VC + HD;
+constexpr int PC = QC + HD;
+constexpr int PART = PC + MAX_P + 8;
+constexpr int RED = PART + 4 * HD;
+constexpr int F32_BYTES = (RED + 8) * 4;
+
+__host__ __device__ inline int boxes(int S) { return (S - 1) / CHUNK; }
+
+// Shared memory (bytes past the 1024-byte aligned base): two Q boxes, the
+// patch K boxes, the patch V boxes, the f32 area, the barriers (0, 1: the
+// Q boxes; 2 + b: K and V of box b).
+__host__ __device__ inline Layout layout(int S) {
+  const int nb = boxes(S);
+  Layout L;
+  L.q = 0;
+  L.k = L.q + 2 * BOX_BYTES;
+  L.v = L.k + size_t(nb) * BOX_BYTES;
+  L.bar = L.v + size_t(nb) * BOX_BYTES + F32_BYTES;
+  L.total = ALIGN + L.bar + size_t(2 + nb) * sizeof(uint64_t);
+  return L;
+}
+
+__host__ __device__ inline bool bad_length(int S) {
+  const int P = S - 1;
+  return P < CHUNK || P % CHUNK != 0 || P > MAX_P;
+}
+
+// The CLS query row of a (slice, head) over all S keys: key 0 from the f32
+// CLS key and value, keys 1.. from the patch boxes. Every thread of the
+// block calls it (no wgmma: it runs in one block of a (head, slice) only).
+__device__ __forceinline__ void cls_row(const unsigned char* Kb, const unsigned char* Vb,
+                                        float* f, bf16* __restrict__ out, int S, float scale,
+                                        int t) {
+  const float* kc = f + KC;
+  const float* vc = f + VC;
+  const float* qc = f + QC;
+  float* pc = f + PC;
+  float* part = f + PART;
+  float* red = f + RED;
+  const int warp = t >> 5, lane = t & 31;
+  float s[CLS_KEYS];
+  float mx = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < CLS_KEYS; ++i) {
+    const int j = t + THREADS * i;
+    s[i] = -INFINITY;
+    if (j < S) {
+      float d = 0.0f;
+      if (j == 0) {
+#pragma unroll
+        for (int e = 0; e < HD; ++e) d += qc[e] * kc[e];
+      } else {
+        const unsigned char* box = Kb + ((j - 1) / CHUNK) * BOX_BYTES;
+        const int r = (j - 1) % CHUNK;
+#pragma unroll
+        for (int ch = 0; ch < HD / 8; ++ch) {
+          float kv[8];
+          unpack8_bf16(*reinterpret_cast<const uint4*>(box + swz(r, ch)), kv);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) d += qc[8 * ch + e] * kv[e];
+        }
+      }
+      s[i] = d * scale;
+    }
+    mx = fmaxf(mx, s[i]);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  if (lane == 0) red[warp] = mx;
+  __syncthreads();
+  mx = fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
+  float l = 0.0f;
+#pragma unroll
+  for (int i = 0; i < CLS_KEYS; ++i) {
+    const int j = t + THREADS * i;
+    if (j < S) {
+      const float p = ex2(s[i] - mx);
+      l += p;
+      pc[j] = round_bf16(p);  // P.V reads P as bf16
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+  if (lane == 0) red[4 + warp] = l;
+  __syncthreads();
+  // warp w sums keys w, w + 4, ..; lane c the columns 2c, 2c + 1 (a warp
+  // reads one whole 128-byte row of V a key)
+  float a0 = 0.0f, a1 = 0.0f;
+  for (int j = warp; j < S; j += 4) {
+    float2 v;
+    if (j == 0) {
+      v = make_float2(vc[2 * lane], vc[2 * lane + 1]);
+    } else {
+      const unsigned char* box = Vb + ((j - 1) / CHUNK) * BOX_BYTES;
+      v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+          box + swz((j - 1) % CHUNK, lane >> 2) + (lane & 3) * 4));
+    }
+    a0 += pc[j] * v.x;
+    a1 += pc[j] * v.y;
+  }
+  part[warp * HD + 2 * lane] = a0;
+  part[warp * HD + 2 * lane + 1] = a1;
+  __syncthreads();
+  if (warp == 0) {
+    l = (red[4] + red[5]) + (red[6] + red[7]);
+    const float o0 = (part[2 * lane] + part[HD + 2 * lane]) +
+                     (part[2 * HD + 2 * lane] + part[3 * HD + 2 * lane]);
+    const float o1 = (part[2 * lane + 1] + part[HD + 2 * lane + 1]) +
+                     (part[2 * HD + 2 * lane + 1] + part[3 * HD + 2 * lane + 1]);
+    *reinterpret_cast<__nv_bfloat162*>(out + 2 * lane) = __floats2bfloat162_rn(o0 / l, o1 / l);
+  }
+}
+
+struct Args {
+  const bf16* qkv;
+  bf16* out;
+  int S, E, H;
+  float scale;
+};
+
+// Grid (heads x tile groups, N): a block walks a group of up to MOST_TILES
+// patch query tiles of a (head, slice), the patch K and V loaded once; the
+// block of group 0 then takes the CLS query row. TWO: the two-pass body (P
+// > ONE_PASS_P).
+template <bool TWO>
+__global__ void __launch_bounds__(THREADS)
+split_cls_kernel(const __grid_constant__ CUtensorMap t64, Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + ALIGN - 1) & ~uintptr_t(ALIGN - 1));
+  const int nb = boxes(a.S);
+  const Layout L = layout(a.S);
+  unsigned char* Kb = base + L.k;
+  unsigned char* Vb = base + L.v;
+  float* f = reinterpret_cast<float*>(base + L.v + size_t(nb) * BOX_BYTES);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(base + L.bar);
+
+  const int t = threadIdx.x;
+  const int n = blockIdx.y;
+  const int tpb = tiles_per_block(a.S - 1, MOST_TILES);
+  const int groups = (nb + tpb - 1) / tpb;
+  const int g = blockIdx.x % groups;
+  const int h = blockIdx.x / groups;
+  const int units = min(tpb, nb - g * tpb);
+  const bf16* row0 = a.qkv + size_t(n) * a.S * 3 * a.E + h * HD;  // the CLS row's q of head h
+  // thread 0: unit u's Q box (slice rows 1 + 64 (g tpb + u) ..) into buffer u % 2
+  auto load_q = [&](int u) {
+    unsigned char* q = base + L.q + (u & 1) * BOX_BYTES;
+    sm90::mbar_expect_tx(&bar[u & 1], BOX_BYTES);
+    tma_load_3d(q, &t64, h * HD, 1 + (g * tpb + u) * TILE, n, &bar[u & 1]);
+  };
+  if (t == 0) {
+    for (int i = 0; i < 2 + nb; ++i) sm90::mbar_init(&bar[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    sm90::tma_prefetch(&t64);
+    load_q(0);
+    for (int b = 0; b < nb; ++b) {
+      sm90::mbar_expect_tx(&bar[2 + b], 2 * BOX_BYTES);
+      tma_load_3d(Kb + b * BOX_BYTES, &t64, a.E + h * HD, 1 + b * CHUNK, n, &bar[2 + b]);
+      tma_load_3d(Vb + b * BOX_BYTES, &t64, 2 * a.E + h * HD, 1 + b * CHUNK, n, &bar[2 + b]);
+    }
+    if (units > 1) load_q(1);
+  }
+  if (t < HD) {
+    f[KC + t] = __bfloat162float(row0[a.E + t]);
+    f[VC + t] = __bfloat162float(row0[2 * a.E + t]);
+    f[QC + t] = __bfloat162float(row0[t]);
+  }
+  __syncthreads();
+
+  for (int u = 0; u < units; ++u) {
+    const int q0 = 1 + (g * tpb + u) * TILE;
+    const Rows c = rows_of(t, 0);  // rows qa, qb of the tile
+    unsigned char* Qb = base + L.q + (u & 1) * BOX_BYTES;
+    mbar_wait(&bar[u & 1], (u >> 1) & 1);
+
+    // the CLS strip: this lane's 16 columns of rows qa and qb, then the quad
+    float sa = 0.0f, sb = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int ch = 2 * (c.lane & 3) + k;
+      float qa[8], qb[8];
+      unpack8_bf16(*reinterpret_cast<const uint4*>(Qb + swz(c.qa, ch)), qa);
+      unpack8_bf16(*reinterpret_cast<const uint4*>(Qb + swz(c.qb, ch)), qb);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        sa += qa[e] * f[KC + 8 * ch + e];
+        sb += qb[e] * f[KC + 8 * ch + e];
+      }
+    }
+    sa = quad_sum(sa) * a.scale;
+    sb = quad_sum(sb) * a.scale;
+
+    float acc[32];
+    zero(acc);
+    float l0 = 0.0f, l1 = 0.0f, m0 = sa, m1 = sb;
+    if constexpr (!TWO) {
+      // every score of the tile's rows in registers: up to 4 boxes of 64
+      // keys, one commit group a box, at most two in flight
+      float s[4][32];
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if (b < nb) {
+          mbar_wait(&bar[2 + b], 0);
+          scores(s[b], Qb, Kb + b * BOX_BYTES);
+          wgmma_wait<1>();
+        }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int b = 0; b < 4; ++b) fence_regs(s[b]);
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if (b < nb) scale_mask<EXP_2, false>(s[b], 0, t, CHUNK, a.scale, m0, m1);
+      m0 = quad_max(m0);
+      m1 = quad_max(m1);
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if (b < nb) exp_rows<EXP_2>(s[b], m0, m1, l0, l1);
+      l0 = quad_sum(l0);
+      l1 = quad_sum(l1);
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if (b < nb) pv_sync(acc, s[b], Vb + b * BOX_BYTES, c.lane);
+    } else {
+      // pass 1: m (from s_pc up) and l, rescaled when m grows, box by box
+      float s[32];
+      for (int b = 0; b < nb; ++b) {
+        mbar_wait(&bar[2 + b], 0);
+        scores(s, Qb, Kb + b * BOX_BYTES);
+        wgmma_wait<0>();
+        fence_regs(s);
+        online<EXP_2, true>(s, 0, c, CHUNK, a.scale, m0, m1, l0, l1);
+      }
+      l0 = quad_sum(l0);
+      l1 = quad_sum(l1);
+      // pass 2: the scores again, p against the final max, P.V
+      for (int b = 0; b < nb; ++b) {
+        scores(s, Qb, Kb + b * BOX_BYTES);
+        wgmma_wait<0>();  // also the previous box's P.V
+        fence_regs(s);
+        fence_regs(acc);
+        probs<EXP_2, false>(s, 0, c, CHUNK, a.scale, m0, m1, l0, l1);
+        pv(acc, s, Vb + b * BOX_BYTES);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+
+    // o_p = (P.V + p_pc v_c) / l, the CLS term in f32, then through this
+    // unit's Q box (the scores are done with it)
+    const float pa = ex2(sa - m0), pb = ex2(sb - m1);
+    const float la = l0 + pa, lb = l1 + pb;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const bool hi = frag_hi(i);
+      acc[i] = __fadd_rn(acc[i], __fmul_rn(hi ? pb : pa, f[VC + frag_col(t, i)])) / (hi ? lb : la);
+    }
+    stage_box(Qb, t, acc);
+    __syncthreads();
+    store_box(Qb, t, a.out + (size_t(n) * a.S + q0) * a.E + h * HD, a.E, TILE);
+    // every read of this unit's Q box is done before TMA refills it
+    fence_async_smem();
+    __syncthreads();
+    if (t == 0 && u + 2 < units) load_q(u + 2);
+  }
+  if (g == 0) cls_row(Kb, Vb, f, a.out + size_t(n) * a.S * a.E + h * HD, a.S, a.scale, t);
+}
+
+template <bool TWO>
+cudaError_t launch_split(const CUtensorMap& t64, const Args& a, int N, cudaStream_t st) {
+  const size_t bytes = layout(a.S).total;
+  auto kernel = split_cls_kernel<TWO>;
+  cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  const int tpb = tiles_per_block(a.S - 1, MOST_TILES);
+  const dim3 grid(a.H * ((boxes(a.S) + tpb - 1) / tpb), N);
+  kernel<<<grid, THREADS, bytes, st>>>(t64, a);
+  return cudaGetLastError();
+}
+
+}  // namespace split
+
 }  // namespace
 }  // namespace mst
 
@@ -588,7 +663,7 @@ cudaError_t dispatch(const CUtensorMap& t64, const CUtensorMap& t16, const Args&
 extern "C" int mst_attn_variant(const void* qkv, void* out, void* p_out, int N, int S, int E,
                                 int num_heads, int variant, float scale, void* stream) {
   using namespace mst;
-  if (split::bad_shape(N, S, E, num_heads) || variant < VAR_A || variant > VAR_E)
+  if (bad_shape(N, S, E, num_heads) || variant < VAR_A || variant > VAR_E)
     return cudaErrorInvalidValue;
   CUtensorMap t64, t16;
   cudaError_t err = tma_map_3d(&t64, qkv, N, S, 3 * size_t(E), CHUNK);
@@ -611,7 +686,7 @@ extern "C" int mst_attn_variant(const void* qkv, void* out, void* p_out, int N, 
 // as the launch sets them (`bench_attn_softmax.variant_launch` mirrors it).
 extern "C" int mst_attn_variant_geometry(int S, int* geo) {
   using namespace mst;
-  if (S <= 0 || S > MAX_S) return cudaErrorInvalidValue;
+  if (S <= 0 || S > attn::MAX_S) return cudaErrorInvalidValue;
   const Plan p = plan(S);
   const int g[8] = {TILE, tiles(S), tiles_per_block(S, MOST_TILES), THREADS,
                     S > ONE_PASS_MAX ? 2 : 1, p.n64, p.tail, static_cast<int>(layout(S).total)};
@@ -620,27 +695,34 @@ extern "C" int mst_attn_variant_geometry(int S, int* geo) {
 }
 
 // The split-CLS core: qkv [N*S, 3E] bf16 -> out [N*S, E] bf16, S = 1 + P
-// with P % 64 == 0, scale = log2(e)/sqrt(64). Two launches: the patch
-// tiles, then the CLS rows.
+// with P % 64 == 0 and 64 <= P <= 384, scale = log2(e)/sqrt(64). One
+// launch: the patch tiles, then the CLS rows.
 extern "C" int mst_attn_split_cls(const void* qkv, void* out, int N, int S, int E,
                                   int num_heads, float scale, void* stream) {
   using namespace mst;
-  const int P = S - 1;
-  if (split::bad_shape(N, S, E, num_heads) || P <= 0 || P % split::BQ != 0 ||
-      split::layout(P, true).total > split::SMEM_CAP)
-    return cudaErrorInvalidValue;
+  if (bad_shape(N, S, E, num_heads) || split::bad_length(S)) return cudaErrorInvalidValue;
+  CUtensorMap t64;
+  const cudaError_t err = tma_map_3d(&t64, qkv, N, S, 3 * size_t(E), CHUNK);
+  if (err != cudaSuccess) return err;
+  const split::Args a{static_cast<const bf16*>(qkv), static_cast<bf16*>(out), S, E, num_heads,
+                      scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* in = static_cast<const bf16*>(qkv);
-  bf16* o = static_cast<bf16*>(out);
-  const size_t bytes = split::layout(P, true).total;
-  cudaError_t err = allow_smem(split::split_patch_kernel, bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid(P / split::BQ, num_heads, N);
-  split::split_patch_kernel<<<grid, split::THREADS, bytes, st>>>(in, o, S, E, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int warps = N * num_heads;
-  split::split_cls_kernel<<<(warps + split::WARPS - 1) / split::WARPS, split::THREADS, 0, st>>>(
-      in, o, N, S, E, num_heads, scale);
-  return cudaGetLastError();
+  return S - 1 > split::ONE_PASS_P ? split::launch_split<true>(t64, a, N, st)
+                                   : split::launch_split<false>(t64, a, N, st);
+}
+
+// The launch geometry of mst_attn_split_cls at sequence length S (S = 1 +
+// P, P % 64 == 0, 64 <= P <= 384): geo = {query tile rows, patch query
+// tiles, tiles a block walks, threads, passes, patch key boxes of 64,
+// dynamic shared memory bytes}, as the launch sets them
+// (`bench_attn_split_cls.split_launch` mirrors it).
+extern "C" int mst_attn_split_cls_geometry(int S, int* geo) {
+  using namespace mst;
+  if (S <= 0 || S > attn::MAX_S || split::bad_length(S)) return cudaErrorInvalidValue;
+  const int nb = split::boxes(S);
+  const int g[7] = {TILE, nb, tiles_per_block(S - 1, MOST_TILES), THREADS,
+                    S - 1 > split::ONE_PASS_P ? 2 : 1, nb,
+                    static_cast<int>(split::layout(S).total)};
+  for (int i = 0; i < 7; ++i) geo[i] = g[i];
+  return cudaSuccess;
 }

@@ -118,6 +118,8 @@ _SIGNATURES = {
     "mst_attn_variant_geometry": (_I, _P),
     # qkv, out, N, S, E, num_heads, scale, stream
     "mst_attn_split_cls": (_P, _P, _I, _I, _I, _I, _F, _P),
+    # S, geo (host int32 [7]): mst_attn_split_cls's launch geometry
+    "mst_attn_split_cls_geometry": (_I, _P),
     # codes (int8), v|NULL, out, p_out|NULL, N, S, E, num_heads, variant,
     # scale, stream
     "mst_attn_i8": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
@@ -127,6 +129,8 @@ _SIGNATURES = {
     # stream
     "mst_block_tail": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _F, _P),
+    # M, SMs, geo (host int32 [9]): mst_block_tail's launch geometry
+    "mst_block_tail_geometry": (_I, _I, _P),
 }
 
 

@@ -2,16 +2,18 @@
 
 Counterpart of `tools/bench_attn_split_cls.py` (queue B row 21). S = 257 =
 CLS + 256 patches. The shipped `mhsa` runs 5 query tiles of 64 rows per
-(slice, head) over keys padded to 272, so the fifth tile holds one valid
-row. The split layout runs the 256 patch queries in 4 exact tiles over the
-256 patch keys, takes the CLS key as a strip (one 64-wide dot per row) and
-the CLS query row in a second, one-warp-per-(slice, head) kernel.
+(slice, head) over 4 key chunks of 64 and a 16-key tail, so the fifth tile
+holds one valid row. The split layout (`csrc/attn_variants.cu`
+`split_cls_kernel`, TMA + wgmma) runs the 256 patch queries in 4 exact
+tiles over the 256 patch keys in 4 exact boxes, takes the CLS key as a
+strip (one 64-wide f32 dot per row) and, in the same launch, the CLS query
+row from the K and V boxes already in shared memory.
 
 Only the attention core, qkv [N*S, 3E] -> o [N*S, E], is timed, DEPTH
 launches on the same qkv (the JAX tool fed its [N, S, E] output back into a
 kernel that reads [N, S, 3E], past the end of the array; this chain does
 not). base is `csrc/attn_variants.cu` variant D, the math of `mhsa`;
-split is that file's split kernels.
+split is that file's split-CLS kernel.
 
     python -m mst_tpu_torch.tools.bench_attn_split_cls
 """
@@ -19,6 +21,7 @@ split is that file's split kernels.
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -33,6 +36,11 @@ N, S, E, H = 128, 257, 384, 6
 DEPTH = 12
 SEED = 0
 SCALE = 1.0 / math.sqrt(c.HD) * c.LOG2E
+MAX_P = 384  # the longest patch run the kernel takes
+ONE_PASS_P = 256  # P.V from the registers of one pass up to here
+# the kernel's f32 area: CLS key, value, query (64 each), the CLS row's
+# probabilities (MAX_P + 8), four warps' P.V partials (4 x 64), 8 sums
+F32_BYTES = 4 * (3 * c.HD + MAX_P + 8 + 4 * c.HD + 8)
 
 
 def split_ref(qkv, n: int, s: int, num_heads: int, scale: float = SCALE):
@@ -58,16 +66,40 @@ def split_ref(qkv, n: int, s: int, num_heads: int, scale: float = SCALE):
     return c.merge_heads(torch.cat([o_c, o_p], dim=-2).to(dt), n, s)
 
 
+def split_launch(s: int) -> SimpleNamespace:
+    """The launch geometry of `attn_split_cls` at sequence length s, as
+    csrc/attn_variants.cu `mst_attn_split_cls_geometry` exports it: s = 1 +
+    P with P a multiple of 64 from 64 to 384; P / 64 exact patch query
+    tiles of 64 rows, up to 5 walked by one block of one warpgroup (the
+    grid heads x tile groups by slices; the block of group 0 also takes the
+    CLS row); P / 64 key boxes of 64 patch rows; one pass up to P = 256;
+    dynamic shared memory of 1 KB of alignment, two Q boxes, the K and V
+    boxes, the f32 area and the barriers. Raises ValueError at any other
+    s, before any launch."""
+    p = s - 1
+    if p < 64 or p % 64 or p > MAX_P:
+        raise ValueError(f"attn_split_cls takes S = 1 + P, P a multiple of 64 "
+                         f"from 64 to {MAX_P}; got S={s}")
+    tiles = p // 64
+    blocks = -(-tiles // 5)
+    box = 64 * c.HD * 2
+    return SimpleNamespace(
+        tile=64, tiles=tiles, tiles_per_block=-(-tiles // blocks),
+        threads=128, passes=1 if p <= ONE_PASS_P else 2, boxes=tiles,
+        smem=1024 + 2 * box + 2 * tiles * box + F32_BYTES + (2 + tiles) * 8)
+
+
 def attn_split_cls(qkv, n: int, s: int, num_heads: int, scale: float = SCALE):
-    """The split-CLS core: qkv [n*s, 3E] bf16 -> o [n*s, E], s - 1 a
-    multiple of 64. One call launches the patch kernel and the CLS-row
-    kernel."""
+    """The split-CLS core: qkv [n*s, 3E] bf16 -> o [n*s, E], s = 1 + P with
+    P a multiple of 64 from 64 to 384 (`split_launch`). One launch: the
+    patch tiles, then the CLS rows."""
     if not _on_cuda(qkv):
         return split_ref(qkv, n, s, num_heads, scale)
     e = qkv.shape[1] // 3
-    if e != c.HD * num_heads or (s - 1) % 64:
-        raise ValueError(f"attn_split_cls needs head dim 64 and S - 1 % 64 "
-                         f"== 0; got E={e}, heads={num_heads}, S={s}")
+    if e != c.HD * num_heads:
+        raise ValueError(f"attn_split_cls needs head dim 64; got E={e}, "
+                         f"heads={num_heads}")
+    split_launch(s)
     fb._mat(qkv, "qkv", (n * s, 3 * e), qkv)
     out = torch.empty((n * s, e), dtype=qkv.dtype, device=qkv.device)
     err = _build.lib().mst_attn_split_cls(

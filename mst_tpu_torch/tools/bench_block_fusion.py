@@ -9,7 +9,9 @@ blocks, bf16, no LayerScale.
          with GELU -> `gemm_residual`), 5 launches a block
   block  `ln_gemm` (LN1 + qkv) -> `mhsa` -> `block_tail`
          (`csrc/block_tail.cu`: proj, residual, LN2, fc1, GELU, fc2,
-         residual in one launch), 3 launches a block
+         residual in one launch, TMA + wgmma: a persistent CTA an SM walks
+         units of 64 rows, fc1 -> fc2 fused per hidden chunk of 128
+         columns), 3 launches a block
 
 The TPU ran each block as one program per slice; on the H100 a slice's qkv
 does not fit a thread block's shared memory and attention needs the whole
@@ -37,6 +39,9 @@ FF = 4 * E
 DEPTH = 12
 EPS = 1e-6
 SEED = 0
+TAIL_ROWS = 64  # rows of a block_tail unit
+TAIL_CHUNK = 128  # hidden columns of a chunk (64 a consumer warpgroup)
+TAIL_KB = 64  # k rows of a block_tail weight box (three a ring stage)
 
 
 def mlp_half_ref(x2, ln_s, ln_b, w1, b1, w2, b2, eps: float = EPS):
@@ -56,6 +61,31 @@ def block_tail_ref(o, x2, wproj, bproj, ln_s, ln_b, w1, b1, w2, b2,
     return mlp_half_ref(x1, ln_s, ln_b, w1, b1, w2, b2, eps)
 
 
+def block_tail_launch(m: int, sms: int = fb.H100_SMS) -> SimpleNamespace:
+    """The launch geometry of `block_tail` at m rows on a card of `sms`
+    SMs, as csrc/block_tail.cu `mst_block_tail_geometry` exports it: units
+    of 64 whole rows walked by persistent CTAs (one an SM, or one a unit)
+    of two consumer warpgroups and a producer warpgroup; each consumer's
+    ring holds 48 KB of stages of three [TAIL_KB][64] weight boxes; a unit
+    takes E / TAIL_KB proj stages and, for each of the 12 hidden chunks,
+    E / (3 TAIL_KB) fc1 and 128 / TAIL_KB fc2 stages; dynamic shared
+    memory of 1 KB of alignment, the o / h and x / x1 tiles (48 KB each),
+    two chunk buffers (16 KB each), the two rings and their barriers.
+    Raises ValueError where the kernel would."""
+    if m < 1 or sms < 1:
+        raise ValueError(f"block_tail needs M >= 1; got M={m}")
+    units = -(-m // TAIL_ROWS)
+    stage = 3 * TAIL_KB * 64 * 2
+    ring = 48 * 1024 // stage
+    unit_stages = E // TAIL_KB + (FF // TAIL_CHUNK) * (
+        E // (3 * TAIL_KB) + TAIL_CHUNK // TAIL_KB)
+    smem = (1024 + 2 * E * 64 * 2 + 2 * TAIL_CHUNK * 64 * 2 + 2 * ring * stage
+            + (2 + 4 * ring) * 8)
+    return SimpleNamespace(rows=TAIL_ROWS, units=units, grid=min(units, sms),
+                           threads=3 * 128, consumers=2, ring=ring,
+                           stage=stage, unit_stages=unit_stages, smem=smem)
+
+
 def block_tail(o, x2, wproj, bproj, ln_s, ln_b, w1, b1, w2, b2,
                eps: float = EPS):
     """Everything of a block after its attention core, in one launch: o, x2
@@ -68,6 +98,7 @@ def block_tail(o, x2, wproj, bproj, ln_s, ln_b, w1, b1, w2, b2,
     if (e, f) != (E, FF):
         raise ValueError(f"block_tail is built for E={E}, F={FF}; got E={e},"
                          f" F={f}")
+    block_tail_launch(m)
     for t, name, shape in ((o, "o", (m, e)), (x2, "x", (m, e)),
                            (wproj, "wproj", (e, e)), (w1, "w1", (e, f)),
                            (w2, "w2", (f, e))):

@@ -139,16 +139,29 @@ def test_plans_mirror_the_sources():
 
 
 def test_kernels_are_wgmma_with_no_wmma_left():
-    """The two cores' functions hold wgmma products on TMA boxes and no
-    WMMA; the int8 one no bf16 product in its scores; the split-CLS
-    kernels of row 21 keep their WMMA design; each entry point is bound."""
+    """The cores of rows 18, 19 and 21 and row 17's `block_tail` hold wgmma
+    products on TMA boxes and no WMMA, in the whole of their sources; the
+    int8 one no bf16 product in its scores; each entry point is bound."""
     head = (_build.CSRC / "attn_softmax_sm90.cuh").read_text()
     assert '#include "attn_sm90.cuh"' in head and "h2exp2(" in head
     var = (_build.CSRC / "attn_variants.cu").read_text()
+    assert "wmma" not in var.lower()
     body = _body(var, "variant_kernel(")
-    assert "wmma" not in body and "scores(" in body and "pv_sync(" in body
+    assert "scores(" in body and "pv_sync(" in body
     assert "tma_load_3d(" in body and "pv(acc" in body
-    assert "wmma::mma_sync" in _body(var, "split_patch_kernel(")
+    # row 21: the patch tiles on the same pieces, the CLS row in the launch
+    split = _body(var, "split_cls_kernel(")
+    for piece in ("scores(", "pv_sync(", "pv(acc", "tma_load_3d(", "cls_row(",
+                  "quad_sum("):
+        assert piece in split, piece
+    assert "mma" not in _body(var, "cls_row(")  # no wgmma under its branch
+    tail = (_build.CSRC / "block_tail.cu").read_text()
+    assert "wmma" not in tail.lower() and "cp_async16" not in tail
+    for piece in ("wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16",
+                  "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16",
+                  "setmaxnreg.inc", "setmaxnreg.dec",
+                  "fence_async_smem()", "bar.sync 1"):
+        assert piece in tail, piece
     src = (_build.CSRC / "attn_i8.cu").read_text()
     assert "wmma" not in src and "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8" in src
     assert "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8" in src
@@ -156,7 +169,9 @@ def test_kernels_are_wgmma_with_no_wmma_left():
     assert "ex2(__fadd_rn(__fsub_rn(s, m), LOG2_127))" in head
     assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in src
     for sym in ("mst_attn_variant", "mst_attn_variant_geometry", "mst_attn_i8",
-                "mst_attn_i8_geometry"):
+                "mst_attn_i8_geometry", "mst_attn_split_cls",
+                "mst_attn_split_cls_geometry", "mst_block_tail",
+                "mst_block_tail_geometry"):
         assert sym in _build._SIGNATURES
     assert len(_build._SIGNATURES["mst_attn_i8"]) == 11  # p_out added
     assert "attn_softmax_sm90.cuh" in {p.name for p in _build._sources()}
