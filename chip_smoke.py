@@ -398,6 +398,28 @@ replayed from a CUDA graph (`graph_ms`). The kernels line's times of
 `quant_rows` are phase 47's event times, as every other kernel's (phase 33
 no longer times it); its entry also carries `graph_ms`.
 
+Phase 48 drives the host data path (queue A #5; no kernel of its own):
+`data/native_io` builds `native/`'s reader with g++ into `build/
+mst_tpu_torch/` inside the phase, and every NIfTI of 16 LIDC cases (HU
+crops [256, 256, 32] with a nodule and two raters, as
+`scripts/preprocessing/lidc/step4_crop_or_pad.py` writes them) and 16
+MRNet stacks (256 x 256, 20-44 slices, so that some are padded) reads the
+same bits through it as through the numpy reader, and the committed DUKE
+fixture through h5lite as its seeded arrays; each device op of the
+augmentation (clamp, rescale, z-norm at (0.5, 99.5) and (0, 100), the
+MRNet resize with its mask, rotation at three angles with its mask, flips,
+inversion) on the card against the same function on the CPU in f64 at
+fixed draws, each within its limit, and three planted faults (an angle off
+by 1e-2, a flip axis swapped, the fill taken as 0) that must break theirs;
+`train` at B=8 (ViT-S, one epoch) through the CLI's builders on the LIDC
+and MRNet folders (launch counts as phase 8's, finite losses), MRNet's
+`src_key_padding_mask` against the slice counts and its fused probs the
+same bits when the padded slices' voxels change, `predict --save_saliency`
+on the MRNet run folder (the NIfTI affine's diagonal is the spacing), one
+DUKE eval batch at B=8, then the loader's host seconds per batch and the
+B=8 train loop's vol/s and device idle share on the LIDC files and on
+phase 9's in-memory Synthetic data.
+
 Each phase prints its wall time. The line before the last is `{"kernels":
 [...]}`: per kernel its launches on the main path, its largest error, its
 time and its plain version's, the bound (the least time the card could
@@ -4861,6 +4883,396 @@ def quant_rows_times(tag, dev, fq):
     return timed, cost, lib_ms, graph
 
 
+# Phase 48: the host data path. Limits of each device op, CUDA f32 vs the
+# same function on the CPU in f64, as max |diff| / max |reference|: a
+# few times the f32 rounding each op can gather (the z-norm's and resize's
+# sums over 1.6 M voxels; the rotation's f32 source coordinates, one ulp
+# at radius 112 px) and far below what each planted fault moves.
+DATA_LIMITS = {"clamp": 0.0, "rescale": 1e-6, "znorm": 1e-5, "resize": 1e-5,
+               "rotate": 1e-4, "flip": 0.0, "invert": 0.0}
+# a rotated mask: voxels whose nearest tap sits on the plane's edge within
+# f32 rounding may differ from the f64 reference
+DATA_MASK_FRAC = 1e-4
+DATA_ANGLES = (0.3, 0.8, 1.3)
+DATA_CASES = 16
+LOOP_SAMPLES = 64  # an epoch of the timed train loops: 8 batches of 8
+MRNET_AFFINE = np.diag([3.0, 0.45, 0.5, 1.0])  # slice axis x: 3 mm
+
+
+def rel_err(got, ref) -> float:
+    """max |got - ref| / max |ref|, on the CPU in f64."""
+    got, ref = got.detach().double().cpu(), ref.detach().double().cpu()
+    return float((got - ref).abs().max() / ref.abs().max().clamp(min=1e-30))
+
+
+def mask_frac(got, ref) -> float:
+    return float((got.cpu() != ref.cpu()).float().mean())
+
+
+def loop_seconds(dm, step, dev, profile=False):
+    """One train epoch of `dm` through `step` (loader, copy, augmentation
+    and step overlapped as `Trainer.fit` runs them; no step: the loader
+    alone) -> (volumes, wall s, device busy s or None). With `profile` the
+    device's busy time comes from `torch.profiler` over the same loop."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    ctx = (tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+           if profile else contextlib.nullcontext())
+    n = 0
+    with ctx as prof:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for batch in dm.train_dataloader():
+            tgt = torch.from_numpy(batch["target"]).pin_memory().to(
+                dev, torch.long, non_blocking=True)
+            if step is not None:
+                step(batch["source"], tgt, batch.get("src_key_padding_mask"))
+            n += len(batch["uid"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    busy = None
+    if profile:
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation) / 1e6
+    return n, wall, busy
+
+
+def data_phase(tag, dev, fb, per_step) -> None:
+    """Phase 48: the host data path end to end on the card (see the module
+    docstring); `per_step` is phase 8's launch counts of one B=8 step."""
+    stamp(tag, "48")
+    from mst_tpu_torch import predict as predict_cli
+    from mst_tpu_torch.data import fixtures, native_io
+    from mst_tpu_torch.data import transforms as T
+    from mst_tpu_torch.data.datamodule import DataModule, _collate
+    from mst_tpu_torch.data.datasets.base import load_volume_dhw
+    from mst_tpu_torch.data.datasets.duke import DUKE_Dataset3D
+    from mst_tpu_torch.data.datasets.lidc import LIDC_Dataset3D
+    from mst_tpu_torch.data.datasets.mrnet import MRNet_Dataset3D
+    from mst_tpu_torch.models.vit_fast import mst_logits
+    from mst_tpu_torch.train import cli
+    from mst_tpu_torch.train.trainer import (
+        TrainState,
+        make_optimizer,
+        make_train_step,
+    )
+    from mst_tpu_torch.utils.nifti import read_nifti
+
+    torch.cuda.empty_cache()
+    base = ROOT / "build" / "chip_smoke_data"  # gitignored
+    shutil.rmtree(base, ignore_errors=True)
+
+    # -- decode: the native reader built here, against the numpy reader ----
+    t1 = time.perf_counter()
+    lib_path = native_io.build()
+    native_io.lib()
+    sec_build = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    splits = ("train", "train", "val", "test")  # 8 / 4 / 4 cases
+    lidc_root = fixtures.write_lidc(base / "lidc", DATA_CASES, seed=SEED,
+                                    splits=splits)
+    mrnet_root, slices = fixtures.write_mrnet(
+        base / "mrnet", DATA_CASES, seed=SEED, splits=splits,
+        affine=MRNET_AFFINE)
+    sec_write = time.perf_counter() - t1
+    paths = sorted(base.rglob("*.nii.gz"))
+    threads = max(1, min(8, (os.cpu_count() or 1) - 1))
+    t1 = time.perf_counter()
+    native = native_io.read_nifti_batch(paths, num_threads=threads)
+    sec_native = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    plain = [load_volume_dhw(q, native=False) for q in paths]
+    sec_plain = time.perf_counter() - t1
+    differ = [q.name for q, (v, a), (pv, pa) in zip(paths, native, plain)
+              if not (v.dtype == pv.dtype and np.array_equal(v, pv)
+                      and np.array_equal(a, pa))]
+    mb = sum(v.nbytes for v, _ in native) / 1e6
+    print(f"{tag} data: native reader built in {sec_build:.2f} s -> "
+          f"{lib_path.relative_to(ROOT)}; {DATA_CASES} LIDC cases and "
+          f"{DATA_CASES} MRNet stacks written in {sec_write:.2f} s; "
+          f"{len(paths)} NIfTI files ({mb:.1f} MB decoded f32): native "
+          f"batch read ({threads} threads) {sec_native:.3f} s, numpy reader "
+          f"{sec_plain:.3f} s; files whose volume or affine differ: {differ} "
+          f"(must be none)")
+    check(not differ, f"native vs numpy NIfTI reads differ: {differ}")
+    want = fixtures.duke_arrays()
+    h5 = fixtures.DUKE_FIXTURE / "data_compressed.h5"
+    items = [(h5, f"{pid}/{k}") for pid in want for k in ("sub",
+                                                          "sub_affine")]
+    outs = native_io.h5_read_batch(items, num_threads=threads)
+    bad = [pid for (pid, (v, a)), ov, oa in zip(want.items(), outs[::2],
+                                                outs[1::2])
+           if not (ov.dtype == v.dtype and np.array_equal(ov, v)
+                   and np.array_equal(oa, a))]
+    print(f"{tag} data: h5lite on the DUKE fixture ({h5.stat().st_size} "
+          f"bytes, gzip + shuffle chunks): {len(want)} volumes and affines "
+          f"vs the seeded arrays, differing: {bad} (must be none)")
+    check(not bad, f"h5lite vs the DUKE fixture's arrays: {bad}")
+
+    # -- the device ops on the card vs the CPU in f64 -----------------------
+    lidc_val = LIDC_Dataset3D(lidc_root, split="train")
+    mrnet_val = MRNet_Dataset3D(mrnet_root, split="train")
+    hb = _collate([lidc_val[i] for i in range(4)])
+    mbt = _collate([mrnet_val[i] for i in range(4)])
+    hu = torch.from_numpy(hb["source"])
+    mvol = torch.from_numpy(mbt["source"])
+    mmask = torch.from_numpy(mbt["mask"])
+    angles = torch.tensor(DATA_ANGLES + (0.55,), dtype=torch.float32)
+    flags = torch.tensor([[1, 0, 1], [0, 1, 1], [1, 1, 0], [1, 0, 0]],
+                         dtype=torch.bool)
+    invert = torch.tensor([True, False, True, False])
+    cpu64 = torch.device("cpu")
+
+    def both(fn, *args):
+        """fn on the card in f32 and on the CPU in f64 (tensors moved)."""
+        on = [a.to(dev) if torch.is_tensor(a) else a for a in args]
+        ref = [a.to(cpu64, torch.float64) if torch.is_tensor(a)
+               and a.is_floating_point() else a for a in args]
+        return fn(*on), fn(*ref)
+
+    errs = {}
+    got, ref = both(lambda x: T.clamp(x, -1000.0, 1000.0), hu)
+    errs["clamp"] = rel_err(got, ref)
+    lidc_r = T.rescale_intensity(T.clamp(hu, -1000.0, 1000.0))
+    got, ref = both(T.rescale_intensity, T.clamp(hu, -1000.0, 1000.0))
+    errs["rescale"] = rel_err(got, ref)
+    got, ref = both(lambda x: T.znorm_percentile(x, (0.5, 99.5)), hu)
+    errs["znorm[0.5,99.5]"] = rel_err(got, ref)
+    got, ref = both(T.resize_trilinear, mvol, (32, 224, 224))
+    errs["resize"] = rel_err(got, ref)
+    mres = T.resize_trilinear(mmask.to(dev).float(), (32, 224, 224)) > 0.5
+    mres_ref = T.resize_trilinear(mmask.double(), (32, 224, 224)) > 0.5
+    errs["resize mask"] = mask_frac(mres, mres_ref)
+    big = got.float().cpu()  # the resized MRNet volumes
+    got, ref = both(lambda x: T.znorm_percentile(x, (0.0, 100.0)), big)
+    errs["znorm[0,100]"] = rel_err(got, ref)
+    zn = ref.float()
+    got, ref = both(T.rotate_z, zn, angles)
+    errs["rotate"] = rel_err(got, ref)
+    rmask = T.rotate_z(mres.to(dev).float(), angles.to(dev), fill=0.0,
+                       nearest=True) > 0.5
+    rmask_ref = T.rotate_z(mres_ref.double(), angles, fill=0.0,
+                           nearest=True) > 0.5
+    errs["rotate mask"] = mask_frac(rmask, rmask_ref)
+    got, ref = both(T.apply_flips, zn, flags)
+    errs["flip"] = rel_err(got, ref)
+    fm = T.apply_flips(mres.to(dev), flags.to(dev))
+    errs["flip mask"] = mask_frac(fm, T.apply_flips(mres_ref, flags))
+    got, ref = both(lambda x, f: T.apply_augment(T.AugmentConfig(), x, None,
+                                                 {"invert": f})[0],
+                    lidc_r, invert)
+    errs["invert"] = rel_err(got, ref)
+    limit_of = {"clamp": DATA_LIMITS["clamp"],
+                "rescale": DATA_LIMITS["rescale"],
+                "znorm[0.5,99.5]": DATA_LIMITS["znorm"],
+                "znorm[0,100]": DATA_LIMITS["znorm"],
+                "resize": DATA_LIMITS["resize"], "resize mask": 0.0,
+                "rotate": DATA_LIMITS["rotate"],
+                "rotate mask": DATA_MASK_FRAC, "flip": DATA_LIMITS["flip"],
+                "flip mask": 0.0, "invert": DATA_LIMITS["invert"]}
+    print(f"{tag} data ops on the card in f32 vs the CPU in f64: LIDC HU "
+          f"crops {list(hu.shape)} (clamp, rescale, z-norm, inversion), "
+          f"MRNet crops {list(mvol.shape)} resized to 224 px (resize, "
+          f"z-norm, then rotation at {list(DATA_ANGLES)} and 0.55 rad, "
+          f"flips); max |diff| / max |f64|, for a mask the share of voxels "
+          f"that differ")
+    for name, err in errs.items():
+        print(f"{tag} data op {name}: {err:.6g} (limit "
+              f"{limit_of[name]:.3g})")
+        check(err <= limit_of[name], f"data op {name}: {err}")
+    # planted faults, each against the op's own reference
+    zn_dev = zn.to(dev)
+    faults = {
+        "rotate, the angle off by 1e-2": (rel_err(T.rotate_z(
+            zn_dev, angles.to(dev) + 1e-2), ref_rot := T.rotate_z(
+            zn.double(), angles)), DATA_LIMITS["rotate"]),
+        "rotate, the fill taken as 0": (rel_err(T.rotate_z(
+            zn_dev, angles.to(dev), fill=0.0), ref_rot),
+            DATA_LIMITS["rotate"]),
+        "flip, the D and H flags swapped": (rel_err(T.apply_flips(
+            zn_dev, flags[:, [1, 0, 2]].to(dev)), T.apply_flips(
+            zn.double(), flags)), DATA_LIMITS["flip"]),
+        "rotated mask, the angle off by 1e-2": (mask_frac(T.rotate_z(
+            mres.to(dev).float(), angles.to(dev) + 1e-2, fill=0.0,
+            nearest=True) > 0.5, rmask_ref), DATA_MASK_FRAC),
+    }
+    for name, (err, limit) in faults.items():
+        print(f"{tag} data planted fault: {name}: {err:.6g} (must exceed "
+              f"the limit {limit:.3g})")
+        check(err > limit, f"the limit {limit} would pass: {name}")
+    del big, zn, zn_dev, got, ref, ref_rot
+
+    # -- train at B=8 through the CLI's builders, predict -------------------
+    runs = {}
+    for name, root in (("LIDC", lidc_root), ("MRNet", mrnet_root)):
+        targs = cli.parse_args(["--dataset", name, "--path_root", str(root),
+                                "--batch_size", str(BATCH), "--max_epochs",
+                                "1", "--num_train_samples", "16", "--seed",
+                                str(SEED)])
+        dm = cli.build_datamodule(targs, dev)
+        model = cli.build_model(targs)
+        run = base / "runs" / name
+        t1 = time.perf_counter()
+        _, result = cli.train(targs, model, dm, cli.build_trainer(
+            targs, dm, run_dir=run))
+        sec_fit = time.perf_counter() - t1
+        hist = [json.loads(line) for line in
+                (run / "history.jsonl").read_text().splitlines()]
+        batch = next(iter(dm.train_dataloader()))
+        src, pad = batch["source"], batch.get("src_key_padding_mask")
+        tgt = torch.from_numpy(batch["target"]).to(dev, torch.long)
+        step = make_train_step(TrainState(model, make_optimizer(
+            model.parameters(), 0.0)))
+        fb.reset_launch_counts()
+        loss, _ = step(src, tgt, pad)
+        torch.cuda.synchronize()
+        counts = fb.launch_counts()
+        print(f"{tag} data: train --dataset {name} B={BATCH} one epoch "
+              f"({len(dm.ds_train)} train / {len(dm.ds_val)} val cases, "
+              f"16 samples): {sec_fit:.2f} s, history "
+              f"{[{k: v for k, v in r.items() if not k.startswith('perf/')} for r in hist]}; "
+              f"a train batch {list(src.shape)} {src.dtype}, loss "
+              f"{loss.item():.6g}, launches {counts}")
+        check(tuple(src.shape) == (BATCH, 1, DEPTH_SLICES, PX, PX)
+              and src.device == dev, f"{name} batch {tuple(src.shape)}")
+        check(all(math.isfinite(r["train_loss"]) for r in hist)
+              and math.isfinite(loss.item()), f"{name}: non-finite loss")
+        check_launches(counts, per_step, f"{name} train step")
+        runs[name] = (run, model, dm, batch)
+
+    # MRNet's padding mask: the slice counts, and probs blind to the pad,
+    # on the train split's 8 cases in order (the odd IDs are padded)
+    run, model, dm, _ = runs["MRNet"]
+    batch = next(iter(DataModule(ds_val=dm.ds_train, batch_size=BATCH,
+                                 device=dev).val_dataloader()))
+    pad = batch["src_key_padding_mask"]
+    real = [min(DEPTH_SLICES, slices[u]) for u in batch["uid"]]
+    got_real = (~pad).sum(1).tolist()
+    print(f"{tag} data: MRNet batch uids {batch['uid']}, slices "
+          f"{[slices[u] for u in batch['uid']]}: real slices by "
+          f"src_key_padding_mask {got_real} (must be {real})")
+    check(pad.dtype == torch.bool and tuple(pad.shape) == (BATCH, DEPTH_SLICES)
+          and got_real == real and bool(pad.any()),
+          f"src_key_padding_mask {got_real} != {real}")
+    src = batch["source"]
+    noisy = src.clone()
+    sel = pad[:, None, :, None, None].expand_as(noisy)
+    noisy[sel] = torch.randn(int(sel.sum()), device=dev,
+                             generator=torch.Generator(dev).manual_seed(SEED))
+    with torch.inference_mode():
+        p1 = torch.softmax(mst_logits(model, src, pad).float(), -1)
+        p2 = torch.softmax(mst_logits(model, noisy, pad).float(), -1)
+        p3 = torch.softmax(mst_logits(model, noisy, None).float(), -1)
+    leak = (p3 - p1).abs().max().item()
+    print(f"{tag} data: MRNet B={BATCH} fused probs with the padded slices' "
+          f"voxels replaced: max |diff| {(p2 - p1).abs().max().item():.6g} "
+          f"(must be 0: the same bits); without the mask they move "
+          f"{leak:.6g} (must be > 0)")
+    check(torch.equal(p1, p2), "padded slices' voxels reach the probs")
+    check(leak > 0, "the padding check would pass a dropped mask")
+    out = base / "predict_mrnet"
+    t1 = time.perf_counter()
+    predict_cli.main(["--run_folder", str(run), "--output_dir", str(out),
+                      "--save_saliency"])
+    sec_pred = time.perf_counter() - t1
+    with (out / "results.csv").open() as f:
+        rows = list(csv.DictReader(f))
+    case = rows[0]["uid"]
+    sal, aff = read_nifti(out / f"case_{case}" / "saliency.nii.gz")
+    sp = MRNet_Dataset3D(mrnet_root, split="test")[0]["spacing_dhw"]
+    want_diag = np.asarray(sp, np.float32)[::-1]
+    print(f"{tag} data: predict --save_saliency on the MRNet run folder: "
+          f"{len(rows)} test cases in {sec_pred:.2f} s; case_{case}/"
+          f"saliency.nii.gz {sal.shape}, affine diagonal "
+          f"{np.diag(aff)[:3].tolist()} (must be the spacing "
+          f"{want_diag.tolist()})")
+    check(len(rows) == len(MRNet_Dataset3D(mrnet_root, split="test")),
+          f"{len(rows)} result rows")
+    check(np.array_equal(np.diag(aff)[:3].astype(np.float32), want_diag)
+          and np.isfinite(sal).all(), f"saliency NIfTI affine {aff}")
+
+    # -- DUKE: one eval batch at B=8 from the fixture -----------------------
+    duke = DUKE_Dataset3D(fixtures.DUKE_FIXTURE)
+    ddm = DataModule(ds_val=duke, batch_size=BATCH, device=dev)
+    dbatch = next(iter(ddm.val_dataloader()))
+    with torch.inference_mode():
+        dlogits = mst_logits(model, dbatch["source"]).float()
+    print(f"{tag} data: DUKE eval batch {list(dbatch['source'].shape)} "
+          f"{dbatch['source'].dtype} from the fixture (uids "
+          f"{dbatch['uid']}), logits finite: "
+          f"{bool(torch.isfinite(dlogits).all())}")
+    check(tuple(dbatch["source"].shape) == (BATCH, 1, DEPTH_SLICES, PX, PX)
+          and bool(torch.isfinite(dbatch["source"]).all())
+          and bool(torch.isfinite(dlogits).all()), "DUKE eval batch")
+
+    # -- times: the loader on the host, the train loop on the card ----------
+    for name, ldm in (("LIDC", runs["LIDC"][2]), ("MRNet", runs["MRNet"][2])):
+        ds, chunk = ldm.ds_train, list(range(BATCH))
+        parts = {"decode": [], "crop": [], "collate": [], "stage": []}
+        for _ in range(3):
+            t1 = time.perf_counter()
+            ds.prefetch_decode(chunk)
+            t2 = time.perf_counter()
+            samples = [ds[i] for i in chunk]
+            t3 = time.perf_counter()
+            batch = _collate(samples)
+            t4 = time.perf_counter()
+            ldm._stage(ds, batch, True)
+            t5 = time.perf_counter()
+            for k, v in zip(parts, (t2 - t1, t3 - t2, t4 - t3, t5 - t4)):
+                parts[k].append(v)
+        ms = {k: statistics.median(v) * 1e3 for k, v in parts.items()}
+        paths = [q for i in chunk for q in ds.nifti_paths(i)]
+        t1 = time.perf_counter()
+        native_io.read_nifti_batch(paths, num_threads=1)
+        one = (time.perf_counter() - t1) * 1e3
+        print(f"{tag} time data loader {name} B={BATCH}, host: decode "
+              f"(native pool, {threads} threads) {ms['decode']:.1f} ms "
+              f"(one thread {one:.1f} ms) + crop {ms['crop']:.1f} ms + "
+              f"collate {ms['collate']:.1f} ms + pinned staging (f16 for "
+              f"LIDC) {ms['stage']:.1f} ms = {sum(ms.values()):.1f} ms per "
+              f"batch ({BATCH * 1e3 / sum(ms.values()):.1f} vol/s) in turn")
+    sargs = cli.parse_args(["--dataset", "Synthetic", "--batch_size",
+                            str(BATCH), "--num_train_samples", "32",
+                            "--seed", str(SEED)])
+    loops = {
+        "LIDC files": cli.build_datamodule(
+            cli.parse_args(["--dataset", "LIDC", "--path_root",
+                            str(lidc_root), "--batch_size", str(BATCH),
+                            "--num_train_samples", "32", "--seed",
+                            str(SEED)]), dev),
+        "Synthetic in memory": cli.build_datamodule(
+            sargs, dev, num_samples=32,
+            shape_cdhw=(1, DEPTH_SLICES, PX, PX)),
+    }
+    for ldm in loops.values():
+        ldm.num_train_samples = LOOP_SAMPLES
+    model = runs["LIDC"][1]
+    step = make_train_step(TrainState(model, make_optimizer(
+        model.parameters(), 0.0)))  # lr 0: the same work, the same weights
+    src8 = runs["LIDC"][3]["source"]
+    tgt8 = torch.from_numpy(runs["LIDC"][3]["target"]).to(dev, torch.long)
+    sec_step = host_seconds(lambda: step(src8, tgt8, None))
+    print(f"{tag} time train step B={BATCH} alone (one batch on the card, "
+          f"no loader): {sec_step * 1e3:.3f} ms = {BATCH / sec_step:.2f} "
+          f"vol/s")
+    for name, ldm in loops.items():  # the CLI runs above warmed the step
+        n, wall, _ = loop_seconds(ldm, None, dev)
+        print(f"{tag} time loader alone B={BATCH} on {name}: {n} volumes "
+              f"in {wall:.3f} s = {n / wall:.2f} vol/s (decode, crop, "
+              f"collate, pinned copy, transfer and augmentation)")
+        n, wall, _ = loop_seconds(ldm, step, dev)
+        _, pwall, busy = loop_seconds(ldm, step, dev, profile=True)
+        print(f"{tag} time train loop B={BATCH} on {name}: {n} volumes in "
+              f"{wall:.3f} s = {n / wall:.2f} vol/s (loader, copy, "
+              f"augmentation and step overlapped); profiled epoch {pwall:.3f} "
+              f"s wall, device busy {busy:.3f} s, idle "
+              f"{max(0.0, 1 - busy / pwall) * 100:.1f}%")
+    del runs, loops, step, model
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not (ROOT / "mst_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke.py must run from a checkout of the "
@@ -7803,6 +8215,12 @@ def main() -> int:
     qrtimed, qrcost, qrlib, qrgraph = quant_rows_times(tag, dev, fq)
     lib_ms.update(qrlib)
     cost.update(qrcost)
+
+    # ======================================================================
+    # Phase 48: the host data path (datasets, native decode, the device
+    # augmentation, padding masks into the train step)
+    # ======================================================================
+    data_phase(tag, dev, fb, per_step)
 
     # TPU kernels: _attn_any_kernel at fused_block.py:326, _mlp_kernel at
     # :400, their train forwards _attn_train_kernel :424 and

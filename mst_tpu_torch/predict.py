@@ -1,10 +1,12 @@
 """Predict CLI of the port, the counterpart of `scripts/main_predict.py`:
 
-    python -m mst_tpu_torch.predict --run_folder RUN [--output_dir DIR] \
+    python -m mst_tpu_torch.predict --run_folder RUN [--path_root DIR] \
+        [--output_dir DIR] \
         [--use_tta] [--use_rollout [--rollout_abnar]] [--save_saliency] \
         [--batch_size 1] [--dtype bfloat16] [--int8 [--int8_calib N]]
 
-It scores the test split of the run's dataset with the run's best
+It scores the test split of the run's dataset (LIDC, DUKE and MRNet from
+the run's `path_root` and `fold`, or `--path_root`) with the run's best
 checkpoint (`serve.load_run_model`) on the CUDA card and writes, under
 `--output_dir` (default `<RUN>/results`):
 
@@ -14,7 +16,8 @@ checkpoint (`serve.load_run_model`) on the CUDA card and writes, under
   the accuracy, PPV, NPV, sensitivity and specificity at the Youden point
   of the ROC curve;
 - with `--save_saliency`, `case_<uid>/saliency.nii.gz` and `input.nii.gz`
-  (NIfTI (x, y, z) order): the saliency map of the
+  (NIfTI (x, y, z) order, the case's voxel spacing on the affine's
+  diagonal, as `scripts/main_predict.py:395-405`): the saliency map of the
   fused explainability forward, the last block's CLS attention by default,
   the reference `get_attention_cls` rollout with `--use_rollout`, the Abnar
   & Zuidema rollout with `--rollout_abnar` too. Saliency modes run one
@@ -61,8 +64,8 @@ log = logging.getLogger(__name__)
 _LATER = {
     "get_attention": "PNG overlays need matplotlib and seaborn, which the "
                      "card's machine lacks (ROADMAP queue A #6)",
-    "get_segmentation": "needs the LIDC rater masks of the host data path "
-                        "(ROADMAP queue A #5)",
+    "get_segmentation": "the Dice / IoU / ASSD scores against the LIDC "
+                        "rater masks (ROADMAP queue A #6)",
     "ensemble": "ROADMAP queue A #6",
     "num_devices": "ROADMAP queue A #13",
     "distributed": "ROADMAP queue A #13",
@@ -73,6 +76,8 @@ RESULT_COLUMNS = ("uid", "GT", "NN", "NN_pred")
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(prog="python -m mst_tpu_torch.predict")
     ap.add_argument("--run_folder", required=True)
+    ap.add_argument("--path_root", default=None,
+                    help="the dataset's folder (default: the run's)")
     ap.add_argument("--output_dir", default=None)
     ap.add_argument("--use_tta", action="store_true",
                     help="average the 8 flips of each case (one batch)")
@@ -144,13 +149,35 @@ def quantize_model(args, model, dm):
 
 def build_datamodule(args, device, **dataset_kw) -> DataModule:
     """The test split of the run's dataset (its hparams' `dataset`, else the
-    run folder's parent name); `dataset_kw` go to the dataset (e.g.
-    `shape_cdhw`, `num_samples` of Synthetic)."""
+    run folder's parent name), a reference dataset's from --path_root or
+    the run's `path_root`, in the run's fold; `dataset_kw` go to the
+    dataset (e.g. `shape_cdhw`, `num_samples` of Synthetic)."""
     run = Path(args.run_folder)
-    name = (load_hparams(run) or {}).get("dataset") or run.parent.name
+    hparams = load_hparams(run) or {}
+    name = hparams.get("dataset") or run.parent.name
+    if name != "Synthetic":
+        root = args.path_root or hparams.get("path_root")
+        if root is None:
+            raise SystemExit(f"the run's dataset {name} reads its files from "
+                             f"a folder: give --path_root DIR")
+        dataset_kw = dict(path_root=root, fold=hparams.get("fold", 0),
+                          **dataset_kw)
     ds = get_dataset(name, split="test", **dataset_kw)
     batch_size = 1 if args.save_saliency else max(1, args.batch_size)
     return DataModule(ds_test=ds, batch_size=batch_size, device=device)
+
+
+def spacing_xyz(batch) -> list:
+    """The first case's voxel spacing in NIfTI (x, y, z) order: its
+    `spacing_dhw` reversed, else its affine's diagonal, else 1
+    (`scripts/main_predict.py:395-405`)."""
+    if "spacing_dhw" in batch:
+        sp = np.asarray(batch["spacing_dhw"][0], float)
+    elif "affine" in batch:
+        sp = np.abs(np.diag(np.asarray(batch["affine"][0]))[:3])[::-1]
+    else:
+        sp = np.ones(3)
+    return [float(sp[2]), float(sp[1]), float(sp[0])]
 
 
 def predict_cases(args, model, dm, out_dir: Path) -> list:
@@ -169,14 +196,14 @@ def predict_cases(args, model, dm, out_dir: Path) -> list:
                          "NN": int(probs[i].argmax()),
                          "NN_pred": float(probs[i, 1])})
         if sal is not None:  # one case per batch
-            # NIfTI (x, y, z) order; a unit-spacing affine, as Synthetic
-            # volumes carry no voxel spacing (the reference datasets' comes
-            # with their data path, ROADMAP queue A #5)
+            # NIfTI (x, y, z) order; a spacing-only affine (the crop's grid
+            # has no origin to keep)
             case_dir = out_dir / f"case_{batch['uid'][0]}"
+            aff = np.diag([*spacing_xyz(batch), 1.0])
             for fname, vol in (("saliency.nii.gz", sal[0]),
                                ("input.nii.gz", batch["source"][0, 0])):
                 write_nifti(case_dir / fname, np.transpose(
-                    vol.float().cpu().numpy(), (2, 1, 0)))
+                    vol.float().cpu().numpy(), (2, 1, 0)), aff)
     return rows
 
 

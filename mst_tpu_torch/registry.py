@@ -3,9 +3,10 @@
 Counterpart of `mst_tpu/registry.py` for what the port runs: the
 `DinoV2ClassifierSlice` and `DinoV3ClassifierSlice` models, with the
 reference's default optimizer settings in their entries (lr 1e-6, weight
-decay 1e-2, `mst/models/dino.py:41`), and the hermetic `Synthetic` dataset.
-The other names raise `NotImplementedError` with the ROADMAP item that
-brings them.
+decay 1e-2, `mst/models/dino.py:41`), the reference datasets `LIDC`,
+`DUKE` and `MRNet` read from a `path_root` folder, and the hermetic
+`Synthetic` dataset. The ResNets raise `NotImplementedError` with the
+ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -38,7 +39,6 @@ _NOT_YET = {
     "ResNet": "#8",
     "ResNetSliceTrans": "#8",
 }
-_DATASETS_NOT_YET = ("LIDC", "DUKE", "MRNet")  # the host data path, #5
 
 
 def model_entry(name: str) -> ModelEntry:
@@ -60,17 +60,27 @@ def get_model(name: str, dtype=torch.float32, **overrides) -> torch.nn.Module:
     return entry.build(dtype=dtype, **overrides)
 
 
-def get_dataset(name: str, split, **kw):
-    """`Synthetic` -> the in-memory dataset (seed 0/1/2 for train/val/test,
-    as the JAX registry); the reference datasets raise until the host data
-    path is ported."""
-    if name in _DATASETS_NOT_YET:
-        raise NotImplementedError(
-            f"dataset {name} is not ported to mst_tpu_torch yet (ROADMAP "
-            f"queue A #5)")
-    if name != "Synthetic":
-        raise ValueError(f"unknown dataset {name!r}")
-    from mst_tpu_torch.data.datasets.synthetic import Synthetic_Dataset3D
+def get_dataset(name: str, split, path_root=None, **kw):
+    """The dataset `name` on `split`, as the JAX registry builds it: LIDC,
+    DUKE and MRNet read the folder `path_root`; `Synthetic` is in memory
+    (seed 0/1/2 for train/val/test) and ignores `path_root` and the
+    options it has no use for (random_center, random_rotate, fold)."""
+    if name == "Synthetic":
+        from mst_tpu_torch.data.datasets.synthetic import Synthetic_Dataset3D
 
-    seed = {"train": 0, "val": 1, "test": 2}.get(split, 3)
-    return Synthetic_Dataset3D(seed=seed, **kw)
+        for key in ("random_center", "random_rotate", "fold"):
+            kw.pop(key, None)
+        seed = {"train": 0, "val": 1, "test": 2}.get(split, 3)
+        return Synthetic_Dataset3D(seed=seed, **kw)
+    if name == "LIDC":
+        from mst_tpu_torch.data.datasets.lidc import LIDC_Dataset3D as cls
+    elif name == "DUKE":
+        from mst_tpu_torch.data.datasets.duke import DUKE_Dataset3D as cls
+    elif name == "MRNet":
+        from mst_tpu_torch.data.datasets.mrnet import MRNet_Dataset3D as cls
+    else:
+        raise ValueError(f"unknown dataset {name!r}")
+    if path_root is None:
+        raise ValueError(f"dataset {name} reads its files from a folder: "
+                         f"give path_root (the CLIs' --path_root)")
+    return cls(path_root, split=split, **kw)

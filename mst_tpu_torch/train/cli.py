@@ -1,6 +1,7 @@
 """Train CLI of the port, the counterpart of `scripts/main_train.py`:
 
-    python -m mst_tpu_torch.train --dataset Synthetic \
+    python -m mst_tpu_torch.train --dataset LIDC | DUKE | MRNet \
+        --path_root DIR [--fold 0] | --dataset Synthetic \
         [--model DinoV2ClassifierSlice | DinoV3ClassifierSlice] \
         [--model_size small | base | large | giant2] [--freeze | --remat] \
         [--batch_size 2] [--max_epochs 1000] [--num_train_samples 2000] [--patience 10] \
@@ -19,11 +20,15 @@ model's learning rate, val/AUC_ROC early stopping, the top-1 checkpoint in
 `<run_dir>/<dataset>/<model>_<stamp>/epoch=N/params.npz`, which
 `python -m mst_tpu_torch.serve --params_npz` (DINOv2) or `--run_folder`
 (any model: the run's hparams record the model's options) serves. The
-flags keep their JAX names and defaults; the reference datasets (the
-default `LIDC` among them), the flags of features not ported yet
-(Adafactor, gradient accumulation) and an encoder whose widths the train
-kernels do not take (`DinoSliceClassifier.check_trainable`) are ROADMAP
-queue A items.
+reference datasets read the folder `--path_root` (fold `--fold`): their
+train split with the reference's augmentation (flips, rotation, random
+centre, inversion and noise), as `scripts/main_train.py:155-161`; the
+run's hparams record the dataset, `path_root` and `fold`, so that
+`python -m mst_tpu_torch.predict --run_folder RUN` scores the same
+folder's test split. The flags keep their JAX names and defaults; the
+flags of features not ported yet (Adafactor, gradient accumulation, the
+disk decode cache) and an encoder whose widths the train kernels do not
+take (`DinoSliceClassifier.check_trainable`) are ROADMAP queue A items.
 `build_model`, `build_datamodule` and `build_trainer` are split from
 `main` so that tests and `chip_smoke.py` drive the CLI's own builders.
 """
@@ -47,9 +52,10 @@ log = logging.getLogger(__name__)
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(prog="python -m mst_tpu_torch.train")
     ap.add_argument("--dataset", default="LIDC",
-                    choices=["LIDC", "DUKE", "MRNet", "Synthetic"],
-                    help="only Synthetic is ported (the host data path of "
-                         "the others is ROADMAP queue A #5)")
+                    choices=["LIDC", "DUKE", "MRNet", "Synthetic"])
+    ap.add_argument("--path_root", default=None,
+                    help="the dataset's folder (LIDC, DUKE, MRNet)")
+    ap.add_argument("--fold", type=int, default=0)
     ap.add_argument("--model", default="DinoV2ClassifierSlice")
     ap.add_argument("--model_size", default="small",
                     help="small | base | large | giant2 (SwiGLU FFN)")
@@ -107,12 +113,26 @@ def build_model(args):
                      **model_kwargs(args)).to(torch.device("cuda"))
 
 
+def dataset_kwargs(args) -> dict:
+    """--path_root and --fold for a reference dataset (Synthetic takes
+    neither); a missing --path_root stops with the flag's name."""
+    if args.dataset == "Synthetic":
+        return {}
+    if args.path_root is None:
+        raise SystemExit(f"--dataset {args.dataset} reads its files from a "
+                         f"folder: give --path_root DIR")
+    return dict(path_root=args.path_root, fold=args.fold)
+
+
 def build_datamodule(args, device, **dataset_kw) -> DataModule:
-    """Train split with flip + noise augmentation and class-balanced
-    weighted sampling, val split plain; `dataset_kw` go to both splits
-    (e.g. `shape_cdhw`, `num_samples` of Synthetic)."""
+    """Train split with the reference's augmentation (flips, z-rotation,
+    random centre, inversion and noise) and class-balanced weighted
+    sampling, val split plain; `dataset_kw` go to both splits (e.g.
+    `shape_cdhw`, `num_samples` of Synthetic)."""
+    dataset_kw = {**dataset_kwargs(args), **dataset_kw}
     ds_train = get_dataset(args.dataset, split="train", flip=True,
-                           noise=True, **dataset_kw)
+                           noise=True, random_center=True,
+                           random_rotate=True, **dataset_kw)
     ds_val = get_dataset(args.dataset, split="val", **dataset_kw)
     return DataModule(ds_train=ds_train, ds_val=ds_val,
                       batch_size=args.batch_size,
@@ -135,11 +155,15 @@ def build_trainer(args, dm, run_dir=None) -> Trainer:
 def train(args, model, dm, trainer):
     """Seeded weights, AdamW at the model's (or --lr) rate (over the slice
     fusion and head with --freeze), fit. The hparams record the model's own options (`model.config`), so that
-    `serve.load_run_model` rebuilds the model that was trained."""
+    `serve.load_run_model` rebuilds the model that was trained, and the
+    dataset's folder and fold, so that `predict` finds its test split."""
     entry = model_entry(args.model)
     lr = entry.learning_rate if args.lr is None else args.lr
     state = trainer.init_state(model, lr, entry.weight_decay, seed=args.seed)
-    hparams = {"model": args.model, "dataset": args.dataset, **model.config}
+    hparams = {"model": args.model, "dataset": args.dataset,
+               "path_root": (None if args.path_root is None
+                             else str(Path(args.path_root).resolve())),
+               "fold": args.fold, **model.config}
     return trainer.fit(state, dm, hparams=hparams)
 
 

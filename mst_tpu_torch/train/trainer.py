@@ -17,8 +17,10 @@ of the standard DinoSliceClassifier configuration):
   over the slice fusion and head only);
 - the eval step runs the serving forward under `torch.inference_mode()`,
   routed the same way (:365-385);
-- `Trainer.fit` runs sanity val steps, the epoch loop (per-step results
-  drained to the host every 64 steps, so no step waits for the card),
+- `Trainer.fit` runs sanity val steps, the epoch loop (each batch's
+  `src_key_padding_mask`, where its dataset pads slices, into the train
+  and eval steps; per-step results drained to the host every 64 steps, so
+  no step waits for the card),
   midrank AUC on the validation split, `history.jsonl` with the JAX keys
   (including `perf/*` from `utils.profiling.StepTimer`), the top-1
   `epoch=N/` checkpoint with `best_checkpoint.json`, and early stopping
@@ -153,14 +155,19 @@ class Trainer:
         history = []
 
         def target_of(batch):
-            return torch.from_numpy(batch["target"]).to(device, torch.long)
+            # pinned and non_blocking: the copy does not wait for the steps
+            # queued before it
+            t = torch.from_numpy(batch["target"])
+            if device.type == "cuda":
+                t = t.pin_memory()
+            return t.to(device, torch.long, non_blocking=True)
 
         # Lightning's sanity check (reference `num_sanity_val_steps=2`): an
         # eval-path fault fails in seconds, not after the first epoch.
         for bi, batch in enumerate(dm.val_dataloader()):
             if bi >= SANITY_VAL_STEPS:
                 break
-            eval_step(batch["source"])
+            eval_step(batch["source"], batch.get("src_key_padding_mask"))
 
         timer = StepTimer()
         for epoch in range(self.max_epochs):
@@ -184,8 +191,9 @@ class Trainer:
 
             for batch in dm.train_dataloader():
                 with timer.step():
-                    loss, logits = train_step(batch["source"],
-                                              target_of(batch))
+                    loss, logits = train_step(
+                        batch["source"], target_of(batch),
+                        batch.get("src_key_padding_mask"))
                 pending.append((loss, logits, batch["target"]))
                 n_steps += 1
                 if len(pending) >= DRAIN_EVERY:
@@ -197,7 +205,8 @@ class Trainer:
             for bi, batch in enumerate(dm.val_dataloader()):
                 if self.limit_val_batches and bi >= self.limit_val_batches:
                     break
-                logits = eval_step(batch["source"])
+                logits = eval_step(batch["source"],
+                                   batch.get("src_key_padding_mask"))
                 lo = bi * dm.batch_size
                 val_metrics.update(logits.float().cpu().numpy(),
                                    batch["target"],

@@ -1,6 +1,7 @@
-"""The port stands alone: it imports no JAX stack (serving and training),
-ships its CUDA sources, keeps its build output out of git, and refuses what
-it does not port."""
+"""The port stands alone: it imports no JAX stack (serving, training and
+the data path) and none of pandas, h5py and nibabel, ships its CUDA
+sources, keeps its build output out of git, and refuses what it does not
+port."""
 
 import subprocess
 import sys
@@ -10,6 +11,7 @@ import numpy as np
 import pytest
 
 from mst_tpu_torch import predict
+from mst_tpu_torch.data.fixtures import DUKE_FIXTURE
 from mst_tpu_torch.models.mst import DinoSliceClassifier
 from mst_tpu_torch.registry import get_dataset, get_model
 from mst_tpu_torch.train import cli
@@ -20,11 +22,16 @@ TINY = dict(model_size="tiny", patch_size=14, fusion_heads=4)
 
 _NO_JAX = """
 import sys
-for name in ("jax", "jaxlib", "flax", "optax", "orbax", "mst_tpu"):
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "mst_tpu", "pandas",
+             "h5py", "nibabel"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import numpy as np, torch
 import mst_tpu_torch.serve, mst_tpu_torch.registry, mst_tpu_torch.predict
 import mst_tpu_torch.ops.saliency, mst_tpu_torch.utils.nifti
+import mst_tpu_torch.data.datamodule, mst_tpu_torch.data.native_io
+import mst_tpu_torch.data.fixtures
+import mst_tpu_torch.data.datasets.lidc, mst_tpu_torch.data.datasets.duke
+import mst_tpu_torch.data.datasets.mrnet
 from mst_tpu_torch.models.convert import params_from_flax, random_flax_params
 from mst_tpu_torch.registry import get_dataset, get_model
 from mst_tpu_torch.train import cli
@@ -67,9 +74,13 @@ loss, _ = make_train_step(state)(
     torch.from_numpy(vol.astype(np.float32)), torch.tensor([1]))
 assert bool(torch.isfinite(loss))
 assert not torch.equal(w12, g2u.encoder.blocks_0.mlp.w12.kernel.detach())
+from mst_tpu_torch.data.datasets.duke import DUKE_Dataset3D
+from mst_tpu_torch.data.fixtures import DUKE_FIXTURE
+sample = DUKE_Dataset3D(DUKE_FIXTURE, split="val")[0]
+assert sample["source"].shape == (1, 32, 224, 224)
 loaded = [m for m in sys.modules if m.split(".")[0] in
-          ("jax", "jaxlib", "flax", "optax", "orbax", "mst_tpu")
-          and sys.modules[m] is not None]
+          ("jax", "jaxlib", "flax", "optax", "orbax", "mst_tpu", "pandas",
+           "h5py", "nibabel") and sys.modules[m] is not None]
 assert not loaded, loaded
 print("ok")
 """
@@ -84,7 +95,9 @@ def test_port_imports_and_runs_without_jax():
 
 def test_no_jax_import_in_port_sources():
     banned = ("import jax", "from jax", "import flax", "from flax",
-              "import optax", "import orbax", "from mst_tpu.", "import mst_tpu\n")
+              "import optax", "import orbax", "from mst_tpu.", "import mst_tpu\n",
+              "import pandas", "from pandas", "import h5py", "from h5py",
+              "import nibabel", "from nibabel")
     for path in [ROOT / "chip_smoke.py",
                  *sorted((ROOT / "mst_tpu_torch").rglob("*.py"))]:
         text = path.read_text()
@@ -147,9 +160,15 @@ def test_unsupported_configs_raise():
     with pytest.raises(NotImplementedError, match="CUDA or CPU"):
         make_predict_fn(model.to("meta"))(np.zeros((1, 1, 1, 28, 28),
                                                    np.float32))
-    # the train CLI: the reference datasets (its default LIDC among them)
+    # the train CLI's reference datasets (its default LIDC among them) need
+    # their folder: a clear message without --path_root, the dataset with it
     for name in ("LIDC", "DUKE", "MRNet"):
-        with pytest.raises(NotImplementedError, match="queue A #5"):
+        with pytest.raises(SystemExit, match="--path_root"):
             cli.build_datamodule(cli.parse_args(["--dataset", name]), "cpu")
-        with pytest.raises(NotImplementedError, match="queue A #5"):
+        with pytest.raises(ValueError, match="path_root"):
             get_dataset(name, "train")
+    dm = cli.build_datamodule(cli.parse_args(
+        ["--dataset", "DUKE", "--path_root", str(DUKE_FIXTURE), "--fold",
+         "1", "--batch_size", "4"]), "cpu")
+    assert len(dm.ds_train) == 10 and dm.ds_train.augment_config(True).flip
+    assert len(next(iter(dm.train_dataloader()))["uid"]) == 4

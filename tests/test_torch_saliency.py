@@ -399,7 +399,7 @@ def test_predict_cli_writes_results_log_and_nifti(run_folder, tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--get_attention"], "queue A #6"), (["--get_segmentation"], "#5"),
+    (["--get_attention"], "queue A #6"), (["--get_segmentation"], "#6"),
     (["--ensemble", "x"], "queue A #6"),
     (["--num_devices", "2"], "#13"), (["--distributed"], "#13")])
 def test_predict_cli_refuses_unported_flags(flag, item, capsys):

@@ -254,7 +254,8 @@ def test_synthetic_dataset_and_sampling_match_mst_tpu():
 
 def test_augment_flip_and_noise():
     """Flips alone give one of the 8 flips of each volume; the draws repeat
-    per seed; noise stays within its std bound; unported fields raise."""
+    per seed; noise stays within its std bound; clamp, rotation and
+    inversion run (`tests/test_torch_data.py` holds each against JAX)."""
     rng = np.random.default_rng(5)
     vol = torch.from_numpy(rng.standard_normal((4, 1, 3, 5, 6)).astype(
         np.float32))
@@ -272,10 +273,20 @@ def test_augment_flip_and_noise():
     same = augment_batch(AugmentConfig(flip=True, noise_std=0.1), False, vol,
                          seeds)
     assert torch.equal(same, vol)  # eval: no augmentation
-    for cfg in (AugmentConfig(clamp_range=(-1.0, 1.0)),
-                AugmentConfig(random_rotate=True), AugmentConfig(invert=True)):
-        with pytest.raises(NotImplementedError, match="queue A #5"):
-            augment_batch(cfg, True, vol, seeds)
+    # the steps the host data path brought: a clamp, a rotation (the angle
+    # repeats per seed; bilinear taps stay inside the volume's range) and
+    # an inversion (each volume negated or not)
+    out = augment_batch(AugmentConfig(clamp_range=(-1.0, 1.0)), True, vol,
+                        seeds)
+    assert torch.equal(out, vol.clamp(-1.0, 1.0))
+    rot = augment_batch(AugmentConfig(random_rotate=True), True, vol, seeds)
+    assert torch.equal(rot, augment_batch(AugmentConfig(random_rotate=True),
+                                          True, vol, seeds))
+    assert not torch.equal(rot, vol)
+    assert float(rot.min()) >= float(vol.min()) - 1e-6  # convex taps
+    inv = augment_batch(AugmentConfig(invert=True), True, vol, seeds)
+    for i in range(4):
+        assert torch.equal(inv[i], vol[i]) or torch.equal(inv[i], -vol[i])
 
 
 def _fit(tmp_path, lr, max_epochs, patience):
