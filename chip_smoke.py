@@ -59,7 +59,8 @@ limit:
    sub-layers, launch counts per step, then K AdamW steps on one batch on
    both paths (the loss must fall, and the paths must agree);
 9. trainer: `Trainer.fit` for 2 epochs on LIDC-shaped Synthetic data; the
-   run folder's files; the best checkpoint served by
+   run folder's files (`last` among them, its write timed); the best
+   checkpoint served by
    `python -m mst_tpu_torch.serve`'s `build_model` gives the eval step's
    probs;
 10. train times: the train kernels vs their plain versions (the backward
@@ -419,6 +420,31 @@ on the MRNet run folder (the NIfTI affine's diagonal is the spacing), one
 DUKE eval batch at B=8, then the loader's host seconds per batch and the
 B=8 train loop's vol/s and device idle share on the LIDC files and on
 phase 9's in-memory Synthetic data.
+
+Phase 49 drives the train CLI's remaining single-card options (queue A #4
+and #5's rest; no kernel of its own) through its builders at ViT-S width
+and B=8: the decoded-volume disk cache (`--decode_cache`) on phase 48's
+LIDC and MRNet folders and the DUKE fixture (the host ms of one batch
+decoded, first cached and read from the cache; the loader's and the
+profiled train loop's vol/s and the device's idle share in a cold and a
+warm epoch; the cache's files and bytes; the augmented batches of two
+epochs with the cache equal to those without, bit for bit); `train
+--dataset DUKE --decode_cache` for one epoch, then `predict --run_folder
+--decode_cache`; `--resume`: two epochs against one epoch and `--resume`
+for the second on LIDC-shaped Synthetic data under `--lr_schedule
+warmup_cosine`, the `last` parameters, AdamW moments and steps equal bit
+for bit, in the same run folder (were they not, two uninterrupted runs
+would give the spread the resumed one is held to, with the arrays that
+differ), the launches of phase 8's train kernels, the `--profile_dir`
+trace of epoch 1 with its CUDA kernels; the rate of each step under
+`cosine` and `warmup_cosine` read back against optax's formulas (the
+first warmup step at rate 0 leaves the weights); `--pretrained_path
+--freeze` from a seeded torch.hub DINOv2 ViT-S/14 state dict (grid 37)
+and an HF DINOv3 ViT-S/16 one (4 registers, no pos-embed): the encoder
+after one epoch equal to the converted state dict bit for bit, the
+hparams' inferred config, the serving kernels launched and no backward
+one, `serve --run_folder` giving the eval step's probs. Phases 9, 24 and
+29 print the seconds and bytes of their `last` train-state write.
 
 Each phase prints its wall time. The line before the last is `{"kernels":
 [...]}`: per kernel its launches on the main path, its largest error, its
@@ -5273,6 +5299,496 @@ def data_phase(tag, dev, fb, per_step) -> None:
     torch.cuda.empty_cache()
 
 
+# Phase 49: the train CLI's remaining single-card options (queue A #4 and
+# #5's rest): the decode cache, `--resume`, LR schedules,
+# `--pretrained_path`, `--profile_dir`, a DUKE run.
+OPT_SAMPLES = 16  # Synthetic volumes per split: two B=8 steps an epoch
+CACHE_LOOP_SAMPLES = 32  # a timed epoch on cached files: 4 batches of 8
+SCHED_STEPS, SCHED_WARMUP, SCHED_LR = 6, 2, 1e-4
+
+
+def optax_lr(name, lr, total, warmup, count) -> float:
+    """optax's `cosine_decay_schedule(lr, total)` and
+    `warmup_cosine_decay_schedule(0, lr, warmup, total)` at `count`, from
+    their definitions (alpha 0, exponent 1)."""
+    if name == "warmup_cosine" and count < warmup:
+        return lr * count / warmup
+    steps = total if name == "cosine" else total - warmup
+    c = min(count if name == "cosine" else count - warmup, steps)
+    return lr * 0.5 * (1 + math.cos(math.pi * c / steps))
+
+
+def seeded_hub_sd(seed, embed=E, depth=12, grid=37, patch=14):
+    """A torch.hub-layout DINOv2 ViT-S/14 state dict drawn at a trained
+    model's scales (kernels N(0, 1 / fan_in), LayerScale 0.1, LN near 1)."""
+    rng = np.random.default_rng(seed)
+
+    def lin(o, i):
+        return rng.standard_normal((o, i)) / math.sqrt(i)
+
+    def vec(n, s=0.02, base=0.0):
+        return base + s * rng.standard_normal(n)
+
+    sd = {"cls_token": vec((1, 1, embed)),
+          "pos_embed": vec((1, grid * grid + 1, embed)),
+          "mask_token": vec((1, embed)),
+          "patch_embed.proj.weight": rng.standard_normal(
+              (embed, 3, patch, patch)) / math.sqrt(3 * patch * patch),
+          "patch_embed.proj.bias": vec(embed),
+          "norm.weight": vec(embed, 0.1, 1.0), "norm.bias": vec(embed)}
+    for i in range(depth):
+        p = f"blocks.{i}"
+        sd.update({
+            f"{p}.norm1.weight": vec(embed, 0.1, 1.0),
+            f"{p}.norm1.bias": vec(embed),
+            f"{p}.attn.qkv.weight": lin(3 * embed, embed),
+            f"{p}.attn.qkv.bias": vec(3 * embed),
+            f"{p}.attn.proj.weight": lin(embed, embed),
+            f"{p}.attn.proj.bias": vec(embed),
+            f"{p}.ls1.gamma": vec(embed, 0.01, 0.1),
+            f"{p}.ls2.gamma": vec(embed, 0.01, 0.1),
+            f"{p}.norm2.weight": vec(embed, 0.1, 1.0),
+            f"{p}.norm2.bias": vec(embed),
+            f"{p}.mlp.fc1.weight": lin(4 * embed, embed),
+            f"{p}.mlp.fc1.bias": vec(4 * embed),
+            f"{p}.mlp.fc2.weight": lin(embed, 4 * embed),
+            f"{p}.mlp.fc2.bias": vec(embed)})
+    return {k: torch.from_numpy(np.asarray(v, np.float32))
+            for k, v in sd.items()}
+
+
+def seeded_hf_v3_sd(seed, embed=E, depth=12, patch=16, registers=4):
+    """An HF DINOv3ViTModel ViT-S/16 state dict (4 registers, no pos-embed,
+    no k bias, the plain up / down MLP) at the same scales."""
+    rng = np.random.default_rng(seed)
+
+    def lin(o, i):
+        return rng.standard_normal((o, i)) / math.sqrt(i)
+
+    def vec(n, s=0.02, base=0.0):
+        return base + s * rng.standard_normal(n)
+
+    sd = {"embeddings.cls_token": vec((1, 1, embed)),
+          "embeddings.mask_token": vec((1, 1, embed)),
+          "embeddings.register_tokens": vec((1, registers, embed)),
+          "embeddings.patch_embeddings.weight": rng.standard_normal(
+              (embed, 3, patch, patch)) / math.sqrt(3 * patch * patch),
+          "embeddings.patch_embeddings.bias": vec(embed),
+          "norm.weight": vec(embed, 0.1, 1.0), "norm.bias": vec(embed)}
+    for i in range(depth):
+        p, a = f"layer.{i}", f"layer.{i}.attention"
+        sd.update({
+            f"{a}.q_proj.weight": lin(embed, embed),
+            f"{a}.q_proj.bias": vec(embed),
+            f"{a}.k_proj.weight": lin(embed, embed),
+            f"{a}.v_proj.weight": lin(embed, embed),
+            f"{a}.v_proj.bias": vec(embed),
+            f"{a}.o_proj.weight": lin(embed, embed),
+            f"{a}.o_proj.bias": vec(embed),
+            f"{p}.norm1.weight": vec(embed, 0.1, 1.0),
+            f"{p}.norm1.bias": vec(embed),
+            f"{p}.norm2.weight": vec(embed, 0.1, 1.0),
+            f"{p}.norm2.bias": vec(embed),
+            f"{p}.layer_scale1.lambda1": vec(embed, 0.01, 0.1),
+            f"{p}.layer_scale2.lambda1": vec(embed, 0.01, 0.1),
+            f"{p}.mlp.up_proj.weight": lin(4 * embed, embed),
+            f"{p}.mlp.up_proj.bias": vec(4 * embed),
+            f"{p}.mlp.down_proj.weight": lin(embed, 4 * embed),
+            f"{p}.mlp.down_proj.bias": vec(embed)})
+    return {k: torch.from_numpy(np.asarray(v, np.float32))
+            for k, v in sd.items()}
+
+
+def busy_loop(dm, step, dev):
+    """One train epoch of `dm` through `step` under `torch.profiler` with
+    CUDA activity only (a lighter trace than `loop_seconds`' CPU + CUDA
+    one) -> (volumes, wall s, device busy s, s spent reading the trace)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    n = 0
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for batch in dm.train_dataloader():
+            tgt = torch.from_numpy(batch["target"]).pin_memory().to(
+                dev, torch.long, non_blocking=True)
+            step(batch["source"], tgt, batch.get("src_key_padding_mask"))
+            n += len(batch["uid"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation) / 1e6
+    return n, wall, busy, time.perf_counter() - t1
+
+
+def cache_stats(cache: Path):
+    files = [f for f in cache.iterdir() if f.suffix == ".npy"]
+    return len(files), sum(f.stat().st_size for f in files)
+
+
+def last_state(run: Path) -> dict:
+    out = {}
+    for name in ("params.npz", "optimizer.npz"):
+        with np.load(run / "last" / name, allow_pickle=False) as z:
+            out.update({f"{name}:{k}": z[k] for k in z.files})
+    return out
+
+
+def print_last_saves(tag, what, records) -> None:
+    """The `last` writes of a fit (`Trainer.state_writer.records`)."""
+    for r in records:
+        print(f"{tag} {what}: `last` train state {r['bytes'] / 1e9:.3f} GB: "
+              f"device-to-host copy {r['copy_s']:.3f} s on the loop's "
+              f"thread, write {r['write_s']:.3f} s on the writer thread")
+
+
+def train_options_phase(tag, dev, fb, per_step, per_fwd3) -> None:
+    """Phase 49: the train CLI's remaining single-card options on the card
+    (see the module docstring); `per_step` is phase 8's launch counts of
+    one B=8 step, `per_fwd3` phase 16's of one DINOv3 forward."""
+    stamp(tag, "49")
+    t_phase = time.perf_counter()
+    from mst_tpu_torch import predict as predict_cli
+    from mst_tpu_torch.data import fixtures
+    from mst_tpu_torch.data.datasets.base import Dataset3D
+    from mst_tpu_torch.models import convert
+    from mst_tpu_torch.registry import get_dataset
+    from mst_tpu_torch.serve import build_model as serve_model
+    from mst_tpu_torch.serve import parse_args as serve_args
+    from mst_tpu_torch.train import cli
+    from mst_tpu_torch.train.predictor import make_predict_fn
+    from mst_tpu_torch.train.trainer import (
+        TrainState,
+        make_eval_step,
+        make_optimizer,
+        make_train_step,
+    )
+    from mst_tpu_torch.utils import checkpoint as ckpt
+
+    torch.cuda.empty_cache()
+    base = ROOT / "build" / "chip_smoke_opts"  # gitignored
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    data = ROOT / "build" / "chip_smoke_data"  # phase 48's folders
+    roots = {"LIDC": data / "lidc", "MRNet": data / "mrnet",
+             "DUKE": fixtures.DUKE_FIXTURE}
+    synth = dict(num_samples=OPT_SAMPLES,
+                 shape_cdhw=(1, DEPTH_SLICES, PX, PX))
+
+    def ds_args(name, cache, samples):
+        args = cli.parse_args(
+            ["--dataset", name, "--path_root", str(roots[name]),
+             "--batch_size", str(BATCH), "--num_train_samples", str(samples),
+             "--max_epochs", "1", "--seed", str(SEED)]
+            + (["--decode_cache", str(cache)] if cache else []))
+        if not cache:
+            args.decode_cache = False  # and not $MST_DECODE_CACHE
+        return args
+
+    def dm_of(name, cache, samples):
+        """The CLI's DataModule drawing `samples` a train epoch (the CLI
+        caps the draws at the split's size: 8 LIDC / MRNet and 3 DUKE
+        cases here; the reference's splits hold hundreds)."""
+        dm = cli.build_datamodule(ds_args(name, cache, samples), dev)
+        dm.num_train_samples = samples
+        return dm
+
+    # -- the decoded-volume disk cache -------------------------------------
+    smodel = cli.build_model(cli.parse_args(["--dataset", "Synthetic"]))
+    convert.params_from_flax(smodel, convert.random_flax_params(smodel, SEED))
+    step = make_train_step(TrainState(smodel, make_optimizer(
+        smodel.parameters(), 0.0)))  # lr 0: the same work every epoch
+    for name in roots:
+        t1 = time.perf_counter()
+        # the host's work for one batch of distinct cases: decode (or cache
+        # read) and crop
+        ds_plain = dm_of(name, None, BATCH).ds_train
+        chunk = list(range(min(BATCH, len(ds_plain))))
+
+        def host_ms(ds):
+            t2 = time.perf_counter()
+            ds.prefetch_decode(chunk)
+            _ = [ds[i] for i in chunk]
+            return (time.perf_counter() - t2) * 1e3
+
+        cold, flush, warm = [], [], []
+        for rep in range(3):
+            cache = base / f"cache_{name}_host{rep}"
+            cold.append(host_ms(dm_of(name, cache, BATCH).ds_train))
+            t2 = time.perf_counter()
+            Dataset3D.flush_cache_writes()
+            flush.append((time.perf_counter() - t2) * 1e3)
+            warm.append(host_ms(dm_of(name, cache, BATCH).ds_train))
+        plain_ms = statistics.median(host_ms(ds_plain) for _ in range(3))
+        cold_ms, flush_ms, warm_ms = (statistics.median(v)
+                                      for v in (cold, flush, warm))
+        n_files, n_bytes = cache_stats(cache)
+        print(f"{tag} decode cache {name}: host ms for one batch of "
+              f"{len(chunk)} distinct cases (prefetch_decode + crop; median "
+              f"of 3): uncached {plain_ms:.1f} ms; first read with the "
+              f"cache {cold_ms:.1f} ms (decode, the writes queued) + "
+              f"{flush_ms:.1f} ms until the write-behind thread is done; "
+              f"from the cache {warm_ms:.1f} ms; cache {n_files} files, "
+              f"{n_bytes / 1e6:.2f} MB")
+        check(n_files > 0, f"{name}: nothing cached")
+        # the loader alone and the train loop, a cold epoch then a warm one
+        rows = {}
+        t2 = time.perf_counter()
+        for what in ("loader", "loop"):
+            dm = dm_of(name, base / f"cache_{name}_{what}",
+                       CACHE_LOOP_SAMPLES)
+            for epoch in ("cold", "warm"):
+                if what == "loader":
+                    n, wall, _ = loop_seconds(dm, None, dev)
+                    busy = read_s = None
+                else:
+                    n, wall, busy, read_s = busy_loop(dm, step, dev)
+                Dataset3D.flush_cache_writes()
+                rows[(what, epoch)] = (n, wall, busy, read_s, *cache_stats(
+                    dm.ds_train._cache_dir))
+        for epoch in ("cold", "warm"):
+            n, wall, _, _, files, size = rows[("loader", epoch)]
+            ln, lwall, busy, read_s, _, _ = rows[("loop", epoch)]
+            print(f"{tag} time decode cache {name} B={BATCH}, {epoch} epoch "
+                  f"({n} volumes): loader alone {n / wall:.2f} vol/s; train "
+                  f"loop (CUDA-profiled) {ln / lwall:.2f} vol/s, device busy "
+                  f"{busy:.3f} of {lwall:.3f} s, idle "
+                  f"{max(0.0, 1 - busy / lwall) * 100:.1f}% (the trace read "
+                  f"in {read_s:.2f} s); cache after the epoch {files} files, "
+                  f"{size / 1e6:.2f} MB")
+        print(f"{tag} decode cache {name}: the four timed epochs took "
+              f"{time.perf_counter() - t2:.1f} s")
+        # the warm epoch's batches against an uncached run's, bit for bit
+        dms = {c: dm_of(name, c, OPT_SAMPLES)
+               for c in (None, base / f"cache_{name}_same")}
+        got = {}
+        hits = 0
+        for c, dm in dms.items():
+            got[c] = []
+            for epoch in (0, 1):
+                if c is not None and epoch == 1:
+                    Dataset3D.flush_cache_writes()
+                    dm.set_epoch(1)
+                    idx = dm._train_indices()
+                    ds = dm.ds_train
+                    hits = sum(all(ds._cached(p) for p in ds.nifti_paths(i))
+                               and all(ds._cached(p, d)
+                                       for p, d in ds.h5_items(i))
+                               for i in idx)
+                dm.set_epoch(epoch)
+                for b in dm.train_dataloader():
+                    got[c].append((epoch, b["uid"], b["target"].tolist(),
+                                   b["source"].cpu(),
+                                   b.get("src_key_padding_mask")))
+        same = len(got[None]) == len(got[base / f"cache_{name}_same"]) and all(
+            a[:3] == b[:3] and torch.equal(a[3], b[3])
+            and (a[4] is None) == (b[4] is None)
+            and (a[4] is None or torch.equal(a[4].cpu(), b[4].cpu()))
+            for a, b in zip(got[None], got[base / f"cache_{name}_same"]))
+        print(f"{tag} decode cache {name}: {len(got[None])} train batches "
+              f"(epochs 0 and 1, {OPT_SAMPLES} samples each) with the cache "
+              f"vs without, the augmented batches on the card bit for bit: "
+              f"{same}; epoch 1 read {hits} of {OPT_SAMPLES} samples from "
+              f"the cache ({time.perf_counter() - t1:.1f} s)")
+        check(same and len(got[None]) == 4,
+              f"{name}: cached batches differ from uncached ones")
+        check(hits > 0, f"{name}: the warm epoch read no cached sample")
+        del dms, got
+    del step
+
+    # -- DUKE: one epoch with the cache, then predict ----------------------
+    t1 = time.perf_counter()
+    dcache = base / "cache_DUKE_run"
+    dargs = ds_args("DUKE", dcache, OPT_SAMPLES)
+    ddm = dm_of("DUKE", dcache, OPT_SAMPLES)
+    dmodel = cli.build_model(dargs)
+    drun = base / "runs" / "DUKE"
+    fb.reset_launch_counts()
+    _, dres = cli.train(dargs, dmodel, ddm, cli.build_trainer(
+        dargs, ddm, run_dir=drun))
+    torch.cuda.synchronize()
+    dcounts = fb.launch_counts()
+    out = base / "predict_duke"
+    predict_cli.main(["--run_folder", str(drun), "--decode_cache",
+                      str(dcache), "--output_dir", str(out)])
+    with (out / "results.csv").open() as f:
+        drows = list(csv.DictReader(f))
+    n_test = len(get_dataset("DUKE", "test", path_root=roots["DUKE"]))
+    print(f"{tag} DUKE: train --decode_cache one epoch B={BATCH} on the "
+          f"fixture ({len(ddm.ds_train)} train / {len(ddm.ds_val)} val "
+          f"cases, {OPT_SAMPLES} draws): train loss "
+          f"{dres.history[0]['train_loss']:.6g}, cache "
+          f"{cache_stats(dcache)[0]} files; predict --run_folder "
+          f"--decode_cache: {len(drows)} rows (test split {n_test}), "
+          f"{time.perf_counter() - t1:.1f} s")
+    check(math.isfinite(dres.history[0]["train_loss"]), "DUKE train loss")
+    check(len(drows) == n_test and all(0.0 <= float(r["NN_pred"]) <= 1.0
+                                       for r in drows), f"DUKE rows {drows}")
+    check(all(dcounts[k] > 0 for k, v in per_step.items() if v),
+          f"DUKE train: launches {dcounts}")
+    del dmodel, ddm
+
+    # -- --resume: two epochs against one epoch and --resume ----------------
+    t1 = time.perf_counter()
+    prof = base / "profile"
+    common = ["--dataset", "Synthetic", "--batch_size", str(BATCH),
+              "--num_train_samples", str(OPT_SAMPLES), "--seed", str(SEED),
+              "--lr", "1e-4", "--lr_schedule", "warmup_cosine"]
+    fb.reset_launch_counts()
+    run_a, _ = cli.main(common + ["--max_epochs", "2", "--run_dir",
+                                  str(base / "a"), "--profile_dir",
+                                  str(prof)], **synth)
+    torch.cuda.synchronize()
+    rcounts = fb.launch_counts()
+    run_b, _ = cli.main(common + ["--max_epochs", "1", "--run_dir",
+                                  str(base / "b")], **synth)
+    run_c, res_c = cli.main(common + ["--max_epochs", "2", "--run_dir",
+                                      str(base / "c"), "--resume",
+                                      str(run_b)], **synth)
+    la, lc = last_state(run_a), last_state(run_c)
+    differ = sorted(k for k in la if not np.array_equal(la[k], lc.get(k)))
+    print(f"{tag} resume: 2 epochs in {run_a.name} vs 1 epoch + --resume "
+          f"in {run_c.name} (run folder {run_b.name} -> {run_c.name}): "
+          f"{len(la)} arrays of params, exp_avg, exp_avg_sq, step and the "
+          f"update count {int(lc['optimizer.npz:state_step'])}; differing: "
+          f"{differ[:6]}{'...' if len(differ) > 6 else ''} (must be none)")
+    check(run_c == run_b and not (base / "c").exists()
+          and res_c.epochs_run == 1, f"resume folder {run_c} != {run_b}")
+    check(la.keys() == lc.keys(), "resume: different arrays")
+    if differ:
+        run_a2, _ = cli.main(common + ["--max_epochs", "2", "--run_dir",
+                                       str(base / "a2")], **synth)
+        la2 = last_state(run_a2)
+        spread = {k: float(np.abs(la[k].astype(np.float64)
+                                  - la2[k]).max()) for k in la}
+        gap = {k: float(np.abs(la[k].astype(np.float64) - lc[k]).max())
+               for k in la}
+        moved = sorted((v, k) for k, v in spread.items() if v)[-6:]
+        print(f"{tag} resume: two uninterrupted runs differ in "
+              f"{sum(v > 0 for v in spread.values())} arrays (the largest: "
+              f"{moved}); resumed vs uninterrupted at most that spread: "
+              f"{all(gap[k] <= spread[k] for k in la)}")
+        check(all(gap[k] <= spread[k] for k in la),
+              "resume: the resumed run leaves the two runs' spread")
+    check(all(rcounts[k] > 0 for k, v in per_step.items() if v),
+          f"resume run: launches {rcounts}")
+    traces = sorted(prof.glob("trace_*.json"))
+    kernels = set()
+    if traces:
+        events = json.loads(traces[0].read_text())["traceEvents"]
+        kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    print(f"{tag} --profile_dir: {[q.name for q in traces]} "
+          f"({sum(q.stat().st_size for q in traces) / 1e6:.2f} MB), "
+          f"{len(kernels)} distinct CUDA kernels, among them "
+          f"{sorted(k for k in kernels if 'mst' in k or 'gemm' in k)[:4]}")
+    check(len(traces) == 1 and any("gemm" in k for k in kernels),
+          "profiler trace of epoch 1")
+    print(f"{tag} resume and profiler: {time.perf_counter() - t1:.1f} s")
+
+    # -- LR schedules: the rate of every step, read back -------------------
+    t1 = time.perf_counter()
+    batch = next(iter(cli.build_datamodule(cli.parse_args(
+        ["--dataset", "Synthetic", "--batch_size", str(BATCH)]), dev,
+        **synth).train_dataloader()))
+    src = batch["source"]
+    tgt = torch.from_numpy(batch["target"]).to(dev, torch.long)
+    for name in ("cosine", "warmup_cosine"):
+        state = TrainState(smodel, make_optimizer(
+            smodel.parameters(), SCHED_LR, schedule=name,
+            total_steps=SCHED_STEPS, warmup_steps=SCHED_WARMUP))
+        sstep = make_train_step(state)
+        lrs, frozen = [], None
+        for i in range(SCHED_STEPS + 1):
+            before = smodel.head.kernel.detach().clone()
+            sstep(src, tgt)
+            lrs.append(state.optimizer.param_groups[0]["lr"])
+            if i == 0:
+                frozen = torch.equal(before, smodel.head.kernel.detach())
+        want = [optax_lr(name, SCHED_LR, SCHED_STEPS, SCHED_WARMUP, i)
+                for i in range(SCHED_STEPS + 1)]
+        err = max(abs(a - b) / SCHED_LR for a, b in zip(lrs, want))
+        print(f"{tag} --lr_schedule {name} (lr {SCHED_LR}, {SCHED_STEPS} "
+              f"steps, warmup {SCHED_WARMUP}): the rate of each of "
+              f"{len(lrs)} steps {[f'{v:.6g}' for v in lrs]} vs optax's "
+              f"formula: max |diff| / lr {err:.3g} (limit 1e-12); the first "
+              f"step left the head as it was: {frozen} (lr 0: "
+              f"{name == 'warmup_cosine'})")
+        check(err <= 1e-12, f"{name} rates {lrs} != {want}")
+        check(frozen == (name == "warmup_cosine"), f"{name}: step 0 lr 0")
+    print(f"{tag} schedules: {time.perf_counter() - t1:.1f} s")
+    del smodel, state, sstep
+
+    # -- --pretrained_path: hub DINOv2 and HF DINOv3 encoders ---------------
+    for label, model_name, sd, fwd in (
+            ("hub DINOv2 ViT-S/14", "DinoV2ClassifierSlice",
+             seeded_hub_sd(SEED), {"ln_gemm", "mhsa", "gemm_residual"}),
+            ("HF DINOv3 ViT-S/16", MODEL3, seeded_hf_v3_sd(SEED),
+             {k for k, v in per_fwd3.items() if v})):
+        t1 = time.perf_counter()
+        pth = base / f"{model_name}.pth"
+        torch.save(sd, pth)
+        pargs = cli.parse_args(["--dataset", "Synthetic", "--model",
+                                model_name, "--batch_size", str(BATCH),
+                                "--num_train_samples", str(OPT_SAMPLES),
+                                "--max_epochs", "1", "--seed", str(SEED),
+                                "--lr", "1e-4", "--freeze",
+                                "--pretrained_path", str(pth)])
+        pre = cli.pretrained_state_dict(pargs)
+        pmodel = cli.build_model(pargs, pre)
+        pdm = cli.build_datamodule(pargs, dev, **synth)
+        prun = base / "runs" / model_name
+        fb.reset_launch_counts()
+        _, pres = cli.train(pargs, pmodel, pdm, cli.build_trainer(
+            pargs, pdm, run_dir=prun), pre)
+        torch.cuda.synchronize()
+        pcounts = fb.launch_counts()
+        conv = convert.convert_any_dinov2(
+            {k: v.numpy() for k, v in sd.items()}, 12,
+            num_heads=pmodel.encoder.num_heads)
+        best = ckpt.load_best_params(prun)
+        live = convert.flax_params_from_torch(pmodel)
+        enc_diff = [k for k, v in conv.items()
+                    if not (np.array_equal(best[f"encoder/{k}"], v)
+                            and np.array_equal(live[f"encoder/{k}"], v))]
+        hp = ckpt.load_hparams(prun)
+        served = serve_model(serve_args(["--run_folder", str(prun)]))
+        vbatch = next(iter(pdm.val_dataloader()))
+        p_served, _ = make_predict_fn(served, with_saliency=False)(
+            vbatch["source"], None)
+        p_eval = torch.softmax(make_eval_step(pmodel)(
+            vbatch["source"]).float(), -1)
+        d_ck = (p_served - p_eval).abs().max().item()
+        print(f"{tag} --pretrained_path {label} --freeze: one epoch, train "
+              f"loss {pres.history[0]['train_loss']:.6g}; encoder arrays "
+              f"not equal to the converted state dict (best checkpoint and "
+              f"live model): {enc_diff[:4]} of {len(conv)} (must be none); "
+              f"hparams patch {hp['patch_size']}, grid {hp['pos_embed_grid']}"
+              f", registers {hp['num_register_tokens']}, pos-embed "
+              f"{hp['use_pos_embed']}, RoPE {hp['use_rope_2d']}; `serve "
+              f"--run_folder` probs vs the eval step's: max |diff| "
+              f"{d_ck:.6g} (must be 0); launches {pcounts} "
+              f"({time.perf_counter() - t1:.1f} s)")
+        check(not enc_diff and math.isfinite(pres.history[0]["train_loss"]),
+              f"{label}: encoder {enc_diff[:4]}")
+        check(d_ck == 0.0, f"{label}: served probs differ by {d_ck}")
+        check(all(pcounts[k] > 0 for k in fwd)
+              and pcounts["gemm_wgrad"] == 0 and pcounts["mhsa_bwd"] == 0,
+              f"{label}: launches {pcounts}")
+        if model_name == MODEL3:
+            check(hp["patch_size"] == 16 and hp["num_register_tokens"] == 4
+                  and hp["use_pos_embed"] is False and hp["use_rope_2d"],
+                  f"{label} hparams {hp}")
+        else:
+            check(hp["pos_embed_grid"] == 37 and hp["patch_size"] == 14,
+                  f"{label} hparams {hp}")
+        del pmodel, served, pre, sd
+    shutil.rmtree(base, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"{tag} phase 49: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not (ROOT / "mst_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke.py must run from a checkout of the "
@@ -6017,6 +6533,7 @@ def main() -> int:
     stamp(tag, "9")
     tdm.set_epoch(0)
     state, result = cli.train(targs, tmodel, tdm, trainer)
+    print_last_saves(tag, "trainer (ViT-S/14)", trainer.state_writer.records)
     hist = [json.loads(line) for line in
             (run_dir / "history.jsonl").read_text().splitlines()]
     best_npz = best_params_path(run_dir)
@@ -6981,6 +7498,9 @@ def main() -> int:
     finally:
         trainer_mod.random_flax_params = saved_draw
         trainer_mod.save_checkpoint = saved_save
+    print_last_saves(tag, "giant2 trainer (--freeze)",
+                     gtrainer.state_writer.records)
+    shutil.rmtree(rung / "last", ignore_errors=True)  # disk: 4.6 GB
     npz_g = best_params_path(rung)
     hpg = json.loads((rung / f"epoch={resultg.best_epoch}.hparams.json"
                       ).read_text())
@@ -7419,6 +7939,9 @@ def main() -> int:
         t_fit = time.perf_counter() - t1
     finally:
         trainer_mod.random_flax_params = saved_draw
+    print_last_saves(tag, "unfrozen giant2 trainer (--remat)",
+                     gtrainer_u.state_writer.records)
+    shutil.rmtree(rung_u / "last", ignore_errors=True)  # disk: 13.8 GB
     del flatg, phase22_draw_u  # 4.3 GiB of host memory
     hpu = json.loads((rung_u / f"epoch={result_u.best_epoch}.hparams.json"
                       ).read_text())
@@ -8221,6 +8744,12 @@ def main() -> int:
     # augmentation, padding masks into the train step)
     # ======================================================================
     data_phase(tag, dev, fb, per_step)
+
+    # ======================================================================
+    # Phase 49: the train CLI's remaining single-card options (the decode
+    # cache, --resume, LR schedules, --pretrained_path, --profile_dir)
+    # ======================================================================
+    train_options_phase(tag, dev, fb, per_step, per_fwd3)
 
     # TPU kernels: _attn_any_kernel at fused_block.py:326, _mlp_kernel at
     # :400, their train forwards _attn_train_kernel :424 and

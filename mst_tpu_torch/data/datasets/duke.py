@@ -37,8 +37,9 @@ class DUKE_Dataset3D(Dataset3D):
         random_center: bool = False,
         noise: bool = False,
         seed: int = 0,
+        decode_cache=None,
     ):
-        super().__init__(path_root, split)
+        super().__init__(path_root, split, decode_cache=decode_cache)
         self.path_h5 = self.path_root / "data_compressed.h5"
         df = self.load_split(self.path_root / "splits" / "split.csv",
                              fold=fold, split=split, fraction=fraction)

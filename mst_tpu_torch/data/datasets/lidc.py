@@ -37,8 +37,9 @@ class LIDC_Dataset3D(Dataset3D):
         random_center: bool = False,
         noise: bool = False,
         seed: int = 0,
+        decode_cache=None,
     ):
-        super().__init__(path_root, split)
+        super().__init__(path_root, split, decode_cache=decode_cache)
         self.path_root_data = self.path_root / "preprocessed_crop" / "data"
         self.df = self.load_split(
             self.path_root / "preprocessed" / "splits" / "split.csv",

@@ -38,8 +38,9 @@ class MRNet_Dataset3D(Dataset3D):
         noise: bool = False,
         label: Optional[str] = None,
         seed: int = 0,
+        decode_cache=None,
     ):
-        super().__init__(path_root, split)
+        super().__init__(path_root, split, decode_cache=decode_cache)
         if label is not None:
             self.LABEL = label
         df = self.load_split(

@@ -1,12 +1,13 @@
 """Predict CLI of the port, the counterpart of `scripts/main_predict.py`:
 
     python -m mst_tpu_torch.predict --run_folder RUN [--path_root DIR] \
-        [--output_dir DIR] \
+        [--decode_cache DIR] [--output_dir DIR] \
         [--use_tta] [--use_rollout [--rollout_abnar]] [--save_saliency] \
         [--batch_size 1] [--dtype bfloat16] [--int8 [--int8_calib N]]
 
 It scores the test split of the run's dataset (LIDC, DUKE and MRNet from
-the run's `path_root` and `fold`, or `--path_root`) with the run's best
+the run's `path_root` and `fold`, or `--path_root`; `--decode_cache` as
+the train CLI's) with the run's best
 checkpoint (`serve.load_run_model`) on the CUDA card and writes, under
 `--output_dir` (default `<RUN>/results`):
 
@@ -78,6 +79,9 @@ def parse_args(argv=None):
     ap.add_argument("--run_folder", required=True)
     ap.add_argument("--path_root", default=None,
                     help="the dataset's folder (default: the run's)")
+    ap.add_argument("--decode_cache", default=None, metavar="DIR",
+                    help="decoded-volume disk cache shared with the train "
+                         "CLI (see its --help); also via $MST_DECODE_CACHE")
     ap.add_argument("--output_dir", default=None)
     ap.add_argument("--use_tta", action="store_true",
                     help="average the 8 flips of each case (one batch)")
@@ -161,7 +165,7 @@ def build_datamodule(args, device, **dataset_kw) -> DataModule:
             raise SystemExit(f"the run's dataset {name} reads its files from "
                              f"a folder: give --path_root DIR")
         dataset_kw = dict(path_root=root, fold=hparams.get("fold", 0),
-                          **dataset_kw)
+                          decode_cache=args.decode_cache, **dataset_kw)
     ds = get_dataset(name, split="test", **dataset_kw)
     batch_size = 1 if args.save_saliency else max(1, args.batch_size)
     return DataModule(ds_test=ds, batch_size=batch_size, device=device)

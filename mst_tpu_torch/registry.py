@@ -62,13 +62,14 @@ def get_model(name: str, dtype=torch.float32, **overrides) -> torch.nn.Module:
 
 def get_dataset(name: str, split, path_root=None, **kw):
     """The dataset `name` on `split`, as the JAX registry builds it: LIDC,
-    DUKE and MRNet read the folder `path_root`; `Synthetic` is in memory
-    (seed 0/1/2 for train/val/test) and ignores `path_root` and the
-    options it has no use for (random_center, random_rotate, fold)."""
+    DUKE and MRNet read the folder `path_root` (`decode_cache`: the
+    decoded-volume disk cache); `Synthetic` is in memory (seed 0/1/2 for
+    train/val/test) and ignores `path_root` and the options it has no use
+    for (random_center, random_rotate, fold, decode_cache)."""
     if name == "Synthetic":
         from mst_tpu_torch.data.datasets.synthetic import Synthetic_Dataset3D
 
-        for key in ("random_center", "random_rotate", "fold"):
+        for key in ("random_center", "random_rotate", "fold", "decode_cache"):
             kw.pop(key, None)
         seed = {"train": 0, "val": 1, "test": 2}.get(split, 3)
         return Synthetic_Dataset3D(seed=seed, **kw)

@@ -15,6 +15,8 @@
 And one measurement of the shipped path with no JAX tool behind it:
 `loss_drift` (the frozen giant2 loss on the kernels against the plain
 path, batch by batch; run as a file, `--root` reads another checkout).
+`warm_decode_cache` fills the decoded-volume disk cache of a dataset
+folder before training (host only, no card needed).
 
 Each module keeps the plain PyTorch version of its kernel functions (the
 CPU path, and what the card's results are held to) and a `main()` that runs

@@ -11,30 +11,36 @@ of the standard DinoSliceClassifier configuration):
   a frozen encoder on the serving sub-layers under `no_grad`) or, above
   `FUSED_MAX_TOKENS` tokens per slice, the composed path (the flash
   kernels and their backward; `remat` and `freeze` as well), CE in f32,
-  `loss.backward()`, and an AdamW update set up as
-  optax `adamw` (b1 0.9, b2 0.999, eps 1e-8, decoupled weight decay on
-  every parameter it holds, constant learning rate; with a frozen encoder
-  over the slice fusion and head only);
+  `loss.backward()`, and an AdamW update set up as `make_optimizer`
+  (:54-121): optax `adamw` (b1 0.9, b2 0.999, eps 1e-8, decoupled weight
+  decay on every parameter it holds; with a frozen encoder over the slice
+  fusion and head only), a constant learning rate or optax's `cosine` /
+  `warmup_cosine` schedule at the update count, and optionally optax's
+  `clip_by_global_norm` before it;
 - the eval step runs the serving forward under `torch.inference_mode()`,
   routed the same way (:365-385);
-- `Trainer.fit` runs sanity val steps, the epoch loop (each batch's
+- `Trainer.fit` (:419-452, 465-686) runs sanity val steps (a fresh run
+  only), the epoch loop from `start_epoch` (each batch's
   `src_key_padding_mask`, where its dataset pads slices, into the train
   and eval steps; per-step results drained to the host every 64 steps, so
-  no step waits for the card),
+  no step waits for the card; a `torch.profiler` trace of epoch index 1
+  with `profile_dir`),
   midrank AUC on the validation split, `history.jsonl` with the JAX keys
   (including `perf/*` from `utils.profiling.StepTimer`), the top-1
-  `epoch=N/` checkpoint with `best_checkpoint.json`, and early stopping
-  with patience and `min_epochs`.
+  `epoch=N/` checkpoint with `best_checkpoint.json`, the full train state
+  `last/` after every epoch (`utils.checkpoint.TrainStateWriter`, written
+  on a background thread that `fit` joins before it returns), and early
+  stopping with patience and `min_epochs`, whose counters a resumed run
+  takes from `last.meta.json`.
 
-LR schedules, grad clipping, Adafactor, gradient accumulation and the
-resumable `last` state are later ROADMAP items (queue A #4's remainder,
-#12).
+Adafactor and gradient accumulation are ROADMAP queue A #12.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import math
 import shutil
 import time
 from dataclasses import dataclass
@@ -47,9 +53,13 @@ import torch.nn.functional as F
 
 from mst_tpu_torch.models.convert import params_from_flax, random_flax_params
 from mst_tpu_torch.models.vit_fast import mst_logits
-from mst_tpu_torch.utils.checkpoint import save_best_checkpoint, save_checkpoint
+from mst_tpu_torch.utils.checkpoint import (
+    TrainStateWriter,
+    save_best_checkpoint,
+    save_checkpoint,
+)
 from mst_tpu_torch.utils.metrics import ClassificationMetrics
-from mst_tpu_torch.utils.profiling import StepTimer
+from mst_tpu_torch.utils.profiling import StepTimer, trace
 
 log = logging.getLogger(__name__)
 
@@ -58,19 +68,99 @@ SANITY_VAL_STEPS = 2  # Lightning's num_sanity_val_steps (reference default)
 DRAIN_EVERY = 64  # steps whose results wait on the card before a host read
 
 
+def lr_schedule(schedule: Optional[str], learning_rate: float,
+                total_steps: int = 100_000, warmup_steps: int = 500):
+    """-> count -> learning rate, or None for a constant rate. optax's
+    `cosine_decay_schedule(lr, total_steps)` (alpha 0, exponent 1) and
+    `warmup_cosine_decay_schedule(0, lr, warmup_steps, total_steps)` (a
+    linear ramp from 0, then the cosine over the remaining steps), in
+    double precision."""
+    def cosine(peak, steps):
+        def at(count):
+            c = min(float(count), float(steps))
+            return peak * (0.5 * (1 + math.cos(math.pi * c / steps)))
+        return at
+
+    if schedule is None:
+        return None
+    if schedule == "cosine":
+        return cosine(learning_rate, total_steps)
+    if schedule == "warmup_cosine":
+        decay = cosine(learning_rate, total_steps - warmup_steps)
+
+        def at(count):
+            if count < warmup_steps:
+                frac = 1 - min(max(count, 0), warmup_steps) / warmup_steps
+                return (0.0 - learning_rate) * frac + learning_rate
+            return decay(count - warmup_steps)
+        return at
+    raise ValueError(f"unknown schedule {schedule!r}")
+
+
+def clip_by_global_norm(params, max_norm: float) -> None:
+    """optax `clip_by_global_norm` on the grads of `params`, in place: the
+    norm over every grad, and where it is at least `max_norm` each grad
+    becomes (g / norm) * max_norm, as optax computes it (no epsilon, unlike
+    `torch.nn.utils.clip_grad_norm_`). The norm and the scaling run in f64
+    and round once to the grad's dtype (optax's f32 sum of squares lands an
+    ulp either side of the exact norm, by its summation order). On the
+    device, with no host synchronisation."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    norm = torch.sqrt(sum(g.double().square().sum() for g in grads))
+    trigger = norm >= max_norm
+    for g in grads:
+        g.copy_(torch.where(trigger, g.double() / norm * max_norm, g))
+
+
+class ScheduledAdamW(torch.optim.AdamW):
+    """AdamW with the optax extras of `make_optimizer`: `update(count)`
+    clips the grads (`grad_clip`), sets every group's learning rate to the
+    schedule at `count` (so the decoupled decay follows it, as optax's
+    `adamw` scales its decay by the schedule) and steps."""
+
+    def __init__(self, params, learning_rate: float, weight_decay: float,
+                 grad_clip: Optional[float] = None, schedule=None):
+        super().__init__(params, lr=learning_rate, betas=(0.9, 0.999),
+                         eps=1e-8, weight_decay=weight_decay)
+        self.grad_clip = grad_clip
+        self.schedule = schedule
+
+    def update(self, count: int) -> None:
+        if self.grad_clip:
+            clip_by_global_norm(
+                [p for g in self.param_groups for p in g["params"]],
+                self.grad_clip)
+        if self.schedule is not None:
+            lr = self.schedule(count)
+            for group in self.param_groups:
+                group["lr"] = lr
+        self.step()
+
+
 def make_optimizer(params, learning_rate: float = 1e-6,
-                   weight_decay: float = 1e-2) -> torch.optim.AdamW:
+                   weight_decay: float = 1e-2,
+                   grad_clip: Optional[float] = None,
+                   schedule: Optional[str] = None,
+                   total_steps: int = 100_000,
+                   warmup_steps: int = 500) -> ScheduledAdamW:
     """optax `adamw(learning_rate, weight_decay=weight_decay)`: one group,
     so the decay reaches every parameter (optax masks no leaf: biases, LN,
     LayerScale and the tokens decay too). PyTorch's default implementation;
     the update is the same algebra: p -= lr * (m^ / (sqrt(v^) + eps) + wd * p).
+    `schedule` None (constant), "cosine" or "warmup_cosine" (`lr_schedule`),
+    evaluated at the update count before each step; `grad_clip` chains
+    `clip_by_global_norm` before the update.
 
     It holds the parameters that require grad: a frozen model's encoder
     (`DinoSliceClassifier(freeze=True)`) does not, so it is neither stepped
-    nor decayed, as under the JAX `make_optimizer(freeze_encoder=True)`."""
-    return torch.optim.AdamW([p for p in params if p.requires_grad],
-                             lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=weight_decay)
+    nor decayed nor counted in the clipping norm, as under the JAX
+    `make_optimizer(freeze_encoder=True)`."""
+    return ScheduledAdamW([p for p in params if p.requires_grad],
+                          learning_rate, weight_decay, grad_clip,
+                          lr_schedule(schedule, learning_rate, total_steps,
+                                      warmup_steps))
 
 
 def cross_entropy_loss(logits, targets):
@@ -98,7 +188,7 @@ def make_train_step(state: TrainState):
         logits = mst_logits(model, source, mask, train=True)
         loss = cross_entropy_loss(logits, target)
         loss.backward()
-        optimizer.step()
+        optimizer.update(state.step)
         state.step += 1
         return loss.detach(), logits.detach()
 
@@ -128,30 +218,46 @@ class Trainer:
     policy."""
 
     def __init__(self, run_dir, max_epochs: int = 1000, min_epochs: int = 1,
-                 patience: int = 10, limit_val_batches: Optional[int] = None):
+                 patience: int = 10, limit_val_batches: Optional[int] = None,
+                 keep_last: bool = True, profile_dir=None,
+                 num_sanity_val_steps: int = SANITY_VAL_STEPS):
         self.run_dir = Path(run_dir)
         self.run_dir.mkdir(parents=True, exist_ok=True)
         self.max_epochs = max_epochs
         self.min_epochs = min_epochs
         self.patience = patience
         self.limit_val_batches = limit_val_batches
+        self.keep_last = keep_last
+        self.profile_dir = profile_dir
+        self.num_sanity_val_steps = num_sanity_val_steps
+        self.state_writer = TrainStateWriter()  # `last`, after every epoch
 
     def init_state(self, model, learning_rate: float = 1e-6,
-                   weight_decay: float = 1e-2, seed: int = 0) -> TrainState:
-        """Seeded random weights in the flax layout (pretrained weights are
-        not in the repository), and AdamW over them (over the slice fusion
-        and head for a frozen model)."""
+                   weight_decay: float = 1e-2, seed: int = 0,
+                   **optimizer_kw) -> TrainState:
+        """Seeded random weights in the flax layout, and AdamW over them
+        (over the slice fusion and head for a frozen model);
+        `optimizer_kw` go to `make_optimizer` (grad_clip, schedule,
+        total_steps, warmup_steps)."""
         params_from_flax(model, random_flax_params(model, seed))
         return TrainState(model, make_optimizer(
-            model.parameters(), learning_rate, weight_decay))
+            model.parameters(), learning_rate, weight_decay, **optimizer_kw))
 
-    def fit(self, state: TrainState, dm,
-            hparams: Optional[Dict] = None) -> tuple:
+    def fit(self, state: TrainState, dm, hparams: Optional[Dict] = None,
+            start_epoch: int = 0, resume_meta: Optional[Dict] = None) -> tuple:
+        """Epochs `start_epoch` .. max_epochs - 1; a resumed run passes the
+        restored state, the next epoch and `last.meta.json`'s counters."""
         model = state.model
         device = next(model.parameters()).device
         train_step = make_train_step(state)
         eval_step = make_eval_step(model)
         best, best_epoch, stale = -np.inf, -1, 0
+        if resume_meta:  # continue the early-stop bookkeeping exactly
+            best = float(resume_meta.get("best", best))
+            best_epoch = int(resume_meta.get("best_epoch", best_epoch))
+            stale = int(resume_meta.get("stale", stale))
+        if start_epoch:
+            dm.set_epoch(start_epoch)  # the sampling continues where it was
         history = []
 
         def target_of(batch):
@@ -164,13 +270,14 @@ class Trainer:
 
         # Lightning's sanity check (reference `num_sanity_val_steps=2`): an
         # eval-path fault fails in seconds, not after the first epoch.
-        for bi, batch in enumerate(dm.val_dataloader()):
-            if bi >= SANITY_VAL_STEPS:
-                break
-            eval_step(batch["source"], batch.get("src_key_padding_mask"))
+        if self.num_sanity_val_steps and start_epoch == 0:
+            for bi, batch in enumerate(dm.val_dataloader()):
+                if bi >= self.num_sanity_val_steps:
+                    break
+                eval_step(batch["source"], batch.get("src_key_padding_mask"))
 
         timer = StepTimer()
-        for epoch in range(self.max_epochs):
+        for epoch in range(start_epoch, self.max_epochs):
             t0 = time.time()
             train_metrics = ClassificationMetrics()
             n_steps, loss_sum = 0, 0.0
@@ -189,16 +296,17 @@ class Trainer:
                                      np.concatenate([p[2] for p in pending]))
                 pending.clear()
 
-            for batch in dm.train_dataloader():
-                with timer.step():
-                    loss, logits = train_step(
-                        batch["source"], target_of(batch),
-                        batch.get("src_key_padding_mask"))
-                pending.append((loss, logits, batch["target"]))
-                n_steps += 1
-                if len(pending) >= DRAIN_EVERY:
-                    drain()
-            drain()
+            with trace(self.profile_dir if epoch == 1 else None):
+                for batch in dm.train_dataloader():
+                    with timer.step():
+                        loss, logits = train_step(
+                            batch["source"], target_of(batch),
+                            batch.get("src_key_padding_mask"))
+                    pending.append((loss, logits, batch["target"]))
+                    n_steps += 1
+                    if len(pending) >= DRAIN_EVERY:
+                        drain()
+                drain()
 
             val_metrics = ClassificationMetrics()
             val_valid = dm.eval_valid_mask(len(dm.ds_val))
@@ -246,9 +354,19 @@ class Trainer:
                         missing_ok=True)
             else:
                 stale += 1
+            if self.keep_last:
+                # the full train state and the loop's counters, so that
+                # --resume continues this run, not a warm start; the write
+                # overlaps the next epoch
+                self.state_writer.save(
+                    self.run_dir, "last", state,
+                    meta={"epoch": epoch, "best": float(best),
+                          "best_epoch": best_epoch, "stale": stale},
+                    hparams=hparams)
             if epoch + 1 >= self.min_epochs and stale >= self.patience:
                 log.info("early stopping at epoch %d (best %.4f @ %d)",
                          epoch, best, best_epoch)
                 break
+        self.state_writer.wait()  # `last` is on disk before fit returns
         return state, FitResult(float(best), best_epoch, len(history),
                                 history)

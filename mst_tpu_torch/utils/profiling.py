@@ -5,12 +5,19 @@ time per step, the first `warmup` steps skipped. The train step does not
 synchronise the card, so a step's time is the time to enqueue it: it reads
 the device's pace only once the launch queue is full (as the JAX timer reads
 its asynchronous dispatch).
+
+`trace(log_dir)` is the counterpart of its `trace` (`--profile_dir` of the
+train CLI): a `torch.profiler` session with CPU and, where a CUDA device
+is present, CUDA activity, written into `log_dir` as a Chrome trace
+(`trace_<pid>_<ns>.json`); nothing when `log_dir` is empty.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
+from pathlib import Path
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -47,3 +54,24 @@ class StepTimer:
             "mean_ms": float(t.mean() * 1e3),
             "items_per_sec": float(items_per_step / p50),
         }
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str]):
+    """torch.profiler trace into `log_dir` when it is given; no-op
+    otherwise."""
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    out = Path(log_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(
+        str(out / f"trace_{os.getpid()}_{time.time_ns()}.json"))

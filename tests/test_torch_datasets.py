@@ -440,3 +440,40 @@ def test_train_and_predict_clis_on_dataset_folders(name, tmp_path,
     want = np.asarray(sample["spacing_dhw"], np.float32)[::-1]
     np.testing.assert_array_equal(np.diag(aff)[:3].astype(np.float32), want)
     np.testing.assert_array_equal(aff, aff_in)
+
+
+def test_train_and_predict_clis_on_the_duke_fixture(tmp_path, monkeypatch):
+    """`train --dataset DUKE --path_root tests/fixtures/duke --decode_cache
+    DIR` through `cli.build_datamodule` / `build_trainer` on the tiny model
+    for one epoch, then `predict --run_folder --decode_cache DIR`: the
+    train split's HDF5 datasets land in the cache, a finite loss, and one
+    row per test case."""
+    from mst_tpu_torch import predict
+    from mst_tpu_torch.data.datasets.base import Dataset3D
+    from mst_tpu_torch.registry import get_model
+    from mst_tpu_torch.train import cli
+
+    monkeypatch.delenv("MST_DECODE_CACHE", raising=False)
+    cache = tmp_path / "cache"
+    args = cli.parse_args(["--dataset", "DUKE", "--path_root",
+                           str(fixtures.DUKE_FIXTURE), "--decode_cache",
+                           str(cache), "--dtype", "float32", "--max_epochs",
+                           "1",
+                           "--batch_size", "2", "--num_train_samples", "2",
+                           "--lr", "1e-3"])
+    model = get_model(args.model, **TINY, **cli.model_kwargs(args))
+    dm = cli.build_datamodule(args, "cpu")
+    assert dm.ds_train._cache_dir == cache and dm.ds_val._cache_dir == cache
+    trainer = cli.build_trainer(args, dm, run_dir=tmp_path / "run")
+    _, result = cli.train(args, model, dm, trainer)
+    assert result.epochs_run == 1
+    assert np.isfinite(result.history[0]["train_loss"])
+    Dataset3D.flush_cache_writes()
+    assert len(list(cache.glob("*.npy"))) >= 2  # a volume and its affine
+    out = predict.main(["--run_folder", str(tmp_path / "run"), "--dtype",
+                        "float32", "--decode_cache", str(cache)],
+                       device="cpu")
+    with open(out / "results.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    assert len(rows) == len(get_dataset("DUKE", "test",
+                                        path_root=fixtures.DUKE_FIXTURE))

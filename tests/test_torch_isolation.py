@@ -1,5 +1,7 @@
-"""The port stands alone: it imports no JAX stack (serving, training and
-the data path) and none of pandas, h5py and nibabel, ships its CUDA
+"""The port stands alone: it imports no JAX stack (serving, training, the
+data path, the `last` train state, the profiler trace, the pretrained
+converters and the decode-cache tool) and none of pandas, h5py and
+nibabel, ships its CUDA
 sources, keeps its build output out of git, and refuses what it does not
 port."""
 
@@ -78,6 +80,33 @@ from mst_tpu_torch.data.datasets.duke import DUKE_Dataset3D
 from mst_tpu_torch.data.fixtures import DUKE_FIXTURE
 sample = DUKE_Dataset3D(DUKE_FIXTURE, split="val")[0]
 assert sample["source"].shape == (1, 32, 224, 224)
+import tempfile
+from pathlib import Path
+from mst_tpu_torch.utils.checkpoint import restore_train_state, save_train_state
+from mst_tpu_torch.utils.profiling import trace
+from mst_tpu_torch.models.convert import (
+    convert_any_dinov2, convert_reference_mst, dinov3_config_from_sd,
+    load_pretrained_encoder, load_torch_state_dict)
+import mst_tpu_torch.tools.warm_decode_cache
+with tempfile.TemporaryDirectory() as d:
+    state = TrainState(model, make_optimizer(model.parameters(), 1e-3,
+                                             schedule="warmup_cosine"))
+    with trace(d):
+        make_train_step(state)(torch.from_numpy(vol.astype(np.float32)),
+                               torch.tensor([1]))
+    assert list(Path(d).glob("trace_*.json"))
+    save_train_state(d, "last", state, meta={"epoch": 0})
+    other = get_model("DinoV2ClassifierSlice", model_size="tiny",
+                      fusion_heads=4)
+    params_from_flax(other, random_flax_params(other, 1))
+    back, meta = restore_train_state(d, "last", TrainState(
+        other, make_optimizer(other.parameters(), 1e-3)))
+    assert meta == {"epoch": 0} and back.step == state.step == 1
+    assert all(torch.equal(a, b) for a, b in zip(model.parameters(),
+                                                 other.parameters()))
+    m0 = state.optimizer.state[model.head.kernel]["exp_avg_sq"]
+    assert torch.equal(back.optimizer.state[other.head.kernel]["exp_avg_sq"],
+                       m0)
 loaded = [m for m in sys.modules if m.split(".")[0] in
           ("jax", "jaxlib", "flax", "optax", "orbax", "mst_tpu", "pandas",
            "h5py", "nibabel") and sys.modules[m] is not None]

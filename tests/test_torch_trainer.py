@@ -310,12 +310,14 @@ def test_early_stopping_with_zero_lr(tmp_path):
 
 def test_top1_checkpoint_policy_deletes_superseded(tmp_path):
     """Only the current best epoch's checkpoint survives
-    (tests/test_trainer_unit.py:44)."""
+    (tests/test_trainer_unit.py:44); the full train state `last` stands
+    beside it."""
     _, result = _fit(tmp_path, lr=1e-2, max_epochs=3, patience=10)
     epoch_dirs = [p.name for p in tmp_path.glob("epoch=*") if p.is_dir()]
     assert epoch_dirs == [f"epoch={result.best_epoch}"]
     assert sorted(p.name for p in tmp_path.glob("*.hparams.json")) == \
-        [f"epoch={result.best_epoch}.hparams.json"]
+        [f"epoch={result.best_epoch}.hparams.json", "last.hparams.json"]
+    assert (tmp_path / "last" / "params.npz").exists()
 
 
 def test_train_cli_two_epochs_and_serve_the_best_checkpoint(tmp_path):
