@@ -446,6 +446,31 @@ hparams' inferred config, the serving kernels launched and no backward
 one, `serve --run_folder` giving the eval step's probs. Phases 9, 24 and
 29 print the seconds and bytes of their `last` train-state write.
 
+Phase 50 drives the CLIs' remaining single-card options (queue A #6, #12
+and #11's rest; no kernel of its own) at ViT-S width and B=8: `train
+--optimizer adafactor --accumulate_grad_batches 2` through the train
+CLI's builders on LIDC-shaped Synthetic data, one window on the kernel
+path and on the plain train sub-layers from the same weights (the
+parameters bit for bit after each first micro-batch, the losses and the
+window's mean grads within phase 8's limits, twice phase 8's launches, the
+Adafactor state factored where optax factors, its bytes beside AdamW's
+moments); `--resume` in the middle of an `--accumulate_grad_batches 3`
+window against two uninterrupted epochs, bit for bit; phase 28's unfrozen
+giant2 `--remat` model at B=8, one AdamW step and two Adafactor steps, each
+with its peak device memory and state bytes; `train --freeze --int8
+--int8_calib 8` for one epoch on phase 48's LIDC folder (the int8 kernels
+launched, no bf16 encoder kernel and no backward one, the encoder in the
+model and the best checkpoint equal to the seeded draw bit for bit, the
+step's logits equal to the int8 serving forward of the same quantized
+encoder, the int8 and bf16 frozen steps' rates and the int8 loop's vol/s
+and idle share on the files); `predict --get_segmentation --save_saliency
+--get_attention` on that run folder in the `last` (int8) and `rollout`
+modes (results_seg.csv's Dice and IoU finite, the ASSD finite where the
+mask has voxels, seg.nii.gz and the positives' PNGs read back, the ms a
+case of the saliency forward, the metrics and the NIfTI and PNG writes)
+and `--int8 --ensemble RUN RUN` (its results.csv within 1e-4 of the single
+run's).
+
 Each phase prints its wall time. The line before the last is `{"kernels":
 [...]}`: per kernel its launches on the main path, its largest error, its
 time and its plain version's, the bound (the least time the card could
@@ -5789,6 +5814,364 @@ def train_options_phase(tag, dev, fb, per_step, per_fwd3) -> None:
     print(f"{tag} phase 49: {time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 50: the CLIs' remaining single-card options (queue A #6, #12 and
+# #11's rest): Adafactor, gradient accumulation, frozen int8 training, and
+# the predict CLI's segmentation scores, PNGs and ensembles.
+ACC_STEPS = 2  # micro-batches a window in the kernel-vs-plain check
+ACC_RESUME = 3  # two micro-batches an epoch: epoch 0 ends mid-window
+ADAFACTOR_LR = 1e-4
+
+
+def state_bytes(opt) -> int:
+    """Bytes of an optimizer's per-parameter state tensors."""
+    return sum(v.numel() * v.element_size() for st in opt.state.values()
+               for v in st.values() if torch.is_tensor(v))
+
+
+def csv_rows(path: Path) -> list:
+    with path.open() as f:
+        return list(csv.DictReader(f))
+
+
+def cli_options_phase(tag, dev, fb, per_step, plain_train_sublayers,
+                      giant2) -> None:
+    """Phase 50 (see the module docstring); `per_step` is phase 8's launch
+    counts of one B=8 step, `plain_train_sublayers` phase 8's routing of
+    the train sub-layers to their plain versions, `giant2` phase 28's
+    (unfrozen giant2 `--remat` model, B=8 source, targets)."""
+    stamp(tag, "50")
+    t_phase = time.perf_counter()
+    from mst_tpu_torch import predict as predict_cli
+    from mst_tpu_torch.models import convert
+    from mst_tpu_torch.registry import model_entry
+    from mst_tpu_torch.train import cli
+    from mst_tpu_torch.train.trainer import (
+        TrainState,
+        factored_dims,
+        make_eval_step,
+        make_optimizer,
+        make_train_step,
+    )
+    from mst_tpu_torch.utils.checkpoint import load_best_params
+    from mst_tpu_torch.utils.functions import read_png
+    from mst_tpu_torch.utils.nifti import read_nifti
+
+    torch.cuda.empty_cache()
+    base = ROOT / "build" / "chip_smoke_cli_options"  # gitignored
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    synth = dict(num_samples=OPT_SAMPLES,
+                 shape_cdhw=(1, DEPTH_SLICES, PX, PX))
+    entry = model_entry("DinoV2ClassifierSlice")
+
+    # -- Adafactor with accumulation, through the train CLI's builders -----
+    t1 = time.perf_counter()
+    common = ["--dataset", "Synthetic", "--batch_size", str(BATCH),
+              "--num_train_samples", str(OPT_SAMPLES), "--seed", str(SEED),
+              "--lr", str(ADAFACTOR_LR), "--optimizer", "adafactor"]
+    args = cli.parse_args(common + ["--accumulate_grad_batches",
+                                    str(ACC_STEPS), "--max_epochs", "1"])
+    model = cli.build_model(args)
+    dm = cli.build_datamodule(args, dev, **synth)
+    cli.build_trainer(args, dm, run_dir=base / "window").init_state(
+        model, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    with torch.no_grad():  # O(1) LayerScale: every block counts
+        for name, prm in model.named_parameters():
+            if name.endswith(".gamma"):
+                prm.copy_(torch.from_numpy(1.0 + 0.1 * rng.standard_normal(
+                    tuple(prm.shape))).to(prm))
+    start = {n: q.detach().clone() for n, q in model.named_parameters()}
+    batches = [(b["source"], torch.from_numpy(b["target"]).to(dev,
+                                                              torch.long))
+               for b in dm.train_dataloader()][:ACC_STEPS]
+
+    def window(plain: bool):
+        """One window of ACC_STEPS micro-batches from `start` -> (losses,
+        the mean grads the update read, the params after, whether every
+        micro-batch but the last left the params bit for bit, launches,
+        the optimizer)."""
+        with torch.no_grad():
+            for n, q in model.named_parameters():
+                q.copy_(start[n])
+        opt = make_optimizer(model.parameters(), ADAFACTOR_LR,
+                             entry.weight_decay, optimizer=args.optimizer,
+                             accumulate_steps=args.accumulate_grad_batches)
+        step = make_train_step(TrainState(model, opt))
+        losses, kept = [], []
+        fb.reset_launch_counts()
+        with plain_train_sublayers() if plain else contextlib.nullcontext():
+            for i, (bs, bt) in enumerate(batches):
+                before = [q.detach().clone() for q in model.parameters()]
+                losses.append(float(step(bs, bt)[0]))
+                if i < ACC_STEPS - 1:
+                    kept.append(all(torch.equal(a, q.detach()) for a, q in
+                                    zip(before, model.parameters())))
+        torch.cuda.synchronize()
+        counts = fb.launch_counts()
+        grads = {n: q.grad.detach().clone()
+                 for n, q in model.named_parameters() if q.grad is not None}
+        after = {n: q.detach().clone() for n, q in model.named_parameters()}
+        return losses, grads, after, all(kept), counts, opt
+
+    loss_k, grads_k, after_k, kept_k, counts_k, opt_k = window(False)
+    loss_p, grads_p, after_p, kept_p, _, _ = window(True)
+    rel = {n: ((g - grads_p[n]).abs().max() / grads_p[n].abs().max().clamp_min(
+        1e-30)).item() for n, g in grads_k.items()}
+    worst = max(rel, key=rel.get)
+    moved = {n: (after_k[n] - start[n]).abs().max().item() for n in start}
+    upd = {n: ((after_k[n] - after_p[n]).abs().max() / (
+        after_p[n] - start[n]).abs().max().clamp_min(1e-30)).item()
+        for n in start if factored_dims(tuple(start[n].shape))}
+    held = opt_k.held()
+    fact = [factored_dims(tuple(q.shape)) is not None for q in held]
+    layout = all(set(opt_k.state[q]) == ({"v_row", "v_col"} if f else {"v"})
+                 for q, f in zip(held, fact))
+    ada_b = state_bytes(opt_k.inner)
+    adamw_b = 2 * sum(q.numel() * 4 for q in held)  # exp_avg, exp_avg_sq
+    print(f"{tag} --optimizer adafactor --accumulate_grad_batches "
+          f"{ACC_STEPS}, B={BATCH} {list(batches[0][0].shape)}: losses "
+          f"kernel path {loss_k}, plain path {loss_p} (limit "
+          f"{STEP_LOSS_TOL}); params after each first micro-batch bit for "
+          f"bit: kernel {kept_k}, plain {kept_p}; the window's mean grads "
+          f"kernel vs plain: worst {rel[worst]:.4g} ({worst}), median "
+          f"{statistics.median(rel.values()):.4g} (limit {STEP_GRAD_REL}); "
+          f"the update moved a parameter by up to "
+          f"{max(moved.values()):.4g}; factored leaves' update, kernel vs "
+          f"plain / the plain update: worst {max(upd.values()):.4g}, median "
+          f"{statistics.median(upd.values()):.4g}; launches {counts_k}")
+    print(f"{tag} Adafactor state: {sum(fact)} of {len(held)} leaves "
+          f"factored (v_row + v_col), the rest full (v), {ada_b / 2**20:.2f} "
+          f"MiB against AdamW's two moments {adamw_b / 2**20:.2f} MiB "
+          f"({ada_b / adamw_b * 100:.2f}%); update count "
+          f"{opt_k.count}, mini-step {opt_k.mini_step}")
+    check(kept_k and kept_p, "a first micro-batch moved the parameters")
+    check(max(moved.values()) > 0, "the window's update moved nothing")
+    check(all(abs(a - b) <= STEP_LOSS_TOL for a, b in zip(loss_k, loss_p)),
+          f"accumulation losses {loss_k} vs {loss_p}")
+    check(rel[worst] <= STEP_GRAD_REL, f"accumulated grads {worst}: "
+          f"{rel[worst]}")
+    check_launches(counts_k, {k: v * ACC_STEPS for k, v in per_step.items()},
+                   "adafactor window")
+    check(layout and sum(fact) > 0 and ada_b * 10 < adamw_b,
+          f"Adafactor state not factored: {ada_b} vs {adamw_b}")
+    check(opt_k.count == 1 and opt_k.mini_step == 0, "one update a window")
+    del batches, grads_k, grads_p, after_k, after_p, start, opt_k
+    print(f"{tag} adafactor window: {time.perf_counter() - t1:.1f} s")
+
+    # --resume in the middle of a window, against an uninterrupted run
+    t1 = time.perf_counter()
+    acc = ["--accumulate_grad_batches", str(ACC_RESUME)]
+    run_a, _ = cli.main(common + acc + ["--max_epochs", "2", "--run_dir",
+                                        str(base / "a")], **synth)
+    run_b, _ = cli.main(common + acc + ["--max_epochs", "1", "--run_dir",
+                                        str(base / "b")], **synth)
+    mid = last_state(run_b)
+    run_c, res_c = cli.main(common + acc + ["--max_epochs", "2", "--run_dir",
+                                            str(base / "c"), "--resume",
+                                            str(run_b)], **synth)
+    la, lc = last_state(run_a), last_state(run_c)
+    differ = sorted(k for k in la if not np.array_equal(la[k], lc.get(k)))
+    print(f"{tag} --resume mid-window (--accumulate_grad_batches "
+          f"{ACC_RESUME}, 2 micro-batches an epoch): epoch 0 ended at "
+          f"mini-step {int(mid['optimizer.npz:mini_step'])}, update count "
+          f"{int(mid['optimizer.npz:count'])}; 2 epochs vs 1 + --resume: "
+          f"{len(la)} arrays (params, v_row / v_col / v, acc_grads, counts); "
+          f"differing {differ[:6]} (must be none) "
+          f"({time.perf_counter() - t1:.1f} s)")
+    check(int(mid["optimizer.npz:mini_step"]) == 2 and run_c == run_b
+          and res_c.epochs_run == 1, "resume mid-window")
+    check(la.keys() == lc.keys() and not differ, f"resume differs {differ}")
+    del model, dm
+
+    # -- two Adafactor steps of unfrozen giant2 --remat, beside AdamW ------
+    t1 = time.perf_counter()
+    gmodel, gsrc, gtgt = giant2
+    n_par = sum(q.numel() for q in gmodel.parameters())
+    mem = {}
+    for name in ("adamw", "adafactor"):
+        gmodel.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held_g = torch.cuda.memory_allocated()
+        opt = make_optimizer(gmodel.parameters(), entry.learning_rate,
+                             entry.weight_decay, optimizer=name)
+        step = make_train_step(TrainState(gmodel, opt))
+        fb.reset_launch_counts()
+        losses, ms = [], []
+        for _ in range(2):  # the first step also allocates the state
+            t2 = time.perf_counter()
+            losses.append(float(step(gsrc, gtgt)[0]))
+            ms.append((time.perf_counter() - t2) * 1e3)
+        counts = fb.launch_counts()
+        mem[name] = torch.cuda.max_memory_allocated()
+        sb = state_bytes(opt)
+        print(f"{tag} unfrozen giant2 --remat B={BATCH} {list(gsrc.shape)}, "
+              f"two {name} steps: losses {losses}, wall ms {ms[0]:.1f} (the "
+              f"state allocated) and {ms[1]:.1f}; peak device memory "
+              f"{mem[name] / 2**30:.2f} GiB "
+              f"({held_g / 2**30:.2f} GiB held before); optimizer state "
+              f"{sb / 2**30:.3f} GiB for {n_par / 1e9:.3f} G parameters; "
+              f"gemm_wgrad launches {counts['gemm_wgrad']}")
+        check(all(map(math.isfinite, losses)) and counts["gemm_wgrad"] > 0,
+              f"giant2 {name} steps {losses}")
+        if name == "adafactor":
+            check(sb * 10 < n_par * 4, f"giant2 Adafactor state {sb}")
+        del opt, step
+    gmodel.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    print(f"{tag} giant2 peak memory, Adafactor / AdamW: "
+          f"{mem['adafactor'] / 2**30:.2f} / {mem['adamw'] / 2**30:.2f} GiB "
+          f"({time.perf_counter() - t1:.1f} s)")
+    check(mem["adafactor"] < mem["adamw"], "Adafactor's peak is not below")
+
+    # -- train --freeze --int8 --int8_calib 8 on the LIDC fixture ----------
+    t1 = time.perf_counter()
+    lidc = ROOT / "build" / "chip_smoke_data" / "lidc"  # phase 48's
+    iargs = cli.parse_args(["--dataset", "LIDC", "--path_root", str(lidc),
+                            "--batch_size", str(BATCH), "--max_epochs", "1",
+                            "--seed", str(SEED), "--lr", "1e-4", "--freeze",
+                            "--int8", "--int8_calib", str(BATCH)])
+    idm = cli.build_datamodule(iargs, dev)
+    idm.num_train_samples = 2 * BATCH  # the fixture's train split is small
+    imodel = cli.build_model(iargs)
+    irun = base / "runs" / "int8"
+    itrainer = cli.build_trainer(iargs, idm, run_dir=irun)
+    seeded = convert.random_flax_params(imodel, SEED)
+    fb.reset_launch_counts()
+    _, ires = cli.train(iargs, imodel, idm, itrainer)
+    torch.cuda.synchronize()
+    icounts = fb.launch_counts()
+    t_fit = time.perf_counter() - t1
+    live = convert.flax_params_from_torch(imodel)
+    best = load_best_params(irun)
+    enc_diff = [k for k, v in seeded.items() if k.startswith("encoder/")
+                and not (np.array_equal(live[k], v)
+                         and np.array_equal(best[k], v))]
+    idm.set_epoch(0)  # the calibration's draws again: the same tree
+    enc8 = itrainer.int8_encoder(imodel, idm)
+    vb = next(iter(idm.val_dataloader()))
+    vt = torch.from_numpy(vb["target"]).to(dev, torch.long)
+    istep = make_train_step(TrainState(imodel, make_optimizer(
+        imodel.parameters(), 0.0, 0.0)), enc8)
+    _, logits_step = istep(vb["source"], vt)
+    logits_serve = make_eval_step(imodel, enc8)(vb["source"])
+    same = torch.equal(logits_step.float(), logits_serve.float())
+    n8 = ("ln_gemm_i8", "quant_rows", "gemm_i8_residual")
+    bwd = ("gemm_dls", "gemm_wgrad", "gemm_dgrad", "mhsa_bwd", "ln_pullback")
+    print(f"{tag} train --freeze --int8 --int8_calib {BATCH} on the LIDC "
+          f"fixture, one epoch of {idm.num_train_samples // BATCH} B={BATCH} "
+          f"steps: {t_fit:.1f} s, train loss "
+          f"{ires.history[0]['train_loss']:.6g}, val/AUC "
+          f"{ires.history[0]['val/AUC_ROC']:.4g}; launches {icounts}; "
+          f"encoder arrays not equal to the seeded draw (live model and best "
+          f"checkpoint): {enc_diff[:4]} of "
+          f"{sum(k.startswith('encoder/') for k in seeded)} (must be none); "
+          f"the step's logits vs the int8 serving forward of the same tree: "
+          f"bit for bit {same}")
+    check(all(icounts[k] > 0 for k in n8) and all(icounts[k] == 0 for k in
+                                                  bwd + ("ln_gemm",)),
+          f"frozen int8 launches {icounts}")
+    check(not enc_diff and same
+          and math.isfinite(ires.history[0]["train_loss"]),
+          f"frozen int8: encoder {enc_diff[:4]}, logits equal {same}")
+    # the step's rate: int8 against bf16 frozen on one batch, then the loop
+    sec_i8 = host_seconds(lambda: istep(vb["source"], vt))
+    bstep = make_train_step(TrainState(imodel, make_optimizer(
+        imodel.parameters(), 0.0, 0.0)))
+    sec_bf = host_seconds(lambda: bstep(vb["source"], vt))
+    n, wall, busy, _ = busy_loop(idm, istep, dev)
+    print(f"{tag} time frozen step B={BATCH}: int8 encoder "
+          f"{sec_i8 * 1e3:.3f} ms = {BATCH / sec_i8:.2f} vol/s, bf16 encoder "
+          f"{sec_bf * 1e3:.3f} ms = {BATCH / sec_bf:.2f} vol/s; the int8 "
+          f"train loop on the LIDC files ({n} volumes): {n / wall:.2f} vol/s, "
+          f"device busy {busy:.3f} of {wall:.3f} s, idle "
+          f"{max(0.0, 1 - busy / wall) * 100:.1f}%")
+    del istep, bstep, enc8, imodel, idm
+
+    # -- predict on that run folder: segmentation, PNGs, ensembles ---------
+    n_test = None
+    single = None
+    for label, flags in (("last --int8", ["--int8"]),
+                         ("rollout", ["--use_rollout"])):
+        t1 = time.perf_counter()
+        out = base / f"predict_{label.split()[0]}"
+        times = {}
+        fb.reset_launch_counts()
+        predict_cli.main(["--run_folder", str(irun), "--output_dir", str(out),
+                          "--get_segmentation", "--save_saliency",
+                          "--get_attention", *flags], times=times)
+        torch.cuda.synchronize()
+        pcounts = fb.launch_counts()
+        rows = csv_rows(out / "results.csv")
+        seg = csv_rows(out / "results_seg.csv")
+        n_test = len(rows)
+        if single is None:
+            single = rows
+        pngs, empty, positives = 0, 0, 0
+        for r, s in zip(rows, seg):
+            case = out / f"case_{r['uid']}"
+            mask, _ = read_nifti(case / "seg.nii.gz")
+            check(mask.dtype == np.uint8 and mask.shape == (PX, PX,
+                                                            DEPTH_SLICES),
+                  f"seg.nii.gz {mask.dtype} {mask.shape}")
+            empty += not mask.any()
+            check(math.isfinite(float(s["Dice"])) and math.isfinite(float(
+                s["IoU"])) and (math.isfinite(float(s["ASSD"] or "nan"))
+                                == bool(mask.any())),
+                  f"{label}: metrics {s} with {int(mask.sum())} voxels")
+            names = (["input.png", "attention.png", "ground_truth.png"]
+                     if r["GT"] == "1" else [])
+            positives += bool(names)
+            for name in names:
+                img = read_png(case / name)
+                check(img.shape == (4 * PX, 8 * PX, 4) and img.any(),
+                      f"{name} {img.shape}")
+                pngs += 1
+            check(sorted(q.name for q in case.glob("*.png")) == sorted(names),
+                  f"{case.name}: PNGs {list(case.glob('*.png'))}")
+        # "last" takes its row from the CLS-only last block (plain ops)
+        form = "mhsa" if label.startswith("last") else "mhsa_rollout"
+        per = {k: v / (positives if k == "png" else n_test) * 1e3
+               for k, v in times.items()}
+        log_ = [ln for ln in (out / "predict.log").read_text().splitlines()
+                if ln.startswith(("Dice", "IoU", "ASSD"))]
+        print(f"{tag} predict {label} --get_segmentation --save_saliency "
+              f"--get_attention on the int8 run folder: {n_test} cases, "
+              f"{pngs} PNGs read back, {empty} empty masks; ms a case: "
+              f"saliency forward {per.get('forward', 0):.1f}, Dice / IoU / "
+              f"ASSD {per.get('segmentation', 0):.1f}, NIfTI writes "
+              f"{per.get('nifti', 0):.1f}, PNG writes {per.get('png', 0):.1f} "
+              f"a positive case ({positives}); log {log_}; launches {pcounts} "
+              f"({time.perf_counter() - t1:.1f} s)")
+        check(len(seg) == n_test > 0 and pcounts[form] > 0 and len(log_) == 3
+              and (pcounts["ln_gemm_i8"] > 0) == ("--int8" in flags),
+              f"predict {label}: {len(seg)} rows, launches {pcounts}")
+    t1 = time.perf_counter()
+    out = base / "predict_ensemble"
+    fb.reset_launch_counts()
+    predict_cli.main(["--run_folder", str(irun), "--output_dir", str(out),
+                      "--int8", "--get_segmentation", "--ensemble",
+                      str(irun), str(irun)])
+    torch.cuda.synchronize()
+    ecounts = fb.launch_counts()
+    rows = csv_rows(out / "results.csv")
+    gap = max(abs(float(a["NN_pred"]) - float(b["NN_pred"]))
+              for a, b in zip(rows, single))
+    print(f"{tag} predict --int8 --get_segmentation --ensemble RUN RUN: "
+          f"{len(rows)} rows, |NN_pred - the single run's| max {gap:.3g} "
+          f"(limit 1e-4); launches {ecounts} "
+          f"({time.perf_counter() - t1:.1f} s)")
+    check(len(rows) == n_test and gap <= 1e-4
+          and [r["uid"] for r in rows] == [r["uid"] for r in single],
+          f"ensemble rows {rows} vs {single}")
+    check(ecounts["ln_gemm_i8"] > 0, f"ensemble launches {ecounts}")
+    shutil.rmtree(base, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"{tag} phase 50: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not (ROOT / "mst_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke.py must run from a checkout of the "
@@ -8750,6 +9133,13 @@ def main() -> int:
     # cache, --resume, LR schedules, --pretrained_path, --profile_dir)
     # ======================================================================
     train_options_phase(tag, dev, fb, per_step, per_fwd3)
+
+    # ======================================================================
+    # Phase 50: the CLIs' remaining single-card options (Adafactor,
+    # accumulation, --freeze --int8, predict's segmentation, PNGs, ensembles)
+    # ======================================================================
+    cli_options_phase(tag, dev, fb, per_step, plain_train_sublayers,
+                      (gmodel_u, tsrcg, ttgtg))
 
     # TPU kernels: _attn_any_kernel at fused_block.py:326, _mlp_kernel at
     # :400, their train forwards _attn_train_kernel :424 and

@@ -4,12 +4,15 @@ Counterpart of `mst_tpu/data/datasets/synthetic.py`: the same numpy draws
 from the same seed, so both packages see the same volumes, without the
 pandas frame (the port's `labels()` reads the targets directly). Positives
 carry a bright Gaussian blob, which a model that learns anything finds
-within a few steps.
+within a few steps. Every sample has the JAX keys: `uid`, `source`,
+`target`, `affine` (identity), `path`, the blob's `mask` with `with_mask`,
+and on the `"test"` split two raters' copies of it, `rater_masks`, which
+`predict --get_segmentation` scores against.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -21,12 +24,14 @@ class Synthetic_Dataset3D:
         self,
         num_samples: int = 16,
         shape_cdhw: Tuple[int, int, int, int] = (1, 8, 28, 28),
+        split: Optional[str] = None,
         seed: int = 0,
         flip: bool = False,
         noise: bool = False,
         with_mask: bool = True,
         blob_amplitude: float = 3.0,
     ):
+        self.split = split
         self.flip, self.noise = flip, noise
         self.with_mask = with_mask
         rng = np.random.default_rng(seed)
@@ -62,7 +67,10 @@ class Synthetic_Dataset3D:
 
     def __getitem__(self, index):
         sample = {"uid": f"synth_{index:04d}", "source": self._vols[index],
-                  "target": int(self._targets[index])}
+                  "target": int(self._targets[index]), "affine": np.eye(4),
+                  "path": f"synthetic/{index:04d}"}
         if self.with_mask:
             sample["mask"] = self._masks[index]
+            if self.split == "test":  # two raters agreeing on the blob
+                sample["rater_masks"] = np.stack([self._masks[index]] * 2)
         return sample

@@ -285,7 +285,7 @@ def _linear_resize_weights(out_size: int, in_size: int) -> np.ndarray:
 
 
 def fused_mst_logits(model, source, src_key_padding_mask=None, dtype=None,
-                     train: bool = False):
+                     train: bool = False, encoder=None):
     """Full MST forward on the fused path: source [B, C, D, H, W] ->
     logits [B, out_ch] f32. `model` is the port's DinoSliceClassifier (it
     holds the parameters); `dtype` defaults to `model.dtype`. `train=True`
@@ -294,10 +294,16 @@ def fused_mst_logits(model, source, src_key_padding_mask=None, dtype=None,
     block checkpointed with `model.remat`; for a frozen model
     (`model.freeze`) the encoder runs on the serving sub-layers under
     `torch.no_grad()` instead. `dtype` float64 on the plain sub-layers is
-    the oracle of the bf16 paths (the plain versions keep f64)."""
+    the oracle of the bf16 paths (the plain versions keep f64).
+    `encoder` runs in place of `model.encoder` (a frozen model's int8 copy,
+    `ops/fused_int8.quantize_frozen_encoder_int8`: JAX's
+    `params["encoder"] = int8_encoder`, `mst_tpu/train/trainer.py:244-249`);
+    with `train` it must be a frozen model's (an unfrozen one would train
+    through the int8 blocks, which refuse it)."""
     _check_fused(model, source)
     dtype = model.dtype if dtype is None else dtype
-    return _fused_mst(model, source, src_key_padding_mask, dtype, train)[0]
+    return _fused_mst(model, source, src_key_padding_mask, dtype, train,
+                      encoder=encoder)[0]
 
 
 PLANE_MODES = ("last", "rollout", "rollout_abnar")
@@ -351,18 +357,19 @@ def has_int8(model) -> bool:
 
 
 def mst_logits(model, source, src_key_padding_mask=None, train: bool = False,
-               dtype=None):
+               dtype=None, encoder=None):
     """logits [B, out_ch] f32 of `model` in `dtype` (default
     `model.dtype`), routed as the JAX callers route (`fused_seq_len_ok`
     alone): the fused path (`fused_mst_logits`) where the slices fit
     FUSED_MAX_TOKENS, else the composed path (`DinoSliceClassifier.forward`,
     flax `model.apply`). An int8-quantized model has no composed path:
     ValueError, as JAX raises for int8 params there
-    (`mst_tpu/train/predictor.py:248-255`)."""
+    (`mst_tpu/train/predictor.py:248-255`); so has an int8 `encoder`
+    (`fused_mst_logits`)."""
     if fused_seq_len_ok(model, *source.shape[-2:]):
         return fused_mst_logits(model, source, src_key_padding_mask, dtype,
-                                train)
-    if has_int8(model):
+                                train, encoder)
+    if has_int8(model) or encoder is not None:
         raise ValueError(
             "int8-quantized params need the fused serving path; this input "
             "falls back to the composed path (slice tokens must be <= "
@@ -380,12 +387,14 @@ def slices_nhwc(source):
 
 
 def _fused_mst(model, source, src_key_padding_mask, dtype, train=False,
-               plane_mode=None):
+               plane_mode=None, encoder=None):
     """-> (logits, saliency data | None, fusion probs | None); with a
     `plane_mode` the encoder runs that saliency mode and the last fusion
-    layer returns its probabilities [B, heads, 1+D, 1+D] f32."""
+    layer returns its probabilities [B, heads, 1+D, 1+D] f32. `encoder`
+    (default `model.encoder`) is the encoder that runs."""
     if train:
         model.check_trainable(source.device)
+    enc = model.encoder if encoder is None else encoder
     cfg = FastViTConfig.from_model(model)
     b, d = source.shape[0], source.shape[2]
     x = slices_nhwc(source)
@@ -394,13 +403,13 @@ def _fused_mst(model, source, src_key_padding_mask, dtype, train=False,
         # mst_tpu/models/vit_fast.py:577-584: the encoder on the serving
         # kernels (no residuals to save), no grad past its output
         with torch.no_grad():
-            feats = fused_vit_cls(model.encoder, x, cfg, dtype)
+            feats = fused_vit_cls(enc, x, cfg, dtype)
     elif plane_mode is None:
-        feats = fused_vit_cls(model.encoder, x, cfg, dtype, train,
+        feats = fused_vit_cls(enc, x, cfg, dtype, train,
                               remat=train and model.remat)
     else:
         feats, sal_data = fused_vit_cls(
-            model.encoder, x, cfg, dtype, want_last_row=plane_mode == "last",
+            enc, x, cfg, dtype, want_last_row=plane_mode == "last",
             want_rollout=plane_mode == "rollout",
             want_abnar=plane_mode == "rollout_abnar")
     logits, fusion_probs = fusion_head(model, feats, b, d,

@@ -851,9 +851,19 @@ def quantize_mst_int8(model, calib_source=None, margin: float = 1.05,
     a tensor or numpy array) the static scales are calibrated on it first
     (`calibrate_act_scales_int8` in `dtype`) and folded: the serving
     kernels then skip the per-token abs-max reductions."""
+    enc = model.encoder
+    act_scales = _model_act_scales(model, calib_source, dtype)
+    ids = _quantized_ids(enc, quantize_last)
+    q = _copy_without_kernels(model, enc, ids)
+    _quantize_blocks_(q.encoder, ids, act_scales, margin)
+    return q
+
+
+def _model_act_scales(model, calib_source, dtype):
+    """`calibrate_act_scales_int8` of `model`'s encoder on the volumes
+    `calib_source` ([B, C, D, H, W]), or None without them."""
     from mst_tpu_torch.models.vit_fast import FastViTConfig
 
-    enc = model.encoder
     act_scales = None
     if calib_source is not None:
         src = torch.as_tensor(calib_source).to(
@@ -863,14 +873,22 @@ def quantize_mst_int8(model, calib_source=None, margin: float = 1.05,
         if c == 1:
             x = x.expand(b * d, hh, ww, 3)
         act_scales = calibrate_act_scales_int8(
-            enc, x, FastViTConfig.from_model(model), dtype)
+            model.encoder, x, FastViTConfig.from_model(model), dtype)
     log.info("int8 (W8A8) encoder: %s", "per-token activation scales"
              if act_scales is None else "static activation scales from "
              f"{len(calib_source)} volumes")
-    ids = _quantized_ids(enc, quantize_last)
-    q = _copy_without_kernels(model, enc, ids)
-    _quantize_blocks_(q.encoder, ids, act_scales, margin)
-    return q
+    return act_scales
+
+
+def quantize_frozen_encoder_int8(model, calib_source=None,
+                                 margin: float = 1.05, dtype=torch.bfloat16):
+    """The int8 copy of a frozen `model`'s encoder alone, for
+    `train --freeze --int8` (JAX `quantize_mst_params_int8({"encoder":
+    ...}, model, calib)`, `mst_tpu/train/trainer.py:510-512`): calibrated
+    on `calib_source` as `quantize_mst_int8`, and nothing else copied, so
+    that the slice fusion and head the step trains stay `model`'s own."""
+    return quantize_encoder_int8(
+        model.encoder, _model_act_scales(model, calib_source, dtype), margin)
 
 
 # `.launches` of each kernel wrapper, `.calls` of each sub-layer, counted

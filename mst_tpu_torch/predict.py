@@ -3,6 +3,7 @@
     python -m mst_tpu_torch.predict --run_folder RUN [--path_root DIR] \
         [--decode_cache DIR] [--output_dir DIR] \
         [--use_tta] [--use_rollout [--rollout_abnar]] [--save_saliency] \
+        [--get_segmentation] [--get_attention] [--ensemble RUN ...] \
         [--batch_size 1] [--dtype bfloat16] [--int8 [--int8_calib N]]
 
 It scores the test split of the run's dataset (LIDC, DUKE and MRNet from
@@ -21,19 +22,40 @@ checkpoint (`serve.load_run_model`) on the CUDA card and writes, under
   diagonal, as `scripts/main_predict.py:395-405`): the saliency map of the
   fused explainability forward, the last block's CLS attention by default,
   the reference `get_attention_cls` rollout with `--use_rollout`, the Abnar
-  & Zuidema rollout with `--rollout_abnar` too. Saliency modes run one
-  case per batch, as the reference does.
+  & Zuidema rollout with `--rollout_abnar` too;
+- with `--get_segmentation` (`:327-333, 374-388`), the saliency thresholded
+  at its 0.999 quantile against the voxels where at least two raters agree
+  (`rater_masks`, the LIDC test split's and Synthetic's): `results_seg.csv`
+  (`uid, GT, NN, Dice, IoU, ASSD`, the ASSD in the case's spacing) and a
+  mean ± std line per metric in the log; a case without rater masks is
+  skipped, in `results.csv` too; with `--save_saliency` also
+  `case_<uid>/seg.nii.gz` (uint8);
+- with `--get_attention` (`:418-424`), for each positive case,
+  `case_<uid>/input.png` (the slice grid), `attention.png` (the saliency
+  over it in the jet colormap) and, where the batch has a mask,
+  `ground_truth.png` (`utils/functions.py`: numpy and zlib, no
+  matplotlib).
+
+Saliency modes (`--save_saliency`, `--get_segmentation`,
+`--get_attention`) run one case per batch, as the reference does.
+`--ensemble RUN ...` (`:171-217, 334-356`) scores with this run and every
+RUN: the members' probabilities are averaged after the softmax, and each
+member's saliency map is divided by its largest magnitude before the mean;
+a member whose parameters differ in name or shape stops the CLI, and a
+member trained on another fold, or one that records none, is logged.
 
 Slices above 512 tokens (e.g. 518 px) are scored on the composed path
-with the flash kernels; their saliency (`--save_saliency`) is ROADMAP queue
-A #16 and raises. `--use_tta` averages the 8 flips of each case, run as
-one batch. `--int8`
-runs the encoder on the W8A8 kernels (`ops/fused_int8.py`) with per-token
-activation scales, `--int8_calib N` with static ones calibrated on the
-first N test volumes as served (`quantize_model`), in every mode. The other
-flags of `scripts/main_predict.py` stop with the ROADMAP item that brings
-them. `build_model`, `build_datamodule` and `predict_cases` are split from
-`main` so that tests and `chip_smoke.py` drive the CLI's own builders.
+with the flash kernels; their saliency is ROADMAP queue A #16 and raises.
+`--use_tta` averages the 8 flips of each case, run as one batch. `--int8`
+runs every member's encoder on the W8A8 kernels (`ops/fused_int8.py`) with
+per-token activation scales, `--int8_calib N` with static ones calibrated
+on the first N test volumes as served (`quantize_model`, the same volumes
+for every member), in every mode. `roc.png` and `confusion_matrix.png`
+need matplotlib and seaborn and are not written (the log has their
+numbers); `--num_devices` and `--distributed` stop with the ROADMAP item
+that brings them. `build_model`, `build_members`, `build_datamodule` and
+`predict_cases` are split from `main` so that tests and `chip_smoke.py`
+drive the CLI's own builders.
 """
 
 from __future__ import annotations
@@ -41,6 +63,8 @@ from __future__ import annotations
 import argparse
 import csv
 import logging
+import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -50,7 +74,12 @@ from mst_tpu_torch.data.datamodule import DataModule
 from mst_tpu_torch.registry import get_dataset
 from mst_tpu_torch.serve import load_run_model
 from mst_tpu_torch.train.predictor import make_predict_fn
-from mst_tpu_torch.utils.checkpoint import load_hparams
+from mst_tpu_torch.utils.checkpoint import BEST_POINTER, load_hparams
+from mst_tpu_torch.utils.functions import (
+    overlay_cam,
+    overlay_mask,
+    tensor2image,
+)
 from mst_tpu_torch.utils.metrics import (
     binary_auroc,
     cm2acc,
@@ -59,19 +88,21 @@ from mst_tpu_torch.utils.metrics import (
     youden_working_point,
 )
 from mst_tpu_torch.utils.nifti import write_nifti
+from mst_tpu_torch.utils.seg_metrics import (
+    average_surface_distance,
+    dice_score,
+    iou_score,
+    saliency_to_mask,
+)
 
 log = logging.getLogger(__name__)
 
 _LATER = {
-    "get_attention": "PNG overlays need matplotlib and seaborn, which the "
-                     "card's machine lacks (ROADMAP queue A #6)",
-    "get_segmentation": "the Dice / IoU / ASSD scores against the LIDC "
-                        "rater masks (ROADMAP queue A #6)",
-    "ensemble": "ROADMAP queue A #6",
     "num_devices": "ROADMAP queue A #13",
     "distributed": "ROADMAP queue A #13",
 }
 RESULT_COLUMNS = ("uid", "GT", "NN", "NN_pred")
+SEG_COLUMNS = ("uid", "GT", "NN", "Dice", "IoU", "ASSD")
 
 
 def parse_args(argv=None):
@@ -93,16 +124,29 @@ def parse_args(argv=None):
                     help="with --use_rollout: the Abnar & Zuidema rollout "
                          "(identity residual + row norm) instead")
     ap.add_argument("--save_saliency", action="store_true",
-                    help="write case_<uid>/saliency.nii.gz and input.nii.gz")
+                    help="write case_<uid>/saliency.nii.gz and input.nii.gz "
+                         "(and seg.nii.gz with --get_segmentation)")
     ap.add_argument("--batch_size", type=int, default=1,
                     help="volumes per forward without saliency (saliency "
                          "modes run one case per batch)")
     ap.add_argument("--dtype", default="bfloat16",
                     choices=["float32", "bfloat16"],
                     help="compute dtype (the CUDA kernels take bfloat16)")
-    ap.add_argument("--get_attention", action="store_true")
-    ap.add_argument("--get_segmentation", action="store_true")
-    ap.add_argument("--ensemble", nargs="+", default=None)
+    ap.add_argument("--get_attention", action="store_true",
+                    help="write input.png, attention.png and "
+                         "ground_truth.png for each positive case")
+    ap.add_argument("--get_segmentation", action="store_true",
+                    help="score the saliency's 0.999-quantile mask against "
+                         "the >= 2-rater ground truth: results_seg.csv "
+                         "(Dice, IoU, ASSD)")
+    ap.add_argument("--ensemble", nargs="+", default=None, metavar="RUN_DIR",
+                    help="more run folders of the same architecture: "
+                         "probabilities (and max-normalised saliency maps) "
+                         "averaged over this run and them. On datasets "
+                         "whose test split rotates with the fold (LIDC, "
+                         "DUKE) a cross-fold ensemble leaks: member fold k "
+                         "trained on this fold's test cases. Every member "
+                         "stays on the card")
     ap.add_argument("--int8", action="store_true",
                     help="serve the encoder on the W8A8 int8 kernels "
                          "(per-token activation scales)")
@@ -122,6 +166,12 @@ def parse_args(argv=None):
     return args
 
 
+def wants_saliency(args) -> bool:
+    """Whether the run needs saliency maps (`main_predict.py:224`)."""
+    return bool(args.get_attention or args.get_segmentation
+                or args.save_saliency)
+
+
 def plane_mode(args) -> str:
     if not args.use_rollout:
         return "last"
@@ -134,21 +184,72 @@ def build_model(args, device):
     return load_run_model(args.run_folder, dtype).to(device).eval()
 
 
-def quantize_model(args, model, dm):
+def _param_shapes(model) -> list:
+    return [(name, tuple(p.shape)) for name, p in model.named_parameters()]
+
+
+def build_members(args, device) -> list:
+    """-> [the run's model, each --ensemble member's] on `device`. A member
+    must be a run folder whose parameters match the run's in name and
+    shape, else SystemExit; a member trained on another fold, or a run
+    without a recorded fold, is logged (`main_predict.py:171-217`)."""
+    models = [build_model(args, device)]
+    if not args.ensemble:
+        return models
+    run = Path(args.run_folder)
+    want = _param_shapes(models[0])
+    fold = (load_hparams(run) or {}).get("fold")
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    for member in map(Path, args.ensemble):
+        if not (member / BEST_POINTER).exists():
+            raise SystemExit(f"--ensemble: {member} is not a run folder (no "
+                             f"{BEST_POINTER})")
+        model = load_run_model(member, dtype)
+        if _param_shapes(model) != want:
+            raise SystemExit(f"--ensemble: {member} has a different "
+                             f"architecture (param tree mismatch)")
+        mfold = (load_hparams(member) or {}).get("fold")
+        if mfold is None or fold is None:
+            log.info("--ensemble: fold not recorded for %s — cannot verify "
+                     "the members trained on the same split",
+                     member if mfold is None else run)
+        elif mfold != fold:
+            log.warning("--ensemble member %s trained on fold %d (this run: "
+                        "fold %d) — leaks on rotating-test datasets, see "
+                        "--help", member, mfold, fold)
+        models.append(model.to(device).eval())
+    log.info("ensemble of %d models", len(models))
+    return models
+
+
+def calibration_source(args, dm):
+    """--int8_calib N: the first N test volumes as the loader serves them
+    (`scripts/main_predict.py:287-321`), else None."""
+    if args.int8_calib <= 0:
+        return None
+    vols = []
+    for batch in dm.test_dataloader():
+        vols.append(torch.as_tensor(batch["source"]))
+        if sum(len(v) for v in vols) >= args.int8_calib:
+            break
+    return torch.cat(vols)[:args.int8_calib]
+
+
+def quantize_model(args, model, dm, calib=None):
     """--int8: a copy of `model` with its encoder quantized to W8A8; with
-    --int8_calib N the static scales are calibrated on the first N test
-    volumes as the loader serves them (`scripts/main_predict.py:287-321`)."""
+    --int8_calib N the static scales are calibrated on `calib`, by default
+    the first N test volumes as served (`calibration_source`)."""
     from mst_tpu_torch.ops.fused_int8 import quantize_mst_int8
 
-    calib = None
-    if args.int8_calib > 0:
-        vols = []
-        for batch in dm.test_dataloader():
-            vols.append(torch.as_tensor(batch["source"]))
-            if sum(len(v) for v in vols) >= args.int8_calib:
-                break
-        calib = torch.cat(vols)[:args.int8_calib]
+    if calib is None:
+        calib = calibration_source(args, dm)
     return quantize_mst_int8(model, calib)
+
+
+def quantize_members(args, models, dm) -> list:
+    """--int8: every member quantized, calibrated on the same volumes."""
+    calib = calibration_source(args, dm)
+    return [quantize_model(args, m, dm, calib) for m in models]
 
 
 def build_datamodule(args, device, **dataset_kw) -> DataModule:
@@ -167,56 +268,137 @@ def build_datamodule(args, device, **dataset_kw) -> DataModule:
         dataset_kw = dict(path_root=root, fold=hparams.get("fold", 0),
                           decode_cache=args.decode_cache, **dataset_kw)
     ds = get_dataset(name, split="test", **dataset_kw)
-    batch_size = 1 if args.save_saliency else max(1, args.batch_size)
+    batch_size = 1 if wants_saliency(args) else max(1, args.batch_size)
     return DataModule(ds_test=ds, batch_size=batch_size, device=device)
 
 
-def spacing_xyz(batch) -> list:
-    """The first case's voxel spacing in NIfTI (x, y, z) order: its
-    `spacing_dhw` reversed, else its affine's diagonal, else 1
-    (`scripts/main_predict.py:395-405`)."""
+def spacing_dhw(batch) -> np.ndarray:
+    """The first case's voxel spacing in (D, H, W) order: its
+    `spacing_dhw`, else its affine's diagonal reversed, else 1
+    (`scripts/main_predict.py:374-388, 395-405`)."""
     if "spacing_dhw" in batch:
-        sp = np.asarray(batch["spacing_dhw"][0], float)
-    elif "affine" in batch:
-        sp = np.abs(np.diag(np.asarray(batch["affine"][0]))[:3])[::-1]
-    else:
-        sp = np.ones(3)
+        return np.asarray(batch["spacing_dhw"][0], float)
+    if "affine" in batch:
+        return np.abs(np.diag(np.asarray(batch["affine"][0]))[:3])[::-1]
+    return np.ones(3)
+
+
+def spacing_xyz(batch) -> list:
+    """The first case's voxel spacing in NIfTI (x, y, z) order."""
+    sp = spacing_dhw(batch)
     return [float(sp[2]), float(sp[1]), float(sp[0])]
 
 
-def predict_cases(args, model, dm, out_dir: Path) -> list:
-    """Score every test case -> result rows; with --save_saliency write
-    each case's saliency and input volumes."""
-    predict = make_predict_fn(model, tta=args.use_tta,
-                              with_saliency=args.save_saliency,
-                              plane_mode=plane_mode(args))
-    rows = []
+@contextmanager
+def _timed(times, key):
+    """Adds the block's wall seconds to times[key] (`times` None: no-op)."""
+    if times is None:
+        yield
+        return
+    t0 = time.perf_counter()
+    yield
+    times[key] = times.get(key, 0.0) + time.perf_counter() - t0
+
+
+def ensemble_predict(fns, source, mask):
+    """Each member's predict fn on the batch -> (probs, saliency | None):
+    one member's as they are, else the probabilities' mean (in f64, so
+    that a member repeated k times gives its own probabilities back) and
+    the mean of the saliency maps, each divided by its volume's largest
+    magnitude (at least 1e-12) first, as `main_predict.py:334-356`."""
+    outs = [fn(source, mask) for fn in fns]
+    if len(outs) == 1:
+        return outs[0]
+    probs = torch.stack([p for p, _ in outs]).double().mean(0).float()
+    sals = [s for _, s in outs if s is not None]
+    if not sals:
+        return probs, None
+    dims = tuple(range(1, sals[0].ndim))
+    return probs, torch.stack(
+        [s / s.abs().amax(dim=dims, keepdim=True).clamp_min(1e-12)
+         for s in sals]).mean(0)
+
+
+def predict_cases(args, models, dm, out_dir: Path, times=None):
+    """Score every test case with the members `models` (`build_members`)
+    -> (result rows, segmentation rows); write each case's NIfTIs and PNGs
+    as the flags ask. `times` (a dict) collects the wall seconds of the
+    forwards, the segmentation scores, the NIfTI and the PNG writes."""
+    want_sal = wants_saliency(args)
+    fns = [make_predict_fn(m, tta=args.use_tta, with_saliency=want_sal,
+                           plane_mode=plane_mode(args)) for m in models]
+    rows, seg_rows = [], []
     for batch in dm.test_dataloader():
-        probs, sal = predict(batch["source"],
-                             batch.get("src_key_padding_mask"))
-        probs = probs.float().cpu().numpy()
+        rater_masks = batch.get("rater_masks", [None])[0]
+        if args.get_segmentation and rater_masks is None:
+            continue  # no multi-rater ground truth (`main_predict.py:235`)
+        with _timed(times, "forward"):
+            probs, sal = ensemble_predict(
+                fns, batch["source"], batch.get("src_key_padding_mask"))
+            probs = probs.float().cpu().numpy()
+            if sal is not None:  # one case per batch
+                sal = sal[0].float().cpu().numpy()
         for i, uid in enumerate(batch["uid"]):
             rows.append({"uid": uid, "GT": int(batch["target"][i]),
                          "NN": int(probs[i].argmax()),
                          "NN_pred": float(probs[i, 1])})
-        if sal is not None:  # one case per batch
-            # NIfTI (x, y, z) order; a spacing-only affine (the crop's grid
-            # has no origin to keep)
-            case_dir = out_dir / f"case_{batch['uid'][0]}"
-            aff = np.diag([*spacing_xyz(batch), 1.0])
-            for fname, vol in (("saliency.nii.gz", sal[0]),
-                               ("input.nii.gz", batch["source"][0, 0])):
-                write_nifti(case_dir / fname, np.transpose(
-                    vol.float().cpu().numpy(), (2, 1, 0)), aff)
-    return rows
+        if sal is None:
+            continue
+        uid, target = batch["uid"][0], int(batch["target"][0])
+        case_dir = out_dir / f"case_{uid}"
+        seg = None
+        if args.get_segmentation:
+            with _timed(times, "segmentation"):
+                # >= 2 raters agree -> ground truth (reference :243-250)
+                gt = np.asarray(rater_masks)[:, 0].sum(0) >= 2
+                seg = saliency_to_mask(sal, 0.999)
+                seg_rows.append({
+                    "uid": uid, "GT": target, "NN": int(probs[0].argmax()),
+                    "Dice": dice_score(seg, gt), "IoU": iou_score(seg, gt),
+                    "ASSD": average_surface_distance(
+                        seg, gt, spacing=spacing_dhw(batch))})
+        if args.save_saliency:
+            with _timed(times, "nifti"):
+                # NIfTI (x, y, z) order; a spacing-only affine (the crop's
+                # grid has no origin to keep)
+                aff = np.diag([*spacing_xyz(batch), 1.0])
+                vols = [("saliency.nii.gz", sal), ("input.nii.gz", batch[
+                    "source"][0, 0].float().cpu().numpy())]
+                if seg is not None:
+                    vols.append(("seg.nii.gz", seg.astype(np.uint8)))
+                for fname, vol in vols:
+                    write_nifti(case_dir / fname,
+                                np.transpose(vol, (2, 1, 0)), aff)
+        if args.get_attention and target == 1:
+            with _timed(times, "png"):
+                src = batch["source"][:1].float().cpu().numpy()
+                tensor2image(src, case_dir / "input.png")
+                overlay_cam(src, sal, case_dir / "attention.png")
+                if "mask" in batch:
+                    overlay_mask(src, torch.as_tensor(
+                        batch["mask"][:1]).cpu().numpy(),
+                        case_dir / "ground_truth.png")
+    return rows, seg_rows
 
 
-def write_results(rows, out_dir: Path) -> None:
-    """results.csv, and the metrics into the log (predict.log)."""
+def write_results(rows, out_dir: Path, seg_rows=()) -> None:
+    """results.csv (and results_seg.csv), and the metrics into the log
+    (predict.log)."""
     with (out_dir / "results.csv").open("w", newline="") as f:
         writer = csv.DictWriter(f, fieldnames=RESULT_COLUMNS)
         writer.writeheader()
         writer.writerows(rows)
+    if seg_rows:
+        with (out_dir / "results_seg.csv").open("w", newline="") as f:
+            writer = csv.DictWriter(f, fieldnames=SEG_COLUMNS)
+            writer.writeheader()
+            # NaN as an empty field, as pandas writes it
+            writer.writerows({k: "" if isinstance(v, float) and np.isnan(v)
+                              else v for k, v in r.items()}
+                             for r in seg_rows)
+        for m in ("Dice", "IoU", "ASSD"):
+            vals = np.array([r[m] for r in seg_rows], float)
+            log.info("%s: %.4f ± %.4f", m, np.nanmean(vals), np.nanstd(vals))
     gt = np.array([r["GT"] for r in rows], int)
     if len(set(gt.tolist())) < 2:
         log.info("%d cases, one class: no AUC or working point", len(rows))
@@ -232,9 +414,10 @@ def write_results(rows, out_dir: Path) -> None:
              npv, cm.tolist())
 
 
-def main(argv=None, device="cuda", **dataset_kw):
-    """Run the CLI; `device` and `dataset_kw` (see `build_datamodule`) are
-    for in-process use. Returns the output directory."""
+def main(argv=None, device="cuda", times=None, **dataset_kw):
+    """Run the CLI; `device`, `times` (see `predict_cases`) and `dataset_kw`
+    (see `build_datamodule`) are for in-process use. Returns the output
+    directory."""
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     args = parse_args(argv)
     run = Path(args.run_folder)
@@ -244,11 +427,12 @@ def main(argv=None, device="cuda", **dataset_kw):
     log.addHandler(handler)
     log.setLevel(logging.INFO)
     try:
-        model = build_model(args, torch.device(device))
+        models = build_members(args, torch.device(device))
         dm = build_datamodule(args, torch.device(device), **dataset_kw)
         if args.int8:
-            model = quantize_model(args, model, dm)
-        write_results(predict_cases(args, model, dm, out_dir), out_dir)
+            models = quantize_members(args, models, dm)
+        rows, seg_rows = predict_cases(args, models, dm, out_dir, times)
+        write_results(rows, out_dir, seg_rows)
     finally:
         log.removeHandler(handler)
         handler.close()

@@ -72,7 +72,7 @@ def get_dataset(name: str, split, path_root=None, **kw):
         for key in ("random_center", "random_rotate", "fold", "decode_cache"):
             kw.pop(key, None)
         seed = {"train": 0, "val": 1, "test": 2}.get(split, 3)
-        return Synthetic_Dataset3D(seed=seed, **kw)
+        return Synthetic_Dataset3D(split=split, seed=seed, **kw)
     if name == "LIDC":
         from mst_tpu_torch.data.datasets.lidc import LIDC_Dataset3D as cls
     elif name == "DUKE":

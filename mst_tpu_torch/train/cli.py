@@ -7,7 +7,8 @@
         [--patch_size P] [--pretrained_path FILE.pth] \
         [--batch_size 2] [--max_epochs 1000] [--num_train_samples 2000] [--patience 10] \
         [--dtype bfloat16] [--seed 0] [--lr LR] \
-        [--lr_schedule cosine | warmup_cosine] [--run_dir runs] \
+        [--lr_schedule cosine | warmup_cosine] [--optimizer adamw | adafactor] \
+        [--accumulate_grad_batches 1] [--int8 [--int8_calib N]] [--run_dir runs] \
         [--resume RUN] [--profile_dir DIR] \
         [--fusion_heads 12] [--use_bottleneck] [--use_slice_pos_emb] \
         [--use_registers]
@@ -23,7 +24,10 @@ encoder config (pos-embed grid, registers; for DINOv3 patch size, FFN and
 RoPE) is taken from the file, as `scripts/main_train.py:194-231`. The
 reference's recipe: class-balanced weighted sampling, AdamW at the
 model's learning rate (`--lr_schedule`: optax's cosine or warmup-cosine
-schedule), val/AUC_ROC early stopping, the top-1 checkpoint in
+schedule; `--optimizer adafactor`: optax's Adafactor, factored second
+moments; `--accumulate_grad_batches k`: one update from the mean grads of
+k micro-batches, optax's MultiSteps), val/AUC_ROC early stopping, the
+top-1 checkpoint in
 `<run_dir>/<dataset>/<model>_<stamp>/epoch=N/params.npz`, which
 `python -m mst_tpu_torch.serve --params_npz` (DINOv2) or `--run_folder`
 (any model: the run's hparams record the model's options) serves, and the
@@ -35,11 +39,13 @@ with the reference's augmentation (flips, rotation, random centre,
 inversion and noise), as `scripts/main_train.py:155-161`; the run's
 hparams record the dataset, `path_root` and `fold`, so that
 `python -m mst_tpu_torch.predict --run_folder RUN` scores the same
-folder's test split. `--profile_dir` writes a `torch.profiler` trace of
-the second epoch. The flags keep their JAX names and defaults; the flags
-of features not ported yet (Adafactor, gradient accumulation, int8
-training, several hosts, the other slice fusions) and an encoder whose
-widths the train kernels do not take
+folder's test split. `--freeze --int8 [--int8_calib N]` runs the frozen
+encoder on its int8 (W8A8) copy in the train and eval steps, calibrated
+on the first N train volumes (checkpoints keep the unquantized encoder;
+`--resume` quantizes again). `--profile_dir` writes a `torch.profiler`
+trace of the second epoch. The flags keep their JAX names and defaults;
+the flags of features not ported yet (several hosts, the other slice
+fusions) and an encoder whose widths the train kernels do not take
 (`DinoSliceClassifier.check_trainable`) are ROADMAP queue A items.
 `build_model`, `build_datamodule`, `build_trainer` and `train` are split
 from `main` so that tests and `chip_smoke.py` drive the CLI's own builders.
@@ -110,6 +116,25 @@ def parse_args(argv=None):
                          "with --pretrained_path)")
     ap.add_argument("--lr_schedule", default=None,
                     choices=[None, "cosine", "warmup_cosine"])
+    ap.add_argument("--optimizer", default="adamw",
+                    choices=["adamw", "adafactor"],
+                    help="adafactor: optax's Adafactor (factored second "
+                         "moments: O(rows + cols) state a matrix instead of "
+                         "AdamW's two full moments)")
+    ap.add_argument("--accumulate_grad_batches", type=int, default=1,
+                    help="average the grads of N micro-batches into one "
+                         "update (optax MultiSteps; the LR schedule counts "
+                         "updates)")
+    ap.add_argument("--int8", action="store_true",
+                    help="with --freeze: run the frozen encoder on the int8 "
+                         "(W8A8) serving kernels in the train and eval "
+                         "steps, so that the slice fusion and head learn on "
+                         "the features int8 serving produces (checkpoints "
+                         "keep the unquantized encoder)")
+    ap.add_argument("--int8_calib", type=int, default=0, metavar="N",
+                    help="with --int8: calibrate static activation scales "
+                         "on the first N training volumes (0: per-token "
+                         "scales)")
     ap.add_argument("--resume", default=None, metavar="RUN",
                     help="continue the run folder RUN from its `last` "
                          "train state (parameters, AdamW moments, update "
@@ -229,13 +254,15 @@ def build_trainer(args, dm, run_dir=None) -> Trainer:
     return Trainer(run_dir, max_epochs=args.max_epochs,
                    patience=args.patience,
                    limit_val_batches=min(len(dm.ds_val), 200),
-                   profile_dir=args.profile_dir)
+                   profile_dir=args.profile_dir, int8=args.int8,
+                   int8_calib=args.int8_calib)
 
 
 def train(args, model, dm, trainer, pretrained=None):
     """Seeded weights, the `pretrained` state dict's encoder over them
-    where one is given, AdamW at the model's (or --lr) rate under
-    --lr_schedule (over the slice fusion and head with --freeze); with
+    where one is given, --optimizer at the model's (or --lr) rate under
+    --lr_schedule with --accumulate_grad_batches (over the slice fusion
+    and head with --freeze); with
     --resume the `last` state of the trainer's folder over all of it;
     fit. The hparams record the model's own options (`model.config`), so
     that `serve.load_run_model` rebuilds the model that was trained, and
@@ -243,8 +270,10 @@ def train(args, model, dm, trainer, pretrained=None):
     split."""
     entry = model_entry(args.model)
     lr = entry.learning_rate if args.lr is None else args.lr
-    state = trainer.init_state(model, lr, entry.weight_decay, seed=args.seed,
-                               schedule=args.lr_schedule)
+    state = trainer.init_state(
+        model, lr, entry.weight_decay, seed=args.seed,
+        schedule=args.lr_schedule, optimizer=args.optimizer,
+        accumulate_steps=args.accumulate_grad_batches)
     if pretrained is not None:
         enc = model.encoder
         convert.params_from_flax(model, convert.load_pretrained_encoder(

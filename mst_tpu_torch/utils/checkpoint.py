@@ -11,10 +11,13 @@ folder back (`serve.load_run_model`).
 
 `save_train_state` / `restore_train_state` keep the full train state of
 `--resume` (the counterparts of `mst_tpu/utils/checkpoint.py:110, 137`):
-`<run_dir>/<name>/params.npz` as above, `<name>/optimizer.npz` with
-AdamW's `exp_avg/<key>`, `exp_avg_sq/<key>` and `step/<key>` under the
-parameters' flax keys (a frozen encoder has none) and the train state's
-update count `state_step`, `<name>.meta.json` (the fit loop's counters:
+`<run_dir>/<name>/params.npz` as above, `<name>/optimizer.npz` with the
+optimizer's per-parameter state under the parameters' flax keys (AdamW's
+`exp_avg/<key>`, `exp_avg_sq/<key>` and `step/<key>`; Adafactor's
+`v_row/<key>` and `v_col/<key>` or `v/<key>`; a frozen encoder has none),
+its update count `count` (the schedule's), with gradient accumulation the
+running mean `acc_grads/<key>` and `mini_step`, and the train state's
+micro-batch count `state_step`, `<name>.meta.json` (the fit loop's counters:
 epoch, best, best_epoch, stale) and `<name>.hparams.json`. A
 `TrainStateWriter` copies the state to the host on the caller's thread,
 then writes it on a background thread (the JAX `use_async=True` save).
@@ -40,7 +43,9 @@ BEST_POINTER = "best_checkpoint.json"
 PARAMS_FILE = "params.npz"
 OPTIMIZER_FILE = "optimizer.npz"
 STATE_STEP = "state_step"
-MOMENTS = ("exp_avg", "exp_avg_sq", "step")
+COUNT = "count"
+ACC_GRADS = "acc_grads"
+MINI_STEP = "mini_step"
 
 
 def save_checkpoint(run_dir, name: str, model,
@@ -95,17 +100,22 @@ def _atomic_json(path: Path, obj) -> None:
 
 
 def _optimizer_arrays(model, optimizer) -> Dict[str, np.ndarray]:
-    """AdamW's per-parameter state on the host, keyed by the flax names."""
+    """The optimizer's state on the host: each parameter's (`STATE`) keyed
+    by the flax names, the update count, and `MultiSteps`' running mean and
+    mini-step."""
     key_of = {id(p): name.replace(".", "/")
               for name, p in model.named_parameters()}
-    out = {}
-    for group in optimizer.param_groups:
-        for p in group["params"]:
-            st = optimizer.state.get(p)
-            if not st:
-                continue
-            for m in MOMENTS:
+    out = {COUNT: np.asarray(optimizer.count, np.int64)}
+    for p in optimizer.held():
+        st = optimizer.state.get(p) or {}
+        for m in optimizer.STATE:
+            if m in st:
                 out[f"{m}/{key_of[id(p)]}"] = st[m].detach().cpu().numpy()
+    acc = getattr(optimizer, "acc", None)
+    if acc is not None:
+        out[MINI_STEP] = np.asarray(optimizer.mini_step, np.int64)
+        for p, a in acc.items():
+            out[f"{ACC_GRADS}/{key_of[id(p)]}"] = a.detach().cpu().numpy()
     return out
 
 
@@ -187,8 +197,9 @@ def save_train_state(run_dir, name: str, state, meta: Optional[Dict] = None,
 
 def restore_train_state(run_dir, name: str, state):
     """Load <run_dir>/<name>/ (written by `save_train_state`) into `state`
-    in place: parameters, AdamW's moments and steps, the update count.
-    Returns (state, meta)."""
+    in place: parameters, the optimizer's per-parameter state, its update
+    count (a file without one: the micro-batch count), the accumulator's
+    mean and mini-step, the micro-batch count. Returns (state, meta)."""
     import torch
 
     path = Path(run_dir) / name
@@ -196,22 +207,41 @@ def restore_train_state(run_dir, name: str, state):
         convert.params_from_flax(state.model, {k: z[k] for k in z.files})
     with np.load(path / OPTIMIZER_FILE, allow_pickle=False) as z:
         opt = {k: z[k] for k in z.files}
+    optimizer = state.optimizer
     state.step = int(opt.pop(STATE_STEP))
+    optimizer.count = int(opt.pop(COUNT, state.step))
     named = {name_.replace(".", "/"): p
              for name_, p in state.model.named_parameters()}
-    held = [p for g in state.optimizer.param_groups for p in g["params"]]
+    held = optimizer.held()
     index = {id(p): i for i, p in enumerate(held)}
-    keys = {k.split("/", 1)[1] for k in opt}
-    unknown = sorted(k for k in keys
+    acc = getattr(optimizer, "acc", None)
+    if (acc is None) != (MINI_STEP not in opt):
+        raise KeyError(f"restore_train_state: {path} was written "
+                       f"{'without' if acc is not None else 'with'} "
+                       f"gradient accumulation")
+    if acc is not None:
+        optimizer.mini_step = int(opt.pop(MINI_STEP))
+    by_param: Dict[str, Dict] = {}
+    for k, v in opt.items():
+        kind, key = k.split("/", 1)
+        if kind not in (*optimizer.STATE, ACC_GRADS):
+            raise KeyError(f"restore_train_state: {k} is not state of "
+                           f"{type(optimizer).__name__}")
+        by_param.setdefault(key, {})[kind] = torch.from_numpy(v)
+    unknown = sorted(k for k in by_param
                      if k not in named or id(named[k]) not in index)
     if unknown:
         raise KeyError(f"restore_train_state: optimizer state of parameters "
                        f"the optimizer does not hold: {unknown[:8]}")
-    sd = state.optimizer.state_dict()
-    sd["state"] = {index[id(named[k])]: {
-        m: torch.from_numpy(opt[f"{m}/{k}"]) for m in MOMENTS}
-        for k in sorted(keys)}
-    state.optimizer.load_state_dict(sd)
+    if acc is not None:
+        for k, st in by_param.items():
+            p = named[k]
+            acc[p] = st.pop(ACC_GRADS).to(p.device, p.dtype)
+    sd = optimizer.inner.state_dict() if acc is not None \
+        else optimizer.state_dict()
+    sd["state"] = {index[id(named[k])]: st for k, st in
+                   sorted(by_param.items()) if st}
+    (optimizer.inner if acc is not None else optimizer).load_state_dict(sd)
     meta_path = Path(run_dir) / f"{name}.meta.json"
     meta = json.loads(meta_path.read_text()) if meta_path.exists() else {}
     return state, meta

@@ -183,9 +183,9 @@ def test_unsupported_configs_raise():
     assert probs.shape == (1, 2)
     with pytest.raises(NotImplementedError, match="FUSED_MAX_TOKENS"):
         make_predict_fn(model, with_saliency=True)(big)
-    # the predict CLI's PNGs
-    with pytest.raises(SystemExit):
-        predict.parse_args(["--run_folder", "x", "--get_attention"])
+    # the predict CLI's PNGs: ported, they need the saliency forward
+    assert predict.wants_saliency(predict.parse_args(
+        ["--run_folder", "x", "--get_attention"]))
     with pytest.raises(NotImplementedError, match="CUDA or CPU"):
         make_predict_fn(model.to("meta"))(np.zeros((1, 1, 1, 28, 28),
                                                    np.float32))

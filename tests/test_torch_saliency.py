@@ -399,13 +399,24 @@ def test_predict_cli_writes_results_log_and_nifti(run_folder, tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--get_attention"], "queue A #6"), (["--get_segmentation"], "#6"),
-    (["--ensemble", "x"], "queue A #6"),
     (["--num_devices", "2"], "#13"), (["--distributed"], "#13")])
 def test_predict_cli_refuses_unported_flags(flag, item, capsys):
     with pytest.raises(SystemExit):
         predict.parse_args(["--run_folder", "x", *flag])
     assert item in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag,attr,value", [
+    (["--get_attention"], "get_attention", True),
+    (["--get_segmentation"], "get_segmentation", True),
+    (["--ensemble", "x", "y"], "ensemble", ["x", "y"])])
+def test_predict_cli_takes_the_ported_flags(flag, attr, value):
+    """--get_attention, --get_segmentation and --ensemble are ported
+    (tests/test_torch_predict_options.py runs them): each parses, and the
+    first two turn the saliency forward on, one case per batch."""
+    args = predict.parse_args(["--run_folder", "x", *flag])
+    assert getattr(args, attr) == value
+    assert predict.wants_saliency(args) == (attr != "ensemble")
 
 
 def test_predict_cli_takes_int8_flags():

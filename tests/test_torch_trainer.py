@@ -21,6 +21,7 @@ from mst_tpu.data.datamodule import DataModule as JaxDataModule
 from mst_tpu.data.datasets.synthetic import Synthetic_Dataset3D as JaxSynth
 from mst_tpu.models.mst import DinoSliceClassifier as JaxMST
 from mst_tpu.registry import MODELS as JAX_MODELS
+from mst_tpu.registry import get_dataset as jax_get_dataset
 from mst_tpu.train.trainer import TrainState as JaxTrainState
 from mst_tpu.train.trainer import make_optimizer as jax_make_optimizer
 from mst_tpu.train.trainer import make_train_step as jax_make_train_step
@@ -35,7 +36,7 @@ from mst_tpu_torch.models.convert import flax_params_from_torch, params_from_fla
 from mst_tpu_torch.models.mst import DinoSliceClassifier
 from mst_tpu_torch.models.vit_fast import fused_mst_logits
 from mst_tpu_torch.ops import fused_block as tfb
-from mst_tpu_torch.registry import MODELS, get_model
+from mst_tpu_torch.registry import MODELS, get_dataset, get_model
 from mst_tpu_torch.train import cli
 from mst_tpu_torch.train.trainer import (
     Trainer,
@@ -250,6 +251,29 @@ def test_synthetic_dataset_and_sampling_match_mst_tpu():
         jdm.set_epoch(epoch)
         np.testing.assert_array_equal(dm._train_indices(),
                                       jdm._train_indices())
+
+
+@pytest.mark.parametrize("split", ["train", "val", "test"])
+def test_synthetic_samples_match_mst_tpu_key_for_key(split):
+    """Every key of every sample of the registries' Synthetic split equals
+    the JAX one (`affine`, `path`, and on the test split the two raters'
+    `rater_masks` that `predict --get_segmentation` scores against)."""
+    kw = dict(num_samples=5, shape_cdhw=(1, 4, 28, 28), random_center=True,
+              random_rotate=True, fold=2, decode_cache=None)
+    ours = get_dataset("Synthetic", split, **kw)
+    kw.pop("fold")  # the JAX registry passes it on; its dataset has none
+    ref = jax_get_dataset("Synthetic", split, **kw)
+    assert ours.split == ref.split == split
+    for i in range(len(ref)):
+        a, b = ours[i], ref[i]
+        assert a.keys() == b.keys(), (split, i)
+        for k, v in b.items():
+            if isinstance(v, np.ndarray):
+                assert a[k].dtype == v.dtype, (split, i, k)
+                np.testing.assert_array_equal(a[k], v, err_msg=k)
+            else:
+                assert a[k] == v, (split, i, k)
+        assert ("rater_masks" in a) == (split == "test")
 
 
 def test_augment_flip_and_noise():
