@@ -11,8 +11,11 @@ HWIO `[p, p, C, E]`. A quantized flax tree (`mst_tpu`'s
 folded LN vectors) becomes a quantized copy of the model
 (`quantized_from_flax`), each such node a `QDense` with those buffers.
 Pretrained torch state dicts (DINOv2 torch.hub / HuggingFace, HuggingFace
-DINOv3, the reference's whole MST) become flat dicts by the converters
-below (`--pretrained_path` of the train CLI).
+DINOv3, the reference's whole MST, torchvision / MONAI ResNets and the
+reference's ResNet baselines) become flat dicts by the converters below
+(`--pretrained_path` of the train CLI). A ResNet's BatchNorm statistics
+(JAX's `batch_stats` collection) travel beside its parameters as a second
+flat dict with the flax keys (`backbone/bn1/mean`, ...).
 """
 
 from __future__ import annotations
@@ -24,27 +27,64 @@ import numpy as np
 import torch
 
 
-def params_from_flax(model: torch.nn.Module,
-                     flat: Mapping[str, np.ndarray]) -> torch.nn.Module:
-    """Copy a flat `/`-keyed flax parameter dict into `model` (in place, on
-    the model's device, as f32). Raises KeyError on a missing or an unused
-    key and ValueError on a shape mismatch. Returns the model."""
-    named = dict(model.named_parameters())
+def _copy_into(named: dict, flat: Mapping[str, np.ndarray],
+               what: str) -> None:
+    """Copy `flat` into the tensors `named` (torch names), strictly: every
+    key once, every shape equal."""
     want = {k.replace(".", "/") for k in named}
     given = set(flat)
     missing, unused = sorted(want - given), sorted(given - want)
     if missing or unused:
-        raise KeyError(f"params_from_flax: missing {missing[:8]}"
+        raise KeyError(f"{what}: missing {missing[:8]}"
                        f"{'...' if len(missing) > 8 else ''}, unused "
                        f"{unused[:8]}{'...' if len(unused) > 8 else ''}")
     with torch.no_grad():
-        for name, param in named.items():
+        for name, t in named.items():
             arr = np.array(flat[name.replace(".", "/")], np.float32)
-            if tuple(arr.shape) != tuple(param.shape):
+            if tuple(arr.shape) != tuple(t.shape):
                 raise ValueError(f"{name}: flax shape {arr.shape} != "
-                                 f"{tuple(param.shape)}")
-            param.copy_(torch.from_numpy(arr))
+                                 f"{tuple(t.shape)}")
+            t.copy_(torch.from_numpy(arr))
+
+
+def _stat_buffers(model: torch.nn.Module) -> dict:
+    """The BatchNorm running statistics of `model` (the ResNets), by torch
+    name: `<bn>.mean`, `<bn>.var`."""
+    from mst_tpu_torch.models.resnet import batchnorms
+
+    return {f"{name}.{stat}": getattr(bn, stat)
+            for name, bn in batchnorms(model) for stat in ("mean", "var")}
+
+
+def params_from_flax(model: torch.nn.Module,
+                     flat: Mapping[str, np.ndarray],
+                     batch_stats: Optional[Mapping[str, np.ndarray]] = None
+                     ) -> torch.nn.Module:
+    """Copy a flat `/`-keyed flax parameter dict into `model` (in place, on
+    the model's device, as f32), and `batch_stats`, the flat flax
+    `batch_stats` collection (`backbone/bn1/mean`, ...), into a ResNet's
+    BatchNorm statistics where given. Raises KeyError on a missing or an
+    unused key and ValueError on a shape mismatch. Returns the model."""
+    _copy_into(dict(model.named_parameters()), flat, "params_from_flax")
+    if batch_stats is not None:
+        _copy_into(_stat_buffers(model), batch_stats,
+                   "params_from_flax (batch_stats)")
     return model
+
+
+def flax_batch_stats_from_torch(model: torch.nn.Module) -> dict:
+    """A ResNet's BatchNorm statistics as the flat `/`-keyed flax
+    `batch_stats` collection of numpy f32 arrays ({} for a model without
+    BatchNorm)."""
+    return {name.replace(".", "/"): np.array(t.detach().cpu().float())
+            for name, t in _stat_buffers(model).items()}
+
+
+def initial_batch_stats(model: torch.nn.Module) -> dict:
+    """flax's BatchNorm statistics at init: every mean 0, every var 1."""
+    return {k: (np.zeros if k.endswith("/mean") else np.ones)(
+        v.shape, np.float32)
+        for k, v in flax_batch_stats_from_torch(model).items()}
 
 
 def quantized_from_flax(model: torch.nn.Module,
@@ -88,17 +128,22 @@ def random_flax_params(model: torch.nn.Module, seed: int) -> dict:
     the flax tree, drawn the way the flax initialisers draw: truncated
     normal(0.02) for cls / pos / register tokens, normal(0.02) for the
     slice position table, LeCun normal for kernels, zero biases, unit LN
-    scales, LayerScale at `model.layerscale_init`. Only the numpy generator
-    seeded with `seed` is used."""
+    scales, LayerScale at `model.layerscale_init`; for the ResNets LeCun
+    normal conv kernels (fan-in k^d * in), unit BN scales, zero BN biases
+    and MST-ResNet's CLS token normal(1); LiRE generators normal(0.02).
+    Only the numpy generator seeded with `seed` is used."""
     rng = np.random.default_rng(seed)
     out = {}
+    resnet_cls = type(model).__name__ == "ResNetSliceTrans"
     for name, param in model.named_parameters():
         key = name.replace(".", "/")
         shape = tuple(param.shape)
         leaf = key.rsplit("/", 1)[-1]
-        if leaf in ("cls_token", "pos_embed", "register_tokens"):
+        if key == "cls_token" and resnet_cls:
+            arr = rng.standard_normal(shape)
+        elif leaf in ("cls_token", "pos_embed", "register_tokens"):
             arr = np.clip(rng.standard_normal(shape), -2.0, 2.0) * 0.02
-        elif leaf == "embedding":
+        elif leaf in ("embedding", "liere_generators"):
             arr = rng.standard_normal(shape) * 0.02
         elif leaf == "kernel":
             fan_in = int(np.prod(shape[:-1]))
@@ -425,6 +470,107 @@ def convert_reference_mst(sd, depth: int = 12, fusion_layers: int = 1) -> dict:
         tree["fusion_norm"] = _ln(sd, "slice_fusion.norm")
     params.update(_flat(tree))
     return params
+
+
+def fold_linear_fusion(params: Mapping[str, np.ndarray]) -> dict:
+    """A flat dict of an older mst_tpu `slice_fusion="linear"` checkpoint
+    (an extra `fusion_linear` Dense(D*e -> e) before the head) in the
+    current layout, the head reading the flat D*e vector itself
+    (`dino.py:99,156`): with no nonlinearity between the two products the
+    fold is exact algebra, head(fl(x)) = x @ (W_fl @ W_head) + (b_fl @
+    W_head + b_head), in f32 numpy as `mst_tpu`'s `fold_linear_fusion`.
+    A dict without `fusion_linear` comes back as it is."""
+    if "fusion_linear/kernel" not in params:
+        return dict(params)
+    out = {k: v for k, v in params.items()
+           if not k.startswith("fusion_linear/")}
+    w_fl = np.asarray(params["fusion_linear/kernel"], np.float32)
+    b_fl = np.asarray(params["fusion_linear/bias"], np.float32)
+    w_h = np.asarray(params["head/kernel"], np.float32)
+    b_h = np.asarray(params["head/bias"], np.float32)
+    out["head/kernel"] = w_fl @ w_h
+    out["head/bias"] = b_fl @ w_h + b_h
+    return out
+
+
+def _bn(sd, prefix) -> tuple:
+    """A torch BatchNorm -> ({scale, bias}, {mean, var})."""
+    return ({"scale": np.asarray(sd[f"{prefix}.weight"]),
+             "bias": np.asarray(sd[f"{prefix}.bias"])},
+            {"mean": np.asarray(sd[f"{prefix}.running_mean"]),
+             "var": np.asarray(sd[f"{prefix}.running_var"])})
+
+
+def convert_torch_resnet(sd, variant: int) -> tuple:
+    """A torchvision or MONAI / MedicalNet resnet{18,34,50,...} state dict
+    -> (params, batch_stats) of `ResNetBackbone`, flat and `/`-keyed from
+    the backbone down (`conv1/kernel`, `layer1_0/bn1/scale`, ...). MONAI's
+    ResNet uses torchvision's module names (conv1 / bn1 / layerX.i.convN /
+    bnN / downsample.0 / .1) with 5-D kernels (`_conv` transposes any
+    rank); MedicalNet's DataParallel `module.` prefix is stripped."""
+    from mst_tpu_torch.models.resnet import _RESNET_LAYERS, Bottleneck
+
+    if any(k.startswith("module.") for k in sd):
+        sd = {k[len("module."):]: v for k, v in sd.items()
+              if k.startswith("module.")}
+    block_cls, counts = _RESNET_LAYERS[variant]
+    n_conv = 3 if block_cls is Bottleneck else 2
+    params = {"conv1": {"kernel": _conv(sd["conv1.weight"])}}
+    stats = {}
+    params["bn1"], stats["bn1"] = _bn(sd, "bn1")
+    for stage, n in enumerate(counts):
+        for i in range(n):
+            tp, op = f"layer{stage + 1}.{i}", f"layer{stage + 1}_{i}"
+            blk_p, blk_s = {}, {}
+            for j in range(1, n_conv + 1):
+                blk_p[f"conv{j}"] = {
+                    "kernel": _conv(sd[f"{tp}.conv{j}.weight"])}
+                blk_p[f"bn{j}"], blk_s[f"bn{j}"] = _bn(sd, f"{tp}.bn{j}")
+            if f"{tp}.downsample.0.weight" in sd:
+                blk_p["downsample_conv"] = {
+                    "kernel": _conv(sd[f"{tp}.downsample.0.weight"])}
+                blk_p["downsample_bn"], blk_s["downsample_bn"] = _bn(
+                    sd, f"{tp}.downsample.1")
+            params[op], stats[op] = blk_p, blk_s
+    return _flat(params), _flat(stats)
+
+
+def _prefixed(prefix: str, flat: dict) -> dict:
+    return {f"{prefix}/{k}": v for k, v in flat.items()}
+
+
+def convert_reference_resnet3d(sd, variant: int = 18) -> tuple:
+    """The reference's 3D `ResNet` state dict (MONAI `nets.resnet{N}(...,
+    spatial_dims=3)` under `model.`, `mst/models/resnet.py:51-53`) ->
+    (params, batch_stats) of `ResNet3DClassifier`, flat: the backbone and
+    the `fc` head."""
+    bb_sd = {k[len("model."):]: v for k, v in sd.items()
+             if k.startswith("model.")}
+    fc_w, fc_b = bb_sd.pop("fc.weight"), bb_sd.pop("fc.bias")
+    bb_params, bb_stats = convert_torch_resnet(bb_sd, variant)
+    params = _prefixed("backbone", bb_params)
+    params.update({"fc/kernel": _t(fc_w), "fc/bias": np.asarray(fc_b)})
+    return params, _prefixed("backbone", bb_stats)
+
+
+def convert_reference_resnet_slice(sd, variant: int = 34,
+                                   fusion_layers: int = 1) -> tuple:
+    """The reference's `ResNetSliceTrans` state dict (the 2D torchvision
+    backbone under `model.`, `mst/models/resnet.py:127-244`) -> (params,
+    batch_stats) of `ResNetSliceTrans`, flat: backbone, slice fusion, CLS,
+    fusion norm and head."""
+    bb_sd = {k[len("model."):]: v for k, v in sd.items()
+             if k.startswith("model.")}
+    bb_params, bb_stats = convert_torch_resnet(bb_sd, variant)
+    tree = {"cls_token": np.asarray(sd["cls_token"]),
+            "linear": _dense(sd, "linear"),
+            "fusion_norm": _ln(sd, "slice_fusion.norm")}
+    for i in range(fusion_layers):
+        tree[f"fusion_{i}"] = _convert_fusion_layer(
+            sd, f"slice_fusion.layers.{i}")
+    params = _prefixed("backbone", bb_params)
+    params.update(_flat(tree))
+    return params, _prefixed("backbone", bb_stats)
 
 
 def load_torch_state_dict(path) -> dict:

@@ -1,22 +1,24 @@
 """MST slice classifier: per-slice ViT encoder + slice fusion + head.
 
-Counterpart of `mst_tpu/models/mst.py` `DinoSliceClassifier` for the
-configurations the port serves: a DINOv2 ViT (learned pos-embed, optional
-register tokens; ViT-S/B/L with an MLP FFN, giant2 with a SwiGLU FFN) or a
-DINOv3 ViT (2D RoPE instead of a learned pos-embed, 4 registers, patch 16,
-LN eps 1e-5; either FFN), transformer slice fusion without rotary,
-optional bottleneck and slice position embedding, `freeze` (the encoder
-trains frozen: the reference's giant2 workflow) and `remat` (an unfrozen
-encoder recomputes each block in the backward instead of keeping its
-residuals: what fits unfrozen ViT-L and giant2 on one card). The module
-holds the parameters under the flax names. Slices of up to
-`vit_fast.FUSED_MAX_TOKENS` tokens run the fused path
-(`models/vit_fast.fused_mst_logits`); the module's own forward is the
-composed path, flax `encode_slices` + `__call__`, which longer slices take
-(`vit_fast.mst_logits` routes). Every other configuration raises
-`NotImplementedError` naming the ROADMAP item that brings it, and an
-encoder train step the fused CUDA kernels cannot run (`check_trainable`)
-raises before its forward.
+Counterpart of `mst_tpu/models/mst.py` `DinoSliceClassifier`: a DINOv2 ViT
+(learned pos-embed, optional register tokens; ViT-S/B/L with an MLP FFN,
+giant2 with a SwiGLU FFN) or a DINOv3 ViT (2D RoPE instead of a learned
+pos-embed, 4 registers, patch 16, LN eps 1e-5; either FFN); the slice
+fusion `transformer` (a volume CLS token, the fusion layers, optionally
+with RoPE or LiRE on their attention, and the fusion norm), `average` (the
+mean over the valid slices) or `linear` / `none` (the flat [B, D * e]
+features straight into the head, whose width D * e is fixed at
+construction: `num_slices`); optional bottleneck and slice position
+embedding, `freeze` (the encoder trains frozen: the reference's giant2
+workflow) and `remat` (an unfrozen encoder recomputes each block in the
+backward instead of keeping its residuals: what fits unfrozen ViT-L and
+giant2 on one card). The module holds the parameters under the flax names.
+Slices of up to `vit_fast.FUSED_MAX_TOKENS` tokens run the fused path
+(`models/vit_fast.fused_mst_logits`) in every fusion: only the fusion,
+plain PyTorch, differs; the module's own forward is the composed path,
+flax `encode_slices` + `__call__`, which longer slices take
+(`vit_fast.mst_logits` routes). An encoder train step the fused CUDA
+kernels cannot run (`check_trainable`) raises before its forward.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 from torch import nn
 
 from mst_tpu_torch.models.layers import Dense, LayerNorm
-from mst_tpu_torch.models.slice_fusion import TransformerEncoderLayer
+from mst_tpu_torch.models.slice_fusion import ROTARY, TransformerEncoderLayer
 from mst_tpu_torch.models.vit import _VIT_CONFIGS, VisionTransformer
 from mst_tpu_torch.models.vit_fast import (
     FastViTConfig,
@@ -39,6 +41,11 @@ from mst_tpu_torch.models.vit_fast import (
 from mst_tpu_torch.ops.fused_block import LN_PULLBACK_MAX_K
 
 MAX_SLICES = 256  # slice-position vocabulary (reference `dino.py:81-82`)
+SLICE_FUSIONS = ("transformer", "linear", "average", "none")
+# The slice count a `linear` / `none` head is built for unless given: the
+# reference's (`dino.py:99` hard-codes 32 slices; flax infers it from the
+# first batch, the port's CLIs from theirs and from a checkpoint's head)
+LINEAR_SLICES = 32
 
 
 class _Embed(nn.Module):
@@ -49,11 +56,6 @@ class _Embed(nn.Module):
         self.embedding = nn.Parameter(torch.zeros(vocab, dim))
 
 
-def _unsupported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to mst_tpu_torch yet (ROADMAP queue A {item})")
-
-
 class DinoSliceClassifier(nn.Module):
     """MST-DINO classifier (v2 and v3 are configurations of it). `dtype` is
     the compute dtype of the serving forward (bf16 on the card); parameters
@@ -62,7 +64,9 @@ class DinoSliceClassifier(nn.Module):
     `ffn_layer` None takes the size's FFN (SwiGLU for giant2); `freeze`
     trains the slice fusion and head on a fixed encoder; `remat`
     checkpoints each encoder block of the train step (`mst_tpu`'s field:
-    the same values, less memory, one more forward)."""
+    the same values, less memory, one more forward). `num_slices` is the
+    slice count D of a `linear` / `none` head [D * e, out_ch] (default
+    LINEAR_SLICES); the other fusions take any D."""
 
     def __init__(self, out_ch: int = 2, model_size: str = "small",
                  patch_size: int = 14, num_register_tokens: int = 0,
@@ -76,22 +80,24 @@ class DinoSliceClassifier(nn.Module):
                  ffn_hidden: Optional[int] = None,
                  layerscale_init: Optional[float] = 1e-5,
                  gelu_approximate: bool = True, freeze: bool = False,
-                 remat: bool = False, dtype: torch.dtype = torch.float32):
+                 remat: bool = False, num_slices: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if model_size not in _VIT_CONFIGS:
             raise ValueError(f"unknown model_size {model_size!r}")
         base = _VIT_CONFIGS[model_size]
         ffn_layer = ffn_layer or base.get("ffn_layer", "mlp")
-        if slice_fusion != "transformer":
-            _unsupported(f"slice_fusion={slice_fusion!r}", "#9")
-        if rotary is not None:
-            _unsupported(f"rotary={rotary!r} slice fusion", "#9")
-        if fusion_layers < 1:
+        if slice_fusion not in SLICE_FUSIONS:
+            raise ValueError(f"unknown slice_fusion {slice_fusion!r}")
+        if rotary not in ROTARY:
+            raise ValueError(f"unknown rotary mode {rotary!r}")
+        if slice_fusion == "transformer" and fusion_layers < 1:
             raise ValueError("transformer slice fusion needs fusion_layers >= 1")
         if use_rope_2d and (base["embed_dim"] // base["num_heads"]) % 4:
             raise ValueError("the 2D RoPE needs a head dim divisible by 4")
         self.config = dict(
-            model_size=model_size, patch_size=patch_size,
+            model_size=model_size, slice_fusion=slice_fusion, rotary=rotary,
+            patch_size=patch_size,
             num_register_tokens=num_register_tokens,
             fusion_layers=fusion_layers, fusion_heads=fusion_heads,
             use_bottleneck=use_bottleneck, use_rope_2d=use_rope_2d,
@@ -101,9 +107,10 @@ class DinoSliceClassifier(nn.Module):
             ffn_layer=ffn_layer, ffn_hidden=ffn_hidden,
             layerscale_init=layerscale_init,
             gelu_approximate=gelu_approximate, freeze=freeze, remat=remat)
-        # only what the forward and `random_flax_params` read is kept; the
-        # checks above are the one gate of the fused serving path
+        # only what the forward and `random_flax_params` read is kept
         self.model_size = model_size
+        self.slice_fusion = slice_fusion
+        self.rotary = rotary
         self.patch_size = patch_size
         self.num_register_tokens = num_register_tokens
         self.fusion_layers = fusion_layers
@@ -138,12 +145,17 @@ class DinoSliceClassifier(nn.Module):
         self.emb_ch = emb
         if use_slice_pos_emb:
             self.slice_pos_emb = _Embed(MAX_SLICES, emb)
-        self.cls_token = nn.Parameter(torch.zeros(1, 1, emb))
-        for i in range(fusion_layers):
-            self.add_module(f"fusion_{i}", TransformerEncoderLayer(
-                emb, fusion_heads, emb))
-        self.fusion_norm = LayerNorm(emb, 1e-5)
-        self.head = Dense(emb, out_ch)
+        head_in = emb
+        if slice_fusion == "transformer":
+            self.cls_token = nn.Parameter(torch.zeros(1, 1, emb))
+            for i in range(fusion_layers):
+                self.add_module(f"fusion_{i}", TransformerEncoderLayer(
+                    emb, fusion_heads, emb, rotary=rotary))
+            self.fusion_norm = LayerNorm(emb, 1e-5)
+        elif slice_fusion in ("linear", "none"):
+            self.num_slices = num_slices or LINEAR_SLICES
+            head_in = self.num_slices * emb
+        self.head = Dense(head_in, out_ch)
 
     def fusion(self, i: int) -> TransformerEncoderLayer:
         return getattr(self, f"fusion_{i}")

@@ -66,13 +66,33 @@ FUSED_MAX_TOKENS = 512
 
 def fused_config_supported(model) -> bool:
     """Whether `model` runs on the fused path: it is the port's
-    `DinoSliceClassifier`, whose constructor refuses every configuration
-    outside the path (rotary or non-transformer fusion), so the model
-    conditions of the JAX gate live there. There is no
-    `embed_dim % 128` clause: that was a Mosaic lane limit, and the port's
-    CPU path takes any width (its CUDA kernels check their own shape
-    limits)."""
+    `DinoSliceClassifier`, in every slice fusion (JAX sends the rotary and
+    non-transformer fusions through its flax composition, which computes
+    the same function; here only the plain fusion differs). The ResNets
+    run their own forward. There is no `embed_dim % 128` clause: that was
+    a Mosaic lane limit, and the port's CPU path takes any width (its CUDA
+    kernels check their own shape limits)."""
     return type(model).__name__ == "DinoSliceClassifier"
+
+
+def int8_config_supported(model) -> bool:
+    """Whether int8-quantized parameters of `model` may run: JAX's fused
+    gate (`mst_tpu/models/vit_fast.py:48-71`), a DinoSliceClassifier with
+    the transformer fusion and no rotary. JAX refuses int8 params in every
+    other configuration with a ValueError (`mst_tpu/train/predictor.py
+    :103-107, :248-255`, `trainer.py:227-236`), and so does the port."""
+    return (fused_config_supported(model)
+            and model.slice_fusion == "transformer" and model.rotary is None)
+
+
+def check_int8_config(model) -> None:
+    """JAX's ValueError for int8 params outside `int8_config_supported`."""
+    if not int8_config_supported(model):
+        raise ValueError(
+            "int8-quantized params need the fused serving path; this "
+            "config (rotary or non-transformer slice fusion, or a ResNet) "
+            "falls back to the flax composition in mst_tpu, which has no "
+            "int8 path")
 
 
 def fused_seq_len_ok(model, height: int, width: int) -> bool:
@@ -321,13 +341,18 @@ def fused_mst_saliency(model, source, src_key_padding_mask=None, dtype=None,
     if plane_mode not in PLANE_MODES:
         raise ValueError(f"plane_mode {plane_mode!r} not in {PLANE_MODES}")
     _check_fused(model, source)
+    if has_int8(model):
+        check_int8_config(model)
     dtype = model.dtype if dtype is None else dtype
-    d, hh, ww = source.shape[2:]
+    b, d, hh, ww = source.shape[0], *source.shape[2:]
     p = model.patch_size
     logits, sal_data, fusion_probs = _fused_mst(
         model, source, src_key_padding_mask, dtype, plane_mode=plane_mode)
     probs = torch.softmax(logits.float(), -1)
-    sw = slice_attention(fusion_probs)
+    if fusion_probs is None:  # average / linear fusion: uniform weights
+        sw = torch.full((b, d), 1.0 / d, device=probs.device)
+    else:
+        sw = slice_attention(fusion_probs)
     n_prefix = 1 + model.num_register_tokens
     gh, gw = hh // p, ww // p
     if plane_mode == "rollout_abnar":
@@ -365,7 +390,14 @@ def mst_logits(model, source, src_key_padding_mask=None, train: bool = False,
     flax `model.apply`). An int8-quantized model has no composed path:
     ValueError, as JAX raises for int8 params there
     (`mst_tpu/train/predictor.py:248-255`); so has an int8 `encoder`
-    (`fused_mst_logits`)."""
+    (`fused_mst_logits`), and int8 params in a configuration outside
+    `int8_config_supported`. A model outside the fused path (the ResNets)
+    runs its own forward, `train` selecting batch statistics."""
+    fused = fused_config_supported(model)
+    if encoder is not None or (fused and has_int8(model)):
+        check_int8_config(model)
+    if not fused:
+        return model(source, src_key_padding_mask, train=train, dtype=dtype)
     if fused_seq_len_ok(model, *source.shape[-2:]):
         return fused_mst_logits(model, source, src_key_padding_mask, dtype,
                                 train, encoder)
@@ -422,10 +454,14 @@ def fusion_head(model, feats, b: int, d: int, src_key_padding_mask, dtype,
                 want_probs: bool = False):
     """The slice fusion and head of both paths (mst_tpu/models/mst.py
     :176-228): the per-slice CLS features [B*D, E] -> [bottleneck], slice
-    position table, volume CLS token, the fusion layers under the
-    key-padding mask [B, D] (True = pad), the fusion norm and the head ->
-    (logits [B, out_ch] f32, the last fusion layer's probabilities [B,
-    heads, 1+D, 1+D] f32 with `want_probs`, else None)."""
+    position table, then by `model.slice_fusion`: `transformer` the volume
+    CLS token, the fusion layers (with their rotary) under the key-padding
+    mask [B, D] (True = pad), the fusion norm and the CLS row; `average`
+    the mean over the slices the mask leaves (at least one counted);
+    `linear` / `none` the flat [B, D * e] features; then the head in f32
+    -> (logits [B, out_ch] f32, the last fusion layer's probabilities [B,
+    heads, 1+D, 1+D] f32 with `want_probs` and a transformer fusion, else
+    None)."""
     fusion_probs = None
     if model.use_bottleneck:
         feats = model.bottleneck(feats)
@@ -443,20 +479,36 @@ def fusion_head(model, feats, b: int, d: int, src_key_padding_mask, dtype,
             pos = wl @ table.float()
         feats = feats + pos[None].to(dtype)
 
-    h = torch.cat([model.cls_token.to(dtype).expand(b, 1, e), feats], dim=1)
-    pad = None
+    mask = None
     if src_key_padding_mask is not None:
-        # the CLS column is never padded (reference `dino.py:147-150`)
-        m = torch.as_tensor(src_key_padding_mask, dtype=torch.bool,
-                            device=h.device)
-        pad = torch.cat([torch.zeros_like(m[:, :1]), m], dim=1)
-    for i in range(model.fusion_layers):
-        if want_probs and i == model.fusion_layers - 1:
-            h, fusion_probs = model.fusion(i)(h, pad, want_probs=True)
+        mask = torch.as_tensor(src_key_padding_mask, dtype=torch.bool,
+                               device=feats.device)
+    if model.slice_fusion == "average":
+        if mask is None:
+            pooled = _f(feats).mean(1).to(dtype)
         else:
-            h = model.fusion(i)(h, pad)
-    h = model.fusion_norm(h)
-    pooled = _f(h[:, 0])
+            valid = (~mask)[..., None].to(_f(feats).dtype)
+            pooled = ((_f(feats) * valid).sum(1) / valid.sum(1).clamp_min(
+                1.0)).to(dtype)
+    elif model.slice_fusion in ("linear", "none"):
+        if d != model.num_slices:
+            raise ValueError(f"a {model.slice_fusion} slice fusion head "
+                             f"takes {model.num_slices} slices, got {d}")
+        pooled = feats.reshape(b, d * e)
+    else:
+        h = torch.cat([model.cls_token.to(dtype).expand(b, 1, e), feats],
+                      dim=1)
+        pad = None
+        if mask is not None:
+            # the CLS column is never padded (reference `dino.py:147-150`)
+            pad = torch.cat([torch.zeros_like(mask[:, :1]), mask], dim=1)
+        for i in range(model.fusion_layers):
+            if want_probs and i == model.fusion_layers - 1:
+                h, fusion_probs = model.fusion(i)(h, pad, want_probs=True)
+            else:
+                h = model.fusion(i)(h, pad)
+        pooled = model.fusion_norm(h)[:, 0]
+    pooled = _f(pooled)
     logits = (pooled @ model.head.kernel.to(pooled.dtype)
               + model.head.bias.to(pooled.dtype))
     return logits, fusion_probs

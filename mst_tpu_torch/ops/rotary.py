@@ -1,12 +1,20 @@
-"""Rotary positional encodings (RoPE) of the DINOv3 encoder.
+"""Rotary positional encodings: RoPE of the DINOv3 encoder and of the
+slice fusion, and LiRE (the slice fusion's learned rotary).
 
-Counterpart of the RoPE part of `mst_tpu/ops/rotary.py` (the JAX module
-imports jax, so the port keeps its own copy): 'lang'-style inverse
-frequencies, the interleaved-pair layout (x0, x1, x2, x3, ...) ->
-(-x1, x0, -x3, x2, ...), and the axial 2D angles of a patch grid. Angles
-are computed in float64 numpy and cast to float32, as the JAX functions
-do; the kernels and the plain versions read cos / sin of that f32 tensor.
-LiRE (the learned rotary of the slice fusion) is ROADMAP queue A #9.
+Counterpart of `mst_tpu/ops/rotary.py` (the JAX module imports jax, so the
+port keeps its own copy): 'lang'-style inverse frequencies, the
+interleaved-pair layout (x0, x1, x2, x3, ...) -> (-x1, x0, -x3, x2, ...),
+the 1D angles of the fusion sequence (theta 256) and the axial 2D angles
+of a patch grid. Angles are computed in float64 numpy and cast to float32,
+as the JAX functions do; the kernels and the plain versions read cos / sin
+of that f32 tensor.
+
+LiRE rotates each block of `block` head features by R[p] = exp(p * A_b),
+A_b the skew-symmetric matrix of the learned generators of block b. JAX
+takes the exponential with `jax.scipy.linalg.expm` (Pade 13 with scaling
+and squaring); the port with `torch.linalg.matrix_exp`, which has autograd.
+The two agree to a few f32 ulps of the rotation's entries
+(`tests/test_torch_slice_fusion.py` measures and states the limit).
 """
 
 from __future__ import annotations
@@ -48,6 +56,40 @@ def apply_rope_tables(x: torch.Tensor, cos: torch.Tensor,
 def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
     """RoPE of x [..., L, D] by angles [L, D]."""
     return apply_rope_tables(x, torch.cos(angles), torch.sin(angles))
+
+
+def num_skew_params(block: int) -> int:
+    """Free parameters of a block x block skew-symmetric matrix."""
+    return block * (block - 1) // 2
+
+
+def flat_to_skew(params: torch.Tensor, block: int) -> torch.Tensor:
+    """[..., block*(block-1)/2] -> skew-symmetric [..., block, block]: the
+    parameters fill the upper triangle row by row (numpy's `triu_indices`
+    order, the reference's packing), the lower one is its negative."""
+    iu = torch.triu_indices(block, block, offset=1, device=params.device)
+    upper = params.new_zeros(*params.shape[:-1], block, block)
+    upper[..., iu[0], iu[1]] = params
+    return upper - upper.transpose(-1, -2)
+
+
+def liere_rotations(params: torch.Tensor, positions: torch.Tensor,
+                    block: int) -> torch.Tensor:
+    """R[p, b] = exp(p * A_b) for each position and block: params [n_blocks,
+    block*(block-1)/2] (the learned generators), positions [L] -> [L,
+    n_blocks, block, block] f32, differentiable in `params`."""
+    skew = flat_to_skew(params.float(), block)  # [nb, b, b]
+    pos = positions.to(skew.device, torch.float32)
+    return torch.linalg.matrix_exp(pos[:, None, None, None] * skew[None])
+
+
+def apply_liere(x: torch.Tensor, rotations: torch.Tensor) -> torch.Tensor:
+    """The block-diagonal rotations [L, n_blocks, b, b] (n_blocks * b = D)
+    applied to x [..., L, D] in f32, the result in x's dtype."""
+    nb, b = rotations.shape[1], rotations.shape[2]
+    xb = x.float().reshape(*x.shape[:-1], nb, b)  # [..., L, nb, b]
+    out = torch.einsum("lnij,...lnj->...lni", rotations, xb)
+    return out.reshape(x.shape).to(x.dtype)
 
 
 def rope_2d_angles(grid_hw, dim: int, num_prefix: int = 1,

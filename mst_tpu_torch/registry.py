@@ -1,16 +1,16 @@
 """Model / dataset registries keyed by the reference's CLI names.
 
-Counterpart of `mst_tpu/registry.py` for what the port runs: the
-`DinoV2ClassifierSlice` and `DinoV3ClassifierSlice` models, with the
-reference's default optimizer settings in their entries (lr 1e-6, weight
-decay 1e-2, `mst/models/dino.py:41`), the reference datasets `LIDC`,
-`DUKE` and `MRNet` read from a `path_root` folder, and the hermetic
-`Synthetic` dataset. The ResNets raise `NotImplementedError` with the
-ROADMAP item that brings them.
+Counterpart of `mst_tpu/registry.py`: the models `DinoV2ClassifierSlice`
+and `DinoV3ClassifierSlice` (lr 1e-6, weight decay 1e-2,
+`mst/models/dino.py:41`), `ResNet` (the 3D ResNet50 baseline) and
+`ResNetSliceTrans` (MST-ResNet, a 2D ResNet34 per slice) (lr 1e-4,
+`base_model.py:125`); the reference datasets `LIDC`, `DUKE` and `MRNet`
+read from a `path_root` folder, and the hermetic `Synthetic` dataset.
 """
 
 from __future__ import annotations
 
+import inspect
 from dataclasses import dataclass
 from typing import Callable, Dict
 
@@ -20,6 +20,7 @@ from mst_tpu_torch.models.mst import (
     dino_v2_classifier_slice,
     dino_v3_classifier_slice,
 )
+from mst_tpu_torch.models.resnet import ResNet3DClassifier, ResNetSliceTrans
 
 
 @dataclass(frozen=True)
@@ -29,23 +30,34 @@ class ModelEntry:
     weight_decay: float = 1e-2
 
 
+def _fields_of(cls, **kw) -> torch.nn.Module:
+    """`cls` built from the options of `kw` it takes, the rest dropped, as
+    the JAX registry filters by the flax dataclass fields."""
+    takes = inspect.signature(cls).parameters
+    return cls(**{k: v for k, v in kw.items() if k in takes})
+
+
+def _build_resnet(**kw) -> ResNet3DClassifier:
+    kw.setdefault("variant", 50)
+    return _fields_of(ResNet3DClassifier, **kw)
+
+
+def _build_resnet_slice_trans(**kw) -> ResNetSliceTrans:
+    return _fields_of(ResNetSliceTrans, **kw)  # variant 34, 16 heads
+
+
 MODELS: Dict[str, ModelEntry] = {
     "DinoV2ClassifierSlice": ModelEntry(dino_v2_classifier_slice,
                                         learning_rate=1e-6),
     "DinoV3ClassifierSlice": ModelEntry(dino_v3_classifier_slice,
                                         learning_rate=1e-6),
-}
-_NOT_YET = {
-    "ResNet": "#8",
-    "ResNetSliceTrans": "#8",
+    "ResNet": ModelEntry(_build_resnet, learning_rate=1e-4),
+    "ResNetSliceTrans": ModelEntry(_build_resnet_slice_trans,
+                                   learning_rate=1e-4),
 }
 
 
 def model_entry(name: str) -> ModelEntry:
-    if name in _NOT_YET:
-        raise NotImplementedError(
-            f"{name} is not ported to mst_tpu_torch yet (ROADMAP queue A "
-            f"{_NOT_YET[name]})")
     if name not in MODELS:
         raise ValueError(f"unknown model {name!r}; available: "
                          f"{sorted(MODELS)}")
@@ -53,7 +65,8 @@ def model_entry(name: str) -> ModelEntry:
 
 
 def get_model(name: str, dtype=torch.float32, **overrides) -> torch.nn.Module:
-    """-> the model, holding zero-initialised parameters; load weights with
+    """-> the model, holding zero-initialised parameters (and a ResNet's
+    BatchNorm statistics at mean 0, var 1); load weights with
     `models.convert.params_from_flax`."""
     entry = model_entry(name)
     overrides.setdefault("out_ch", 2)

@@ -10,8 +10,9 @@ importing `mst_tpu` pulls in JAX. Run as
         [--int8 [--int8_calib N]]
 
 It serves MST-DINOv2 ViT-S/14 (or the model of a `python -m
-mst_tpu_torch.train` run folder, `load_run_model`: MST-DINOv3, or a frozen
-giant2 run, too) on the CUDA card. `--int8` serves the encoder on the W8A8
+mst_tpu_torch.train` run folder, `load_run_model`: MST-DINOv3, a frozen
+giant2 run, any slice fusion, the 3D ResNet and MST-ResNet too) on the
+CUDA card. `--int8` serves the encoder on the W8A8
 kernels (`ops/fused_int8.py`) with per-token activation scales;
 `--int8_calib N` calibrates static ones on the first N volumes of the run
 folder's val split (`calibration_volumes`) and folds them in. Slices of
@@ -236,14 +237,18 @@ _HPARAM_KEYS = (
 
 def load_run_model(run_folder, dtype=None):
     """Run folder (`python -m mst_tpu_torch.train` output) -> the model of
-    its hparams with its best checkpoint's weights (parameters f32 on the
-    CPU; `dtype` is the compute dtype, default f32). The model name is the
+    its hparams with its best checkpoint's weights and, for a ResNet, its
+    BatchNorm statistics (JAX's `load_run_model` returns them beside the
+    params; the port's model holds them) (on the CPU, parameters f32;
+    `dtype` is the compute dtype, default f32). The model name is the
     hparams' `model`, else the folder name's first part, as in the JAX
-    package."""
+    package. A `linear` / `none` fusion head's slice count comes from the
+    checkpoint's `head/kernel` rows."""
     from mst_tpu_torch.models.convert import params_from_flax
     from mst_tpu_torch.registry import get_model
     from mst_tpu_torch.utils.checkpoint import (
         BEST_POINTER,
+        load_best_batch_stats,
         load_best_params,
         load_hparams,
     )
@@ -255,8 +260,13 @@ def load_run_model(run_folder, dtype=None):
     hparams = load_hparams(path_run) or {}
     name = hparams.get("model") or path_run.name.split("_")[0]
     model_kw = {k: v for k, v in hparams.items() if k in _HPARAM_KEYS}
+    params = load_best_params(path_run)
     model = get_model(name, dtype=dtype or torch.float32, **model_kw)
-    return params_from_flax(model, load_best_params(path_run))
+    if getattr(model, "slice_fusion", None) in ("linear", "none"):
+        model = get_model(name, dtype=dtype or torch.float32,
+                          num_slices=params["head/kernel"].shape[0]
+                          // model.emb_ch, **model_kw)
+    return params_from_flax(model, params, load_best_batch_stats(path_run))
 
 
 def load_weights(model, args):

@@ -2,8 +2,11 @@
 
     python -m mst_tpu_torch.train --dataset LIDC | DUKE | MRNet \
         --path_root DIR [--fold 0] [--decode_cache DIR] | --dataset Synthetic \
-        [--model DinoV2ClassifierSlice | DinoV3ClassifierSlice] \
+        [--model DinoV2ClassifierSlice | DinoV3ClassifierSlice | ResNet |
+         ResNetSliceTrans] \
         [--model_size small | base | large | giant2] [--freeze | --remat] \
+        [--slice_fusion transformer | average | linear | none] \
+        [--rotary RoPE | LiRE] \
         [--patch_size P] [--pretrained_path FILE.pth] \
         [--batch_size 2] [--max_epochs 1000] [--num_train_samples 2000] [--patience 10] \
         [--dtype bfloat16] [--seed 0] [--lr LR] \
@@ -17,7 +20,12 @@ It trains MST-DINOv2 ViT-S/14 (`--model DinoV3ClassifierSlice`: MST-DINOv3
 ViT-S/16 with 4 registers and 2D RoPE; `--model_size base | large |
 giant2`: ViT-B/14, ViT-L/14 or the giant2 encoder with its SwiGLU FFN,
 unfrozen, with `--remat` to fit ViT-L and giant2 on one card; `--freeze`:
-the encoder frozen under a trained slice fusion and head) on the CUDA card
+the encoder frozen under a trained slice fusion and head; `--slice_fusion
+average | linear | none` and `--rotary RoPE | LiRE`: the fusion options,
+a `linear` / `none` head as wide as the first batch's slices; `--model
+ResNet`: the 3D ResNet50 baseline, `--model ResNetSliceTrans`: MST-ResNet,
+a 2D ResNet34 per slice and a 16-head fusion, both with BatchNorm, taking
+only `--freeze`, which changes nothing for them as in JAX) on the CUDA card
 from seeded random weights, or with `--pretrained_path` from a DINOv2
 (torch.hub or HuggingFace layout) or HuggingFace DINOv3 state dict, whose
 encoder config (pos-embed grid, registers; for DINOv3 patch size, FFN and
@@ -39,13 +47,16 @@ with the reference's augmentation (flips, rotation, random centre,
 inversion and noise), as `scripts/main_train.py:155-161`; the run's
 hparams record the dataset, `path_root` and `fold`, so that
 `python -m mst_tpu_torch.predict --run_folder RUN` scores the same
-folder's test split. `--freeze --int8 [--int8_calib N]` runs the frozen
-encoder on its int8 (W8A8) copy in the train and eval steps, calibrated
-on the first N train volumes (checkpoints keep the unquantized encoder;
+folder's test split. A ResNet's `--pretrained_path` is a torchvision or
+MONAI / MedicalNet ResNet state dict of its variant, converted into the
+backbone and its BatchNorm statistics. `--freeze --int8 [--int8_calib N]`
+runs the frozen encoder on its int8 (W8A8) copy in the train and eval
+steps, calibrated on the first N train volumes (checkpoints keep the
+unquantized encoder;
 `--resume` quantizes again). `--profile_dir` writes a `torch.profiler`
 trace of the second epoch. The flags keep their JAX names and defaults;
-the flags of features not ported yet (several hosts, the other slice
-fusions) and an encoder whose widths the train kernels do not take
+the flags of features not ported yet (several hosts) and an encoder
+whose widths the train kernels do not take
 (`DinoSliceClassifier.check_trainable`) are ROADMAP queue A items.
 `build_model`, `build_datamodule`, `build_trainer` and `train` are split
 from `main` so that tests and `chip_smoke.py` drive the CLI's own builders.
@@ -107,6 +118,10 @@ def parse_args(argv=None):
     ap.add_argument("--fusion_heads", type=int, default=12,
                     help="heads of the slice-fusion layer; they must divide "
                          "its width (ViT-L's 1024: e.g. 16)")
+    ap.add_argument("--slice_fusion", default="transformer",
+                    choices=["transformer", "linear", "average", "none"])
+    ap.add_argument("--rotary", default=None, choices=[None, "RoPE", "LiRE"],
+                    help="rotary positions in the slice-fusion attention")
     ap.add_argument("--use_bottleneck", action="store_true")
     ap.add_argument("--use_slice_pos_emb", action="store_true")
     ap.add_argument("--use_registers", action="store_true")
@@ -181,11 +196,15 @@ def model_kwargs(args, pretrained=None) -> dict:
     only with --use_registers, as the JAX CLI: otherwise the model's
     default stands (0 for DINOv2, 4 for DINOv3); --patch_size where given;
     a `pretrained` state dict's config over both (`pretrained_kwargs`).
-    --remat is refused for the ResNets, as `scripts/main_train.py` does."""
-    if args.remat and not args.model.startswith("Dino"):
-        raise SystemExit("--remat applies to the Dino ViT encoders; the "
-                         "ResNet activations fit the card without it")
+    A ResNet takes --freeze alone (`scripts/main_train.py:188-191`), and
+    --remat is refused for it."""
+    if is_resnet(args):
+        if args.remat:
+            raise SystemExit("--remat applies to the Dino ViT encoders; the "
+                             "ResNet activations fit the card without it")
+        return dict(freeze=args.freeze)
     kw = dict(freeze=args.freeze, remat=args.remat,
+              slice_fusion=args.slice_fusion, rotary=args.rotary,
               use_bottleneck=args.use_bottleneck,
               use_slice_pos_emb=args.use_slice_pos_emb)
     if args.use_registers:
@@ -197,14 +216,28 @@ def model_kwargs(args, pretrained=None) -> dict:
     return kw
 
 
-def build_model(args, pretrained=None, device="cuda"):
+def is_resnet(args) -> bool:
+    return args.model.startswith("ResNet")
+
+
+def build_model(args, pretrained=None, device="cuda", dm=None):
     """-> args.model at --model_size on `device` (the CUDA card) in --dtype
     (parameters f32; the trainer's `init_state` draws them), in the config
-    of the `pretrained` state dict where one is given."""
+    of the `pretrained` state dict where one is given. A `linear` / `none`
+    slice fusion takes its head's slice count from the first batch of the
+    DataModule `dm` (flax infers it at init from the example batch)."""
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    return get_model(args.model, model_size=args.model_size,
-                     fusion_heads=args.fusion_heads, dtype=dtype,
-                     **model_kwargs(args, pretrained)).to(torch.device(device))
+    kw = model_kwargs(args, pretrained)
+    if not is_resnet(args):
+        kw.update(model_size=args.model_size, fusion_heads=args.fusion_heads)
+        if args.slice_fusion in ("linear", "none"):
+            if dm is None:
+                raise ValueError(f"--slice_fusion {args.slice_fusion} takes "
+                                 f"its head's width from the first batch: "
+                                 f"pass the DataModule")
+            kw["num_slices"] = int(
+                next(iter(dm.val_dataloader()))["source"].shape[2])
+    return get_model(args.model, dtype=dtype, **kw).to(torch.device(device))
 
 
 def dataset_kwargs(args) -> dict:
@@ -274,13 +307,23 @@ def train(args, model, dm, trainer, pretrained=None):
         model, lr, entry.weight_decay, seed=args.seed,
         schedule=args.lr_schedule, optimizer=args.optimizer,
         accumulate_steps=args.accumulate_grad_batches)
-    if pretrained is not None:
+    if pretrained is not None and is_resnet(args):
+        # the backbone subtree and its statistics replaced, as JAX replaces
+        # params["backbone"] and batch_stats["backbone"]
+        bb, bb_stats = convert.convert_torch_resnet(pretrained, model.variant)
+        params = {k: v for k, v in convert.flax_params_from_torch(
+            model).items() if not k.startswith("backbone/")}
+        params.update({f"backbone/{k}": v for k, v in bb.items()})
+        convert.params_from_flax(model, params, {
+            f"backbone/{k}": v for k, v in bb_stats.items()})
+        log.info("loaded the pretrained backbone of %s",
+                 args.pretrained_path)
+    elif pretrained is not None:
         enc = model.encoder
         convert.params_from_flax(model, convert.load_pretrained_encoder(
             convert.flax_params_from_torch(model), pretrained, enc.depth,
             model.ffn_layer, enc.num_heads))
-        logging.getLogger(__name__).info(
-            "loaded the pretrained encoder of %s", args.pretrained_path)
+        log.info("loaded the pretrained encoder of %s", args.pretrained_path)
     start_epoch, resume_meta = 0, None
     if args.resume:
         state, resume_meta = restore_train_state(trainer.run_dir, "last",
@@ -304,7 +347,7 @@ def main(argv=None, device="cuda", **dataset_kw):
     args = parse_args(argv)
     dm = build_datamodule(args, torch.device(device), **dataset_kw)
     pretrained = pretrained_state_dict(args)
-    model = build_model(args, pretrained, device)
+    model = build_model(args, pretrained, device, dm)
     trainer = build_trainer(args, dm)
     _, result = train(args, model, dm, trainer, pretrained)
     print(f"best val/AUC_ROC={result.best_metric:.4f} @ epoch "

@@ -3,16 +3,22 @@
 Counterpart of `mst_tpu/train/predictor.py` `make_predict_fn`, routed as
 it routes (:238-257): the serving forward (`models/vit_fast.mst_logits`:
 the fused path, or above `FUSED_MAX_TOKENS` tokens per slice the composed
-path, which an int8-quantized model refuses with JAX's `ValueError`) or,
-with saliency, the fused explainability forward
+path, which an int8-quantized model refuses with JAX's `ValueError`; a
+ResNet's own forward) or, with saliency, `_saliency_fn_for(model)` (:193):
+for the MST-DINO models the fused explainability forward
 (`models/vit_fast.fused_mst_saliency`: slice attention x plane attention,
-upsampled to the volume grid), softmax in f32, and the 8-way flip TTA run
-as ONE batch (the flip stack is a leading batch axis; probabilities average
-after the softmax; each saliency map is flipped back before the mean; a
-variant that flips the slice axis flips the key-padding mask too).
-Saliency above `FUSED_MAX_TOKENS` tokens (JAX's flax `return_weights`
-path, which runs no kernel) is ROADMAP queue A #16; Grad-CAM for the
-ResNet baselines is ROADMAP queue A #8.
+upsampled to the volume grid; uniform slice weights 1/D where the fusion
+has no attention), for the 3D ResNet Grad-CAM++ of its final map
+(`_resnet3d_saliency`), for MST-ResNet the fusion's slice attention x each
+slice's Grad-CAM++ (`_resnet_slice_saliency`); softmax in f32, and the
+8-way flip TTA run as ONE batch (the flip stack is a leading batch axis;
+probabilities average after the softmax; each saliency map is flipped
+back before the mean; a variant that flips the slice axis flips the
+key-padding mask too). Saliency above `FUSED_MAX_TOKENS` tokens (JAX's
+flax `return_weights` path, which runs no kernel) is ROADMAP queue A #16.
+The forwards run under `torch.inference_mode()`, but for the ResNets',
+whose Grad-CAM backward needs autograd: `torch.no_grad()`, the gradient
+taken from the final map alone (`ops/gradcam.py`).
 """
 
 from __future__ import annotations
@@ -23,15 +29,74 @@ import torch
 
 from mst_tpu_torch.models.vit_fast import (
     FUSED_MAX_TOKENS,
+    fused_config_supported,
     fused_mst_saliency,
     fused_seq_len_ok,
     has_int8,
     mst_logits,
 )
+from mst_tpu_torch.ops.gradcam import (
+    argmax_logit_gradcam,
+    argmax_logit_grads,
+    grad_cam_map,
+)
+from mst_tpu_torch.ops.saliency import slice_attention, upsample_saliency
 
 FLIP_SUBSETS = [
     s for n in range(4) for s in itertools.combinations((1, 2, 3), n)
 ]  # spatial axes of [C, D, H, W] per-sample layout; 8 subsets incl. ()
+
+
+def _resnet3d_saliency(model, source, mask, plane_mode=None):
+    """Grad-CAM++ of the 3D ResNet baseline (reference `resnet.py:56-122`,
+    `main_predict.py:_pred_resnet`) -> (probs, saliency [B, D, H, W])."""
+    del mask, plane_mode
+    logits, cam = argmax_logit_gradcam(model.features, model.classify,
+                                       source)
+    sal = upsample_saliency(cam[:, 0], source.shape[2:])
+    return torch.softmax(logits.float(), -1), sal
+
+
+def _resnet_slice_saliency(model, source, mask, plane_mode=None):
+    """MST-ResNet: the fusion's slice attention x each slice's Grad-CAM++
+    (reference `resnet.py:200-216`) -> (probs, saliency [B, D, H, W])."""
+    del plane_mode
+    b, d = source.shape[0], source.shape[2]
+    with torch.no_grad():
+        feats = model.slice_features(source)  # [B*D, C', H', W']
+
+    def head(a):
+        emb = model.slice_embed(a).reshape(b, d, -1)
+        return model.fuse(emb, mask, want_probs=True)
+
+    (logits, fusion_probs), grads = argmax_logit_grads(feats, head)
+    cam = grad_cam_map(feats, grads)[:, 0]  # [B*D, H', W']
+    sw = slice_attention(fusion_probs)  # [B, D]
+    cam = cam.reshape(b, d, *cam.shape[1:])
+    sal = upsample_saliency(sw[:, :, None, None] * cam, source.shape[2:])
+    return torch.softmax(logits.float(), -1), sal
+
+
+def _dino_saliency(model, source, mask, plane_mode="last"):
+    if not fused_seq_len_ok(model, *source.shape[-2:]):
+        if has_int8(model):  # JAX's order (:248-255)
+            raise ValueError(
+                "int8-quantized params need the fused serving path; "
+                "this saliency input exceeds FUSED_MAX_TOKENS")
+        raise NotImplementedError(
+            f"saliency of {tuple(source.shape[-2:])} slices (above "
+            f"FUSED_MAX_TOKENS={FUSED_MAX_TOKENS} tokens) is not ported "
+            f"to mst_tpu_torch yet (ROADMAP queue A #16)")
+    return fused_mst_saliency(model, source, mask, plane_mode=plane_mode)
+
+
+def _saliency_fn_for(model):
+    name = type(model).__name__
+    if name == "ResNet3DClassifier":
+        return _resnet3d_saliency
+    if name == "ResNetSliceTrans":
+        return _resnet_slice_saliency
+    return _dino_saliency
 
 
 def make_predict_fn(model, tta: bool = False, with_saliency: bool = True,
@@ -47,22 +112,16 @@ def make_predict_fn(model, tta: bool = False, with_saliency: bool = True,
     predict fn this one takes no params argument. `source` and `mask` may be
     numpy arrays or tensors; they are moved to the model's device."""
     device = next(model.parameters()).device
+    saliency_fn = _saliency_fn_for(model)
+    no_autograd = (torch.inference_mode if fused_config_supported(model)
+                   else torch.no_grad)
 
     def forward(source, mask):
         if not with_saliency:
             return torch.softmax(mst_logits(model, source, mask), -1), None
-        if not fused_seq_len_ok(model, *source.shape[-2:]):
-            if has_int8(model):  # JAX's order (:248-255)
-                raise ValueError(
-                    "int8-quantized params need the fused serving path; "
-                    "this saliency input exceeds FUSED_MAX_TOKENS")
-            raise NotImplementedError(
-                f"saliency of {tuple(source.shape[-2:])} slices (above "
-                f"FUSED_MAX_TOKENS={FUSED_MAX_TOKENS} tokens) is not ported "
-                f"to mst_tpu_torch yet (ROADMAP queue A #16)")
-        return fused_mst_saliency(model, source, mask, plane_mode=plane_mode)
+        return saliency_fn(model, source, mask, plane_mode)
 
-    @torch.inference_mode()
+    @no_autograd()
     def fn(source, mask=None):
         source = torch.as_tensor(source).to(device, torch.float32)
         if mask is not None:

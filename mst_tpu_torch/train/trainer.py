@@ -4,8 +4,10 @@ checkpoints.
 Counterpart of `mst_tpu/train/trainer.py` on one card (`make_train_step`
 of the standard DinoSliceClassifier configuration):
 
-- the step runs `mst_logits(train=True)`, routed by the slice size as the
-  JAX step routes (:237-266): the fused path (every block but the last on
+- the step runs `mst_logits(train=True)`, routed as the JAX step routes
+  (:237-266): a ResNet's own forward with batch statistics, which moves
+  its running BatchNorm statistics (JAX's `mutable=["batch_stats"]`); else
+  by the slice size: the fused path (every block but the last on
   the residual-saving sub-layers, whose backward is a chain of
   hand-written kernels, each block checkpointed with the model's `remat`;
   a frozen encoder on the serving sub-layers under `no_grad`) or, above
@@ -58,8 +60,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mst_tpu_torch.models.convert import params_from_flax, random_flax_params
-from mst_tpu_torch.models.vit_fast import fused_seq_len_ok, mst_logits
+from mst_tpu_torch.models.convert import (
+    initial_batch_stats,
+    params_from_flax,
+    random_flax_params,
+)
+from mst_tpu_torch.models.vit_fast import (
+    check_int8_config,
+    fused_seq_len_ok,
+    int8_config_supported,
+    mst_logits,
+)
 from mst_tpu_torch.utils.checkpoint import (
     TrainStateWriter,
     save_best_checkpoint,
@@ -379,6 +390,8 @@ def make_train_step(state: TrainState, int8_encoder=None):
     fused kernels cannot train on its device raises before any forward work
     (`check_trainable`)."""
     model, optimizer = state.model, state.optimizer
+    if int8_encoder is not None:
+        check_int8_config(model)
     if int8_encoder is not None and not model.freeze:
         raise ValueError(
             "int8_encoder requires a frozen encoder (model.freeze): training "
@@ -402,7 +415,10 @@ def make_train_step(state: TrainState, int8_encoder=None):
 def make_eval_step(model, int8_encoder=None):
     """Validation forward on the serving kernels -> logits [B, classes];
     on `int8_encoder` where the train step has one, so that validation
-    scores the features the slice fusion and head learn on."""
+    scores the features the slice fusion and head learn on. A ResNet
+    normalises by its running BatchNorm statistics."""
+    if int8_encoder is not None:
+        check_int8_config(model)
     encoder_for = _int8_route(model, int8_encoder)
 
     @torch.inference_mode()
@@ -448,7 +464,8 @@ class Trainer:
         them (over the slice fusion and head for a frozen model);
         `optimizer_kw` go to `make_optimizer` (grad_clip, schedule,
         total_steps, warmup_steps, optimizer, accumulate_steps)."""
-        params_from_flax(model, random_flax_params(model, seed))
+        params_from_flax(model, random_flax_params(model, seed),
+                         initial_batch_stats(model))
         return TrainState(model, make_optimizer(
             model.parameters(), learning_rate, weight_decay, **optimizer_kw))
 
@@ -458,13 +475,20 @@ class Trainer:
         the first `int8_calib` train volumes as the loader serves them; the
         DataModule's sampling epoch is restored after, so that the epochs
         (and a --resume) draw what they would have drawn
-        (`mst_tpu/train/trainer.py:469-531`). The model keeps its own
-        encoder: its checkpoints hold the unquantized weights."""
+        (`mst_tpu/train/trainer.py:469-531`). A configuration outside
+        `int8_config_supported` trains unquantized, with JAX's warning.
+        The model keeps its own encoder: its checkpoints hold the
+        unquantized weights."""
         from mst_tpu_torch.ops.fused_int8 import quantize_frozen_encoder_int8
 
         if not model.freeze:
             raise ValueError("--int8 training requires --freeze (only the "
                              "frozen encoder forward may run quantized)")
+        if not int8_config_supported(model):
+            # JAX's fit (:532-534): int8 params run only on the fused gate
+            log.warning("--int8 ignored: fused train path unavailable for "
+                        "this model/backend")
+            return None
         calib = None
         if self.int8_calib:
             epoch, vols = dm._epoch, []

@@ -6,8 +6,12 @@ Counterpart of `mst_tpu/utils/checkpoint.py` (`save_checkpoint`,
 the trainer: `<run_dir>/<name>/params.npz` holds the parameters as the flat
 `/`-keyed flax tree (`models.convert.flax_params_from_torch`), which
 `python -m mst_tpu_torch.serve --params_npz` loads, beside
-`<name>.hparams.json`; `load_hparams` and `load_best_params` read a run
-folder back (`serve.load_run_model`).
+`<name>.hparams.json`; a ResNet's BatchNorm statistics (JAX's
+`batch_stats` collection, which JAX keeps in every checkpoint,
+`mst_tpu/utils/checkpoint.py:127-128, 158-159, 198-199`) go beside it into
+`<name>/batch_stats.npz` with the flax keys. `load_hparams`,
+`load_best_params` and `load_best_batch_stats` read a run folder back
+(`serve.load_run_model`).
 
 `save_train_state` / `restore_train_state` keep the full train state of
 `--resume` (the counterparts of `mst_tpu/utils/checkpoint.py:110, 137`):
@@ -19,6 +23,7 @@ its update count `count` (the schedule's), with gradient accumulation the
 running mean `acc_grads/<key>` and `mini_step`, and the train state's
 micro-batch count `state_step`, `<name>.meta.json` (the fit loop's counters:
 epoch, best, best_epoch, stale) and `<name>.hparams.json`. A
+`<name>/batch_stats.npz` where the model has BatchNorm. A
 `TrainStateWriter` copies the state to the host on the caller's thread,
 then writes it on a background thread (the JAX `use_async=True` save).
 Every file is written under a temporary name and renamed into place, the
@@ -42,6 +47,7 @@ from mst_tpu_torch.models import convert
 BEST_POINTER = "best_checkpoint.json"
 PARAMS_FILE = "params.npz"
 OPTIMIZER_FILE = "optimizer.npz"
+BATCH_STATS_FILE = "batch_stats.npz"
 STATE_STEP = "state_step"
 COUNT = "count"
 ACC_GRADS = "acc_grads"
@@ -50,11 +56,15 @@ MINI_STEP = "mini_step"
 
 def save_checkpoint(run_dir, name: str, model,
                     hparams: Optional[Dict] = None) -> Path:
-    """Write `model`'s parameters to <run_dir>/<name>/params.npz."""
+    """Write `model`'s parameters to <run_dir>/<name>/params.npz (and a
+    ResNet's BatchNorm statistics to batch_stats.npz)."""
     run_dir = Path(run_dir)
     path = run_dir / name
     path.mkdir(parents=True, exist_ok=True)
     np.savez(path / PARAMS_FILE, **convert.flax_params_from_torch(model))
+    stats = convert.flax_batch_stats_from_torch(model)
+    if stats:
+        np.savez(path / BATCH_STATS_FILE, **stats)
     if hparams is not None:
         (run_dir / f"{name}.hparams.json").write_text(
             json.dumps(hparams, indent=2))
@@ -84,10 +94,21 @@ def load_hparams(run_dir) -> Optional[Dict]:
     return json.loads(p.read_text()) if p.exists() else None
 
 
+def _load_npz(path: Path) -> Dict[str, np.ndarray]:
+    with np.load(path, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
 def load_best_params(run_dir) -> Dict[str, np.ndarray]:
     """The best checkpoint's flat `/`-keyed flax parameter dict."""
-    with np.load(best_params_path(run_dir), allow_pickle=False) as z:
-        return {k: z[k] for k in z.files}
+    return _load_npz(best_params_path(run_dir))
+
+
+def load_best_batch_stats(run_dir) -> Optional[Dict[str, np.ndarray]]:
+    """The best checkpoint's flat BatchNorm statistics, or None for a
+    model without BatchNorm."""
+    path = best_params_path(run_dir).with_name(BATCH_STATS_FILE)
+    return _load_npz(path) if path.exists() else None
 
 
 # -- the full train state (`last`, `--resume`) --------------------------------
@@ -148,6 +169,7 @@ class TrainStateWriter:
         self.wait()
         t0 = time.perf_counter()
         params = convert.flax_params_from_torch(state.model)
+        stats = convert.flax_batch_stats_from_torch(state.model)
         opt = _optimizer_arrays(state.model, state.optimizer)
         opt[STATE_STEP] = np.asarray(state.step, np.int64)
         copy_s = time.perf_counter() - t0
@@ -161,6 +183,8 @@ class TrainStateWriter:
             tmp.mkdir(parents=True)
             np.savez(tmp / PARAMS_FILE, **params)
             np.savez(tmp / OPTIMIZER_FILE, **opt)
+            if stats:
+                np.savez(tmp / BATCH_STATS_FILE, **stats)
             if final.exists():
                 os.replace(final, old)
             os.replace(tmp, final)
@@ -199,14 +223,16 @@ def restore_train_state(run_dir, name: str, state):
     """Load <run_dir>/<name>/ (written by `save_train_state`) into `state`
     in place: parameters, the optimizer's per-parameter state, its update
     count (a file without one: the micro-batch count), the accumulator's
-    mean and mini-step, the micro-batch count. Returns (state, meta)."""
+    mean and mini-step, the micro-batch count, a ResNet's BatchNorm
+    statistics. Returns (state, meta)."""
     import torch
 
     path = Path(run_dir) / name
-    with np.load(path / PARAMS_FILE, allow_pickle=False) as z:
-        convert.params_from_flax(state.model, {k: z[k] for k in z.files})
-    with np.load(path / OPTIMIZER_FILE, allow_pickle=False) as z:
-        opt = {k: z[k] for k in z.files}
+    stats = path / BATCH_STATS_FILE
+    convert.params_from_flax(
+        state.model, _load_npz(path / PARAMS_FILE),
+        _load_npz(stats) if stats.exists() else None)
+    opt = _load_npz(path / OPTIMIZER_FILE)
     optimizer = state.optimizer
     state.step = int(opt.pop(STATE_STEP))
     optimizer.count = int(opt.pop(COUNT, state.step))
