@@ -490,6 +490,33 @@ phase 8's launch counts. Then `train ->
 predict --run_folder --use_tta --get_attention -> serve --run_folder` for
 MST-ResNet34 and a `--rotary LiRE` ViT-S/14.
 
+Phase 52 drives the serving artifacts (queue A #14; no kernel of its
+own): `python -m mst_tpu_torch.export`'s `main` on phase 9's run folder
+(ViT-S/14 bf16 at buckets 1 and 8; `rollout` saliency with the 8-flip TTA
+at bucket 1; int8 dynamic and static, calibrated on the run's val split,
+at bucket 8; 518 px slices at bucket 1, the composed path), and
+`save_exported` of a seeded MST-DINOv3 ViT-S/16 at bucket 8 and of a
+seeded 3D ResNet50 with BatchNorm statistics of its own, its Grad-CAM++
+program with the TTA at bucket 1. Each loaded program's graph calls the
+registered kernel ops (`torch.ops.mst_tpu_torch.*`) as many times as the
+live forward launches their kernels, and no node where a sub-layer or the
+composed attention core is called computes in aten ops (the node stack
+traces); its probs and maps, uncaptured and replayed from its CUDA graph
+twice, are the live model's bits, and the uncaptured call launches the
+live forward's kernels. A fresh `python -X importtime -m
+mst_tpu_torch.serve --exported` process (booting while the rest of the
+phase runs) answers a POST with the live model's bits on the same padded
+batch and imports no `mst_tpu_torch.models` and no JAX; the phase prints
+the seconds from its start to that answer, asked as soon as it listened,
+and of them those to its "ready" line and those of the POST. The bf16 and
+int8 artifacts re-pointed at another seeded tree give a live model's bits
+of that tree (every `q8t == q8.T`). Then, at ViT-S B=8 bf16 and int8
+static, the median of 5 host-timed calls with their spread (and the
+allocator's retries, the garbage collections and the other threads' CPU
+seconds in them, beside the host's load): the live forward, the loaded
+program without a graph, and the graph replay; and each artifact's files'
+bytes.
+
 Each phase prints its wall time. The line before the last is `{"kernels":
 [...]}`: per kernel its launches on the main path, its largest error, its
 time and its plain version's, the bound (the least time the card could
@@ -503,7 +530,9 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import csv
+import datetime
 import functools
+import gc
 import gzip
 import hashlib
 import inspect
@@ -514,6 +543,8 @@ import math
 import shutil
 import os
 import re
+import signal
+import socket
 import statistics
 import struct
 import subprocess
@@ -615,6 +646,10 @@ SAL_CHEAP_REL = 0.01  # saliency, MST_NO_CHEAP_LAST row vs the cheap row
 SAL_I8_RATIO = 1.5
 PLANE_MODES = ("last", "rollout", "rollout_abnar")
 N_CASES = 8  # Synthetic test volumes the predict CLI scores
+# ... and those phase 13's `predict --save_saliency` writes as NIfTI (~3.7 s
+# a case, gzip level 9): 4 since phase 52 came, 8 before, to keep the run
+# inside its limit
+N_CASES_SAL = 4
 # DINOv3 phases (15-20): ViT-S/16, 4 registers, 14 x 14 patches at 224 px.
 MODEL3 = "DinoV3ClassifierSlice"
 S3, GRID3, PREFIX3, EPS3 = 201, (14, 14), 5, 1e-5
@@ -672,8 +707,10 @@ LN_GEMM_F = 4096
 RAGGED_M = (771, 1)
 # Phase 40's times: PAIR_ROUNDS rounds of PER_PAIR calls per pair of CUDA
 # events (one call per pair let the order of the calls, and the card's
-# state, move a reading by 5-25%).
-PAIR_ROUNDS, PER_PAIR = 10, 10
+# state, move a reading by 5-25%). Six rounds since phase 52 came, ten
+# before, to keep the run inside its limit; `time_ms` takes 10 calls (20
+# before) for the same reason.
+PAIR_ROUNDS, PER_PAIR = 6, 10
 WMMA_MS = {"ln_gemm[qkv,E=1536]": 18.926, "ln_gemm_swiglu[w12]": 34.879,
            "ln_gemm_swiglu_train[w12]": 35.183, "ln_gemm[qkv]": 0.938,
            "ln_gemm[fc1,gelu_tanh]": 1.272}
@@ -885,7 +922,7 @@ def spread_volumes(rng, predict, n: int, pool: int = 48) -> np.ndarray:
     return cand[pick_spread(row_gaps(probs), probs, n)]
 
 
-def time_ms(fn, n: int = 20, warmup: int = 3) -> float:
+def time_ms(fn, n: int = 10, warmup: int = 3) -> float:
     """Median device time of one call, CUDA events around each call."""
     for _ in range(warmup):
         fn()
@@ -2367,9 +2404,11 @@ def check_machine_code(tag, build_log, build_mod, lib_path) -> None:
     sass = subprocess.run(
         [str(Path(nvcc).parent / "cuobjdump"), "-sass", str(lib_path)],
         capture_output=True, text=True, check=True, timeout=300).stdout
+    # the SASS split into (function, body) once for the checks below
+    functions = re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)", sass,
+                           re.S)
     counts = {k: {} for k in SASS_GEMMS}
-    for fn, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)",
-                               sass, re.S):
+    for fn, body in functions:
         for k in SASS_GEMMS:
             if k in fn:
                 counts[k][fn] = (body.count("HGMMA"), body.count("UTMALDG"),
@@ -2388,8 +2427,7 @@ def check_machine_code(tag, build_log, build_mod, lib_path) -> None:
                       f"{fn}: {hmma} HMMA (WMMA / mma.sync) instructions left")
         check(len(fns) == SASS_GEMMS[k], f"{k} instances in SASS: {len(fns)}")
     i8 = {k: {} for k in SASS_I8}
-    for fn, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)",
-                               sass, re.S):
+    for fn, body in functions:
         for k in SASS_I8:
             if k in fn:
                 i8[k][fn] = body
@@ -2407,8 +2445,7 @@ def check_machine_code(tag, build_log, build_mod, lib_path) -> None:
                   f"{fn}: not the int8 wgmma on TMA loads ({n})")
         check(len(fns) == SASS_I8[k], f"{k} instances in SASS: {len(fns)}")
     bulk = {k: {} for k in SASS_BULK}
-    for fn, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)",
-                               sass, re.S):
+    for fn, body in functions:
         for k in SASS_BULK:
             if k in fn:
                 bulk[k][fn] = {op: body.count(op) for op in ("UBLKCP",
@@ -2422,8 +2459,7 @@ def check_machine_code(tag, build_log, build_mod, lib_path) -> None:
                   f"{fn}: no bulk copy or TMA load ({n})")
         check(len(fns) == SASS_BULK[k], f"{k} instances in SASS: {len(fns)}")
     tools = {k: {} for k in SASS_TOOLS}
-    for fn, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)",
-                               sass, re.S):
+    for fn, body in functions:
         for k in SASS_TOOLS:
             if k in fn:
                 tools[k][fn] = {op: body.count(op) for op in (
@@ -6620,6 +6656,406 @@ def model_families_phase(tag, dev, fb, per_fwd, per_step, plain_sublayers,
     print(f"{tag} phase 51: {time.perf_counter() - t_phase:.1f} s")
 
 
+# The registered serving ops (`torch.ops.mst_tpu_torch.<op>`) and the kernel
+# wrappers whose launches each op's node stands for.
+OP_WRAPPERS = {
+    "ln_rows": ("ln_rows",), "gemm_act": ("ln_gemm",),
+    "gemm_swiglu": ("ln_gemm_swiglu",),
+    "mhsa": tuple(f"{w}{r}" for w in ("mhsa", "mhsa_with_row",
+                                     "mhsa_rollout", "mhsa_abnar")
+                  for r in ("", "_rope")),
+    "gemm_residual": ("gemm_residual",), "ln_quant_rows": ("ln_quant_rows",),
+    "gemm_i8": ("ln_gemm_i8", "ln_gemm_i8_swiglu"),
+    "quant_rows": ("quant_rows",), "gemm_i8_residual": ("gemm_i8_residual",),
+    "flash_fwd": ("flash_fwd",)}
+# Nodes that only reshape, cast or unpack, allowed beside the registered ops
+# where a fused sub-layer or the composed attention core is called.
+SHAPE_OPS = ("getitem", "aten.to.", "aten.reshape.", "aten.view.",
+             "aten.transpose.", "aten.unbind.", "aten.select.",
+             "aten._assert_tensor_metadata.", "aten.expand.")
+
+
+def host_spread(fn, n: int = 5):
+    """(median, min, max) host ms of `fn()` ending in a synchronize, after
+    one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(n):
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t1) * 1e3)
+    return statistics.median(ts), min(ts), max(ts)
+
+
+def kernel_sites():
+    """{(file, line)} of the lines that call a fused sub-layer
+    (`layers.Block.forward` / `_forward_i8`) or the composed path's
+    attention core (`layers.Attention.forward`): there a graph node must be
+    a registered op or a shape op."""
+    from mst_tpu_torch.models import layers
+
+    sites = set()
+    for fn in (layers.Block.forward, layers.Block._forward_i8,
+               layers.Attention.forward):
+        lines, first = inspect.getsourcelines(fn)
+        sites |= {(inspect.getsourcefile(fn), first + i)
+                  for i in range(len(lines))}
+    return sites
+
+
+def graph_ops(ep, sites) -> tuple:
+    """(registered op -> node count, nodes at `sites` that compute in aten
+    ops, i.e. a sub-layer or attention core in its plain version, and the
+    registered op nodes whose stack trace does not lead to `sites`)."""
+    ops, plain, unsited = {}, [], 0
+    for node in ep.graph.nodes:
+        if node.op != "call_function":
+            continue
+        target = str(node.target)
+        frames = re.findall(r'File "([^"]+)", line (\d+)',
+                            node.meta.get("stack_trace") or "")
+        at_site = bool(frames) and (frames[-1][0],
+                                    int(frames[-1][1])) in sites
+        if target.startswith("mst_tpu_torch."):
+            op = target.split(".")[1]
+            ops[op] = ops.get(op, 0) + 1
+            unsited += not at_site
+        elif (at_site and not target.startswith(SHAPE_OPS)
+              and not target.endswith("getitem>")):
+            plain.append(target)
+    return ops, plain, unsited
+
+
+def first_answer(proc, port: int, vol, out) -> None:
+    """POST `vol` to the server `proc` as soon as it listens on `port`
+    (within 300 s): sets `out.answer`, `out.seconds` (the POST's own) and
+    `out.t_answer` (its `time.perf_counter()`)."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 300 and proc.poll() is None:
+        t_post = time.perf_counter()
+        try:
+            out.answer = post_volume(port, vol)
+        except OSError:  # not listening yet
+            time.sleep(0.2)
+            continue
+        out.t_answer = time.perf_counter()
+        out.seconds = out.t_answer - t_post
+        return
+
+
+def export_phase(tag, dev, fb, run_dir) -> None:
+    """Phase 52 (see the module docstring): the serving artifacts."""
+    stamp(tag, "52")
+    t_phase = time.perf_counter()
+    base = ROOT / "build" / "chip_smoke_export"  # gitignored
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    server = SimpleNamespace(proc=None, log=None)
+    try:
+        export_checks(tag, dev, fb, run_dir, base, server)
+    finally:  # however the phase ended
+        stop_server(server)
+    print(f"{tag} phase 52: {time.perf_counter() - t_phase:.1f} s")
+
+
+def stop_server(server) -> None:
+    """Stop the `serve --exported` process `server.proc` (Ctrl-C, then a
+    kill after 60 s), once."""
+    if server.proc is None:
+        return
+    server.proc.send_signal(signal.SIGINT)
+    try:
+        server.proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        server.proc.kill()
+        server.proc.wait()
+    server.log.close()
+    server.proc = None
+
+def export_checks(tag, dev, fb, run_dir, base, server) -> None:
+    """Phase 52's exports and checks; `server.proc` is the `serve
+    --exported` process it starts (`server.log` its log file)."""
+    from mst_tpu_torch import export as ex
+    from mst_tpu_torch.models.convert import (
+        initial_batch_stats,
+        params_from_flax,
+        random_flax_params,
+    )
+    from mst_tpu_torch.ops import fused_int8 as fq
+    from mst_tpu_torch.registry import get_model
+    from mst_tpu_torch.serve import build_model, calibration_volumes, parse_args
+    from mst_tpu_torch.train.predictor import make_predict_fn
+
+    synth = dict(shape_cdhw=(1, DEPTH_SLICES, PX, PX), num_samples=BATCH)
+    run = ["--run_folder", str(run_dir)]
+    rng = np.random.default_rng(SEED + 52)
+    vols = candidate_volumes(rng, BATCH)
+    first = SimpleNamespace(answer=None, seconds=None, t_answer=None)
+    # -- export: phase 9's run folder through the CLI, DINOv3 by the API --
+    exports = {
+        "bf16": (["--batch_sizes", "1,8"], {}),
+        "rollout_tta": (["--batch_sizes", "1", "--with_saliency",
+                         "--plane_mode", "rollout", "--use_tta"], {}),
+        "int8": (["--batch_sizes", "8", "--int8"], {}),
+        "int8_static": (["--batch_sizes", "8", "--int8", "--int8_calib",
+                         str(BATCH)], synth),
+        "518px": (["--batch_sizes", "1", "--hw", str(PX_LONG)], {}),
+    }
+    arts, secs = {}, {}
+    log_path = base / "serve_exported.log"
+    for name, (argv, kw) in exports.items():
+        t1 = time.perf_counter()
+        arts[name] = ex.main(run + ["--out", str(base / name), *argv], **kw)
+        secs[name] = time.perf_counter() - t1
+        if server.proc is None:
+            # `serve --exported` boots in a fresh process while the other
+            # exports and the checks below run
+            with socket.socket() as s_:
+                s_.bind(("127.0.0.1", 0))
+                port = s_.getsockname()[1]
+            server.log = open(log_path, "w")
+            t_start, wall_start = time.perf_counter(), time.time()
+            server.proc = subprocess.Popen(
+                [sys.executable, "-X", "importtime", "-m",
+                 "mst_tpu_torch.serve", "--exported", str(arts[name]),
+                 "--port", str(port), "--batch_size", str(BATCH),
+                 "--max_wait_ms", "1"],
+                cwd=ROOT, stdout=server.log, stderr=subprocess.STDOUT)
+            # ... and is asked as soon as it listens
+            poster = threading.Thread(
+                target=first_answer, args=(server.proc, port, vols[0], first),
+                daemon=True)
+            poster.start()
+    proc = server.proc
+    # phase 16's seeded MST-DINOv3 ViT-S/16, O(1) LayerScale
+    flat3 = random_flax_params(get_model(MODEL3), SEED)
+    for key in flat3:
+        if key.endswith("/gamma"):
+            flat3[key] = (1.0 + 0.1 * rng.standard_normal(flat3[key].shape)
+                          ).astype(np.float32)
+    model3 = params_from_flax(get_model(MODEL3, dtype=torch.bfloat16),
+                              flat3).to(dev).eval()
+    t1 = time.perf_counter()
+    arts["dinov3"] = ex.save_exported(base / "dinov3", model3,
+                                      batch_sizes=[BATCH])
+    secs["dinov3"] = time.perf_counter() - t1
+    # phase 51's 3D ResNet50, seeded, with BatchNorm statistics of its own:
+    # the Grad-CAM++ program (its gradient in closed form) with the TTA
+    resnet = get_model("ResNet", dtype=torch.bfloat16)
+    stats = {k: (v + 0.1 * rng.standard_normal(v.shape) if k.endswith(
+        "/mean") else v * (1.0 + 0.5 * np.abs(rng.standard_normal(v.shape)))
+                 ).astype(np.float32)
+             for k, v in initial_batch_stats(resnet).items()}
+    resnet = params_from_flax(resnet, random_flax_params(resnet, SEED),
+                              stats).to(dev).eval()
+    t1 = time.perf_counter()
+    arts["resnet3d"] = ex.save_exported(base / "resnet3d", resnet,
+                                        batch_sizes=[1], with_saliency=True,
+                                        tta=True)
+    secs["resnet3d"] = time.perf_counter() - t1
+    print(f"{tag} export seconds (python -m mst_tpu_torch.export's main on "
+          f"phase 9's run folder; DINOv3 ViT-S/16 and the 3D ResNet50 by "
+          f"save_exported): "
+          f"{ {k: round(v, 3) for k, v in secs.items()} }")
+    t_phase = time.perf_counter()
+    for name, art in arts.items():
+        sizes = {f.name: f.stat().st_size for f in sorted(art.iterdir())}
+        print(f"{tag} artifact {name}: bytes {sizes}")
+        check(all(sizes[f] < sizes["params.npz"] / 10 for f in sizes
+                  if f.endswith(".pt2")), f"{name}: a .pt2 holds weights")
+
+    # -- the live models the artifacts were exported from ------------------
+    live = build_model(parse_args(run))
+    live8 = fq.quantize_mst_int8(live)
+    live8s = fq.quantize_mst_int8(live, calibration_volumes(run_dir, BATCH,
+                                                            **synth))
+    src8 = torch.from_numpy(vols).to(dev)
+    long1 = torch.from_numpy(rng.standard_normal(
+        (1, 1, DEPTH_SLICES, PX_LONG, PX_LONG), dtype=np.float32)).to(dev)
+    cases = {  # name: (artifact, live predict fn, bucket, volumes)
+        "bf16 b8": ("bf16", make_predict_fn(live, with_saliency=False), 8,
+                    src8),
+        "bf16 b1": ("bf16", make_predict_fn(live, with_saliency=False), 1,
+                    src8[:1]),
+        "rollout_tta b1": ("rollout_tta", make_predict_fn(
+            live, tta=True, plane_mode="rollout"), 1, src8[:1]),
+        "int8 b8": ("int8", make_predict_fn(live8, with_saliency=False), 8,
+                    src8),
+        "int8_static b8": ("int8_static", make_predict_fn(
+            live8s, with_saliency=False), 8, src8),
+        "dinov3 b8": ("dinov3", make_predict_fn(model3, with_saliency=False),
+                      8, src8),
+        "518px b1": ("518px", make_predict_fn(live, with_saliency=False), 1,
+                     long1),
+        "resnet3d gradcam++_tta b1": ("resnet3d", make_predict_fn(
+            resnet, tta=True), 1, src8[:1]),
+    }
+    sites = kernel_sites()
+    loaded = {}
+    for label, (name, live_fn, b, src) in cases.items():
+        if name not in loaded:  # with CUDA graphs, and without
+            graph_p = ex.load_exported(arts[name])
+            plain_p = ex.load_exported(arts[name], cuda_graphs=False)
+            plain_p._programs = graph_p._programs  # one load of each program
+            loaded[name] = graph_p, plain_p
+        graph_p, plain_p = loaded[name]
+        fb.reset_launch_counts()
+        ref_p, ref_s = live_fn(src, None)
+        torch.cuda.synchronize()
+        want = nonzero(fb.launch_counts())
+        ref_p = ref_p.float().cpu().numpy()
+        ref_s = None if ref_s is None else ref_s.float().cpu().numpy()
+        ops, plain, unsited = graph_ops(graph_p._program(b), sites)
+        want_ops = {op: sum(want.get(w, 0) for w in ws)
+                    for op, ws in OP_WRAPPERS.items()}
+        print(f"{tag} export {label}: graph ops {ops}; the live forward's "
+              f"launches {want}; aten compute nodes where a sub-layer or "
+              f"the attention core is called: {plain}")
+        check(ops == nonzero(want_ops), f"{label}: graph ops {ops} != the "
+              f"live launches {nonzero(want_ops)}")
+        check(not plain, f"{label}: plain sub-layer ops in the graph {plain}")
+        check(unsited == 0, f"{label}: {unsited} registered op nodes whose "
+              f"stack trace does not reach a sub-layer call")
+        fb.reset_launch_counts()
+        outs = [plain_p.predict(src)]
+        torch.cuda.synchronize()
+        got = nonzero(fb.launch_counts())
+        outs += [graph_p.predict(src), graph_p.predict(src)]
+        for i, (p_, s_) in enumerate(outs):
+            what = ("uncaptured", "graph replay", "graph replay again")[i]
+            same = np.array_equal(p_, ref_p) and (
+                ref_s is None or np.array_equal(s_, ref_s))
+            d_p = float(np.abs(p_ - ref_p).max())
+            d_s = None if ref_s is None else float(np.abs(s_ - ref_s).max())
+            print(f"{tag} export {label} {what}: probs[0] {p_[0].tolist()} "
+                  f"max|loaded - live| probs {d_p:.6g} maps {d_s}; the same "
+                  f"bits {same}")
+            check(same, f"{label} {what}: not the live model's bits "
+                  f"({d_p}, {d_s})")
+        print(f"{tag} export {label}: the uncaptured call's launches {got} "
+              f"({time.perf_counter() - t_phase:.1f} s into the checks)")
+        check(got == want, f"{label}: loaded program launches {got} != "
+              f"{want}")
+
+    # -- re-pointed artifacts ------------------------------------------------
+    flat1 = random_flax_params(live, SEED + 1)
+    for key in flat1:
+        if key.endswith("/gamma"):
+            flat1[key] = (1.0 + 0.1 * rng.standard_normal(
+                flat1[key].shape)).astype(np.float32)
+    npz1 = base / "other_params.npz"
+    np.savez(npz1, **flat1)
+    live1 = build_model(parse_args(["--params_npz", str(npz1)]))
+    live1_8 = fq.quantize_mst_int8(live1)
+    for name, mdl, params in (
+            ("bf16", live1, flat1),
+            ("int8", live1_8, ex._program_tree(live1_8)[0])):
+        graph_p = loaded[name][0]
+        ref_p, _ = make_predict_fn(mdl, with_saliency=False)(src8, None)
+        p_, _ = graph_p.predict(src8, params=params)
+        same = np.array_equal(p_, ref_p.float().cpu().numpy())
+        inputs = graph_p.program_inputs(params)
+        q8t = [k for k in inputs if k.endswith("/q8t")]
+        q8t_ok = all(torch.equal(inputs[k], inputs[k[:-1]].t()) for k in q8t)
+        print(f"{tag} export {name} re-pointed at another seeded tree: "
+              f"probs[:, 1] {p_[:, 1].tolist()}, the same bits as a live "
+              f"model of that tree {same}; {len(q8t)} q8t == q8.T {q8t_ok}")
+        check(same and q8t_ok, f"re-pointed {name}: {same}, q8t {q8t_ok}")
+        back, _ = graph_p.predict(src8)  # and back to the artifact's own
+        check(np.array_equal(back, loaded[name][1].predict(src8)[0]),
+              f"{name}: back on its own tree")
+    for name in ("int8_static",):
+        inputs = loaded[name][0].program_inputs()
+        q8t = [k for k in inputs if k.endswith("/q8t")]
+        check(q8t and all(torch.equal(inputs[k], inputs[k[:-1]].t())
+                          for k in q8t), f"{name}: q8t != q8.T after load")
+
+    # -- serve --exported in a fresh process over HTTP ----------------------
+    # Its cold start: the seconds from its start to its first answer, asked
+    # as soon as it listened (the first POST loads the bucket's program and
+    # captures its graph), all beside the work above.
+    poster.join(timeout=max(1.0, 300 - (time.perf_counter() - t_start)))
+    answer = first.answer
+    check(answer is not None, "serve --exported: no answer in 300 s: "
+          + log_path.read_text()[-2000:])
+    check(proc.poll() is None, "serve --exported exited: "
+          + log_path.read_text()[-2000:])
+    cold = first.t_answer - t_start
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                timeout=60) as r:
+        health = json.loads(r.read())
+    lines = log_path.read_text().splitlines()
+    imported = [ln.rsplit("|", 1)[-1].strip() for ln in lines
+                if ln.startswith("import time:")]
+    banned = [m for m in imported if m.startswith("mst_tpu_torch.models")
+              or m.split(".")[0] in ("jax", "jaxlib", "mst_tpu")]
+    pad8 = np.repeat(vols[:1], BATCH, axis=0)
+    ref_srv, _ = cases["bf16 b8"][1](pad8, None)
+    ref_srv = ref_srv[0].float().cpu().numpy()
+    same = np.array_equal(np.asarray(answer["probs"], np.float32), ref_srv)
+    logged = [ln for ln in lines if ln[:2] == "20"]  # its logging lines
+    ready = [ln for ln in logged if "ready" in ln]
+    check(len(ready) == 1, f"serve --exported logged {logged}")
+    boot = datetime.datetime.strptime(
+        ready[0][:23], "%Y-%m-%d %H:%M:%S,%f").timestamp() - wall_start
+    print(f"{tag} serve --exported (a fresh process, booting while the "
+          f"other exports and the checks above ran): first answer "
+          f"{cold:.3f} s after its start: ready {boot:.3f} s after its "
+          f"start, then its first POST (the program's load and graph "
+          f"capture, and the forward) {first.seconds:.3f} s: {answer}; its "
+          f"log {logged}; the "
+          f"live model on the same padded batch {ref_srv.tolist()}, the "
+          f"same bits {same}; "
+          f"healthz {health}; {len(imported)} modules imported, of "
+          f"mst_tpu_torch.models / jax: {banned}")
+    check(same and not banned and health["exported"] == str(arts["bf16"])
+          and health["int8"] is None
+          and health["model"] == "DinoSliceClassifier",
+          f"serve --exported: {answer}, {health}, {banned}")
+    check(len(imported) > 100 and "mst_tpu_torch.export" in imported,
+          "serve --exported: the import log is not the server's")
+
+    stop_server(server)  # the times below run on a quiet host
+
+    # -- times: ViT-S B=8, bf16 and int8 static ------------------------------
+    # Beside each: the caching allocator's retries (a cudaFree of its cache
+    # and a new cudaMalloc), Python's garbage collections, and the CPU
+    # seconds this process's other threads took, in its calls.
+    def diagnosed(fn):
+        retries = torch.cuda.memory_stats()["num_alloc_retries"]
+        collections = sum(g["collections"] for g in gc.get_stats())
+        cpu, own = time.process_time(), time.thread_time()
+        spread = host_spread(fn)
+        return (*spread,
+                torch.cuda.memory_stats()["num_alloc_retries"] - retries,
+                sum(g["collections"] for g in gc.get_stats()) - collections,
+                time.process_time() - cpu - (time.thread_time() - own))
+
+    print(f"{tag} time export: device memory held "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, reserved "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB; the host's load "
+          f"average {os.getloadavg()}; this process's threads "
+          f"{sorted(t.name for t in threading.enumerate())}")
+    for name, mdl in (("bf16", live), ("int8_static", live8s)):
+        pred = make_predict_fn(mdl, with_saliency=False)
+        graph_p, plain_p = loaded[name]
+        times = {
+            "live forward": diagnosed(lambda: pred(src8, None)),
+            "loaded program, no graph": diagnosed(
+                lambda: plain_p.predict(src8)),
+            "CUDA graph replay": diagnosed(lambda: graph_p.predict(src8)),
+        }
+        for what, (med, lo, hi, retries, collections, others) in (
+                times.items()):
+            print(f"{tag} time export {name} B={BATCH} {what}: {med:.3f} ms "
+                  f"(median of 5; {lo:.3f}-{hi:.3f}) = "
+                  f"{BATCH / med * 1e3:.3f} vol/s; allocator retries "
+                  f"{retries}, garbage collections {collections}, the other "
+                  f"threads' CPU {others:.3f} s")
+
+
 def main() -> int:
     if not (ROOT / "mst_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke.py must run from a checkout of the "
@@ -7687,10 +8123,11 @@ def main() -> int:
         check_launches(cli_counts, want, what)
 
     check_predict_cli(
-        "predict CLI", run_dir, ROOT / "build" / "chip_smoke_predict", N_CASES,
-        {**zero, "ln_gemm": 2 * n_full * N_CASES,
-         "mhsa_rollout": n_full * N_CASES,
-         "gemm_residual": 2 * n_full * N_CASES})
+        "predict CLI", run_dir, ROOT / "build" / "chip_smoke_predict",
+        N_CASES_SAL,
+        {**zero, "ln_gemm": 2 * n_full * N_CASES_SAL,
+         "mhsa_rollout": n_full * N_CASES_SAL,
+         "gemm_residual": 2 * n_full * N_CASES_SAL})
 
     # -- 14. saliency times ---------------------------------------------------
     stamp(tag, "14")
@@ -9595,6 +10032,12 @@ def main() -> int:
     # ======================================================================
     model_families_phase(tag, dev, fb, per_fwd, per_step, plain_sublayers,
                          plain_train_sublayers)
+
+    # ======================================================================
+    # Phase 52: the serving artifacts (`python -m mst_tpu_torch.export`,
+    # `serve --exported`)
+    # ======================================================================
+    export_phase(tag, dev, fb, run_dir)
 
     # TPU kernels: _attn_any_kernel at fused_block.py:326, _mlp_kernel at
     # :400, their train forwards _attn_train_kernel :424 and

@@ -147,7 +147,8 @@ def random_flax_params(model: torch.nn.Module, seed: int) -> dict:
             arr = rng.standard_normal(shape) * 0.02
         elif leaf == "kernel":
             fan_in = int(np.prod(shape[:-1]))
-            arr = rng.standard_normal(shape) / np.sqrt(fan_in)
+            arr = rng.standard_normal(shape)
+            arr /= np.sqrt(fan_in)  # in place: giant2 draws 1.15 B values
         elif leaf == "scale":
             arr = np.ones(shape)
         elif leaf == "gamma":

@@ -9,7 +9,8 @@ Counterpart of `mst_tpu/models/resnet.py`:
   map is the Grad-CAM target.
 - `ResNet3DClassifier`: the 3D baseline (`--model ResNet`, variant 50):
   backbone, global average pool, linear `fc`; `features` / `classify` feed
-  `ops/gradcam.argmax_logit_gradcam`.
+  its Grad-CAM++ (`train/predictor._resnet3d_saliency`, the gradient of
+  the linear head in closed form).
 - `ResNetSliceTrans`: MST-ResNet (`--model ResNetSliceTrans`, variant 34):
   the 2D backbone on every slice (gray -> RGB), the mean of each slice's
   map, a volume CLS token (init normal(1)), one pre-norm fusion layer

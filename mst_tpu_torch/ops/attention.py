@@ -31,10 +31,20 @@ sub-layers are gated off (S = 1 + registers + patches above
 
 A CUDA tensor launches the kernel (bf16, head dim 64: every ViT size,
 sm_scale > 0) and counts the launch; a CPU tensor takes the plain version.
-There is no third path, and no fallback from one to the other. The LSE is
-base 2 in the scaled units of the softmax (`m + log2(l)` of s = q.k *
-sm_scale * log2(e)), as `mhsa` keeps it; JAX's natural-log rows are this /
-log2(e), and only the port's own backward reads them. The JAX bias /
+There is no third path, and no fallback from one to the other.
+
+The serving kernels are also registered ops, `torch.ops.mst_tpu_torch.*`
+(`flash_fwd` here, the fused sub-layers' in `fused_block.py` and
+`fused_int8.py`): the CUDA implementation of each is its ctypes launch,
+the CPU one its plain version, and a fake one gives the output's shape,
+dtype and strides. The wrappers call their ops while `torch.export`
+traces a program (`mst_tpu_torch/export.py`, which records the ops in the
+graph) and only then; otherwise they launch directly, or on the CPU run
+the plain version, which keeps its autograd (the ops have no backward).
+
+The LSE is base 2 in the scaled units of the softmax (`m + log2(l)` of
+s = q.k * sm_scale * log2(e)), as `mhsa` keeps it; JAX's natural-log rows
+are this / log2(e), and only the port's own backward reads them. The JAX bias /
 `return_weights` form of `attention_reference` serves saliency above 512
 tokens, which is ROADMAP queue A #16.
 """
@@ -66,6 +76,13 @@ def _on_cuda(x: torch.Tensor) -> bool:
         return False
     raise NotImplementedError(
         f"mst_tpu_torch kernels run on CUDA or CPU tensors, got {x.device}")
+
+
+def exporting() -> bool:
+    """True while `torch.export` traces: the serving kernel wrappers then
+    call their registered ops, which the graph records, and no launch or
+    sub-layer call is counted."""
+    return torch.compiler.is_exporting()
 
 
 def _f(t):
@@ -236,9 +253,17 @@ def _stream(x):
 
 def flash_fwd(q, k, v, sm_scale=None, want_lse: bool = False):
     """o [B, H, S, hd] (laid out [B, S, H, hd]) of softmax attention; with
-    `want_lse` also the base-2 LSE [B, H, S] f32."""
+    `want_lse` also the base-2 LSE [B, H, S] f32. The serving form (no LSE)
+    is the registered op `mst_tpu_torch::flash_fwd`."""
+    if exporting() and not want_lse:
+        return _flash_fwd_op(q, k, v, _scale(q, sm_scale))
     if not _on_cuda(q):
         return attention_reference(q, k, v, sm_scale, want_lse)
+    return _flash_fwd_cuda(q, k, v, sm_scale, want_lse)
+
+
+def _flash_fwd_cuda(q, k, v, sm_scale, want_lse: bool):
+    """The launch of `mst_flash_fwd` (counted) on checked operands."""
     b, h, s = _shape(q, _scale(q, sm_scale))
     strides = [_view(t, n, q.shape, q) for t, n in ((q, "q"), (k, "k"),
                                                     (v, "v"))]
@@ -253,6 +278,24 @@ def flash_fwd(q, k, v, sm_scale=None, want_lse: bool = False):
     _build.check(err, "mst_flash_fwd")
     flash_fwd.launches += 1
     return (o, lse) if want_lse else o
+
+
+@torch.library.custom_op("mst_tpu_torch::flash_fwd", mutates_args=(),
+                         device_types="cuda")
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  sm_scale: float) -> torch.Tensor:
+    return _flash_fwd_cuda(q, k, v, sm_scale, False)
+
+
+@_flash_fwd_op.register_kernel("cpu")
+def _(q, k, v, sm_scale):
+    # the kernel's layout, so that the graph's strides hold on either device
+    return _like_out(q).copy_(attention_reference(q, k, v, sm_scale))
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, sm_scale):
+    return _like_out(q)
 
 
 def flash_bwd_dq(q, k, v, o, do, lse, sm_scale=None):

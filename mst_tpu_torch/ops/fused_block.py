@@ -64,6 +64,7 @@ from __future__ import annotations
 
 import math
 from types import SimpleNamespace
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -71,6 +72,7 @@ import torch.nn.functional as F
 from mst_tpu_torch.ops import _build
 from mst_tpu_torch.ops.attention import (
     _on_cuda,
+    exporting,
     flash_bwd_dkv,
     flash_bwd_dq,
     flash_fwd,
@@ -486,6 +488,13 @@ def _rope_form(rope_cos):
     return None if rope_cos is None else "rope"
 
 
+def _called(sublayer, x) -> None:
+    """One call of `sublayer` that ran its kernel chain: counted on CUDA
+    tensors, not on the CPU path nor while `torch.export` records ops."""
+    if x.device.type == "cuda" and not exporting():
+        sublayer.calls += 1
+
+
 # The GEMM of `ln_gemm` / `ln_gemm_swiglu` (csrc/gemm_sm90.cuh): 128 x 128
 # output tiles (gated: 64 output columns, whose h1 and h2 panels make the
 # 128 W columns of a tile), k in steps of 64.
@@ -559,8 +568,14 @@ def gemm_residual_launch(m: int, k: int, n: int,
 def ln_rows(x, ln_s, ln_b, eps: float):
     """bf16(LN(x)) [M, K]: LN once per row, the first kernel of `ln_gemm`
     and `ln_gemm_swiglu` (whose train modes return it as h)."""
+    if exporting():
+        return _ln_rows_op(x, ln_s, ln_b, float(eps))
     if not _on_cuda(x):
         return _ln_rows_ref(x, ln_s, ln_b, eps)
+    return _ln_rows_cuda(x, ln_s, ln_b, eps)
+
+
+def _ln_rows_cuda(x, ln_s, ln_b, eps: float):
     m, k = x.shape
     if k % 8 or k > 4096:
         raise ValueError(f"ln_rows needs K % 8 == 0 and K <= 4096; got K={k}")
@@ -580,6 +595,8 @@ def ln_gemm(x, ln_s, ln_b, w, b, act: int, eps: float, train: bool = False):
     (pre, h, post) = (bf16(LN(x) @ w + b), bf16(LN(x)), bf16(act(pre)) or
     None for ACT_NONE), the residuals of `_attn_train_kernel` /
     `_mlp_train_kernel`. On CUDA: `ln_rows`, then the GEMM on h."""
+    if exporting() and not train:
+        return _gemm_act_op(ln_rows(x, ln_s, ln_b, eps), w, b, int(act))
     if not _on_cuda(x):
         return _ln_gemm_ref(x, ln_s, ln_b, w, b, act, eps, train)
     m, k = x.shape
@@ -588,14 +605,23 @@ def ln_gemm(x, ln_s, ln_b, w, b, act: int, eps: float, train: bool = False):
     _mat(w, "w", (k, n), x)  # x: in `ln_rows`, before its launch
     b = _vec(b, "bias", n, x)
     h = ln_rows(x, ln_s, ln_b, eps)
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    out, post = _gemm_act_cuda(h, w, b, act, train)
+    return (out, h, post) if train else out
+
+
+def _gemm_act_cuda(h, w, b, act: int, train: bool = False):
+    """The GEMM half of `ln_gemm` on the rows h and checked w, b (counted
+    as `ln_gemm`'s launch): -> (out, post | None)."""
+    m, k = h.shape
+    n = w.shape[1]
+    out = torch.empty((m, n), dtype=h.dtype, device=h.device)
     post = torch.empty_like(out) if train and act != ACT_NONE else None
     err = _build.lib().mst_gemm_act(
         h.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), _ptr(post),
-        m, k, n, int(act), _stream(x))
+        m, k, n, int(act), _stream(h))
     _build.check(err, "mst_gemm_act")
     ln_gemm.launches += 1
-    return (out, h, post) if train else out
+    return out, post
 
 
 def ln_gemm_swiglu(x, ln_s, ln_b, w12, b12, eps: float, train: bool = False):
@@ -604,25 +630,40 @@ def ln_gemm_swiglu(x, ln_s, ln_b, w12, b12, eps: float, train: bool = False):
     (`_swiglu_train_kernel`, counted apart): (h12, h, g) = (bf16(LN(x) @
     w12 + b12) [M, 2F], bf16(LN(x)) [M, K], the gate of the rounded h12).
     On CUDA: `ln_rows`, then the gated GEMM on h."""
+    if exporting() and not train:
+        return _gemm_swiglu_op(ln_rows(x, ln_s, ln_b, eps), w12, b12)
     if not _on_cuda(x):
         return _ln_gemm_swiglu_ref(x, ln_s, ln_b, w12, b12, eps, train)
     m, k = x.shape
     f2 = w12.shape[1]
-    if f2 % 2:
-        raise ValueError(f"w12 needs an even width 2F; got {f2}")
-    _check_gemm_shape(m, k, f2 // 2, gated=True)
+    _check_swiglu_shape(m, k, f2)
     _mat(w12, "w12", (k, f2), x)  # x: in `ln_rows`, before its launch
     b12 = _vec(b12, "b12", f2, x)
     h = ln_rows(x, ln_s, ln_b, eps)
-    out = torch.empty((m, f2 // 2), dtype=x.dtype, device=x.device)
-    h12 = (torch.empty((m, f2), dtype=x.dtype, device=x.device) if train
+    out, h12 = _gemm_swiglu_cuda(h, w12, b12, train)
+    return (h12, h, out) if train else out
+
+
+def _check_swiglu_shape(m: int, k: int, f2: int) -> None:
+    if f2 % 2:
+        raise ValueError(f"w12 needs an even width 2F; got {f2}")
+    _check_gemm_shape(m, k, f2 // 2, gated=True)
+
+
+def _gemm_swiglu_cuda(h, w12, b12, train: bool = False):
+    """The gated GEMM of `ln_gemm_swiglu` on the rows h and checked w12,
+    b12 (counted as its launch): -> (g, h12 | None)."""
+    m, k = h.shape
+    f2 = w12.shape[1]
+    out = torch.empty((m, f2 // 2), dtype=h.dtype, device=h.device)
+    h12 = (torch.empty((m, f2), dtype=h.dtype, device=h.device) if train
            else None)
     err = _build.lib().mst_gemm_swiglu(
         h.data_ptr(), w12.data_ptr(), b12.data_ptr(), out.data_ptr(),
-        _ptr(h12), m, k, f2 // 2, _stream(x))
+        _ptr(h12), m, k, f2 // 2, _stream(h))
     _build.check(err, "mst_gemm_swiglu")
     _count(ln_gemm_swiglu, "train" if train else None)
-    return (h12, h, out) if train else out
+    return out, h12
 
 
 _SMEM_CAP = 227 * 1024  # dynamic shared memory of one H100 block
@@ -728,6 +769,29 @@ def _mhsa_launch(qkv, n: int, s: int, num_heads: int, want_lse=False,
     return ret if len(ret) > 1 else out
 
 
+def _mhsa_cuda(qkv, carry, rope_cos, rope_sin, n: int, s: int,
+               num_heads: int, want_row: bool, want_abnar: bool) -> list:
+    """The serving forms' launch, counted under the wrapper of the form
+    (`mhsa`, `mhsa_with_row`, `mhsa_rollout`, `mhsa_abnar`): -> [o, *the
+    outputs asked for]."""
+    ret = _mhsa_launch(qkv, n, s, num_heads, want_row=want_row, carry=carry,
+                       want_abnar=want_abnar, rope_cos=rope_cos,
+                       rope_sin=rope_sin)
+    wrapper = (mhsa_rollout if carry is not None else mhsa_abnar
+               if want_abnar else mhsa_with_row if want_row else mhsa)
+    _count(wrapper, _rope_form(rope_cos))
+    return list(ret) if isinstance(ret, tuple) else [ret]
+
+
+def _mhsa_via_ops(qkv, n, s, num_heads, carry=None, want_row=False,
+                  want_abnar=False, rope_cos=None, rope_sin=None):
+    """The serving forms through `mst_tpu_torch::mhsa`, returned as their
+    wrappers return them."""
+    out = _mhsa_op(qkv, carry, rope_cos, rope_sin, n, s, num_heads,
+                   want_row, want_abnar)
+    return tuple(out) if len(out) > 1 else out[0]
+
+
 def mhsa(qkv, n: int, s: int, num_heads: int, want_lse: bool = False,
          rope_cos=None, rope_sin=None):
     """Per-slice softmax attention: qkv [n*s, 3E] -> o [n*s, E]; with
@@ -735,6 +799,8 @@ def mhsa(qkv, n: int, s: int, num_heads: int, want_lse: bool = False,
     `rope_cos` / `rope_sin` ([s, 64] f32) q and k are rotated first (the
     RoPE form, counted apart)."""
     rope = dict(rope_cos=rope_cos, rope_sin=rope_sin)
+    if exporting() and not want_lse:
+        return _mhsa_via_ops(qkv, n, s, num_heads, **rope)
     if not _on_cuda(qkv):
         return _mhsa_ref(qkv, n, s, num_heads, want_lse, **rope)
     ret = _mhsa_launch(qkv, n, s, num_heads, want_lse=want_lse, **rope)
@@ -747,6 +813,8 @@ def mhsa_with_row(qkv, n: int, s: int, num_heads: int, rope_cos=None,
     """`mhsa` that also writes the per-head CLS softmax row p[0] / l:
     -> (o, row [n, heads, s] f32)."""
     rope = dict(rope_cos=rope_cos, rope_sin=rope_sin)
+    if exporting():
+        return _mhsa_via_ops(qkv, n, s, num_heads, want_row=True, **rope)
     if not _on_cuda(qkv):
         return _mhsa_ref(qkv, n, s, num_heads, want_row=True, **rope)
     ret = _mhsa_launch(qkv, n, s, num_heads, want_row=True, **rope)
@@ -761,6 +829,9 @@ def mhsa_rollout(qkv, carry, n: int, s: int, num_heads: int,
     new_carry). One call launches the attention kernel (per-tile partial
     sums) and the fixed-order pass that adds the tiles."""
     rope = dict(rope_cos=rope_cos, rope_sin=rope_sin)
+    if exporting():
+        return _mhsa_via_ops(qkv, n, s, num_heads, carry=carry,
+                             want_row=want_row, **rope)
     if not _on_cuda(qkv):
         return _mhsa_ref(qkv, n, s, num_heads, want_row=want_row, carry=carry,
                          **rope)
@@ -775,6 +846,8 @@ def mhsa_abnar(qkv, n: int, s: int, num_heads: int, rope_cos=None,
     """`mhsa` that also writes the Abnar & Zuidema factor of the block,
     rownorm(mean_h p / l + I): -> (o, factor [n, s, s] f32)."""
     rope = dict(rope_cos=rope_cos, rope_sin=rope_sin)
+    if exporting():
+        return _mhsa_via_ops(qkv, n, s, num_heads, want_abnar=True, **rope)
     if not _on_cuda(qkv):
         return _mhsa_ref(qkv, n, s, num_heads, want_abnar=True, **rope)
     ret = _mhsa_launch(qkv, n, s, num_heads, want_abnar=True, **rope)
@@ -784,8 +857,14 @@ def mhsa_abnar(qkv, n: int, s: int, num_heads: int, rope_cos=None,
 
 def gemm_residual(a, w, b, ls, x):
     """x + ls * (a @ w + b): a [M, K], w [K, N], x [M, N] -> [M, N]."""
+    if exporting():
+        return _gemm_residual_op(a, w, b, ls, x)
     if not _on_cuda(x):
         return _gemm_residual_ref(a, w, b, ls, x)
+    return _gemm_residual_cuda(a, w, b, ls, x)
+
+
+def _gemm_residual_cuda(a, w, b, ls, x):
     m, k = a.shape
     n = w.shape[1]
     _check_residual_shape(m, k, n)
@@ -1060,7 +1139,7 @@ def mhsa_bwd(qkv, o, do, lse, n: int, s: int, num_heads: int, rope_cos=None,
 def fused_attention_sublayer(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls,
                              num_heads, eps=1e-6):
     """y = x + ls * proj(MHSA(LN(x))) for x [N, S, E]."""
-    if not _on_cuda(x):
+    if not (exporting() or _on_cuda(x)):
         return _attn_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls,
                          num_heads, eps)
     n, s, e = x.shape
@@ -1068,34 +1147,34 @@ def fused_attention_sublayer(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls,
     qkv = ln_gemm(x2, ln_s, ln_b, wqkv, bqkv, ACT_NONE, eps)
     o = mhsa(qkv, n, s, num_heads)
     y = gemm_residual(o, wproj, bproj, ls, x2)
-    fused_attention_sublayer.calls += 1
+    _called(fused_attention_sublayer, x)
     return y.reshape(n, s, e)
 
 
 def fused_mlp_sublayer(x, ln_s, ln_b, w1, b1, w2, b2, ls, approximate,
                        eps=1e-6):
     """y = x + ls * fc2(gelu(fc1(LN(x)))) for x [N, S, E]."""
-    if not _on_cuda(x):
+    if not (exporting() or _on_cuda(x)):
         return _mlp_ref(x, ln_s, ln_b, w1, b1, w2, b2, ls, approximate, eps)
     n, s, e = x.shape
     x2 = x.reshape(n * s, e)
     act = ACT_GELU_TANH if approximate else ACT_GELU_ERF
     h = ln_gemm(x2, ln_s, ln_b, w1, b1, act, eps)
     y = gemm_residual(h, w2, b2, ls, x2)
-    fused_mlp_sublayer.calls += 1
+    _called(fused_mlp_sublayer, x)
     return y.reshape(n, s, e)
 
 
 def fused_swiglu_sublayer(x, ln_s, ln_b, w12, b12, w3, b3, ls, eps=1e-6):
     """y = x + ls * w3(silu(h1) * h2), [h1 | h2] = w12(LN(x)), for x
     [N, S, E]: the giant2 FFN (`_swiglu_kernel`, serving only)."""
-    if not _on_cuda(x):
+    if not (exporting() or _on_cuda(x)):
         return _swiglu_ref(x, ln_s, ln_b, w12, b12, w3, b3, ls, eps)
     n, s, e = x.shape
     x2 = x.reshape(n * s, e)
     g = ln_gemm_swiglu(x2, ln_s, ln_b, w12, b12, eps)
     y = gemm_residual(g, w3, b3, ls, x2)
-    fused_swiglu_sublayer.calls += 1
+    _called(fused_swiglu_sublayer, x)
     return y.reshape(n, s, e)
 
 
@@ -1121,13 +1200,13 @@ def fused_attention_sublayer_rope(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls,
     """y = x + ls * proj(MHSA(RoPE(LN(x)))), the DINOv3 encoder's attention
     sub-layer (serving): rope_cos / rope_sin [S, head_dim] f32 in the
     interleaved-pair convention (prefix rows cos = 1, sin = 0)."""
-    if not _on_cuda(x):
+    if not (exporting() or _on_cuda(x)):
         return _attn_rope_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls,
                               rope_cos, rope_sin, num_heads, eps)
     n, s, _ = x.shape
     y, = _attn_chain(mhsa, x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls, eps,
                      n, s, num_heads, rope_cos=rope_cos, rope_sin=rope_sin)
-    fused_attention_sublayer_rope.calls += 1
+    _called(fused_attention_sublayer_rope, x)
     return y
 
 
@@ -1136,14 +1215,14 @@ def fused_attention_sublayer_rope_with_row(x, ln_s, ln_b, wqkv, bqkv, wproj,
                                            num_heads, eps=1e-6):
     """(y, cls_row) for the RoPE sub-layer: the DINOv3 block 11 of the
     `last` saliency mode under MST_NO_CHEAP_LAST."""
-    if not _on_cuda(x):
+    if not (exporting() or _on_cuda(x)):
         return _attn_rope_with_row_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
                                        ls, rope_cos, rope_sin, num_heads, eps)
     n, s, _ = x.shape
     out = _attn_chain(mhsa_with_row, x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
                       ls, eps, n, s, num_heads, rope_cos=rope_cos,
                       rope_sin=rope_sin)
-    fused_attention_sublayer_rope_with_row.calls += 1
+    _called(fused_attention_sublayer_rope_with_row, x)
     return out
 
 
@@ -1151,13 +1230,13 @@ def fused_attention_sublayer_with_row(x, ln_s, ln_b, wqkv, bqkv, wproj,
                                       bproj, ls, num_heads, eps=1e-6):
     """(y, cls_row): the attention sub-layer plus the per-head CLS softmax
     row [N, heads, S] f32."""
-    if not _on_cuda(x):
+    if not (exporting() or _on_cuda(x)):
         return _attn_with_row_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls,
                                   num_heads, eps)
     n, s, _ = x.shape
     out = _attn_chain(mhsa_with_row, x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
                       ls, eps, n, s, num_heads)
-    fused_attention_sublayer_with_row.calls += 1
+    _called(fused_attention_sublayer_with_row, x)
     return out
 
 
@@ -1168,13 +1247,13 @@ def fused_attention_sublayer_abnar(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
     Zuidema rollout factor [N, S, S] f32 (head-mean of the probabilities +
     I, row-normalised). `rope_cos` / `rope_sin`: the DINOv3 RoPE."""
     rope = dict(rope_cos=rope_cos, rope_sin=rope_sin)
-    if not _on_cuda(x):
+    if not (exporting() or _on_cuda(x)):
         return _attn_abnar_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls,
                                num_heads, eps, **rope)
     n, s, _ = x.shape
     out = _attn_chain(mhsa_abnar, x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
                       ls, eps, n, s, num_heads, **rope)
-    fused_attention_sublayer_abnar.calls += 1
+    _called(fused_attention_sublayer_abnar, x)
     return out
 
 
@@ -1188,7 +1267,7 @@ def fused_attention_sublayer_rollout(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
     `get_attention_cls` chain A_0 @ ... @ A_i. `rope_cos` / `rope_sin`: the
     DINOv3 RoPE."""
     rope = dict(rope_cos=rope_cos, rope_sin=rope_sin)
-    if not _on_cuda(x):
+    if not (exporting() or _on_cuda(x)):
         return _attn_rollout_ref(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, ls,
                                  carry, num_heads, eps, want_row=want_row,
                                  **rope)
@@ -1196,8 +1275,103 @@ def fused_attention_sublayer_rollout(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
     out = _attn_chain(mhsa_rollout, x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
                       ls, eps, carry, n, s, num_heads, want_row=want_row,
                       **rope)
-    fused_attention_sublayer_rollout.calls += 1
+    _called(fused_attention_sublayer_rollout, x)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The serving kernels as registered ops (`torch.ops.mst_tpu_torch.*`), one
+# per C entry point of the serving forward: the CUDA implementation is the
+# launch above (which checks its operands and counts), the CPU one the
+# plain version, the fake one the output's shape, dtype and strides (every
+# output is contiguous). No backward is registered: they serve only.
+# ---------------------------------------------------------------------------
+
+_T = torch.Tensor
+
+
+def _rows(h, n: int, dtype=None):
+    return h.new_empty((h.shape[0], n), dtype=dtype or h.dtype)
+
+
+@torch.library.custom_op("mst_tpu_torch::ln_rows", mutates_args=(),
+                         device_types="cuda")
+def _ln_rows_op(x: _T, ln_s: _T, ln_b: _T, eps: float) -> _T:
+    return _ln_rows_cuda(x, ln_s, ln_b, eps)
+
+
+_ln_rows_op.register_kernel("cpu")(_ln_rows_ref)
+_ln_rows_op.register_fake(lambda x, ln_s, ln_b, eps: _rows(x, x.shape[1]))
+
+
+@torch.library.custom_op("mst_tpu_torch::gemm_act", mutates_args=(),
+                         device_types="cuda")
+def _gemm_act_op(h: _T, w: _T, b: _T, act: int) -> _T:
+    m, k = h.shape
+    n = w.shape[1]
+    _check_gemm_shape(m, k, n, gated=False)
+    _mat(h, "h", (m, k), h)
+    _mat(w, "w", (k, n), h)
+    return _gemm_act_cuda(h, w, _vec(b, "bias", n, h), act)[0]
+
+
+_gemm_act_op.register_kernel("cpu")(_gemm_act_ref)
+_gemm_act_op.register_fake(lambda h, w, b, act: _rows(h, w.shape[1]))
+
+
+@torch.library.custom_op("mst_tpu_torch::gemm_swiglu", mutates_args=(),
+                         device_types="cuda")
+def _gemm_swiglu_op(h: _T, w12: _T, b12: _T) -> _T:
+    m, k = h.shape
+    f2 = w12.shape[1]
+    _check_swiglu_shape(m, k, f2)
+    _mat(h, "h", (m, k), h)
+    _mat(w12, "w12", (k, f2), h)
+    return _gemm_swiglu_cuda(h, w12, _vec(b12, "b12", f2, h))[0]
+
+
+_gemm_swiglu_op.register_kernel("cpu")(_gemm_swiglu_ref)
+_gemm_swiglu_op.register_fake(lambda h, w12, b12: _rows(h, w12.shape[1] // 2))
+
+
+@torch.library.custom_op("mst_tpu_torch::mhsa", mutates_args=(),
+                         device_types="cuda")
+def _mhsa_op(qkv: _T, carry: Optional[_T], rope_cos: Optional[_T],
+             rope_sin: Optional[_T], n: int, s: int, num_heads: int,
+             want_row: bool, want_abnar: bool) -> list[_T]:
+    return _mhsa_cuda(qkv, carry, rope_cos, rope_sin, n, s, num_heads,
+                      want_row, want_abnar)
+
+
+@_mhsa_op.register_kernel("cpu")
+def _(qkv, carry, rope_cos, rope_sin, n, s, num_heads, want_row, want_abnar):
+    out = _mhsa_ref(qkv, n, s, num_heads, want_row=want_row, carry=carry,
+                    want_abnar=want_abnar, rope_cos=rope_cos,
+                    rope_sin=rope_sin)
+    return list(out) if isinstance(out, tuple) else [out]
+
+
+@_mhsa_op.register_fake
+def _(qkv, carry, rope_cos, rope_sin, n, s, num_heads, want_row, want_abnar):
+    f32 = dict(dtype=torch.float32)
+    out = [_rows(qkv, qkv.shape[1] // 3)]
+    if want_row:
+        out.append(qkv.new_empty((n, num_heads, s), **f32))
+    if want_abnar:
+        out.append(qkv.new_empty((n, s, s), **f32))
+    if carry is not None:
+        out.append(qkv.new_empty((n, num_heads, s), **f32))
+    return out
+
+
+@torch.library.custom_op("mst_tpu_torch::gemm_residual", mutates_args=(),
+                         device_types="cuda")
+def _gemm_residual_op(a: _T, w: _T, b: _T, ls: Optional[_T], x: _T) -> _T:
+    return _gemm_residual_cuda(a, w, b, ls, x)
+
+
+_gemm_residual_op.register_kernel("cpu")(_gemm_residual_ref)
+_gemm_residual_op.register_fake(lambda a, w, b, ls, x: _rows(x, w.shape[1]))
 
 
 # ---------------------------------------------------------------------------
@@ -1449,7 +1623,11 @@ def fused_swiglu_sublayer_train(x, ln_s, ln_b, w12, b12, w3, b3, ls,
 # call (their LN half). The flash-attention wrappers of `ops/attention.py`
 # (queue B rows 12-16, the composed path above 512 tokens) count here too.
 # `.calls` of a sub-layer counts the calls that ran its kernel chain (it
-# launches nothing itself). None moves on the CPU path.
+# launches nothing itself). None moves on the CPU path. Through the
+# registered ops a launch is counted where the op's CUDA implementation
+# runs: in an uncaptured call of an exported program (and in a CUDA
+# graph's warm-up and capture), not while `torch.export` traces and not
+# when a captured graph is replayed.
 KERNEL_WRAPPERS = (ln_rows, ln_gemm, mhsa, gemm_residual, gemm_dls,
                    gemm_wgrad, gemm_dgrad, mhsa_bwd, mhsa_with_row,
                    mhsa_rollout, mhsa_abnar, ln_gemm_swiglu, ln_pullback,

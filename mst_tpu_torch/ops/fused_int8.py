@@ -65,16 +65,18 @@ import copy
 import logging
 import math
 from types import SimpleNamespace
+from typing import Optional
 
 import torch
 
 from mst_tpu_torch.ops import _build
 from mst_tpu_torch.ops import fused_block as fb
-from mst_tpu_torch.ops.attention import _on_cuda
+from mst_tpu_torch.ops.attention import _on_cuda, exporting
 from mst_tpu_torch.ops.fused_block import (
     ACT_GELU_ERF,
     ACT_GELU_TANH,
     ACT_NONE,
+    _called,
     _f,
     _f32,
     _gelu,
@@ -82,6 +84,7 @@ from mst_tpu_torch.ops.fused_block import (
     _mat,
     _mhsa_ref,
     _ptr,
+    _rows,
     _stream,
     _vec,
     mhsa,
@@ -352,6 +355,24 @@ def _kmajor(q8, q8t, n, k, like, name):
     return _codes(q8t, "q8t", (n, k), like)
 
 
+def _need_q8t(q8t, name):
+    if q8t is None:
+        raise ValueError(f"{name} through its registered op needs q8t, the "
+                         f"K-major [out, in] copy of q8 that QDense holds")
+    return q8t
+
+
+def _gemm_i8_via_ops(x, ln_s, ln_b, q8, q8t, scale, bias, act, eps, static,
+                     a_inv, gated: bool):
+    """`ln_gemm_i8` / `ln_gemm_i8_swiglu` through the registered ops:
+    `ln_quant_rows`, then `gemm_i8` on the codes and K-major weights."""
+    name = "ln_gemm_i8_swiglu" if gated else "ln_gemm_i8"
+    q8t = _need_q8t(q8t, name)
+    hq, hs = ln_quant_rows(x, ln_s, ln_b, eps, static)
+    return _gemm_i8_op(hq, hs, q8t, scale, bias, a_inv, int(act), gated,
+                       x.dtype)
+
+
 def _ln_i8_args(x, ln_s, ln_b, scale, bias, n):
     """The checked vectors of the two `ln_gemm_i8` modes."""
     k = x.shape[1]
@@ -372,8 +393,15 @@ def ln_quant_rows(x, ln_s, ln_b, eps: float, static: bool = False):
     """LN(x) quantized once per row, the first kernel of `ln_gemm_i8` and
     `ln_gemm_i8_swiglu`: x [M, K] bf16 -> (int8 codes [M, K], row scale [M]
     f32), or with `static` (codes, None)."""
+    if exporting():
+        q, *hs = _ln_quant_rows_op(x, ln_s, ln_b, float(eps), static)
+        return q, (hs[0] if hs else None)
     if not _on_cuda(x):
         return _quantize_ln(x, ln_s, ln_b, eps, static)
+    return _ln_quant_rows_cuda(x, ln_s, ln_b, eps, static)
+
+
+def _ln_quant_rows_cuda(x, ln_s, ln_b, eps: float, static: bool):
     m, k = x.shape
     if m < 1 or k < 8 or k % 8 or k > I8_MAX_K:
         raise ValueError(f"ln_quant_rows needs M >= 1, K % 8 == 0 and K <= "
@@ -417,6 +445,9 @@ def ln_gemm_i8(x, ln_s, ln_b, q8, scale, bias, act: int, eps: float,
     codes (the int8 attention experiments,
     `mst_tpu_torch.tools.bench_attn_i8`). On CUDA the GEMM reads `q8t`
     [N, K], the K-major copy of q8 (`QDense.q8t`)."""
+    if exporting():
+        return _gemm_i8_via_ops(x, ln_s, ln_b, q8, q8t, scale, bias, act,
+                                eps, static, a_inv, False)
     if not _on_cuda(x):
         return _ln_gemm_i8_ref(x, ln_s, ln_b, q8, scale, bias, act, eps,
                                static, a_inv)
@@ -444,6 +475,9 @@ def ln_gemm_i8_swiglu(x, ln_s, ln_b, q8, scale, bias, eps: float,
     """The gated int8 first half: x [M, K] bf16, q8 = w12 [K, 2F] int8 ->
     g = silu(h1) * h2 [M, F] in f32 (dynamic) or its static int8 codes. On
     CUDA the GEMM reads `q8t` = w12^T [2F, K] (`QDense.q8t`)."""
+    if exporting():
+        return _gemm_i8_via_ops(x, ln_s, ln_b, q8, q8t, scale, bias,
+                                ACT_NONE, eps, static, a_inv, True)
     if not _on_cuda(x):
         return _ln_gemm_i8_swiglu_ref(x, ln_s, ln_b, q8, scale, bias, eps,
                                       static, a_inv)
@@ -519,8 +553,15 @@ def quant_rows(v, static: bool = False):
     `static` the codes clip(round(v), +-127) alone. On CUDA each row up
     to the ring's size (96 KB) is read once, through a ring of TMA bulk
     copies (`quant_rows_launch`)."""
+    if exporting():
+        out = _quant_rows_op(v, static)
+        return out[0] if static else tuple(out)
     if not _on_cuda(v):
         return _quant_rows_ref(v, static)
+    return _quant_rows_cuda(v, static)
+
+
+def _quant_rows_cuda(v, static: bool):
     m, k = v.shape
     if k % 8:
         raise ValueError(f"quant_rows needs K % 8 == 0; got K={k}")
@@ -568,13 +609,25 @@ def gemm_i8_residual(a, row_scale, q8, scale, bias, ls, x, q8t=None):
     row_scale [M] f32 or None (static), q8 [K, N] int8, x [M, N] bf16. On
     CUDA the int8 wgmma GEMM reads `q8t` [N, K], the K-major copy of q8
     (`QDense.q8t`)."""
+    if exporting():
+        q8t = _need_q8t(q8t, "gemm_i8_residual")
+        return _gemm_i8_residual_op(a, row_scale, q8t, scale, bias, ls, x)
     if not _on_cuda(x):
         return _gemm_i8_residual_ref(a, row_scale, q8, scale, bias, ls, x)
     m, k = a.shape
     n = q8.shape[1]
     _check_i8_residual_shape(m, k, n)
     _codes(a, "a", (m, k), x)
-    q8t = _kmajor(q8, q8t, n, k, x, "gemm_i8_residual")
+    _kmajor(q8, q8t, n, k, x, "gemm_i8_residual")
+    return _gemm_i8_residual_cuda(a, row_scale, q8t, scale, bias, ls, x)
+
+
+def _gemm_i8_residual_cuda(a, row_scale, q8t, scale, bias, ls, x):
+    m, k = a.shape
+    n = q8t.shape[0]
+    _check_i8_residual_shape(m, k, n)
+    _codes(a, "a", (m, k), x)
+    _codes(q8t, "q8t", (n, k), x)
     _mat(x, "x", (m, n), x)
     row_scale = _row_scale(row_scale, m, x)
     scale, bias = _vec(scale, "scale", n, x), _vec(bias, "bias", n, x)
@@ -587,6 +640,122 @@ def gemm_i8_residual(a, row_scale, q8, scale, bias, ls, x, q8t=None):
     _build.check(err, "mst_gemm_i8_residual")
     gemm_i8_residual.launches += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# The int8 serving kernels as registered ops (`torch.ops.mst_tpu_torch.*`),
+# as `fused_block.py` registers the bf16 ones: CUDA the launch, CPU the
+# plain version, fake the outputs' shapes and dtypes (all contiguous)
+# ---------------------------------------------------------------------------
+
+_T = torch.Tensor
+
+
+@torch.library.custom_op("mst_tpu_torch::ln_quant_rows", mutates_args=(),
+                         device_types="cuda")
+def _ln_quant_rows_op(x: _T, ln_s: _T, ln_b: _T, eps: float,
+                      static: bool) -> list[_T]:
+    q, hs = _ln_quant_rows_cuda(x, ln_s, ln_b, eps, static)
+    return [q] if static else [q, hs]
+
+
+@_ln_quant_rows_op.register_kernel("cpu")
+def _(x, ln_s, ln_b, eps, static):
+    q, hs = _quantize_ln(x, ln_s, ln_b, eps, static)
+    return [q] if static else [q, hs]
+
+
+@_ln_quant_rows_op.register_fake
+def _(x, ln_s, ln_b, eps, static):
+    q = x.new_empty(x.shape, dtype=torch.int8)
+    return [q] if static else [q, x.new_empty(x.shape[:1],
+                                              dtype=torch.float32)]
+
+
+def _gemm_i8_out(hq, hs, q8t, a_inv, act: int, gated: bool, dtype):
+    """(mode, output width, output dtype) of the `gemm_i8` op: the qkv's
+    bf16 (ACT_NONE without a_inv), a static tree's int8 codes (hs is None),
+    else f32."""
+    n = q8t.shape[0] // 2 if gated else q8t.shape[0]
+    if not gated and act == ACT_NONE and a_inv is None:
+        return OUT_BF16, n, dtype
+    if hs is None:
+        return OUT_I8, n, torch.int8
+    return OUT_F32, n, torch.float32
+
+
+@torch.library.custom_op("mst_tpu_torch::gemm_i8", mutates_args=(),
+                         device_types="cuda")
+def _gemm_i8_op(hq: _T, hs: Optional[_T], q8t: _T, scale: _T, bias: _T,
+                a_inv: Optional[_T], act: int, gated: bool,
+                dtype: torch.dtype) -> _T:
+    m, k = hq.shape
+    mode, n, out_dtype = _gemm_i8_out(hq, hs, q8t, a_inv, act, gated, dtype)
+    _check_i8_shape(m, k, n, gated)
+    _codes(hq, "hq", (m, k), hq)
+    _codes(q8t, "q8t", (q8t.shape[0], k), hq)
+    hs = _row_scale(hs, m, hq)
+    scale = _vec(scale, "scale", q8t.shape[0], hq)
+    bias = _vec(bias, "bias", q8t.shape[0], hq)
+    ainv = None
+    if mode == OUT_I8:
+        _, ainv = _out_mode(True, a_inv, hq)
+    out = torch.empty((m, n), dtype=out_dtype, device=hq.device)
+    _gemm_i8(hq, hs, q8t, scale, bias, ainv, out, mode, act, gated)
+    wrapper = ln_gemm_i8_swiglu if gated else ln_gemm_i8
+    wrapper.launches += 1
+    return out
+
+
+@_gemm_i8_op.register_kernel("cpu")
+def _(hq, hs, q8t, scale, bias, a_inv, act, gated, dtype):
+    static = hs is None
+    if gated:
+        return _gemm_i8_swiglu_ref(hq, hs, q8t, scale, bias, dtype, static,
+                                   a_inv)
+    return _gemm_i8_ref(hq, hs, q8t, scale, bias, act, dtype, static, a_inv)
+
+
+@_gemm_i8_op.register_fake
+def _(hq, hs, q8t, scale, bias, a_inv, act, gated, dtype):
+    _, n, out_dtype = _gemm_i8_out(hq, hs, q8t, a_inv, act, gated, dtype)
+    return _rows(hq, n, out_dtype)
+
+
+@torch.library.custom_op("mst_tpu_torch::quant_rows", mutates_args=(),
+                         device_types="cuda")
+def _quant_rows_op(v: _T, static: bool) -> list[_T]:
+    out = _quant_rows_cuda(v, static)
+    return [out] if static else list(out)
+
+
+@_quant_rows_op.register_kernel("cpu")
+def _(v, static):
+    out = _quant_rows_ref(v, static)
+    return [out] if static else list(out)
+
+
+@_quant_rows_op.register_fake
+def _(v, static):
+    q = v.new_empty(v.shape, dtype=torch.int8)
+    return [q] if static else [q, v.new_empty(v.shape[:1],
+                                              dtype=torch.float32)]
+
+
+@torch.library.custom_op("mst_tpu_torch::gemm_i8_residual", mutates_args=(),
+                         device_types="cuda")
+def _gemm_i8_residual_op(a: _T, row_scale: Optional[_T], q8t: _T, scale: _T,
+                         bias: _T, ls: Optional[_T], x: _T) -> _T:
+    return _gemm_i8_residual_cuda(a, row_scale, q8t, scale, bias, ls, x)
+
+
+@_gemm_i8_residual_op.register_kernel("cpu")
+def _(a, row_scale, q8t, scale, bias, ls, x):
+    return _gemm_i8_residual_ref(a, row_scale, q8t.t(), scale, bias, ls, x)
+
+
+_gemm_i8_residual_op.register_fake(
+    lambda a, row_scale, q8t, scale, bias, ls, x: _rows(x, x.shape[1]))
 
 
 # ---------------------------------------------------------------------------
@@ -606,7 +775,7 @@ def fused_attention_sublayer_i8(x, ln_s, ln_b, qkv, proj, ls, num_heads,
     [row], [abnar factor], [new carry]). With the static scales the
     v-columns arrive divided by the attention output's scale, which cancels
     in the softmax rows (they are built from q and k alone)."""
-    if not _on_cuda(x):
+    if not (exporting() or _on_cuda(x)):
         return _attn_i8_ref(x, ln_s, ln_b, qkv, proj, ls, num_heads, eps,
                             rope_cos, rope_sin, static, want_row, carry,
                             abnar)
@@ -629,7 +798,7 @@ def fused_attention_sublayer_i8(x, ln_s, ln_b, qkv, proj, ls, num_heads,
     oq, osc = (quant_rows(o, True), None) if static else quant_rows(o)
     y = gemm_i8_residual(oq, osc, proj.q8, proj.scale, proj.bias, ls, x2,
                          q8t=proj.q8t)
-    fused_attention_sublayer_i8.calls += 1
+    _called(fused_attention_sublayer_i8, x)
     y = y.reshape(n, s, e)
     return (y, *extra) if extra else y
 
@@ -638,7 +807,7 @@ def fused_mlp_sublayer_i8(x, ln_s, ln_b, fc1, fc2, ls, approximate,
                           eps=1e-6):
     """y = x + ls * fc2_i8(gelu(fc1_i8(LN(x)))) for x [N, S, E]; a static
     tree is told by the `a_inv` of fc2 (`_fold_static_scales`)."""
-    if not _on_cuda(x):
+    if not (exporting() or _on_cuda(x)):
         return _mlp_i8_ref(x, ln_s, ln_b, fc1, fc2, ls, approximate, eps)
     n, s, e = x.shape
     x2 = x.reshape(n * s, e)
@@ -649,7 +818,7 @@ def fused_mlp_sublayer_i8(x, ln_s, ln_b, fc1, fc2, ls, approximate,
     uq, us = (u, None) if static else quant_rows(u)
     y = gemm_i8_residual(uq, us, fc2.q8, fc2.scale, fc2.bias, ls, x2,
                          q8t=fc2.q8t)
-    fused_mlp_sublayer_i8.calls += 1
+    _called(fused_mlp_sublayer_i8, x)
     return y.reshape(n, s, e)
 
 
@@ -657,7 +826,7 @@ def fused_swiglu_sublayer_i8(x, ln_s, ln_b, w12, w3, ls, eps=1e-6):
     """y = x + ls * w3_i8(silu(h1) * h2), [h1 | h2] = w12_i8(LN(x)), for x
     [N, S, E]: the giant2 FFN in W8A8; static as `fused_mlp_sublayer_i8`
     (the `a_inv` of w3)."""
-    if not _on_cuda(x):
+    if not (exporting() or _on_cuda(x)):
         return _swiglu_i8_ref(x, ln_s, ln_b, w12, w3, ls, eps)
     n, s, e = x.shape
     x2 = x.reshape(n * s, e)
@@ -667,7 +836,7 @@ def fused_swiglu_sublayer_i8(x, ln_s, ln_b, w12, w3, ls, eps=1e-6):
     gq, gs = (g, None) if static else quant_rows(g)
     y = gemm_i8_residual(gq, gs, w3.q8, w3.scale, w3.bias, ls, x2,
                          q8t=w3.q8t)
-    fused_swiglu_sublayer_i8.calls += 1
+    _called(fused_swiglu_sublayer_i8, x)
     return y.reshape(n, s, e)
 
 

@@ -5,9 +5,9 @@ of `scripts/main_serve.py` (`main`), ported rather than imported because
 importing `mst_tpu` pulls in JAX. Run as
 
     python -m mst_tpu_torch.serve [--init_seed 0 | --params_npz PATH |
-        --run_folder RUN] [--batch_size 8] [--max_wait_ms 5] \
-        [--host 127.0.0.1] [--port 8760] [--dtype bfloat16] \
-        [--int8 [--int8_calib N]]
+        --run_folder RUN | --exported ART] [--batch_size 8] \
+        [--max_wait_ms 5] [--host 127.0.0.1] [--port 8760] \
+        [--dtype bfloat16] [--int8 [--int8_calib N]]
 
 It serves MST-DINOv2 ViT-S/14 (or the model of a `python -m
 mst_tpu_torch.train` run folder, `load_run_model`: MST-DINOv3, a frozen
@@ -19,7 +19,12 @@ folder's val split (`calibration_volumes`) and folds them in. Slices of
 any size divisible by the patch are served: up to 512 tokens on the fused
 sub-layers, above (e.g. 518 px, 1370 tokens) on the composed path with the
 flash kernels; an int8 model answers such a request with HTTP 400 (the
-predictor's `ValueError`: int8 needs the fused path).
+predictor's `ValueError`: int8 needs the fused path). `--exported ART`
+serves an artifact of `python -m mst_tpu_torch.export` instead
+(`export.load_exported`: the exported program replayed as one CUDA graph
+per batch bucket, the weights of its params.npz; no model is built and
+`mst_tpu_torch.models` is never imported); `--batch_size` must be one of
+its buckets, and its dtype and int8 mode are the artifact's.
 
 API:  POST /predict  (np.save bytes of a [C, D, H, W] float volume)
           -> {"probs": [...], "pred": argmax}
@@ -217,7 +222,6 @@ def serve_http(predictor: BatchingPredictor, host: str = "127.0.0.1",
 
 
 _LATER = {
-    "exported": "exported artifacts are ROADMAP queue A #14",
     "num_devices": "multi-GPU serving is ROADMAP queue A #13",
 }
 
@@ -343,6 +347,29 @@ def build_server(args, model):
     return server, predictor
 
 
+def build_exported_server(args, exported):
+    """-> (server, predictor) serving the loaded artifact `exported`
+    (`export.load_exported`), as `scripts/main_serve.py`'s artifact branch:
+    the batch size must be an exported bucket."""
+    if args.batch_size not in exported.buckets:
+        raise SystemExit(
+            f"--batch_size {args.batch_size} is not an exported bucket "
+            f"{exported.buckets}; pick one or re-export with it included")
+    predictor = BatchingPredictor(exported, batch_size=args.batch_size,
+                                  max_wait_ms=args.max_wait_ms)
+    meta = exported.meta
+    server = serve_http(predictor, host=args.host, port=args.port,
+                        info={"model": meta.get("model"),
+                              "device": str(exported.device),
+                              "batch_size": args.batch_size,
+                              "dtype": meta.get("dtype"),
+                              "exported": str(args.exported),
+                              "int8": ("static" if meta.get("int8_static")
+                                       else "dynamic") if meta.get("int8")
+                              else None})
+    return server, predictor
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(prog="python -m mst_tpu_torch.serve")
     src = ap.add_mutually_exclusive_group()
@@ -352,7 +379,10 @@ def parse_args(argv=None):
     src.add_argument("--params_npz", default=None,
                      help="flat '/'-keyed .npz of the flax parameter tree")
     src.add_argument("--init_seed", type=int, default=0,
-                     help="seeded random weights (default when neither)")
+                     help="seeded random weights (default when none)")
+    src.add_argument("--exported", default=None,
+                     help="a `python -m mst_tpu_torch.export` artifact: "
+                          "its programs and weights, no model code")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8760)
     ap.add_argument("--batch_size", type=int, default=8,
@@ -363,7 +393,6 @@ def parse_args(argv=None):
                          "the first queued request")
     ap.add_argument("--dtype", default="bfloat16",
                     choices=["float32", "bfloat16"])
-    ap.add_argument("--exported", default=None)
     ap.add_argument("--int8", action="store_true",
                     help="serve the encoder on the W8A8 int8 kernels "
                          "(per-token activation scales)")
@@ -378,6 +407,10 @@ def parse_args(argv=None):
         val = getattr(args, flag)
         if val and not (flag == "num_devices" and val == 1):
             ap.error(f"--{flag}: not ported to mst_tpu_torch yet ({why})")
+    if args.exported and args.int8:
+        ap.error("--int8 with --exported: the artifact's int8 mode is set "
+                 "when it is exported (python -m mst_tpu_torch.export "
+                 "--int8)")
     if args.int8_calib and not (args.int8 and args.run_folder):
         ap.error("--int8_calib N needs --int8 and --run_folder (static "
                  "scales are calibrated on the run's val split)")
@@ -387,7 +420,13 @@ def parse_args(argv=None):
 def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     args = parse_args(argv)
-    server, predictor = build_server(args, build_model(args))
+    if args.exported:
+        from mst_tpu_torch.export import load_exported
+
+        server, predictor = build_exported_server(
+            args, load_exported(args.exported))
+    else:
+        server, predictor = build_server(args, build_model(args))
     log.info("ready — POST /predict, GET /healthz; Ctrl-C to stop")
     try:
         threading.Event().wait()  # serve until interrupted

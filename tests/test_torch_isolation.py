@@ -127,8 +127,11 @@ def test_no_jax_import_in_port_sources():
               "import optax", "import orbax", "from mst_tpu.", "import mst_tpu\n",
               "import pandas", "from pandas", "import h5py", "from h5py",
               "import nibabel", "from nibabel")
-    for path in [ROOT / "chip_smoke.py",
-                 *sorted((ROOT / "mst_tpu_torch").rglob("*.py"))]:
+    paths = [ROOT / "chip_smoke.py",
+             *sorted((ROOT / "mst_tpu_torch").rglob("*.py"))]
+    # the serving artifacts' loader among them
+    assert ROOT / "mst_tpu_torch" / "export.py" in paths
+    for path in paths:
         text = path.read_text()
         for b in banned:
             assert b not in text, f"{path}: {b!r}"

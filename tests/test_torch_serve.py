@@ -191,7 +191,8 @@ def test_serve_cli_builds_a_cpu_server(tmp_path):
         server.shutdown()
         server.server_close()
         predictor.close()
-    for flag in (["--exported", "x"], ["--num_devices", "2"],
+    for flag in (["--exported", "x", "--run_folder", "y"],
+                 ["--num_devices", "2"],
                  ["--run_folder", "x", "--params_npz", str(npz)]):
         with pytest.raises(SystemExit):
             parse_args(flag)
