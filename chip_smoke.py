@@ -12,7 +12,8 @@ limit:
 2. build: `nvcc` builds `mst_tpu_torch/csrc/*.cu` (timed); `-Xptxas -v`
    for the kernels of `ln_gemm.cu`, `gemm_dgrad.cu` (with `ln_pullback`),
    `ln_gemm_i8.cu`, `gemm_i8_residual.cu`, `quant_rows.cu`, `gemm_wgrad.cu`,
-   `gemm_residual.cu`, `mhsa.cu`, `mhsa_bwd.cu`, `flash_fwd.cu` and
+   `gemm_residual.cu`, `mhsa.cu`, `mhsa_bwd.cu`, `flash_fwd.cu`,
+   `flash_sal.cu` and
    `flash_bwd.cu` (registers, no spills, no "wgmma serialized" line; a
    source compiled on its own for
    the log where the library was built before the run), their wgmma / TMA
@@ -517,6 +518,32 @@ seconds in them, beside the host's load): the live forward, the loaded
 program without a graph, and the graph replay; and each artifact's files'
 bytes.
 
+Phase 53 drives saliency above 512 tokens (queue A #16) on the composed
+path: `flash_fwd` keeps its LSE and one hand-written kernel per block
+(csrc/flash_sal.cu) rebuilds what the plane mode needs from it and the
+same q, k. `attention.flash_sal_launch` against the kernels' own
+`mst_flash_sal_geometry` at every S up to 2048 and the path shapes; the
+CLS row (`flash_row`), the rollout carry over two chained blocks
+(`flash_carry`, the second fed the first's carry) and the Abnar factor
+(`flash_abnar`) against their plain versions within phase 11's chain rule,
+each twice for the same bits, at the B=8 518 px shape [256, 6, 1370, 64],
+DINOv3's S = 1029 with RoPE'd q, k and 24 heads at S = 1370, with a planted
+fault per kernel (each row's LSE from the row before) that must break the
+limit; `fused_mst_saliency` on 518 px ViT-S/14 volumes at B=8 and on 512
+px DINOv3 ViT-S/16 ones at B=2 in the three plane modes, with and without
+a key-padding mask, against the plain composed path and an f32 plain
+forward (phase 12's limits), its probs equal to the forward without
+saliency, with each forward's launch counts (12 `flash_fwd` and 1
+`flash_row`, 12 `flash_carry` or 12 `flash_abnar`); the 518 px
+`--with_saliency` program of `mst_tpu_torch.export` in the
+`rollout_abnar` mode at bucket 1, its graph's op nodes against the live
+launches and its CUDA graph replays the live forward's bits; then each
+kernel's time beside its
+plain version and bound, 518 px B=8 vol/s per mode beside the forward
+without saliency, the batch-1 TTA latency, peak memory (`rollout_abnar`
+below five [256, 1370, 1370] f32 matrices: one factor and two running
+products) and a `torch.profiler` table per mode.
+
 Each phase prints its wall time. The line before the last is `{"kernels":
 [...]}`: per kernel its launches on the main path, its largest error, its
 time and its plain version's, the bound (the least time the card could
@@ -920,6 +947,45 @@ def spread_volumes(rng, predict, n: int, pool: int = 48) -> np.ndarray:
     cand = candidate_volumes(rng, pool)
     probs = batched_probs(predict, cand)
     return cand[pick_spread(row_gaps(probs), probs, n)]
+
+
+class HostDraw:
+    """`random_flax_params(build(), seed)` on a host thread, started while
+    the card works on earlier phases: the same arrays as a draw in line
+    (the draw's generator is its own), without its host seconds in the
+    phase that uses it (numpy fills and scales the arrays with the
+    interpreter lock released). `wait()` joins it -> seconds waited;
+    `result()` waits -> (flat dict, seconds waited) and lets go of the
+    dict; `span` is when the draw ran, (start, end) in seconds of the
+    run."""
+
+    def __init__(self, build, seed: int):
+        self._out = self._err = None
+        self.span = (time.perf_counter() - T0, None)
+        self._thread = threading.Thread(target=self._run, args=(build, seed),
+                                        daemon=True)
+        self._thread.start()
+
+    def _run(self, build, seed):
+        from mst_tpu_torch.models.convert import random_flax_params
+        try:
+            self._out = random_flax_params(build(), seed)
+        except BaseException as e:  # raised again by result()
+            self._err = e
+        self.span = (self.span[0], time.perf_counter() - T0)
+
+    def wait(self) -> float:
+        """Join the draw -> seconds waited."""
+        t1 = time.perf_counter()
+        self._thread.join()
+        return time.perf_counter() - t1
+
+    def result(self):
+        waited = self.wait()
+        if self._err is not None:
+            raise self._err
+        out, self._out = self._out, None
+        return out, waited
 
 
 def time_ms(fn, n: int = 10, warmup: int = 3) -> float:
@@ -2315,6 +2381,7 @@ PTXAS_ENTRIES = {
     "mhsa.cu": {"mhsa_kernel": 20},
     "mhsa_bwd.cu": {"mhsa_bwd_dq_kernel": 2, "mhsa_bwd_dkv_kernel": 2},
     "flash_fwd.cu": {"flash_fwd_kernel": 1},
+    "flash_sal.cu": {"flash_sal_carry_kernel": 2, "flash_sal_abnar_kernel": 1},
     "flash_bwd.cu": {"flash_bwd_dq_kernel": 1, "flash_bwd_dkv_kernel": 1},
     "attn_variants.cu": {"variant_kernel": 10, "split_cls_kernel": 2},
     "attn_i8.cu": {"attn_i8_kernel": 6},
@@ -7056,6 +7123,415 @@ def export_checks(tag, dev, fb, run_dir, base, server) -> None:
                   f"threads' CPU {others:.3f} s")
 
 
+# -- phase 53: saliency above 512 tokens (queue A #16) ----------------------
+
+# The saliency kernels (csrc/flash_sal.cu) hold their f32 outputs to
+# KERNEL_GRAD_REL x the plain output's largest value, as any one kernel's;
+# the Abnar factor's largest value is its diagonal (the + I), so its part
+# off the diagonal is held again to KERNEL_GRAD_REL x its own largest value.
+SAL_LONG_PX3_B = LONG_B  # DINOv3 at 512 px: B=2, as phase 35's forward
+
+
+def sal_cost(n, s, part, heads=HEADS):
+    """(FLOPs, bytes) of one saliency kernel over q, k [n, heads, s, 64]
+    and the f32 LSE rows, as the function needs them: the CLS row reads
+    q's row 0, K and the LSE of row 0 and writes [n, heads, s] (its scores
+    2 s hd per head); the carry reads q, k, the LSE and the carry and writes
+    [n, heads, s] (2 s^2 hd per head); the Abnar factor reads q, k and the
+    LSE and writes [n, s, s] f32 (2 s^2 hd per head)."""
+    rows, qk = n * heads * s, n * heads * s * 64 * 2
+    if part == "row":
+        return 2 * n * heads * s * 64, qk // s + qk + 4 * n * heads + 4 * rows
+    if part == "carry":
+        return 2 * n * heads * s * s * 64, 2 * qk + 3 * 4 * rows
+    return 2 * n * heads * s * s * 64, 2 * qk + 4 * rows + 4 * n * s * s
+
+
+def sal_plain_ops(fa):
+    """The plain versions of the composed path's saliency attention
+    (`attention.flash_attention_saliency`'s ops), FLASH_CHUNK slices at a
+    time."""
+    return SimpleNamespace(fwd=flash_chunked(fa.attention_reference),
+                           row=flash_chunked(fa._flash_row_ref),
+                           carry=flash_chunked(fa._flash_carry_ref),
+                           abnar=flash_chunked(fa._flash_abnar_ref))
+
+
+def long_volumes(dev, gen, pool, px):
+    """`pool` seeded [1, D, px, px] volumes drawn on the card as
+    `candidate_volumes` draws them: noise of its own scale and offset and a
+    4 x 4 block pattern."""
+    one = (pool, 1, 1, 1, 1)
+
+    def u(lo, hi):
+        return lo + (hi - lo) * torch.rand(one, generator=gen, device=dev)
+
+    cand = torch.randn((pool, 1, DEPTH_SLICES, px, px), generator=gen,
+                       device=dev) * u(0.25, 2.0) + u(-1.5, 1.5)
+    blocks = torch.randn((pool, DEPTH_SLICES, 4, 4), generator=gen,
+                         device=dev) * u(0.0, 2.0)[:, 0]
+    return cand + F.interpolate(blocks, size=(px, px))[:, None]
+
+
+def spread_long(dev, gen, probs_of, n, px, pool):
+    """n of `pool` seeded volumes at px (`long_volumes`) whose probs lie far
+    apart: `pick_spread` on `probs_of`'s probs, BATCH volumes a call."""
+    cand = long_volumes(dev, gen, pool, px)
+    with torch.inference_mode():
+        probs = torch.cat([probs_of(cand[i:i + BATCH])
+                           for i in range(0, pool, BATCH)]).cpu().numpy()
+    return cand[pick_spread(row_gaps(probs), probs, n)]
+
+
+def check_sal_geometry(tag, fa, lib) -> None:
+    """`attention.flash_sal_launch` (what the CPU tests read) against the
+    kernels' own `mst_flash_sal_geometry` at every S up to 2048 and the
+    path shapes."""
+    shapes = [(1, 1, s) for s in range(1, 2049)]
+    shapes += [(N_SLICES, HEADS, 1370), (LONG_B * DEPTH_SLICES, HEADS, 1029),
+               (DEPTH_SLICES, HEADS, 1601), (16, 24, 1370)]
+    for b, h, s in shapes:
+        for part_i, part in enumerate(fa.SAL_PARTS):
+            geo = (ctypes.c_int * 6)()
+            err = lib.mst_flash_sal_geometry(b, h, s, part_i, geo)
+            g = fa.flash_sal_launch(b, h, s, part)
+            want = (g.tile, g.threads, g.tiles, g.blocks, g.walks, g.smem)
+            check(err == 0 and tuple(geo) == want,
+                  f"saliency geometry {part} at [{b}, {h}, {s}]: kernel "
+                  f"{tuple(geo)} ({err}), flash_sal_launch {want}")
+    g = fa.flash_sal_launch(N_SLICES, HEADS, 1370, "abnar")
+    print(f"{tag} saliency geometry: flash_sal_launch equals "
+          f"mst_flash_sal_geometry at every S <= 2048 and the path shapes "
+          f"([{N_SLICES}, {HEADS}, 1370]: the carry "
+          f"{fa.flash_sal_launch(N_SLICES, HEADS, 1370, 'carry').blocks} "
+          f"blocks of {g.threads} threads; the Abnar factor {g.blocks} blocks, "
+          f"{g.walks} (key tile, head) steps each, {g.smem} bytes of shared "
+          f"memory)")
+
+
+def keys_reversed(form, out):
+    """The plain output of a saliency kernel that reads keys 64..127 (one
+    key tile) in reverse order: the CLS row's and the carry's entries
+    64..127 reversed; the Abnar factor's at query rows 0..63 only, a tile
+    off the diagonal. Row sums and the diagonal stay as they were."""
+    out = out.clone()
+    tile = out[:, :64, 64:128] if form == "flash_abnar" else out[..., 64:128]
+    tile.copy_(tile.flip(-1))
+    return out
+
+
+def off_diagonal(a):
+    """[n, s, s] `a` with its diagonal set to 0."""
+    a = a.clone()
+    a.diagonal(dim1=-2, dim2=-1).zero_()
+    return a
+
+
+def sal_kernel_cases(tag, dev, fa, errs) -> None:
+    """The CLS row, the carry over two chained blocks (the second fed the
+    first's carry, not one-hot) and the Abnar factor against their plain
+    versions on the flash forward's LSE, each twice for the same bits: at
+    the B=8 518 px shape [256, 6, 1370, 64] (head views of a packed qkv),
+    DINOv3's S = 1029 with RoPE'd q, k, and 24 heads at S = 1370. Two
+    planted faults per kernel must break the limit: the LSE of the
+    neighbouring row, and keys 64..127 read in reverse order (for the
+    Abnar factor at query rows 0..63 only), which leaves the row sums and
+    the diagonal as they were."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 153)
+    sm = 1.0 / 8
+    cases = [("B8,S=1370", N_SLICES, 1370, HEADS, False),
+             ("S=1029,rope", LONG_B * DEPTH_SLICES, 1029, HEADS, True),
+             ("E=1536,S=1370", 16, 1370, 24, False)]
+    for label, n, s, h, rope in cases:
+        layers_ = []
+        for _ in range(2):
+            q, k, v = packed_heads(gen, dev, n, s, h)
+            if rope:
+                q, k = rope_heads(dev, q, k)
+            layers_.append((q, k, fa.flash_fwd(q, k, v, want_lse=True)[1]))
+        (q, k, lse), (q2, k2, lse2) = layers_
+        e0 = torch.zeros(n, h, s, device=dev)
+        e0[:, :, 0] = 1.0
+        c1_plain = fa._flash_carry_ref(q, k, lse, e0, sm)
+        forms = {
+            "flash_row": (lambda: fa.flash_row(q, k, lse),
+                          lambda: fa._flash_row_ref(q, k, lse, sm)),
+            "flash_carry": (
+                lambda: (fa.flash_carry(q, k, lse, e0),
+                         fa.flash_carry(q2, k2, lse2, c1_plain)),
+                lambda: (c1_plain,
+                         fa._flash_carry_ref(q2, k2, lse2, c1_plain, sm))),
+            "flash_abnar": (lambda: fa.flash_abnar(q, k, lse),
+                            lambda: fa._flash_abnar_ref(q, k, lse, sm)),
+        }
+        rolled = lse.roll(1, 2)  # each row's LSE from the row before
+        faults = {"flash_row": lambda: fa._flash_row_ref(q, k, rolled, sm),
+                  "flash_carry": lambda: fa._flash_carry_ref(q, k, rolled,
+                                                             e0, sm),
+                  "flash_abnar": lambda: fa._flash_abnar_ref(q, k, rolled,
+                                                             sm)}
+        for form, (kern, plain) in forms.items():
+            got, again = kern(), kern()
+            torch.cuda.synchronize()
+            ref = plain()
+            name = f"{form}[{label}]"
+            errs[name] = check_outputs(tag, f"kernel {name}", got, ref,
+                                       KERNEL_GRAD_REL)
+            got_t = got if isinstance(got, tuple) else (got,)
+            again_t = again if isinstance(again, tuple) else (again,)
+            ref_t = ref if isinstance(ref, tuple) else (ref,)
+            same = all(torch.equal(a_, b_) for a_, b_ in zip(got_t, again_t))
+            print(f"{tag} kernel {name}: two runs equal bit for bit: {same}")
+            check(same, f"{name}: two runs differ")
+            planted(tag, f"{name}: the LSE of the row before",
+                    got_t[0], faults[form](), rel=KERNEL_GRAD_REL)
+            planted(tag, f"{name}: keys 64..127 in reverse order",
+                    got_t[0], keys_reversed(form, ref_t[0]),
+                    rel=KERNEL_GRAD_REL)
+            if form == "flash_abnar":
+                check_outputs(tag, f"kernel {name} off the diagonal",
+                              off_diagonal(got), off_diagonal(ref),
+                              KERNEL_GRAD_REL)
+            del got, again, ref, got_t, again_t, ref_t
+        del layers_, q, k, lse, q2, k2, lse2, e0, c1_plain, rolled
+        torch.cuda.empty_cache()
+
+
+def long_saliency_phase(tag, dev):
+    """Phase 53: saliency above 512 tokens (queue A #16) on the composed
+    path. Returns (errs, timed, cost, counts per plane mode) for the
+    kernels line."""
+    from mst_tpu_torch import export as ex
+    from mst_tpu_torch.models import layers
+    from mst_tpu_torch.models.convert import params_from_flax, random_flax_params
+    from mst_tpu_torch.models.vit_fast import fused_mst_saliency, mst_logits
+    from mst_tpu_torch.ops import _build
+    from mst_tpu_torch.ops import attention as fa
+    from mst_tpu_torch.ops import fused_block as fb
+    from mst_tpu_torch.registry import get_model
+    from mst_tpu_torch.serve import MODEL
+    from mst_tpu_torch.train.predictor import make_predict_fn
+
+    stamp(tag, "53")
+    t_phase = time.perf_counter()
+    errs, timed, cost = {}, {}, {}
+    check_sal_geometry(tag, fa, _build.lib())
+    print(f"{tag} long saliency tolerance: the kernels' f32 outputs within "
+          f"{KERNEL_GRAD_REL} x the plain version's largest value (the Abnar "
+          f"factor's part off the diagonal within {KERNEL_GRAD_REL} x its "
+          f"own), twice for the same bits; the forward's probs as "
+          f"phase 4, its maps within {SAL_REL} of the plain path's largest "
+          f"value and {SAL_F32_REL} of the f32 plain path's (phase 12)")
+    with torch.inference_mode():
+        sal_kernel_cases(tag, dev, fa, errs)
+    print(f"{tag} phase 53 kernels: {time.perf_counter() - t_phase:.1f} s")
+
+    plain_flash_ops, plain_sal_ops = flash_plain_ops(fa), sal_plain_ops(fa)
+
+    @contextlib.contextmanager
+    def plain_long():
+        """The composed blocks' attention and its saliency outputs on their
+        plain versions on the card."""
+        saved = layers.flash_attention, layers.flash_attention_saliency
+        layers.flash_attention = functools.partial(fa.flash_attention,
+                                                   ops=plain_flash_ops)
+        layers.flash_attention_saliency = functools.partial(
+            fa.flash_attention_saliency, ops=plain_sal_ops)
+        try:
+            yield
+        finally:
+            layers.flash_attention, layers.flash_attention_saliency = saved
+
+    def seeded(name):
+        rng_ = np.random.default_rng(SEED)
+        flat_ = random_flax_params(get_model(name), SEED)
+        for key in flat_:
+            if key.endswith("/gamma"):
+                flat_[key] = (1.0 + 0.1 * rng_.standard_normal(
+                    flat_[key].shape)).astype(np.float32)
+        return params_from_flax(get_model(name, dtype=torch.bfloat16),
+                                flat_).to(dev).eval()
+
+    def saliency(mdl, src, mode, m=None, dtype=None):
+        with torch.inference_mode():
+            out = fused_mst_saliency(mdl, src, m, dtype=dtype,
+                                     plane_mode=mode)
+        torch.cuda.synchronize()
+        return out
+
+    zero = {k: 0 for k in fb.launch_counts()}
+    depth = 12
+    want_mode = {
+        "last": {**zero, "flash_fwd": depth, "flash_row": 1},
+        "rollout": {**zero, "flash_fwd": depth, "flash_carry": depth},
+        "rollout_abnar": {**zero, "flash_fwd": depth, "flash_abnar": depth}}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 53)
+    model = seeded(MODEL)
+    model3 = seeded(MODEL3)
+    counts = {}
+    for what, mdl, px, nb in (("518 px ViT-S/14", model, PX_LONG, BATCH),
+                              ("512 px DINOv3 ViT-S/16", model3, PX3_LONG,
+                               SAL_LONG_PX3_B)):
+        src = spread_long(dev, gen, lambda x: torch.softmax(
+            mst_logits(mdl, x), -1), nb, px, 2 * nb)
+        with torch.inference_mode():
+            p_fwd = torch.softmax(mst_logits(mdl, src), -1)
+        mask_t = torch.from_numpy(padding_mask(nb)).to(dev)
+        for mode in PLANE_MODES:
+            for label, m in (("no mask", None), ("key-padding mask", mask_t)):
+                fb.reset_launch_counts()
+                pk, sk = saliency(mdl, src, mode, m)
+                got = fb.launch_counts()
+                with plain_long():
+                    pp_, sp_ = saliency(mdl, src, mode, m)
+                    p32, s32 = saliency(mdl, src, mode, m, torch.float32)
+                check(tuple(sk.shape) == (nb, DEPTH_SLICES, px, px)
+                      and sk.dtype == torch.float32, f"{what} {sk.shape}")
+                check(bool(torch.isfinite(sk).all()
+                           and torch.isfinite(pk).all()),
+                      f"{what} {mode}: non-finite output")
+                d_p, d_p32 = ((pk - pp_).abs().max().item(),
+                              (pk - p32).abs().max().item())
+                d_s, d_s32 = sal_rel_err(sk, sp_), sal_rel_err(sk, s32)
+                d_fwd = ((pk - p_fwd).abs().max().item() if m is None
+                         else 0.0)
+                print(f"{tag} long saliency {what} {mode} [{label}] "
+                      f"{list(sk.shape)}: |probs - plain| {d_p:.6g}, |probs "
+                      f"- f32| {d_p32:.6g}, |probs - forward without "
+                      f"saliency| {d_fwd:.6g}; saliency vs plain {d_s:.6g}, "
+                      f"vs f32 {d_s32:.6g} (of the largest value "
+                      f"{sp_.abs().max().item():.6g}); plain vs f32 "
+                      f"{sal_rel_err(sp_, s32):.6g}; launches {nonzero(got)}")
+                check(d_p <= PROB_TOL and d_p32 <= F32_TOL,
+                      f"{what} {mode} probs: {d_p} / {d_p32}")
+                check(d_s <= SAL_REL and d_s32 <= SAL_F32_REL,
+                      f"{what} {mode} saliency: {d_s} / {d_s32}")
+                check(d_fwd <= 1e-6, f"{what} {mode}: probs moved by {d_fwd}")
+                if m is not None:  # padded slices get no slice attention
+                    leak = sk[mask_t].abs().max().item()
+                    check(leak == 0.0, f"{what} {mode}: padded slices' "
+                          f"saliency {leak}")
+                check_launches(got, want_mode[mode], f"{what} {mode}")
+                if mdl is model and m is None:
+                    counts[mode] = got
+                del pk, sk, pp_, sp_, p32, s32
+            print(f"{tag} phase 53 {what} {mode}: "
+                  f"{time.perf_counter() - t_phase:.1f} s")
+        if mdl is model:
+            src518 = src
+    del model3
+
+    # -- export: the 518 px saliency program, replayed bit for bit -----------
+    # One mode on the card, `rollout_abnar` (its graph holds the factors'
+    # op and the f32 chain, the largest capture; three modes took 34 s of
+    # the run, one 19 s); the CPU tests export all three
+    # (tests/test_torch_export.py)
+    base = ROOT / "build" / "chip_smoke_long_saliency"  # gitignored
+    shutil.rmtree(base, ignore_errors=True)
+    t1 = time.perf_counter()
+    art = ex.save_exported(base, model, batch_sizes=[1], depth=DEPTH_SLICES,
+                           hw=PX_LONG, with_saliency=True,
+                           plane_mode="rollout_abnar")
+    secs = time.perf_counter() - t1
+    ops = {}
+    for node in torch.export.load(art / "program_b1.pt2").graph.nodes:
+        target = str(node.target)
+        if node.op == "call_function" and target.startswith("mst_tpu_torch."):
+            op = target.split(".")[1]
+            ops[op] = ops.get(op, 0) + 1
+    live = make_predict_fn(model, plane_mode="rollout_abnar")
+    fb.reset_launch_counts()
+    ref_p, ref_s = live(src518[:1], None)
+    torch.cuda.synchronize()
+    want = nonzero(fb.launch_counts())
+    print(f"{tag} long saliency export rollout_abnar: {secs:.1f} s; graph ops "
+          f"{ops}; the live forward's launches {want}")
+    check(ops.get("flash_fwd", 0) + ops.get("flash_fwd_lse", 0)
+          == want.get("flash_fwd", 0)
+          and ops.get("flash_abnar", 0) == want.get("flash_abnar", 0)
+          == ops.get("flash_fwd_lse", 0),
+          f"rollout_abnar: graph ops {ops} != the live launches {want}")
+    ref_p, ref_s = ref_p.float().cpu().numpy(), ref_s.float().cpu().numpy()
+    loaded = ex.load_exported(art)
+    for what in ("graph replay", "graph replay again"):
+        p_, s_ = loaded.predict(src518[:1])
+        same = np.array_equal(p_, ref_p) and np.array_equal(s_, ref_s)
+        print(f"{tag} long saliency export rollout_abnar {what}: max|loaded - "
+              f"live| probs {float(np.abs(p_ - ref_p).max()):.6g} maps "
+              f"{float(np.abs(s_ - ref_s).max()):.6g}; the same bits {same}")
+        check(same, f"long saliency export rollout_abnar {what}: not the live "
+              f"model's bits")
+    del loaded
+    torch.cuda.empty_cache()
+    shutil.rmtree(base, ignore_errors=True)
+    print(f"{tag} phase 53 export: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- times: the kernels, vol/s, B=1 TTA latency, peak memory, profiles --
+    with torch.inference_mode():
+        q, k, v = packed_heads(gen, dev, N_SLICES, 1370)
+        _, lse = fa.flash_fwd(q, k, v, want_lse=True)
+        carry = torch.rand(N_SLICES, HEADS, 1370, generator=gen, device=dev)
+        sm = 1.0 / 8
+        plain = sal_plain_ops(fa)
+        forms = {"flash_row": ((fa.flash_row, q, k, lse),
+                               (plain.row, q, k, lse, sm), "row"),
+                 "flash_carry": ((fa.flash_carry, q, k, lse, carry),
+                                 (plain.carry, q, k, lse, carry, sm),
+                                 "carry"),
+                 "flash_abnar": ((fa.flash_abnar, q, k, lse),
+                                 (plain.abnar, q, k, lse, sm), "abnar")}
+        for form, (kern, plain_call, part) in forms.items():
+            name = f"{form}[B8,S=1370]"
+            km = time_ms(lambda: kern[0](*kern[1:]))
+            pm_ = time_ms(lambda: plain_call[0](*plain_call[1:]), n=3,
+                          warmup=1)
+            cost[name] = sal_cost(N_SLICES, 1370, part)
+            timed[name] = (km, pm_)
+            b_ms, b_by = bound([cost[name]])
+            print(f"{tag} time {name}: kernel {km:.4f} ms, plain {pm_:.4f} "
+                  f"ms, bound {b_ms:.4f} ms by {b_by} ({b_ms / km:.3f} of "
+                  f"it; {cost[name][0] / 1e9:.3f} GFLOP, "
+                  f"{cost[name][1] / 1e6:.2f} MB), library none")
+        del q, k, v, lse, carry
+        torch.cuda.empty_cache()
+
+    def seconds_and_memory(fn, n=3):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        sec_ = host_seconds(fn, n)
+        return sec_, torch.cuda.max_memory_allocated() - held
+
+    predict = make_predict_fn(model, with_saliency=False)
+    sec_fwd, mem_fwd = seconds_and_memory(lambda: predict(src518, None))
+    print(f"{tag} e2e 518 px B={BATCH} without saliency: "
+          f"{sec_fwd * 1e3:.3f} ms = {BATCH / sec_fwd:.4f} vol/s, peak "
+          f"memory {mem_fwd / 2**20:.1f} MiB above the "
+          f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB held")
+    nsz = N_SLICES * 1370 * 1370 * 4
+    for mode in PLANE_MODES:
+        sec_m, mem_m = seconds_and_memory(
+            lambda: saliency(model, src518, mode))
+        tta = make_predict_fn(model, tta=True, plane_mode=mode)
+        sec_1 = host_seconds(lambda: tta(src518[:1], None), 3)
+        print(f"{tag} e2e 518 px saliency {mode} B={BATCH}: "
+              f"{sec_m * 1e3:.3f} ms = {BATCH / sec_m:.4f} vol/s "
+              f"({sec_m / sec_fwd:.3f}x the forward without saliency), peak "
+              f"memory {mem_m / 2**20:.1f} MiB above what was held "
+              f"({mem_m / nsz:.3f} x one [256, 1370, 1370] f32 matrix of "
+              f"{nsz / 2**20:.1f} MiB); batch-1 8-flip TTA with saliency: "
+              f"{sec_1 * 1e3:.3f} ms per volume")
+        if mode == "rollout_abnar":
+            # one factor and two running products, never a head's [S, S]
+            # probabilities for all heads (6 x one matrix) or 12 factors
+            check(mem_m < 5 * nsz, f"rollout_abnar peak memory {mem_m} >= "
+                  f"5 [256, 1370, 1370] f32 matrices")
+        profile_device(tag, f"one 518 px B={BATCH} saliency forward ({mode})",
+                       lambda: saliency(model, src518, mode), 8)
+    print(f"{tag} phase 53: {time.perf_counter() - t_phase:.1f} s")
+    return errs, timed, cost, counts
+
+
 def main() -> int:
     if not (ROOT / "mst_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke.py must run from a checkout of the "
@@ -7129,6 +7605,21 @@ def main() -> int:
     _build.lib()
     print(f"{tag} build: {time.perf_counter() - t0:.2f} s -> "
           f"{lib_path.relative_to(ROOT)}")
+    # the largest seeded draws (phases 22 and 27: giant2, ViT-B, ViT-L, 46
+    # s of host time a run) on host threads after the build (during it they
+    # slow nvcc down), each with the train CLI's model built on the CPU for
+    # its names and shapes; joined before phase 6, the first that times
+    # anything
+    def cli_model(*argv):
+        return lambda: cli.build_model(cli.parse_args(
+            ["--dataset", "Synthetic", *argv]), device="cpu")
+
+    host_draws = {
+        "giant2": HostDraw(cli_model("--model_size", "giant2", "--freeze"),
+                           SEED),
+        "base": HostDraw(cli_model("--model_size", "base"), SEED),
+        "large": HostDraw(cli_model("--model_size", "large",
+                                    "--fusion_heads", "16"), SEED)}
     check_machine_code(tag, log.getvalue(), _build, lib_path)
     check_gemm_geometry(tag, fb, _build.lib())
     check_attn_geometry(tag, fb, _build.lib())
@@ -7419,6 +7910,11 @@ def main() -> int:
 
     # -- 6. times ----------------------------------------------------------
     stamp(tag, "6")
+    waited = sum(draw.wait() for draw in host_draws.values())
+    print(f"{tag} host draws joined before the first timed phase: waited "
+          f"{waited:.1f} s; ran " + ", ".join(
+              f"{size} {draw.span[0]:.1f}-{draw.span[1]:.1f} s"
+              for size, draw in host_draws.items()) + " of the run")
     timed = {name: (time_ms(kern), time_ms(plain))
              for name, (kern, plain) in cases.items()
              if not name.startswith(RES_GEMMS + ATTN)}  # phases 42-43
@@ -8637,7 +9133,11 @@ def main() -> int:
     gmodel = cli.build_model(gargs)
     t_build = time.perf_counter() - t1
     t1 = time.perf_counter()
-    flatg = random_flax_params(gmodel, SEED)
+    drawg = host_draws.pop("giant2")
+    flatg, t_wait = drawg.result()
+    check(sorted(flatg) == sorted(k.replace(".", "/") for k, _ in
+                                  gmodel.named_parameters()),
+          "the giant2 host draw's keys are not the model's")
     for key in flatg:
         if key.endswith("/gamma"):
             flatg[key] = (1.0 + 0.1 * rng.standard_normal(flatg[key].shape)
@@ -8650,7 +9150,9 @@ def main() -> int:
     gmodel.eval()
     n_params = sum(p.numel() for p in gmodel.parameters())
     print(f"{tag} giant2: {n_params} parameters ({n_params * 4 / 2**30:.2f} "
-          f"GiB f32) built in {t_build:.1f} s, drawn in {t_draw:.1f} s, "
+          f"GiB f32) built in {t_build:.1f} s, drawn on a host thread from "
+          f"{drawg.span[0]:.1f} to {drawg.span[1]:.1f} s of the run (waited "
+          f"{t_wait:.1f} s; {t_draw:.1f} s with the O(1) LayerScale), "
           f"copied to the card in {t_load:.1f} s; config {gmodel.config}")
     check(gmodel.dtype == torch.bfloat16 and gmodel.freeze
           and gmodel.ffn_layer == "swiglu" and gmodel.encoder.depth == DEPTH_G
@@ -9084,7 +9586,13 @@ def main() -> int:
                                 "1", "--num_train_samples", str(BATCH),
                                 "--seed", str(SEED), *extra])
         m_ = cli.build_model(uargs)
-        params_from_flax(m_, random_flax_params(m_, SEED))
+        draw = host_draws.pop(size)
+        flat_, waited = draw.result()  # random_flax_params(m_, SEED)
+        print(f"{tag} ViT-{size}: drawn on a host thread from "
+              f"{draw.span[0]:.1f} to {draw.span[1]:.1f} s of the run "
+              f"(waited {waited:.1f} s)")
+        params_from_flax(m_, flat_)
+        del flat_
         with torch.no_grad():
             for n_, q in m_.named_parameters():
                 if n_.endswith(".gamma"):
@@ -9661,33 +10169,15 @@ def main() -> int:
         finally:
             layers.flash_attention = saved
 
-    def long_volumes(pool, px, gen):
-        """`pool` seeded [1, D, px, px] volumes drawn on the card as
-        `candidate_volumes` draws them: noise of its own scale and offset
-        and a 4 x 4 block pattern."""
-        one = (pool, 1, 1, 1, 1)
-
-        def u(lo, hi):
-            return lo + (hi - lo) * torch.rand(one, generator=gen, device=dev)
-
-        cand = torch.randn((pool, 1, DEPTH_SLICES, px, px), generator=gen,
-                           device=dev) * u(0.25, 2.0) + u(-1.5, 1.5)
-        blocks = torch.randn((pool, DEPTH_SLICES, 4, 4), generator=gen,
-                             device=dev) * u(0.0, 2.0)[:, 0]
-        return cand + F.interpolate(blocks, size=(px, px))[:, None]
-
-    def spread_long(pred, n, px, pool):
-        """n of `pool` seeded volumes at px whose probs lie far apart
-        (`pick_spread` on the kernel path's probs), as numpy."""
-        cand = long_volumes(pool, px, fgen)
-        probs = torch.cat([pred(cand[i:i + BATCH], None)[0]
-                           for i in range(0, pool, BATCH)]).cpu().numpy()
-        return cand[pick_spread(row_gaps(probs), probs, n)].cpu().numpy()
+    def spread_long_np(pred, n, px, pool):
+        """`spread_long` on `pred`'s probs, as numpy."""
+        return spread_long(dev, fgen, lambda x: pred(x, None)[0], n, px,
+                           pool).cpu().numpy()
 
     check(not fused_seq_len_ok(model, PX_LONG, PX_LONG)
           and not fused_seq_len_ok(model, PX_1601, PX_1601),
           "518 / 560 px slices must take the composed path")
-    vol518 = spread_long(predict, BATCH, PX_LONG, 4 * BATCH)
+    vol518 = spread_long_np(predict, BATCH, PX_LONG, 4 * BATCH)
     per_fwd_long = {**zero, "flash_fwd": n_blocks + 1}  # every block, full
     print(f"{tag} 518 px: S = 1370; the composed path runs all "
           f"{n_blocks + 1} blocks in full (no CLS-only block), one flash_fwd "
@@ -9754,7 +10244,7 @@ def main() -> int:
     # batch-1 8-flip TTA, and one S = 1601 volume (the Pallas blocked rows'
     # lengths), each against the plain path
     tta_long = make_predict_fn(model, tta=True, with_saliency=False)
-    vol560 = long_volumes(1, PX_1601, fgen)
+    vol560 = long_volumes(dev, fgen, 1, PX_1601)
     for what, pred_, v_ in (("518 px batch-1 TTA", tta_long, vol518[:1]),
                             ("560 px (S = 1601) forward", predict, vol560)):
         fb.reset_launch_counts()
@@ -9779,7 +10269,7 @@ def main() -> int:
     model3 = params_from_flax(get_model(MODEL3, dtype=bf), flat3).to(
         dev).eval()
     predict3 = make_predict_fn(model3, with_saliency=False)
-    vol3 = spread_long(predict3, LONG_B, PX3_LONG, BATCH)
+    vol3 = spread_long_np(predict3, LONG_B, PX3_LONG, BATCH)
     check_forward("DINOv3 512 px forward", model3, predict3, vol3,
                   per_fwd_long, zero_calls, plain=plain_flash)
     del model3, predict3, flat3, vol3
@@ -9877,7 +10367,7 @@ def main() -> int:
     del fmodel
 
     # one B=1 step at 560 px (S = 1601)
-    src560 = long_volumes(1, PX_1601, fgen)
+    src560 = long_volumes(dev, fgen, 1, PX_1601)
     tgt1 = tgt_l[:1]
     fb.reset_launch_counts()
     loss_k, grads_k = loss_and_grads(lmodel, src560, tgt1)
@@ -10039,6 +10529,14 @@ def main() -> int:
     # ======================================================================
     export_phase(tag, dev, fb, run_dir)
 
+    # ======================================================================
+    # Phase 53: saliency above 512 tokens (the composed path's CLS row,
+    # rollout carry and Abnar factor on the flash forward's LSE)
+    # ======================================================================
+    serrs_l, stimed_l, scost_l, sal_long = long_saliency_phase(tag, dev)
+    errs.update(serrs_l)
+    cost.update(scost_l)
+
     # TPU kernels: _attn_any_kernel at fused_block.py:326, _mlp_kernel at
     # :400, their train forwards _attn_train_kernel :424 and
     # _mlp_train_kernel :470, the backwards _attn_bwd_kernel :680 and
@@ -10046,6 +10544,8 @@ def main() -> int:
     site = "mst_tpu/ops/fused_block.py:{}".format
     isite = "mst_tpu/ops/fused_int8.py:{}".format
     asite = "mst_tpu/ops/attention.py:{}".format
+    lsite = "mst_tpu/models/layers.py:{}".format
+    ssite = "mst_tpu/ops/saliency.py:{}".format
     fwd_sites = [site(326), site(400), site(424), site(470)]
     bwd_sites = [site(680), site(841)]
     sites = {
@@ -10133,6 +10633,17 @@ def main() -> int:
                          long_step_counts, ["flash_bwd_dq[B2,S=1370]"]),
         "flash_bwd_dkv": ("flash_bwd", [asite(372), asite(305)],
                           long_step_counts, ["flash_bwd_dkv[B2,S=1370]"]),
+        # no TPU kernel: XLA's reductions of the probabilities that the
+        # flax path sows above 512 tokens (`attention_reference` in
+        # `Attention.__call__`), counted on the 518 px B=8 saliency forward
+        # of their plane mode (phase 53)
+        "flash_row": ("flash_sal", [lsite(148), ssite(44)], sal_long["last"],
+                      ["flash_row[B8,S=1370]"]),
+        "flash_carry": ("flash_sal", [lsite(148), ssite(89)],
+                        sal_long["rollout"], ["flash_carry[B8,S=1370]"]),
+        "flash_abnar": ("flash_sal", [lsite(148), ssite(119)],
+                        sal_long["rollout_abnar"],
+                        ["flash_abnar[B8,S=1370]"]),
     }
     alltimed = {**timed, **ttimed, **stimed, **rtimed, **gtimed, **utimed,
                 **itimed, **ftimed}
@@ -10144,6 +10655,7 @@ def main() -> int:
     alltimed.update(ltimed)
     alltimed.update(xtimed)
     alltimed.update(qrtimed)
+    alltimed.update(stimed_l)
     print(f"{tag} bound: the larger of FLOPs / {PEAK_FLOPS:.4g} FLOP/s + "
           f"int8 operations / {PEAK_INT8:.4g} OP/s and bytes / "
           f"{PEAK_BYTES:.4g} B/s (each input read once, each output written "

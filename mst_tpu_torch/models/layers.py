@@ -5,7 +5,9 @@ sub-layers (the path of slices up to `vit_fast.FUSED_MAX_TOKENS`);
 `Block.forward_composed` is the flax `Block.__call__` composition, for
 longer slices: LN, the qkv product, [RoPE], `flash_attention` (the
 hand-written flash kernels on CUDA), the proj product, LayerScale and the
-residual, then LN, the MLP or SwiGLU, LayerScale and the residual. Its
+residual, then LN, the MLP or SwiGLU, LayerScale and the residual; with a
+saliency switch its attention is `flash_attention_saliency` (the flash
+forward with its LSE, then the CLS-row, carry or Abnar kernel). Its
 products stay `torch.matmul`, as the JAX package leaves them to XLA.
 
 Parameter names are the flax ones, so `models/convert.params_from_flax`
@@ -31,7 +33,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mst_tpu_torch.ops.attention import flash_attention
+from mst_tpu_torch.ops.attention import (
+    flash_attention,
+    flash_attention_saliency,
+)
 from mst_tpu_torch.ops.fused_block import (
     _ln,
     fused_attention_sublayer,
@@ -147,17 +152,30 @@ class Attention(nn.Module):
         self.qkv = Dense(dim, 3 * dim)
         self.proj = Dense(dim, dim)
 
-    def forward(self, x, rope_cos=None, rope_sin=None):
+    def forward(self, x, rope_cos=None, rope_sin=None, want_row=False,
+                carry=None, abnar=False):
         """flax `Attention` without weights or bias: x [N, S, E] -> [N, S,
         E]. q, k, v are head views of the packed qkv (no copy); with the
-        RoPE tables ([S, head_dim] f32) q and k are rotated first."""
+        RoPE tables ([S, head_dim] f32) q and k are rotated first. With one
+        saliency switch (serving only; `Block.forward`'s flags of the fused
+        path) -> (y, the CLS row [N, heads, S] | the carry [N, heads, S]
+        moved on | the Abnar factor [N, S, S], f32), which the flax path's
+        `return_weights` sows as the probabilities themselves: here
+        `flash_fwd` keeps its LSE and a kernel rebuilds what the mode needs
+        from it and the same q, k."""
         n, s, e = x.shape
         qkv = self.qkv(x).view(n, s, 3, self.num_heads, e // self.num_heads)
         q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
         if rope_cos is not None:
             q, k = (apply_rope_tables(t, rope_cos, rope_sin) for t in (q, k))
-        o = flash_attention(q, k, v)  # laid out [N, S, heads, head_dim]
-        return self.proj(o.transpose(1, 2).reshape(n, s, e))
+        extra = None
+        if want_row or carry is not None or abnar:
+            o, extra = flash_attention_saliency(q, k, v, want_row, carry,
+                                                abnar)
+        else:
+            o = flash_attention(q, k, v)  # laid out [N, S, heads, head_dim]
+        y = self.proj(o.transpose(1, 2).reshape(n, s, e))
+        return y if extra is None else (y, extra)
 
 
 class Mlp(nn.Module):
@@ -273,13 +291,19 @@ class Block(nn.Module):
             h = ffn(*ffn_args, self.gelu_approximate, self.norm_eps)
         return h if extra is None else (h, extra)
 
-    def forward_composed(self, h, rope_cos=None, rope_sin=None):
+    def forward_composed(self, h, rope_cos=None, rope_sin=None,
+                         want_row=False, carry=None, abnar=False):
         """The flax `Block.__call__` (mst_tpu/models/layers.py:177-219) on
         plain products and `flash_attention`: h [N, S, E] -> [N, S, E],
         differentiable by autograd (the attention through its kernels'
         backward). `rope_cos` / `rope_sin` ([S, head_dim] f32): RoPE on q
-        and k."""
-        y = self.attn(self.norm1(h), rope_cos, rope_sin)
+        and k. With `want_row`, `carry` or `abnar` (serving only, as
+        `forward` takes them) -> (h, CLS row | new carry | Abnar factor)."""
+        y = self.attn(self.norm1(h), rope_cos, rope_sin, want_row, carry,
+                      abnar)
+        extra = None
+        if isinstance(y, tuple):
+            y, extra = y
         if self.ls1 is not None:
             y = y * self.ls1.gamma.to(y.dtype)
         h = h + y
@@ -288,7 +312,7 @@ class Block(nn.Module):
              else self.mlp(y, self.gelu_approximate))
         if self.ls2 is not None:
             y = y * self.ls2.gamma.to(y.dtype)
-        return h + y
+        return h + y if extra is None else (h + y, extra)
 
     def _forward_i8(self, h, train, want_row, carry, abnar, rope_cos,
                     rope_sin):

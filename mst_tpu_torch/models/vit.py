@@ -146,3 +146,40 @@ class VisionTransformer(nn.Module):
             else:
                 h = blk.forward_composed(h, rope_cos, rope_sin)
         return self.norm(h[:, 0])  # the final LN is per token
+
+    def forward_saliency(self, h, rope_cos=None, rope_sin=None,
+                         plane_mode: str = "last"):
+        """The composed encoder in one saliency mode (serving only), every
+        block in full as the flax `return_weights` path runs it -> (CLS [N,
+        E], data): "last" the last block's CLS row [N, heads, S];
+        "rollout" the reference `get_attention_cls` chain's CLS row, a carry
+        [N, heads, S] started one-hot at CLS (as `vit_fast.fused_vit_cls`
+        starts it) and moved through every block; "rollout_abnar" a list of
+        one [N, S, S] matrix, the newest-first product A_l @ ... @ A_0 of
+        the blocks' Abnar factors, chained as they come, so that one factor
+        and the running product are alive and not twelve factors
+        (`ops/saliency.attention_rollout_from_factors` reads its CLS row
+        as it would the factors' product). All f32."""
+        n, s = h.shape[:2]
+        data = None
+        if plane_mode == "rollout":
+            data = torch.zeros(n, self.num_heads, s, device=h.device)
+            data[:, :, 0] = 1.0
+        for i in range(self.depth):
+            blk = self.block(i)
+            if plane_mode == "rollout":
+                h, data = blk.forward_composed(h, rope_cos, rope_sin,
+                                               carry=data)
+            elif plane_mode == "rollout_abnar":
+                h, factor = blk.forward_composed(h, rope_cos, rope_sin,
+                                                 abnar=True)
+                data = factor if data is None else torch.matmul(factor, data)
+                del factor
+            elif i == self.depth - 1:
+                h, data = blk.forward_composed(h, rope_cos, rope_sin,
+                                               want_row=True)
+            else:
+                h = blk.forward_composed(h, rope_cos, rope_sin)
+        if plane_mode == "rollout_abnar":
+            data = [data]
+        return self.norm(h[:, 0]), data

@@ -33,7 +33,12 @@ products and `ops/attention.flash_attention` (the hand-written flash
 kernels), then the slice fusion and head that `fusion_head` shares with
 the fused path. `mst_logits` routes by the slice size alone, as the JAX
 callers do (`mst_tpu/train/predictor.py:238-257`, `trainer.py:237-266`,
-:365-385).
+:365-385), and so does `fused_mst_saliency`: above FUSED_MAX_TOKENS its
+`composed_mst_saliency` runs every block in full with the saliency output
+of its plane mode (`ops/attention.flash_attention_saliency`: the CLS row,
+the rollout carry or the Abnar factor, rebuilt by hand-written kernels
+from `flash_fwd`'s LSE; JAX sows every block's [N, H, S, S]
+probabilities there).
 """
 
 from __future__ import annotations
@@ -332,21 +337,30 @@ PLANE_MODES = ("last", "rollout", "rollout_abnar")
 def fused_mst_saliency(model, source, src_key_padding_mask=None, dtype=None,
                        plane_mode: str = "last"):
     """(probs [B, classes] f32, saliency [B, D, H, W] f32) on the fused
-    serving path, without any [S, S] attention matrix of the encoder in
-    device memory. plane_mode "last": the last block's CLS row;
+    serving path, without any [S, S] attention matrix of a head in device
+    memory. plane_mode "last": the last block's CLS row;
     "rollout": the reference `get_attention_cls` chain's CLS row, carried
     through every block's kernel; "rollout_abnar": the Abnar & Zuidema
     rollout of the per-block factors the kernels emit, chained in f32 by
-    `torch.matmul`. Slice weights come from the fusion layer's probs."""
+    `torch.matmul`. Slice weights come from the fusion layer's probs.
+    Slices above FUSED_MAX_TOKENS take the composed saliency forward
+    (`composed_mst_saliency`), as JAX takes its flax path there; an
+    int8-quantized model raises JAX's ValueError there."""
     if plane_mode not in PLANE_MODES:
         raise ValueError(f"plane_mode {plane_mode!r} not in {PLANE_MODES}")
-    _check_fused(model, source)
+    _check_fused_config(model)
+    long_slices = not fused_seq_len_ok(model, *source.shape[-2:])
     if has_int8(model):
+        if long_slices:  # JAX's order: int8 params have no flax saliency
+            raise ValueError(
+                "int8-quantized params need the fused serving path; this "
+                f"saliency input exceeds FUSED_MAX_TOKENS={FUSED_MAX_TOKENS}")
         check_int8_config(model)
     dtype = model.dtype if dtype is None else dtype
     b, d, hh, ww = source.shape[0], *source.shape[2:]
     p = model.patch_size
-    logits, sal_data, fusion_probs = _fused_mst(
+    forward = composed_mst_saliency if long_slices else _fused_mst
+    logits, sal_data, fusion_probs = forward(
         model, source, src_key_padding_mask, dtype, plane_mode=plane_mode)
     probs = torch.softmax(logits.float(), -1)
     if fusion_probs is None:  # average / linear fusion: uniform weights
@@ -363,10 +377,36 @@ def fused_mst_saliency(model, source, src_key_padding_mask=None, dtype=None,
     return probs, upsample_saliency(combined_saliency(sw, pw), (d, hh, ww))
 
 
-def _check_fused(model, source):
+def composed_mst_saliency(model, source, src_key_padding_mask, dtype,
+                          plane_mode: str):
+    """The composed path's saliency forward (slices above
+    FUSED_MAX_TOKENS; flax `model.apply(return_weights=...)` in JAX):
+    `VisionTransformer.forward_saliency` over the tokens of
+    `prepare_vit_tokens`, every block in full on plain products and the
+    flash kernels, each block's attention with the saliency output of
+    `plane_mode`; then the fusion and head of `fusion_head` with its
+    probabilities -> (logits, saliency data, fusion probs), as
+    `_fused_mst` returns them."""
+    b, d = source.shape[0], source.shape[2]
+    h, rope_cos, rope_sin = prepare_vit_tokens(
+        model.encoder, slices_nhwc(source), FastViTConfig.from_model(model),
+        dtype)
+    feats, sal_data = model.encoder.forward_saliency(h, rope_cos, rope_sin,
+                                                     plane_mode)
+    logits, fusion_probs = fusion_head(model, feats, b, d,
+                                       src_key_padding_mask, dtype,
+                                       want_probs=True)
+    return logits, sal_data, fusion_probs
+
+
+def _check_fused_config(model):
     if not fused_config_supported(model):
         raise NotImplementedError(
             f"{type(model).__name__} config is outside the fused serving path")
+
+
+def _check_fused(model, source):
+    _check_fused_config(model)
     if not fused_seq_len_ok(model, *source.shape[-2:]):
         raise NotImplementedError(
             f"{tuple(source.shape[-2:])} slices exceed FUSED_MAX_TOKENS="

@@ -44,9 +44,21 @@ the plain version, which keeps its autograd (the ops have no backward).
 
 The LSE is base 2 in the scaled units of the softmax (`m + log2(l)` of
 s = q.k * sm_scale * log2(e)), as `mhsa` keeps it; JAX's natural-log rows
-are this / log2(e), and only the port's own backward reads them. The JAX bias /
-`return_weights` form of `attention_reference` serves saliency above 512
-tokens, which is ROADMAP queue A #16.
+are this / log2(e), and only the port's own kernels read them: the
+backward, and the saliency outputs above 512 tokens.
+
+Saliency above 512 tokens (JAX serves it on its flax path, whose
+`attention_reference` sows every block's per-head [N, H, S, S]
+probabilities) rides the same forward: `flash_attention_saliency` runs
+`flash_fwd` with its LSE, then one of `flash_row` (the CLS row of the last
+block), `flash_carry` (the rollout carry moved one block on) and
+`flash_abnar` (the block's Abnar factor), hand-written kernels that
+rebuild p = exp2(s - lse) tile by tile from the same q and k
+(csrc/flash_sal.cu; `flash_sal_launch` mirrors their geometry). No TPU
+kernel computes these: they replace XLA's reductions of the sown
+probabilities. Their plain versions (`_flash_row_ref`, `_flash_carry_ref`,
+`_flash_abnar_ref`) follow `fused_block._mhsa_ref`'s saliency forms, a
+head at a time.
 """
 
 from __future__ import annotations
@@ -134,6 +146,40 @@ def _probs(q, k, lse, sm_scale):
     """p = exp2(s - lse) rebuilt from the saved base-2 LSE rows."""
     s = _mm(q, k.transpose(-1, -2)) * (sm_scale * LOG2E)
     return torch.exp2(s - _f(lse)[..., None])
+
+
+def _head_probs(q, k, lse, h, sm_scale):
+    """p of head h, [B, S_q, S] (one head at a time: at 518 px and B=8 a
+    head's p is 1.92 GB in f32, all six 11.5 GB)."""
+    return _probs(q[:, h], k[:, h], lse[:, h], sm_scale)
+
+
+def _flash_row_ref(q, k, lse, sm_scale=None):
+    """The CLS row p[0] of each head, [B, H, S] f32 (`_mhsa_ref`'s
+    `want_row` form: p[0] / l, here exp2(s - lse) of the saved LSE)."""
+    sm = _scale(q, sm_scale)
+    return torch.stack([_head_probs(q[:, :, :1], k, lse[:, :, :1], h, sm)[:, 0]
+                        for h in range(q.shape[1])], 1)
+
+
+def _flash_carry_ref(q, k, lse, carry, sm_scale=None):
+    """The rollout carry moved one block on, sum_q carry[q] p[q, k] per
+    head, [B, H, S] f32 (`_mhsa_ref`'s `carry` form)."""
+    sm = _scale(q, sm_scale)
+    return torch.stack([(_f(carry[:, h, :, None]) *
+                         _head_probs(q, k, lse, h, sm)).sum(-2)
+                        for h in range(q.shape[1])], 1)
+
+
+def _flash_abnar_ref(q, k, lse, sm_scale=None):
+    """The Abnar & Zuidema factor rownorm(mean_h p + I), [B, S, S] f32, the
+    heads summed in order (`_mhsa_ref`'s `want_abnar` form)."""
+    sm, heads, s = _scale(q, sm_scale), q.shape[1], q.shape[2]
+    ab = _head_probs(q, k, lse, 0, sm)
+    for h in range(1, heads):
+        ab = ab + _head_probs(q, k, lse, h, sm)
+    a = ab * (1.0 / heads) + torch.eye(s, device=ab.device, dtype=ab.dtype)
+    return a / a.sum(-1, keepdim=True)
 
 
 def _delta(o, do):
@@ -253,10 +299,12 @@ def _stream(x):
 
 def flash_fwd(q, k, v, sm_scale=None, want_lse: bool = False):
     """o [B, H, S, hd] (laid out [B, S, H, hd]) of softmax attention; with
-    `want_lse` also the base-2 LSE [B, H, S] f32. The serving form (no LSE)
-    is the registered op `mst_tpu_torch::flash_fwd`."""
-    if exporting() and not want_lse:
-        return _flash_fwd_op(q, k, v, _scale(q, sm_scale))
+    `want_lse` also the base-2 LSE [B, H, S] f32. The serving form is the
+    registered op `mst_tpu_torch::flash_fwd`, the LSE form (which the
+    saliency forward serves on) `mst_tpu_torch::flash_fwd_lse`."""
+    if exporting():
+        op = _flash_fwd_lse_op if want_lse else _flash_fwd_op
+        return op(q, k, v, _scale(q, sm_scale))
     if not _on_cuda(q):
         return attention_reference(q, k, v, sm_scale, want_lse)
     return _flash_fwd_cuda(q, k, v, sm_scale, want_lse)
@@ -296,6 +344,24 @@ def _(q, k, v, sm_scale):
 @_flash_fwd_op.register_fake
 def _(q, k, v, sm_scale):
     return _like_out(q)
+
+
+@torch.library.custom_op("mst_tpu_torch::flash_fwd_lse", mutates_args=(),
+                         device_types="cuda")
+def _flash_fwd_lse_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      sm_scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    return _flash_fwd_cuda(q, k, v, sm_scale, True)
+
+
+@_flash_fwd_lse_op.register_kernel("cpu")
+def _(q, k, v, sm_scale):
+    o, lse = attention_reference(q, k, v, sm_scale, want_lse=True)
+    return _like_out(q).copy_(o), lse.contiguous()
+
+
+@_flash_fwd_lse_op.register_fake
+def _(q, k, v, sm_scale):
+    return _like_out(q), q.new_empty(q.shape[:3], dtype=torch.float32)
 
 
 def flash_bwd_dq(q, k, v, o, do, lse, sm_scale=None):
@@ -339,6 +405,176 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, sm_scale=None):
     _build.check(err, "mst_flash_bwd_dkv")
     flash_bwd_dkv.launches += 1
     return dk, dv
+
+
+# The launch geometry of the saliency kernels (csrc/flash_sal.cu): a block
+# of SAL_THREADS threads (4 warps of 16 rows) per unit of SAL_TILE rows; the
+# CLS row and the carry take a key tile of one (slice, head), the first
+# query tile (row) or every one (carry) streaming through a two-stage ring;
+# the Abnar factor a query tile of one slice with the Q tiles and LSE of
+# every head resident, the K tiles of each (key tile, head) streaming
+# through the ring twice (the rows' sums, then the values).
+SAL_TILE, SAL_THREADS = 64, 128
+SAL_PARTS = ("row", "carry", "abnar")
+_SAL_TILE_BYTES = SAL_TILE * HEAD_DIM * 2
+_SMEM_LIMIT = 232_448  # dynamic shared memory of one H100 block
+SAL_MAX_HEADS = ((_SMEM_LIMIT - 2 * _SAL_TILE_BYTES)
+                 // (_SAL_TILE_BYTES + SAL_TILE * 4))  # 25
+
+
+def flash_sal_launch(b: int, h: int, s: int, part: str) -> SimpleNamespace:
+    """The launch geometry of `flash_row` ("row"), `flash_carry` ("carry")
+    or `flash_abnar` ("abnar") over [b, h, s, 64], as
+    `mst_flash_sal_geometry` exports it: rows of a tile, threads, tiles,
+    blocks (one a unit: key tile, head, slice; the Abnar form query tile,
+    slice), the tiles of the other operand a block walks (the Abnar form:
+    (key tile, head) steps of its two passes) and shared memory bytes (the
+    K tile, two Q stages and their f32 LSE and weights; the Abnar form the
+    Q tiles and LSE of every head and two K stages)."""
+    if part not in SAL_PARTS or min(b, h, s) < 1:
+        raise ValueError(f"flash_sal_launch({b}, {h}, {s}, {part!r})")
+    tiles = -(-s // SAL_TILE)
+    if part == "abnar":
+        blocks, walks = tiles * b, 2 * tiles * h
+        smem = h * (_SAL_TILE_BYTES + SAL_TILE * 4) + 2 * _SAL_TILE_BYTES
+    else:
+        blocks, walks = tiles * h * b, 1 if part == "row" else tiles
+        smem = 3 * _SAL_TILE_BYTES + 2 * 2 * SAL_TILE * 4
+    return SimpleNamespace(tile=SAL_TILE, threads=SAL_THREADS, tiles=tiles,
+                           blocks=blocks, walks=walks, smem=smem)
+
+
+def _flash_sal_cuda(part, q, k, lse, carry, sm_scale):
+    """The launch of `mst_flash_carry` (the row and carry forms) or
+    `mst_flash_abnar` on checked operands, counted under its wrapper."""
+    b, h, s = _shape(q, sm_scale)
+    strides = [_view(t, n, q.shape, q) for t, n in ((q, "q"), (k, "k"))]
+    _lse(lse, "lse", b, h, s, q)
+    if part == "carry":
+        _lse(carry, "carry", b, h, s, q)
+    if part == "abnar" and h > SAL_MAX_HEADS:
+        raise ValueError(f"flash_abnar keeps every head's Q tile in shared "
+                         f"memory: at most {SAL_MAX_HEADS} heads, got {h}")
+    lib, scale = _build.lib(), sm_scale * LOG2E
+    if part == "abnar":
+        out = torch.empty((b, s, s), dtype=torch.float32, device=q.device)
+        err = lib.mst_flash_abnar(q.data_ptr(), k.data_ptr(), lse.data_ptr(),
+                                  out.data_ptr(), _strides(*strides), b, h, s,
+                                  scale, _stream(q))
+        _build.check(err, "mst_flash_abnar")
+        flash_abnar.launches += 1
+        return out
+    out = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    err = lib.mst_flash_carry(
+        q.data_ptr(), k.data_ptr(), lse.data_ptr(),
+        None if carry is None else carry.data_ptr(), out.data_ptr(),
+        _strides(*strides), b, h, s, scale, int(part == "row"), _stream(q))
+    _build.check(err, "mst_flash_carry")
+    (flash_row if part == "row" else flash_carry).launches += 1
+    return out
+
+
+def flash_row(q, k, lse, sm_scale=None):
+    """The CLS row of each head's softmax, p[0] [B, H, S] f32, from q, k
+    [B, H, S, hd] and the base-2 LSE rows of `flash_fwd(want_lse=True)`: the
+    ROW form of the carry kernel (the first query tile alone)."""
+    if exporting():
+        return _flash_row_op(q, k, lse, _scale(q, sm_scale))
+    if not _on_cuda(q):
+        return _flash_row_ref(q, k, lse, sm_scale)
+    return _flash_sal_cuda("row", q, k, lse, None, _scale(q, sm_scale))
+
+
+def flash_carry(q, k, lse, carry, sm_scale=None):
+    """The rollout carry [B, H, S] f32 moved through this attention,
+    new[k] = sum_q carry[q] p[q, k] per head."""
+    if exporting():
+        return _flash_carry_op(q, k, lse, carry, _scale(q, sm_scale))
+    if not _on_cuda(q):
+        return _flash_carry_ref(q, k, lse, carry, sm_scale)
+    return _flash_sal_cuda("carry", q, k, lse, carry, _scale(q, sm_scale))
+
+
+def flash_abnar(q, k, lse, sm_scale=None):
+    """The Abnar & Zuidema factor of this attention, rownorm(mean_h p + I)
+    [B, S, S] f32."""
+    if exporting():
+        return _flash_abnar_op(q, k, lse, _scale(q, sm_scale))
+    if not _on_cuda(q):
+        return _flash_abnar_ref(q, k, lse, sm_scale)
+    return _flash_sal_cuda("abnar", q, k, lse, None, _scale(q, sm_scale))
+
+
+def _sal_rows(q):
+    return q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+@torch.library.custom_op("mst_tpu_torch::flash_row", mutates_args=(),
+                         device_types="cuda")
+def _flash_row_op(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor,
+                  sm_scale: float) -> torch.Tensor:
+    return _flash_sal_cuda("row", q, k, lse, None, sm_scale)
+
+
+_flash_row_op.register_kernel("cpu")(
+    lambda q, k, lse, sm_scale: _flash_row_ref(q, k, lse, sm_scale)
+    .contiguous())
+_flash_row_op.register_fake(lambda q, k, lse, sm_scale: _sal_rows(q))
+
+
+@torch.library.custom_op("mst_tpu_torch::flash_carry", mutates_args=(),
+                         device_types="cuda")
+def _flash_carry_op(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor,
+                    carry: torch.Tensor, sm_scale: float) -> torch.Tensor:
+    return _flash_sal_cuda("carry", q, k, lse, carry, sm_scale)
+
+
+_flash_carry_op.register_kernel("cpu")(
+    lambda q, k, lse, carry, sm_scale: _flash_carry_ref(
+        q, k, lse, carry, sm_scale).contiguous())
+_flash_carry_op.register_fake(
+    lambda q, k, lse, carry, sm_scale: _sal_rows(q))
+
+
+@torch.library.custom_op("mst_tpu_torch::flash_abnar", mutates_args=(),
+                         device_types="cuda")
+def _flash_abnar_op(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor,
+                    sm_scale: float) -> torch.Tensor:
+    return _flash_sal_cuda("abnar", q, k, lse, None, sm_scale)
+
+
+_flash_abnar_op.register_kernel("cpu")(
+    lambda q, k, lse, sm_scale: _flash_abnar_ref(q, k, lse, sm_scale)
+    .contiguous())
+_flash_abnar_op.register_fake(
+    lambda q, k, lse, sm_scale: q.new_empty(
+        (q.shape[0], q.shape[2], q.shape[2]), dtype=torch.float32))
+
+
+# The kernels a saliency forward composes (`flash_attention_saliency`): the
+# wrappers, or (chip_smoke.py) the plain versions on the card.
+SAL_KERNELS = SimpleNamespace(fwd=flash_fwd, row=flash_row, carry=flash_carry,
+                              abnar=flash_abnar)
+
+
+def flash_attention_saliency(q, k, v, want_row: bool = False, carry=None,
+                             abnar: bool = False, sm_scale=None,
+                             ops=SAL_KERNELS):
+    """Serving attention with one saliency output, as `mhsa`'s flags give
+    it on the fused path: -> (o, CLS row [B, H, S] | the carry moved on
+    [B, H, S] | the Abnar factor [B, S, S], f32). `flash_fwd` keeps its LSE
+    rows, and the output's kernel rebuilds p from them and from the same q,
+    k (after RoPE): no [S, S] matrix of a head is ever held."""
+    if sum((want_row, carry is not None, abnar)) != 1:
+        raise ValueError("flash_attention_saliency takes one of want_row, "
+                         "carry and abnar")
+    sm_scale = _scale(q, sm_scale)
+    o, lse = ops.fwd(q, k, v, sm_scale, want_lse=True)
+    if carry is not None:
+        return o, ops.carry(q, k, lse, carry, sm_scale)
+    if abnar:
+        return o, ops.abnar(q, k, lse, sm_scale)
+    return o, ops.row(q, k, lse, sm_scale)
 
 
 # The forward and backward a `flash_attention` call composes: the kernel
@@ -387,3 +623,4 @@ def flash_attention(q, k, v, sm_scale=None, ops=KERNELS):
 # `ops/fused_block.py` (`launch_counts`, `reset_launch_counts`) holds these
 # three with the other kernels. None moves on the CPU path.
 flash_fwd.launches = flash_bwd_dq.launches = flash_bwd_dkv.launches = 0
+flash_row.launches = flash_carry.launches = flash_abnar.launches = 0

@@ -73,9 +73,12 @@ from mst_tpu_torch.ops import _build
 from mst_tpu_torch.ops.attention import (
     _on_cuda,
     exporting,
+    flash_abnar,
     flash_bwd_dkv,
     flash_bwd_dq,
+    flash_carry,
     flash_fwd,
+    flash_row,
 )
 from mst_tpu_torch.ops.rotary import _rotate_half_interleaved, apply_rope_tables
 
@@ -1621,7 +1624,8 @@ def fused_swiglu_sublayer_train(x, ln_s, ln_b, w12, b12, w3, b3, ls,
 # mode of `ln_gemm_swiglu` (queue B row 6) and the SiLU-gate epilogue of
 # `gemm_dgrad`. `ln_rows` counts once per `ln_gemm` / `ln_gemm_swiglu`
 # call (their LN half). The flash-attention wrappers of `ops/attention.py`
-# (queue B rows 12-16, the composed path above 512 tokens) count here too.
+# (queue B rows 12-16, the composed path above 512 tokens, and its saliency
+# outputs `flash_row`, `flash_carry`, `flash_abnar`) count here too.
 # `.calls` of a sub-layer counts the calls that ran its kernel chain (it
 # launches nothing itself). None moves on the CPU path. Through the
 # registered ops a launch is counted where the op's CUDA implementation
@@ -1631,7 +1635,8 @@ def fused_swiglu_sublayer_train(x, ln_s, ln_b, w12, b12, w3, b3, ls,
 KERNEL_WRAPPERS = (ln_rows, ln_gemm, mhsa, gemm_residual, gemm_dls,
                    gemm_wgrad, gemm_dgrad, mhsa_bwd, mhsa_with_row,
                    mhsa_rollout, mhsa_abnar, ln_gemm_swiglu, ln_pullback,
-                   flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+                   flash_fwd, flash_bwd_dq, flash_bwd_dkv, flash_row,
+                   flash_carry, flash_abnar)
 FORMS = {mhsa: ("rope",), mhsa_with_row: ("rope",), mhsa_rollout: ("rope",),
          mhsa_abnar: ("rope",), mhsa_bwd: ("rope",),
          ln_gemm_swiglu: ("train",), gemm_dgrad: ("swiglu",)}

@@ -45,7 +45,9 @@ a member whose parameters differ in name or shape stops the CLI, and a
 member trained on another fold, or one that records none, is logged.
 
 Slices above 512 tokens (e.g. 518 px) are scored on the composed path
-with the flash kernels; their saliency is ROADMAP queue A #16 and raises.
+with the flash kernels, and their saliency on it too (the CLS-row, carry
+or Abnar kernel on the flash forward's LSE; an int8 model raises there,
+as in JAX).
 `--use_tta` averages the 8 flips of each case, run as one batch. `--int8`
 runs every member's encoder on the W8A8 kernels (`ops/fused_int8.py`) with
 per-token activation scales, `--int8_calib N` with static ones calibrated

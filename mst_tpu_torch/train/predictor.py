@@ -15,8 +15,11 @@ fusion's slice attention x each slice's Grad-CAM++
 ONE batch (the flip stack is a leading batch axis; probabilities average
 after the softmax; each saliency map is flipped back before the mean; a
 variant that flips the slice axis flips the key-padding mask too).
-Saliency above `FUSED_MAX_TOKENS` tokens (JAX's flax `return_weights`
-path, which runs no kernel) is ROADMAP queue A #16. The forwards run under
+Above `FUSED_MAX_TOKENS` tokens per slice the saliency forward is the
+composed one (`vit_fast.composed_mst_saliency`: JAX's flax
+`return_weights` path, which sows every block's probabilities; here the
+flash kernels with the CLS-row, carry or Abnar kernel on their LSE), and
+an int8-quantized model raises JAX's `ValueError`. The forwards run under
 `torch.inference_mode()`, but for the ResNets': `torch.no_grad()`, since
 MST-ResNet's Grad-CAM backward needs autograd, the gradient taken from the
 final map alone (`ops/gradcam.py`).
@@ -35,11 +38,8 @@ import itertools
 import torch
 
 from mst_tpu_torch.models.vit_fast import (
-    FUSED_MAX_TOKENS,
     fused_config_supported,
     fused_mst_saliency,
-    fused_seq_len_ok,
-    has_int8,
     mst_logits,
 )
 from mst_tpu_torch.ops.gradcam import argmax_logit_grads, grad_cam_map
@@ -96,15 +96,6 @@ def _resnet_slice_saliency_refused(model, source, mask, plane_mode=None):
 
 
 def _dino_saliency(model, source, mask, plane_mode="last"):
-    if not fused_seq_len_ok(model, *source.shape[-2:]):
-        if has_int8(model):  # JAX's order (:248-255)
-            raise ValueError(
-                "int8-quantized params need the fused serving path; "
-                "this saliency input exceeds FUSED_MAX_TOKENS")
-        raise NotImplementedError(
-            f"saliency of {tuple(source.shape[-2:])} slices (above "
-            f"FUSED_MAX_TOKENS={FUSED_MAX_TOKENS} tokens) is not ported "
-            f"to mst_tpu_torch yet (ROADMAP queue A #16)")
     return fused_mst_saliency(model, source, mask, plane_mode=plane_mode)
 
 

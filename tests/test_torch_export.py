@@ -169,6 +169,38 @@ def test_export_saliency_programs(mode, tta, tmp_path):
     assert ops["mhsa"] == (1 if mode == "last" else 2)
 
 
+@pytest.mark.parametrize("mode", MODES)
+def test_export_long_saliency_programs(mode, tmp_path):
+    """Saliency of 322 px slices (S = 530, above FUSED_MAX_TOKENS): the
+    composed path's program, its flash forward with the LSE and each
+    block's saliency kernel nodes of the graph, as many as the live
+    forward launches on the card; its rows the live port's (1e-6) and the
+    JAX artifact's (1e-4, maps relative to their largest value)."""
+    tm, jm, jparams = _pair(13)
+    kw = dict(batch_sizes=[2], depth=2, hw=322, with_saliency=True,
+              plane_mode=mode)
+    art = ex.save_exported(tmp_path / "port", tm, **kw)
+    jart = jax_save_exported(tmp_path / "jax", jm, jparams, **kw)
+    vols = _vols(2, seed=14, hw=322)
+    probs, sal = ex.load_exported(art, device="cpu").predict(vols)
+    ref_p, ref_s = make_predict_fn(tm, plane_mode=mode)(vols)
+    np.testing.assert_allclose(probs, ref_p.numpy(), atol=LIVE_TOL)
+    np.testing.assert_allclose(sal, ref_s.numpy(),
+                               atol=LIVE_TOL * np.abs(sal).max())
+    jp, js = jax_load_exported(jart).predict(vols)
+    assert sal.shape == js.shape == (2, 2, 322, 322)
+    np.testing.assert_allclose(probs, jp, atol=JAX_TOL)
+    np.testing.assert_allclose(sal, js, atol=JAX_TOL * np.abs(js).max())
+    depth = tm.encoder.depth
+    out = {"last": "flash_row", "rollout": "flash_carry",
+           "rollout_abnar": "flash_abnar"}[mode]
+    n_sal = 1 if mode == "last" else depth
+    want = {"flash_fwd_lse": n_sal, out: n_sal}
+    if depth > n_sal:
+        want["flash_fwd"] = depth - n_sal
+    assert _graph_ops(art, 2) == want
+
+
 def test_export_with_mask(tmp_path):
     tm, jm, jparams = _pair(5)
     kw = dict(batch_sizes=[2], depth=2, hw=28, with_mask=True)
@@ -478,6 +510,7 @@ def _op_cases():
     hq, hs, q8t = codes(m, k), rand(m).abs() + 0.1, codes(n, k)
     i8 = (rand(n).abs(), rand(n))
     q = rand(2, h, 5, 64, dtype=bf)
+    lse = tat.flash_fwd(q, q, q, want_lse=True)[1]
     return [
         ("ln_rows", tfb._ln_rows_op, (x, *ln, 1e-6)),
         ("gemm_act", tfb._gemm_act_op, (x, rand(k, n, dtype=bf), rand(n),
@@ -509,6 +542,12 @@ def _op_cases():
         ("gemm_i8_residual", tfq._gemm_i8_residual_op,
          (hq, hs, q8t, *i8, rand(n), rand(m, n, dtype=bf))),
         ("flash_fwd", tat._flash_fwd_op, (q, q.clone(), q.clone(), 0.125)),
+        ("flash_fwd_lse", tat._flash_fwd_lse_op,
+         (q, q.clone(), q.clone(), 0.125)),
+        ("flash_row", tat._flash_row_op, (q, q.clone(), lse, 0.125)),
+        ("flash_carry", tat._flash_carry_op,
+         (q, q.clone(), lse, rand(2, h, 5).abs(), 0.125)),
+        ("flash_abnar", tat._flash_abnar_op, (q, q.clone(), lse, 0.125)),
     ]
 
 
@@ -523,3 +562,6 @@ def test_registered_op_fakes_match_their_cpu_implementation(name, op, args):
     torch.library.opcheck(op, args)
     if op is tat._flash_fwd_op:
         assert op(*args).transpose(1, 2).is_contiguous()
+    if op is tat._flash_fwd_lse_op:
+        o, lse = op(*args)
+        assert o.transpose(1, 2).is_contiguous() and lse.is_contiguous()

@@ -16,7 +16,8 @@ on the same numpy inputs:
   and two AdamW steps of `make_train_step` against the JAX
   `make_train_step` with and without remat, and frozen;
 - routing by the slice size alone: S = 512 keeps the fused path bit for
-  bit, S = 513 takes the composed path; the int8 and saliency refusals;
+  bit, S = 513 takes the composed path; the int8 refusals and the long
+  saliency forward;
 - `serve.build_server` answering a 322 px POST.
 
 Tolerances: outputs 2e-5 (tests/test_attention.py), attention grads 1e-4,
@@ -304,16 +305,16 @@ def test_routing_by_slice_tokens_alone():
 def test_int8_and_saliency_refuse_long_slices():
     """Above 512 tokens an int8 model raises JAX's ValueError (int8 needs the
     fused path), with or without saliency; saliency of a bf16/f32 model
-    raises NotImplementedError naming its ROADMAP item. Both serve at 224
-    px."""
+    runs on the composed path (tests/test_torch_long_saliency.py holds it
+    to JAX). Both serve at 224 px."""
     tm, _, _, _ = _pair(TINY, 6, (1, 1, 1, 14, 14))
     tq = quantize_mst_int8(tm)
     big = np.zeros((1, 1, 2, PX, PX), np.float32)
     for with_saliency in (False, True):
         with pytest.raises(ValueError, match="int8"):
             make_predict_fn(tq, with_saliency=with_saliency)(big)
-    with pytest.raises(NotImplementedError, match="queue A #16"):
-        make_predict_fn(tm, with_saliency=True)(big)
+    probs, sal = make_predict_fn(tm, with_saliency=True)(big)
+    assert probs.shape == (1, 2) and sal.shape == (1, 2, PX, PX)
     small = np.zeros((1, 1, 2, 28, 28), np.float32)
     for model in (tm, tq):
         probs, sal = make_predict_fn(model)(small)

@@ -146,14 +146,21 @@ def test_cuda_sources_ship_and_build_dir_is_ignored():
     tools = {"attn_variants.cu": "bench_attn_softmax",
              "attn_i8.cu": "bench_attn_i8",
              "block_tail.cu": "bench_block_fusion"}
+    # kernels for work the JAX package leaves to XLA: source -> the XLA
+    # functions it replaces
+    xla = {"flash_sal.cu": ("mst_tpu/models/layers.py",
+                            "mst_tpu/ops/saliency.py")}
     assert names == {"ln_gemm.cu", "mhsa.cu", "gemm_residual.cu",
                      "gemm_wgrad.cu", "gemm_dgrad.cu", "mhsa_bwd.cu", *int8,
-                     *flash, *tools}
+                     *flash, *tools, *xla}
     for name in names:
         text = (csrc / name).read_text()
         # the source note names the Pallas kernel it replaces
         if name in tools:
             assert f"tools/{tools[name]}.py" in text, name
+        elif name in xla:
+            assert "Replaces no TPU kernel" in text, name
+            assert all(site in text for site in xla[name]), name
         else:
             module = ("fused_int8" if name in int8 else "attention"
                       if name in flash else "fused_block")
@@ -184,12 +191,13 @@ def test_unsupported_configs_raise():
         assert get_model(name).variant == variant
     model = DinoSliceClassifier(**TINY)
     # 23x23 patches + CLS = 530 tokens > FUSED_MAX_TOKENS: served on the
-    # composed path, but its saliency is not ported yet
+    # composed path, and so is its saliency
     big = np.zeros((1, 1, 1, 322, 322), np.float32)
     probs, _ = make_predict_fn(model, with_saliency=False)(big)
     assert probs.shape == (1, 2)
-    with pytest.raises(NotImplementedError, match="FUSED_MAX_TOKENS"):
-        make_predict_fn(model, with_saliency=True)(big)
+    probs, sal = make_predict_fn(model, with_saliency=True)(big)
+    assert probs.shape == (1, 2) and sal.shape == (1, 1, 322, 322)
+    assert bool(np.isfinite(sal.numpy()).all())
     # the predict CLI's PNGs: ported, they need the saliency forward
     assert predict.wants_saliency(predict.parse_args(
         ["--run_folder", "x", "--get_attention"]))
