@@ -520,29 +520,35 @@ bytes.
 
 Phase 53 drives saliency above 512 tokens (queue A #16) on the composed
 path: `flash_fwd` keeps its LSE and one hand-written kernel per block
-(csrc/flash_sal.cu) rebuilds what the plane mode needs from it and the
-same q, k. `attention.flash_sal_launch` against the kernels' own
+(csrc/flash_sal.cu, TMA + wgmma) rebuilds what the plane mode needs from
+it and the same q, k; `rollout_abnar` keeps each block's q, k, LSE and row
+normaliser (`flash_abnar`) and carries the CLS row back through the blocks
+with one `flash_carry` a block, no factor and no [S, S] product made.
+`attention.flash_sal_launch` against the kernels' own
 `mst_flash_sal_geometry` at every S up to 2048 and the path shapes; the
 CLS row (`flash_row`), the rollout carry over two chained blocks
-(`flash_carry`, the second fed the first's carry) and the Abnar factor
-(`flash_abnar`) against their plain versions within phase 11's chain rule,
-each twice for the same bits, at the B=8 518 px shape [256, 6, 1370, 64],
-DINOv3's S = 1029 with RoPE'd q, k and 24 heads at S = 1370, with a planted
-fault per kernel (each row's LSE from the row before) that must break the
-limit; `fused_mst_saliency` on 518 px ViT-S/14 volumes at B=8 and on 512
-px DINOv3 ViT-S/16 ones at B=2 in the three plane modes, with and without
-a key-padding mask, against the plain composed path and an f32 plain
-forward (phase 12's limits), its probs equal to the forward without
+(`flash_carry`, the second fed the first's carry) and the row normaliser
+(`flash_abnar`) against their plain versions within 2e-5 of the largest
+value, each twice for the same bits, at the B=8 518 px shape [256, 6,
+1370, 64], DINOv3's S = 1029 with RoPE'd q, k and 24 heads at S = 1370,
+with two planted faults per kernel that must break the limit (each row's
+LSE from the row before; keys 64..127 read in reverse order, or for the
+row normaliser, whose sums no key order changes, the keys past S
+counted); `fused_mst_saliency` on 518 px ViT-S/14 volumes at B=8 and on
+512 px DINOv3 ViT-S/16 ones at B=2 in the three plane modes, with and
+without a key-padding mask, against the plain composed path and an f32
+plain forward (phase 12's limits), its probs equal to the forward without
 saliency, with each forward's launch counts (12 `flash_fwd` and 1
-`flash_row`, 12 `flash_carry` or 12 `flash_abnar`); the 518 px
-`--with_saliency` program of `mst_tpu_torch.export` in the
+`flash_row`, 12 `flash_carry`, or 12 `flash_abnar` and 12 `flash_carry`);
+the 518 px `--with_saliency` program of `mst_tpu_torch.export` in the
 `rollout_abnar` mode at bucket 1, its graph's op nodes against the live
 launches and its CUDA graph replays the live forward's bits; then each
-kernel's time beside its
-plain version and bound, 518 px B=8 vol/s per mode beside the forward
-without saliency, the batch-1 TTA latency, peak memory (`rollout_abnar`
-below five [256, 1370, 1370] f32 matrices: one factor and two running
-products) and a `torch.profiler` table per mode.
+kernel's time beside its plain version and bound, 518 px B=8 vol/s per
+mode beside the forward without saliency, the batch-1 TTA latency, peak
+memory per mode (`rollout_abnar` below 10 GiB above what is held, with no
+tensor [.., S, S] made and no product of [S, S] operands in the forward,
+as the ops it dispatches and the profiler's recorded shapes show) and a
+`torch.profiler` table per mode.
 
 Each phase prints its wall time. The line before the last is `{"kernels":
 [...]}`: per kernel its launches on the main path, its largest error, its
@@ -586,6 +592,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = Path(__file__).resolve().parent
 N_SLICES, S, E, HEADS = 256, 257, 384, 6  # B=8 x D=32 slices, ViT-S/14
@@ -1437,14 +1444,17 @@ def read_nifti_f32(path) -> np.ndarray:
     return np.frombuffer(raw[352:], np.float32).reshape(dims, order="F")
 
 
-def profile_device(tag, label, fn, top: int) -> None:
+def profile_device(tag, label, fn, top: int, record_shapes: bool = False):
     """Print the device's busy and idle share over one call of `fn` and its
     `top` kernels by device time (`torch.profiler`). One call runs as the
     profiler's warm-up step first: without it the trace of a short call
-    (a 50 ms ViT-S forward) lost about the first half of its kernels."""
+    (a 50 ms ViT-S forward) lost about the first half of its kernels. With
+    `record_shapes`, returns the (op, input shapes) of every CPU-side op of
+    the trace (else an empty list)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=record_shapes,
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
         fn()
@@ -1467,6 +1477,11 @@ def profile_device(tag, label, fn, top: int) -> None:
     for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"{tag}   {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:5d}x  {e.key[:110]}")
+    if not record_shapes:
+        return []
+    return [(e.key, e.input_shapes) for e in
+            prof.key_averages(group_by_input_shape=True)
+            if e.device_type == torch.autograd.DeviceType.CPU]
 
 
 def flash_cost(n, s, heads=HEADS, part="fwd", lse=False):
@@ -2393,6 +2408,7 @@ SASS_GEMMS = {"gemm_ln_kernel": 4, "gemm_dgrad_kernel": 4,
               "mhsa_kernel": 20, "mhsa_bwd_dq_kernel": 2,
               "mhsa_bwd_dkv_kernel": 2, "flash_fwd_kernel": 1,
               "flash_bwd_dq_kernel": 1, "flash_bwd_dkv_kernel": 1,
+              "flash_sal_carry_kernel": 2, "flash_sal_abnar_kernel": 1,
               "block_tail_kernel": 1}
 SASS_I8 = {"gemm_i8_kernel": 5, "probe_i8_kernel": 2,
            "gemm_i8_residual_kernel": 1}
@@ -7126,10 +7142,9 @@ def export_checks(tag, dev, fb, run_dir, base, server) -> None:
 # -- phase 53: saliency above 512 tokens (queue A #16) ----------------------
 
 # The saliency kernels (csrc/flash_sal.cu) hold their f32 outputs to
-# KERNEL_GRAD_REL x the plain output's largest value, as any one kernel's;
-# the Abnar factor's largest value is its diagonal (the + I), so its part
-# off the diagonal is held again to KERNEL_GRAD_REL x its own largest value.
+# KERNEL_GRAD_REL x the plain output's largest value, as any one kernel's.
 SAL_LONG_PX3_B = LONG_B  # DINOv3 at 512 px: B=2, as phase 35's forward
+SAL_PEAK_ABOVE_HELD = 10 * 2**30  # rollout_abnar at 518 px, B=8
 
 
 def sal_cost(n, s, part, heads=HEADS):
@@ -7137,14 +7152,29 @@ def sal_cost(n, s, part, heads=HEADS):
     and the f32 LSE rows, as the function needs them: the CLS row reads
     q's row 0, K and the LSE of row 0 and writes [n, heads, s] (its scores
     2 s hd per head); the carry reads q, k, the LSE and the carry and writes
-    [n, heads, s] (2 s^2 hd per head); the Abnar factor reads q, k and the
-    LSE and writes [n, s, s] f32 (2 s^2 hd per head)."""
+    [n, heads, s] (2 s^2 hd per head); the row normaliser reads q, k and
+    the LSE and writes [n, s] f32 (2 s^2 hd per head)."""
     rows, qk = n * heads * s, n * heads * s * 64 * 2
     if part == "row":
         return 2 * n * heads * s * 64, qk // s + qk + 4 * n * heads + 4 * rows
     if part == "carry":
         return 2 * n * heads * s * s * 64, 2 * qk + 3 * 4 * rows
-    return 2 * n * heads * s * s * 64, 2 * qk + 4 * rows + 4 * n * s * s
+    return 2 * n * heads * s * s * 64, 2 * qk + 4 * rows + 4 * n * s
+
+
+def sal_exp2_ms(n, s, mhz, heads=HEADS):
+    """The exp2 unit's floor of the carry and the row normaliser: n heads
+    s^2 exponentials at 16 a clock on each SM at an SM clock of `mhz`."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return n * heads * s * s / (16 * sms * mhz * 1e6) * 1e3
+
+
+def max_sm_mhz() -> float:
+    """The card's top SM clock (`nvidia-smi` clocks.max.sm)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    return float(out.stdout.split()[0])
 
 
 def sal_plain_ops(fa):
@@ -7186,57 +7216,58 @@ def spread_long(dev, gen, probs_of, n, px, pool):
 def check_sal_geometry(tag, fa, lib) -> None:
     """`attention.flash_sal_launch` (what the CPU tests read) against the
     kernels' own `mst_flash_sal_geometry` at every S up to 2048 and the
-    path shapes."""
+    path shapes, on this card's SM count."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     shapes = [(1, 1, s) for s in range(1, 2049)]
     shapes += [(N_SLICES, HEADS, 1370), (LONG_B * DEPTH_SLICES, HEADS, 1029),
                (DEPTH_SLICES, HEADS, 1601), (16, 24, 1370)]
     for b, h, s in shapes:
         for part_i, part in enumerate(fa.SAL_PARTS):
-            geo = (ctypes.c_int * 6)()
+            geo = (ctypes.c_int * len(fa.SAL_GEOMETRY))()
             err = lib.mst_flash_sal_geometry(b, h, s, part_i, geo)
-            g = fa.flash_sal_launch(b, h, s, part)
-            want = (g.tile, g.threads, g.tiles, g.blocks, g.walks, g.smem)
+            g = fa.flash_sal_launch(b, h, s, part, sms)
+            want = tuple(getattr(g, k) for k in fa.SAL_GEOMETRY)
             check(err == 0 and tuple(geo) == want,
                   f"saliency geometry {part} at [{b}, {h}, {s}]: kernel "
                   f"{tuple(geo)} ({err}), flash_sal_launch {want}")
-    g = fa.flash_sal_launch(N_SLICES, HEADS, 1370, "abnar")
+    g = fa.flash_sal_launch(N_SLICES, HEADS, 1370, "abnar", sms)
+    c = fa.flash_sal_launch(N_SLICES, HEADS, 1370, "carry", sms)
     print(f"{tag} saliency geometry: flash_sal_launch equals "
           f"mst_flash_sal_geometry at every S <= 2048 and the path shapes "
-          f"([{N_SLICES}, {HEADS}, 1370]: the carry "
-          f"{fa.flash_sal_launch(N_SLICES, HEADS, 1370, 'carry').blocks} "
-          f"blocks of {g.threads} threads; the Abnar factor {g.blocks} blocks, "
-          f"{g.walks} (key tile, head) steps each, {g.smem} bytes of shared "
-          f"memory)")
+          f"([{N_SLICES}, {HEADS}, 1370]: the carry {c.units} units of "
+          f"{c.walks} ring stages, the row normaliser {g.units} of "
+          f"{g.walks}, on {g.grid} blocks of {g.threads} threads; "
+          f"{c.smem} / {g.smem} bytes of shared memory)")
 
 
-def keys_reversed(form, out):
-    """The plain output of a saliency kernel that reads keys 64..127 (one
-    key tile) in reverse order: the CLS row's and the carry's entries
-    64..127 reversed; the Abnar factor's at query rows 0..63 only, a tile
-    off the diagonal. Row sums and the diagonal stay as they were."""
+def keys_reversed(out):
+    """The plain output of the CLS row or the carry with keys 64..127 (one
+    key box) read in reverse order: its entries 64..127 reversed."""
     out = out.clone()
-    tile = out[:, :64, 64:128] if form == "flash_abnar" else out[..., 64:128]
+    tile = out[..., 64:128]
     tile.copy_(tile.flip(-1))
     return out
 
 
-def off_diagonal(a):
-    """[n, s, s] `a` with its diagonal set to 0."""
-    a = a.clone()
-    a.diagonal(dim1=-2, dim2=-1).zero_()
-    return a
+def keys_past_s_counted(q, lse, sm):
+    """The plain row normaliser's error where the keys past S, which the
+    TMA map reads as zeros (score 0), are not masked: (1 / H) sum_h (the
+    stages' rows past S) exp2(-lse_h[q])."""
+    s, heads = q.shape[2], q.shape[1]
+    pad = -(-s // 128) * 128 - s
+    return pad * torch.exp2(-lse.float()).sum(1) / heads
 
 
 def sal_kernel_cases(tag, dev, fa, errs) -> None:
     """The CLS row, the carry over two chained blocks (the second fed the
-    first's carry, not one-hot) and the Abnar factor against their plain
+    first's carry, not one-hot) and the row normaliser against their plain
     versions on the flash forward's LSE, each twice for the same bits: at
     the B=8 518 px shape [256, 6, 1370, 64] (head views of a packed qkv),
     DINOv3's S = 1029 with RoPE'd q, k, and 24 heads at S = 1370. Two
     planted faults per kernel must break the limit: the LSE of the
-    neighbouring row, and keys 64..127 read in reverse order (for the
-    Abnar factor at query rows 0..63 only), which leaves the row sums and
-    the diagonal as they were."""
+    neighbouring row, and keys 64..127 read in reverse order (the row
+    normaliser sums its keys in any order alike, so its second fault is
+    the keys past S counted, which the last stage masks)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 153)
     sm = 1.0 / 8
     cases = [("B8,S=1370", N_SLICES, 1370, HEADS, False),
@@ -7285,16 +7316,46 @@ def sal_kernel_cases(tag, dev, fa, errs) -> None:
             check(same, f"{name}: two runs differ")
             planted(tag, f"{name}: the LSE of the row before",
                     got_t[0], faults[form](), rel=KERNEL_GRAD_REL)
-            planted(tag, f"{name}: keys 64..127 in reverse order",
-                    got_t[0], keys_reversed(form, ref_t[0]),
-                    rel=KERNEL_GRAD_REL)
             if form == "flash_abnar":
-                check_outputs(tag, f"kernel {name} off the diagonal",
-                              off_diagonal(got), off_diagonal(ref),
-                              KERNEL_GRAD_REL)
+                planted(tag, f"{name}: the keys past S counted", got_t[0],
+                        ref_t[0] + keys_past_s_counted(q, lse, sm),
+                        rel=KERNEL_GRAD_REL)
+            else:
+                planted(tag, f"{name}: keys 64..127 in reverse order",
+                        got_t[0], keys_reversed(ref_t[0]),
+                        rel=KERNEL_GRAD_REL)
             del got, again, ref, got_t, again_t, ref_t
         del layers_, q, k, lse, q2, k2, lse2, e0, c1_plain, rolled
         torch.cuda.empty_cache()
+
+
+class SquareWatch(TorchDispatchMode):
+    """The ops dispatched inside: each output with trailing dims [S, S] and
+    each product (mm, bmm, matmul, addmm, baddbmm) with an [S, S] operand,
+    by name and shape."""
+
+    PRODUCTS = ("aten.mm", "aten.bmm", "aten.matmul", "aten.addmm",
+                "aten.baddbmm")
+
+    def __init__(self, s):
+        super().__init__()
+        self.s, self.made, self.products, self.ops = s, [], [], 0
+
+    def _square(self, t):
+        return (isinstance(t, torch.Tensor) and t.dim() >= 2
+                and tuple(t.shape[-2:]) == (self.s, self.s))
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.ops += 1
+        name = str(func.overloadpacket)
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        self.made += [f"{name} {tuple(o.shape)}" for o in outs
+                      if self._square(o)]
+        if name in self.PRODUCTS and any(self._square(a) for a in args):
+            self.products.append(f"{name} " + str([
+                tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]))
+        return out
 
 
 def long_saliency_phase(tag, dev):
@@ -7303,6 +7364,7 @@ def long_saliency_phase(tag, dev):
     kernels line."""
     from mst_tpu_torch import export as ex
     from mst_tpu_torch.models import layers
+    from mst_tpu_torch.models import vit as vit_mod
     from mst_tpu_torch.models.convert import params_from_flax, random_flax_params
     from mst_tpu_torch.models.vit_fast import fused_mst_saliency, mst_logits
     from mst_tpu_torch.ops import _build
@@ -7317,11 +7379,10 @@ def long_saliency_phase(tag, dev):
     errs, timed, cost = {}, {}, {}
     check_sal_geometry(tag, fa, _build.lib())
     print(f"{tag} long saliency tolerance: the kernels' f32 outputs within "
-          f"{KERNEL_GRAD_REL} x the plain version's largest value (the Abnar "
-          f"factor's part off the diagonal within {KERNEL_GRAD_REL} x its "
-          f"own), twice for the same bits; the forward's probs as "
-          f"phase 4, its maps within {SAL_REL} of the plain path's largest "
-          f"value and {SAL_F32_REL} of the f32 plain path's (phase 12)")
+          f"{KERNEL_GRAD_REL} x the plain version's largest value, twice "
+          f"for the same bits; the forward's probs as phase 4, its maps "
+          f"within {SAL_REL} of the plain path's largest value and "
+          f"{SAL_F32_REL} of the f32 plain path's (phase 12)")
     with torch.inference_mode():
         sal_kernel_cases(tag, dev, fa, errs)
     print(f"{tag} phase 53 kernels: {time.perf_counter() - t_phase:.1f} s")
@@ -7330,17 +7391,21 @@ def long_saliency_phase(tag, dev):
 
     @contextlib.contextmanager
     def plain_long():
-        """The composed blocks' attention and its saliency outputs on their
-        plain versions on the card."""
-        saved = layers.flash_attention, layers.flash_attention_saliency
+        """The composed blocks' attention, its saliency outputs and the
+        Abnar rollout's sweep back on their plain versions on the card."""
+        saved = (layers.flash_attention, layers.flash_attention_saliency,
+                 vit_mod.abnar_rollout_row)
         layers.flash_attention = functools.partial(fa.flash_attention,
                                                    ops=plain_flash_ops)
         layers.flash_attention_saliency = functools.partial(
             fa.flash_attention_saliency, ops=plain_sal_ops)
+        vit_mod.abnar_rollout_row = functools.partial(fa.abnar_rollout_row,
+                                                      ops=plain_sal_ops)
         try:
             yield
         finally:
-            layers.flash_attention, layers.flash_attention_saliency = saved
+            (layers.flash_attention, layers.flash_attention_saliency,
+             vit_mod.abnar_rollout_row) = saved
 
     def seeded(name):
         rng_ = np.random.default_rng(SEED)
@@ -7364,7 +7429,8 @@ def long_saliency_phase(tag, dev):
     want_mode = {
         "last": {**zero, "flash_fwd": depth, "flash_row": 1},
         "rollout": {**zero, "flash_fwd": depth, "flash_carry": depth},
-        "rollout_abnar": {**zero, "flash_fwd": depth, "flash_abnar": depth}}
+        "rollout_abnar": {**zero, "flash_fwd": depth, "flash_abnar": depth,
+                          "flash_carry": depth}}
     gen = torch.Generator(device=dev).manual_seed(SEED + 53)
     model = seeded(MODEL)
     model3 = seeded(MODEL3)
@@ -7422,9 +7488,9 @@ def long_saliency_phase(tag, dev):
     del model3
 
     # -- export: the 518 px saliency program, replayed bit for bit -----------
-    # One mode on the card, `rollout_abnar` (its graph holds the factors'
-    # op and the f32 chain, the largest capture; three modes took 34 s of
-    # the run, one 19 s); the CPU tests export all three
+    # One mode on the card, `rollout_abnar` (its graph holds the most
+    # saliency ops: a row normaliser and a carry a block; three modes took
+    # 34 s of the run, one 19 s); the CPU tests export all three
     # (tests/test_torch_export.py)
     base = ROOT / "build" / "chip_smoke_long_saliency"  # gitignored
     shutil.rmtree(base, ignore_errors=True)
@@ -7449,7 +7515,8 @@ def long_saliency_phase(tag, dev):
     check(ops.get("flash_fwd", 0) + ops.get("flash_fwd_lse", 0)
           == want.get("flash_fwd", 0)
           and ops.get("flash_abnar", 0) == want.get("flash_abnar", 0)
-          == ops.get("flash_fwd_lse", 0),
+          == ops.get("flash_fwd_lse", 0)
+          and ops.get("flash_carry", 0) == want.get("flash_carry", 0) > 0,
           f"rollout_abnar: graph ops {ops} != the live launches {want}")
     ref_p, ref_s = ref_p.float().cpu().numpy(), ref_s.float().cpu().numpy()
     loaded = ex.load_exported(art)
@@ -7467,7 +7534,7 @@ def long_saliency_phase(tag, dev):
     print(f"{tag} phase 53 export: {time.perf_counter() - t_phase:.1f} s")
 
     # -- times: the kernels, vol/s, B=1 TTA latency, peak memory, profiles --
-    with torch.inference_mode():
+    with torch.inference_mode(), ClockSampler() as clocks:
         q, k, v = packed_heads(gen, dev, N_SLICES, 1370)
         _, lse = fa.flash_fwd(q, k, v, want_lse=True)
         carry = torch.rand(N_SLICES, HEADS, 1370, generator=gen, device=dev)
@@ -7482,16 +7549,26 @@ def long_saliency_phase(tag, dev):
                                  (plain.abnar, q, k, lse, sm), "abnar")}
         for form, (kern, plain_call, part) in forms.items():
             name = f"{form}[B8,S=1370]"
+            t1 = time.perf_counter()
             km = time_ms(lambda: kern[0](*kern[1:]))
+            mhz = clocks.within([(t1, time.perf_counter())]).mhz
             pm_ = time_ms(lambda: plain_call[0](*plain_call[1:]), n=3,
                           warmup=1)
             cost[name] = sal_cost(N_SLICES, 1370, part)
             timed[name] = (km, pm_)
             b_ms, b_by = bound([cost[name]])
+            top = max_sm_mhz()
+            floor = ("" if part == "row" else
+                     f"; the exp2 unit's floor "
+                     f"{sal_exp2_ms(N_SLICES, 1370, top):.4f} ms at the "
+                     f"card's top {top:.0f} MHz, " + (
+                         f"{sal_exp2_ms(N_SLICES, 1370, mhz):.4f} ms at the "
+                         f"{mhz:.0f} MHz read while timed"
+                         if isinstance(mhz, float) else "SM clock not sampled"))
             print(f"{tag} time {name}: kernel {km:.4f} ms, plain {pm_:.4f} "
                   f"ms, bound {b_ms:.4f} ms by {b_by} ({b_ms / km:.3f} of "
                   f"it; {cost[name][0] / 1e9:.3f} GFLOP, "
-                  f"{cost[name][1] / 1e6:.2f} MB), library none")
+                  f"{cost[name][1] / 1e6:.2f} MB){floor}, library none")
         del q, k, v, lse, carry
         torch.cuda.empty_cache()
 
@@ -7522,12 +7599,33 @@ def long_saliency_phase(tag, dev):
               f"{nsz / 2**20:.1f} MiB); batch-1 8-flip TTA with saliency: "
               f"{sec_1 * 1e3:.3f} ms per volume")
         if mode == "rollout_abnar":
-            # one factor and two running products, never a head's [S, S]
-            # probabilities for all heads (6 x one matrix) or 12 factors
-            check(mem_m < 5 * nsz, f"rollout_abnar peak memory {mem_m} >= "
-                  f"5 [256, 1370, 1370] f32 matrices")
-        profile_device(tag, f"one 518 px B={BATCH} saliency forward ({mode})",
-                       lambda: saliency(model, src518, mode), 8)
+            # each block's q, k, LSE and row normaliser kept, never a
+            # factor, a head's [S, S] probabilities or a chain's product
+            check(mem_m < SAL_PEAK_ABOVE_HELD, f"rollout_abnar peak memory "
+                  f"{mem_m} above what was held >= {SAL_PEAK_ABOVE_HELD}")
+            with SquareWatch(1370) as watch:
+                saliency(model, src518, mode)
+            print(f"{tag} rollout_abnar's dispatched ops: {watch.ops}; "
+                  f"outputs [.., 1370, 1370] {watch.made or 'none'}; "
+                  f"products with a [1370, 1370] operand "
+                  f"{watch.products or 'none'}")
+            check(watch.ops > 0 and not watch.made and not watch.products,
+                  f"rollout_abnar made {watch.made}, ran {watch.products}")
+        shapes = profile_device(
+            tag, f"one 518 px B={BATCH} saliency forward ({mode})",
+            lambda: saliency(model, src518, mode), 8,
+            record_shapes=mode == "rollout_abnar")
+        if mode == "rollout_abnar":
+            square = [(key, sh) for key, sh in shapes
+                      if any(tuple(x[-2:]) == (1370, 1370) for x in sh
+                             if len(x) >= 2)]
+            products = [(key, sh) for key, sh in square
+                        if key in ("aten::mm", "aten::bmm", "aten::matmul",
+                                   "aten::addmm", "aten::baddbmm")]
+            print(f"{tag} rollout_abnar's profile: {len(shapes)} ops with "
+                  f"their input shapes, {len(square)} of them with an input "
+                  f"[.., 1370, 1370], {len(products)} products")
+            check(shapes and not square, f"rollout_abnar's profile: {square}")
     print(f"{tag} phase 53: {time.perf_counter() - t_phase:.1f} s")
     return errs, timed, cost, counts
 

@@ -20,126 +20,198 @@
 //
 // - mst_flash_carry: the rollout carry r' [B, H, S] f32, r'[k] = sum_q
 //   r[q] p[q, k] per head (the reference `get_attention_cls` chain's CLS
-//   row moved one block on). A unit is a key tile of 64 keys of one
-//   (slice, head), the shape of flash_bwd.cu's dk/dv kernel: its K tile
-//   is loaded once into shared memory and into the A fragments of each
-//   warp's 16 keys; the query tiles stream through a two-stage cp.async
-//   ring with their 64 LSE values (+1e30 past S: p = 0) and carry weights
-//   (0 past S), where that kernel keeps delta. Per stage s^T = k.q^T by
-//   mma.sync m16n8k16 (bf16, f32 sums), p^T = exp2(s^T - lse) and the
-//   weighted row sum by r in registers, each thread its two keys in query
-//   order, then the 4 lanes of a row: a fixed order with no float atomics,
-//   so two runs give the same bits. The ROW form (template flag) is the
-//   CLS row of the last block: r one-hot at CLS and the first query tile
-//   alone, so it reads K once.
-// - mst_flash_abnar: the Abnar & Zuidema factor [B, S, S] f32 of the block,
-//   rownorm(mean_h p_h + I), the rule of `mhsa_abnar` (mhsa.cu; the JAX
-//   `_mhsa_ref` form and `attention_rollout`): the heads summed in head
-//   order, times 1 / H, plus I, each row divided by its sum. A unit is a
-//   query tile of 64 rows of one slice: the Q tiles of every head and
-//   their LSE stay in shared memory, the K tiles of each (key tile, head)
-//   stream through the ring. A row's sum needs every key of it, and a row
-//   of 1370 f32 does not fit on chip, so the unit walks its keys twice:
-//   the first pass sums each row (each thread its columns, then the 4
-//   lanes of a row), the second recomputes the same values and writes
-//   each element of the factor once. Keys past S are masked (their K rows
-//   read as zeros, which would score 0), rows past S not written.
+//   row moved one block on; with the same r for every head, one step of
+//   the Abnar rollout's row, `ops/attention.abnar_rollout_row`). A unit is
+//   a key tile of 128 keys of one (slice, head), the shape of flash_bwd.cu's
+//   dk/dv kernel: each consumer warpgroup owns 64 of its keys, their K box
+//   loaded once by TMA; the queries stream through a ring of SAL_STAGES
+//   64-row Q boxes that both consumers share, so Q leaves L2 once per 128
+//   keys. The producer warpgroup's warp 0 issues the TMA loads; its warps
+//   1-3 in turn copy a stage's LSE values and carry weights (0 past S)
+//   beside it by cp.async, the copies completing on the stage's full
+//   barrier. Per stage s^T = k.q^T by wgmma from shared memory (m64n64k16 x
+//   4, both operands K-major) into 32 f32 registers a thread, issued one
+//   stage ahead of the reduction, so the tensor cores run stage j + 1 while
+//   the exp2 unit runs stage j; then p^T = exp2(s^T - lse) and each
+//   thread's two keys' sums weighted by r in query order, then the 4 lanes
+//   of a row: a fixed order with no float atomics, so two runs give the
+//   same bits. The ROW form (template flag) is the CLS row of the last
+//   block: the first stage alone, and only the column of query 0 goes
+//   through the exp2 unit.
+// - mst_flash_abnar: the row normaliser [B, S] f32 of the block's Abnar &
+//   Zuidema factor rownorm(mean_h p_h + I): rs[q] = 1 + (1 / H) sum_h
+//   sum_k p_h[q, k], the row sums in f32, then the head sum in head order,
+//   times 1 / H, plus 1. Only the CLS row of the factors' product is ever
+//   read, so the rollout moves that row back through the blocks
+//   (`abnar_rollout_row`: w = v / rs, v' = mean_h carry_h(w) + w, one
+//   mst_flash_carry a block) and no factor is written. A unit is a query
+//   tile of 128 rows of one slice, 64 a consumer; it walks the heads in
+//   order, its Q boxes of head h in a double-buffered unit buffer and the K
+//   rows of head h through the ring, 128 a stage, s = q.k^T by wgmma
+//   (m64n128k16 x 4) as above, keys past S (read as zeros) masked in the
+//   last stage.
+//
+// Both kernels are persistent (one block an SM walks the units, the
+// producer running ahead into the next unit, so one unit's reduction
+// overlaps the next one's loads), 384 threads with `setmaxnreg`, the
+// blocks of flash_sm90.cuh; rows past S of a (slice, head) read as zeros
+// (the TMA map's row extent is S).
 //
 // Bound on the H100 at [256, 6, 1370, 64] (518 px, B = 8): the carry's
 // scores are 2 S^2 hd B H = 369 GFLOP (0.37 ms at 989 TFLOP/s) against
-// 0.54 GB of q and k (0.16 ms): bound by the products, and as near by the
-// exp2 unit (2.9 G exp2). The CLS row reads K once, 0.27 GB (0.08 ms).
-// The Abnar factor writes 1.92 GB and reads 0.54 GB (0.73 ms at 3.35
-// TB/s) against the same 369 GFLOP: bound by bytes; its second pass runs
-// the scores again rather than read back a row-sum-less factor (5.8 GB
-// of traffic). Both are first versions on mma.sync: a block of 4 warps,
-// a tile of 64 rows, no TMA or wgmma yet.
-#include "common.cuh"
+// 0.56 GB of q, k, LSE and carry (0.17 ms): bound by the products. The
+// exp2 unit is the nearer floor: 2.88 G exp2 at 16 a clock on 132 SMs,
+// about 0.8 ms at 1.6-1.7 GHz; each score costs one FMA, one exp2 and one
+// FMA or add, so the design keeps that unit fed (scores a stage ahead, two
+// consumers). Measured on the card: 128-row stages beat 64-row ones in the
+// row normaliser (the carry's 64 scores a thread a stage at 128 rows spill
+// under `setmaxnreg`), and a 2^x polynomial on the FMA pipes for a quarter
+// of the scores made both kernels slower. The CLS row reads K once, 0.27
+// GB (0.08 ms): bound by bytes. The row normaliser runs the same 369 GFLOP
+// and exp2 over 0.55 GB read and 1.4 MB written: the same bounds as the
+// carry.
+#include "flash_sm90.cuh"
 
 namespace mst {
 namespace {
 
-constexpr int SAL_TILE = 64;       // rows of a tile: 4 warps of 16
-constexpr int SAL_THREADS = 128;   // 4 warps
-constexpr int SAL_HD = 64;         // head dim
-constexpr int SAL_TILE_BYTES = SAL_TILE * SAL_HD * 2;  // 8 KB, swizzled
-constexpr int SAL_VEC = 2 * SAL_TILE;  // a stage's f32 [LSE 64 | weights 64]
-constexpr float SAL_LSE_PAD = 1e30f;   // a query past S: p = exp2(s - 1e30) = 0
-// The carry kernel's static shared memory: the K tile, two Q stages and
-// their vectors.
-constexpr int SAL_CARRY_SMEM = 3 * SAL_TILE_BYTES + 2 * SAL_VEC * 4;
+using namespace flash;
+using attn::frag_col;
+using attn::frag_hi;
+using attn::quad_sum;
+using sm90::wgmma_commit;
+using sm90::wgmma_fence;
+using sm90::wgmma_wait;
 
-struct View {  // a [B, H, S, 64] bf16 operand
-  const bf16* p;
-  long long sb, sh, ss;
-  __device__ __forceinline__ const bf16* head(int b, int h) const { return p + b * sb + h * sh; }
+constexpr int CARRY_N = 64;    // rows of a carry ring stage (queries): one TMA box
+constexpr int ABNAR_N = 128;   // rows of a row-normaliser ring stage (keys): two boxes
+constexpr int SAL_STAGES = 8;  // ring depth
+constexpr int SAL_BARS = 4 + 2 * SAL_STAGES;  // unit full / empty [2] each, ring full / empty
+__host__ __device__ inline int sal_stages(int S, int n) { return (S + n - 1) / n; }
+
+// 4-byte global -> shared copy; src_bytes = 0 writes a zero without a read.
+__device__ __forceinline__ void cp_async4(void* smem_dst, const void* gmem_src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(sm90::smem_u32(smem_dst)),
+               "l"(gmem_src), "r"(src_bytes)
+               : "memory");
+}
+
+// An arrival on `bar` once this thread's earlier cp.async copies are done
+// (`.noinc`: the barrier's count includes it).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(sm90::smem_u32(bar))
+               : "memory");
+}
+
+// Where a carry stage keeps the LSE of its query q (0 .. CARRY_N - 1); the
+// weight lies 2 floats on. The pair of queries q, q + 1 (q even) of a
+// D-fragment column pair is one float4 {lse q, lse q + 1, w q, w q + 1}, so
+// a thread reads its 16 queries' values in 8 vector loads.
+__host__ __device__ constexpr int vec_at(int q) { return 2 * q - (q & 1); }
+
+// Shared memory past the aligned base: two unit buffers of two boxes (one
+// a consumer), the ring of SAL_STAGES stages of CARRY_N or ABNAR_N rows,
+// with the carry's f32 LSE and weight rows (2 CARRY_N a stage, `vec_at`),
+// then the barriers.
+struct SalLayout {
+  size_t unit, ring, vec, bar, total;
 };
 
-__host__ __device__ inline int sal_tiles(int S) { return (S + SAL_TILE - 1) / SAL_TILE; }
-
-// Byte offset of the 16-byte chunk c of row r in a tile: row r at byte
-// 128 r, its chunk c at chunk c ^ (r % 8), so the 8 rows an ldmatrix reads
-// fall in 8 distinct bank groups.
-__device__ __forceinline__ int swz(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+__host__ __device__ inline SalLayout sal_layout(bool carry) {
+  SalLayout L;
+  L.unit = 0;
+  L.ring = L.unit + 2 * 2 * size_t(BOX_BYTES);
+  L.vec = L.ring + size_t(SAL_STAGES) * (carry ? CARRY_N : ABNAR_N) * HD * 2;
+  L.bar = L.vec + (carry ? size_t(SAL_STAGES) * 2 * CARRY_N * sizeof(float) : 0);
+  L.total = ALIGN + L.bar + SAL_BARS * sizeof(uint64_t);
+  return L;
 }
 
-// The four 8 x 8 bf16 matrices at the rows this lane addresses
-// (`ldmatrix`, not transposed): lane l gives the address of row l % 8 of
-// matrix l / 8.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// 2^x by the special-function unit, as flash_fwd.cu takes it.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Rows r0 .. r0 + 63 of one (slice, head) into a swizzled tile by cp.async
-// (the caller commits); rows at or past S are zero-filled without a read.
-__device__ __forceinline__ void load_tile(unsigned char* tile, const bf16* head, long long ss,
-                                          int r0, int S) {
-#pragma unroll
-  for (int g = threadIdx.x; g < SAL_TILE * 8; g += SAL_THREADS) {
-    const int r = g >> 3, c = g & 7, row = r0 + r;
-    const bool in = row < S;
-    cp_async16(tile + swz(r, c), head + (in ? row * ss + c * 8 : 0), in ? 16 : 0);
+// Thread 0 initialises the barriers (the ring's full barrier counts
+// `full_arrivals`); every thread then syncs.
+__device__ __forceinline__ Bars sal_carve(unsigned char* base, const SalLayout& L,
+                                          int full_arrivals) {
+  uint64_t* b = reinterpret_cast<uint64_t*>(base + L.bar);
+  const Bars bars{b, b + 2, b + 4, b + 4 + SAL_STAGES};
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&bars.ufull[i], 1);
+      mbar_init(&bars.uempty[i], CONSUMERS * 4);  // one arrive per consumer warp
+    }
+    for (int i = 0; i < SAL_STAGES; ++i) {
+      mbar_init(&bars.full[i], full_arrivals);
+      mbar_init(&bars.empty[i], CONSUMERS * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+  return bars;
 }
 
-// The A fragments (m16k16, 4 k steps over the head dim) of the 16 rows
-// of warp w of a tile.
-__device__ __forceinline__ void a_frags(uint32_t (&f)[4][4], const unsigned char* tile, int w,
-                                        int lane) {
-  const int r = w * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+// d = own . stage^T over the head dim, 64 rows by 64 or 128, both K-major:
+// m64n64k16 (attn_sm90.cuh) or m64n128k16, which always accumulates.
+__device__ __forceinline__ void scores(float (&d)[32], const unsigned char* own,
+                                       const unsigned char* stage) {
+  wgmma_fence();
+  attn::product_t(d, own, stage);
+}
+__device__ __forceinline__ void scores(float (&d)[64], const unsigned char* own,
+                                       const unsigned char* stage) {
+  attn::zero(d);
+  wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) ldsm_x4(f[kk], tile + swz(r, 2 * kk + (lane >> 4)));
+  for (int kk = 0; kk < HD / 16; ++kk)
+    sm90::wgmma_m64n128k16<0, 0>(d, attn::desc_k(own, kk), attn::desc_k(stage, kk));
 }
 
-// c[16 x 8] = A . B^T over the head dim, B the 8 rows nb * 8 .. of a tile
-// (its rows are the n index: `ldmatrix` of the row-major tile gives the
-// col-major B fragments as they are).
-__device__ __forceinline__ void scores8(float (&c)[4], const uint32_t (&a)[4][4],
-                                        const unsigned char* tile, int nb, int lane) {
-  c[0] = c[1] = c[2] = c[3] = 0.0f;
-#pragma unroll
-  for (int kp = 0; kp < 2; ++kp) {
-    uint32_t b[4];
-    ldsm_x4(b, tile + swz(nb * 8 + (lane & 7), 4 * kp + (lane >> 3)));
-    mma_16816(c, a[2 * kp], b[0], b[1]);
-    mma_16816(c, a[2 * kp + 1], b[2], b[3]);
+// The scores of n ring stages (it, it + 1, ...) against this warpgroup's
+// own box: d = own . ring^T over the head dim (both K-major) by wgmma into
+// one of two register sets, stage j + 1's product issued before stage j's
+// `reduce(s, j)` (which only reads s), each stage released once reduced.
+// The steady loop issues unconditionally and has nothing in flight across
+// its back edge, and the tail is peeled: ptxas then keeps the products
+// asynchronous (it serializes them where it cannot tell which register set
+// a product in flight writes).
+template <int N, class Reduce>
+__device__ __forceinline__ void stream_scores(const unsigned char* own, const Bars& bars,
+                                              const unsigned char* ring, uint32_t it, int n,
+                                              Reduce&& reduce) {
+  float s0[N / 2], s1[N / 2];
+  auto issue = [&](float (&s)[N / 2], int j) {
+    wait_full(bars.full, it + j, SAL_STAGES);
+    scores(s, own, ring + ((it + j) % SAL_STAGES) * (N * HD * 2));
+    wgmma_commit();
+  };
+  auto done = [&](const float (&s)[N / 2], int j) {
+    reduce(s, j);
+    release(bars.empty, it + j, SAL_STAGES);
+  };
+  issue(s0, 0);
+  wgmma_wait<0>();
+  attn::fence_regs(s0);
+  int j = 0;
+  for (; j + 2 < n; j += 2) {  // s0 holds stage j; stages j + 1, j + 2 exist
+    issue(s1, j + 1);
+    done(s0, j);
+    wgmma_wait<0>();
+    attn::fence_regs(s1);
+    issue(s0, j + 2);
+    done(s1, j + 1);
+    wgmma_wait<0>();
+    attn::fence_regs(s0);
+  }
+  if (j + 1 < n) {  // the last two stages
+    issue(s1, j + 1);
+    done(s0, j);
+    wgmma_wait<0>();
+    attn::fence_regs(s1);
+    done(s1, j + 1);
+  } else {
+    done(s0, j);
   }
 }
 
 struct CarryArgs {
-  View q, k;
   const float* lse;    // [B, H, S]
   const float* carry;  // [B, H, S]; unused by the ROW form
   float* out;          // [B, H, S]
@@ -147,180 +219,227 @@ struct CarryArgs {
   float scale;  // sm_scale * log2(e), > 0
 };
 
-// Unit u: key tile u % T of (slice, head) u / T. Warp w owns keys tile *
-// 64 + 16 w .. + 15; lane (g, t) of it the keys 16 w + g and + 8 and, in
-// each 8-query group, the queries 2 t and 2 t + 1.
+// Unit buffer: [k0, k1] (consumer c owns the keys of box c). Ring stage:
+// CARRY_N queries (one box), and their f32 LSE and weights in the ring's
+// vectors. Thread t of a consumer holds keys lo and lo + 8 of its box (the
+// rows of the D fragment), queries frag_col(t, i) of each stage.
 template <bool ROW>
-__global__ void __launch_bounds__(SAL_THREADS) flash_sal_carry_kernel(const CarryArgs a) {
-  __shared__ __align__(128) unsigned char kt[SAL_TILE_BYTES];
-  __shared__ __align__(128) unsigned char qt[2][SAL_TILE_BYTES];
-  __shared__ float vec[2][SAL_VEC];
-  const int T = sal_tiles(a.S);
-  const int tile = blockIdx.x % T;
-  const int bh = blockIdx.x / T;
-  const int h = bh % a.H, b = bh / a.H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const bf16* qh = a.q.head(b, h);
-  const float* lse = a.lse + size_t(bh) * a.S;
-  const float* carry = ROW ? nullptr : a.carry + size_t(bh) * a.S;
-  const int nq = ROW ? 1 : T;  // the ROW form: the first query tile alone
+__global__ void __launch_bounds__(THREADS, 1)
+flash_sal_carry_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk, const CarryArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = aligned(smem_raw);
+  const SalLayout L = sal_layout(true);
+  // the ring's full barrier: expect_tx and the copies of a vector warp's lanes
+  const Bars bars = sal_carve(base, L, 1 + 32);
+  float* vec = reinterpret_cast<float*>(base + L.vec);
+  const int T = tiles(a.S), nq = ROW ? 1 : sal_stages(a.S, CARRY_N), units = T * a.H * a.B;
+  const int role = threadIdx.x / 128;
 
-  // query tile j into stage j % 2, with its LSE and carry weights
-  auto stage_in = [&](int j) {
-    const int st = j & 1;
-    load_tile(qt[st], qh, a.q.ss, j * SAL_TILE, a.S);
-    cp_async_commit();
-    if (threadIdx.x < SAL_TILE) {
-      const int qi = j * SAL_TILE + threadIdx.x;
-      vec[st][threadIdx.x] = qi < a.S ? lse[qi] : SAL_LSE_PAD;
-      vec[st][SAL_TILE + threadIdx.x] =
-          ROW ? (qi == 0 ? 1.0f : 0.0f) : (qi < a.S ? carry[qi] : 0.0f);
+  if (role == 0) {
+    reg_dealloc<PRODUCER_REGS>();
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (warp == 0 && lane != 0) return;
+    if (warp == 0) {  // thread 0: the TMA loads
+      sm90::tma_prefetch(&tq);
+      sm90::tma_prefetch(&tk);
+      uint32_t it = 0, ui = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x, ++ui) {
+        const Unit w = unit(u, T, a.H);
+        wait_free(bars.uempty, ui, 2);
+        unsigned char* ub = base + L.unit + (ui & 1) * 2 * BOX_BYTES;
+        uint64_t* bar = &bars.ufull[ui & 1];
+        mbar_expect_tx(bar, 2 * BOX_BYTES);
+        for (int c = 0; c < CONSUMERS; ++c)
+          tma_load_4d(ub + c * BOX_BYTES, &tk, w.tile * ROWS + c * BOX, w.h, w.b, bar);
+        for (int j = 0; j < nq; ++j, ++it) {
+          const int st = it % SAL_STAGES;
+          wait_free(bars.empty, it, SAL_STAGES);
+          mbar_expect_tx(&bars.full[st], BOX_BYTES);
+          tma_load_4d(base + L.ring + st * BOX_BYTES, &tq, j * CARRY_N, w.h, w.b,
+                      &bars.full[st]);
+        }
+      }
+      return;
     }
-  };
-  load_tile(kt, a.k.head(b, h), a.k.ss, tile * SAL_TILE, a.S);
-  cp_async_commit();
-  stage_in(0);
-
-  uint32_t kf[4][4];
-  float acc0 = 0.0f, acc1 = 0.0f;  // keys g and g + 8 of the warp
-  for (int j = 0; j < nq; ++j) {
-    if (j + 1 < nq) {
-      stage_in(j + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (j == 0) a_frags(kf, kt, warp, lane);
-    const unsigned char* qs = qt[j & 1];
-    const float* lv = vec[j & 1];
-    const float* rv = vec[j & 1] + SAL_TILE;
+    // warps 1-3: every third stage's LSE and carry weights, copied from
+    // device memory by cp.async, each lane's copies completing on the
+    // stage's full barrier (no registers hold them, and the warp goes on
+    // to its next stage at once). A query past S reads as 0 in both (its
+    // q row is zeros, so p = 2^0 = 1 and weight 0: it adds 0); the ROW form
+    // reads only the LSE of query 0, so it copies no weights.
+    const uint32_t total = uint32_t((units - blockIdx.x + gridDim.x - 1) / gridDim.x) * nq;
+    for (uint32_t g = warp - 1; g < total; g += 3) {
+      const Unit w = unit(blockIdx.x + int(g / nq) * gridDim.x, T, a.H);
+      const float* lse = a.lse + w.bh * a.S;
+      const float* carry = ROW ? nullptr : a.carry + w.bh * a.S;
+      const int st = g % SAL_STAGES;
+      wait_free(bars.empty, g, SAL_STAGES);
+      float* v = vec + st * 2 * CARRY_N;
 #pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
-      float c[4];
-      scores8(c, kf, qs, nb, lane);
-      const int q0 = nb * 8 + 2 * t4;
-      const float l0 = lv[q0], l1 = lv[q0 + 1], r0 = rv[q0], r1 = rv[q0 + 1];
-      acc0 += r0 * ex2(fmaf(c[0], a.scale, -l0)) + r1 * ex2(fmaf(c[1], a.scale, -l1));
-      acc1 += r0 * ex2(fmaf(c[2], a.scale, -l0)) + r1 * ex2(fmaf(c[3], a.scale, -l1));
+      for (int e = 0; e < CARRY_N / 32; ++e) {
+        const int q = int(g % nq) * CARRY_N + 32 * e + lane;
+        const bool in = q < a.S;
+        cp_async4(v + vec_at(32 * e + lane), lse + (in ? q : 0), in ? 4 : 0);
+        if (!ROW) cp_async4(v + vec_at(32 * e + lane) + 2, carry + (in ? q : 0), in ? 4 : 0);
+      }
+      cp_async_arrive(&bars.full[st]);
     }
-    __syncthreads();  // the stage is read before it is refilled
+    return;
   }
-  acc0 += __shfl_xor_sync(0xffffffffu, acc0, 1);
-  acc0 += __shfl_xor_sync(0xffffffffu, acc0, 2);
-  acc1 += __shfl_xor_sync(0xffffffffu, acc1, 1);
-  acc1 += __shfl_xor_sync(0xffffffffu, acc1, 2);
-  if (t4 == 0) {
-    const int key = tile * SAL_TILE + warp * 16 + g;
-    float* out = a.out + size_t(bh) * a.S;
-    if (key < a.S) out[key] = acc0;
-    if (key + 8 < a.S) out[key + 8] = acc1;
+
+  reg_alloc<CONSUMER_REGS>();
+  const int c = role - 1, t = threadIdx.x & 127;
+  const int lo = 16 * (t >> 5) + ((t & 31) >> 2);
+  const unsigned char* ring = base + L.ring;
+  uint32_t it = 0, ui = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++ui) {
+    const Unit w = unit(u, T, a.H);
+    const unsigned char* kbox = base + L.unit + ((ui & 1) * 2 + c) * BOX_BYTES;
+    float acc0 = 0.0f, acc1 = 0.0f;  // keys lo and lo + 8
+    wait_full(bars.ufull, ui, 2);
+    auto reduce = [&](const float (&s)[CARRY_N / 2], int j) {
+      const float* v = vec + ((it + j) % SAL_STAGES) * 2 * CARRY_N;
+      if constexpr (ROW) {  // query 0 is column 0: i = 0 (key lo), 2 (lo + 8) of lane t % 4 = 0
+        if ((t & 3) == 0) {
+          acc0 = attn::ex2(fmaf(s[0], a.scale, -v[0]));
+          acc1 = attn::ex2(fmaf(s[2], a.scale, -v[0]));
+        }
+      } else {
+        // column pair g: queries 8 g + 2 (t % 4) + {0, 1}, scores 4 g + {0, 1}
+        // (key lo) and 4 g + {2, 3} (key lo + 8)
+#pragma unroll
+        for (int g = 0; g < CARRY_N / 8; ++g) {
+          const float4 lw = *reinterpret_cast<const float4*>(v + vec_at(frag_col(t, 4 * g)));
+          acc0 = fmaf(lw.z, attn::ex2(fmaf(s[4 * g], a.scale, -lw.x)), acc0);
+          acc0 = fmaf(lw.w, attn::ex2(fmaf(s[4 * g + 1], a.scale, -lw.y)), acc0);
+          acc1 = fmaf(lw.z, attn::ex2(fmaf(s[4 * g + 2], a.scale, -lw.x)), acc1);
+          acc1 = fmaf(lw.w, attn::ex2(fmaf(s[4 * g + 3], a.scale, -lw.y)), acc1);
+        }
+      }
+    };
+    stream_scores<CARRY_N>(kbox, bars, ring, it, nq, reduce);
+    it += nq;
+    acc0 = quad_sum(acc0);
+    acc1 = quad_sum(acc1);
+    if ((t & 3) == 0) {
+      const int key = w.tile * ROWS + c * BOX + lo;
+      float* out = a.out + w.bh * a.S;
+      if (key < a.S) out[key] = acc0;
+      if (key + 8 < a.S) out[key + 8] = acc1;
+    }
+    done_with_unit(bars, c, ui);
   }
 }
 
 struct AbnarArgs {
-  View q, k;
   const float* lse;  // [B, H, S]
-  float* out;        // [B, S, S]
+  float* out;        // [B, S]
   int B, H, S;
   float scale;  // sm_scale * log2(e), > 0
   float inv_h;  // 1 / H in f32
 };
 
-// Dynamic shared memory of the Abnar kernel: the Q tiles of the H heads,
-// two K stages, the heads' LSE of the unit's 64 rows.
-__host__ __device__ inline size_t abnar_smem(int H) {
-  return size_t(H) * SAL_TILE_BYTES + 2 * SAL_TILE_BYTES + size_t(H) * SAL_TILE * 4;
-}
+// Unit u: query tile u % T of slice u / T, its heads in order. Unit buffer
+// (one per head of the unit): [q0, q1] (consumer c owns the rows of box c).
+// Ring stage: ABNAR_N keys of the current head (two boxes). Thread t of a consumer holds
+// rows lo and lo + 8 of its box, keys frag_col(t, i) of each stage.
+__global__ void __launch_bounds__(THREADS, 1)
+flash_sal_abnar_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk, const AbnarArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = aligned(smem_raw);
+  const SalLayout L = sal_layout(false);
+  const Bars bars = sal_carve(base, L, 1);
+  const int T = tiles(a.S), nk = sal_stages(a.S, ABNAR_N), units = T * a.B;
+  const int role = threadIdx.x / 128;
 
-// Unit u: query tile u % T of slice u / T. Warp w owns rows 16 w .. + 15
-// of it; lane (g, t) the rows 16 w + g and + 8 and, in each 8-key group,
-// the keys 2 t and 2 t + 1. Step i of a pass: key tile i / H, head i % H.
-__global__ void __launch_bounds__(SAL_THREADS) flash_sal_abnar_kernel(const AbnarArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int H = a.H, S = a.S, T = sal_tiles(S);
-  unsigned char* qs = smem;
-  unsigned char* ks = smem + size_t(H) * SAL_TILE_BYTES;
-  float* ls = reinterpret_cast<float*>(ks + 2 * SAL_TILE_BYTES);
-  const int tile = blockIdx.x % T, b = blockIdx.x / T;
-  const int r0 = tile * SAL_TILE;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  for (int h = 0; h < H; ++h) load_tile(qs + h * SAL_TILE_BYTES, a.q.head(b, h), a.q.ss, r0, S);
-  for (int i = threadIdx.x; i < H * SAL_TILE; i += SAL_THREADS) {
-    const int h = i / SAL_TILE, r = r0 + i % SAL_TILE;
-    ls[i] = r < S ? a.lse[(size_t(b) * H + h) * S + r] : 0.0f;
-  }
-  const int steps = T * H;  // per pass
-  auto fetch = [&](int i) {
-    const int j = (i % steps) / H, h = i % H;
-    load_tile(ks + (i & 1) * SAL_TILE_BYTES, a.k.head(b, h), a.k.ss, j * SAL_TILE, S);
-    cp_async_commit();  // the Q tiles ride in the first group
-  };
-  fetch(0);
-  const int rowa = r0 + warp * 16 + g, rowb = rowa + 8;
-  float ab[32];  // the head sum of key group nb at [4 nb .. 4 nb + 3]
-  float rs0 = 0.0f, rs1 = 0.0f;  // rows a, b: this thread's share, then the row's sum
-  for (int i = 0; i < 2 * steps; ++i) {
-    const int pass = i / steps, j = (i % steps) / H, h = i % H;
-    if (i + 1 < 2 * steps) {
-      fetch(i + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    uint32_t qf[4][4];
-    a_frags(qf, qs + h * SAL_TILE_BYTES, warp, lane);
-    const unsigned char* kh = ks + (i & 1) * SAL_TILE_BYTES;
-    const float la = ls[h * SAL_TILE + warp * 16 + g], lb = ls[h * SAL_TILE + warp * 16 + g + 8];
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
-      float c[4];
-      scores8(c, qf, kh, nb, lane);
-      const float p[4] = {ex2(fmaf(c[0], a.scale, -la)), ex2(fmaf(c[1], a.scale, -la)),
-                          ex2(fmaf(c[2], a.scale, -lb)), ex2(fmaf(c[3], a.scale, -lb))};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ab[4 * nb + e] = h == 0 ? p[e] : __fadd_rn(ab[4 * nb + e], p[e]);
-    }
-    if (h == H - 1) {  // key tile j's factor values: mean_h p + I, 0 past S
-#pragma unroll
-      for (int nb = 0; nb < 8; ++nb) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = j * SAL_TILE + nb * 8 + 2 * t4 + (e & 1);
-          const int row = e & 2 ? rowb : rowa;
-          const float v = col < S ? __fadd_rn(__fmul_rn(ab[4 * nb + e], a.inv_h),
-                                              row == col ? 1.0f : 0.0f)
-                                  : 0.0f;
-          if (pass == 0) {
-            if (e & 2)
-              rs1 += v;
-            else
-              rs0 += v;
-          } else if (row < S && col < S) {
-            a.out[(size_t(b) * S + row) * S + col] = __fdiv_rn(v, e & 2 ? rs1 : rs0);
-          }
+  if (role == 0) {  // the producer: per head, its Q boxes, then its K boxes
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x != 0) return;
+    sm90::tma_prefetch(&tq);
+    sm90::tma_prefetch(&tk);
+    uint32_t it = 0, ui = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int tile = u % T, b = u / T;
+      for (int h = 0; h < a.H; ++h, ++ui) {
+        wait_free(bars.uempty, ui, 2);
+        unsigned char* ub = base + L.unit + (ui & 1) * 2 * BOX_BYTES;
+        uint64_t* bar = &bars.ufull[ui & 1];
+        mbar_expect_tx(bar, 2 * BOX_BYTES);
+        for (int c = 0; c < CONSUMERS; ++c)
+          tma_load_4d(ub + c * BOX_BYTES, &tq, tile * ROWS + c * BOX, h, b, bar);
+        for (int j = 0; j < nk; ++j, ++it) {
+          const int st = it % SAL_STAGES;
+          wait_free(bars.empty, it, SAL_STAGES);
+          mbar_expect_tx(&bars.full[st], ABNAR_N * HD * 2);
+          for (int x = 0; x < ABNAR_N / BOX; ++x)
+            tma_load_4d(base + L.ring + st * (ABNAR_N * HD * 2) + x * BOX_BYTES, &tk,
+                        j * ABNAR_N + x * BOX, h, b, &bars.full[st]);
         }
       }
-      if (pass == 0 && j == T - 1) {  // the rows' sums over the 4 lanes
-        rs0 += __shfl_xor_sync(0xffffffffu, rs0, 1);
-        rs0 += __shfl_xor_sync(0xffffffffu, rs0, 2);
-        rs1 += __shfl_xor_sync(0xffffffffu, rs1, 1);
-        rs1 += __shfl_xor_sync(0xffffffffu, rs1, 2);
-      }
     }
-    __syncthreads();  // the stage is read before it is refilled
+    return;
+  }
+
+  reg_alloc<CONSUMER_REGS>();
+  const int c = role - 1, t = threadIdx.x & 127;
+  const int lo = 16 * (t >> 5) + ((t & 31) >> 2);
+  const unsigned char* ring = base + L.ring;
+  uint32_t it = 0, ui = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int tile = u % T, b = u / T;
+    const int ra = tile * ROWS + c * BOX + lo, rb = ra + 8;
+    float hs0 = 0.0f, hs1 = 0.0f;  // rows ra, rb: the head sum of their row sums
+    for (int h = 0; h < a.H; ++h, ++ui) {
+      const unsigned char* qbox = base + L.unit + ((ui & 1) * 2 + c) * BOX_BYTES;
+      const float* lse = a.lse + (size_t(b) * a.H + h) * a.S;
+      const float l0 = ra < a.S ? lse[ra] : 0.0f, l1 = rb < a.S ? lse[rb] : 0.0f;
+      float p0 = 0.0f, p1 = 0.0f;  // this thread's share of the rows' sums
+      wait_full(bars.ufull, ui, 2);
+      auto reduce = [&](const float (&s)[ABNAR_N / 2], int j) {
+        if (j * ABNAR_N + ABNAR_N <= a.S) {
+#pragma unroll
+          for (int i = 0; i < ABNAR_N / 2; ++i) {
+            const float p = attn::ex2(fmaf(s[i], a.scale, -(frag_hi(i) ? l1 : l0)));
+            if (frag_hi(i))
+              p1 += p;
+            else
+              p0 += p;
+          }
+        } else {  // the last stage: keys past S (zero-filled) get p = 0
+          const int keys = a.S - j * ABNAR_N;
+#pragma unroll
+          for (int i = 0; i < ABNAR_N / 2; ++i) {
+            const float p = frag_col(t, i) < keys
+                                ? attn::ex2(fmaf(s[i], a.scale, -(frag_hi(i) ? l1 : l0)))
+                                : 0.0f;
+            if (frag_hi(i))
+              p1 += p;
+            else
+              p0 += p;
+          }
+        }
+      };
+      stream_scores<ABNAR_N>(qbox, bars, ring, it, nk, reduce);
+      it += nk;
+      hs0 += quad_sum(p0);
+      hs1 += quad_sum(p1);
+      done_with_unit(bars, c, ui);
+    }
+    if ((t & 3) == 0) {
+      float* out = a.out + size_t(b) * a.S;
+      if (ra < a.S) out[ra] = __fadd_rn(__fmul_rn(hs0, a.inv_h), 1.0f);
+      if (rb < a.S) out[rb] = __fadd_rn(__fmul_rn(hs1, a.inv_h), 1.0f);
+    }
   }
 }
 
-bool views_ok(const long long* st, const void* q, const void* k, int B, int H, int S) {
-  if (B <= 0 || H <= 0 || S <= 0) return false;
-  if ((long long)sal_tiles(S) * H * B > INT32_MAX) return false;
-  for (int i = 0; i < 6; ++i)
-    if (st[i] % 8 != 0) return false;
-  return (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k)) % 16 == 0;
+bool sal_maps(CUtensorMap* m, const void* q, const void* k, const long long* strides, int B,
+              int H, int S, cudaError_t* err) {
+  *err = tma_map_4d(&m[0], q, strides, B, H, S);
+  if (*err == cudaSuccess) *err = tma_map_4d(&m[1], k, strides + 3, B, H, S);
+  return *err == cudaSuccess;
 }
 
 }  // namespace
@@ -335,58 +454,70 @@ extern "C" int mst_flash_carry(const void* q, const void* k, const void* lse, co
                                void* out, const long long* strides, int B, int H, int S,
                                float scale, int row, void* stream) {
   using namespace mst;
-  if (!views_ok(strides, q, k, B, H, S) || !(scale > 0.0f) || (!row && carry == nullptr))
+  using namespace mst::flash;
+  if (!shape_ok(strides, 6, B, H, S) || !(scale > 0.0f) || (!row && carry == nullptr))
     return cudaErrorInvalidValue;
-  const CarryArgs a{View{static_cast<const bf16*>(q), strides[0], strides[1], strides[2]},
-                    View{static_cast<const bf16*>(k), strides[3], strides[4], strides[5]},
-                    static_cast<const float*>(lse),
-                    static_cast<const float*>(carry),
-                    static_cast<float*>(out),
-                    B, H, S, scale};
-  const int grid = sal_tiles(S) * H * B;
+  CUtensorMap m[2];
+  cudaError_t err;
+  if (!sal_maps(m, q, k, strides, B, H, S, &err)) return err;
+  const size_t smem = sal_layout(true).total;
+  const CarryArgs a{static_cast<const float*>(lse), static_cast<const float*>(carry),
+                    static_cast<float*>(out), B, H, S, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (row)
-    flash_sal_carry_kernel<true><<<grid, SAL_THREADS, 0, st>>>(a);
-  else
-    flash_sal_carry_kernel<false><<<grid, SAL_THREADS, 0, st>>>(a);
+  int grid = 0;
+  if (row) {
+    err = prepare(flash_sal_carry_kernel<true>, smem, tiles(S) * H * B, &grid);
+    if (err != cudaSuccess) return err;
+    flash_sal_carry_kernel<true><<<grid, THREADS, smem, st>>>(m[0], m[1], a);
+  } else {
+    err = prepare(flash_sal_carry_kernel<false>, smem, tiles(S) * H * B, &grid);
+    if (err != cudaSuccess) return err;
+    flash_sal_carry_kernel<false><<<grid, THREADS, smem, st>>>(m[0], m[1], a);
+  }
   return cudaGetLastError();
 }
 
-// q, k, lse as mst_flash_carry; out: [B, S, S] f32 contiguous, the factor
-// rownorm(mean_h p_h + I) of each slice. H * 8.25 KB + 16 KB of shared
-// memory: H <= 25.
+// q, k, lse as mst_flash_carry; out: [B, S] f32 contiguous, the row
+// normaliser 1 + (1 / H) sum_h sum_k p_h[q, k] of each slice's Abnar factor.
 extern "C" int mst_flash_abnar(const void* q, const void* k, const void* lse, void* out,
                                const long long* strides, int B, int H, int S, float scale,
                                void* stream) {
   using namespace mst;
-  if (!views_ok(strides, q, k, B, H, S) || !(scale > 0.0f)) return cudaErrorInvalidValue;
-  const size_t smem = abnar_smem(H);
-  cudaError_t err = allow_smem(flash_sal_abnar_kernel, smem);
+  using namespace mst::flash;
+  if (!shape_ok(strides, 6, B, H, S) || !(scale > 0.0f)) return cudaErrorInvalidValue;
+  CUtensorMap m[2];
+  cudaError_t err;
+  if (!sal_maps(m, q, k, strides, B, H, S, &err)) return err;
+  const size_t smem = sal_layout(false).total;
+  int grid = 0;
+  err = prepare(flash_sal_abnar_kernel, smem, tiles(S) * B, &grid);
   if (err != cudaSuccess) return err;
-  const AbnarArgs a{View{static_cast<const bf16*>(q), strides[0], strides[1], strides[2]},
-                    View{static_cast<const bf16*>(k), strides[3], strides[4], strides[5]},
-                    static_cast<const float*>(lse),
-                    static_cast<float*>(out),
-                    B, H, S, scale, 1.0f / float(H)};
-  flash_sal_abnar_kernel<<<sal_tiles(S) * B, SAL_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      a);
+  const AbnarArgs a{static_cast<const float*>(lse), static_cast<float*>(out), B, H, S, scale,
+                    1.0f / float(H)};
+  flash_sal_abnar_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(m[0], m[1],
+                                                                                   a);
   return cudaGetLastError();
 }
 
 // The launch geometry of mst_flash_carry's ROW form (part 0), its carry
-// form (1) and mst_flash_abnar (2): geo = {rows of a tile, threads, tiles,
-// blocks, the tiles of the other operand a block walks (Abnar: (key
-// tile, head) steps of both passes), shared memory bytes}
-// (`ops/attention.flash_sal_launch` mirrors it).
+// form (1) and mst_flash_abnar (2) on this device: geo = {rows of a unit,
+// rows of a box, tiles, units, grid, threads, ring stages, dynamic shared
+// memory bytes, ring stages a unit streams} (`ops/attention.flash_sal_launch`
+// mirrors it).
 extern "C" int mst_flash_sal_geometry(int B, int H, int S, int part, int* geo) {
   using namespace mst;
+  using namespace mst::flash;
   if (part < 0 || part > 2 || B <= 0 || H <= 0 || S <= 0) return cudaErrorInvalidValue;
-  const long long T = sal_tiles(S);
-  const long long blocks = part == 2 ? T * B : T * H * B;
-  if (blocks > INT32_MAX) return cudaErrorInvalidValue;
-  const int g[6] = {SAL_TILE, SAL_THREADS, int(T), int(blocks),
-                    part == 0 ? 1 : part == 1 ? int(T) : int(2 * T * H),
-                    part == 2 ? int(abnar_smem(H)) : SAL_CARRY_SMEM};
-  for (int i = 0; i < 6; ++i) geo[i] = g[i];
+  const long long units = (long long)tiles(S) * (part == 2 ? 1 : H) * B;
+  if (units > INT32_MAX) return cudaErrorInvalidValue;
+  int grid = 0;
+  const cudaError_t err = sm90::persistent_grid(int(units), &grid);
+  if (err != cudaSuccess) return err;
+  const int g[9] = {ROWS, BOX, tiles(S), int(units), grid, THREADS, SAL_STAGES,
+                    int(sal_layout(part != 2).total),
+                    part == 0 ? 1
+                    : part == 1 ? sal_stages(S, CARRY_N)
+                                : H * sal_stages(S, ABNAR_N)};
+  for (int i = 0; i < 9; ++i) geo[i] = g[i];
   return cudaSuccess;
 }

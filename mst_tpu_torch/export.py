@@ -484,7 +484,7 @@ def main(argv=None, device="cuda", **dataset_kw) -> Path:
     card (or `device`); `dataset_kw` go to the calibration dataset."""
     from mst_tpu_torch.models.vit_fast import int8_config_supported
     from mst_tpu_torch.ops.fused_int8 import quantize_mst_int8
-    from mst_tpu_torch.serve import build_model, calibration_volumes
+    from mst_tpu_torch.serve import build_model, int8_calibration
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     args = parse_args(argv)
@@ -497,11 +497,8 @@ def main(argv=None, device="cuda", **dataset_kw) -> Path:
             raise SystemExit("--int8 needs the fused serving path (a "
                              "DinoSliceClassifier with the transformer "
                              "fusion and no rotary)")
-        if args.path_root:
-            dataset_kw = dict(dataset_kw, path_root=args.path_root)
-        model = quantize_mst_int8(model, calibration_volumes(
-            args.run_folder, args.int8_calib, **dataset_kw)
-            if args.int8_calib else None)
+        model = quantize_mst_int8(model, int8_calibration(args,
+                                                          **dataset_kw))
     out = save_exported(
         args.out, model, batch_sizes=[int(b) for b in
                                       args.batch_sizes.split(",")],

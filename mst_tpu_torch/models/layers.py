@@ -159,10 +159,10 @@ class Attention(nn.Module):
         RoPE tables ([S, head_dim] f32) q and k are rotated first. With one
         saliency switch (serving only; `Block.forward`'s flags of the fused
         path) -> (y, the CLS row [N, heads, S] | the carry [N, heads, S]
-        moved on | the Abnar factor [N, S, S], f32), which the flax path's
-        `return_weights` sows as the probabilities themselves: here
-        `flash_fwd` keeps its LSE and a kernel rebuilds what the mode needs
-        from it and the same q, k."""
+        moved on | the block's Abnar state (q, k, LSE, row normaliser [N,
+        S])), f32, where the flax path's `return_weights` sows the
+        probabilities themselves: here `flash_fwd` keeps its LSE and a
+        kernel rebuilds what the mode needs from it and the same q, k."""
         n, s, e = x.shape
         qkv = self.qkv(x).view(n, s, 3, self.num_heads, e // self.num_heads)
         q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
@@ -298,7 +298,8 @@ class Block(nn.Module):
         differentiable by autograd (the attention through its kernels'
         backward). `rope_cos` / `rope_sin` ([S, head_dim] f32): RoPE on q
         and k. With `want_row`, `carry` or `abnar` (serving only, as
-        `forward` takes them) -> (h, CLS row | new carry | Abnar factor)."""
+        `forward` takes them) -> (h, CLS row | new carry | Abnar state of
+        `flash_attention_saliency`)."""
         y = self.attn(self.norm1(h), rope_cos, rope_sin, want_row, carry,
                       abnar)
         extra = None

@@ -21,6 +21,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from mst_tpu_torch.models.layers import Block, LayerNorm, PatchEmbed
+from mst_tpu_torch.ops.attention import abnar_rollout_row
 
 _VIT_CONFIGS = {
     "tiny": dict(embed_dim=32, depth=2, num_heads=2),  # tests only
@@ -154,32 +155,32 @@ class VisionTransformer(nn.Module):
         E], data): "last" the last block's CLS row [N, heads, S];
         "rollout" the reference `get_attention_cls` chain's CLS row, a carry
         [N, heads, S] started one-hot at CLS (as `vit_fast.fused_vit_cls`
-        starts it) and moved through every block; "rollout_abnar" a list of
-        one [N, S, S] matrix, the newest-first product A_l @ ... @ A_0 of
-        the blocks' Abnar factors, chained as they come, so that one factor
-        and the running product are alive and not twelve factors
-        (`ops/saliency.attention_rollout_from_factors` reads its CLS row
-        as it would the factors' product). All f32."""
+        starts it) and moved through every block; "rollout_abnar" the CLS
+        row [N, S] of the newest-first product A_l @ ... @ A_0 of the
+        blocks' Abnar factors, which `attention.abnar_rollout_row` carries
+        back through the blocks after the last one from each block's q, k,
+        LSE and row normaliser (no factor and no [S, S] product is made).
+        All f32."""
         n, s = h.shape[:2]
         data = None
         if plane_mode == "rollout":
             data = torch.zeros(n, self.num_heads, s, device=h.device)
             data[:, :, 0] = 1.0
+        kept = []
         for i in range(self.depth):
             blk = self.block(i)
             if plane_mode == "rollout":
                 h, data = blk.forward_composed(h, rope_cos, rope_sin,
                                                carry=data)
             elif plane_mode == "rollout_abnar":
-                h, factor = blk.forward_composed(h, rope_cos, rope_sin,
-                                                 abnar=True)
-                data = factor if data is None else torch.matmul(factor, data)
-                del factor
+                h, state = blk.forward_composed(h, rope_cos, rope_sin,
+                                                abnar=True)
+                kept.append(state)
             elif i == self.depth - 1:
                 h, data = blk.forward_composed(h, rope_cos, rope_sin,
                                                want_row=True)
             else:
                 h = blk.forward_composed(h, rope_cos, rope_sin)
         if plane_mode == "rollout_abnar":
-            data = [data]
+            data = abnar_rollout_row(kept)
         return self.norm(h[:, 0]), data

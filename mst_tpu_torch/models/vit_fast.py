@@ -57,6 +57,7 @@ from mst_tpu_torch.ops.fused_block import _f, _ln
 from mst_tpu_torch.ops.rotary import apply_rope_tables, rope_tables
 from mst_tpu_torch.ops.saliency import (
     attention_rollout_from_factors,
+    attention_rollout_from_row,
     combined_saliency,
     plane_attention_from_row,
     slice_attention,
@@ -341,8 +342,10 @@ def fused_mst_saliency(model, source, src_key_padding_mask=None, dtype=None,
     memory. plane_mode "last": the last block's CLS row;
     "rollout": the reference `get_attention_cls` chain's CLS row, carried
     through every block's kernel; "rollout_abnar": the Abnar & Zuidema
-    rollout of the per-block factors the kernels emit, chained in f32 by
-    `torch.matmul`. Slice weights come from the fusion layer's probs.
+    rollout, on the fused path of the per-block factors the kernels emit,
+    chained in f32 by `torch.matmul`; on the composed path the CLS row of
+    their product, carried back through the blocks (no factor is made).
+    Slice weights come from the fusion layer's probs.
     Slices above FUSED_MAX_TOKENS take the composed saliency forward
     (`composed_mst_saliency`), as JAX takes its flax path there; an
     int8-quantized model raises JAX's ValueError there."""
@@ -370,8 +373,9 @@ def fused_mst_saliency(model, source, src_key_padding_mask=None, dtype=None,
     n_prefix = 1 + model.num_register_tokens
     gh, gw = hh // p, ww // p
     if plane_mode == "rollout_abnar":
-        pw = attention_rollout_from_factors(sal_data, n_prefix).reshape(
-            -1, gh, gw)
+        rollout = (attention_rollout_from_row if long_slices
+                   else attention_rollout_from_factors)
+        pw = rollout(sal_data, n_prefix).reshape(-1, gh, gw)
     else:
         pw = plane_attention_from_row(sal_data, n_prefix, (gh, gw))
     return probs, upsample_saliency(combined_saliency(sw, pw), (d, hh, ww))

@@ -114,10 +114,10 @@ _SIGNATURES = {
     # q, k, lse, carry|NULL, out, strides (host int64 [2][3]), B, H, S,
     # scale_log2, row (the CLS-row form), stream
     "mst_flash_carry": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
-    # q, k, lse, out ([B, S, S] f32), strides ([2][3]), B, H, S, scale_log2,
-    # stream
+    # q, k, lse, out ([B, S] f32: the Abnar row normaliser), strides ([2][3]),
+    # B, H, S, scale_log2, stream
     "mst_flash_abnar": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
-    # B, H, S, part (0 row, 1 carry, 2 abnar), geo (host int32 [6]): the
+    # B, H, S, part (0 row, 1 carry, 2 abnar), geo (host int32 [9]): the
     # saliency kernels' launch geometry
     "mst_flash_sal_geometry": (_I, _I, _I, _I, _P),
     # the tools/ experiments (mst_tpu_torch/tools/), queue B rows 17-21:

@@ -52,13 +52,16 @@ Saliency above 512 tokens (JAX serves it on its flax path, whose
 probabilities) rides the same forward: `flash_attention_saliency` runs
 `flash_fwd` with its LSE, then one of `flash_row` (the CLS row of the last
 block), `flash_carry` (the rollout carry moved one block on) and
-`flash_abnar` (the block's Abnar factor), hand-written kernels that
-rebuild p = exp2(s - lse) tile by tile from the same q and k
-(csrc/flash_sal.cu; `flash_sal_launch` mirrors their geometry). No TPU
-kernel computes these: they replace XLA's reductions of the sown
+`flash_abnar` (the row normaliser of the block's Abnar factor),
+hand-written kernels that rebuild p = exp2(s - lse) tile by tile from the
+same q and k (csrc/flash_sal.cu, TMA + wgmma; `flash_sal_launch` mirrors
+their geometry). The Abnar rollout reads only the CLS row of the factors'
+product, so `abnar_rollout_row` carries that row back from the newest
+block to the oldest with one `flash_carry` a block, on the q, k, LSE and
+row normaliser each block kept: no factor and no [S, S] product is made.
+No TPU kernel computes these: they replace XLA's reductions of the sown
 probabilities. Their plain versions (`_flash_row_ref`, `_flash_carry_ref`,
-`_flash_abnar_ref`) follow `fused_block._mhsa_ref`'s saliency forms, a
-head at a time.
+`_flash_abnar_ref`) rebuild the probabilities a head at a time.
 """
 
 from __future__ import annotations
@@ -172,14 +175,14 @@ def _flash_carry_ref(q, k, lse, carry, sm_scale=None):
 
 
 def _flash_abnar_ref(q, k, lse, sm_scale=None):
-    """The Abnar & Zuidema factor rownorm(mean_h p + I), [B, S, S] f32, the
-    heads summed in order (`_mhsa_ref`'s `want_abnar` form)."""
-    sm, heads, s = _scale(q, sm_scale), q.shape[1], q.shape[2]
-    ab = _head_probs(q, k, lse, 0, sm)
+    """The row normaliser of the Abnar & Zuidema factor rownorm(mean_h p +
+    I), rs [B, S] f32 (f64 on f64 inputs): 1 + (1 / H) sum_h sum_k p_h[q,
+    k], the row sums first, then the heads summed in order."""
+    sm, heads = _scale(q, sm_scale), q.shape[1]
+    hs = _head_probs(q, k, lse, 0, sm).sum(-1)
     for h in range(1, heads):
-        ab = ab + _head_probs(q, k, lse, h, sm)
-    a = ab * (1.0 / heads) + torch.eye(s, device=ab.device, dtype=ab.dtype)
-    return a / a.sum(-1, keepdim=True)
+        hs = hs + _head_probs(q, k, lse, h, sm).sum(-1)
+    return hs * (1.0 / heads) + 1.0
 
 
 def _delta(o, do):
@@ -407,41 +410,44 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, sm_scale=None):
     return dk, dv
 
 
-# The launch geometry of the saliency kernels (csrc/flash_sal.cu): a block
-# of SAL_THREADS threads (4 warps of 16 rows) per unit of SAL_TILE rows; the
-# CLS row and the carry take a key tile of one (slice, head), the first
-# query tile (row) or every one (carry) streaming through a two-stage ring;
-# the Abnar factor a query tile of one slice with the Q tiles and LSE of
-# every head resident, the K tiles of each (key tile, head) streaming
-# through the ring twice (the rows' sums, then the values).
-SAL_TILE, SAL_THREADS = 64, 128
+# The launch geometry of the saliency kernels (csrc/flash_sal.cu): the
+# persistent producer / consumer blocks of the flash kernels (FLASH_ROWS-row
+# units, FLASH_BOX-row TMA boxes, FLASH_THREADS threads, one block an SM)
+# with a ring of SAL_STAGES stages. The CLS row and the carry take a key
+# tile of one (slice, head), the queries streaming through the ring
+# SAL_CARRY_ROWS a stage with their f32 LSE and weights (the CLS row the
+# first stage alone); the row normaliser a query tile of one slice, the keys
+# of every head in turn, SAL_ABNAR_ROWS a stage.
+SAL_CARRY_ROWS, SAL_ABNAR_ROWS, SAL_STAGES = 64, 128, 8
 SAL_PARTS = ("row", "carry", "abnar")
-_SAL_TILE_BYTES = SAL_TILE * HEAD_DIM * 2
-_SMEM_LIMIT = 232_448  # dynamic shared memory of one H100 block
-SAL_MAX_HEADS = ((_SMEM_LIMIT - 2 * _SAL_TILE_BYTES)
-                 // (_SAL_TILE_BYTES + SAL_TILE * 4))  # 25
+SAL_GEOMETRY = ("rows", "box", "tiles", "units", "grid", "threads", "stages",
+                "smem", "walks")
 
 
-def flash_sal_launch(b: int, h: int, s: int, part: str) -> SimpleNamespace:
+def flash_sal_launch(b: int, h: int, s: int, part: str,
+                     sms: int) -> SimpleNamespace:
     """The launch geometry of `flash_row` ("row"), `flash_carry` ("carry")
-    or `flash_abnar` ("abnar") over [b, h, s, 64], as
-    `mst_flash_sal_geometry` exports it: rows of a tile, threads, tiles,
-    blocks (one a unit: key tile, head, slice; the Abnar form query tile,
-    slice), the tiles of the other operand a block walks (the Abnar form:
-    (key tile, head) steps of its two passes) and shared memory bytes (the
-    K tile, two Q stages and their f32 LSE and weights; the Abnar form the
-    Q tiles and LSE of every head and two K stages)."""
+    or `flash_abnar` ("abnar") over [b, h, s, 64] on a card of `sms` SMs,
+    as `mst_flash_sal_geometry` exports it: rows of a unit and of a box,
+    tiles, units (row / carry: key tile fastest, then head, then slice;
+    abnar: query tile, then slice), the persistent grid, threads, ring
+    stages, dynamic shared memory (1 KB of alignment, two unit buffers of
+    two boxes, the ring; row / carry: the stages' f32 LSE and weight rows;
+    the barriers) and the ring stages a unit streams."""
     if part not in SAL_PARTS or min(b, h, s) < 1:
         raise ValueError(f"flash_sal_launch({b}, {h}, {s}, {part!r})")
-    tiles = -(-s // SAL_TILE)
-    if part == "abnar":
-        blocks, walks = tiles * b, 2 * tiles * h
-        smem = h * (_SAL_TILE_BYTES + SAL_TILE * 4) + 2 * _SAL_TILE_BYTES
-    else:
-        blocks, walks = tiles * h * b, 1 if part == "row" else tiles
-        smem = 3 * _SAL_TILE_BYTES + 2 * 2 * SAL_TILE * 4
-    return SimpleNamespace(tile=SAL_TILE, threads=SAL_THREADS, tiles=tiles,
-                           blocks=blocks, walks=walks, smem=smem)
+    carry = part != "abnar"
+    rows = SAL_CARRY_ROWS if carry else SAL_ABNAR_ROWS
+    tiles, stages = -(-s // FLASH_ROWS), -(-s // rows)
+    units = tiles * b * (h if carry else 1)
+    smem = (1024 + 4 * _FLASH_BOX_BYTES + SAL_STAGES * rows * HEAD_DIM * 2
+            + (SAL_STAGES * 2 * rows * 4 if carry else 0)
+            + (4 + 2 * SAL_STAGES) * 8)
+    walks = {"row": 1, "carry": stages, "abnar": h * stages}[part]
+    return SimpleNamespace(rows=FLASH_ROWS, box=FLASH_BOX, tiles=tiles,
+                           units=units, grid=min(units, sms),
+                           threads=FLASH_THREADS, stages=SAL_STAGES,
+                           smem=smem, walks=walks)
 
 
 def _flash_sal_cuda(part, q, k, lse, carry, sm_scale):
@@ -452,12 +458,9 @@ def _flash_sal_cuda(part, q, k, lse, carry, sm_scale):
     _lse(lse, "lse", b, h, s, q)
     if part == "carry":
         _lse(carry, "carry", b, h, s, q)
-    if part == "abnar" and h > SAL_MAX_HEADS:
-        raise ValueError(f"flash_abnar keeps every head's Q tile in shared "
-                         f"memory: at most {SAL_MAX_HEADS} heads, got {h}")
     lib, scale = _build.lib(), sm_scale * LOG2E
     if part == "abnar":
-        out = torch.empty((b, s, s), dtype=torch.float32, device=q.device)
+        out = torch.empty((b, s), dtype=torch.float32, device=q.device)
         err = lib.mst_flash_abnar(q.data_ptr(), k.data_ptr(), lse.data_ptr(),
                                   out.data_ptr(), _strides(*strides), b, h, s,
                                   scale, _stream(q))
@@ -496,8 +499,9 @@ def flash_carry(q, k, lse, carry, sm_scale=None):
 
 
 def flash_abnar(q, k, lse, sm_scale=None):
-    """The Abnar & Zuidema factor of this attention, rownorm(mean_h p + I)
-    [B, S, S] f32."""
+    """The row normaliser of this attention's Abnar & Zuidema factor
+    rownorm(mean_h p + I): rs [B, S] f32, 1 + (1 / H) sum_h sum_k p_h[q, k]
+    (the factor itself is never made: `abnar_rollout_row`)."""
     if exporting():
         return _flash_abnar_op(q, k, lse, _scale(q, sm_scale))
     if not _on_cuda(q):
@@ -547,12 +551,13 @@ _flash_abnar_op.register_kernel("cpu")(
     lambda q, k, lse, sm_scale: _flash_abnar_ref(q, k, lse, sm_scale)
     .contiguous())
 _flash_abnar_op.register_fake(
-    lambda q, k, lse, sm_scale: q.new_empty(
-        (q.shape[0], q.shape[2], q.shape[2]), dtype=torch.float32))
+    lambda q, k, lse, sm_scale: q.new_empty((q.shape[0], q.shape[2]),
+                                            dtype=torch.float32))
 
 
-# The kernels a saliency forward composes (`flash_attention_saliency`): the
-# wrappers, or (chip_smoke.py) the plain versions on the card.
+# The kernels a saliency forward composes (`flash_attention_saliency`,
+# `abnar_rollout_row`): the wrappers, or (chip_smoke.py) the plain versions
+# on the card.
 SAL_KERNELS = SimpleNamespace(fwd=flash_fwd, row=flash_row, carry=flash_carry,
                               abnar=flash_abnar)
 
@@ -562,9 +567,12 @@ def flash_attention_saliency(q, k, v, want_row: bool = False, carry=None,
                              ops=SAL_KERNELS):
     """Serving attention with one saliency output, as `mhsa`'s flags give
     it on the fused path: -> (o, CLS row [B, H, S] | the carry moved on
-    [B, H, S] | the Abnar factor [B, S, S], f32). `flash_fwd` keeps its LSE
-    rows, and the output's kernel rebuilds p from them and from the same q,
-    k (after RoPE): no [S, S] matrix of a head is ever held."""
+    [B, H, S] | the block's Abnar state (q, k, lse, rs)). `flash_fwd` keeps
+    its LSE rows, and the output's kernel rebuilds p from them and from the
+    same q, k (after RoPE): no [S, S] matrix of a head is ever held. The
+    Abnar state is what `abnar_rollout_row` needs of the block: q and k
+    (copies where they are views of the packed qkv, so that neither it nor
+    v stays alive), the LSE and the row normaliser rs [B, S] f32."""
     if sum((want_row, carry is not None, abnar)) != 1:
         raise ValueError("flash_attention_saliency takes one of want_row, "
                          "carry and abnar")
@@ -573,8 +581,29 @@ def flash_attention_saliency(q, k, v, want_row: bool = False, carry=None,
     if carry is not None:
         return o, ops.carry(q, k, lse, carry, sm_scale)
     if abnar:
-        return o, ops.abnar(q, k, lse, sm_scale)
+        q, k = q.contiguous(), k.contiguous()
+        return o, (q, k, lse, ops.abnar(q, k, lse, sm_scale))
     return o, ops.row(q, k, lse, sm_scale)
+
+
+def abnar_rollout_row(blocks, ops=SAL_KERNELS):
+    """The CLS row of A_{L-1} ... A_0, the Abnar & Zuidema rollout's product
+    of the blocks' factors A_l = rownorm(mean_h p_l,h + I) (JAX's
+    `attention_rollout`), from each block's state (q, k, lse, rs) of
+    `flash_attention_saliency(abnar=True)` at the default sm_scale, oldest
+    first -> [B, S] f32. The row moves back through the blocks, newest
+    first: from v = e_0 (one-hot at CLS), w = v / rs_l and v = mean_h
+    carry_h(w) + w, where carry_h is `flash_carry` with w for every head;
+    only that row is ever read, so no factor and no [S, S] product is
+    made."""
+    v = torch.zeros_like(blocks[-1][3])
+    v[:, 0] = 1.0
+    for q, k, lse, rs in reversed(blocks):
+        w = v / rs
+        moved = ops.carry(q, k, lse,
+                          w[:, None].expand(q.shape[:3]).contiguous())
+        v = moved.mean(1) + w
+    return v
 
 
 # The forward and backward a `flash_attention` call composes: the kernel

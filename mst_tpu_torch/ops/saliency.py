@@ -11,8 +11,8 @@ same map semantics:
   then the head mean;
 - combined map: the outer product of the two;
 - `attention_cls_rollout`: the reference `get_attention_cls` chain;
-  `attention_rollout` / `attention_rollout_from_factors`: the Abnar &
-  Zuidema variant (opt-in).
+  `attention_rollout` / `attention_rollout_from_factors` /
+  `attention_rollout_from_row`: the Abnar & Zuidema variant (opt-in).
 
 Every function takes and returns torch tensors on any device; the chains
 are `torch.matmul` in f32, as XLA runs them in the JAX package.
@@ -87,6 +87,14 @@ def attention_rollout_from_factors(factors: Sequence[torch.Tensor],
     for a in factors:
         result = a if result is None else torch.matmul(a, result)
     return _cls_rollout_row(result, num_prefix_tokens)
+
+
+def attention_rollout_from_row(row: torch.Tensor,
+                               num_prefix_tokens: int) -> torch.Tensor:
+    """`attention_rollout` from the CLS row [B, T] of the factors' product
+    (what `attention.abnar_rollout_row` carries back through the blocks):
+    read from the first patch on and normalised -> [B, N]."""
+    return _cls_rollout_row(row[:, None], num_prefix_tokens)
 
 
 def attention_rollout(probs_per_layer: Sequence[torch.Tensor],

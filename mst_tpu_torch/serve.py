@@ -7,7 +7,7 @@ importing `mst_tpu` pulls in JAX. Run as
     python -m mst_tpu_torch.serve [--init_seed 0 | --params_npz PATH |
         --run_folder RUN | --exported ART] [--batch_size 8] \
         [--max_wait_ms 5] [--host 127.0.0.1] [--port 8760] \
-        [--dtype bfloat16] [--int8 [--int8_calib N]]
+        [--dtype bfloat16] [--int8 [--int8_calib N [--path_root DIR]]]
 
 It serves MST-DINOv2 ViT-S/14 (or the model of a `python -m
 mst_tpu_torch.train` run folder, `load_run_model`: MST-DINOv3, a frozen
@@ -15,7 +15,8 @@ giant2 run, any slice fusion, the 3D ResNet and MST-ResNet too) on the
 CUDA card. `--int8` serves the encoder on the W8A8
 kernels (`ops/fused_int8.py`) with per-token activation scales;
 `--int8_calib N` calibrates static ones on the first N volumes of the run
-folder's val split (`calibration_volumes`) and folds them in. Slices of
+folder's val split (`calibration_volumes`: the run's fold, read under
+`--path_root` unless the run is Synthetic) and folds them in. Slices of
 any size divisible by the patch are served: up to 512 tokens on the fused
 sub-layers, above (e.g. 518 px, 1370 tokens) on the composed path with the
 flash kernels; an int8 model answers such a request with HTTP 400 (the
@@ -286,28 +287,53 @@ def load_weights(model, args):
     return params_from_flax(model, flat)
 
 
-def calibration_volumes(run_folder, n: int, **dataset_kw) -> np.ndarray:
+def calibration_volumes(run_folder, n: int, path_root=None,
+                        **dataset_kw) -> np.ndarray:
     """The first `n` val-split volumes of the run's own dataset (its
     hparams' `dataset`, else the run folder's parent name) as [n, C, D, H,
     W] f32: the static-int8 calibration contract of `mst_tpu/serve.py`
-    (`calibration_volumes`). `dataset_kw` go to the dataset (e.g.
-    `shape_cdhw` of Synthetic)."""
+    (`calibration_volumes`). A dataset read from files takes `path_root`
+    and the run's `fold`; without a root it raises JAX's ValueError, which
+    the CLIs turn into their usage error. `dataset_kw` go to the dataset
+    (e.g. `shape_cdhw` of Synthetic)."""
     from mst_tpu_torch.registry import get_dataset
     from mst_tpu_torch.utils.checkpoint import load_hparams
 
     run = Path(run_folder)
-    name = (load_hparams(run) or {}).get("dataset") or run.parent.name
+    hparams = load_hparams(run) or {}
+    name = hparams.get("dataset") or run.parent.name
+    if name != "Synthetic":
+        if not path_root:
+            raise ValueError(
+                "static int8 calibration draws volumes from the run's val "
+                "split — pass --path_root (or use dynamic scales: --int8 "
+                "without --int8_calib)")
+        dataset_kw = dict(dataset_kw, path_root=path_root,
+                          fold=hparams.get("fold", 0))
     ds = get_dataset(name, split="val", **dataset_kw)
     return np.stack([np.asarray(ds[i]["source"], np.float32)
                      for i in range(min(int(n), len(ds)))])
+
+
+def int8_calibration(args, **dataset_kw):
+    """The calibration volumes of --int8_calib N (None without it) from
+    the --run_folder's val split under --path_root; a missing root is a
+    usage error, as `scripts/main_serve.py` makes it."""
+    if not args.int8_calib:
+        return None
+    try:
+        return calibration_volumes(args.run_folder, args.int8_calib,
+                                   args.path_root, **dataset_kw)
+    except ValueError as e:
+        raise SystemExit(f"--int8_calib: {e}")
 
 
 def build_model(args, device="cuda", **dataset_kw):
     """-> the --run_folder's model, or MODEL with --params_npz / seeded
     weights, on the CUDA card (or `device`) in --dtype; with --int8 its
     W8A8 copy (`quantize_mst_int8`), per-token activation scales, or with
-    --int8_calib N static ones calibrated on `calibration_volumes`
-    (`dataset_kw` go to its dataset)."""
+    --int8_calib N static ones calibrated on `calibration_volumes` of the
+    run's val split under --path_root (`dataset_kw` go to its dataset)."""
     from mst_tpu_torch.ops.fused_int8 import quantize_mst_int8
     from mst_tpu_torch.registry import get_model
 
@@ -319,9 +345,7 @@ def build_model(args, device="cuda", **dataset_kw):
     model = model.to(torch.device(device)).eval()
     if not args.int8:
         return model
-    return quantize_mst_int8(model, calibration_volumes(
-        args.run_folder, args.int8_calib, **dataset_kw)
-        if args.int8_calib else None)
+    return quantize_mst_int8(model, int8_calibration(args, **dataset_kw))
 
 
 def build_server(args, model):
@@ -401,6 +425,10 @@ def parse_args(argv=None):
                          "activation scales on the first N volumes of the "
                          "run's val split and fold them in (0: per-token "
                          "scales)")
+    ap.add_argument("--path_root", default=None,
+                    help="the run's dataset folder: only needed for "
+                         "--int8_calib (calibration volumes come from the "
+                         "val split)")
     ap.add_argument("--num_devices", type=int, default=1)
     args = ap.parse_args(argv)
     for flag, why in _LATER.items():

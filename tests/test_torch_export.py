@@ -173,9 +173,11 @@ def test_export_saliency_programs(mode, tta, tmp_path):
 def test_export_long_saliency_programs(mode, tmp_path):
     """Saliency of 322 px slices (S = 530, above FUSED_MAX_TOKENS): the
     composed path's program, its flash forward with the LSE and each
-    block's saliency kernel nodes of the graph, as many as the live
-    forward launches on the card; its rows the live port's (1e-6) and the
-    JAX artifact's (1e-4, maps relative to their largest value)."""
+    block's saliency kernel nodes of the graph (`rollout_abnar`: each
+    block's row normaliser and one carry a block for the sweep back), as
+    many as the live forward launches on the card; its rows the live
+    port's (1e-6) and the JAX artifact's (1e-4, maps relative to their
+    largest value)."""
     tm, jm, jparams = _pair(13)
     kw = dict(batch_sizes=[2], depth=2, hw=322, with_saliency=True,
               plane_mode=mode)
@@ -196,6 +198,8 @@ def test_export_long_saliency_programs(mode, tmp_path):
            "rollout_abnar": "flash_abnar"}[mode]
     n_sal = 1 if mode == "last" else depth
     want = {"flash_fwd_lse": n_sal, out: n_sal}
+    if mode == "rollout_abnar":
+        want["flash_carry"] = depth
     if depth > n_sal:
         want["flash_fwd"] = depth - n_sal
     assert _graph_ops(art, 2) == want

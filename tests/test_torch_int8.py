@@ -22,6 +22,8 @@ the largest magnitude: a code can flip by one where the two frameworks' LN
 or GELU, summed in another order, land on the other side of a .5 tie."""
 
 import csv
+import json
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -574,3 +576,66 @@ def test_serve_int8(run_folder, capsys):
         with pytest.raises(SystemExit):
             serve.parse_args(bad)
     assert "--int8_calib" in capsys.readouterr().err
+
+
+def test_int8_calibration_reads_the_runs_fold(run_folder, tmp_path,
+                                              monkeypatch, capsys):
+    """Static calibration on a LIDC run trained on fold 1: `serve --int8
+    --int8_calib N --path_root P --run_folder R` and `export` with the same
+    flags calibrate on fold 1's val volumes, bit for bit JAX's
+    `calibration_volumes` (which reads the run's fold), not on fold 0's;
+    without --path_root both stop with JAX's usage error."""
+    import shutil
+
+    from mst_tpu.serve import calibration_volumes as jax_calibration_volumes
+    from mst_tpu_torch import export as ex
+    from mst_tpu_torch.data import fixtures
+    from mst_tpu_torch.registry import get_dataset
+    from mst_tpu_torch.utils.checkpoint import load_hparams
+
+    root = fixtures.write_lidc(tmp_path / "lidc", 6, shape_xyz=(40, 36, 12))
+    split_csv = root / "preprocessed" / "splits" / "split.csv"
+    with split_csv.open() as f:
+        header, *rows = list(csv.reader(f))
+    # fold 1: the splits shifted, so that its val cases are fold 0's train
+    shifted = rows[-2:] + rows[:-2]
+    fold1 = [r[:6] + ["1", s[7]] for r, s in zip(rows, shifted)]
+    fixtures._write_csv(split_csv, header, rows + fold1)
+    run = tmp_path / "runs" / "LIDC" / run_folder.name
+    shutil.copytree(run_folder, run)
+    for hp in run.glob("*.hparams.json"):
+        hparams = json.loads(hp.read_text())
+        hp.write_text(json.dumps(dict(hparams, dataset="LIDC", fold=1)))
+    assert load_hparams(run)["fold"] == 1
+    ref = np.asarray(jax_calibration_volumes(run, root, 3))
+    val0 = get_dataset("LIDC", "val", path_root=root)
+    fold0 = np.stack([np.asarray(val0[i]["source"]) for i in range(2)])
+    assert ref.shape == (2, 1, 32, 224, 224) and ref.dtype == np.float32
+    assert not np.array_equal(fold0, ref)
+    np.testing.assert_array_equal(serve.calibration_volumes(run, 3, root),
+                                  ref)
+
+    seen = []
+
+    def quantize(model, calib=None):
+        seen.append(calib)
+        return model
+
+    monkeypatch.setattr(tq, "quantize_mst_int8", quantize)
+    monkeypatch.setattr(ex, "save_exported",
+                        lambda out, *a, **kw: Path(out).mkdir() or Path(out))
+    flags = ["--run_folder", str(run), "--int8", "--int8_calib", "3"]
+    serve.build_model(serve.parse_args(
+        flags + ["--path_root", str(root), "--dtype", "float32"]), "cpu")
+    ex.main(flags + ["--path_root", str(root), "--out",
+                     str(tmp_path / "art")], device="cpu")
+    assert len(seen) == 2
+    for calib in seen:
+        assert calib.dtype == ref.dtype
+        np.testing.assert_array_equal(calib, ref)
+    # no root: JAX's usage error, before any volume is read
+    with pytest.raises(SystemExit, match="--int8_calib: .*--path_root"):
+        serve.build_model(serve.parse_args(flags), "cpu")
+    with pytest.raises(SystemExit, match="--int8_calib: .*--path_root"):
+        ex.main(flags + ["--out", str(tmp_path / "art2")], device="cpu")
+    assert len(seen) == 2

@@ -6,20 +6,24 @@ JAX serves it on its flax path (`_forward_with_saliency`, `return_weights`:
 probabilities). The port runs the composed path with `flash_fwd`'s LSE and
 one saliency kernel per block (`ops/attention.flash_row`, `flash_carry`,
 `flash_abnar`, csrc/flash_sal.cu), which rebuild what the plane mode needs
-without any [S, S] matrix of a head. On the CPU every wrapper takes its
-plain version, so these tests pin the plain versions the kernels are held
-to on the card (`chip_smoke.py` phase 53):
+without any [S, S] matrix of a head; `rollout_abnar` keeps each block's
+q, k, LSE and row normaliser and carries the CLS row back through the
+blocks (`abnar_rollout_row`, one `flash_carry` a block). On the CPU every
+wrapper takes its plain version, so these tests pin the plain versions the
+kernels are held to on the card (`chip_smoke.py` phase 53):
 
 - the port's probs and maps in each plane mode, with and without a
   key-padding mask, against `_forward_with_saliency(force_flax=True)` for
   a tiny ViT/14 at 322 px (S = 530) and a tiny DINOv3 (patch 16, 4
   registers, RoPE) at 368 px (S = 534); TTA against JAX `make_predict_fn`;
 - the three plain versions against `plane_attention`,
-  `attention_cls_rollout` and `attention_rollout` on JAX
-  `attention_reference` probabilities;
+  `attention_cls_rollout` and the row sums of `attention_rollout`'s
+  factors on JAX `attention_reference` probabilities, and the row carried
+  back against `attention_rollout` and the CLS row of its product;
 - the composed serving path's bits with no saliency switch, and the
   saliency forward's probs equal to it;
-- `rollout_abnar` keeping no factor past its block;
+- `rollout_abnar` returning a row, keeping no [S, S] tensor past a
+  block's call and running no [S, S] product;
 - the kernels' launch geometry (`flash_sal_launch`) against the source's
   constants at the model lengths, and the wrappers' refusals before any
   launch.
@@ -31,7 +35,6 @@ Tolerances: probs 1e-5 and maps atol 1e-5 / rtol 1e-4
 
 import math
 import re
-import weakref
 
 import jax.numpy as jnp
 import numpy as np
@@ -187,7 +190,9 @@ def test_plain_kernel_versions_match_jax_saliency(part):
     """Each plain version on the flash forward's LSE against the JAX
     reduction of `attention_reference`'s probabilities: the CLS row ->
     `plane_attention`, the carry chain -> `attention_cls_rollout`'s CLS
-    row, the Abnar factors -> `attention_rollout`."""
+    row, the row normaliser -> the row sums of `attention_rollout`'s
+    factors (head mean + I, built with jax.numpy), and the row carried
+    back through the blocks -> `attention_rollout`."""
     s = 534  # 5 prefix tokens (CLS, 4 registers) + 23 x 23 patches
     layers = _blocks({"row": 0, "carry": 1, "abnar": 2}[part], s=s)
     probs = [jax_attention(*map(jnp.asarray, qkv), return_weights=True)[1]
@@ -212,16 +217,45 @@ def test_plain_kernel_versions_match_jax_saliency(part):
         got = tsal.plane_attention_from_row(carry, n_prefix, grid)
         ref = jsal.plane_attention(chain, n_prefix, grid)
     else:
-        factors = [TA.flash_abnar(_t(q), _t(k), _port_lse(q, k, v))
-                   for q, k, v in layers]
-        for f, p in zip(factors, probs):  # rows of mean + I, normalised
-            a = np.asarray(p).mean(1) + np.eye(s, dtype=np.float32)
-            np.testing.assert_allclose(
-                f.numpy(), a / a.sum(-1, keepdims=True), **KERNEL_TOL)
-        got = tsal.attention_rollout_from_factors(factors, n_prefix)
+        states = []
+        for (q, k, v), p in zip(layers, probs):
+            lse = _port_lse(q, k, v)
+            rs = TA.flash_abnar(_t(q), _t(k), lse)
+            a = jnp.mean(p, axis=1) + jnp.eye(s, dtype=p.dtype)[None]
+            assert tuple(rs.shape) == (2, s) and rs.dtype == torch.float32
+            np.testing.assert_allclose(rs.numpy(), np.asarray(a.sum(-1)),
+                                       **KERNEL_TOL)
+            states.append((_t(q), _t(k), lse, rs))
+        got = tsal.attention_rollout_from_row(TA.abnar_rollout_row(states),
+                                              n_prefix)
         ref = jsal.attention_rollout(probs, n_prefix)
     _no_launches()
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **KERNEL_TOL)
+
+
+@pytest.mark.parametrize("n_layers", [1, 4])
+def test_abnar_rollout_row_is_the_cls_row_of_the_factors_product(n_layers):
+    """The row carried back through the blocks is the CLS row of JAX's
+    product A_{L-1} ... A_0 of the factors rownorm(mean_h p + I) before its
+    normalisation (the whole row, prefix tokens included), from one block
+    and from four."""
+    layers = _blocks(20 + n_layers, n=n_layers, s=77)
+    states, factors = [], []
+    for q, k, v in layers:
+        lse = _port_lse(q, k, v)
+        states.append((_t(q), _t(k), lse, TA.flash_abnar(_t(q), _t(k), lse)))
+        p = jax_attention(*map(jnp.asarray, (q, k, v)),
+                          return_weights=True)[1]
+        a = jnp.mean(p, axis=1) + jnp.eye(77, dtype=p.dtype)[None]
+        factors.append(a / a.sum(-1, keepdims=True))
+    product = factors[0]
+    for a in factors[1:]:
+        product = jnp.einsum("bij,bjk->bik", a, product)
+    row = TA.abnar_rollout_row(states)
+    assert tuple(row.shape) == (2, 77) and row.dtype == torch.float32
+    np.testing.assert_allclose(row.numpy(), np.asarray(product[:, 0]),
+                               **KERNEL_TOL)
+    assert abs(float(row.sum(-1).max()) - 1.0) < 1e-5  # rows of a stochastic product
 
 
 def test_flash_attention_saliency_output_is_the_serving_output():
@@ -233,10 +267,16 @@ def test_flash_attention_saliency_output_is_the_serving_output():
     carry = torch.rand(2, 2, 77, generator=torch.Generator().manual_seed(0))
     for kw, fn in ((dict(want_row=True), lambda: TA.flash_row(q, k, lse)),
                    (dict(carry=carry),
-                    lambda: TA.flash_carry(q, k, lse, carry)),
-                   (dict(abnar=True), lambda: TA.flash_abnar(q, k, lse))):
+                    lambda: TA.flash_carry(q, k, lse, carry))):
         o2, extra = TA.flash_attention_saliency(q, k, v, **kw)
         assert torch.equal(o2, o) and torch.equal(extra, fn())
+    # the Abnar form: the block's state for the sweep back, q and k as
+    # contiguous copies (no view of a packed qkv keeps it alive)
+    o2, (q2, k2, lse2, rs) = TA.flash_attention_saliency(q, k, v, abnar=True)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)
+    assert torch.equal(q2, q) and torch.equal(k2, k)
+    assert q2.is_contiguous() and k2.is_contiguous()
+    assert torch.equal(rs, TA.flash_abnar(q, k, lse))
     with pytest.raises(ValueError, match="one of"):
         TA.flash_attention_saliency(q, k, v, want_row=True, abnar=True)
     with pytest.raises(ValueError, match="one of"):
@@ -280,29 +320,63 @@ def test_composed_serving_bits_unchanged_without_a_switch(name):
 
 
 def test_rollout_abnar_keeps_no_factor_past_its_block(monkeypatch):
-    """`forward_saliency("rollout_abnar")` chains each factor into the
-    running product as it comes: when a block's factor is made, no earlier
-    factor is alive but block 0's, which is the product until block 1
-    multiplies it (JAX's flax path holds every block's probabilities). A
-    tiny encoder of 4 blocks."""
+    """`forward_saliency("rollout_abnar")` returns the CLS row [N, S] of
+    the factors' product, keeps no [S, S] tensor past a block's call (the
+    plain versions build one head's [N, S, S] probabilities inside a call
+    on the CPU) and runs no product of two [S, S] operands (the chain of
+    factors is gone); one row normaliser a block, one carry a block. A tiny
+    encoder of 4 blocks at 322 px (S = 530)."""
+    import gc
+
     monkeypatch.setitem(vit_mod._VIT_CONFIGS, "tiny",
                         dict(vit_mod._VIT_CONFIGS["tiny"], depth=4))
     tm, _, _ = _models(TINY, 9)
     assert tm.encoder.depth == 4
     vols, _ = _volumes(PX, seed=10, b=1, d=1)
-    made, alive_at_call = [], []
-    real = TA.SAL_KERNELS.abnar
+    src = _t(vols)
+    h, rc, rs = prepare_vit_tokens(tm.encoder, slices_nhwc(src),
+                                   FastViTConfig.from_model(tm), torch.float32)
+    s = h.shape[1]
+    assert s == 530
 
-    def tracked(*a, **kw):
-        alive_at_call.append(sum(r() is not None for r in made))
-        out = real(*a, **kw)
-        made.append(weakref.ref(out))
+    def square(t):
+        return t.dim() >= 2 and tuple(t.shape[-2:]) == (s, s)
+
+    alive, products, calls = [], [], {"abnar": 0, "carry": 0}
+    real_block = vit_mod.Block.forward_composed
+
+    def block(self, *a, **kw):
+        out = real_block(self, *a, **kw)
+        gc.collect()
+        alive.append(sum(1 for o in gc.get_objects()
+                         if issubclass(type(o), torch.Tensor) and square(o)))
         return out
 
-    monkeypatch.setattr(TA.SAL_KERNELS, "abnar", tracked)
+    real_matmul = torch.matmul
+
+    def matmul(x, y, *a, **kw):
+        products.append(square(x) and square(y))
+        return real_matmul(x, y, *a, **kw)
+
+    for part in calls:
+        real = getattr(TA.SAL_KERNELS, part)
+
+        def counted(*a, _real=real, _part=part, **kw):
+            calls[_part] += 1
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(TA.SAL_KERNELS, part, counted)
+    monkeypatch.setattr(vit_mod.Block, "forward_composed", block)
+    monkeypatch.setattr(torch, "matmul", matmul)
     with torch.inference_mode():
-        fused_mst_saliency(tm, _t(vols), plane_mode="rollout_abnar")
-    assert alive_at_call == [0, 1, 0, 0]
+        cls, row = tm.encoder.forward_saliency(h, rc, rs, "rollout_abnar")
+    monkeypatch.undo()
+    assert tuple(row.shape) == (1, s) and row.dtype == torch.float32
+    assert alive == [0, 0, 0, 0]
+    assert products and not any(products)
+    assert calls == {"abnar": 4, "carry": 4}
+    with torch.inference_mode():
+        assert torch.equal(cls, tm.encoder(h, rc, rs))
 
 
 # -- the kernels' geometry and refusals ---------------------------------------
@@ -313,79 +387,95 @@ SMEM_LIMIT = 232_448  # dynamic shared memory of one H100 block
 
 
 def _constants():
-    """The `constexpr` ints of csrc/flash_sal.cu, evaluated in order."""
-    text = re.sub(r"//[^\n]*", "", (_build.CSRC / "flash_sal.cu").read_text())
+    """The `constexpr` ints of csrc/flash_sal.cu, evaluated in order after
+    those of the headers it builds on (attn_sm90.cuh, flash_sm90.cuh)."""
     env = {}
-    for key, expr in re.findall(r"constexpr\s+int\s+(\w+)\s*=\s*([^;]+);",
-                                text):
-        env[key] = eval(expr.replace("/", "//"), {}, dict(env))  # noqa: S307
+    for name in ("attn_sm90.cuh", "flash_sm90.cuh", "flash_sal.cu"):
+        text = re.sub(r"//[^\n]*", "", (_build.CSRC / name).read_text())
+        for key, expr in re.findall(
+                r"constexpr\s+int\s+(\w+)\s*=\s*([^;]+);", text):
+            env[key] = eval(expr.replace("/", "//"), {}, dict(env))  # noqa: S307
     return env, text
 
 
 def test_sal_geometry_mirrors_the_source():
     c, text = _constants()
-    assert (c["SAL_TILE"], c["SAL_THREADS"]) == (TA.SAL_TILE, TA.SAL_THREADS)
-    assert c["SAL_HD"] == TA.HEAD_DIM and c["SAL_TILE_BYTES"] == 8192
-    assert c["SAL_CARRY_SMEM"] == TA.flash_sal_launch(1, 1, 1, "row").smem
-    assert ("return size_t(H) * SAL_TILE_BYTES + 2 * SAL_TILE_BYTES + "
-            "size_t(H) * SAL_TILE * 4;") in text
-    assert TA.flash_sal_launch(1, TA.SAL_MAX_HEADS, 1, "abnar").smem \
-        <= SMEM_LIMIT < TA.flash_sal_launch(1, TA.SAL_MAX_HEADS + 1, 1,
-                                            "abnar").smem
-    assert TA.SAL_MAX_HEADS >= 24  # giant2
-    # the kernels: mma.sync on ldmatrix fragments, cp.async, no float
-    # atomics (the same bits on every run); the ROW form one query tile
-    assert "mma_16816" in text and "ldmatrix" in text and "cp_async16" in text
-    assert "atomicAdd" not in text
-    assert "const int nq = ROW ? 1 : T;" in text
-    assert "qi < a.S ? lse[qi] : SAL_LSE_PAD" in text
-    # the Abnar rule of `mhsa_abnar`: heads summed in order, times 1 / H,
-    # plus I, divided by the row's sum
-    assert "__fadd_rn(__fmul_rn(ab[4 * nb + e], a.inv_h)" in text
-    assert "__fdiv_rn(v, e & 2 ? rs1 : rs0)" in text
+    assert (c["CARRY_N"], c["ABNAR_N"], c["SAL_STAGES"]) == (
+        TA.SAL_CARRY_ROWS, TA.SAL_ABNAR_ROWS, TA.SAL_STAGES)
+    assert c["SAL_BARS"] == 4 + 2 * TA.SAL_STAGES
+    assert c["BOX"] == TA.FLASH_BOX and c["THREADS"] == TA.FLASH_THREADS
+    assert TA.flash_sal_launch(1, 24, 1, "row", 132).smem <= SMEM_LIMIT
+    assert TA.flash_sal_launch(1, 24, 1, "abnar", 132).smem <= SMEM_LIMIT
+    # the flash kernels' blocks: persistent, TMA boxes through mbarrier
+    # rings, wgmma scores (m64n64k16 / m64n128k16 a stage), no mma.sync or
+    # float atomics (the same bits on every run); the ROW form one stage
+    assert '#include "flash_sm90.cuh"' in text
+    assert "tma_load_4d" in text and "wgmma_m64n128k16" in text
+    assert "cp_async_arrive" in text and "reg_alloc<CONSUMER_REGS>" in text
+    for gone in ("mma_16816", "ldmatrix", "cp_async16", "atomicAdd"):
+        assert gone not in text, gone
+    assert "nq = ROW ? 1 : sal_stages(a.S, CARRY_N)" in text
+    assert ("cp_async4(v + vec_at(32 * e + lane), lse + (in ? q : 0), "
+            "in ? 4 : 0);") in text
+    # the Abnar row normaliser: the row sums, the heads in order, times 1 /
+    # H, plus 1; no factor is written
+    assert "hs0 += quad_sum(p0);" in text
+    assert "__fadd_rn(__fmul_rn(hs0, a.inv_h), 1.0f)" in text
     assert "mst_flash_sal_geometry" in text
 
 
 @pytest.mark.parametrize("heads", SAL_HEADS)
 @pytest.mark.parametrize("s", SAL_LENGTHS)
 def test_sal_units_cover_every_key_and_row_once(s, heads):
-    b = 3
+    """Each unit's rows (the carry's keys, the row normaliser's queries)
+    and the ring stages it streams (the other operand's rows) cover every
+    row of S once; the grid is one block an SM or one a unit."""
+    b, sms = 3, 132
     for part in TA.SAL_PARTS:
-        g = TA.flash_sal_launch(b, heads, s, part)
-        assert g.tiles == -(-s // 64) and g.threads == 128
-        owners = torch.zeros(b, heads, g.tiles * 64, dtype=torch.int32)
+        g = TA.flash_sal_launch(b, heads, s, part, sms)
+        assert (g.rows, g.box, g.threads) == (128, 64, 384)
+        assert g.tiles == -(-s // 128) and g.grid == min(g.units, sms)
+        # a unit: 128 rows, 64 a consumer warpgroup
+        owners = torch.zeros(b, heads, g.tiles * 128, dtype=torch.int32)
         if part == "abnar":  # a unit: query tile (fastest), slice
-            assert g.blocks == g.tiles * b and g.walks == 2 * g.tiles * heads
-            for u in range(g.blocks):
+            assert g.units == g.tiles * b
+            for u in range(g.units):
                 tile, sl = u % g.tiles, u // g.tiles
-                owners[sl, :, tile * 64:tile * 64 + 64] += 1
-            # every (key tile, head) step twice: the rows' sums, the values
-            steps = [(i % (g.tiles * heads) // heads, i % heads)
-                     for i in range(g.walks)]
-            assert sorted(steps) == sorted(
-                [(j, h) for j in range(g.tiles) for h in range(heads)] * 2)
-            assert g.smem == heads * (8192 + 256) + 2 * 8192
+                owners[sl, :, tile * 128:tile * 128 + 128] += 1
+            per_head = g.walks // heads
+            assert g.walks == heads * per_head
         else:  # a unit: key tile (fastest), head, slice
-            assert g.blocks == g.tiles * heads * b
-            assert g.walks == (1 if part == "row" else g.tiles)
-            for u in range(g.blocks):
+            assert g.units == g.tiles * heads * b
+            for u in range(g.units):
                 bh, tile = divmod(u, g.tiles)
-                owners[bh // heads, bh % heads, tile * 64:tile * 64 + 64] += 1
-            assert g.smem == 3 * 8192 + 2 * 128 * 4
+                owners[bh // heads, bh % heads, tile * 128:tile * 128 + 128] += 1
+            per_head = g.walks
         assert bool((owners[..., :s] == 1).all())
-        # each warp's 16 rows start below the tile's end; the last tile
-        # holds at least one row
-        assert s - (g.tiles - 1) * 64 >= 1
+        # the stages a unit streams (64 queries, or 128 keys, each), the
+        # last one holding a row of S; the ROW form the first stage (query
+        # 0) alone
+        rows = 128 if part == "abnar" else 64
+        if part == "row":
+            assert per_head == 1
+        else:
+            assert (per_head - 1) * rows < s <= per_head * rows
+        # every consumer's first row lies in the tile; the last tile holds
+        # a row of S
+        assert s - (g.tiles - 1) * 128 >= 1
 
 
 def test_sal_model_lengths():
-    """518 px ViT-S/14 (S = 1370): 22 tiles, the last one 26 rows; DINOv3
-    at 512 px (1029): 17 tiles; at B=8 (256 slices, 6 heads) the carry
-    runs 33,792 blocks, the Abnar kernel 5,632 of 65,536 bytes."""
-    assert TA.flash_sal_launch(256, 6, 1370, "carry").blocks == 33_792
-    g = TA.flash_sal_launch(256, 6, 1370, "abnar")
-    assert (g.tiles, g.blocks, g.smem) == (22, 5_632, 67_072)
-    assert TA.flash_sal_launch(1, 6, 1029, "row").tiles == 17
+    """518 px ViT-S/14 (S = 1370): 11 units of 128 rows, the last one 90
+    rows; DINOv3 at 512 px (1029): 9; at B=8 (256 slices, 6 heads) the
+    carry walks 16,896 units of 22 stages, the row normaliser 2,816 of 66,
+    each on a persistent grid of one block an SM."""
+    g = TA.flash_sal_launch(256, 6, 1370, "carry", 132)
+    assert (g.tiles, g.units, g.walks, g.grid) == (11, 16_896, 22, 132)
+    assert g.smem == 1024 + 32_768 + 65_536 + 4_096 + 160
+    g = TA.flash_sal_launch(256, 6, 1370, "abnar", 132)
+    assert (g.tiles, g.units, g.walks) == (11, 2_816, 66)
+    assert g.smem == 1024 + 32_768 + 131_072 + 160
+    assert TA.flash_sal_launch(1, 6, 1029, "row", 132).tiles == 9
 
 
 def _no_library():
@@ -436,9 +526,13 @@ def test_sal_wrappers_refuse_bad_vectors_and_heads(monkeypatch):
                        .transpose(1, 2))
     with pytest.raises(ValueError, match="sm_scale > 0"):
         TA.flash_carry(q, k, lse, carry, sm_scale=-1.0)
-    q, k, lse, _ = _operands(heads=TA.SAL_MAX_HEADS + 1)
-    with pytest.raises(ValueError, match="at most 25 heads"):
-        TA.flash_abnar(q, k, lse)
+    # no head limit (the heads stream through the ring), but the units and
+    # the [B, H, S] rows stay within int32
+    big = torch.zeros(1, 1, 1, 64, dtype=torch.bfloat16).expand(
+        2**12, 2**10, 2**9, 64)
+    rows = torch.zeros(1, 1, 1).expand(2**12, 2**10, 2**9)
+    with pytest.raises(ValueError, match="grid too large"):
+        TA.flash_abnar(big, big, rows)
 
 
 def test_sal_wrappers_accept_kernel_operands(monkeypatch):
